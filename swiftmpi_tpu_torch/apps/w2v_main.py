@@ -1,0 +1,61 @@
+"""word2vec CLI of the port, flag-compatible with the JAX package's
+``apps/w2v_main.py`` and the reference mains (``-config <conf> -data
+<corpus> -niters N -output <path>``), plus ``-device cuda|cpu`` (default:
+the CUDA device; the CPU only when asked for).  Only the sync variant is
+ported: ``-variant async|hogwild`` and ``-checkpoint`` raise.
+
+    python -m swiftmpi_tpu_torch.apps.w2v_main -config demo.conf \\
+        -data corpus.txt -niters 1 -output vectors.txt
+"""
+
+from __future__ import annotations
+
+import sys
+
+from swiftmpi_tpu_torch.data.text import load_corpus
+from swiftmpi_tpu_torch.models.word2vec import Word2Vec
+from swiftmpi_tpu_torch.utils import CMDLine, global_config
+from swiftmpi_tpu_torch.utils.logger import get_logger
+
+log = get_logger("apps.w2v")
+
+
+def main(argv=None) -> int:
+    cmd = CMDLine(argv)
+    cmd.registerParameter("help", "this screen")
+    cmd.registerParameter("config", "path of config file")
+    cmd.registerParameter("data", "path of dataset")
+    cmd.registerParameter("niters", "number of iterations")
+    cmd.registerParameter("output", "path to output the embeddings")
+    cmd.registerParameter("variant", "sync (int keys); async and hogwild "
+                          "are not ported yet")
+    cmd.registerParameter("device", "cuda (default) | cpu")
+    if cmd.hasParameter("help") or not cmd.hasParameter("data"):
+        cmd.print_help()
+        return 0
+    if cmd.hasParameter("config"):
+        global_config().load_conf(cmd.getValue("config")).parse()
+    variant = cmd.getValue("variant", "sync")
+    if variant != "sync":
+        raise NotImplementedError(
+            f"-variant {variant} is not ported yet (ROADMAP A8); only sync")
+    if cmd.hasParameter("checkpoint"):
+        raise NotImplementedError(
+            "-checkpoint is not ported yet (ROADMAP A9)")
+
+    device = cmd.getValue("device", "") or None
+    model = Word2Vec(device=device)
+    niters = int(cmd.getValue("niters", "1"))
+    corpus = load_corpus(cmd.getValue("data"),
+                         min_sentence_length=model.min_sentence_length)
+    model.build(corpus)
+    losses = model.train(corpus, niters=niters)
+    log.info("final error: %.5f", losses[-1])
+    if cmd.hasParameter("output"):
+        n = model.save(cmd.getValue("output"))
+        log.info("wrote %d embeddings -> %s", n, cmd.getValue("output"))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

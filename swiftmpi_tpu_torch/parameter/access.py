@@ -1,0 +1,142 @@
+"""Pull/push access methods (counterpart of
+``swiftmpi_tpu/parameter/access.py``).
+
+An access method bundles the table schema (parameter and optimizer
+fields), the initial-value distribution of each field, the fields a pull
+returns, and the update rule ``apply_push``.  Where the JAX rule is a pure
+function returning new arrays, the port updates the row tensors it is
+handed **in place** — the counterpart of the JAX step donating its table
+state — and returns the updated fields.
+
+Sign convention as in the reference: gradients are pushed in the ascent
+direction and the update adds.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Tuple
+
+import torch
+
+from swiftmpi_tpu_torch.kernels.adagrad import adagrad_update_
+
+Initializer = Callable[[torch.Generator, Tuple[int, ...], torch.device],
+                       torch.Tensor]
+
+
+def zeros_init(generator: torch.Generator, shape: Tuple[int, ...],
+               device: torch.device) -> torch.Tensor:
+    return torch.zeros(shape, dtype=torch.float32, device=device)
+
+
+def vec_rand_init(generator: torch.Generator, shape: Tuple[int, ...],
+                  device: torch.device) -> torch.Tensor:
+    """(U(0,1) - 0.5) / dim — the reference ``Vec::randInit`` embedding
+    init (vec1.h:229-232)."""
+    dim = shape[-1]
+    return (torch.rand(shape, generator=generator, device=device)
+            - 0.5) / dim
+
+
+@dataclass(frozen=True)
+class FieldSpec:
+    dim: int
+    init: Initializer = zeros_init
+    dtype: torch.dtype = torch.float32
+
+
+class AccessMethod:
+    """Base: schema + init + pull view + push rule."""
+
+    #: name -> FieldSpec; the full server-side row (params + optimizer state)
+    fields: Dict[str, FieldSpec] = {}
+    #: subset of ``fields`` a pull returns (worker-visible view)
+    pull_fields: Tuple[str, ...] = ()
+    #: gradient entries a push must provide
+    grad_fields: Tuple[str, ...] = ()
+
+    def apply_push(self, params: Dict[str, torch.Tensor],
+                   grads: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+        """Update ``params`` rows in place from ``grads`` (which may carry
+        a subset of ``grad_fields``; absent rules are skipped) and return
+        the updated fields."""
+        raise NotImplementedError
+
+    def touched_fields(self, grad_fields) -> Tuple[str, ...]:
+        """Fields ``apply_push`` reads or writes for these grad entries."""
+        return tuple(self.fields)
+
+
+@dataclass
+class AdaGradRule:
+    """One (param, accumulator, grad) triple updated AdaGrad-style."""
+    param: str
+    accum: str
+    grad: str
+
+
+class AdaGradAccess(AccessMethod):
+    """Server-side AdaGrad, the reference's only optimizer.
+
+    Per element (word2vec.h:177-185, fudge_factor 1e-6):
+        accum += g^2
+        param += lr * g / sqrt(accum + fudge)      # accum already updated
+
+    Executed by the CUDA kernel ``kernels/adagrad.py`` on the card (the
+    port of ``PallasAdaGradAccess``) and by its plain version on the CPU.
+    """
+
+    def __init__(self, learning_rate: float,
+                 rules: Tuple[AdaGradRule, ...],
+                 fields: Dict[str, FieldSpec],
+                 pull_fields: Tuple[str, ...],
+                 fudge_factor: float = 1e-6):
+        self.learning_rate = float(learning_rate)
+        self.rules = tuple(rules)
+        self.fields = dict(fields)
+        self.pull_fields = tuple(pull_fields)
+        self.grad_fields = tuple(r.grad for r in self.rules)
+        self.fudge_factor = float(fudge_factor)
+        for r in self.rules:
+            if r.param not in self.fields or r.accum not in self.fields:
+                raise ValueError(f"rule {r} references unknown field")
+
+    def apply_push(self, params, grads):
+        out = {}
+        for r in self.rules:
+            if r.grad not in grads:
+                continue
+            # in place: params[r.param] and params[r.accum] are the table's
+            # own tensors (dense push) or gathered row copies (sparse push)
+            adagrad_update_(params[r.param], params[r.accum],
+                            grads[r.grad].contiguous(), self.learning_rate,
+                            self.fudge_factor)
+            out[r.param] = params[r.param]
+            out[r.accum] = params[r.accum]
+        return out
+
+    def touched_fields(self, grad_fields):
+        gf = set(grad_fields)
+        out = []
+        for r in self.rules:
+            if r.grad in gf:
+                out += [r.param, r.accum]
+        return tuple(out)
+
+
+def w2v_access(learning_rate: float, len_vec: int) -> AdaGradAccess:
+    """word2vec row: h,v embeddings + per-element AdaGrad sums
+    (reference WParam, word2vec.h:32-46,167-191).  float32 only; bf16
+    embedding fields are not ported yet."""
+    return AdaGradAccess(
+        learning_rate,
+        rules=(AdaGradRule("h", "h2sum", "h"),
+               AdaGradRule("v", "v2sum", "v")),
+        fields={"h": FieldSpec(len_vec, vec_rand_init),
+                "v": FieldSpec(len_vec, vec_rand_init),
+                "h2sum": FieldSpec(len_vec, zeros_init),
+                "v2sum": FieldSpec(len_vec, zeros_init)},
+        pull_fields=("h", "v"),
+    )

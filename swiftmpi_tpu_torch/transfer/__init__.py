@@ -1,0 +1,7 @@
+"""Transfer layer of the port: pull/push between workers and the table."""
+
+from swiftmpi_tpu_torch.transfer.api import (PushSpec, Transfer,
+                                             get_transfer)
+from swiftmpi_tpu_torch.transfer.single import SingleTransfer
+
+__all__ = ["PushSpec", "SingleTransfer", "Transfer", "get_transfer"]

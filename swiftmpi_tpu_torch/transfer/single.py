@@ -1,0 +1,114 @@
+"""Single-device transfer backend (counterpart of
+``swiftmpi_tpu/transfer/xla.py``; keeps ``name = "xla"`` so
+``[cluster] transfer: xla`` selects it).
+
+* ``pull`` is the masked row gather kernel (``kernels/gather.py``).
+* the dense push scatters the whole batch into a capacity-shaped
+  accumulator with the scatter-add kernel (``kernels/scatter.py``) — for
+  ``mean=True`` over one float32 family the per-slot counts ride along as
+  one extra column — divides by the counts, and runs the AdaGrad kernel
+  (``kernels/adagrad.py``) over the whole table.  Untouched rows see zero
+  gradient and are exact no-ops.
+* the sparse push sorts the batch so duplicates are adjacent,
+  segment-sums them, gathers the one representative row per segment,
+  applies the rule to those rows and writes them back.  Like the JAX
+  package, which leaves this path to XLA, it stays in torch index ops;
+  the apply is the AdaGrad kernel on the gathered rows.
+
+Both pushes update the table tensors in place.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from swiftmpi_tpu_torch.kernels.gather import masked_gather
+from swiftmpi_tpu_torch.kernels.scatter import masked_scatter_add
+from swiftmpi_tpu_torch.transfer.api import Transfer
+
+
+class SingleTransfer(Transfer):
+    name = "xla"
+
+    def _prim_pull(self, state, slots, fields):
+        valid = slots >= 0
+        return {f: masked_gather(state[f], slots, valid) for f in fields}
+
+    def _push_dense(self, state, slots, grads, access, mean=False):
+        capacity = next(iter(state.values())).shape[0]
+        valid = slots >= 0
+        n = slots.shape[0]
+        gs = list(grads.values())
+        # one float32 family: fold the contribution counts into the grads
+        # scatter as one extra column — one scatter pass instead of two
+        fuse_count = mean and len(gs) == 1 and gs[0].dtype == torch.float32
+        inv = None
+        if mean and not fuse_count:
+            ones = torch.ones((n, 1), dtype=torch.float32,
+                              device=slots.device)
+            counts = masked_scatter_add(slots, valid, ones, capacity)
+            inv = 1.0 / counts.clamp(min=1.0)
+        dense_grads = {}
+        for f, g in grads.items():
+            width = state[f].shape[1]
+            if fuse_count:
+                g1 = torch.cat([g, torch.ones((n, 1), dtype=g.dtype,
+                                              device=g.device)], dim=1)
+                acc = masked_scatter_add(slots, valid, g1, capacity)
+                dense_grads[f] = acc[:, :width] / acc[:, width:].clamp(
+                    min=1.0)
+            else:
+                acc = masked_scatter_add(slots, valid, g.contiguous(),
+                                         capacity)
+                dense_grads[f] = acc * inv if mean else acc
+        # in place over the whole table (JAX: donated state)
+        access.apply_push(state, dense_grads)
+        return state
+
+    def _push_sparse(self, state, slots, grads, access, mean=False):
+        capacity = next(iter(state.values())).shape[0]
+        B = slots.shape[0]
+        if B == 0:
+            return state
+        valid = slots >= 0
+        # sort so duplicates are adjacent; padding (-1 -> capacity) sorts
+        # last into at most one trailing segment
+        sort_keys = torch.where(valid, slots, capacity)
+        sorted_slots, order = torch.sort(sort_keys, stable=True)
+        new_seg = torch.ones(B, dtype=torch.int64, device=slots.device)
+        new_seg[1:] = (sorted_slots[1:] != sorted_slots[:-1]).long()
+        seg_ids = torch.cumsum(new_seg, 0) - 1
+        # the one host read of the push: how many segments hold a real slot
+        n_seg, last = torch.stack(
+            [seg_ids[-1] + 1, sorted_slots[-1].long()]).tolist()
+        n_real = n_seg - int(last == capacity)
+        if n_real == 0:
+            return state
+        # one representative slot per segment (every writer of a segment
+        # writes the same value)
+        rep_slots = torch.empty(B, dtype=torch.int64, device=slots.device)
+        rep_slots.scatter_(0, seg_ids, sorted_slots.long())
+        rep = rep_slots[:n_real]
+
+        inv = None
+        if mean:
+            seg_counts = torch.zeros(B, dtype=torch.float32,
+                                     device=slots.device)
+            seg_counts.index_add_(0, seg_ids, valid[order].float())
+            inv = (1.0 / seg_counts.clamp(min=1.0))[:, None]
+        combined = {}
+        for f, g in grads.items():
+            acc = torch.zeros((B, g.shape[1]), dtype=g.dtype,
+                              device=g.device)
+            acc.index_add_(0, seg_ids, g[order])
+            combined[f] = (acc * inv if mean else acc)[:n_real]
+
+        # only the fields this push's families update are gathered
+        touched = access.touched_fields(grads)
+        current = {f: state[f].index_select(0, rep) for f in touched}
+        # in place on the gathered row copies, then written back: the
+        # representatives are distinct slots, so this is a plain row write
+        updated = access.apply_push(current, combined)
+        for f, rows in updated.items():
+            state[f].index_copy_(0, rep, rows)
+        return state

@@ -1,0 +1,236 @@
+"""The port's kernel modules (swiftmpi_tpu_torch/kernels) against the JAX
+package's Pallas kernels and the jnp rules beside them.
+
+On the CPU every wrapper runs its plain PyTorch version, so these tests
+hold the plain versions against
+
+* the Pallas kernels in interpret mode (``adagrad_update``,
+  ``vmem_gather(method="loop")`` through ``masked_vmem_gather``,
+  ``vmem_scatter_add`` through ``masked_vmem_scatter_add``), and
+* the jnp rules the JAX default path runs (``AdaGradAccess.apply_push``,
+  ``transfer/xla.py::_masked_gather``, the ``.at[].add`` scatter of
+  ``_push_dense``),
+
+on the same numpy inputs.  The CUDA kernels themselves run only on the
+card: ``test_torch_cuda.py`` compares each with its plain version there.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from swiftmpi_tpu.ops import pallas_gather
+from swiftmpi_tpu.ops.pallas_kernels import adagrad_update as pallas_adagrad
+from swiftmpi_tpu.ops.pallas_scatter import masked_vmem_scatter_add
+from swiftmpi_tpu.parameter.access import w2v_access as jax_w2v_access
+from swiftmpi_tpu.transfer.xla import _masked_gather
+from swiftmpi_tpu_torch import kernels
+from swiftmpi_tpu_torch.kernels import adagrad, build, gather, scatter
+
+CAP, D, N = 300, 16, 512
+
+
+def _slots(rng, n=N, cap=CAP, invalid=0.05, oob=4):
+    """int32 slots with ~5% invalid entries (-1) and ``oob`` valid entries
+    out of range on either side."""
+    slots = rng.integers(0, cap, n).astype(np.int32)
+    valid = rng.random(n) >= invalid
+    slots[~valid] = -1
+    pos = rng.choice(np.flatnonzero(valid), oob, replace=False)
+    slots[pos[: oob // 2]] = cap + 7
+    slots[pos[oob // 2:]] = -3
+    valid[pos[oob // 2:]] = True
+    return slots, valid
+
+
+# -- B1: AdaGrad -------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(CAP, D), (7, 3), (513,)])
+def test_adagrad_plain_matches_pallas_and_rule(shape):
+    """rtol 1e-6: float32 rsqrt on each side (XLA's and PyTorch's CPU
+    rsqrt differ in the last bit at most)."""
+    rng = np.random.default_rng(1)
+    p = rng.normal(size=shape).astype(np.float32)
+    a = np.abs(rng.normal(size=shape)).astype(np.float32)
+    g = rng.normal(size=shape).astype(np.float32)
+    lr = 0.7
+    po, ao = pallas_adagrad(jnp.asarray(p), jnp.asarray(a), jnp.asarray(g),
+                            lr=lr, interpret=True, block_rows=8)
+    rule = jax_w2v_access(lr, shape[-1]).apply_push(
+        {"h": jnp.asarray(p), "h2sum": jnp.asarray(a)}, {"h": jnp.asarray(g)})
+
+    tp, ta = torch.from_numpy(p.copy()), torch.from_numpy(a.copy())
+    out_p, out_a = adagrad.adagrad_update_(tp, ta, torch.from_numpy(g), lr)
+    assert out_p is tp and out_a is ta           # updated in place
+    for want_p, want_a in ((po, ao), (rule["h"], rule["h2sum"])):
+        np.testing.assert_allclose(ta.numpy(), np.asarray(want_a),
+                                   rtol=1e-6, atol=0)
+        np.testing.assert_allclose(tp.numpy(), np.asarray(want_p),
+                                   rtol=1e-6, atol=1e-7)
+
+
+def test_adagrad_access_matches_jax_access():
+    """The port's AdaGradAccess.apply_push (in place, through the kernel
+    module) == the JAX AdaGradAccess rule, rtol 1e-6."""
+    from swiftmpi_tpu_torch.parameter.access import w2v_access
+    rng = np.random.default_rng(2)
+    params = {f: rng.normal(size=(32, D)).astype(np.float32)
+              for f in ("h", "v", "h2sum", "v2sum")}
+    params["h2sum"] = np.abs(params["h2sum"])
+    params["v2sum"] = np.abs(params["v2sum"])
+    grads = {"v": rng.normal(size=(32, D)).astype(np.float32)}
+    want = jax_w2v_access(0.3, D).apply_push(
+        {f: jnp.asarray(x) for f, x in params.items()},
+        {f: jnp.asarray(x) for f, x in grads.items()})
+    tparams = {f: torch.from_numpy(x.copy()) for f, x in params.items()}
+    got = w2v_access(0.3, D).apply_push(
+        tparams, {f: torch.from_numpy(x) for f, x in grads.items()})
+    assert set(got) == set(want) == {"v", "v2sum"}
+    for f in want:
+        assert got[f] is tparams[f]
+        np.testing.assert_allclose(got[f].numpy(), np.asarray(want[f]),
+                                   rtol=1e-6, atol=1e-7)
+    # the h family was not pushed: untouched
+    np.testing.assert_array_equal(tparams["h"].numpy(), params["h"])
+
+
+# -- B2: masked gather ---------------------------------------------------------
+
+def test_gather_plain_matches_pallas_loop_and_xla(monkeypatch):
+    """Exact: a gather moves bits.  Covers invalid (-1) slots, which give
+    zero rows, and valid out-of-range slots, which clip."""
+    rng = np.random.default_rng(3)
+    table = rng.normal(size=(CAP, D)).astype(np.float32)
+    slots, valid = _slots(rng)
+    monkeypatch.setattr(pallas_gather, "gather_method", lambda: "loop")
+    monkeypatch.setattr(pallas_gather, "gather_idx_block", lambda: 128)
+    want_pallas = np.asarray(pallas_gather.masked_vmem_gather(
+        jnp.asarray(table), jnp.asarray(slots), jnp.asarray(valid)))
+    want_xla = np.asarray(_masked_gather(
+        jnp.asarray(table), jnp.asarray(slots), jnp.asarray(valid)))
+    got = gather.masked_gather(torch.from_numpy(table),
+                               torch.from_numpy(slots),
+                               torch.from_numpy(valid)).numpy()
+    np.testing.assert_array_equal(got, want_pallas)
+    np.testing.assert_array_equal(got, want_xla)
+    assert not got[~valid].any()
+    assert got.shape == (N, D)
+
+
+# -- B3: masked scatter-add ----------------------------------------------------
+
+@pytest.mark.parametrize("width", [D + 1, 3])
+def test_scatter_plain_matches_pallas_and_xla(width):
+    """atol 1e-6: the three sum duplicates in different orders.  W = d+1
+    is the dense push's fused count column; invalid and out-of-range
+    rows land in the dump row and never reach the result."""
+    rng = np.random.default_rng(4)
+    slots, valid = _slots(rng)
+    # Zipf-duplicated slots: the word2vec push's shape
+    hot = rng.zipf(1.3, N) % CAP
+    slots = np.where(valid & (slots >= 0) & (slots < CAP), hot,
+                     slots).astype(np.int32)
+    g = rng.normal(size=(N, width)).astype(np.float32)
+    want_pallas = np.asarray(masked_vmem_scatter_add(
+        jnp.asarray(slots), jnp.asarray(valid), jnp.asarray(g), CAP))
+    got = scatter.masked_scatter_add(torch.from_numpy(slots),
+                                     torch.from_numpy(valid),
+                                     torch.from_numpy(g), CAP).numpy()
+    assert got.shape == (CAP, width)
+    np.testing.assert_allclose(got, want_pallas, atol=1e-6, rtol=0)
+
+    # _push_dense's jnp scatter routes padding (-1) out of bounds, where
+    # it drops; a push never carries a valid out-of-range slot (jnp would
+    # wrap a negative one), so that rule is held on the in-range rows
+    ok = valid & (slots >= 0) & (slots < CAP)
+    in_range = np.where(ok, slots, -1).astype(np.int32)
+    safe = jnp.where(jnp.asarray(ok), jnp.asarray(in_range), CAP)
+    want_xla = np.asarray(jnp.zeros((CAP, width), jnp.float32).at[safe].add(
+        jnp.asarray(g), mode="drop"))
+    got_in = scatter.masked_scatter_add(torch.from_numpy(in_range),
+                                        torch.from_numpy(ok),
+                                        torch.from_numpy(g), CAP).numpy()
+    np.testing.assert_allclose(got_in, want_xla, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(got, got_in, atol=1e-6, rtol=0)
+    counts = np.bincount(slots[ok], minlength=CAP)
+    if width == D + 1:
+        g1 = g.copy()
+        g1[:, -1] = 1.0
+        got1 = scatter.masked_scatter_add(torch.from_numpy(slots),
+                                          torch.from_numpy(valid),
+                                          torch.from_numpy(g1), CAP).numpy()
+        np.testing.assert_array_equal(got1[:, -1], counts)
+
+
+# -- dispatch ------------------------------------------------------------------
+
+def _forbid_build(monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("kernels.build reached for a CPU tensor")
+    for name in ("build_all", "library", "function"):
+        monkeypatch.setattr(build, name, boom)
+
+
+@pytest.mark.parametrize("kernel", ["gather", "scatter", "adagrad"])
+def test_dispatch_takes_plain_path_on_cpu(monkeypatch, kernel):
+    """A CPU tensor runs the plain version: no build, no launch count."""
+    _forbid_build(monkeypatch)
+    kernels.reset_launches()
+    rng = np.random.default_rng(5)
+    slots, valid = _slots(rng, n=64)
+    ts, tv = torch.from_numpy(slots), torch.from_numpy(valid)
+    if kernel == "gather":
+        t = torch.from_numpy(rng.normal(size=(CAP, D)).astype(np.float32))
+        torch.testing.assert_close(gather.masked_gather(t, ts, tv),
+                                   gather.masked_gather_plain(t, ts, tv),
+                                   rtol=0, atol=0)
+    elif kernel == "scatter":
+        g = torch.from_numpy(rng.normal(size=(64, D)).astype(np.float32))
+        torch.testing.assert_close(
+            scatter.masked_scatter_add(ts, tv, g, CAP),
+            scatter.masked_scatter_add_plain(ts, tv, g, CAP),
+            rtol=0, atol=0)
+    else:
+        p, a, g = (torch.from_numpy(rng.random((8, D)).astype(np.float32))
+                   for _ in range(3))
+        p2, a2 = p.clone(), a.clone()
+        adagrad.adagrad_update_(p, a, g, 0.5)
+        adagrad.adagrad_update_plain_(p2, a2, g, 0.5)
+        torch.testing.assert_close(p, p2, rtol=0, atol=0)
+        torch.testing.assert_close(a, a2, rtol=0, atol=0)
+    assert kernels.launch_counts() == {"gather": 0, "scatter": 0,
+                                       "adagrad": 0}
+
+
+@pytest.mark.parametrize("kernel", ["gather", "scatter", "adagrad"])
+def test_dispatch_raises_on_other_devices(monkeypatch, kernel):
+    """Neither CPU nor CUDA: the wrapper raises; nothing falls back."""
+    _forbid_build(monkeypatch)
+    meta = torch.empty((4, D), device="meta")
+    ms = torch.empty(4, dtype=torch.int32, device="meta")
+    mv = torch.empty(4, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        if kernel == "gather":
+            gather.masked_gather(meta, ms, mv)
+        elif kernel == "scatter":
+            scatter.masked_scatter_add(ms, mv, meta, CAP)
+        else:
+            adagrad.adagrad_update_(meta, meta, meta, 0.5)
+
+
+def test_build_refuses_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        build.build_all()
+
+
+def test_build_digest_tracks_sources():
+    """The build directory is keyed by the sources and flags, so a changed
+    kernel rebuilds in a fresh directory."""
+    d = build.digest()
+    assert d == build.digest() and len(d) == 16
+    assert build.library_dir().name == d
+    assert set(build.SOURCES.values()) == {
+        p.name for p in build.CSRC.glob("*.cu")}

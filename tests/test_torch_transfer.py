@@ -1,0 +1,122 @@
+"""The port's single-device transfer (swiftmpi_tpu_torch/transfer) against
+the JAX package's ``XlaTransfer`` on the same table state and slots.
+
+Envelope ``|a - b| <= 1e-5 + 1e-3 * |b|`` (sums of duplicate rows in
+another order, then AdaGrad's rsqrt), the repo's parity envelope.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from swiftmpi_tpu.parameter.access import w2v_access as jax_w2v_access
+from swiftmpi_tpu.transfer.xla import XlaTransfer
+from swiftmpi_tpu_torch.convert import state_from_jax, state_to_numpy
+from swiftmpi_tpu_torch.parameter.access import w2v_access
+from swiftmpi_tpu_torch.transfer import SingleTransfer, get_transfer
+
+CAP, D = 300, 16
+LR = 0.3
+
+
+def _envelope(got, want):
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-5)
+
+
+def _state(seed=0):
+    rng = np.random.default_rng(seed)
+    st = {f: ((rng.random((CAP, D)) - 0.5) / D).astype(np.float32)
+          for f in ("h", "v")}
+    for f in ("h2sum", "v2sum"):
+        st[f] = np.abs(rng.normal(size=(CAP, D))).astype(np.float32) * 0.1
+    return st
+
+
+def _slots(rng, n):
+    """Zipf-duplicated slots with ~10% padding (-1)."""
+    slots = (rng.zipf(1.2, n) - 1) % CAP
+    slots[rng.random(n) < 0.1] = -1
+    return slots.astype(np.int32)
+
+
+def test_get_transfer_names_xla_only():
+    assert isinstance(get_transfer("xla"), SingleTransfer)
+    for name in ("tpu", "hybrid", "local"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_transfer(name)
+
+
+def test_pull_matches_xla():
+    """Exact: a pull moves rows; -1 gives zero rows."""
+    st = _state(1)
+    rng = np.random.default_rng(2)
+    slots = _slots(rng, 257)
+    want = XlaTransfer().pull({f: jnp.asarray(a) for f, a in st.items()},
+                              jnp.asarray(slots), jax_w2v_access(LR, D),
+                              fields=("h", "v"))
+    got = SingleTransfer().pull(state_from_jax(st, "cpu"),
+                                torch.from_numpy(slots), w2v_access(LR, D),
+                                fields=("h", "v"))
+    assert set(got) == {"h", "v"}
+    for f in ("h", "v"):
+        np.testing.assert_array_equal(got[f].numpy(), np.asarray(want[f]))
+    assert not got["h"].numpy()[slots < 0].any()
+
+
+# n >= int(CAP / 2.0) = 150 goes dense, below it sparse (xla.py:107)
+@pytest.mark.parametrize("n,path", [(149, "sparse"), (150, "dense"),
+                                    (40, "sparse"), (600, "dense")])
+@pytest.mark.parametrize("families,mean", [(("h",), True), (("v",), True),
+                                           (("h", "v"), True),
+                                           (("h",), False)])
+def test_push_matches_xla(n, path, families, mean):
+    st = _state(3)
+    rng = np.random.default_rng(n)
+    slots = _slots(rng, n)
+    grads = {f: rng.normal(size=(n, D)).astype(np.float32) * 0.05
+             for f in families}
+    want = XlaTransfer().push({f: jnp.asarray(a) for f, a in st.items()},
+                              jnp.asarray(slots),
+                              {f: jnp.asarray(g) for f, g in grads.items()},
+                              jax_w2v_access(LR, D), mean=mean)
+    tr = SingleTransfer()
+    tstate = state_from_jax(st, "cpu")
+    ptrs = {f: t.data_ptr() for f, t in tstate.items()}
+    out = tr.push(tstate, torch.from_numpy(slots),
+                  {f: torch.from_numpy(g) for f, g in grads.items()},
+                  w2v_access(LR, D), mean=mean)
+    assert dict(tr.push_paths) == {f"{','.join(families)}:{path}": 1}
+    # in place: the push wrote into the state's own tensors
+    assert out is tstate
+    assert {f: t.data_ptr() for f, t in tstate.items()} == ptrs
+    got = state_to_numpy(tstate)
+    for f in st:
+        _envelope(got[f], np.asarray(want[f]))
+    # rows no slot touched are exact no-ops on both paths
+    untouched = np.setdiff1d(np.arange(CAP), slots[slots >= 0])
+    for f in st:
+        np.testing.assert_array_equal(got[f][untouched], st[f][untouched])
+
+
+def test_push_all_padding_is_a_no_op():
+    st = _state(4)
+    tstate = state_from_jax(st, "cpu")
+    slots = torch.full((20,), -1, dtype=torch.int32)
+    SingleTransfer().push(tstate, slots, {"h": torch.ones(20, D)},
+                          w2v_access(LR, D), mean=True)
+    for f, a in state_to_numpy(tstate).items():
+        np.testing.assert_array_equal(a, st[f])
+
+
+def test_convert_round_trip():
+    st = _state(5)
+    t = state_from_jax(st, "cpu")
+    back = state_to_numpy(t)
+    for f in st:
+        np.testing.assert_array_equal(back[f], st[f])
+        assert t[f].is_contiguous() and t[f].dtype == torch.float32
+    t["h"] += 1.0                    # copies: the source is untouched
+    assert not np.shares_memory(back["h"], st["h"])
+    np.testing.assert_array_equal(state_to_numpy(t)["h"], st["h"] + 1.0)
