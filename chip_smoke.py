@@ -8,23 +8,33 @@ The configuration is demo.conf's (len_vec 100, window 4, negative 20,
 sample 1e-5, learning_rate 0.05, server lr 0.7, minibatch 5000, transfer
 xla, one server) on the text8-shaped synthetic corpus
 ``synthetic_corpus_bulk(17_000, 70_000, 1_000, seed=42)``, vocab counted
-over the whole corpus.  Phases, each of which raises on a failed check:
+over the whole corpus, in four renderings (``PATHS``): ``gather`` (the
+default), ``stencil`` (``stencil: 1``), ``stencil_shared`` (+
+``shared_negatives: 1``, pool 1024) and ``shared``.  Phases, each of which
+raises on a failed check:
 
 1. setup: the card's name and power limit; build the CUDA kernels.
-2. kernels: each kernel of the training path at the shapes one step of
-   that path gives it, against its plain PyTorch version on the card,
-   timed with CUDA events (median of 25 launches, L2 flushed between
-   launches) beside the plain version and one library call.
+2. kernels: each kernel at the shapes one step of its path gives it —
+   the gather path's pulls, push and AdaGrad calls, the stencil path's
+   fused stencil gather (a real stencil batch with extra pad centers and a
+   shuffled block of centers), its mostly-padding h push and
+   ``push_span``'s AdaGrad on the span's rows — against its plain PyTorch version on the card, timed with CUDA
+   events (median of 25 launches, L2 flushed between launches) beside the
+   plain version and one library call.
 3. step parity: one step on the card and the same step on the CPU from
-   the same table and the same negative-sampling draws.
-4. train: ``Word2Vec.train`` over a corpus prefix (>= 20 steps) with
-   every launch counter set to 0 just before; each kernel must have
-   launched and the loss must be finite.
-5. CLI: ``apps.w2v_main.main`` on a small corpus; the dump must parse.
+   the same table and the same negative-sampling draws, for ``gather``,
+   ``stencil`` and ``stencil_shared``.
+4. train: ``Word2Vec.train`` over a corpus prefix (>= 20 steps) for each
+   rendering, every launch counter set to 0 just before; the run must have
+   launched exactly the kernels of its path (the stencil kernel on every
+   step of a stencil path) and the loss must be finite.
+5. CLI: ``apps.w2v_main.main`` on a small corpus with the gather conf and
+   with ``stencil: 1``; each dump must parse.
 
-The line before the last is the ``{"kernels": [...]}`` summary; the last
-is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
-the repository beside it, the script exits non-zero and prints neither.
+The line before the last is the ``{"kernels": [...]}`` summary, each
+kernel's ``launches`` read from the train run of its path; the last is
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+repository beside it, the script exits non-zero and prints neither.
 """
 
 from __future__ import annotations
@@ -38,27 +48,37 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from swiftmpi_tpu_torch import kernels
 from swiftmpi_tpu_torch.apps import w2v_main
 from swiftmpi_tpu_torch.apps.w2v_profile import (BATCH, DEMO_CONF,
                                                  TEXT8_CORPUS, card_line)
 from swiftmpi_tpu_torch.convert import state_from_jax, state_to_numpy
-from swiftmpi_tpu_torch.data.text import (CBOWBatcher, build_vocab,
-                                          load_corpus, synthetic_corpus,
+from swiftmpi_tpu_torch.data.text import (CBOWBatcher, StencilBatch,
+                                          build_vocab, load_corpus,
+                                          synthetic_corpus,
                                           synthetic_corpus_bulk,
                                           write_tokens_file)
-from swiftmpi_tpu_torch.kernels import adagrad, build, gather, scatter
+from swiftmpi_tpu_torch.kernels import adagrad, build, gather, scatter, stencil
 from swiftmpi_tpu_torch.models.word2vec import (Word2Vec, _cbow_targets,
-                                                w2v_parser)
+                                                _parity_targets, w2v_parser)
 from swiftmpi_tpu_torch.utils import ConfigParser, reset_global_config
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
 
-#: corpus prefix the train phase runs over (about 50 steps of 5000 centers
-#: after subsampling at sample 1e-5)
-TRAIN_SENTENCES = 1_600
+#: rendering -> ([word2vec] keys, the kernels its train run launches, the
+#: corpus prefix it trains over: >= 20 steps at sample 1e-5, where a
+#: stencil span fills at about 800 real centers)
+PATHS = {
+    "gather": ({}, {"gather", "scatter", "adagrad"}, 800),
+    "stencil": ({"stencil": 1}, {"stencil", "gather", "scatter", "adagrad"},
+                200),
+    "stencil_shared": ({"stencil": 1, "shared_negatives": 1},
+                       {"stencil", "gather", "adagrad"}, 200),
+    "shared": ({"shared_negatives": 1}, {"gather", "adagrad"}, 800),
+}
 MIN_TRAIN_STEPS = 20
 
 #: published H100 SXM peaks (dense): HBM bytes/s and float32 FLOP/s
@@ -70,6 +90,27 @@ TIMED_RUNS = 25
 
 def _json_line(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def _model(rendering: str, vocab, device: str) -> Word2Vec:
+    conf = ConfigParser().update(DEMO_CONF)
+    for k, v in PATHS[rendering][0].items():
+        conf.set("word2vec", k, v)
+    model = Word2Vec(config=conf, device=device)
+    if model.resolved_rendering != rendering:
+        raise AssertionError(f"{rendering} conf resolved to "
+                             f"{model.resolved_rendering}")
+    return model.build_from_vocab(vocab)
+
+
+def _draws(model: Word2Vec, B: int, rng: np.random.Generator):
+    """``(j, u)`` for one step of ``model``'s rendering, from ``rng``."""
+    shape = (model.shared_pool,) if model.shared_negatives \
+        else (B, model.negative)
+    return (torch.as_tensor(rng.integers(0, len(model.vocab), shape),
+                            device=model.device),
+            torch.as_tensor(rng.random(shape, np.float32),
+                            device=model.device))
 
 
 def _time_ms(fn, flush: torch.Tensor) -> float:
@@ -95,17 +136,14 @@ def _bound_ms(nbytes: float, flops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# -- phase 2: kernels at the main path's shapes -----------------------------
+# -- phase 2: kernels at the main paths' shapes ------------------------------
 
 def _step_inputs(model: Word2Vec, batch, rng: np.random.Generator):
-    """The slots one training step hands to its kernels: the h pull and
-    push at B*(K+1) target slots, the v pull at B*2W context slots (as
-    ``Word2Vec._grads`` forms them), with draws made from ``rng``."""
+    """The slots one gather-rendering step hands to its kernels: the h
+    pull and push at B*(K+1) target slots, the v pull at B*2W context
+    slots (as ``Word2Vec._grads`` forms them), with draws from ``rng``."""
     dev = model.device
-    B, K = len(batch.centers), model.negative
-    V = len(model.vocab)
-    draws = (torch.as_tensor(rng.integers(0, V, (B, K)), device=dev),
-             torch.as_tensor(rng.random((B, K), np.float32), device=dev))
+    draws = _draws(model, len(batch.centers), rng)
     centers = torch.as_tensor(batch.centers, dtype=torch.int64, device=dev)
     contexts = torch.as_tensor(batch.contexts, dtype=torch.int64, device=dev)
     ctx_mask = torch.as_tensor(batch.ctx_mask, device=dev)
@@ -114,7 +152,27 @@ def _step_inputs(model: Word2Vec, batch, rng: np.random.Generator):
         contexts, ctx_mask, draws)
     h_slots = torch.where(t_valid, t_slots, -1).reshape(-1).contiguous()
     v_slots = ctx_slots.reshape(-1).contiguous()
-    return draws, h_slots, v_slots
+    return h_slots, v_slots
+
+
+def _stencil_h_slots(model: Word2Vec, sb: StencilBatch,
+                     rng: np.random.Generator):
+    """The h push's B*(K+1) target slots of one stencil-rendering step
+    (``Word2Vec._grads_stencil``): padded centers give -1 rows, which are
+    most of a batch at sample 1e-5."""
+    dev = model.device
+    tokens = torch.as_tensor(sb.tokens, dtype=torch.int64, device=dev)
+    cpos = torch.as_tensor(sb.center_pos, dtype=torch.int64, device=dev)
+    span_slots = torch.where(torch.as_tensor(sb.sent_id, device=dev) >= 0,
+                             model._slot_of_vocab[tokens], -1)
+    row_valid = cpos >= 0
+    cp = cpos.clamp(0, sb.span - 1)
+    t_slots, t_valid = _parity_targets(
+        model._slot_of_vocab, model._alias_prob, model._alias_idx,
+        tokens[cp], torch.where(row_valid, span_slots[cp], -1), row_valid,
+        _draws(model, len(sb), rng))
+    slots = torch.where(t_valid, t_slots, -1).reshape(-1).contiguous()
+    return slots, (slots >= 0).contiguous()
 
 
 def _perturbed(slots: torch.Tensor, cap: int, rng: np.random.Generator):
@@ -144,7 +202,7 @@ def _gather_case(label, table, slots, valid, flush):
     nbytes = 4 * d * rows_read + 5 * n + 4 * n * d
     idx64 = clipped.contiguous()
     return dict(
-        name=f"masked_gather ({label})", route="cuda",
+        name=f"masked_gather ({label})", route="cuda", path="gather",
         source="swiftmpi_tpu_torch/kernels/csrc/gather.cu",
         replaces="swiftmpi_tpu/ops/pallas_gather.py:164",
         module=gather, shape=f"{n} rows x {d} of a {tuple(table.shape)} "
@@ -158,7 +216,7 @@ def _gather_case(label, table, slots, valid, flush):
         library="Tensor.index_select", bytes=nbytes, flops=0)
 
 
-def _scatter_case(label, slots, valid, cap, width, rng, flush):
+def _scatter_case(label, path, slots, valid, cap, width, rng, flush):
     dev = slots.device
     n = slots.shape[0]
     g = torch.as_tensor(rng.normal(size=(n, width)).astype(np.float32)
@@ -175,23 +233,25 @@ def _scatter_case(label, slots, valid, cap, width, rng, flush):
         raise AssertionError(f"{label}: count column != per-slot counts")
     safe = torch.where(ok, slots, cap).long().contiguous()
     acc = torch.zeros((cap + 1, width), device=dev)
-    nbytes = 5 * n + 4 * n * width + 4 * cap * width
+    # indices for every row, grads only for the rows that land
+    n_ok = int(ok.sum())
+    nbytes = 5 * n + 4 * n_ok * width + 4 * cap * width
     return dict(
-        name=f"masked_scatter_add ({label})", route="cuda",
+        name=f"masked_scatter_add ({label})", route="cuda", path=path,
         source="swiftmpi_tpu_torch/kernels/csrc/scatter.cu",
         replaces="swiftmpi_tpu/ops/pallas_scatter.py:77",
         module=scatter, shape=f"{n} rows x {width} into ({cap}+1, {width})"
-        f", {int((~ok).sum())} to the dump row",
+        f", {n - n_ok} invalid or out of range",
         max_abs_err=err, tolerance="rtol 1e-5, atol 1e-5 (atomic order)",
         ms=_time_ms(lambda: scatter.masked_scatter_add(slots, valid, g, cap),
                     flush),
         plain_ms=_time_ms(lambda: scatter.masked_scatter_add_plain(
             slots, valid, g, cap), flush),
         library_ms=_time_ms(lambda: acc.index_add_(0, safe, g), flush),
-        library="Tensor.index_add_", bytes=nbytes, flops=n * width)
+        library="Tensor.index_add_", bytes=nbytes, flops=n_ok * width)
 
 
-def _adagrad_case(label, param, accum, grad, lr, flush):
+def _adagrad_case(label, path, param, accum, grad, lr, flush):
     p1, a1, p2, a2 = param.clone(), accum.clone(), param.clone(), \
         accum.clone()
     adagrad.adagrad_update_(p1, a1, grad, lr)
@@ -203,7 +263,7 @@ def _adagrad_case(label, param, accum, grad, lr, flush):
     n = param.numel()
     pk, ak, pp, ap = (t.clone() for t in (param, accum, param, accum))
     return dict(
-        name=f"adagrad_update_ ({label})", route="cuda",
+        name=f"adagrad_update_ ({label})", route="cuda", path=path,
         source="swiftmpi_tpu_torch/kernels/csrc/adagrad.cu",
         replaces="swiftmpi_tpu/ops/pallas_kernels.py:73",
         module=adagrad, shape=f"{tuple(param.shape)} f32, in place",
@@ -215,11 +275,70 @@ def _adagrad_case(label, param, accum, grad, lr, flush):
         library_ms=None, library=None, bytes=20 * n, flops=7 * n)
 
 
-def phase_kernels(model: Word2Vec, batch) -> list:
+def _stencil_inputs(model: Word2Vec, sb: StencilBatch,
+                    rng: np.random.Generator):
+    """``(span_slots, lo, wmask, n_real)`` of a real stencil batch, made
+    harder: 64 more centers padded and a block of 256 real centers
+    shuffled out of span order, so neighbouring centers reach span ranges
+    far apart."""
+    dev = model.device
+    cpos, half = sb.center_pos.copy(), sb.half.copy()
+    n = sb.n_words
+    drop = rng.choice(n, 64, replace=False)
+    cpos[drop], half[drop] = -1, 0
+    blk = rng.permutation(min(256, n))
+    cpos[:len(blk)], half[:len(blk)] = cpos[blk], half[blk]
+    tokens = torch.as_tensor(sb.tokens, dtype=torch.int64, device=dev)
+    sent_id = torch.as_tensor(sb.sent_id, device=dev)
+    span_slots = torch.where(sent_id >= 0, model._slot_of_vocab[tokens],
+                             -1).contiguous()
+    lo, wmask = stencil.stencil_window_inputs(
+        sent_id, torch.as_tensor(cpos, device=dev),
+        torch.as_tensor(half, device=dev), model.window)
+    return span_slots, lo, wmask, int((cpos >= 0).sum())
+
+
+def _stencil_case(table, slots, lo, wmask, n_real, flush):
+    out_k = stencil.fused_stencil_gather(table, slots, lo, wmask)
+    out_p = stencil.fused_stencil_gather_plain(table, slots, lo, wmask)
+    torch.cuda.synchronize()
+    err = (out_k - out_p).abs().max().item()
+    if not torch.equal(out_k, out_p):
+        raise AssertionError(f"fused_stencil_gather: kernel != plain (max "
+                             f"|err| {err})")
+    (B, K), (cap, d), S = wmask.shape, table.shape, slots.shape[0]
+    pos = lo.long()[:, None] + torch.arange(K, device=lo.device)
+    src = slots.long().clamp(0, cap - 1)[pos]
+    on = wmask != 0
+    rows_read = torch.unique(src[on]).numel()
+    nbytes = 4 * d * rows_read + 4 * B * d + 4 * B * K + 4 * B + 4 * S
+    lib_out = F.embedding_bag(src, table, mode="sum",
+                              per_sample_weights=wmask)
+    lib_err = (lib_out - out_p).abs().max().item()
+    return dict(
+        name="fused_stencil_gather (v span)", route="cuda", path="stencil",
+        source="swiftmpi_tpu_torch/kernels/csrc/stencil.cu",
+        replaces="swiftmpi_tpu/ops/pallas_stencil.py:126",
+        module=stencil, shape=f"{B} centers ({n_real} real) x window {K} "
+        f"over a {S}-row span of a {tuple(table.shape)} f32 table, "
+        f"{rows_read} distinct rows reached",
+        max_abs_err=err, tolerance="exact",
+        ms=_time_ms(lambda: stencil.fused_stencil_gather(
+            table, slots, lo, wmask), flush),
+        plain_ms=_time_ms(lambda: stencil.fused_stencil_gather_plain(
+            table, slots, lo, wmask), flush),
+        library_ms=_time_ms(lambda: F.embedding_bag(
+            src, table, mode="sum", per_sample_weights=wmask), flush),
+        library=f"F.embedding_bag(mode='sum', per_sample_weights) "
+        f"(max |diff| {lib_err:.3g})",
+        bytes=nbytes, flops=2 * int(on.sum()) * d)
+
+
+def phase_kernels(model: Word2Vec, batch, sbatch: StencilBatch) -> list:
     rng = np.random.default_rng(7)
     state = model.table.state
     cap, d = model.table.capacity, model.len_vec
-    _, h_slots, v_slots = _step_inputs(model, batch, rng)
+    h_slots, v_slots = _step_inputs(model, batch, rng)
     # twice the card's 50 MB L2, in float32
     flush = torch.zeros(2 * 50 * 2 ** 20 // 4, device=model.device)
     cases = []
@@ -227,7 +346,11 @@ def phase_kernels(model: Word2Vec, batch) -> list:
     vs, vv = _perturbed(v_slots, cap, rng)
     cases.append(_gather_case("h pull", state["h"], hs, hv, flush))
     cases.append(_gather_case("v pull", state["v"], vs, vv, flush))
-    cases.append(_scatter_case("h push", hs, hv, cap, d + 1, rng, flush))
+    cases.append(_scatter_case("h push", "gather", hs, hv, cap, d + 1, rng,
+                               flush))
+    ss, sv = _stencil_h_slots(model, sbatch, rng)
+    cases.append(_scatter_case("stencil h push", "stencil", ss, sv, cap,
+                               d + 1, rng, flush))
     lr = model.access.learning_rate
 
     def grads_like(shape):
@@ -236,13 +359,23 @@ def phase_kernels(model: Word2Vec, batch) -> list:
 
     accum = torch.as_tensor(rng.random((cap, d), np.float32) * 1e-3,
                             device=model.device)
-    cases.append(_adagrad_case("h table", state["h"], accum,
+    cases.append(_adagrad_case("h table", "gather", state["h"], accum,
                                grads_like((cap, d)), lr, flush))
     rows = torch.unique(v_slots[v_slots >= 0]).long()
     cases.append(_adagrad_case(
-        "v rows", state["v"].index_select(0, rows).contiguous(),
+        "v rows", "gather", state["v"].index_select(0, rows).contiguous(),
         accum.index_select(0, rows).contiguous(),
         grads_like((rows.numel(), d)), lr, flush))
+    span_slots, lo, wmask, n_real = _stencil_inputs(model, sbatch, rng)
+    cases.append(_stencil_case(state["v"], span_slots, lo, wmask, n_real,
+                               flush))
+    # push_span's apply: the S span rows gathered at their owners' slots
+    span_rows = span_slots.clamp(min=0).long()
+    cases.append(_adagrad_case(
+        "push_span rows", "stencil",
+        state["v"].index_select(0, span_rows).contiguous(),
+        accum.index_select(0, span_rows).contiguous(),
+        grads_like((span_rows.numel(), d)), lr, flush))
     for c in cases:
         c["bound_ms"], c["bound_by"] = _bound_ms(c["bytes"], c["flops"])
         _json_line({"kernel": c["name"], "shape": c["shape"],
@@ -257,21 +390,30 @@ def phase_kernels(model: Word2Vec, batch) -> list:
 
 # -- phase 3: one step on the card against the same step on the CPU ---------
 
-def phase_step_parity(model: Word2Vec, cpu_model: Word2Vec, batch) -> None:
-    rng = np.random.default_rng(11)
-    draws, _, _ = _step_inputs(model, batch, rng)
+def phase_step_parity(rendering: str, vocab, batch) -> None:
+    """``batch``: a CBOW batch for the gather renderings, a stencil batch
+    for the stencil ones."""
+    model = _model(rendering, vocab, "cuda")
+    cpu_model = _model(rendering, vocab, "cpu")
+    B = len(batch)
+    draws = _draws(model, B, np.random.default_rng(11))
     cpu_model.table.state = state_from_jax(state_to_numpy(model.table.state),
                                            "cpu")
-    model.transfer.push_paths.clear()
-    es_c, ec_c = model.step(batch.centers, batch.contexts, batch.ctx_mask,
-                            draws=draws)
-    es_p, ec_p = cpu_model.step(batch.centers, batch.contexts,
-                                batch.ctx_mask,
-                                draws=tuple(t.cpu() for t in draws))
-    if ec_c != ec_p:
-        raise AssertionError(f"err_cnt: card {ec_c} != cpu {ec_p}")
+    kernels.reset_launches()
+    es_c, ec_c = model.step_batch(batch, draws=draws)
+    es_p, ec_p = cpu_model.step_batch(
+        batch, draws=tuple(t.cpu() for t in draws))
+    counts = kernels.launch_counts()
+    if model.shared_negatives:
+        if not math.isclose(ec_c, ec_p, rel_tol=1e-6):
+            raise AssertionError(f"{rendering} err_cnt: card {ec_c} != cpu "
+                                 f"{ec_p} (rel 1e-6)")
+    elif ec_c != ec_p:
+        raise AssertionError(f"{rendering} err_cnt: card {ec_c} != cpu "
+                             f"{ec_p}")
     if not math.isclose(es_c, es_p, rel_tol=1e-4):
-        raise AssertionError(f"err_sum: card {es_c} != cpu {es_p}")
+        raise AssertionError(f"{rendering} err_sum: card {es_c} != cpu "
+                             f"{es_p}")
     card, cpu = state_to_numpy(model.table.state), \
         state_to_numpy(cpu_model.table.state)
     worst = {}
@@ -280,35 +422,50 @@ def phase_step_parity(model: Word2Vec, cpu_model: Word2Vec, batch) -> None:
         limit = 1e-5 + 1e-3 * np.abs(cpu[f])
         if not (gap <= limit).all():
             raise AssertionError(
-                f"step parity: field {f} leaves |a-b| <= 1e-5 + 1e-3|b| "
-                f"(max gap {gap.max()}, {(gap > limit).sum()} elements)")
+                f"{rendering} step parity: field {f} leaves |a-b| <= 1e-5 + "
+                f"1e-3|b| (max gap {gap.max()}, {(gap > limit).sum()} "
+                f"elements)")
         worst[f] = float(gap.max())
-    _json_line({"phase": "step_parity", "err_sum": [es_c, es_p],
-                "err_cnt": [ec_c, ec_p], "max_abs_gap": worst,
-                "envelope": "1e-5 + 1e-3*|cpu|",
-                "push_paths": dict(model.transfer.push_paths)})
+    if model.stencil and counts["stencil"] != 1:
+        raise AssertionError(f"{rendering} step launched the stencil kernel "
+                             f"{counts['stencil']} times")
+    _json_line({"phase": "step_parity", "rendering": rendering,
+                "centers": B, "real_centers": batch.n_words,
+                "err_sum": [es_c, es_p], "err_cnt": [ec_c, ec_p],
+                "max_abs_gap": worst, "envelope": "1e-5 + 1e-3*|cpu|",
+                "push_paths": dict(model.transfer.push_paths),
+                "launches": counts})
 
 
 # -- phase 4: training through the public entry point -----------------------
 
-def phase_train(model: Word2Vec, corpus: np.ndarray, card: str) -> dict:
-    batcher = CBOWBatcher(corpus[:TRAIN_SENTENCES], model.vocab,
-                          model.window, model.sample, seed=2008)
-    model.transfer.push_paths.clear()
+def phase_train(rendering: str, vocab, corpus: np.ndarray,
+                card: str) -> dict:
+    model = _model(rendering, vocab, "cuda")
+    expect, n_sent = PATHS[rendering][1], PATHS[rendering][2]
+    batcher = CBOWBatcher(corpus[:n_sent], vocab, model.window, model.sample,
+                          seed=2008)
     kernels.reset_launches()
     losses = model.train(batcher=batcher, niters=1, batch_size=BATCH)
     counts = kernels.launch_counts()
     m = model.train_metrics
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"non-finite loss {losses}")
+        raise AssertionError(f"{rendering}: non-finite loss {losses}")
     if m["steps"] < MIN_TRAIN_STEPS:
-        raise AssertionError(f"only {m['steps']} steps; raise "
-                             "TRAIN_SENTENCES")
-    missing = [k for k, n in counts.items() if n == 0]
-    if missing:
-        raise AssertionError(f"the train phase never launched {missing}")
-    _json_line({"phase": "train", "card": card, "loss": losses,
-                "steps": m["steps"], "words": m["words"],
+        raise AssertionError(f"{rendering}: only {m['steps']} steps; raise "
+                             "its corpus prefix")
+    launched = {k for k, n in counts.items() if n}
+    if launched != expect:
+        raise AssertionError(f"{rendering}: the train run launched "
+                             f"{sorted(launched)}, its path is "
+                             f"{sorted(expect)}")
+    if model.stencil and (counts["stencil"] != m["steps"]
+                          or "v:span" not in m["push_paths"]):
+        raise AssertionError(f"{rendering}: {counts['stencil']} stencil "
+                             f"launches in {m['steps']} steps, push paths "
+                             f"{m['push_paths']}")
+    _json_line({"phase": "train", "rendering": rendering, "card": card,
+                "loss": losses, "steps": m["steps"], "words": m["words"],
                 "seconds": m["seconds"],
                 "batcher_seconds": m["batcher_seconds"],
                 "steps_per_sec": m["steps_per_sec"],
@@ -319,7 +476,7 @@ def phase_train(model: Word2Vec, corpus: np.ndarray, card: str) -> dict:
 
 # -- phase 5: the CLI --------------------------------------------------------
 
-def phase_cli() -> None:
+def phase_cli(extra: str, expect: set) -> None:
     if WORK.exists():
         shutil.rmtree(WORK)
     WORK.mkdir(parents=True)
@@ -330,7 +487,7 @@ def phase_cli() -> None:
                     "[worker]\nminibatch: 512\n"
                     "[server]\ninitial_learning_rate: 0.7\n"
                     "[word2vec]\nlen_vec: 100\nwindow: 4\nnegative: 20\n"
-                    "sample: 0.001\nlearning_rate: 0.05\n")
+                    "sample: 0.001\nlearning_rate: 0.05\n" + extra)
     reset_global_config()
     kernels.reset_launches()
     rc = w2v_main.main(["w2v_main", "-config", str(conf), "-data",
@@ -351,9 +508,13 @@ def phase_cli() -> None:
     if keys != set(vocab.keys.tolist()):
         raise AssertionError(f"dump has {len(keys)} keys, vocab "
                              f"{len(vocab)}")
-    if not all(counts.values()):
-        raise AssertionError(f"the CLI run skipped a kernel: {counts}")
-    _json_line({"phase": "cli", "rows": len(keys), "launches": counts})
+    launched = {k for k, n in counts.items() if n}
+    if launched != expect:
+        raise AssertionError(f"the CLI run ({extra.strip() or 'gather'}) "
+                             f"launched {sorted(launched)}, expected "
+                             f"{sorted(expect)}")
+    _json_line({"phase": "cli", "conf": extra.strip() or "gather",
+                "rows": len(keys), "launches": counts})
     shutil.rmtree(WORK)
 
 
@@ -376,31 +537,40 @@ def main() -> int:
     t0 = time.perf_counter()
     corpus = synthetic_corpus_bulk(**TEXT8_CORPUS)
     vocab = build_vocab(corpus)
-    model = Word2Vec(config=ConfigParser().update(DEMO_CONF), device="cuda")
-    model.build_from_vocab(vocab)
-    cpu_model = Word2Vec(config=ConfigParser().update(DEMO_CONF), device="cpu")
-    cpu_model.build_from_vocab(vocab)
-    batch = next(iter(CBOWBatcher(corpus[:100], vocab, model.window,
-                                  model.sample, seed=2008).epoch(BATCH)))
+    model = _model("gather", vocab, "cuda")
+
+    def first(epoch):
+        return next(iter(epoch(BATCH)))
+
+    def prefix_batcher():
+        return CBOWBatcher(corpus[:100], vocab, model.window, model.sample,
+                           seed=2008)
+
+    batch = first(prefix_batcher().epoch)
+    sbatch = first(prefix_batcher().epoch_stencil)
     print(f"corpus {corpus.size} tokens, vocab {len(vocab)}, table "
           f"capacity {model.table.capacity} x {model.len_vec}; set-up "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    cases = phase_kernels(model, batch)
-    phase_step_parity(model, cpu_model, batch)
-    del cpu_model
-    counts = phase_train(model, corpus, card)
-    phase_cli()
+    cases = phase_kernels(model, batch, sbatch)
+    del model
+    phase_step_parity("gather", vocab, batch)
+    phase_step_parity("stencil", vocab, sbatch)
+    phase_step_parity("stencil_shared", vocab, sbatch)
+    counts = {r: phase_train(r, vocab, corpus, card) for r in PATHS}
+    phase_cli("", PATHS["gather"][1])
+    phase_cli("stencil: 1\n", PATHS["stencil"][1])
 
     summary = []
     for c in cases:
         name = c["module"].__name__.rsplit(".", 1)[-1]
         summary.append({
             "name": c["name"], "route": c["route"], "source": c["source"],
-            "replaces": c["replaces"], "launches": counts[name],
-            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
-            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-            "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
+            "replaces": c["replaces"], "launches": counts[c["path"]][name],
+            "path": c["path"], "max_abs_err": c["max_abs_err"],
+            "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "library_ms": c["library_ms"]})
     print(card, flush=True)
     _json_line({"kernels": summary})
     _json_line({"ok": True, "device": {

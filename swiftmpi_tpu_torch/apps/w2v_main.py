@@ -2,7 +2,9 @@
 ``apps/w2v_main.py`` and the reference mains (``-config <conf> -data
 <corpus> -niters N -output <path>``), plus ``-device cuda|cpu`` (default:
 the CUDA device; the CPU only when asked for).  Only the sync variant is
-ported: ``-variant async|hogwild`` and ``-checkpoint`` raise.
+ported: ``-variant async|hogwild`` and ``-checkpoint`` raise.  The conf's
+``[word2vec] stencil: 1`` and ``shared_negatives: 1`` pick the stencil,
+shared and stencil_shared renderings, as in the JAX package.
 
     python -m swiftmpi_tpu_torch.apps.w2v_main -config demo.conf \\
         -data corpus.txt -niters 1 -output vectors.txt

@@ -3,7 +3,11 @@ the full width of the reference configuration (demo.conf on the
 text8-shaped synthetic corpus, the configuration ``chip_smoke.py`` runs).
 
     python -m swiftmpi_tpu_torch.apps.w2v_profile [-steps 40] \\
-        [-trace build/w2v_step_trace.json]
+        [-stencil 1] [-shared 1] [-trace build/w2v_step_trace.json]
+
+``-stencil 1`` / ``-shared 1`` set ``[word2vec] stencil`` /
+``shared_negatives`` (the ``stencil``, ``shared`` and ``stencil_shared``
+renderings); the default is the gather rendering.
 
 Batches are made before the clock starts, so the numbers are the
 device path's alone (the host batcher's time is reported apart):
@@ -15,7 +19,10 @@ device path's alone (the host batcher's time is reported apart):
 * ``idle_share``: ``1 - device_ms_per_step / step_ms``, the share of an
   unprofiled step the device is not busy (the profiled window itself
   runs slower, ``window_ms_per_step``, from the profiler's overhead);
-* ``by_kernel_ms_per_step``: the window's device time by kernel name, largest first.
+* ``by_kernel_ms_per_step``: the window's device time by kernel name,
+  largest first;
+* ``centers_per_batch``: real centers per batch (a stencil batch holds
+  fewer than ``BATCH`` when its span fills first).
 
 Prints one JSON object; ``-trace`` also writes the window's Chrome trace.
 """
@@ -65,7 +72,7 @@ def _short(name: str) -> str:
     """The port's kernels by their function name; others cut to 80
     characters."""
     m = re.search(r"\b(masked_gather_\w+|masked_scatter_add|"
-                  r"adagrad_update)\(", name)
+                  r"adagrad_update|stencil_gather)\b", name)
     return m.group(1) if m else name[:80]
 
 
@@ -82,21 +89,26 @@ def _busy_by_kernel(prof) -> dict:
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
-def profile(steps: int = 40, trace: str = "") -> dict:
+def profile(steps: int = 40, trace: str = "", stencil: int = 0,
+            shared: int = 0) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("w2v_profile measures the card; no CUDA device "
                            "is available")
     torch.backends.cuda.matmul.allow_tf32 = False
     corpus = synthetic_corpus_bulk(**TEXT8_CORPUS)
     vocab = build_vocab(corpus)
-    model = Word2Vec(config=ConfigParser().update(DEMO_CONF), device="cuda")
+    config = ConfigParser().update(DEMO_CONF)
+    config.set("word2vec", "stencil", stencil)
+    config.set("word2vec", "shared_negatives", shared)
+    model = Word2Vec(config=config, device="cuda")
     model.build_from_vocab(vocab)
     need = WARM_STEPS + steps + PROFILED_STEPS
     batcher = CBOWBatcher(corpus, vocab, model.window, model.sample,
                           seed=2008)
     t0 = time.perf_counter()
     batches = []
-    for b in batcher.epoch(BATCH):
+    epoch = batcher.epoch_stencil if model.stencil else batcher.epoch
+    for b in epoch(BATCH):
         batches.append(b)
         if len(batches) == need:
             break
@@ -107,7 +119,7 @@ def profile(steps: int = 40, trace: str = "") -> dict:
 
     def run(bs):
         for b in bs:
-            model.step(b.centers, b.contexts, b.ctx_mask)
+            model.step_batch(b)
 
     run(batches[:WARM_STEPS])
     torch.cuda.synchronize()
@@ -132,7 +144,9 @@ def profile(steps: int = 40, trace: str = "") -> dict:
     if trace:
         prof.export_chrome_trace(trace)
     return {
-        "card": card_line(), "steps": steps, "batch": BATCH,
+        "card": card_line(), "rendering": model.resolved_rendering,
+        "steps": steps, "batch": BATCH,
+        "centers_per_batch": words / steps,
         "vocab": len(vocab), "capacity": model.table.capacity,
         "step_ms": step_s * 1e3,
         "words_per_sec": words / (step_s * steps),
@@ -155,8 +169,12 @@ def main(argv=None) -> int:
     cmd.registerParameter("steps", "timed steps (default 40)")
     cmd.registerParameter("trace", "write the profiled window's Chrome "
                           "trace here")
+    cmd.registerParameter("stencil", "1: the stencil rendering")
+    cmd.registerParameter("shared", "1: shared negatives")
     out = profile(int(cmd.getValue("steps", "40")),
-                  cmd.getValue("trace", ""))
+                  cmd.getValue("trace", ""),
+                  int(cmd.getValue("stencil", "0")),
+                  int(cmd.getValue("shared", "0")))
     print(json.dumps(out), flush=True)
     return 0
 

@@ -6,6 +6,7 @@ module     replaces (Pallas kernel)                    used by
 gather     ops/pallas_gather.py vmem_gather            every pull
 scatter    ops/pallas_scatter.py vmem_scatter_add      the dense push
 adagrad    ops/pallas_kernels.py adagrad_update        every apply
+stencil    ops/pallas_stencil.py fused_stencil_gather  stencil neu1
 =========  ==========================================  =================
 
 Each module holds the kernel's wrapper, its plain PyTorch version
@@ -14,9 +15,9 @@ kernel launch.  The wrapper runs the plain version for CPU tensors and
 launches the kernel for CUDA tensors, with no fallback between the two.
 """
 
-from swiftmpi_tpu_torch.kernels import adagrad, gather, scatter
+from swiftmpi_tpu_torch.kernels import adagrad, gather, scatter, stencil
 
-KERNEL_MODULES = (gather, scatter, adagrad)
+KERNEL_MODULES = (gather, scatter, adagrad, stencil)
 
 
 def reset_launches() -> None:

@@ -35,6 +35,7 @@ SOURCES: Dict[str, str] = {
     "gather": "gather.cu",
     "scatter": "scatter.cu",
     "adagrad": "adagrad.cu",
+    "stencil": "stencil.cu",
 }
 
 NVCC_FLAGS: List[str] = [

@@ -1,7 +1,10 @@
 // Masked scatter-add into a dump-row accumulator:
 //   acc[(valid[r] && 0 <= slots[r] < cap) ? slots[r] : cap] += grads[r]
 // over a zeroed (cap + 1, w) accumulator that the caller allocates; row
-// cap is the dump row for invalid and out-of-range entries.
+// cap is the dump row for invalid and out-of-range entries.  The caller
+// reads only rows [0, cap), so the kernel skips those entries instead of
+// adding them there: a stencil-rendering push is mostly padding rows, and
+// their atomics would all contend for the dump row's w addresses.
 //
 // Replaces the Pallas kernel swiftmpi_tpu/ops/pallas_scatter.py
 // (vmem_scatter_add / masked_vmem_scatter_add), the drop-in body of the
@@ -35,8 +38,11 @@ __global__ void masked_scatter_add(const int* __restrict__ slots,
   for (long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
        row < n; row += stride) {
     const long long s = slots[row];
-    const long long target = (valid[row] && s >= 0 && s < cap) ? s : cap;
-    float* dst = acc + target * w;
+    // invalid and out-of-range rows belong to the dump row, which the
+    // wrapper slices away: skip them (warp-uniform) rather than pile every
+    // one's atomics onto the same w addresses
+    if (!valid[row] || s < 0 || s >= cap) continue;
+    float* dst = acc + s * w;
     const float* src = grads + row * w;
     for (int c = lane; c < w; c += 32) atomicAdd(dst + c, src[c]);
   }

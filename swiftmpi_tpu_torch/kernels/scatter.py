@@ -8,6 +8,9 @@ out-of-range rows routed to the dump row ``cap``.  The CUDA kernel
 (``csrc/scatter.cu``) gives each gradient row one warp and adds it with
 per-element float atomics, so duplicate slots are summed in no fixed
 order: results agree with the plain version to a tolerance, not to bits.
+It skips the rows the dump row would take (the result never shows that
+row), which matters when most rows are padding, as in a stencil batch's
+h push.
 Bound on the card: bytes — grads and indices read once, the accumulator
 written once, over 3.35 TB/s.  At the word2vec h push (105,000 rows of
 W = 101 into 90,517 rows) that is 0.0237 ms; the wrapper and kernel take

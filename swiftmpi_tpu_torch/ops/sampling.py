@@ -11,7 +11,9 @@ split in two so the parity tests can replay the JAX package's draws:
 * :func:`sample_alias_slots_from_draws` resolves them, as a pure function
   of ``(j, u)``, exactly as ``_alias_draw_packed``/``sample_alias_slots``
   do: accept bucket ``j`` when ``u < prob[j]``, else take ``alias[j]``,
-  and map the vocab index to its table slot.
+  and map the vocab index to its table slot;
+  :func:`sample_alias_from_draws` is the same resolution without the slot
+  map (``sample_alias``).
 
 ``torch.Generator`` and ``jax.random`` never produce the same stream, so
 the draws themselves differ between the frameworks; the resolution of a
@@ -80,17 +82,24 @@ def alias_draws(generator: torch.Generator, V: int,
     return j, u
 
 
+def sample_alias_from_draws(j: torch.Tensor, u: torch.Tensor,
+                            prob: torch.Tensor,
+                            alias: torch.Tensor) -> torch.Tensor:
+    """Resolve draws ``(j, u)`` into int64 vocab indices, as
+    ``sample_alias`` does: bucket ``j`` when ``u < prob[j]``, else
+    ``alias[j]``.  The shared-negative renderings draw their one pool
+    through it."""
+    j = j.long()
+    return torch.where(u < prob[j], j, alias[j].long())
+
+
 def sample_alias_slots_from_draws(j: torch.Tensor, u: torch.Tensor,
                                   prob: torch.Tensor, alias: torch.Tensor,
                                   slot_of_vocab: torch.Tensor
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Resolve draws ``(j, u)`` into ``(negs, neg_slots)``: vocab indices
     from the alias tables and their table slots, with
-    ``neg_slots == slot_of_vocab[negs]``.  ``negs`` has ``j``'s integer
-    type; ``neg_slots`` has ``slot_of_vocab``'s."""
-    j = j.long()
-    accept = u < prob[j]
-    alias_j = alias[j].long()
-    negs = torch.where(accept, j, alias_j)
-    neg_slots = torch.where(accept, slot_of_vocab[j], slot_of_vocab[alias_j])
-    return negs, neg_slots
+    ``neg_slots == slot_of_vocab[negs]``.  ``negs`` is int64;
+    ``neg_slots`` has ``slot_of_vocab``'s type."""
+    negs = sample_alias_from_draws(j, u, prob, alias)
+    return negs, slot_of_vocab[negs]

@@ -5,6 +5,8 @@ rows at slots, ``push`` combines gradient rows by slot and applies the
 access method's update rule to the table, in place.  Only the single-
 device backend is ported (``transfer/single.py``); the wire ledger, the
 pull-plan interpreter and the window push are not (ROADMAP A12).
+``push_span`` is the sort-free push of the stencil rendering's span
+family.
 """
 
 from __future__ import annotations
@@ -24,12 +26,16 @@ DENSE_RATIO = 2.0
 
 
 class PushSpec:
-    """One gradient-family push ``(slots, grads, mean)``."""
+    """One gradient-family push ``(slots, grads, mean)``.  A span family
+    (stencil rendering) also carries ``counts``: rows indexed by span
+    position, each the sum of ``counts[i]`` contributions, pushed through
+    :meth:`Transfer.push_span`."""
 
-    def __init__(self, slots, grads, mean: bool = False):
+    def __init__(self, slots, grads, mean: bool = False, counts=None):
         self.slots = slots
         self.grads = grads
         self.mean = bool(mean)
+        self.counts = counts
 
 
 class Transfer:
@@ -63,7 +69,21 @@ class Transfer:
             return self._push_dense(state, slots, grads, access, mean)
         return self._push_sparse(state, slots, grads, access, mean)
 
+    def push_span(self, state: TableState, slots: torch.Tensor, grads,
+                  counts: torch.Tensor, access: AccessMethod,
+                  mean: bool = False) -> TableState:
+        """Push a position-indexed span family: row ``i`` of ``grads`` is
+        the sum of ``counts[i]`` contributions to slot ``slots[i]``
+        (``-1`` = padding); duplicate slots are combined without a sort and
+        ``mean=True`` divides by the summed counts.  The JAX package's
+        ``XlaTransfer.push_span``."""
+        self.push_paths[f"{','.join(grads)}:span"] += 1
+        return self._push_span(state, slots, grads, counts, access, mean)
+
     def _prim_pull(self, state: TableState, slots, fields) -> TableState:
+        raise NotImplementedError
+
+    def _push_span(self, state, slots, grads, counts, access, mean=False):
         raise NotImplementedError
 
     def _push_dense(self, state, slots, grads, access, mean=False):

@@ -14,8 +14,14 @@
   applies the rule to those rows and writes them back.  Like the JAX
   package, which leaves this path to XLA, it stays in torch index ops;
   the apply is the AdaGrad kernel on the gathered rows.
+* ``push_span`` (stencil rendering, ``xla.py::push_span``) dedups a
+  position-indexed span without a sort: a scatter-min of span positions
+  into a ``(capacity,)`` plane names each slot's owner row, rows and
+  counts fold into their owners with a span-local ``index_add_``, and the
+  AdaGrad kernel runs on the ``S`` gathered rows, which are written back
+  with ``index_copy_``.  No host read.
 
-Both pushes update the table tensors in place.
+All three pushes update the table tensors in place.
 """
 
 from __future__ import annotations
@@ -111,4 +117,45 @@ class SingleTransfer(Transfer):
         updated = access.apply_push(current, combined)
         for f, rows in updated.items():
             state[f].index_copy_(0, rep, rows)
+        return state
+
+    def _push_span(self, state, slots, grads, counts, access, mean=False):
+        capacity = next(iter(state.values())).shape[0]
+        S = slots.shape[0]
+        if S == 0:
+            return state
+        dev = slots.device
+        valid = slots >= 0
+        safe = torch.where(valid, slots, 0).long()
+        pos = torch.arange(S, dtype=torch.int32, device=dev)
+        # rep[k]: the lowest span position holding slot k (scatter-min)
+        rep = torch.full((capacity,), S, dtype=torch.int32, device=dev)
+        rep.scatter_reduce_(0, safe, torch.where(valid, pos, S), "amin")
+        owner = torch.where(valid, rep[safe].long(), S)   # S: dropped
+        # fold rows (and their counts) into owner rows: a span-local sum
+        # with drop row S, not a capacity scatter
+        inv = None
+        if mean:
+            cnt = torch.zeros(S + 1, dtype=torch.float32, device=dev)
+            cnt.index_add_(0, owner, counts.float())
+            inv = (1.0 / cnt.clamp(min=1.0))[:, None]
+        combined = {}
+        for f, g in grads.items():
+            acc = torch.zeros((S + 1, g.shape[1]), dtype=g.dtype, device=dev)
+            acc.index_add_(0, owner, g)
+            combined[f] = acc * inv if mean else acc
+        # Every row computes its owner's update (same slot, same summed
+        # grad), so the write-back below writes identical rows wherever a
+        # slot repeats, with no host read to compact the owners.  Padding
+        # rows repeat the first valid row (slot 0 with a zero grad, an
+        # exact no-op, when there is none).
+        first = valid.int().argmax()
+        src = torch.where(valid, owner, first)
+        tgt = safe[src]
+        rows = {f: c.index_select(0, src) for f, c in combined.items()}
+        touched = access.touched_fields(grads)
+        current = {f: state[f].index_select(0, tgt) for f in touched}
+        updated = access.apply_push(current, rows)
+        for f, r in updated.items():
+            state[f].index_copy_(0, tgt, r)
         return state

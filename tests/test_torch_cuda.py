@@ -11,10 +11,10 @@ import pytest
 import torch
 
 from swiftmpi_tpu_torch import kernels
-from swiftmpi_tpu_torch.kernels import adagrad, gather, scatter
+from swiftmpi_tpu_torch.kernels import adagrad, gather, scatter, stencil
 from swiftmpi_tpu_torch.models.word2vec import Word2Vec
 from swiftmpi_tpu_torch.convert import state_from_jax, state_to_numpy
-from swiftmpi_tpu_torch.data.text import synthetic_corpus
+from swiftmpi_tpu_torch.data.text import CBOWBatcher, synthetic_corpus
 from swiftmpi_tpu_torch.utils import ConfigParser
 
 pytestmark = pytest.mark.cuda
@@ -69,7 +69,7 @@ def test_kernels_match_plain_on_card(dev, d):
     torch.testing.assert_close(p, p2, rtol=2e-6, atol=0)
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"gather": 1, "scatter": 1,
-                                       "adagrad": 1}
+                                       "adagrad": 1, "stencil": 0}
 
 
 def test_kernels_take_empty_inputs_and_refuse_bad_ones(dev):
@@ -125,4 +125,112 @@ def test_one_step_on_card_matches_cpu(dev):
         state_to_numpy(cpu.table.state)
     for f in want:
         np.testing.assert_allclose(got[f], want[f], rtol=1e-3, atol=1e-5)
-    assert all(kernels.launch_counts().values())
+    counts = kernels.launch_counts()
+    assert counts.pop("stencil") == 0 and all(counts.values())
+
+
+def _span(rng, B, W, S, order):
+    """A stream span: sentences of 7 tokens, a padded tail, 9 pad centers,
+    and the real centers in span ``order`` ("sorted", "shuffled", "spread"
+    across the whole span, or "none": every center padded)."""
+    n_valid = S - min(5, S - 2 * W - 1)
+    sent_id = np.full(S, -1, np.int32)
+    sent_id[:n_valid] = np.arange(n_valid, dtype=np.int32) // 7
+    n_words = 0 if order == "none" else max(B - 9, 1)
+    pos = np.sort(rng.integers(0, n_valid, n_words))
+    if order == "sorted":
+        pos = np.minimum(np.arange(n_words) + W, n_valid - 1)
+    elif order == "shuffled":
+        pos = rng.permutation(np.minimum(np.arange(n_words) + W,
+                                         n_valid - 1))
+    center_pos = np.full(B, -1, np.int32)
+    center_pos[:n_words] = pos
+    half = np.zeros(B, np.int32)
+    half[:n_words] = rng.integers(1, W + 1, n_words)
+    return sent_id, center_pos, half
+
+
+@pytest.mark.parametrize("B,W,S,d,order", [
+    (200, 4, 208, 7, "sorted"),        # d = 7: the scalar path
+    (200, 4, 208, 100, "sorted"),      # d = 100: float4
+    (200, 4, 208, 100, "shuffled"),    # centers in no span order
+    (64, 4, 72, 100, "none"),          # every center padded: all zero
+    (5, 4, 9, 100, "spread"),          # S = 2W + 1
+    (64, 4, 4000, 100, "spread"),      # neighbours far apart in the span
+    (100, 10, 120, 100, "sorted")])    # K = 21: two chunks of window rows
+def test_stencil_kernel_matches_plain_on_card(dev, B, W, S, d, order):
+    """B4 against its plain version, bit for bit (both round each product
+    and sum on its own, in k order).  One launch."""
+    rng = np.random.default_rng(S + d)
+    cap = 1000
+    sent_id, center_pos, half = _span(rng, B, W, S, order)
+    slots = rng.integers(0, cap, S).astype(np.int32)
+    slots[sent_id < 0] = -1
+    table = torch.from_numpy(rng.normal(size=(cap, d)).astype(np.float32))
+    table, slots = table.to(dev), torch.from_numpy(slots).to(dev)
+    lo, wmask = stencil.stencil_window_inputs(
+        *(torch.from_numpy(a).to(dev) for a in (sent_id, center_pos, half)),
+        W)
+    kernels.reset_launches()
+    got = stencil.fused_stencil_gather(table, slots, lo, wmask)
+    want = stencil.fused_stencil_gather_plain(table, slots, lo, wmask)
+    torch.cuda.synchronize()
+    assert stencil.launches == 1
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert not got[torch.from_numpy(center_pos).to(dev) < 0].any()
+
+
+def test_stencil_kernel_refuses_bad_inputs(dev):
+    table = torch.randn(20, 8, device=dev)
+    slots = torch.arange(12, dtype=torch.int32, device=dev)
+    lo = torch.zeros(6, dtype=torch.int32, device=dev)
+    w = torch.ones((6, 5), device=dev)
+    with pytest.raises(TypeError, match="bf16"):
+        stencil.fused_stencil_gather(table.bfloat16(), slots, lo, w)
+    with pytest.raises(TypeError, match="int32 lo"):
+        stencil.fused_stencil_gather(table, slots, lo.long(), w)
+    with pytest.raises(TypeError, match="contiguous"):
+        stencil.fused_stencil_gather(table, slots, lo,
+                                     torch.ones((5, 6), device=dev).t())
+    with pytest.raises(ValueError, match="S = 4"):
+        stencil.fused_stencil_gather(table, slots[:4], lo, w)
+
+
+@pytest.mark.parametrize("shared", [0, 1])
+def test_one_stencil_step_on_card_matches_cpu(dev, shared):
+    """One stencil (shared = 0) or stencil_shared step on the card and on
+    the CPU from the same table and draws: |a - b| <= 1e-5 + 1e-3 |b|,
+    err_cnt exact (stencil) or within 1e-6 relative (shared); the card
+    step launched B4 once and pushed its span family."""
+    conf = {"cluster": {"transfer": "xla", "server_num": 1},
+            "word2vec": {"len_vec": 16, "window": 2, "negative": 5,
+                         "sample": 1e-3, "learning_rate": 0.05,
+                         "stencil": 1, "shared_negatives": shared,
+                         "shared_pool": 64},
+            "server": {"initial_learning_rate": 0.3}}
+    sents = synthetic_corpus(40, 300, 16, seed=3)
+    models = []
+    for where in ("cuda", "cpu"):
+        m = Word2Vec(config=ConfigParser().update(conf), device=where,
+                     capacity_per_shard=600)
+        m.build(sents)
+        models.append(m)
+    card, cpu = models
+    cpu.table.state = state_from_jax(state_to_numpy(card.table.state), "cpu")
+    batch = next(iter(CBOWBatcher(sents, card.vocab, 2, 1e-3,
+                                  seed=5).epoch_stencil(96)))
+    rng = np.random.default_rng(1)
+    shape = (64,) if shared else (96, 5)
+    draws = (rng.integers(0, len(card.vocab), shape),
+             rng.random(shape, np.float32))
+    kernels.reset_launches()
+    es_c, ec_c = card.step_batch(batch, draws=draws)
+    es_p, ec_p = cpu.step_batch(batch, draws=draws)
+    assert stencil.launches == 1
+    np.testing.assert_allclose(ec_c, ec_p, rtol=1e-6 if shared else 0)
+    np.testing.assert_allclose(es_c, es_p, rtol=1e-5)
+    got, want = state_to_numpy(card.table.state), \
+        state_to_numpy(cpu.table.state)
+    for f in want:
+        np.testing.assert_allclose(got[f], want[f], rtol=1e-3, atol=1e-5)
+    assert card.transfer.push_paths["v:span"] == 1

@@ -27,7 +27,7 @@ from swiftmpi_tpu.ops.pallas_scatter import masked_vmem_scatter_add
 from swiftmpi_tpu.parameter.access import w2v_access as jax_w2v_access
 from swiftmpi_tpu.transfer.xla import _masked_gather
 from swiftmpi_tpu_torch import kernels
-from swiftmpi_tpu_torch.kernels import adagrad, build, gather, scatter
+from swiftmpi_tpu_torch.kernels import adagrad, build, gather, scatter, stencil
 
 CAP, D, N = 300, 16, 512
 
@@ -173,7 +173,8 @@ def _forbid_build(monkeypatch):
         monkeypatch.setattr(build, name, boom)
 
 
-@pytest.mark.parametrize("kernel", ["gather", "scatter", "adagrad"])
+@pytest.mark.parametrize("kernel", ["gather", "scatter", "adagrad",
+                                    "stencil"])
 def test_dispatch_takes_plain_path_on_cpu(monkeypatch, kernel):
     """A CPU tensor runs the plain version: no build, no launch count."""
     _forbid_build(monkeypatch)
@@ -192,6 +193,14 @@ def test_dispatch_takes_plain_path_on_cpu(monkeypatch, kernel):
             scatter.masked_scatter_add(ts, tv, g, CAP),
             scatter.masked_scatter_add_plain(ts, tv, g, CAP),
             rtol=0, atol=0)
+    elif kernel == "stencil":
+        t = torch.from_numpy(rng.normal(size=(CAP, D)).astype(np.float32))
+        lo = torch.from_numpy(rng.integers(0, 64 - 5, 20).astype(np.int32))
+        w = torch.from_numpy((rng.random((20, 5)) < 0.7).astype(np.float32))
+        torch.testing.assert_close(
+            stencil.fused_stencil_gather(t, ts, lo, w),
+            stencil.fused_stencil_gather_plain(t, ts, lo, w),
+            rtol=0, atol=0)
     else:
         p, a, g = (torch.from_numpy(rng.random((8, D)).astype(np.float32))
                    for _ in range(3))
@@ -201,10 +210,11 @@ def test_dispatch_takes_plain_path_on_cpu(monkeypatch, kernel):
         torch.testing.assert_close(p, p2, rtol=0, atol=0)
         torch.testing.assert_close(a, a2, rtol=0, atol=0)
     assert kernels.launch_counts() == {"gather": 0, "scatter": 0,
-                                       "adagrad": 0}
+                                       "adagrad": 0, "stencil": 0}
 
 
-@pytest.mark.parametrize("kernel", ["gather", "scatter", "adagrad"])
+@pytest.mark.parametrize("kernel", ["gather", "scatter", "adagrad",
+                                    "stencil"])
 def test_dispatch_raises_on_other_devices(monkeypatch, kernel):
     """Neither CPU nor CUDA: the wrapper raises; nothing falls back."""
     _forbid_build(monkeypatch)
@@ -216,6 +226,9 @@ def test_dispatch_raises_on_other_devices(monkeypatch, kernel):
             gather.masked_gather(meta, ms, mv)
         elif kernel == "scatter":
             scatter.masked_scatter_add(ms, mv, meta, CAP)
+        elif kernel == "stencil":
+            stencil.fused_stencil_gather(
+                meta, ms, ms, torch.empty((4, 3), device="meta"))
         else:
             adagrad.adagrad_update_(meta, meta, meta, 0.5)
 

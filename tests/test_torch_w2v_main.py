@@ -81,7 +81,38 @@ def test_cli_trains_and_writes_a_dump_that_parses(files):
     assert keys == set(vocab.keys.tolist())
 
 
-@pytest.mark.parametrize("line", ["stencil: 1", "sg: 1", "local_steps: 4",
+@pytest.mark.parametrize("lines,rendering", [
+    ("stencil: 1", "stencil"), ("shared_negatives: 1", "shared"),
+    ("stencil: 1\nshared_negatives: 1\nshared_pool: 32", "stencil_shared"),
+    ("stencil: 1\n[cluster]\ndata_plane: pallas", "stencil")])
+def test_cli_trains_stencil_and_shared_confs(files, monkeypatch, lines,
+                                             rendering):
+    """A conf with ``stencil: 1`` and/or ``shared_negatives: 1`` trains
+    through the CLI in that rendering and dumps every vocab key."""
+    tmp, conf, data = files
+    with open(conf, "a") as f:
+        f.write(lines + "\n")
+    seen = []
+    train = w2v_main.Word2Vec.train
+
+    def spy(self, *a, **k):
+        out = train(self, *a, **k)
+        seen.append((self.resolved_rendering, out))
+        return out
+
+    monkeypatch.setattr(w2v_main.Word2Vec, "train", spy)
+    out = tmp / "vectors.txt"
+    assert w2v_main.main(["w2v", "-config", conf, "-data", data, "-niters",
+                          "2", "-output", str(out), "-device", "cpu"]) == 0
+    assert seen[0][0] == rendering and np.isfinite(seen[0][1]).all()
+    rows = [w2v_parser(line.partition("\t")[2])
+            for line in out.read_text().splitlines()]
+    assert len(rows) == len(build_vocab(load_corpus(data)))
+    assert all(r["v"].shape == r["h"].shape == (8,) for r in rows)
+
+
+@pytest.mark.parametrize("line", ["[worker]\npipeline: 2", "sg: 1",
+                                  "local_steps: 4",
                                   "[server]\ndtype: bfloat16",
                                   "[cluster]\npush_window: 4",
                                   "[obs]\ntrace: 1"])
