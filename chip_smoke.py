@@ -10,26 +10,37 @@ xla, one server) on the text8-shaped synthetic corpus
 ``synthetic_corpus_bulk(17_000, 70_000, 1_000, seed=42)``, vocab counted
 over the whole corpus, in four renderings (``PATHS``): ``gather`` (the
 default), ``stencil`` (``stencil: 1``), ``stencil_shared`` (+
-``shared_negatives: 1``, pool 1024) and ``shared``.  Phases, each of which
-raises on a failed check:
+``shared_negatives: 1``, pool 1024) and ``shared``; and the sharded
+parameter server (``[cluster] transfer: tpu``, ``server_num: 8``: eight
+logical ranks, each with its own table shard and buffers, all on the one
+card) in the ``gather`` and ``shared`` renderings (``gather@8``,
+``shared@8``).  Phases, each of which raises on a failed check:
 
 1. setup: the card's name and power limit; build the CUDA kernels.
 2. kernels: each kernel at the shapes one step of its path gives it —
    the gather path's pulls, push and AdaGrad calls, the stencil path's
    fused stencil gather (a real stencil batch with extra pad centers and a
    shuffled block of centers), its mostly-padding h push and
-   ``push_span``'s AdaGrad on the span's rows — against its plain PyTorch version on the card, timed with CUDA
-   events (median of 25 launches, L2 flushed between launches) beside the
-   plain version and one library call.
+   ``push_span``'s AdaGrad on the span's rows, and the sharded path's ring
+   exchange of its request, row and odd-width buckets — against its plain
+   PyTorch version on the card, timed with CUDA events (median of 25
+   launches, L2 flushed between launches) beside the plain version and one
+   library call.
 3. step parity: one step on the card and the same step on the CPU from
    the same table and the same negative-sampling draws, for ``gather``,
-   ``stencil`` and ``stencil_shared``.
+   ``stencil`` and ``stencil_shared``; and one sharded ``gather`` step
+   against the sharded CPU step and, row for row by key, against the
+   one-shard ``xla`` step on the card.
 4. train: ``Word2Vec.train`` over a corpus prefix (>= 20 steps) for each
    rendering, every launch counter set to 0 just before; the run must have
    launched exactly the kernels of its path (the stencil kernel on every
    step of a stencil path) and the loss must be finite.
-5. CLI: ``apps.w2v_main.main`` on a small corpus with the gather conf and
-   with ``stencil: 1``; each dump must parse.
+   A sharded run must launch the ring kernel for every exchange of every
+   step and the other kernels once per shard, overflow nothing and time
+   out no wait.
+5. CLI: ``apps.w2v_main.main`` on a small corpus with the gather conf,
+   with ``stencil: 1`` and with ``transfer: tpu``, ``server_num: 8``; each
+   dump must parse.
 
 The line before the last is the ``{"kernels": [...]}`` summary, each
 kernel's ``launches`` read from the train run of its path; the last is
@@ -60,7 +71,8 @@ from swiftmpi_tpu_torch.data.text import (CBOWBatcher, StencilBatch,
                                           synthetic_corpus,
                                           synthetic_corpus_bulk,
                                           write_tokens_file)
-from swiftmpi_tpu_torch.kernels import adagrad, build, gather, scatter, stencil
+from swiftmpi_tpu_torch.kernels import (adagrad, build, gather, ring,
+                                        scatter, stencil)
 from swiftmpi_tpu_torch.models.word2vec import (Word2Vec, _cbow_targets,
                                                 _parity_targets, w2v_parser)
 from swiftmpi_tpu_torch.utils import ConfigParser, reset_global_config
@@ -79,6 +91,19 @@ PATHS = {
                        {"stencil", "gather", "adagrad"}, 200),
     "shared": ({"shared_negatives": 1}, {"gather", "adagrad"}, 800),
 }
+#: ranks of the sharded parameter server, all on the one card
+SHARDS = 8
+#: sharded path -> per step and per rank: ring exchanges (two per pull,
+#: two per pushed family), gathers (one per pull), scatter-adds (one per
+#: pushed family, one more for the counts of a mean push), AdaGrad calls
+#: (one per pushed family)
+SHARDED = {
+    f"gather@{SHARDS}": {"ring": 8, "gather": 2, "scatter": 4, "adagrad": 2},
+    f"shared@{SHARDS}": {"ring": 10, "gather": 2, "scatter": 5,
+                         "adagrad": 3},
+}
+for _path in SHARDED:
+    PATHS[_path] = (PATHS[_path.split("@")[0]][0], set(SHARDED[_path]), 800)
 MIN_TRAIN_STEPS = 20
 
 #: published H100 SXM peaks (dense): HBM bytes/s and float32 FLOP/s
@@ -92,11 +117,22 @@ def _json_line(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def _model(rendering: str, vocab, device: str) -> Word2Vec:
+def _model(path: str, vocab, device: str) -> Word2Vec:
+    """The model of a path: a rendering, ``@n`` for the sharded parameter
+    server with n ranks."""
+    rendering, _, shards = path.partition("@")
     conf = ConfigParser().update(DEMO_CONF)
-    for k, v in PATHS[rendering][0].items():
+    for k, v in PATHS[path][0].items():
         conf.set("word2vec", k, v)
+    if shards:
+        conf.set("cluster", "transfer", "tpu")
+        conf.set("cluster", "server_num", int(shards))
     model = Word2Vec(config=conf, device=device)
+    if shards and (model.transfer.name != "tpu"
+                   or model.cluster.n_servers != int(shards)):
+        raise AssertionError(f"{path} conf gave transfer "
+                             f"{model.transfer.name} over "
+                             f"{model.cluster.n_servers} shard(s)")
     if model.resolved_rendering != rendering:
         raise AssertionError(f"{rendering} conf resolved to "
                              f"{model.resolved_rendering}")
@@ -189,7 +225,7 @@ def _perturbed(slots: torch.Tensor, cap: int, rng: np.random.Generator):
             torch.as_tensor(valid, device=dev).contiguous())
 
 
-def _gather_case(label, table, slots, valid, flush):
+def _gather_case(label, table, slots, valid, flush, path="gather"):
     out_k = gather.masked_gather(table, slots, valid)
     out_p = gather.masked_gather_plain(table, slots, valid)
     torch.cuda.synchronize()
@@ -202,7 +238,7 @@ def _gather_case(label, table, slots, valid, flush):
     nbytes = 4 * d * rows_read + 5 * n + 4 * n * d
     idx64 = clipped.contiguous()
     return dict(
-        name=f"masked_gather ({label})", route="cuda", path="gather",
+        name=f"masked_gather ({label})", route="cuda", path=path,
         source="swiftmpi_tpu_torch/kernels/csrc/gather.cu",
         replaces="swiftmpi_tpu/ops/pallas_gather.py:164",
         module=gather, shape=f"{n} rows x {d} of a {tuple(table.shape)} "
@@ -334,6 +370,49 @@ def _stencil_case(table, slots, lo, wmask, n_real, flush):
         bytes=nbytes, flops=2 * int(on.sum()) * d)
 
 
+def _ring_case(label, tail, dtype, rng, flush, dev):
+    """The ring exchange of ``SHARDS`` ranks' ``(SHARDS, *tail)`` operands
+    against its plain version: a copy, so bit for bit."""
+    n = SHARDS
+    if dtype == torch.int32:
+        xs = [torch.as_tensor(rng.integers(-1, 11_000, (n, *tail))
+                              .astype(np.int32), device=dev)
+              for _ in range(n)]
+    else:
+        xs = [torch.as_tensor(rng.random((n, *tail), np.float32) - 0.5,
+                              device=dev) for _ in range(n)]
+    out_k = ring.ring_exchange(xs)
+    out_p = ring.ring_exchange_plain(xs)
+    torch.cuda.synchronize()
+    err = max((a.double() - b.double()).abs().max().item()
+              for a, b in zip(out_k, out_p))
+    if not all(torch.equal(a, b) for a, b in zip(out_k, out_p)):
+        raise AssertionError(f"ring_exchange ({label}): kernel != plain "
+                             f"(max |err| {err})")
+    if ring.timeouts():
+        raise AssertionError(f"ring_exchange ({label}): a wait timed out")
+    lib = torch.stack(xs).transpose(0, 1).contiguous()
+    if not all(torch.equal(lib[r], out_p[r]) for r in range(n)):
+        raise AssertionError(f"ring_exchange ({label}): the library "
+                             "transpose != plain")
+    del out_k, out_p, lib
+    nbytes = 2 * n * xs[0].numel() * xs[0].element_size()
+    return dict(
+        name=f"ring_exchange ({label})", route="cuda",
+        path=f"gather@{SHARDS}",
+        source="swiftmpi_tpu_torch/kernels/csrc/ring.cu",
+        replaces="swiftmpi_tpu/ops/pallas_ring.py:86",
+        module=ring, shape=f"{n} ranks x {(n, *tail)} "
+        f"{str(dtype).rsplit('.', 1)[-1]}, {n} send launches + 1 wait launch",
+        max_abs_err=err, tolerance="exact",
+        ms=_time_ms(lambda: ring.ring_exchange(xs), flush),
+        plain_ms=_time_ms(lambda: ring.ring_exchange_plain(xs), flush),
+        library_ms=_time_ms(
+            lambda: torch.stack(xs).transpose(0, 1).contiguous(), flush),
+        library="torch.stack(xs).transpose(0, 1).contiguous()",
+        bytes=nbytes, flops=0)
+
+
 def phase_kernels(model: Word2Vec, batch, sbatch: StencilBatch) -> list:
     rng = np.random.default_rng(7)
     state = model.table.state
@@ -376,6 +455,52 @@ def phase_kernels(model: Word2Vec, batch, sbatch: StencilBatch) -> list:
         state["v"].index_select(0, span_rows).contiguous(),
         accum.index_select(0, span_rows).contiguous(),
         grads_like((span_rows.numel(), d)), lr, flush))
+    return cases
+
+
+def phase_kernels_sharded(model: Word2Vec, batch) -> list:
+    """The sharded path's kernels at the shapes one of its gather steps
+    gives them: the three ring exchanges of the h family, and what rank 0
+    does as an owner with the ``SHARDS * C`` requests it receives (most of
+    them padding: every sender pads its bucket to C) — the gather from
+    its shard, the scatter-add of the received grads and of their counts,
+    and AdaGrad over the shard."""
+    rng = np.random.default_rng(17)
+    dev, d = model.device, model.len_vec
+    flush = torch.zeros(2 * 50 * 2 ** 20 // 4, device=dev)
+    path = f"gather@{SHARDS}"
+    state = model.table.state
+    h_slots, _ = _step_inputs(model, batch, rng)
+    # each rank's slice of the h pull and push is B*(K+1)/SHARDS slots,
+    # the bucket capacity per destination
+    C = h_slots.shape[0] // SHARDS
+    cases = [
+        _ring_case("h requests", (C,), torch.int32, rng, flush, dev),
+        _ring_case("h rows", (C, d), torch.float32, rng, flush, dev),
+        _ring_case("odd row width", (C, d + 1), torch.float32, rng, flush,
+                   dev)]
+    groups, C_routed, cap = model.transfer._route(state, h_slots)
+    if C_routed != C or len(groups) != 1:
+        raise AssertionError(f"bucket capacity {C_routed}, expected {C}, "
+                             f"in {len(groups)} device group(s)")
+    got = ring.ring_exchange(list(groups[0].req))[0].reshape(-1)
+    got, ok = got.contiguous(), (got >= 0).contiguous()
+    cases.append(_gather_case("shard h pull", state["h"][0], got, ok, flush,
+                              path))
+    cases.append(_scatter_case("shard h push", path, got, ok, cap, d, rng,
+                               flush))
+    cases.append(_scatter_case("shard h counts", path, got, ok, cap, 1, rng,
+                               flush))
+    accum = torch.as_tensor(rng.random((cap, d), np.float32) * 1e-3,
+                            device=dev)
+    grad = torch.as_tensor(rng.normal(size=(cap, d)).astype(np.float32)
+                           * 1e-2, device=dev)
+    cases.append(_adagrad_case("h shard", path, state["h"][0].clone(), accum,
+                               grad, model.access.learning_rate, flush))
+    return cases
+
+
+def report_cases(cases: list) -> None:
     for c in cases:
         c["bound_ms"], c["bound_by"] = _bound_ms(c["bytes"], c["flops"])
         _json_line({"kernel": c["name"], "shape": c["shape"],
@@ -385,7 +510,6 @@ def phase_kernels(model: Word2Vec, batch, sbatch: StencilBatch) -> list:
                     "library_ms": c["library_ms"],
                     "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                     "bytes": c["bytes"]})
-    return cases
 
 
 # -- phase 3: one step on the card against the same step on the CPU ---------
@@ -437,6 +561,83 @@ def phase_step_parity(rendering: str, vocab, batch) -> None:
                 "launches": counts})
 
 
+def _within_envelope(what, got, want) -> float:
+    gap = np.abs(got - want)
+    limit = 1e-5 + 1e-3 * np.abs(want)
+    if not (gap <= limit).all():
+        raise AssertionError(
+            f"{what} leaves |a-b| <= 1e-5 + 1e-3|b| (max gap {gap.max()}, "
+            f"{(gap > limit).sum()} elements)")
+    return float(gap.max())
+
+
+def phase_step_parity_sharded(vocab, batch) -> None:
+    """One ``gather`` step of the sharded parameter server on the card,
+    against the same sharded step on the CPU (whole tables, inside the
+    envelope, ``err_cnt`` exact) and against the one-shard ``xla`` step on
+    the card, row for row by key: the two lay the same words out in
+    different slots."""
+    path = f"gather@{SHARDS}"
+    model = _model(path, vocab, "cuda")
+    cpu_model = _model(path, vocab, "cpu")
+    single = _model("gather", vocab, "cuda")
+    B = len(batch)
+    draws = _draws(model, B, np.random.default_rng(11))
+    # every word starts from the row the one-shard model gives it
+    rows_single = state_to_numpy(single.table.state)
+    at_single = single._slot_of_vocab.cpu().numpy()
+    at_sharded = model._slot_of_vocab.cpu().numpy()
+    start = state_to_numpy(model.table.state)
+    for f in start:
+        start[f][at_sharded] = rows_single[f][at_single]
+    model.table.state = state_from_jax(start, "cuda",
+                                       mesh=model.cluster.mesh)
+    cpu_model.table.state = state_from_jax(start, "cpu",
+                                           mesh=cpu_model.cluster.mesh)
+    kernels.reset_launches()
+    es_c, ec_c = model.step_batch(batch, draws=draws)
+    counts = kernels.launch_counts()
+    es_p, ec_p = cpu_model.step_batch(
+        batch, draws=tuple(t.cpu() for t in draws))
+    es_s, ec_s = single.step_batch(batch, draws=draws)
+    if not ec_c == ec_p == ec_s:
+        raise AssertionError(f"{path} err_cnt: card {ec_c}, cpu {ec_p}, "
+                             f"one shard {ec_s}")
+    if not (math.isclose(es_c, es_p, rel_tol=1e-4)
+            and math.isclose(es_c, es_s, rel_tol=1e-4)):
+        raise AssertionError(f"{path} err_sum: card {es_c}, cpu {es_p}, "
+                             f"one shard {es_s}")
+    card, cpu, one = (state_to_numpy(m.table.state)
+                      for m in (model, cpu_model, single))
+    worst_cpu = {f: _within_envelope(f"{path} vs the CPU step, field {f},",
+                                     card[f], cpu[f]) for f in cpu}
+    worst_one = {f: _within_envelope(
+        f"{path} vs the one-shard step by key, field {f},",
+        card[f][at_sharded], one[f][at_single]) for f in one}
+    moved = int((card["h"][at_sharded] != start["h"][at_sharded])
+                .any(axis=1).sum())
+    if not moved:
+        raise AssertionError(f"{path}: the step moved no row")
+    want = {k: v * SHARDS for k, v in SHARDED[path].items()}
+    want["stencil"] = 0
+    if counts != want:
+        raise AssertionError(f"{path} step launched {counts}, its path is "
+                             f"{want}")
+    if model.transfer.overflow_count() or ring.timeouts():
+        raise AssertionError(f"{path}: overflow "
+                             f"{model.transfer.overflow_count()}, wait "
+                             f"timeouts {ring.timeouts()}")
+    _json_line({"phase": "step_parity", "rendering": path, "centers": B,
+                "real_centers": batch.n_words,
+                "err_sum": [es_c, es_p, es_s], "err_cnt": [ec_c, ec_p, ec_s],
+                "max_abs_gap_vs_cpu": worst_cpu,
+                "max_abs_gap_vs_one_shard_by_key": worst_one,
+                "rows_moved": moved, "envelope": "1e-5 + 1e-3*|b|",
+                "shard_fill": model.table.key_index.shard_fill().tolist(),
+                "push_paths": dict(model.transfer.push_paths),
+                "launches": counts})
+
+
 # -- phase 4: training through the public entry point -----------------------
 
 def phase_train(rendering: str, vocab, corpus: np.ndarray,
@@ -464,7 +665,22 @@ def phase_train(rendering: str, vocab, corpus: np.ndarray,
         raise AssertionError(f"{rendering}: {counts['stencil']} stencil "
                              f"launches in {m['steps']} steps, push paths "
                              f"{m['push_paths']}")
+    extra = {}
+    if rendering in SHARDED:
+        # every step: the ring kernel for every exchange, the others once
+        # per shard and use
+        want = {k: v * SHARDS * m["steps"]
+                for k, v in SHARDED[rendering].items()}
+        got = {k: counts[k] for k in want}
+        extra = {"overflow_count": model.transfer.overflow_count(),
+                 "wait_timeouts": ring.timeouts(), "shards": m["shards"]}
+        if got != want or extra["overflow_count"] or extra["wait_timeouts"] \
+                or any(not k.endswith(":routed") for k in m["push_paths"]):
+            raise AssertionError(
+                f"{rendering}: launches {got} in {m['steps']} steps, its "
+                f"path gives {want}; {extra}; push paths {m['push_paths']}")
     _json_line({"phase": "train", "rendering": rendering, "card": card,
+                **extra,
                 "loss": losses, "steps": m["steps"], "words": m["words"],
                 "seconds": m["seconds"],
                 "batcher_seconds": m["batcher_seconds"],
@@ -476,14 +692,15 @@ def phase_train(rendering: str, vocab, corpus: np.ndarray,
 
 # -- phase 5: the CLI --------------------------------------------------------
 
-def phase_cli(extra: str, expect: set) -> None:
+def phase_cli(extra: str, expect: set, cluster: str = "server_num: 1\n"
+              "transfer: xla\n") -> None:
     if WORK.exists():
         shutil.rmtree(WORK)
     WORK.mkdir(parents=True)
     data, conf, out = WORK / "corpus.txt", WORK / "w2v.conf", \
         WORK / "vectors.txt"
     write_tokens_file(synthetic_corpus(200, 500, 20, seed=1), str(data))
-    conf.write_text("[cluster]\nserver_num: 1\ntransfer: xla\n"
+    conf.write_text("[cluster]\n" + cluster +
                     "[worker]\nminibatch: 512\n"
                     "[server]\ninitial_learning_rate: 0.7\n"
                     "[word2vec]\nlen_vec: 100\nwindow: 4\nnegative: 20\n"
@@ -510,10 +727,12 @@ def phase_cli(extra: str, expect: set) -> None:
                              f"{len(vocab)}")
     launched = {k for k, n in counts.items() if n}
     if launched != expect:
-        raise AssertionError(f"the CLI run ({extra.strip() or 'gather'}) "
-                             f"launched {sorted(launched)}, expected "
+        raise AssertionError(f"the CLI run ({extra.strip() or 'gather'}; "
+                             f"{cluster.split()}) launched "
+                             f"{sorted(launched)}, expected "
                              f"{sorted(expect)}")
     _json_line({"phase": "cli", "conf": extra.strip() or "gather",
+                "cluster": " ".join(cluster.split()),
                 "rows": len(keys), "launches": counts})
     shutil.rmtree(WORK)
 
@@ -554,12 +773,18 @@ def main() -> int:
 
     cases = phase_kernels(model, batch, sbatch)
     del model
+    cases += phase_kernels_sharded(_model(f"gather@{SHARDS}", vocab, "cuda"),
+                                   batch)
+    report_cases(cases)
     phase_step_parity("gather", vocab, batch)
     phase_step_parity("stencil", vocab, sbatch)
     phase_step_parity("stencil_shared", vocab, sbatch)
+    phase_step_parity_sharded(vocab, batch)
     counts = {r: phase_train(r, vocab, corpus, card) for r in PATHS}
     phase_cli("", PATHS["gather"][1])
     phase_cli("stencil: 1\n", PATHS["stencil"][1])
+    phase_cli("", PATHS[f"gather@{SHARDS}"][1],
+              cluster=f"server_num: {SHARDS}\ntransfer: tpu\n")
 
     summary = []
     for c in cases:

@@ -4,7 +4,10 @@
 the CUDA device; the CPU only when asked for).  Only the sync variant is
 ported: ``-variant async|hogwild`` and ``-checkpoint`` raise.  The conf's
 ``[word2vec] stencil: 1`` and ``shared_negatives: 1`` pick the stencil,
-shared and stencil_shared renderings, as in the JAX package.
+shared and stencil_shared renderings, as in the JAX package.  The sharded
+parameter server is the conf's ``[cluster] transfer: tpu`` with
+``server_num: n``; ``-shards n`` sets ``server_num`` from the command
+line.
 
     python -m swiftmpi_tpu_torch.apps.w2v_main -config demo.conf \\
         -data corpus.txt -niters 1 -output vectors.txt
@@ -32,6 +35,8 @@ def main(argv=None) -> int:
     cmd.registerParameter("variant", "sync (int keys); async and hogwild "
                           "are not ported yet")
     cmd.registerParameter("device", "cuda (default) | cpu")
+    cmd.registerParameter("shards", "table shards ([cluster] server_num; "
+                          "needs [cluster] transfer: tpu when > 1)")
     if cmd.hasParameter("help") or not cmd.hasParameter("data"):
         cmd.print_help()
         return 0
@@ -45,6 +50,9 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             "-checkpoint is not ported yet (ROADMAP A9)")
 
+    if cmd.hasParameter("shards"):
+        global_config().set("cluster", "server_num",
+                            int(cmd.getValue("shards")))
     device = cmd.getValue("device", "") or None
     model = Word2Vec(device=device)
     niters = int(cmd.getValue("niters", "1"))
@@ -52,7 +60,8 @@ def main(argv=None) -> int:
                          min_sentence_length=model.min_sentence_length)
     model.build(corpus)
     losses = model.train(corpus, niters=niters)
-    log.info("final error: %.5f", losses[-1])
+    log.info("final error: %.5f; push paths %s", losses[-1],
+             model.train_metrics["push_paths"])
     if cmd.hasParameter("output"):
         n = model.save(cmd.getValue("output"))
         log.info("wrote %d embeddings -> %s", n, cmd.getValue("output"))

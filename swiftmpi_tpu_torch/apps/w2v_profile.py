@@ -3,11 +3,14 @@ the full width of the reference configuration (demo.conf on the
 text8-shaped synthetic corpus, the configuration ``chip_smoke.py`` runs).
 
     python -m swiftmpi_tpu_torch.apps.w2v_profile [-steps 40] \\
-        [-stencil 1] [-shared 1] [-trace build/w2v_step_trace.json]
+        [-stencil 1] [-shared 1] [-shards 8] \\
+        [-trace build/w2v_step_trace.json]
 
 ``-stencil 1`` / ``-shared 1`` set ``[word2vec] stencil`` /
 ``shared_negatives`` (the ``stencil``, ``shared`` and ``stencil_shared``
-renderings); the default is the gather rendering.
+renderings); the default is the gather rendering.  ``-shards n`` runs the
+sharded parameter server (``[cluster] transfer: tpu``, ``server_num: n``)
+with its n ranks on the one card.
 
 Batches are made before the clock starts, so the numbers are the
 device path's alone (the host batcher's time is reported apart):
@@ -21,6 +24,9 @@ device path's alone (the host batcher's time is reported apart):
   runs slower, ``window_ms_per_step``, from the profiler's overhead);
 * ``by_kernel_ms_per_step``: the window's device time by kernel name,
   largest first;
+* ``by_host_op_ms_per_step``: the window's host time by operator (self
+  time, the twelve largest), and ``host_ops_per_step``, the operators
+  called a step: what a host-bound step spends its time on;
 * ``centers_per_batch``: real centers per batch (a stencil batch holds
   fewer than ``BATCH`` when its span fills first).
 
@@ -72,7 +78,8 @@ def _short(name: str) -> str:
     """The port's kernels by their function name; others cut to 80
     characters."""
     m = re.search(r"\b(masked_gather_\w+|masked_scatter_add|"
-                  r"adagrad_update|stencil_gather)\b", name)
+                  r"adagrad_update|stencil_gather|ring_send|ring_wait)\b",
+                  name)
     return m.group(1) if m else name[:80]
 
 
@@ -89,8 +96,18 @@ def _busy_by_kernel(prof) -> dict:
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
+def _host_by_op(prof, top: int = 12):
+    """Host self time (ms) by operator over the profiled window, largest
+    first, and the number of operator calls."""
+    rows = [(e.key[:60], e.self_cpu_time_total / 1e3, e.count)
+            for e in prof.key_averages()]
+    rows.sort(key=lambda r: -r[1])
+    return ({k: ms for k, ms, _ in rows[:top]},
+            sum(c for _, _, c in rows))
+
+
 def profile(steps: int = 40, trace: str = "", stencil: int = 0,
-            shared: int = 0) -> dict:
+            shared: int = 0, shards: int = 0) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("w2v_profile measures the card; no CUDA device "
                            "is available")
@@ -100,6 +117,9 @@ def profile(steps: int = 40, trace: str = "", stencil: int = 0,
     config = ConfigParser().update(DEMO_CONF)
     config.set("word2vec", "stencil", stencil)
     config.set("word2vec", "shared_negatives", shared)
+    if shards:
+        config.set("cluster", "transfer", "tpu")
+        config.set("cluster", "server_num", shards)
     model = Word2Vec(config=config, device="cuda")
     model.build_from_vocab(vocab)
     need = WARM_STEPS + steps + PROFILED_STEPS
@@ -141,11 +161,13 @@ def profile(steps: int = 40, trace: str = "", stencil: int = 0,
         window_s = time.perf_counter() - t0
     by_kernel = _busy_by_kernel(prof)
     busy_ms = sum(by_kernel.values())
+    host_by_op, host_calls = _host_by_op(prof)
     if trace:
         prof.export_chrome_trace(trace)
     return {
         "card": card_line(), "rendering": model.resolved_rendering,
         "steps": steps, "batch": BATCH,
+        "transfer": model.transfer.name, "shards": model.cluster.n_servers,
         "centers_per_batch": words / steps,
         "vocab": len(vocab), "capacity": model.table.capacity,
         "step_ms": step_s * 1e3,
@@ -160,6 +182,9 @@ def profile(steps: int = 40, trace: str = "", stencil: int = 0,
         if busy_ms else "not measured",
         "by_kernel_ms_per_step": {k: v / len(window)
                                   for k, v in by_kernel.items()},
+        "by_host_op_ms_per_step": {k: v / len(window)
+                                   for k, v in host_by_op.items()},
+        "host_ops_per_step": host_calls / len(window),
         "push_paths": dict(model.transfer.push_paths),
     }
 
@@ -171,10 +196,13 @@ def main(argv=None) -> int:
                           "trace here")
     cmd.registerParameter("stencil", "1: the stencil rendering")
     cmd.registerParameter("shared", "1: shared negatives")
+    cmd.registerParameter("shards", "n: the sharded parameter server with "
+                          "n ranks on the card")
     out = profile(int(cmd.getValue("steps", "40")),
                   cmd.getValue("trace", ""),
                   int(cmd.getValue("stencil", "0")),
-                  int(cmd.getValue("shared", "0")))
+                  int(cmd.getValue("shared", "0")),
+                  int(cmd.getValue("shards", "0")))
     print(json.dumps(out), flush=True)
     return 0
 

@@ -1,10 +1,13 @@
 """Table state between the two frameworks, as numpy arrays.
 
-The JAX package's state is a ``{field: jax.Array}`` dict; the port's a
-``{field: Tensor}`` dict with the same names, shapes and slot layout (one
-shard, see ``parameter/key_index.py``).  Pass ``{f: np.asarray(a)}`` of
-the JAX state to :func:`state_from_jax`; :func:`state_to_numpy` goes the
-other way.  Neither side imports the other framework.
+The JAX package's state is a ``{field: jax.Array}`` dict of global
+``(capacity, dim)`` arrays; the port's has the same names and slot layout,
+as one tensor per field (one device) or one tensor per shard (the sharded
+table, ``parameter/sparse_table.py``).  Pass ``{f: np.asarray(a)}`` of the
+JAX state to :func:`state_from_jax`, with the rank layout of a sharded
+table as ``mesh``; :func:`state_to_numpy` goes the other way and gives
+global arrays for either layout.  Neither side imports the other
+framework.
 """
 
 from __future__ import annotations
@@ -14,13 +17,17 @@ from typing import Dict
 import numpy as np
 import torch
 
-
-def state_from_jax(np_state: Dict[str, np.ndarray],
-                   device) -> Dict[str, torch.Tensor]:
-    """Copies of the numpy arrays as contiguous tensors on ``device``."""
-    return {f: torch.from_numpy(np.array(a, copy=True)).to(device)
-            for f, a in np_state.items()}
+from swiftmpi_tpu_torch.parameter.sparse_table import (  # noqa: F401
+    TableState, split_rows, state_to_numpy)
 
 
-def state_to_numpy(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    return {f: t.detach().cpu().numpy().copy() for f, t in state.items()}
+def state_from_jax(np_state: Dict[str, np.ndarray], device,
+                   mesh=None) -> TableState:
+    """Copies of the numpy arrays as contiguous tensors on ``device``, or,
+    with ``mesh``, as per-shard tensors on its ranks' devices (global row
+    order: shard ``s`` takes rows ``s * cap_per_shard`` onwards)."""
+    out = {}
+    for f, a in np_state.items():
+        t = torch.from_numpy(np.array(a, copy=True))
+        out[f] = t.to(device) if mesh is None else split_rows(t, mesh)
+    return out

@@ -26,7 +26,7 @@ def dump_table_text(table: SparseTable, path: str,
     key-index insertion order; ``row`` maps every field of the table to
     the slot's vector.  Returns the count."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    rows = table.rows_as_numpy()
+    rows = table.to_numpy()
     n = 0
     with open(path, "w") as f:
         for key, slot in table.key_index.items():

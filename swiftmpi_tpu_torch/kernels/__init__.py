@@ -7,6 +7,7 @@ gather     ops/pallas_gather.py vmem_gather            every pull
 scatter    ops/pallas_scatter.py vmem_scatter_add      the dense push
 adagrad    ops/pallas_kernels.py adagrad_update        every apply
 stencil    ops/pallas_stencil.py fused_stencil_gather  stencil neu1
+ring       ops/pallas_ring.py ring_exchange            sharded pull/push
 =========  ==========================================  =================
 
 Each module holds the kernel's wrapper, its plain PyTorch version
@@ -15,9 +16,10 @@ kernel launch.  The wrapper runs the plain version for CPU tensors and
 launches the kernel for CUDA tensors, with no fallback between the two.
 """
 
-from swiftmpi_tpu_torch.kernels import adagrad, gather, scatter, stencil
+from swiftmpi_tpu_torch.kernels import (adagrad, gather, ring, scatter,
+                                        stencil)
 
-KERNEL_MODULES = (gather, scatter, adagrad, stencil)
+KERNEL_MODULES = (gather, scatter, adagrad, stencil, ring)
 
 
 def reset_launches() -> None:

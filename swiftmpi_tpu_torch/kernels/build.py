@@ -36,6 +36,7 @@ SOURCES: Dict[str, str] = {
     "scatter": "scatter.cu",
     "adagrad": "adagrad.cu",
     "stencil": "stencil.cu",
+    "ring": "ring.cu",
 }
 
 NVCC_FLAGS: List[str] = [

@@ -1,5 +1,7 @@
-"""word2vec CBOW + negative sampling, sync variant, on one device
-(counterpart of ``swiftmpi_tpu/models/word2vec.py``).
+"""word2vec CBOW + negative sampling, sync variant (counterpart of
+``swiftmpi_tpu/models/word2vec.py``), on one device (``transfer: xla``)
+or over the n ranks of the sharded parameter server (``transfer: tpu``,
+``server_num: n``).
 
 Reference hot loop (word2vec.h:550-615), per center word:
     b = rand % window;  context = +-(window-b) neighbors
@@ -27,6 +29,11 @@ JAX package resolves them (``resolved_rendering``):
   gradient folds onto span positions and pushes through ``push_span``.
 * ``stencil_shared``: the stencil context side with the shared pool.
 
+With ``transfer: tpu`` (gather and shared renderings only, as in the
+JAX package) the step's arithmetic still runs once over the whole batch,
+as the jitted JAX step does over global arrays; only the pulls and pushes
+are per rank, routed by ``transfer/sharded.py``.
+
 The table tensors are updated in place, the counterpart of the JAX step
 donating its state.  Each step takes the negative-sampling draws ``(j,
 u)`` as an optional argument: the seam the parity tests replay the JAX
@@ -42,6 +49,7 @@ from typing import Dict, Iterator, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from swiftmpi_tpu_torch.cluster import Cluster
 from swiftmpi_tpu_torch.data.text import (CBOWBatch, CBOWBatcher,
                                           StencilBatch, Vocab, build_vocab,
                                           load_corpus)
@@ -54,8 +62,8 @@ from swiftmpi_tpu_torch.ops.sampling import (alias_draws,
                                              sample_alias_from_draws,
                                              sample_alias_slots_from_draws)
 from swiftmpi_tpu_torch.ops.sigmoid import sigmoid_clipped
-from swiftmpi_tpu_torch.parameter import KeyIndex, SparseTable, w2v_access
-from swiftmpi_tpu_torch.transfer import PushSpec, get_transfer
+from swiftmpi_tpu_torch.parameter import SparseTable, w2v_access
+from swiftmpi_tpu_torch.transfer import PushSpec
 from swiftmpi_tpu_torch.utils.config import ConfigParser, global_config
 from swiftmpi_tpu_torch.utils.logger import get_logger
 
@@ -166,7 +174,8 @@ def w2v_parser(text: str) -> Dict[str, np.ndarray]:
 
 class Word2Vec:
     def __init__(self, config: Optional[ConfigParser] = None, device=None,
-                 capacity_per_shard: Optional[int] = None, seed: int = 0):
+                 capacity_per_shard: Optional[int] = None, seed: int = 0,
+                 cluster: Optional[Cluster] = None):
         self.config = config if config is not None else global_config()
         g = self.config.get_or
         self.len_vec = g("word2vec", "len_vec", 100).to_int32()
@@ -189,9 +198,12 @@ class Word2Vec:
             if self.stencil else
             ("shared" if self.shared_negatives else "gather"))
         self.device = resolve_device(device)
+        # one device holds the batch, the step's arithmetic and, for now,
+        # every rank of the layout (shards on different cards: ROADMAP A11)
+        self.cluster = cluster or Cluster(
+            self.config, devices=[self.device]).initialize()
         self.access = w2v_access(server_lr, self.len_vec)
-        self.transfer = get_transfer(
-            g("cluster", "transfer", "xla").to_string())
+        self.transfer = self.cluster.transfer
         self._capacity_per_shard = capacity_per_shard
         self.table: Optional[SparseTable] = None
         self.vocab: Optional[Vocab] = None
@@ -263,8 +275,9 @@ class Word2Vec:
              "[cluster] wire_sketch", "A12")
         want(g("cluster", "collective", "psum").to_string() != "psum",
              "[cluster] collective other than psum", "A12")
-        want(g("cluster", "server_num", 1).to_int32() != 1,
-             "[cluster] server_num > 1", "A11")
+        want(transfer == "tpu" and data_plane == "xla",
+             "[cluster] data_plane: xla with transfer: tpu (the library "
+             "exchange)", "A16")
         want(g("server", "dtype", "float32").to_string() != "float32",
              "[server] dtype other than float32", "bf16 tables for B1/B2")
         want(g("worker", "pipeline", 0).to_int32() != 0,
@@ -290,9 +303,9 @@ class Word2Vec:
                 "empty vocabulary — no sentence survived loading; check the "
                 "corpus and [word2vec] min_sentence_length")
         if self.table is None:
-            cap = self._capacity_per_shard or max(64, int(V * 1.3) + 1)
-            self.table = SparseTable(self.access, KeyIndex(1, cap),
-                                     self.device, seed=0)
+            cap = self._capacity_per_shard or max(
+                64, int(V * 1.3 / self.cluster.n_servers) + 1)
+            self.table = self.cluster.create_table("w2v", self.access, cap)
         slots = self.table.key_index.lookup(vocab.keys)
         self._slot_of_vocab = torch.as_tensor(slots, dtype=torch.int32,
                                               device=self.device)
@@ -300,8 +313,9 @@ class Word2Vec:
         self._alias_prob = torch.as_tensor(prob, device=self.device)
         self._alias_idx = torch.as_tensor(alias, dtype=torch.int64,
                                           device=self.device)
-        log.info("vocab: %d words, %d tokens; table capacity %d on %s",
-                 V, vocab.total_words, self.table.capacity, self.device)
+        log.info("vocab: %d words, %d tokens; table capacity %d in %d "
+                 "shard(s) on %s", V, vocab.total_words, self.table.capacity,
+                 self.cluster.n_servers, self.device)
         return self
 
     # -- gradient phases (JAX _build_grads*) --------------------------------
@@ -533,8 +547,12 @@ class Word2Vec:
                     "call build()/build_from_vocab() before train() with a "
                     "vocab-less batcher")
             self.build_from_vocab(batcher.vocab)
-        batch_size = batch_size or max(
-            256, self.minibatch // (2 * self.window))
+        if not batch_size:
+            # the default, rounded up to a whole number of centers per
+            # rank: the sharded transfer splits every slot array evenly
+            n = self.cluster.n_servers
+            batch_size = -(-max(256, self.minibatch // (2 * self.window))
+                           // n) * n
         losses = []
         words = steps = 0
         host_s = 0.0
@@ -569,6 +587,7 @@ class Word2Vec:
             "batcher_seconds": host_s,
             "steps_per_sec": steps / max(seconds, 1e-9),
             "words_per_sec": words / max(seconds, 1e-9),
+            "shards": self.cluster.n_servers,
             "push_paths": dict(self.transfer.push_paths)}
         return losses
 

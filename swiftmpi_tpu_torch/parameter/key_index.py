@@ -1,35 +1,41 @@
-"""Host-side key -> dense-slot index, single shard (counterpart of
+"""Host-side key -> dense-slot index (counterpart of
 ``swiftmpi_tpu/parameter/key_index.py``).
 
-Keys are arbitrary uint64 values; each gets a dense slot on first touch,
-in first-touch order — the lazy row creation of the reference's
-``dense_hash_map``.  With one shard this is exactly the slot the JAX
-``KeyIndex`` assigns (``slot = shard * capacity_per_shard + local`` with
-shard 0 and no hot head), so a table state carries across the two
-frameworks as a plain copy.  Sharded layouts, the hot/cold partition,
-growth and repartition are not ported yet (ROADMAP A11/A12).
+Keys are arbitrary uint64 values.  A key's shard comes from the hashfrag
+routing table; within its shard it gets the next free local row on first
+touch, the lazy row creation of the reference's ``dense_hash_map``:
+
+    slot = shard * capacity_per_shard + local
+
+These are exactly the slots the JAX ``KeyIndex`` assigns (no hot head), so
+a table state carries across the two frameworks row for row.  The
+hot/cold partition, ``grow`` and ``repartition`` are not ported yet
+(ROADMAP A12).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 
+from swiftmpi_tpu_torch.cluster.hashfrag import HashFrag
+
 
 class CapacityError(RuntimeError):
-    """The shard ran out of slots; raise rather than silently evict."""
+    """A shard ran out of slots; raise rather than silently evict."""
 
 
 class KeyIndex:
-    def __init__(self, num_shards: int, capacity_per_shard: int):
-        if int(num_shards) != 1:
-            raise NotImplementedError(
-                "KeyIndex: only one shard is ported ([cluster] server_num "
-                "> 1 is ROADMAP A11)")
-        self.num_shards = 1
+    def __init__(self, num_shards: int, capacity_per_shard: int,
+                 hashfrag: Optional[HashFrag] = None):
+        self.num_shards = int(num_shards)
         self.capacity_per_shard = int(capacity_per_shard)
+        self.hashfrag = hashfrag or HashFrag(num_shards)
+        if self.hashfrag.num_shards != self.num_shards:
+            raise ValueError("hashfrag shard count mismatch")
         self._slot_of: Dict[int, int] = {}     # insertion (first-touch) order
+        self._next_local = np.zeros(self.num_shards, dtype=np.int64)
         self._sorted_keys = np.empty(0, np.uint64)
         self._sorted_slots = np.empty(0, np.int64)
 
@@ -45,8 +51,8 @@ class KeyIndex:
         return out
 
     def lookup(self, keys, create: bool = True) -> np.ndarray:
-        """Map keys -> int32 slots; unknown keys get fresh slots when
-        ``create`` (lazy init), else -1."""
+        """Map keys -> int32 slots; unknown keys get fresh slots in their
+        owning shard when ``create`` (lazy init), else -1."""
         keys = np.asarray(keys, dtype=np.uint64)
         flat = keys.ravel()
         out = self._find(flat)
@@ -63,12 +69,25 @@ class KeyIndex:
                                             return_inverse=True)
         order = np.argsort(first, kind="stable")
         uniq = uniq_sorted[order]
-        start = len(self._slot_of)
-        if start + len(uniq) > self.capacity_per_shard:
+        shards = self.hashfrag.to_shard_id(uniq).astype(np.int64)
+        counts = np.bincount(shards, minlength=self.num_shards)
+        over = self._next_local + counts > self.capacity_per_shard
+        if over.any():
+            s = int(np.flatnonzero(over)[0])
             raise CapacityError(
-                f"shard 0 full ({self.capacity_per_shard} slots); raise "
+                f"shard {s} full ({self.capacity_per_shard} slots); raise "
                 "capacity_per_shard")
-        slots = start + np.arange(len(uniq), dtype=np.int64)
+        # local row = next_local[shard] + the key's occurrence index among
+        # this call's keys of its shard (stable grouping keeps first-touch
+        # order within a shard)
+        by_shard = np.argsort(shards, kind="stable")
+        group_start = np.zeros(self.num_shards, np.int64)
+        group_start[1:] = np.cumsum(counts)[:-1]
+        occ = np.empty(len(uniq), np.int64)
+        occ[by_shard] = np.arange(len(uniq)) - group_start[shards[by_shard]]
+        slots = shards * self.capacity_per_shard \
+            + self._next_local[shards] + occ
+        self._next_local += counts
         self._slot_of.update(zip(uniq.tolist(), slots.tolist()))
         keys = np.concatenate([self._sorted_keys, uniq])
         vals = np.concatenate([self._sorted_slots, slots])
@@ -77,6 +96,9 @@ class KeyIndex:
         rank = np.empty(len(uniq), np.int64)
         rank[order] = np.arange(len(uniq))
         return slots[rank[inv.ravel()]]
+
+    def shard_of(self, keys) -> np.ndarray:
+        return self.hashfrag.to_shard_id(keys)
 
     # -- introspection ----------------------------------------------------
     @property
@@ -92,3 +114,7 @@ class KeyIndex:
     def items(self) -> Iterable:
         """(key, slot) pairs in insertion order."""
         return self._slot_of.items()
+
+    def shard_fill(self) -> np.ndarray:
+        """Occupied slots per shard (load-balance introspection)."""
+        return self._next_local.copy()

@@ -1,18 +1,28 @@
-"""Dense parameter table on one device (counterpart of
+"""Dense parameter table (counterpart of
 ``swiftmpi_tpu/parameter/sparse_table.py``).
 
-The table state is a plain ``{field: Tensor}`` dict of ``(capacity, dim)``
-tensors on the device, indexed by the dense slots a host-side
-:class:`KeyIndex` assigns.  Every row is initialized eagerly with its
-field's distribution (eager-random is lazy-random for every observable
-row).  Push paths update these tensors in place.  The ``@rowver``,
-``@ef`` and ``@hot`` planes, ``grow`` and ``repartition`` are not ported
-yet (ROADMAP A12).
+The table is indexed by the dense slots a host-side :class:`KeyIndex`
+assigns.  It has two layouts:
+
+* **one device** (no ``mesh``; ``transfer: xla``): the state is a plain
+  ``{field: Tensor}`` dict of ``(capacity, dim)`` tensors.
+* **sharded** (``mesh``: a rank layout; ``transfer: tpu``): the state is
+  ``{field: [Tensor] * n}``, one ``(capacity_per_shard, dim)`` tensor per
+  shard on its rank's device.  Shard ``s`` holds the global slots
+  ``s * capacity_per_shard ... (s + 1) * capacity_per_shard - 1``, so the
+  shards concatenated in order are exactly the JAX package's global
+  array (:meth:`to_numpy`).  Nothing on the sharded path indexes a fused
+  global tensor: a rank touches its own shard only.
+
+Every row is initialized eagerly with its field's distribution (eager-
+random is lazy-random for every observable row).  Push paths update the
+tensors in place.  The ``@rowver``, ``@ef`` and ``@hot`` planes, ``grow``
+and ``repartition`` are not ported yet (ROADMAP A12).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Union
 
 import numpy as np
 import torch
@@ -20,37 +30,70 @@ import torch
 from swiftmpi_tpu_torch.parameter.access import AccessMethod
 from swiftmpi_tpu_torch.parameter.key_index import KeyIndex
 
-TableState = Dict[str, torch.Tensor]
+TableState = Dict[str, Union[torch.Tensor, List[torch.Tensor]]]
 
 
 class SparseTable:
     def __init__(self, access: AccessMethod, key_index: KeyIndex,
-                 device: torch.device, seed: int = 0):
+                 device: torch.device, seed: int = 0, mesh=None):
         self.access = access
         self.key_index = key_index
         self.device = torch.device(device)
         self.seed = int(seed)
+        self.mesh = mesh
+        if mesh is not None and mesh.n != key_index.num_shards:
+            raise ValueError(
+                f"the layout has {mesh.n} ranks, the key index "
+                f"{key_index.num_shards} shards")
+        if mesh is None and key_index.num_shards != 1:
+            raise ValueError("a table of several shards needs a rank layout")
         self.state: TableState = self._init_state()
 
     def _init_state(self) -> TableState:
         """Fields in sorted name order, each drawn from one generator
         seeded with ``seed`` (the JAX package's order of key splits; the
-        values differ, as torch and jax generators do)."""
+        values differ, as torch and jax generators do).  A sharded table
+        draws the same rows and deals them to the shards' devices, so its
+        initial values do not depend on the layout."""
         cap = self.key_index.capacity
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.seed)
-        return {name: fs.init(gen, (cap, fs.dim), self.device).to(fs.dtype)
-                for name, fs in sorted(self.access.fields.items())}
+        state = {name: fs.init(gen, (cap, fs.dim), self.device).to(fs.dtype)
+                 for name, fs in sorted(self.access.fields.items())}
+        if self.mesh is None:
+            return state
+        return {f: split_rows(t, self.mesh) for f, t in state.items()}
 
     @property
     def capacity(self) -> int:
         return self.key_index.capacity
 
-    def rows_as_numpy(self) -> Dict[str, np.ndarray]:
-        """Host copies of every field, indexed by slot."""
-        return {f: v.detach().cpu().numpy() for f, v in self.state.items()}
+    def to_numpy(self) -> Dict[str, np.ndarray]:
+        """Host copies of every field, indexed by global slot: a sharded
+        table's shards concatenated in shard order."""
+        return state_to_numpy(self.state)
 
     def __repr__(self) -> str:  # pragma: no cover
         return (f"SparseTable(fields={list(self.access.fields)}, "
                 f"capacity={self.capacity}, rows={len(self.key_index)}, "
-                f"device={self.device})")
+                f"shards={self.key_index.num_shards}, device={self.device})")
+
+
+def state_to_numpy(state: TableState) -> Dict[str, np.ndarray]:
+    """Global-row-order host copies of a state of either layout."""
+    out = {}
+    for f, v in state.items():
+        parts = v if isinstance(v, (list, tuple)) else [v]
+        out[f] = np.concatenate(
+            [p.detach().cpu().numpy() for p in parts], axis=0)
+    return out
+
+
+def split_rows(rows: torch.Tensor, mesh) -> List[torch.Tensor]:
+    """``(n * cap_per_shard, ...)`` rows dealt to the ranks of ``mesh``:
+    shard ``r`` is its own contiguous tensor on rank ``r``'s device."""
+    if rows.shape[0] % mesh.n:
+        raise ValueError(f"{rows.shape[0]} rows do not split over "
+                         f"{mesh.n} shards")
+    return [part.to(dev, copy=True).contiguous()
+            for part, dev in zip(rows.chunk(mesh.n, dim=0), mesh.devices)]

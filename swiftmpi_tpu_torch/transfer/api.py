@@ -2,9 +2,11 @@
 
 A transfer moves rows between workers and the table: ``pull`` gathers
 rows at slots, ``push`` combines gradient rows by slot and applies the
-access method's update rule to the table, in place.  Only the single-
-device backend is ported (``transfer/single.py``); the wire ledger, the
-pull-plan interpreter and the window push are not (ROADMAP A12).
+access method's update rule to the table, in place.  Two backends are
+ported: the single-device one (``transfer/single.py``, ``xla``) and the
+sharded parameter server (``transfer/sharded.py``, ``tpu``); the wire
+ledger, the pull-plan interpreter and the window push are not (ROADMAP
+A12).
 ``push_span`` is the sort-free push of the stencil rendering's span
 family.
 """
@@ -93,11 +95,16 @@ class Transfer:
         raise NotImplementedError
 
 
-def get_transfer(name: str) -> Transfer:
-    """Backend by its ``[cluster] transfer`` name."""
+def get_transfer(name: str, **kwargs) -> Transfer:
+    """Backend by its ``[cluster] transfer`` name; ``tpu`` takes the rank
+    layout as ``mesh=`` (and ``bucket_capacity``, ``debug_overflow``,
+    ``data_plane``)."""
     if name == "xla":
         from swiftmpi_tpu_torch.transfer.single import SingleTransfer
-        return SingleTransfer()
+        return SingleTransfer(**kwargs)
+    if name == "tpu":
+        from swiftmpi_tpu_torch.transfer.sharded import ShardedTransfer
+        return ShardedTransfer(**kwargs)
     raise NotImplementedError(
-        f"[cluster] transfer: {name} is not ported yet (only xla; tpu is "
-        "ROADMAP A11, hybrid A12)")
+        f"[cluster] transfer: {name} is not ported yet (only xla and tpu; "
+        "hybrid and local are ROADMAP A12)")

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from swiftmpi_tpu_torch import kernels
-from swiftmpi_tpu_torch.kernels import adagrad, gather, scatter, stencil
+from swiftmpi_tpu_torch.kernels import (adagrad, gather, ring, scatter,
+                                        stencil)
 from swiftmpi_tpu_torch.models.word2vec import Word2Vec
 from swiftmpi_tpu_torch.convert import state_from_jax, state_to_numpy
 from swiftmpi_tpu_torch.data.text import CBOWBatcher, synthetic_corpus
@@ -69,7 +70,8 @@ def test_kernels_match_plain_on_card(dev, d):
     torch.testing.assert_close(p, p2, rtol=2e-6, atol=0)
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"gather": 1, "scatter": 1,
-                                       "adagrad": 1, "stencil": 0}
+                                       "adagrad": 1, "stencil": 0,
+                                       "ring": 0}
 
 
 def test_kernels_take_empty_inputs_and_refuse_bad_ones(dev):
@@ -126,7 +128,8 @@ def test_one_step_on_card_matches_cpu(dev):
     for f in want:
         np.testing.assert_allclose(got[f], want[f], rtol=1e-3, atol=1e-5)
     counts = kernels.launch_counts()
-    assert counts.pop("stencil") == 0 and all(counts.values())
+    assert counts.pop("stencil") == 0 and counts.pop("ring") == 0
+    assert all(counts.values())
 
 
 def _span(rng, B, W, S, order):
@@ -234,3 +237,105 @@ def test_one_stencil_step_on_card_matches_cpu(dev, shared):
     for f in want:
         np.testing.assert_allclose(got[f], want[f], rtol=1e-3, atol=1e-5)
     assert card.transfer.push_paths["v:span"] == 1
+
+
+# -- B5: the ring exchange and the sharded parameter server ------------------
+
+@pytest.mark.parametrize("n,tail,dtype", [
+    (8, (13, 100), torch.float32),     # 16-byte path
+    (8, (13, 101), torch.float32),     # odd row width: 4-byte path
+    (8, (1001,), torch.int32),         # odd C
+    (3, (7, 5), torch.float32),
+    (2, (4097, 100), torch.float32),   # several thread blocks a step
+    (2, (3,), torch.int32),
+    (1, (5, 4), torch.float32)])
+def test_ring_kernel_matches_plain_on_card(dev, n, tail, dtype):
+    """B5 against its plain version, bit for bit (it is a copy), three
+    exchanges in a row so the epochs grow; n sends per exchange, no wait
+    timing out."""
+    rng = np.random.default_rng(n + len(tail))
+    kernels.reset_launches()
+    for _ in range(3):
+        if dtype == torch.int32:
+            xs = [torch.from_numpy(rng.integers(-1, 1000, (n, *tail))
+                                   .astype(np.int32)).to(dev)
+                  for _ in range(n)]
+        else:
+            xs = [torch.from_numpy(rng.standard_normal((n, *tail))
+                                   .astype(np.float32)).to(dev)
+                  for _ in range(n)]
+        got = ring.ring_exchange(xs)
+        want = ring.ring_exchange_plain(xs)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.dtype == dtype and torch.equal(g, w)
+    assert ring.launches == 3 * n
+    assert ring.timeouts() == 0
+
+
+def test_ring_kernel_takes_unaligned_blocks_and_refuses_bad_inputs(dev):
+    """Operands that start 4 bytes into an allocation (the 4-byte path by
+    alignment, not by size), and what the kernel does not take."""
+    n = 4
+    base = [torch.randn(n * 8 * 4 + 1, device=dev) for _ in range(n)]
+    xs = [b[1:].view(n, 8, 4) for b in base]
+    assert xs[0].data_ptr() % 16 == 4 and xs[0].is_contiguous()
+    for g, w in zip(ring.ring_exchange(xs), ring.ring_exchange_plain(xs)):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="leading dim"):
+        ring.ring_exchange([torch.zeros(3, 4, device=dev)] * 4)
+    with pytest.raises(TypeError, match="float32 or int32"):
+        ring.ring_exchange([torch.zeros(2, 4, device=dev).half()] * 2)
+    with pytest.raises(TypeError, match="contiguous"):
+        ring.ring_exchange([torch.zeros(4, 2, device=dev).t()] * 2)
+    with pytest.raises(NotImplementedError, match="A11"):
+        ring.ring_exchange([torch.zeros(2, 4, device=dev),
+                            torch.zeros(2, 4)])
+    empty = ring.ring_exchange([torch.zeros(2, 0, device=dev)] * 2)
+    assert empty[0].shape == (2, 0)
+    assert ring.timeouts() == 0
+
+
+@pytest.mark.parametrize("shared", [0, 1])
+def test_one_sharded_step_on_card_matches_cpu(dev, shared):
+    """One step of the sharded parameter server (8 ranks on the card) and
+    the same step on the CPU from the same table and draws: |a - b| <=
+    1e-5 + 1e-3 |b|, err_cnt exact (gather) or within 1e-6 relative
+    (shared); the card step launched the ring kernel for every exchange."""
+    conf = {"cluster": {"transfer": "tpu", "server_num": 8},
+            "word2vec": {"len_vec": 16, "window": 2, "negative": 5,
+                         "sample": -1, "learning_rate": 0.05,
+                         "shared_negatives": shared, "shared_pool": 64},
+            "server": {"initial_learning_rate": 0.3}}
+    sents = synthetic_corpus(40, 300, 16, seed=3)
+    models = []
+    for where in ("cuda", "cpu"):
+        m = Word2Vec(config=ConfigParser().update(conf), device=where,
+                     capacity_per_shard=80)
+        m.build(sents)
+        models.append(m)
+    card, cpu = models
+    cpu.table.state = state_from_jax(state_to_numpy(card.table.state), "cpu",
+                                     mesh=cpu.cluster.mesh)
+    rng = np.random.default_rng(1)
+    V, B = len(card.vocab), 64
+    centers = rng.integers(0, V, B).astype(np.int32)
+    contexts = rng.integers(0, V, (B, 4)).astype(np.int32)
+    mask = rng.random((B, 4)) < 0.8
+    shape = (64,) if shared else (B, 5)
+    draws = (rng.integers(0, V, shape), rng.random(shape, np.float32))
+    kernels.reset_launches()
+    es_c, ec_c = card.step(centers, contexts, mask, draws=draws)
+    counts = kernels.launch_counts()
+    es_p, ec_p = cpu.step(centers, contexts, mask, draws=draws)
+    np.testing.assert_allclose(ec_c, ec_p, rtol=1e-6 if shared else 0)
+    np.testing.assert_allclose(es_c, es_p, rtol=1e-5)
+    got, want = state_to_numpy(card.table.state), \
+        state_to_numpy(cpu.table.state)
+    for f in want:
+        np.testing.assert_allclose(got[f], want[f], rtol=1e-3, atol=1e-5)
+    # two exchanges per pull and per pushed family, one send per rank
+    assert counts["ring"] == 8 * (10 if shared else 8)
+    assert counts["gather"] == 16 and counts["adagrad"] == 8 * (3 if shared
+                                                                 else 2)
+    assert ring.timeouts() == 0 and card.transfer.overflow_count() == 0

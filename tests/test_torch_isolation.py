@@ -27,8 +27,13 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "swiftmpi_tpu"))
-print(len(names), "modules;", "leaked:", bad)
-sys.exit(1 if bad or len(names) < 20 else 0)
+want = {"swiftmpi_tpu_torch." + m for m in (
+    "utils.hashing", "cluster.hashfrag", "cluster.mesh", "cluster.cluster",
+    "kernels.ring", "transfer.sharded", "parameter.key_index",
+    "parameter.sparse_table", "models.word2vec", "apps.w2v_main")}
+missing = sorted(want - set(names))
+print(len(names), "modules;", "leaked:", bad, "missing:", missing)
+sys.exit(1 if bad or missing or len(names) < 26 else 0)
 """
 
 
@@ -41,7 +46,7 @@ def _run(args, cwd, timeout=120):
 def test_importing_every_port_module_loads_no_jax():
     r = _run(["-c", _IMPORT_ALL], ROOT)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert "leaked: []" in r.stdout
+    assert "leaked: []" in r.stdout and "missing: []" in r.stdout
 
 
 def test_resolve_device_never_falls_back_to_cpu(monkeypatch):

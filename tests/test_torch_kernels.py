@@ -11,7 +11,9 @@ hold the plain versions against
   ``transfer/xla.py::_masked_gather``, the ``.at[].add`` scatter of
   ``_push_dense``),
 
-on the same numpy inputs.  The CUDA kernels themselves run only on the
+on the same numpy inputs, and the ring exchange's plain version against
+a numpy block transpose and ``pallas_ring.ring_exchange`` in interpret mode
+on the 8-device CPU mesh.  The CUDA kernels themselves run only on the
 card: ``test_torch_cuda.py`` compares each with its plain version there.
 """
 
@@ -19,15 +21,20 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
+from jax.sharding import Mesh, PartitionSpec as P
 
 from swiftmpi_tpu.ops import pallas_gather
+from swiftmpi_tpu.ops import pallas_ring
 from swiftmpi_tpu.ops.pallas_kernels import adagrad_update as pallas_adagrad
 from swiftmpi_tpu.ops.pallas_scatter import masked_vmem_scatter_add
 from swiftmpi_tpu.parameter.access import w2v_access as jax_w2v_access
 from swiftmpi_tpu.transfer.xla import _masked_gather
+from swiftmpi_tpu.utils import jax_compat  # noqa: F401  (jax.shard_map)
 from swiftmpi_tpu_torch import kernels
-from swiftmpi_tpu_torch.kernels import adagrad, build, gather, scatter, stencil
+from swiftmpi_tpu_torch.kernels import (adagrad, build, gather, ring,
+                                        scatter, stencil)
 
 CAP, D, N = 300, 16, 512
 
@@ -164,6 +171,63 @@ def test_scatter_plain_matches_pallas_and_xla(width):
         np.testing.assert_array_equal(got1[:, -1], counts)
 
 
+# -- B5: ring exchange -----------------------------------------------------------
+
+def _ring_operands(rng, n, tail, dtype):
+    if dtype == np.int32:
+        return [rng.integers(-1, 1000, (n, *tail)).astype(np.int32)
+                for _ in range(n)]
+    return [rng.standard_normal((n, *tail)).astype(np.float32)
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("n,tail,dtype", [
+    (8, (6, 9), np.float32), (8, (16,), np.int32), (3, (5, 101), np.float32),
+    (2, (7,), np.int32), (1, (4, 3), np.float32)])
+def test_ring_plain_is_a_block_transpose(n, tail, dtype):
+    """Exact: an exchange moves bits.  Block j of rank r's result is block
+    r of rank j's operand, i.e. the transpose of the (rank, block) axes."""
+    xs = _ring_operands(np.random.default_rng(n), n, tail, dtype)
+    want = np.stack(xs).swapaxes(0, 1)
+    for fn in (ring.ring_exchange_plain, ring.ring_exchange):
+        got = fn([torch.from_numpy(x) for x in xs])
+        assert len(got) == n
+        for r in range(n):
+            assert got[r].dtype == torch.from_numpy(xs[0]).dtype
+            np.testing.assert_array_equal(got[r].numpy(), want[r])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_ring_plain_matches_pallas_ring(devices8, dtype):
+    """Against the Pallas kernel in interpret mode under ``shard_map`` on
+    the 8-device CPU mesh (skips where this jax build cannot discharge
+    remote DMAs; the numpy leg above never skips)."""
+    mesh = Mesh(np.asarray(devices8), ("x",))
+    if not pallas_ring.ring_supported(mesh, "x"):
+        pytest.skip("pallas remote-DMA interpret discharge unsupported on "
+                    "this jax build")
+    n = 8
+    xs = _ring_operands(np.random.default_rng(9), n, (6, 9), dtype)
+    fn = jax.jit(jax.shard_map(
+        lambda b: pallas_ring.ring_exchange(b[0], "x", n)[None], mesh=mesh,
+        in_specs=P("x"), out_specs=P("x"), check_vma=False))
+    want = np.asarray(fn(jnp.asarray(np.stack(xs))))
+    got = ring.ring_exchange([torch.from_numpy(x) for x in xs])
+    for r in range(n):
+        np.testing.assert_array_equal(got[r].numpy(), want[r])
+
+
+def test_ring_rejects_wrong_leading_dim():
+    bad = [torch.zeros((4, 16)) for _ in range(8)]    # block dim 4 != n = 8
+    for fn in (ring.ring_exchange, ring.ring_exchange_plain):
+        with pytest.raises(ValueError, match="leading dim"):
+            fn(bad)
+    with pytest.raises(ValueError, match="one shape and dtype"):
+        ring.ring_exchange([torch.zeros((2, 3)), torch.zeros((2, 4))])
+    with pytest.raises(ValueError, match="at least one"):
+        ring.ring_exchange([])
+
+
 # -- dispatch ------------------------------------------------------------------
 
 def _forbid_build(monkeypatch):
@@ -174,7 +238,7 @@ def _forbid_build(monkeypatch):
 
 
 @pytest.mark.parametrize("kernel", ["gather", "scatter", "adagrad",
-                                    "stencil"])
+                                    "stencil", "ring"])
 def test_dispatch_takes_plain_path_on_cpu(monkeypatch, kernel):
     """A CPU tensor runs the plain version: no build, no launch count."""
     _forbid_build(monkeypatch)
@@ -201,6 +265,12 @@ def test_dispatch_takes_plain_path_on_cpu(monkeypatch, kernel):
             stencil.fused_stencil_gather(t, ts, lo, w),
             stencil.fused_stencil_gather_plain(t, ts, lo, w),
             rtol=0, atol=0)
+    elif kernel == "ring":
+        xs = [torch.from_numpy(x) for x in _ring_operands(
+            rng, 4, (5, 3), np.float32)]
+        for got, want in zip(ring.ring_exchange(xs),
+                             ring.ring_exchange_plain(xs)):
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
     else:
         p, a, g = (torch.from_numpy(rng.random((8, D)).astype(np.float32))
                    for _ in range(3))
@@ -210,11 +280,12 @@ def test_dispatch_takes_plain_path_on_cpu(monkeypatch, kernel):
         torch.testing.assert_close(p, p2, rtol=0, atol=0)
         torch.testing.assert_close(a, a2, rtol=0, atol=0)
     assert kernels.launch_counts() == {"gather": 0, "scatter": 0,
-                                       "adagrad": 0, "stencil": 0}
+                                       "adagrad": 0, "stencil": 0,
+                                       "ring": 0}
 
 
 @pytest.mark.parametrize("kernel", ["gather", "scatter", "adagrad",
-                                    "stencil"])
+                                    "stencil", "ring"])
 def test_dispatch_raises_on_other_devices(monkeypatch, kernel):
     """Neither CPU nor CUDA: the wrapper raises; nothing falls back."""
     _forbid_build(monkeypatch)
@@ -229,6 +300,8 @@ def test_dispatch_raises_on_other_devices(monkeypatch, kernel):
         elif kernel == "stencil":
             stencil.fused_stencil_gather(
                 meta, ms, ms, torch.empty((4, 3), device="meta"))
+        elif kernel == "ring":
+            ring.ring_exchange([meta] * 4)
         else:
             adagrad.adagrad_update_(meta, meta, meta, 0.5)
 

@@ -42,8 +42,14 @@ def _slots(rng, n):
 
 
 def test_get_transfer_names_xla_only():
+    """``xla`` and, with a rank layout, ``tpu`` (held against the JAX
+    package in test_torch_sharded.py); the others are not ported."""
+    from swiftmpi_tpu_torch.cluster import ps_mesh
+    from swiftmpi_tpu_torch.transfer import ShardedTransfer
     assert isinstance(get_transfer("xla"), SingleTransfer)
-    for name in ("tpu", "hybrid", "local"):
+    assert isinstance(get_transfer("tpu", mesh=ps_mesh(2, ["cpu"])),
+                      ShardedTransfer)
+    for name in ("hybrid", "local"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_transfer(name)
 
