@@ -18,14 +18,15 @@ card) in the ``gather`` and ``shared`` renderings (``gather@8``,
 
 1. setup: the card's name and power limit; build the CUDA kernels.
 2. kernels: each kernel at the shapes one step of its path gives it —
-   the gather path's pulls, push and AdaGrad calls, the stencil path's
-   fused stencil gather (a real stencil batch with extra pad centers and a
-   shuffled block of centers), its mostly-padding h push and
-   ``push_span``'s AdaGrad on the span's rows, and the sharded path's ring
-   exchange of its request, row and odd-width buckets — against its plain
-   PyTorch version on the card, timed with CUDA events (median of 25
-   launches, L2 flushed between launches) beside the plain version and one
-   library call.
+   the gather path's pulls, push (sums and counts in one launch) and
+   AdaGrad calls, the stencil path's fused stencil gather (a real stencil
+   batch with extra pad centers and a shuffled block of centers), its
+   mostly-padding h push and ``push_span``'s AdaGrad on the span's rows,
+   and the sharded path's ring exchange of its request, row and odd-width
+   buckets (stacked, one send and one wait launch) and the eight owners'
+   h push with counts in one launch — against its plain PyTorch version on
+   the card, timed with CUDA events (median of 25 launches, L2 flushed
+   between launches) beside the plain version and one library call.
 3. step parity: one step on the card and the same step on the CPU from
    the same table and the same negative-sampling draws, for ``gather``,
    ``stencil`` and ``stencil_shared``; and one sharded ``gather`` step
@@ -35,9 +36,10 @@ card) in the ``gather`` and ``shared`` renderings (``gather@8``,
    rendering, every launch counter set to 0 just before; the run must have
    launched exactly the kernels of its path (the stencil kernel on every
    step of a stencil path) and the loss must be finite.
-   A sharded run must launch the ring kernel for every exchange of every
-   step and the other kernels once per shard, overflow nothing and time
-   out no wait.
+   A sharded run must launch the ring kernel once (one send, one wait)
+   for every exchange of every step, the scatter-add once per pushed
+   family, gather and AdaGrad once per shard and use, overflow nothing and
+   time out no wait.
 5. CLI: ``apps.w2v_main.main`` on a small corpus with the gather conf,
    with ``stencil: 1`` and with ``transfer: tpu``, ``server_num: 8``; each
    dump must parse.
@@ -93,14 +95,16 @@ PATHS = {
 }
 #: ranks of the sharded parameter server, all on the one card
 SHARDS = 8
-#: sharded path -> per step and per rank: ring exchanges (two per pull,
-#: two per pushed family), gathers (one per pull), scatter-adds (one per
-#: pushed family, one more for the counts of a mean push), AdaGrad calls
-#: (one per pushed family)
+#: sharded path -> launches a step on the card: ring sends (one per
+#: exchange for all the card's ranks: two per pull, two per pushed family),
+#: gathers (one per pull and rank), scatter-adds (one per pushed family for
+#: all the card's owners, counts included), AdaGrad calls (one per pushed
+#: family and rank)
 SHARDED = {
-    f"gather@{SHARDS}": {"ring": 8, "gather": 2, "scatter": 4, "adagrad": 2},
-    f"shared@{SHARDS}": {"ring": 10, "gather": 2, "scatter": 5,
-                         "adagrad": 3},
+    f"gather@{SHARDS}": {"ring": 8, "gather": 2 * SHARDS, "scatter": 2,
+                         "adagrad": 2 * SHARDS},
+    f"shared@{SHARDS}": {"ring": 10, "gather": 2 * SHARDS, "scatter": 3,
+                         "adagrad": 3 * SHARDS},
 }
 for _path in SHARDED:
     PATHS[_path] = (PATHS[_path.split("@")[0]][0], set(SHARDED[_path]), 800)
@@ -252,39 +256,52 @@ def _gather_case(label, table, slots, valid, flush, path="gather"):
         library="Tensor.index_select", bytes=nbytes, flops=0)
 
 
-def _scatter_case(label, path, slots, valid, cap, width, rng, flush):
+def _scatter_case(label, path, slots, valid, cap, width, rng, flush,
+                  counts=True):
+    """B3 on ``(N,)`` or ``(R, N)`` slots and grads of ``width``, with the
+    counts in the same launch unless ``counts`` is false: sums within
+    1e-5 + 1e-3|b| of the plain version (float reductions in no fixed
+    order), counts exact."""
     dev = slots.device
-    n = slots.shape[0]
-    g = torch.as_tensor(rng.normal(size=(n, width)).astype(np.float32)
-                        * 1e-2, device=dev)
-    g[:, -1] = 1.0                  # the dense push's fused count column
-    out_k = scatter.masked_scatter_add(slots, valid, g, cap)
-    out_p = scatter.masked_scatter_add_plain(slots, valid, g, cap)
+    g = torch.as_tensor(rng.normal(size=(*slots.shape, width))
+                        .astype(np.float32) * 1e-2, device=dev)
+    got = scatter.masked_scatter_add(slots, valid, g, cap, counts=counts)
+    want = scatter.masked_scatter_add_plain(slots, valid, g, cap,
+                                            counts=counts)
     torch.cuda.synchronize()
-    err = (out_k - out_p).abs().max().item()
-    torch.testing.assert_close(out_k, out_p, rtol=1e-5, atol=1e-5)
+    (acc_k, cnt_k), (acc_p, cnt_p) = (got, want) if counts else \
+        ((got, None), (want, None))
+    err = (acc_k - acc_p).abs().max().item()
+    torch.testing.assert_close(acc_k, acc_p, rtol=1e-3, atol=1e-5)
+    if counts and not torch.equal(cnt_k, cnt_p):
+        raise AssertionError(f"{label}: counts != plain")
     ok = valid & (slots >= 0) & (slots < cap)
-    counts = torch.bincount(slots[ok].long(), minlength=cap).float()
-    if not torch.equal(out_k[:, -1], counts):
-        raise AssertionError(f"{label}: count column != per-slot counts")
-    safe = torch.where(ok, slots, cap).long().contiguous()
-    acc = torch.zeros((cap + 1, width), device=dev)
+    R = slots.shape[0] if slots.dim() == 2 else 1
     # indices for every row, grads only for the rows that land
-    n_ok = int(ok.sum())
-    nbytes = 5 * n + 4 * n_ok * width + 4 * cap * width
+    n, n_ok = slots.numel(), int(ok.sum())
+    nbytes = 5 * n + 4 * n_ok * width + 4 * R * cap * (width + int(counts))
+    base = (torch.arange(R, device=dev)[:, None] * (cap + 1)
+            if slots.dim() == 2 else 0)
+    safe = (base + torch.where(ok, slots, cap)).reshape(-1).long()
+    acc = torch.zeros((R * (cap + 1), width), device=dev)
+    rows = f"{R} x {n // R}" if slots.dim() == 2 else f"{n}"
     return dict(
         name=f"masked_scatter_add ({label})", route="cuda", path=path,
         source="swiftmpi_tpu_torch/kernels/csrc/scatter.cu",
         replaces="swiftmpi_tpu/ops/pallas_scatter.py:77",
-        module=scatter, shape=f"{n} rows x {width} into ({cap}+1, {width})"
-        f", {n - n_ok} invalid or out of range",
-        max_abs_err=err, tolerance="rtol 1e-5, atol 1e-5 (atomic order)",
-        ms=_time_ms(lambda: scatter.masked_scatter_add(slots, valid, g, cap),
-                    flush),
+        module=scatter, shape=f"{rows} rows x {width} into {R} x ({cap}, "
+        f"{width}){' + counts' if counts else ''}, {n - n_ok} invalid or "
+        f"out of range, one launch",
+        max_abs_err=err, tolerance="1e-5 + 1e-3|b| (reduction order), "
+        "counts exact",
+        ms=_time_ms(lambda: scatter.masked_scatter_add(
+            slots, valid, g, cap, counts=counts), flush),
         plain_ms=_time_ms(lambda: scatter.masked_scatter_add_plain(
-            slots, valid, g, cap), flush),
-        library_ms=_time_ms(lambda: acc.index_add_(0, safe, g), flush),
-        library="Tensor.index_add_", bytes=nbytes, flops=n_ok * width)
+            slots, valid, g, cap, counts=counts), flush),
+        library_ms=_time_ms(lambda: acc.index_add_(0, safe, g.view(-1, width)),
+                            flush),
+        library="Tensor.index_add_ (sums only)", bytes=nbytes,
+        flops=n_ok * width)
 
 
 def _adagrad_case(label, path, param, accum, grad, lr, flush):
@@ -371,46 +388,48 @@ def _stencil_case(table, slots, lo, wmask, n_real, flush):
 
 
 def _ring_case(label, tail, dtype, rng, flush, dev):
-    """The ring exchange of ``SHARDS`` ranks' ``(SHARDS, *tail)`` operands
-    against its plain version: a copy, so bit for bit."""
+    """The ring exchange of ``SHARDS`` ranks' ``(SHARDS, *tail)`` operands,
+    stacked as the transfer hands them over, against its plain version: a
+    copy, so bit for bit; one send launch and one wait launch."""
     n = SHARDS
     if dtype == torch.int32:
-        xs = [torch.as_tensor(rng.integers(-1, 11_000, (n, *tail))
-                              .astype(np.int32), device=dev)
-              for _ in range(n)]
+        x = torch.as_tensor(rng.integers(-1, 11_000, (n, n, *tail))
+                            .astype(np.int32), device=dev)
     else:
-        xs = [torch.as_tensor(rng.random((n, *tail), np.float32) - 0.5,
-                              device=dev) for _ in range(n)]
-    out_k = ring.ring_exchange(xs)
-    out_p = ring.ring_exchange_plain(xs)
+        x = torch.as_tensor(rng.random((n, n, *tail), np.float32) - 0.5,
+                            device=dev)
+    before = (ring.launches, ring.wait_launches)
+    out_k = ring.ring_exchange_stacked(x)
+    launched = (ring.launches - before[0], ring.wait_launches - before[1])
+    out_p = ring.ring_exchange_stacked_plain(x)
     torch.cuda.synchronize()
-    err = max((a.double() - b.double()).abs().max().item()
-              for a, b in zip(out_k, out_p))
-    if not all(torch.equal(a, b) for a, b in zip(out_k, out_p)):
+    err = (out_k.double() - out_p.double()).abs().max().item()
+    if not torch.equal(out_k, out_p):
         raise AssertionError(f"ring_exchange ({label}): kernel != plain "
                              f"(max |err| {err})")
+    if launched != (1, 1):
+        raise AssertionError(f"ring_exchange ({label}): {launched} send and "
+                             "wait launches, expected one each")
     if ring.timeouts():
         raise AssertionError(f"ring_exchange ({label}): a wait timed out")
-    lib = torch.stack(xs).transpose(0, 1).contiguous()
-    if not all(torch.equal(lib[r], out_p[r]) for r in range(n)):
+    if not torch.equal(x.transpose(0, 1).contiguous(), out_p):
         raise AssertionError(f"ring_exchange ({label}): the library "
                              "transpose != plain")
-    del out_k, out_p, lib
-    nbytes = 2 * n * xs[0].numel() * xs[0].element_size()
+    del out_k, out_p
+    nbytes = 2 * x.numel() * x.element_size()
     return dict(
         name=f"ring_exchange ({label})", route="cuda",
         path=f"gather@{SHARDS}",
         source="swiftmpi_tpu_torch/kernels/csrc/ring.cu",
         replaces="swiftmpi_tpu/ops/pallas_ring.py:86",
         module=ring, shape=f"{n} ranks x {(n, *tail)} "
-        f"{str(dtype).rsplit('.', 1)[-1]}, {n} send launches + 1 wait launch",
+        f"{str(dtype).rsplit('.', 1)[-1]}, stacked; 1 send launch + 1 wait "
+        f"launch",
         max_abs_err=err, tolerance="exact",
-        ms=_time_ms(lambda: ring.ring_exchange(xs), flush),
-        plain_ms=_time_ms(lambda: ring.ring_exchange_plain(xs), flush),
-        library_ms=_time_ms(
-            lambda: torch.stack(xs).transpose(0, 1).contiguous(), flush),
-        library="torch.stack(xs).transpose(0, 1).contiguous()",
-        bytes=nbytes, flops=0)
+        ms=_time_ms(lambda: ring.ring_exchange_stacked(x), flush),
+        plain_ms=_time_ms(lambda: ring.ring_exchange_stacked_plain(x), flush),
+        library_ms=_time_ms(lambda: x.transpose(0, 1).contiguous(), flush),
+        library="x.transpose(0, 1).contiguous()", bytes=nbytes, flops=0)
 
 
 def phase_kernels(model: Word2Vec, batch, sbatch: StencilBatch) -> list:
@@ -425,11 +444,14 @@ def phase_kernels(model: Word2Vec, batch, sbatch: StencilBatch) -> list:
     vs, vv = _perturbed(v_slots, cap, rng)
     cases.append(_gather_case("h pull", state["h"], hs, hv, flush))
     cases.append(_gather_case("v pull", state["v"], vs, vv, flush))
-    cases.append(_scatter_case("h push", "gather", hs, hv, cap, d + 1, rng,
+    cases.append(_scatter_case("h push", "gather", hs, hv, cap, d, rng,
                                flush))
+    # PR 1-3's fused count column: 404-byte rows, the scalar path
+    cases.append(_scatter_case("h push, d + 1 wide", "gather", hs, hv, cap,
+                               d + 1, rng, flush, counts=False))
     ss, sv = _stencil_h_slots(model, sbatch, rng)
-    cases.append(_scatter_case("stencil h push", "stencil", ss, sv, cap,
-                               d + 1, rng, flush))
+    cases.append(_scatter_case("stencil h push", "stencil", ss, sv, cap, d,
+                               rng, flush))
     lr = model.access.learning_rate
 
     def grads_like(shape):
@@ -460,11 +482,13 @@ def phase_kernels(model: Word2Vec, batch, sbatch: StencilBatch) -> list:
 
 def phase_kernels_sharded(model: Word2Vec, batch) -> list:
     """The sharded path's kernels at the shapes one of its gather steps
-    gives them: the three ring exchanges of the h family, and what rank 0
-    does as an owner with the ``SHARDS * C`` requests it receives (most of
-    them padding: every sender pads its bucket to C) — the gather from
-    its shard, the scatter-add of the received grads and of their counts,
-    and AdaGrad over the shard."""
+    gives them: the three ring exchanges of the h family; what rank 0 does
+    as an owner with the ``SHARDS * C`` requests it receives (most of them
+    padding: every sender pads its bucket to C) — the gather from its
+    shard, the scatter-add of its received grads and, alone, of their
+    counts (PR 3's launches), and AdaGrad over the shard; and the
+    scatter-add of all ``SHARDS`` owners' received grads with their counts
+    in one launch, as the path now runs it."""
     rng = np.random.default_rng(17)
     dev, d = model.device, model.len_vec
     flush = torch.zeros(2 * 50 * 2 ** 20 // 4, device=dev)
@@ -483,14 +507,16 @@ def phase_kernels_sharded(model: Word2Vec, batch) -> list:
     if C_routed != C or len(groups) != 1:
         raise AssertionError(f"bucket capacity {C_routed}, expected {C}, "
                              f"in {len(groups)} device group(s)")
-    got = ring.ring_exchange(list(groups[0].req))[0].reshape(-1)
-    got, ok = got.contiguous(), (got >= 0).contiguous()
+    owners = ring.ring_exchange_stacked(groups[0].req).view(SHARDS, -1)
+    got, ok = owners[0], owners[0] >= 0
     cases.append(_gather_case("shard h pull", state["h"][0], got, ok, flush,
                               path))
     cases.append(_scatter_case("shard h push", path, got, ok, cap, d, rng,
-                               flush))
+                               flush, counts=False))
     cases.append(_scatter_case("shard h counts", path, got, ok, cap, 1, rng,
-                               flush))
+                               flush, counts=False))
+    cases.append(_scatter_case(f"{SHARDS} owners' h push", path, owners,
+                               owners >= 0, cap, d, rng, flush))
     accum = torch.as_tensor(rng.random((cap, d), np.float32) * 1e-3,
                             device=dev)
     grad = torch.as_tensor(rng.normal(size=(cap, d)).astype(np.float32)
@@ -618,11 +644,11 @@ def phase_step_parity_sharded(vocab, batch) -> None:
                 .any(axis=1).sum())
     if not moved:
         raise AssertionError(f"{path}: the step moved no row")
-    want = {k: v * SHARDS for k, v in SHARDED[path].items()}
-    want["stencil"] = 0
-    if counts != want:
-        raise AssertionError(f"{path} step launched {counts}, its path is "
-                             f"{want}")
+    want = dict(SHARDED[path], stencil=0)
+    if counts != want or ring.wait_launches != want["ring"]:
+        raise AssertionError(f"{path} step launched {counts} and "
+                             f"{ring.wait_launches} ring waits, its path "
+                             f"is {want}")
     if model.transfer.overflow_count() or ring.timeouts():
         raise AssertionError(f"{path}: overflow "
                              f"{model.transfer.overflow_count()}, wait "
@@ -667,14 +693,16 @@ def phase_train(rendering: str, vocab, corpus: np.ndarray,
                              f"{m['push_paths']}")
     extra = {}
     if rendering in SHARDED:
-        # every step: the ring kernel for every exchange, the others once
-        # per shard and use
-        want = {k: v * SHARDS * m["steps"]
-                for k, v in SHARDED[rendering].items()}
+        # every step: one send and one wait launch for every exchange, one
+        # scatter-add per pushed family, gather and AdaGrad per shard and
+        # use
+        want = {k: v * m["steps"] for k, v in SHARDED[rendering].items()}
         got = {k: counts[k] for k in want}
         extra = {"overflow_count": model.transfer.overflow_count(),
-                 "wait_timeouts": ring.timeouts(), "shards": m["shards"]}
+                 "wait_timeouts": ring.timeouts(), "shards": m["shards"],
+                 "ring_wait_launches": ring.wait_launches}
         if got != want or extra["overflow_count"] or extra["wait_timeouts"] \
+                or ring.wait_launches != counts["ring"] \
                 or any(not k.endswith(":routed") for k in m["push_paths"]):
             raise AssertionError(
                 f"{rendering}: launches {got} in {m['steps']} steps, its "

@@ -1,17 +1,21 @@
-"""Time the ring-exchange kernel on the card over its launch geometry.
+"""Time the ring-exchange kernel on the card in both forms of its copy.
 
     python -m swiftmpi_tpu_torch.apps.ring_sweep [-n 8] [-c 13125]
 
 For the three operand shapes of the sharded word2vec h family at the
 reference configuration (``(n, C, 100)`` and ``(n, C, 101)`` float32,
-``(n, C)`` int32) it prints one JSON line per setting of the wrapper's
-``_MAX_BLOCKS`` (thread blocks of one rank's send): the median time of an
-exchange from CUDA events with the L2 flushed before each (as
-``chip_smoke.py`` times it), then the plain version's time, then, for
-back-to-back exchanges with nothing flushed, the host's time to enqueue
-one exchange and the time per exchange once the queue drains.  The first
-says what bounds the kernel, the last two whether the host or the card
-bounds a run of exchanges.
+``(n, C)`` int32), stacked as the transfer hands them to the kernel, it
+prints one JSON line each: the median time of an exchange (one send
+launch and one wait launch) from CUDA events with the L2 flushed before
+each (as ``chip_smoke.py`` times it) for each body copy of
+``csrc/ring.cu`` (``vector``: 16-byte loads, eight in flight a thread;
+``bulk``: TMA bulk copies through shared memory), in the order vector,
+bulk, bulk, vector; then the plain version's time and one library call's
+(``x.transpose(0, 1).contiguous()``); then, for back-to-back exchanges
+with nothing flushed, the host's time to enqueue one exchange and the time
+per exchange once the queue drains.  The first say which copy is faster
+and how far from the byte bound, the last two whether the host or the
+card bounds a run of exchanges.
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ from swiftmpi_tpu_torch.utils import CMDLine
 
 RUNS = 25
 BACK_TO_BACK = 50
-GRIDS = (256, 1024, 4096)
+#: published H100 SXM HBM bytes/s
+PEAK_BYTES_S = 3.35e12
 
 
 def _median_ms(fn, flush: torch.Tensor) -> float:
@@ -54,24 +59,32 @@ def sweep(n: int, C: int) -> None:
     card = card_line()
     # twice the card's 50 MB L2, in float32
     flush = torch.zeros(2 * 50 * 2 ** 20 // 4, device=dev)
-    default = ring._MAX_BLOCKS
+    kept = ring.COPY
     for tail, dtype in (((C, 100), torch.float32), ((C, 101), torch.float32),
                         ((C,), torch.int32)):
-        xs = [(torch.rand((n, *tail), device=dev) * 1000).to(dtype)
-              for _ in range(n)]
+        x = (torch.rand((n, n, *tail), device=dev) * 1000).to(dtype)
+        nbytes = 2 * x.numel() * 4
         row = {"card": card, "ranks": n, "operand": [n, *tail],
-               "dtype": str(dtype), "bytes_moved": 2 * n * xs[0].numel() * 4}
-        for grid in GRIDS:
-            ring._MAX_BLOCKS = grid
-            row[f"ms_at_{grid}_blocks"] = _median_ms(
-                lambda: ring.ring_exchange(xs), flush)
-        ring._MAX_BLOCKS = default
-        row["plain_ms"] = _median_ms(lambda: ring.ring_exchange_plain(xs),
-                                     flush)
+               "dtype": str(dtype), "bytes_moved": nbytes,
+               "bound_ms": nbytes / PEAK_BYTES_S * 1e3}
+        want = ring.ring_exchange_stacked_plain(x)
+        for form in ("vector", "bulk", "bulk", "vector"):
+            ring.COPY = ring.COPY_FORMS[form]
+            if not torch.equal(ring.ring_exchange_stacked(x), want):
+                raise AssertionError(f"ring_exchange ({form}) != plain")
+            row.setdefault(f"{form}_ms", []).append(
+                _median_ms(lambda: ring.ring_exchange_stacked(x), flush))
+        ring.COPY = kept
+        row["kept"] = [k for k, v in ring.COPY_FORMS.items() if v == kept][0]
+        row["plain_ms"] = _median_ms(
+            lambda: ring.ring_exchange_stacked_plain(x), flush)
+        row["library_ms"] = _median_ms(
+            lambda: x.transpose(0, 1).contiguous(), flush)
+        out = torch.empty_like(x)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(BACK_TO_BACK):
-            ring.ring_exchange(xs)
+            ring.ring_exchange_stacked(x, out=out)
         t1 = time.perf_counter()
         torch.cuda.synchronize()
         t2 = time.perf_counter()

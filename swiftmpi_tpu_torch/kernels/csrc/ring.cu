@@ -3,39 +3,85 @@
 //
 // Replaces the Pallas kernel swiftmpi_tpu/ops/pallas_ring.py ring_exchange
 // (_ring_kernel): a local copy plus n-1 remote DMA copies, all started
-// before any is waited on, each with its own send/recv semaphore.  Here a
-// rank is given raw pointers to every rank's output buffer and flag array
-// (its peers may share its card or sit behind a peer mapping), and the
-// exchange is two kernels per rank, the start()/wait() split of the Pallas
+// before any is waited on, each with its own send/recv semaphore.  Here the
+// exchange is two kernels per card, the start()/wait() split of the Pallas
 // kernel:
 //
-//   ring_send  never waits.  Thread blocks (s, b) copy block (me+s)%n of the
-//              operand into slot `me` of rank (me+s)%n's output; s = 0 is the
-//              local block.  The last thread block of a step to finish
-//              publishes the step's flag at the receiver: a system-scope
-//              fence, then a release store of the exchange's epoch into
-//              flags[receiver][me].  Epochs only grow, so no flag is ever
-//              reset.
+//   ring_send  one launch sends for every rank of the card.  Its work items
+//              are (sender, step s, chunk): sender `me` copies block
+//              (me+s)%n of its operand into slot `me` of rank (me+s)%n's
+//              output; s = 0 is the local block.  A grid of a few thread
+//              blocks per SM walks the items.  Each (sender, step) has an
+//              arrival counter; the thread block that finishes its last
+//              chunk publishes the step's flag at the receiver: a
+//              system-scope fence, then a release store of the exchange's
+//              epoch into flags[receiver][me].  Epochs only grow, so no flag
+//              is ever reset.  The kernel never waits.
 //   ring_wait  one thread per peer spins (acquire loads, system scope) until
-//              flags[me][j] >= epoch.  It is enqueued only after all n sends
-//              are enqueued, so a waiter can never hold the card against a
-//              sender that is not scheduled yet: on one stream the flags are
-//              already set, on n streams or n cards the waiter really waits.
-//              The waits of the ranks that share a card go in one launch,
-//              one thread block per rank.  A waiter that polls too long
-//              counts a timeout in flags[me][n] and returns instead of
-//              hanging the card.
+//              flags[me][j] >= epoch.  It is enqueued after the card's send
+//              launch, so a waiter never holds the card against a sender of
+//              its own that is not scheduled yet: on one card the flags are
+//              already set, across peer-mapped cards the waiter really
+//              waits.  One launch for the ranks of a card, one thread block
+//              per rank.  One C call enqueues both launches.  A waiter
+//              that polls too long counts a timeout in flags[me][n] and
+//              returns instead of hanging the card.
 //
-// Bound: bytes — every operand byte read once and written once, over
-// 3.35 TB/s.  Design: plain coalesced copies, 16 bytes a thread when source,
-// destination and block size are 16-byte aligned (four loads in flight per
-// thread), 4 bytes a thread otherwise (odd row widths and odd C).
+// Operands are given as base + stride (sender i's operand at x + i*x_stride,
+// each operand contiguous), so the transfer hands the kernel one (R, n, ...)
+// tensor and nothing is uploaded per call.  Outputs likewise (rank r's at
+// out + r*out_stride) on one card, or through a device array of the ranks'
+// output pointers, peer pointers included, across cards.
+//
+// Bound: bytes, every operand byte read once and written once, over
+// 3.35 TB/s.  Copies are shaped for Hopper.  Every (sender, step) block is
+// split into a head of up to three 4-byte words that brings the destination
+// to a 16-byte boundary, a body of 16-byte chunks and a tail of up to three
+// words.  Two forms of the body copy (the `copy` argument):
+//   vector  every thread keeps kUnroll 16-byte loads in flight, then stores.
+//           Where source and destination do not share their alignment mod
+//           16 (the int32 request buckets: C*4 = 4 mod 16), loads stay
+//           aligned to the source and stores to the destination: each
+//           16-byte store is cut from two aligned source loads in
+//           registers (the second is the neighbour's first, an L1 hit).
+//   bulk    the Tensor Memory Accelerator: one thread streams the body
+//           through a ring of kStages shared-memory stages with
+//           cp.async.bulk (global -> shared, completed on an mbarrier; then
+//           shared -> global, a bulk group), the other threads copy head
+//           and tail.  Bodies whose alignment differs take the vector form.
+// apps/ring_sweep.py times both; the wrapper launches the faster (PERF.md).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kUnroll = 8;
+constexpr int kBlocksPerSM = 4;
+constexpr long long kMaxItemBytes = 64 << 10;
+constexpr long long kMinItemBytes = 16 << 10;
+
+constexpr int kBulkThreads = 128;
+constexpr int kStages = 4;
+constexpr int kStageBytes = 16 << 10;
+constexpr int kBulkSmem = kStages * kStageBytes;
+constexpr int kBulkBlocksPerSM = 3;
+
+struct Send {
+  int n;                          // ranks in the exchange
+  int first, step;                // sender i of this launch: rank first+i*step
+  long long words;                // 4-byte words of one (C, ...) block
+  const char* x;                  // sender i's operand at x + i*x_stride
+  long long x_stride;
+  char* out;                      // rank r's result at out + r*out_stride,
+  long long out_stride;           // unless `outs` is given:
+  char* const* outs;              // device array of the n ranks' results
+  unsigned long long* const* flags;  // device array of the n flag arrays
+  unsigned int* done;             // one arrival counter per (sender, step)
+  unsigned long long epoch;
+  int items;                      // work items per (sender, step)
+  long long pairs;                // senders * n
+};
 
 __device__ __forceinline__ void st_release_sys(unsigned long long* p,
                                                unsigned long long v) {
@@ -51,61 +97,236 @@ __device__ __forceinline__ unsigned long long ld_acquire_sys(
   return v;
 }
 
-template <typename T>
-__device__ __forceinline__ void copy_block(const T* __restrict__ src,
-                                           T* __restrict__ dst, long long n,
-                                           long long tid, long long nthr) {
-  long long i = tid;
-  // four independent loads in flight per thread
-  for (; i + 3 * nthr < n; i += 4 * nthr) {
-    T a = src[i], b = src[i + nthr], c = src[i + 2 * nthr],
-      d = src[i + 3 * nthr];
-    dst[i] = a;
-    dst[i + nthr] = b;
-    dst[i + 2 * nthr] = c;
-    dst[i + 3 * nthr] = d;
-  }
-  for (; i < n; i += nthr) dst[i] = src[i];
+// One (sender, step) block: where it comes from and goes to, cut into head
+// words, 16-byte body chunks and tail words.
+struct Pair {
+  const char* src;
+  char* dst;
+  int me, to;
+  int head;         // words copied one by one before the body
+  long long body;   // 16-byte chunks, destination aligned
+  int tail;         // words after the body
+  int shift;        // (source of the body mod 16) / 4: 0 = aligned alike
+};
+
+__device__ __forceinline__ Pair pair_of(const Send& a, long long p) {
+  Pair q;
+  const int i = (int)(p / a.n), s = (int)(p % a.n);
+  q.me = a.first + i * a.step;
+  q.to = (q.me + s) % a.n;
+  const long long bytes = a.words * 4;
+  q.src = a.x + i * a.x_stride + q.to * bytes;
+  q.dst = (a.outs ? a.outs[q.to] : a.out + q.to * a.out_stride) +
+          (long long)q.me * bytes;
+  const int head =
+      (int)(((16 - (reinterpret_cast<uintptr_t>(q.dst) & 15)) & 15) >> 2);
+  q.head = (int)(head < a.words ? head : a.words);
+  q.body = (a.words - q.head) >> 2;
+  q.tail = (int)((a.words - q.head) & 3);
+  q.shift = (int)((reinterpret_cast<uintptr_t>(q.src + 4 * q.head) & 15) >> 2);
+  return q;
 }
 
-__global__ void ring_send(int me, int n, long long block_bytes,
-                          const char* __restrict__ x, char* const* outs,
-                          unsigned long long* const* flags,
-                          unsigned int* done, unsigned long long epoch) {
-  const int s = blockIdx.y;
-  const int dst_rank = (me + s) % n;
-  const char* src = x + (long long)dst_rank * block_bytes;
-  char* dst = outs[dst_rank] + (long long)me * block_bytes;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long nthr = (long long)gridDim.x * blockDim.x;
-  const uintptr_t align = reinterpret_cast<uintptr_t>(src) |
-                          reinterpret_cast<uintptr_t>(dst) |
-                          static_cast<uintptr_t>(block_bytes);
-  if ((align & 15) == 0) {
-    copy_block(reinterpret_cast<const int4*>(src),
-               reinterpret_cast<int4*>(dst), block_bytes >> 4, tid, nthr);
+__device__ __forceinline__ int4 ld_nc(const int4* p) { return __ldg(p); }
+
+// words shift .. shift+3 of the eight words a, b
+__device__ __forceinline__ int4 cut(int4 a, int4 b, int shift) {
+  if (shift == 1) return make_int4(a.y, a.z, a.w, b.x);
+  if (shift == 2) return make_int4(a.z, a.w, b.x, b.y);
+  return make_int4(a.w, b.x, b.y, b.z);
+}
+
+// body chunks [lo, hi) of q by the block's `threads` threads
+template <int threads>
+__device__ __forceinline__ void copy_body(const Pair& q, long long lo,
+                                          long long hi) {
+  int4* d4 = reinterpret_cast<int4*>(q.dst + 4 * q.head);
+  if (q.shift == 0) {
+    const int4* s4 = reinterpret_cast<const int4*>(q.src + 4 * q.head);
+    for (long long b = lo + threadIdx.x; b < hi; b += kUnroll * threads) {
+      int4 v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (b + u * threads < hi) v[u] = ld_nc(s4 + b + u * threads);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (b + u * threads < hi) d4[b + u * threads] = v[u];
+    }
   } else {
-    copy_block(reinterpret_cast<const int*>(src),
-               reinterpret_cast<int*>(dst), block_bytes >> 2, tid, nthr);
+    // aligned source chunks: chunk j of the body starts inside sa[j]
+    const int4* sa = reinterpret_cast<const int4*>(q.src + 4 * q.head -
+                                                   4 * q.shift);
+    constexpr int kU = kUnroll / 2;
+    for (long long b = lo + threadIdx.x; b < hi; b += kU * threads) {
+      int4 v0[kU], v1[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u)
+        if (b + u * threads < hi) {
+          v0[u] = ld_nc(sa + b + u * threads);
+          v1[u] = ld_nc(sa + b + u * threads + 1);
+        }
+#pragma unroll
+      for (int u = 0; u < kU; ++u)
+        if (b + u * threads < hi) d4[b + u * threads] = cut(v0[u], v1[u],
+                                                           q.shift);
+    }
   }
+}
+
+// the head (item 0) and tail (last item) words of q
+__device__ __forceinline__ void copy_edges(const Send& a, const Pair& q,
+                                           int chunk) {
+  const int* s = reinterpret_cast<const int*>(q.src);
+  int* d = reinterpret_cast<int*>(q.dst);
+  if (chunk == 0 && (int)threadIdx.x < q.head) d[threadIdx.x] = s[threadIdx.x];
+  if (chunk == a.items - 1 && (int)threadIdx.x < q.tail) {
+    const long long w = q.head + 4 * q.body + threadIdx.x;
+    d[w] = s[w];
+  }
+}
+
+// body chunks [lo, hi) of item `chunk` out of `body` chunks
+__device__ __forceinline__ void item_range(long long body, int items,
+                                           int chunk, long long* lo,
+                                           long long* hi) {
+  const long long per = (body + items - 1) / items;
+  const long long l = per * chunk;
+  *lo = l < body ? l : body;
+  *hi = l + per < body ? l + per : body;
+}
+
+// after the thread block's stores of an item of pair p: count the item and,
+// for the last one of the pair, publish its flag at the receiver
+__device__ __forceinline__ void arrive(const Send& a, const Pair& q,
+                                       long long p) {
   __syncthreads();
   if (threadIdx.x == 0) {
     // this block's stores before its arrival.  Card scope is enough here:
     // the last arriver's system-scope fence below is cumulative over what
     // it observed through the arrival counter.
     __threadfence();
-    const unsigned int arrived = atomicAdd(&done[s], 1u);
-    if (arrived == gridDim.x - 1) {
-      done[s] = 0;           // the next send of this rank starts from zero
-      __threadfence_system();  // every block's stores before the flag
-      st_release_sys(flags[dst_rank] + me, epoch);
+    const unsigned int arrived = atomicAdd(a.done + p, 1u);
+    if (arrived == (unsigned)a.items - 1) {
+      a.done[p] = 0;            // the next exchange starts from zero
+      __threadfence_system();   // every block's stores before the flag
+      st_release_sys(a.flags[q.to] + q.me, a.epoch);
     }
   }
 }
 
-__global__ void ring_wait(int n, unsigned long long* const* rank_flags,
+__global__ void __launch_bounds__(kThreads) ring_send(const Send a) {
+  const long long total = a.pairs * a.items;
+  for (long long it = blockIdx.x; it < total; it += gridDim.x) {
+    const long long p = it / a.items;
+    const int chunk = (int)(it % a.items);
+    const Pair q = pair_of(a, p);
+    long long lo, hi;
+    item_range(q.body, a.items, chunk, &lo, &hi);
+    copy_edges(a, q, chunk);
+    copy_body<kThreads>(q, lo, hi);
+    arrive(a, q, p);
+  }
+}
+
+// -- the bulk (TMA) form ------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t ready = 0;
+  while (!ready) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}" : "=r"(ready) : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               ::"l"(dst), "r"(src), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kBulkThreads) ring_send_bulk(const Send a) {
+  extern __shared__ __align__(128) unsigned char stage[];
+  __shared__ __align__(8) unsigned long long bars[kStages];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+                       smem_addr(bars + s))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+  uint32_t loaded = 0;   // chunks thread 0 has loaded: stage and parity
+  const long long total = a.pairs * a.items;
+  for (long long it = blockIdx.x; it < total; it += gridDim.x) {
+    const long long p = it / a.items;
+    const int chunk = (int)(it % a.items);
+    const Pair q = pair_of(a, p);
+    long long lo, hi;
+    item_range(q.body, a.items, chunk, &lo, &hi);
+    copy_edges(a, q, chunk);
+    if (q.shift != 0) {
+      copy_body<kBulkThreads>(q, lo, hi);
+    } else if (threadIdx.x == 0 && hi > lo) {
+      const char* src = q.src + 4 * q.head + 16 * lo;
+      char* dst = q.dst + 4 * q.head + 16 * lo;
+      const long long bytes = 16 * (hi - lo);
+      const long long n = (bytes + kStageBytes - 1) / kStageBytes;
+      auto len = [&](long long c) {
+        const long long rest = bytes - c * kStageBytes;
+        return (uint32_t)(rest < kStageBytes ? rest : kStageBytes);
+      };
+      auto load = [&](long long c) {
+        const uint32_t s = (loaded + (uint32_t)c) % kStages;
+        bulk_load(smem_addr(stage + s * kStageBytes), src + c * kStageBytes,
+                  len(c), smem_addr(bars + s));
+      };
+      for (long long c = 0; c < n && c < kStages; ++c) load(c);
+      for (long long c = 0; c < n; ++c) {
+        const uint32_t g = loaded + (uint32_t)c;
+        const uint32_t s = g % kStages;
+        bar_wait(smem_addr(bars + s), (g / kStages) & 1);
+        bulk_store(dst + c * kStageBytes, smem_addr(stage + s * kStageBytes),
+                   len(c));
+        if (c + kStages < n) {
+          // the stage is loaded again once its store has read it
+          asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+          load(c + kStages);
+        }
+      }
+      asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+      asm volatile("fence.proxy.async.global;" ::: "memory");
+      loaded += (uint32_t)n;
+    }
+    arrive(a, q, p);
+  }
+}
+
+__global__ void ring_wait(int n, int first, int step,
+                          unsigned long long* const* rank_flags,
                           unsigned long long epoch, long long max_polls) {
-  unsigned long long* flags = rank_flags[blockIdx.x];
+  unsigned long long* flags = rank_flags[first + blockIdx.x * step];
   const int j = threadIdx.x;
   if (j >= n) return;
   long long polls = 0;
@@ -118,38 +339,84 @@ __global__ void ring_wait(int n, unsigned long long* const* rank_flags,
   }
 }
 
-}  // namespace
-
-// One rank's sends.  `outs` and `flags` are device arrays of n pointers (the
-// n ranks' output buffers and flag arrays); `done` is this rank's n arrival
-// counters, zero before the first send.  The block size must be a multiple
-// of 4 bytes and the buffers 4-byte aligned.
-extern "C" int smtpu_ring_send(int me, int n, long long block_bytes,
-                               const void* x, const void* outs,
-                               const void* flags, void* done,
-                               unsigned long long epoch, int blocks_per_step,
-                               void* stream) {
-  if (n <= 0 || block_bytes <= 0) return 0;
-  dim3 grid((unsigned)blocks_per_step, (unsigned)n);
-  ring_send<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      me, n, block_bytes, static_cast<const char*>(x),
-      static_cast<char* const*>(outs),
-      static_cast<unsigned long long* const*>(flags),
-      static_cast<unsigned int*>(done), epoch);
-  return static_cast<int>(cudaGetLastError());
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 132;
+  }
+  return sms;
 }
 
-// The waits of `ranks` ranks of one card: returns once all n flags of each
-// reached `epoch`.  `rank_flags` is a device array of those ranks' flag
-// arrays (n + 1 counters each, the last counts timeouts).
-extern "C" int smtpu_ring_wait(int n, int ranks, const void* rank_flags,
-                               unsigned long long epoch, long long max_polls,
-                               void* stream) {
-  if (n <= 0 || ranks <= 0) return 0;
-  if (n > 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = ((n + 31) / 32) * 32;
-  ring_wait<<<ranks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      n, static_cast<unsigned long long* const*>(rank_flags), epoch,
-      max_polls);
+}  // namespace
+
+// One exchange's launches on one card: the sends of its `senders` ranks in
+// one launch, then their waits in another.  Sender i is rank first + i*step;
+// its (n, C, ...) operand is contiguous at x + i*x_stride.  Rank r's
+// (n, C, ...) result is at out + r*out_stride, or at outs[r] when `outs` (a
+// device array of n pointers) is not null.  `flags` is a device array of the
+// n ranks' flag arrays (n + 1 counters each, the last counts timeouts);
+// `done` holds senders*n arrival counters, zero before the first send.
+// Block sizes and buffers are multiples of 4 bytes.  copy: 0 vector, 1 bulk
+// (TMA).  The wait follows this card's sends on this card's stream, so it
+// never holds a sender of its own card; across cards each card's stream
+// runs its own sends whatever the other cards' waits do.
+extern "C" int smtpu_ring_exchange(int n, int senders, int first, int step,
+                                   long long block_bytes, const void* x,
+                                   long long x_stride, void* out,
+                                   long long out_stride, const void* outs,
+                                   const void* flags, void* done,
+                                   unsigned long long epoch, int copy,
+                                   long long max_polls, void* stream) {
+  if (n <= 0 || senders <= 0 || block_bytes <= 0) return 0;
+  if (block_bytes % 4 || n > 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Send a;
+  a.n = n;
+  a.first = first;
+  a.step = step;
+  a.words = block_bytes / 4;
+  a.x = static_cast<const char*>(x);
+  a.x_stride = x_stride;
+  a.out = static_cast<char*>(out);
+  a.out_stride = out_stride;
+  a.outs = static_cast<char* const*>(outs);
+  a.flags = static_cast<unsigned long long* const*>(flags);
+  a.done = static_cast<unsigned int*>(done);
+  a.epoch = epoch;
+  a.pairs = (long long)senders * n;
+  const int per_sm = copy ? kBulkBlocksPerSM : kBlocksPerSM;
+  const long long wave = (long long)sm_count() * per_sm;
+  // items of at most kMaxItemBytes, and enough of them to fill one wave of
+  // thread blocks where the blocks are small (down to kMinItemBytes)
+  long long items = (block_bytes + kMaxItemBytes - 1) / kMaxItemBytes;
+  long long fill = (wave + a.pairs - 1) / a.pairs;
+  const long long finest = block_bytes / kMinItemBytes;
+  if (fill > finest) fill = finest;
+  if (items < fill) items = fill;
+  if (items < 1) items = 1;
+  a.items = (int)items;
+  long long grid = a.pairs * items;
+  if (grid > wave) grid = wave;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (copy) {
+    static bool sized = false;
+    if (!sized) {
+      cudaError_t e = cudaFuncSetAttribute(
+          ring_send_bulk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          kBulkSmem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      sized = true;
+    }
+    ring_send_bulk<<<(unsigned)grid, kBulkThreads, kBulkSmem, s>>>(a);
+  } else {
+    ring_send<<<(unsigned)grid, kThreads, 0, s>>>(a);
+  }
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ring_wait<<<senders, ((n + 31) / 32) * 32, 0, s>>>(
+      n, first, step, a.flags, epoch, max_polls);
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,6 +19,7 @@ kernel for a CUDA tensor, raising on what the kernel does not take
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -59,17 +60,26 @@ def _check(table, slots, valid):
 
 
 def masked_gather(table: torch.Tensor, slots: torch.Tensor,
-                  valid: torch.Tensor) -> torch.Tensor:
+                  valid: torch.Tensor,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``(N, d)`` rows of ``table`` at ``slots`` (clipped into range),
-    zero where ``valid`` is false."""
+    zero where ``valid`` is false; written into ``out`` (a contiguous
+    ``(N, d)`` tensor of the table's dtype and device) when given."""
     global launches
+    n, d = slots.shape[0], table.shape[1]
+    if out is not None and (out.shape != (n, d) or out.dtype != table.dtype
+                            or out.device != table.device
+                            or not out.is_contiguous()):
+        raise ValueError("masked_gather: out must be a contiguous (N, d) "
+                         "tensor of the table's dtype and device")
     if table.device.type == "cpu":
-        return masked_gather_plain(table, slots, valid)
+        rows = masked_gather_plain(table, slots, valid)
+        return rows if out is None else out.copy_(rows)
     if table.device.type != "cuda":
         raise ValueError(f"masked_gather: unsupported device {table.device}")
     _check(table, slots, valid)
-    n, d = slots.shape[0], table.shape[1]
-    out = torch.empty((n, d), dtype=table.dtype, device=table.device)
+    if out is None:
+        out = torch.empty((n, d), dtype=table.dtype, device=table.device)
     if n == 0:
         return out
     vec4 = int(d % 4 == 0 and table.data_ptr() % 16 == 0

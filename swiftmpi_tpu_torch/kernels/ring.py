@@ -7,50 +7,63 @@ tiled=True)`` between the n shards of the ``tpu`` transfer: each rank holds
 an ``(n, C, ...)`` operand whose block ``j`` goes to rank ``j``, and block
 ``j`` of its result is the block it received from rank ``j``.
 
-The CUDA kernel (``csrc/ring.cu``) is launched once per rank with raw
-pointers to every rank's output buffer and flag array.  Its send half
-copies block ``(me + s) % n`` into slot ``me`` of rank ``(me + s) % n``'s
-output for s = 0..n-1 and publishes a per-step flag at the receiver (a
-system-scope fence, then a release store of a growing epoch).  Its wait
-half (one thread per peer, acquire loads) is enqueued only after all n
-sends are enqueued, the ``start()`` ... ``wait()`` split of the Pallas
-kernel, so a waiter never holds the card against a sender that is not
-scheduled yet; the waits of the ranks of one card go in one launch, one
-thread block per rank.  Here the n ranks are logical and share one card and one
-stream, so the waits find their flags set; the same kernel works across
-peer-mapped cards, which is not run yet (ROADMAP A11).  Bound on the
-card: bytes — every operand byte read once and written once, over 3.35
-TB/s (times in PERF.md, from ``chip_smoke.py``).
+Two forms: :func:`ring_exchange_stacked` takes the n ranks' operands as one
+``(n, n, C, ...)`` tensor (each rank's slice contiguous, any stride between
+them; the transfer's buckets are such slices) and returns their results as
+one tensor; :func:`ring_exchange` takes and returns lists, and on the card
+stacks the list first (a copy; for tests and callers that hold lists).
 
-``ring_exchange`` runs the plain version for CPU tensors and launches the
-kernel for CUDA tensors, raising on what the kernel does not take; there
-is no fallback between the two.
+The CUDA kernel (``csrc/ring.cu``) is two launches per exchange on a card.
+``ring_send``, one launch for all the ranks of the card, copies block
+``(me + s) % n`` of every sender into slot ``me`` of rank ``(me + s) %
+n``'s output for s = 0..n-1 and publishes a per-step flag at the receiver
+(a system-scope fence, then a release store of a growing epoch).
+``ring_wait`` (one thread per peer, acquire loads, one thread block per
+rank of the card) is enqueued after the sends, the ``start()`` ...
+``wait()`` split of the Pallas kernel, so a waiter never holds the card
+against a sender that is not scheduled yet.  Here the n ranks are logical
+and share one card and one stream, so the waits find their flags set; the
+same kernels work across peer-mapped cards, which is not run yet (ROADMAP
+A11).  Sources and outputs go to the kernel as base + stride, so an
+exchange uploads nothing and allocates no host tensor.  Bound on the card:
+bytes — every operand byte read once and written once, over 3.35 TB/s
+(times in PERF.md, from ``chip_smoke.py``).
+
+Both forms run the plain version for CPU tensors and launch the kernel for
+CUDA tensors, raising on what the kernel does not take; there is no
+fallback between the two.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from swiftmpi_tpu_torch.kernels import build
 
-#: launches of the send kernel since the last reset: one per rank per
-#: exchange (each exchange ends with one launch of the wait kernel)
+#: launches of the send kernel since the last reset: one per card per
+#: exchange
 launches = 0
+#: launches of the wait kernel since the last reset: one per card per
+#: exchange
+wait_launches = 0
 
-_SEND_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                  ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_int,
-                  ctypes.c_void_p]
-_WAIT_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                  ctypes.c_ulonglong, ctypes.c_longlong, ctypes.c_void_p]
+#: the send kernel's body copy, by the code ``csrc/ring.cu`` takes:
+#: 0 "vector" (16-byte loads, eight in flight a thread), 1 "bulk" (TMA
+#: bulk copies through shared memory).  ``apps/ring_sweep.py`` times both;
+#: this is the faster on the H100 (PERF.md).
+COPY = 1
+COPY_FORMS = {"vector": 0, "bulk": 1}
 
-#: bytes one thread block of a step copies before the step gets another
-_BYTES_PER_BLOCK = 32 * 1024
-#: thread blocks of one rank's send across all its steps
-_MAX_BLOCKS = 1024
+_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_ulonglong,
+             ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+
 #: polls (100 ns apart) after which a waiter gives up and counts a timeout
 _MAX_POLLS = 20_000_000
 
@@ -81,42 +94,35 @@ def ring_exchange_plain(operands: Sequence[torch.Tensor]
                          for j in range(n)]) for r in range(n)]
 
 
+def ring_exchange_stacked_plain(x: torch.Tensor,
+                                out: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
+    """Plain PyTorch version of the stacked form: ``out[r, j] = x[j, r]``."""
+    _check_stacked(x, out)
+    if out is None:
+        out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    return out.copy_(x.transpose(0, 1))
+
+
 class _Ring:
     """The persistent half of an n-rank exchange on one device: every
-    rank's flag array (n epochs + a timeout count) and arrival counters,
-    the device array of flag pointers, and the epoch."""
+    rank's flag array (n epochs + a timeout count), the arrival counters of
+    the (sender, step) pairs, the device array of flag pointers, the
+    resolved kernel entry point and the epoch."""
 
     def __init__(self, n: int, device: torch.device):
         self.n, self.device = n, device
-        self.flags = [torch.zeros(n + 1, dtype=torch.int64, device=device)
-                      for _ in range(n)]
-        self.done = [torch.zeros(n, dtype=torch.int32, device=device)
-                     for _ in range(n)]
-        self.done_ptrs = [d.data_ptr() for d in self.done]
-        self.flag_ptrs = torch.tensor([f.data_ptr() for f in self.flags],
-                                      dtype=torch.int64).to(device)
+        self.flags = torch.zeros((n, n + 1), dtype=torch.int64,
+                                 device=device)
+        self.done = torch.zeros(n * n, dtype=torch.int32, device=device)
+        self.flag_ptrs = torch.tensor(
+            [self.flags.data_ptr() + r * (n + 1) * 8 for r in range(n)],
+            dtype=torch.int64).to(device)
+        self.flag_ptrs_ptr = self.flag_ptrs.data_ptr()
+        self.done_ptr = self.done.data_ptr()
         self.epoch = 0
-        #: (first output's address, bytes between outputs) -> the device
-        #: array of the n output pointers.  The allocator hands a training
-        #: loop the same blocks step after step, so most exchanges find
-        #: their array here and upload nothing.
-        self._out_ptrs: Dict[tuple, torch.Tensor] = {}
-
-    def out_ptrs(self, out: torch.Tensor) -> torch.Tensor:
-        """Device array of the addresses of ``out``'s n slices."""
-        stride = out.stride(0) * out.element_size()
-        key = (out.data_ptr(), stride)
-        ptrs = self._out_ptrs.get(key)
-        if ptrs is None:
-            if len(self._out_ptrs) >= 256:
-                self._out_ptrs.clear()
-            # pinned, so the upload is enqueued without a stream
-            # synchronize
-            ptrs = self._out_ptrs[key] = torch.tensor(
-                [key[0] + r * stride for r in range(self.n)],
-                dtype=torch.int64, pin_memory=True).to(self.device,
-                                                       non_blocking=True)
-        return ptrs
+        self.exchange = build.function("ring", "smtpu_ring_exchange",
+                                       _ARGTYPES)
 
 
 _rings: Dict[tuple, _Ring] = {}
@@ -125,24 +131,77 @@ _rings: Dict[tuple, _Ring] = {}
 def timeouts() -> int:
     """Waits that gave up since the process began (reads the card; for
     tests and smoke runs, not for the training loop)."""
-    return int(sum(int(f[-1]) for ring in _rings.values()
-                   for f in ring.flags))
+    return int(sum(int(ring.flags[:, -1].sum()) for ring in _rings.values()))
 
 
-def _check(operands: Sequence[torch.Tensor]) -> None:
-    dev = operands[0].device
-    for x in operands:
-        if x.device != dev:
-            raise NotImplementedError(
-                "ring_exchange: ranks on different devices need peer "
-                "mappings, which are not ported yet (ROADMAP A11)")
-        if x.dtype not in (torch.float32, torch.int32):
-            raise TypeError(f"ring_exchange kernel takes float32 or int32 "
-                            f"operands, got {x.dtype}")
-        if not x.is_contiguous():
-            raise TypeError("ring_exchange needs contiguous operands")
-    if len(operands) > 1024:
+def _check_stacked(x: torch.Tensor, out: Optional[torch.Tensor]) -> int:
+    if x.dim() < 2 or x.shape[0] != x.shape[1]:
+        raise ValueError(f"ring_exchange_stacked needs an (n, n, ...) "
+                         f"tensor, got {tuple(x.shape)}")
+    if out is not None and (out.shape != x.shape or out.dtype != x.dtype
+                            or out.device != x.device
+                            or not out.is_contiguous()):
+        raise ValueError("ring_exchange: out must be a contiguous (n, "
+                         "*operand shape) tensor of the operands' dtype "
+                         "and device")
+    return x.shape[0]
+
+
+def _slices_contiguous(x: torch.Tensor) -> bool:
+    """Whether each ``x[r]`` is contiguous (the stride between them is
+    free)."""
+    if x.numel() == 0:
+        return True
+    want = 1
+    for size, stride in zip(reversed(x.shape[1:]), reversed(x.stride()[1:])):
+        if size != 1 and stride != want:
+            return False
+        want *= size
+    return True
+
+
+def ring_exchange_stacked(x: torch.Tensor,
+                          out: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """``x[r]``: rank ``r``'s ``(n, C, ...)`` operand, block ``j`` bound
+    for rank ``j``; every slice contiguous, the ranks at any one stride.
+    Returns (in ``out`` when given, an ``(n, n, C, ...)`` contiguous
+    tensor) the n results: ``result[r, j] = x[j, r]``."""
+    global launches, wait_launches
+    n = _check_stacked(x, out)
+    kind = x.device.type
+    if kind == "cpu":
+        return ring_exchange_stacked_plain(x, out)
+    if kind != "cuda":
+        raise ValueError(f"ring_exchange: unsupported device {x.device}")
+    if x.dtype not in (torch.float32, torch.int32):
+        raise TypeError(f"ring_exchange kernel takes float32 or int32 "
+                        f"operands, got {x.dtype}")
+    if not _slices_contiguous(x):
+        raise TypeError("ring_exchange needs contiguous operands")
+    if n > 1024:
         raise ValueError("ring_exchange: at most 1024 ranks")
+    if out is None:
+        out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    es = x.element_size()
+    block_bytes = math.prod(x.shape[2:]) * es
+    if block_bytes == 0:
+        return out
+    ring = _rings.get((n, x.device))
+    if ring is None:
+        ring = _rings[(n, x.device)] = _Ring(n, x.device)
+    ring.epoch += 1
+    # all n ranks share this card: one send launch, then one wait launch,
+    # both enqueued by one call
+    rc = ring.exchange(n, n, 0, 1, block_bytes, x.data_ptr(),
+                       x.stride(0) * es, out.data_ptr(), out.stride(0) * es,
+                       None, ring.flag_ptrs_ptr, ring.done_ptr, ring.epoch,
+                       COPY, _MAX_POLLS,
+                       torch.cuda.current_stream(x.device).cuda_stream)
+    build.check_launch("ring_exchange", rc)
+    launches += 1
+    wait_launches += 1
+    return out
 
 
 def ring_exchange(operands: Sequence[torch.Tensor],
@@ -150,9 +209,7 @@ def ring_exchange(operands: Sequence[torch.Tensor],
     """``operands[r]``: rank ``r``'s ``(n, C, ...)`` operand, block ``j``
     bound for rank ``j``.  Returns the n results: block ``j`` of
     ``result[r]`` is ``operands[j][r]``.  ``out``, an ``(n, n, C, ...)``
-    tensor, takes the results of ranks that share a device as its n
-    slices (the caller can then work on all of them at once)."""
-    global launches
+    tensor, takes the results as its n slices."""
     n = _check_shapes(operands)
     kind = operands[0].device.type
     if out is not None and (out.shape != (n, *operands[0].shape)
@@ -172,33 +229,16 @@ def ring_exchange(operands: Sequence[torch.Tensor],
     if kind != "cuda":
         raise ValueError(f"ring_exchange: unsupported device "
                          f"{operands[0].device}")
-    _check(operands)
     dev = operands[0].device
-    if out is None:
-        out = torch.empty((n, *operands[0].shape), dtype=operands[0].dtype,
-                          device=dev)
-    outs = list(out.unbind(0))
-    block_bytes = operands[0].numel() // n * operands[0].element_size()
-    if block_bytes == 0:
-        return outs
-    ring = _rings.get((n, dev))
-    if ring is None:
-        ring = _rings[(n, dev)] = _Ring(n, dev)
-    ring.epoch += 1
-    out_ptrs = ring.out_ptrs(out).data_ptr()
-    flag_ptrs = ring.flag_ptrs.data_ptr()
-    per_step = max(1, min(-(-block_bytes // _BYTES_PER_BLOCK),
-                          _MAX_BLOCKS // n))
-    send = build.function("ring", "smtpu_ring_send", _SEND_ARGTYPES)
-    wait = build.function("ring", "smtpu_ring_wait", _WAIT_ARGTYPES)
-    stream = build.stream_of(operands[0])
-    # every send is enqueued before any wait
-    for me, x in enumerate(operands):
-        rc = send(me, n, block_bytes, x.data_ptr(), out_ptrs, flag_ptrs,
-                  ring.done_ptrs[me], ring.epoch, per_step, stream)
-        build.check_launch("ring_exchange (send)", rc)
-        launches += 1
-    # all n ranks share this card: their waits go in one launch
-    rc = wait(n, n, flag_ptrs, ring.epoch, _MAX_POLLS, stream)
-    build.check_launch("ring_exchange (wait)", rc)
-    return outs
+    for x in operands:
+        if x.device != dev:
+            raise NotImplementedError(
+                "ring_exchange: ranks on different devices need peer "
+                "mappings, which are not ported yet (ROADMAP A11)")
+        if x.dtype not in (torch.float32, torch.int32):
+            raise TypeError(f"ring_exchange kernel takes float32 or int32 "
+                            f"operands, got {x.dtype}")
+        if not x.is_contiguous():
+            raise TypeError("ring_exchange needs contiguous operands")
+    return list(ring_exchange_stacked(torch.stack(list(operands)),
+                                      out).unbind(0))

@@ -17,8 +17,10 @@ batch) and server (it holds a table shard), like every reference MPI rank
 
 A push routes (slot, grad) pairs the same way; owners sum what they
 receive into a ``(cap_per_shard, W)`` accumulator with the scatter-add
-kernel, invalid rows dropped, and apply the access method once per row
-(the AdaGrad kernel over the shard, untouched rows seeing zero gradient).
+kernel, invalid rows dropped (the owners of one device in one launch per
+family, a mean push's counts from the same launch), and apply the access
+method once per row (the AdaGrad kernel over the shard, untouched rows
+seeing zero gradient).
 Shapes are static: request buckets hold ``C`` slots per destination, the
 whole local slice unless ``bucket_capacity`` cuts it, with ``-1`` padding.
 
@@ -26,10 +28,12 @@ Where the JAX package runs one SPMD program over a device mesh, the port
 walks the ranks of a :class:`~swiftmpi_tpu_torch.cluster.mesh.RankLayout`.
 The worker-side bookkeeping of the ranks that share a device (bucketing
 their batch slices, laying grads out in buckets, restoring request order)
-runs as one batched pass per device, to keep the launch count down; the
-owner side (gather, scatter-add, AdaGrad) runs per rank on that rank's
-own shard, and only the ring exchange crosses ranks.  The table state is ``{field:
-[shard tensors]}`` (``parameter/sparse_table.py``).
+runs as one batched pass per device, to keep the launch count down; so
+do every ring exchange (one send launch and one wait launch per device)
+and the owner-side scatter-add (over the device's ``(R, n * C)`` received
+rows, slices of one exchange output).  The gather and AdaGrad run per rank
+on that rank's own shard.  The table state is ``{field: [shard
+tensors]}`` (``parameter/sparse_table.py``).
 
 Not ported: the data axis across processes (``dp_axis``, the sparse DCN
 reconcile; ROADMAP A11), the window primitives, ``@rowver`` stamping and
@@ -39,12 +43,13 @@ library route of the exchange (ROADMAP A16).
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Optional
 
 import torch
 
 from swiftmpi_tpu_torch.kernels.gather import masked_gather
-from swiftmpi_tpu_torch.kernels.ring import ring_exchange
+from swiftmpi_tpu_torch.kernels.ring import (ring_exchange,
+                                             ring_exchange_stacked)
 from swiftmpi_tpu_torch.kernels.scatter import masked_scatter_add
 from swiftmpi_tpu_torch.transfer.api import Transfer
 
@@ -206,27 +211,22 @@ class ShardedTransfer(Transfer):
         return per_rank[torch.as_tensor(ranks, device=per_rank.device)]
 
     def _exchange(self, groups, per_group):
-        """The ring exchange of the ranks' operands, given per group as
-        ``(R, n, ...)`` tensors or lists of R ``(n, ...)`` tensors; each
-        group gets its ranks' results back as one ``(R, n, ...)`` tensor."""
-        operands = self._by_rank(groups, per_group)
+        """The ring exchange of the ranks' operands, given per group as one
+        ``(R, n, ...)`` tensor whose rank slices are contiguous; each group
+        gets its ranks' results back as one ``(R, n, ...)`` tensor.  The
+        ranks of one device exchange in one send launch."""
         if len(groups) > 1:
-            got = ring_exchange(operands)
+            got = ring_exchange(self._by_rank(groups, per_group))
             return [torch.stack([got[r] for r in g.ranks]) for g in groups]
-        out = torch.empty((self.n, *operands[0].shape),
-                          dtype=operands[0].dtype, device=groups[0].device)
-        ring_exchange(operands, out=out)
-        return [out]
+        return [ring_exchange_stacked(per_group[0])]
 
     def _requests(self, groups):
-        """Exchange the request buckets: per owner rank, the flat
-        ``(n * C,)`` owner-local rows it received (``-1`` padding) and
+        """Exchange the request buckets: per group, the ``(R, n * C)``
+        owner-local rows its ranks received as owners (``-1`` padding) and
         their validity."""
         got = self._exchange(groups, [g.req for g in groups])
-        rows = [t.reshape(-1) for t in self._by_rank(groups, got)]
-        ok = [t.reshape(-1) for t in self._by_rank(
-            groups, [t >= 0 for t in got])]
-        return rows, ok
+        rows = [t.view(len(g.ranks), -1) for g, t in zip(groups, got)]
+        return rows, [t >= 0 for t in rows]
 
     def _by_rank(self, groups, per_group):
         """Per-rank list of the slices of per-group ``(R, ...)`` tensors."""
@@ -243,13 +243,17 @@ class ShardedTransfer(Transfer):
         got, ok = self._requests(groups)
         out = {}
         for f in fields:
+            d = state[f][0].shape[1]
             # owners: rows of their own shard, zero where the request is
-            # padding
-            rows = [masked_gather(state[f][r], got[r], ok[r]
-                                  ).view(n, C, -1) for r in range(n)]
-            d = rows[0].shape[-1]
-            resp = self._exchange(groups, [[rows[r] for r in g.ranks]
-                                           for g in groups])
+            # padding, straight into the group's operand of the exchange
+            rows = []
+            for g, gr, gk in zip(groups, got, ok):
+                buf = torch.empty((len(g.ranks), n * C, d),
+                                  dtype=state[f][0].dtype, device=g.device)
+                for i, r in enumerate(g.ranks):
+                    masked_gather(state[f][r], gr[i], gk[i], out=buf[i])
+                rows.append(buf.view(len(g.ranks), n, C, d))
+            resp = self._exchange(groups, rows)
             res = torch.empty((n, slots.shape[0] // n, d),
                               dtype=rows[0].dtype, device=slots.device)
             for g, mine in zip(groups, resp):
@@ -276,10 +280,12 @@ class ShardedTransfer(Transfer):
         owner row (``mean``: divide by the contribution counts) and apply
         the access rule to every shard in place.
 
-        ``counts`` (non-None) marks a position-indexed span family: the
-        per-row contribution counts ride the routing as a synthetic
-        width-1 grad field, so ``mean`` divides by the data counts rather
-        than one per request, as ``push_span`` of the single-device
+        The owners of one device sum each family in one scatter-add launch
+        over all their ranks; a mean push takes its counts from the first
+        family's launch.  ``counts`` (non-None) marks a position-indexed
+        span family: the per-row contribution counts ride the routing as a
+        synthetic width-1 grad field, so ``mean`` divides by the data counts
+        rather than one per request, as ``push_span`` of the single-device
         backend does."""
         n = self.n
         with_counts = counts is not None
@@ -292,16 +298,9 @@ class ShardedTransfer(Transfer):
         Bl = slots.shape[0] // n
         # received rows per owner; padding is dropped by the scatter
         rows, ok = self._requests(groups)
-        inv = None
-        if mean and not with_counts:
-            # contribution counts accumulate at the owner from the
-            # received requests themselves: no extra exchange
-            ones = {g.device: torch.ones((n * C, 1), dtype=torch.float32,
-                                         device=g.device) for g in groups}
-            inv = [1.0 / masked_scatter_add(
-                rows[r], ok[r], ones[rows[r].device], cap).clamp(min=1.0)
-                for r in range(n)]
-        dense: List[Dict[str, torch.Tensor]] = [{} for _ in range(n)]
+        # per group: family -> (R, cap, W) sums, and the mean's divisor
+        sums = [{} for _ in groups]
+        divisor = [None] * len(groups)
         for f in sorted(grads):
             g_all = grads[f]
             width = g_all.shape[1]
@@ -319,25 +318,34 @@ class ShardedTransfer(Transfer):
                 bucket[rank, torch.where(hit, g.so, n).long(),
                        g.idx.clamp(0, C - 1)] = mine[rank, g.order]
                 buckets.append(bucket[:, :n])
-            recv = self._by_rank(groups, self._exchange(groups, buckets))
-            for r in range(n):
-                dense[r][f] = masked_scatter_add(
-                    rows[r], ok[r], recv[r].view(-1, width), cap)
-        for r in range(n):
-            scale = None
+            recv = self._exchange(groups, buckets)
+            for k, (g, t) in enumerate(zip(groups, recv)):
+                # contribution counts accumulate at the owner from the
+                # received requests themselves: no extra exchange
+                take = mean and not with_counts and divisor[k] is None
+                res = masked_scatter_add(rows[k], ok[k],
+                                         t.view(len(g.ranks), -1, width),
+                                         cap, counts=take)
+                if take:
+                    res, cnt = res
+                    divisor[k] = cnt.clamp(min=1.0)[..., None]
+                sums[k][f] = res
+        for k, g in enumerate(groups):
+            dense = sums[k]
             if with_counts:
                 # span families: the data counts summed at the owner like
                 # any grad
-                csum = dense[r].pop(_COUNTS)
+                csum = dense.pop(_COUNTS)
                 if mean:
-                    scale = 1.0 / csum.clamp(min=1.0)
-            elif mean:
-                scale = inv[r]
-            if scale is not None:
-                dense[r] = {f: a * scale for f, a in dense[r].items()}
-            # in place on the rank's own shard
-            access.apply_push({f: shards[r] for f, shards in state.items()},
-                              dense[r])
+                    divisor[k] = csum.clamp(min=1.0)
+            if mean:
+                scale = 1.0 / divisor[k]
+                dense = {f: a * scale for f, a in dense.items()}
+            for i, r in enumerate(g.ranks):
+                # in place on the rank's own shard
+                access.apply_push(
+                    {f: shards[r] for f, shards in state.items()},
+                    {f: a[i] for f, a in dense.items()})
         self._record_overflow("push", groups)
         return state
 

@@ -4,11 +4,11 @@
 
 * ``pull`` is the masked row gather kernel (``kernels/gather.py``).
 * the dense push scatters the whole batch into a capacity-shaped
-  accumulator with the scatter-add kernel (``kernels/scatter.py``) — for
-  ``mean=True`` over one float32 family the per-slot counts ride along as
-  one extra column — divides by the counts, and runs the AdaGrad kernel
-  (``kernels/adagrad.py``) over the whole table.  Untouched rows see zero
-  gradient and are exact no-ops.
+  accumulator with the scatter-add kernel (``kernels/scatter.py``), one
+  launch per family — for ``mean=True`` the first family's launch also
+  returns the per-slot counts — divides by the counts, and runs the
+  AdaGrad kernel (``kernels/adagrad.py``) over the whole table.  Untouched
+  rows see zero gradient and are exact no-ops.
 * the sparse push sorts the batch so duplicates are adjacent,
   segment-sums them, gathers the one representative row per segment,
   applies the rule to those rows and writes them back.  Like the JAX
@@ -43,30 +43,26 @@ class SingleTransfer(Transfer):
     def _push_dense(self, state, slots, grads, access, mean=False):
         capacity = next(iter(state.values())).shape[0]
         valid = slots >= 0
-        n = slots.shape[0]
-        gs = list(grads.values())
-        # one float32 family: fold the contribution counts into the grads
-        # scatter as one extra column — one scatter pass instead of two
-        fuse_count = mean and len(gs) == 1 and gs[0].dtype == torch.float32
-        inv = None
-        if mean and not fuse_count:
-            ones = torch.ones((n, 1), dtype=torch.float32,
-                              device=slots.device)
-            counts = masked_scatter_add(slots, valid, ones, capacity)
-            inv = 1.0 / counts.clamp(min=1.0)
-        dense_grads = {}
+        dense_grads, counts = {}, None
         for f, g in grads.items():
-            width = state[f].shape[1]
-            if fuse_count:
-                g1 = torch.cat([g, torch.ones((n, 1), dtype=g.dtype,
-                                              device=g.device)], dim=1)
-                acc = masked_scatter_add(slots, valid, g1, capacity)
-                dense_grads[f] = acc[:, :width] / acc[:, width:].clamp(
-                    min=1.0)
+            # a mean push takes the contribution counts from its first
+            # family's scatter: one launch per family, no count pass
+            if mean and counts is None:
+                acc, counts = masked_scatter_add(slots, valid, g.contiguous(),
+                                                 capacity, counts=True)
             else:
                 acc = masked_scatter_add(slots, valid, g.contiguous(),
                                          capacity)
-                dense_grads[f] = acc * inv if mean else acc
+            dense_grads[f] = acc
+        if mean:
+            div = counts.clamp(min=1.0)[:, None]
+            # as the JAX package rounds: one family divides by its fused
+            # count column, several multiply by the reciprocal
+            if len(dense_grads) == 1:
+                dense_grads = {f: a / div for f, a in dense_grads.items()}
+            else:
+                inv = 1.0 / div
+                dense_grads = {f: a * inv for f, a in dense_grads.items()}
         # in place over the whole table (JAX: donated state)
         access.apply_push(state, dense_grads)
         return state

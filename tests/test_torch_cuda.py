@@ -241,59 +241,131 @@ def test_one_stencil_step_on_card_matches_cpu(dev, shared):
 
 # -- B5: the ring exchange and the sharded parameter server ------------------
 
+def _ring_x(rng, n, tail, dtype, dev):
+    shape = (n, n, *tail)
+    if dtype == torch.int32:
+        return torch.from_numpy(rng.integers(-1, 1000, shape)
+                                .astype(np.int32)).to(dev)
+    return torch.from_numpy(rng.standard_normal(shape)
+                            .astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("copy", ["vector", "bulk"])
 @pytest.mark.parametrize("n,tail,dtype", [
-    (8, (13, 100), torch.float32),     # 16-byte path
-    (8, (13, 101), torch.float32),     # odd row width: 4-byte path
+    (8, (13, 100), torch.float32),     # 16-byte blocks
+    (8, (13, 101), torch.float32),     # odd row width: blocks 4 mod 16
     (8, (1001,), torch.int32),         # odd C
+    (8, (13125,), torch.int32),        # the sharded h requests
+    (8, (13125, 100), torch.float32),  # the sharded h rows
+    (8, (13125, 101), torch.float32),  # odd width at full size
     (3, (7, 5), torch.float32),
-    (2, (4097, 100), torch.float32),   # several thread blocks a step
+    (5, (4099, 3), torch.float32),     # odd n, several items a step
+    (2, (4097, 100), torch.float32),
     (2, (3,), torch.int32),
     (1, (5, 4), torch.float32)])
-def test_ring_kernel_matches_plain_on_card(dev, n, tail, dtype):
-    """B5 against its plain version, bit for bit (it is a copy), three
-    exchanges in a row so the epochs grow; n sends per exchange, no wait
-    timing out."""
+def test_ring_kernel_matches_plain_on_card(dev, monkeypatch, copy, n, tail,
+                                           dtype):
+    """B5 against its plain version, bit for bit (it is a copy), in both
+    forms of its body copy, three exchanges in a row so the epochs grow:
+    one send launch and one wait launch per exchange, no wait timing
+    out.  List form and stacked form."""
+    monkeypatch.setattr(ring, "COPY", ring.COPY_FORMS[copy])
     rng = np.random.default_rng(n + len(tail))
     kernels.reset_launches()
     for _ in range(3):
-        if dtype == torch.int32:
-            xs = [torch.from_numpy(rng.integers(-1, 1000, (n, *tail))
-                                   .astype(np.int32)).to(dev)
-                  for _ in range(n)]
-        else:
-            xs = [torch.from_numpy(rng.standard_normal((n, *tail))
-                                   .astype(np.float32)).to(dev)
-                  for _ in range(n)]
-        got = ring.ring_exchange(xs)
-        want = ring.ring_exchange_plain(xs)
+        x = _ring_x(rng, n, tail, dtype, dev)
+        got = ring.ring_exchange_stacked(x)
+        want = ring.ring_exchange_stacked_plain(x)
         torch.cuda.synchronize()
-        for g, w in zip(got, want):
-            assert g.dtype == dtype and torch.equal(g, w)
-    assert ring.launches == 3 * n
+        assert got.dtype == dtype and torch.equal(got, want)
+    assert ring.launches == 3 and ring.wait_launches == 3
+    xs = list(x.unbind(0))
+    for g, w in zip(ring.ring_exchange(xs), ring.ring_exchange_plain(xs)):
+        assert torch.equal(g, w)
+    assert ring.launches == 4 and ring.wait_launches == 4
     assert ring.timeouts() == 0
 
 
-def test_ring_kernel_takes_unaligned_blocks_and_refuses_bad_inputs(dev):
-    """Operands that start 4 bytes into an allocation (the 4-byte path by
-    alignment, not by size), and what the kernel does not take."""
+@pytest.mark.parametrize("copy", ["vector", "bulk"])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_ring_kernel_takes_unaligned_blocks_and_refuses_bad_inputs(
+        dev, monkeypatch, copy, offset):
+    """Operands that start 4, 8 or 12 bytes into an allocation and rank
+    slices that are not adjacent (a bucket slice of an (n, n + 1, ...)
+    tensor): source and destination out of step mod 16, so the body is cut
+    from two aligned loads; and what the kernel does not take."""
+    monkeypatch.setattr(ring, "COPY", ring.COPY_FORMS[copy])
     n = 4
-    base = [torch.randn(n * 8 * 4 + 1, device=dev) for _ in range(n)]
-    xs = [b[1:].view(n, 8, 4) for b in base]
-    assert xs[0].data_ptr() % 16 == 4 and xs[0].is_contiguous()
-    for g, w in zip(ring.ring_exchange(xs), ring.ring_exchange_plain(xs)):
-        assert torch.equal(g, w)
+    base = torch.randn(n * (n + 1) * 37 * 3 + offset, device=dev)
+    x = base[offset:].view(n, n + 1, 37, 3)[:, :n]
+    assert x.data_ptr() % 16 == 4 * offset and not x.is_contiguous()
+    got = ring.ring_exchange_stacked(x)
+    assert torch.equal(got, ring.ring_exchange_stacked_plain(x))
+    out = torch.empty(n * n * 37 * 3 + 1, device=dev)[1:].view(n, n, 37, 3)
+    assert ring.ring_exchange_stacked(x, out=out) is out
+    assert torch.equal(out, got)
     with pytest.raises(ValueError, match="leading dim"):
         ring.ring_exchange([torch.zeros(3, 4, device=dev)] * 4)
     with pytest.raises(TypeError, match="float32 or int32"):
         ring.ring_exchange([torch.zeros(2, 4, device=dev).half()] * 2)
     with pytest.raises(TypeError, match="contiguous"):
         ring.ring_exchange([torch.zeros(4, 2, device=dev).t()] * 2)
+    with pytest.raises(TypeError, match="contiguous"):
+        ring.ring_exchange_stacked(torch.zeros(2, 2, 4, 3,
+                                               device=dev)[..., :2])
     with pytest.raises(NotImplementedError, match="A11"):
         ring.ring_exchange([torch.zeros(2, 4, device=dev),
                             torch.zeros(2, 4)])
     empty = ring.ring_exchange([torch.zeros(2, 0, device=dev)] * 2)
     assert empty[0].shape == (2, 0)
     assert ring.timeouts() == 0
+
+
+def _zipf_slots(rng, shape, cap, pad):
+    """Zipf-duplicated int32 slots with a share ``pad`` of -1 padding and
+    a few valid ones out of range."""
+    slots = ((rng.zipf(1.2, shape) - 1) % cap).astype(np.int32)
+    slots[rng.random(shape) < pad] = -1
+    flat = slots.reshape(-1)
+    flat[rng.choice(flat.size, 4, replace=False)] = [cap, cap + 9, -3, -8]
+    return slots
+
+
+@pytest.mark.parametrize("form", ["row", "warp", "tile512", "tile128"])
+@pytest.mark.parametrize("R,n,w,cap,pad", [
+    (None, 20_000, 100, 5_000, 0.1),   # one shard, the vector path
+    (None, 20_000, 101, 5_000, 0.1),   # the scalar path
+    (None, 20_000, 1, 5_000, 0.1),     # one thread a row
+    (8, 6_000, 100, 1_500, 0.9),       # owners of a card, mostly padding
+    (8, 6_000, 1, 1_500, 0.9),
+    (3, 3_000, 7, 800, 1.0)])          # all padding
+def test_scatter_kernel_matches_plain_on_card(dev, monkeypatch, form, R, n,
+                                              w, cap, pad):
+    """B3 against its plain version on Zipf-duplicated slots, in each form
+    of its kernel: sums within 1e-5 + 1e-3 |b| (float reductions in no
+    fixed order), counts exact; one launch for all R ranks, sums and
+    counts."""
+    monkeypatch.setattr(scatter, "FORM", scatter.FORMS[form])
+    rng = np.random.default_rng(n + w)
+    shape = (n,) if R is None else (R, n)
+    slots = torch.from_numpy(_zipf_slots(rng, shape, cap, pad)).to(dev)
+    valid = (slots >= 0) & torch.from_numpy(
+        rng.random(shape) >= 0.02).to(dev)
+    g = torch.from_numpy(rng.normal(size=(*shape, w))
+                         .astype(np.float32)).to(dev)
+    kernels.reset_launches()
+    acc, cnt = scatter.masked_scatter_add(slots, valid, g, cap, counts=True)
+    want, want_cnt = scatter.masked_scatter_add_plain(slots, valid, g, cap,
+                                                      counts=True)
+    torch.cuda.synchronize()
+    assert scatter.launches == 1
+    assert acc.shape == (*shape[:-1], cap, w) and cnt.shape == want_cnt.shape
+    torch.testing.assert_close(acc, want, rtol=1e-3, atol=1e-5)
+    assert torch.equal(cnt, want_cnt)
+    only = scatter.masked_scatter_add(slots, valid, g, cap)
+    torch.testing.assert_close(only, want, rtol=1e-3, atol=1e-5)
+    if pad == 1.0:
+        assert not acc.any() and not cnt.any()
 
 
 @pytest.mark.parametrize("shared", [0, 1])
@@ -334,8 +406,10 @@ def test_one_sharded_step_on_card_matches_cpu(dev, shared):
         state_to_numpy(cpu.table.state)
     for f in want:
         np.testing.assert_allclose(got[f], want[f], rtol=1e-3, atol=1e-5)
-    # two exchanges per pull and per pushed family, one send per rank
-    assert counts["ring"] == 8 * (10 if shared else 8)
+    # two exchanges per pull and per pushed family, one send launch per
+    # card each; one scatter-add per pushed family for all 8 owners
+    assert counts["ring"] == ring.wait_launches == (10 if shared else 8)
+    assert counts["scatter"] == (3 if shared else 2)
     assert counts["gather"] == 16 and counts["adagrad"] == 8 * (3 if shared
                                                                  else 2)
     assert ring.timeouts() == 0 and card.transfer.overflow_count() == 0

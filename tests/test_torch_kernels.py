@@ -171,6 +171,64 @@ def test_scatter_plain_matches_pallas_and_xla(width):
         np.testing.assert_array_equal(got1[:, -1], counts)
 
 
+@pytest.mark.parametrize("R,width", [(1, D), (3, D), (3, D + 1), (4, 1),
+                                     (2, 3)])
+def test_scatter_ranks_and_counts_match_pallas_and_numpy(R, width):
+    """The rank dimension and the count output: ``(R, N)`` slots and
+    ``(R, N, W)`` grads give ``(R, cap, W)`` sums and ``(R, cap)`` counts,
+    rank by rank equal to ``masked_vmem_scatter_add`` (interpret mode; rtol
+    1e-6, atol 1e-6: duplicates summed in another order) and to
+    ``np.add.at``; counts exactly ``np.bincount`` of the rows that land.
+    W = 16 is the vector path's shape, W = 17 the scalar one's, W = 1 the
+    one-thread-a-row one's."""
+    rng = np.random.default_rng(40 + R * width)
+    n = 200
+    slots = np.empty((R, n), np.int32)
+    valid = np.empty((R, n), bool)
+    for r in range(R):
+        s, v = _slots(rng, n=n)
+        hot = rng.zipf(1.3, n) % CAP           # Zipf-duplicated slots
+        slots[r] = np.where(v & (s >= 0) & (s < CAP), hot, s)
+        valid[r] = v
+    g = rng.normal(size=(R, n, width)).astype(np.float32)
+    acc, cnt = scatter.masked_scatter_add(
+        torch.from_numpy(slots), torch.from_numpy(valid),
+        torch.from_numpy(g), CAP, counts=True)
+    assert acc.shape == (R, CAP, width) and cnt.shape == (R, CAP)
+    assert cnt.dtype == torch.float32
+    only = scatter.masked_scatter_add(torch.from_numpy(slots),
+                                      torch.from_numpy(valid),
+                                      torch.from_numpy(g), CAP)
+    torch.testing.assert_close(only, acc, rtol=0, atol=0)
+    for r in range(R):
+        ok = valid[r] & (slots[r] >= 0) & (slots[r] < CAP)
+        want_pallas = np.asarray(masked_vmem_scatter_add(
+            jnp.asarray(slots[r]), jnp.asarray(valid[r]), jnp.asarray(g[r]),
+            CAP))
+        want_np = np.zeros((CAP, width), np.float32)
+        np.add.at(want_np, slots[r][ok], g[r][ok])
+        for want in (want_pallas, want_np):
+            np.testing.assert_allclose(acc[r].numpy(), want, rtol=1e-6,
+                                       atol=1e-6)
+        np.testing.assert_array_equal(
+            cnt[r].numpy(), np.bincount(slots[r][ok], minlength=CAP))
+        # the 2-D form of the same rank: the same sums, bit for bit
+        a1, c1 = scatter.masked_scatter_add(
+            torch.from_numpy(slots[r]), torch.from_numpy(valid[r]),
+            torch.from_numpy(g[r]), CAP, counts=True)
+        torch.testing.assert_close(a1, acc[r], rtol=0, atol=0)
+        torch.testing.assert_close(c1, cnt[r], rtol=0, atol=0)
+
+
+def test_scatter_all_padding_gives_zeros():
+    """Every row invalid or out of range: zero sums and zero counts."""
+    slots = torch.tensor([[-1, CAP, -5, 3]], dtype=torch.int32)
+    valid = torch.tensor([[False, True, True, False]])
+    acc, cnt = scatter.masked_scatter_add(slots, valid, torch.ones(1, 4, D),
+                                          CAP, counts=True)
+    assert acc.shape == (1, CAP, D) and not acc.any() and not cnt.any()
+
+
 # -- B5: ring exchange -----------------------------------------------------------
 
 def _ring_operands(rng, n, tail, dtype):
@@ -195,6 +253,40 @@ def test_ring_plain_is_a_block_transpose(n, tail, dtype):
         for r in range(n):
             assert got[r].dtype == torch.from_numpy(xs[0]).dtype
             np.testing.assert_array_equal(got[r].numpy(), want[r])
+
+
+@pytest.mark.parametrize("n,tail,dtype", [
+    (8, (6, 9), np.float32), (8, (13,), np.int32), (3, (5, 101), np.float32),
+    (3, (7,), np.int32), (1, (4, 3), np.float32)])
+def test_ring_stacked_form_matches_list_form(n, tail, dtype):
+    """The stacked form (the transfer's: one ``(n, n, C, ...)`` tensor in
+    and out) against the list form and the numpy transpose, bit for bit,
+    also for rank slices that are not adjacent (a bucket slice ``[:, :n]``
+    of an ``(n, n + 1, ...)`` tensor) and into a given ``out``."""
+    xs = _ring_operands(np.random.default_rng(20 + n), n, tail, dtype)
+    want = np.stack(xs).swapaxes(0, 1)
+    wide = torch.zeros((n, n + 1, *tail), dtype=torch.from_numpy(xs[0]).dtype)
+    wide[:, :n] = torch.from_numpy(np.stack(xs))
+    x = wide[:, :n]
+    assert (n == 1 or not x.is_contiguous()) and x[0].is_contiguous()
+    listed = ring.ring_exchange([torch.from_numpy(a) for a in xs])
+    out = torch.empty((n, n, *tail), dtype=x.dtype)
+    for fn in (ring.ring_exchange_stacked_plain, ring.ring_exchange_stacked):
+        got = fn(x)
+        assert got.shape == (n, n, *tail) and got.is_contiguous()
+        np.testing.assert_array_equal(got.numpy(), want)
+        for r in range(n):
+            np.testing.assert_array_equal(got[r].numpy(), listed[r].numpy())
+        assert fn(x, out=out) is out
+        np.testing.assert_array_equal(out.numpy(), want)
+
+
+def test_ring_stacked_form_refuses_bad_shapes():
+    with pytest.raises(ValueError, match=r"\(n, n, \.\.\.\)"):
+        ring.ring_exchange_stacked(torch.zeros((4, 3, 2)))
+    with pytest.raises(ValueError, match="out must be"):
+        ring.ring_exchange_stacked(torch.zeros((2, 2, 3)),
+                                   out=torch.zeros((2, 2, 4)))
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.int32])

@@ -338,6 +338,44 @@ def test_ranks_dealt_over_two_devices_route_alike(devices8):
         np.testing.assert_array_equal(got[f], want[f])
 
 
+@pytest.mark.parametrize("mean", [False, True])
+def test_push_scatters_once_per_device_group_and_family(devices8,
+                                                        monkeypatch, mean):
+    """The owners of one device sum each pushed family in one scatter-add
+    call over all their ranks' ``(R, n * C)`` received rows, and a mean
+    push takes its counts from the first family's call: one call per
+    device group and family, none for counts alone.  On one device every
+    exchange is one call of the stacked ring form."""
+    from swiftmpi_tpu_torch.transfer import sharded
+    _, _, jtable, layout, pacc, slots, grads = _setup(devices8)
+    calls, exchanges = [], []
+    scatter_add, stacked = sharded.masked_scatter_add, \
+        sharded.ring_exchange_stacked
+
+    def counting_scatter(*args, **kw):
+        calls.append((tuple(args[0].shape), kw.get("counts", False)))
+        return scatter_add(*args, **kw)
+
+    def counting_exchange(x):
+        exchanges.append(tuple(x.shape))
+        return stacked(x)
+
+    monkeypatch.setattr(sharded, "masked_scatter_add", counting_scatter)
+    monkeypatch.setattr(sharded, "ring_exchange_stacked", counting_exchange)
+    two = ps_mesh(N, ["cpu", torch.device("cpu", 0)])
+    C = slots.shape[0] // N
+    for lay, n_groups in ((layout, 1), (two, 2)):
+        calls.clear()
+        ShardedTransfer(lay).push(_port_state(jtable, lay),
+                                  torch.from_numpy(slots), _t(grads), pacc,
+                                  mean=mean)
+        assert len(calls) == n_groups * len(grads)
+        assert {shape for shape, _ in calls} == {(N // n_groups, N * C)}
+        assert sum(c for _, c in calls) == (n_groups if mean else 0)
+    # the one-device push: the requests, then one exchange per family
+    assert exchanges == [(N, N, C)] + [(N, N, C, D)] * len(grads)
+
+
 def test_bucket_capacity_drops_the_same_rows(devices8):
     """``bucket_capacity=2``: the same overflow count and, since both
     sides keep the first two requests of a bucket in request order, the

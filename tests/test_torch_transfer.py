@@ -106,6 +106,32 @@ def test_push_matches_xla(n, path, families, mean):
         np.testing.assert_array_equal(got[f][untouched], st[f][untouched])
 
 
+@pytest.mark.parametrize("families,mean", [(("h",), True),
+                                           (("h", "v"), True),
+                                           (("h", "v"), False)])
+def test_dense_push_scatters_once_per_family(monkeypatch, families, mean):
+    """One scatter-add call per family; a mean push takes its counts from
+    the first family's call, so no call sums counts alone."""
+    from swiftmpi_tpu_torch.transfer import single
+    calls = []
+    scatter_add = single.masked_scatter_add
+
+    def counting(*args, **kw):
+        calls.append(kw.get("counts", False))
+        return scatter_add(*args, **kw)
+
+    monkeypatch.setattr(single, "masked_scatter_add", counting)
+    rng = np.random.default_rng(7)
+    slots = _slots(rng, 600)
+    grads = {f: torch.from_numpy(rng.normal(size=(600, D))
+                                 .astype(np.float32)) for f in families}
+    tr = SingleTransfer()
+    tr.push(state_from_jax(_state(6), "cpu"), torch.from_numpy(slots), grads,
+            w2v_access(LR, D), mean=mean)
+    assert dict(tr.push_paths) == {f"{','.join(families)}:dense": 1}
+    assert calls == [mean] + [False] * (len(families) - 1)
+
+
 def test_push_all_padding_is_a_no_op():
     st = _state(4)
     tstate = state_from_jax(st, "cpu")
