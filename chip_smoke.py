@@ -398,18 +398,18 @@ def _ring_case(label, tail, dtype, rng, flush, dev):
     else:
         x = torch.as_tensor(rng.random((n, n, *tail), np.float32) - 0.5,
                             device=dev)
-    before = (ring.launches, ring.wait_launches)
+    before = ring.launches
     out_k = ring.ring_exchange_stacked(x)
-    launched = (ring.launches - before[0], ring.wait_launches - before[1])
+    launched = ring.launches - before
     out_p = ring.ring_exchange_stacked_plain(x)
     torch.cuda.synchronize()
     err = (out_k.double() - out_p.double()).abs().max().item()
     if not torch.equal(out_k, out_p):
         raise AssertionError(f"ring_exchange ({label}): kernel != plain "
                              f"(max |err| {err})")
-    if launched != (1, 1):
-        raise AssertionError(f"ring_exchange ({label}): {launched} send and "
-                             "wait launches, expected one each")
+    if launched != 1:
+        raise AssertionError(f"ring_exchange ({label}): {launched} "
+                             "exchange launches, expected one")
     if ring.timeouts():
         raise AssertionError(f"ring_exchange ({label}): a wait timed out")
     if not torch.equal(x.transpose(0, 1).contiguous(), out_p):
@@ -645,10 +645,9 @@ def phase_step_parity_sharded(vocab, batch) -> None:
     if not moved:
         raise AssertionError(f"{path}: the step moved no row")
     want = dict(SHARDED[path], stencil=0)
-    if counts != want or ring.wait_launches != want["ring"]:
-        raise AssertionError(f"{path} step launched {counts} and "
-                             f"{ring.wait_launches} ring waits, its path "
-                             f"is {want}")
+    if counts != want:
+        raise AssertionError(f"{path} step launched {counts}, its path is "
+                             f"{want}")
     if model.transfer.overflow_count() or ring.timeouts():
         raise AssertionError(f"{path}: overflow "
                              f"{model.transfer.overflow_count()}, wait "
@@ -699,10 +698,8 @@ def phase_train(rendering: str, vocab, corpus: np.ndarray,
         want = {k: v * m["steps"] for k, v in SHARDED[rendering].items()}
         got = {k: counts[k] for k in want}
         extra = {"overflow_count": model.transfer.overflow_count(),
-                 "wait_timeouts": ring.timeouts(), "shards": m["shards"],
-                 "ring_wait_launches": ring.wait_launches}
+                 "wait_timeouts": ring.timeouts(), "shards": m["shards"]}
         if got != want or extra["overflow_count"] or extra["wait_timeouts"] \
-                or ring.wait_launches != counts["ring"] \
                 or any(not k.endswith(":routed") for k in m["push_paths"]):
             raise AssertionError(
                 f"{rendering}: launches {got} in {m['steps']} steps, its "

@@ -1,21 +1,19 @@
-"""Time the ring-exchange kernel on the card in both forms of its copy.
+"""Time the ring-exchange kernel on the card.
 
     python -m swiftmpi_tpu_torch.apps.ring_sweep [-n 8] [-c 13125]
 
 For the three operand shapes of the sharded word2vec h family at the
 reference configuration (``(n, C, 100)`` and ``(n, C, 101)`` float32,
 ``(n, C)`` int32), stacked as the transfer hands them to the kernel, it
-prints one JSON line each: the median time of an exchange (one send
-launch and one wait launch) from CUDA events with the L2 flushed before
-each (as ``chip_smoke.py`` times it) for each body copy of
-``csrc/ring.cu`` (``vector``: 16-byte loads, eight in flight a thread;
-``bulk``: TMA bulk copies through shared memory), in the order vector,
-bulk, bulk, vector; then the plain version's time and one library call's
+prints one JSON line each: the byte bound; the median time of an exchange
+(one send launch and one wait launch) from CUDA events with the L2
+flushed before each (as ``chip_smoke.py`` times it), taken before and
+after the plain version's and one library call's
 (``x.transpose(0, 1).contiguous()``); then, for back-to-back exchanges
 with nothing flushed, the host's time to enqueue one exchange and the time
-per exchange once the queue drains.  The first say which copy is faster
-and how far from the byte bound, the last two whether the host or the
-card bounds a run of exchanges.
+per exchange once the queue drains.  The first say how far the kernel is
+from the byte bound and from PyTorch's own copy, the last two whether the
+host or the card bounds a run of exchanges.
 """
 
 from __future__ import annotations
@@ -59,7 +57,6 @@ def sweep(n: int, C: int) -> None:
     card = card_line()
     # twice the card's 50 MB L2, in float32
     flush = torch.zeros(2 * 50 * 2 ** 20 // 4, device=dev)
-    kept = ring.COPY
     for tail, dtype in (((C, 100), torch.float32), ((C, 101), torch.float32),
                         ((C,), torch.int32)):
         x = (torch.rand((n, n, *tail), device=dev) * 1000).to(dtype)
@@ -67,24 +64,21 @@ def sweep(n: int, C: int) -> None:
         row = {"card": card, "ranks": n, "operand": [n, *tail],
                "dtype": str(dtype), "bytes_moved": nbytes,
                "bound_ms": nbytes / PEAK_BYTES_S * 1e3}
-        want = ring.ring_exchange_stacked_plain(x)
-        for form in ("vector", "bulk", "bulk", "vector"):
-            ring.COPY = ring.COPY_FORMS[form]
-            if not torch.equal(ring.ring_exchange_stacked(x), want):
-                raise AssertionError(f"ring_exchange ({form}) != plain")
-            row.setdefault(f"{form}_ms", []).append(
-                _median_ms(lambda: ring.ring_exchange_stacked(x), flush))
-        ring.COPY = kept
-        row["kept"] = [k for k, v in ring.COPY_FORMS.items() if v == kept][0]
+        if not torch.equal(ring.ring_exchange_stacked(x),
+                           ring.ring_exchange_stacked_plain(x)):
+            raise AssertionError("ring_exchange != plain")
+        row["ms"] = [_median_ms(lambda: ring.ring_exchange_stacked(x),
+                                flush)]
         row["plain_ms"] = _median_ms(
             lambda: ring.ring_exchange_stacked_plain(x), flush)
         row["library_ms"] = _median_ms(
             lambda: x.transpose(0, 1).contiguous(), flush)
-        out = torch.empty_like(x)
+        row["ms"].append(_median_ms(lambda: ring.ring_exchange_stacked(x),
+                                    flush))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(BACK_TO_BACK):
-            ring.ring_exchange_stacked(x, out=out)
+            ring.ring_exchange_stacked(x)
         t1 = time.perf_counter()
         torch.cuda.synchronize()
         t2 = time.perf_counter()

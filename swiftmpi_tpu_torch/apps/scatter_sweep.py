@@ -1,23 +1,20 @@
-"""Time the masked scatter-add kernel on the card in each of its forms:
-every row on its own, or rows that share a slot merged first.
+"""Time the masked scatter-add kernel on the card.
 
     python -m swiftmpi_tpu_torch.apps.scatter_sweep
 
 At the shapes the word2vec h push gives it at the reference configuration
 (demo.conf on the text8-shaped synthetic corpus, the first batch, negative
 draws from a seed): the one-shard dense push (105,000 target rows of 100
-into the whole table, with counts), the same for a stencil batch (most
-rows padding), and the owners' push of the
-sharded parameter server with 8 ranks on the card (8 x 105,000 received
-rows, most of them bucket padding, into each rank's shard, with counts, in
-one launch).  One JSON line each: the median kernel time from CUDA events
-with the L2 flushed before each (as ``chip_smoke.py`` times it) for every
-``scatter.FORMS`` entry (a warp a row; a warp merging the rows among its
-32 that share a slot; a thread block merging among its 512 or 128) with
-vector
-and with scalar reductions, each twice (forward, then backward), the byte
-bound, the rows that land and the mean number of landing rows a warp's 32
-rows share a slot with (what a warp merge can save).
+into the whole table, with counts), the same for a stencil batch (most rows
+padding), and the owners' push of the sharded parameter server with 8
+ranks on the card (8 x 105,000 received rows, most of them bucket padding,
+into each rank's shard, with counts, in one launch).  One JSON line each:
+the median kernel time from CUDA events with the L2 flushed before each
+(as ``chip_smoke.py`` times it), taken before and after the plain
+version's and one library call's (``index_add_`` of the sums alone); the
+byte bound; the rows that land; and the mean number of landing rows in
+the same 32-row and 128-row window that share a row's slot (1.0: nothing
+to merge), what a warp's or the kernel's 128-row tile merge can save.
 """
 
 from __future__ import annotations
@@ -100,14 +97,20 @@ def _stencil_h_slots(model: Word2Vec, sb, seed: int) -> torch.Tensor:
     return torch.where(t_valid, t_slots, -1).reshape(-1).to(torch.int32)
 
 
-def _warp_sharing(slots: torch.Tensor, valid: torch.Tensor) -> float:
-    """Mean, over landing rows, of the landing rows in the same 32-row
-    warp window with the same slot (1.0: no duplicates to merge)."""
-    s = torch.where(valid & (slots >= 0), slots.long(), -1).reshape(-1)
-    pad = (-s.numel()) % 32
-    w = torch.cat([s, s.new_full((pad,), -1)]).view(-1, 32)
-    same = (w[:, :, None] == w[:, None, :]) & (w[:, :, None] >= 0)
-    per_row = same.sum(-1)[w >= 0].float()
+def _sharing(slots: torch.Tensor, valid: torch.Tensor, window: int) -> float:
+    """Mean, over landing rows, of the landing rows in the same
+    ``window``-row window (rank by rank) with the same slot."""
+    s = torch.where(valid & (slots >= 0), slots.long(), -1)
+    s = s.reshape(-1, s.shape[-1])
+    pad = (-s.shape[1]) % window
+    w = torch.cat([s, s.new_full((s.shape[0], pad), -1)], 1).view(
+        -1, window)
+    per_row = []
+    for part in w.split(1024):      # bounded memory for the pair table
+        same = (part[:, :, None] == part[:, None, :]) & \
+            (part[:, :, None] >= 0)
+        per_row.append(same.sum(-1)[part >= 0].float())
+    per_row = torch.cat(per_row)
     return float(per_row.mean()) if per_row.numel() else 0.0
 
 
@@ -121,24 +124,28 @@ def _case(label, slots, valid, cap, w, flush, rng):
     nbytes = 5 * slots.numel() + 4 * landing * w + 4 * lead * cap * (w + 1)
     row = {"case": label, "rows": int(slots.numel()), "width": w,
            "capacity": cap, "landing_rows": landing,
-           "rows_sharing_a_slot_in_a_warp": _warp_sharing(slots, valid),
+           "rows_sharing_a_slot_in_32": _sharing(slots, valid, 32),
+           "rows_sharing_a_slot_in_128": _sharing(slots, valid, 128),
            "bound_ms": nbytes / PEAK_BYTES_S * 1e3}
-    kept = scatter.FORM, scatter.VEC
-    forms = [(f, v) for f in scatter.FORMS for v in (1, 0)]
-    for form, vec in forms + forms[::-1]:
-        scatter.FORM, scatter.VEC = scatter.FORMS[form], vec
-        acc, cnt = scatter.masked_scatter_add(slots, valid, g, cap,
-                                              counts=True)
-        torch.testing.assert_close(acc, want, rtol=1e-3, atol=1e-5)
-        if not torch.equal(cnt, want_cnt):
-            raise AssertionError(f"{label}: counts != plain ({form})")
-        key = f"{form}{'_vec' if vec else '_scalar'}_ms"
-        row.setdefault(key, []).append(_median_ms(
-            lambda: scatter.masked_scatter_add(slots, valid, g, cap,
-                                               counts=True), flush))
-    scatter.FORM, scatter.VEC = kept
-    row["kept"] = [k for k, v in scatter.FORMS.items() if v == kept[0]][0] \
-        + ("_vec" if kept[1] else "_scalar")
+    acc, cnt = scatter.masked_scatter_add(slots, valid, g, cap, counts=True)
+    torch.testing.assert_close(acc, want, rtol=1e-3, atol=1e-5)
+    if not torch.equal(cnt, want_cnt):
+        raise AssertionError(f"{label}: counts != plain")
+
+    def kernel():
+        return scatter.masked_scatter_add(slots, valid, g, cap, counts=True)
+
+    ok = valid & (slots >= 0) & (slots < cap)
+    base = (torch.arange(lead, device=g.device)[:, None] * (cap + 1)
+            if slots.dim() == 2 else 0)
+    safe = (base + torch.where(ok, slots, cap)).reshape(-1).long()
+    lib_acc = torch.zeros((lead * (cap + 1), w), device=g.device)
+    row["ms"] = [_median_ms(kernel, flush)]
+    row["plain_ms"] = _median_ms(lambda: scatter.masked_scatter_add_plain(
+        slots, valid, g, cap, counts=True), flush)
+    row["library_ms"] = _median_ms(
+        lambda: lib_acc.index_add_(0, safe, g.reshape(-1, w)), flush)
+    row["ms"].append(_median_ms(kernel, flush))
     return row
 
 

@@ -13,9 +13,10 @@ ring       ops/pallas_ring.py ring_exchange            sharded pull/push
 Each module holds the kernel's wrapper, its plain PyTorch version
 (``*_plain``) and a ``launches`` counter that the wrapper bumps once per
 kernel launch: the scatter-add's once per card and pushed family (all the
-card's ranks in one launch), the ring's once per card and exchange (its
-send launch; ``ring.wait_launches`` counts the wait launch beside it).  The wrapper runs the plain version for CPU tensors and
-launches the kernel for CUDA tensors, with no fallback between the two.
+card's ranks in one launch), the ring's once per card and exchange (one
+send launch and one wait launch).  The wrapper runs the plain version for
+CPU tensors and launches the kernel for CUDA tensors, with no fallback
+between the two.
 """
 
 from swiftmpi_tpu_torch.kernels import (adagrad, gather, ring, scatter,
@@ -25,10 +26,9 @@ KERNEL_MODULES = (gather, scatter, adagrad, stencil, ring)
 
 
 def reset_launches() -> None:
-    """Zero every kernel's launch counter (and the ring's wait launches)."""
+    """Zero every kernel's launch counter."""
     for mod in KERNEL_MODULES:
         mod.launches = 0
-    ring.wait_launches = 0
 
 
 def launch_counts() -> dict:

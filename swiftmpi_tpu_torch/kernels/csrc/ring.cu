@@ -37,35 +37,30 @@
 // 3.35 TB/s.  Copies are shaped for Hopper.  Every (sender, step) block is
 // split into a head of up to three 4-byte words that brings the destination
 // to a 16-byte boundary, a body of 16-byte chunks and a tail of up to three
-// words.  Two forms of the body copy (the `copy` argument):
-//   vector  every thread keeps kUnroll 16-byte loads in flight, then stores.
-//           Where source and destination do not share their alignment mod
-//           16 (the int32 request buckets: C*4 = 4 mod 16), loads stay
-//           aligned to the source and stores to the destination: each
-//           16-byte store is cut from two aligned source loads in
-//           registers (the second is the neighbour's first, an L1 hit).
-//   bulk    the Tensor Memory Accelerator: one thread streams the body
-//           through a ring of kStages shared-memory stages with
-//           cp.async.bulk (global -> shared, completed on an mbarrier; then
-//           shared -> global, a bulk group), the other threads copy head
-//           and tail.  Bodies whose alignment differs take the vector form.
-// apps/ring_sweep.py times both; the wrapper launches the faster (PERF.md).
+// words.  Where source and destination share their alignment mod 16, the
+// Tensor Memory Accelerator copies the body: one thread streams it through
+// a ring of kStages shared-memory stages with cp.async.bulk (global ->
+// shared, completed on an mbarrier; then shared -> global, a bulk group)
+// while the other threads copy head and tail.  Where they do not (the
+// int32 request buckets: C*4 = 4 mod 16), every thread keeps 16-byte loads
+// in flight, aligned to the source, and cuts each 16-byte store to the
+// destination from two of them in registers (the second is the neighbour's
+// first, an L1 hit).  TMA bodies read 4% faster than 16-byte vector copies
+// of the same bodies on the H100 (PERF.md, apps/ring_sweep.py); the card's
+// copy ceiling, not the kernel, bounds both.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kUnroll = 8;
-constexpr int kBlocksPerSM = 4;
+constexpr int kThreads = 128;
+constexpr int kUnroll = 8;        // 16-byte loads in flight a thread
 constexpr long long kMaxItemBytes = 64 << 10;
 constexpr long long kMinItemBytes = 16 << 10;
-
-constexpr int kBulkThreads = 128;
 constexpr int kStages = 4;
 constexpr int kStageBytes = 16 << 10;
-constexpr int kBulkSmem = kStages * kStageBytes;
-constexpr int kBulkBlocksPerSM = 3;
+constexpr int kSmem = kStages * kStageBytes;
+constexpr int kBlocksPerSM = 3;   // what the shared-memory ring allows
 
 struct Send {
   int n;                          // ranks in the exchange
@@ -136,40 +131,27 @@ __device__ __forceinline__ int4 cut(int4 a, int4 b, int shift) {
   return make_int4(a.w, b.x, b.y, b.z);
 }
 
-// body chunks [lo, hi) of q by the block's `threads` threads
-template <int threads>
-__device__ __forceinline__ void copy_body(const Pair& q, long long lo,
-                                          long long hi) {
+// body chunks [lo, hi) of a q whose source and destination differ mod 16:
+// aligned source loads, 16-byte stores cut from two of them
+__device__ __forceinline__ void copy_shifted(const Pair& q, long long lo,
+                                             long long hi) {
   int4* d4 = reinterpret_cast<int4*>(q.dst + 4 * q.head);
-  if (q.shift == 0) {
-    const int4* s4 = reinterpret_cast<const int4*>(q.src + 4 * q.head);
-    for (long long b = lo + threadIdx.x; b < hi; b += kUnroll * threads) {
-      int4 v[kUnroll];
+  // chunk j of the body starts inside sa[j]
+  const int4* sa = reinterpret_cast<const int4*>(q.src + 4 * q.head -
+                                                 4 * q.shift);
+  constexpr int kU = kUnroll / 2;
+  for (long long b = lo + threadIdx.x; b < hi; b += kU * kThreads) {
+    int4 v0[kU], v1[kU];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        if (b + u * threads < hi) v[u] = ld_nc(s4 + b + u * threads);
+    for (int u = 0; u < kU; ++u)
+      if (b + u * kThreads < hi) {
+        v0[u] = ld_nc(sa + b + u * kThreads);
+        v1[u] = ld_nc(sa + b + u * kThreads + 1);
+      }
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        if (b + u * threads < hi) d4[b + u * threads] = v[u];
-    }
-  } else {
-    // aligned source chunks: chunk j of the body starts inside sa[j]
-    const int4* sa = reinterpret_cast<const int4*>(q.src + 4 * q.head -
-                                                   4 * q.shift);
-    constexpr int kU = kUnroll / 2;
-    for (long long b = lo + threadIdx.x; b < hi; b += kU * threads) {
-      int4 v0[kU], v1[kU];
-#pragma unroll
-      for (int u = 0; u < kU; ++u)
-        if (b + u * threads < hi) {
-          v0[u] = ld_nc(sa + b + u * threads);
-          v1[u] = ld_nc(sa + b + u * threads + 1);
-        }
-#pragma unroll
-      for (int u = 0; u < kU; ++u)
-        if (b + u * threads < hi) d4[b + u * threads] = cut(v0[u], v1[u],
-                                                           q.shift);
-    }
+    for (int u = 0; u < kU; ++u)
+      if (b + u * kThreads < hi)
+        d4[b + u * kThreads] = cut(v0[u], v1[u], q.shift);
   }
 }
 
@@ -214,22 +196,6 @@ __device__ __forceinline__ void arrive(const Send& a, const Pair& q,
   }
 }
 
-__global__ void __launch_bounds__(kThreads) ring_send(const Send a) {
-  const long long total = a.pairs * a.items;
-  for (long long it = blockIdx.x; it < total; it += gridDim.x) {
-    const long long p = it / a.items;
-    const int chunk = (int)(it % a.items);
-    const Pair q = pair_of(a, p);
-    long long lo, hi;
-    item_range(q.body, a.items, chunk, &lo, &hi);
-    copy_edges(a, q, chunk);
-    copy_body<kThreads>(q, lo, hi);
-    arrive(a, q, p);
-  }
-}
-
-// -- the bulk (TMA) form ------------------------------------------------------
-
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -265,7 +231,7 @@ __device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");
 }
 
-__global__ void __launch_bounds__(kBulkThreads) ring_send_bulk(const Send a) {
+__global__ void __launch_bounds__(kThreads) ring_send(const Send a) {
   extern __shared__ __align__(128) unsigned char stage[];
   __shared__ __align__(8) unsigned long long bars[kStages];
   if (threadIdx.x == 0) {
@@ -287,7 +253,7 @@ __global__ void __launch_bounds__(kBulkThreads) ring_send_bulk(const Send a) {
     item_range(q.body, a.items, chunk, &lo, &hi);
     copy_edges(a, q, chunk);
     if (q.shift != 0) {
-      copy_body<kBulkThreads>(q, lo, hi);
+      copy_shifted(q, lo, hi);
     } else if (threadIdx.x == 0 && hi > lo) {
       const char* src = q.src + 4 * q.head + 16 * lo;
       char* dst = q.dst + 4 * q.head + 16 * lo;
@@ -359,16 +325,16 @@ int sm_count() {
 // device array of n pointers) is not null.  `flags` is a device array of the
 // n ranks' flag arrays (n + 1 counters each, the last counts timeouts);
 // `done` holds senders*n arrival counters, zero before the first send.
-// Block sizes and buffers are multiples of 4 bytes.  copy: 0 vector, 1 bulk
-// (TMA).  The wait follows this card's sends on this card's stream, so it
-// never holds a sender of its own card; across cards each card's stream
-// runs its own sends whatever the other cards' waits do.
+// Block sizes and buffers are multiples of 4 bytes.  The wait follows this
+// card's sends on this card's stream, so it never holds a sender of its own
+// card; across cards each card's stream runs its own sends whatever the
+// other cards' waits do.
 extern "C" int smtpu_ring_exchange(int n, int senders, int first, int step,
                                    long long block_bytes, const void* x,
                                    long long x_stride, void* out,
                                    long long out_stride, const void* outs,
                                    const void* flags, void* done,
-                                   unsigned long long epoch, int copy,
+                                   unsigned long long epoch,
                                    long long max_polls, void* stream) {
   if (n <= 0 || senders <= 0 || block_bytes <= 0) return 0;
   if (block_bytes % 4 || n > 1024)
@@ -387,8 +353,7 @@ extern "C" int smtpu_ring_exchange(int n, int senders, int first, int step,
   a.done = static_cast<unsigned int*>(done);
   a.epoch = epoch;
   a.pairs = (long long)senders * n;
-  const int per_sm = copy ? kBulkBlocksPerSM : kBlocksPerSM;
-  const long long wave = (long long)sm_count() * per_sm;
+  const long long wave = (long long)sm_count() * kBlocksPerSM;
   // items of at most kMaxItemBytes, and enough of them to fill one wave of
   // thread blocks where the blocks are small (down to kMinItemBytes)
   long long items = (block_bytes + kMaxItemBytes - 1) / kMaxItemBytes;
@@ -400,20 +365,15 @@ extern "C" int smtpu_ring_exchange(int n, int senders, int first, int step,
   a.items = (int)items;
   long long grid = a.pairs * items;
   if (grid > wave) grid = wave;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (copy) {
-    static bool sized = false;
-    if (!sized) {
-      cudaError_t e = cudaFuncSetAttribute(
-          ring_send_bulk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          kBulkSmem);
-      if (e != cudaSuccess) return static_cast<int>(e);
-      sized = true;
-    }
-    ring_send_bulk<<<(unsigned)grid, kBulkThreads, kBulkSmem, s>>>(a);
-  } else {
-    ring_send<<<(unsigned)grid, kThreads, 0, s>>>(a);
+  static bool sized = false;
+  if (!sized) {
+    cudaError_t e = cudaFuncSetAttribute(
+        ring_send, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    sized = true;
   }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  ring_send<<<(unsigned)grid, kThreads, kSmem, s>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   ring_wait<<<senders, ((n + 31) / 32) * 32, 0, s>>>(

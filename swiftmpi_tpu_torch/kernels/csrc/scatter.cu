@@ -20,19 +20,24 @@
 // Bound: bytes — slots, valid and the landing grads read once, the
 // accumulator and counts written once, over 3.35 TB/s.
 //
-// Design: the thread mapping follows the width.
-//   w <= 4   one thread a row (the count families), scalar reductions.
-//   w > 4    one warp a row.  Where w % 4 == 0 and the grads and the
-//            accumulator are 16-byte aligned (w = 100: 400-byte rows) each
-//            lane loads a float4 and adds it with one vector reduction
-//            (red.global.add.v4.f32, sm_90): 25 reductions a row where
-//            scalar atomics take 100.  Other widths (w = 101) add one float
-//            per lane.  Lane 0 adds the row's count.
-// A variant (`merge`) lets each warp hold 32 rows, find the rows that share
-// a target with __match_any_sync and sum each group in registers before one
-// reduction per group (hot Zipf slots repeat within a warp's rows);
-// apps/scatter_sweep.py times both forms and the wrapper launches the
-// faster (PERF.md).
+// Design.  What bounds this kernel is not bytes but hot slots: the word2vec
+// h push's targets follow the unigram^0.75 law, so a hot word's row takes
+// thousands of reductions, serialized at its L2 slice whatever their width.
+// So rows are merged before they reach L2:
+//   w <= 4   (the count families) one thread a row, scalar reductions.
+//   w > 4    a thread block takes 128 rows of one rank at a time, files each
+//            landing row under its slot in a shared-memory hash table (a
+//            list per distinct slot), then its warps walk the lists, two
+//            rows in flight: each distinct slot of the tile gets one
+//            reduction per element and one count.  Where w % 4 == 0 and the
+//            grads and the accumulator are 16-byte aligned (w = 100:
+//            400-byte rows) a lane adds a float4 with one vector reduction
+//            (red.global.add.v4.f32, sm_90); other widths (w = 101) add one
+//            float per lane.
+// The rank is blockIdx.y, so no row index is divided.  apps/scatter_sweep.py
+// times the kernel at the word2vec shapes; PERF.md has the forms that were
+// tried (a warp a row, a warp merge with __match_any_sync, a 512-row tile)
+// and why this one was kept.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -40,7 +45,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
 
 // One rank of the launch: blockIdx.y picks it, so no row index is divided.
 struct Scatter {
@@ -97,84 +101,16 @@ __global__ void __launch_bounds__(kThreads) scatter_narrow(const Scatter all) {
   }
 }
 
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads) scatter_wide(const Scatter all) {
-  const Scatter a = all.rank();
-  const int lane = threadIdx.x & 31;
-  const long long stride = (long long)gridDim.x * kWarps;
-  for (long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-       row < a.rows; row += stride) {
-    const long long t = target(a, row);   // warp-uniform
-    if (t < 0) continue;
-    const float* src = a.grads + row * a.w;
-    float* dst = a.acc + t * a.w;
-    if (kVec) {
-      for (int c = lane; c < a.w / 4; c += 32)
-        red_v4(dst + 4 * c, reinterpret_cast<const float4*>(src)[c]);
-    } else {
-      for (int c = lane; c < a.w; c += 32) atomicAdd(dst + c, src[c]);
-    }
-    if (a.counts && lane == 0) atomicAdd(a.counts + t, 1.0f);
-  }
-}
-
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
-    scatter_wide_merged(const Scatter all) {
-  const Scatter a = all.rank();
-  const int lane = threadIdx.x & 31;
-  const long long stride = (long long)gridDim.x * kWarps * 32;
-  for (long long base =
-           ((long long)blockIdx.x * kWarps + (threadIdx.x >> 5)) * 32;
-       base < a.rows; base += stride) {
-    const long long row = base + lane;
-    const long long t = row < a.rows ? target(a, row) : -1;
-    const unsigned peers = __match_any_sync(kFull, t);
-    const bool lead = t >= 0 && __ffs(peers) - 1 == lane;
-    for (unsigned leaders = __ballot_sync(kFull, lead); leaders;
-         leaders &= leaders - 1) {
-      const int l = __ffs(leaders) - 1;
-      const unsigned group = __shfl_sync(kFull, peers, l);
-      const long long tl = __shfl_sync(kFull, t, l);
-      float* dst = a.acc + tl * a.w;
-      if (kVec) {
-        for (int c = lane; c < a.w / 4; c += 32) {
-          float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-          for (unsigned g = group; g; g &= g - 1)
-            add4(s, reinterpret_cast<const float4*>(
-                        a.grads + (base + __ffs(g) - 1) * a.w)[c]);
-          red_v4(dst + 4 * c, s);
-        }
-      } else {
-        for (int c = lane; c < a.w; c += 32) {
-          float s = 0.f;
-          for (unsigned g = group; g; g &= g - 1)
-            s += a.grads[(base + __ffs(g) - 1) * a.w + c];
-          atomicAdd(dst + c, s);
-        }
-      }
-      if (a.counts && lane == 0) atomicAdd(a.counts + tl, (float)__popc(group));
-    }
-  }
-}
-
-// Tile merge: a thread block takes kTile rows at a time, files each landing
-// row under its target in a shared-memory hash table (a list per distinct
-// target), then its warps walk the lists, two rows in flight: each distinct
-// target of the tile gets one reduction per element (or float4) and one
-// count, whatever the number of its rows.  Targets are 32-bit here
+// The tile merge (see the top of the file).  Slots are 32-bit keys here
 // (cap < 2^31).
+constexpr int kTile = 128;
+constexpr int kHash = 2 * kTile;
 constexpr unsigned kEmpty = 0xffffffffu;
+static_assert(kHash == 1 << 8, "the hash takes the top 8 bits");
 
-__host__ __device__ constexpr int log2i(int v) {
-  return v <= 1 ? 0 : 1 + log2i(v / 2);
-}
-
-template <int kTile, bool kVec>
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads) scatter_tile(const Scatter all) {
   const Scatter a = all.rank();
-  constexpr int kHash = 2 * kTile;
-  constexpr int kShift = 32 - log2i(kHash);   // the hash's top bits
   __shared__ unsigned keys[kHash];
   __shared__ int head[kHash];
   __shared__ int next[kTile];
@@ -194,7 +130,7 @@ __global__ void __launch_bounds__(kThreads) scatter_tile(const Scatter all) {
       const long long t = row < a.rows ? target(a, row) : -1;
       if (t < 0) continue;
       const unsigned key = (unsigned)t;
-      unsigned h = (key * 2654435761u) >> kShift;
+      unsigned h = (key * 2654435761u) >> 24;   // top 8 bits: kHash
       while (true) {
         const unsigned prev = atomicCAS(keys + h, kEmpty, key);
         if (prev == kEmpty) {        // a new target of this tile
@@ -271,16 +207,12 @@ __global__ void __launch_bounds__(kThreads) scatter_tile(const Scatter all) {
 // `ranks` ranks of n rows each: slots int32 (ranks, n), valid uint8
 // (ranks, n), grads float32 (ranks, n, w) contiguous; acc float32
 // (ranks, cap, w) and counts float32 (ranks, cap) (or null) zeroed.
-// form (w > 4): 0 a warp a row, 1 warp merge, 2 and 3 tile merge over 512
-// and 128 rows; vec: 1 lets
-// 16-byte-aligned rows of a width that is a multiple of 4 take vector
-// reductions.
 extern "C" int smtpu_masked_scatter_add_f32(
     const void* slots, const void* valid, const void* grads, void* acc,
     void* counts, long long ranks, long long n, int w, long long cap,
-    int form, int vec, void* stream) {
+    void* stream) {
   if (ranks <= 0 || n <= 0) return 0;
-  if (ranks > 65535 || (form >= 2 && cap >= (1LL << 31) - 1))
+  if (ranks > 65535 || cap >= (1LL << 31) - 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Scatter a;
   a.slots = static_cast<const int*>(slots);
@@ -292,35 +224,17 @@ extern "C" int smtpu_masked_scatter_add_f32(
   a.w = w;
   a.cap = cap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (w <= 4) {
-    long long blocks = (n + kThreads - 1) / kThreads;
-    if (blocks > (1LL << 20)) blocks = 1LL << 20;
-    const dim3 g((unsigned)blocks, (unsigned)ranks);
-    scatter_narrow<<<g, kThreads, 0, s>>>(a);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const bool v4 = vec && w % 4 == 0 &&
-                  ((reinterpret_cast<uintptr_t>(grads) |
-                    reinterpret_cast<uintptr_t>(acc)) & 15) == 0;
-  const long long per_block = form == 3   ? 128
-                              : form == 2 ? 512
-                              : form == 1 ? (long long)kWarps * 32
-                                          : kWarps;
+  const long long per_block = w <= 4 ? kThreads : kTile;
   long long blocks = (n + per_block - 1) / per_block;
   if (blocks > (1LL << 20)) blocks = 1LL << 20;
   const dim3 g((unsigned)blocks, (unsigned)ranks);
-  if (form == 3) {
-    if (v4) scatter_tile<128, true><<<g, kThreads, 0, s>>>(a);
-    else scatter_tile<128, false><<<g, kThreads, 0, s>>>(a);
-  } else if (form == 2) {
-    if (v4) scatter_tile<512, true><<<g, kThreads, 0, s>>>(a);
-    else scatter_tile<512, false><<<g, kThreads, 0, s>>>(a);
-  } else if (form == 1) {
-    if (v4) scatter_wide_merged<true><<<g, kThreads, 0, s>>>(a);
-    else scatter_wide_merged<false><<<g, kThreads, 0, s>>>(a);
+  if (w <= 4) {
+    scatter_narrow<<<g, kThreads, 0, s>>>(a);
+  } else if (w % 4 == 0 && ((reinterpret_cast<uintptr_t>(grads) |
+                             reinterpret_cast<uintptr_t>(acc)) & 15) == 0) {
+    scatter_tile<true><<<g, kThreads, 0, s>>>(a);
   } else {
-    if (v4) scatter_wide<true><<<g, kThreads, 0, s>>>(a);
-    else scatter_wide<false><<<g, kThreads, 0, s>>>(a);
+    scatter_tile<false><<<g, kThreads, 0, s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

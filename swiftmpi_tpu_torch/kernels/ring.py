@@ -25,9 +25,11 @@ against a sender that is not scheduled yet.  Here the n ranks are logical
 and share one card and one stream, so the waits find their flags set; the
 same kernels work across peer-mapped cards, which is not run yet (ROADMAP
 A11).  Sources and outputs go to the kernel as base + stride, so an
-exchange uploads nothing and allocates no host tensor.  Bound on the card:
-bytes — every operand byte read once and written once, over 3.35 TB/s
-(times in PERF.md, from ``chip_smoke.py``).
+exchange uploads nothing and allocates no host tensor.  Blocks are copied
+16 bytes at a time, through TMA bulk copies where source and destination
+share their alignment.  Bound on the card: bytes — every operand byte read
+once and written once, over 3.35 TB/s (times in PERF.md, from
+``chip_smoke.py`` and ``apps/ring_sweep.py``).
 
 Both forms run the plain version for CPU tensors and launch the kernel for
 CUDA tensors, raising on what the kernel does not take; there is no
@@ -38,31 +40,21 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Sequence
 
 import torch
 
 from swiftmpi_tpu_torch.kernels import build
 
-#: launches of the send kernel since the last reset: one per card per
-#: exchange
+#: exchanges launched on a card since the last reset: each is one launch
+#: of the send kernel and one of the wait kernel, from one C call
 launches = 0
-#: launches of the wait kernel since the last reset: one per card per
-#: exchange
-wait_launches = 0
-
-#: the send kernel's body copy, by the code ``csrc/ring.cu`` takes:
-#: 0 "vector" (16-byte loads, eight in flight a thread), 1 "bulk" (TMA
-#: bulk copies through shared memory).  ``apps/ring_sweep.py`` times both;
-#: this is the faster on the H100 (PERF.md).
-COPY = 1
-COPY_FORMS = {"vector": 0, "bulk": 1}
 
 _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
              ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_ulonglong,
-             ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+             ctypes.c_longlong, ctypes.c_void_p]
 
 #: polls (100 ns apart) after which a waiter gives up and counts a timeout
 _MAX_POLLS = 20_000_000
@@ -94,13 +86,10 @@ def ring_exchange_plain(operands: Sequence[torch.Tensor]
                          for j in range(n)]) for r in range(n)]
 
 
-def ring_exchange_stacked_plain(x: torch.Tensor,
-                                out: Optional[torch.Tensor] = None
-                                ) -> torch.Tensor:
+def ring_exchange_stacked_plain(x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the stacked form: ``out[r, j] = x[j, r]``."""
-    _check_stacked(x, out)
-    if out is None:
-        out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    _check_stacked(x)
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     return out.copy_(x.transpose(0, 1))
 
 
@@ -134,16 +123,10 @@ def timeouts() -> int:
     return int(sum(int(ring.flags[:, -1].sum()) for ring in _rings.values()))
 
 
-def _check_stacked(x: torch.Tensor, out: Optional[torch.Tensor]) -> int:
+def _check_stacked(x: torch.Tensor) -> int:
     if x.dim() < 2 or x.shape[0] != x.shape[1]:
         raise ValueError(f"ring_exchange_stacked needs an (n, n, ...) "
                          f"tensor, got {tuple(x.shape)}")
-    if out is not None and (out.shape != x.shape or out.dtype != x.dtype
-                            or out.device != x.device
-                            or not out.is_contiguous()):
-        raise ValueError("ring_exchange: out must be a contiguous (n, "
-                         "*operand shape) tensor of the operands' dtype "
-                         "and device")
     return x.shape[0]
 
 
@@ -160,18 +143,16 @@ def _slices_contiguous(x: torch.Tensor) -> bool:
     return True
 
 
-def ring_exchange_stacked(x: torch.Tensor,
-                          out: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+def ring_exchange_stacked(x: torch.Tensor) -> torch.Tensor:
     """``x[r]``: rank ``r``'s ``(n, C, ...)`` operand, block ``j`` bound
     for rank ``j``; every slice contiguous, the ranks at any one stride.
-    Returns (in ``out`` when given, an ``(n, n, C, ...)`` contiguous
-    tensor) the n results: ``result[r, j] = x[j, r]``."""
-    global launches, wait_launches
-    n = _check_stacked(x, out)
+    Returns the n results as one contiguous ``(n, n, C, ...)`` tensor:
+    ``result[r, j] = x[j, r]``."""
+    global launches
+    n = _check_stacked(x)
     kind = x.device.type
     if kind == "cpu":
-        return ring_exchange_stacked_plain(x, out)
+        return ring_exchange_stacked_plain(x)
     if kind != "cuda":
         raise ValueError(f"ring_exchange: unsupported device {x.device}")
     if x.dtype not in (torch.float32, torch.int32):
@@ -181,8 +162,7 @@ def ring_exchange_stacked(x: torch.Tensor,
         raise TypeError("ring_exchange needs contiguous operands")
     if n > 1024:
         raise ValueError("ring_exchange: at most 1024 ranks")
-    if out is None:
-        out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     es = x.element_size()
     block_bytes = math.prod(x.shape[2:]) * es
     if block_bytes == 0:
@@ -196,36 +176,21 @@ def ring_exchange_stacked(x: torch.Tensor,
     rc = ring.exchange(n, n, 0, 1, block_bytes, x.data_ptr(),
                        x.stride(0) * es, out.data_ptr(), out.stride(0) * es,
                        None, ring.flag_ptrs_ptr, ring.done_ptr, ring.epoch,
-                       COPY, _MAX_POLLS,
+                       _MAX_POLLS,
                        torch.cuda.current_stream(x.device).cuda_stream)
     build.check_launch("ring_exchange", rc)
     launches += 1
-    wait_launches += 1
     return out
 
 
-def ring_exchange(operands: Sequence[torch.Tensor],
-                  out: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+def ring_exchange(operands: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """``operands[r]``: rank ``r``'s ``(n, C, ...)`` operand, block ``j``
     bound for rank ``j``.  Returns the n results: block ``j`` of
-    ``result[r]`` is ``operands[j][r]``.  ``out``, an ``(n, n, C, ...)``
-    tensor, takes the results as its n slices."""
-    n = _check_shapes(operands)
+    ``result[r]`` is ``operands[j][r]``."""
+    _check_shapes(operands)
     kind = operands[0].device.type
-    if out is not None and (out.shape != (n, *operands[0].shape)
-                            or out.dtype != operands[0].dtype
-                            or out.device != operands[0].device
-                            or not out.is_contiguous()):
-        raise ValueError("ring_exchange: out must be a contiguous (n, "
-                         "*operand shape) tensor of the operands' dtype "
-                         "and device")
     if kind == "cpu":
-        res = ring_exchange_plain(operands)
-        if out is None:
-            return res
-        for r, t in enumerate(res):
-            out[r].copy_(t)
-        return list(out.unbind(0))
+        return ring_exchange_plain(operands)
     if kind != "cuda":
         raise ValueError(f"ring_exchange: unsupported device "
                          f"{operands[0].device}")
@@ -240,5 +205,4 @@ def ring_exchange(operands: Sequence[torch.Tensor],
                             f"operands, got {x.dtype}")
         if not x.is_contiguous():
             raise TypeError("ring_exchange needs contiguous operands")
-    return list(ring_exchange_stacked(torch.stack(list(operands)),
-                                      out).unbind(0))
+    return list(ring_exchange_stacked(torch.stack(list(operands))).unbind(0))

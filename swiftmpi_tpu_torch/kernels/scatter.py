@@ -11,11 +11,13 @@ from the same launch (what the JAX package gets from a fused count column
 or a second scatter of ones).
 
 The CUDA kernel (``csrc/scatter.cu``) skips the rows the dump row would
-take, gives each gradient row one thread (W <= 4) or one warp (wider
-rows), and adds 16-byte-aligned rows whose width is a multiple of 4 with
-vector float reductions (``red.global.add.v4.f32``), other widths with
-scalar ones.  Duplicate slots are summed in no fixed order: results agree
-with the plain version to a tolerance, not to bits; counts are exact.
+take, gives each gradient row one thread where W <= 4, and otherwise sums
+the rows that share a slot within a tile of 128 rows in shared memory
+before one float reduction per element (a vector ``red.global.add.v4.f32``
+for 16-byte-aligned rows whose width is a multiple of 4): hot slots, not
+bytes, bound it.  Duplicate slots are summed in no fixed order: results
+agree with the plain version to a tolerance, not to bits; counts are
+exact.
 Bound on the card: bytes — slots, valid and the landing grads read once,
 the accumulator and counts written once, over 3.35 TB/s (times in
 PERF.md, from ``chip_smoke.py``).
@@ -35,22 +37,10 @@ from swiftmpi_tpu_torch.kernels import build
 #: launches of the CUDA kernel since the last reset
 launches = 0
 
-#: how rows wider than 4 meet their slots, by the code ``csrc/scatter.cu``
-#: takes: 0 "row" (a warp a row, every row adds on its own), 1 "warp" (a
-#: warp sums the rows among its 32 that share a slot first), 2 "tile512"
-#: and 3 "tile128" (a thread block sums the rows among its 512 or 128 that
-#: share a slot first).  ``apps/scatter_sweep.py`` times each; this is the
-#: fastest on the H100 (PERF.md).
-FORM = 3
-FORMS = {"row": 0, "warp": 1, "tile512": 2, "tile128": 3}
-#: 1: 16-byte-aligned rows of a width that is a multiple of 4 add with
-#: vector reductions; 0: every element with a scalar one
-VEC = 1
-
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-             ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-             ctypes.c_int, ctypes.c_void_p]
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+             ctypes.c_void_p]
 
 
 def masked_scatter_add_plain(slots: torch.Tensor, valid: torch.Tensor,
@@ -130,7 +120,7 @@ def masked_scatter_add(slots: torch.Tensor, valid: torch.Tensor,
                             _ARGTYPES)
         rc = fn(slots.data_ptr(), valid.data_ptr(), grads.data_ptr(),
                 acc.data_ptr(), cnt.data_ptr() if counts else None, R, n, w,
-                int(capacity), FORM, VEC, build.stream_of(grads))
+                int(capacity), build.stream_of(grads))
         build.check_launch("masked_scatter_add", rc)
         launches += 1
     return (acc, cnt) if counts else acc
