@@ -19,14 +19,18 @@ card) in the ``gather`` and ``shared`` renderings (``gather@8``,
 1. setup: the card's name and power limit; build the CUDA kernels.
 2. kernels: each kernel at the shapes one step of its path gives it —
    the gather path's pulls, push (sums and counts in one launch) and
-   AdaGrad calls, the stencil path's fused stencil gather (a real stencil
-   batch with extra pad centers and a shuffled block of centers), its
-   mostly-padding h push and ``push_span``'s AdaGrad on the span's rows,
-   and the sharded path's ring exchange of its request, row and odd-width
-   buckets (stacked, one send and one wait launch) and the eight owners'
-   h push with counts in one launch — against its plain PyTorch version on
-   the card, timed with CUDA events (median of 25 launches, L2 flushed
-   between launches) beside the plain version and one library call.
+   AdaGrad calls (over the table with the mean's divisor fused, and
+   row-indexed on the sparse v push's rows), the stencil path's fused
+   stencil gather (a real stencil batch with extra pad centers and a
+   shuffled block of centers), its mostly-padding h push and
+   ``push_span``'s AdaGrad on the span's owner rows, and the sharded
+   path's ring exchange of its request, row and odd-width buckets
+   (stacked, one send and one wait launch), the eight owners' h pull, h
+   push with counts and AdaGrad with the mean's reciprocal, each in one
+   launch — against its plain PyTorch version on the card (bit for bit,
+   except B3's float sums), timed with CUDA events (median of 25 launches,
+   L2 flushed between launches, the host's enqueue not timed) beside the
+   plain version and one library call.
 3. step parity: one step on the card and the same step on the CPU from
    the same table and the same negative-sampling draws, for ``gather``,
    ``stencil`` and ``stencil_shared``; and one sharded ``gather`` step
@@ -37,9 +41,9 @@ card) in the ``gather`` and ``shared`` renderings (``gather@8``,
    launched exactly the kernels of its path (the stencil kernel on every
    step of a stencil path) and the loss must be finite.
    A sharded run must launch the ring kernel once (one send, one wait)
-   for every exchange of every step, the scatter-add once per pushed
-   family, gather and AdaGrad once per shard and use, overflow nothing and
-   time out no wait.
+   for every exchange of every step, the gather once per pull, the
+   scatter-add and AdaGrad once per pushed family (each for all the
+   card's ranks), overflow nothing and time out no wait.
 5. CLI: ``apps.w2v_main.main`` on a small corpus with the gather conf,
    with ``stencil: 1`` and with ``transfer: tpu``, ``server_num: 8``; each
    dump must parse.
@@ -77,6 +81,7 @@ from swiftmpi_tpu_torch.kernels import (adagrad, build, gather, ring,
                                         scatter, stencil)
 from swiftmpi_tpu_torch.models.word2vec import (Word2Vec, _cbow_targets,
                                                 _parity_targets, w2v_parser)
+from swiftmpi_tpu_torch.parameter.sparse_table import shard_block
 from swiftmpi_tpu_torch.utils import ConfigParser, reset_global_config
 
 ROOT = Path(__file__).resolve().parent
@@ -95,16 +100,15 @@ PATHS = {
 }
 #: ranks of the sharded parameter server, all on the one card
 SHARDS = 8
-#: sharded path -> launches a step on the card: ring sends (one per
-#: exchange for all the card's ranks: two per pull, two per pushed family),
-#: gathers (one per pull and rank), scatter-adds (one per pushed family for
-#: all the card's owners, counts included), AdaGrad calls (one per pushed
-#: family and rank)
+#: sharded path -> launches a step on the card, each for all the card's
+#: ranks: ring sends (one per exchange: two per pull, two per pushed
+#: family), gathers (one per pull), scatter-adds (one per pushed family,
+#: counts included), AdaGrad calls (one per pushed family, the mean's
+#: reciprocal inside)
 SHARDED = {
-    f"gather@{SHARDS}": {"ring": 8, "gather": 2 * SHARDS, "scatter": 2,
-                         "adagrad": 2 * SHARDS},
-    f"shared@{SHARDS}": {"ring": 10, "gather": 2 * SHARDS, "scatter": 3,
-                         "adagrad": 3 * SHARDS},
+    f"gather@{SHARDS}": {"ring": 8, "gather": 2, "scatter": 2, "adagrad": 2},
+    f"shared@{SHARDS}": {"ring": 10, "gather": 2, "scatter": 3,
+                         "adagrad": 3},
 }
 for _path in SHARDED:
     PATHS[_path] = (PATHS[_path.split("@")[0]][0], set(SHARDED[_path]), 800)
@@ -115,6 +119,9 @@ MIN_TRAIN_STEPS = 20
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 TIMED_RUNS = 25
+#: about 50 us of the card's clock: longer than the host takes to enqueue
+#: one wrapper call
+SPIN_CYCLES = 100_000
 
 
 def _json_line(obj) -> None:
@@ -156,13 +163,17 @@ def _draws(model: Word2Vec, B: int, rng: np.random.Generator):
 def _time_ms(fn, flush: torch.Tensor) -> float:
     """Median device time of ``fn`` over TIMED_RUNS launches, each after a
     read of a buffer twice the L2's size (the cold-L2 case: inside a step
-    the table is partly L2-resident), from CUDA events."""
+    the table is partly L2-resident), from CUDA events.  A spin of
+    SPIN_CYCLES on the card sits between the read and the start event, so
+    the host has enqueued ``fn`` before the card reaches it: the host's
+    enqueue time is not timed."""
     for _ in range(3):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_RUNS)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_RUNS)]
     for s, e in zip(starts, ends):
         flush.sum()
+        torch.cuda._sleep(SPIN_CYCLES)
         s.record()
         fn()
         e.record()
@@ -230,29 +241,38 @@ def _perturbed(slots: torch.Tensor, cap: int, rng: np.random.Generator):
 
 
 def _gather_case(label, table, slots, valid, flush, path="gather"):
+    """B2 on a ``(cap, d)`` table and ``(N,)`` slots, or a ``(R, cap, d)``
+    block of shards and ``(R, N)`` slots in one launch: bit for bit
+    against its plain version."""
     out_k = gather.masked_gather(table, slots, valid)
     out_p = gather.masked_gather_plain(table, slots, valid)
     torch.cuda.synchronize()
     err = (out_k - out_p).abs().max().item()
     if not torch.equal(out_k, out_p):
         raise AssertionError(f"{label}: kernel != plain (max |err| {err})")
-    n, d = slots.shape[0], table.shape[1]
-    clipped = slots.clamp(0, table.shape[0] - 1).long()
+    n, (cap, d) = slots.numel(), table.shape[-2:]
+    clipped = slots.clamp(0, cap - 1).long()
+    if table.dim() == 3:
+        clipped = clipped + torch.arange(
+            table.shape[0], device=slots.device)[:, None] * cap
     rows_read = torch.unique(clipped[valid]).numel()
     nbytes = 4 * d * rows_read + 5 * n + 4 * n * d
-    idx64 = clipped.contiguous()
+    idx64 = clipped.reshape(-1).contiguous()
+    flat = table.reshape(-1, d)
+    rows = f"{slots.shape[0]} x {slots.shape[1]}" if slots.dim() == 2 \
+        else f"{n}"
     return dict(
         name=f"masked_gather ({label})", route="cuda", path=path,
         source="swiftmpi_tpu_torch/kernels/csrc/gather.cu",
         replaces="swiftmpi_tpu/ops/pallas_gather.py:164",
-        module=gather, shape=f"{n} rows x {d} of a {tuple(table.shape)} "
-        f"f32 table, {int((~valid).sum())} invalid",
+        module=gather, shape=f"{rows} rows x {d} of a {tuple(table.shape)} "
+        f"f32 table, {int((~valid).sum())} invalid, one launch",
         max_abs_err=err, tolerance="exact",
         ms=_time_ms(lambda: gather.masked_gather(table, slots, valid),
                     flush),
         plain_ms=_time_ms(
             lambda: gather.masked_gather_plain(table, slots, valid), flush),
-        library_ms=_time_ms(lambda: table.index_select(0, idx64), flush),
+        library_ms=_time_ms(lambda: flat.index_select(0, idx64), flush),
         library="Tensor.index_select", bytes=nbytes, flops=0)
 
 
@@ -304,28 +324,78 @@ def _scatter_case(label, path, slots, valid, cap, width, rng, flush,
         flops=n_ok * width)
 
 
-def _adagrad_case(label, path, param, accum, grad, lr, flush):
-    p1, a1, p2, a2 = param.clone(), accum.clone(), param.clone(), \
-        accum.clone()
-    adagrad.adagrad_update_(p1, a1, grad, lr)
-    adagrad.adagrad_update_plain_(p2, a2, grad, lr)
+#: why B1 has no library yardstick
+ADAGRAD_LIBRARY = ("none: torch's Adagrad divides by sqrt(sum) + eps, not "
+                   "rsqrt(sum + 1e-6)")
+
+
+def _adagrad_case(label, path, param, accum, grad, lr, flush, rows=None,
+                  **scale):
+    """B1 in place, bit for bit against its plain version: dense over
+    ``param`` (a table or a block of shards; ``mul``/``div`` a per-row
+    operand), or row-indexed when ``rows`` is ``(slots, mask)``."""
+    if rows is None:
+        def kernel(p, a):
+            adagrad.adagrad_update_(p, a, grad, lr, **scale)
+
+        def plain(p, a):
+            adagrad.adagrad_update_plain_(p, a, grad, lr, **scale)
+        kept = param.numel() // param.shape[-1]
+        what = f"{tuple(param.shape)} f32"
+    else:
+        slots, mask = rows
+
+        def kernel(p, a):
+            adagrad.adagrad_update_rows_(p, a, slots, mask, grad, lr,
+                                         **scale)
+
+        def plain(p, a):
+            adagrad.adagrad_update_rows_plain_(p, a, slots, mask, grad, lr,
+                                               **scale)
+        keep = (slots >= 0) & (slots < param.shape[0])
+        kept = int((keep if mask is None else keep & mask).sum())
+        what = (f"{kept} of {slots.shape[0]} rows x {param.shape[1]} "
+                f"indexed into a {tuple(param.shape)} f32 table")
+    p1, a1, p2, a2 = (t.clone() for t in (param, accum, param, accum))
+    kernel(p1, a1)
+    plain(p2, a2)
     torch.cuda.synchronize()
     err = max((p1 - p2).abs().max().item(), (a1 - a2).abs().max().item())
-    torch.testing.assert_close(a1, a2, rtol=2e-6, atol=0)
-    torch.testing.assert_close(p1, p2, rtol=2e-6, atol=0)
-    n = param.numel()
+    if not (torch.equal(p1, p2) and torch.equal(a1, a2)):
+        raise AssertionError(f"adagrad_update_ ({label}): kernel != plain "
+                             f"(max |err| {err})")
+    # every kept element: param, accum and grad read, param and accum
+    # written; per row: the scale, and the slot and mask of an indexed row
+    d, n_rows = param.shape[-1], grad.numel() // param.shape[-1]
+    per_row = 4 * len(scale)
+    if rows is not None:
+        per_row += 4 + (rows[1] is not None)
+    nbytes = 20 * kept * d + per_row * n_rows
     pk, ak, pp, ap = (t.clone() for t in (param, accum, param, accum))
+    op = (f", grad {'* mul' if 'mul' in scale else '/ div'} per row"
+          if scale else "")
     return dict(
         name=f"adagrad_update_ ({label})", route="cuda", path=path,
         source="swiftmpi_tpu_torch/kernels/csrc/adagrad.cu",
         replaces="swiftmpi_tpu/ops/pallas_kernels.py:73",
-        module=adagrad, shape=f"{tuple(param.shape)} f32, in place",
-        max_abs_err=err, tolerance="rtol 2e-6 (rsqrtf)",
-        ms=_time_ms(lambda: adagrad.adagrad_update_(pk, ak, grad, lr),
-                    flush),
-        plain_ms=_time_ms(lambda: adagrad.adagrad_update_plain_(
-            pp, ap, grad, lr), flush),
-        library_ms=None, library=None, bytes=20 * n, flops=7 * n)
+        module=adagrad, shape=f"{what}, in place{op}, one launch",
+        max_abs_err=err, tolerance="exact",
+        ms=_time_ms(lambda: kernel(pk, ak), flush),
+        plain_ms=_time_ms(lambda: plain(pp, ap), flush),
+        library_ms=None, library=ADAGRAD_LIBRARY, bytes=nbytes,
+        flops=(7 + bool(scale)) * kept * d)
+
+
+def _span_owners(span_slots: torch.Tensor) -> torch.Tensor:
+    """``push_span``'s owner rows: the first span position of each slot
+    (JAX ``is_owner``)."""
+    S, dev = span_slots.shape[0], span_slots.device
+    valid = span_slots >= 0
+    safe = torch.where(valid, span_slots, 0).long()
+    pos = torch.arange(S, device=dev)
+    first = torch.full((int(safe.max()) + 1,), S, device=dev)
+    first.scatter_reduce_(0, safe, torch.where(valid, pos, S), "amin")
+    return (valid & (first[safe] == pos)).contiguous()
 
 
 def _stencil_inputs(model: Word2Vec, sb: StencilBatch,
@@ -462,11 +532,25 @@ def phase_kernels(model: Word2Vec, batch, sbatch: StencilBatch) -> list:
                             device=model.device)
     cases.append(_adagrad_case("h table", "gather", state["h"], accum,
                                grads_like((cap, d)), lr, flush))
+    # the dense h push's mean, one family: the divisor inside the launch
+    counts = torch.as_tensor(rng.integers(1, 9, cap).astype(np.float32),
+                             device=model.device)
+    cases.append(_adagrad_case("h table, / counts", "gather", state["h"],
+                               accum, grads_like((cap, d)), lr, flush,
+                               div=counts))
     rows = torch.unique(v_slots[v_slots >= 0]).long()
     cases.append(_adagrad_case(
         "v rows", "gather", state["v"].index_select(0, rows).contiguous(),
         accum.index_select(0, rows).contiguous(),
         grads_like((rows.numel(), d)), lr, flush))
+    # the sparse v push as it runs now: the segment representatives'
+    # rows updated in place, the mean's reciprocal inside the launch
+    inv = 1.0 / torch.as_tensor(rng.integers(1, 9, rows.numel())
+                                .astype(np.float32), device=model.device)
+    cases.append(_adagrad_case(
+        "v rows, row-indexed", "gather", state["v"], accum,
+        grads_like((rows.numel(), d)), lr, flush,
+        rows=(rows.to(torch.int32), None), mul=inv))
     span_slots, lo, wmask, n_real = _stencil_inputs(model, sbatch, rng)
     cases.append(_stencil_case(state["v"], span_slots, lo, wmask, n_real,
                                flush))
@@ -477,6 +561,14 @@ def phase_kernels(model: Word2Vec, batch, sbatch: StencilBatch) -> list:
         state["v"].index_select(0, span_rows).contiguous(),
         accum.index_select(0, span_rows).contiguous(),
         grads_like((span_rows.numel(), d)), lr, flush))
+    # push_span as it runs now: the owner rows' slots updated in place
+    S = span_slots.shape[0]
+    inv = 1.0 / torch.as_tensor(rng.integers(1, 9, S).astype(np.float32),
+                                device=model.device)
+    cases.append(_adagrad_case(
+        "push_span rows, row-indexed", "stencil", state["v"], accum,
+        grads_like((S, d)), lr, flush,
+        rows=(span_slots, _span_owners(span_slots)), mul=inv))
     return cases
 
 
@@ -486,9 +578,11 @@ def phase_kernels_sharded(model: Word2Vec, batch) -> list:
     as an owner with the ``SHARDS * C`` requests it receives (most of them
     padding: every sender pads its bucket to C) — the gather from its
     shard, the scatter-add of its received grads and, alone, of their
-    counts (PR 3's launches), and AdaGrad over the shard; and the
-    scatter-add of all ``SHARDS`` owners' received grads with their counts
-    in one launch, as the path now runs it."""
+    counts (PR 3's launches), and AdaGrad over the shard; and, as the path
+    now runs them, each in one launch for all ``SHARDS`` owners: the
+    gather of their requests from the card's block of shards, the
+    scatter-add of their received grads with their counts, and AdaGrad
+    over the block with the mean's reciprocal."""
     rng = np.random.default_rng(17)
     dev, d = model.device, model.len_vec
     flush = torch.zeros(2 * 50 * 2 ** 20 // 4, device=dev)
@@ -511,6 +605,9 @@ def phase_kernels_sharded(model: Word2Vec, batch) -> list:
     got, ok = owners[0], owners[0] >= 0
     cases.append(_gather_case("shard h pull", state["h"][0], got, ok, flush,
                               path))
+    block = shard_block(state["h"])
+    cases.append(_gather_case(f"{SHARDS} owners' h pull", block, owners,
+                              (owners >= 0).contiguous(), flush, path))
     cases.append(_scatter_case("shard h push", path, got, ok, cap, d, rng,
                                flush, counts=False))
     cases.append(_scatter_case("shard h counts", path, got, ok, cap, 1, rng,
@@ -523,6 +620,17 @@ def phase_kernels_sharded(model: Word2Vec, batch) -> list:
                            * 1e-2, device=dev)
     cases.append(_adagrad_case("h shard", path, state["h"][0].clone(), accum,
                                grad, model.access.learning_rate, flush))
+    # the sharded mean push: one launch over the card's block of shards,
+    # the reciprocal of each row's count inside it
+    accum8 = torch.as_tensor(rng.random(block.shape, np.float32) * 1e-3,
+                             device=dev)
+    grad8 = torch.as_tensor(rng.normal(size=block.shape).astype(np.float32)
+                            * 1e-2, device=dev)
+    inv8 = 1.0 / torch.as_tensor(rng.integers(1, 9, block.shape[:2])
+                                 .astype(np.float32), device=dev)
+    cases.append(_adagrad_case(f"{SHARDS} shards, * 1/counts", path,
+                               block.clone(), accum8, grad8,
+                               model.access.learning_rate, flush, mul=inv8))
     return cases
 
 
@@ -693,8 +801,8 @@ def phase_train(rendering: str, vocab, corpus: np.ndarray,
     extra = {}
     if rendering in SHARDED:
         # every step: one send and one wait launch for every exchange, one
-        # scatter-add per pushed family, gather and AdaGrad per shard and
-        # use
+        # gather per pull, one scatter-add and one AdaGrad per pushed
+        # family
         want = {k: v * m["steps"] for k, v in SHARDED[rendering].items()}
         got = {k: counts[k] for k in want}
         extra = {"overflow_count": model.transfer.overflow_count(),

@@ -36,6 +36,15 @@ class RankLayout:
     def distinct_devices(self) -> Tuple[torch.device, ...]:
         return tuple(dict.fromkeys(self.devices))
 
+    @property
+    def device_groups(self) -> Tuple[Tuple[torch.device, Tuple[int, ...]],
+                                     ...]:
+        """``(device, its ranks in rank order)`` for every distinct
+        device: the ranks whose table shards form one block."""
+        return tuple((dev, tuple(r for r, d in enumerate(self.devices)
+                                 if d == dev))
+                     for dev in self.distinct_devices)
+
 
 def visible_devices() -> Tuple[torch.device, ...]:
     """Every CUDA card this process sees; raises when there is none."""

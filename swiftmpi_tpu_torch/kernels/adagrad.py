@@ -8,21 +8,31 @@ Replaces the Pallas kernel ``swiftmpi_tpu/ops/pallas_kernels.py``
 
 in float32, written straight into ``param`` and ``accum`` — the
 counterpart of the TPU kernel's input/output aliasing under the step's
-donated state.  The CUDA kernel (``csrc/adagrad.cu``) is a grid-stride
-elementwise pass.  Bound on the card: bytes — 20 bytes an element (three
-reads, two writes) over 3.35 TB/s: 0.0540 ms for the word2vec table
-(90,516 × 100), which the kernel runs in 0.0675 ms on an NVIDIA H100 80GB
-HBM3 at 700 W (``chip_smoke.py``; PERF.md).  It rounds each op as the
-plain version does, and on that card the two agree bit for bit; the
-stated tolerance is ``rtol 2e-6`` (2 ulp of ``rsqrtf``).
+donated state.  Two forms, both one launch of ``csrc/adagrad.cu``:
 
-``adagrad_update_`` runs the plain version for CPU tensors and the kernel
-for CUDA tensors, raising on what the kernel does not take.
+* :func:`adagrad_update_`, dense: a ``(cap, d)`` table, or the shards of
+  the ranks that share a card as one ``(R, cap, d)`` block, with grads of
+  the same shape;
+* :func:`adagrad_update_rows_`, row-indexed: grad row ``i`` updates
+  table row ``slots[i]`` in place, for the rows ``mask`` keeps, with no
+  gather copy of the rows and no write-back.
+
+Either takes an optional per-row operand applied to the grad first:
+``mul`` (the mean's reciprocal) or ``div`` (its divisor), rounded as the
+callers rounded their separate scale pass.  Bound on the card: bytes —
+20 bytes an element (three reads, two writes) over 3.35 TB/s, plus the
+per-row operands; times in PERF.md (``chip_smoke.py``).  The kernel rounds
+each op as the plain version does, and on the card the two agree bit for
+bit.
+
+The wrappers run the plain version for CPU tensors and the kernel for
+CUDA tensors, raising on what the kernel does not take.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -31,49 +41,179 @@ from swiftmpi_tpu_torch.kernels import build
 #: launches of the CUDA kernel since the last reset
 launches = 0
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_longlong, ctypes.c_float, ctypes.c_float,
-             ctypes.c_void_p]
+#: float4 elements where rows allow it (False: floats everywhere)
+VECTOR = True
+
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+             ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_float,
+             ctypes.c_int, ctypes.c_void_p]
+
+
+def _scaled(grad, mul, div):
+    g = grad.float()
+    if mul is not None:
+        return g * mul[..., None]
+    if div is not None:
+        return g / div[..., None]
+    return g
 
 
 def adagrad_update_plain_(param: torch.Tensor, accum: torch.Tensor,
                           grad: torch.Tensor, lr: float,
-                          fudge: float = 1e-6):
-    """Plain PyTorch version, in place: f32 math, one rounding on store."""
-    g = grad.float()
+                          fudge: float = 1e-6, *,
+                          mul: Optional[torch.Tensor] = None,
+                          div: Optional[torch.Tensor] = None):
+    """Plain PyTorch version, in place: f32 math, one rounding on store;
+    the grad row times ``mul`` or over ``div`` first."""
+    g = _scaled(grad, mul, div)
     accum.copy_(accum + g * g)
     param.copy_(param.float() + lr * g * torch.rsqrt(accum + fudge))
     return param, accum
 
 
-def _check(param, accum, grad):
-    for name, t in (("param", param), ("accum", accum), ("grad", grad)):
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise TypeError(f"adagrad_update_ needs contiguous float32 "
-                            f"{name}, got {t.dtype}")
-        if t.shape != param.shape:
-            raise ValueError(f"adagrad_update_: {name} shape {tuple(t.shape)}"
-                             f" != param shape {tuple(param.shape)}")
-        if t.device != param.device:
-            raise ValueError("adagrad_update_ operands must share one device")
+def adagrad_update_rows_plain_(param: torch.Tensor, accum: torch.Tensor,
+                               slots: torch.Tensor,
+                               mask: Optional[torch.Tensor],
+                               grad: torch.Tensor, lr: float,
+                               fudge: float = 1e-6, *,
+                               mul: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of the row-indexed form: ``index_select`` of
+    the kept rows, the update, ``index_copy_`` back."""
+    keep = (slots >= 0) & (slots < param.shape[0])
+    if mask is not None:
+        keep &= mask
+    rows = keep.nonzero().view(-1)
+    tgt = slots[rows].long()
+    p, a = param.index_select(0, tgt), accum.index_select(0, tgt)
+    adagrad_update_plain_(p, a, grad[rows], lr, fudge,
+                          mul=None if mul is None else mul[rows])
+    param.index_copy_(0, tgt, p)
+    accum.index_copy_(0, tgt, a)
+    return param, accum
+
+
+def _check_f32(name, t, shape, device):
+    if t.dtype != torch.float32 or not t.is_contiguous():
+        raise TypeError(f"adagrad_update_ needs contiguous float32 {name}, "
+                        f"got {t.dtype}")
+    if t.shape != shape:
+        raise ValueError(f"adagrad_update_: {name} shape {tuple(t.shape)} "
+                         f"!= {tuple(shape)}")
+    if t.device != device:
+        raise ValueError("adagrad_update_ operands must share one device")
+
+
+def _check_table(param, accum):
+    """param and accum: float32 ``(cap, d)`` tables, or ``(R, cap, d)``
+    blocks of contiguous rank slices at one rank stride."""
+    for name, t in (("param", param), ("accum", accum)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"adagrad_update_ needs float32 {name}, got "
+                            f"{t.dtype}")
+        if t.dim() == 3:
+            ok = t.shape[0] <= 1 or t.stride(0) >= t[0].numel()
+            ok = ok and (t.shape[0] == 0 or t[0].is_contiguous())
+        else:
+            ok = t.dim() == 2 and t.is_contiguous()
+        if not ok:
+            raise TypeError(f"adagrad_update_ needs a contiguous (cap, d) "
+                            f"{name} or an (R, cap, d) block of contiguous, "
+                            f"disjoint slices")
+    if accum.shape != param.shape or accum.stride() != param.stride() \
+            or accum.device != param.device:
+        raise ValueError(f"adagrad_update_: accum {tuple(accum.shape)} "
+                         f"{accum.stride()} does not match param "
+                         f"{tuple(param.shape)} {param.stride()}")
+
+
+def _launch(param, accum, rank_stride, grad, slots, mask, scale, mode, R,
+            rows, d, cap, lr, fudge):
+    global launches
+    if rows * d >= 2 ** 32:
+        raise ValueError("adagrad_update_: more than 2**32 elements a rank")
+    vec4 = int(VECTOR and d % 4 == 0 and rank_stride % 4 == 0
+               and all(t.data_ptr() % 16 == 0 for t in (param, accum, grad)))
+    fn = build.function("adagrad", "smtpu_adagrad_update_f32", _ARGTYPES)
+    rc = fn(param.data_ptr(), accum.data_ptr(), rank_stride,
+            grad.data_ptr(), None if slots is None else slots.data_ptr(),
+            None if mask is None else mask.data_ptr(),
+            None if scale is None else scale.data_ptr(), mode, R, rows, d,
+            cap, float(lr), float(fudge), vec4, build.stream_of(param))
+    build.check_launch("adagrad_update_", rc)
+    launches += 1
 
 
 def adagrad_update_(param: torch.Tensor, accum: torch.Tensor,
-                    grad: torch.Tensor, lr: float, fudge: float = 1e-6):
-    """Update ``param`` and ``accum`` in place; returns them."""
-    global launches
+                    grad: torch.Tensor, lr: float, fudge: float = 1e-6, *,
+                    mul: Optional[torch.Tensor] = None,
+                    div: Optional[torch.Tensor] = None):
+    """Update ``param`` and ``accum`` in place; returns them.  ``param``
+    and ``accum``: ``(cap, d)``, or ``(R, cap, d)`` blocks (every rank
+    slice contiguous, one rank stride); ``grad`` contiguous, same shape;
+    ``mul`` or ``div`` (not both): a float32 operand per row, shape
+    ``param.shape[:-1]``, that multiplies or divides the grad row."""
+    if mul is not None and div is not None:
+        raise ValueError("adagrad_update_ takes mul or div, not both")
     if param.device.type == "cpu":
-        return adagrad_update_plain_(param, accum, grad, lr, fudge)
+        return adagrad_update_plain_(param, accum, grad, lr, fudge, mul=mul,
+                                     div=div)
     if param.device.type != "cuda":
         raise ValueError(
             f"adagrad_update_: unsupported device {param.device}")
-    _check(param, accum, grad)
-    n = param.numel()
-    if n == 0:
+    _check_table(param, accum)
+    _check_f32("grad", grad, param.shape, param.device)
+    scale = mul if mul is not None else div
+    if scale is not None:
+        _check_f32("mul" if mul is not None else "div", scale,
+                   param.shape[:-1], param.device)
+    R = param.shape[0] if param.dim() == 3 else 1
+    if param.numel() == 0:
         return param, accum
-    fn = build.function("adagrad", "smtpu_adagrad_update_f32", _ARGTYPES)
-    rc = fn(param.data_ptr(), accum.data_ptr(), grad.data_ptr(), n,
-            float(lr), float(fudge), build.stream_of(param))
-    build.check_launch("adagrad_update_", rc)
-    launches += 1
+    _launch(param, accum, param.stride(0) if param.dim() == 3 else 0, grad,
+            None, None, scale, 0 if scale is None else
+            (1 if mul is not None else 2), R, param.shape[-2],
+            param.shape[-1], param.shape[-2], lr, fudge)
+    return param, accum
+
+
+def adagrad_update_rows_(param: torch.Tensor, accum: torch.Tensor,
+                         slots: torch.Tensor, mask: Optional[torch.Tensor],
+                         grad: torch.Tensor, lr: float, fudge: float = 1e-6,
+                         *, mul: Optional[torch.Tensor] = None):
+    """Row-indexed update in place: for each ``i`` that ``mask`` (bool
+    ``(M,)``, or None for all) keeps and whose ``slots[i]`` (int32
+    ``(M,)``) lies in ``[0, cap)``, update ``param[slots[i]]`` and
+    ``accum[slots[i]]`` with grad row ``i`` (``(M, d)``), times ``mul[i]``
+    when given.  The kept slots must be distinct: two kept rows with one
+    slot race on the card.  ``param``/``accum``: contiguous ``(cap, d)``.
+    Returns them."""
+    if param.device.type == "cpu":
+        return adagrad_update_rows_plain_(param, accum, slots, mask, grad,
+                                          lr, fudge, mul=mul)
+    if param.device.type != "cuda":
+        raise ValueError(
+            f"adagrad_update_rows_: unsupported device {param.device}")
+    _check_table(param, accum)
+    if param.dim() != 2:
+        raise ValueError("adagrad_update_rows_ takes a (cap, d) table")
+    M, d = slots.shape[0], param.shape[1]
+    if slots.dtype != torch.int32 or slots.dim() != 1 \
+            or not slots.is_contiguous() or slots.device != param.device:
+        raise TypeError("adagrad_update_rows_ needs contiguous 1-D int32 "
+                        "slots on the table's device")
+    if mask is not None and (mask.dtype != torch.bool
+                             or mask.shape != slots.shape
+                             or not mask.is_contiguous()
+                             or mask.device != param.device):
+        raise TypeError("adagrad_update_rows_ needs a contiguous bool mask "
+                        "shaped like slots")
+    _check_f32("grad", grad, (M, d), param.device)
+    if mul is not None:
+        _check_f32("mul", mul, (M,), param.device)
+    if M == 0 or param.numel() == 0:
+        return param, accum
+    _launch(param, accum, 0, grad, slots, mask, mul,
+            0 if mul is None else 1, 1, M, d, param.shape[0], lr, fudge)
     return param, accum

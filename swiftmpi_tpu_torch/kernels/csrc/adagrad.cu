@@ -1,4 +1,5 @@
-// In-place AdaGrad over same-shape float32 arrays:
+// In-place AdaGrad over float32 rows:
+//   g = grad (optionally * or / a per-row operand)
 //   accum += g * g;  param += lr * g * rsqrt(accum + fudge)
 //
 // Replaces the Pallas kernel swiftmpi_tpu/ops/pallas_kernels.py
@@ -7,48 +8,151 @@
 // (rows, 128) view block by block with input/output aliasing; here the
 // update is written straight into param and accum, which is what the
 // aliasing achieved.  Bound: bytes — param, accum and grad read once,
-// param and accum written once (20 bytes an element), over 3.35 TB/s; the
-// seven flops an element are far below the float32 rate.
+// param and accum written once (20 bytes an element, plus the slot, mask
+// and per-row operand of each row), over 3.35 TB/s; the seven flops an
+// element are far below the float32 rate.
 //
-// Design: grid-stride elementwise over numel with coalesced float loads,
-// f32 math.  Each product and sum is rounded on its own (__fmul_rn /
-// __fadd_rn keep nvcc from contracting them into FMAs), in the order the
-// plain PyTorch version evaluates them, and rsqrtf is the function
-// torch.rsqrt runs on the card, so the kernel agrees with the plain
-// version bit for bit on the same card.
+// Two forms, one kernel:
+// - dense: rows * d elements of R blocks at once (param and accum as
+//   base + rank stride, the rank on blockIdx.y: the shards of the ranks
+//   that share a card in one launch), grad (R, rows, d);
+// - row-indexed: row i of grad updates table row slots[i], for the rows
+//   the mask keeps and whose slot lies in [0, cap): no gather copy of the
+//   touched rows and no write-back.  The kept slots must be distinct (two
+//   threads would race on one row); callers pass segment representatives
+//   or span owners, distinct by construction.
+// Either form may scale each grad row by a per-row operand first, a
+// product (the mean's reciprocal) or a quotient (its divisor), fused
+// instead of a separate pass over the grads.
+//
+// Grid-stride over float4 chunks where d % 4 == 0 and the rows are 16-byte
+// aligned, else over floats.  Each product, quotient and sum is rounded on
+// its own (__fmul_rn / __fdiv_rn / __fadd_rn keep nvcc from contracting
+// them into FMAs), in the order the plain PyTorch version evaluates them,
+// and rsqrtf is the function torch.rsqrt runs on the card, so every form
+// agrees with the plain version bit for bit on the same card.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 
-__global__ void adagrad_update(float* __restrict__ param,
-                               float* __restrict__ accum,
-                               const float* __restrict__ grad, long long n,
+template <int kScale>
+__device__ __forceinline__ void update(float& p, float& a, float g, float s,
+                                       float lr, float fudge) {
+  if constexpr (kScale == 1) g = __fmul_rn(g, s);
+  if constexpr (kScale == 2) g = __fdiv_rn(g, s);
+  a = __fadd_rn(a, __fmul_rn(g, g));
+  p = __fadd_rn(p, __fmul_rn(__fmul_rn(lr, g), rsqrtf(__fadd_rn(a, fudge))));
+}
+
+template <int kScale>
+__device__ __forceinline__ void update(float4& p, float4& a, float4 g,
+                                       float s, float lr, float fudge) {
+  update<kScale>(p.x, a.x, g.x, s, lr, fudge);
+  update<kScale>(p.y, a.y, g.y, s, lr, fudge);
+  update<kScale>(p.z, a.z, g.z, s, lr, fudge);
+  update<kScale>(p.w, a.w, g.w, s, lr, fudge);
+}
+
+// T: float or float4; dv: T's per row.  kScale: 0 none, 1 multiply,
+// 2 divide.  slots == nullptr in the dense form.
+template <typename T, bool kIndexed, int kScale>
+__global__ void adagrad_update(T* __restrict__ param, T* __restrict__ accum,
+                               long long rank_stride,
+                               const T* __restrict__ grad,
+                               const int* __restrict__ slots,
+                               const uint8_t* __restrict__ mask,
+                               const float* __restrict__ scale,
+                               unsigned rows, unsigned dv, long long cap,
                                float lr, float fudge) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+  const int rank = blockIdx.y;
+  param += rank * rank_stride;
+  accum += rank * rank_stride;
+  grad += (long long)rank * rows * dv;
+  if (kScale) scale += (long long)rank * rows;
+  const unsigned n = rows * dv;
+  const unsigned stride = gridDim.x * blockDim.x;
+  for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    const float g = grad[i];
-    const float a = __fadd_rn(accum[i], __fmul_rn(g, g));
-    accum[i] = a;
-    const float step = __fmul_rn(__fmul_rn(lr, g), rsqrtf(__fadd_rn(a, fudge)));
-    param[i] = __fadd_rn(param[i], step);
+    unsigned row = 0;
+    if (kIndexed || kScale) row = i / dv;
+    long long at = i;
+    if constexpr (kIndexed) {
+      if (mask != nullptr && !mask[row]) continue;
+      const long long s = slots[row];
+      if (s < 0 || s >= cap) continue;
+      at = s * dv + (i - row * dv);
+    }
+    T p = param[at];
+    T a = accum[at];
+    update<kScale>(p, a, grad[i], kScale ? scale[row] : 1.f, lr, fudge);
+    accum[at] = a;
+    param[at] = p;
   }
+}
+
+template <typename T, bool kIndexed>
+int launch(void* param, void* accum, long long rank_stride, const void* grad,
+           const void* slots, const void* mask, const void* scale,
+           int scale_mode, int ranks, unsigned rows, unsigned dv,
+           long long cap, float lr, float fudge, cudaStream_t s) {
+  long long blocks = ((long long)rows * dv + kThreads - 1) / kThreads;
+  // enough blocks to fill 132 SMs several times over; the rest
+  // grid-strides
+  if (blocks > 132LL * 16) blocks = 132LL * 16;
+  dim3 grid((unsigned)blocks, (unsigned)ranks);
+  T* p = static_cast<T*>(param);
+  T* a = static_cast<T*>(accum);
+  const T* g = static_cast<const T*>(grad);
+  const int* sl = static_cast<const int*>(slots);
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  const float* sc = static_cast<const float*>(scale);
+  if (scale_mode == 1)
+    adagrad_update<T, kIndexed, 1><<<grid, kThreads, 0, s>>>(
+        p, a, rank_stride, g, sl, m, sc, rows, dv, cap, lr, fudge);
+  else if (scale_mode == 2)
+    adagrad_update<T, kIndexed, 2><<<grid, kThreads, 0, s>>>(
+        p, a, rank_stride, g, sl, m, sc, rows, dv, cap, lr, fudge);
+  else
+    adagrad_update<T, kIndexed, 0><<<grid, kThreads, 0, s>>>(
+        p, a, rank_stride, g, sl, m, sc, rows, dv, cap, lr, fudge);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int smtpu_adagrad_update_f32(void* param, void* accum,
-                                        const void* grad, long long n,
-                                        float lr, float fudge, void* stream) {
-  if (n <= 0) return 0;
-  long long blocks = (n + kThreads - 1) / kThreads;
-  // enough blocks to fill 132 SMs several times over; the rest grid-strides
-  if (blocks > 132LL * 16) blocks = 132LL * 16;
-  adagrad_update<<<(unsigned)blocks, kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(param), static_cast<float*>(accum),
-      static_cast<const float*>(grad), n, lr, fudge);
-  return static_cast<int>(cudaGetLastError());
+// Dense form when slots is null: ranks blocks of rows x d at param/accum
+// + r * rank_stride (floats), grad (ranks, rows, d) contiguous, scale
+// (ranks, rows).  Row-indexed form otherwise (ranks must be 1): grad
+// (rows, d), slots (rows,), mask (rows,) or null, scale (rows,) or null;
+// param/accum (cap, d).  scale_mode: 0 none, 1 multiply, 2 divide.
+// vec4: d % 4 == 0 and every row 16-byte aligned.  rows * d must fit in
+// 32 bits.
+extern "C" int smtpu_adagrad_update_f32(
+    void* param, void* accum, long long rank_stride, const void* grad,
+    const void* slots, const void* mask, const void* scale, int scale_mode,
+    int ranks, long long rows, int d, long long cap, float lr, float fudge,
+    int vec4, void* stream) {
+  if (rows <= 0 || d <= 0 || ranks <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool indexed = slots != nullptr;
+  if (vec4) {
+    const unsigned dv = (unsigned)(d / 4);
+    return indexed
+        ? launch<float4, true>(param, accum, rank_stride / 4, grad, slots,
+                               mask, scale, scale_mode, ranks,
+                               (unsigned)rows, dv, cap, lr, fudge, s)
+        : launch<float4, false>(param, accum, rank_stride / 4, grad, slots,
+                                mask, scale, scale_mode, ranks,
+                                (unsigned)rows, dv, cap, lr, fudge, s);
+  }
+  return indexed
+      ? launch<float, true>(param, accum, rank_stride, grad, slots, mask,
+                            scale, scale_mode, ranks, (unsigned)rows,
+                            (unsigned)d, cap, lr, fudge, s)
+      : launch<float, false>(param, accum, rank_stride, grad, slots, mask,
+                             scale, scale_mode, ranks, (unsigned)rows,
+                             (unsigned)d, cap, lr, fudge, s);
 }

@@ -1,16 +1,30 @@
-// Masked row gather: out[r] = valid[r] ? table[clip(slots[r], 0, cap-1)] : 0.
+// Masked row gather, rank by rank:
+//   out[r, i] = valid[r, i] ? table[r, clip(slots[r, i], 0, cap-1)] : 0.
 //
 // Replaces the Pallas kernel swiftmpi_tpu/ops/pallas_gather.py
 // (vmem_gather / masked_vmem_gather), the drop-in body of the pull path's
-// transfer/xla.py _masked_gather.  The TPU kernel stages the whole table in
-// VMEM; on Hopper the 50 MB L2 already holds the hot rows, so the kernel is
-// a plain row copy.  Bound: bytes — each unique row read once plus every
+// transfer/xla.py _masked_gather and of the owners' gather of
+// transfer/tpu.py.  The TPU kernel stages the whole table in VMEM; on
+// Hopper the 50 MB L2 already holds the hot rows, so the kernel is a row
+// copy.  Bound: bytes — each distinct valid row read once plus every
 // output row written once, over 3.35 TB/s.
 //
-// Design: one warp per output row, lanes striding along d, so a row is one
-// run of coalesced accesses.  With d % 4 == 0 and 16-byte aligned rows the
-// copy moves float4s (d = 100 is 25 float4 per row).  Any row count; no
-// padding.  Blocks walk rows grid-stride.
+// The rank is blockIdx.y: the ranks that share a card (their table shards
+// one (R, cap, d) block, passed as base + rank stride) gather in one
+// launch, with no division of a row index by the rank count.
+//
+// Design of the vector form (d % 4 == 0, 16-byte aligned rows): a warp
+// takes a group of G rows (G * d/4 <= 128 float4 chunks, so G = 5 at
+// d = 100).  Lanes 0..G-1 load the group's slots and valid flags in one
+// coalesced load and hand them out with shuffles; then every lane issues
+// the loads of all its chunks (up to 4) before any store, so the warp
+// waits on the index->row dependency once per group, not once per row,
+// and all 32 lanes move data.  Table rows are read with an L2 evict-last
+// policy and output rows written with streaming stores, so the output,
+// which nothing reads again in this kernel, does not push the table out
+// of L2.  Invalid rows store zeros without reading.  Widths that are no
+// multiple of 4, and unaligned rows, take the scalar form: a warp a row,
+// lanes along d.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -18,70 +32,160 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+// float4 chunks a lane has in flight in the group form
+constexpr int kPerLane = 4;
 
 __device__ __forceinline__ long long clip_slot(int s, long long cap) {
   long long v = s;
   return v < 0 ? 0 : (v >= cap ? cap - 1 : v);
 }
 
-__global__ void masked_gather_vec4(const float4* __restrict__ table,
+__device__ __forceinline__ float4 ld_evict_last(const float4* p,
+                                                uint64_t policy) {
+  float4 v;
+  asm volatile(
+      "ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(p), "l"(policy));
+  return v;
+}
+
+// A warp a row (the form of PR 1-4), kept for the scalar widths and as
+// the yardstick of the group form.
+template <typename T>
+__global__ void masked_gather_rows(const T* __restrict__ table,
+                                   long long rank_stride,
                                    const int* __restrict__ slots,
                                    const uint8_t* __restrict__ valid,
-                                   float4* __restrict__ out, long long n,
-                                   int d4, long long cap) {
+                                   T* __restrict__ out, long long n, int dv,
+                                   long long cap) {
+  const int rank = blockIdx.y;
+  table += rank * rank_stride;
+  slots += rank * n;
+  valid += rank * n;
+  out += rank * n * dv;
   const int lane = threadIdx.x & 31;
   const long long stride = (long long)gridDim.x * kWarps;
   for (long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
        row < n; row += stride) {
-    float4* dst = out + row * d4;
+    T* dst = out + row * dv;
     if (!valid[row]) {
-      for (int c = lane; c < d4; c += 32) dst[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int c = lane; c < dv; c += 32) dst[c] = T{};
       continue;
     }
-    const float4* src = table + clip_slot(slots[row], cap) * d4;
-    for (int c = lane; c < d4; c += 32) dst[c] = __ldg(src + c);
+    const T* src = table + clip_slot(slots[row], cap) * dv;
+    for (int c = lane; c < dv; c += 32) dst[c] = __ldg(src + c);
   }
 }
 
-__global__ void masked_gather_scalar(const float* __restrict__ table,
-                                     const int* __restrict__ slots,
-                                     const uint8_t* __restrict__ valid,
-                                     float* __restrict__ out, long long n,
-                                     int d, long long cap) {
+// G rows a warp, every load of a pass issued before its stores.
+// kHint: evict-last loads and streaming stores.
+template <bool kHint>
+__global__ void masked_gather_group(const float4* __restrict__ table,
+                                    long long rank_stride,
+                                    const int* __restrict__ slots,
+                                    const uint8_t* __restrict__ valid,
+                                    float4* __restrict__ out, long long n,
+                                    int d4, long long cap, int G) {
+  const int rank = blockIdx.y;
+  table += rank * rank_stride;
+  slots += rank * n;
+  valid += rank * n;
+  out += rank * n * d4;
   const int lane = threadIdx.x & 31;
+  uint64_t policy = 0;
+  if (kHint)
+    asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
+                 : "=l"(policy));
+  const long long groups = (n + G - 1) / G;
   const long long stride = (long long)gridDim.x * kWarps;
-  for (long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-       row < n; row += stride) {
-    float* dst = out + row * d;
-    if (!valid[row]) {
-      for (int c = lane; c < d; c += 32) dst[c] = 0.f;
-      continue;
+  for (long long grp = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+       grp < groups; grp += stride) {
+    const long long r0 = grp * G;
+    const int rows = (int)(n - r0 < G ? n - r0 : G);
+    // the group's slots and flags: one coalesced load, then shuffles
+    int my_row = 0;
+    int my_ok = 0;
+    if (lane < rows) {
+      my_ok = valid[r0 + lane];
+      my_row = (int)clip_slot(slots[r0 + lane], cap);
     }
-    const float* src = table + clip_slot(slots[row], cap) * d;
-    for (int c = lane; c < d; c += 32) dst[c] = __ldg(src + c);
+    const int total = rows * d4;
+    float4* dst = out + r0 * d4;
+    for (int base = 0; base < total; base += 32 * kPerLane) {
+      float4 v[kPerLane];
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k) {
+        const int c = base + lane + 32 * k;
+        int j = c / d4;
+        j = j < rows ? j : rows - 1;
+        const int row = __shfl_sync(0xffffffffu, my_row, j);
+        const int ok = __shfl_sync(0xffffffffu, my_ok, j);
+        v[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (c < total && ok) {
+          const float4* src = table + (long long)row * d4 + (c - j * d4);
+          v[k] = kHint ? ld_evict_last(src, policy) : __ldg(src);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k) {
+        const int c = base + lane + 32 * k;
+        if (c < total) {
+          if (kHint)
+            __stcs(dst + c, v[k]);
+          else
+            dst[c] = v[k];
+        }
+      }
+    }
   }
 }
 
 }  // namespace
 
-extern "C" int smtpu_masked_gather_f32(const void* table, const void* slots,
-                                       const void* valid, void* out,
-                                       long long n, int d, long long cap,
-                                       int vec4, void* stream) {
-  if (n <= 0) return 0;
-  long long blocks = (n + kWarps - 1) / kWarps;
-  if (blocks > (1LL << 20)) blocks = 1LL << 20;
+// form: 0 scalar (a warp a row, floats), 1 a warp a row of float4s,
+// 2 G rows a warp, 3 G rows a warp with evict-last loads and streaming
+// stores.  Forms 1-3 need d % 4 == 0 and 16-byte aligned rows.
+extern "C" int smtpu_masked_gather_f32(const void* table,
+                                       long long rank_stride,
+                                       const void* slots, const void* valid,
+                                       void* out, int ranks, long long n,
+                                       int d, long long cap, int form,
+                                       void* stream) {
+  if (n <= 0 || ranks <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec4) {
-    masked_gather_vec4<<<(unsigned)blocks, kThreads, 0, s>>>(
-        static_cast<const float4*>(table), static_cast<const int*>(slots),
-        static_cast<const uint8_t*>(valid), static_cast<float4*>(out), n,
-        d / 4, cap);
+  const int* sl = static_cast<const int*>(slots);
+  const uint8_t* ok = static_cast<const uint8_t*>(valid);
+  long long blocks;
+  if (form >= 2) {
+    const int d4 = d / 4;
+    int G = 32 * kPerLane / d4;
+    G = G < 1 ? 1 : (G > 32 ? 32 : G);
+    blocks = ((n + G - 1) / G + kWarps - 1) / kWarps;
+    if (blocks > (1LL << 20)) blocks = 1LL << 20;
+    dim3 grid((unsigned)blocks, (unsigned)ranks);
+    if (form == 3) {
+      masked_gather_group<true><<<grid, kThreads, 0, s>>>(
+          static_cast<const float4*>(table), rank_stride / 4, sl, ok,
+          static_cast<float4*>(out), n, d4, cap, G);
+    } else {
+      masked_gather_group<false><<<grid, kThreads, 0, s>>>(
+          static_cast<const float4*>(table), rank_stride / 4, sl, ok,
+          static_cast<float4*>(out), n, d4, cap, G);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  blocks = (n + kWarps - 1) / kWarps;
+  if (blocks > (1LL << 20)) blocks = 1LL << 20;
+  dim3 grid((unsigned)blocks, (unsigned)ranks);
+  if (form == 1) {
+    masked_gather_rows<float4><<<grid, kThreads, 0, s>>>(
+        static_cast<const float4*>(table), rank_stride / 4, sl, ok,
+        static_cast<float4*>(out), n, d / 4, cap);
   } else {
-    masked_gather_scalar<<<(unsigned)blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(table), static_cast<const int*>(slots),
-        static_cast<const uint8_t*>(valid), static_cast<float*>(out), n, d,
-        cap);
+    masked_gather_rows<float><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(table), rank_stride, sl, ok,
+        static_cast<float*>(out), n, d, cap);
   }
   return static_cast<int>(cudaGetLastError());
 }

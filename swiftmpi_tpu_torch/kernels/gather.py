@@ -3,17 +3,24 @@
 Replaces the Pallas kernel ``swiftmpi_tpu/ops/pallas_gather.py``
 ``vmem_gather`` / ``masked_vmem_gather`` (drop-in body of
 ``transfer/xla.py::_masked_gather``): ``table[clip(slots)]`` with zero
-rows where ``valid`` is false.  The CUDA kernel (``csrc/gather.cu``) gives
-each output row one warp, lanes striding along d with float4 copies when
-``d % 4 == 0`` and rows are 16-byte aligned.  Bound on the card: bytes —
-each distinct valid row read once and every output row written once, over
-3.35 TB/s.  At the word2vec h pull (105,000 rows of d = 100 from a
-90,516-row table) that is 0.0157 ms; the kernel takes 0.0381 ms on an
-NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py``; PERF.md).
+rows where ``valid`` is false.  Two forms: a ``(cap, d)`` table with
+``(N,)`` slots, and the shards of the ranks that share a card, a ``(R,
+cap, d)`` block with ``(R, N)`` slots, rank ``r`` reading only slice ``r``
+of the table — ``masked_vmem_gather``'s contract rank by rank, in one
+launch.
+
+The CUDA kernel (``csrc/gather.cu``) gives each warp a group of rows (5 at
+d = 100), loads their slots once, issues every row load before any store,
+reads the table with an L2 evict-last policy and writes with streaming
+stores; widths that are no multiple of 4, or unaligned rows, take a
+scalar form with a warp a row.  Bound on the card: bytes — each distinct
+valid row read once and every output row written once, over 3.35 TB/s.
+Times beside the bound are in PERF.md (``chip_smoke.py``,
+``apps/gather_sweep.py``).
 
 ``masked_gather`` runs the plain version for a CPU tensor and launches the
-kernel for a CUDA tensor, raising on what the kernel does not take
-(anything but a contiguous float32 table, int32 slots, bool valid).
+kernel for a CUDA tensor, raising on what the kernel does not take (a
+float32 table whose rows are contiguous, int32 slots, bool valid).
 """
 
 from __future__ import annotations
@@ -28,50 +35,76 @@ from swiftmpi_tpu_torch.kernels import build
 #: launches of the CUDA kernel since the last reset
 launches = 0
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-             ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+#: bodies of the vector form (``apps/gather_sweep.py`` times each)
+FORMS = {1: "a warp a row", 2: "a group of rows a warp",
+         3: "a group of rows a warp, evict-last loads, streaming stores"}
+#: the body the wrapper launches
+FORM = 3
+
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+             ctypes.c_int, ctypes.c_void_p]
 
 
 def masked_gather_plain(table: torch.Tensor, slots: torch.Tensor,
                         valid: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: clip keeps invalid and out-of-range slots
-    defined, then invalid rows are zeroed."""
-    safe = torch.where(valid, slots, 0).clamp(0, table.shape[0] - 1)
-    rows = table.index_select(0, safe.long())
-    return torch.where(valid[:, None], rows, 0)
+    defined, then invalid rows are zeroed; a ``(R, cap, d)`` table is
+    read rank by rank through one index over its ``R * cap`` rows."""
+    cap = table.shape[-2]
+    safe = torch.where(valid, slots, 0).clamp(0, cap - 1).long()
+    if table.dim() == 3:
+        safe = safe + torch.arange(table.shape[0], device=slots.device
+                                   )[:, None] * cap
+    rows = table.reshape(-1, table.shape[-1]).index_select(
+        0, safe.reshape(-1)).view(*slots.shape, table.shape[-1])
+    return torch.where(valid[..., None], rows, 0)
 
 
 def _check(table, slots, valid):
     if table.dtype != torch.float32:
         raise TypeError(f"masked_gather kernel takes a float32 table, got "
                         f"{table.dtype} (bf16 tables are not ported yet)")
-    if table.dim() != 2 or not table.is_contiguous():
-        raise ValueError("masked_gather needs a contiguous (cap, d) table")
-    if slots.dtype != torch.int32 or slots.dim() != 1 \
-            or not slots.is_contiguous():
-        raise TypeError("masked_gather needs contiguous 1-D int32 slots")
+    d = table.shape[-1]
+    if table.stride(-1) != 1 or (table.shape[-2] > 1
+                                 and table.stride(-2) != d) \
+            or (table.dim() == 2 and not table.is_contiguous()):
+        raise ValueError("masked_gather needs a (cap, d) table or (R, cap, "
+                         "d) block whose rows are contiguous")
+    if slots.dtype != torch.int32 or not slots.is_contiguous():
+        raise TypeError("masked_gather needs contiguous int32 slots")
     if valid.dtype != torch.bool or valid.shape != slots.shape \
             or not valid.is_contiguous():
         raise TypeError("masked_gather needs a contiguous bool valid mask "
                         "shaped like slots")
     if slots.device != table.device or valid.device != table.device:
         raise ValueError("masked_gather operands must share one device")
+    if table.shape[-2] == 0 and slots.numel():
+        raise ValueError("masked_gather: the table has no rows")
 
 
 def masked_gather(table: torch.Tensor, slots: torch.Tensor,
                   valid: torch.Tensor,
                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``(N, d)`` rows of ``table`` at ``slots`` (clipped into range),
-    zero where ``valid`` is false; written into ``out`` (a contiguous
-    ``(N, d)`` tensor of the table's dtype and device) when given."""
+    """``(N, d)`` rows of a ``(cap, d)`` table at ``(N,)`` slots, or
+    ``(R, N, d)`` rows of a ``(R, cap, d)`` block at ``(R, N)`` slots
+    (rank ``r`` from ``table[r]``); slots are clipped into ``[0, cap)``
+    and rows are zero where ``valid`` is false.  Written into ``out`` (a
+    contiguous tensor of that shape, the table's dtype and device) when
+    given."""
     global launches
-    n, d = slots.shape[0], table.shape[1]
-    if out is not None and (out.shape != (n, d) or out.dtype != table.dtype
+    if table.dim() != slots.dim() + 1 or table.dim() not in (2, 3) \
+            or (table.dim() == 3 and slots.shape[0] != table.shape[0]):
+        raise ValueError(f"masked_gather takes a (cap, d) table with (N,) "
+                         f"slots or an (R, cap, d) block with (R, N) slots, "
+                         f"got {tuple(table.shape)} and {tuple(slots.shape)}")
+    shape = (*slots.shape, table.shape[-1])
+    if out is not None and (out.shape != shape or out.dtype != table.dtype
                             or out.device != table.device
                             or not out.is_contiguous()):
-        raise ValueError("masked_gather: out must be a contiguous (N, d) "
-                         "tensor of the table's dtype and device")
+        raise ValueError(f"masked_gather: out must be a contiguous {shape} "
+                         f"tensor of the table's dtype and device")
     if table.device.type == "cpu":
         rows = masked_gather_plain(table, slots, valid)
         return rows if out is None else out.copy_(rows)
@@ -79,15 +112,18 @@ def masked_gather(table: torch.Tensor, slots: torch.Tensor,
         raise ValueError(f"masked_gather: unsupported device {table.device}")
     _check(table, slots, valid)
     if out is None:
-        out = torch.empty((n, d), dtype=table.dtype, device=table.device)
-    if n == 0:
+        out = torch.empty(shape, dtype=table.dtype, device=table.device)
+    if slots.numel() == 0:
         return out
-    vec4 = int(d % 4 == 0 and table.data_ptr() % 16 == 0
-               and out.data_ptr() % 16 == 0)
+    R = table.shape[0] if table.dim() == 3 else 1
+    rank_stride = table.stride(0) if table.dim() == 3 else 0
+    d = table.shape[-1]
+    vec4 = (d % 4 == 0 and rank_stride % 4 == 0
+            and table.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     fn = build.function("gather", "smtpu_masked_gather_f32", _ARGTYPES)
-    rc = fn(table.data_ptr(), slots.data_ptr(), valid.data_ptr(),
-            out.data_ptr(), n, d, table.shape[0], vec4,
-            build.stream_of(table))
+    rc = fn(table.data_ptr(), rank_stride, slots.data_ptr(),
+            valid.data_ptr(), out.data_ptr(), R, slots.shape[-1], d,
+            table.shape[-2], FORM if vec4 else 0, build.stream_of(table))
     build.check_launch("masked_gather", rc)
     launches += 1
     return out

@@ -15,11 +15,12 @@ direction and the update adds.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from swiftmpi_tpu_torch.kernels.adagrad import adagrad_update_
+from swiftmpi_tpu_torch.kernels.adagrad import (adagrad_update_,
+                                                adagrad_update_rows_)
 
 Initializer = Callable[[torch.Generator, Tuple[int, ...], torch.device],
                        torch.Tensor]
@@ -57,11 +58,27 @@ class AccessMethod:
     grad_fields: Tuple[str, ...] = ()
 
     def apply_push(self, params: Dict[str, torch.Tensor],
-                   grads: Dict[str, torch.Tensor]
+                   grads: Dict[str, torch.Tensor],
+                   mul: Optional[torch.Tensor] = None,
+                   div: Optional[torch.Tensor] = None
                    ) -> Dict[str, torch.Tensor]:
         """Update ``params`` rows in place from ``grads`` (which may carry
         a subset of ``grad_fields``; absent rules are skipped) and return
-        the updated fields."""
+        the updated fields.  ``params`` are ``(cap, d)`` tables or ``(R,
+        cap, d)`` blocks of shards; ``mul`` / ``div``, one value per row
+        (``params``' shape without ``d``), multiply or divide every grad
+        row first."""
+        raise NotImplementedError
+
+    def apply_push_rows(self, state: Dict[str, torch.Tensor],
+                        slots: torch.Tensor, mask: Optional[torch.Tensor],
+                        grads: Dict[str, torch.Tensor],
+                        mul: Optional[torch.Tensor] = None
+                        ) -> Dict[str, torch.Tensor]:
+        """Row-indexed push, in place on the table's own ``(cap, d)``
+        tensors: grad row ``i`` (times ``mul[i]``) updates row
+        ``slots[i]`` where ``mask`` (None: every row) keeps it.  The kept
+        slots must be distinct.  Returns the updated fields."""
         raise NotImplementedError
 
     def touched_fields(self, grad_fields) -> Tuple[str, ...]:
@@ -85,7 +102,9 @@ class AdaGradAccess(AccessMethod):
         param += lr * g / sqrt(accum + fudge)      # accum already updated
 
     Executed by the CUDA kernel ``kernels/adagrad.py`` on the card (the
-    port of ``PallasAdaGradAccess``) and by its plain version on the CPU.
+    port of ``PallasAdaGradAccess``) and by its plain version on the CPU:
+    ``apply_push`` over whole tables or blocks of shards, ``apply_push_rows``
+    over the rows a sparse or span push touches.
     """
 
     def __init__(self, learning_rate: float,
@@ -103,18 +122,30 @@ class AdaGradAccess(AccessMethod):
             if r.param not in self.fields or r.accum not in self.fields:
                 raise ValueError(f"rule {r} references unknown field")
 
-    def apply_push(self, params, grads):
+    def apply_push(self, params, grads, mul=None, div=None):
         out = {}
         for r in self.rules:
             if r.grad not in grads:
                 continue
-            # in place: params[r.param] and params[r.accum] are the table's
-            # own tensors (dense push) or gathered row copies (sparse push)
+            # in place on the table's own tensors, or a block of shards
             adagrad_update_(params[r.param], params[r.accum],
                             grads[r.grad].contiguous(), self.learning_rate,
-                            self.fudge_factor)
+                            self.fudge_factor, mul=mul, div=div)
             out[r.param] = params[r.param]
             out[r.accum] = params[r.accum]
+        return out
+
+    def apply_push_rows(self, state, slots, mask, grads, mul=None):
+        out = {}
+        for r in self.rules:
+            if r.grad not in grads:
+                continue
+            adagrad_update_rows_(state[r.param], state[r.accum], slots, mask,
+                                 grads[r.grad].contiguous(),
+                                 self.learning_rate, self.fudge_factor,
+                                 mul=mul)
+            out[r.param] = state[r.param]
+            out[r.accum] = state[r.accum]
         return out
 
     def touched_fields(self, grad_fields):

@@ -7,12 +7,16 @@ assigns.  It has two layouts:
 * **one device** (no ``mesh``; ``transfer: xla``): the state is a plain
   ``{field: Tensor}`` dict of ``(capacity, dim)`` tensors.
 * **sharded** (``mesh``: a rank layout; ``transfer: tpu``): the state is
-  ``{field: [Tensor] * n}``, one ``(capacity_per_shard, dim)`` tensor per
-  shard on its rank's device.  Shard ``s`` holds the global slots
-  ``s * capacity_per_shard ... (s + 1) * capacity_per_shard - 1``, so the
-  shards concatenated in order are exactly the JAX package's global
-  array (:meth:`to_numpy`).  Nothing on the sharded path indexes a fused
-  global tensor: a rank touches its own shard only.
+  ``{field: [Tensor] * n}``, one contiguous ``(capacity_per_shard, dim)``
+  tensor per shard on its rank's device.  Shard ``s`` holds the global
+  slots ``s * capacity_per_shard ... (s + 1) * capacity_per_shard - 1``,
+  so the shards concatenated in order are exactly the JAX package's
+  global array (:meth:`to_numpy`).  The shards of the ranks that share a
+  device are the rank slices of one ``(R, capacity_per_shard, dim)``
+  block in the group's rank order (:func:`split_rows`), which
+  :func:`shard_block` returns without a copy, so one kernel launch serves
+  the whole group; each rank still reads and writes only its own
+  slice.
 
 Every row is initialized eagerly with its field's distribution (eager-
 random is lazy-random for every observable row).  Push paths update the
@@ -22,7 +26,7 @@ and ``repartition`` are not ported yet (ROADMAP A12).
 
 from __future__ import annotations
 
-from typing import Dict, List, Union
+from typing import Dict, List, Sequence, Union
 
 import numpy as np
 import torch
@@ -91,9 +95,43 @@ def state_to_numpy(state: TableState) -> Dict[str, np.ndarray]:
 
 def split_rows(rows: torch.Tensor, mesh) -> List[torch.Tensor]:
     """``(n * cap_per_shard, ...)`` rows dealt to the ranks of ``mesh``:
-    shard ``r`` is its own contiguous tensor on rank ``r``'s device."""
+    shard ``r`` is a contiguous tensor on rank ``r``'s device, and the
+    shards of one device are the slices of one ``(R, cap_per_shard, ...)``
+    block, in the device's rank order (a copy of ``rows``)."""
     if rows.shape[0] % mesh.n:
         raise ValueError(f"{rows.shape[0]} rows do not split over "
                          f"{mesh.n} shards")
-    return [part.to(dev, copy=True).contiguous()
-            for part, dev in zip(rows.chunk(mesh.n, dim=0), mesh.devices)]
+    parts = rows.chunk(mesh.n, dim=0)
+    out: List[torch.Tensor] = [None] * mesh.n
+    for dev, ranks in mesh.device_groups:
+        block = torch.stack([parts[r] for r in ranks]).to(dev)
+        for i, r in enumerate(ranks):
+            out[r] = block[i]
+    return out
+
+
+def shard_block(shards: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The ``(R, cap, ...)`` block whose rank slices are ``shards`` (the
+    shards of one device group, in rank order), as a view: never a copy.
+    Raises unless the shards are contiguous views of one storage, of one
+    shape, dtype and device, at one positive stride that keeps them
+    apart."""
+    first = shards[0]
+    for s in shards:
+        if s.shape != first.shape or s.dtype != first.dtype \
+                or s.device != first.device or not s.is_contiguous():
+            raise ValueError("shard_block: the shards differ in shape, "
+                             "dtype or device, or one is not contiguous")
+    if len(shards) == 1:
+        return first.unsqueeze(0)
+    size = first.element_size()
+    step = shards[1].data_ptr() - first.data_ptr()
+    storage = first.untyped_storage().data_ptr()
+    if step < first.numel() * size or step % size or any(
+            s.untyped_storage().data_ptr() != storage
+            or s.data_ptr() != first.data_ptr() + i * step
+            for i, s in enumerate(shards)):
+        raise ValueError("shard_block: the shards are not the slices of "
+                         "one block at one stride (made by split_rows?)")
+    return first.as_strided((len(shards), *first.shape),
+                            (step // size, *first.stride()))

@@ -19,8 +19,9 @@ A push routes (slot, grad) pairs the same way; owners sum what they
 receive into a ``(cap_per_shard, W)`` accumulator with the scatter-add
 kernel, invalid rows dropped (the owners of one device in one launch per
 family, a mean push's counts from the same launch), and apply the access
-method once per row (the AdaGrad kernel over the shard, untouched rows
-seeing zero gradient).
+method once per row (the AdaGrad kernel over the device's block of
+shards, one launch per family, the mean's reciprocal applied inside it;
+untouched rows see zero gradient).
 Shapes are static: request buckets hold ``C`` slots per destination, the
 whole local slice unless ``bucket_capacity`` cuts it, with ``-1`` padding.
 
@@ -30,10 +31,12 @@ The worker-side bookkeeping of the ranks that share a device (bucketing
 their batch slices, laying grads out in buckets, restoring request order)
 runs as one batched pass per device, to keep the launch count down; so
 do every ring exchange (one send launch and one wait launch per device)
-and the owner-side scatter-add (over the device's ``(R, n * C)`` received
-rows, slices of one exchange output).  The gather and AdaGrad run per rank
-on that rank's own shard.  The table state is ``{field: [shard
-tensors]}`` (``parameter/sparse_table.py``).
+and the owner-side kernels: the gather, the scatter-add (over the
+device's ``(R, n * C)`` received rows, slices of one exchange output) and
+AdaGrad each take the device's ``(R, cap_per_shard, d)`` block of shards
+(``sparse_table.shard_block``) in one launch, rank ``r`` on slice ``r``
+only.  The table state is ``{field: [shard tensors]}``
+(``parameter/sparse_table.py``).
 
 Not ported: the data axis across processes (``dp_axis``, the sparse DCN
 reconcile; ROADMAP A11), the window primitives, ``@rowver`` stamping and
@@ -51,6 +54,7 @@ from swiftmpi_tpu_torch.kernels.gather import masked_gather
 from swiftmpi_tpu_torch.kernels.ring import (ring_exchange,
                                              ring_exchange_stacked)
 from swiftmpi_tpu_torch.kernels.scatter import masked_scatter_add
+from swiftmpi_tpu_torch.parameter.sparse_table import shard_block
 from swiftmpi_tpu_torch.transfer.api import Transfer
 
 _COUNTS = "__counts__"
@@ -145,10 +149,9 @@ class ShardedTransfer(Transfer):
         self._overflow_total = 0
         self._overflow_pending: list = []      # device scalars, read lazily
         #: (device, its ranks): the ranks of one device are routed in one
-        #: batched pass; their table shards stay apart
-        self._groups = [(dev, [r for r, d in enumerate(mesh.devices)
-                               if d == dev])
-                        for dev in mesh.distinct_devices]
+        #: batched pass, and their table shards are one block
+        self._groups = [(dev, list(ranks))
+                        for dev, ranks in mesh.device_groups]
 
     # -- overflow accounting ----------------------------------------------
     def _record_overflow(self, op: str, groups) -> None:
@@ -228,6 +231,11 @@ class ShardedTransfer(Transfer):
         rows = [t.view(len(g.ranks), -1) for g, t in zip(groups, got)]
         return rows, [t >= 0 for t in rows]
 
+    @staticmethod
+    def _block(state, f, g):
+        """Field ``f``'s ``(R, cap, d)`` block of the group's shards."""
+        return shard_block([state[f][r] for r in g.ranks])
+
     def _by_rank(self, groups, per_group):
         """Per-rank list of the slices of per-group ``(R, ...)`` tensors."""
         out = [None] * self.n
@@ -245,13 +253,13 @@ class ShardedTransfer(Transfer):
         for f in fields:
             d = state[f][0].shape[1]
             # owners: rows of their own shard, zero where the request is
-            # padding, straight into the group's operand of the exchange
+            # padding, straight into the group's operand of the exchange;
+            # one launch for the group's block of shards
             rows = []
             for g, gr, gk in zip(groups, got, ok):
                 buf = torch.empty((len(g.ranks), n * C, d),
                                   dtype=state[f][0].dtype, device=g.device)
-                for i, r in enumerate(g.ranks):
-                    masked_gather(state[f][r], gr[i], gk[i], out=buf[i])
+                masked_gather(self._block(state, f, g), gr, gk, out=buf)
                 rows.append(buf.view(len(g.ranks), n, C, d))
             resp = self._exchange(groups, rows)
             res = torch.empty((n, slots.shape[0] // n, d),
@@ -338,14 +346,12 @@ class ShardedTransfer(Transfer):
                 csum = dense.pop(_COUNTS)
                 if mean:
                     divisor[k] = csum.clamp(min=1.0)
-            if mean:
-                scale = 1.0 / divisor[k]
-                dense = {f: a * scale for f, a in dense.items()}
-            for i, r in enumerate(g.ranks):
-                # in place on the rank's own shard
-                access.apply_push(
-                    {f: shards[r] for f, shards in state.items()},
-                    {f: a[i] for f, a in dense.items()})
+            # the mean multiplies by the reciprocal (JAX tpu.py), inside
+            # the AdaGrad launch: one per family over the group's block
+            inv = (1.0 / divisor[k])[..., 0] if mean else None
+            access.apply_push(
+                {f: self._block(state, f, g)
+                 for f in access.touched_fields(dense)}, dense, mul=inv)
         self._record_overflow("push", groups)
         return state
 

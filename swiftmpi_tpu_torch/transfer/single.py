@@ -6,20 +6,21 @@
 * the dense push scatters the whole batch into a capacity-shaped
   accumulator with the scatter-add kernel (``kernels/scatter.py``), one
   launch per family — for ``mean=True`` the first family's launch also
-  returns the per-slot counts — divides by the counts, and runs the
-  AdaGrad kernel (``kernels/adagrad.py``) over the whole table.  Untouched
-  rows see zero gradient and are exact no-ops.
-* the sparse push sorts the batch so duplicates are adjacent,
-  segment-sums them, gathers the one representative row per segment,
-  applies the rule to those rows and writes them back.  Like the JAX
-  package, which leaves this path to XLA, it stays in torch index ops;
-  the apply is the AdaGrad kernel on the gathered rows.
+  returns the per-slot counts — and runs the AdaGrad kernel
+  (``kernels/adagrad.py``) over the whole table, the mean's division by
+  the counts inside it.  Untouched rows see zero gradient and are exact
+  no-ops.
+* the sparse push sorts the batch so duplicates are adjacent and
+  segment-sums them; the row-indexed AdaGrad kernel then updates the one
+  representative slot of each segment in place.  Like the JAX package,
+  which leaves this path to XLA, the sort and the sums stay in torch
+  index ops.
 * ``push_span`` (stencil rendering, ``xla.py::push_span``) dedups a
   position-indexed span without a sort: a scatter-min of span positions
   into a ``(capacity,)`` plane names each slot's owner row, rows and
   counts fold into their owners with a span-local ``index_add_``, and the
-  AdaGrad kernel runs on the ``S`` gathered rows, which are written back
-  with ``index_copy_``.  No host read.
+  row-indexed AdaGrad kernel updates the owners' slots in place (the
+  ``is_owner`` rows of JAX, distinct by construction).  No host read.
 
 All three pushes update the table tensors in place.
 """
@@ -54,17 +55,16 @@ class SingleTransfer(Transfer):
                 acc = masked_scatter_add(slots, valid, g.contiguous(),
                                          capacity)
             dense_grads[f] = acc
+        scale = {}
         if mean:
-            div = counts.clamp(min=1.0)[:, None]
+            div = counts.clamp(min=1.0)
             # as the JAX package rounds: one family divides by its fused
-            # count column, several multiply by the reciprocal
-            if len(dense_grads) == 1:
-                dense_grads = {f: a / div for f, a in dense_grads.items()}
-            else:
-                inv = 1.0 / div
-                dense_grads = {f: a * inv for f, a in dense_grads.items()}
+            # count column, several multiply by the reciprocal; either
+            # inside the AdaGrad launch
+            scale = ({"div": div} if len(dense_grads) == 1
+                     else {"mul": 1.0 / div})
         # in place over the whole table (JAX: donated state)
-        access.apply_push(state, dense_grads)
+        access.apply_push(state, dense_grads, **scale)
         return state
 
     def _push_sparse(self, state, slots, grads, access, mean=False):
@@ -88,8 +88,8 @@ class SingleTransfer(Transfer):
             return state
         # one representative slot per segment (every writer of a segment
         # writes the same value)
-        rep_slots = torch.empty(B, dtype=torch.int64, device=slots.device)
-        rep_slots.scatter_(0, seg_ids, sorted_slots.long())
+        rep_slots = torch.empty(B, dtype=torch.int32, device=slots.device)
+        rep_slots.scatter_(0, seg_ids, sorted_slots)
         rep = rep_slots[:n_real]
 
         inv = None
@@ -97,22 +97,16 @@ class SingleTransfer(Transfer):
             seg_counts = torch.zeros(B, dtype=torch.float32,
                                      device=slots.device)
             seg_counts.index_add_(0, seg_ids, valid[order].float())
-            inv = (1.0 / seg_counts.clamp(min=1.0))[:, None]
+            inv = (1.0 / seg_counts.clamp(min=1.0))[:n_real]
         combined = {}
         for f, g in grads.items():
             acc = torch.zeros((B, g.shape[1]), dtype=g.dtype,
                               device=g.device)
             acc.index_add_(0, seg_ids, g[order])
-            combined[f] = (acc * inv if mean else acc)[:n_real]
-
-        # only the fields this push's families update are gathered
-        touched = access.touched_fields(grads)
-        current = {f: state[f].index_select(0, rep) for f in touched}
-        # in place on the gathered row copies, then written back: the
-        # representatives are distinct slots, so this is a plain row write
-        updated = access.apply_push(current, combined)
-        for f, rows in updated.items():
-            state[f].index_copy_(0, rep, rows)
+            combined[f] = acc[:n_real]
+        # in place on the table at the representatives, distinct slots; the
+        # mean's reciprocal inside the launch
+        access.apply_push_rows(state, rep, None, combined, mul=inv)
         return state
 
     def _push_span(self, state, slots, grads, counts, access, mean=False):
@@ -134,24 +128,14 @@ class SingleTransfer(Transfer):
         if mean:
             cnt = torch.zeros(S + 1, dtype=torch.float32, device=dev)
             cnt.index_add_(0, owner, counts.float())
-            inv = (1.0 / cnt.clamp(min=1.0))[:, None]
+            inv = (1.0 / cnt.clamp(min=1.0))[:S]
         combined = {}
         for f, g in grads.items():
             acc = torch.zeros((S + 1, g.shape[1]), dtype=g.dtype, device=dev)
             acc.index_add_(0, owner, g)
-            combined[f] = acc * inv if mean else acc
-        # Every row computes its owner's update (same slot, same summed
-        # grad), so the write-back below writes identical rows wherever a
-        # slot repeats, with no host read to compact the owners.  Padding
-        # rows repeat the first valid row (slot 0 with a zero grad, an
-        # exact no-op, when there is none).
-        first = valid.int().argmax()
-        src = torch.where(valid, owner, first)
-        tgt = safe[src]
-        rows = {f: c.index_select(0, src) for f, c in combined.items()}
-        touched = access.touched_fields(grads)
-        current = {f: state[f].index_select(0, tgt) for f in touched}
-        updated = access.apply_push(current, rows)
-        for f, r in updated.items():
-            state[f].index_copy_(0, tgt, r)
+            combined[f] = acc[:S]
+        # the owner rows (JAX is_owner) hold distinct slots: each updates
+        # its slot in place, the mean's reciprocal inside the launch
+        is_owner = valid & (owner == pos)
+        access.apply_push_rows(state, slots, is_owner, combined, mul=inv)
         return state

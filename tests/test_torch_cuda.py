@@ -14,6 +14,7 @@ from swiftmpi_tpu_torch import kernels
 from swiftmpi_tpu_torch.kernels import (adagrad, gather, ring, scatter,
                                         stencil)
 from swiftmpi_tpu_torch.models.word2vec import Word2Vec
+from swiftmpi_tpu_torch.parameter.sparse_table import shard_block
 from swiftmpi_tpu_torch.convert import state_from_jax, state_to_numpy
 from swiftmpi_tpu_torch.data.text import CBOWBatcher, synthetic_corpus
 from swiftmpi_tpu_torch.utils import ConfigParser
@@ -396,9 +397,177 @@ def test_one_sharded_step_on_card_matches_cpu(dev, shared):
     for f in want:
         np.testing.assert_allclose(got[f], want[f], rtol=1e-3, atol=1e-5)
     # two exchanges per pull and per pushed family, one send launch per
-    # card each; one scatter-add per pushed family for all 8 owners
+    # card each; one gather per pull, one scatter-add and one AdaGrad per
+    # pushed family, each for all 8 ranks
     assert counts["ring"] == (10 if shared else 8)
     assert counts["scatter"] == (3 if shared else 2)
-    assert counts["gather"] == 16 and counts["adagrad"] == 8 * (3 if shared
-                                                                 else 2)
+    assert counts["gather"] == 2 and counts["adagrad"] == (3 if shared
+                                                           else 2)
     assert ring.timeouts() == 0 and card.transfer.overflow_count() == 0
+
+
+# -- B2 and B1: rank dimension, fused scale, row-indexed ---------------------
+
+def _block(rng, R, cap, d, dev, pad=0):
+    """An (R, cap, d) float32 block; ``pad`` extra rows per rank make the
+    rank stride (cap + pad) * d."""
+    full = torch.from_numpy(rng.normal(size=(R, cap + pad, d))
+                            .astype(np.float32)).to(dev)
+    return full[:, :cap]
+
+
+@pytest.mark.parametrize("R", [None, 1, 3, 8])
+@pytest.mark.parametrize("d", [100, 101, 7])
+def test_gather_forms_match_plain_on_card(dev, R, d):
+    """B2 on a table or a block of R shards (contiguous, and at a rank
+    stride of (cap + 3) * d), bit for bit against its plain version, with
+    invalid and out-of-range slots; all-invalid slots give zeros; one
+    launch a call."""
+    rng = np.random.default_rng(d + (R or 0))
+    cap, n = 1000, 5000
+    lead = () if R is None else (R,)
+    for pad in (0, 3):
+        if R is None and pad:
+            continue
+        table = _block(rng, R or 1, cap, d, dev, pad)
+        table = table[0] if R is None else table
+        pairs = [_slots(rng, n, cap) for _ in range(R or 1)]
+        slots = torch.from_numpy(np.stack([s for s, _ in pairs])
+                                 .reshape(*lead, n)).to(dev)
+        valid = torch.from_numpy(np.stack([v for _, v in pairs])
+                                 .reshape(*lead, n)).to(dev)
+        kernels.reset_launches()
+        got = gather.masked_gather(table, slots, valid)
+        want = gather.masked_gather_plain(table, slots, valid)
+        torch.cuda.synchronize()
+        assert gather.launches == 1 and got.shape == (*lead, n, d)
+        assert torch.equal(got, want)
+        none = torch.zeros_like(valid)
+        out = torch.full_like(got, 5.0)
+        gather.masked_gather(table, slots, none, out=out)
+        torch.cuda.synchronize()
+        assert not out.any()
+
+
+def test_gather_takes_empty_and_unaligned_inputs_and_refuses_bad_ones(dev):
+    """Empty slots; a table that starts 4 bytes into its allocation (the
+    scalar form); and the refusals of the rank form."""
+    block = torch.randn(3, 50, 100, device=dev)
+    none = torch.empty(3, 0, dtype=torch.int32, device=dev)
+    assert gather.masked_gather(block, none, none.bool()).shape == (3, 0, 100)
+    base = torch.randn(50 * 100 + 1, device=dev)
+    table = base[1:].view(50, 100)
+    assert table.data_ptr() % 16 == 4
+    slots = torch.arange(60, dtype=torch.int32, device=dev) % 53
+    valid = torch.ones(60, dtype=torch.bool, device=dev)
+    assert torch.equal(gather.masked_gather(table, slots, valid),
+                       gather.masked_gather_plain(table, slots, valid))
+    s3 = slots.view(3, 20)
+    with pytest.raises(ValueError, match="block"):
+        gather.masked_gather(block, slots, valid)
+    with pytest.raises(ValueError, match="rows are contiguous"):
+        gather.masked_gather(block.transpose(1, 2), s3, valid.view(3, 20))
+    with pytest.raises(TypeError, match="int32"):
+        gather.masked_gather(block, s3.long(), valid.view(3, 20))
+
+
+@pytest.mark.parametrize("R", [None, 1, 3, 8])
+@pytest.mark.parametrize("d", [100, 101, 7])
+@pytest.mark.parametrize("op", [None, "mul", "div"])
+def test_adagrad_dense_forms_match_plain_on_card(dev, R, d, op):
+    """B1 over a table or a block of R shards, with no per-row operand or
+    with one that multiplies or divides the grad row: bit for bit against
+    its plain version (each op rounded alone, in the plain order); one
+    launch."""
+    rng = np.random.default_rng(7 * d + (R or 0))
+    cap = 700
+    lead = () if R is None else (R,)
+    shape = (*lead, cap, d)
+    # a block's rank stride is (cap + 2) * d
+    p, a = (_block(rng, R or 1, cap, d, dev, pad=0 if R is None else 2)
+            for _ in range(2))
+    if R is None:
+        p, a = p[0], a[0]
+    a.abs_()
+    g = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+    row = torch.from_numpy(rng.integers(1, 9, shape[:-1])
+                           .astype(np.float32)).to(dev)
+    scale = {} if op is None else {op: 1.0 / row if op == "mul" else row}
+    p2, a2 = p.clone(), a.clone()
+    kernels.reset_launches()
+    adagrad.adagrad_update_(p, a, g, 0.7, **scale)
+    adagrad.adagrad_update_plain_(p2, a2, g, 0.7, **scale)
+    torch.cuda.synchronize()
+    assert adagrad.launches == 1
+    assert torch.equal(p, p2) and torch.equal(a, a2)
+
+
+@pytest.mark.parametrize("d", [100, 101, 7])
+@pytest.mark.parametrize("masked,scaled", [(False, False), (True, True),
+                                           (False, True)])
+def test_adagrad_rows_match_plain_on_card(dev, d, masked, scaled):
+    """Row-indexed B1: distinct slots (a few out of range, skipped), a
+    mask or none, the reciprocal or none: bit for bit against its plain
+    version, every other row untouched; one launch.  Empty rows launch
+    nothing."""
+    rng = np.random.default_rng(3 * d + masked)
+    cap, M = 9000, 2806
+    p = torch.from_numpy(rng.normal(size=(cap, d)).astype(np.float32)).to(dev)
+    a = torch.from_numpy(np.abs(rng.normal(size=(cap, d)))
+                         .astype(np.float32)).to(dev)
+    slots = rng.permutation(cap)[:M].astype(np.int32)
+    slots[:4] = [cap, cap + 1, -1, -5]
+    slots = torch.from_numpy(slots).to(dev)
+    mask = torch.from_numpy(rng.random(M) < 0.6).to(dev) if masked else None
+    g = torch.from_numpy(rng.normal(size=(M, d)).astype(np.float32)).to(dev)
+    mul = (1.0 / torch.from_numpy(rng.integers(1, 9, M).astype(np.float32))
+           ).to(dev) if scaled else None
+    p0, a0 = p.clone(), a.clone()
+    p2, a2 = p.clone(), a.clone()
+    kernels.reset_launches()
+    adagrad.adagrad_update_rows_(p, a, slots, mask, g, 0.7, mul=mul)
+    adagrad.adagrad_update_rows_plain_(p2, a2, slots, mask, g, 0.7, mul=mul)
+    torch.cuda.synchronize()
+    assert adagrad.launches == 1
+    assert torch.equal(p, p2) and torch.equal(a, a2)
+    keep = (slots >= 0) & (slots < cap)
+    keep = keep if mask is None else keep & mask
+    other = torch.ones(cap, dtype=torch.bool, device=dev)
+    other[slots[keep].long()] = False
+    assert torch.equal(p[other], p0[other]) and torch.equal(a[other],
+                                                            a0[other])
+    empty = torch.empty(0, dtype=torch.int32, device=dev)
+    adagrad.adagrad_update_rows_(p, a, empty, None,
+                                 torch.empty(0, d, device=dev), 0.7)
+    assert adagrad.launches == 1
+
+
+def test_adagrad_and_blocks_refuse_bad_inputs(dev):
+    """What B1's forms and ``shard_block`` refuse: shards that are not
+    contiguous or not one block at one stride; mismatched accum strides;
+    int64 slots; a mask of the wrong shape."""
+    blk = torch.zeros(4, 30, 8, device=dev)
+    for bad in ([blk[0], blk[1], blk[3]], [blk[1], blk[0]],
+                [torch.zeros(30, 8, device=dev),
+                 torch.zeros(30, 8, device=dev)]):
+        with pytest.raises(ValueError, match="shard_block"):
+            shard_block(bad)
+    with pytest.raises(ValueError, match="contiguous"):
+        shard_block([t.t() for t in torch.zeros(2, 8, 30, device=dev)])
+    assert shard_block([blk[0], blk[1], blk[2]]).shape == (3, 30, 8)
+    g = torch.zeros(4, 30, 8, device=dev)
+    with pytest.raises(ValueError, match="does not match"):
+        adagrad.adagrad_update_(blk, torch.zeros(4, 31, 8, device=dev)
+                                [:, :30], g, 0.1)
+    with pytest.raises(TypeError, match="disjoint"):
+        adagrad.adagrad_update_(blk[0].expand(4, 30, 8),
+                                blk[0].expand(4, 30, 8), g, 0.1)
+    slots = torch.arange(5, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="int32"):
+        adagrad.adagrad_update_rows_(blk[0], blk[1], slots.long(), None,
+                                     torch.zeros(5, 8, device=dev), 0.1)
+    with pytest.raises(TypeError, match="mask"):
+        adagrad.adagrad_update_rows_(blk[0], blk[1], slots,
+                                     torch.ones(4, dtype=torch.bool,
+                                                device=dev),
+                                     torch.zeros(5, 8, device=dev), 0.1)

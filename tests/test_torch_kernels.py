@@ -126,6 +126,113 @@ def test_gather_plain_matches_pallas_loop_and_xla(monkeypatch):
     assert got.shape == (N, D)
 
 
+@pytest.mark.parametrize("R", [1, 3, 8])
+def test_gather_ranks_match_pallas_loop_and_xla(monkeypatch, R):
+    """The rank form, ``(R, cap, d)`` block and ``(R, N)`` slots: rank r
+    equals ``masked_vmem_gather`` (interpret mode) and ``_masked_gather``
+    on slice r of the table, bit for bit, with invalid and out-of-range
+    slots; also through a block whose rank stride is not ``cap * d`` and
+    into ``out``."""
+    rng = np.random.default_rng(30 + R)
+    cap = 40
+    table = rng.normal(size=(R, cap, D)).astype(np.float32)
+    pairs = [_slots(rng, n=96, cap=cap) for _ in range(R)]
+    slots = np.stack([s for s, _ in pairs])
+    valid = np.stack([v for _, v in pairs])
+    monkeypatch.setattr(pallas_gather, "gather_method", lambda: "loop")
+    monkeypatch.setattr(pallas_gather, "gather_idx_block", lambda: 128)
+    got = gather.masked_gather(torch.from_numpy(table),
+                               torch.from_numpy(slots),
+                               torch.from_numpy(valid)).numpy()
+    assert got.shape == (R, 96, D)
+    for r in range(R):
+        args = (jnp.asarray(table[r]), jnp.asarray(slots[r]),
+                jnp.asarray(valid[r]))
+        np.testing.assert_array_equal(
+            got[r], np.asarray(pallas_gather.masked_vmem_gather(*args)))
+        np.testing.assert_array_equal(got[r],
+                                      np.asarray(_masked_gather(*args)))
+        np.testing.assert_array_equal(
+            got[r], gather.masked_gather_plain(
+                *(torch.from_numpy(a) for a in (table[r], slots[r],
+                                                valid[r]))).numpy())
+    assert not got[~valid].any()
+    wide = torch.zeros((R, cap + 3, D))
+    wide[:, :cap] = torch.from_numpy(table)
+    out = torch.full((R, 96, D), 7.0)
+    gather.masked_gather(wide[:, :cap], torch.from_numpy(slots),
+                         torch.from_numpy(valid), out=out)
+    np.testing.assert_array_equal(out.numpy(), got)
+    with pytest.raises(ValueError, match="block"):
+        gather.masked_gather(torch.from_numpy(table),
+                             torch.from_numpy(np.vstack([slots, slots])),
+                             torch.from_numpy(np.vstack([valid, valid])))
+
+
+@pytest.mark.parametrize("R,op", [(None, "mul"), (None, "div"), (3, "mul"),
+                                  (3, "div"), (8, "mul")])
+def test_adagrad_scaled_matches_scale_then_pallas(R, op):
+    """The fused per-row operand: ``a * inv`` (or ``a / div``) and then
+    the Pallas ``adagrad_update`` in interpret mode, on a table or a block
+    of shards; rtol 1e-6 as the unscaled update."""
+    rng = np.random.default_rng(40 + (R or 0))
+    shape = (CAP, D) if R is None else (R, CAP // 4, D)
+    p = rng.normal(size=shape).astype(np.float32)
+    a = np.abs(rng.normal(size=shape)).astype(np.float32)
+    g = rng.normal(size=shape).astype(np.float32)
+    row = rng.integers(1, 6, shape[:-1]).astype(np.float32)
+    s = (1.0 / row).astype(np.float32) if op == "mul" else row
+    scaled = g * s[..., None] if op == "mul" else g / row[..., None]
+    po, ao = pallas_adagrad(jnp.asarray(p), jnp.asarray(a),
+                            jnp.asarray(scaled), lr=0.7, interpret=True,
+                            block_rows=8)
+    tp, ta = torch.from_numpy(p.copy()), torch.from_numpy(a.copy())
+    out_p, out_a = adagrad.adagrad_update_(
+        tp, ta, torch.from_numpy(g), 0.7, **{op: torch.from_numpy(s)})
+    assert out_p is tp and out_a is ta
+    np.testing.assert_allclose(ta.numpy(), np.asarray(ao), rtol=1e-6, atol=0)
+    np.testing.assert_allclose(tp.numpy(), np.asarray(po), rtol=1e-6,
+                               atol=1e-7)
+    with pytest.raises(ValueError, match="not both"):
+        adagrad.adagrad_update_(tp, ta, torch.from_numpy(g), 0.7,
+                                mul=torch.from_numpy(s),
+                                div=torch.from_numpy(s))
+
+
+@pytest.mark.parametrize("masked,scaled", [(False, False), (True, True)])
+def test_adagrad_rows_match_pallas_on_the_rows(masked, scaled):
+    """The row-indexed form: the kept rows equal the Pallas update
+    (interpret mode) of those rows, rtol 1e-6; every other row, and the
+    rows of masked-out or out-of-range slots, is bit-unchanged."""
+    rng = np.random.default_rng(50 + masked)
+    M = 60
+    p = rng.normal(size=(CAP, D)).astype(np.float32)
+    a = np.abs(rng.normal(size=(CAP, D))).astype(np.float32)
+    slots = rng.permutation(CAP)[:M].astype(np.int32)
+    slots[:3] = [CAP, CAP + 5, -2]                  # out of range: skipped
+    mask = rng.random(M) < 0.7 if masked else np.ones(M, bool)
+    g = rng.normal(size=(M, D)).astype(np.float32)
+    inv = (1.0 / rng.integers(1, 6, M)).astype(np.float32)
+    keep = mask & (slots >= 0) & (slots < CAP)
+    gk = g[keep] * inv[keep][:, None] if scaled else g[keep]
+    tgt = slots[keep]
+    po, ao = pallas_adagrad(jnp.asarray(p[tgt]), jnp.asarray(a[tgt]),
+                            jnp.asarray(gk), lr=0.7, interpret=True,
+                            block_rows=8)
+    tp, ta = torch.from_numpy(p.copy()), torch.from_numpy(a.copy())
+    adagrad.adagrad_update_rows_(
+        tp, ta, torch.from_numpy(slots),
+        torch.from_numpy(mask) if masked else None, torch.from_numpy(g),
+        0.7, mul=torch.from_numpy(inv) if scaled else None)
+    np.testing.assert_allclose(ta.numpy()[tgt], np.asarray(ao), rtol=1e-6,
+                               atol=0)
+    np.testing.assert_allclose(tp.numpy()[tgt], np.asarray(po), rtol=1e-6,
+                               atol=1e-7)
+    other = np.setdiff1d(np.arange(CAP), tgt)
+    np.testing.assert_array_equal(tp.numpy()[other], p[other])
+    np.testing.assert_array_equal(ta.numpy()[other], a[other])
+
+
 # -- B3: masked scatter-add ----------------------------------------------------
 
 @pytest.mark.parametrize("width", [D + 1, 3])
@@ -327,7 +434,8 @@ def _forbid_build(monkeypatch):
 
 
 @pytest.mark.parametrize("kernel", ["gather", "scatter", "adagrad",
-                                    "stencil", "ring"])
+                                    "stencil", "ring", "gather_ranks",
+                                    "adagrad_rows"])
 def test_dispatch_takes_plain_path_on_cpu(monkeypatch, kernel):
     """A CPU tensor runs the plain version: no build, no launch count."""
     _forbid_build(monkeypatch)
@@ -360,6 +468,22 @@ def test_dispatch_takes_plain_path_on_cpu(monkeypatch, kernel):
         for got, want in zip(ring.ring_exchange(xs),
                              ring.ring_exchange_plain(xs)):
             torch.testing.assert_close(got, want, rtol=0, atol=0)
+    elif kernel == "gather_ranks":
+        t = torch.from_numpy(rng.normal(size=(2, CAP, D)).astype(np.float32))
+        s2, v2 = torch.stack([ts, ts.flip(0)]), torch.stack([tv, tv.flip(0)])
+        torch.testing.assert_close(gather.masked_gather(t, s2, v2),
+                                   gather.masked_gather_plain(t, s2, v2),
+                                   rtol=0, atol=0)
+    elif kernel == "adagrad_rows":
+        p, a = (torch.from_numpy(rng.random((CAP, D)).astype(np.float32))
+                for _ in range(2))
+        g = torch.from_numpy(rng.random((64, D)).astype(np.float32))
+        rows = torch.from_numpy(rng.permutation(CAP)[:64].astype(np.int32))
+        p2, a2 = p.clone(), a.clone()
+        adagrad.adagrad_update_rows_(p, a, rows, tv, g, 0.5)
+        adagrad.adagrad_update_rows_plain_(p2, a2, rows, tv, g, 0.5)
+        torch.testing.assert_close(p, p2, rtol=0, atol=0)
+        torch.testing.assert_close(a, a2, rtol=0, atol=0)
     else:
         p, a, g = (torch.from_numpy(rng.random((8, D)).astype(np.float32))
                    for _ in range(3))
@@ -374,7 +498,7 @@ def test_dispatch_takes_plain_path_on_cpu(monkeypatch, kernel):
 
 
 @pytest.mark.parametrize("kernel", ["gather", "scatter", "adagrad",
-                                    "stencil", "ring"])
+                                    "stencil", "ring", "adagrad_rows"])
 def test_dispatch_raises_on_other_devices(monkeypatch, kernel):
     """Neither CPU nor CUDA: the wrapper raises; nothing falls back."""
     _forbid_build(monkeypatch)
@@ -391,6 +515,8 @@ def test_dispatch_raises_on_other_devices(monkeypatch, kernel):
                 meta, ms, ms, torch.empty((4, 3), device="meta"))
         elif kernel == "ring":
             ring.ring_exchange([meta] * 4)
+        elif kernel == "adagrad_rows":
+            adagrad.adagrad_update_rows_(meta, meta, ms, mv, meta, 0.5)
         else:
             adagrad.adagrad_update_(meta, meta, meta, 0.5)
 

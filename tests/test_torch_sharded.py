@@ -376,6 +376,103 @@ def test_push_scatters_once_per_device_group_and_family(devices8,
     assert exchanges == [(N, N, C)] + [(N, N, C, D)] * len(grads)
 
 
+@pytest.mark.parametrize("devices,groups", [
+    (["cpu"], [[0, 1, 2, 3, 4, 5, 6, 7]]),
+    (["cpu", torch.device("cpu", 0)], [[0, 2, 4, 6], [1, 3, 5, 7]])])
+def test_shards_of_a_group_are_one_block(devices8, devices, groups):
+    """The shards of the ranks that share a device are the rank slices of
+    one ``(R, cap, d)`` block in the group's rank order, each contiguous;
+    ``shard_block`` returns that block as a view (writes through it land
+    in the shards) and refuses shard lists that are not."""
+    from swiftmpi_tpu_torch.parameter.sparse_table import shard_block
+    _, _, jtable, _, _, _, _ = _setup(devices8)
+    lay = ps_mesh(N, devices)
+    assert [list(r) for _, r in lay.device_groups] == groups
+    st = _port_state(jtable, lay)
+    want = {f: np.asarray(a) for f, a in jtable.state.items()}
+    for f, shards in st.items():
+        for ranks in groups:
+            block = shard_block([shards[r] for r in ranks])
+            assert block.shape == (len(ranks), CAP, D)
+            assert block.data_ptr() == shards[ranks[0]].data_ptr()
+            for i, r in enumerate(ranks):
+                assert shards[r].is_contiguous()
+                np.testing.assert_array_equal(
+                    block[i].numpy(), want[f][r * CAP:(r + 1) * CAP])
+            block[-1, 0, 0] = 123.0                  # a view, not a copy
+            assert shards[ranks[-1]][0, 0] == 123.0
+    one = st["h"][0]
+    assert shard_block([one]).data_ptr() == one.data_ptr()
+    blk = torch.zeros(4, CAP, D)
+    for bad in ([blk[0], blk[1], blk[3]],                 # uneven stride
+                [blk[1], blk[0]],                         # wrong order
+                [blk[0], blk[0]],                         # one shard twice
+                [torch.zeros(CAP, D), torch.zeros(CAP, D)],   # apart
+                [blk[0], blk[1, :CAP - 1]]):              # other shape
+        with pytest.raises(ValueError, match="shard_block"):
+            shard_block(bad)
+    with pytest.raises(ValueError, match="contiguous"):
+        shard_block([t.t() for t in torch.zeros(2, D, CAP).unbind(0)])
+    # one stride that is not cap * d is still one block
+    assert shard_block([blk[0], blk[2]]).stride(0) == 2 * CAP * D
+
+
+@pytest.mark.parametrize("mean", [False, True])
+def test_gather_and_apply_once_per_device_group(devices8, monkeypatch,
+                                                mean):
+    """A pull gathers each field in one call per device group over the
+    group's ``(R, cap, d)`` block; a push applies each family in one
+    ``apply_push`` per device group over the group's blocks, with the
+    mean's reciprocal as ``mul``; the results equal the one-device
+    layout's, bit for bit."""
+    from swiftmpi_tpu_torch.transfer import sharded
+    _, _, jtable, layout, pacc, slots, grads = _setup(devices8)
+    gathers, applies = [], []
+    masked_gather = sharded.masked_gather
+    apply_push = type(pacc).apply_push
+
+    def counting_gather(table, s, v, out=None):
+        gathers.append((tuple(table.shape), tuple(s.shape)))
+        return masked_gather(table, s, v, out=out)
+
+    def counting_apply(self, params, grads, mul=None, div=None):
+        applies.append(({f: tuple(t.shape) for f, t in params.items()},
+                        sorted(grads), None if mul is None
+                        else tuple(mul.shape), div))
+        return apply_push(self, params, grads, mul=mul, div=div)
+
+    monkeypatch.setattr(sharded, "masked_gather", counting_gather)
+    monkeypatch.setattr(type(pacc), "apply_push", counting_apply)
+    two = ps_mesh(N, ["cpu", torch.device("cpu", 0)])
+    C = slots.shape[0] // N
+    ts = torch.from_numpy(slots)
+    results = []
+    for lay, R in ((layout, N), (two, N // 2)):
+        gathers.clear()
+        applies.clear()
+        t = ShardedTransfer(lay)
+        st = _port_state(jtable, lay)
+        pulled = t.pull(st, ts, pacc)
+        assert gathers == [((R, CAP, D), (R, N * C))] * (N // R) * 2
+        t.push(st, ts, _t(grads), pacc, mean=mean)
+        assert len(applies) == N // R
+        for params, fams, mul, div in applies:
+            assert fams == sorted(grads) and div is None
+            assert params == {f: (R, CAP, D) for f in _pushed_fields(pacc)}
+            assert mul == ((R, CAP) if mean else None)
+        results.append((pulled, state_to_numpy(st)))
+    (p1, s1), (p2, s2) = results
+    for f in p1:
+        np.testing.assert_array_equal(p1[f].numpy(), p2[f].numpy())
+    for f in s1:
+        np.testing.assert_array_equal(s1[f], s2[f])
+
+
+def _pushed_fields(access):
+    """The fields a push of every family touches."""
+    return set(access.touched_fields(access.grad_fields))
+
+
 def test_bucket_capacity_drops_the_same_rows(devices8):
     """``bucket_capacity=2``: the same overflow count and, since both
     sides keep the first two requests of a bucket in request order, the

@@ -132,6 +132,95 @@ def test_dense_push_scatters_once_per_family(monkeypatch, families, mean):
     assert calls == [mean] + [False] * (len(families) - 1)
 
 
+@pytest.mark.parametrize("families,mean", [(("h",), True),
+                                           (("h", "v"), True),
+                                           (("v",), False)])
+def test_span_push_matches_xla(families, mean):
+    """``push_span`` against ``XlaTransfer.push_span`` on a span with
+    repeated slots and padding: inside the envelope, and every row no
+    owner touched bit-unchanged."""
+    st = _state(8)
+    rng = np.random.default_rng(9)
+    S = 120
+    slots = _slots(rng, S)
+    counts = rng.integers(0, 4, S).astype(np.float32)
+    grads = {f: rng.normal(size=(S, D)).astype(np.float32) * 0.05
+             for f in families}
+    want = XlaTransfer().push_span(
+        {f: jnp.asarray(a) for f, a in st.items()}, jnp.asarray(slots),
+        {f: jnp.asarray(g) for f, g in grads.items()}, jnp.asarray(counts),
+        jax_w2v_access(LR, D), mean=mean)
+    tstate = state_from_jax(st, "cpu")
+    SingleTransfer().push_span(tstate, torch.from_numpy(slots),
+                               {f: torch.from_numpy(g)
+                                for f, g in grads.items()},
+                               torch.from_numpy(counts), w2v_access(LR, D),
+                               mean=mean)
+    got = state_to_numpy(tstate)
+    untouched = np.setdiff1d(np.arange(CAP), slots[slots >= 0])
+    for f in st:
+        _envelope(got[f], np.asarray(want[f]))
+        np.testing.assert_array_equal(got[f][untouched], st[f][untouched])
+
+
+@pytest.mark.parametrize("families", [("h",), ("h", "v")])
+def test_sparse_and_span_pushes_update_rows_in_place(monkeypatch,
+                                                     families):
+    """The sparse and span pushes run the row-indexed AdaGrad once per
+    family on the table's own tensors (distinct kept slots), with no
+    row write-back of their own; the dense mean push hands its divisor
+    (one family) or reciprocal (several) to the whole-table apply."""
+    from swiftmpi_tpu_torch.kernels import adagrad
+    from swiftmpi_tpu_torch.parameter import access
+    rows_calls, dense_calls, copies = [], [], []
+    inside = [False]
+    rows_, dense_ = access.adagrad_update_rows_, access.adagrad_update_
+    index_copy = torch.Tensor.index_copy_
+
+    def counting_rows(param, accum, slots, mask, grad, lr, fudge, mul=None):
+        kept = slots if mask is None else slots[mask]
+        assert kept.unique().numel() == kept.numel()      # distinct slots
+        rows_calls.append((param.shape, mask is not None, mul is not None))
+        inside[0] = True
+        try:
+            return rows_(param, accum, slots, mask, grad, lr, fudge,
+                         mul=mul)
+        finally:
+            inside[0] = False
+
+    def counting_dense(param, accum, grad, lr, fudge, mul=None, div=None):
+        dense_calls.append((mul is not None, div is not None))
+        return dense_(param, accum, grad, lr, fudge, mul=mul, div=div)
+
+    def watched_copy(self, *args):
+        if not inside[0]:
+            copies.append(self.shape)
+        return index_copy(self, *args)
+
+    monkeypatch.setattr(access, "adagrad_update_rows_", counting_rows)
+    monkeypatch.setattr(access, "adagrad_update_", counting_dense)
+    monkeypatch.setattr(torch.Tensor, "index_copy_", watched_copy)
+    assert adagrad.adagrad_update_rows_ is rows_
+    rng = np.random.default_rng(10)
+    n = 60                                        # < CAP / 2: sparse
+    slots = torch.from_numpy(_slots(rng, n))
+    grads = {f: torch.from_numpy(rng.normal(size=(n, D)).astype(np.float32))
+             for f in families}
+    tr, acc = SingleTransfer(), w2v_access(LR, D)
+    tstate = state_from_jax(_state(11), "cpu")
+    tr.push(tstate, slots, grads, acc, mean=True)
+    tr.push_span(tstate, slots, grads, torch.ones(n), acc, mean=True)
+    assert dict(tr.push_paths) == {f"{','.join(families)}:sparse": 1,
+                                   f"{','.join(families)}:span": 1}
+    assert rows_calls == [((CAP, D), False, True)] * len(families) \
+        + [((CAP, D), True, True)] * len(families)
+    assert copies == [] and dense_calls == []
+    tr.push(tstate, torch.from_numpy(_slots(rng, 600)),
+            {f: torch.zeros(600, D) for f in families}, acc, mean=True)
+    one = len(families) == 1
+    assert dense_calls == [(not one, one)] * len(families)
+
+
 def test_push_all_padding_is_a_no_op():
     st = _state(4)
     tstate = state_from_jax(st, "cpu")
