@@ -1,4 +1,4 @@
-"""Time the masked gather kernel's forms on the card.
+"""Time the masked gather kernel on the card.
 
     python -m swiftmpi_tpu_torch.apps.gather_sweep
 
@@ -8,19 +8,13 @@ draws from a seed): the one-shard h pull (105,000 target rows of 100 from
 the whole table), the v pull (40,000 context rows), and the owners' h pull
 of the sharded parameter server with 8 ranks on the card (8 x 105,000
 requests, most of them bucket padding, each from its rank's shard of the
-card's block, in one launch).  For every form of the vector body
-(``gather.FORMS``) one JSON line a shape: the median kernel time from CUDA
-events with the L2 flushed before each and the host's enqueue not timed
-(as ``chip_smoke.py`` times it), twice, the forms in turns (1, 2, 3, 3, 2,
-1); the plain version's and one library call's time (``index_select`` of
-the clipped rows); the byte bound; and whether the form is bit-equal to
-the plain version.  The last line sums each form's mean time over the
-shapes.
-
-AdaGrad's float4 and float bodies (``adagrad.VECTOR``) are timed the same
-way at the shapes of its main path: the whole table, the card's block of 8
-shards with the mean's reciprocal, and the row-indexed sparse v push and
-``push_span``.
+card's block, in one launch).  One JSON line a shape: the median kernel
+time from CUDA events with the L2 flushed before each and the host's
+enqueue not timed (as ``chip_smoke.py`` times it), taken before and after
+the plain version's and one library call's (``index_select`` of the
+clipped rows); the byte bound; and whether the kernel is bit-equal to the
+plain version.  The forms that were tried and dropped (a warp a row, and
+a group of rows a warp without the L2 hints) are in PERF.md.
 """
 
 from __future__ import annotations
@@ -35,7 +29,7 @@ from swiftmpi_tpu_torch.apps.w2v_profile import (BATCH, DEMO_CONF,
                                                  TEXT8_CORPUS, card_line)
 from swiftmpi_tpu_torch.data.text import (CBOWBatcher, build_vocab,
                                           synthetic_corpus_bulk)
-from swiftmpi_tpu_torch.kernels import adagrad, gather, ring
+from swiftmpi_tpu_torch.kernels import gather, ring
 from swiftmpi_tpu_torch.models.word2vec import Word2Vec, _cbow_targets
 from swiftmpi_tpu_torch.parameter.sparse_table import shard_block
 from swiftmpi_tpu_torch.utils import ConfigParser
@@ -89,8 +83,7 @@ def _pull_slots(model: Word2Vec, batch, seed: int):
     return h.contiguous(), ctx_slots.reshape(-1).to(torch.int32).contiguous()
 
 
-def _gather_rows(label, table, slots, flush):
-    """Every form on one shape: a JSON row each."""
+def _case(label, table, slots, flush):
     valid = (slots >= 0).contiguous()
     cap, d = table.shape[-2:]
     clipped = slots.clamp(0, cap - 1).long()
@@ -101,73 +94,20 @@ def _gather_rows(label, table, slots, flush):
     nbytes = 4 * d * torch.unique(clipped[valid]).numel() + 5 * n + 4 * n * d
     idx = clipped.reshape(-1).contiguous()
     flat = table.reshape(-1, d)
-    want = gather.masked_gather_plain(table, slots, valid)
-    plain_ms = _median_ms(
+    out = gather.masked_gather(table, slots, valid)
+    row = {"case": label, "rows": n, "width": d, "bit_equal": bool(
+        torch.equal(out, gather.masked_gather_plain(table, slots, valid))),
+        "bound_ms": nbytes / PEAK_BYTES_S * 1e3}
+
+    def kernel():
+        return gather.masked_gather(table, slots, valid, out=out)
+
+    row["ms"] = [_median_ms(kernel, flush)]
+    row["plain_ms"] = _median_ms(
         lambda: gather.masked_gather_plain(table, slots, valid), flush)
-    library_ms = _median_ms(lambda: flat.index_select(0, idx), flush)
-    out = torch.empty_like(want)
-    rows = {}
-    for form in [*gather.FORMS, *reversed(gather.FORMS)]:
-        gather.FORM = form
-        out.fill_(7.0)
-        gather.masked_gather(table, slots, valid, out=out)
-        torch.cuda.synchronize()
-        row = rows.setdefault(form, {
-            "kernel": "masked_gather", "case": label,
-            "form": gather.FORMS[form], "rows": n, "width": d,
-            "bit_equal": True, "ms": [], "plain_ms": plain_ms,
-            "library_ms": library_ms,
-            "bound_ms": nbytes / PEAK_BYTES_S * 1e3})
-        row["bit_equal"] &= bool(torch.equal(out, want))
-        row["ms"].append(_median_ms(lambda: gather.masked_gather(
-            table, slots, valid, out=out), flush))
-    gather.FORM = max(gather.FORMS)
-    return list(rows.values())
-
-
-def _adagrad_rows(label, param, grad, flush, rows=None, **scale):
-    """AdaGrad's float4 and float bodies on one shape, timed in turns
-    (float4, float, float, float4): dense over ``param``, or row-indexed
-    when ``rows`` is ``(slots, mask)``."""
-    accum = torch.rand_like(param).mul_(1e-3)
-
-    def run(p, a):
-        if rows is None:
-            adagrad.adagrad_update_(p, a, grad, 0.7, **scale)
-        else:
-            adagrad.adagrad_update_rows_(p, a, *rows, grad, 0.7, **scale)
-
-    p2, a2 = param.clone(), accum.clone()
-    if rows is None:
-        adagrad.adagrad_update_plain_(p2, a2, grad, 0.7, **scale)
-    else:
-        adagrad.adagrad_update_rows_plain_(p2, a2, *rows, grad, 0.7,
-                                           **scale)
-    out = {}
-    for vector in (True, False, False, True):
-        adagrad.VECTOR = vector
-        p1, a1 = param.clone(), accum.clone()
-        run(p1, a1)
-        torch.cuda.synchronize()
-        form = "float4" if vector else "float"
-        row = out.setdefault(form, {
-            "kernel": "adagrad_update_", "case": label, "form": form,
-            "shape": list(grad.shape), "ms": [], "bit_equal":
-            bool(torch.equal(p1, p2) and torch.equal(a1, a2))})
-        row["ms"].append(_median_ms(lambda: run(p1, a1), flush))
-    adagrad.VECTOR = True
-    return list(out.values())
-
-
-def _owners(span: torch.Tensor) -> torch.Tensor:
-    """``push_span``'s owner rows: the first span position of each slot."""
-    S = span.shape[0]
-    valid = span >= 0
-    safe = torch.where(valid, span, 0).long()
-    pos = torch.arange(S, device=span.device)
-    first = torch.full((int(safe.max()) + 1,), S, device=span.device)
-    first.scatter_reduce_(0, safe, torch.where(valid, pos, S), "amin")
-    return (valid & (first[safe] == pos)).contiguous()
+    row["library_ms"] = _median_ms(lambda: flat.index_select(0, idx), flush)
+    row["ms"].append(_median_ms(kernel, flush))
+    return row
 
 
 def sweep() -> None:
@@ -183,48 +123,17 @@ def sweep() -> None:
     batch = next(iter(CBOWBatcher(corpus[:100], vocab, one.window,
                                   one.sample, seed=2008).epoch(BATCH)))
     h, v = _pull_slots(one, batch, 7)
-    rows = _gather_rows("h pull", one.table.state["h"], h, flush)
-    rows += _gather_rows("v pull", one.table.state["v"], v, flush)
-    table = one.table.state["v"]
-    rows += _adagrad_rows("table", table.clone(),
-                          torch.randn_like(table).mul_(1e-2), flush)
-    # the sparse v push's representatives and push_span's owner rows
-    rep = torch.unique(v[v >= 0])
-    rows += _adagrad_rows(
-        "v rows, row-indexed", table.clone(),
-        torch.randn(rep.numel(), table.shape[1], device="cuda").mul_(1e-2),
-        flush, rows=(rep.to(torch.int32), None),
-        mul=1.0 / torch.randint(1, 9, rep.shape, device="cuda").float())
-    sb = next(iter(CBOWBatcher(corpus[:100], vocab, one.window, one.sample,
-                               seed=2008).epoch_stencil(BATCH)))
-    tokens = torch.as_tensor(sb.tokens, dtype=torch.int64, device="cuda")
-    span = torch.where(torch.as_tensor(sb.sent_id, device="cuda") >= 0,
-                       one._slot_of_vocab[tokens], -1).contiguous()
-    rows += _adagrad_rows(
-        "push_span rows, row-indexed", table.clone(),
-        torch.randn(span.numel(), table.shape[1], device="cuda").mul_(1e-2),
-        flush, rows=(span, _owners(span)),
-        mul=1.0 / torch.randint(1, 9, span.shape, device="cuda").float())
-    del one, table
+    rows = [_case("h pull", one.table.state["h"], h, flush),
+            _case("v pull", one.table.state["v"], v, flush)]
+    del one
     sharded = _model(vocab, 8)
     h, _ = _pull_slots(sharded, batch, 7)
     groups, _, _ = sharded.transfer._route(sharded.table.state, h)
     owners = ring.ring_exchange_stacked(groups[0].req).view(8, -1)
-    block = shard_block(sharded.table.state["h"])
-    rows += _gather_rows("8 owners' h pull, one launch", block, owners,
-                         flush)
-    inv = 1.0 / torch.randint(1, 9, block.shape[:2], device="cuda").float()
-    rows += _adagrad_rows("8 shards, * 1/counts", block.clone(),
-                          torch.randn_like(block).mul_(1e-2), flush,
-                          mul=inv)
+    rows.append(_case("8 owners' h pull, one launch",
+                      shard_block(sharded.table.state["h"]), owners, flush))
     for row in rows:
         print(json.dumps({"card": card, **row}), flush=True)
-    total = {}
-    for row in rows:
-        key = f"{row['kernel']}: {row['form']}"
-        total[key] = total.get(key, 0.0) + float(np.mean(row["ms"]))
-    print(json.dumps({"card": card, "ms_over_the_shapes": total}),
-          flush=True)
 
 
 def main(argv=None) -> int:

@@ -12,9 +12,10 @@ ring       ops/pallas_ring.py ring_exchange            sharded pull/push
 
 Each module holds the kernel's wrapper, its plain PyTorch version
 (``*_plain``) and a ``launches`` counter that the wrapper bumps once per
-kernel launch: the scatter-add's once per card and pushed family (all the
-card's ranks in one launch), the ring's once per card and exchange (one
-send launch and one wait launch).  The wrapper runs the plain version for
+kernel launch.  On the sharded path each launch serves all the ranks of a
+card: the gather's once per pull, the scatter-add's and AdaGrad's once per
+pushed family, the ring's once per exchange (one send launch and one wait
+launch).  The wrapper runs the plain version for
 CPU tensors and launches the kernel for CUDA tensors, with no fallback
 between the two.
 """

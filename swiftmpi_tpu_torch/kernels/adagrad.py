@@ -41,14 +41,11 @@ from swiftmpi_tpu_torch.kernels import build
 #: launches of the CUDA kernel since the last reset
 launches = 0
 
-#: float4 elements where rows allow it (False: floats everywhere)
-VECTOR = True
-
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
              ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_float,
-             ctypes.c_int, ctypes.c_void_p]
+             ctypes.c_void_p]
 
 
 def _scaled(grad, mul, div):
@@ -131,16 +128,14 @@ def _check_table(param, accum):
 def _launch(param, accum, rank_stride, grad, slots, mask, scale, mode, R,
             rows, d, cap, lr, fudge):
     global launches
-    if rows * d >= 2 ** 32:
-        raise ValueError("adagrad_update_: more than 2**32 elements a rank")
-    vec4 = int(VECTOR and d % 4 == 0 and rank_stride % 4 == 0
-               and all(t.data_ptr() % 16 == 0 for t in (param, accum, grad)))
+    if rows * d >= 2 ** 31:
+        raise ValueError("adagrad_update_: more than 2**31 elements a rank")
     fn = build.function("adagrad", "smtpu_adagrad_update_f32", _ARGTYPES)
     rc = fn(param.data_ptr(), accum.data_ptr(), rank_stride,
             grad.data_ptr(), None if slots is None else slots.data_ptr(),
             None if mask is None else mask.data_ptr(),
             None if scale is None else scale.data_ptr(), mode, R, rows, d,
-            cap, float(lr), float(fudge), vec4, build.stream_of(param))
+            cap, float(lr), float(fudge), build.stream_of(param))
     build.check_launch("adagrad_update_", rc)
     launches += 1
 

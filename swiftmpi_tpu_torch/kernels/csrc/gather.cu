@@ -50,37 +50,35 @@ __device__ __forceinline__ float4 ld_evict_last(const float4* p,
   return v;
 }
 
-// A warp a row (the form of PR 1-4), kept for the scalar widths and as
-// the yardstick of the group form.
-template <typename T>
-__global__ void masked_gather_rows(const T* __restrict__ table,
-                                   long long rank_stride,
-                                   const int* __restrict__ slots,
-                                   const uint8_t* __restrict__ valid,
-                                   T* __restrict__ out, long long n, int dv,
-                                   long long cap) {
+// A warp a row, lanes along d: the scalar form, for widths that are no
+// multiple of 4 and for unaligned rows.
+__global__ void masked_gather_scalar(const float* __restrict__ table,
+                                     long long rank_stride,
+                                     const int* __restrict__ slots,
+                                     const uint8_t* __restrict__ valid,
+                                     float* __restrict__ out, long long n,
+                                     int d, long long cap) {
   const int rank = blockIdx.y;
   table += rank * rank_stride;
   slots += rank * n;
   valid += rank * n;
-  out += rank * n * dv;
+  out += rank * n * d;
   const int lane = threadIdx.x & 31;
   const long long stride = (long long)gridDim.x * kWarps;
   for (long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
        row < n; row += stride) {
-    T* dst = out + row * dv;
+    float* dst = out + row * d;
     if (!valid[row]) {
-      for (int c = lane; c < dv; c += 32) dst[c] = T{};
+      for (int c = lane; c < d; c += 32) dst[c] = 0.f;
       continue;
     }
-    const T* src = table + clip_slot(slots[row], cap) * dv;
-    for (int c = lane; c < dv; c += 32) dst[c] = __ldg(src + c);
+    const float* src = table + clip_slot(slots[row], cap) * d;
+    for (int c = lane; c < d; c += 32) dst[c] = __ldg(src + c);
   }
 }
 
-// G rows a warp, every load of a pass issued before its stores.
-// kHint: evict-last loads and streaming stores.
-template <bool kHint>
+// G rows a warp, every load of a pass issued before its stores, loads
+// with an L2 evict-last policy, streaming stores.
 __global__ void masked_gather_group(const float4* __restrict__ table,
                                     long long rank_stride,
                                     const int* __restrict__ slots,
@@ -93,10 +91,9 @@ __global__ void masked_gather_group(const float4* __restrict__ table,
   valid += rank * n;
   out += rank * n * d4;
   const int lane = threadIdx.x & 31;
-  uint64_t policy = 0;
-  if (kHint)
-    asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
-                 : "=l"(policy));
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
+               : "=l"(policy));
   const long long groups = (n + G - 1) / G;
   const long long stride = (long long)gridDim.x * kWarps;
   for (long long grp = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -124,18 +121,13 @@ __global__ void masked_gather_group(const float4* __restrict__ table,
         v[k] = make_float4(0.f, 0.f, 0.f, 0.f);
         if (c < total && ok) {
           const float4* src = table + (long long)row * d4 + (c - j * d4);
-          v[k] = kHint ? ld_evict_last(src, policy) : __ldg(src);
+          v[k] = ld_evict_last(src, policy);
         }
       }
 #pragma unroll
       for (int k = 0; k < kPerLane; ++k) {
         const int c = base + lane + 32 * k;
-        if (c < total) {
-          if (kHint)
-            __stcs(dst + c, v[k]);
-          else
-            dst[c] = v[k];
-        }
+        if (c < total) __stcs(dst + c, v[k]);
       }
     }
   }
@@ -143,49 +135,35 @@ __global__ void masked_gather_group(const float4* __restrict__ table,
 
 }  // namespace
 
-// form: 0 scalar (a warp a row, floats), 1 a warp a row of float4s,
-// 2 G rows a warp, 3 G rows a warp with evict-last loads and streaming
-// stores.  Forms 1-3 need d % 4 == 0 and 16-byte aligned rows.
+// vec4: d % 4 == 0 and every row 16-byte aligned (the group form), else
+// the scalar form.  rank_stride in floats.
 extern "C" int smtpu_masked_gather_f32(const void* table,
                                        long long rank_stride,
                                        const void* slots, const void* valid,
                                        void* out, int ranks, long long n,
-                                       int d, long long cap, int form,
+                                       int d, long long cap, int vec4,
                                        void* stream) {
   if (n <= 0 || ranks <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* sl = static_cast<const int*>(slots);
   const uint8_t* ok = static_cast<const uint8_t*>(valid);
-  long long blocks;
-  if (form >= 2) {
+  if (vec4) {
     const int d4 = d / 4;
     int G = 32 * kPerLane / d4;
     G = G < 1 ? 1 : (G > 32 ? 32 : G);
-    blocks = ((n + G - 1) / G + kWarps - 1) / kWarps;
+    long long blocks = ((n + G - 1) / G + kWarps - 1) / kWarps;
     if (blocks > (1LL << 20)) blocks = 1LL << 20;
-    dim3 grid((unsigned)blocks, (unsigned)ranks);
-    if (form == 3) {
-      masked_gather_group<true><<<grid, kThreads, 0, s>>>(
-          static_cast<const float4*>(table), rank_stride / 4, sl, ok,
-          static_cast<float4*>(out), n, d4, cap, G);
-    } else {
-      masked_gather_group<false><<<grid, kThreads, 0, s>>>(
-          static_cast<const float4*>(table), rank_stride / 4, sl, ok,
-          static_cast<float4*>(out), n, d4, cap, G);
-    }
-    return static_cast<int>(cudaGetLastError());
-  }
-  blocks = (n + kWarps - 1) / kWarps;
-  if (blocks > (1LL << 20)) blocks = 1LL << 20;
-  dim3 grid((unsigned)blocks, (unsigned)ranks);
-  if (form == 1) {
-    masked_gather_rows<float4><<<grid, kThreads, 0, s>>>(
-        static_cast<const float4*>(table), rank_stride / 4, sl, ok,
-        static_cast<float4*>(out), n, d / 4, cap);
+    masked_gather_group<<<dim3((unsigned)blocks, (unsigned)ranks), kThreads,
+                          0, s>>>(static_cast<const float4*>(table),
+                                  rank_stride / 4, sl, ok,
+                                  static_cast<float4*>(out), n, d4, cap, G);
   } else {
-    masked_gather_rows<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(table), rank_stride, sl, ok,
-        static_cast<float*>(out), n, d, cap);
+    long long blocks = (n + kWarps - 1) / kWarps;
+    if (blocks > (1LL << 20)) blocks = 1LL << 20;
+    masked_gather_scalar<<<dim3((unsigned)blocks, (unsigned)ranks), kThreads,
+                           0, s>>>(static_cast<const float*>(table),
+                                   rank_stride, sl, ok,
+                                   static_cast<float*>(out), n, d, cap);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,12 +35,6 @@ from swiftmpi_tpu_torch.kernels import build
 #: launches of the CUDA kernel since the last reset
 launches = 0
 
-#: bodies of the vector form (``apps/gather_sweep.py`` times each)
-FORMS = {1: "a warp a row", 2: "a group of rows a warp",
-         3: "a group of rows a warp, evict-last loads, streaming stores"}
-#: the body the wrapper launches
-FORM = 3
-
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
@@ -118,12 +112,12 @@ def masked_gather(table: torch.Tensor, slots: torch.Tensor,
     R = table.shape[0] if table.dim() == 3 else 1
     rank_stride = table.stride(0) if table.dim() == 3 else 0
     d = table.shape[-1]
-    vec4 = (d % 4 == 0 and rank_stride % 4 == 0
-            and table.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    vec4 = int(d % 4 == 0 and rank_stride % 4 == 0
+               and table.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     fn = build.function("gather", "smtpu_masked_gather_f32", _ARGTYPES)
     rc = fn(table.data_ptr(), rank_stride, slots.data_ptr(),
             valid.data_ptr(), out.data_ptr(), R, slots.shape[-1], d,
-            table.shape[-2], FORM if vec4 else 0, build.stream_of(table))
+            table.shape[-2], vec4, build.stream_of(table))
     build.check_launch("masked_gather", rc)
     launches += 1
     return out

@@ -336,7 +336,7 @@ class ShardedTransfer(Transfer):
                                          cap, counts=take)
                 if take:
                     res, cnt = res
-                    divisor[k] = cnt.clamp(min=1.0)[..., None]
+                    divisor[k] = cnt.clamp(min=1.0)
                 sums[k][f] = res
         for k, g in enumerate(groups):
             dense = sums[k]
@@ -345,10 +345,10 @@ class ShardedTransfer(Transfer):
                 # any grad
                 csum = dense.pop(_COUNTS)
                 if mean:
-                    divisor[k] = csum.clamp(min=1.0)
+                    divisor[k] = csum[..., 0].clamp(min=1.0)
             # the mean multiplies by the reciprocal (JAX tpu.py), inside
             # the AdaGrad launch: one per family over the group's block
-            inv = (1.0 / divisor[k])[..., 0] if mean else None
+            inv = 1.0 / divisor[k] if mean else None
             access.apply_push(
                 {f: self._block(state, f, g)
                  for f in access.touched_fields(dense)}, dense, mul=inv)
