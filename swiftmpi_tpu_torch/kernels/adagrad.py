@@ -8,7 +8,8 @@ Replaces the Pallas kernel ``swiftmpi_tpu/ops/pallas_kernels.py``
 
 in float32, written straight into ``param`` and ``accum`` — the
 counterpart of the TPU kernel's input/output aliasing under the step's
-donated state.  Two forms, both one launch of ``csrc/adagrad.cu``:
+donated state.  Two forms, both one launch of ``csrc/adagrad.cu`` (16-byte
+elements where ``d % 4 == 0`` and rows are aligned):
 
 * :func:`adagrad_update_`, dense: a ``(cap, d)`` table, or the shards of
   the ranks that share a card as one ``(R, cap, d)`` block, with grads of
@@ -45,7 +46,7 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
              ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_float,
-             ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_void_p]
 
 
 def _scaled(grad, mul, div):
@@ -130,12 +131,14 @@ def _launch(param, accum, rank_stride, grad, slots, mask, scale, mode, R,
     global launches
     if rows * d >= 2 ** 31:
         raise ValueError("adagrad_update_: more than 2**31 elements a rank")
+    vec4 = int(d % 4 == 0 and rank_stride % 4 == 0
+               and all(t.data_ptr() % 16 == 0 for t in (param, accum, grad)))
     fn = build.function("adagrad", "smtpu_adagrad_update_f32", _ARGTYPES)
     rc = fn(param.data_ptr(), accum.data_ptr(), rank_stride,
             grad.data_ptr(), None if slots is None else slots.data_ptr(),
             None if mask is None else mask.data_ptr(),
             None if scale is None else scale.data_ptr(), mode, R, rows, d,
-            cap, float(lr), float(fudge), build.stream_of(param))
+            cap, float(lr), float(fudge), vec4, build.stream_of(param))
     build.check_launch("adagrad_update_", rc)
     launches += 1
 

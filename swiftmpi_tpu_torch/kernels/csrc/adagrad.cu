@@ -25,13 +25,12 @@
 // product (the mean's reciprocal) or a quotient (its divisor), fused
 // instead of a separate pass over the grads.
 //
-// Grid-stride over the elements, a thread an element (float4 elements
-// read no faster in sum over the main path's shapes, PERF.md).  Each
-// product, quotient and sum is rounded on its own (__fmul_rn, __fdiv_rn
-// and __fadd_rn keep nvcc from contracting them into FMAs), in the order
-// the plain PyTorch version evaluates them, and rsqrtf is the function
-// torch.rsqrt runs on the card, so every form agrees with the plain
-// version bit for bit on the same card.
+// Grid-stride over float4 chunks where d % 4 == 0 and the rows are 16-byte
+// aligned, else over floats.  Each product, quotient and sum is rounded on
+// its own (__fmul_rn, __fdiv_rn and __fadd_rn keep nvcc from contracting
+// them into FMAs), in the order the plain PyTorch version evaluates them,
+// and rsqrtf is the function torch.rsqrt runs on the card, so every form
+// agrees with the plain version bit for bit on the same card.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -48,69 +47,77 @@ __device__ __forceinline__ void update(float& p, float& a, float g, float s,
   p = __fadd_rn(p, __fmul_rn(__fmul_rn(lr, g), rsqrtf(__fadd_rn(a, fudge))));
 }
 
-// kScale: 0 none, 1 multiply, 2 divide.  slots == nullptr in the dense
-// form.
-template <bool kIndexed, int kScale>
-__global__ void adagrad_update(float* __restrict__ param,
-                               float* __restrict__ accum,
+template <int kScale>
+__device__ __forceinline__ void update(float4& p, float4& a, float4 g,
+                                       float s, float lr, float fudge) {
+  update<kScale>(p.x, a.x, g.x, s, lr, fudge);
+  update<kScale>(p.y, a.y, g.y, s, lr, fudge);
+  update<kScale>(p.z, a.z, g.z, s, lr, fudge);
+  update<kScale>(p.w, a.w, g.w, s, lr, fudge);
+}
+
+// T: float or float4; dv: T's per row.  kScale: 0 none, 1 multiply,
+// 2 divide.  slots == nullptr in the dense form.
+template <typename T, bool kIndexed, int kScale>
+__global__ void adagrad_update(T* __restrict__ param, T* __restrict__ accum,
                                long long rank_stride,
-                               const float* __restrict__ grad,
+                               const T* __restrict__ grad,
                                const int* __restrict__ slots,
                                const uint8_t* __restrict__ mask,
                                const float* __restrict__ scale,
-                               unsigned rows, unsigned d, long long cap,
+                               unsigned rows, unsigned dv, long long cap,
                                float lr, float fudge) {
   const int rank = blockIdx.y;
   param += rank * rank_stride;
   accum += rank * rank_stride;
-  grad += (long long)rank * rows * d;
+  grad += (long long)rank * rows * dv;
   if (kScale) scale += (long long)rank * rows;
-  const unsigned n = rows * d;
+  const unsigned n = rows * dv;
   const unsigned stride = gridDim.x * blockDim.x;
   for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
     unsigned row = 0;
-    if (kIndexed || kScale) row = i / d;
+    if (kIndexed || kScale) row = i / dv;
     long long at = i;
     if constexpr (kIndexed) {
       if (mask != nullptr && !mask[row]) continue;
       const long long s = slots[row];
       if (s < 0 || s >= cap) continue;
-      at = s * d + (i - row * d);
+      at = s * dv + (i - row * dv);
     }
-    float p = param[at];
-    float a = accum[at];
+    T p = param[at];
+    T a = accum[at];
     update<kScale>(p, a, grad[i], kScale ? scale[row] : 1.f, lr, fudge);
     accum[at] = a;
     param[at] = p;
   }
 }
 
-template <bool kIndexed>
+template <typename T, bool kIndexed>
 int launch(void* param, void* accum, long long rank_stride, const void* grad,
            const void* slots, const void* mask, const void* scale,
-           int scale_mode, int ranks, unsigned rows, unsigned d,
+           int scale_mode, int ranks, unsigned rows, unsigned dv,
            long long cap, float lr, float fudge, cudaStream_t s) {
-  long long blocks = ((long long)rows * d + kThreads - 1) / kThreads;
+  long long blocks = ((long long)rows * dv + kThreads - 1) / kThreads;
   // enough blocks to fill 132 SMs several times over; the rest
   // grid-strides
   if (blocks > 132LL * 16) blocks = 132LL * 16;
   dim3 grid((unsigned)blocks, (unsigned)ranks);
-  float* p = static_cast<float*>(param);
-  float* a = static_cast<float*>(accum);
-  const float* g = static_cast<const float*>(grad);
+  T* p = static_cast<T*>(param);
+  T* a = static_cast<T*>(accum);
+  const T* g = static_cast<const T*>(grad);
   const int* sl = static_cast<const int*>(slots);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   const float* sc = static_cast<const float*>(scale);
   if (scale_mode == 1)
-    adagrad_update<kIndexed, 1><<<grid, kThreads, 0, s>>>(
-        p, a, rank_stride, g, sl, m, sc, rows, d, cap, lr, fudge);
+    adagrad_update<T, kIndexed, 1><<<grid, kThreads, 0, s>>>(
+        p, a, rank_stride, g, sl, m, sc, rows, dv, cap, lr, fudge);
   else if (scale_mode == 2)
-    adagrad_update<kIndexed, 2><<<grid, kThreads, 0, s>>>(
-        p, a, rank_stride, g, sl, m, sc, rows, d, cap, lr, fudge);
+    adagrad_update<T, kIndexed, 2><<<grid, kThreads, 0, s>>>(
+        p, a, rank_stride, g, sl, m, sc, rows, dv, cap, lr, fudge);
   else
-    adagrad_update<kIndexed, 0><<<grid, kThreads, 0, s>>>(
-        p, a, rank_stride, g, sl, m, sc, rows, d, cap, lr, fudge);
+    adagrad_update<T, kIndexed, 0><<<grid, kThreads, 0, s>>>(
+        p, a, rank_stride, g, sl, m, sc, rows, dv, cap, lr, fudge);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -121,19 +128,31 @@ int launch(void* param, void* accum, long long rank_stride, const void* grad,
 // (ranks, rows).  Row-indexed form otherwise (ranks must be 1): grad
 // (rows, d), slots (rows,), mask (rows,) or null, scale (rows,) or null;
 // param/accum (cap, d).  scale_mode: 0 none, 1 multiply, 2 divide.
-// rows * d must be below 2**31.
+// vec4: d % 4 == 0 and every row 16-byte aligned.  rows * d must be
+// below 2**31.
 extern "C" int smtpu_adagrad_update_f32(
     void* param, void* accum, long long rank_stride, const void* grad,
     const void* slots, const void* mask, const void* scale, int scale_mode,
     int ranks, long long rows, int d, long long cap, float lr, float fudge,
-    void* stream) {
+    int vec4, void* stream) {
   if (rows <= 0 || d <= 0 || ranks <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return slots != nullptr
-      ? launch<true>(param, accum, rank_stride, grad, slots, mask, scale,
-                     scale_mode, ranks, (unsigned)rows, (unsigned)d, cap, lr,
-                     fudge, s)
-      : launch<false>(param, accum, rank_stride, grad, slots, mask, scale,
-                      scale_mode, ranks, (unsigned)rows, (unsigned)d, cap,
-                      lr, fudge, s);
+  const bool indexed = slots != nullptr;
+  if (vec4) {
+    const unsigned dv = (unsigned)(d / 4);
+    return indexed
+        ? launch<float4, true>(param, accum, rank_stride / 4, grad, slots,
+                               mask, scale, scale_mode, ranks,
+                               (unsigned)rows, dv, cap, lr, fudge, s)
+        : launch<float4, false>(param, accum, rank_stride / 4, grad, slots,
+                                mask, scale, scale_mode, ranks,
+                                (unsigned)rows, dv, cap, lr, fudge, s);
+  }
+  return indexed
+      ? launch<float, true>(param, accum, rank_stride, grad, slots, mask,
+                            scale, scale_mode, ranks, (unsigned)rows,
+                            (unsigned)d, cap, lr, fudge, s)
+      : launch<float, false>(param, accum, rank_stride, grad, slots, mask,
+                             scale, scale_mode, ranks, (unsigned)rows,
+                             (unsigned)d, cap, lr, fudge, s);
 }
