@@ -578,11 +578,11 @@ def phase_kernels_sharded(model: Word2Vec, batch) -> list:
     as an owner with the ``SHARDS * C`` requests it receives (most of them
     padding: every sender pads its bucket to C) — the gather from its
     shard, the scatter-add of its received grads and, alone, of their
-    counts (PR 3's launches), and AdaGrad over the shard; and, as the path
-    now runs them, each in one launch for all ``SHARDS`` owners: the
-    gather of their requests from the card's block of shards, the
-    scatter-add of their received grads with their counts, and AdaGrad
-    over the block with the mean's reciprocal."""
+    counts (the per-rank launches of the first design), and AdaGrad over
+    the shard; and, as the path now runs them, each in one launch for all
+    ``SHARDS`` owners: the gather of their requests from the card's block
+    of shards, the scatter-add of their received grads with their counts,
+    and AdaGrad over the block with the mean's reciprocal."""
     rng = np.random.default_rng(17)
     dev, d = model.device, model.len_vec
     flush = torch.zeros(2 * 50 * 2 ** 20 // 4, device=dev)
