@@ -14,28 +14,37 @@ default), ``stencil`` (``stencil: 1``), ``stencil_shared`` (+
 parameter server (``[cluster] transfer: tpu``, ``server_num: 8``: eight
 logical ranks, each with its own table shard and buffers, all on the one
 card) in the ``gather`` and ``shared`` renderings (``gather@8``,
-``shared@8``).  Phases, each of which raises on a failed check:
+``shared@8``); and with bf16 tables (``[server] dtype: bfloat16``: h and v
+bfloat16, accumulators float32) in ``gather``, ``stencil`` and
+``gather@8`` (``gather:bf16``, ``stencil:bf16``, ``gather@8:bf16``).
+Phases, each of which raises on a failed check:
 
 1. setup: the card's name and power limit; build the CUDA kernels.
 2. kernels: each kernel at the shapes one step of its path gives it —
    the gather path's pulls, push (sums and counts in one launch) and
    AdaGrad calls (over the table with the mean's divisor fused, and
-   row-indexed on the sparse v push's rows), the stencil path's fused
-   stencil gather (a real stencil batch with extra pad centers and a
-   shuffled block of centers), its mostly-padding h push and
-   ``push_span``'s AdaGrad on the span's owner rows, and the sharded
+   row-indexed on the sparse v push's rows), the stencil path's context
+   sum from the stencil batch itself (a real stencil batch with extra pad
+   centers and a shuffled block of centers), its mostly-padding h push
+   and ``push_span``'s AdaGrad on the span's owner rows, and the sharded
    path's ring exchange of its request, row and odd-width buckets
    (stacked, one send and one wait launch), the eight owners' h pull, h
    push with counts and AdaGrad with the mean's reciprocal, each in one
-   launch — against its plain PyTorch version on the card (bit for bit,
-   except B3's float sums), timed with CUDA events (median of 25 launches,
-   L2 flushed between launches, the host's enqueue not timed) beside the
-   plain version and one library call.
+   launch; and the bf16 forms the bf16 paths run (the pulls' bf16 rows,
+   the mixed AdaGrad over the table, the block and the rows, the context
+   sum over a bf16 table, the ring on bf16 row buckets) — against its
+   plain PyTorch version on the card (bit for bit, except B3's float
+   sums), timed with CUDA events (median of 25 launches, L2 flushed
+   between launches, the host's enqueue not timed) beside the plain
+   version and one library call.
 3. step parity: one step on the card and the same step on the CPU from
    the same table and the same negative-sampling draws, for ``gather``,
-   ``stencil`` and ``stencil_shared``; and one sharded ``gather`` step
-   against the sharded CPU step and, row for row by key, against the
-   one-shard ``xla`` step on the card.
+   ``stencil``, ``stencil_shared``, ``gather:bf16`` and ``stencil:bf16``;
+   and one sharded ``gather`` step, float32 and bf16, against the sharded
+   CPU step and, row for row by key, against the one-shard ``xla`` step
+   on the card.  float32 fields within 1e-5 + 1e-3|b|; bf16 fields within
+   one bfloat16 ulp (the card sums some grads in another order, a float32
+   difference that can cross one rounding boundary).
 4. train: ``Word2Vec.train`` over a corpus prefix (>= 20 steps) for each
    rendering, every launch counter set to 0 just before; the run must have
    launched exactly the kernels of its path (the stencil kernel on every
@@ -45,8 +54,9 @@ card) in the ``gather`` and ``shared`` renderings (``gather@8``,
    scatter-add and AdaGrad once per pushed family (each for all the
    card's ranks), overflow nothing and time out no wait.
 5. CLI: ``apps.w2v_main.main`` on a small corpus with the gather conf,
-   with ``stencil: 1`` and with ``transfer: tpu``, ``server_num: 8``; each
-   dump must parse.
+   with ``stencil: 1``, with ``transfer: tpu``, ``server_num: 8`` and with
+   ``[server] dtype: bfloat16``; each dump must parse (the bf16 one into
+   bfloat16 values).
 
 The line before the last is the ``{"kernels": [...]}`` summary, each
 kernel's ``launches`` read from the train run of its path; the last is
@@ -69,9 +79,10 @@ import torch.nn.functional as F
 
 from swiftmpi_tpu_torch import kernels
 from swiftmpi_tpu_torch.apps import w2v_main
+from swiftmpi_tpu_torch.apps.stencil_sweep import (batch_inputs,
+                                                   context_sum_bytes)
 from swiftmpi_tpu_torch.apps.w2v_profile import (BATCH, DEMO_CONF,
                                                  TEXT8_CORPUS, card_line)
-from swiftmpi_tpu_torch.convert import state_from_jax, state_to_numpy
 from swiftmpi_tpu_torch.data.text import (CBOWBatcher, StencilBatch,
                                           build_vocab, load_corpus,
                                           synthetic_corpus,
@@ -81,7 +92,8 @@ from swiftmpi_tpu_torch.kernels import (adagrad, build, gather, ring,
                                         scatter, stencil)
 from swiftmpi_tpu_torch.models.word2vec import (Word2Vec, _cbow_targets,
                                                 _parity_targets, w2v_parser)
-from swiftmpi_tpu_torch.parameter.sparse_table import shard_block
+from swiftmpi_tpu_torch.parameter.sparse_table import (shard_block,
+                                                       split_rows)
 from swiftmpi_tpu_torch.utils import ConfigParser, reset_global_config
 
 ROOT = Path(__file__).resolve().parent
@@ -112,6 +124,11 @@ SHARDED = {
 }
 for _path in SHARDED:
     PATHS[_path] = (PATHS[_path.split("@")[0]][0], set(SHARDED[_path]), 800)
+#: paths run with bf16 tables too (``[server] dtype: bfloat16``), named
+#: ``<path>:bf16``: the kernels of the float32 path, in their bf16 forms
+BF16 = ":bf16"
+for _path in ("gather", "stencil", f"gather@{SHARDS}"):
+    PATHS[_path + BF16] = PATHS[_path]
 MIN_TRAIN_STEPS = 20
 
 #: published H100 SXM peaks (dense): HBM bytes/s and float32 FLOP/s
@@ -128,17 +145,26 @@ def _json_line(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).rsplit(".", 1)[-1]
+
+
 def _model(path: str, vocab, device: str) -> Word2Vec:
     """The model of a path: a rendering, ``@n`` for the sharded parameter
-    server with n ranks."""
-    rendering, _, shards = path.partition("@")
+    server with n ranks, ``:bf16`` for bf16 tables."""
+    base, bf16, _ = path.partition(":")
+    rendering, _, shards = base.partition("@")
     conf = ConfigParser().update(DEMO_CONF)
     for k, v in PATHS[path][0].items():
         conf.set("word2vec", k, v)
     if shards:
         conf.set("cluster", "transfer", "tpu")
         conf.set("cluster", "server_num", int(shards))
+    if bf16:
+        conf.set("server", "dtype", "bfloat16")
     model = Word2Vec(config=conf, device=device)
+    if model.param_dtype != (torch.bfloat16 if bf16 else torch.float32):
+        raise AssertionError(f"{path} conf gave {model.param_dtype} tables")
     if shards and (model.transfer.name != "tpu"
                    or model.cluster.n_servers != int(shards)):
         raise AssertionError(f"{path} conf gave transfer "
@@ -247,16 +273,17 @@ def _gather_case(label, table, slots, valid, flush, path="gather"):
     out_k = gather.masked_gather(table, slots, valid)
     out_p = gather.masked_gather_plain(table, slots, valid)
     torch.cuda.synchronize()
-    err = (out_k - out_p).abs().max().item()
+    err = (out_k.float() - out_p.float()).abs().max().item()
     if not torch.equal(out_k, out_p):
         raise AssertionError(f"{label}: kernel != plain (max |err| {err})")
     n, (cap, d) = slots.numel(), table.shape[-2:]
+    es = table.element_size()
     clipped = slots.clamp(0, cap - 1).long()
     if table.dim() == 3:
         clipped = clipped + torch.arange(
             table.shape[0], device=slots.device)[:, None] * cap
     rows_read = torch.unique(clipped[valid]).numel()
-    nbytes = 4 * d * rows_read + 5 * n + 4 * n * d
+    nbytes = es * d * rows_read + 5 * n + es * n * d
     idx64 = clipped.reshape(-1).contiguous()
     flat = table.reshape(-1, d)
     rows = f"{slots.shape[0]} x {slots.shape[1]}" if slots.dim() == 2 \
@@ -266,7 +293,8 @@ def _gather_case(label, table, slots, valid, flush, path="gather"):
         source="swiftmpi_tpu_torch/kernels/csrc/gather.cu",
         replaces="swiftmpi_tpu/ops/pallas_gather.py:164",
         module=gather, shape=f"{rows} rows x {d} of a {tuple(table.shape)} "
-        f"f32 table, {int((~valid).sum())} invalid, one launch",
+        f"{_dtype_name(table)} table, {int((~valid).sum())} invalid, one "
+        f"launch",
         max_abs_err=err, tolerance="exact",
         ms=_time_ms(lambda: gather.masked_gather(table, slots, valid),
                     flush),
@@ -341,7 +369,7 @@ def _adagrad_case(label, path, param, accum, grad, lr, flush, rows=None,
         def plain(p, a):
             adagrad.adagrad_update_plain_(p, a, grad, lr, **scale)
         kept = param.numel() // param.shape[-1]
-        what = f"{tuple(param.shape)} f32"
+        what = f"{tuple(param.shape)} {_dtype_name(param)}"
     else:
         slots, mask = rows
 
@@ -355,25 +383,30 @@ def _adagrad_case(label, path, param, accum, grad, lr, flush, rows=None,
         keep = (slots >= 0) & (slots < param.shape[0])
         kept = int((keep if mask is None else keep & mask).sum())
         what = (f"{kept} of {slots.shape[0]} rows x {param.shape[1]} "
-                f"indexed into a {tuple(param.shape)} f32 table")
+                f"indexed into a {tuple(param.shape)} {_dtype_name(param)} "
+                f"table")
     p1, a1, p2, a2 = (t.clone() for t in (param, accum, param, accum))
     kernel(p1, a1)
     plain(p2, a2)
     torch.cuda.synchronize()
-    err = max((p1 - p2).abs().max().item(), (a1 - a2).abs().max().item())
+    err = max((p1.float() - p2.float()).abs().max().item(),
+              (a1 - a2).abs().max().item())
     if not (torch.equal(p1, p2) and torch.equal(a1, a2)):
         raise AssertionError(f"adagrad_update_ ({label}): kernel != plain "
                              f"(max |err| {err})")
     # every kept element: param, accum and grad read, param and accum
-    # written; per row: the scale, and the slot and mask of an indexed row
+    # written (the param in its own dtype); per row: the scale, and the
+    # slot and mask of an indexed row
     d, n_rows = param.shape[-1], grad.numel() // param.shape[-1]
     per_row = 4 * len(scale)
     if rows is not None:
         per_row += 4 + (rows[1] is not None)
-    nbytes = 20 * kept * d + per_row * n_rows
+    nbytes = (2 * param.element_size() + 12) * kept * d + per_row * n_rows
     pk, ak, pp, ap = (t.clone() for t in (param, accum, param, accum))
     op = (f", grad {'* mul' if 'mul' in scale else '/ div'} per row"
           if scale else "")
+    if param.dtype == torch.bfloat16:
+        op += ", float32 accum and grad (the mixed form)"
     return dict(
         name=f"adagrad_update_ ({label})", route="cuda", path=path,
         source="swiftmpi_tpu_torch/kernels/csrc/adagrad.cu",
@@ -400,74 +433,73 @@ def _span_owners(span_slots: torch.Tensor) -> torch.Tensor:
 
 def _stencil_inputs(model: Word2Vec, sb: StencilBatch,
                     rng: np.random.Generator):
-    """``(span_slots, lo, wmask, n_real)`` of a real stencil batch, made
-    harder: 64 more centers padded and a block of 256 real centers
-    shuffled out of span order, so neighbouring centers reach span ranges
-    far apart."""
-    dev = model.device
+    """``(span_slots, sent_id, center_pos, half)`` of a real stencil batch
+    as the step hands them to the context sum, made harder: 64 more
+    centers padded and a block of 256 real centers shuffled out of span
+    order, so neighbouring centers reach span ranges far apart."""
     cpos, half = sb.center_pos.copy(), sb.half.copy()
     n = sb.n_words
     drop = rng.choice(n, 64, replace=False)
     cpos[drop], half[drop] = -1, 0
     blk = rng.permutation(min(256, n))
     cpos[:len(blk)], half[:len(blk)] = cpos[blk], half[blk]
-    tokens = torch.as_tensor(sb.tokens, dtype=torch.int64, device=dev)
-    sent_id = torch.as_tensor(sb.sent_id, device=dev)
-    span_slots = torch.where(sent_id >= 0, model._slot_of_vocab[tokens],
-                             -1).contiguous()
-    lo, wmask = stencil.stencil_window_inputs(
-        sent_id, torch.as_tensor(cpos, device=dev),
-        torch.as_tensor(half, device=dev), model.window)
-    return span_slots, lo, wmask, int((cpos >= 0).sum())
+    return batch_inputs(model, StencilBatch(
+        tokens=sb.tokens, sent_id=sb.sent_id, center_pos=cpos, half=half,
+        n_words=int((cpos >= 0).sum())))
 
 
-def _stencil_case(table, slots, lo, wmask, n_real, flush):
-    out_k = stencil.fused_stencil_gather(table, slots, lo, wmask)
-    out_p = stencil.fused_stencil_gather_plain(table, slots, lo, wmask)
+def _stencil_case(label, path, table, args, window, flush):
+    """B4 from the stencil batch itself (``args``: span slots, sent_id,
+    center_pos, half) on a float32 or bf16 table, bit for bit against its
+    plain version (the window inputs, then the k-order sum)."""
+    out_k = stencil.stencil_context_sum(table, *args, window)
+    out_p = stencil.stencil_context_sum_plain(table, *args, window)
     torch.cuda.synchronize()
     err = (out_k - out_p).abs().max().item()
     if not torch.equal(out_k, out_p):
-        raise AssertionError(f"fused_stencil_gather: kernel != plain (max "
-                             f"|err| {err})")
-    (B, K), (cap, d), S = wmask.shape, table.shape, slots.shape[0]
-    pos = lo.long()[:, None] + torch.arange(K, device=lo.device)
-    src = slots.long().clamp(0, cap - 1)[pos]
+        raise AssertionError(f"stencil_context_sum ({label}): kernel != "
+                             f"plain (max |err| {err})")
+    nbytes, rows_read, src, wmask = context_sum_bytes(table, *args, window)
+    (B, K), (cap, d), S = wmask.shape, table.shape, args[0].shape[0]
     on = wmask != 0
-    rows_read = torch.unique(src[on]).numel()
-    nbytes = 4 * d * rows_read + 4 * B * d + 4 * B * K + 4 * B + 4 * S
+    wm_t = wmask.to(table.dtype)          # 0 and 1: exact in either dtype
     lib_out = F.embedding_bag(src, table, mode="sum",
-                              per_sample_weights=wmask)
-    lib_err = (lib_out - out_p).abs().max().item()
+                              per_sample_weights=wm_t)
+    lib_err = (lib_out.float() - out_p).abs().max().item()
+    n_real = int((args[2] >= 0).sum())
     return dict(
-        name="fused_stencil_gather (v span)", route="cuda", path="stencil",
+        name=f"stencil_context_sum ({label})", route="cuda", path=path,
         source="swiftmpi_tpu_torch/kernels/csrc/stencil.cu",
         replaces="swiftmpi_tpu/ops/pallas_stencil.py:126",
         module=stencil, shape=f"{B} centers ({n_real} real) x window {K} "
-        f"over a {S}-row span of a {tuple(table.shape)} f32 table, "
-        f"{rows_read} distinct rows reached",
+        f"over a {S}-row span of a {tuple(table.shape)} "
+        f"{_dtype_name(table)} table, {rows_read} distinct rows reached, "
+        f"from the batch's arrays, one launch",
         max_abs_err=err, tolerance="exact",
-        ms=_time_ms(lambda: stencil.fused_stencil_gather(
-            table, slots, lo, wmask), flush),
-        plain_ms=_time_ms(lambda: stencil.fused_stencil_gather_plain(
-            table, slots, lo, wmask), flush),
+        ms=_time_ms(lambda: stencil.stencil_context_sum(table, *args,
+                                                        window), flush),
+        plain_ms=_time_ms(lambda: stencil.stencil_context_sum_plain(
+            table, *args, window), flush),
         library_ms=_time_ms(lambda: F.embedding_bag(
-            src, table, mode="sum", per_sample_weights=wmask), flush),
-        library=f"F.embedding_bag(mode='sum', per_sample_weights) "
-        f"(max |diff| {lib_err:.3g})",
-        bytes=nbytes, flops=2 * int(on.sum()) * d)
+            src, table, mode="sum", per_sample_weights=wm_t), flush),
+        library=f"F.embedding_bag(mode='sum', per_sample_weights) over the "
+        f"window rows (inputs made beforehand; max |diff| {lib_err:.3g})",
+        bytes=nbytes, flops=int(on.sum()) * d)
 
 
-def _ring_case(label, tail, dtype, rng, flush, dev):
+def _ring_case(label, tail, dtype, rng, flush, dev,
+               path=f"gather@{SHARDS}"):
     """The ring exchange of ``SHARDS`` ranks' ``(SHARDS, *tail)`` operands,
     stacked as the transfer hands them over, against its plain version: a
-    copy, so bit for bit; one send launch and one wait launch."""
+    copy, so bit for bit; one send launch and one wait launch.  bf16
+    operands cross as 4-byte words."""
     n = SHARDS
     if dtype == torch.int32:
         x = torch.as_tensor(rng.integers(-1, 11_000, (n, n, *tail))
                             .astype(np.int32), device=dev)
     else:
         x = torch.as_tensor(rng.random((n, n, *tail), np.float32) - 0.5,
-                            device=dev)
+                            device=dev).to(dtype)
     before = ring.launches
     out_k = ring.ring_exchange_stacked(x)
     launched = ring.launches - before
@@ -488,13 +520,11 @@ def _ring_case(label, tail, dtype, rng, flush, dev):
     del out_k, out_p
     nbytes = 2 * x.numel() * x.element_size()
     return dict(
-        name=f"ring_exchange ({label})", route="cuda",
-        path=f"gather@{SHARDS}",
+        name=f"ring_exchange ({label})", route="cuda", path=path,
         source="swiftmpi_tpu_torch/kernels/csrc/ring.cu",
         replaces="swiftmpi_tpu/ops/pallas_ring.py:86",
         module=ring, shape=f"{n} ranks x {(n, *tail)} "
-        f"{str(dtype).rsplit('.', 1)[-1]}, stacked; 1 send launch + 1 wait "
-        f"launch",
+        f"{_dtype_name(x)}, stacked; 1 send launch + 1 wait launch",
         max_abs_err=err, tolerance="exact",
         ms=_time_ms(lambda: ring.ring_exchange_stacked(x), flush),
         plain_ms=_time_ms(lambda: ring.ring_exchange_stacked_plain(x), flush),
@@ -551,9 +581,10 @@ def phase_kernels(model: Word2Vec, batch, sbatch: StencilBatch) -> list:
         "v rows, row-indexed", "gather", state["v"], accum,
         grads_like((rows.numel(), d)), lr, flush,
         rows=(rows.to(torch.int32), None), mul=inv))
-    span_slots, lo, wmask, n_real = _stencil_inputs(model, sbatch, rng)
-    cases.append(_stencil_case(state["v"], span_slots, lo, wmask, n_real,
-                               flush))
+    sargs = _stencil_inputs(model, sbatch, rng)
+    span_slots = sargs[0]
+    cases.append(_stencil_case("v span", "stencil", state["v"], sargs,
+                               model.window, flush))
     # push_span's apply: the S span rows gathered at their owners' slots
     span_rows = span_slots.clamp(min=0).long()
     cases.append(_adagrad_case(
@@ -565,10 +596,31 @@ def phase_kernels(model: Word2Vec, batch, sbatch: StencilBatch) -> list:
     S = span_slots.shape[0]
     inv = 1.0 / torch.as_tensor(rng.integers(1, 9, S).astype(np.float32),
                                 device=model.device)
+    owners = _span_owners(span_slots)
     cases.append(_adagrad_case(
         "push_span rows, row-indexed", "stencil", state["v"], accum,
-        grads_like((S, d)), lr, flush,
-        rows=(span_slots, _span_owners(span_slots)), mul=inv))
+        grads_like((S, d)), lr, flush, rows=(span_slots, owners), mul=inv))
+    # bf16 tables: the same calls on bf16 h and v, float32 accumulators
+    # and grads, as the bf16 gather and stencil paths make them
+    hb, vb = state["h"].to(torch.bfloat16), state["v"].to(torch.bfloat16)
+    gb, sb16 = "gather" + BF16, "stencil" + BF16
+    cases.append(_gather_case("h pull, bf16", hb, hs, hv, flush, gb))
+    cases.append(_gather_case("v pull, bf16", vb, vs, vv, flush, gb))
+    cases.append(_adagrad_case("h table, bf16, / counts", gb, hb, accum,
+                               grads_like((cap, d)), lr, flush, div=counts))
+    inv = 1.0 / torch.as_tensor(rng.integers(1, 9, rows.numel())
+                                .astype(np.float32), device=model.device)
+    cases.append(_adagrad_case(
+        "v rows, row-indexed, bf16", gb, vb, accum,
+        grads_like((rows.numel(), d)), lr, flush,
+        rows=(rows.to(torch.int32), None), mul=inv))
+    cases.append(_stencil_case("bf16 v span", sb16, vb, sargs, model.window,
+                               flush))
+    inv = 1.0 / torch.as_tensor(rng.integers(1, 9, S).astype(np.float32),
+                                device=model.device)
+    cases.append(_adagrad_case(
+        "push_span rows, row-indexed, bf16", sb16, vb, accum,
+        grads_like((S, d)), lr, flush, rows=(span_slots, owners), mul=inv))
     return cases
 
 
@@ -631,6 +683,17 @@ def phase_kernels_sharded(model: Word2Vec, batch) -> list:
     cases.append(_adagrad_case(f"{SHARDS} shards, * 1/counts", path,
                                block.clone(), accum8, grad8,
                                model.access.learning_rate, flush, mul=inv8))
+    # bf16 tables: the owners' pull from a bf16 block, the pulled rows'
+    # exchange as 4-byte words, the mixed AdaGrad over the block
+    pb = path + BF16
+    blockb = block.to(torch.bfloat16)
+    cases.append(_ring_case("h rows, bf16", (C, d), torch.bfloat16, rng,
+                            flush, dev, path=pb))
+    cases.append(_gather_case(f"{SHARDS} owners' h pull, bf16", blockb,
+                              owners, (owners >= 0).contiguous(), flush, pb))
+    cases.append(_adagrad_case(f"{SHARDS} shards, * 1/counts, bf16", pb,
+                               blockb, accum8, grad8,
+                               model.access.learning_rate, flush, mul=inv8))
     return cases
 
 
@@ -648,15 +711,57 @@ def report_cases(cases: list) -> None:
 
 # -- phase 3: one step on the card against the same step on the CPU ---------
 
-def phase_step_parity(rendering: str, vocab, batch) -> None:
+def _cpu_state(state, cpu_model: Word2Vec):
+    """A copy of a card table for ``cpu_model``: tensor by tensor (bf16
+    bits unchanged), a sharded table's shards dealt as the CPU model deals
+    them."""
+    mesh = cpu_model.cluster.mesh
+    return {f: (split_rows(torch.cat(v).cpu(), mesh)
+                if isinstance(v, list) else v.cpu().clone())
+            for f, v in state.items()}
+
+
+def _global(v) -> torch.Tensor:
+    """A field's global-row-order tensor on the CPU, either layout."""
+    return torch.cat(v).cpu() if isinstance(v, list) else v.cpu()
+
+
+def _ordinal(t: torch.Tensor) -> torch.Tensor:
+    """bfloat16 values as integers in the order of the reals: adjacent
+    representable values differ by 1, +0 and -0 are both 0."""
+    bits = t.contiguous().view(torch.int16).long() & 0xFFFF
+    mag = bits & 0x7FFF
+    return torch.where(bits >= 0x8000, -mag, mag)
+
+
+def _field_gap(what: str, got: torch.Tensor, want: torch.Tensor) -> dict:
+    """float32 fields within 1e-5 + 1e-3|b|; bf16 fields within one
+    bfloat16 ulp.  Returns the gap and, for bf16, the bit-equal share."""
+    if got.dtype == torch.bfloat16:
+        ulps = (_ordinal(got) - _ordinal(want)).abs()
+        worst = int(ulps.max())
+        if worst > 1:
+            raise AssertionError(f"{what} is {worst} bf16 ulps off "
+                                 f"({int((ulps > 1).sum())} elements)")
+        return {"max_ulps": worst,
+                "bit_equal_share": float((ulps == 0).float().mean())}
+    gap = (got - want).abs()
+    limit = 1e-5 + 1e-3 * want.abs()
+    if not bool((gap <= limit).all()):
+        raise AssertionError(
+            f"{what} leaves |a-b| <= 1e-5 + 1e-3|b| (max gap "
+            f"{gap.max().item()}, {int((gap > limit).sum())} elements)")
+    return {"max_abs_gap": gap.max().item()}
+
+
+def phase_step_parity(path: str, vocab, batch) -> None:
     """``batch``: a CBOW batch for the gather renderings, a stencil batch
     for the stencil ones."""
-    model = _model(rendering, vocab, "cuda")
-    cpu_model = _model(rendering, vocab, "cpu")
+    model = _model(path, vocab, "cuda")
+    cpu_model = _model(path, vocab, "cpu")
     B = len(batch)
     draws = _draws(model, B, np.random.default_rng(11))
-    cpu_model.table.state = state_from_jax(state_to_numpy(model.table.state),
-                                           "cpu")
+    cpu_model.table.state = _cpu_state(model.table.state, cpu_model)
     kernels.reset_launches()
     es_c, ec_c = model.step_batch(batch, draws=draws)
     es_p, ec_p = cpu_model.step_batch(
@@ -664,70 +769,49 @@ def phase_step_parity(rendering: str, vocab, batch) -> None:
     counts = kernels.launch_counts()
     if model.shared_negatives:
         if not math.isclose(ec_c, ec_p, rel_tol=1e-6):
-            raise AssertionError(f"{rendering} err_cnt: card {ec_c} != cpu "
+            raise AssertionError(f"{path} err_cnt: card {ec_c} != cpu "
                                  f"{ec_p} (rel 1e-6)")
     elif ec_c != ec_p:
-        raise AssertionError(f"{rendering} err_cnt: card {ec_c} != cpu "
-                             f"{ec_p}")
+        raise AssertionError(f"{path} err_cnt: card {ec_c} != cpu {ec_p}")
     if not math.isclose(es_c, es_p, rel_tol=1e-4):
-        raise AssertionError(f"{rendering} err_sum: card {es_c} != cpu "
-                             f"{es_p}")
-    card, cpu = state_to_numpy(model.table.state), \
-        state_to_numpy(cpu_model.table.state)
-    worst = {}
-    for f in cpu:
-        gap = np.abs(card[f] - cpu[f])
-        limit = 1e-5 + 1e-3 * np.abs(cpu[f])
-        if not (gap <= limit).all():
-            raise AssertionError(
-                f"{rendering} step parity: field {f} leaves |a-b| <= 1e-5 + "
-                f"1e-3|b| (max gap {gap.max()}, {(gap > limit).sum()} "
-                f"elements)")
-        worst[f] = float(gap.max())
+        raise AssertionError(f"{path} err_sum: card {es_c} != cpu {es_p}")
+    worst = {f: _field_gap(f"{path} step parity: field {f}",
+                           _global(v), _global(cpu_model.table.state[f]))
+             for f, v in model.table.state.items()}
     if model.stencil and counts["stencil"] != 1:
-        raise AssertionError(f"{rendering} step launched the stencil kernel "
+        raise AssertionError(f"{path} step launched the stencil kernel "
                              f"{counts['stencil']} times")
-    _json_line({"phase": "step_parity", "rendering": rendering,
+    _json_line({"phase": "step_parity", "rendering": path,
                 "centers": B, "real_centers": batch.n_words,
                 "err_sum": [es_c, es_p], "err_cnt": [ec_c, ec_p],
-                "max_abs_gap": worst, "envelope": "1e-5 + 1e-3*|cpu|",
-                "push_paths": dict(model.transfer.push_paths),
+                "gap": worst, "envelope": "1e-5 + 1e-3*|cpu|; bf16 fields "
+                "one ulp", "push_paths": dict(model.transfer.push_paths),
                 "launches": counts})
 
 
-def _within_envelope(what, got, want) -> float:
-    gap = np.abs(got - want)
-    limit = 1e-5 + 1e-3 * np.abs(want)
-    if not (gap <= limit).all():
-        raise AssertionError(
-            f"{what} leaves |a-b| <= 1e-5 + 1e-3|b| (max gap {gap.max()}, "
-            f"{(gap > limit).sum()} elements)")
-    return float(gap.max())
-
-
-def phase_step_parity_sharded(vocab, batch) -> None:
+def phase_step_parity_sharded(vocab, batch, dtype: str = "") -> None:
     """One ``gather`` step of the sharded parameter server on the card,
-    against the same sharded step on the CPU (whole tables, inside the
-    envelope, ``err_cnt`` exact) and against the one-shard ``xla`` step on
-    the card, row for row by key: the two lay the same words out in
-    different slots."""
-    path = f"gather@{SHARDS}"
+    against the same sharded step on the CPU (whole tables, float32
+    fields inside the envelope, bf16 fields within one ulp, ``err_cnt``
+    exact) and against the one-shard ``xla`` step on the card, row for row
+    by key: the two lay the same words out in different slots.
+    ``dtype``: ``""`` or ``BF16``."""
+    path = f"gather@{SHARDS}{dtype}"
     model = _model(path, vocab, "cuda")
     cpu_model = _model(path, vocab, "cpu")
-    single = _model("gather", vocab, "cuda")
+    single = _model("gather" + dtype, vocab, "cuda")
     B = len(batch)
     draws = _draws(model, B, np.random.default_rng(11))
     # every word starts from the row the one-shard model gives it
-    rows_single = state_to_numpy(single.table.state)
-    at_single = single._slot_of_vocab.cpu().numpy()
-    at_sharded = model._slot_of_vocab.cpu().numpy()
-    start = state_to_numpy(model.table.state)
+    at_single = single._slot_of_vocab.long().cpu()
+    at_sharded = model._slot_of_vocab.long().cpu()
+    start = {f: _global(v) for f, v in model.table.state.items()}
     for f in start:
-        start[f][at_sharded] = rows_single[f][at_single]
-    model.table.state = state_from_jax(start, "cuda",
-                                       mesh=model.cluster.mesh)
-    cpu_model.table.state = state_from_jax(start, "cpu",
-                                           mesh=cpu_model.cluster.mesh)
+        start[f][at_sharded] = single.table.state[f].cpu()[at_single]
+    model.table.state = {f: split_rows(t, model.cluster.mesh)
+                         for f, t in start.items()}
+    cpu_model.table.state = {f: split_rows(t, cpu_model.cluster.mesh)
+                             for f, t in start.items()}
     kernels.reset_launches()
     es_c, ec_c = model.step_batch(batch, draws=draws)
     counts = kernels.launch_counts()
@@ -741,18 +825,18 @@ def phase_step_parity_sharded(vocab, batch) -> None:
             and math.isclose(es_c, es_s, rel_tol=1e-4)):
         raise AssertionError(f"{path} err_sum: card {es_c}, cpu {es_p}, "
                              f"one shard {es_s}")
-    card, cpu, one = (state_to_numpy(m.table.state)
+    card, cpu, one = ({f: _global(v) for f, v in m.table.state.items()}
                       for m in (model, cpu_model, single))
-    worst_cpu = {f: _within_envelope(f"{path} vs the CPU step, field {f},",
-                                     card[f], cpu[f]) for f in cpu}
-    worst_one = {f: _within_envelope(
+    worst_cpu = {f: _field_gap(f"{path} vs the CPU step, field {f},",
+                               card[f], cpu[f]) for f in cpu}
+    worst_one = {f: _field_gap(
         f"{path} vs the one-shard step by key, field {f},",
         card[f][at_sharded], one[f][at_single]) for f in one}
     moved = int((card["h"][at_sharded] != start["h"][at_sharded])
-                .any(axis=1).sum())
+                .any(dim=1).sum())
     if not moved:
         raise AssertionError(f"{path}: the step moved no row")
-    want = dict(SHARDED[path], stencil=0)
+    want = dict(SHARDED[f"gather@{SHARDS}"], stencil=0)
     if counts != want:
         raise AssertionError(f"{path} step launched {counts}, its path is "
                              f"{want}")
@@ -763,9 +847,10 @@ def phase_step_parity_sharded(vocab, batch) -> None:
     _json_line({"phase": "step_parity", "rendering": path, "centers": B,
                 "real_centers": batch.n_words,
                 "err_sum": [es_c, es_p, es_s], "err_cnt": [ec_c, ec_p, ec_s],
-                "max_abs_gap_vs_cpu": worst_cpu,
-                "max_abs_gap_vs_one_shard_by_key": worst_one,
-                "rows_moved": moved, "envelope": "1e-5 + 1e-3*|b|",
+                "gap_vs_cpu": worst_cpu,
+                "gap_vs_one_shard_by_key": worst_one,
+                "rows_moved": moved, "envelope": "1e-5 + 1e-3*|b|; bf16 "
+                "fields one ulp",
                 "shard_fill": model.table.key_index.shard_fill().tolist(),
                 "push_paths": dict(model.transfer.push_paths),
                 "launches": counts})
@@ -775,8 +860,10 @@ def phase_step_parity_sharded(vocab, batch) -> None:
 
 def phase_train(rendering: str, vocab, corpus: np.ndarray,
                 card: str) -> dict:
+    """``rendering``: a path of ``PATHS``."""
     model = _model(rendering, vocab, "cuda")
     expect, n_sent = PATHS[rendering][1], PATHS[rendering][2]
+    sharded = rendering.split(":")[0]
     batcher = CBOWBatcher(corpus[:n_sent], vocab, model.window, model.sample,
                           seed=2008)
     kernels.reset_launches()
@@ -798,15 +885,15 @@ def phase_train(rendering: str, vocab, corpus: np.ndarray,
         raise AssertionError(f"{rendering}: {counts['stencil']} stencil "
                              f"launches in {m['steps']} steps, push paths "
                              f"{m['push_paths']}")
-    extra = {}
-    if rendering in SHARDED:
+    extra = {"dtype": _dtype_name(_global(model.table.state["h"]))}
+    if sharded in SHARDED:
         # every step: one send and one wait launch for every exchange, one
         # gather per pull, one scatter-add and one AdaGrad per pushed
         # family
-        want = {k: v * m["steps"] for k, v in SHARDED[rendering].items()}
+        want = {k: v * m["steps"] for k, v in SHARDED[sharded].items()}
         got = {k: counts[k] for k in want}
-        extra = {"overflow_count": model.transfer.overflow_count(),
-                 "wait_timeouts": ring.timeouts(), "shards": m["shards"]}
+        extra.update(overflow_count=model.transfer.overflow_count(),
+                     wait_timeouts=ring.timeouts(), shards=m["shards"])
         if got != want or extra["overflow_count"] or extra["wait_timeouts"] \
                 or any(not k.endswith(":routed") for k in m["push_paths"]):
             raise AssertionError(
@@ -826,7 +913,8 @@ def phase_train(rendering: str, vocab, corpus: np.ndarray,
 # -- phase 5: the CLI --------------------------------------------------------
 
 def phase_cli(extra: str, expect: set, cluster: str = "server_num: 1\n"
-              "transfer: xla\n") -> None:
+              "transfer: xla\n", server: str = "") -> None:
+    """``extra``: [word2vec] lines; ``server``: more [server] lines."""
     if WORK.exists():
         shutil.rmtree(WORK)
     WORK.mkdir(parents=True)
@@ -835,7 +923,7 @@ def phase_cli(extra: str, expect: set, cluster: str = "server_num: 1\n"
     write_tokens_file(synthetic_corpus(200, 500, 20, seed=1), str(data))
     conf.write_text("[cluster]\n" + cluster +
                     "[worker]\nminibatch: 512\n"
-                    "[server]\ninitial_learning_rate: 0.7\n"
+                    "[server]\ninitial_learning_rate: 0.7\n" + server +
                     "[word2vec]\nlen_vec: 100\nwindow: 4\nnegative: 20\n"
                     "sample: 0.001\nlearning_rate: 0.05\n" + extra)
     reset_global_config()
@@ -854,6 +942,11 @@ def phase_cli(extra: str, expect: set, cluster: str = "server_num: 1\n"
                 or not (np.isfinite(row["v"]).all()
                         and np.isfinite(row["h"]).all()):
             raise AssertionError(f"bad dump row for key {key}")
+        if server and not all(torch.equal(
+                torch.from_numpy(r).to(torch.bfloat16).float(),
+                torch.from_numpy(r)) for r in (row["v"], row["h"])):
+            raise AssertionError(f"dump row for key {key} holds values "
+                                 f"that are not bf16")
         keys.add(int(key))
     if keys != set(vocab.keys.tolist()):
         raise AssertionError(f"dump has {len(keys)} keys, vocab "
@@ -866,6 +959,7 @@ def phase_cli(extra: str, expect: set, cluster: str = "server_num: 1\n"
                              f"{sorted(expect)}")
     _json_line({"phase": "cli", "conf": extra.strip() or "gather",
                 "cluster": " ".join(cluster.split()),
+                "server": " ".join(server.split()),
                 "rows": len(keys), "launches": counts})
     shutil.rmtree(WORK)
 
@@ -913,11 +1007,15 @@ def main() -> int:
     phase_step_parity("stencil", vocab, sbatch)
     phase_step_parity("stencil_shared", vocab, sbatch)
     phase_step_parity_sharded(vocab, batch)
+    phase_step_parity("gather" + BF16, vocab, batch)
+    phase_step_parity("stencil" + BF16, vocab, sbatch)
+    phase_step_parity_sharded(vocab, batch, BF16)
     counts = {r: phase_train(r, vocab, corpus, card) for r in PATHS}
     phase_cli("", PATHS["gather"][1])
     phase_cli("stencil: 1\n", PATHS["stencil"][1])
     phase_cli("", PATHS[f"gather@{SHARDS}"][1],
               cluster=f"server_num: {SHARDS}\ntransfer: tpu\n")
+    phase_cli("", PATHS["gather" + BF16][1], server="dtype: bfloat16\n")
 
     summary = []
     for c in cases:

@@ -3,14 +3,15 @@ the full width of the reference configuration (demo.conf on the
 text8-shaped synthetic corpus, the configuration ``chip_smoke.py`` runs).
 
     python -m swiftmpi_tpu_torch.apps.w2v_profile [-steps 40] \\
-        [-stencil 1] [-shared 1] [-shards 8] \\
+        [-stencil 1] [-shared 1] [-shards 8] [-dtype bfloat16] \\
         [-trace build/w2v_step_trace.json]
 
 ``-stencil 1`` / ``-shared 1`` set ``[word2vec] stencil`` /
 ``shared_negatives`` (the ``stencil``, ``shared`` and ``stencil_shared``
 renderings); the default is the gather rendering.  ``-shards n`` runs the
 sharded parameter server (``[cluster] transfer: tpu``, ``server_num: n``)
-with its n ranks on the one card.
+with its n ranks on the one card.  ``-dtype bfloat16`` sets ``[server]
+dtype`` (bfloat16 h and v, float32 accumulators).
 
 Batches are made before the clock starts, so the numbers are the
 device path's alone (the host batcher's time is reported apart):
@@ -28,7 +29,10 @@ device path's alone (the host batcher's time is reported apart):
   time, the twelve largest), and ``host_ops_per_step``, the operators
   called a step: what a host-bound step spends its time on;
 * ``centers_per_batch``: real centers per batch (a stencil batch holds
-  fewer than ``BATCH`` when its span fills first).
+  fewer than ``BATCH`` when its span fills first);
+* ``table_mib``: the table's bytes on the card (the four fields), and
+  ``peak_device_mib`` the peak of allocated device memory over the timed
+  steps.
 
 Prints one JSON object; ``-trace`` also writes the window's Chrome trace.
 """
@@ -78,7 +82,8 @@ def _short(name: str) -> str:
     """The port's kernels by their function name; others cut to 80
     characters."""
     m = re.search(r"\b(masked_gather_\w+|masked_scatter_add|"
-                  r"adagrad_update|stencil_gather|ring_send|ring_wait)\b",
+                  r"adagrad_update|stencil_gather|context_sum_\w+|"
+                  r"ring_send|ring_wait)\b",
                   name)
     return m.group(1) if m else name[:80]
 
@@ -107,7 +112,8 @@ def _host_by_op(prof, top: int = 12):
 
 
 def profile(steps: int = 40, trace: str = "", stencil: int = 0,
-            shared: int = 0, shards: int = 0) -> dict:
+            shared: int = 0, shards: int = 0,
+            dtype: str = "float32") -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("w2v_profile measures the card; no CUDA device "
                            "is available")
@@ -117,6 +123,7 @@ def profile(steps: int = 40, trace: str = "", stencil: int = 0,
     config = ConfigParser().update(DEMO_CONF)
     config.set("word2vec", "stencil", stencil)
     config.set("word2vec", "shared_negatives", shared)
+    config.set("server", "dtype", dtype)
     if shards:
         config.set("cluster", "transfer", "tpu")
         config.set("cluster", "server_num", shards)
@@ -170,6 +177,10 @@ def profile(steps: int = 40, trace: str = "", stencil: int = 0,
         "transfer": model.transfer.name, "shards": model.cluster.n_servers,
         "centers_per_batch": words / steps,
         "vocab": len(vocab), "capacity": model.table.capacity,
+        "dtype": dtype, "table_mib": sum(
+            t.numel() * t.element_size()
+            for v in model.table.state.values()
+            for t in (v if isinstance(v, list) else [v])) / 2 ** 20,
         "step_ms": step_s * 1e3,
         "words_per_sec": words / (step_s * steps),
         "batcher_ms_per_batch": batcher_s / len(batches) * 1e3,
@@ -198,11 +209,14 @@ def main(argv=None) -> int:
     cmd.registerParameter("shared", "1: shared negatives")
     cmd.registerParameter("shards", "n: the sharded parameter server with "
                           "n ranks on the card")
+    cmd.registerParameter("dtype", "[server] dtype: float32 (default) or "
+                          "bfloat16")
     out = profile(int(cmd.getValue("steps", "40")),
                   cmd.getValue("trace", ""),
                   int(cmd.getValue("stencil", "0")),
                   int(cmd.getValue("shared", "0")),
-                  int(cmd.getValue("shards", "0")))
+                  int(cmd.getValue("shards", "0")),
+                  cmd.getValue("dtype", "float32"))
     print(json.dumps(out), flush=True)
     return 0
 

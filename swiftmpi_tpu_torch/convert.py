@@ -8,6 +8,11 @@ JAX state to :func:`state_from_jax`, with the rank layout of a sharded
 table as ``mesh``; :func:`state_to_numpy` goes the other way and gives
 global arrays for either layout.  Neither side imports the other
 framework.
+
+numpy has no bfloat16 of its own; JAX's bfloat16 arrays convert to
+``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy`` does not take.
+Both directions go through a 16-bit integer view, so the bits cross
+unchanged, with no float round trip.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import numpy as np
 import torch
 
 from swiftmpi_tpu_torch.parameter.sparse_table import (  # noqa: F401
-    TableState, split_rows, state_to_numpy)
+    TableState, split_rows, state_to_numpy, tensor_to_numpy)
 
 
 def state_from_jax(np_state: Dict[str, np.ndarray], device,
@@ -28,6 +33,15 @@ def state_from_jax(np_state: Dict[str, np.ndarray], device,
     order: shard ``s`` takes rows ``s * cap_per_shard`` onwards)."""
     out = {}
     for f, a in np_state.items():
-        t = torch.from_numpy(np.array(a, copy=True))
+        t = tensor_from_numpy(a)
         out[f] = t.to(device) if mesh is None else split_rows(t, mesh)
     return out
+
+
+def tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
+    """A contiguous CPU tensor copy of ``a``; an ``ml_dtypes.bfloat16``
+    array becomes a ``torch.bfloat16`` tensor of the same bits."""
+    a = np.array(a, copy=True, order="C")
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)

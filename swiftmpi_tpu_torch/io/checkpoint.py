@@ -26,7 +26,9 @@ def dump_table_text(table: SparseTable, path: str,
     key-index insertion order; ``row`` maps every field of the table to
     the slot's vector.  Returns the count."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    rows = table.to_numpy()
+    # bfloat16 fields upcast to float32, exactly: the formatter then
+    # prints the same values as the JAX dump of the same state
+    rows = table.to_numpy(upcast=True)
     n = 0
     with open(path, "w") as f:
         for key, slot in table.key_index.items():

@@ -8,8 +8,12 @@ Replaces the Pallas kernel ``swiftmpi_tpu/ops/pallas_kernels.py``
 
 in float32, written straight into ``param`` and ``accum`` — the
 counterpart of the TPU kernel's input/output aliasing under the step's
-donated state.  Two forms, both one launch of ``csrc/adagrad.cu`` (16-byte
-elements where ``d % 4 == 0`` and rows are aligned):
+donated state.  ``param`` is float32, or bfloat16 (``[server] dtype:
+bfloat16``: the mixed form, the JAX rule of ``parameter/access.py``
+``AdaGradAccess.apply_push``): upcast exactly, the same float32 math, one
+round-to-nearest-even on store; ``accum`` and ``grad`` are float32 either
+way.  Two forms, both one launch of ``csrc/adagrad.cu`` (four-element
+chunks where ``d % 4 == 0`` and rows are aligned):
 
 * :func:`adagrad_update_`, dense: a ``(cap, d)`` table, or the shards of
   the ranks that share a card as one ``(R, cap, d)`` block, with grads of
@@ -21,8 +25,9 @@ elements where ``d % 4 == 0`` and rows are aligned):
 Either takes an optional per-row operand applied to the grad first:
 ``mul`` (the mean's reciprocal) or ``div`` (its divisor), rounded as the
 callers rounded their separate scale pass.  Bound on the card: bytes —
-20 bytes an element (three reads, two writes) over 3.35 TB/s, plus the
-per-row operands; times in PERF.md (``chip_smoke.py``).  The kernel rounds
+20 bytes an element (three reads, two writes; 16 with a bfloat16 param)
+over 3.35 TB/s, plus the per-row operands; times in PERF.md
+(``chip_smoke.py``).  The kernel rounds
 each op as the plain version does, and on the card the two agree bit for
 bit.
 
@@ -42,11 +47,14 @@ from swiftmpi_tpu_torch.kernels import build
 #: launches of the CUDA kernel since the last reset
 launches = 0
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-             ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_float,
-             ctypes.c_int, ctypes.c_void_p]
+#: param dtypes the kernel updates (accum and grad are float32)
+PARAM_DTYPES = (torch.float32, torch.bfloat16)
+
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+             ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 def _scaled(grad, mul, div):
@@ -63,8 +71,9 @@ def adagrad_update_plain_(param: torch.Tensor, accum: torch.Tensor,
                           fudge: float = 1e-6, *,
                           mul: Optional[torch.Tensor] = None,
                           div: Optional[torch.Tensor] = None):
-    """Plain PyTorch version, in place: f32 math, one rounding on store;
-    the grad row times ``mul`` or over ``div`` first."""
+    """Plain PyTorch version, in place: f32 math, one rounding on store
+    (to nearest even into a bfloat16 param); the grad row times ``mul``
+    or over ``div`` first."""
     g = _scaled(grad, mul, div)
     accum.copy_(accum + g * g)
     param.copy_(param.float() + lr * g * torch.rsqrt(accum + fudge))
@@ -104,12 +113,15 @@ def _check_f32(name, t, shape, device):
 
 
 def _check_table(param, accum):
-    """param and accum: float32 ``(cap, d)`` tables, or ``(R, cap, d)``
-    blocks of contiguous rank slices at one rank stride."""
-    for name, t in (("param", param), ("accum", accum)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"adagrad_update_ needs float32 {name}, got "
-                            f"{t.dtype}")
+    """param (float32 or bfloat16) and accum (float32): ``(cap, d)``
+    tables, or ``(R, cap, d)`` blocks of contiguous rank slices at one
+    rank stride."""
+    for name, t, dtypes in (("param", param, PARAM_DTYPES),
+                            ("accum", accum, (torch.float32,))):
+        if t.dtype not in dtypes:
+            raise TypeError(f"adagrad_update_ needs "
+                            f"{' or '.join(str(x)[6:] for x in dtypes)} "
+                            f"{name}, got {t.dtype}")
         if t.dim() == 3:
             ok = t.shape[0] <= 1 or t.stride(0) >= t[0].numel()
             ok = ok and (t.shape[0] == 0 or t[0].is_contiguous())
@@ -131,10 +143,13 @@ def _launch(param, accum, rank_stride, grad, slots, mask, scale, mode, R,
     global launches
     if rows * d >= 2 ** 31:
         raise ValueError("adagrad_update_: more than 2**31 elements a rank")
+    # four elements a chunk: 16 bytes of float32, 8 of a bfloat16 param
     vec4 = int(d % 4 == 0 and rank_stride % 4 == 0
-               and all(t.data_ptr() % 16 == 0 for t in (param, accum, grad)))
-    fn = build.function("adagrad", "smtpu_adagrad_update_f32", _ARGTYPES)
-    rc = fn(param.data_ptr(), accum.data_ptr(), rank_stride,
+               and param.data_ptr() % (4 * param.element_size()) == 0
+               and all(t.data_ptr() % 16 == 0 for t in (accum, grad)))
+    fn = build.function("adagrad", "smtpu_adagrad_update", _ARGTYPES)
+    rc = fn(param.data_ptr(), int(param.dtype == torch.bfloat16),
+            accum.data_ptr(), rank_stride,
             grad.data_ptr(), None if slots is None else slots.data_ptr(),
             None if mask is None else mask.data_ptr(),
             None if scale is None else scale.data_ptr(), mode, R, rows, d,

@@ -1,5 +1,6 @@
 // Masked row gather, rank by rank:
-//   out[r, i] = valid[r, i] ? table[r, clip(slots[r, i], 0, cap-1)] : 0.
+//   out[r, i] = valid[r, i] ? table[r, clip(slots[r, i], 0, cap-1)] : 0,
+// for float32 or bfloat16 rows: the bits are moved, never converted.
 //
 // Replaces the Pallas kernel swiftmpi_tpu/ops/pallas_gather.py
 // (vmem_gather / masked_vmem_gather), the drop-in body of the pull path's
@@ -7,24 +8,26 @@
 // transfer/tpu.py.  The TPU kernel stages the whole table in VMEM; on
 // Hopper the 50 MB L2 already holds the hot rows, so the kernel is a row
 // copy.  Bound: bytes — each distinct valid row read once plus every
-// output row written once, over 3.35 TB/s.
+// output row written once, over 3.35 TB/s (half the bytes for bfloat16).
 //
 // The rank is blockIdx.y: the ranks that share a card (their table shards
 // one (R, cap, d) block, passed as base + rank stride) gather in one
 // launch, with no division of a row index by the rank count.
 //
-// Design of the vector form (d % 4 == 0, 16-byte aligned rows): a warp
-// takes a group of G rows (G * d/4 <= 128 float4 chunks, so G = 5 at
-// d = 100).  Lanes 0..G-1 load the group's slots and valid flags in one
-// coalesced load and hand them out with shuffles; then every lane issues
-// the loads of all its chunks (up to 4) before any store, so the warp
-// waits on the index->row dependency once per group, not once per row,
-// and all 32 lanes move data.  Table rows are read with an L2 evict-last
-// policy and output rows written with streaming stores, so the output,
-// which nothing reads again in this kernel, does not push the table out
-// of L2.  Invalid rows store zeros without reading.  Widths that are no
-// multiple of 4, and unaligned rows, take the scalar form: a warp a row,
-// lanes along d.
+// Design of the vector form (d % 4 == 0, rows aligned to a group of four
+// elements: 16 bytes of float32, 8 of bfloat16, because a 200-byte
+// bfloat16 row is not 16-byte aligned): a warp takes a group of G rows
+// (G * d/4 <= 128 four-element chunks, so G = 5 at d = 100).  Lanes
+// 0..G-1 load the group's slots and valid flags in one coalesced load and
+// hand them out with shuffles; then every lane issues the loads of all its
+// chunks (up to 4) before any store, so the warp waits on the index->row
+// dependency once per group, not once per row, and all 32 lanes move
+// data.  Table rows are read with an L2 evict-last policy and output rows
+// written with streaming stores, so the output, which nothing reads again
+// in this kernel, does not push the table out of L2.  Invalid rows store
+// zeros without reading.  Widths that are no multiple of 4, and unaligned
+// rows, take the scalar form: a warp a row, lanes along d, one element a
+// lane.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -40,6 +43,7 @@ __device__ __forceinline__ long long clip_slot(int s, long long cap) {
   return v < 0 ? 0 : (v >= cap ? cap - 1 : v);
 }
 
+// V: four elements, float4 (float32) or uint2 (bfloat16)
 __device__ __forceinline__ float4 ld_evict_last(const float4* p,
                                                 uint64_t policy) {
   float4 v;
@@ -50,13 +54,32 @@ __device__ __forceinline__ float4 ld_evict_last(const float4* p,
   return v;
 }
 
+__device__ __forceinline__ uint2 ld_evict_last(const uint2* p,
+                                               uint64_t policy) {
+  uint2 v;
+  asm volatile("ld.global.nc.L2::cache_hint.v2.u32 {%0, %1}, [%2], %3;"
+               : "=r"(v.x), "=r"(v.y)
+               : "l"(p), "l"(policy));
+  return v;
+}
+
+template <typename V> __device__ __forceinline__ V vzero();
+template <> __device__ __forceinline__ float4 vzero<float4>() {
+  return make_float4(0.f, 0.f, 0.f, 0.f);
+}
+template <> __device__ __forceinline__ uint2 vzero<uint2>() {
+  return make_uint2(0u, 0u);
+}
+
 // A warp a row, lanes along d: the scalar form, for widths that are no
-// multiple of 4 and for unaligned rows.
-__global__ void masked_gather_scalar(const float* __restrict__ table,
+// multiple of 4 and for unaligned rows.  T: float, or unsigned short for
+// bfloat16's bits.
+template <typename T>
+__global__ void masked_gather_scalar(const T* __restrict__ table,
                                      long long rank_stride,
                                      const int* __restrict__ slots,
                                      const uint8_t* __restrict__ valid,
-                                     float* __restrict__ out, long long n,
+                                     T* __restrict__ out, long long n,
                                      int d, long long cap) {
   const int rank = blockIdx.y;
   table += rank * rank_stride;
@@ -67,23 +90,24 @@ __global__ void masked_gather_scalar(const float* __restrict__ table,
   const long long stride = (long long)gridDim.x * kWarps;
   for (long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
        row < n; row += stride) {
-    float* dst = out + row * d;
+    T* dst = out + row * d;
     if (!valid[row]) {
-      for (int c = lane; c < d; c += 32) dst[c] = 0.f;
+      for (int c = lane; c < d; c += 32) dst[c] = T(0);
       continue;
     }
-    const float* src = table + clip_slot(slots[row], cap) * d;
+    const T* src = table + clip_slot(slots[row], cap) * d;
     for (int c = lane; c < d; c += 32) dst[c] = __ldg(src + c);
   }
 }
 
 // G rows a warp, every load of a pass issued before its stores, loads
-// with an L2 evict-last policy, streaming stores.
-__global__ void masked_gather_group(const float4* __restrict__ table,
+// with an L2 evict-last policy, streaming stores.  V: four elements.
+template <typename V>
+__global__ void masked_gather_group(const V* __restrict__ table,
                                     long long rank_stride,
                                     const int* __restrict__ slots,
                                     const uint8_t* __restrict__ valid,
-                                    float4* __restrict__ out, long long n,
+                                    V* __restrict__ out, long long n,
                                     int d4, long long cap, int G) {
   const int rank = blockIdx.y;
   table += rank * rank_stride;
@@ -108,9 +132,9 @@ __global__ void masked_gather_group(const float4* __restrict__ table,
       my_row = (int)clip_slot(slots[r0 + lane], cap);
     }
     const int total = rows * d4;
-    float4* dst = out + r0 * d4;
+    V* dst = out + r0 * d4;
     for (int base = 0; base < total; base += 32 * kPerLane) {
-      float4 v[kPerLane];
+      V v[kPerLane];
 #pragma unroll
       for (int k = 0; k < kPerLane; ++k) {
         const int c = base + lane + 32 * k;
@@ -118,9 +142,9 @@ __global__ void masked_gather_group(const float4* __restrict__ table,
         j = j < rows ? j : rows - 1;
         const int row = __shfl_sync(0xffffffffu, my_row, j);
         const int ok = __shfl_sync(0xffffffffu, my_ok, j);
-        v[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+        v[k] = vzero<V>();
         if (c < total && ok) {
-          const float4* src = table + (long long)row * d4 + (c - j * d4);
+          const V* src = table + (long long)row * d4 + (c - j * d4);
           v[k] = ld_evict_last(src, policy);
         }
       }
@@ -133,37 +157,50 @@ __global__ void masked_gather_group(const float4* __restrict__ table,
   }
 }
 
-}  // namespace
-
-// vec4: d % 4 == 0 and every row 16-byte aligned (the group form), else
-// the scalar form.  rank_stride in floats.
-extern "C" int smtpu_masked_gather_f32(const void* table,
-                                       long long rank_stride,
-                                       const void* slots, const void* valid,
-                                       void* out, int ranks, long long n,
-                                       int d, long long cap, int vec4,
-                                       void* stream) {
-  if (n <= 0 || ranks <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* sl = static_cast<const int*>(slots);
-  const uint8_t* ok = static_cast<const uint8_t*>(valid);
+template <typename V, typename T>
+int launch(const void* table, long long rank_stride, const int* sl,
+           const uint8_t* ok, void* out, int ranks, long long n, int d,
+           long long cap, int vec4, cudaStream_t s) {
   if (vec4) {
     const int d4 = d / 4;
     int G = 32 * kPerLane / d4;
     G = G < 1 ? 1 : (G > 32 ? 32 : G);
     long long blocks = ((n + G - 1) / G + kWarps - 1) / kWarps;
     if (blocks > (1LL << 20)) blocks = 1LL << 20;
-    masked_gather_group<<<dim3((unsigned)blocks, (unsigned)ranks), kThreads,
-                          0, s>>>(static_cast<const float4*>(table),
-                                  rank_stride / 4, sl, ok,
-                                  static_cast<float4*>(out), n, d4, cap, G);
+    masked_gather_group<V><<<dim3((unsigned)blocks, (unsigned)ranks),
+                             kThreads, 0, s>>>(
+        static_cast<const V*>(table), rank_stride / 4, sl, ok,
+        static_cast<V*>(out), n, d4, cap, G);
   } else {
     long long blocks = (n + kWarps - 1) / kWarps;
     if (blocks > (1LL << 20)) blocks = 1LL << 20;
-    masked_gather_scalar<<<dim3((unsigned)blocks, (unsigned)ranks), kThreads,
-                           0, s>>>(static_cast<const float*>(table),
-                                   rank_stride, sl, ok,
-                                   static_cast<float*>(out), n, d, cap);
+    masked_gather_scalar<T><<<dim3((unsigned)blocks, (unsigned)ranks),
+                              kThreads, 0, s>>>(
+        static_cast<const T*>(table), rank_stride, sl, ok,
+        static_cast<T*>(out), n, d, cap);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// esize: 4 for float32 rows, 2 for bfloat16.  vec4: d % 4 == 0 and every
+// row aligned to a group of four elements (16 bytes float32, 8 bytes
+// bfloat16; the group form), else the scalar form.  rank_stride in
+// elements.
+extern "C" int smtpu_masked_gather(const void* table, int esize,
+                                   long long rank_stride, const void* slots,
+                                   const void* valid, void* out, int ranks,
+                                   long long n, int d, long long cap,
+                                   int vec4, void* stream) {
+  if (n <= 0 || ranks <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* sl = static_cast<const int*>(slots);
+  const uint8_t* ok = static_cast<const uint8_t*>(valid);
+  if (esize == 2)
+    return launch<uint2, unsigned short>(table, rank_stride, sl, ok, out,
+                                         ranks, n, d, cap, vec4, s);
+  if (esize != 4) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<float4, float>(table, rank_stride, sl, ok, out, ranks, n, d,
+                               cap, vec4, s);
 }

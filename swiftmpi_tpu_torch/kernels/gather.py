@@ -18,9 +18,15 @@ valid row read once and every output row written once, over 3.35 TB/s.
 Times beside the bound are in PERF.md (``chip_smoke.py``,
 ``apps/gather_sweep.py``).
 
+The table is float32 or bfloat16 (``[server] dtype: bfloat16``); rows
+come back in the table's dtype, their bits moved, not converted: callers
+upcast.  A bfloat16 row of d = 100 is 200 bytes, not a multiple of 16, so
+its vector form moves four elements (8 bytes) a lane.
+
 ``masked_gather`` runs the plain version for a CPU tensor and launches the
 kernel for a CUDA tensor, raising on what the kernel does not take (a
-float32 table whose rows are contiguous, int32 slots, bool valid).
+float32 or bfloat16 table whose rows are contiguous, int32 slots, bool
+valid).
 """
 
 from __future__ import annotations
@@ -35,8 +41,11 @@ from swiftmpi_tpu_torch.kernels import build
 #: launches of the CUDA kernel since the last reset
 launches = 0
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+#: table dtypes the kernel moves
+TABLE_DTYPES = (torch.float32, torch.bfloat16)
+
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
              ctypes.c_int, ctypes.c_void_p]
 
@@ -57,9 +66,9 @@ def masked_gather_plain(table: torch.Tensor, slots: torch.Tensor,
 
 
 def _check(table, slots, valid):
-    if table.dtype != torch.float32:
-        raise TypeError(f"masked_gather kernel takes a float32 table, got "
-                        f"{table.dtype} (bf16 tables are not ported yet)")
+    if table.dtype not in TABLE_DTYPES:
+        raise TypeError(f"masked_gather kernel takes a float32 or bfloat16 "
+                        f"table, got {table.dtype}")
     d = table.shape[-1]
     if table.stride(-1) != 1 or (table.shape[-2] > 1
                                  and table.stride(-2) != d) \
@@ -112,12 +121,16 @@ def masked_gather(table: torch.Tensor, slots: torch.Tensor,
     R = table.shape[0] if table.dim() == 3 else 1
     rank_stride = table.stride(0) if table.dim() == 3 else 0
     d = table.shape[-1]
+    # a group of four elements a lane: 16 bytes of float32, 8 of bfloat16
+    group = 4 * table.element_size()
     vec4 = int(d % 4 == 0 and rank_stride % 4 == 0
-               and table.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
-    fn = build.function("gather", "smtpu_masked_gather_f32", _ARGTYPES)
-    rc = fn(table.data_ptr(), rank_stride, slots.data_ptr(),
-            valid.data_ptr(), out.data_ptr(), R, slots.shape[-1], d,
-            table.shape[-2], vec4, build.stream_of(table))
+               and table.data_ptr() % group == 0
+               and out.data_ptr() % group == 0)
+    fn = build.function("gather", "smtpu_masked_gather", _ARGTYPES)
+    rc = fn(table.data_ptr(), table.element_size(), rank_stride,
+            slots.data_ptr(), valid.data_ptr(), out.data_ptr(), R,
+            slots.shape[-1], d, table.shape[-2], vec4,
+            build.stream_of(table))
     build.check_launch("masked_gather", rc)
     launches += 1
     return out

@@ -31,6 +31,12 @@ share their alignment.  Bound on the card: bytes — every operand byte read
 once and written once, over 3.35 TB/s (times in PERF.md, from
 ``chip_smoke.py`` and ``apps/ring_sweep.py``).
 
+The kernel copies 4-byte words: float32 and int32 operands go as they
+are, bfloat16 ones (the pulled rows of a ``[server] dtype: bfloat16``
+table) as the same bytes read as 4-byte words, so a block of C rows of
+d = 100 is C * 50 words; an operand whose blocks are not a whole number of
+words, or that does not start on a word, is refused.
+
 Both forms run the plain version for CPU tensors and launch the kernel for
 CUDA tensors, raising on what the kernel does not take; there is no
 fallback between the two.
@@ -58,6 +64,17 @@ _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
 
 #: polls (100 ns apart) after which a waiter gives up and counts a timeout
 _MAX_POLLS = 20_000_000
+
+#: operand dtypes: the kernel's own 4-byte words, and bfloat16 viewed as
+#: such words
+DTYPES = (torch.float32, torch.int32, torch.bfloat16)
+
+
+def _check_dtype(dtype) -> None:
+    if dtype not in DTYPES:
+        raise TypeError(f"ring_exchange kernel takes float32 or int32 "
+                        f"operands (bfloat16 ones as int32 words), got "
+                        f"{dtype}")
 
 
 def _check_shapes(operands: Sequence[torch.Tensor]) -> int:
@@ -155,9 +172,7 @@ def ring_exchange_stacked(x: torch.Tensor) -> torch.Tensor:
         return ring_exchange_stacked_plain(x)
     if kind != "cuda":
         raise ValueError(f"ring_exchange: unsupported device {x.device}")
-    if x.dtype not in (torch.float32, torch.int32):
-        raise TypeError(f"ring_exchange kernel takes float32 or int32 "
-                        f"operands, got {x.dtype}")
+    _check_dtype(x.dtype)
     if not _slices_contiguous(x):
         raise TypeError("ring_exchange needs contiguous operands")
     if n > 1024:
@@ -165,6 +180,13 @@ def ring_exchange_stacked(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     es = x.element_size()
     block_bytes = math.prod(x.shape[2:]) * es
+    if block_bytes % 4:
+        raise ValueError(f"ring_exchange: a block of {tuple(x.shape[2:])} "
+                         f"{x.dtype} is {block_bytes} bytes, not a whole "
+                         f"number of 4-byte words")
+    if x.data_ptr() % 4 or x.stride(0) * es % 4:
+        raise ValueError("ring_exchange: the operand does not start on a "
+                         "4-byte word")
     if block_bytes == 0:
         return out
     ring = _rings.get((n, x.device))
@@ -200,9 +222,7 @@ def ring_exchange(operands: Sequence[torch.Tensor]) -> List[torch.Tensor]:
             raise NotImplementedError(
                 "ring_exchange: ranks on different devices need peer "
                 "mappings, which are not ported yet (ROADMAP A11)")
-        if x.dtype not in (torch.float32, torch.int32):
-            raise TypeError(f"ring_exchange kernel takes float32 or int32 "
-                            f"operands, got {x.dtype}")
+        _check_dtype(x.dtype)
         if not x.is_contiguous():
             raise TypeError("ring_exchange needs contiguous operands")
     return list(ring_exchange_stacked(torch.stack(list(operands))).unbind(0))

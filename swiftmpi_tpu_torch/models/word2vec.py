@@ -25,14 +25,20 @@ JAX package resolves them (``resolved_rendering``):
   negatives for the whole batch; the negative phase is three matrix
   products and the pool rows push as their own sum family.
 * ``stencil`` (``stencil: 1``): the batch is a stream span; neu1 comes
-  from the fused stencil-gather kernel over the span's rows, and the v
-  gradient folds onto span positions and pushes through ``push_span``.
+  from the stencil context-sum kernel over the span's rows (one launch
+  from the batch's own arrays), and the v gradient folds onto span
+  positions and pushes through ``push_span``.
 * ``stencil_shared``: the stencil context side with the shared pool.
 
 With ``transfer: tpu`` (gather and shared renderings only, as in the
 JAX package) the step's arithmetic still runs once over the whole batch,
 as the jitted JAX step does over global arrays; only the pulls and pushes
 are per rank, routed by ``transfer/sharded.py``.
+
+``[server] dtype: bfloat16`` stores the embedding fields h and v in
+bfloat16, as the JAX package does: every pull is upcast to float32
+before any math, the gradients and the AdaGrad accumulators stay float32,
+and the update rounds once on store.
 
 The table tensors are updated in place, the counterpart of the JAX step
 donating its state.  Each step takes the negative-sampling draws ``(j,
@@ -55,8 +61,7 @@ from swiftmpi_tpu_torch.data.text import (CBOWBatch, CBOWBatcher,
                                           load_corpus)
 from swiftmpi_tpu_torch.device import resolve_device
 from swiftmpi_tpu_torch.io.checkpoint import dump_table_text
-from swiftmpi_tpu_torch.kernels.stencil import (fused_stencil_gather,
-                                                stencil_window_inputs)
+from swiftmpi_tpu_torch.kernels.stencil import stencil_context_sum
 from swiftmpi_tpu_torch.ops.sampling import (alias_draws,
                                              build_unigram_alias,
                                              sample_alias_from_draws,
@@ -73,6 +78,9 @@ Draws = Tuple[torch.Tensor, torch.Tensor]
 
 #: config sections the slice does not port at all -> ROADMAP item
 _UNPORTED_SECTIONS = {"obs": "A14", "control": "A13", "serve": "A13"}
+
+#: ``[server] dtype`` -> the embedding fields' dtype
+PARAM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _on(x, device, dtype) -> torch.Tensor:
@@ -191,6 +199,13 @@ class Word2Vec:
             "word2vec", "shared_negatives", 0).to_int32() != 0
         self.shared_pool = g("word2vec", "shared_pool", 1024).to_int32()
         server_lr = g("server", "initial_learning_rate", 0.7).to_float()
+        # [server] dtype: bfloat16 halves the embedding fields' bytes; the
+        # math stays float32 (upcast on pull, round once on store)
+        dtype_s = g("server", "dtype", "float32").to_string()
+        if dtype_s not in PARAM_DTYPES:
+            raise ValueError(f"[server] dtype must be float32 or "
+                             f"bfloat16, got {dtype_s!r}")
+        self.param_dtype = PARAM_DTYPES[dtype_s]
         self._check_supported()
         #: the rendering the step runs, named as the JAX package names it
         self.resolved_rendering = (
@@ -202,7 +217,8 @@ class Word2Vec:
         # every rank of the layout (shards on different cards: ROADMAP A11)
         self.cluster = cluster or Cluster(
             self.config, devices=[self.device]).initialize()
-        self.access = w2v_access(server_lr, self.len_vec)
+        self.access = w2v_access(server_lr, self.len_vec,
+                                 param_dtype=self.param_dtype)
         self.transfer = self.cluster.transfer
         self._capacity_per_shard = capacity_per_shard
         self.table: Optional[SparseTable] = None
@@ -278,8 +294,6 @@ class Word2Vec:
         want(transfer == "tpu" and data_plane == "xla",
              "[cluster] data_plane: xla with transfer: tpu (the library "
              "exchange)", "A16")
-        want(g("server", "dtype", "float32").to_string() != "float32",
-             "[server] dtype other than float32", "bf16 tables for B1/B2")
         want(g("worker", "pipeline", 0).to_int32() != 0,
              "[worker] pipeline", "A9")
         want(g("worker", "telemetry", 0).to_int32() != 0,
@@ -320,8 +334,10 @@ class Word2Vec:
 
     # -- gradient phases (JAX _build_grads*) --------------------------------
     def _pull(self, state, slots, field: str) -> torch.Tensor:
+        """Rows of ``field`` at ``slots``, upcast to float32 (a no-op for
+        a float32 table) before any math, as JAX's ``.astype(f32)``."""
         return self.transfer.pull(state, slots, self.access,
-                                  fields=(field,))[field]
+                                  fields=(field,))[field].float()
 
     def _grads(self, state, centers, contexts, ctx_mask, draws: Draws):
         """Gather rendering (JAX ``_build_grads``): pull rows, CBOW-NS
@@ -379,8 +395,9 @@ class Word2Vec:
     def _grads_stencil(self, state, tokens, sent_id, center_pos, half,
                        draws: Draws):
         """Stencil rendering (JAX ``_build_grads_stencil``): the batch is
-        a stream span of S = B + 2W tokens, neu1 is the fused stencil
-        gather over the span's rows, and the v gradient inverts the
+        a stream span of S = B + 2W tokens, neu1 is the stencil context
+        sum over the span's rows (one kernel launch, its window rule the
+        same pairs as ``ctx_mask``), and the v gradient inverts the
         stencil onto span positions (with contribution counts) for
         ``push_span``.  The h side is the parity or the shared-pool
         negative phase."""
@@ -397,9 +414,8 @@ class Word2Vec:
                     & (sent_id[ci] == sent_id[cp][:, None])
                     & (self._offsets.abs()[None, :] <= half[:, None])
                     & row_valid[:, None])
-        lo, wmask = stencil_window_inputs(sent_id, center_pos, half,
-                                          self.window)
-        neu1 = fused_stencil_gather(state["v"], span_slots, lo, wmask)
+        neu1 = stencil_context_sum(state["v"], span_slots, sent_id,
+                                   center_pos, half, self.window)
         if self.shared_negatives:
             negs = sample_alias_from_draws(draws[0], draws[1],
                                            self._alias_prob, self._alias_idx)

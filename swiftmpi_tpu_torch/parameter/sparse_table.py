@@ -19,8 +19,10 @@ assigns.  It has two layouts:
   slice.
 
 Every row is initialized eagerly with its field's distribution (eager-
-random is lazy-random for every observable row).  Push paths update the
-tensors in place.  The ``@rowver``, ``@ef`` and ``@hot`` planes, ``grow``
+random is lazy-random for every observable row), drawn in float32 and
+cast to the field's dtype, as the JAX package does: a bfloat16 field
+(``[server] dtype: bfloat16``) holds the rounded draw.  Push paths update
+the tensors in place.  The ``@rowver``, ``@ef`` and ``@hot`` planes, ``grow``
 and ``repartition`` are not ported yet (ROADMAP A12).
 """
 
@@ -72,10 +74,11 @@ class SparseTable:
     def capacity(self) -> int:
         return self.key_index.capacity
 
-    def to_numpy(self) -> Dict[str, np.ndarray]:
+    def to_numpy(self, upcast: bool = False) -> Dict[str, np.ndarray]:
         """Host copies of every field, indexed by global slot: a sharded
-        table's shards concatenated in shard order."""
-        return state_to_numpy(self.state)
+        table's shards concatenated in shard order (see
+        :func:`state_to_numpy` for ``upcast``)."""
+        return state_to_numpy(self.state, upcast=upcast)
 
     def __repr__(self) -> str:  # pragma: no cover
         return (f"SparseTable(fields={list(self.access.fields)}, "
@@ -83,13 +86,30 @@ class SparseTable:
                 f"shards={self.key_index.num_shards}, device={self.device})")
 
 
-def state_to_numpy(state: TableState) -> Dict[str, np.ndarray]:
-    """Global-row-order host copies of a state of either layout."""
+def tensor_to_numpy(t: torch.Tensor, upcast: bool = False) -> np.ndarray:
+    """Host copy of ``t``.  numpy has no bfloat16 of its own: a bfloat16
+    tensor comes back as an ``ml_dtypes.bfloat16`` array (the type JAX's
+    arrays convert to) through a 16-bit view, its bits unchanged, or with
+    ``upcast`` as float32, exactly (every bfloat16 is a float32)."""
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    if upcast:
+        return t.float().numpy()
+    import ml_dtypes   # numpy's bfloat16; needed only for this case
+    return t.contiguous().view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+
+
+def state_to_numpy(state: TableState,
+                   upcast: bool = False) -> Dict[str, np.ndarray]:
+    """Global-row-order host copies of a state of either layout;
+    bfloat16 fields as ``ml_dtypes.bfloat16`` arrays, or as float32 with
+    ``upcast`` (:func:`tensor_to_numpy`)."""
     out = {}
     for f, v in state.items():
         parts = v if isinstance(v, (list, tuple)) else [v]
         out[f] = np.concatenate(
-            [p.detach().cpu().numpy() for p in parts], axis=0)
+            [tensor_to_numpy(p, upcast) for p in parts], axis=0)
     return out
 
 

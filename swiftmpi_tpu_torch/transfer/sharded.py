@@ -24,6 +24,10 @@ shards, one launch per family, the mean's reciprocal applied inside it;
 untouched rows see zero gradient).
 Shapes are static: request buckets hold ``C`` slots per destination, the
 whole local slice unless ``bucket_capacity`` cuts it, with ``-1`` padding.
+A bfloat16 table (``[server] dtype: bfloat16``) pulls bfloat16 rows: the
+owners gather them from their bfloat16 block and they cross the ring as
+4-byte words, bits unchanged; grads are float32 and push as with a
+float32 table, into the AdaGrad kernel's mixed form.
 
 Where the JAX package runs one SPMD program over a device mesh, the port
 walks the ranks of a :class:`~swiftmpi_tpu_torch.cluster.mesh.RankLayout`.

@@ -14,7 +14,8 @@ from swiftmpi_tpu_torch import kernels
 from swiftmpi_tpu_torch.kernels import (adagrad, gather, ring, scatter,
                                         stencil)
 from swiftmpi_tpu_torch.models.word2vec import Word2Vec
-from swiftmpi_tpu_torch.parameter.sparse_table import shard_block
+from swiftmpi_tpu_torch.parameter.sparse_table import (shard_block,
+                                                       split_rows)
 from swiftmpi_tpu_torch.convert import state_from_jax, state_to_numpy
 from swiftmpi_tpu_torch.data.text import CBOWBatcher, synthetic_corpus
 from swiftmpi_tpu_torch.utils import ConfigParser
@@ -85,8 +86,8 @@ def test_kernels_take_empty_inputs_and_refuse_bad_ones(dev):
     assert out.shape == (10, 5) and not out.any()
     slots = torch.zeros(3, dtype=torch.int32, device=dev)
     valid = torch.ones(3, dtype=torch.bool, device=dev)
-    with pytest.raises(TypeError, match="bf16"):
-        gather.masked_gather(table.bfloat16(), slots, valid)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        gather.masked_gather(table.half(), slots, valid)
     with pytest.raises(TypeError, match="int32"):
         gather.masked_gather(table, slots.long(), valid)
     with pytest.raises(TypeError, match="contiguous"):
@@ -154,50 +155,59 @@ def _span(rng, B, W, S, order):
     return sent_id, center_pos, half
 
 
+@pytest.mark.parametrize("form", stencil.FORMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,W,S,d,order", [
-    (200, 4, 208, 7, "sorted"),        # d = 7: the scalar path
-    (200, 4, 208, 100, "sorted"),      # d = 100: float4
+    (200, 4, 208, 7, "sorted"),        # d = 7: one element a lane
+    (200, 4, 208, 100, "sorted"),      # d = 100: four elements a lane
     (200, 4, 208, 100, "shuffled"),    # centers in no span order
     (64, 4, 72, 100, "none"),          # every center padded: all zero
     (5, 4, 9, 100, "spread"),          # S = 2W + 1
-    (64, 4, 4000, 100, "spread"),      # neighbours far apart in the span
-    (100, 10, 120, 100, "sorted")])    # K = 21: two chunks of window rows
-def test_stencil_kernel_matches_plain_on_card(dev, B, W, S, d, order):
-    """B4 against its plain version, bit for bit (both round each product
-    and sum on its own, in k order).  One launch."""
+    (64, 4, 4000, 100, "spread"),      # tiles wider than the stage
+    (100, 10, 120, 100, "sorted"),     # K = 21: two chunks of window rows
+    (300, 4, 2000, 36, "sorted")])     # a stage of more rows per tile
+def test_stencil_kernel_matches_plain_on_card(dev, B, W, S, d, order, dtype,
+                                              form):
+    """B4 from the stencil batch itself, in either form, on a float32 or
+    bfloat16 table, against its plain version (the window inputs, then
+    the k-order sum of upcast rows), bit for bit.  One launch."""
     rng = np.random.default_rng(S + d)
     cap = 1000
     sent_id, center_pos, half = _span(rng, B, W, S, order)
     slots = rng.integers(0, cap, S).astype(np.int32)
     slots[sent_id < 0] = -1
     table = torch.from_numpy(rng.normal(size=(cap, d)).astype(np.float32))
-    table, slots = table.to(dev), torch.from_numpy(slots).to(dev)
-    lo, wmask = stencil.stencil_window_inputs(
-        *(torch.from_numpy(a).to(dev) for a in (sent_id, center_pos, half)),
-        W)
+    table, slots = table.to(dev, dtype), torch.from_numpy(slots).to(dev)
+    sid, cp, hf = (torch.from_numpy(a).to(dev) for a in (sent_id,
+                                                          center_pos, half))
+    cp = cp.long()
     kernels.reset_launches()
-    got = stencil.fused_stencil_gather(table, slots, lo, wmask)
-    want = stencil.fused_stencil_gather_plain(table, slots, lo, wmask)
+    got = stencil.stencil_context_sum(table, slots, sid, cp, hf, W,
+                                      form=form)
+    want = stencil.stencil_context_sum_plain(table, slots, sid, cp, hf, W)
     torch.cuda.synchronize()
-    assert stencil.launches == 1
+    assert stencil.launches == 1 and got.dtype == torch.float32
     torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert not got[torch.from_numpy(center_pos).to(dev) < 0].any()
+    assert not got[cp < 0].any()
 
 
 def test_stencil_kernel_refuses_bad_inputs(dev):
     table = torch.randn(20, 8, device=dev)
     slots = torch.arange(12, dtype=torch.int32, device=dev)
-    lo = torch.zeros(6, dtype=torch.int32, device=dev)
-    w = torch.ones((6, 5), device=dev)
-    with pytest.raises(TypeError, match="bf16"):
-        stencil.fused_stencil_gather(table.bfloat16(), slots, lo, w)
-    with pytest.raises(TypeError, match="int32 lo"):
-        stencil.fused_stencil_gather(table, slots, lo.long(), w)
+    sid = torch.zeros(12, dtype=torch.int32, device=dev)
+    cp = torch.arange(6, dtype=torch.int64, device=dev) + 2
+    half = torch.full((6,), 2, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        stencil.stencil_context_sum(table.half(), slots, sid, cp, half, 2)
+    with pytest.raises(TypeError, match="int64 center_pos"):
+        stencil.stencil_context_sum(table, slots, sid, cp.int(), half, 2)
     with pytest.raises(TypeError, match="contiguous"):
-        stencil.fused_stencil_gather(table, slots, lo,
-                                     torch.ones((5, 6), device=dev).t())
+        stencil.stencil_context_sum(table, slots, sid, cp, torch.full(
+            (6, 2), 2, dtype=torch.int32, device=dev)[:, 0], 2)
     with pytest.raises(ValueError, match="S = 4"):
-        stencil.fused_stencil_gather(table, slots[:4], lo, w)
+        stencil.stencil_context_sum(table, slots[:4], sid[:4], cp, half, 2)
+    with pytest.raises(ValueError, match="share one device"):
+        stencil.stencil_context_sum(table, slots.cpu(), sid, cp, half, 2)
 
 
 @pytest.mark.parametrize("shared", [0, 1])
@@ -571,3 +581,208 @@ def test_adagrad_and_blocks_refuse_bad_inputs(dev):
                                      torch.ones(4, dtype=torch.bool,
                                                 device=dev),
                                      torch.zeros(5, 8, device=dev), 0.1)
+
+
+# -- bf16 tables: B2's bf16 rows, B1's mixed form, B5 on bf16 buckets --------
+
+def _ordinal(t: torch.Tensor) -> torch.Tensor:
+    """bfloat16 values as integers in the order of the reals (adjacent
+    representable values differ by 1; +0 and -0 are both 0)."""
+    bits = t.contiguous().view(torch.int16).long() & 0xFFFF
+    mag = bits & 0x7FFF
+    return torch.where(bits >= 0x8000, -mag, mag)
+
+
+@pytest.mark.parametrize("R", [None, 1, 3, 8])
+@pytest.mark.parametrize("d", [100, 101, 7])
+def test_gather_bf16_forms_match_plain_on_card(dev, R, d):
+    """B2 on a bfloat16 table or block of R shards (contiguous, and at a
+    rank stride of (cap + 3) * d): bfloat16 rows, bit for bit against the
+    plain version; 8-byte groups of four at d = 100, one element a lane at
+    d = 101 and 7; one launch."""
+    rng = np.random.default_rng(5 * d + (R or 0))
+    cap, n = 1000, 5000
+    lead = () if R is None else (R,)
+    for pad in (0, 3):
+        if R is None and pad:
+            continue
+        full = torch.from_numpy(rng.normal(size=(R or 1, cap + pad, d))
+                                .astype(np.float32)).to(dev, torch.bfloat16)
+        table = full[:, :cap]
+        table = table[0] if R is None else table
+        pairs = [_slots(rng, n, cap) for _ in range(R or 1)]
+        slots = torch.from_numpy(np.stack([s for s, _ in pairs])
+                                 .reshape(*lead, n)).to(dev)
+        valid = torch.from_numpy(np.stack([v for _, v in pairs])
+                                 .reshape(*lead, n)).to(dev)
+        kernels.reset_launches()
+        got = gather.masked_gather(table, slots, valid)
+        want = gather.masked_gather_plain(table, slots, valid)
+        torch.cuda.synchronize()
+        assert gather.launches == 1 and got.dtype == torch.bfloat16
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def test_gather_bf16_takes_unaligned_rows(dev):
+    """A bfloat16 table that starts 2 bytes into its allocation takes the
+    one-element form; bit for bit."""
+    base = torch.randn(50 * 100 + 1, device=dev).to(torch.bfloat16)
+    table = base[1:].view(50, 100)
+    assert table.data_ptr() % 8 == 2
+    slots = torch.arange(60, dtype=torch.int32, device=dev) % 53
+    valid = torch.ones(60, dtype=torch.bool, device=dev)
+    got = gather.masked_gather(table, slots, valid)
+    want = gather.masked_gather_plain(table, slots, valid)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("R", [None, 3, 8])
+@pytest.mark.parametrize("d", [100, 101, 7])
+@pytest.mark.parametrize("op", [None, "mul", "div"])
+def test_adagrad_mixed_dense_forms_match_plain_on_card(dev, R, d, op):
+    """B1's mixed form (bfloat16 param, float32 accum and grads) over a
+    table or a block of R shards, with or without the per-row operand:
+    bit for bit against the plain version (float32 math, one
+    round-to-nearest-even on store); one launch."""
+    rng = np.random.default_rng(11 * d + (R or 0))
+    cap = 700
+    lead = () if R is None else (R,)
+    shape = (*lead, cap, d)
+    # a block's rank stride is (cap + 2) * d, for param and accum alike
+    pad = 0 if R is None else 2
+    p = (_block(rng, R or 1, cap, d, dev, pad) * 0.05).to(torch.bfloat16)
+    pb = torch.empty((R or 1, cap + pad, d), dtype=torch.bfloat16,
+                     device=dev)[:, :cap]
+    p = pb.copy_(p)
+    a = _block(rng, R or 1, cap, d, dev, pad).abs_()
+    if R is None:
+        p, a = p[0], a[0]
+    g = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+    row = torch.from_numpy(rng.integers(1, 9, shape[:-1])
+                           .astype(np.float32)).to(dev)
+    scale = {} if op is None else {op: 1.0 / row if op == "mul" else row}
+    p2, a2 = p.clone(), a.clone()
+    kernels.reset_launches()
+    adagrad.adagrad_update_(p, a, g, 0.7, **scale)
+    adagrad.adagrad_update_plain_(p2, a2, g, 0.7, **scale)
+    torch.cuda.synchronize()
+    assert adagrad.launches == 1 and p.dtype == torch.bfloat16
+    assert torch.equal(p.view(torch.int16), p2.view(torch.int16))
+    assert torch.equal(a, a2)
+
+
+@pytest.mark.parametrize("d", [100, 7])
+@pytest.mark.parametrize("masked", [False, True])
+def test_adagrad_mixed_rows_match_plain_on_card(dev, d, masked):
+    """Row-indexed mixed form: distinct slots (a few out of range), a mask
+    or none, the reciprocal: bit for bit, every other row untouched."""
+    rng = np.random.default_rng(13 * d + masked)
+    cap, M = 9000, 2806
+    p = torch.from_numpy((rng.normal(size=(cap, d)) * 0.05)
+                         .astype(np.float32)).to(dev, torch.bfloat16)
+    a = torch.from_numpy(np.abs(rng.normal(size=(cap, d)))
+                         .astype(np.float32)).to(dev)
+    slots = rng.permutation(cap)[:M].astype(np.int32)
+    slots[:4] = [cap, cap + 1, -1, -5]
+    slots = torch.from_numpy(slots).to(dev)
+    mask = torch.from_numpy(rng.random(M) < 0.6).to(dev) if masked else None
+    g = torch.from_numpy(rng.normal(size=(M, d)).astype(np.float32)).to(dev)
+    mul = (1.0 / torch.from_numpy(rng.integers(1, 9, M).astype(np.float32))
+           ).to(dev)
+    p0 = p.clone()
+    p2, a2 = p.clone(), a.clone()
+    kernels.reset_launches()
+    adagrad.adagrad_update_rows_(p, a, slots, mask, g, 0.7, mul=mul)
+    adagrad.adagrad_update_rows_plain_(p2, a2, slots, mask, g, 0.7, mul=mul)
+    torch.cuda.synchronize()
+    assert adagrad.launches == 1
+    assert torch.equal(p.view(torch.int16), p2.view(torch.int16))
+    assert torch.equal(a, a2)
+    keep = (slots >= 0) & (slots < cap)
+    keep = keep if mask is None else keep & mask
+    other = torch.ones(cap, dtype=torch.bool, device=dev)
+    other[slots[keep].long()] = False
+    assert torch.equal(p[other].view(torch.int16),
+                       p0[other].view(torch.int16))
+
+
+@pytest.mark.parametrize("n,tail", [
+    (8, (13125, 100)),    # the sharded h rows of a bf16 table: 8 mod 16
+    (8, (13, 100)),       # 2,600-byte blocks
+    (8, (2, 3)),          # 12-byte blocks: head and tail words only
+    (3, (7, 6))])
+def test_ring_kernel_moves_bf16_blocks_on_card(dev, n, tail):
+    """B5 on bfloat16 operands, taken as 4-byte words: bit for bit against
+    the plain version, one exchange launch; a block that is no whole
+    number of words raises."""
+    rng = np.random.default_rng(n + tail[0])
+    x = torch.from_numpy(rng.standard_normal((n, n, *tail))
+                         .astype(np.float32)).to(dev, torch.bfloat16)
+    kernels.reset_launches()
+    got = ring.ring_exchange_stacked(x)
+    want = ring.ring_exchange_stacked_plain(x)
+    torch.cuda.synchronize()
+    assert ring.launches == 1 and got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert ring.timeouts() == 0
+    with pytest.raises(ValueError, match="4-byte words"):
+        ring.ring_exchange_stacked(torch.zeros((2, 2, 3), device=dev,
+                                               dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("path", ["gather", "stencil", "gather@8"])
+def test_one_bf16_step_on_card_matches_cpu(dev, path):
+    """One step with ``[server] dtype: bfloat16`` on the card and on the
+    CPU from the same table and draws: h and v within one bfloat16 ulp
+    (the card sums some grads in another order, a float32 difference that
+    can cross one rounding boundary), the float32 accumulators within
+    1e-5 + 1e-3 |b|, err_cnt exact."""
+    rendering, _, shards = path.partition("@")
+    conf = {"cluster": {"transfer": "tpu" if shards else "xla",
+                        "server_num": int(shards or 1)},
+            "word2vec": {"len_vec": 16, "window": 2, "negative": 5,
+                         "sample": 1e-3 if rendering == "stencil" else -1,
+                         "learning_rate": 0.05,
+                         "stencil": int(rendering == "stencil")},
+            "server": {"initial_learning_rate": 0.3, "dtype": "bfloat16"}}
+    sents = synthetic_corpus(40, 300, 16, seed=3)
+    models = []
+    for where in ("cuda", "cpu"):
+        m = Word2Vec(config=ConfigParser().update(conf), device=where,
+                     capacity_per_shard=80 if shards else 600)
+        m.build(sents)
+        models.append(m)
+    card, cpu = models
+    # the card's table, dealt to the CPU model's shards as it deals them
+    cpu.table.state = {
+        f: (split_rows(torch.cat(v).cpu(), cpu.cluster.mesh) if shards
+            else v.cpu().clone())
+        for f, v in card.table.state.items()}
+    rng = np.random.default_rng(1)
+    V, B = len(card.vocab), 64
+    draws = (rng.integers(0, V, (B, 5)), rng.random((B, 5), np.float32))
+    if rendering == "stencil":
+        batch = next(iter(CBOWBatcher(sents, card.vocab, 2, 1e-3,
+                                      seed=5).epoch_stencil(B)))
+    else:
+        batch = next(iter(CBOWBatcher(sents, card.vocab, 2, -1,
+                                      seed=5).epoch(B)))
+    kernels.reset_launches()
+    es_c, ec_c = card.step_batch(batch, draws=draws)
+    es_p, ec_p = cpu.step_batch(batch, draws=draws)
+    assert ec_c == ec_p
+    np.testing.assert_allclose(es_c, es_p, rtol=1e-5)
+    for f in ("h", "v", "h2sum", "v2sum"):
+        got, want = card.table.state[f], cpu.table.state[f]
+        got = torch.cat(got) if shards else got
+        want = torch.cat(want) if shards else want
+        if f in ("h", "v"):
+            assert got.dtype == torch.bfloat16
+            gap = (_ordinal(got.cpu()) - _ordinal(want)).abs().max()
+            assert int(gap) <= 1, (f, int(gap))
+        else:
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-3,
+                                       atol=1e-5)
+    counts = kernels.launch_counts()
+    assert counts["gather"] and counts["adagrad"]
+    assert counts["stencil"] == (rendering == "stencil")

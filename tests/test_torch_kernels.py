@@ -456,11 +456,12 @@ def test_dispatch_takes_plain_path_on_cpu(monkeypatch, kernel):
             rtol=0, atol=0)
     elif kernel == "stencil":
         t = torch.from_numpy(rng.normal(size=(CAP, D)).astype(np.float32))
-        lo = torch.from_numpy(rng.integers(0, 64 - 5, 20).astype(np.int32))
-        w = torch.from_numpy((rng.random((20, 5)) < 0.7).astype(np.float32))
+        sid = torch.from_numpy((np.arange(64) // 7).astype(np.int32))
+        cp = torch.from_numpy(rng.integers(-1, 64, 20))
+        half = torch.from_numpy(rng.integers(0, 3, 20).astype(np.int32))
         torch.testing.assert_close(
-            stencil.fused_stencil_gather(t, ts, lo, w),
-            stencil.fused_stencil_gather_plain(t, ts, lo, w),
+            stencil.stencil_context_sum(t, ts, sid, cp, half, 2),
+            stencil.stencil_context_sum_plain(t, ts, sid, cp, half, 2),
             rtol=0, atol=0)
     elif kernel == "ring":
         xs = [torch.from_numpy(x) for x in _ring_operands(
@@ -511,8 +512,9 @@ def test_dispatch_raises_on_other_devices(monkeypatch, kernel):
         elif kernel == "scatter":
             scatter.masked_scatter_add(ms, mv, meta, CAP)
         elif kernel == "stencil":
-            stencil.fused_stencil_gather(
-                meta, ms, ms, torch.empty((4, 3), device="meta"))
+            stencil.stencil_context_sum(
+                meta, ms, ms, torch.empty(4, dtype=torch.int64,
+                                          device="meta"), ms, 1)
         elif kernel == "ring":
             ring.ring_exchange([meta] * 4)
         elif kernel == "adagrad_rows":

@@ -144,9 +144,11 @@ def test_window_inputs_match_jax(W):
 @pytest.mark.parametrize("W,B,d,block_b", [(2, 50, 8, 16), (4, 96, 20, 96),
                                            (4, 90, 32, 40)])
 def test_context_sum_matches_pallas_and_oracle(W, B, d, block_b):
-    """The plain version (the CPU path of the wrapper) against the Pallas
-    kernel in interpret mode — with a ``block_b`` that divides ``B`` and
-    ones that do not — and the sequential oracle; pad centers exactly 0."""
+    """The plain version (the CPU path of the wrapper, which takes the
+    stencil batch itself) against the Pallas kernel in interpret mode —
+    with a ``block_b`` that divides ``B`` and ones that do not — and the
+    sequential oracle; pad centers exactly 0.  The plain version's second
+    half, the sum from ``(lo, wmask)``, gives the same result."""
     rng = np.random.default_rng(3)
     S, cap = B + 2 * W, 211
     table = rng.standard_normal((cap, d)).astype(np.float32)
@@ -160,9 +162,13 @@ def test_context_sum_matches_pallas_and_oracle(W, B, d, block_b):
         torch.from_numpy(sent_id), torch.from_numpy(center_pos),
         torch.from_numpy(half), W)
     kernels.reset_launches()
-    got = stencil.fused_stencil_gather(torch.from_numpy(table),
-                                       torch.from_numpy(slots), lo, wmask)
+    got = stencil.stencil_context_sum(
+        torch.from_numpy(table), torch.from_numpy(slots),
+        torch.from_numpy(sent_id), torch.from_numpy(center_pos).long(),
+        torch.from_numpy(half), W)
     assert stencil.launches == 0                 # the CPU runs the plain one
+    assert torch.equal(got, stencil.fused_stencil_gather_plain(
+        torch.from_numpy(table), torch.from_numpy(slots), lo, wmask))
     assert got.shape == (B, d) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
     oracle = _np_context_sums(table, slots, sent_id, center_pos, half)
@@ -171,24 +177,30 @@ def test_context_sum_matches_pallas_and_oracle(W, B, d, block_b):
 
 
 def test_context_sum_refuses_what_the_kernel_does_not_take():
-    """The contract the CUDA kernel takes, held on the CPU path too."""
+    """The contract the CUDA kernel takes, held on the CPU path too: a
+    float32 or bfloat16 table (a float16 one raises), int32 span arrays,
+    int64 center positions, a span of at least K rows."""
     rng = np.random.default_rng(0)
     t = torch.from_numpy(rng.standard_normal((20, 8)).astype(np.float32))
     slots = torch.arange(12, dtype=torch.int32)
-    lo = torch.zeros(6, dtype=torch.int32)
-    w = torch.ones((6, 5))
-    with pytest.raises(TypeError, match="bf16"):
-        stencil.fused_stencil_gather(t.bfloat16(), slots, lo, w)
-    with pytest.raises(TypeError, match="int32 lo"):
-        stencil.fused_stencil_gather(t, slots, lo.long(), w)
+    sid = torch.zeros(12, dtype=torch.int32)
+    cp = torch.arange(6, dtype=torch.int64) + 2
+    half = torch.full((6,), 2, dtype=torch.int32)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        stencil.stencil_context_sum(t.half(), slots, sid, cp, half, 2)
+    with pytest.raises(TypeError, match="int32 slots"):
+        stencil.stencil_context_sum(t, slots.long(), sid, cp, half, 2)
     with pytest.raises(TypeError, match="contiguous"):
-        stencil.fused_stencil_gather(t, slots, lo,
-                                     torch.ones((5, 6)).t())
+        stencil.stencil_context_sum(t, slots, sid, cp, torch.full(
+            (6, 2), 2, dtype=torch.int32)[:, 0], 2)
     with pytest.raises(ValueError, match="S = 4"):
-        stencil.fused_stencil_gather(t, slots[:4], lo, w)
-    torch.testing.assert_close(
-        stencil.fused_stencil_gather(t, slots[:5], lo, w),
-        t[:5].sum(0).expand(6, 8), rtol=1e-6, atol=1e-6)
+        stencil.stencil_context_sum(t, slots[:4], sid[:4], cp, half, 2)
+    # one sentence, centers 2..7 with radius 2: each sums the 4 rows
+    # around it
+    got = stencil.stencil_context_sum(t, slots, sid, cp, half, 2)
+    want = torch.stack([t[c - 2:c + 3].sum(0) - t[c]
+                        for c in range(2, 8)])
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
 # -- the stencil batcher -----------------------------------------------------

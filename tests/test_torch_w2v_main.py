@@ -113,7 +113,6 @@ def test_cli_trains_stencil_and_shared_confs(files, monkeypatch, lines,
 
 @pytest.mark.parametrize("line", ["[worker]\npipeline: 2", "sg: 1",
                                   "local_steps: 4",
-                                  "[server]\ndtype: bfloat16",
                                   "[cluster]\npush_window: 4",
                                   "[obs]\ntrace: 1"])
 def test_cli_refuses_unported_conf_keys(files, line):

@@ -227,7 +227,7 @@ def test_inner_steps_runs_ordinary_steps():
     ("word2vec", "local_steps", 2), ("word2vec", "async_mode", "hogwild"),
     ("cluster", "push_window", 2), ("cluster", "wire_quant", "int8"),
     ("cluster", "pull_quant", "bf16"), ("cluster", "pull_cache", 64),
-    ("cluster", "collective", "auto"), ("server", "dtype", "bfloat16"),
+    ("cluster", "collective", "auto"),
     ("cluster", "transfer", "hybrid"), ("cluster", "server_num", 2),
     ("obs", "numerics", 1), ("control", "control", "on"),
     ("serve", "every", 4)])
