@@ -43,8 +43,9 @@ Phases, each of which raises on a failed check:
    and one sharded ``gather`` step, float32 and bf16, against the sharded
    CPU step and, row for row by key, against the one-shard ``xla`` step
    on the card.  float32 fields within 1e-5 + 1e-3|b|; bf16 fields within
-   one bfloat16 ulp (the card sums some grads in another order, a float32
-   difference that can cross one rounding boundary).
+   that envelope or one bfloat16 ulp of b, whichever is wider (the card
+   sums some grads in another order, a float32 difference that can cross
+   a rounding boundary; near zero a bfloat16 step is finer than 1e-5).
 4. train: ``Word2Vec.train`` over a corpus prefix (>= 20 steps) for each
    rendering, every launch counter set to 0 just before; the run must have
    launched exactly the kernels of its path (the stencil kernel on every
@@ -734,24 +735,34 @@ def _ordinal(t: torch.Tensor) -> torch.Tensor:
     return torch.where(bits >= 0x8000, -mag, mag)
 
 
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """The step from each bfloat16 value of ``t`` to the next one away
+    from zero, in float32."""
+    mag = t.abs()
+    up = (mag.contiguous().view(torch.int16) + 1).view(torch.bfloat16)
+    return up.float() - mag.float()
+
+
 def _field_gap(what: str, got: torch.Tensor, want: torch.Tensor) -> dict:
-    """float32 fields within 1e-5 + 1e-3|b|; bf16 fields within one
-    bfloat16 ulp.  Returns the gap and, for bf16, the bit-equal share."""
+    """float32 fields within |a-b| <= 1e-5 + 1e-3|b|.  bf16 fields within
+    that envelope or one bfloat16 ulp of b, whichever is wider: one
+    rounding step (2^-8 to 2^-7 relative) is wider than the envelope's
+    1e-3 relative, and near zero the envelope's 1e-5 is wider than a step.
+    Returns the largest gap, and for bf16 the largest gap in ulps and the
+    share of bit-equal elements."""
+    gap = (got.float() - want.float()).abs()
+    limit = 1e-5 + 1e-3 * want.float().abs()
+    out = {"max_abs_gap": gap.max().item()}
     if got.dtype == torch.bfloat16:
+        limit = torch.maximum(limit, bf16_ulp(want))
         ulps = (_ordinal(got) - _ordinal(want)).abs()
-        worst = int(ulps.max())
-        if worst > 1:
-            raise AssertionError(f"{what} is {worst} bf16 ulps off "
-                                 f"({int((ulps > 1).sum())} elements)")
-        return {"max_ulps": worst,
-                "bit_equal_share": float((ulps == 0).float().mean())}
-    gap = (got - want).abs()
-    limit = 1e-5 + 1e-3 * want.abs()
+        out.update(max_ulps=int(ulps.max()),
+                   bit_equal_share=float((ulps == 0).float().mean()))
     if not bool((gap <= limit).all()):
         raise AssertionError(
-            f"{what} leaves |a-b| <= 1e-5 + 1e-3|b| (max gap "
-            f"{gap.max().item()}, {int((gap > limit).sum())} elements)")
-    return {"max_abs_gap": gap.max().item()}
+            f"{what} leaves its tolerance (max gap {gap.max().item()}, "
+            f"{int((gap > limit).sum())} elements; {out})")
+    return out
 
 
 def phase_step_parity(path: str, vocab, batch) -> None:
@@ -785,15 +796,14 @@ def phase_step_parity(path: str, vocab, batch) -> None:
                 "centers": B, "real_centers": batch.n_words,
                 "err_sum": [es_c, es_p], "err_cnt": [ec_c, ec_p],
                 "gap": worst, "envelope": "1e-5 + 1e-3*|cpu|; bf16 fields "
-                "one ulp", "push_paths": dict(model.transfer.push_paths),
+                "that or one ulp", "push_paths": dict(model.transfer.push_paths),
                 "launches": counts})
 
 
 def phase_step_parity_sharded(vocab, batch, dtype: str = "") -> None:
     """One ``gather`` step of the sharded parameter server on the card,
-    against the same sharded step on the CPU (whole tables, float32
-    fields inside the envelope, bf16 fields within one ulp, ``err_cnt``
-    exact) and against the one-shard ``xla`` step on the card, row for row
+    against the same sharded step on the CPU (whole tables, each field
+    within ``_field_gap``'s tolerance, ``err_cnt`` exact) and against the one-shard ``xla`` step on the card, row for row
     by key: the two lay the same words out in different slots.
     ``dtype``: ``""`` or ``BF16``."""
     path = f"gather@{SHARDS}{dtype}"
@@ -850,7 +860,7 @@ def phase_step_parity_sharded(vocab, batch, dtype: str = "") -> None:
                 "gap_vs_cpu": worst_cpu,
                 "gap_vs_one_shard_by_key": worst_one,
                 "rows_moved": moved, "envelope": "1e-5 + 1e-3*|b|; bf16 "
-                "fields one ulp",
+                "fields that or one ulp",
                 "shard_fill": model.table.key_index.shard_fill().tolist(),
                 "push_paths": dict(model.transfer.push_paths),
                 "launches": counts})

@@ -8,22 +8,24 @@ the first stencil batch of 5,000 centers over a 5,008-row span): the
 reference batch (sample 1e-5: about 790 real centers, the rest padded)
 and the same corpus with subsampling off (every center real, so
 neighbouring centers share most window rows), each on a float32 and a
-bfloat16 table.  One JSON line a case and form: the median kernel time
-from CUDA events with the L2 flushed before each and the host's enqueue
-not timed (as ``chip_smoke.py`` times it), taken before and after the
-others; the byte bound; and whether the form is bit-equal to the plain
-version.  Forms:
+bfloat16 table.  One JSON line a case and form: the median time from
+CUDA events with the L2 flushed before each and the host's enqueue not
+timed where a 50 us spin on the card outlasts it (as ``chip_smoke.py``
+times it), the kernel's taken before and after the others; the byte
+bound; and whether the form is bit-equal to the plain version.  Forms:
 
-* ``register``: a warp a center, the window rule in registers, rows from
-  global memory;
-* ``staged``: a CTA of 8 centers stages their windows' rows in shared
-  memory first;
-* ``first kernel + window inputs`` (float32 only): what a stencil step ran
-  before, the window inputs' torch ops and the first kernel over their
-  ``(B, K)`` mask, with ``first kernel alone`` beside it;
+* ``kernel``: ``stencil_context_sum``, one launch from the batch's arrays;
+* ``window inputs``: the torch ops of ``stencil_window_inputs`` alone,
+  what the step ran before the first kernel until the kernel took them
+  over (their enqueue outlasts the spin, so this is host time as much as
+  device time);
 * ``plain`` and ``library`` (``F.embedding_bag`` over the window rows with
   the mask as per-sample weights, the inputs made beforehand; on a
   bfloat16 table it sums into bfloat16).
+
+At the commit that brought it, this sweep also timed the first kernel
+(from the window inputs' ``(lo, wmask)``) and a form staging a tile of
+centers' window rows in shared memory; PERF.md has those numbers.
 """
 
 from __future__ import annotations
@@ -82,23 +84,17 @@ def _cases(label, table, args, window, flush):
             "real_centers": int((args[2] >= 0).sum()),
             "span": int(args[0].shape[0]), "rows_reached": rows,
             "bound_ms": nbytes / PEAK_BYTES_S * 1e3}
-    fns = {f: (lambda f=f: stencil.stencil_context_sum(table, *args, window,
-                                                       form=f))
-           for f in stencil.FORMS}
-    if table.dtype == torch.float32:
-        lo, wm = stencil.stencil_window_inputs(*args[1:], window)
-        fns["first kernel + window inputs"] = lambda: \
-            stencil.fused_stencil_gather(
-                table, args[0], *stencil.stencil_window_inputs(
-                    *args[1:], window))
-        fns["first kernel alone"] = lambda: stencil.fused_stencil_gather(
-            table, args[0], lo, wm)
+    fns = {"kernel": lambda: stencil.stencil_context_sum(table, *args,
+                                                           window),
+           "window inputs": lambda: stencil.stencil_window_inputs(
+               *args[1:], window)}
     out = []
     for form, fn in fns.items():
         got = fn()
         torch.cuda.synchronize()
         out.append({**base, "form": form, "ms": [_median_ms(fn, flush)],
-                    "bit_equal": bool(torch.equal(got, want))})
+                    "bit_equal": bool(torch.equal(got, want))
+                    if form == "kernel" else None})
     out.append({**base, "form": "plain", "ms": [_median_ms(
         lambda: stencil.stencil_context_sum_plain(table, *args, window),
         flush)], "bit_equal": True})
@@ -106,10 +102,8 @@ def _cases(label, table, args, window, flush):
         lambda: F.embedding_bag(src, table, mode="sum",
                                 per_sample_weights=wm_t), flush)],
         "bit_equal": None})
-    # the kernel forms again, after the others
-    for row in out:
-        if row["form"] in fns:
-            row["ms"].append(_median_ms(fns[row["form"]], flush))
+    # the kernel again, after the others
+    out[0]["ms"].append(_median_ms(fns["kernel"], flush))
     return out
 
 

@@ -22,28 +22,23 @@
 // redesign folds the ~20 torch launches of the window inputs, and the
 // (B, K) float mask they wrote and the kernel read back, into the kernel.
 //
-// Two forms of one design, a warp a center, lanes along d (16-byte float4
-// for float32 rows, 8-byte groups of four bfloat16 when d % 4 == 0, else
-// one element a lane):
-// - register form: lanes 0..15 each take a window row, test it against the
-//   rule (one load of sent_id and one of the slot, side by side) and
-//   shuffle the slots of the rows that are on to every lane; every lane
-//   then issues all of a chunk's row loads before it sums them.
-// - staged form: a CTA takes 8 consecutive centers and stages the union of
-//   their windows, rows [min lo, max lo + K), in shared memory with
-//   cp.async (16 bytes a copy for float32; 8 for bfloat16, because a
-//   200-byte bfloat16 row is not 16-byte aligned), upcasts it once, and
-//   each warp sums its center from shared memory.  A tile whose range is
-//   wider than the stage, and every tile of an unaligned or narrow-element
-//   table, reads from global memory as the register form does; a tile of
-//   padded centers only writes zeros.
-// Either way each on row is added in k order with each sum rounded on its
-// own (__fadd_rn), the order of the plain PyTorch version, which adds
-// 0 * row for the rows that are off: for a finite table that is +-0 and
-// leaves the sum as it is, so the two agree bit for bit on the card.
-//
-// smtpu_stencil_gather_f32 is the first kernel's entry point: the same
-// sum from (lo, wmask) made beforehand, float32 rows only.
+// Design: a warp a center, lanes along d (16-byte float4 for float32
+// rows, 8-byte groups of four bfloat16 when d % 4 == 0, because a 200-byte
+// bfloat16 row is not 16-byte aligned; else one element a lane).  Lanes
+// 0..15 each take a window row, test it against the rule (one load of
+// sent_id and one of the slot, side by side) and shuffle the slots of the
+// rows that are on to every lane; every lane then issues all of a chunk's
+// row loads before it sums them, so the chain is center_pos -> sent_id and
+// slots -> rows, and the L1/L2 serve the rows that neighbouring centers
+// share.  A padded center writes a zero row without reading the table.
+// Each on row is added in k order with each sum rounded on its own
+// (__fadd_rn), the order of the plain PyTorch version, which adds 0 * row
+// for the rows that are off: for a finite table that is +-0 and leaves the
+// sum as it is, so the two agree bit for bit on the card.  A form that
+// stages a tile of centers' window rows in shared memory with cp.async
+// first was slower at every batch timed (PERF.md, apps/stencil_sweep.py):
+// at the word2vec batches a row is read by one or two centers, so staging
+// only adds a barrier and a pass.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -53,10 +48,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 16;                 // window rows in flight per lane
 constexpr unsigned kFull = 0xffffffffu;
-// the staged form: centers a CTA (one a warp) and the most rows it stages
-constexpr int kTile = kWarps;
-constexpr int kStageRows = 64;
-constexpr int kMaxSmem = 48 << 10;         // no opt-in attribute needed
 
 __device__ __forceinline__ long long clip_slot(int s, long long cap) {
   long long v = s;
@@ -84,17 +75,6 @@ __device__ __forceinline__ float add(float a, float b) {
 __device__ __forceinline__ float4 add(float4 a, float4 b) {
   return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
                      __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
-}
-
-__device__ __forceinline__ float madd(float acc, float w, float v) {
-  return __fadd_rn(acc, __fmul_rn(w, v));
-}
-__device__ __forceinline__ float4 madd(float4 acc, float w, float4 v) {
-  acc.x = madd(acc.x, w, v.x);
-  acc.y = madd(acc.y, w, v.y);
-  acc.z = madd(acc.z, w, v.z);
-  acc.w = madd(acc.w, w, v.w);
-  return acc;
 }
 
 template <typename F> __device__ __forceinline__ F vzero();
@@ -142,10 +122,10 @@ __device__ __forceinline__ int window_slot(const Center& c,
   return on ? (int)clip_slot(slot, cap) : -1;
 }
 
-// Center c's sum from global memory: chunks of kChunk window rows, every
-// row load of a chunk issued before its adds.
+// Center c's sum: chunks of kChunk window rows, every row load of a chunk
+// issued before its adds.
 template <typename E, typename F>
-__device__ __forceinline__ void sum_global(const E* __restrict__ table,
+__device__ __forceinline__ void sum_window(const E* __restrict__ table,
                                            const int* __restrict__ slots,
                                            const int* __restrict__ sent_id,
                                            const Center& c, F* dst, int lane,
@@ -180,7 +160,7 @@ __device__ __forceinline__ void write_zero(F* dst, int lane, int dv) {
   for (int col = lane; col < dv; col += 32) dst[col] = vzero<F>();
 }
 
-// The register form: a warp a center.
+// A warp a center.
 template <typename E, typename F>
 __global__ void context_sum_warp(const E* __restrict__ table,
                                  const int* __restrict__ slots,
@@ -198,156 +178,7 @@ __global__ void context_sum_warp(const E* __restrict__ table,
     write_zero(dst, lane, dv);
     return;
   }
-  sum_global<E, F>(table, slots, sent_id, c, dst, lane, S, W, dv, cap);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(s),
-               "l"(gmem), "n"(N)
-               : "memory");
-}
-
-// The staged form: a CTA of kTile centers, their windows' rows staged in
-// shared memory (float32, after the raw bfloat16 rows are upcast once).
-// E is float4 or uint2 (d % 4 == 0, aligned rows); stage_rows == 0 turns
-// staging off.
-template <typename E>
-__global__ void context_sum_staged(const E* __restrict__ table,
-                                   const int* __restrict__ slots,
-                                   const int* __restrict__ sent_id,
-                                   const long long* __restrict__ center_pos,
-                                   const int* __restrict__ half,
-                                   float4* __restrict__ out, int B, int S,
-                                   int W, int dv, long long cap,
-                                   int stage_rows) {
-  extern __shared__ float4 stage[];          // stage_rows x dv float4
-  __shared__ int tile_lo[kTile];
-  __shared__ int tile_real[kTile];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int K = 2 * W + 1;
-  const long long b = (long long)blockIdx.x * kTile + warp;
-  Center c;
-  c.real = false;
-  c.lo = 0;
-  if (b < B) c = center_of(center_pos, half, sent_id, b, S, W);
-  if (lane == 0) {
-    tile_lo[warp] = c.lo;
-    tile_real[warp] = c.real;
-  }
-  __syncthreads();
-  int rmin = S, rmax = 0;
-#pragma unroll
-  for (int w = 0; w < kTile; ++w)
-    if (tile_real[w]) {
-      rmin = min(rmin, tile_lo[w]);
-      rmax = max(rmax, tile_lo[w] + K);
-    }
-  float4* dst = out + b * dv;
-  if (rmax == 0) {                           // every center padded
-    if (b < B) write_zero(dst, lane, dv);
-    return;
-  }
-  const int rows = rmax - rmin;
-  if (rows > stage_rows) {                   // wider than the stage
-    if (b < B) {
-      if (c.real)
-        sum_global<E, float4>(table, slots, sent_id, c, dst, lane, S, W, dv,
-                              cap);
-      else
-        write_zero(dst, lane, dv);
-    }
-    return;
-  }
-  // stage rows rmin .. rmax-1 (raw: in place for float32, after the float
-  // rows for bfloat16), then upcast the raw rows once
-  E* raw = sizeof(E) == sizeof(float4)
-               ? reinterpret_cast<E*>(stage)
-               : reinterpret_cast<E*>(stage + (long long)stage_rows * dv);
-  const int chunks = rows * dv;
-  for (int i = threadIdx.x; i < chunks; i += kThreads) {
-    const int r = i / dv;
-    const long long s = clip_slot(slots[rmin + r], cap);
-    cp_async<sizeof(E)>(raw + i, table + s * dv + (i - r * dv));
-  }
-  asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;" ::
-                   : "memory");
-  __syncthreads();
-  if (sizeof(E) != sizeof(float4)) {
-    for (int i = threadIdx.x; i < chunks; i += kThreads) stage[i] = up(raw[i]);
-    __syncthreads();
-  }
-  if (b >= B) return;
-  if (!c.real) {
-    write_zero(dst, lane, dv);
-    return;
-  }
-  for (int c0 = 0; c0 < dv; c0 += 32) {
-    const int col = c0 + lane;
-    float4 acc = vzero<float4>();
-    for (int k0 = 0; k0 < K; k0 += 32) {
-      const bool mine = k0 + lane < K &&
-                        window_slot(c, slots, sent_id, k0 + lane, S, cap) >= 0;
-      const unsigned on = __ballot_sync(kFull, mine);
-      const int n = K - k0 < 32 ? K - k0 : 32;
-      if (col < dv)
-        for (int k = 0; k < n; ++k)
-          if ((on >> k) & 1u)
-            acc = add(acc, stage[(c.lo + k0 + k - rmin) * dv + col]);
-    }
-    if (col < dv) dst[col] = acc;
-  }
-}
-
-// The first kernel: the sum from (lo, wmask) made beforehand, float32 rows.
-// V is float (any d) or float4 (d % 4 == 0, 16-byte aligned rows).
-template <typename V>
-__global__ void stencil_gather(const V* __restrict__ table,
-                               const int* __restrict__ slots,
-                               const int* __restrict__ lo,
-                               const float* __restrict__ wmask,
-                               V* __restrict__ out, int B, int S, int K,
-                               int dv, long long cap) {
-  const int lane = threadIdx.x & 31;
-  const long long b = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (b >= B) return;                                   // warp-uniform
-  const float* w = wmask + b * K;
-  V* dst = out + b * dv;
-  bool any = false;
-  for (int k = lane; k < K; k += 32) any |= (w[k] != 0.f);
-  if (!__any_sync(kFull, any)) {                        // padded center
-    write_zero(dst, lane, dv);
-    return;
-  }
-  int l = lo[b];
-  l = l < 0 ? 0 : (l > S - K ? S - K : l);
-  for (int c0 = 0; c0 < dv; c0 += 32) {
-    const int c = c0 + lane;
-    const bool col = c < dv;
-    V acc = vzero<V>();
-    for (int k0 = 0; k0 < K; k0 += kChunk) {
-      long long my_slot = 0;
-      float my_w = 0.f;
-      if (lane < kChunk && k0 + lane < K) {
-        my_w = w[k0 + lane];
-        my_slot = clip_slot(slots[l + k0 + lane], cap);
-      }
-      V rows[kChunk];
-#pragma unroll
-      for (int k = 0; k < kChunk; ++k) {
-        const long long s = __shfl_sync(kFull, my_slot, k);
-        rows[k] = (col && k0 + k < K) ? __ldg(table + s * dv + c)
-                                      : vzero<V>();
-      }
-#pragma unroll
-      for (int k = 0; k < kChunk; ++k) {
-        const float wk = __shfl_sync(kFull, my_w, k);
-        if (k0 + k < K) acc = madd(acc, wk, rows[k]);
-      }
-    }
-    if (col) dst[c] = acc;
-  }
+  sum_window<E, F>(table, slots, sent_id, c, dst, lane, S, W, dv, cap);
 }
 
 template <typename E, typename F>
@@ -361,52 +192,26 @@ int launch_warp(const void* table, const int* slots, const int* sent_id,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename E>
-int launch_staged(const void* table, const int* slots, const int* sent_id,
-                  const long long* center_pos, const int* half, void* out,
-                  int B, int S, int W, int dv, long long cap,
-                  cudaStream_t s) {
-  // float32 stage rows, plus the raw rows for bfloat16
-  const long long row_bytes =
-      (long long)dv * (sizeof(float4) + (sizeof(E) == sizeof(float4)
-                                             ? 0 : sizeof(E)));
-  long long rows = kMaxSmem / row_bytes;
-  rows = rows < kStageRows ? rows : kStageRows;
-  if (rows < 2 * W + 1) rows = 0;            // a window does not fit
-  const unsigned blocks = (unsigned)((B + kTile - 1) / kTile);
-  context_sum_staged<E><<<blocks, kThreads, (size_t)(rows * row_bytes), s>>>(
-      static_cast<const E*>(table), slots, sent_id, center_pos, half,
-      static_cast<float4*>(out), B, S, W, dv, cap, (int)rows);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // out (B, d) float32 <- the context sums of the stencil batch.  table
 // (cap, d): float32 (bf16 = 0) or bfloat16 (bf16 = 1).  slots, sent_id:
 // (S,) int32; center_pos (B,) int64; half (B,) int32.  vec4: d % 4 == 0
 // and every row aligned to its 4-element group (16 bytes float32, 8
-// bytes bfloat16), out 16-byte aligned.  staged: 1 for the staged form (its
-// stage needs vec4; without it every tile reads from global memory).
+// bytes bfloat16), out 16-byte aligned.
 extern "C" int smtpu_stencil_context_sum(const void* table, int bf16,
                                          const void* slots,
                                          const void* sent_id,
                                          const void* center_pos,
                                          const void* half, void* out, int B,
                                          int S, int W, int d, long long cap,
-                                         int vec4, int staged,
-                                         void* stream) {
+                                         int vec4, void* stream) {
   if (B <= 0 || d <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* sl = static_cast<const int*>(slots);
   const int* sid = static_cast<const int*>(sent_id);
   const long long* cp = static_cast<const long long*>(center_pos);
   const int* hf = static_cast<const int*>(half);
-  if (vec4 && staged)
-    return bf16 ? launch_staged<uint2>(table, sl, sid, cp, hf, out, B, S, W,
-                                       d / 4, cap, s)
-                : launch_staged<float4>(table, sl, sid, cp, hf, out, B, S, W,
-                                        d / 4, cap, s);
   if (vec4)
     return bf16 ? launch_warp<uint2, float4>(table, sl, sid, cp, hf, out, B,
                                              S, W, d / 4, cap, s)
@@ -416,26 +221,4 @@ extern "C" int smtpu_stencil_context_sum(const void* table, int bf16,
                                                    out, B, S, W, d, cap, s)
               : launch_warp<float, float>(table, sl, sid, cp, hf, out, B, S,
                                           W, d, cap, s);
-}
-
-extern "C" int smtpu_stencil_gather_f32(const void* table, const void* slots,
-                                        const void* lo, const void* wmask,
-                                        void* out, int B, int S, int K, int d,
-                                        long long cap, int vec4,
-                                        void* stream) {
-  if (B <= 0 || d <= 0) return 0;
-  const unsigned blocks = (unsigned)((B + kWarps - 1) / kWarps);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec4) {
-    stencil_gather<float4><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float4*>(table), static_cast<const int*>(slots),
-        static_cast<const int*>(lo), static_cast<const float*>(wmask),
-        static_cast<float4*>(out), B, S, K, d / 4, cap);
-  } else {
-    stencil_gather<float><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(table), static_cast<const int*>(slots),
-        static_cast<const int*>(lo), static_cast<const float*>(wmask),
-        static_cast<float*>(out), B, S, K, d, cap);
-  }
-  return static_cast<int>(cudaGetLastError());
 }

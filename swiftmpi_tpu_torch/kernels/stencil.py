@@ -19,10 +19,12 @@ exactly and summed in float32, in k order.
 The CUDA kernel gives each center one warp (lanes along d): lanes test a
 window row each against the rule and load its slot, then every lane issues
 the window's row loads before it sums them; a padded center writes a zero
-row.  Bound on the card: bytes — the four index arrays, the distinct table
-rows the windows reach, read once, and neu1 written once; at the word2vec
-reference shape that is under a microsecond, so the kernel is launch- and
-latency-sized.  The JAX package's VMEM gate (``fits_vmem`` /
+row.  A form that staged a tile of centers' rows in shared memory first
+was slower at every batch timed (PERF.md; ``apps/stencil_sweep.py`` at
+the commit that brought both).  Bound on the card: bytes — the four index
+arrays, the distinct table rows the windows reach, read once, and neu1
+written once; at the word2vec reference shape that is under a
+microsecond, so the kernel is launch- and latency-sized.  The JAX package's VMEM gate (``fits_vmem`` /
 ``use_fused_stencil``) has no counterpart: the kernel keeps no span on
 chip, so every span size routes through it.
 
@@ -57,17 +59,7 @@ TABLE_DTYPES = (torch.float32, torch.bfloat16)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p]
-
-_ARGTYPES_LO = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                ctypes.c_void_p]
-
-#: forms of the kernel: a warp a center reading rows from global memory,
-#: or a CTA of 8 centers staging their windows' rows in shared memory
-FORMS = ("register", "staged")
+             ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 
 
 def stencil_window_inputs(sent_id: torch.Tensor, center_pos: torch.Tensor,
@@ -153,21 +145,16 @@ def _check(table, slots, sent_id, center_pos, half, window):
 
 def stencil_context_sum(table: torch.Tensor, slots: torch.Tensor,
                         sent_id: torch.Tensor, center_pos: torch.Tensor,
-                        half: torch.Tensor, window: int,
-                        form: str = "register") -> torch.Tensor:
+                        half: torch.Tensor, window: int) -> torch.Tensor:
     """``(B, d)`` float32 context sums ``neu1`` of a stencil batch:
     ``table`` ``(cap, d)`` float32 or bfloat16, the span's ``slots`` and
     ``sent_id`` (int32, ``-1`` padding), the batch's ``center_pos``
     (int64, ``-1`` for a padded center) and ``half`` (int32), the
-    window ``W``.  ``form``: one of :data:`FORMS` (the kernel's two
-    forms; the plain version is one)."""
+    window ``W``."""
     global launches
     if table.device.type not in ("cpu", "cuda"):
         raise ValueError(
             f"stencil_context_sum: unsupported device {table.device}")
-    if form not in FORMS:
-        raise ValueError(f"stencil_context_sum: form must be one of "
-                         f"{FORMS}, got {form!r}")
     _check(table, slots, sent_id, center_pos, half, window)
     if table.device.type == "cpu":
         return stencil_context_sum_plain(table, slots, sent_id, center_pos,
@@ -183,30 +170,8 @@ def stencil_context_sum(table: torch.Tensor, slots: torch.Tensor,
     rc = fn(table.data_ptr(), int(table.dtype == torch.bfloat16),
             slots.data_ptr(), sent_id.data_ptr(), center_pos.data_ptr(),
             half.data_ptr(), out.data_ptr(), B, slots.shape[0], int(window),
-            d, table.shape[0], vec4, int(form == "staged"),
-            build.stream_of(table))
+            d, table.shape[0], vec4, build.stream_of(table))
     build.check_launch("stencil_context_sum", rc)
     launches += 1
     return out
 
-
-def fused_stencil_gather(table: torch.Tensor, slots: torch.Tensor,
-                         lo: torch.Tensor,
-                         wmask: torch.Tensor) -> torch.Tensor:
-    """The first kernel: the sum from ``(lo, wmask)`` made beforehand by
-    :func:`stencil_window_inputs`, float32 tables, CUDA tensors only (for
-    timing against :func:`stencil_context_sum`).  Counts no launch: no
-    path runs it."""
-    if table.device.type != "cuda" or table.dtype != torch.float32:
-        raise TypeError("fused_stencil_gather takes a float32 CUDA table")
-    B, K = wmask.shape
-    d = table.shape[1]
-    out = torch.empty((B, d), dtype=torch.float32, device=table.device)
-    vec4 = int(d % 4 == 0 and table.data_ptr() % 16 == 0
-               and out.data_ptr() % 16 == 0)
-    fn = build.function("stencil", "smtpu_stencil_gather_f32", _ARGTYPES_LO)
-    rc = fn(table.data_ptr(), slots.data_ptr(), lo.data_ptr(),
-            wmask.data_ptr(), out.data_ptr(), B, slots.shape[0], K, d,
-            table.shape[0], vec4, build.stream_of(table))
-    build.check_launch("fused_stencil_gather", rc)
-    return out

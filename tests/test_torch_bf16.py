@@ -461,8 +461,6 @@ def test_stencil_context_sum_refuses_what_the_kernel_does_not_take():
         stencil.stencil_context_sum(t, slots, sid[:5], cp, half, 2)
     with pytest.raises(ValueError, match="S = 4"):
         stencil.stencil_context_sum(t, slots[:4], sid[:4], cp, half, 2)
-    with pytest.raises(ValueError, match="form"):
-        stencil.stencil_context_sum(t, slots, sid, cp, half, 2, form="x")
     got = stencil.stencil_context_sum(t.bfloat16(), slots, sid, cp, half, 2)
     want = stencil.stencil_context_sum(t.bfloat16().float(), slots, sid, cp,
                                        half, 2)

@@ -155,7 +155,6 @@ def _span(rng, B, W, S, order):
     return sent_id, center_pos, half
 
 
-@pytest.mark.parametrize("form", stencil.FORMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,W,S,d,order", [
     (200, 4, 208, 7, "sorted"),        # d = 7: one element a lane
@@ -163,14 +162,14 @@ def _span(rng, B, W, S, order):
     (200, 4, 208, 100, "shuffled"),    # centers in no span order
     (64, 4, 72, 100, "none"),          # every center padded: all zero
     (5, 4, 9, 100, "spread"),          # S = 2W + 1
-    (64, 4, 4000, 100, "spread"),      # tiles wider than the stage
+    (64, 4, 4000, 100, "spread"),      # neighbours far apart in the span
     (100, 10, 120, 100, "sorted"),     # K = 21: two chunks of window rows
-    (300, 4, 2000, 36, "sorted")])     # a stage of more rows per tile
-def test_stencil_kernel_matches_plain_on_card(dev, B, W, S, d, order, dtype,
-                                              form):
-    """B4 from the stencil batch itself, in either form, on a float32 or
-    bfloat16 table, against its plain version (the window inputs, then
-    the k-order sum of upcast rows), bit for bit.  One launch."""
+    (300, 4, 2000, 36, "sorted")])     # d = 36: 9 lanes of 4
+def test_stencil_kernel_matches_plain_on_card(dev, B, W, S, d, order,
+                                              dtype):
+    """B4 from the stencil batch itself, on a float32 or bfloat16 table,
+    against its plain version (the window inputs, then the k-order sum of
+    upcast rows), bit for bit.  One launch."""
     rng = np.random.default_rng(S + d)
     cap = 1000
     sent_id, center_pos, half = _span(rng, B, W, S, order)
@@ -182,8 +181,7 @@ def test_stencil_kernel_matches_plain_on_card(dev, B, W, S, d, order, dtype,
                                                           center_pos, half))
     cp = cp.long()
     kernels.reset_launches()
-    got = stencil.stencil_context_sum(table, slots, sid, cp, hf, W,
-                                      form=form)
+    got = stencil.stencil_context_sum(table, slots, sid, cp, hf, W)
     want = stencil.stencil_context_sum_plain(table, slots, sid, cp, hf, W)
     torch.cuda.synchronize()
     assert stencil.launches == 1 and got.dtype == torch.float32
@@ -585,14 +583,6 @@ def test_adagrad_and_blocks_refuse_bad_inputs(dev):
 
 # -- bf16 tables: B2's bf16 rows, B1's mixed form, B5 on bf16 buckets --------
 
-def _ordinal(t: torch.Tensor) -> torch.Tensor:
-    """bfloat16 values as integers in the order of the reals (adjacent
-    representable values differ by 1; +0 and -0 are both 0)."""
-    bits = t.contiguous().view(torch.int16).long() & 0xFFFF
-    mag = bits & 0x7FFF
-    return torch.where(bits >= 0x8000, -mag, mag)
-
-
 @pytest.mark.parametrize("R", [None, 1, 3, 8])
 @pytest.mark.parametrize("d", [100, 101, 7])
 def test_gather_bf16_forms_match_plain_on_card(dev, R, d):
@@ -733,10 +723,11 @@ def test_ring_kernel_moves_bf16_blocks_on_card(dev, n, tail):
 @pytest.mark.parametrize("path", ["gather", "stencil", "gather@8"])
 def test_one_bf16_step_on_card_matches_cpu(dev, path):
     """One step with ``[server] dtype: bfloat16`` on the card and on the
-    CPU from the same table and draws: h and v within one bfloat16 ulp
-    (the card sums some grads in another order, a float32 difference that
-    can cross one rounding boundary), the float32 accumulators within
-    1e-5 + 1e-3 |b|, err_cnt exact."""
+    CPU from the same table and draws: h and v within 1e-5 + 1e-3 |b| or
+    one bfloat16 ulp of b, whichever is wider (the card sums some grads in
+    another order, a float32 difference that can cross a rounding
+    boundary; near zero a bfloat16 step is finer than 1e-5), the float32
+    accumulators within 1e-5 + 1e-3 |b|, err_cnt exact."""
     rendering, _, shards = path.partition("@")
     conf = {"cluster": {"transfer": "tpu" if shards else "xla",
                         "server_num": int(shards or 1)},
@@ -778,8 +769,12 @@ def test_one_bf16_step_on_card_matches_cpu(dev, path):
         want = torch.cat(want) if shards else want
         if f in ("h", "v"):
             assert got.dtype == torch.bfloat16
-            gap = (_ordinal(got.cpu()) - _ordinal(want)).abs().max()
-            assert int(gap) <= 1, (f, int(gap))
+            gap = (got.cpu().float() - want.float()).abs()
+            mag = want.abs()
+            step = ((mag.view(torch.int16) + 1).view(torch.bfloat16).float()
+                    - mag.float())
+            limit = torch.maximum(1e-5 + 1e-3 * mag.float(), step)
+            assert bool((gap <= limit).all()), (f, gap.max().item())
         else:
             torch.testing.assert_close(got.cpu(), want, rtol=1e-3,
                                        atol=1e-5)
