@@ -4,7 +4,8 @@
 the CUDA device; the CPU only when asked for).  Only the sync variant is
 ported: ``-variant async|hogwild`` and ``-checkpoint`` raise.  The conf's
 ``[word2vec] stencil: 1`` and ``shared_negatives: 1`` pick the stencil,
-shared and stencil_shared renderings, as in the JAX package.  The sharded
+shared and stencil_shared renderings, and ``[server] dtype: bfloat16``
+bf16 tables, as in the JAX package.  The sharded
 parameter server is the conf's ``[cluster] transfer: tpu`` with
 ``server_num: n``; ``-shards n`` sets ``server_num`` from the command
 line.

@@ -27,9 +27,8 @@ Either takes an optional per-row operand applied to the grad first:
 callers rounded their separate scale pass.  Bound on the card: bytes —
 20 bytes an element (three reads, two writes; 16 with a bfloat16 param)
 over 3.35 TB/s, plus the per-row operands; times in PERF.md
-(``chip_smoke.py``).  The kernel rounds
-each op as the plain version does, and on the card the two agree bit for
-bit.
+(``chip_smoke.py``).  The kernel rounds each op as the plain version
+does, and on the card the two agree bit for bit.
 
 The wrappers run the plain version for CPU tensors and the kernel for
 CUDA tensors, raising on what the kernel does not take.
@@ -116,12 +115,13 @@ def _check_table(param, accum):
     """param (float32 or bfloat16) and accum (float32): ``(cap, d)``
     tables, or ``(R, cap, d)`` blocks of contiguous rank slices at one
     rank stride."""
-    for name, t, dtypes in (("param", param, PARAM_DTYPES),
-                            ("accum", accum, (torch.float32,))):
-        if t.dtype not in dtypes:
-            raise TypeError(f"adagrad_update_ needs "
-                            f"{' or '.join(str(x)[6:] for x in dtypes)} "
-                            f"{name}, got {t.dtype}")
+    if param.dtype not in PARAM_DTYPES:
+        raise TypeError(f"adagrad_update_ needs float32 or bfloat16 param, "
+                        f"got {param.dtype}")
+    if accum.dtype != torch.float32:
+        raise TypeError(f"adagrad_update_ needs float32 accum, got "
+                        f"{accum.dtype}")
+    for name, t in (("param", param), ("accum", accum)):
         if t.dim() == 3:
             ok = t.shape[0] <= 1 or t.stride(0) >= t[0].numel()
             ok = ok and (t.shape[0] == 0 or t[0].is_contiguous())
