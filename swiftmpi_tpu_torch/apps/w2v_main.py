@@ -8,7 +8,11 @@ shared and stencil_shared renderings, and ``[server] dtype: bfloat16``
 bf16 tables, as in the JAX package.  The sharded
 parameter server is the conf's ``[cluster] transfer: tpu`` with
 ``server_num: n``; ``-shards n`` sets ``server_num`` from the command
-line.
+line.  The corpus loads and batches through the native C++ loader
+(``data/native.py``: ``load_corpus_native`` and the prefetching batcher)
+when its library builds, as the JAX CLI picks it, else through the Python
+loader; the log names the loader.  ``[worker] pipeline: K`` and
+``inner_steps: N`` in the conf take effect through ``Word2Vec.train``.
 
     python -m swiftmpi_tpu_torch.apps.w2v_main -config demo.conf \\
         -data corpus.txt -niters 1 -output vectors.txt
@@ -18,6 +22,7 @@ from __future__ import annotations
 
 import sys
 
+from swiftmpi_tpu_torch.data import native
 from swiftmpi_tpu_torch.data.text import load_corpus
 from swiftmpi_tpu_torch.models.word2vec import Word2Vec
 from swiftmpi_tpu_torch.utils import CMDLine, global_config
@@ -57,10 +62,23 @@ def main(argv=None) -> int:
     device = cmd.getValue("device", "") or None
     model = Word2Vec(device=device)
     niters = int(cmd.getValue("niters", "1"))
-    corpus = load_corpus(cmd.getValue("data"),
-                         min_sentence_length=model.min_sentence_length)
-    model.build(corpus)
-    losses = model.train(corpus, niters=niters)
+    corpus, batcher = None, None
+    if native.available():
+        # C++ end to end: vocab, corpus mapping and batch assembly never
+        # touch the Python tokenizer
+        vocab, tokens, offsets = native.load_corpus_native(
+            cmd.getValue("data"),
+            min_sentence_length=max(model.min_sentence_length, 1))
+        batcher = native.PrefetchingCBOWBatcher(
+            tokens, offsets, vocab, model.window, model.sample)
+        log.info("using the native C++ loader (prefetching)")
+        model.build_from_vocab(vocab)
+    else:
+        log.info("using the Python loader")
+        corpus = load_corpus(cmd.getValue("data"),
+                             min_sentence_length=model.min_sentence_length)
+        model.build(corpus)
+    losses = model.train(corpus, niters=niters, batcher=batcher)
     log.info("final error: %.5f; push paths %s", losses[-1],
              model.train_metrics["push_paths"])
     if cmd.hasParameter("output"):

@@ -400,6 +400,7 @@ def synthetic_corpus_bulk(n_sentences: int, vocab_size: int,
 def write_tokens_file(arr, path: str) -> None:
     """Write sentences (rows of keys) as the loader's text format: one
     space-separated sentence per line."""
+    rows = arr.tolist() if isinstance(arr, np.ndarray) else arr
     with open(path, "w") as f:
-        for row in arr:
+        for row in rows:
             f.write(" ".join(map(str, row)) + "\n")

@@ -17,7 +17,9 @@ card: the gather's once per pull, the scatter-add's and AdaGrad's once per
 pushed family, the ring's once per exchange (one send launch and one wait
 launch).  The wrapper runs the plain version for
 CPU tensors and launches the kernel for CUDA tensors, with no fallback
-between the two.
+between the two.  A CUDA graph replays kernels without calling their
+wrappers: the graph records the launches captured in it and adds them
+with :func:`add_launches` on every replay.
 """
 
 from swiftmpi_tpu_torch.kernels import (adagrad, gather, ring, scatter,
@@ -35,3 +37,11 @@ def reset_launches() -> None:
 def launch_counts() -> dict:
     return {mod.__name__.rsplit(".", 1)[-1]: mod.launches
             for mod in KERNEL_MODULES}
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` (a :func:`launch_counts` dict, or the launches a
+    CUDA graph captured, negated to take back the capture's own calls) to
+    the counters."""
+    for mod in KERNEL_MODULES:
+        mod.launches += counts.get(mod.__name__.rsplit(".", 1)[-1], 0)

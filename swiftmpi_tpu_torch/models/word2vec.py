@@ -45,22 +45,36 @@ donating its state.  Each step takes the negative-sampling draws ``(j,
 u)`` as an optional argument: the seam the parity tests replay the JAX
 package's draws through.  Configurations not ported raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
+
+``train`` is the JAX package's loop: ``_epoch_items`` renders the epoch
+into single batches and ``[worker] inner_steps`` groups on the host
+(through ``[worker] pipeline: K``'s producer thread, with pinned H2D
+copies on a side stream, when K > 0); a step reads nothing back to the
+host, the loss sums stay on the device (``_LossAccum``, one read at the
+end of the epoch); and on a CUDA device with ``transfer: xla`` a group of
+N steps is one replay of a captured CUDA graph (``_FusedSteps``, one
+graph per group length, as JAX compiles one fused scan per length).
 """
 
 from __future__ import annotations
 
+import gc
 import time
+from collections import Counter
 from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from swiftmpi_tpu_torch import kernels
 from swiftmpi_tpu_torch.cluster import Cluster
 from swiftmpi_tpu_torch.data.text import (CBOWBatch, CBOWBatcher,
                                           StencilBatch, Vocab, build_vocab,
                                           load_corpus)
+from swiftmpi_tpu_torch.data.native import NativeCBOWBatcher
 from swiftmpi_tpu_torch.device import resolve_device
 from swiftmpi_tpu_torch.io.checkpoint import dump_table_text
+from swiftmpi_tpu_torch.io.pipeline import CudaTransfer, PrefetchIterator
 from swiftmpi_tpu_torch.kernels.stencil import stencil_context_sum
 from swiftmpi_tpu_torch.ops.sampling import (alias_draws,
                                              build_unigram_alias,
@@ -71,6 +85,9 @@ from swiftmpi_tpu_torch.parameter import SparseTable, w2v_access
 from swiftmpi_tpu_torch.transfer import PushSpec
 from swiftmpi_tpu_torch.utils.config import ConfigParser, global_config
 from swiftmpi_tpu_torch.utils.logger import get_logger
+from swiftmpi_tpu_torch.utils.pipeline import (DispatchWindow,
+                                               resolve_dispatch_bound)
+from swiftmpi_tpu_torch.utils.timers import Throughput
 
 log = get_logger(__name__)
 
@@ -89,6 +106,122 @@ def _on(x, device, dtype) -> torch.Tensor:
     if not isinstance(x, torch.Tensor):
         x = torch.from_numpy(np.require(x, requirements=("C", "W")))
     return x.to(device=device, dtype=dtype).contiguous()
+
+
+class _LossAccum:
+    """Non-blocking loss accumulator (JAX ``_LossAccum``): queues the
+    steps' device scalars and folds every ``fold`` into ONE device scalar
+    (a stacked sum, no host read), so an epoch holds O(1) scalars and the
+    epoch-end read is one round trip, not one per step.  Folds in
+    float32: exact up to 2^24 per fold, and beyond that the loss
+    denominator's relative error is below 1e-7.
+
+    ``bound`` feeds a ``utils.pipeline.DispatchWindow`` on ``device``:
+    the steps the host may run ahead of the card.  ``peak_queued`` shows
+    the retention bound: never more than ``fold`` scalars."""
+
+    _FOLD = 256
+
+    def __init__(self, bound="auto", device=None, fold: int = _FOLD):
+        if fold < 2:
+            raise ValueError(f"_LossAccum fold must be >= 2, got {fold}")
+        self._q: List[torch.Tensor] = []
+        self._fold = fold
+        self.peak_queued = 0
+        self._window = DispatchWindow(bound, device)
+
+    def add(self, x: torch.Tensor) -> None:
+        self._q.append(x.to(torch.float32).reshape(()))
+        self._window.push()
+        self.peak_queued = max(self.peak_queued, len(self._q))
+        if len(self._q) >= self._fold:
+            self._q = [torch.stack(self._q).sum()]
+
+    def total(self) -> float:
+        """The sum, read to the host: the accumulator's one host read."""
+        if not self._q:
+            return 0.0
+        self._window.clear()
+        return float(torch.stack(self._q).sum())
+
+
+def _batch_fields(batch: Union[CBOWBatch, StencilBatch]) -> tuple:
+    """A batch's arrays in the order the step takes them."""
+    if isinstance(batch, StencilBatch):
+        return (batch.tokens, batch.sent_id, batch.center_pos, batch.half)
+    return (batch.centers, batch.contexts, batch.ctx_mask)
+
+
+def _stack_group_host(batches) -> tuple:
+    """Stack a group of same-shape batches on the host, field by field
+    (one contiguous H2D copy per field, not one per batch): the rendering
+    work the input pipeline's producer thread takes off the critical
+    path.  JAX's ``_stack_group_host`` and ``_stack_group_host_stencil``
+    in one."""
+    return tuple(np.stack([np.asarray(a) for a in arrays])
+                 for arrays in zip(*map(_batch_fields, batches)))
+
+
+class _FusedSteps:
+    """N training steps as one CUDA graph (the counterpart of JAX's
+    ``_build_multi_step``: N steps in one dispatch).
+
+    The graph reads its batches from static ``(N, ...)`` buffers, filled
+    with ``copy_`` before each replay; the model's ``torch.Generator`` is
+    registered with the graph, so each replay draws fresh negatives, the
+    same draws N eager steps would take from the generator's state; the
+    summed loss scalars are static outputs, cloned after the replay.  A
+    replay calls no kernel wrapper, so the launches (and push paths)
+    recorded while capturing are added to the counters on every replay,
+    and the capture's own calls are taken back.
+
+    Holds no reference to the model (no reference cycle): a graph is then
+    freed when its model is, never by a garbage collection, which may run
+    while another graph is being captured, where freeing a graph is not
+    permitted; collections are also off during the capture itself."""
+
+    def __init__(self, model: "Word2Vec", fields):
+        dev = model.device
+        n = fields[0].shape[0]
+        self.n = n
+        self.static = [torch.empty(f.shape, dtype=dt, device=dev)
+                       for f, dt in zip(fields, model._arg_dtypes())]
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(model._gen)
+        launches0 = kernels.launch_counts()
+        self._paths = model.transfer.push_paths
+        paths0 = Counter(self._paths)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode="thread_local"):
+                es_t = ec_t = None
+                for i in range(n):
+                    es, ec = model._step_fields(
+                        tuple(s[i] for s in self.static))
+                    es_t = es if es_t is None else es_t + es
+                    ec_t = ec if ec_t is None else ec_t + ec
+        finally:
+            if collecting:
+                gc.enable()
+        self.out = (es_t, ec_t)
+        self.launches = {k: v - launches0[k]
+                         for k, v in kernels.launch_counts().items()}
+        kernels.add_launches({k: -v for k, v in self.launches.items()})
+        self.push_paths = self._paths - paths0
+        self._paths.clear()
+        self._paths.update(paths0)
+
+    def replay(self, fields) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Run the N steps on ``fields`` (``(N, ...)`` tensors on the
+        device); returns the summed ``(err_sum, err_cnt)`` on the device."""
+        for s, f in zip(self.static, fields):
+            s.copy_(f)
+        self.graph.replay()
+        kernels.add_launches(self.launches)
+        self._paths.update(self.push_paths)
+        return self.out[0].clone(), self.out[1].clone()
 
 
 def _parity_targets(slot_of_vocab, alias_prob, alias_idx, centers, c_slots,
@@ -206,6 +339,21 @@ class Word2Vec:
             raise ValueError(f"[server] dtype must be float32 or "
                              f"bfloat16, got {dtype_s!r}")
         self.param_dtype = PARAM_DTYPES[dtype_s]
+        # [worker] inner_steps: N batches a group, one CUDA graph replay on
+        # the card (transfer: xla); 1 = one step at a time
+        self.inner_steps = g("worker", "inner_steps", 1).to_int32()
+        # [worker] pipeline: K > 0 renders batches K ahead on a producer
+        # thread and copies them to the card from pinned memory; the
+        # producer owns no RNG and keeps the batch order, so K changes
+        # WHEN work happens, never what is computed
+        self.pipeline_depth = g("worker", "pipeline", 0).to_int32()
+        if self.pipeline_depth < 0:
+            raise ValueError("[worker] pipeline must be >= 0")
+        # [worker] dispatch_depth: in-flight step watermark
+        # (utils.pipeline.resolve_dispatch_bound): "auto", an integer, or
+        # 0 for unbounded
+        self.dispatch_depth = g("worker", "dispatch_depth",
+                                "auto").to_string()
         self._check_supported()
         #: the rendering the step runs, named as the JAX package names it
         self.resolved_rendering = (
@@ -230,13 +378,15 @@ class Word2Vec:
         self._offsets = torch.cat([torch.arange(-W, 0), torch.arange(1, W + 1)
                                    ]).to(self.device)
         self.train_metrics: dict = {}
+        #: group length -> its captured CUDA graph (JAX ``_fused_cache``),
+        #: valid for the tensors of ``_fused_key``
+        self._fused_cache: Dict[int, _FusedSteps] = {}
+        self._fused_key: tuple = ()
 
     def _check_supported(self) -> None:
         """Raise on every configuration the slice does not port, after the
         JAX package's own ``ValueError``s for combinations that are not
-        configurations at all.  ``[worker] inner_steps: N`` is ported: the
-        JAX package's N fused steps are N ordinary steps one after
-        another, the same math."""
+        configurations at all."""
         g = self.config.get_or
         sg = g("word2vec", "sg", 0).to_int32() != 0
         dense_raw = g("word2vec", "dense_logits", "auto").to_string()
@@ -294,8 +444,6 @@ class Word2Vec:
         want(transfer == "tpu" and data_plane == "xla",
              "[cluster] data_plane: xla with transfer: tpu (the library "
              "exchange)", "A16")
-        want(g("worker", "pipeline", 0).to_int32() != 0,
-             "[worker] pipeline", "A9")
         want(g("worker", "telemetry", 0).to_int32() != 0,
              "[worker] telemetry", "A14")
         for sec, item in _UNPORTED_SECTIONS.items():
@@ -480,10 +628,37 @@ class Word2Vec:
                  else (B, self.negative))
         return alias_draws(self._gen, len(self.vocab), shape, self.device)
 
-    def _finish(self, grads_fn, *args) -> Tuple[float, Union[int, float]]:
+    def _arg_dtypes(self) -> Tuple[torch.dtype, ...]:
+        """The dtypes the step takes a batch's fields in, in
+        ``_epoch_items`` order: int64 where torch indexes with them (the
+        kernels get int32 slots), the stencil's window ids int32."""
+        if self.stencil:
+            return (torch.int64, torch.int32, torch.int64, torch.int32)
+        return (torch.int64, torch.int64, torch.bool)
+
+    def _step_fields(self, fields, draws: Optional[Draws] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One sync step on one batch's fields (numpy arrays or tensors:
+        ``(centers, contexts, ctx_mask)``, or ``(tokens, sent_id,
+        center_pos, half)`` with ``stencil: 1``), in place on the table.
+        Reads nothing back to the host: returns ``(err_sum, err_cnt)`` as
+        device scalars."""
+        dev = self.device
+        args = tuple(_on(f, dev, dt)
+                     for f, dt in zip(fields, self._arg_dtypes()))
+        if self.stencil:
+            grads_fn, B = self._grads_stencil, args[2].shape[0]
+        else:
+            grads_fn = (self._grads_shared if self.shared_negatives
+                        else self._grads)
+            B = args[0].shape[0]
         state = self.table.state
-        pushes, es, ec = grads_fn(state, *args)
+        pushes, es, ec = grads_fn(state, *args, self._draws(B, draws))
         self._apply(state, pushes)
+        return es, ec
+
+    def _host(self, es: torch.Tensor, ec: torch.Tensor
+              ) -> Tuple[float, Union[int, float]]:
         es, ec = torch.stack([es.double(), ec.double()]).tolist()
         # the shared renderings' count is fractional (negative/pool
         # weights); the others count pairs and stay exact integers
@@ -499,14 +674,8 @@ class Word2Vec:
         if self.stencil:
             raise ValueError("this model renders stencil batches: call "
                              "step_stencil")
-        dev = self.device
-        # int64 once per batch: torch indexing wants it (kernels get int32)
-        centers = _on(centers, dev, torch.int64)
-        contexts = _on(contexts, dev, torch.int64)
-        ctx_mask = _on(ctx_mask, dev, torch.bool)
-        grads = self._grads_shared if self.shared_negatives else self._grads
-        return self._finish(grads, centers, contexts, ctx_mask,
-                            self._draws(centers.shape[0], draws))
+        return self._host(*self._step_fields((centers, contexts, ctx_mask),
+                                             draws))
 
     def step_stencil(self, tokens, sent_id, center_pos, half,
                      draws: Optional[Draws] = None
@@ -516,24 +685,100 @@ class Word2Vec:
         if not self.stencil:
             raise ValueError("this model renders CBOW batches: call step "
                              "(or set [word2vec] stencil: 1)")
-        dev = self.device
-        tokens = _on(tokens, dev, torch.int64)
-        center_pos = _on(center_pos, dev, torch.int64)
-        return self._finish(self._grads_stencil, tokens,
-                            _on(sent_id, dev, torch.int32), center_pos,
-                            _on(half, dev, torch.int32),
-                            self._draws(center_pos.shape[0], draws))
+        return self._host(*self._step_fields(
+            (tokens, sent_id, center_pos, half), draws))
 
     def step_batch(self, batch: Union[CBOWBatch, StencilBatch],
                    draws: Optional[Draws] = None):
         """:meth:`step` or :meth:`step_stencil` by the batch's type."""
         if isinstance(batch, StencilBatch):
-            return self.step_stencil(batch.tokens, batch.sent_id,
-                                     batch.center_pos, batch.half, draws)
-        return self.step(batch.centers, batch.contexts, batch.ctx_mask,
-                         draws)
+            return self.step_stencil(*_batch_fields(batch), draws)
+        return self.step(*_batch_fields(batch), draws)
 
     # -- training (word2vec.h:475-547) ---------------------------------------
+    def _epoch_items(self, batcher, batch_size: int, stencil: bool,
+                     fuse: bool):
+        """Render one epoch into a stream of work items (JAX
+        ``_epoch_items``): ``('group', host-stacked fields, [n_words...])``
+        for groups of ``inner_steps`` batches and ``('single', fields,
+        n_words)`` otherwise.  Pure host rendering — NO RNG (the negative
+        draws stay with the consumer, in consumption order) and no device
+        call — so the stream is the same inline or through the prefetch
+        pipeline: the determinism contract of ``[worker] pipeline``."""
+        inner = self.inner_steps
+        group = []
+
+        def group_item():
+            return ("group", _stack_group_host(group),
+                    [b.n_words for b in group])
+
+        epoch_iter = (batcher.epoch_stencil(batch_size) if stencil
+                      else batcher.epoch(batch_size))
+        for batch in epoch_iter:
+            # every stencil batch is fixed-shape (padded span), so all of
+            # them group, tails included
+            if fuse and (stencil or len(batch.centers) == batch_size):
+                group.append(batch)
+                if len(group) == inner:
+                    yield group_item()
+                    group = []
+                continue
+            # an odd-shaped batch: flush the pending group first, so the
+            # update order matches the ungrouped loop
+            if group:
+                yield group_item()
+                group = []
+            yield ("single", _batch_fields(batch), batch.n_words)
+        if group:                  # leftover partial group
+            yield group_item()
+
+    def _graph_key(self) -> tuple:
+        """The addresses a captured graph reads and writes: the table's
+        tensors and the sampler's.  A table or vocab set since the capture
+        (``table.state = ...``, ``build_from_vocab``) needs new graphs."""
+        return tuple(t.data_ptr() for t in (
+            *self.table.state.values(), self._slot_of_vocab,
+            self._alias_prob, self._alias_idx))
+
+    def _run_group(self, fields, graphs: bool, draws, es_q: _LossAccum,
+                   ec_q: _LossAccum) -> bool:
+        """The steps of one group, in order: one replay of the group
+        length's CUDA graph when ``graphs`` and the graph exists (returns
+        True), else the steps one by one.  With ``graphs``, the first
+        group of a length is the graph's warm-up: its steps run eagerly
+        on a side stream, then the graph is captured (the capture runs
+        nothing)."""
+        L = fields[0].shape[0]
+        fused = self._fused_cache.get(L) if graphs else None
+        if fused is not None:
+            es, ec = fused.replay(fields)
+            es_q.add(es)
+            ec_q.add(ec)
+            return True
+        out = []
+        if not graphs:
+            for i in range(L):
+                out.append(self._step_fields(
+                    tuple(f[i] for f in fields),
+                    None if draws is None else next(draws)))
+        else:
+            cur = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                for i in range(L):
+                    out.append(self._step_fields(
+                        tuple(f[i] for f in fields)))
+            cur.wait_stream(side)
+            for es, ec in out:        # used on this stream from here on
+                es.record_stream(cur)
+                ec.record_stream(cur)
+            self._fused_cache[L] = _FusedSteps(self, fields)
+        for es, ec in out:
+            es_q.add(es)
+            ec_q.add(ec)
+        return False
+
     def train(self, data=None, niters: int = 1,
               batch_size: Optional[int] = None, batcher=None,
               draws: Optional[Iterator] = None) -> List[float]:
@@ -542,11 +787,16 @@ class Word2Vec:
         Error::norm per train_iter; the count rounded once per iteration,
         as the JAX package does).  ``batcher``: a custom batch source with
         an ``epoch(batch_size)`` iterator (``epoch_stencil`` with
-        ``stencil: 1``).  ``draws``: an iterator of ``(j, u)`` pairs, one
-        per step, replacing the model's generator.
+        ``stencil: 1``), e.g. the native ``PrefetchingCBOWBatcher``.
+        ``draws``: an iterator of ``(j, u)`` pairs, one per step,
+        replacing the model's generator.
 
-        The loss sums stay on the host as Python numbers, one read per
-        step, so a long run never wraps a device counter."""
+        The loss sums stay on the device (``_LossAccum``) and are read
+        once an epoch; a step reads nothing back.  ``[worker] pipeline:
+        K`` renders K work items ahead on a producer thread; ``[worker]
+        inner_steps: N`` groups N batches, and on a CUDA device with
+        ``transfer: xla`` (and no ``draws``) runs a group as one CUDA graph
+        replay; elsewhere the N steps run one by one, the same math."""
         if batcher is None:
             if isinstance(data, str):
                 data = load_corpus(data, min_sentence_length=max(
@@ -569,42 +819,105 @@ class Word2Vec:
             n = self.cluster.n_servers
             batch_size = -(-max(256, self.minibatch // (2 * self.window))
                            // n) * n
-        losses = []
-        words = steps = 0
-        host_s = 0.0
+        stencil = self.stencil
+        fuse = self.inner_steps > 1
+        cuda = self.device.type == "cuda"
+        # one graph replay a group: one card, one shard (the ring's epoch
+        # is a host counter a replay would repeat), the model's generator
+        graphs = (fuse and cuda and self.transfer.name == "xla"
+                  and draws is None)
+        if graphs and self._graph_key() != self._fused_key:
+            self._fused_cache = {}
+            self._fused_key = self._graph_key()
+        pipelined = self.pipeline_depth > 0
+        bound = resolve_dispatch_bound(self.dispatch_depth,
+                                       pipelined=pipelined)
+        # numpy leaves -> the card: pinned copies on a side stream, on
+        # the producer thread when pipelined, inline otherwise
+        stage = CudaTransfer(self.device) if cuda else None
+        pipe_stats = ({"produced": 0, "consumed": 0, "peak_queue_depth": 0,
+                       "stall_s": 0.0, "transfer_s": 0.0}
+                      if pipelined else None)
+        losses, err = [], []
+        words = steps = replays = 0
+        meter = Throughput()
         t0 = time.perf_counter()
-        for it in range(niters):
-            err_sum, err_cnt = 0.0, 0.0
-            epoch = iter(batcher.epoch_stencil(batch_size) if self.stencil
-                         else batcher.epoch(batch_size))
-            while True:
-                th = time.perf_counter()
-                batch = next(epoch, None)
-                host_s += time.perf_counter() - th
-                if batch is None:
-                    break
-                es, ec = self.step_batch(
-                    batch, None if draws is None else next(draws))
-                err_sum += es
-                err_cnt += ec
-                words += batch.n_words
-                steps += 1
-            loss = err_sum / max(int(round(err_cnt)), 1)
-            losses.append(loss)
-            elapsed = time.perf_counter() - t0
-            log.info("iter %d: error %.5f  (%.0f words/s)", it, loss,
-                     words / max(elapsed, 1e-9))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        try:
+            for it in range(niters):
+                es_q = _LossAccum(bound, self.device)
+                ec_q = _LossAccum(None, self.device)
+                items = self._epoch_items(batcher, batch_size, stencil, fuse)
+                pipe = None
+                if pipelined:
+                    items = pipe = PrefetchIterator(
+                        items, depth=self.pipeline_depth, transfer=stage)
+                elif stage is not None:
+                    items = map(stage, items)
+                try:
+                    while True:
+                        # the stall clock covers exactly the input wait:
+                        # inline it times rendering and staging, pipelined
+                        # the empty-queue waits
+                        with meter.stalling():
+                            nxt = next(items, None)
+                        if nxt is None:
+                            break
+                        if stage is not None:
+                            nxt = stage.ready(nxt)
+                        kind, fields, n_words = nxt
+                        if kind == "group":
+                            replays += self._run_group(fields, graphs, draws,
+                                                       es_q, ec_q)
+                            n, nw = len(n_words), sum(n_words)
+                        else:
+                            es, ec = self._step_fields(
+                                fields, None if draws is None else next(draws))
+                            es_q.add(es)
+                            ec_q.add(ec)
+                            n, nw = 1, n_words
+                        meter.record(nw, steps=n)
+                        steps += n
+                        words += nw
+                finally:
+                    if pipe is not None:
+                        pipe.close()
+                        for k, v in pipe.stats().items():
+                            if k == "peak_queue_depth":
+                                pipe_stats[k] = max(pipe_stats[k], v)
+                            elif k != "depth":
+                                pipe_stats[k] += v
+                err.append((es_q.total(), ec_q.total()))
+                loss = err[-1][0] / max(int(round(err[-1][1])), 1)
+                losses.append(loss)
+                log.info("iter %d: error %.5f  (%.0f words/s)", it, loss,
+                         meter.rate())
+            if cuda:
+                torch.cuda.synchronize(self.device)
+        finally:
+            if stage is not None:
+                stage.close()
         seconds = time.perf_counter() - t0
         self.train_metrics = {
             "rendering": self.resolved_rendering,
             "steps": steps, "words": words, "seconds": seconds,
-            "batcher_seconds": host_s,
+            "batcher_seconds": meter.host_stall_ms() / 1e3,
             "steps_per_sec": steps / max(seconds, 1e-9),
             "words_per_sec": words / max(seconds, 1e-9),
             "shards": self.cluster.n_servers,
-            "push_paths": dict(self.transfer.push_paths)}
+            "push_paths": dict(self.transfer.push_paths),
+            # host-stall vs device-time split (utils.timers.Throughput)
+            "host_stall_ms": meter.host_stall_ms(),
+            "device_ms": meter.device_ms(),
+            "stall_ms_per_step": meter.stall_ms_per_step(),
+            "pipeline_depth": self.pipeline_depth if pipelined else 0,
+            "loader": ("native" if isinstance(batcher, NativeCBOWBatcher)
+                       else "python"),
+            "inner_steps": self.inner_steps,
+            "fused": graphs, "graph_replays": replays,
+            # per epoch (Σerr_sum, Σerr_cnt), the loss's two sums
+            "epoch_err": err}
+        if pipe_stats is not None:
+            self.train_metrics["pipeline"] = pipe_stats
         return losses
 
     # -- embeddings out --------------------------------------------------------

@@ -171,7 +171,9 @@ class ShardedTransfer(Transfer):
         if not self.debug_overflow:
             self._overflow_pending.append(count)
             if len(self._overflow_pending) >= 1024:
-                self.overflow_count()
+                # fold on the device: a step never reads the host here
+                self._overflow_pending = [
+                    torch.stack(self._overflow_pending).sum()]
             return
         c = int(count)
         self._overflow_total += c

@@ -12,9 +12,11 @@
   no-ops.
 * the sparse push sorts the batch so duplicates are adjacent and
   segment-sums them; the row-indexed AdaGrad kernel then updates the one
-  representative slot of each segment in place.  Like the JAX package,
-  which leaves this path to XLA, the sort and the sums stay in torch
-  index ops.
+  representative slot of each segment in place, over all B segment rows
+  with a mask ``arange(B) < n_real`` made on the device, so the push reads
+  nothing back to the host (an all-padding push updates nothing through
+  the mask).  Like the JAX package, which leaves this path to XLA, the
+  sort and the sums stay in torch index ops.
 * ``push_span`` (stencil rendering, ``xla.py::push_span``) dedups a
   position-indexed span without a sort: a scatter-min of span positions
   into a ``(capacity,)`` plane names each slot's owner row, rows and
@@ -22,7 +24,9 @@
   row-indexed AdaGrad kernel updates the owners' slots in place (the
   ``is_owner`` rows of JAX, distinct by construction).  No host read.
 
-All three pushes update the table tensors in place.
+All three pushes update the table tensors in place, with shapes fixed by
+the batch, and none reads the host: a step can be captured in a CUDA
+graph.
 """
 
 from __future__ import annotations
@@ -80,33 +84,30 @@ class SingleTransfer(Transfer):
         new_seg = torch.ones(B, dtype=torch.int64, device=slots.device)
         new_seg[1:] = (sorted_slots[1:] != sorted_slots[:-1]).long()
         seg_ids = torch.cumsum(new_seg, 0) - 1
-        # the one host read of the push: how many segments hold a real slot
-        n_seg, last = torch.stack(
-            [seg_ids[-1] + 1, sorted_slots[-1].long()]).tolist()
-        n_real = n_seg - int(last == capacity)
-        if n_real == 0:
-            return state
+        # segments that hold a real slot, on the device: all of them but a
+        # trailing padding segment
+        n_real = seg_ids[-1] + 1 - (sorted_slots[-1] == capacity).long()
+        keep = torch.arange(B, device=slots.device) < n_real
         # one representative slot per segment (every writer of a segment
-        # writes the same value)
-        rep_slots = torch.empty(B, dtype=torch.int32, device=slots.device)
-        rep_slots.scatter_(0, seg_ids, sorted_slots)
-        rep = rep_slots[:n_real]
+        # writes the same value); rows past the last segment stay -1
+        rep = torch.full((B,), -1, dtype=torch.int32, device=slots.device)
+        rep.scatter_(0, seg_ids, sorted_slots)
 
         inv = None
         if mean:
             seg_counts = torch.zeros(B, dtype=torch.float32,
                                      device=slots.device)
             seg_counts.index_add_(0, seg_ids, valid[order].float())
-            inv = (1.0 / seg_counts.clamp(min=1.0))[:n_real]
+            inv = 1.0 / seg_counts.clamp(min=1.0)
         combined = {}
         for f, g in grads.items():
             acc = torch.zeros((B, g.shape[1]), dtype=g.dtype,
                               device=g.device)
             acc.index_add_(0, seg_ids, g[order])
-            combined[f] = acc[:n_real]
-        # in place on the table at the representatives, distinct slots; the
-        # mean's reciprocal inside the launch
-        access.apply_push_rows(state, rep, None, combined, mul=inv)
+            combined[f] = acc
+        # in place on the table at the representatives the mask keeps,
+        # distinct slots; the mean's reciprocal inside the launch
+        access.apply_push_rows(state, rep, keep, combined, mul=inv)
         return state
 
     def _push_span(self, state, slots, grads, counts, access, mean=False):

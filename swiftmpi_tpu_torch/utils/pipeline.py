@@ -1,0 +1,73 @@
+"""Async-dispatch bounding (counterpart of
+``swiftmpi_tpu/utils/pipeline.py``).
+
+PyTorch enqueues CUDA work and returns, so a training loop that never
+reads the device can run any number of steps ahead of it, each holding
+its inputs and temporaries.  ``DispatchWindow`` bounds that as a ROLLING
+window: it records one ``torch.cuda.Event`` per tracked step and, past
+``bound`` outstanding events, synchronizes the OLDEST (its completion
+implies every earlier step ran, and ~``bound`` newer steps stay queued,
+so there is no pipeline bubble).  On the CPU every op has finished when
+it returns, so the window holds nothing there.
+
+``resolve_dispatch_bound`` turns the ``[worker] dispatch_depth`` knob
+into a bound exactly as the JAX package does; ``"auto"`` on a CUDA
+device means no bound (a card runs its stream in order, as a TPU chip
+runs one program at a time).
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from typing import Optional, Union
+
+import torch
+
+AUTO_BOUND = 16
+
+
+class DispatchWindow:
+    def __init__(self, bound: Union[str, int, None] = "auto",
+                 device: Optional[torch.device] = None):
+        if bound == "auto":
+            bound = None
+        if device is None or torch.device(device).type != "cuda":
+            bound = None            # CPU ops are synchronous
+        self._bound: Optional[int] = bound
+        self._device = device
+        self._window: deque = deque()
+
+    def push(self) -> None:
+        """Track the work enqueued so far on the current stream; block on
+        the oldest tracked event once more than ``bound`` are
+        outstanding."""
+        if self._bound is None:
+            return
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self._device))
+        self._window.append(ev)
+        if len(self._window) > self._bound:
+            self._window.popleft().synchronize()
+
+    def clear(self) -> None:
+        self._window.clear()
+
+    def __len__(self) -> int:
+        return len(self._window)
+
+
+def resolve_dispatch_bound(depth: Union[str, int, None],
+                           pipelined: bool = False) -> Union[str, int, None]:
+    """Resolve the ``[worker] dispatch_depth`` knob into a
+    ``DispatchWindow`` bound, as the JAX package does.
+
+    ``"auto"`` keeps the device policy above — EXCEPT when the input
+    pipeline is on: with prefetched batches the consumer can enqueue as
+    fast as it renders nothing, so pipelined ``"auto"`` bounds every
+    device at ``AUTO_BOUND``.  An explicit integer (or ``0`` meaning
+    unbounded) always wins.
+    """
+    if depth == "auto" or depth is None:
+        return AUTO_BOUND if pipelined else "auto"
+    depth = int(depth)
+    return None if depth <= 0 else depth

@@ -781,3 +781,270 @@ def test_one_bf16_step_on_card_matches_cpu(dev, path):
     counts = kernels.launch_counts()
     assert counts["gather"] and counts["adagrad"]
     assert counts["stencil"] == (rendering == "stencil")
+
+
+# -- the input and dispatch path: no host sync, pinned copies, graphs -------
+
+def _path_model(dev, rendering, seed=0, dtype="float32", **worker):
+    """A model of the gather or stencil rendering at the reference widths;
+    at a batch of 100 its h push goes dense (B3) and its v push sparse, as
+    at the reference shape."""
+    conf = {"cluster": {"transfer": "xla", "server_num": 1},
+            "word2vec": {"len_vec": 100, "window": 4, "negative": 20,
+                         "sample": 1e-3, "learning_rate": 0.05,
+                         "stencil": int(rendering == "stencil")},
+            "server": {"initial_learning_rate": 0.7, "dtype": dtype},
+            "worker": worker}
+    m = Word2Vec(config=ConfigParser().update(conf), device=dev, seed=seed)
+    sents = synthetic_corpus(400, 3000, 40, seed=8)
+    m.build(sents)
+    return m, sents
+
+
+def _items(m, sents, B, n, group=1):
+    """``n`` work items of ``group`` stacked batches (as ``_epoch_items``
+    renders them), numpy."""
+    from swiftmpi_tpu_torch.models.word2vec import _stack_group_host
+    b = CBOWBatcher(sents, m.vocab, m.window, m.sample, seed=5)
+    it = iter(b.epoch_stencil(B) if m.stencil else b.epoch(B))
+    return [_stack_group_host([next(it) for _ in range(group)])
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("rendering", ["gather", "stencil"])
+def test_step_runs_with_no_host_sync(dev, rendering):
+    """One step, its batch staged through pinned memory and a side stream
+    (``CudaTransfer``), under ``torch.cuda.set_sync_debug_mode("error")``:
+    nothing in the step or the staging synchronizes with the host."""
+    from swiftmpi_tpu_torch.io.pipeline import CudaTransfer
+    m, sents = _path_model(dev, rendering)
+    batches = [tuple(f[0] for f in g) for g in _items(m, sents, 100, 3)]
+    stage = CudaTransfer(dev)
+    for fields in batches[:2]:          # builds the kernels, warms up
+        m._step_fields(stage.ready(stage(fields)))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        es, ec = m._step_fields(stage.ready(stage(batches[2])))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(es) and int(ec) > 0
+    counts = kernels.launch_counts()
+    assert counts["gather"] and counts["adagrad"]
+    assert counts["stencil"] == (rendering == "stencil")
+    stage.close()
+    assert stage.pending() == 0
+
+
+def test_cuda_transfer_stages_items_exactly(dev):
+    """Every numpy leaf arrives on the card unchanged; other leaves pass
+    through; the pinned buffers are held until their copy completes."""
+    from swiftmpi_tpu_torch.io.pipeline import CudaTransfer
+    rng = np.random.default_rng(3)
+    stage = CudaTransfer(dev)
+    items = [("group", (rng.integers(0, 9, (4, 300)).astype(np.int32),
+                        rng.random((4, 300, 8)) < 0.5), [3, 4, 5, 6])
+             for _ in range(6)]
+    got = [stage.ready(stage(it)) for it in items]
+    assert stage.pending() <= 6
+    torch.cuda.synchronize()
+    for it, g in zip(items, got):
+        assert g[0] == "group" and g[2] == it[2]
+        for a, b in zip(it[1], g[1]):
+            assert b.is_cuda and b.dtype == torch.from_numpy(a).dtype
+            np.testing.assert_array_equal(b.cpu().numpy(), a)
+    stage.close()
+    assert stage.pending() == 0
+
+
+def _graph_vs_plain(dev, rendering, B, n, deterministic, dtype="float32"):
+    """Two models from one table and generator seed: one runs groups of
+    ``n`` steps as ``_FusedSteps`` replays, the other the same steps one
+    by one (after a warm-up on a side stream, as ``train()`` does before a
+    capture).  Returns both, the per-group ``(err_sum, err_cnt)`` of each,
+    and the launches of each."""
+    from swiftmpi_tpu_torch.models.word2vec import _FusedSteps
+    if deterministic:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        warm, _ = _path_model(dev, rendering, seed=9, dtype=dtype)
+        graph_m, sents = _path_model(dev, rendering, seed=1, dtype=dtype)
+        plain_m, _ = _path_model(dev, rendering, seed=1, dtype=dtype)
+        for f, t in plain_m.table.state.items():
+            t.copy_(graph_m.table.state[f])
+        groups = _items(graph_m, sents, B, 3, group=n)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for i in range(n):
+                warm._step_fields(tuple(f[i] for f in groups[0]))
+        torch.cuda.current_stream().wait_stream(side)
+        staged = [tuple(torch.from_numpy(f).to(dev) for f in g)
+                  for g in groups[1:]]
+        kernels.reset_launches()
+        fused = _FusedSteps(graph_m, staged[0])
+        assert kernels.launch_counts() == dict.fromkeys(
+            kernels.launch_counts(), 0)      # a capture launches nothing
+        assert not graph_m.transfer.push_paths
+        outs = [fused.replay(g) for g in staged]
+        graph_counts = kernels.launch_counts()
+        kernels.reset_launches()
+        plain = []
+        for g in staged:
+            es_sum = ec_sum = 0
+            for i in range(n):
+                es, ec = plain_m._step_fields(tuple(f[i] for f in g))
+                es_sum, ec_sum = es_sum + es, ec_sum + ec
+            plain.append((es_sum, ec_sum))
+        torch.cuda.synchronize()
+        return (graph_m, plain_m, outs, plain, graph_counts,
+                kernels.launch_counts())
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+@pytest.mark.parametrize("rendering,dtype", [("gather", "float32"),
+                                             ("stencil", "float32"),
+                                             ("gather", "bfloat16")])
+def test_graph_of_8_steps_matches_8_plain_steps(dev, rendering, dtype):
+    """``inner_steps: 8`` as one CUDA graph against 8 plain steps from the
+    same table and generator seed, two groups: bit for bit.  The batch is
+    small enough that every push is sparse or a span push (no B3) and the
+    run uses PyTorch's deterministic ``index_add_``, so no sum lands in a
+    varying order; the replays then draw the same negatives as the plain
+    steps (fresh ones each replay), compute the same updates, and count
+    the launches the plain steps make."""
+    graph_m, plain_m, outs, plain, gc, pc = _graph_vs_plain(
+        dev, rendering, 32, 8, deterministic=True, dtype=dtype)
+    assert graph_m.table.state["h"].dtype == getattr(torch, dtype)
+    assert gc == pc and gc["scatter"] == 0
+    assert gc["stencil"] == (16 if rendering == "stencil" else 0)
+    assert dict(graph_m.transfer.push_paths) \
+        == dict(plain_m.transfer.push_paths)
+    assert not any(k.endswith(":dense") for k in graph_m.transfer.push_paths)
+    for (es_g, ec_g), (es_p, ec_p) in zip(outs, plain):
+        assert float(ec_g) == float(ec_p) > 0
+        assert float(es_g) == float(es_p)
+    assert outs[0][1] != outs[1][1] or float(outs[0][0]) != float(outs[1][0])
+    for f, t in graph_m.table.state.items():
+        assert torch.equal(t, plain_m.table.state[f]), f
+
+
+@pytest.mark.parametrize("rendering", ["gather", "stencil"])
+def test_graph_with_dense_push_tracks_plain_steps(dev, rendering):
+    """Groups of 2 steps whose h push goes dense through B3 (atomic float
+    sums, no fixed order), replayed twice, against 4 plain steps:
+    round(err_cnt) equal, err_sum within 1e-4 relative; tables within
+    1e-5 + 1e-3 |b| but for at most 0.01% of each field's elements, and
+    every element within 1e-4.  The sums' last-bit differences reach a
+    few elements past the envelope within a few steps, plain against
+    plain as well (AdaGrad's first update divides a near-zero grad sum by
+    about 1e-3; up to 1.4e-5 seen after 4 steps, 9.8e-5 after 16); a
+    replay on wrong inputs or draws moves thousands of elements by far
+    more."""
+    graph_m, plain_m, outs, plain, gc, pc = _graph_vs_plain(
+        dev, rendering, 100, 2, deterministic=False)
+    assert gc == pc and gc["scatter"] == 4
+    assert dict(graph_m.transfer.push_paths) \
+        == dict(plain_m.transfer.push_paths)
+    for (es_g, ec_g), (es_p, ec_p) in zip(outs, plain):
+        assert round(float(ec_g)) == round(float(ec_p))
+        np.testing.assert_allclose(float(es_g), float(es_p), rtol=1e-4)
+    for f, t in graph_m.table.state.items():
+        want = plain_m.table.state[f]
+        gap = (t - want).abs()
+        outside = (gap > 1e-5 + 1e-3 * want.abs()).sum().item()
+        assert outside <= 1e-4 * t.numel(), (f, outside)
+        assert gap.max().item() <= 1e-4, (f, gap.max().item())
+
+
+@pytest.mark.parametrize("rendering", ["gather", "stencil"])
+def test_train_with_pipeline_and_graphs_matches_plain_train(dev, rendering):
+    """``Word2Vec.train`` with ``pipeline: 2`` and ``inner_steps: 4``
+    (graph replays) against the plain loop from the same table and
+    generator seed: the same steps and words, launches and push paths
+    counted alike, each epoch's loss within 1e-4 relative and Σerr_cnt
+    within 1e-6 (float32 sums folded in another grouping).  Tables are not
+    compared after two epochs: the float sums' run-to-run differences
+    outgrow the envelope within tens of steps, plain against plain too."""
+    runs = []
+    for worker in ({}, {"pipeline": 2, "inner_steps": 4}):
+        m, sents = _path_model(dev, rendering, seed=4, **worker)
+        batcher = CBOWBatcher(sents, m.vocab, m.window, m.sample, seed=5)
+        kernels.reset_launches()
+        losses = m.train(batcher=batcher, niters=2, batch_size=100)
+        runs.append((m, losses, kernels.launch_counts()))
+    (a, la, ca), (b, lb, cb) = runs
+    ma, mb = a.train_metrics, b.train_metrics
+    assert (ma["steps"], ma["words"]) == (mb["steps"], mb["words"])
+    assert mb["fused"] is True and mb["graph_replays"] > 0
+    assert not ma["fused"] and mb["pipeline"]["produced"] > 0
+    assert ca == cb and ma["push_paths"] == mb["push_paths"]
+    np.testing.assert_allclose(lb, la, rtol=1e-4)
+    np.testing.assert_allclose([c for _, c in mb["epoch_err"]],
+                               [c for _, c in ma["epoch_err"]], rtol=1e-6)
+
+
+def test_sharded_train_keeps_plain_steps_under_inner_steps(dev):
+    """``transfer: tpu`` runs ``inner_steps`` as plain steps (the ring's
+    epoch is a host counter a replay would repeat): ``fused`` is False and
+    every step launches the ring for each exchange."""
+    conf = {"cluster": {"transfer": "tpu", "server_num": 4},
+            "word2vec": {"len_vec": 16, "window": 2, "negative": 5,
+                         "sample": -1, "learning_rate": 0.05},
+            "server": {"initial_learning_rate": 0.3},
+            "worker": {"inner_steps": 4, "pipeline": 2}}
+    m = Word2Vec(config=ConfigParser().update(conf), device=dev)
+    sents = synthetic_corpus(60, 300, 16, seed=3)
+    m.build(sents)
+    kernels.reset_launches()
+    m.train(sents, niters=1, batch_size=64)
+    assert m.train_metrics["fused"] is False
+    assert m.train_metrics["graph_replays"] == 0
+    assert kernels.launch_counts()["ring"] == 8 * m.train_metrics["steps"]
+    assert ring.timeouts() == 0
+
+
+def test_graph_capture_survives_garbage_graphs(dev):
+    """Graphs of dropped models, held in reference cycles, are freed by
+    garbage collections; freeing a graph while another is being captured
+    is not permitted, so the capture runs with collections off.  Here a
+    collection is due at nearly every allocation."""
+    import gc
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        for i in range(3):
+            m, sents = _path_model(dev, "gather", seed=i, inner_steps=2)
+            batcher = CBOWBatcher(sents, m.vocab, m.window, m.sample, seed=5)
+            losses = m.train(batcher=batcher, niters=1, batch_size=100)
+            assert m.train_metrics["graph_replays"] > 0
+            assert np.isfinite(losses).all()
+            junk = [m]
+            junk.append(junk)          # a cycle that holds the graphs
+            del m, junk
+    finally:
+        gc.set_threshold(*threshold)
+    torch.cuda.synchronize()
+
+
+def test_graphs_follow_a_replaced_table(dev):
+    """Graphs are captured on the table's tensors: after ``table.state``
+    is replaced, the next ``train()`` captures anew and updates the new
+    tensors, never the old ones."""
+    m, sents = _path_model(dev, "gather", seed=2, inner_steps=2)
+    batcher = CBOWBatcher(sents, m.vocab, m.window, m.sample, seed=5)
+    m.train(batcher=batcher, niters=1, batch_size=100)
+    assert m.train_metrics["graph_replays"] > 0
+    old = m.table.state
+    m.table.state = {f: t.clone() for f, t in old.items()}
+    frozen = {f: t.clone() for f, t in old.items()}
+    start = m.table.state["h"].clone()
+    m.train(batcher=batcher, niters=1, batch_size=100)
+    assert m.train_metrics["graph_replays"] > 0
+    torch.cuda.synchronize()
+    for f, t in old.items():
+        assert torch.equal(t, frozen[f]), f
+    assert not torch.equal(m.table.state["h"], start)

@@ -646,8 +646,9 @@ def test_step_refuses_a_batch_that_does_not_split():
     c.set("worker", "minibatch", 1300)
     pm = Word2Vec(config=c, device="cpu")
     seen = []
-    orig = pm.step_batch
-    pm.step_batch = lambda b, d=None: (seen.append(len(b)), orig(b, d))[1]
+    orig = pm._step_fields
+    pm._step_fields = lambda f, d=None: (seen.append(len(f[0])),
+                                         orig(f, d))[1]
     pm.train(sents, niters=1)
     assert seen and set(seen) == {328}
 

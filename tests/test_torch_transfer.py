@@ -212,7 +212,9 @@ def test_sparse_and_span_pushes_update_rows_in_place(monkeypatch,
     tr.push_span(tstate, slots, grads, torch.ones(n), acc, mean=True)
     assert dict(tr.push_paths) == {f"{','.join(families)}:sparse": 1,
                                    f"{','.join(families)}:span": 1}
-    assert rows_calls == [((CAP, D), False, True)] * len(families) \
+    # both with a mask: the sparse push keeps its real segments by one
+    # made on the device, the span push its owner rows
+    assert rows_calls == [((CAP, D), True, True)] * len(families) \
         + [((CAP, D), True, True)] * len(families)
     assert copies == [] and dense_calls == []
     tr.push(tstate, torch.from_numpy(_slots(rng, 600)),

@@ -111,7 +111,7 @@ def test_cli_trains_stencil_and_shared_confs(files, monkeypatch, lines,
     assert all(r["v"].shape == r["h"].shape == (8,) for r in rows)
 
 
-@pytest.mark.parametrize("line", ["[worker]\npipeline: 2", "sg: 1",
+@pytest.mark.parametrize("line", ["[worker]\ntelemetry: 1", "sg: 1",
                                   "local_steps: 4",
                                   "[cluster]\npush_window: 4",
                                   "[obs]\ntrace: 1"])

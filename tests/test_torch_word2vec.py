@@ -222,7 +222,7 @@ def test_inner_steps_runs_ordinary_steps():
 
 
 @pytest.mark.parametrize("sec,key,val", [
-    ("worker", "pipeline", 2), ("word2vec", "sg", 1),
+    ("cluster", "wire_sketch", 1), ("word2vec", "sg", 1),
     ("worker", "telemetry", 1), ("word2vec", "dense_logits", 1),
     ("word2vec", "local_steps", 2), ("word2vec", "async_mode", "hogwild"),
     ("cluster", "push_window", 2), ("cluster", "wire_quant", "int8"),
