@@ -16,7 +16,12 @@ logical ranks, each with its own table shard and buffers, all on the one
 card) in the ``gather`` and ``shared`` renderings (``gather@8``,
 ``shared@8``); and with bf16 tables (``[server] dtype: bfloat16``: h and v
 bfloat16, accumulators float32) in ``gather``, ``stencil`` and
-``gather@8`` (``gather:bf16``, ``stencil:bf16``, ``gather@8:bf16``).
+``gather@8`` (``gather:bf16``, ``stencil:bf16``, ``gather@8:bf16``); and
+word2vec's other training modes: skip-gram (``sg``, ``sg_shared``, also
+``sg@8`` on the sharded server and ``sg:bf16``), ``dense_logits: 1``
+(``dense``), the snapshot async mode (``async``: ``local_steps: 4``) and
+hogwild (``hogwild``: 8 workers, the card eight times in the model's
+cluster, x ``local_steps: 2``), the last two in the gather rendering.
 Phases, each of which raises on a failed check:
 
 1. setup: the card's name and power limit; build the CUDA kernels.
@@ -32,7 +37,10 @@ Phases, each of which raises on a failed check:
    push with counts and AdaGrad with the mean's reciprocal, each in one
    launch; and the bf16 forms the bf16 paths run (the pulls' bf16 rows,
    the mixed AdaGrad over the table, the block and the rows, the context
-   sum over a bf16 table, the ring on bf16 row buckets) — against its
+   sum over a bf16 table, the ring on bf16 row buckets); and skip-gram's
+   h pull and push of B*2W*(K+1) = 840,000 rows (f32 and bf16 rows), on
+   the sharded path its ring exchange at C = 105,000 slots a rank and
+   the eight owners' pull and push of 840,000 rows each — against its
    plain PyTorch version on the card (bit for bit, except B3's float
    sums), timed with CUDA events (median of 25 launches, L2 flushed
    between launches, the host's enqueue not timed) beside the plain
@@ -42,7 +50,12 @@ Phases, each of which raises on a failed check:
    ``stencil``, ``stencil_shared``, ``gather:bf16`` and ``stencil:bf16``;
    and one sharded ``gather`` step, float32 and bf16, against the sharded
    CPU step and, row for row by key, against the one-shard ``xla`` step
-   on the card.  float32 fields within 1e-5 + 1e-3|b|; bf16 fields within
+   on the card; one step of ``sg``, ``sg_shared`` and ``dense``; one
+   window of the snapshot mode (4 steps through ``train``); and one
+   hogwild group (8 workers x 2 steps, then the 16 pushes worker-major),
+   each on the card and on the CPU from the same table and draws, with
+   exactly the path's launches.  float32 fields within 1e-5 + 1e-3|b|;
+   bf16 fields within
    that envelope or one bfloat16 ulp of b, whichever is wider (the card
    sums some grads in another order, a float32 difference that can cross
    a rounding boundary; near zero a bfloat16 step is finer than 1e-5).
@@ -53,7 +66,11 @@ Phases, each of which raises on a failed check:
    A sharded run must launch the ring kernel once (one send, one wait)
    for every exchange of every step, the gather once per pull, the
    scatter-add and AdaGrad once per pushed family (each for all the
-   card's ranks), overflow nothing and time out no wait.
+   card's ranks), overflow nothing and time out no wait.  The new modes'
+   runs launch exactly steps x their path's launches a step
+   (``PER_STEP``; hogwild's steps are whole groups, each batch applied
+   on its worker's replica and again on the chain).  Then ``sg`` with
+   ``inner_steps: 8``: graph replays, the same launches a step.
 5. input: the whole text8-shaped corpus written as a token file and
    loaded by the native C++ loader (``data/native.py``, built with g++
    from ``native/*.cpp``; its vocab must equal ``build_vocab``'s), then
@@ -76,9 +93,11 @@ Phases, each of which raises on a failed check:
    sums).
 6. CLI: ``apps.w2v_main.main`` on a small corpus with the gather conf,
    with ``stencil: 1``, with ``transfer: tpu``, ``server_num: 8``, with
-   ``[server] dtype: bfloat16`` and with ``[worker] pipeline: 2``,
-   ``inner_steps: 4``; each run must load through the native loader and
-   each dump must parse (the bf16 one into bfloat16 values).
+   ``[server] dtype: bfloat16``, with ``[worker] pipeline: 2``,
+   ``inner_steps: 4``, and with ``-variant async`` and ``-variant
+   hogwild`` (BKDR keys); each run must load through the native loader
+   and each dump must parse (the bf16 one into bfloat16 values) and hold
+   one row per word of the vocab of its key mode.
 
 The line before the last is the ``{"kernels": [...]}`` summary, each
 kernel's ``launches`` read from the train run of its path; the last is
@@ -94,6 +113,7 @@ import shutil
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -101,6 +121,7 @@ import torch.nn.functional as F
 
 from swiftmpi_tpu_torch import kernels
 from swiftmpi_tpu_torch.apps import w2v_main
+from swiftmpi_tpu_torch.cluster import Cluster
 from swiftmpi_tpu_torch.apps.input_profile import (INPUT_RUNS, epoch_line,
                                                    load_native, run_batcher)
 from swiftmpi_tpu_torch.apps.stencil_sweep import (batch_inputs,
@@ -115,8 +136,11 @@ from swiftmpi_tpu_torch.data.text import (CBOWBatcher, StencilBatch,
                                           write_tokens_file)
 from swiftmpi_tpu_torch.kernels import (adagrad, build, gather, ring,
                                         scatter, stencil)
-from swiftmpi_tpu_torch.models.word2vec import (Word2Vec, _cbow_targets,
-                                                _parity_targets, w2v_parser)
+from swiftmpi_tpu_torch.ops.sampling import sample_alias_from_draws
+from swiftmpi_tpu_torch.models.word2vec import (Word2Vec, _batch_fields,
+                                                _cbow_targets,
+                                                _parity_targets, _sg_targets,
+                                                w2v_parser)
 from swiftmpi_tpu_torch.parameter.sparse_table import (shard_block,
                                                        split_rows)
 from swiftmpi_tpu_torch.utils import ConfigParser, reset_global_config
@@ -134,7 +158,21 @@ PATHS = {
     "stencil_shared": ({"stencil": 1, "shared_negatives": 1},
                        {"stencil", "gather", "adagrad"}, 200),
     "shared": ({"shared_negatives": 1}, {"gather", "adagrad"}, 800),
+    "sg": ({"sg": 1}, {"gather", "scatter", "adagrad"}, 800),
+    "sg_shared": ({"sg": 1, "shared_negatives": 1}, {"gather", "adagrad"},
+                  800),
+    "dense": ({"dense_logits": 1}, {"gather", "adagrad"}, 800),
+    # the async modes, in the gather rendering: the snapshot mode, and
+    # hogwild with WORKERS workers (the card that many times in the
+    # model's cluster) x 2 local steps, over two groups of 16 batches
+    "async": ({"local_steps": 4}, {"gather", "scatter", "adagrad"}, 800),
+    "hogwild": ({"async_mode": "hogwild", "local_steps": 2},
+                {"gather", "scatter", "adagrad"}, 1100),
 }
+#: the rendering of the paths named for a mode
+RENDERING_OF = {"async": "gather", "hogwild": "gather"}
+#: hogwild workers, all on the one card
+WORKERS = 8
 #: ranks of the sharded parameter server, all on the one card
 SHARDS = 8
 #: sharded path -> launches a step on the card, each for all the card's
@@ -146,14 +184,29 @@ SHARDED = {
     f"gather@{SHARDS}": {"ring": 8, "gather": 2, "scatter": 2, "adagrad": 2},
     f"shared@{SHARDS}": {"ring": 10, "gather": 2, "scatter": 3,
                          "adagrad": 3},
+    f"sg@{SHARDS}": {"ring": 8, "gather": 2, "scatter": 2, "adagrad": 2},
 }
 for _path in SHARDED:
     PATHS[_path] = (PATHS[_path.split("@")[0]][0], set(SHARDED[_path]), 800)
 #: paths run with bf16 tables too (``[server] dtype: bfloat16``), named
 #: ``<path>:bf16``: the kernels of the float32 path, in their bf16 forms
 BF16 = ":bf16"
-for _path in ("gather", "stencil", f"gather@{SHARDS}"):
+for _path in ("gather", "stencil", f"gather@{SHARDS}", "sg"):
     PATHS[_path + BF16] = PATHS[_path]
+#: launches a batch of the one-shard paths held to exact counts, at the
+#: reference shape (capacity 90,516: a push of >= 45,258 rows goes dense):
+#: sg's h push of 840,000 rows dense (a scatter-add and AdaGrad over the
+#: table), its v push of 40,000 sparse (AdaGrad on its rows); sg_shared's
+#: three pushes sparse; dense's h applied to the table, its v sparse;
+#: hogwild's batch applied twice, on its worker's replica and on the chain
+PER_STEP = {
+    "sg": {"gather": 2, "scatter": 1, "adagrad": 2},
+    "sg_shared": {"gather": 2, "adagrad": 3},
+    "dense": {"gather": 1, "adagrad": 2},
+    "async": {"gather": 2, "scatter": 1, "adagrad": 2},
+    "hogwild": {"gather": 2, "scatter": 2, "adagrad": 4},
+}
+PER_STEP["sg" + BF16] = PER_STEP["sg"]
 MIN_TRAIN_STEPS = 20
 #: the input phase's epochs (``apps/input_profile.py`` ``INPUT_RUNS``);
 #: a2 reruns a
@@ -194,7 +247,8 @@ def _model(path: str, vocab, device: str, worker=None) -> Word2Vec:
     server with n ranks, ``:bf16`` for bf16 tables; ``worker``: more
     ``[worker]`` keys."""
     base, bf16, _ = path.partition(":")
-    rendering, _, shards = base.partition("@")
+    name, _, shards = base.partition("@")
+    rendering = RENDERING_OF.get(name, name)
     conf = ConfigParser().update(DEMO_CONF)
     for k, v in PATHS[path][0].items():
         conf.set("word2vec", k, v)
@@ -205,7 +259,9 @@ def _model(path: str, vocab, device: str, worker=None) -> Word2Vec:
         conf.set("cluster", "server_num", int(shards))
     if bf16:
         conf.set("server", "dtype", "bfloat16")
-    model = Word2Vec(config=conf, device=device)
+    cluster = (Cluster(conf, devices=[device] * WORKERS).initialize()
+               if name == "hogwild" else None)
+    model = Word2Vec(config=conf, device=device, cluster=cluster)
     if model.param_dtype != (torch.bfloat16 if bf16 else torch.float32):
         raise AssertionError(f"{path} conf gave {model.param_dtype} tables")
     if shards and (model.transfer.name != "tpu"
@@ -221,8 +277,7 @@ def _model(path: str, vocab, device: str, worker=None) -> Word2Vec:
 
 def _draws(model: Word2Vec, B: int, rng: np.random.Generator):
     """``(j, u)`` for one step of ``model``'s rendering, from ``rng``."""
-    shape = (model.shared_pool,) if model.shared_negatives \
-        else (B, model.negative)
+    shape = model.draw_shape(B)
     return (torch.as_tensor(rng.integers(0, len(model.vocab), shape),
                             device=model.device),
             torch.as_tensor(rng.random(shape, np.float32),
@@ -347,6 +402,12 @@ def _gather_case(label, table, slots, valid, flush, path="gather"):
         library="Tensor.index_select", bytes=nbytes, flops=0)
 
 
+def _device_gen(dev, rng: np.random.Generator) -> torch.Generator:
+    """A generator on ``dev`` seeded from ``rng``: operands of hundreds of
+    millions of elements are drawn on the card, not on the host."""
+    return torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+
+
 def _scatter_case(label, path, slots, valid, cap, width, rng, flush,
                   counts=True):
     """B3 on ``(N,)`` or ``(R, N)`` slots and grads of ``width``, with the
@@ -354,8 +415,8 @@ def _scatter_case(label, path, slots, valid, cap, width, rng, flush,
     1e-5 + 1e-3|b| of the plain version (float reductions in no fixed
     order), counts exact."""
     dev = slots.device
-    g = torch.as_tensor(rng.normal(size=(*slots.shape, width))
-                        .astype(np.float32) * 1e-2, device=dev)
+    g = torch.randn((*slots.shape, width), generator=_device_gen(dev, rng),
+                    device=dev) * 1e-2
     got = scatter.masked_scatter_add(slots, valid, g, cap, counts=counts)
     want = scatter.masked_scatter_add_plain(slots, valid, g, cap,
                                             counts=counts)
@@ -537,12 +598,13 @@ def _ring_case(label, tail, dtype, rng, flush, dev,
     copy, so bit for bit; one send launch and one wait launch.  bf16
     operands cross as 4-byte words."""
     n = SHARDS
+    gen = _device_gen(dev, rng)
     if dtype == torch.int32:
-        x = torch.as_tensor(rng.integers(-1, 11_000, (n, n, *tail))
-                            .astype(np.int32), device=dev)
+        x = torch.randint(-1, 11_000, (n, n, *tail), generator=gen,
+                          dtype=torch.int32, device=dev)
     else:
-        x = torch.as_tensor(rng.random((n, n, *tail), np.float32) - 0.5,
-                            device=dev).to(dtype)
+        x = (torch.rand((n, n, *tail), generator=gen, device=dev)
+             - 0.5).to(dtype)
     before = ring.launches
     out_k = ring.ring_exchange_stacked(x)
     launched = ring.launches - before
@@ -740,6 +802,60 @@ def phase_kernels_sharded(model: Word2Vec, batch) -> list:
     return cases
 
 
+def _sg_h_slots(model: Word2Vec, batch, rng: np.random.Generator):
+    """The h slots one sg step hands B2 and B3 (``Word2Vec._grads_sg``):
+    B*2W*(K+1) pair-target slots, dead ones -1, draws from ``rng``."""
+    dev = model.device
+    t_slots, _, _ = _sg_targets(
+        model._slot_of_vocab, model._alias_prob, model._alias_idx,
+        torch.as_tensor(batch.centers, dtype=torch.int64, device=dev),
+        torch.as_tensor(batch.contexts, dtype=torch.int64, device=dev),
+        torch.as_tensor(batch.ctx_mask, device=dev),
+        _draws(model, len(batch.centers), rng))
+    return t_slots.reshape(-1).contiguous()
+
+
+def phase_kernels_sg(vocab, batch) -> list:
+    """B2 and B3 at skip-gram's shapes, 8x the rows of CBOW's h pull and
+    push: the one-shard sg h pull of B*2W*(K+1) = 840,000 rows (float32
+    and bf16 rows) and its push with counts (float32 grads, as the bf16
+    path pushes them too); on the sharded path, the ring exchange of the
+    h rows' buckets (C = 105,000 slots a rank) and the eight owners' h
+    pull and push of n*C = 840,000 rows each, one launch each."""
+    rng = np.random.default_rng(27)
+    model = _model("sg", vocab, "cuda")
+    dev, cap, d = model.device, model.table.capacity, model.len_vec
+    flush = torch.zeros(2 * 50 * 2 ** 20 // 4, device=dev)
+    state = model.table.state
+    hs, hv = _perturbed(_sg_h_slots(model, batch, rng), cap, rng)
+    cases = [
+        _gather_case("sg h pull", state["h"], hs, hv, flush, "sg"),
+        _gather_case("sg h pull, bf16", state["h"].to(torch.bfloat16), hs,
+                     hv, flush, "sg" + BF16),
+        _scatter_case("sg h push", "sg", hs, hv, cap, d, rng, flush),
+        _scatter_case("sg h push, bf16 tables' float32 grads", "sg" + BF16,
+                      hs, hv, cap, d, rng, flush)]
+    del model, state
+    path = f"sg@{SHARDS}"
+    model = _model(path, vocab, "cuda")
+    state = model.table.state
+    h_slots = _sg_h_slots(model, batch, rng)
+    C = h_slots.shape[0] // SHARDS
+    cases.append(_ring_case("sg h rows", (C, d), torch.float32, rng, flush,
+                            dev, path=path))
+    groups, C_routed, cap8 = model.transfer._route(state, h_slots)
+    if C_routed != C or len(groups) != 1:
+        raise AssertionError(f"sg bucket capacity {C_routed}, expected {C}, "
+                             f"in {len(groups)} device group(s)")
+    owners = ring.ring_exchange_stacked(groups[0].req).view(SHARDS, -1)
+    cases.append(_gather_case(f"{SHARDS} owners' sg h pull",
+                              shard_block(state["h"]), owners,
+                              (owners >= 0).contiguous(), flush, path))
+    cases.append(_scatter_case(f"{SHARDS} owners' sg h push", path, owners,
+                               owners >= 0, cap8, d, rng, flush))
+    return cases
+
+
 def report_cases(cases: list) -> None:
     for c in cases:
         c["bound_ms"], c["bound_by"] = _bound_ms(c["bytes"], c["flops"])
@@ -785,13 +901,22 @@ def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
     return up.float() - mag.float()
 
 
-def _field_gap(what: str, got: torch.Tensor, want: torch.Tensor) -> dict:
+def _field_gap(what: str, got: torch.Tensor, want: torch.Tensor,
+               pool_rows=None) -> dict:
     """float32 fields within |a-b| <= 1e-5 + 1e-3|b|.  bf16 fields within
     that envelope or one bfloat16 ulp of b, whichever is wider: one
     rounding step (2^-8 to 2^-7 relative) is wider than the envelope's
     1e-3 relative, and near zero the envelope's 1e-5 is wider than a step.
-    Returns the largest gap, and for bf16 the largest gap in ulps and the
-    share of bit-equal elements."""
+    ``pool_rows`` (a bool mask over the rows): the rows of a sum family
+    whose every element sums up to B*2W = 40,000 pair contributions (the
+    sg_shared pool), in another order on the card (cuBLAS) than on the
+    CPU; where such a sum nearly cancels, AdaGrad's first update (g /
+    sqrt(g^2 + 1e-6), g near 1e-4) carries its float32 rounding error
+    ~700-fold.  Elements of those rows may leave the envelope, at most
+    1e-4 of the field's elements and none by more than 1e-4; every other
+    row is held to it.  Returns the largest gap (the count outside the
+    envelope with ``pool_rows``), and for bf16 the largest gap in ulps
+    and the share of bit-equal elements."""
     gap = (got.float() - want.float()).abs()
     limit = 1e-5 + 1e-3 * want.float().abs()
     out = {"max_abs_gap": gap.max().item()}
@@ -800,7 +925,15 @@ def _field_gap(what: str, got: torch.Tensor, want: torch.Tensor) -> dict:
         ulps = (_ordinal(got) - _ordinal(want)).abs()
         out.update(max_ulps=int(ulps.max()),
                    bit_equal_share=float((ulps == 0).float().mean()))
-    if not bool((gap <= limit).all()):
+    bad = gap > limit
+    if pool_rows is not None:
+        rows = bad.reshape(bad.shape[0], -1).any(dim=1)
+        out["outside_envelope_in_pool_rows"] = int(bad.sum())
+        if not bool((rows & ~pool_rows).any()) and \
+                int(bad.sum()) <= 1e-4 * bad.numel() and \
+                gap.max().item() <= 1e-4:
+            return out
+    if bool(bad.any()):
         raise AssertionError(
             f"{what} leaves its tolerance (max gap {gap.max().item()}, "
             f"{int((gap > limit).sum())} elements; {out})")
@@ -815,6 +948,11 @@ def phase_step_parity(path: str, vocab, batch) -> None:
     B = len(batch)
     draws = _draws(model, B, np.random.default_rng(11))
     cpu_model.table.state = _cpu_state(model.table.state, cpu_model)
+    pool_rows = None
+    if model.resolved_rendering == "sg_shared":
+        pool_rows = torch.zeros(model.table.capacity, dtype=torch.bool)
+        pool_rows[model._slot_of_vocab[sample_alias_from_draws(
+            *draws, model._alias_prob, model._alias_idx)].long().cpu()] = True
     kernels.reset_launches()
     es_c, ec_c = model.step_batch(batch, draws=draws)
     es_p, ec_p = cpu_model.step_batch(
@@ -829,16 +967,118 @@ def phase_step_parity(path: str, vocab, batch) -> None:
     if not math.isclose(es_c, es_p, rel_tol=1e-4):
         raise AssertionError(f"{path} err_sum: card {es_c} != cpu {es_p}")
     worst = {f: _field_gap(f"{path} step parity: field {f}",
-                           _global(v), _global(cpu_model.table.state[f]))
+                           _global(v), _global(cpu_model.table.state[f]),
+                           pool_rows)
              for f, v in model.table.state.items()}
     if model.stencil and counts["stencil"] != 1:
         raise AssertionError(f"{path} step launched the stencil kernel "
                              f"{counts['stencil']} times")
+    _check_launches(path, counts, 1)
     _json_line({"phase": "step_parity", "rendering": path,
                 "centers": B, "real_centers": batch.n_words,
                 "err_sum": [es_c, es_p], "err_cnt": [ec_c, ec_p],
                 "gap": worst, "envelope": "1e-5 + 1e-3*|cpu|; bf16 fields "
-                "that or one ulp", "push_paths": dict(model.transfer.push_paths),
+                "that or one ulp" + ("; sg_shared pool rows: at most 1e-4 "
+                                     "of a field's elements outside, each "
+                                     "within 1e-4" if pool_rows is not None
+                                     else ""),
+                "push_paths": dict(model.transfer.push_paths),
+                "launches": counts})
+
+
+def _check_launches(path: str, counts: dict, steps: int) -> None:
+    """A path of ``PER_STEP``: exactly ``steps`` x its launches a step."""
+    if path not in PER_STEP:
+        return
+    want = {**dict.fromkeys(counts, 0),
+            **{k: v * steps for k, v in PER_STEP[path].items()}}
+    if counts != want:
+        raise AssertionError(f"{path}: {steps} step(s) launched {counts}, "
+                             f"its path gives {want}")
+
+
+def _batches(vocab, corpus, model, n: int) -> list:
+    """The first ``n`` full batches of the corpus."""
+    out = []
+    for b in CBOWBatcher(corpus[:800], vocab, model.window, model.sample,
+                         seed=2008).epoch(BATCH):
+        if len(out) < n and b.n_words == BATCH:
+            out.append(b)
+    if len(out) < n:
+        raise AssertionError(f"the corpus prefix gave {len(out)} full "
+                             f"batches, {n} wanted")
+    return out
+
+
+def _hold_tables(what: str, card: Word2Vec, cpu: Word2Vec) -> dict:
+    return {f: _field_gap(f"{what}: field {f}", _global(v),
+                          _global(cpu.table.state[f]))
+            for f, v in card.table.state.items()}
+
+
+def phase_step_parity_async(vocab, corpus) -> None:
+    """One window of the snapshot mode (``local_steps: 4``) through
+    ``train`` on the card and on the CPU from the same table and draws:
+    four steps whose grads read the window's snapshot while their pushes
+    land on the table.  A snapshot that aliased the table would give the
+    card the sync mode's result, steps 2-4 far outside the envelope."""
+    model = _model("async", vocab, "cuda")
+    cpu_model = _model("async", vocab, "cpu")
+    cpu_model.table.state = _cpu_state(model.table.state, cpu_model)
+    batches = _batches(vocab, corpus, model, model.local_steps)
+    window = SimpleNamespace(epoch=lambda batch_size: iter(batches))
+    rng = np.random.default_rng(12)
+    draws = [_draws(model, BATCH, rng) for _ in batches]
+    kernels.reset_launches()
+    losses_c = model.train(batcher=window, niters=1, batch_size=BATCH,
+                           draws=iter(draws))
+    counts = kernels.launch_counts()
+    losses_p = cpu_model.train(batcher=window, niters=1, batch_size=BATCH,
+                               draws=iter([tuple(t.cpu() for t in d)
+                                           for d in draws]))
+    ec = [m.train_metrics["epoch_err"][0] for m in (model, cpu_model)]
+    if round(ec[0][1]) != round(ec[1][1]) or not math.isclose(
+            losses_c[0], losses_p[0], rel_tol=1e-4):
+        raise AssertionError(f"async window: card {ec[0]} loss {losses_c}, "
+                             f"cpu {ec[1]} loss {losses_p}")
+    worst = _hold_tables("async window", model, cpu_model)
+    _check_launches("async", counts, len(batches))
+    _json_line({"phase": "step_parity", "rendering": "async",
+                "local_steps": model.local_steps, "steps": len(batches),
+                "loss": [losses_c[0], losses_p[0]],
+                "err": ec, "gap": worst, "envelope": "1e-5 + 1e-3*|cpu|",
+                "push_paths": dict(model.transfer.push_paths),
+                "launches": counts})
+
+
+def phase_step_parity_hogwild(vocab, corpus) -> None:
+    """One hogwild group, ``WORKERS`` workers (the card that many times)
+    x 2 local steps, on the card and on the CPU from the same table and
+    draws (worker-major): each worker's 2 steps on its replica, then the
+    16 pushes on the table."""
+    model = _model("hogwild", vocab, "cuda")
+    cpu_model = _model("hogwild", vocab, "cpu")
+    cpu_model.table.state = _cpu_state(model.table.state, cpu_model)
+    n = WORKERS * model.local_steps
+    group = [_batch_fields(b) for b in _batches(vocab, corpus, model, n)]
+    rng = np.random.default_rng(13)
+    draws = [_draws(model, BATCH, rng) for _ in group]
+    kernels.reset_launches()
+    es_c, ec_c = (float(x) for x in model._hogwild_group(group, iter(draws)))
+    counts = kernels.launch_counts()
+    es_p, ec_p = (float(x) for x in cpu_model._hogwild_group(
+        group, iter([tuple(t.cpu() for t in d) for d in draws])))
+    if ec_c != ec_p or not math.isclose(es_c, es_p, rel_tol=1e-4):
+        raise AssertionError(f"hogwild group: card ({es_c}, {ec_c}), cpu "
+                             f"({es_p}, {ec_p})")
+    worst = _hold_tables("hogwild group", model, cpu_model)
+    _check_launches("hogwild", counts, n)
+    _json_line({"phase": "step_parity", "rendering": "hogwild",
+                "workers": len(model.cluster.devices),
+                "local_steps": model.local_steps, "batches": n,
+                "err_sum": [es_c, es_p], "err_cnt": [ec_c, ec_p],
+                "gap": worst, "envelope": "1e-5 + 1e-3*|cpu|",
+                "push_paths": dict(model.transfer.push_paths),
                 "launches": counts})
 
 
@@ -938,6 +1178,18 @@ def phase_train(rendering: str, vocab, corpus: np.ndarray,
                              f"launches in {m['steps']} steps, push paths "
                              f"{m['push_paths']}")
     extra = {"dtype": _dtype_name(_global(model.table.state["h"]))}
+    _check_launches(rendering, counts, m["steps"])
+    if rendering in ("async", "hogwild"):
+        extra.update(local_steps=m["local_steps"], async_mode=m["async_mode"],
+                     fused=m["fused"])
+        if m["fused"] or m["local_steps"] != model.local_steps:
+            raise AssertionError(f"{rendering}: {extra}")
+    if rendering == "hogwild":
+        extra.update(workers=len(model.cluster.devices),
+                     skipped_tail_words=m["hogwild_skipped_tail_words"])
+        if m["steps"] % (WORKERS * model.local_steps):
+            raise AssertionError(f"hogwild ran {m['steps']} steps, not "
+                                 f"whole groups")
     if sharded in SHARDED:
         # every step: one send and one wait launch for every exchange, one
         # gather per pull, one scatter-add and one AdaGrad per pushed
@@ -960,6 +1212,29 @@ def phase_train(rendering: str, vocab, corpus: np.ndarray,
                 "words_per_sec": m["words_per_sec"],
                 "push_paths": m["push_paths"], "launches": counts})
     return counts
+
+
+def phase_graph(vocab, corpus: np.ndarray, card: str) -> None:
+    """``sg`` with ``[worker] inner_steps: 8``: groups of 8 steps as one
+    CUDA graph replay each (the first group of a length is the capture's
+    warm-up), launches still exactly steps x sg's."""
+    model = _model("sg", vocab, "cuda", {"inner_steps": 8})
+    batcher = CBOWBatcher(corpus[:PATHS["sg"][2]], vocab, model.window,
+                          model.sample, seed=2008)
+    kernels.reset_launches()
+    losses = model.train(batcher=batcher, niters=1, batch_size=BATCH)
+    counts = kernels.launch_counts()
+    m = model.train_metrics
+    if not all(math.isfinite(x) for x in losses) or not m["fused"] \
+            or m["graph_replays"] < 1:
+        raise AssertionError(f"sg graphs: loss {losses}, fused {m['fused']}, "
+                             f"{m['graph_replays']} replays")
+    _check_launches("sg", counts, m["steps"])
+    _json_line({"phase": "graph", "rendering": "sg", "card": card,
+                "inner_steps": 8, "graph_replays": m["graph_replays"],
+                "loss": losses, "steps": m["steps"], "words": m["words"],
+                "seconds": m["seconds"], "words_per_sec": m["words_per_sec"],
+                "push_paths": m["push_paths"], "launches": counts})
 
 
 # -- phase 5: the input path, one full epoch ---------------------------------
@@ -1034,9 +1309,12 @@ def phase_input(corpus: np.ndarray, vocab, card: str) -> None:
 # -- phase 6: the CLI --------------------------------------------------------
 
 def phase_cli(extra: str, expect: set, cluster: str = "server_num: 1\n"
-              "transfer: xla\n", server: str = "", worker: str = "") -> None:
+              "transfer: xla\n", server: str = "", worker: str = "",
+              variant: str = "sync") -> None:
     """``extra``: [word2vec] lines; ``server``, ``worker``: more [server]
-    and [worker] lines.  The run must load through the native loader."""
+    and [worker] lines; ``variant``: the CLI's ``-variant`` (async and
+    hogwild key words by their BKDR hash).  The run must load through the
+    native loader."""
     if WORK.exists():
         shutil.rmtree(WORK)
     WORK.mkdir(parents=True)
@@ -1060,7 +1338,8 @@ def phase_cli(extra: str, expect: set, cluster: str = "server_num: 1\n"
     w2v_main.Word2Vec = Recording
     try:
         rc = w2v_main.main(["w2v_main", "-config", str(conf), "-data",
-                            str(data), "-niters", "1", "-output", str(out)])
+                            str(data), "-niters", "1", "-output", str(out),
+                            "-variant", variant])
     finally:
         w2v_main.Word2Vec = Word2Vec
     counts = kernels.launch_counts()
@@ -1070,7 +1349,14 @@ def phase_cli(extra: str, expect: set, cluster: str = "server_num: 1\n"
     if m["loader"] != "native":
         raise AssertionError(f"the CLI trained through the {m['loader']} "
                              "loader; the native one builds here")
-    vocab = build_vocab(load_corpus(str(data)))
+    vocab = build_vocab(load_corpus(
+        str(data), mode="int" if variant == "sync" else "bkdr"))
+    want_mode = {"sync": (1, ""), "async": (4, ""),
+                 "hogwild": (1, "hogwild")}[variant]
+    if (m["local_steps"], m["async_mode"]) != want_mode:
+        raise AssertionError(f"-variant {variant} trained with local_steps "
+                             f"{m['local_steps']}, async_mode "
+                             f"{m['async_mode']!r}")
     keys = set()
     for line in out.read_text().splitlines():
         key, _, rest = line.partition("\t")
@@ -1094,7 +1380,8 @@ def phase_cli(extra: str, expect: set, cluster: str = "server_num: 1\n"
                              f"{cluster.split()}) launched "
                              f"{sorted(launched)}, expected "
                              f"{sorted(expect)}")
-    _json_line({"phase": "cli", "conf": extra.strip() or "gather",
+    _json_line({"phase": "cli", "variant": variant,
+                "conf": extra.strip() or "gather",
                 "cluster": " ".join(cluster.split()),
                 "server": " ".join(server.split()),
                 "worker": " ".join(worker.split()), "loader": m["loader"],
@@ -1141,6 +1428,8 @@ def main() -> int:
     del model
     cases += phase_kernels_sharded(_model(f"gather@{SHARDS}", vocab, "cuda"),
                                    batch)
+    cases += phase_kernels_sg(vocab, batch)
+    torch.cuda.empty_cache()
     report_cases(cases)
     phase_step_parity("gather", vocab, batch)
     phase_step_parity("stencil", vocab, sbatch)
@@ -1149,7 +1438,12 @@ def main() -> int:
     phase_step_parity("gather" + BF16, vocab, batch)
     phase_step_parity("stencil" + BF16, vocab, sbatch)
     phase_step_parity_sharded(vocab, batch, BF16)
+    for path in ("sg", "sg_shared", "dense"):
+        phase_step_parity(path, vocab, batch)
+    phase_step_parity_async(vocab, corpus)
+    phase_step_parity_hogwild(vocab, corpus)
     counts = {r: phase_train(r, vocab, corpus, card) for r in PATHS}
+    phase_graph(vocab, corpus, card)
     phase_input(corpus, vocab, card)
     phase_cli("", PATHS["gather"][1])
     phase_cli("stencil: 1\n", PATHS["stencil"][1])
@@ -1157,6 +1451,8 @@ def main() -> int:
               cluster=f"server_num: {SHARDS}\ntransfer: tpu\n")
     phase_cli("", PATHS["gather" + BF16][1], server="dtype: bfloat16\n")
     phase_cli("", PATHS["gather"][1], worker="pipeline: 2\ninner_steps: 4\n")
+    phase_cli("", PATHS["async"][1], variant="async")
+    phase_cli("", PATHS["hogwild"][1], variant="hogwild")
 
     summary = []
     for c in cases:

@@ -1,11 +1,16 @@
 """word2vec CLI of the port, flag-compatible with the JAX package's
 ``apps/w2v_main.py`` and the reference mains (``-config <conf> -data
 <corpus> -niters N -output <path>``), plus ``-device cuda|cpu`` (default:
-the CUDA device; the CPU only when asked for).  Only the sync variant is
-ported: ``-variant async|hogwild`` and ``-checkpoint`` raise.  The conf's
-``[word2vec] stencil: 1`` and ``shared_negatives: 1`` pick the stencil,
-shared and stencil_shared renderings, and ``[server] dtype: bfloat16``
-bf16 tables, as in the JAX package.  The sharded
+the CUDA device; the CPU only when asked for).  ``-variant sync`` (the
+default) keys words with ``int`` tokens; ``-variant async`` (``[word2vec]
+local_steps: 4``, the snapshot mode) and ``-variant hogwild``
+(``async_mode: hogwild``, one worker on each device of the model's
+cluster) key them with the BKDR string hash, as the reference's
+``w2v.cpp`` does; another variant logs an error and returns 1.
+``-checkpoint`` raises (ROADMAP A9).  The conf's ``[word2vec] stencil:
+1``, ``shared_negatives: 1``, ``sg: 1`` and ``dense_logits: 1`` pick the
+renderings, and ``[server] dtype: bfloat16`` bf16 tables, as in the JAX
+package.  The sharded
 parameter server is the conf's ``[cluster] transfer: tpu`` with
 ``server_num: n``; ``-shards n`` sets ``server_num`` from the command
 line.  The corpus loads and batches through the native C++ loader
@@ -38,8 +43,9 @@ def main(argv=None) -> int:
     cmd.registerParameter("data", "path of dataset")
     cmd.registerParameter("niters", "number of iterations")
     cmd.registerParameter("output", "path to output the embeddings")
-    cmd.registerParameter("variant", "sync (int keys); async and hogwild "
-                          "are not ported yet")
+    cmd.registerParameter("variant", "sync (int keys) | async (hashed "
+                          "keys, bounded staleness) | hogwild (hashed keys, "
+                          "unsynchronized worker replicas)")
     cmd.registerParameter("device", "cuda (default) | cpu")
     cmd.registerParameter("shards", "table shards ([cluster] server_num; "
                           "needs [cluster] transfer: tpu when > 1)")
@@ -49,9 +55,15 @@ def main(argv=None) -> int:
     if cmd.hasParameter("config"):
         global_config().load_conf(cmd.getValue("config")).parse()
     variant = cmd.getValue("variant", "sync")
-    if variant != "sync":
-        raise NotImplementedError(
-            f"-variant {variant} is not ported yet (ROADMAP A8); only sync")
+    if variant not in ("sync", "async", "hogwild"):
+        log.error("unknown -variant %r (expected sync|async|hogwild)",
+                  variant)
+        return 1
+    if variant == "async":
+        global_config().set("word2vec", "local_steps", 4)
+    elif variant == "hogwild":
+        global_config().set("word2vec", "async_mode", "hogwild")
+    mode = "int" if variant == "sync" else "bkdr"
     if cmd.hasParameter("checkpoint"):
         raise NotImplementedError(
             "-checkpoint is not ported yet (ROADMAP A9)")
@@ -67,7 +79,7 @@ def main(argv=None) -> int:
         # C++ end to end: vocab, corpus mapping and batch assembly never
         # touch the Python tokenizer
         vocab, tokens, offsets = native.load_corpus_native(
-            cmd.getValue("data"),
+            cmd.getValue("data"), mode=mode,
             min_sentence_length=max(model.min_sentence_length, 1))
         batcher = native.PrefetchingCBOWBatcher(
             tokens, offsets, vocab, model.window, model.sample)
@@ -75,7 +87,7 @@ def main(argv=None) -> int:
         model.build_from_vocab(vocab)
     else:
         log.info("using the Python loader")
-        corpus = load_corpus(cmd.getValue("data"),
+        corpus = load_corpus(cmd.getValue("data"), mode=mode,
                              min_sentence_length=model.min_sentence_length)
         model.build(corpus)
     losses = model.train(corpus, niters=niters, batcher=batcher)

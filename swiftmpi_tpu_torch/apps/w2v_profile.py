@@ -1,17 +1,24 @@
-"""Time and profile word2vec CBOW sync steps of the port on the card, at
-the full width of the reference configuration (demo.conf on the
-text8-shaped synthetic corpus, the configuration ``chip_smoke.py`` runs).
+"""Time and profile word2vec steps of the port on the card, at the full
+width of the reference configuration (demo.conf on the text8-shaped
+synthetic corpus, the configuration ``chip_smoke.py`` runs).
 
     python -m swiftmpi_tpu_torch.apps.w2v_profile [-steps 40] \\
-        [-stencil 1] [-shared 1] [-shards 8] [-dtype bfloat16] \\
+        [-stencil 1] [-shared 1] [-sg 1] [-dense 1] [-shards 8] \\
+        [-dtype bfloat16] [-local_steps L] [-hogwild n] \\
         [-trace build/w2v_step_trace.json]
 
-``-stencil 1`` / ``-shared 1`` set ``[word2vec] stencil`` /
-``shared_negatives`` (the ``stencil``, ``shared`` and ``stencil_shared``
-renderings); the default is the gather rendering.  ``-shards n`` runs the
-sharded parameter server (``[cluster] transfer: tpu``, ``server_num: n``)
-with its n ranks on the one card.  ``-dtype bfloat16`` sets ``[server]
-dtype`` (bfloat16 h and v, float32 accumulators).
+``-stencil 1`` / ``-shared 1`` / ``-sg 1`` / ``-dense 1`` set
+``[word2vec] stencil`` / ``shared_negatives`` / ``sg`` / ``dense_logits``
+(the ``stencil``, ``shared``, ``stencil_shared``, ``sg``, ``sg_shared``
+and ``dense`` renderings); the default is the gather rendering.
+``-shards n`` runs the sharded parameter server (``[cluster] transfer:
+tpu``, ``server_num: n``) with its n ranks on the one card.  ``-dtype
+bfloat16`` sets ``[server] dtype`` (bfloat16 h and v, float32
+accumulators).  ``-local_steps L`` runs the snapshot async mode (grads
+against a snapshot refreshed every L steps, as ``train`` runs it);
+``-hogwild n`` hogwild with n workers on the card (``async_mode:
+hogwild``, the card n times in the model's cluster), ``L`` batches a
+worker (default 1), timed and profiled in whole groups of n*L batches.
 
 Batches are made before the clock starts, so the numbers are the
 device path's alone (the host batcher's time is reported apart):
@@ -47,9 +54,11 @@ import time
 
 import torch
 
+from swiftmpi_tpu_torch.cluster import Cluster
 from swiftmpi_tpu_torch.data.text import (CBOWBatcher, build_vocab,
                                           synthetic_corpus_bulk)
-from swiftmpi_tpu_torch.models.word2vec import Word2Vec
+from swiftmpi_tpu_torch.models.word2vec import (Word2Vec, _batch_fields,
+                                                _refresh, _snapshot)
 from swiftmpi_tpu_torch.utils import CMDLine, ConfigParser
 
 #: the text8-shaped corpus of the reference configuration
@@ -113,7 +122,8 @@ def _host_by_op(prof, top: int = 12):
 
 def profile(steps: int = 40, trace: str = "", stencil: int = 0,
             shared: int = 0, shards: int = 0,
-            dtype: str = "float32") -> dict:
+            dtype: str = "float32", sg: int = 0, dense: int = 0,
+            local_steps: int = 1, hogwild: int = 0) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("w2v_profile measures the card; no CUDA device "
                            "is available")
@@ -124,12 +134,25 @@ def profile(steps: int = 40, trace: str = "", stencil: int = 0,
     config.set("word2vec", "stencil", stencil)
     config.set("word2vec", "shared_negatives", shared)
     config.set("server", "dtype", dtype)
+    config.set("word2vec", "sg", sg)
+    config.set("word2vec", "dense_logits", dense)
+    config.set("word2vec", "local_steps", local_steps)
     if shards:
         config.set("cluster", "transfer", "tpu")
         config.set("cluster", "server_num", shards)
-    model = Word2Vec(config=config, device="cuda")
+    cluster = None
+    # whole hogwild groups: the warm-up, the timed steps and the window
+    group = 1
+    if hogwild:
+        config.set("word2vec", "async_mode", "hogwild")
+        cluster = Cluster(config, devices=["cuda"] * hogwild).initialize()
+        group = hogwild * max(local_steps, 1)
+    model = Word2Vec(config=config, device="cuda", cluster=cluster)
     model.build_from_vocab(vocab)
-    need = WARM_STEPS + steps + PROFILED_STEPS
+    warm = -(-WARM_STEPS // group) * group
+    steps = -(-steps // group) * group
+    n_window = -(-PROFILED_STEPS // group) * group
+    need = warm + steps + n_window
     batcher = CBOWBatcher(corpus, vocab, model.window, model.sample,
                           seed=2008)
     t0 = time.perf_counter()
@@ -144,21 +167,39 @@ def profile(steps: int = 40, trace: str = "", stencil: int = 0,
         raise RuntimeError(f"the corpus gave {len(batches)} batches, "
                            f"{need} needed")
 
-    def run(bs):
-        for b in bs:
-            model.step_batch(b)
+    # the snapshot mode's copy, refreshed every local_steps steps
+    snapshot = (_snapshot(model.table.state, model.access.pull_fields,
+                          model.cluster.mesh)
+                if local_steps > 1 and not hogwild else None)
+    done = 0
 
-    run(batches[:WARM_STEPS])
+    def run(bs):
+        nonlocal done
+        if hogwild:
+            for i in range(0, len(bs), group):
+                model._hogwild_group([_batch_fields(b)
+                                      for b in bs[i:i + group]])
+            return
+        for b in bs:
+            if snapshot is None:
+                model.step_batch(b)
+                continue
+            model._step_fields(_batch_fields(b), None, snapshot)
+            done += 1
+            if done % local_steps == 0:
+                _refresh(snapshot, model.table.state)
+
+    run(batches[:warm])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    timed = batches[WARM_STEPS:WARM_STEPS + steps]
+    timed = batches[warm:warm + steps]
     t0 = time.perf_counter()
     run(timed)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / steps
     words = sum(b.n_words for b in timed)
 
-    window = batches[WARM_STEPS + steps:]
+    window = batches[warm + steps:]
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -173,6 +214,8 @@ def profile(steps: int = 40, trace: str = "", stencil: int = 0,
         prof.export_chrome_trace(trace)
     return {
         "card": card_line(), "rendering": model.resolved_rendering,
+        "local_steps": local_steps, "async_mode": model.async_mode,
+        "workers": len(model.cluster.devices) if hogwild else 0,
         "steps": steps, "batch": BATCH,
         "transfer": model.transfer.name, "shards": model.cluster.n_servers,
         "centers_per_batch": words / steps,
@@ -211,12 +254,22 @@ def main(argv=None) -> int:
                           "n ranks on the card")
     cmd.registerParameter("dtype", "[server] dtype: float32 (default) or "
                           "bfloat16")
+    cmd.registerParameter("sg", "1: skip-gram")
+    cmd.registerParameter("dense", "1: dense logits")
+    cmd.registerParameter("local_steps", "L > 1: the snapshot async mode; "
+                          "with -hogwild, the batches a worker trains")
+    cmd.registerParameter("hogwild", "n: hogwild with n workers on the "
+                          "card")
     out = profile(int(cmd.getValue("steps", "40")),
                   cmd.getValue("trace", ""),
                   int(cmd.getValue("stencil", "0")),
                   int(cmd.getValue("shared", "0")),
                   int(cmd.getValue("shards", "0")),
-                  cmd.getValue("dtype", "float32"))
+                  cmd.getValue("dtype", "float32"),
+                  int(cmd.getValue("sg", "0")),
+                  int(cmd.getValue("dense", "0")),
+                  int(cmd.getValue("local_steps", "1")),
+                  int(cmd.getValue("hogwild", "0")))
     print(json.dumps(out), flush=True)
     return 0
 

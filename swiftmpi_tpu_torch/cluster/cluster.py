@@ -46,6 +46,9 @@ class Cluster:
                  devices: Optional[Sequence] = None):
         self.config = config if config is not None else global_config()
         self._devices = devices
+        #: the devices the cluster was given (or found), repeats kept: the
+        #: hogwild mode runs one worker on each
+        self.devices: tuple = ()
         self.mesh = None
         self.hashfrag: Optional[HashFrag] = None
         self.transfer: Optional[Transfer] = None
@@ -55,8 +58,9 @@ class Cluster:
     # -- bring-up (cluster.h:27-30) ----------------------------------------
     def initialize(self) -> "Cluster":
         g = self.config.get_or
-        devices = tuple(visible_devices() if self._devices is None
-                        else self._devices)
+        devices = self.devices = tuple(visible_devices()
+                                       if self._devices is None
+                                       else self._devices)
         n_servers = g("cluster", "server_num", len(devices)).to_int32()
         backend = g("cluster", "transfer", "xla").to_string()
         self.data_plane = g("cluster", "data_plane", "auto").to_string()

@@ -50,11 +50,22 @@ class Vocab:
         return int(self.counts.sum())
 
 
-def tokenize(line: str) -> List[int]:
-    """Words -> integer keys, the sync variant's ``int`` mode: atoi, and
-    the string hash for a word that is not an integer."""
+#: key modes: ``int`` for the sync variant, ``bkdr`` for async and hogwild
+TOKENIZE_MODES = ("int", "bkdr")
+
+
+def tokenize(line: str, mode: str = "int") -> List[int]:
+    """Words -> integer keys: ``int`` = atoi, with the string hash for a
+    word that is not an integer (the sync variant, word2vec.h:206);
+    ``bkdr`` = the string hash of every word (the async variant,
+    word2vec_global.h:205-207)."""
+    words = line.split()
+    if mode == "bkdr":
+        return [bkdr_hash(w) for w in words]
+    if mode != "int":
+        raise ValueError(f"unknown tokenize mode {mode!r}")
     out = []
-    for w in line.split():
+    for w in words:
         try:
             out.append(int(w))
         except ValueError:
@@ -86,14 +97,17 @@ def build_vocab(sentences, min_count: int = 1) -> Vocab:
     return _vocab_from_counts(keys, counts.astype(np.int64), min_count)
 
 
-def load_corpus(path: str, min_sentence_length: int = 1) -> List[List[int]]:
-    """Sentences as key lists; one line = one sentence, chopped into
-    ``MAX_SENTENCE_LENGTH`` chunks (bounds single-line corpora such as
-    text8)."""
+def load_corpus(path: str, mode: str = "int",
+                min_sentence_length: int = 1) -> List[List[int]]:
+    """Sentences as key lists (``mode``: :func:`tokenize`'s); one line =
+    one sentence, chopped into ``MAX_SENTENCE_LENGTH`` chunks (bounds
+    single-line corpora such as text8)."""
+    if mode not in TOKENIZE_MODES:
+        raise ValueError(f"unknown tokenize mode {mode!r}")
     sentences = []
     with open(path) as f:
         for line in f:
-            toks = tokenize(line)
+            toks = tokenize(line, mode)
             for i in range(0, len(toks), MAX_SENTENCE_LENGTH):
                 chunk = toks[i:i + MAX_SENTENCE_LENGTH]
                 if len(chunk) >= min_sentence_length:

@@ -1,7 +1,7 @@
-"""word2vec CBOW + negative sampling, sync variant (counterpart of
-``swiftmpi_tpu/models/word2vec.py``), on one device (``transfer: xla``)
-or over the n ranks of the sharded parameter server (``transfer: tpu``,
-``server_num: n``).
+"""word2vec CBOW or skip-gram + negative sampling, sync and async
+(counterpart of ``swiftmpi_tpu/models/word2vec.py``), on one device
+(``transfer: xla``) or over the n ranks of the sharded parameter server
+(``transfer: tpu``, ``server_num: n``).
 
 Reference hot loop (word2vec.h:550-615), per center word:
     b = rand % window;  context = +-(window-b) neighbors
@@ -14,8 +14,8 @@ Reference hot loop (word2vec.h:550-615), per center word:
         h_grad[target] += g * neu1 ; neu1e += g * h_target
     v_grad[context_j] += neu1e  for each context word
 
-One minibatch of that loop is one step, rendered one of four ways, as the
-JAX package resolves them (``resolved_rendering``):
+One minibatch of that loop is one step, rendered one of seven ways, as
+the JAX package resolves them (``resolved_rendering``):
 
 * ``gather`` (default): two pulls (h at the B*(K+1) target slots, v at
   the B*2W context slots) through the gather kernel and two pushes (h by
@@ -29,11 +29,35 @@ JAX package resolves them (``resolved_rendering``):
   from the batch's own arrays), and the v gradient folds onto span
   positions and pushes through ``push_span``.
 * ``stencil_shared``: the stencil context side with the shared pool.
+* ``dense`` (``dense_logits: 1``): the gather rendering's math through
+  full ``(B, capacity)`` logits — three large matrix products — with the
+  h gradient arriving capacity-shaped and applied to the whole table
+  (``PushSpec(dense=True)``).  ``dense_logits: auto`` resolves to
+  ``gather``, as the JAX package resolves it off a TPU.
+* ``sg`` (``sg: 1``): skip-gram over the ``(B, 2W)`` pair axis, K
+  negatives drawn fresh per pair, so the h pull and push take
+  ``B·2W·(K+1)`` rows.
+* ``sg_shared`` (``sg: 1``, ``shared_negatives: 1``): skip-gram with one
+  pool for the batch, the pairs run through the shared negative phase.
 
-With ``transfer: tpu`` (gather and shared renderings only, as in the
-JAX package) the step's arithmetic still runs once over the whole batch,
-as the jitted JAX step does over global arrays; only the pulls and pushes
-are per rank, routed by ``transfer/sharded.py``.
+With ``transfer: tpu`` (every rendering but the stencil ones and
+``dense``, as in the JAX package) the step's arithmetic still runs once
+over the whole batch, as the jitted JAX step does over global arrays;
+only the pulls and pushes are per rank, routed by
+``transfer/sharded.py``.
+
+Two async modes, as in the JAX package's ``train``:
+
+* ``local_steps: L > 1`` (the snapshot mode): each step computes its
+  grads against a snapshot of the table and pushes onto the live table;
+  the snapshot is refreshed every L steps.  The port updates the table in
+  place, so the snapshot is a copy of the pulled fields (h and v), made
+  when ``train`` starts and refreshed in place.
+* ``async_mode: hogwild``: every device the ``Cluster`` was given (a
+  device may repeat) is a worker; each trains ``local_steps`` batches on
+  its own replica of the table with its own draws, then every worker's
+  pushes are applied to the shared table in worker-major order
+  (``_hogwild_group``).  One replica buffer serves the workers in turn.
 
 ``[server] dtype: bfloat16`` stores the embedding fields h and v in
 bfloat16, as the JAX package does: every pull is upcast to float32
@@ -52,8 +76,9 @@ into single batches and ``[worker] inner_steps`` groups on the host
 copies on a side stream, when K > 0); a step reads nothing back to the
 host, the loss sums stay on the device (``_LossAccum``, one read at the
 end of the epoch); and on a CUDA device with ``transfer: xla`` a group of
-N steps is one replay of a captured CUDA graph (``_FusedSteps``, one
-graph per group length, as JAX compiles one fused scan per length).
+N sync steps is one replay of a captured CUDA graph (``_FusedSteps``, one
+graph per group length, as JAX compiles one fused scan per length).  The
+async modes run their steps one by one, as JAX runs them unfused.
 """
 
 from __future__ import annotations
@@ -82,6 +107,7 @@ from swiftmpi_tpu_torch.ops.sampling import (alias_draws,
                                              sample_alias_slots_from_draws)
 from swiftmpi_tpu_torch.ops.sigmoid import sigmoid_clipped
 from swiftmpi_tpu_torch.parameter import SparseTable, w2v_access
+from swiftmpi_tpu_torch.parameter.sparse_table import shard_block
 from swiftmpi_tpu_torch.transfer import PushSpec
 from swiftmpi_tpu_torch.utils.config import ConfigParser, global_config
 from swiftmpi_tpu_torch.utils.logger import get_logger
@@ -98,6 +124,12 @@ _UNPORTED_SECTIONS = {"obs": "A14", "control": "A13", "serve": "A13"}
 
 #: ``[server] dtype`` -> the embedding fields' dtype
 PARAM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+#: rendering -> the method computing its gradient phase
+_GRADS = {"gather": "_grads", "dense": "_grads_dense",
+          "shared": "_grads_shared", "sg": "_grads_sg",
+          "sg_shared": "_grads_sg_shared", "stencil": "_grads_stencil",
+          "stencil_shared": "_grads_stencil"}
 
 
 def _on(x, device, dtype) -> torch.Tensor:
@@ -252,16 +284,38 @@ def _cbow_targets(slot_of_vocab, alias_prob, alias_idx, centers, contexts,
     return t_slots, ctx_slots, t_valid
 
 
+def _sg_targets(slot_of_vocab, alias_prob, alias_idx, centers, contexts,
+                ctx_mask, draws: Draws):
+    """Target/context slots and validity of a skip-gram batch (JAX
+    ``_build_grads_sg``): per pair ``(b, w)`` the center, then K negatives
+    from the ``(B, 2W, K)`` draws; a negative equal to its center is
+    skipped (word2vec.h:584-586) and a padding pair is dead.  Returns
+    ``(t_slots (B, 2W, K+1), ctx_slots (B, 2W), t_valid)``, dead slots
+    -1."""
+    B, W2 = contexts.shape
+    negs, neg_slots = sample_alias_slots_from_draws(
+        draws[0], draws[1], alias_prob, alias_idx, slot_of_vocab)
+    t_valid = torch.cat([
+        torch.ones((B, W2, 1), dtype=torch.bool, device=centers.device),
+        negs != centers[:, None, None]], dim=2) & ctx_mask[..., None]
+    c_slots = slot_of_vocab[centers][:, None, None].expand(B, W2, 1)
+    t_slots = torch.where(t_valid, torch.cat([c_slots, neg_slots], dim=2), -1)
+    ctx_slots = torch.where(ctx_mask, slot_of_vocab[contexts], -1)
+    return t_slots, ctx_slots, t_valid
+
+
 def _parity_ns(neu1, h_t, t_valid, alpha):
-    """Per-center negative sampling (labels: the center 1, negatives 0):
+    """Per-example negative sampling (labels: the center 1, negatives 0)
+    over any leading axes — a CBOW center ``(B,)`` or a skip-gram pair
+    ``(B, 2W)``: ``neu1 (..., d)``, ``h_t (..., K+1, d)``.  Returns
     ``(g, h_contrib, neu1e)`` with dead targets' ``g`` zeroed."""
-    B, K1 = t_valid.shape
-    f = torch.einsum("bd,bkd->bk", neu1, h_t)
-    labels = torch.zeros((B, K1), dtype=torch.float32, device=f.device)
-    labels[:, 0] = 1.0
+    f = torch.einsum("...d,...kd->...k", neu1, h_t)
+    labels = torch.zeros(t_valid.shape, dtype=torch.float32,
+                         device=f.device)
+    labels[..., 0] = 1.0
     g = torch.where(t_valid, (labels - sigmoid_clipped(f)) * alpha, 0.0)
-    h_contrib = g[..., None] * neu1[:, None, :]                 # (B,K+1,d)
-    neu1e = torch.einsum("bk,bkd->bd", g, h_t)                   # (B, d)
+    h_contrib = g[..., None] * neu1[..., None, :]             # (...,K+1,d)
+    neu1e = torch.einsum("...k,...kd->...d", g, h_t)          # (..., d)
     return g, h_contrib, neu1e
 
 
@@ -289,6 +343,32 @@ def _shared_ns(neu1, h_pos, h_neg, centers, negs, row_valid, alpha,
         + ratio * torch.sum(1e4 * g_neg * g_neg)
     err_cnt = row_valid.sum() + ratio * n_valid.sum()
     return gh_pos, gh_neg, neu1e, n_valid, err_sum, err_cnt
+
+
+def _snapshot(state, fields, mesh) -> dict:
+    """A copy of ``fields`` of a table state.  A sharded field's copy
+    keeps the shards of each device one block (``shard_block``), as the
+    sharded transfer reads them."""
+    out = {}
+    for f in fields:
+        v = state[f]
+        if not isinstance(v, list):
+            out[f] = v.clone()
+            continue
+        out[f] = [None] * len(v)
+        for _, ranks in mesh.device_groups:
+            block = shard_block([v[r] for r in ranks]).clone()
+            for i, r in enumerate(ranks):
+                out[f][r] = block[i]
+    return out
+
+
+def _refresh(snapshot: dict, state) -> None:
+    """Copy ``state``'s fields into the snapshot's tensors, in place."""
+    for f, v in snapshot.items():
+        pairs = zip(v, state[f]) if isinstance(v, list) else [(v, state[f])]
+        for dst, src in pairs:
+            dst.copy_(src)
 
 
 def _assemble_push(tf, cf, h_flat, v_flat):
@@ -331,6 +411,17 @@ class Word2Vec:
         self.shared_negatives = g(
             "word2vec", "shared_negatives", 0).to_int32() != 0
         self.shared_pool = g("word2vec", "shared_pool", 1024).to_int32()
+        self.sg = g("word2vec", "sg", 0).to_int32() != 0
+        # dense_logits: 0/1 force; "auto" resolves to the gather
+        # rendering, as the JAX package resolves it off a TPU (no on-chip
+        # verdict for this device kind)
+        dense_raw = g("word2vec", "dense_logits", "auto").to_string()
+        self.dense_logits = dense_raw != "auto" and int(dense_raw) != 0
+        # local_steps > 1: the snapshot async mode; with async_mode:
+        # hogwild, the batches each worker trains between reconciliations
+        self.local_steps = g("word2vec", "local_steps", 1).to_int32()
+        self.async_mode = g("word2vec", "async_mode", "").to_string()
+        self.hogwild = self.async_mode == "hogwild"
         server_lr = g("server", "initial_learning_rate", 0.7).to_float()
         # [server] dtype: bfloat16 halves the embedding fields' bytes; the
         # math stays float32 (upcast on pull, round once on store)
@@ -356,10 +447,18 @@ class Word2Vec:
                                 "auto").to_string()
         self._check_supported()
         #: the rendering the step runs, named as the JAX package names it
-        self.resolved_rendering = (
-            ("stencil_shared" if self.shared_negatives else "stencil")
-            if self.stencil else
-            ("shared" if self.shared_negatives else "gather"))
+        if self.stencil:
+            self.resolved_rendering = ("stencil_shared"
+                                       if self.shared_negatives
+                                       else "stencil")
+        elif self.sg:
+            self.resolved_rendering = ("sg_shared" if self.shared_negatives
+                                       else "sg")
+        elif self.shared_negatives:
+            self.resolved_rendering = "shared"
+        else:
+            self.resolved_rendering = ("dense" if self.dense_logits
+                                       else "gather")
         self.device = resolve_device(device)
         # one device holds the batch, the step's arithmetic and, for now,
         # every rank of the layout (shards on different cards: ROADMAP A11)
@@ -388,9 +487,7 @@ class Word2Vec:
         JAX package's own ``ValueError``s for combinations that are not
         configurations at all."""
         g = self.config.get_or
-        sg = g("word2vec", "sg", 0).to_int32() != 0
-        dense_raw = g("word2vec", "dense_logits", "auto").to_string()
-        dense = dense_raw != "auto" and int(dense_raw) != 0
+        sg, dense = self.sg, self.dense_logits
         transfer = g("cluster", "transfer", "xla").to_string()
         data_plane = g("cluster", "data_plane", "auto").to_string()
         if self.stencil:
@@ -406,10 +503,31 @@ class Word2Vec:
                 raise ValueError(
                     "the stencil rendering pushes its span family through "
                     "push_span — set [cluster] transfer: xla or hybrid")
+            if self.hogwild:
+                raise ValueError(
+                    "async_mode=hogwild drives per-pair batches; the "
+                    "stencil rendering composes with the snapshot "
+                    "(local_steps) async mode instead")
+        elif sg and dense:
+            raise ValueError(
+                "dense_logits is a CBOW-only rendering; with sg: 1 the "
+                "per-pair skip-gram phase would ignore it — drop one of "
+                "the two flags")
         elif dense and self.shared_negatives:
             raise ValueError(
                 "dense_logits and shared_negatives are two different "
                 "renderings of the negative-sampling phase — pick one")
+        if dense and transfer != "xla":
+            raise ValueError(
+                "dense_logits computes the h-grad as a full-capacity "
+                "matmul and applies it directly — the 'tpu'/'hybrid' "
+                "backends' row-sharded routing doesn't apply (set "
+                "[cluster] transfer: xla)")
+        if self.hogwild and transfer != "xla":
+            raise ValueError(
+                "async_mode=hogwild requires the gather/scatter 'xla' "
+                "transfer: each worker replica trains locally (set "
+                "[cluster] transfer: xla)")
         if data_plane not in ("auto", "pallas", "xla"):
             raise ValueError(f"[cluster] data_plane must be auto, pallas or "
                              f"xla, got {data_plane!r}")
@@ -424,12 +542,6 @@ class Word2Vec:
         want(self.stencil and data_plane == "xla",
              "[cluster] data_plane: xla with stencil (the device-kind "
              "verdict store)", "A16")
-        want(sg, "[word2vec] sg", "A8")
-        want(dense_raw == "1", "[word2vec] dense_logits: 1", "A8")
-        want(g("word2vec", "local_steps", 1).to_int32() > 1,
-             "[word2vec] local_steps > 1", "A8")
-        want(g("word2vec", "async_mode", "").to_string() == "hogwild",
-             "[word2vec] async_mode: hogwild", "A8")
         want(g("cluster", "push_window", 1).to_int32() > 1,
              "[cluster] push_window > 1", "A12")
         for key in ("wire_quant", "pull_quant"):
@@ -540,6 +652,108 @@ class Word2Vec:
                      mean=True))
         return pushes, err_sum, err_cnt
 
+    def _grads_dense(self, state, centers, contexts, ctx_mask,
+                     draws: Draws):
+        """Dense-logits rendering (JAX ``_build_grads_dense``): the gather
+        rendering's sampling, clipped sigmoid and mean-normalized update,
+        with the h side through the whole table instead of row gathers:
+
+            F      = neu1 @ h.T              (B, cap) logits
+            f[b,k] = F[b, t[b,k]]
+            G      = g scattered into (B, cap), duplicates summed
+            h_grad = G.T @ neu1 / counts     (cap, d), already normalized
+            neu1e  = G @ h                   (B, d)
+
+        The three products are plain float32 matrix products (PyTorch's
+        default precision, no TF32), as the JAX package leaves them to
+        XLA.  The h push is capacity-shaped (``PushSpec(dense=True)``): the
+        AdaGrad kernel applies it over the whole table, and untouched rows
+        see exact zeros.  The v side is the gather rendering's."""
+        B, W2 = contexts.shape
+        d = self.len_vec
+        h_all = state["h"].float()                            # (cap, d)
+        cap = h_all.shape[0]
+        t_slots, ctx_slots, t_valid = _cbow_targets(
+            self._slot_of_vocab, self._alias_prob, self._alias_idx,
+            centers, contexts, ctx_mask, draws)
+        safe_t = torch.where(t_valid, t_slots, 0).clamp(0, cap - 1).long()
+        v_ctx = self._pull(state, ctx_slots.reshape(-1), "v").reshape(B, W2, d)
+        neu1 = torch.sum(v_ctx * ctx_mask[..., None], dim=1)     # (B, d)
+        F = neu1 @ h_all.T                                      # (B, cap)
+        f = F.gather(1, safe_t)                                 # (B, K+1)
+        labels = torch.zeros(t_valid.shape, dtype=torch.float32,
+                             device=f.device)
+        labels[:, 0] = 1.0
+        g = torch.where(t_valid, (labels - sigmoid_clipped(f)) * self.alpha,
+                        0.0)
+        # G takes F's memory (F is spent): one (B, cap) buffer, not two
+        G = F.zero_().scatter_add_(1, safe_t, g)
+        counts = torch.zeros(cap, dtype=torch.float32, device=f.device)
+        counts.index_add_(0, safe_t.reshape(-1), t_valid.reshape(-1).float())
+        h_grad = (G.T @ neu1) / counts.clamp(min=1.0)[:, None]
+        neu1e = G @ h_all
+        v_contrib = torch.where(ctx_mask[..., None], neu1e[:, None, :], 0.0)
+        pushes = (PushSpec(None, {"h": h_grad}, dense=True),
+                  PushSpec(ctx_slots.reshape(-1),
+                           {"v": v_contrib.reshape(-1, d)}, mean=True))
+        return pushes, torch.sum(1e4 * g * g), t_valid.sum()
+
+    def _grads_sg(self, state, centers, contexts, ctx_mask, draws: Draws):
+        """Skip-gram rendering (JAX ``_build_grads_sg``): the pair axis
+        ``(B, 2W)`` — input ``v[context]``, targets ``h[center]`` and K
+        negatives drawn fresh per pair (the draws are ``(B, 2W, K)``);
+        masked pairs contribute nothing.  The h pull and push take
+        ``B·2W·(K+1)`` rows, the v pull and push ``B·2W``; both pushes are
+        mean families and ``err_cnt`` counts live target pairs."""
+        B, W2 = contexts.shape
+        K, d = self.negative, self.len_vec
+        t_slots, ctx_slots, t_valid = _sg_targets(
+            self._slot_of_vocab, self._alias_prob, self._alias_idx, centers,
+            contexts, ctx_mask, draws)
+        h_t = self._pull(state, t_slots.reshape(-1), "h").reshape(
+            B, W2, K + 1, d)
+        v_in = self._pull(state, ctx_slots.reshape(-1), "v").reshape(B, W2, d)
+        g, h_contrib, v_contrib = _parity_ns(v_in, h_t, t_valid, self.alpha)
+        v_contrib = torch.where(ctx_mask[..., None], v_contrib, 0.0)
+        pushes = _assemble_push(
+            t_slots.reshape(-1), ctx_slots.reshape(-1),
+            h_contrib.reshape(-1, d), v_contrib.reshape(-1, d))
+        return pushes, torch.sum(1e4 * g * g), t_valid.sum()
+
+    def _grads_sg_shared(self, state, centers, contexts, ctx_mask,
+                         draws: Draws):
+        """Skip-gram with one pool (JAX ``_build_grads_sg_shared``): every
+        pair ``(b, w)`` is a row of the shared negative phase, with input
+        ``v[context]`` and positive ``h[center_b]``, so the h pull is B +
+        pool rows.  Three pushes: the positive pairs' h grads and the
+        contexts' v grads mean-normalized per slot, the pool's ``(pool,
+        d)`` h grads as a SUM family (a mean there would divide each
+        pool row's ~B·2W summed pair contributions away).  Loss terms are
+        weighted ``negative / pool``; ``err_cnt`` is fractional."""
+        B, W2 = contexts.shape
+        d = self.len_vec
+        sov = self._slot_of_vocab
+        negs = sample_alias_from_draws(draws[0], draws[1], self._alias_prob,
+                                       self._alias_idx)          # (pool,)
+        c_slots, n_slots = sov[centers], sov[negs]
+        ctx_slots = torch.where(ctx_mask, sov[contexts], -1)
+        h = self._pull(state, torch.cat([c_slots, n_slots]), "h")
+        v_in = self._pull(state, ctx_slots.reshape(-1), "v")     # (B*2W, d)
+        pair_centers = centers[:, None].expand(B, W2).reshape(-1)
+        h_pos = h[:B, None, :].expand(B, W2, d).reshape(-1, d)
+        pair_valid = ctx_mask.reshape(-1)
+        gh_pos, gh_neg, v_contrib, n_valid, err_sum, err_cnt = _shared_ns(
+            v_in, h_pos, h[B:], pair_centers, negs, pair_valid, self.alpha,
+            self.negative / self.shared_pool)
+        v_contrib = torch.where(pair_valid[:, None], v_contrib, 0.0)
+        pos_slots = torch.where(ctx_mask, c_slots[:, None], -1)
+        pushes = (
+            PushSpec(pos_slots.reshape(-1), {"h": gh_pos}, mean=True),
+            PushSpec(torch.where(n_valid.any(dim=0), n_slots, -1),
+                     {"h": gh_neg}),
+            PushSpec(ctx_slots.reshape(-1), {"v": v_contrib}, mean=True))
+        return pushes, err_sum, err_cnt
+
     def _grads_stencil(self, state, tokens, sent_id, center_pos, half,
                        draws: Draws):
         """Stencil rendering (JAX ``_build_grads_stencil``): the batch is
@@ -605,9 +819,14 @@ class Word2Vec:
     def _apply(self, state, pushes):
         """Apply phase (JAX ``_build_apply``): every family through the
         transfer's push — a span family (one that carries counts) through
-        ``push_span`` — in place on ``state``."""
+        ``push_span``, a dense family straight through the access method
+        over the whole table (push path ``<fields>:table``) — in place on
+        ``state``."""
         for spec in pushes:
-            if spec.counts is not None:
+            if spec.dense:
+                self.transfer.push_paths[f"{','.join(spec.grads)}:table"] += 1
+                self.access.apply_push(state, spec.grads)
+            elif spec.counts is not None:
                 self.transfer.push_span(state, spec.slots, spec.grads,
                                         spec.counts, self.access,
                                         mean=spec.mean)
@@ -617,16 +836,25 @@ class Word2Vec:
         return state
 
     # -- the step ------------------------------------------------------------
+    def draw_shape(self, B: int) -> Tuple[int, ...]:
+        """The shape of a step's ``(j, u)`` draws for a batch of B
+        centers: one pool of ``shared_pool`` for the shared renderings,
+        ``(B, 2W, negative)`` for skip-gram (fresh negatives per pair),
+        ``(B, negative)`` otherwise."""
+        if self.shared_negatives:
+            return (self.shared_pool,)
+        if self.sg:
+            return (B, 2 * self.window, self.negative)
+        return (B, self.negative)
+
     def _draws(self, B: int, draws) -> Draws:
-        """The step's ``(j, u)``: one pool of ``shared_pool`` for the
-        shared renderings, ``(B, negative)`` otherwise; ``draws`` (numpy
+        """The step's ``(j, u)`` of :meth:`draw_shape`; ``draws`` (numpy
         or tensors) replaces the model's generator."""
         if draws is not None:
             return (_on(draws[0], self.device, torch.int64),
                     _on(draws[1], self.device, torch.float32))
-        shape = ((self.shared_pool,) if self.shared_negatives
-                 else (B, self.negative))
-        return alias_draws(self._gen, len(self.vocab), shape, self.device)
+        return alias_draws(self._gen, len(self.vocab), self.draw_shape(B),
+                           self.device)
 
     def _arg_dtypes(self) -> Tuple[torch.dtype, ...]:
         """The dtypes the step takes a batch's fields in, in
@@ -636,26 +864,65 @@ class Word2Vec:
             return (torch.int64, torch.int32, torch.int64, torch.int32)
         return (torch.int64, torch.int64, torch.bool)
 
-    def _step_fields(self, fields, draws: Optional[Draws] = None
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One sync step on one batch's fields (numpy arrays or tensors:
-        ``(centers, contexts, ctx_mask)``, or ``(tokens, sent_id,
-        center_pos, half)`` with ``stencil: 1``), in place on the table.
-        Reads nothing back to the host: returns ``(err_sum, err_cnt)`` as
-        device scalars."""
-        dev = self.device
-        args = tuple(_on(f, dev, dt)
+    def _grads_for(self, state, fields, draws: Optional[Draws] = None):
+        """The gradient phase of the model's rendering on one batch's
+        fields (numpy arrays or tensors: ``(centers, contexts,
+        ctx_mask)``, or ``(tokens, sent_id, center_pos, half)`` with
+        ``stencil: 1``), against ``state``: ``(pushes, err_sum,
+        err_cnt)``, nothing pushed."""
+        args = tuple(_on(f, self.device, dt)
                      for f, dt in zip(fields, self._arg_dtypes()))
-        if self.stencil:
-            grads_fn, B = self._grads_stencil, args[2].shape[0]
-        else:
-            grads_fn = (self._grads_shared if self.shared_negatives
-                        else self._grads)
-            B = args[0].shape[0]
+        B = args[2].shape[0] if self.stencil else args[0].shape[0]
+        grads_fn = getattr(self, _GRADS[self.resolved_rendering])
+        return grads_fn(state, *args, self._draws(B, draws))
+
+    def _step_fields(self, fields, draws: Optional[Draws] = None,
+                     snapshot=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One step on one batch's fields, in place on the table: grads
+        against the table itself (sync), or against ``snapshot`` (the
+        snapshot async mode), pushes onto the table.  Reads nothing back
+        to the host: returns ``(err_sum, err_cnt)`` as device scalars."""
         state = self.table.state
-        pushes, es, ec = grads_fn(state, *args, self._draws(B, draws))
+        pushes, es, ec = self._grads_for(
+            state if snapshot is None else snapshot, fields, draws)
         self._apply(state, pushes)
         return es, ec
+
+    def _hogwild_group(self, group, draws: Optional[Iterator] = None,
+                       replica=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One hogwild group (JAX ``_build_hogwild_step``): ``group`` holds
+        ``n_workers * local_steps`` batches' fields, worker-major.  Each
+        worker trains its ``local_steps`` batches on a replica of the
+        table as it stands at the group's start (its own pushes landing on
+        its replica, its own draws: ``draws`` yields one ``(j, u)`` a step,
+        worker-major), then every worker's pushes are applied to the table
+        in worker-major order, each AdaGrad apply seeing the accumulators
+        the pushes before it grew (the reference server's arrival-order
+        apply, server.h:159-176).  The workers run in turn on one replica
+        buffer (``replica``, made here if None); every push keeps its own
+        grad tensors until the chain applies it.  Returns the summed
+        ``(err_sum, err_cnt)`` as device scalars."""
+        n = len(self.cluster.devices)
+        steps = max(self.local_steps, 1)
+        if len(group) != n * steps:
+            raise ValueError(f"a hogwild group is {n} workers x {steps} "
+                             f"local_steps batches, got {len(group)}")
+        base = self.table.state
+        if replica is None:
+            replica = {f: torch.empty_like(t) for f, t in base.items()}
+        chain, es_t, ec_t = [], 0, 0
+        for w in range(n):
+            for f, t in base.items():
+                replica[f].copy_(t)
+            for fields in group[w * steps:(w + 1) * steps]:
+                pushes, es, ec = self._grads_for(
+                    replica, fields, None if draws is None else next(draws))
+                self._apply(replica, pushes)
+                chain.append(pushes)
+                es_t, ec_t = es_t + es, ec_t + ec
+        for pushes in chain:
+            self._apply(base, pushes)
+        return es_t, ec_t
 
     def _host(self, es: torch.Tensor, ec: torch.Tensor
               ) -> Tuple[float, Union[int, float]]:
@@ -667,8 +934,9 @@ class Word2Vec:
     def step(self, centers, contexts, ctx_mask,
              draws: Optional[Draws] = None) -> Tuple[float, Union[int, float]]:
         """One sync step on one CBOW batch (vocab indices, numpy or
-        tensors) in the gather or shared rendering; ``draws`` replaces the
-        model's own ``(j, u)`` alias draws.  Updates the table in place;
+        tensors) in any rendering but the stencil ones; ``draws`` (of
+        :meth:`draw_shape`) replaces the model's own ``(j, u)`` alias
+        draws.  Updates the table in place;
         returns ``(err_sum, err_cnt)`` as host numbers (``err_cnt`` a
         float for shared negatives)."""
         if self.stencil:
@@ -788,15 +1056,23 @@ class Word2Vec:
         as the JAX package does).  ``batcher``: a custom batch source with
         an ``epoch(batch_size)`` iterator (``epoch_stencil`` with
         ``stencil: 1``), e.g. the native ``PrefetchingCBOWBatcher``.
-        ``draws``: an iterator of ``(j, u)`` pairs, one per step,
-        replacing the model's generator.
+        ``draws``: an iterator of ``(j, u)`` pairs, one per step (per
+        worker step, worker-major, in hogwild), replacing the model's
+        generator.
 
         The loss sums stay on the device (``_LossAccum``) and are read
         once an epoch; a step reads nothing back.  ``[worker] pipeline:
         K`` renders K work items ahead on a producer thread; ``[worker]
         inner_steps: N`` groups N batches, and on a CUDA device with
         ``transfer: xla`` (and no ``draws``) runs a group as one CUDA graph
-        replay; elsewhere the N steps run one by one, the same math."""
+        replay; elsewhere the N steps run one by one, the same math.  The
+        async modes run unfused, as in the JAX package: ``local_steps: L``
+        steps against a snapshot refreshed every L steps of this call;
+        ``async_mode: hogwild`` trains groups of ``n_workers *
+        local_steps`` full batches (:meth:`_hogwild_group`) on the
+        synchronous input loop, drops the batches of an epoch's last
+        partial group (``train_metrics["hogwild_skipped_tail_words"]``)
+        and raises if an epoch fills no group."""
         if batcher is None:
             if isinstance(data, str):
                 data = load_corpus(data, min_sentence_length=max(
@@ -820,7 +1096,10 @@ class Word2Vec:
             batch_size = -(-max(256, self.minibatch // (2 * self.window))
                            // n) * n
         stencil = self.stencil
-        fuse = self.inner_steps > 1
+        hogwild = self.hogwild
+        sync = self.local_steps <= 1 and not hogwild
+        # groups (and graphs) are the sync loop's: JAX fuses only there
+        fuse = sync and self.inner_steps > 1
         cuda = self.device.type == "cuda"
         # one graph replay a group: one card, one shard (the ring's epoch
         # is a host counter a replay would repeat), the model's generator
@@ -829,12 +1108,22 @@ class Word2Vec:
         if graphs and self._graph_key() != self._fused_key:
             self._fused_cache = {}
             self._fused_key = self._graph_key()
-        pipelined = self.pipeline_depth > 0
+        pipelined = self.pipeline_depth > 0 and not hogwild
+        if self.pipeline_depth > 0 and not pipelined:
+            log.warning("[worker] pipeline=%d requested but hogwild groups "
+                        "its own batches — running the synchronous input "
+                        "loop", self.pipeline_depth)
         bound = resolve_dispatch_bound(self.dispatch_depth,
                                        pipelined=pipelined)
         # numpy leaves -> the card: pinned copies on a side stream, on
         # the producer thread when pipelined, inline otherwise
-        stage = CudaTransfer(self.device) if cuda else None
+        stage = CudaTransfer(self.device) if cuda and not hogwild else None
+        # the snapshot async mode's stale view (JAX ``frozen``): the
+        # fields the grads read, copied now and refreshed every
+        # local_steps steps of this call
+        snapshot = None if sync or hogwild else _snapshot(
+            self.table.state, self.access.pull_fields, self.cluster.mesh)
+        step_i = dropped = 0
         pipe_stats = ({"produced": 0, "consumed": 0, "peak_queue_depth": 0,
                        "stall_s": 0.0, "transfer_s": 0.0}
                       if pipelined else None)
@@ -846,46 +1135,59 @@ class Word2Vec:
             for it in range(niters):
                 es_q = _LossAccum(bound, self.device)
                 ec_q = _LossAccum(None, self.device)
-                items = self._epoch_items(batcher, batch_size, stencil, fuse)
-                pipe = None
-                if pipelined:
-                    items = pipe = PrefetchIterator(
-                        items, depth=self.pipeline_depth, transfer=stage)
-                elif stage is not None:
-                    items = map(stage, items)
-                try:
-                    while True:
-                        # the stall clock covers exactly the input wait:
-                        # inline it times rendering and staging, pipelined
-                        # the empty-queue waits
-                        with meter.stalling():
-                            nxt = next(items, None)
-                        if nxt is None:
-                            break
-                        if stage is not None:
-                            nxt = stage.ready(nxt)
-                        kind, fields, n_words = nxt
-                        if kind == "group":
-                            replays += self._run_group(fields, graphs, draws,
-                                                       es_q, ec_q)
-                            n, nw = len(n_words), sum(n_words)
-                        else:
-                            es, ec = self._step_fields(
-                                fields, None if draws is None else next(draws))
-                            es_q.add(es)
-                            ec_q.add(ec)
-                            n, nw = 1, n_words
-                        meter.record(nw, steps=n)
-                        steps += n
-                        words += nw
-                finally:
-                    if pipe is not None:
-                        pipe.close()
-                        for k, v in pipe.stats().items():
-                            if k == "peak_queue_depth":
-                                pipe_stats[k] = max(pipe_stats[k], v)
-                            elif k != "depth":
-                                pipe_stats[k] += v
+                if hogwild:
+                    n, nw, skipped = self._hogwild_epoch(
+                        batcher, batch_size, draws, meter, es_q, ec_q)
+                    steps, words, dropped = (steps + n, words + nw,
+                                             dropped + skipped)
+                else:
+                    items = self._epoch_items(batcher, batch_size, stencil,
+                                              fuse)
+                    pipe = None
+                    if pipelined:
+                        items = pipe = PrefetchIterator(
+                            items, depth=self.pipeline_depth, transfer=stage)
+                    elif stage is not None:
+                        items = map(stage, items)
+                    try:
+                        while True:
+                            # the stall clock covers exactly the input
+                            # wait: inline it times rendering and staging,
+                            # pipelined the empty-queue waits
+                            with meter.stalling():
+                                nxt = next(items, None)
+                            if nxt is None:
+                                break
+                            if stage is not None:
+                                nxt = stage.ready(nxt)
+                            kind, fields, n_words = nxt
+                            if kind == "group":
+                                replays += self._run_group(
+                                    fields, graphs, draws, es_q, ec_q)
+                                n, nw = len(n_words), sum(n_words)
+                            else:
+                                es, ec = self._step_fields(
+                                    fields,
+                                    None if draws is None else next(draws),
+                                    snapshot)
+                                es_q.add(es)
+                                ec_q.add(ec)
+                                n, nw = 1, n_words
+                                step_i += 1
+                                if snapshot is not None \
+                                        and step_i % self.local_steps == 0:
+                                    _refresh(snapshot, self.table.state)
+                            meter.record(nw, steps=n)
+                            steps += n
+                            words += nw
+                    finally:
+                        if pipe is not None:
+                            pipe.close()
+                            for k, v in pipe.stats().items():
+                                if k == "peak_queue_depth":
+                                    pipe_stats[k] = max(pipe_stats[k], v)
+                                elif k != "depth":
+                                    pipe_stats[k] += v
                 err.append((es_q.total(), ec_q.total()))
                 loss = err[-1][0] / max(int(round(err[-1][1])), 1)
                 losses.append(loss)
@@ -914,11 +1216,59 @@ class Word2Vec:
                        else "python"),
             "inner_steps": self.inner_steps,
             "fused": graphs, "graph_replays": replays,
+            "local_steps": self.local_steps, "async_mode": self.async_mode,
+            "hogwild_skipped_tail_words": dropped,
             # per epoch (Σerr_sum, Σerr_cnt), the loss's two sums
             "epoch_err": err}
         if pipe_stats is not None:
             self.train_metrics["pipeline"] = pipe_stats
         return losses
+
+    def _hogwild_epoch(self, batcher, batch_size: int, draws, meter,
+                       es_q: _LossAccum, ec_q: _LossAccum) -> tuple:
+        """One hogwild epoch (JAX ``_hogwild_epoch``): groups of
+        ``n_workers * local_steps`` full batches, one
+        :meth:`_hogwild_group` each; a batch of another size and the last
+        partial group are dropped (the reference's workers likewise end an
+        iteration unevenly, word2vec_global.h:630-651).  Returns ``(steps,
+        words, dropped words)``; raises if no group was filled."""
+        n = len(self.cluster.devices)
+        group = n * max(self.local_steps, 1)
+        replica = {f: torch.empty_like(t)
+                   for f, t in self.table.state.items()}
+        buf, dropped, groups, words = [], 0, 0, 0
+        batches = iter(batcher.epoch(batch_size))
+        while True:
+            with meter.stalling():
+                batch = next(batches, None)
+            if batch is None:
+                break
+            if len(batch.centers) != batch_size:
+                dropped += batch.n_words
+                continue
+            buf.append(batch)
+            if len(buf) < group:
+                continue
+            es, ec = self._hogwild_group([_batch_fields(b) for b in buf],
+                                         draws, replica)
+            es_q.add(es)
+            ec_q.add(ec)
+            nw = sum(b.n_words for b in buf)
+            meter.record(nw, steps=group)
+            groups, words, buf = groups + 1, words + nw, []
+        dropped += sum(b.n_words for b in buf)
+        if not groups:
+            raise RuntimeError(
+                f"hogwild epoch dispatched NO group: the corpus yielded "
+                f"fewer than {group} full batches of {batch_size} centers "
+                f"(group = {n} workers x {group // n} local_steps).  Lower "
+                f"batch_size/local_steps or use more data — otherwise the "
+                f"run would silently train nothing")
+        if dropped:
+            log.info("hogwild: %d tail words skipped this iter (need full "
+                     "groups of %d batches x %d centers)", dropped, group,
+                     batch_size)
+        return groups * group, words, dropped
 
     # -- embeddings out --------------------------------------------------------
     def save(self, path: str) -> int:

@@ -31,13 +31,17 @@ class PushSpec:
     """One gradient-family push ``(slots, grads, mean)``.  A span family
     (stencil rendering) also carries ``counts``: rows indexed by span
     position, each the sum of ``counts[i]`` contributions, pushed through
-    :meth:`Transfer.push_span`."""
+    :meth:`Transfer.push_span`.  A ``dense`` family (the dense-logits
+    rendering) has no slots: its grads are capacity-shaped and already
+    normalized, and the access method applies them to the whole table."""
 
-    def __init__(self, slots, grads, mean: bool = False, counts=None):
+    def __init__(self, slots, grads, mean: bool = False, counts=None,
+                 dense: bool = False):
         self.slots = slots
         self.grads = grads
         self.mean = bool(mean)
         self.counts = counts
+        self.dense = bool(dense)
 
 
 class Transfer:

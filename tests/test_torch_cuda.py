@@ -13,7 +13,8 @@ import torch
 from swiftmpi_tpu_torch import kernels
 from swiftmpi_tpu_torch.kernels import (adagrad, gather, ring, scatter,
                                         stencil)
-from swiftmpi_tpu_torch.models.word2vec import Word2Vec
+from swiftmpi_tpu_torch.cluster import Cluster
+from swiftmpi_tpu_torch.models.word2vec import Word2Vec, _batch_fields
 from swiftmpi_tpu_torch.parameter.sparse_table import (shard_block,
                                                        split_rows)
 from swiftmpi_tpu_torch.convert import state_from_jax, state_to_numpy
@@ -785,17 +786,30 @@ def test_one_bf16_step_on_card_matches_cpu(dev, path):
 
 # -- the input and dispatch path: no host sync, pinned copies, graphs -------
 
-def _path_model(dev, rendering, seed=0, dtype="float32", **worker):
-    """A model of the gather or stencil rendering at the reference widths;
+#: rendering -> its [word2vec] keys
+RENDERINGS = {"gather": {}, "stencil": {"stencil": 1}, "sg": {"sg": 1},
+              "sg_shared": {"sg": 1, "shared_negatives": 1,
+                            "shared_pool": 256},
+              "dense": {"dense_logits": 1}}
+
+
+def _path_model(dev, rendering, seed=0, dtype="float32", w2v=None,
+                cluster=None, **worker):
+    """A model of a rendering of ``RENDERINGS`` at the reference widths;
     at a batch of 100 its h push goes dense (B3) and its v push sparse, as
-    at the reference shape."""
+    at the reference shape (the dense rendering's h push is the table's).
+    ``w2v``: more [word2vec] keys; ``cluster``: the model's Cluster."""
     conf = {"cluster": {"transfer": "xla", "server_num": 1},
             "word2vec": {"len_vec": 100, "window": 4, "negative": 20,
                          "sample": 1e-3, "learning_rate": 0.05,
-                         "stencil": int(rendering == "stencil")},
+                         **RENDERINGS[rendering], **(w2v or {})},
             "server": {"initial_learning_rate": 0.7, "dtype": dtype},
             "worker": worker}
-    m = Word2Vec(config=ConfigParser().update(conf), device=dev, seed=seed)
+    c = ConfigParser().update(conf)
+    if cluster is not None:
+        cluster = Cluster(c, devices=cluster).initialize()
+    m = Word2Vec(config=c, device=dev, seed=seed, cluster=cluster)
+    assert m.resolved_rendering == rendering
     sents = synthetic_corpus(400, 3000, 40, seed=8)
     m.build(sents)
     return m, sents
@@ -811,7 +825,8 @@ def _items(m, sents, B, n, group=1):
             for _ in range(n)]
 
 
-@pytest.mark.parametrize("rendering", ["gather", "stencil"])
+@pytest.mark.parametrize("rendering", ["gather", "stencil", "sg",
+                                       "sg_shared", "dense"])
 def test_step_runs_with_no_host_sync(dev, rendering):
     """One step, its batch staged through pinned memory and a side stream
     (``CudaTransfer``), under ``torch.cuda.set_sync_debug_mode("error")``:
@@ -932,7 +947,7 @@ def test_graph_of_8_steps_matches_8_plain_steps(dev, rendering, dtype):
         assert torch.equal(t, plain_m.table.state[f]), f
 
 
-@pytest.mark.parametrize("rendering", ["gather", "stencil"])
+@pytest.mark.parametrize("rendering", ["gather", "stencil", "sg", "dense"])
 def test_graph_with_dense_push_tracks_plain_steps(dev, rendering):
     """Groups of 2 steps whose h push goes dense through B3 (atomic float
     sums, no fixed order), replayed twice, against 4 plain steps:
@@ -946,7 +961,7 @@ def test_graph_with_dense_push_tracks_plain_steps(dev, rendering):
     more."""
     graph_m, plain_m, outs, plain, gc, pc = _graph_vs_plain(
         dev, rendering, 100, 2, deterministic=False)
-    assert gc == pc and gc["scatter"] == 4
+    assert gc == pc and gc["scatter"] == (0 if rendering == "dense" else 4)
     assert dict(graph_m.transfer.push_paths) \
         == dict(plain_m.transfer.push_paths)
     for (es_g, ec_g), (es_p, ec_p) in zip(outs, plain):
@@ -1048,3 +1063,108 @@ def test_graphs_follow_a_replaced_table(dev):
     for f, t in old.items():
         assert torch.equal(t, frozen[f]), f
     assert not torch.equal(m.table.state["h"], start)
+
+
+def _close(got, want, what):
+    """float32 tables within 1e-5 + 1e-3 |b|."""
+    for f in want:
+        np.testing.assert_allclose(got[f], want[f], rtol=1e-3, atol=1e-5,
+                                   err_msg=f"{what}: {f}")
+
+
+def _cpu_twin(card, workers=None):
+    """The same model on the CPU, from the card model's table;
+    ``workers``: its cluster holds the CPU that many times."""
+    cluster = None if workers is None else Cluster(
+        card.config, devices=["cpu"] * workers).initialize()
+    cpu = Word2Vec(config=card.config, device="cpu", cluster=cluster)
+    cpu.build_from_vocab(card.vocab)
+    cpu.table.state = state_from_jax(state_to_numpy(card.table.state), "cpu")
+    return cpu
+
+
+@pytest.mark.parametrize("rendering", ["sg", "sg_shared", "dense"])
+def test_new_rendering_step_on_card_matches_cpu(dev, rendering):
+    """One step of ``sg``, ``sg_shared`` and ``dense`` at the reference
+    widths on the card and on the CPU from the same table and draws:
+    err_cnt exact (sg_shared within 1e-6 relative), err_sum rtol 1e-4,
+    tables within the envelope; the path's kernels launched."""
+    card, sents = _path_model(dev, rendering)
+    cpu = _cpu_twin(card)
+    batch = next(iter(CBOWBatcher(sents, card.vocab, card.window,
+                                  card.sample, seed=5).epoch(100)))
+    rng = np.random.default_rng(3)
+    shape = card.draw_shape(100)
+    draws = (rng.integers(0, len(card.vocab), shape),
+             rng.random(shape, np.float32))
+    kernels.reset_launches()
+    es_c, ec_c = card.step_batch(batch, draws=draws)
+    counts = kernels.launch_counts()
+    es_p, ec_p = cpu.step_batch(batch, draws=draws)
+    if rendering == "sg_shared":
+        assert ec_c == pytest.approx(ec_p, rel=1e-6)
+    else:
+        assert ec_c == ec_p
+    np.testing.assert_allclose(es_c, es_p, rtol=1e-4)
+    _close(state_to_numpy(card.table.state), state_to_numpy(cpu.table.state),
+           rendering)
+    assert counts["gather"] == 2 - (rendering == "dense")
+    assert counts["scatter"] == {"sg": 1, "sg_shared": 0, "dense": 0}[
+        rendering]
+    assert counts["adagrad"] == (3 if rendering == "sg_shared" else 2)
+    assert card.transfer.push_paths == cpu.transfer.push_paths
+
+
+def test_hogwild_group_on_card_matches_cpu(dev):
+    """A hogwild group of 4 workers (the card four times in the cluster)
+    x 2 local steps on the card and on the CPU from the same table and
+    draws: err_cnt exact, tables within the envelope; every step launches
+    its kernels on the replica and again on the chain."""
+    card, sents = _path_model(dev, "gather", w2v={"async_mode": "hogwild",
+                                                  "local_steps": 2},
+                              cluster=[dev] * 4)
+    cpu = _cpu_twin(card, workers=4)
+    it = iter(CBOWBatcher(sents, card.vocab, card.window, card.sample,
+                          seed=5).epoch(100))
+    group = [_batch_fields(next(it)) for _ in range(8)]
+    rng = np.random.default_rng(4)
+    draws = [(rng.integers(0, len(card.vocab), (100, 20)),
+              rng.random((100, 20), np.float32)) for _ in range(8)]
+    kernels.reset_launches()
+    es_c, ec_c = card._hogwild_group(group, iter(draws))
+    counts = kernels.launch_counts()
+    es_p, ec_p = cpu._hogwild_group(group, iter(draws))
+    assert int(ec_c) == int(ec_p)
+    np.testing.assert_allclose(float(es_c), float(es_p), rtol=1e-4)
+    _close(state_to_numpy(card.table.state), state_to_numpy(cpu.table.state),
+           "hogwild")
+    assert counts == {"gather": 16, "scatter": 16, "adagrad": 32,
+                      "stencil": 0, "ring": 0}
+
+
+@pytest.mark.parametrize("rendering", ["gather", "stencil"])
+def test_snapshot_window_on_card_matches_cpu(dev, rendering):
+    """One ``local_steps: 3`` window (3 steps against the snapshot, then
+    the refresh) on the card and on the CPU, through ``train`` with the
+    same draws: losses rtol 1e-4, tables within the envelope."""
+    card, sents = _path_model(dev, rendering, w2v={"local_steps": 3})
+    cpu = _cpu_twin(card)
+    B = 100
+    n = 0
+    for b in (CBOWBatcher(sents[:30], card.vocab, card.window, card.sample,
+                          seed=5).epoch_stencil(B) if card.stencil else
+              CBOWBatcher(sents[:30], card.vocab, card.window, card.sample,
+                          seed=5).epoch(B)):
+        n += 1
+    rng = np.random.default_rng(5)
+    draws = [(rng.integers(0, len(card.vocab), (B, 20)),
+              rng.random((B, 20), np.float32)) for _ in range(n)]
+    out = []
+    for m in (card, cpu):
+        batcher = CBOWBatcher(sents[:30], m.vocab, m.window, m.sample, seed=5)
+        out.append(m.train(batcher=batcher, niters=1, batch_size=B,
+                           draws=iter(draws)))
+    assert card.train_metrics["steps"] == n >= 3
+    np.testing.assert_allclose(out[0], out[1], rtol=1e-4)
+    _close(state_to_numpy(card.table.state), state_to_numpy(cpu.table.state),
+           f"{rendering} window")

@@ -430,7 +430,9 @@ def test_sparse_push_reads_no_host(monkeypatch, n, families, mean):
 @pytest.mark.parametrize("conf", [
     {}, {"stencil": 1}, {"shared_negatives": 1},
     {"stencil": 1, "shared_negatives": 1},
-    {"transfer": "tpu", "server_num": 4}])
+    {"transfer": "tpu", "server_num": 4},
+    {"sg": 1}, {"sg": 1, "shared_negatives": 1}, {"dense_logits": 1},
+    {"sg": 1, "transfer": "tpu", "server_num": 4}])
 def test_training_step_reads_no_host(monkeypatch, corpus_file, conf):
     """One step of every rendering, and of the sharded server, through
     ``_step_fields`` with the host reads patched to raise: the step
@@ -439,6 +441,9 @@ def test_training_step_reads_no_host(monkeypatch, corpus_file, conf):
     if "shared_negatives" in conf:
         c.set("word2vec", "shared_negatives", 1)
         c.set("word2vec", "shared_pool", 16)
+    for key in ("sg", "dense_logits"):
+        if key in conf:
+            c.set("word2vec", key, conf[key])
     if "transfer" in conf:
         c.set("cluster", "transfer", "tpu")
         c.set("cluster", "server_num", conf["server_num"])

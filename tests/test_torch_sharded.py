@@ -647,8 +647,8 @@ def test_step_refuses_a_batch_that_does_not_split():
     pm = Word2Vec(config=c, device="cpu")
     seen = []
     orig = pm._step_fields
-    pm._step_fields = lambda f, d=None: (seen.append(len(f[0])),
-                                         orig(f, d))[1]
+    pm._step_fields = lambda f, d=None, s=None: (seen.append(len(f[0])),
+                                                 orig(f, d, s))[1]
     pm.train(sents, niters=1)
     assert seen and set(seen) == {328}
 

@@ -7,8 +7,9 @@ import pytest
 from swiftmpi_tpu.utils import CMDLine as JaxCMDLine
 from swiftmpi_tpu.utils import ConfigParser as JaxConfig
 from swiftmpi_tpu_torch.apps import w2v_main
-from swiftmpi_tpu_torch.data.text import (build_vocab, load_corpus,
-                                          synthetic_corpus, write_tokens_file)
+from swiftmpi_tpu_torch.data.text import (bkdr_hash, build_vocab,
+                                          load_corpus, synthetic_corpus,
+                                          tokenize, write_tokens_file)
 from swiftmpi_tpu_torch.models.word2vec import w2v_parser
 from swiftmpi_tpu_torch.utils import (CMDLine, ConfigParser, global_config,
                                       reset_global_config)
@@ -84,11 +85,15 @@ def test_cli_trains_and_writes_a_dump_that_parses(files):
 @pytest.mark.parametrize("lines,rendering", [
     ("stencil: 1", "stencil"), ("shared_negatives: 1", "shared"),
     ("stencil: 1\nshared_negatives: 1\nshared_pool: 32", "stencil_shared"),
-    ("stencil: 1\n[cluster]\ndata_plane: pallas", "stencil")])
+    ("stencil: 1\n[cluster]\ndata_plane: pallas", "stencil"),
+    ("sg: 1", "sg"), ("sg: 1\nshared_negatives: 1\nshared_pool: 32",
+                      "sg_shared"),
+    ("dense_logits: 1", "dense"), ("local_steps: 4", "gather")])
 def test_cli_trains_stencil_and_shared_confs(files, monkeypatch, lines,
                                              rendering):
-    """A conf with ``stencil: 1`` and/or ``shared_negatives: 1`` trains
-    through the CLI in that rendering and dumps every vocab key."""
+    """A conf with ``stencil: 1``, ``shared_negatives: 1``, ``sg: 1``,
+    ``dense_logits: 1`` or ``local_steps`` trains through the CLI in that
+    rendering and dumps every vocab key."""
     tmp, conf, data = files
     with open(conf, "a") as f:
         f.write(lines + "\n")
@@ -111,8 +116,9 @@ def test_cli_trains_stencil_and_shared_confs(files, monkeypatch, lines,
     assert all(r["v"].shape == r["h"].shape == (8,) for r in rows)
 
 
-@pytest.mark.parametrize("line", ["[worker]\ntelemetry: 1", "sg: 1",
-                                  "local_steps: 4",
+@pytest.mark.parametrize("line", ["[worker]\ntelemetry: 1",
+                                  "[cluster]\nwire_quant: int8",
+                                  "[serve]\nevery: 4",
                                   "[cluster]\npush_window: 4",
                                   "[obs]\ntrace: 1"])
 def test_cli_refuses_unported_conf_keys(files, line):
@@ -124,14 +130,94 @@ def test_cli_refuses_unported_conf_keys(files, line):
                        "-device", "cpu"])
 
 
-@pytest.mark.parametrize("flags", [["-variant", "async"],
-                                   ["-variant", "hogwild"],
-                                   ["-checkpoint", "ck"]])
+@pytest.mark.parametrize("flags", [["-checkpoint", "ck"]])
 def test_cli_refuses_unported_flags(files, flags):
     _, conf, data = files
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         w2v_main.main(["w2v", "-config", conf, "-data", data,
                        "-device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("variant,key,val", [
+    ("async", "local_steps", 4), ("hogwild", "async_mode", "hogwild")])
+@pytest.mark.parametrize("loader", ["native", "python"])
+def test_cli_variants_train_with_bkdr_keys(files, monkeypatch, variant, key,
+                                           val, loader):
+    """``-variant async`` (``local_steps: 4``) and ``-variant hogwild``
+    (``async_mode: hogwild``) train on the CPU and dump one row per word,
+    keyed by the BKDR hash of the word (the reference's ``w2v.cpp``
+    keys), through the native loader and through ``load_corpus``."""
+    from swiftmpi_tpu_torch.data import native
+    tmp, conf, _ = files
+    data = tmp / "words.txt"
+    rng = np.random.default_rng(4)
+    words = [f"w{i}" for i in range(40)] + ["17", "-3"]
+    data.write_text("\n".join(" ".join(rng.choice(words, 12))
+                              for _ in range(60)) + "\n")
+    if loader == "python":
+        monkeypatch.setattr(native, "available", lambda: False)
+    elif not native.available():
+        pytest.skip("the native loader does not build here")
+    seen = []
+    train = w2v_main.Word2Vec.train
+
+    def spy(self, *a, **k):
+        out = train(self, *a, **k)
+        seen.append((self, out))
+        return out
+
+    monkeypatch.setattr(w2v_main.Word2Vec, "train", spy)
+    out = tmp / "vectors.txt"
+    assert w2v_main.main(["w2v", "-config", conf, "-data", str(data),
+                          "-niters", "2", "-output", str(out), "-device",
+                          "cpu", "-variant", variant]) == 0
+    model, losses = seen[0]
+    assert np.isfinite(losses).all()
+    assert global_config().get("word2vec", key).to_string() == str(val)
+    assert model.train_metrics["loader"] == loader
+    assert model.train_metrics["steps"] > 0
+    want = build_vocab(load_corpus(str(data), mode="bkdr"))
+    assert set(want.keys.tolist()) == {bkdr_hash(w) for w in words}
+    lines = out.read_text().splitlines()
+    assert len(lines) == len(want)
+    keys = set()
+    for line in lines:
+        k, _, rest = line.partition("\t")
+        row = w2v_parser(rest)
+        assert row["v"].shape == row["h"].shape == (8,)
+        assert np.isfinite(row["v"]).all() and np.isfinite(row["h"]).all()
+        keys.add(int(k))
+    assert keys == set(want.keys.tolist())
+
+
+def test_cli_unknown_variant_returns_1(files):
+    _, conf, data = files
+    assert w2v_main.main(["w2v", "-config", conf, "-data", data,
+                          "-device", "cpu", "-variant", "bogus"]) == 1
+
+
+def test_tokenize_and_load_corpus_bkdr_match_jax(tmp_path):
+    """``mode="bkdr"`` hashes every word, integers too; ``int`` keeps
+    atoi with the hash for other words; an unknown mode raises — as the
+    JAX package's ``tokenize`` and ``load_corpus`` do."""
+    from swiftmpi_tpu.data.text import load_corpus as jax_load_corpus
+    from swiftmpi_tpu.data.text import tokenize as jax_tokenize
+    line = "the 12 quick -4 brown fox \u00e9t\u00e9 the 12"
+    for mode in ("int", "bkdr"):
+        assert tokenize(line, mode) == jax_tokenize(line, mode)
+    assert tokenize("12", "bkdr") == [bkdr_hash("12")] != tokenize("12")
+    with pytest.raises(ValueError, match="mode"):
+        tokenize(line, "utf8")
+    path = tmp_path / "c.txt"
+    path.write_text(line + "\n" + " ".join(["x"] * 2500) + "\n\nshort\n",
+                    encoding="utf-8")
+    for mode in ("int", "bkdr"):
+        for msl in (1, 2):
+            assert load_corpus(str(path), mode=mode,
+                               min_sentence_length=msl) == jax_load_corpus(
+                str(path), mode=mode, min_sentence_length=msl)
+    with pytest.raises(ValueError, match="mode"):
+        load_corpus(str(path), mode="utf8")
 
 
 def test_cli_without_device_needs_cuda(files, monkeypatch):
@@ -142,6 +228,16 @@ def test_cli_without_device_needs_cuda(files, monkeypatch):
     _, conf, data = files
     with pytest.raises(RuntimeError, match="no CUDA device"):
         w2v_main.main(["w2v", "-config", conf, "-data", data])
+
+
+@pytest.mark.parametrize("variant", ["async", "hogwild"])
+def test_cli_variants_without_device_need_cuda(files, monkeypatch, variant):
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, conf, data = files
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        w2v_main.main(["w2v", "-config", conf, "-data", data, "-variant",
+                       variant])
 
 
 def test_cli_help_exits_cleanly(capsys):

@@ -222,9 +222,8 @@ def test_inner_steps_runs_ordinary_steps():
 
 
 @pytest.mark.parametrize("sec,key,val", [
-    ("cluster", "wire_sketch", 1), ("word2vec", "sg", 1),
-    ("worker", "telemetry", 1), ("word2vec", "dense_logits", 1),
-    ("word2vec", "local_steps", 2), ("word2vec", "async_mode", "hogwild"),
+    ("cluster", "wire_sketch", 1),
+    ("worker", "telemetry", 1),
     ("cluster", "push_window", 2), ("cluster", "wire_quant", "int8"),
     ("cluster", "pull_quant", "bf16"), ("cluster", "pull_cache", 64),
     ("cluster", "collective", "auto"),
@@ -236,6 +235,26 @@ def test_unported_config_raises(sec, key, val):
     c.set(sec, key, val)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Word2Vec(config=c, device="cpu")
+
+
+@pytest.mark.parametrize("key,val,rendering", [
+    ("sg", 1, "sg"), ("dense_logits", 1, "dense"),
+    ("local_steps", 2, "gather"), ("async_mode", "hogwild", "gather")])
+def test_formerly_refused_modes_run(key, val, rendering):
+    """The word2vec modes earlier slices refused now build and train:
+    skip-gram, dense logits, the snapshot async mode and hogwild."""
+    sents = corpus(n_sent=30, vocab=50, length=12, seed=6)
+    c = ConfigParser().update(CONF)
+    c.set("word2vec", key, val)
+    m = Word2Vec(config=c, device="cpu", seed=1)
+    assert m.resolved_rendering == rendering
+    losses = m.train(sents, niters=2, batch_size=32)
+    assert np.isfinite(losses).all() and m.train_metrics["steps"] > 0
+    assert m.train_metrics["rendering"] == rendering
+    assert m.train_metrics["local_steps"] == (val if key == "local_steps"
+                                              else 1)
+    assert m.train_metrics["async_mode"] == (val if key == "async_mode"
+                                             else "")
 
 
 def test_save_dumps_reference_layout(tmp_path):
