@@ -98,9 +98,25 @@ Phases, each of which raises on a failed check:
    hogwild`` (BKDR keys); each run must load through the native loader
    and each dump must parse (the bf16 one into bfloat16 values) and hold
    one row per word of the vocab of its key mode.
+7. checkpoints, resume and sent2vec: for ``gather``, ``gather:bf16`` and
+   ``gather@8`` an npz checkpoint of a trained card table (save and load
+   seconds, bytes) restores bit for bit into a fresh card model, in place,
+   and into a CPU model, and one step after the resume agrees with the
+   uninterrupted model's step to the envelope, with the path's launches;
+   ``train_with_resume`` with ``crash_at_step(2)`` and
+   ``corrupt_checkpoint(at_save=2)``, ``retain=3``, niters 4, CUDA graphs
+   (``inner_steps: 8``) and the hang watchdog: 3 iterations rerun, the
+   last loss within 20% of an uninterrupted run, the graphs kept across
+   the resume; the CLI's ``-checkpoint`` crashing through
+   ``SMTPU_FAULT_PLAN`` and then rerun to a full dump; and sent2vec over
+   the card's dump, loaded into 65,536 rows and grown to 131,072, at
+   bench.py's shape (1,024 sentences of 64 words, 10 passes) against the
+   CPU with the same draws, with B2's launches per batch and its cases at
+   sent2vec's shapes (timed as in phase 2).
 
 The line before the last is the ``{"kernels": [...]}`` summary, each
-kernel's ``launches`` read from the train run of its path; the last is
+kernel's ``launches`` read from the train run of its path (the sent2vec
+cases from the sent2vec inference run); the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints neither.
 """
@@ -109,6 +125,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import shutil
 import sys
 import time
@@ -129,6 +146,8 @@ from swiftmpi_tpu_torch.apps.stencil_sweep import (batch_inputs,
 from swiftmpi_tpu_torch.apps.w2v_profile import (BATCH, DEMO_CONF,
                                                  TEXT8_CORPUS, card_line)
 from swiftmpi_tpu_torch.data import native
+from swiftmpi_tpu_torch.io.checkpoint import npz_path, save_checkpoint
+from swiftmpi_tpu_torch.io.resilience import train_with_resume
 from swiftmpi_tpu_torch.data.text import (CBOWBatcher, StencilBatch,
                                           build_vocab, load_corpus,
                                           synthetic_corpus,
@@ -136,13 +155,19 @@ from swiftmpi_tpu_torch.data.text import (CBOWBatcher, StencilBatch,
                                           write_tokens_file)
 from swiftmpi_tpu_torch.kernels import (adagrad, build, gather, ring,
                                         scatter, stencil)
-from swiftmpi_tpu_torch.ops.sampling import sample_alias_from_draws
+from swiftmpi_tpu_torch.models.sent2vec import (Sent2Vec,
+                                                build_word_model_from_dump)
+from swiftmpi_tpu_torch.ops.sampling import (build_unigram_alias,
+                                             sample_alias_from_draws,
+                                             sample_alias_slots_from_draws)
 from swiftmpi_tpu_torch.models.word2vec import (Word2Vec, _batch_fields,
                                                 _cbow_targets,
                                                 _parity_targets, _sg_targets,
                                                 w2v_parser)
 from swiftmpi_tpu_torch.parameter.sparse_table import (shard_block,
                                                        split_rows)
+from swiftmpi_tpu_torch.testing import faults
+from swiftmpi_tpu_torch.testing.faults import FaultPlan
 from swiftmpi_tpu_torch.utils import ConfigParser, reset_global_config
 
 ROOT = Path(__file__).resolve().parent
@@ -1390,6 +1415,341 @@ def phase_cli(extra: str, expect: set, cluster: str = "server_num: 1\n"
     shutil.rmtree(WORK)
 
 
+# -- phase 7: checkpoints, resume and sent2vec ---------------------------------
+
+#: the device of the checkpoint, resume and sent2vec phases
+DEVICE = "cuda"
+#: the paths whose table a checkpoint phase saves and restores
+CKPT_PATHS = ("gather", "gather" + BF16, f"gather@{SHARDS}")
+#: sent2vec at bench.py's shape (``_bench_s2v``): sentences of words
+#: drawn over the word table's vocabulary, one batch, passes a sentence
+S2V_SENTS, S2V_LEN, S2V_NITERS = 1024, 64, 10
+
+
+def _one_step_launches(path: str) -> dict:
+    """Launches of one step of a gather path at the reference shape."""
+    sharded = path.split(":")[0]
+    if sharded in SHARDED:
+        return dict(SHARDED[sharded], stencil=0)
+    return dict(STEP_LAUNCHES["gather"])
+
+
+def _tensors(state) -> list:
+    return [t for v in state.values()
+            for t in (v if isinstance(v, list) else [v])]
+
+
+def _hold_equal(what: str, got, want) -> None:
+    """Two table states, field by field in global row order, bit for
+    bit."""
+    for f, v in want.items():
+        if not torch.equal(_global(got[f]), _global(v)):
+            raise AssertionError(f"{what}: field {f} differs")
+
+
+def phase_checkpoint(path: str, vocab, corpus: np.ndarray, card: str) -> None:
+    """A card model of ``path`` trains over a corpus prefix (AdaGrad sums
+    non-zero), then its npz checkpoint is saved; a fresh card model
+    resumes from it bit for bit, in place (no tensor moves), with the same
+    key index; a CPU model resumes from the same file bit for bit; and one
+    step of the resumed card model agrees with the same step of the
+    uninterrupted one (same batch, same draws) to ``_field_gap``'s
+    tolerance, launching exactly the path's kernels."""
+    model = _model(path, vocab, DEVICE)
+    model.train(batcher=CBOWBatcher(corpus[:200], vocab, model.window,
+                                    model.sample, seed=2008),
+                niters=1, batch_size=BATCH)
+    ck = str(WORK / "checkpoint" / path.replace(":", "_").replace("@", "_"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(model.table, ck, extra={"iter": np.int64(1)})
+    save_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(npz_path(ck))
+    resumed = _model(path, vocab, DEVICE)
+    ptrs = [t.data_ptr() for t in _tensors(resumed.table.state)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    it = resumed.resume(ck)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if it != 1 or ptrs != [t.data_ptr()
+                           for t in _tensors(resumed.table.state)]:
+        raise AssertionError(f"{path} resume: iter {it}; tensors moved")
+    _hold_equal(f"{path} card save -> card load", resumed.table.state,
+                model.table.state)
+    if list(resumed.table.key_index.items()) != \
+            list(model.table.key_index.items()):
+        raise AssertionError(f"{path} resume: the key index differs")
+    cpu = _model(path, vocab, "cpu")
+    t0 = time.perf_counter()
+    cpu.resume(ck)
+    cpu_load_s = time.perf_counter() - t0
+    _hold_equal(f"{path} card save -> cpu load", cpu.table.state,
+                model.table.state)
+    batch = _batches(vocab, corpus, model, 1)[0]
+    draws = _draws(model, BATCH, np.random.default_rng(14))
+    kernels.reset_launches()
+    es_r, ec_r = resumed.step_batch(batch, draws=draws)
+    counts = kernels.launch_counts()
+    es_u, ec_u = model.step_batch(batch, draws=draws)
+    if ec_r != ec_u or not math.isclose(es_r, es_u, rel_tol=1e-4):
+        raise AssertionError(f"{path} step after resume: ({es_r}, {ec_r}), "
+                             f"uninterrupted ({es_u}, {ec_u})")
+    gap = {f: _field_gap(f"{path} step after resume, field {f}",
+                         _global(v), _global(model.table.state[f]))
+           for f, v in resumed.table.state.items()}
+    want = _one_step_launches(path)
+    if counts != want:
+        raise AssertionError(f"{path} step after resume launched {counts}, "
+                             f"its path gives {want}")
+    _json_line({"phase": "checkpoint", "rendering": path, "card": card,
+                "npz_bytes": nbytes, "save_seconds": save_s,
+                "load_seconds": load_s, "cpu_load_seconds": cpu_load_s,
+                "rows": len(model.table.key_index),
+                "capacity": model.table.capacity,
+                "round_trip": "bit-exact card -> card and card -> cpu",
+                "step_after_resume_gap": gap, "err_cnt": [ec_r, ec_u],
+                "envelope": "1e-5 + 1e-3*|b|; bf16 fields that or one ulp",
+                "launches": counts})
+    shutil.rmtree(WORK / "checkpoint")
+
+
+def phase_resume(vocab, corpus: np.ndarray, card: str) -> dict:
+    """``train_with_resume`` over a corpus prefix, niters 4, a checkpoint
+    every iteration, ``retain=3``, with ``crash_at_step(2)`` and
+    ``corrupt_checkpoint(at_save=2)``: the crash at the top of iteration
+    2 finds the iteration-2 save corrupted and rewinds to the iteration-1
+    generation, so 3 iterations rerun; the last loss lands within 20% of
+    an uninterrupted run's.  ``inner_steps: 8`` (CUDA graphs) and the hang
+    watchdog (each attempt on a worker thread): the graphs captured by the
+    first attempt survive the in-place resume and are replayed by the
+    last."""
+    n_sent, worker = 400, {"inner_steps": 8}
+    clean = _model("gather", vocab, DEVICE, worker)
+    clean_losses = clean.train(corpus[:n_sent], niters=4, batch_size=BATCH)
+    model = _model("gather", vocab, DEVICE, worker)
+    at_resume = []
+    resume = model.resume
+
+    def spy(path):
+        it = resume(path)
+        at_resume.append((it, dict(model._fused_cache)))
+        return it
+
+    model.resume = spy
+    ck = WORK / "resume" / "ck"
+    shutil.rmtree(ck.parent, ignore_errors=True)
+    plan = FaultPlan().crash_at_step(2).corrupt_checkpoint(at_save=2)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    losses = train_with_resume(model, corpus[:n_sent], niters=4,
+                               checkpoint_path=str(ck), checkpoint_every=1,
+                               retain=3, fault_plan=plan,
+                               hang_timeout_s=300.0, batch_size=BATCH)
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    m = model.train_metrics
+    rel = abs(losses[-1] - clean_losses[-1]) / abs(clean_losses[-1])
+    kept = all(model._fused_cache.get(L) is g
+               for _, cache in at_resume for L, g in cache.items())
+    if len(losses) != 3 or [it for it, _ in at_resume] != [1] \
+            or not all(math.isfinite(x) for x in losses) or rel >= 0.2 \
+            or not m["fused"] or m["graph_replays"] < 1 \
+            or not at_resume[0][1] or not kept:
+        raise AssertionError(
+            f"resume: losses {losses} (uninterrupted {clean_losses}), "
+            f"resumed at {[it for it, _ in at_resume]}, fused {m['fused']}, "
+            f"{m['graph_replays']} replays, graphs kept {kept}")
+    launched = {k for k, n in counts.items() if n}
+    if launched != PATHS["gather"][1]:
+        raise AssertionError(f"resume launched {sorted(launched)}")
+    files = sorted(p.name for p in ck.parent.iterdir())
+    _json_line({"phase": "resume", "card": card, "losses": losses,
+                "uninterrupted": clean_losses, "last_loss_rel_gap": rel,
+                "resumed_at_iter": [it for it, _ in at_resume],
+                "graph_replays": m["graph_replays"], "graphs_kept": kept,
+                "seconds": seconds, "files": files, "launches": counts})
+    shutil.rmtree(ck.parent)
+    return counts
+
+
+def phase_cli_checkpoint(card: str) -> None:
+    """``w2v_main -checkpoint``: with a crash at every top of iteration 1
+    through ``SMTPU_FAULT_PLAN`` the command fails once the restarts are
+    spent, leaving the iteration-1 checkpoint; the same command without
+    the plan resumes there and writes a dump of one row per word."""
+    if WORK.exists():
+        shutil.rmtree(WORK)
+    WORK.mkdir(parents=True)
+    data, conf, out, ck = (WORK / "corpus.txt", WORK / "w2v.conf",
+                           WORK / "vectors.txt", WORK / "ck")
+    write_tokens_file(synthetic_corpus(200, 500, 20, seed=1), str(data))
+    conf.write_text("[cluster]\nserver_num: 1\ntransfer: xla\n"
+                    "[worker]\nminibatch: 512\n"
+                    "[server]\ninitial_learning_rate: 0.7\n"
+                    "[word2vec]\nlen_vec: 100\nwindow: 4\nnegative: 20\n"
+                    "sample: 0.001\nlearning_rate: 0.05\n")
+    argv = ["w2v_main", "-config", str(conf), "-data", str(data), "-niters",
+            "3", "-output", str(out), "-checkpoint", str(ck), "-device",
+            DEVICE]
+    reset_global_config()
+    os.environ[faults.ENV_FAULT_PLAN] = FaultPlan().crash_at_step(
+        1, times=100).to_json()
+    faults.clear()
+    try:
+        w2v_main.main(argv)
+        raise AssertionError("the crashing -checkpoint run returned")
+    except faults.InjectedFault:
+        pass
+    finally:
+        del os.environ[faults.ENV_FAULT_PLAN]
+        faults.clear()
+    with np.load(npz_path(str(ck))) as z:
+        crashed_at = int(z["extra__iter"])
+    reset_global_config()
+    kernels.reset_launches()
+    rc = w2v_main.main(argv)
+    counts = kernels.launch_counts()
+    with np.load(npz_path(str(ck))) as z:
+        done = int(z["extra__iter"])
+    keys = {int(line.partition("\t")[0])
+            for line in out.read_text().splitlines()}
+    vocab = build_vocab(load_corpus(str(data)))
+    launched = {k for k, n in counts.items() if n}
+    if rc != 0 or crashed_at != 1 or done != 3 \
+            or keys != set(vocab.keys.tolist()) \
+            or launched != PATHS["gather"][1]:
+        raise AssertionError(f"-checkpoint: rc {rc}, crashed at {crashed_at}"
+                             f", done {done}, {len(keys)} rows for "
+                             f"{len(vocab)} words, launched {launched}")
+    _json_line({"phase": "cli", "flag": "-checkpoint", "card": card,
+                "crashed_at_iter": crashed_at, "rerun_done_iter": done,
+                "rows": len(keys), "launches": counts})
+    shutil.rmtree(WORK)
+
+
+def _s2v_lines(vocab_keys) -> tuple:
+    """bench.py's sentences and the length their batch is bucketed to."""
+    lines = [" ".join(map(str, s)) for s in synthetic_corpus(
+        S2V_SENTS, 70_000, S2V_LEN, seed=21)]
+    known = set(vocab_keys.tolist())
+    longest = max(sum(int(w) in known for w in ln.split()) for ln in lines)
+    return lines, 1 << (longest - 1).bit_length()
+
+
+def phase_sent2vec(vocab, corpus: np.ndarray, card: str) -> tuple:
+    """The word model comes from the card's dump: a card model trained
+    over a corpus prefix and written by ``save``, loaded back by
+    ``build_word_model_from_dump`` at its default 65,536 rows, which the
+    69,627 words outgrow, so the table grows once, to 131,072 rows (its
+    rows equal the trained model's, bit for bit).  Inference at bench.py's
+    shape (1,024 sentences of 64 words, one batch, 10 passes) on the card
+    with the sentence model's draws, against the CPU with the same draws
+    (every element within 1e-5 + 1e-3|b|); B2 runs once per batch for the
+    context rows and once per pass for the target rows.  Returns the B2
+    cases at its shapes and the launches of the timed runs."""
+    model = _model("gather", vocab, DEVICE)
+    model.train(batcher=CBOWBatcher(corpus[:200], vocab, model.window,
+                                    model.sample, seed=2008),
+                niters=1, batch_size=BATCH)
+    WORK.mkdir(parents=True, exist_ok=True)
+    dump = str(WORK / "words.txt")
+    t0 = time.perf_counter()
+    model.save(dump)
+    save_s = time.perf_counter() - t0
+    conf = ConfigParser().update(DEMO_CONF)
+    t0 = time.perf_counter()
+    wm = build_word_model_from_dump(dump, conf, device=DEVICE)
+    load_s = time.perf_counter() - t0
+    cap, want_cap = wm.table.capacity, 1 << 16
+    while want_cap < len(wm.vocab):
+        want_cap *= 2
+    if cap != want_cap:
+        raise AssertionError(f"{len(wm.vocab)} words loaded into {cap} rows, "
+                             f"not {want_cap}")
+    at = wm._slot_of_vocab.long()
+    src = model._slot_of_vocab.long()
+    for f in ("h", "v"):
+        if not torch.equal(wm.table.state[f][at], model.table.state[f][src]):
+            raise AssertionError(f"sent2vec word table: {f} rows differ")
+    del model
+    s2v = Sent2Vec(wm, seed=1)
+    s2v.batchsize = S2V_SENTS
+    lines, L = _s2v_lines(wm.vocab.keys)
+    draws = s2v.draw(S2V_SENTS, L, S2V_NITERS)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = s2v.infer_sentences(lines, niters=S2V_NITERS, draws=iter([draws]))
+    first_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    t0 = time.perf_counter()
+    again = s2v.infer_sentences(lines, niters=S2V_NITERS)
+    second_s = time.perf_counter() - t0
+    if counts != {**dict.fromkeys(counts, 0), "gather": 1 + S2V_NITERS} \
+            or kernels.launch_counts()["gather"] != 2 * (1 + S2V_NITERS):
+        raise AssertionError(f"sent2vec launched {counts}, then "
+                             f"{kernels.launch_counts()}")
+    cpu_s2v = Sent2Vec(build_word_model_from_dump(dump, conf, device="cpu"),
+                       seed=1)
+    cpu_s2v.batchsize = S2V_SENTS
+    t0 = time.perf_counter()
+    want = cpu_s2v.infer_sentences(
+        lines, niters=S2V_NITERS,
+        draws=iter([(draws[0].cpu(), [tuple(t.cpu() for t in p)
+                                      for p in draws[1]])]))
+    cpu_s = time.perf_counter() - t0
+    a = np.stack([v for _, v in got])
+    b = np.stack([v for _, v in want])
+    gap = np.abs(a - b)
+    if [s for s, _ in got] != [s for s, _ in want] or len(got) != len(again) \
+            or not np.isfinite(a).all() \
+            or (gap > 1e-5 + 1e-3 * np.abs(b)).any():
+        raise AssertionError(f"sent2vec card vs cpu: max gap {gap.max()}, "
+                             f"{len(got)} vs {len(want)} sentences")
+    _json_line({"phase": "sent2vec", "card": card, "dump_rows": len(wm.vocab),
+                "dump_save_seconds": save_s,
+                "dump_load_seconds": load_s,
+                "capacity_before": 1 << 16, "capacity_after": cap,
+                "sentences": len(got), "L": L, "niters": S2V_NITERS,
+                "seconds_replayed_draws": first_s, "seconds_own_draws":
+                second_s, "sents_per_sec": len(got) / second_s,
+                "cpu_seconds": cpu_s, "max_abs_gap_vs_cpu": float(gap.max()),
+                "max_abs_value": float(np.abs(b).max()),
+                "tolerance": "1e-5 + 1e-3*|cpu|",
+                "b2_launches_per_batch": counts["gather"],
+                "launches": counts})
+    # B2 at the path's shapes: the context rows of the batch (masked by
+    # the sentences) and the target rows of one pass (all valid)
+    flush = torch.zeros(2 * 50 * 2 ** 20 // 4, device=DEVICE)
+    index = {int(k): i for i, k in enumerate(wm.vocab.keys.tolist())}
+    vocab_pos = np.zeros((S2V_SENTS, L), np.int64)
+    mask = np.zeros((S2V_SENTS, L), bool)
+    for i, ln in enumerate(lines):
+        t = [index[int(w)] for w in ln.split() if int(w) in index]
+        vocab_pos[i, :len(t)], mask[i, :len(t)] = t, True
+    sov = wm._slot_of_vocab
+    vp = torch.as_tensor(vocab_pos, device=DEVICE)
+    word_slots = sov[vp]
+    b_, j, u = draws[1][0]
+    prob, alias = build_unigram_alias(wm.vocab.counts)
+    _, neg_slots = sample_alias_slots_from_draws(
+        j, u, torch.as_tensor(prob, device=DEVICE),
+        torch.as_tensor(alias, dtype=torch.int64, device=DEVICE), sov)
+    t_slots = torch.cat([word_slots[..., None], neg_slots], dim=2)
+    t_flat = t_slots.transpose(0, 1).reshape(-1).contiguous()
+    cases = [
+        _gather_case("sent2vec context rows", wm.table.state["v"],
+                     word_slots.reshape(-1).contiguous(),
+                     torch.as_tensor(mask, device=DEVICE).reshape(-1),
+                     flush, "sent2vec"),
+        _gather_case("sent2vec target rows of a pass", wm.table.state["h"],
+                     t_flat, torch.ones_like(t_flat, dtype=torch.bool),
+                     flush, "sent2vec")]
+    shutil.rmtree(WORK)
+    return cases, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1453,6 +1813,13 @@ def main() -> int:
     phase_cli("", PATHS["gather"][1], worker="pipeline: 2\ninner_steps: 4\n")
     phase_cli("", PATHS["async"][1], variant="async")
     phase_cli("", PATHS["hogwild"][1], variant="hogwild")
+    for path in CKPT_PATHS:
+        phase_checkpoint(path, vocab, corpus, card)
+    counts["resume"] = phase_resume(vocab, corpus, card)
+    phase_cli_checkpoint(card)
+    s2v_cases, counts["sent2vec"] = phase_sent2vec(vocab, corpus, card)
+    report_cases(s2v_cases)
+    cases += s2v_cases
 
     summary = []
     for c in cases:

@@ -1,8 +1,9 @@
 """swiftmpi_tpu_torch — the PyTorch/CUDA port of swiftmpi_tpu.
 
 A second package beside the JAX one, module for module: ``utils``,
-``ops``, ``parameter``, ``transfer``, ``data``, ``models``, ``io`` and
-``apps`` keep the JAX package's layout and names, and ``kernels`` holds
+``ops``, ``parameter``, ``transfer``, ``data``, ``models``, ``io``,
+``testing`` and ``apps`` keep the JAX package's layout and names, and
+``kernels`` holds
 the hand-written CUDA C++ kernels that stand in for its Pallas kernels.
 The port imports ``torch`` and numpy, never ``jax`` and nothing of
 ``swiftmpi_tpu``.

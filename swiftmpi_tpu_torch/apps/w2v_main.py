@@ -7,7 +7,11 @@ local_steps: 4``, the snapshot mode) and ``-variant hogwild``
 (``async_mode: hogwild``, one worker on each device of the model's
 cluster) key them with the BKDR string hash, as the reference's
 ``w2v.cpp`` does; another variant logs an error and returns 1.
-``-checkpoint`` raises (ROADMAP A9).  The conf's ``[word2vec] stencil:
+``-checkpoint <path>`` saves an npz checkpoint every iteration and
+resumes from the newest valid one if present (``train_with_resume``), so
+rerunning the same command after a crash continues the run; when the
+checkpoint is already complete the command trains nothing and still
+writes ``-output``.  The conf's ``[word2vec] stencil:
 1``, ``shared_negatives: 1``, ``sg: 1`` and ``dense_logits: 1`` pick the
 renderings, and ``[server] dtype: bfloat16`` bf16 tables, as in the JAX
 package.  The sharded
@@ -29,6 +33,7 @@ import sys
 
 from swiftmpi_tpu_torch.data import native
 from swiftmpi_tpu_torch.data.text import load_corpus
+from swiftmpi_tpu_torch.io.resilience import train_with_resume
 from swiftmpi_tpu_torch.models.word2vec import Word2Vec
 from swiftmpi_tpu_torch.utils import CMDLine, global_config
 from swiftmpi_tpu_torch.utils.logger import get_logger
@@ -46,6 +51,10 @@ def main(argv=None) -> int:
     cmd.registerParameter("variant", "sync (int keys) | async (hashed "
                           "keys, bounded staleness) | hogwild (hashed keys, "
                           "unsynchronized worker replicas)")
+    cmd.registerParameter("checkpoint",
+                          "checkpoint path: save every iteration and "
+                          "auto-resume if present (re-run the same "
+                          "command after a crash to continue)")
     cmd.registerParameter("device", "cuda (default) | cpu")
     cmd.registerParameter("shards", "table shards ([cluster] server_num; "
                           "needs [cluster] transfer: tpu when > 1)")
@@ -64,9 +73,6 @@ def main(argv=None) -> int:
     elif variant == "hogwild":
         global_config().set("word2vec", "async_mode", "hogwild")
     mode = "int" if variant == "sync" else "bkdr"
-    if cmd.hasParameter("checkpoint"):
-        raise NotImplementedError(
-            "-checkpoint is not ported yet (ROADMAP A9)")
 
     if cmd.hasParameter("shards"):
         global_config().set("cluster", "server_num",
@@ -90,9 +96,18 @@ def main(argv=None) -> int:
         corpus = load_corpus(cmd.getValue("data"), mode=mode,
                              min_sentence_length=model.min_sentence_length)
         model.build(corpus)
-    losses = model.train(corpus, niters=niters, batcher=batcher)
-    log.info("final error: %.5f; push paths %s", losses[-1],
-             model.train_metrics["push_paths"])
+    if cmd.hasParameter("checkpoint"):
+        losses = train_with_resume(
+            model, corpus, niters=niters,
+            checkpoint_path=cmd.getValue("checkpoint"),
+            checkpoint_every=1, batcher=batcher)
+    else:
+        losses = model.train(corpus, niters=niters, batcher=batcher)
+    if losses:
+        log.info("final error: %.5f; push paths %s", losses[-1],
+                 model.train_metrics["push_paths"])
+    else:
+        log.info("checkpoint already at %d iters; nothing to train", niters)
     if cmd.hasParameter("output"):
         n = model.save(cmd.getValue("output"))
         log.info("wrote %d embeddings -> %s", n, cmd.getValue("output"))

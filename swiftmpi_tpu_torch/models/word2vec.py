@@ -79,6 +79,10 @@ end of the epoch); and on a CUDA device with ``transfer: xla`` a group of
 N sync steps is one replay of a captured CUDA graph (``_FusedSteps``, one
 graph per group length, as JAX compiles one fused scan per length).  The
 async modes run their steps one by one, as JAX runs them unfused.
+``train`` also writes npz checkpoints every ``checkpoint_every``
+iterations and reports to the fault bus (``testing/faults.py``);
+``resume`` restores one in place, ``save`` and ``load`` are the text dump
+(``io/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -98,7 +102,10 @@ from swiftmpi_tpu_torch.data.text import (CBOWBatch, CBOWBatcher,
                                           load_corpus)
 from swiftmpi_tpu_torch.data.native import NativeCBOWBatcher
 from swiftmpi_tpu_torch.device import resolve_device
-from swiftmpi_tpu_torch.io.checkpoint import dump_table_text
+from swiftmpi_tpu_torch.io.checkpoint import (dump_table_text,
+                                              load_checkpoint,
+                                              load_table_text, npz_path,
+                                              save_checkpoint)
 from swiftmpi_tpu_torch.io.pipeline import CudaTransfer, PrefetchIterator
 from swiftmpi_tpu_torch.kernels.stencil import stencil_context_sum
 from swiftmpi_tpu_torch.ops.sampling import (alias_draws,
@@ -108,6 +115,7 @@ from swiftmpi_tpu_torch.ops.sampling import (alias_draws,
 from swiftmpi_tpu_torch.ops.sigmoid import sigmoid_clipped
 from swiftmpi_tpu_torch.parameter import SparseTable, w2v_access
 from swiftmpi_tpu_torch.parameter.sparse_table import shard_block
+from swiftmpi_tpu_torch.testing import faults
 from swiftmpi_tpu_torch.transfer import PushSpec
 from swiftmpi_tpu_torch.utils.config import ConfigParser, global_config
 from swiftmpi_tpu_torch.utils.logger import get_logger
@@ -1049,7 +1057,10 @@ class Word2Vec:
 
     def train(self, data=None, niters: int = 1,
               batch_size: Optional[int] = None, batcher=None,
-              draws: Optional[Iterator] = None) -> List[float]:
+              draws: Optional[Iterator] = None,
+              checkpoint_path: Optional[str] = None,
+              checkpoint_every: int = 1, checkpoint_retain: int = 1,
+              start_iter: int = 0) -> List[float]:
         """``data``: corpus path or list of key-list sentences.  Returns
         the per-iteration mean error Σerr_sum / round(Σerr_cnt) (reference
         Error::norm per train_iter; the count rounded once per iteration,
@@ -1072,7 +1083,17 @@ class Word2Vec:
         local_steps`` full batches (:meth:`_hogwild_group`) on the
         synchronous input loop, drops the batches of an epoch's last
         partial group (``train_metrics["hogwild_skipped_tail_words"]``)
-        and raises if an epoch fills no group."""
+        and raises if an epoch fills no group.
+
+        ``checkpoint_path``: a full-fidelity npz checkpoint (AdaGrad sums
+        included, ``extra__iter`` = ``start_iter`` + the iterations done)
+        every ``checkpoint_every`` iterations, after the iteration's last
+        step (its input pipeline closed, the device synchronized), keeping
+        ``checkpoint_retain`` generations; resume with :meth:`resume`.
+        Every iteration reports ``start_iter + it`` to the fault bus
+        (``testing.faults.step_event``) at its top, where chaos plans and
+        ``train_with_resume``'s hang watchdog hook in, and every save to
+        ``faults.checkpoint_event``."""
         if batcher is None:
             if isinstance(data, str):
                 data = load_corpus(data, min_sentence_length=max(
@@ -1133,6 +1154,13 @@ class Word2Vec:
         t0 = time.perf_counter()
         try:
             for it in range(niters):
+                # the global iteration, cumulative across resumed runs: a
+                # plan's crash at step k means after k finished iterations
+                faults.step_event(start_iter + it)
+                if faults.consume_nan():
+                    self._poison_row()
+                    if snapshot is not None:
+                        _refresh(snapshot, self.table.state)
                 es_q = _LossAccum(bound, self.device)
                 ec_q = _LossAccum(None, self.device)
                 if hogwild:
@@ -1193,6 +1221,9 @@ class Word2Vec:
                 losses.append(loss)
                 log.info("iter %d: error %.5f  (%.0f words/s)", it, loss,
                          meter.rate())
+                if checkpoint_path and (it + 1) % checkpoint_every == 0:
+                    self._checkpoint(checkpoint_path, start_iter + it + 1,
+                                     checkpoint_retain)
             if cuda:
                 torch.cuda.synchronize(self.device)
         finally:
@@ -1270,7 +1301,67 @@ class Word2Vec:
                      batch_size)
         return groups * group, words, dropped
 
-    # -- embeddings out --------------------------------------------------------
+    # -- checkpoints -------------------------------------------------------
+    def _checkpoint(self, path: str, iteration: int, retain: int) -> None:
+        """Save the table with ``extra__iter`` = ``iteration`` once the
+        device has finished every step, then report the save to the fault
+        bus."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        save_checkpoint(self.table, path,
+                        extra={"iter": np.int64(iteration)}, retain=retain)
+        log.info("checkpoint @ iter %d -> %s", iteration, path)
+        faults.checkpoint_event(npz_path(path))
+
+    def _poison_row(self) -> None:
+        """The ``nan`` fault (``testing.faults.consume_nan``): row 0 of
+        the first grad field becomes NaN, in place."""
+        f = self.access.grad_fields[0]
+        v = self.table.state[f]
+        (v[0] if isinstance(v, list) else v)[0] = float("nan")
+        log.warning("fault injection: poisoned %s row 0 with NaN", f)
+
+    def _remap_vocab(self) -> None:
+        """Re-read the vocab's slots after the key index changed (a
+        restore or a growth), in place: a captured CUDA graph reads this
+        tensor, and stays valid unless the table's tensors moved."""
+        if self.vocab is None:
+            return
+        slots = torch.as_tensor(self.table.key_index.lookup(self.vocab.keys),
+                                dtype=torch.int32)
+        self._slot_of_vocab.copy_(slots)
+
+    def resume(self, checkpoint_path: str) -> int:
+        """Restore a mid-training checkpoint in place (either package's
+        npz); returns the iteration it was taken at.  The vocab's slot
+        map is re-read from the restored key index.  An ``extra__numerics``
+        entry (the JAX package's detector baselines) is returned by the
+        load but not applied: the numerics plane is ROADMAP A14."""
+        if self.table is None:
+            raise RuntimeError("build() or load() the model before resume()")
+        extra = load_checkpoint(self.table, checkpoint_path)
+        self._remap_vocab()
+        if "numerics" in extra:
+            log.info("checkpoint carries numerics detector baselines; not "
+                     "applied (the numerics plane is ROADMAP A14)")
+        return int(extra.get("iter", 0))
+
+    # -- embeddings out/in (word2vec.h:100-117) --------------------------------
     def save(self, path: str) -> int:
-        # reference WParam layout: v TAB h (word2vec.h:100-110)
-        return dump_table_text(self.table, path, w2v_formatter)
+        """The reference's text dump, WParam layout ``v TAB h``
+        (word2vec.h:100-110), written by the native C++ writer when its
+        library builds: byte for byte the JAX package's ``save``."""
+        return dump_table_text(self.table, path, fields=("v", "h"))
+
+    def load(self, path: str) -> int:
+        """Load a ``save`` dump (either package's) into the table, made
+        at ``capacity_per_shard`` if there is none yet; the table grows
+        when the dump does not fit.  Returns the rows loaded."""
+        if self.table is None:
+            if self._capacity_per_shard is None:
+                raise RuntimeError("set capacity_per_shard before load()")
+            self.table = self.cluster.create_table(
+                "w2v", self.access, self._capacity_per_shard)
+        n = load_table_text(self.table, path, fields=("v", "h"))
+        self._remap_vocab()
+        return n

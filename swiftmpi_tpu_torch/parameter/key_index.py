@@ -8,9 +8,11 @@ touch, the lazy row creation of the reference's ``dense_hash_map``:
     slot = shard * capacity_per_shard + local
 
 These are exactly the slots the JAX ``KeyIndex`` assigns (no hot head), so
-a table state carries across the two frameworks row for row.  The
-hot/cold partition, ``grow`` and ``repartition`` are not ported yet
-(ROADMAP A12).
+a table state carries across the two frameworks row for row.  ``grow``
+re-strides every slot to a larger per-shard capacity and ``restore``
+rebuilds the index from a checkpoint's ``(key, slot)`` pairs, as in the
+JAX package; the hot/cold partition and ``repartition`` are not ported
+yet (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -89,13 +91,17 @@ class KeyIndex:
             + self._next_local[shards] + occ
         self._next_local += counts
         self._slot_of.update(zip(uniq.tolist(), slots.tolist()))
-        keys = np.concatenate([self._sorted_keys, uniq])
-        vals = np.concatenate([self._sorted_slots, slots])
-        srt = np.argsort(keys, kind="stable")
-        self._sorted_keys, self._sorted_slots = keys[srt], vals[srt]
+        self._sort(np.concatenate([self._sorted_keys, uniq]),
+                   np.concatenate([self._sorted_slots, slots]))
         rank = np.empty(len(uniq), np.int64)
         rank[order] = np.arange(len(uniq))
         return slots[rank[inv.ravel()]]
+
+    def _sort(self, keys: np.ndarray, slots: np.ndarray) -> None:
+        """Install the probe arrays from unsorted ``(key, slot)`` pairs."""
+        srt = np.argsort(keys, kind="stable")
+        self._sorted_keys = keys[srt].astype(np.uint64)
+        self._sorted_slots = slots[srt].astype(np.int64)
 
     def shard_of(self, keys) -> np.ndarray:
         return self.hashfrag.to_shard_id(keys)
@@ -108,8 +114,15 @@ class KeyIndex:
     def __len__(self) -> int:
         return len(self._slot_of)
 
+    def __contains__(self, key) -> bool:
+        return int(key) in self._slot_of
+
     def slot(self, key: int) -> int:
         return self._slot_of[int(key)]
+
+    def keys(self) -> Iterable[int]:
+        """Keys in insertion order."""
+        return self._slot_of.keys()
 
     def items(self) -> Iterable:
         """(key, slot) pairs in insertion order."""
@@ -118,3 +131,40 @@ class KeyIndex:
     def shard_fill(self) -> np.ndarray:
         """Occupied slots per shard (load-balance introspection)."""
         return self._next_local.copy()
+
+    # -- growth ------------------------------------------------------------
+    def grow(self, new_capacity_per_shard: int) -> None:
+        """Raise the per-shard capacity, remapping every assigned slot to
+        ``shard * new_cap + local`` (locals, and so each shard's insertion
+        order, kept).  The table's rows must move to match: use
+        ``SparseTable.grow``, which calls this."""
+        new = int(new_capacity_per_shard)
+        old = self.capacity_per_shard
+        if new <= old:
+            raise ValueError(f"new capacity {new} must exceed {old}")
+        self.capacity_per_shard = new
+        keys = np.fromiter(self._slot_of.keys(), np.uint64,
+                           len(self._slot_of))
+        slots = np.fromiter(self._slot_of.values(), np.int64,
+                            len(self._slot_of))
+        slots = slots // old * new + slots % old
+        self._slot_of = dict(zip(keys.tolist(), slots.tolist()))
+        self._sort(keys, slots)
+
+    # -- checkpoint restore ------------------------------------------------
+    def restore(self, keys, slots) -> None:
+        """Rebuild the index from saved ``(key, slot)`` pairs (insertion
+        order = the pairs' order), keeping the ``slot = shard *
+        capacity_per_shard + local`` layout: each shard's next free row
+        follows its highest restored local row."""
+        keys = np.asarray(keys, np.uint64).ravel()
+        slots = np.asarray(slots, np.int64).ravel()
+        shards, local = np.divmod(slots, self.capacity_per_shard)
+        bad = (shards < 0) | (shards >= self.num_shards)
+        if bad.any():
+            raise ValueError(f"slot {int(slots[bad][0])} outside the table "
+                             "layout")
+        self._slot_of = dict(zip(keys.tolist(), slots.tolist()))
+        self._next_local = np.zeros(self.num_shards, np.int64)
+        np.maximum.at(self._next_local, shards, local + 1)
+        self._sort(keys, slots)

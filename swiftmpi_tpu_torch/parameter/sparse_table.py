@@ -28,7 +28,7 @@ and ``repartition`` are not ported yet (ROADMAP A12).
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -55,20 +55,93 @@ class SparseTable:
             raise ValueError("a table of several shards needs a rank layout")
         self.state: TableState = self._init_state()
 
-    def _init_state(self) -> TableState:
-        """Fields in sorted name order, each drawn from one generator
-        seeded with ``seed`` (the JAX package's order of key splits; the
-        values differ, as torch and jax generators do).  A sharded table
-        draws the same rows and deals them to the shards' devices, so its
-        initial values do not depend on the layout."""
+    def _init_rows(self) -> Dict[str, torch.Tensor]:
+        """Every field's ``(capacity, dim)`` rows on the table's device,
+        in sorted name order, all drawn from one generator seeded with
+        ``seed`` (the JAX package's order of key splits; the values
+        differ, as torch and jax generators do)."""
         cap = self.key_index.capacity
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.seed)
-        state = {name: fs.init(gen, (cap, fs.dim), self.device).to(fs.dtype)
-                 for name, fs in sorted(self.access.fields.items())}
+        return {name: fs.init(gen, (cap, fs.dim), self.device).to(fs.dtype)
+                for name, fs in sorted(self.access.fields.items())}
+
+    def _init_state(self) -> TableState:
+        """The initial state: :meth:`_init_rows`, dealt to the shards'
+        devices for a sharded table, so its initial values do not depend
+        on the layout."""
+        return self._layout(self._init_rows())
+
+    def _layout(self, rows: Dict[str, torch.Tensor]) -> TableState:
         if self.mesh is None:
-            return state
-        return {f: split_rows(t, self.mesh) for f, t in state.items()}
+            return rows
+        return {f: split_rows(t, self.mesh) for f, t in rows.items()}
+
+    def global_rows(self, field: str) -> torch.Tensor:
+        """``field``'s ``(capacity, dim)`` rows in global slot order on the
+        table's device: the tensor itself on one device, a copy of the
+        shards concatenated for a sharded table."""
+        v = self.state[field]
+        if not isinstance(v, list):
+            return v
+        return torch.cat([s.to(self.device) for s in v])
+
+    def assign(self, field: str, rows: torch.Tensor) -> None:
+        """Copy global-order ``(capacity, dim)`` rows into ``field``'s
+        tensors in place (each shard's slice into its rank's tensor), cast
+        to the field's dtype: the tensors' addresses do not move."""
+        v = self.state[field]
+        if not isinstance(v, list):
+            v.copy_(rows)
+            return
+        cap = self.key_index.capacity_per_shard
+        for r, t in enumerate(v):
+            t.copy_(rows[r * cap:(r + 1) * cap])
+
+    def write_rows(self, field: str, slots: np.ndarray,
+                   rows: torch.Tensor) -> None:
+        """In place: the global ``slots`` of ``field`` take ``rows``, cast
+        to the field's dtype (float32 -> bfloat16 rounds to nearest
+        even, as numpy's bfloat16 does)."""
+        v = self.state[field]
+        slots = np.asarray(slots, np.int64)
+        if not isinstance(v, list):
+            v[torch.from_numpy(slots).to(v.device)] = rows.to(v.device,
+                                                             v.dtype)
+            return
+        shard, local = np.divmod(slots, self.key_index.capacity_per_shard)
+        for r, t in enumerate(v):
+            sel = shard == r
+            if sel.any():
+                t[torch.from_numpy(local[sel]).to(t.device)] = \
+                    rows[torch.from_numpy(sel).to(rows.device)].to(
+                    t.device, t.dtype)
+
+    def grow(self, new_capacity_per_shard: Optional[int] = None) -> None:
+        """Re-lay the table out at a larger per-shard capacity (default
+        2x): every occupied row keeps its parameters and AdaGrad sums and
+        moves to ``shard * new_cap + local``; the new rows are drawn from
+        each field's init with a generator seeded ``seed + 1`` (a fresh
+        stream per growth, as the JAX package folds its seed).  New
+        tensors replace the old ones, a sharded table's as one new block
+        per device (``split_rows``), so ``shard_block`` stays copy-free;
+        both layouts coexist during the move."""
+        ki = self.key_index
+        old_per = ki.capacity_per_shard
+        old_slots = np.fromiter((s for _, s in ki.items()), np.int64,
+                                len(ki))
+        old = {f: self.global_rows(f) for f in self.state}
+        ki.grow(int(new_capacity_per_shard or 2 * old_per))
+        new_slots = old_slots // old_per * ki.capacity_per_shard \
+            + old_slots % old_per
+        self.seed += 1
+        rows = self._init_rows()
+        src = torch.from_numpy(old_slots).to(self.device)
+        dst = torch.from_numpy(new_slots).to(self.device)
+        for f, t in rows.items():
+            t[dst] = old[f][src]
+        del old
+        self.state = self._layout(rows)
 
     @property
     def capacity(self) -> int:

@@ -624,22 +624,26 @@ def test_grads_stay_float32_under_bf16_tables(monkeypatch):
 
 def test_bf16_text_dump_matches_jax(tmp_path):
     """The port's dump of a bf16 table (an exact upcast) is, byte for
-    byte, the JAX package's Python dump of the same state with the same
-    formatter (``io/checkpoint.py::dump_table_text`` with
-    ``w2v_formatter``), and value for value its ``Word2Vec.save`` (the
-    native writer, which prints 9 significant digits: enough to give
-    every bfloat16 back exactly)."""
+    byte, the JAX package's: its Python dump of the same state with the
+    same formatter (``io/checkpoint.py::dump_table_text`` with
+    ``w2v_formatter``), and its ``Word2Vec.save`` (the native writer,
+    which prints 9 significant digits: enough to give every bfloat16
+    back exactly)."""
+    from swiftmpi_tpu_torch.io.checkpoint import dump_table_text
+    from swiftmpi_tpu_torch.models.word2vec import w2v_formatter
     sents = corpus(n_sent=20, vocab=40, length=10, seed=2)
     jm, pm = _models(sents)
     jm.train(sents, niters=1, batch_size=64)
     pm.table.state = state_from_jax(
         {f: np.asarray(a) for f, a in jm.table.state.items()}, "cpu")
     assert pm.table.state["v"].dtype == torch.bfloat16
-    a, b, c = (str(tmp_path / n) for n in ("jax.txt", "port.txt",
-                                            "native.txt"))
+    a, b, c, e = (str(tmp_path / n) for n in ("jax.txt", "port.txt",
+                                               "native.txt", "save.txt"))
     assert jax_dump_table_text(jm.table, a, jax_w2v_formatter) \
-        == pm.save(b) == jm.save(c) == len(pm.vocab)
+        == dump_table_text(pm.table, b, w2v_formatter) == jm.save(c) \
+        == pm.save(e) == len(pm.vocab)
     assert open(a).read() == open(b).read()
+    assert open(c).read() == open(e).read()
     mine = [line.split("\t") for line in open(b).read().splitlines()]
     theirs = [line.split("\t") for line in open(c).read().splitlines()]
     assert [m[0] for m in mine] == [t[0] for t in theirs]

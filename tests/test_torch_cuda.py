@@ -1168,3 +1168,91 @@ def test_snapshot_window_on_card_matches_cpu(dev, rendering):
     np.testing.assert_allclose(out[0], out[1], rtol=1e-4)
     _close(state_to_numpy(card.table.state), state_to_numpy(cpu.table.state),
            f"{rendering} window")
+
+
+# -- checkpoints, resume and sent2vec (port slice 9) ----------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_checkpoint_round_trip_on_card_is_exact_and_in_place(dev, tmp_path,
+                                                              dtype):
+    """A trained card table saved as npz and resumed into a fresh card
+    model: every field bit for bit, the tensors' addresses kept, the same
+    key index; the CPU loads the card's file bit for bit too."""
+    from swiftmpi_tpu_torch.io.checkpoint import save_checkpoint
+    m, sents = _path_model(dev, "gather", dtype=dtype)
+    m.train(batcher=CBOWBatcher(sents, m.vocab, m.window, m.sample, seed=5),
+            niters=1, batch_size=100)
+    save_checkpoint(m.table, str(tmp_path / "ck"),
+                    extra={"iter": np.int64(1)})
+    fresh, _ = _path_model(dev, "gather", seed=3, dtype=dtype)
+    ptrs = [t.data_ptr() for t in fresh.table.state.values()]
+    assert fresh.resume(str(tmp_path / "ck")) == 1
+    assert [t.data_ptr() for t in fresh.table.state.values()] == ptrs
+    cpu = _cpu_twin(m)
+    cpu.resume(str(tmp_path / "ck"))
+    for f, t in m.table.state.items():
+        assert torch.equal(fresh.table.state[f], t), f
+        assert torch.equal(cpu.table.state[f], t.cpu()), f
+    assert list(fresh.table.key_index.items()) == \
+        list(m.table.key_index.items())
+
+
+def test_graphs_replay_after_an_in_place_resume(dev, tmp_path):
+    """Resume restores in place, so the graphs captured before it stay
+    the model's and replay after it: an epoch run by those replays equals,
+    bit for bit, the same epoch of a model resumed from the same file that
+    captures its graphs anew (sparse pushes only and deterministic sums,
+    as in ``test_graph_of_8_steps_matches_8_plain_steps``; both generators
+    seeded alike)."""
+    from swiftmpi_tpu_torch.io.checkpoint import save_checkpoint
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        m, sents = _path_model(dev, "gather", inner_steps=4)
+        batcher = CBOWBatcher(sents, m.vocab, m.window, m.sample, seed=5)
+        m.train(batcher=batcher, niters=1, batch_size=32)
+        save_checkpoint(m.table, str(tmp_path / "ck"))
+        graphs = dict(m._fused_cache)
+        assert graphs
+        m.train(batcher=batcher, niters=1, batch_size=32)   # moves the table
+        m.resume(str(tmp_path / "ck"))
+        twin, _ = _path_model(dev, "gather", inner_steps=4)
+        twin.resume(str(tmp_path / "ck"))
+        for x in (m, twin):
+            x._gen.manual_seed(123)
+            x.train(batcher=CBOWBatcher(sents, x.vocab, x.window, x.sample,
+                                        seed=9), niters=1, batch_size=32)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert all(m._fused_cache[L] is g for L, g in graphs.items())
+    assert m.train_metrics["graph_replays"] > \
+        twin.train_metrics["graph_replays"] > 0
+    assert not any(k.endswith(":dense") for k in m.transfer.push_paths)
+    assert m.train_metrics["epoch_err"] == twin.train_metrics["epoch_err"]
+    for f, t in m.table.state.items():
+        assert torch.equal(t, twin.table.state[f]), f
+
+
+def test_sent2vec_on_card_matches_cpu(dev):
+    """sent2vec over a card word table and over its CPU copy with the
+    same draws: every element within 1e-5 + 1e-3|b|; B2 launched once for
+    the context rows and once a pass for the target rows."""
+    from swiftmpi_tpu_torch.models.sent2vec import Sent2Vec
+    m, sents = _path_model(dev, "gather")
+    cpu = _cpu_twin(m)
+    lines = [" ".join(map(str, s[:n])) for s, n in
+             zip(sents, [40, 17, 3, 40, 25, 9] * 6)]
+    card_s2v, cpu_s2v = Sent2Vec(m, seed=1), Sent2Vec(cpu, seed=1)
+    card_s2v.batchsize = cpu_s2v.batchsize = 16
+    draws = [card_s2v.draw(16, 64, 3) for _ in range(3)]
+    kernels.reset_launches()
+    got = card_s2v.infer_sentences(lines, niters=3, draws=iter(draws))
+    counts = kernels.launch_counts()
+    want = cpu_s2v.infer_sentences(lines, niters=3, draws=iter(
+        [(s0.cpu(), [tuple(t.cpu() for t in p) for p in ps])
+         for s0, ps in draws]))
+    assert [s for s, _ in got] == [s for s, _ in want]
+    np.testing.assert_allclose(np.stack([v for _, v in got]),
+                               np.stack([v for _, v in want]),
+                               rtol=1e-3, atol=1e-5)
+    assert counts == {"gather": 3 * (1 + 3), "scatter": 0, "adagrad": 0,
+                      "stencil": 0, "ring": 0}

@@ -31,7 +31,9 @@ want = {"swiftmpi_tpu_torch." + m for m in (
     "utils.hashing", "cluster.hashfrag", "cluster.mesh", "cluster.cluster",
     "kernels.ring", "transfer.sharded", "parameter.key_index",
     "parameter.sparse_table", "models.word2vec", "apps.w2v_main",
-    "utils.timers", "utils.pipeline", "data.native", "io.pipeline")}
+    "utils.timers", "utils.pipeline", "data.native", "io.pipeline",
+    "io.checkpoint", "io.resilience", "testing.faults", "utils.health",
+    "models.sent2vec", "apps.sent2vec_main")}
 missing = sorted(want - set(names))
 print(len(names), "modules;", "leaked:", bad, "missing:", missing)
 sys.exit(1 if bad or missing or len(names) < 30 else 0)

@@ -132,10 +132,82 @@ def test_cli_refuses_unported_conf_keys(files, line):
 
 @pytest.mark.parametrize("flags", [["-checkpoint", "ck"]])
 def test_cli_refuses_unported_flags(files, flags):
-    _, conf, data = files
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        w2v_main.main(["w2v", "-config", conf, "-data", data,
-                       "-device", "cpu", *flags])
+    """The CLI refuses no flag the JAX package's ``w2v_main`` takes: every
+    one of its flags is registered, and ``-checkpoint`` (the last one
+    ported) trains."""
+    from swiftmpi_tpu.apps import w2v_main as jax_w2v_main
+    tmp, conf, data = files
+    registered = []
+
+    class Spy(CMDLine):
+        def __init__(self, argv=None):
+            super().__init__(argv)
+            registered.append(set())
+
+        def registerParameter(self, key, text):
+            registered[-1].add(key)
+            return super().registerParameter(key, text)
+
+    for mod in (w2v_main, jax_w2v_main):
+        orig = mod.CMDLine
+        mod.CMDLine = Spy
+        try:
+            mod.main(["w2v", "-help"])
+        finally:
+            mod.CMDLine = orig
+    port, jax_flags = registered
+    assert jax_flags <= port, jax_flags - port
+    flags = [flags[0], str(tmp / flags[1])]
+    assert w2v_main.main(["w2v", "-config", conf, "-data", data,
+                          "-device", "cpu", *flags]) == 0
+
+
+def test_cli_checkpoint_crash_then_rerun_completes(files, monkeypatch):
+    """``-checkpoint`` with a crash injected through ``SMTPU_FAULT_PLAN``
+    (at the top of iteration 1, every time): the in-process restarts
+    exhaust their budget and the command fails with the checkpoint of
+    iteration 1 on disk; the same command rerun without the plan resumes
+    there, trains the other two iterations and writes one row per word.
+    A third run finds the checkpoint complete, trains nothing and still
+    writes ``-output``."""
+    from swiftmpi_tpu_torch.testing import faults
+    tmp, conf, data = files
+    ck, out = str(tmp / "ck"), tmp / "vectors.txt"
+    argv = ["w2v", "-config", conf, "-data", data, "-niters", "3",
+            "-checkpoint", ck, "-output", str(out), "-device", "cpu"]
+    calls = []
+    train = w2v_main.Word2Vec.train
+
+    def spy(self, *a, **k):
+        calls.append((k["start_iter"], k["niters"]))
+        return train(self, *a, **k)
+
+    monkeypatch.setattr(w2v_main.Word2Vec, "train", spy)
+    monkeypatch.setenv(faults.ENV_FAULT_PLAN, faults.FaultPlan().crash_at_step(
+        1, times=100).to_json())
+    faults.clear()
+    try:
+        with pytest.raises(faults.InjectedFault):
+            w2v_main.main(argv)
+        assert calls == [(0, 3), (1, 2), (1, 2)] and not out.exists()
+        with np.load(ck + ".npz") as z:
+            assert int(z["extra__iter"]) == 1
+        monkeypatch.delenv(faults.ENV_FAULT_PLAN)
+        faults.clear()
+        calls.clear()
+        assert w2v_main.main(argv) == 0
+        assert calls == [(1, 2)]
+        with np.load(ck + ".npz") as z:
+            assert int(z["extra__iter"]) == 3
+        vocab = build_vocab(load_corpus(data))
+        first = out.read_text()
+        assert len(first.splitlines()) == len(vocab)
+        out.unlink()
+        calls.clear()
+        assert w2v_main.main(argv) == 0
+        assert calls == [] and out.read_text() == first
+    finally:
+        faults.clear()
 
 
 @pytest.mark.parametrize("variant,key,val", [
