@@ -113,16 +113,44 @@ Phases, each of which raises on a failed check:
    bench.py's shape (1,024 sentences of 64 words, 10 passes) against the
    CPU with the same draws, with B2's launches per batch and its cases at
    sent2vec's shapes (timed as in phase 2).
+8. logistic regression, GloVe and the embedding index: B1-B3 at their
+   shapes, timed as in phase 2 — the a9a shape's (``lr_profile.SHAPES``:
+   ``synthetic_dataset(32_561, 123, 14, seed=3)``, minibatch 8,192,
+   capacity 160) pull of 114,688 width-1 rows, its dense push onto 160
+   slots (~930 a slot) with counts and AdaGrad over the (160, 1) table
+   with the counts' divisor; the wide shape's (3,231,961 features, 115 a
+   row, minibatch 1,000) pull, dense push and table apply at 131,072 rows
+   and its sparse push's rows at 4,194,304; GloVe's (bench.py's shape,
+   ``glove_profile.py``) 8,192-row pulls of w and b and its pushes' rows;
+   and B5 on LR's and GloVe's sharded buckets at width 1 (also with
+   blocks that are not 16-byte aligned) and 100.  One LR step in each
+   rendering and one GloVe step, card against CPU (the envelope).
+   ``LogisticRegression.train`` at the a9a shape for 8 epochs in the
+   sparse (``lr``) and dense (``lr_dense``) renderings with
+   ``inner_steps: 4`` (an epoch one graph replay after the first), and on
+   ``tpu@8``; one wide epoch with ``inner_steps: 4``, whose table grows six
+   times mid-epoch (65,536 -> 4,194,304 rows; the graphs dropped and
+   captured anew), against the same epoch one step at a time (the loss
+   within 1e-4); ``GloVe.train`` with ``inner_steps: 8`` and
+   ``pipeline: 4`` (two epochs, graph replays) and on ``tpu@8``.  Each
+   run launches exactly its path's kernels a step (``LR_GLOVE_STEP``).
+   The CLIs: ``lr_main`` train -> predict -> eval on a libSVM file the
+   script writes (the native parser must read it), ``glove_main`` ->
+   ``w2v_eval`` on its dump, and ``w2v_eval`` on a word2vec dump, its
+   neighbours on the card against the CPU.
 
 The line before the last is the ``{"kernels": [...]}`` summary, each
 kernel's ``launches`` read from the train run of its path (the sent2vec
-cases from the sent2vec inference run); the last is
+cases from the sent2vec inference run, phase 8's from its paths' train
+runs); the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints neither.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -137,7 +165,9 @@ import torch
 import torch.nn.functional as F
 
 from swiftmpi_tpu_torch import kernels
-from swiftmpi_tpu_torch.apps import w2v_main
+from swiftmpi_tpu_torch.apps import glove_main, lr_main, w2v_eval, w2v_main
+from swiftmpi_tpu_torch.apps.glove_profile import glove_model
+from swiftmpi_tpu_torch.apps.lr_profile import SHAPES, lr_model
 from swiftmpi_tpu_torch.cluster import Cluster
 from swiftmpi_tpu_torch.apps.input_profile import (INPUT_RUNS, epoch_line,
                                                    load_native, run_batcher)
@@ -146,6 +176,8 @@ from swiftmpi_tpu_torch.apps.stencil_sweep import (batch_inputs,
 from swiftmpi_tpu_torch.apps.w2v_profile import (BATCH, DEMO_CONF,
                                                  TEXT8_CORPUS, card_line)
 from swiftmpi_tpu_torch.data import native
+from swiftmpi_tpu_torch.data.libsvm import (iter_minibatches,
+                                            synthetic_dataset, to_csr)
 from swiftmpi_tpu_torch.io.checkpoint import npz_path, save_checkpoint
 from swiftmpi_tpu_torch.io.resilience import train_with_resume
 from swiftmpi_tpu_torch.data.text import (CBOWBatcher, StencilBatch,
@@ -155,6 +187,8 @@ from swiftmpi_tpu_torch.data.text import (CBOWBatcher, StencilBatch,
                                           write_tokens_file)
 from swiftmpi_tpu_torch.kernels import (adagrad, build, gather, ring,
                                         scatter, stencil)
+from swiftmpi_tpu_torch.models.embedding import EmbeddingIndex
+from swiftmpi_tpu_torch.models.logistic import LogisticRegression
 from swiftmpi_tpu_torch.models.sent2vec import (Sent2Vec,
                                                 build_word_model_from_dump)
 from swiftmpi_tpu_torch.ops.sampling import (build_unigram_alias,
@@ -164,6 +198,7 @@ from swiftmpi_tpu_torch.models.word2vec import (Word2Vec, _batch_fields,
                                                 _cbow_targets,
                                                 _parity_targets, _sg_targets,
                                                 w2v_parser)
+from swiftmpi_tpu_torch.parameter.key_index import KeyIndex
 from swiftmpi_tpu_torch.parameter.sparse_table import (shard_block,
                                                        split_rows)
 from swiftmpi_tpu_torch.testing import faults
@@ -1750,6 +1785,479 @@ def phase_sent2vec(vocab, corpus: np.ndarray, card: str) -> tuple:
     return cases, counts
 
 
+# -- phase 8: logistic regression, GloVe and the embedding index -------------
+
+#: LR and GloVe paths -> the launches of one step on the card (the sharded
+#: ones each for all the card's ranks): the a9a sparse rendering pulls the
+#: weights once and pushes them dense (a scatter-add with its counts, then
+#: AdaGrad over the table); its dense rendering is two products and one
+#: AdaGrad over the table; a GloVe step pulls four fields (w, b at the
+#: focus slots, wt, bt at the context slots) and pushes four families,
+#: every push sparse (AdaGrad on the rows); on the sharded server a pull
+#: is one request exchange and one row exchange a field, a push one
+#: request exchange and one grad exchange a family
+LR_GLOVE_STEP = {
+    "lr": {"gather": 1, "scatter": 1, "adagrad": 1},
+    "lr_dense": {"adagrad": 1},
+    "glove": {"gather": 4, "adagrad": 4},
+    f"lr@{SHARDS}": {"ring": 4, "gather": 1, "scatter": 1, "adagrad": 1},
+    f"glove@{SHARDS}": {"ring": 12, "gather": 4, "scatter": 4,
+                        "adagrad": 4},
+}
+#: a9a epochs of the LR train runs: the first captures the graph of its
+#: one group of 4 batches, every later one replays it
+LR_EPOCHS = 8
+#: GloVe epochs: 12 groups of 8 steps each, the first group captured
+GLOVE_EPOCHS = 2
+
+
+def _exact(path: str, counts: dict, steps: int, per_step=None) -> None:
+    """``counts`` is exactly ``steps`` x the path's launches a step."""
+    per_step = per_step or LR_GLOVE_STEP[path]
+    want = {**dict.fromkeys(counts, 0),
+            **{k: v * steps for k, v in per_step.items()}}
+    if counts != want:
+        raise AssertionError(f"{path}: {steps} step(s) launched {counts}, "
+                             f"its path gives {want}")
+
+
+def _lr_batch(model, data):
+    """The first minibatch of ``data`` as the sparse step takes it, on
+    the model's device: ``(slots, vals, mask, targets)``."""
+    batch = next(iter_minibatches(data, model.minibatch, data.max_feats))
+    slots = model.table.key_index.lookup(np.where(batch.mask,
+                                                  batch.feat_ids, 0))
+    return tuple(torch.as_tensor(np.asarray(c), device=model.device)
+                 for c in (slots, batch.feat_vals, batch.mask,
+                           batch.targets))
+
+
+def phase_kernels_lr_glove(lr, a9a_data, wide_data, glove) -> list:
+    """B1-B3 at logistic regression's and GloVe's shapes, and B5 at their
+    sharded width-1 and width-100 buckets, each against its plain version
+    and timed as in phase 2: the a9a pull of 114,688 width-1 rows (the
+    scalar form), its dense push onto 160 slots (~930 a slot) with counts
+    and AdaGrad over the (160, 1) table with the counts' divisor; the wide
+    shape's pull and dense push of 115,000 rows at 131,072 slots, and its
+    sparse push's row form on the 4,194,304-row table; GloVe's pulls of
+    8,192 rows x 100 and x 1 and its pushes' row forms."""
+    rng = np.random.default_rng(17)
+    dev = lr.device
+    flush = torch.zeros(2 * 50 * 2 ** 20 // 4, device=dev)
+    cases = []
+    slots, _, mask, _ = _lr_batch(lr, a9a_data)
+    flat = torch.where(mask, slots, -1).reshape(-1).contiguous()
+    valid = flat >= 0
+    val, cap = lr.table.state["val"], lr.table.capacity
+    cases.append(_gather_case("LR a9a pull, width 1", val, flat, valid,
+                              flush, "lr"))
+    cases.append(_scatter_case("LR a9a push, width 1, ~930 a slot", "lr",
+                               flat, valid, cap, 1, rng, flush))
+    accum = torch.as_tensor(rng.random((cap, 1), np.float32) * 1e-2,
+                            device=dev)
+    counts = torch.bincount(flat[valid].long(), minlength=cap).float()
+    grad = torch.as_tensor(rng.normal(size=(cap, 1)).astype(np.float32),
+                           device=dev)
+    cases.append(_adagrad_case("LR a9a table (160, 1), / counts", "lr",
+                               val, accum, grad, 0.05, flush,
+                               div=counts.clamp(min=1.0)))
+    # the wide shape: a batch's 115,000 slots in a 131,072-row table (its
+    # push dense), and the rows of its sparse push at 4,194,304 rows
+    ki = KeyIndex(1, 1 << 17)
+    wb = next(iter_minibatches(wide_data, 1_000, wide_data.max_feats))
+    wslots = ki.lookup(np.where(wb.mask, wb.feat_ids, 0))
+    wflat = torch.as_tensor(np.where(wb.mask, wslots, -1).reshape(-1),
+                            device=dev)
+    wvalid = wflat >= 0
+    wtable = torch.rand((1 << 17, 1), generator=_device_gen(dev, rng),
+                        device=dev)
+    cases.append(_gather_case("LR wide pull, width 1", wtable, wflat,
+                              wvalid, flush, "lr_wide"))
+    cases.append(_scatter_case("LR wide dense push, width 1", "lr_wide",
+                               wflat, wvalid, 1 << 17, 1, rng, flush))
+    waccum = torch.rand((1 << 17, 1), generator=_device_gen(dev, rng),
+                        device=dev) * 1e-2
+    wgrad = torch.randn((1 << 17, 1), generator=_device_gen(dev, rng),
+                        device=dev)
+    wcount = torch.bincount(wflat[wvalid].long(), minlength=1 << 17).float()
+    cases.append(_adagrad_case("LR wide table (131072, 1), / counts",
+                               "lr_wide", wtable, waccum, wgrad, 0.05, flush,
+                               div=wcount.clamp(min=1.0)))
+    big = 1 << 22
+    btable = torch.rand((big, 1), generator=_device_gen(dev, rng),
+                        device=dev)
+    baccum = torch.rand((big, 1), generator=_device_gen(dev, rng),
+                        device=dev) * 1e-2
+    reps = torch.unique(wflat[wvalid]).to(torch.int32)
+    inv = 1.0 / torch.as_tensor(rng.integers(1, 3, reps.numel())
+                                .astype(np.float32), device=dev)
+    cases.append(_adagrad_case(
+        "LR wide sparse push rows, row-indexed", "lr_wide", btable, baccum,
+        torch.randn((reps.numel(), 1), generator=_device_gen(dev, rng),
+                    device=dev), 0.05, flush, rows=(reps, None), mul=inv))
+    # GloVe: one batch's focus slots, its pulls and its pushes' rows
+    n = len(glove._coo[2])
+    fs, cs, _, _ = glove.stage(np.random.default_rng(0).permutation(n)
+                               [:glove.minibatch], 1, glove.minibatch)
+    fs = fs[0].contiguous()
+    gstate = glove.table.state
+    ok = torch.ones_like(fs, dtype=torch.bool)
+    cases.append(_gather_case("GloVe w pull, 8,192 x 100", gstate["w"], fs,
+                              ok, flush, "glove"))
+    cases.append(_gather_case("GloVe b pull, 8,192 x 1", gstate["b"], fs,
+                              ok, flush, "glove"))
+    grows = torch.unique(fs).to(torch.int32)
+    ginv = 1.0 / torch.as_tensor(rng.integers(1, 9, grows.numel())
+                                 .astype(np.float32), device=dev)
+    for f, d in (("w", glove.len_vec), ("b", 1)):
+        cases.append(_adagrad_case(
+            f"GloVe {f} push rows, row-indexed", "glove", gstate[f],
+            gstate[f + "2sum"] + 1e-3,
+            torch.randn((grows.numel(), d), generator=_device_gen(dev, rng),
+                        device=dev) * 1e-2, glove.access.learning_rate,
+            flush, rows=(grows, None), mul=ginv))
+    # the sharded paths' buckets: LR's width-1 rows (C = 114,688 / 8 a
+    # rank), the same at an odd C, whose blocks are not 16-byte aligned,
+    # and GloVe's width-1 and width-100 rows (C = 8,192 / 8)
+    C = flat.numel() // SHARDS
+    for label, tail, path in (
+            (f"LR@{SHARDS} val rows, width 1", (C, 1), f"lr@{SHARDS}"),
+            (f"width 1, C = 1,001 (blocks not 16-byte aligned)", (1001, 1),
+             f"lr@{SHARDS}"),
+            (f"GloVe@{SHARDS} b rows, width 1",
+             (glove.minibatch // SHARDS, 1), f"glove@{SHARDS}"),
+            (f"GloVe@{SHARDS} w rows, width 100",
+             (glove.minibatch // SHARDS, glove.len_vec), f"glove@{SHARDS}")):
+        cases.append(_ring_case(label, tail, torch.float32, rng, flush, dev,
+                                path=path))
+    return cases
+
+
+def phase_parity_lr_glove(glove) -> None:
+    """One LR step at the a9a shape in each rendering, and one GloVe step
+    at bench.py's shape, on the card and on the CPU from the same table:
+    every field within 1e-5 + 1e-3|b| (B3's and ``index_add_``'s sums land
+    in no fixed order), the loss within 1e-5 relative."""
+    for dense in (0, 1):
+        card, data = lr_model("a9a", dense=dense, device=DEVICE)
+        cpu, _ = lr_model("a9a", dense=dense, device="cpu")
+        cpu.table.state = _cpu_state(card.table.state, cpu)
+        cols = _lr_batch(card, data)
+        _lr_batch(cpu, data)
+        kernels.reset_launches()
+        if dense:
+            X, cnt, t, v = card._densify(*(c.cpu().numpy() for c in cols))
+            num_c, n_c = card._dense_core(*(torch.as_tensor(a, device=DEVICE)
+                                            for a in (X, cnt, t, v)))
+            counts = kernels.launch_counts()
+            num_p, n_p = cpu._dense_core(*(torch.as_tensor(a)
+                                           for a in (X, cnt, t, v)))
+        else:
+            num_c, n_c = card._step_core(*cols)
+            counts = kernels.launch_counts()
+            num_p, n_p = cpu._step_core(*(c.cpu() for c in cols))
+        path = "lr_dense" if dense else "lr"
+        _exact(path, counts, 1)
+        if float(n_c) != float(n_p) or not math.isclose(
+                float(num_c), float(num_p), rel_tol=1e-5):
+            raise AssertionError(f"{path} step: card ({float(num_c)}, "
+                                 f"{float(n_c)}), cpu ({float(num_p)}, "
+                                 f"{float(n_p)})")
+        gap = {f: _field_gap(f"{path} step, field {f}", _global(v),
+                             _global(cpu.table.state[f]))
+               for f, v in card.table.state.items()}
+        _json_line({"phase": "step_parity", "rendering": path,
+                    "rows": int(n_c), "slots": cols[0].numel(),
+                    "loss": [float(num_c) / float(n_c),
+                             float(num_p) / float(n_p)],
+                    "gap": gap, "envelope": "1e-5 + 1e-3*|cpu|",
+                    "push_paths": dict(card.transfer.push_paths),
+                    "launches": counts})
+    cpu = glove_model(device="cpu")
+    cpu.table.state = _cpu_state(glove.table.state, cpu)
+    sel = np.random.default_rng(1).permutation(len(glove._coo[2]))
+    sel = sel[:glove.minibatch]
+    fields = glove.stage(sel, 1, glove.minibatch)
+    kernels.reset_launches()
+    (loss_c,) = glove._step(*(f[0] for f in fields))
+    counts = kernels.launch_counts()
+    (loss_p,) = cpu._step(*(f[0].cpu() for f in fields))
+    _exact("glove", counts, 1)
+    if not math.isclose(float(loss_c), float(loss_p), rel_tol=1e-5):
+        raise AssertionError(f"glove step: loss card {float(loss_c)}, cpu "
+                             f"{float(loss_p)}")
+    gap = {f: _field_gap(f"glove step, field {f}", _global(v),
+                         _global(cpu.table.state[f]))
+           for f, v in glove.table.state.items()}
+    _json_line({"phase": "step_parity", "rendering": "glove",
+                "cells": glove.minibatch,
+                "loss": [float(loss_c), float(loss_p)], "gap": gap,
+                "envelope": "1e-5 + 1e-3*|cpu|",
+                "push_paths": dict(glove.transfer.push_paths),
+                "launches": counts})
+
+
+def phase_train_lr(path: str, card: str) -> dict:
+    """``LogisticRegression.train`` at the a9a shape over ``LR_EPOCHS``
+    epochs: ``lr`` (sparse rendering) and ``lr_dense`` with
+    ``inner_steps: 4`` (each epoch one graph replay, the first epoch its
+    capture), ``lr@8`` on the sharded server (steps one by one).  Exact
+    launches a step, a finite loss that falls."""
+    sharded = "@" in path
+    model, data = lr_model("a9a", dense=int(path == "lr_dense"),
+                           inner=1 if sharded else 4,
+                           shards=SHARDS if sharded else 0, device=DEVICE)
+    kernels.reset_launches()
+    losses = model.train(data, niters=LR_EPOCHS)
+    counts = kernels.launch_counts()
+    m = model.train_metrics
+    _exact(path, counts, m["steps"])
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"{path}: losses {losses}")
+    want_replays = 0 if sharded else LR_EPOCHS - 1
+    if m["graph_replays"] != want_replays or m["fused"] == sharded:
+        raise AssertionError(f"{path}: fused {m['fused']}, "
+                             f"{m['graph_replays']} replays")
+    extra = {}
+    if sharded:
+        extra = {"overflow_count": model.transfer.overflow_count(),
+                 "wait_timeouts": ring.timeouts(),
+                 "shard_fill": model.table.key_index.shard_fill().tolist()}
+        if extra["overflow_count"] or extra["wait_timeouts"]:
+            raise AssertionError(f"{path}: {extra}")
+    _json_line({"phase": "train", "rendering": path, "card": card,
+                "shape": "a9a", "epochs": LR_EPOCHS, "loss": losses,
+                "steps": m["steps"], "records": m["records"],
+                "seconds": m["seconds"],
+                "records_per_sec": m["records_per_sec"],
+                "graph_replays": m["graph_replays"],
+                "growths": m["growths"], "capacity": m["capacity"],
+                "push_paths": m["push_paths"], "launches": counts, **extra})
+    return counts
+
+
+def phase_train_lr_wide(wide_data, card: str) -> dict:
+    """One epoch at the wide shape with ``inner_steps: 4``: the table
+    grows from 65,536 rows six times, to 4,194,304, mid-epoch (each growth
+    flushes the queued group, drops the graphs and captures anew), its
+    pushes dense at 131,072 rows and sparse above.  Held against the same
+    epoch run one step at a time: the same steps, growths and push paths,
+    the loss within 1e-4 relative, and the table's largest gap reported
+    (the sums land in no fixed order).  A replay on a freed table would
+    leave these far behind."""
+    runs = []
+    for inner in (4, 1):
+        model, _ = lr_model("wide", inner=inner, device=DEVICE)
+        kernels.reset_launches()
+        losses = model.train(wide_data, niters=1)
+        runs.append((model, losses, kernels.launch_counts()))
+    (g, lg, counts), (e, le, counts_e) = runs
+    mg, me = g.train_metrics, e.train_metrics
+    dense = mg["push_paths"].get("val:dense", 0)
+    per = {"gather": 1, "adagrad": 1}
+    _exact("lr_wide", counts, mg["steps"], per_step={
+        **per, "scatter": dense / max(mg["steps"], 1)})
+    if counts != counts_e or mg["push_paths"] != me["push_paths"] \
+            or (mg["steps"], mg["growths"], mg["capacity"]) != \
+            (me["steps"], me["growths"], me["capacity"]) \
+            or mg["growths"] != 6 or mg["capacity"] != 1 << 22 \
+            or not dense or "val:sparse" not in mg["push_paths"] \
+            or mg["graph_replays"] < 1 \
+            or not math.isclose(lg[0], le[0], rel_tol=1e-4):
+        raise AssertionError(f"wide: graphs {mg} {counts} loss {lg}; eager "
+                             f"{me} {counts_e} loss {le}")
+    gap = (g.table.state["val"] - e.table.state["val"]).abs().max().item()
+    _json_line({"phase": "train", "rendering": "lr_wide", "card": card,
+                "rows": len(wide_data), "features": SHAPES["wide"][0]["dim"],
+                "loss": [lg[0], le[0]], "steps": mg["steps"],
+                "growths": mg["growths"], "capacity": mg["capacity"],
+                "graph_replays": mg["graph_replays"],
+                "seconds": [mg["seconds"], me["seconds"]],
+                "records_per_sec": [mg["records_per_sec"],
+                                    me["records_per_sec"]],
+                "val_max_gap_graphs_vs_eager": gap,
+                "push_paths": mg["push_paths"], "launches": counts})
+    return counts
+
+
+def phase_train_glove(path: str, card: str) -> dict:
+    """``GloVe.train`` at bench.py's shape with ``inner_steps: 8`` and
+    ``pipeline: 4``: ``glove`` (a graph replay a group but the first,
+    ``GLOVE_EPOCHS`` epochs) and ``glove@8`` (the sharded server, steps one
+    by one, one epoch).  Exact launches a step, a finite loss."""
+    sharded = "@" in path
+    model = glove_model(shards=SHARDS if sharded else 0, device=DEVICE)
+    epochs = 1 if sharded else GLOVE_EPOCHS
+    kernels.reset_launches()
+    losses = model.train(niters=epochs)
+    counts = kernels.launch_counts()
+    m = model.train_metrics
+    _exact(path, counts, m["steps"])
+    groups = m["steps"] // m["inner_steps"]
+    if not all(math.isfinite(x) for x in losses) \
+            or m["graph_replays"] != (0 if sharded else groups - 1) \
+            or m["pipeline"]["produced"] != groups \
+            or (epochs > 1 and losses[-1] >= losses[0]):
+        raise AssertionError(f"{path}: losses {losses}, {m}")
+    if sharded and (model.transfer.overflow_count() or ring.timeouts()):
+        raise AssertionError(f"{path}: overflow or a wait timed out")
+    _json_line({"phase": "train", "rendering": path, "card": card,
+                "vocab": len(model.vocab), "cells": len(model._coo[2]),
+                "capacity": model.table.capacity, "epochs": epochs,
+                "loss": losses, "steps": m["steps"],
+                "seconds": m["seconds"], "cells_per_sec": m["cells_per_sec"],
+                "stall_ms_per_step": m["stall_ms_per_step"],
+                "graph_replays": m["graph_replays"],
+                "pipeline": m["pipeline"], "push_paths": m["push_paths"],
+                "launches": counts})
+    return counts
+
+
+def _cli_lines(main, argv) -> list:
+    """``main(argv)``'s standard output lines; raises on a non-zero exit."""
+    buf = io.StringIO()
+    reset_global_config()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    if rc != 0:
+        raise AssertionError(f"{argv[0]} returned {rc}")
+    return buf.getvalue().splitlines()
+
+
+def phase_cli_lr_glove(vocab, corpus: np.ndarray) -> None:
+    """The CLIs on the card: ``lr_main`` train -> predict -> eval on a
+    libSVM file the script writes (read by the native parser), the a9a
+    shape's first 4,096 rows; ``glove_main`` on a corpus prefix, then
+    ``w2v_eval`` on its dump and on a word2vec dump (queries and an
+    analogy through the product and top-k on the card)."""
+    if WORK.exists():
+        shutil.rmtree(WORK)
+    WORK.mkdir(parents=True)
+    data = synthetic_dataset(**SHAPES["a9a"][0])[:4096]
+    svm = WORK / "a9a.svm"
+    with open(svm, "w") as f:
+        for y, feats in data:
+            f.write(f"{1 if y > 0 else -1} "
+                    + " ".join(f"{k}:{v:.6g}" for k, v in feats) + "\n")
+    conf = WORK / "lr.conf"
+    conf.write_text("[cluster]\ntransfer: xla\nserver_num: 1\n[worker]\n"
+                    "minibatch: 1024\ninner_steps: 2\n[server]\n"
+                    "initial_learning_rate: 0.5\n")
+    models = []
+
+    class Recording(LogisticRegression):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            models.append(self)
+
+    weights, preds = WORK / "w.txt", WORK / "p.txt"
+    common = ["lr", "-config", str(conf), "-dataset", str(svm), "-device",
+              DEVICE]
+    kernels.reset_launches()
+    lr_main.LogisticRegression = Recording
+    try:
+        _cli_lines(lr_main.main, common + ["-mode", "train", "-niters", "10",
+                                           "-output", str(weights)])
+        _cli_lines(lr_main.main, common + ["-mode", "predict", "-param",
+                                           str(weights), "-output",
+                                           str(preds)])
+        out = _cli_lines(lr_main.main, common + ["-mode", "eval", "-param",
+                                                 str(weights)])
+    finally:
+        lr_main.LogisticRegression = LogisticRegression
+    counts = kernels.launch_counts()
+    err = float(out[-1].split()[-1])
+    parsers = [m.parser for m in models]
+    scores = np.loadtxt(preds)
+    if parsers != ["native"] * 3 or scores.shape != (4096,) \
+            or not ((scores >= 0) & (scores <= 1)).all() or not err < 0.3 \
+            or models[0].train_metrics["graph_replays"] < 1:
+        raise AssertionError(f"lr_main: parsers {parsers}, error rate "
+                             f"{err}, {models[0].train_metrics}")
+    _json_line({"phase": "cli", "app": "lr_main", "parser": parsers[0],
+                "weights": len(weights.read_text().splitlines()),
+                "predictions": len(scores), "error_rate": err,
+                "launches": counts})
+    # GloVe on a corpus prefix, then the eval CLI on its dump
+    text = WORK / "corpus.txt"
+    write_tokens_file(corpus[:40], str(text))
+    gconf = WORK / "glove.conf"
+    gconf.write_text("[cluster]\ntransfer: xla\nserver_num: 1\n[glove]\n"
+                     "len_vec: 100\nwindow: 8\nminibatch: 8192\n[worker]\n"
+                     "inner_steps: 4\npipeline: 2\n")
+    emb, full = WORK / "glove.txt", WORK / "glove_full.txt"
+    kernels.reset_launches()
+    _cli_lines(glove_main.main, ["glove", "-config", str(gconf), "-data",
+                                 str(text), "-niters", "2", "-output",
+                                 str(emb), "-output-full", str(full),
+                                 "-device", DEVICE])
+    counts = kernels.launch_counts()
+    rows = emb.read_text().splitlines()
+    first = rows[0].split("\t")
+    if len(first[1].split()) != 100 or len(full.read_text().splitlines()[0]
+                                           .split("\t")) != 5 \
+            or not counts["gather"] or not counts["adagrad"]:
+        raise AssertionError(f"glove_main: {len(rows)} rows, {counts}")
+    q = ",".join(r.split("\t")[0] for r in rows[:3])
+    out = _cli_lines(w2v_eval.main, ["eval", "-embeddings", str(emb),
+                                     "-query", q, "-topk", "5", "-device",
+                                     DEVICE])
+    if len(out) != 3 * 6 or not all(
+            math.isfinite(float(ln.split("\t")[1])) for ln in out
+            if ln.startswith("  ")):
+        raise AssertionError(f"w2v_eval on the GloVe dump: {out}")
+    # and on a word2vec dump of the card
+    w2v = _model("gather", vocab, DEVICE)
+    w2v.train(batcher=CBOWBatcher(corpus[:50], vocab, w2v.window,
+                                  w2v.sample, seed=2008),
+              niters=1, batch_size=BATCH)
+    dump = WORK / "w2v.txt"
+    w2v.save(str(dump))
+    keys = [int(k) for k in vocab.keys[:3]]
+    out2 = _cli_lines(w2v_eval.main, [
+        "eval", "-embeddings", str(dump), "-query",
+        ",".join(map(str, keys)), "-analogy",
+        f"{keys[0]}:{keys[1]}::{keys[2]}", "-topk", "5", "-device", DEVICE])
+    index = EmbeddingIndex.from_text(str(dump), device=DEVICE)
+    want = index.neighbors(keys[0], 5)
+    cpu_index = EmbeddingIndex.from_text(str(dump), device="cpu")
+    got_cpu = cpu_index.neighbors(keys[0], 5)
+    if len(out2) != 6 + 3 * 6 or not np.allclose(want[1], got_cpu[1],
+                                                 rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"w2v_eval on the word2vec dump: {out2}; card "
+                             f"{want}, cpu {got_cpu}")
+    _json_line({"phase": "cli", "app": "glove_main -> w2v_eval",
+                "glove_rows": len(rows), "glove_launches": counts,
+                "w2v_eval_lines": len(out) + len(out2),
+                "w2v_dump_rows": len(index),
+                "neighbours_card_vs_cpu_max_gap":
+                float(np.abs(want[1] - got_cpu[1]).max())})
+    shutil.rmtree(WORK)
+
+
+def phase_lr_glove(vocab, corpus: np.ndarray, card: str) -> tuple:
+    """Phase 8: returns the kernel cases at the new paths' shapes and the
+    launches of each path's train run."""
+    t0 = time.perf_counter()
+    lr, a9a = lr_model("a9a", device=DEVICE)
+    glove = glove_model(device=DEVICE)
+    wide = to_csr(synthetic_dataset(**SHAPES["wide"][0]))
+    print(f"phase 8 set-up {time.perf_counter() - t0:.1f} s (a9a, GloVe "
+          f"{len(glove.vocab)} words x {len(glove._coo[2])} cells, wide "
+          f"{len(wide)} rows)", flush=True)
+    cases = phase_kernels_lr_glove(lr, a9a, wide, glove)
+    report_cases(cases)
+    phase_parity_lr_glove(glove)
+    del lr, glove
+    counts = {p: phase_train_lr(p, card)
+              for p in ("lr", "lr_dense", f"lr@{SHARDS}")}
+    counts["lr_wide"] = phase_train_lr_wide(wide, card)
+    for p in ("glove", f"glove@{SHARDS}"):
+        counts[p] = phase_train_glove(p, card)
+    phase_cli_lr_glove(vocab, corpus)
+    return cases, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1820,6 +2328,9 @@ def main() -> int:
     s2v_cases, counts["sent2vec"] = phase_sent2vec(vocab, corpus, card)
     report_cases(s2v_cases)
     cases += s2v_cases
+    lr_cases, lr_counts = phase_lr_glove(vocab, corpus, card)
+    cases += lr_cases
+    counts.update(lr_counts)
 
     summary = []
     for c in cases:

@@ -49,6 +49,15 @@ class Vocab:
     def total_words(self) -> int:
         return int(self.counts.sum())
 
+    def index_of(self, key: int):
+        """Vocab index for a raw token key (negative ints wrap to uint64,
+        matching storage), or None if OOV."""
+        index = self.__dict__.get("_index")
+        if index is None:
+            index = self.__dict__["_index"] = {
+                int(k): i for i, k in enumerate(self.keys.tolist())}
+        return index.get(int(key) & _M64)
+
 
 #: key modes: ``int`` for the sync variant, ``bkdr`` for async and hogwild
 TOKENIZE_MODES = ("int", "bkdr")

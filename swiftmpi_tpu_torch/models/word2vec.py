@@ -87,15 +87,12 @@ iterations and reports to the fault bus (``testing/faults.py``);
 
 from __future__ import annotations
 
-import gc
 import time
-from collections import Counter
 from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from swiftmpi_tpu_torch import kernels
 from swiftmpi_tpu_torch.cluster import Cluster
 from swiftmpi_tpu_torch.data.text import (CBOWBatch, CBOWBatcher,
                                           StencilBatch, Vocab, build_vocab,
@@ -117,18 +114,17 @@ from swiftmpi_tpu_torch.parameter import SparseTable, w2v_access
 from swiftmpi_tpu_torch.parameter.sparse_table import shard_block
 from swiftmpi_tpu_torch.testing import faults
 from swiftmpi_tpu_torch.transfer import PushSpec
-from swiftmpi_tpu_torch.utils.config import ConfigParser, global_config
+from swiftmpi_tpu_torch.utils.config import (UNPORTED_SECTIONS, ConfigParser,
+                                             global_config)
+from swiftmpi_tpu_torch.utils.graphs import StepGraph, graph_key, run_group
 from swiftmpi_tpu_torch.utils.logger import get_logger
-from swiftmpi_tpu_torch.utils.pipeline import (DispatchWindow,
-                                               resolve_dispatch_bound)
+from swiftmpi_tpu_torch.utils.pipeline import LossAccum as _LossAccum
+from swiftmpi_tpu_torch.utils.pipeline import resolve_dispatch_bound
 from swiftmpi_tpu_torch.utils.timers import Throughput
 
 log = get_logger(__name__)
 
 Draws = Tuple[torch.Tensor, torch.Tensor]
-
-#: config sections the slice does not port at all -> ROADMAP item
-_UNPORTED_SECTIONS = {"obs": "A14", "control": "A13", "serve": "A13"}
 
 #: ``[server] dtype`` -> the embedding fields' dtype
 PARAM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -148,43 +144,6 @@ def _on(x, device, dtype) -> torch.Tensor:
     return x.to(device=device, dtype=dtype).contiguous()
 
 
-class _LossAccum:
-    """Non-blocking loss accumulator (JAX ``_LossAccum``): queues the
-    steps' device scalars and folds every ``fold`` into ONE device scalar
-    (a stacked sum, no host read), so an epoch holds O(1) scalars and the
-    epoch-end read is one round trip, not one per step.  Folds in
-    float32: exact up to 2^24 per fold, and beyond that the loss
-    denominator's relative error is below 1e-7.
-
-    ``bound`` feeds a ``utils.pipeline.DispatchWindow`` on ``device``:
-    the steps the host may run ahead of the card.  ``peak_queued`` shows
-    the retention bound: never more than ``fold`` scalars."""
-
-    _FOLD = 256
-
-    def __init__(self, bound="auto", device=None, fold: int = _FOLD):
-        if fold < 2:
-            raise ValueError(f"_LossAccum fold must be >= 2, got {fold}")
-        self._q: List[torch.Tensor] = []
-        self._fold = fold
-        self.peak_queued = 0
-        self._window = DispatchWindow(bound, device)
-
-    def add(self, x: torch.Tensor) -> None:
-        self._q.append(x.to(torch.float32).reshape(()))
-        self._window.push()
-        self.peak_queued = max(self.peak_queued, len(self._q))
-        if len(self._q) >= self._fold:
-            self._q = [torch.stack(self._q).sum()]
-
-    def total(self) -> float:
-        """The sum, read to the host: the accumulator's one host read."""
-        if not self._q:
-            return 0.0
-        self._window.clear()
-        return float(torch.stack(self._q).sum())
-
-
 def _batch_fields(batch: Union[CBOWBatch, StencilBatch]) -> tuple:
     """A batch's arrays in the order the step takes them."""
     if isinstance(batch, StencilBatch):
@@ -202,66 +161,17 @@ def _stack_group_host(batches) -> tuple:
                  for arrays in zip(*map(_batch_fields, batches)))
 
 
-class _FusedSteps:
+class _FusedSteps(StepGraph):
     """N training steps as one CUDA graph (the counterpart of JAX's
-    ``_build_multi_step``: N steps in one dispatch).
-
-    The graph reads its batches from static ``(N, ...)`` buffers, filled
-    with ``copy_`` before each replay; the model's ``torch.Generator`` is
-    registered with the graph, so each replay draws fresh negatives, the
-    same draws N eager steps would take from the generator's state; the
-    summed loss scalars are static outputs, cloned after the replay.  A
-    replay calls no kernel wrapper, so the launches (and push paths)
-    recorded while capturing are added to the counters on every replay,
-    and the capture's own calls are taken back.
-
-    Holds no reference to the model (no reference cycle): a graph is then
-    freed when its model is, never by a garbage collection, which may run
-    while another graph is being captured, where freeing a graph is not
-    permitted; collections are also off during the capture itself."""
+    ``_build_multi_step``: N steps in one dispatch): ``utils.graphs``'
+    :class:`StepGraph` of :meth:`Word2Vec._step_fields`, its static
+    buffers in the step's argument dtypes, the model's generator
+    registered (each replay draws fresh negatives, the draws N eager steps
+    would take), the summed ``(err_sum, err_cnt)`` its outputs."""
 
     def __init__(self, model: "Word2Vec", fields):
-        dev = model.device
-        n = fields[0].shape[0]
-        self.n = n
-        self.static = [torch.empty(f.shape, dtype=dt, device=dev)
-                       for f, dt in zip(fields, model._arg_dtypes())]
-        self.graph = torch.cuda.CUDAGraph()
-        self.graph.register_generator_state(model._gen)
-        launches0 = kernels.launch_counts()
-        self._paths = model.transfer.push_paths
-        paths0 = Counter(self._paths)
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(self.graph,
-                                  capture_error_mode="thread_local"):
-                es_t = ec_t = None
-                for i in range(n):
-                    es, ec = model._step_fields(
-                        tuple(s[i] for s in self.static))
-                    es_t = es if es_t is None else es_t + es
-                    ec_t = ec if ec_t is None else ec_t + ec
-        finally:
-            if collecting:
-                gc.enable()
-        self.out = (es_t, ec_t)
-        self.launches = {k: v - launches0[k]
-                         for k, v in kernels.launch_counts().items()}
-        kernels.add_launches({k: -v for k, v in self.launches.items()})
-        self.push_paths = self._paths - paths0
-        self._paths.clear()
-        self._paths.update(paths0)
-
-    def replay(self, fields) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Run the N steps on ``fields`` (``(N, ...)`` tensors on the
-        device); returns the summed ``(err_sum, err_cnt)`` on the device."""
-        for s, f in zip(self.static, fields):
-            s.copy_(f)
-        self.graph.replay()
-        kernels.add_launches(self.launches)
-        self._paths.update(self.push_paths)
-        return self.out[0].clone(), self.out[1].clone()
+        super().__init__(model._step_fields, fields, model._arg_dtypes(),
+                         model._gen, model.transfer.push_paths)
 
 
 def _parity_targets(slot_of_vocab, alias_prob, alias_idx, centers, c_slots,
@@ -566,7 +476,7 @@ class Word2Vec:
              "exchange)", "A16")
         want(g("worker", "telemetry", 0).to_int32() != 0,
              "[worker] telemetry", "A14")
-        for sec, item in _UNPORTED_SECTIONS.items():
+        for sec, item in UNPORTED_SECTIONS.items():
             want(bool(self.config.section(sec)), f"[{sec}]", item)
         if refuse:
             raise NotImplementedError(
@@ -1010,50 +920,27 @@ class Word2Vec:
 
     def _graph_key(self) -> tuple:
         """The addresses a captured graph reads and writes: the table's
-        tensors and the sampler's.  A table or vocab set since the capture
-        (``table.state = ...``, ``build_from_vocab``) needs new graphs."""
-        return tuple(t.data_ptr() for t in (
-            *self.table.state.values(), self._slot_of_vocab,
-            self._alias_prob, self._alias_idx))
+        tensors and the sampler's, and the table's growth generation.  A
+        table or vocab set since the capture (``table.state = ...``,
+        ``build_from_vocab``, ``SparseTable.grow``) needs new graphs."""
+        return graph_key(self.table, self._slot_of_vocab, self._alias_prob,
+                         self._alias_idx)
 
     def _run_group(self, fields, graphs: bool, draws, es_q: _LossAccum,
                    ec_q: _LossAccum) -> bool:
-        """The steps of one group, in order: one replay of the group
-        length's CUDA graph when ``graphs`` and the graph exists (returns
-        True), else the steps one by one.  With ``graphs``, the first
-        group of a length is the graph's warm-up: its steps run eagerly
-        on a side stream, then the graph is captured (the capture runs
-        nothing)."""
-        L = fields[0].shape[0]
-        fused = self._fused_cache.get(L) if graphs else None
-        if fused is not None:
-            es, ec = fused.replay(fields)
-            es_q.add(es)
-            ec_q.add(ec)
-            return True
-        out = []
-        if not graphs:
-            for i in range(L):
-                out.append(self._step_fields(
-                    tuple(f[i] for f in fields),
-                    None if draws is None else next(draws)))
-        else:
-            cur = torch.cuda.current_stream(self.device)
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(cur)
-            with torch.cuda.stream(side):
-                for i in range(L):
-                    out.append(self._step_fields(
-                        tuple(f[i] for f in fields)))
-            cur.wait_stream(side)
-            for es, ec in out:        # used on this stream from here on
-                es.record_stream(cur)
-                ec.record_stream(cur)
-            self._fused_cache[L] = _FusedSteps(self, fields)
+        """The steps of one group, in order (``utils.graphs.run_group``):
+        one replay of the group length's CUDA graph when ``graphs`` and
+        the graph exists (returns True), else the steps one by one; with
+        ``graphs`` the first group of a length is the graph's warm-up."""
+        def step(f):
+            return self._step_fields(f, None if draws is None
+                                     else next(draws))
+        out, replayed = run_group(self._fused_cache, fields, step, graphs,
+                                  lambda f: _FusedSteps(self, f))
         for es, ec in out:
             es_q.add(es)
             ec_q.add(ec)
-        return False
+        return replayed
 
     def train(self, data=None, niters: int = 1,
               batch_size: Optional[int] = None, batcher=None,

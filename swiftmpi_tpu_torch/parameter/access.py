@@ -31,6 +31,13 @@ def zeros_init(generator: torch.Generator, shape: Tuple[int, ...],
     return torch.zeros(shape, dtype=torch.float32, device=device)
 
 
+def uniform01_init(generator: torch.Generator, shape: Tuple[int, ...],
+                   device: torch.device) -> torch.Tensor:
+    """U(0,1) — the reference LR weight init draws ``gen_float()``
+    (lr.cpp:48-50)."""
+    return torch.rand(shape, generator=generator, device=device)
+
+
 def vec_rand_init(generator: torch.Generator, shape: Tuple[int, ...],
                   device: torch.device) -> torch.Tensor:
     """(U(0,1) - 0.5) / dim — the reference ``Vec::randInit`` embedding
@@ -158,6 +165,18 @@ class AdaGradAccess(AccessMethod):
             if r.grad in gf:
                 out += [r.param, r.accum]
         return tuple(out)
+
+
+def lr_access(learning_rate: float) -> AdaGradAccess:
+    """Logistic-regression row: scalar weight + grad²-sum
+    (reference LRParam, lr.cpp:14-22,60-81)."""
+    return AdaGradAccess(
+        learning_rate,
+        rules=(AdaGradRule("val", "grad2sum", "val"),),
+        fields={"val": FieldSpec(1, uniform01_init),
+                "grad2sum": FieldSpec(1, zeros_init)},
+        pull_fields=("val",),
+    )
 
 
 def w2v_access(learning_rate: float, len_vec: int,

@@ -22,8 +22,9 @@ Every row is initialized eagerly with its field's distribution (eager-
 random is lazy-random for every observable row), drawn in float32 and
 cast to the field's dtype, as the JAX package does: a bfloat16 field
 (``[server] dtype: bfloat16``) holds the rounded draw.  Push paths update
-the tensors in place.  The ``@rowver``, ``@ef`` and ``@hot`` planes, ``grow``
-and ``repartition`` are not ported yet (ROADMAP A12).
+the tensors in place; ``grow`` moves them to new, larger tensors and
+bumps ``generation``.  The ``@rowver``, ``@ef`` and ``@hot`` planes and
+``repartition`` are not ported yet (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -53,6 +54,9 @@ class SparseTable:
                 f"{key_index.num_shards} shards")
         if mesh is None and key_index.num_shards != 1:
             raise ValueError("a table of several shards needs a rank layout")
+        #: bumped by :meth:`grow`, which moves every field to new
+        #: tensors: a CUDA graph captured on the old ones is stale
+        self.generation = 0
         self.state: TableState = self._init_state()
 
     def _init_rows(self) -> Dict[str, torch.Tensor]:
@@ -142,6 +146,7 @@ class SparseTable:
             t[dst] = old[f][src]
         del old
         self.state = self._layout(rows)
+        self.generation += 1
 
     @property
     def capacity(self) -> int:

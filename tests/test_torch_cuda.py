@@ -1256,3 +1256,147 @@ def test_sent2vec_on_card_matches_cpu(dev):
                                rtol=1e-3, atol=1e-5)
     assert counts == {"gather": 3 * (1 + 3), "scatter": 0, "adagrad": 0,
                       "stencil": 0, "ring": 0}
+
+
+# -- logistic regression and GloVe (width-1 rows, growth under graphs) --------
+
+def _lr_conf(**worker):
+    conf = ConfigParser().update({
+        "cluster": {"server_num": 1, "transfer": "xla"},
+        "server": {"initial_learning_rate": 0.1},
+        "worker": {"minibatch": 4}})
+    conf.update({"worker": worker})
+    return conf
+
+
+def test_width1_kernels_match_plain_on_card(dev):
+    """B2, B3 and B1 on width-1 rows at logistic regression's a9a shape
+    (114,688 slots onto 160 rows, ~930 a slot) and the ring on width-1
+    buckets, aligned and not: gather, AdaGrad and the ring bit for bit,
+    B3's sums of grads scaled as phase 2 of ``chip_smoke.py`` scales them
+    within its tolerance, rtol 1e-3 and atol 1e-5 (930-term float sums in
+    no fixed order), its counts exact.  One launch each."""
+    rng = np.random.default_rng(70)
+    cap, n = 160, 114_688
+    slots = rng.integers(0, 124, n).astype(np.int32)
+    slots[rng.random(n) < 0.05] = -1
+    ts = torch.from_numpy(slots).to(dev)
+    tv = ts >= 0
+    table = torch.rand((cap, 1), device=dev)
+    kernels.reset_launches()
+    torch.testing.assert_close(gather.masked_gather(table, ts, tv),
+                               gather.masked_gather_plain(table, ts, tv),
+                               rtol=0, atol=0)
+    g = torch.randn((n, 1), device=dev) * 1e-2
+    acc, cnt = scatter.masked_scatter_add(ts, tv, g, cap, counts=True)
+    acc_p, cnt_p = scatter.masked_scatter_add_plain(ts, tv, g, cap,
+                                                    counts=True)
+    torch.testing.assert_close(acc, acc_p, rtol=1e-3, atol=1e-5)
+    torch.testing.assert_close(cnt, cnt_p, rtol=0, atol=0)
+    assert cnt.max().item() > 800
+    p, a = table.clone(), torch.rand((cap, 1), device=dev)
+    p2, a2 = p.clone(), a.clone()
+    gr = torch.randn((cap, 1), device=dev)
+    adagrad.adagrad_update_(p, a, gr, 0.05, div=cnt_p.clamp(min=1.0))
+    adagrad.adagrad_update_plain_(p2, a2, gr, 0.05, div=cnt_p.clamp(min=1.0))
+    assert torch.equal(p, p2) and torch.equal(a, a2)
+    rows = torch.unique(ts[tv]).to(torch.int32)
+    inv = 1.0 / torch.randint(1, 9, (rows.numel(),), device=dev).float()
+    gr = torch.randn((rows.numel(), 1), device=dev)
+    adagrad.adagrad_update_rows_(p, a, rows, None, gr, 0.05, mul=inv)
+    adagrad.adagrad_update_rows_plain_(p2, a2, rows, None, gr, 0.05,
+                                       mul=inv)
+    assert torch.equal(p, p2) and torch.equal(a, a2)
+    for C in (n // 8, 1001, 3):
+        x = torch.rand((8, 8, C, 1), device=dev)
+        assert torch.equal(ring.ring_exchange_stacked(x),
+                           ring.ring_exchange_stacked_plain(x))
+    torch.cuda.synchronize()
+    assert ring.timeouts() == 0
+    assert kernels.launch_counts() == {"gather": 1, "scatter": 1,
+                                       "adagrad": 2, "stencil": 0,
+                                       "ring": 3}
+
+
+def test_lr_grow_mid_epoch_under_graphs_matches_eager(dev):
+    """``inner_steps: 4`` (graph replays) against one step at a time, both
+    growing the table twice mid-epoch from 64 rows: every push sparse (no
+    B3) and PyTorch's deterministic ``index_add_``, so the tables agree
+    bit for bit; the growths drop the graphs, and the replays after them
+    update the new tensors, never the freed ones."""
+    from swiftmpi_tpu_torch.data.libsvm import synthetic_dataset
+    from swiftmpi_tpu_torch.models.logistic import LogisticRegression
+    data = synthetic_dataset(200, 200, 5, seed=4)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = []
+        for inner in (4, 1):
+            m = LogisticRegression(config=_lr_conf(inner_steps=inner),
+                                   capacity_per_shard=64, device=dev, seed=3)
+            kernels.reset_launches()
+            losses = m.train(data, niters=2)
+            runs.append((m, losses, kernels.launch_counts()))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (g, lg, cg), (e, le, ce) = runs
+    mg, me = g.train_metrics, e.train_metrics
+    assert mg["growths"] == me["growths"] == 2
+    assert mg["capacity"] == 256 and mg["fused"] and mg["graph_replays"] > 0
+    assert set(mg["push_paths"]) == {"val:sparse"}
+    assert cg == ce == {"gather": 100, "scatter": 0, "adagrad": 100,
+                        "stencil": 0, "ring": 0}
+    np.testing.assert_allclose(lg, le, rtol=1e-6)
+    for f, t in g.table.state.items():
+        assert torch.equal(t, e.table.state[f]), f
+
+
+@pytest.mark.parametrize("path", ["lr", "lr_dense", "lr_graphs", "glove",
+                                  "glove_graphs"])
+def test_lr_and_glove_take_exactly_their_kernels(dev, path):
+    """The train loops launch exactly their path's kernels each step, eager
+    and under graphs: LR sparse with a dense push (B2, B3 with counts, B1
+    over the table), LR dense (B1 only), GloVe with sparse pushes (B2 for
+    four fields, B1 for four families); and the card's run agrees with the
+    CPU's from the same table, losses within 1e-4 relative."""
+    from swiftmpi_tpu_torch.data.libsvm import synthetic_dataset
+    from swiftmpi_tpu_torch.data.text import synthetic_corpus
+    from swiftmpi_tpu_torch.models.glove import GloVe
+    from swiftmpi_tpu_torch.models.logistic import LogisticRegression
+    graphs = path.endswith("_graphs")
+    inner = 4 if graphs else 1
+    if path.startswith("lr"):
+        data = synthetic_dataset(256, 40, 5, seed=1)
+        conf = _lr_conf(inner_steps=inner,
+                        dense_features=int(path == "lr_dense"))
+        conf.set("worker", "minibatch", 32)
+        models = [LogisticRegression(config=conf, capacity_per_shard=64,
+                                     device=d) for d in (dev, "cpu")]
+        per = ({"adagrad": 1} if path == "lr_dense"
+               else {"gather": 1, "scatter": 1, "adagrad": 1})
+
+        def run(m):
+            return m.train(data, niters=2)
+    else:
+        conf = ConfigParser().update({
+            "cluster": {"transfer": "xla", "server_num": 1},
+            "glove": {"len_vec": 16, "window": 4, "minibatch": 64},
+            "worker": {"inner_steps": inner}})
+        sents = synthetic_corpus(40, 60, 20, seed=2)
+        models = [GloVe(config=conf, capacity_per_shard=256,
+                        device=d).build(sents) for d in (dev, "cpu")]
+        per = {"gather": 4, "adagrad": 4}
+
+        def run(m):
+            return m.train(niters=2)
+    card, cpu = models
+    cpu.table.state = state_from_jax(state_to_numpy(card.table.state), "cpu")
+    kernels.reset_launches()
+    got = run(card)
+    counts = kernels.launch_counts()
+    want = run(cpu)
+    steps = card.train_metrics["steps"]
+    assert counts == {**dict.fromkeys(counts, 0),
+                      **{k: v * steps for k, v in per.items()}}
+    assert card.train_metrics["fused"] is graphs
+    assert (card.train_metrics["graph_replays"] > 0) is graphs
+    np.testing.assert_allclose(got, want, rtol=1e-4)

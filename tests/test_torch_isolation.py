@@ -33,7 +33,10 @@ want = {"swiftmpi_tpu_torch." + m for m in (
     "parameter.sparse_table", "models.word2vec", "apps.w2v_main",
     "utils.timers", "utils.pipeline", "data.native", "io.pipeline",
     "io.checkpoint", "io.resilience", "testing.faults", "utils.health",
-    "models.sent2vec", "apps.sent2vec_main")}
+    "models.sent2vec", "apps.sent2vec_main", "models.logistic",
+    "data.libsvm", "apps.lr_main", "models.glove", "apps.glove_main",
+    "models.embedding", "apps.w2v_eval", "utils.graphs", "apps.lr_profile",
+    "apps.glove_profile")}
 missing = sorted(want - set(names))
 print(len(names), "modules;", "leaked:", bad, "missing:", missing)
 sys.exit(1 if bad or missing or len(names) < 30 else 0)
@@ -64,6 +67,44 @@ def test_resolve_device_never_falls_back_to_cpu(monkeypatch):
         resolve_device("meta")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Word2Vec(config=ConfigParser(), device=None)
+
+
+def test_new_entry_points_refuse_the_cpu_unless_asked(monkeypatch, tmp_path):
+    """With no CUDA device, logistic regression, GloVe, the embedding
+    index and their CLIs raise unless the CPU is asked for by name."""
+    import numpy as np
+    from swiftmpi_tpu_torch.apps import glove_main, lr_main, w2v_eval
+    from swiftmpi_tpu_torch.models import (EmbeddingIndex, GloVe,
+                                           LogisticRegression)
+    from swiftmpi_tpu_torch.utils import reset_global_config
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    conf = {"cluster": {"server_num": 1, "transfer": "xla"}}
+    keys, vecs = np.arange(3, dtype=np.uint64), np.eye(3, dtype=np.float32)
+    for make in (lambda d: LogisticRegression(
+                     config=ConfigParser().update(conf), device=d),
+                 lambda d: GloVe(config=ConfigParser().update(conf),
+                                 device=d),
+                 lambda d: EmbeddingIndex(keys, vecs, device=d)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(None)
+        assert make("cpu").device == torch.device("cpu")
+    (tmp_path / "d.txt").write_text("1 1:1\n")
+    (tmp_path / "e.txt").write_text("1\t1 0\n2\t0 1\n")
+    (tmp_path / "c.txt").write_text("1 2 3\n")
+    reset_global_config()
+    try:
+        for main, argv in (
+                (lr_main.main, ["lr", "-mode", "train", "-dataset",
+                                str(tmp_path / "d.txt")]),
+                (glove_main.main, ["glove", "-data",
+                                   str(tmp_path / "c.txt")]),
+                (w2v_eval.main, ["eval", "-embeddings",
+                                 str(tmp_path / "e.txt"), "-query", "1"])):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                main(argv)
+            assert main(argv + ["-device", "cpu"]) == 0
+    finally:
+        reset_global_config()
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

@@ -336,6 +336,102 @@ def test_scatter_all_padding_gives_zeros():
     assert acc.shape == (1, CAP, D) and not acc.any() and not cnt.any()
 
 
+# -- width-1 rows at logistic regression's duplication -------------------------
+
+#: the LR push at the a9a shape lands ~930 contributions on each of its
+#: ~123 slots; here as many a slot over LR_CAP slots
+LR_CAP, LR_DUP = 16, 930
+
+
+def _lr_slots(rng):
+    """``LR_CAP * LR_DUP`` int32 slots, ~930 on each slot, ~5% padding
+    (-1, invalid), as ``where(mask, slots, -1)`` gives them."""
+    n = LR_CAP * LR_DUP
+    slots = rng.integers(0, LR_CAP, n).astype(np.int32)
+    valid = rng.random(n) >= 0.05
+    slots[~valid] = -1
+    return slots, valid
+
+
+def test_gather_width1_matches_pallas_loop_and_xla(monkeypatch):
+    """B2 on a ``(cap, 1)`` table (the LR weight column, the scalar form
+    on the card): bit for bit against the Pallas gather in interpret mode
+    and the xla rule, padding rows zero."""
+    rng = np.random.default_rng(60)
+    table = rng.random((LR_CAP, 1)).astype(np.float32)
+    slots, valid = _lr_slots(rng)
+    monkeypatch.setattr(pallas_gather, "gather_method", lambda: "loop")
+    monkeypatch.setattr(pallas_gather, "gather_idx_block", lambda: 128)
+    args = (jnp.asarray(table), jnp.asarray(slots), jnp.asarray(valid))
+    got = gather.masked_gather(torch.from_numpy(table),
+                               torch.from_numpy(slots),
+                               torch.from_numpy(valid)).numpy()
+    assert got.shape == (len(slots), 1)
+    np.testing.assert_array_equal(
+        got, np.asarray(pallas_gather.masked_vmem_gather(*args)))
+    np.testing.assert_array_equal(got, np.asarray(_masked_gather(*args)))
+    assert not got[~valid].any()
+
+
+def test_scatter_width1_lr_duplication_matches_pallas_and_numpy():
+    """B3 at width 1 with its counts, ~930 rows a slot: sums against
+    ``masked_vmem_scatter_add`` (interpret mode) and ``np.add.at`` within
+    rtol 1e-5, atol 1e-5 (930-term float32 sums in other orders); counts
+    exactly ``np.bincount``."""
+    rng = np.random.default_rng(61)
+    slots, valid = _lr_slots(rng)
+    g = rng.normal(size=(len(slots), 1)).astype(np.float32)
+    acc, cnt = scatter.masked_scatter_add(
+        torch.from_numpy(slots), torch.from_numpy(valid), torch.from_numpy(g),
+        LR_CAP, counts=True)
+    ok = valid & (slots >= 0)
+    want_np = np.zeros((LR_CAP, 1), np.float32)
+    np.add.at(want_np, slots[ok], g[ok])
+    want_pallas = np.asarray(masked_vmem_scatter_add(
+        jnp.asarray(slots), jnp.asarray(valid), jnp.asarray(g), LR_CAP))
+    for want in (want_np, want_pallas):
+        np.testing.assert_allclose(acc.numpy(), want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(cnt.numpy(),
+                                  np.bincount(slots[ok], minlength=LR_CAP))
+    assert cnt.numpy().min() > 800
+
+
+@pytest.mark.parametrize("form", ["table_div", "rows_mul"])
+def test_adagrad_width1_matches_pallas(form):
+    """B1 on width-1 rows as LR runs it: the table form with the mean's
+    divisor (the dense push) and the row form with its reciprocal (the
+    sparse push), against the scaled grad through the Pallas
+    ``adagrad_update`` in interpret mode; rtol 1e-6 as the wider forms."""
+    rng = np.random.default_rng(62)
+    p = rng.random((LR_CAP, 1)).astype(np.float32)
+    a = np.abs(rng.normal(size=(LR_CAP, 1))).astype(np.float32)
+    cnt = rng.integers(1, 1000, LR_CAP).astype(np.float32)
+    tp, ta = torch.from_numpy(p.copy()), torch.from_numpy(a.copy())
+    if form == "table_div":
+        g = rng.normal(size=(LR_CAP, 1)).astype(np.float32)
+        tgt = np.arange(LR_CAP)
+        scaled = g / cnt[:, None]
+        adagrad.adagrad_update_(tp, ta, torch.from_numpy(g), 0.05,
+                                div=torch.from_numpy(cnt))
+    else:
+        tgt = rng.permutation(LR_CAP)[:10].astype(np.int32)
+        g = rng.normal(size=(10, 1)).astype(np.float32)
+        inv = (1.0 / cnt[:10]).astype(np.float32)
+        scaled = g * inv[:, None]
+        adagrad.adagrad_update_rows_(tp, ta, torch.from_numpy(tgt), None,
+                                     torch.from_numpy(g), 0.05,
+                                     mul=torch.from_numpy(inv))
+    po, ao = pallas_adagrad(jnp.asarray(p[tgt]), jnp.asarray(a[tgt]),
+                            jnp.asarray(scaled), lr=0.05, interpret=True,
+                            block_rows=8)
+    np.testing.assert_allclose(ta.numpy()[tgt], np.asarray(ao), rtol=1e-6,
+                               atol=0)
+    np.testing.assert_allclose(tp.numpy()[tgt], np.asarray(po), rtol=1e-6,
+                               atol=1e-7)
+    other = np.setdiff1d(np.arange(LR_CAP), tgt)
+    np.testing.assert_array_equal(tp.numpy()[other], p[other])
+
+
 # -- B5: ring exchange -----------------------------------------------------------
 
 def _ring_operands(rng, n, tail, dtype):
