@@ -139,10 +139,30 @@ Phases, each of which raises on a failed check:
    ``w2v_eval`` on its dump, and ``w2v_eval`` on a word2vec dump, its
    neighbours on the card against the CPU.
 
+9. the hybrid transfer and the traffic ledger: bench.py's scale_hybrid
+   shape (``w2v_profile.SCALE_CONF``: 1,000,000 keys with bench.py's
+   counts, len_vec 100, stencil with a shared pool of 4,096, one shard;
+   the head calibrated at minibatch 5,000) through ``Word2Vec.train`` for
+   ``SCALE_STEPS`` steps of 16,384 centers, spans drawn from the
+   vocabulary's counts; B2 (the hot pull of a reference step's h and v
+   slots), B3 (their hot push onto ``(n_hot, 100)`` with counts), B1 over
+   the reference and scale_hybrid hot planes with the mean's reciprocal,
+   and B5 on the tail's rows, timed as in phase 2; one ``hybrid@8`` step
+   (gather, and stencil with the span pulled through the transfer) on the
+   card against the CPU, hot planes included, with ``HYBRID_STEP``'s
+   launches; ``Word2Vec.train`` of the reference configuration on
+   ``hybrid@8`` and on ``gather@8`` over the same batches with
+   ``count_traffic``, the hybrid run launching exactly ``HYBRID_STEP`` a
+   step and conserving rows (hybrid's ``routed_rows + hot_rows`` equals
+   tpu's ``routed_rows``); the hybrid table's npz (``n_hot``, ``@hot``
+   planes) reloaded on the card bit for bit, in place; and ``gather`` on
+   ``xla`` with ``inner_steps: 8`` whose graph replays book exactly the
+   ledger the plain loop books.
+
 The line before the last is the ``{"kernels": [...]}`` summary, each
 kernel's ``launches`` read from the train run of its path (the sent2vec
-cases from the sent2vec inference run, phase 8's from its paths' train
-runs); the last is
+cases from the sent2vec inference run, phase 8's and 9's from their
+paths' train runs); the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints neither.
 """
@@ -174,7 +194,9 @@ from swiftmpi_tpu_torch.apps.input_profile import (INPUT_RUNS, epoch_line,
 from swiftmpi_tpu_torch.apps.stencil_sweep import (batch_inputs,
                                                    context_sum_bytes)
 from swiftmpi_tpu_torch.apps.w2v_profile import (BATCH, DEMO_CONF,
-                                                 TEXT8_CORPUS, card_line)
+                                                 SCALE_BATCH, SCALE_CONF,
+                                                 TEXT8_CORPUS, ZipfSpans,
+                                                 card_line, scale_vocab)
 from swiftmpi_tpu_torch.data import native
 from swiftmpi_tpu_torch.data.libsvm import (iter_minibatches,
                                             synthetic_dataset, to_csr)
@@ -2258,6 +2280,290 @@ def phase_lr_glove(vocab, corpus: np.ndarray, card: str) -> tuple:
     return cases, counts
 
 
+# -- phase 9: the hybrid transfer and the traffic ledger ---------------------
+
+#: the hybrid paths: the reference configuration on ``transfer: hybrid``
+#: over SHARDS ranks (the frequency head in hot planes, the tail routed as
+#: on ``tpu``), and bench.py's scale_hybrid shape at one shard
+HYBRID = f"hybrid@{SHARDS}"
+SCALE = "scale_hybrid"
+#: launches a step of ``HYBRID``: the tpu path's (``SHARDED``) plus, for
+#: the head, one gather per pull, one scatter-add (counts included) and one
+#: AdaGrad over the hot plane per pushed family
+HYBRID_STEP = {k: v + (2 if k != "ring" else 0)
+               for k, v in SHARDED[f"gather@{SHARDS}"].items()}
+HYBRID_KERNELS = {"gather", "scatter", "adagrad", "ring"}
+#: scale_hybrid steps through ``Word2Vec.train``
+SCALE_STEPS = 6
+
+
+def _hybrid_model(rendering: str, vocab, device: str, conf=None,
+                  shards: int = SHARDS) -> Word2Vec:
+    """A ``transfer: hybrid`` model on ``shards`` ranks: the reference
+    configuration (``conf`` None) in ``rendering``, or ``conf``."""
+    if conf is None:
+        conf = ConfigParser().update(DEMO_CONF)
+        conf.set("word2vec", "stencil", int(rendering == "stencil"))
+    conf.set("cluster", "transfer", "hybrid")
+    conf.set("cluster", "server_num", shards)
+    model = Word2Vec(config=conf, device=device)
+    if model.transfer.name != "hybrid" or \
+            model.resolved_rendering != rendering:
+        raise AssertionError(f"hybrid {rendering} conf gave transfer "
+                             f"{model.transfer.name}, rendering "
+                             f"{model.resolved_rendering}")
+    model.build_from_vocab(vocab)
+    if not model.table.n_hot:
+        raise AssertionError("the hybrid model has no hot head")
+    return model
+
+
+def phase_kernels_hybrid(model: Word2Vec, batch, scale_n_hot: int) -> list:
+    """B1-B3 and B5 at the shapes one ``HYBRID`` gather step gives the
+    head and the tail: the hot pull of the h and v slots from the hot
+    planes (hot rows valid, tail rows zero), the hot push of their grads
+    onto ``(n_hot, 100)`` with counts (hundreds of contributions a slot),
+    AdaGrad over the hot plane with the mean's reciprocal, also over
+    scale_hybrid's ``(scale_n_hot, 100)`` plane, and the tail's row
+    exchange; each against its plain version."""
+    rng = np.random.default_rng(31)
+    dev, d = model.device, model.len_vec
+    flush = torch.zeros(2 * 50 * 2 ** 20 // 4, device=dev)
+    n_hot = model.table.n_hot
+    state = model.table.state
+    h_slots, v_slots = _step_inputs(model, batch, rng)
+    cases = []
+    for fam, slots in (("h", h_slots), ("v", v_slots)):
+        hot = ((slots >= 0) & (slots < n_hot)).contiguous()
+        cases.append(_gather_case(f"hybrid {fam} hot pull", state[fam + "@hot"],
+                                  slots, hot, flush, HYBRID))
+        cases.append(_scatter_case(f"hybrid {fam} hot push", HYBRID, slots,
+                                   hot, n_hot, d, rng, flush))
+    for label, rows, path in (("hybrid hot plane", n_hot, HYBRID),
+                              ("scale_hybrid hot plane", scale_n_hot, SCALE)):
+        param = torch.as_tensor(rng.normal(size=(rows, d)).astype(np.float32)
+                                * 0.1, device=dev)
+        accum = torch.as_tensor(rng.random((rows, d), np.float32) * 1e-3,
+                                device=dev)
+        grad = torch.as_tensor(rng.normal(size=(rows, d)).astype(np.float32)
+                               * 1e-2, device=dev)
+        inv = 1.0 / torch.as_tensor(rng.integers(1, 400, rows)
+                                    .astype(np.float32), device=dev)
+        cases.append(_adagrad_case(f"{label}, * 1/counts", path, param,
+                                   accum, grad, model.access.learning_rate,
+                                   flush, mul=inv))
+    C = h_slots.shape[0] // SHARDS
+    cases.append(_ring_case("hybrid tail h rows", (C, d), torch.float32, rng,
+                            flush, dev, path=HYBRID))
+    return cases
+
+
+def phase_step_parity_hybrid(rendering: str, vocab, batch) -> None:
+    """One ``HYBRID`` step (gather, or stencil with the span pulled
+    through the transfer) on the card against the same step on the CPU
+    from the same table, hot planes included, and the same draws: err_cnt
+    exact, err_sum within 1e-4, every field and hot plane within
+    ``_field_gap``'s tolerance, the head's kernels launched and the
+    stencil kernel not."""
+    model = _hybrid_model(rendering, vocab, "cuda")
+    cpu_model = _hybrid_model(rendering, vocab, "cpu")
+    cpu_model.table.state = _cpu_state(model.table.state, cpu_model)
+    B = len(batch)
+    draws = _draws(model, B, np.random.default_rng(12))
+    kernels.reset_launches()
+    es_c, ec_c = model.step_batch(batch, draws=draws)
+    counts = kernels.launch_counts()
+    es_p, ec_p = cpu_model.step_batch(
+        batch, draws=tuple(t.cpu() for t in draws))
+    if ec_c != ec_p or not math.isclose(es_c, es_p, rel_tol=1e-4):
+        raise AssertionError(f"hybrid {rendering} step: card ({es_c}, "
+                             f"{ec_c}), cpu ({es_p}, {ec_p})")
+    worst = {f: _field_gap(f"hybrid {rendering} step parity: field {f}",
+                           _global(v), _global(cpu_model.table.state[f]))
+             for f, v in model.table.state.items()}
+    if rendering == "gather" and counts != dict(HYBRID_STEP, stencil=0):
+        raise AssertionError(f"hybrid gather step launched {counts}, its "
+                             f"path is {HYBRID_STEP}")
+    if {k for k, n in counts.items() if n} != HYBRID_KERNELS:
+        raise AssertionError(f"hybrid {rendering} step launched {counts}")
+    if model.transfer.push_paths != cpu_model.transfer.push_paths:
+        raise AssertionError(f"hybrid {rendering} push paths "
+                             f"{model.transfer.push_paths} vs the CPU's "
+                             f"{cpu_model.transfer.push_paths}")
+    _json_line({"phase": "step_parity", "rendering": f"{rendering}:{HYBRID}",
+                "n_hot": model.table.n_hot, "centers": B,
+                "real_centers": batch.n_words, "err_sum": [es_c, es_p],
+                "err_cnt": [ec_c, ec_p], "gap": worst,
+                "envelope": "1e-5 + 1e-3*|cpu|",
+                "push_paths": dict(model.transfer.push_paths),
+                "launches": counts})
+
+
+def _traffic_keys(tr: dict) -> dict:
+    return {k: tr[k] for k in ("routed_rows", "hot_rows", "psum_bytes",
+                               "wire_bytes", "dispatches", "pull_rows",
+                               "pull_bytes", "pull_hot_rows")}
+
+
+def phase_train_hybrid(vocab, corpus: np.ndarray, card: str) -> dict:
+    """``Word2Vec.train`` of the reference configuration on ``HYBRID``
+    over gather@8's corpus prefix with ``count_traffic``, launching exactly
+    ``HYBRID_STEP`` a step, and ``gather@8`` (``tpu``) over the same
+    batches: hybrid's ``routed_rows + hot_rows`` must equal tpu's
+    ``routed_rows`` exactly.  Then (iv): the trained hybrid table's npz
+    (with ``n_hot`` and the ``@hot`` planes) restores into a fresh card
+    model bit for bit, in place."""
+    runs = {}
+    for path in (HYBRID, f"gather@{SHARDS}"):
+        model = (_hybrid_model("gather", vocab, "cuda") if path == HYBRID
+                 else _model(path, vocab, "cuda"))
+        model.transfer.count_traffic = True
+        batcher = CBOWBatcher(corpus[:PATHS[f"gather@{SHARDS}"][2]], vocab,
+                              model.window, model.sample, seed=2008)
+        kernels.reset_launches()
+        losses = model.train(batcher=batcher, niters=1, batch_size=BATCH)
+        runs[path] = (model, losses, kernels.launch_counts(),
+                      model.train_metrics)
+    hyb, losses, counts, m = runs[HYBRID]
+    tpu_m = runs[f"gather@{SHARDS}"][3]
+    want = {**dict.fromkeys(counts, 0),
+            **{k: v * m["steps"] for k, v in HYBRID_STEP.items()}}
+    if counts != want or not all(math.isfinite(x) for x in losses) \
+            or m["steps"] < MIN_TRAIN_STEPS:
+        raise AssertionError(f"{HYBRID} train: launches {counts} in "
+                             f"{m['steps']} steps, its path gives {want}; "
+                             f"loss {losses}")
+    th, tt = m["transfer_traffic"], tpu_m["transfer_traffic"]
+    if th["routed_rows"] + th["hot_rows"] != tt["routed_rows"] \
+            or th["overflow_dropped"] or ring.timeouts():
+        raise AssertionError(f"row conservation: hybrid {th}, tpu {tt}")
+    _json_line({"phase": "train", "rendering": HYBRID, "card": card,
+                "n_hot": hyb.table.n_hot, "loss": losses,
+                "tpu_loss": runs[f"gather@{SHARDS}"][1],
+                "steps": m["steps"], "words": m["words"],
+                "seconds": m["seconds"], "words_per_sec": m["words_per_sec"],
+                "tpu_words_per_sec": tpu_m["words_per_sec"],
+                "traffic": _traffic_keys(th),
+                "tpu_traffic": _traffic_keys(tt),
+                "routed_rows_ratio": tt["routed_rows"] / th["routed_rows"],
+                "push_paths": m["push_paths"], "launches": counts})
+    del runs
+    # (iv) the npz of a hybrid table, reloaded on the card
+    ck = str(WORK / "checkpoint" / "hybrid")
+    save_checkpoint(hyb.table, ck, extra={"iter": np.int64(1)})
+    with np.load(npz_path(ck)) as z:
+        saved = (int(z["n_hot"]), z["field__h@hot"].shape)
+    fresh = _hybrid_model("gather", vocab, "cuda")
+    ptrs = [t.data_ptr() for t in _tensors(fresh.table.state)]
+    if fresh.resume(ck) != 1 or ptrs != [
+            t.data_ptr() for t in _tensors(fresh.table.state)]:
+        raise AssertionError("hybrid resume: iteration or tensors moved")
+    _hold_equal("hybrid card save -> card load", fresh.table.state,
+                hyb.table.state)
+    if saved != (hyb.table.n_hot, (hyb.table.n_hot, hyb.len_vec)) or \
+            list(fresh.table.key_index.items()) != \
+            list(hyb.table.key_index.items()):
+        raise AssertionError(f"hybrid npz: n_hot and hot plane {saved}, "
+                             f"table n_hot {hyb.table.n_hot}")
+    _json_line({"phase": "checkpoint", "rendering": HYBRID, "card": card,
+                "n_hot": saved[0], "hot_plane": list(saved[1]),
+                "npz_bytes": os.path.getsize(npz_path(ck)),
+                "round_trip": "bit-exact card -> card, in place"})
+    shutil.rmtree(WORK / "checkpoint")
+    return counts
+
+
+def phase_train_scale(card: str) -> tuple:
+    """bench.py's scale_hybrid shape at one shard and full width
+    (``w2v_profile.SCALE_CONF``: 1,000,000 keys, len_vec 100, stencil with
+    a shared pool of 4,096) through ``Word2Vec.train`` for
+    ``SCALE_STEPS`` steps of ``SCALE_BATCH`` centers with spans drawn from
+    the vocabulary's counts (``ZipfSpans``), counting traffic: finite
+    loss, the hybrid kernels each launched every step, the stencil kernel
+    never.  Returns the launches and the head's size."""
+    t0 = time.perf_counter()
+    vocab = scale_vocab()
+    conf = ConfigParser().update(SCALE_CONF)
+    model = _hybrid_model("stencil_shared", vocab, "cuda", conf=conf,
+                          shards=1)
+    setup_s = time.perf_counter() - t0
+    model.transfer.count_traffic = True
+    batcher = ZipfSpans(vocab, model.window, SCALE_STEPS)
+    kernels.reset_launches()
+    losses = model.train(batcher=batcher, niters=1, batch_size=SCALE_BATCH)
+    counts = kernels.launch_counts()
+    m = model.train_metrics
+    tr = m["transfer_traffic"]
+    launched = {k for k, n in counts.items() if n}
+    if m["steps"] != SCALE_STEPS or launched != HYBRID_KERNELS or \
+            min(counts[k] for k in HYBRID_KERNELS) < SCALE_STEPS or \
+            not all(math.isfinite(x) for x in losses) or \
+            not tr["hot_rows"] or not tr["routed_rows"]:
+        raise AssertionError(f"{SCALE}: {m['steps']} steps, launches "
+                             f"{counts}, loss {losses}, traffic {tr}")
+    _json_line({"phase": "train", "rendering": SCALE, "card": card,
+                "vocab": len(vocab), "n_hot": model.table.n_hot,
+                "head_mass": model.table.key_index.partition.head_mass,
+                "capacity": model.table.capacity,
+                "setup_seconds": setup_s, "loss": losses,
+                "steps": m["steps"], "words": m["words"],
+                "seconds": m["seconds"], "words_per_sec": m["words_per_sec"],
+                "traffic": _traffic_keys(tr),
+                "hot_share_of_rows": tr["hot_rows"] / (
+                    tr["hot_rows"] + tr["routed_rows"]),
+                "push_paths": m["push_paths"], "launches": counts})
+    return counts, model.table.n_hot
+
+
+def phase_ledger_graphs(vocab, corpus: np.ndarray, card: str) -> None:
+    """(v) The ledger under CUDA graphs: ``gather`` on ``xla`` with
+    ``inner_steps: 8`` (graph replays) books exactly what the plain loop
+    books from the same table and generator seed."""
+    out = []
+    for worker in ({}, {"inner_steps": 8}):
+        model = _model("gather", vocab, "cuda", worker)
+        model.transfer.count_traffic = True
+        batcher = CBOWBatcher(corpus[:PATHS["gather"][2]], vocab,
+                              model.window, model.sample, seed=2008)
+        model.train(batcher=batcher, niters=1, batch_size=BATCH)
+        out.append(model.train_metrics)
+    plain, graphed = out
+    if not graphed["fused"] or graphed["graph_replays"] < 1 or \
+            graphed["transfer_traffic"] != plain["transfer_traffic"] or \
+            plain["transfer_traffic"]["dispatches"] != 2 * plain["steps"]:
+        raise AssertionError(f"ledger under graphs: "
+                             f"{graphed['transfer_traffic']} after "
+                             f"{graphed['graph_replays']} replays, plain "
+                             f"{plain['transfer_traffic']}")
+    _json_line({"phase": "ledger_graphs", "rendering": "gather",
+                "card": card, "inner_steps": 8,
+                "graph_replays": graphed["graph_replays"],
+                "steps": plain["steps"],
+                "traffic": {k: v for k, v in
+                            plain["transfer_traffic"].items() if v},
+                "equal": True})
+
+
+def phase_hybrid(vocab, corpus: np.ndarray, batch, sbatch,
+                 card: str) -> tuple:
+    """Phase 9: returns the kernel cases at the hybrid shapes and the
+    launches of the hybrid paths' train runs."""
+    t0 = time.perf_counter()
+    scale_counts, scale_n_hot = phase_train_scale(card)
+    torch.cuda.empty_cache()
+    counts = {SCALE: scale_counts}
+    ref = _hybrid_model("gather", vocab, "cuda")
+    cases = phase_kernels_hybrid(ref, batch, scale_n_hot)
+    del ref
+    report_cases(cases)
+    phase_step_parity_hybrid("gather", vocab, batch)
+    phase_step_parity_hybrid("stencil", vocab, sbatch)
+    counts[HYBRID] = phase_train_hybrid(vocab, corpus, card)
+    phase_ledger_graphs(vocab, corpus, card)
+    print(f"phase 9 {time.perf_counter() - t0:.1f} s", flush=True)
+    return cases, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2331,6 +2637,10 @@ def main() -> int:
     lr_cases, lr_counts = phase_lr_glove(vocab, corpus, card)
     cases += lr_cases
     counts.update(lr_counts)
+    hybrid_cases, hybrid_counts = phase_hybrid(vocab, corpus, batch, sbatch,
+                                               card)
+    cases += hybrid_cases
+    counts.update(hybrid_counts)
 
     summary = []
     for c in cases:

@@ -4,6 +4,7 @@ synthetic corpus, the configuration ``chip_smoke.py`` runs).
 
     python -m swiftmpi_tpu_torch.apps.w2v_profile [-steps 40] \\
         [-stencil 1] [-shared 1] [-sg 1] [-dense 1] [-shards 8] \\
+        [-transfer hybrid] [-traffic 1] [-vocab 1000000] \\
         [-dtype bfloat16] [-local_steps L] [-hogwild n] \\
         [-trace build/w2v_step_trace.json]
 
@@ -12,7 +13,21 @@ synthetic corpus, the configuration ``chip_smoke.py`` runs).
 (the ``stencil``, ``shared``, ``stencil_shared``, ``sg``, ``sg_shared``
 and ``dense`` renderings); the default is the gather rendering.
 ``-shards n`` runs the sharded parameter server (``[cluster] transfer:
-tpu``, ``server_num: n``) with its n ranks on the one card.  ``-dtype
+tpu``, ``server_num: n``) with its n ranks on the one card; ``-transfer
+hybrid`` runs the hybrid transfer instead (the frequency head in hot
+planes, the tail on ``-shards`` ranks, one without it).  ``-traffic 1``
+sets the transfer's ``count_traffic`` and reports the ledger's
+``traffic()`` delta of each of ``TRAFFIC_STEPS`` steps after the profiled
+window, beside ``ring_bytes_per_step`` (the ring's operand bytes).
+``-vocab 1000000`` runs bench.py's ``scale_hybrid`` shape instead of the
+reference one: 1,000,000 keys with bench.py's counts (``max(zipf(1.3) %
+1000, 1)``, seed 0), the stencil rendering with a shared pool of 4096,
+sample off, minibatch 5000 for the head's calibration, and stencil
+batches of ``SCALE_BATCH`` centers over spans of sentences of 500 tokens.
+bench.py draws the span tokens uniformly from the vocabulary, which sends
+about 6% of the rows to the head; here they are drawn from the
+vocabulary's own counts (``ZipfSpans``), so the head gets the traffic it
+was calibrated for.  ``-dtype
 bfloat16`` sets ``[server] dtype`` (bfloat16 h and v, float32
 accumulators).  ``-local_steps L`` runs the snapshot async mode (grads
 against a snapshot refreshed every L steps, as ``train`` runs it);
@@ -54,9 +69,12 @@ import time
 
 import torch
 
+import numpy as np
+
 from swiftmpi_tpu_torch.cluster import Cluster
-from swiftmpi_tpu_torch.data.text import (CBOWBatcher, build_vocab,
-                                          synthetic_corpus_bulk)
+from swiftmpi_tpu_torch.data.text import (CBOWBatcher, StencilBatch, Vocab,
+                                          build_vocab, synthetic_corpus_bulk)
+from swiftmpi_tpu_torch.kernels import ring
 from swiftmpi_tpu_torch.models.word2vec import (Word2Vec, _batch_fields,
                                                 _refresh, _snapshot)
 from swiftmpi_tpu_torch.utils import CMDLine, ConfigParser
@@ -75,6 +93,55 @@ DEMO_CONF = {
 BATCH = 5_000
 PROFILED_STEPS = 10
 WARM_STEPS = 5
+#: steps whose ledger deltas ``-traffic 1`` reports one by one
+TRAFFIC_STEPS = 4
+
+#: bench.py's scale_hybrid cell: its vocabulary, settings and batch
+SCALE_VOCAB = 1_000_000
+SCALE_CONF = {
+    "cluster": {"transfer": "hybrid", "server_num": 1},
+    "word2vec": {"len_vec": 100, "window": 4, "negative": 20, "sample": -1,
+                 "learning_rate": 0.05, "stencil": 1,
+                 "shared_negatives": 1, "shared_pool": 4096},
+    "server": {"initial_learning_rate": 0.7, "frag_num": 1000},
+    "worker": {"minibatch": 5000},
+}
+SCALE_BATCH = 16_384
+SENT_LEN = 500
+
+
+def scale_vocab(V: int = SCALE_VOCAB, seed: int = 0) -> Vocab:
+    """bench.py's ``build_w2v_1m_model`` vocabulary: keys 1..V, counts
+    ``max(zipf(1.3) % 1000, 1)`` from ``default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    counts = np.maximum(rng.zipf(1.3, size=V) % 1000, 1).astype(np.int64)
+    return Vocab(keys=np.arange(1, V + 1, dtype=np.uint64), counts=counts)
+
+
+class ZipfSpans:
+    """Stencil batches at the scale shape: ``B`` centers at positions
+    ``W .. W + B - 1`` of a span of ``S = B + 2W`` tokens, sentences of
+    ``SENT_LEN`` tokens, per-center halves uniform in ``1 .. W`` (bench.py's
+    spans), the tokens drawn from the vocabulary's counts.  An ``epoch``
+    yields ``n_batches`` batches; the stream is seeded."""
+
+    def __init__(self, vocab: Vocab, window: int, n_batches: int,
+                 seed: int = 1):
+        self.vocab, self.window, self.n_batches = vocab, window, n_batches
+        cdf = np.cumsum(vocab.counts, dtype=np.float64)
+        self._cdf = cdf / cdf[-1]
+        self._rng = np.random.default_rng(seed)
+
+    def epoch_stencil(self, B: int):
+        W, rng = self.window, self._rng
+        S = B + 2 * W
+        sent_id = (np.arange(S) // SENT_LEN).astype(np.int32)
+        center_pos = (W + np.arange(B)).astype(np.int32)
+        for _ in range(self.n_batches):
+            tokens = np.searchsorted(self._cdf, rng.random(S),
+                                     side="right").astype(np.int32)
+            half = rng.integers(1, W + 1, size=B).astype(np.int32)
+            yield StencilBatch(tokens, sent_id, center_pos, half, B)
 
 
 def card_line() -> str:
@@ -123,23 +190,30 @@ def _host_by_op(prof, top: int = 12):
 def profile(steps: int = 40, trace: str = "", stencil: int = 0,
             shared: int = 0, shards: int = 0,
             dtype: str = "float32", sg: int = 0, dense: int = 0,
-            local_steps: int = 1, hogwild: int = 0) -> dict:
+            local_steps: int = 1, hogwild: int = 0, transfer: str = "",
+            traffic: int = 0, vocab_size: int = 0) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("w2v_profile measures the card; no CUDA device "
                            "is available")
     torch.backends.cuda.matmul.allow_tf32 = False
-    corpus = synthetic_corpus_bulk(**TEXT8_CORPUS)
-    vocab = build_vocab(corpus)
-    config = ConfigParser().update(DEMO_CONF)
-    config.set("word2vec", "stencil", stencil)
-    config.set("word2vec", "shared_negatives", shared)
+    batch_size = BATCH
+    if vocab_size:
+        corpus, vocab = None, scale_vocab(vocab_size)
+        config = ConfigParser().update(SCALE_CONF)
+        batch_size = SCALE_BATCH
+    else:
+        corpus = synthetic_corpus_bulk(**TEXT8_CORPUS)
+        vocab = build_vocab(corpus)
+        config = ConfigParser().update(DEMO_CONF)
+        config.set("word2vec", "stencil", stencil)
+        config.set("word2vec", "shared_negatives", shared)
     config.set("server", "dtype", dtype)
     config.set("word2vec", "sg", sg)
     config.set("word2vec", "dense_logits", dense)
     config.set("word2vec", "local_steps", local_steps)
-    if shards:
-        config.set("cluster", "transfer", "tpu")
-        config.set("cluster", "server_num", shards)
+    if shards or transfer:
+        config.set("cluster", "transfer", transfer or "tpu")
+        config.set("cluster", "server_num", shards or 1)
     cluster = None
     # whole hogwild groups: the warm-up, the timed steps and the window
     group = 1
@@ -152,13 +226,17 @@ def profile(steps: int = 40, trace: str = "", stencil: int = 0,
     warm = -(-WARM_STEPS // group) * group
     steps = -(-steps // group) * group
     n_window = -(-PROFILED_STEPS // group) * group
-    need = warm + steps + n_window
-    batcher = CBOWBatcher(corpus, vocab, model.window, model.sample,
-                          seed=2008)
+    need = warm + steps + n_window + (TRAFFIC_STEPS if traffic else 0)
+    if vocab_size:
+        batcher = ZipfSpans(vocab, model.window, need)
+    else:
+        batcher = CBOWBatcher(corpus, vocab, model.window, model.sample,
+                              seed=2008)
+    model.transfer.count_traffic = bool(traffic)
     t0 = time.perf_counter()
     batches = []
     epoch = batcher.epoch_stencil if model.stencil else batcher.epoch
-    for b in epoch(BATCH):
+    for b in epoch(batch_size):
         batches.append(b)
         if len(batches) == need:
             break
@@ -193,13 +271,15 @@ def profile(steps: int = 40, trace: str = "", stencil: int = 0,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     timed = batches[warm:warm + steps]
+    ring0 = ring.operand_bytes
     t0 = time.perf_counter()
     run(timed)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / steps
+    ring_bytes = (ring.operand_bytes - ring0) / steps
     words = sum(b.n_words for b in timed)
 
-    window = batches[warm + steps:]
+    window = batches[warm + steps:warm + steps + n_window]
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -212,11 +292,21 @@ def profile(steps: int = 40, trace: str = "", stencil: int = 0,
     host_by_op, host_calls = _host_by_op(prof)
     if trace:
         prof.export_chrome_trace(trace)
+    per_step = []
+    for b in batches[warm + steps + n_window:]:
+        # one traffic() read a step, after the timed and profiled steps
+        before = model.transfer.traffic()
+        run([b])
+        per_step.append({k: v for k, v in model.transfer.traffic_delta(
+            before).items() if v})
     return {
         "card": card_line(), "rendering": model.resolved_rendering,
         "local_steps": local_steps, "async_mode": model.async_mode,
         "workers": len(model.cluster.devices) if hogwild else 0,
-        "steps": steps, "batch": BATCH,
+        "steps": steps, "batch": batch_size,
+        "n_hot": model.table.n_hot,
+        "ring_bytes_per_step": ring_bytes,
+        "traffic_per_step": per_step,
         "transfer": model.transfer.name, "shards": model.cluster.n_servers,
         "centers_per_batch": words / steps,
         "vocab": len(vocab), "capacity": model.table.capacity,
@@ -260,6 +350,12 @@ def main(argv=None) -> int:
                           "with -hogwild, the batches a worker trains")
     cmd.registerParameter("hogwild", "n: hogwild with n workers on the "
                           "card")
+    cmd.registerParameter("transfer", "tpu (default with -shards) or "
+                          "hybrid")
+    cmd.registerParameter("traffic", "1: count the transfer's traffic and "
+                          "print each of a few steps' ledger deltas")
+    cmd.registerParameter("vocab", "1000000: bench.py's scale_hybrid "
+                          "shape")
     out = profile(int(cmd.getValue("steps", "40")),
                   cmd.getValue("trace", ""),
                   int(cmd.getValue("stencil", "0")),
@@ -269,7 +365,10 @@ def main(argv=None) -> int:
                   int(cmd.getValue("sg", "0")),
                   int(cmd.getValue("dense", "0")),
                   int(cmd.getValue("local_steps", "1")),
-                  int(cmd.getValue("hogwild", "0")))
+                  int(cmd.getValue("hogwild", "0")),
+                  cmd.getValue("transfer", ""),
+                  int(cmd.getValue("traffic", "0")),
+                  int(cmd.getValue("vocab", "0")))
     print(json.dumps(out), flush=True)
     return 0
 

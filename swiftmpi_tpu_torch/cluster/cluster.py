@@ -11,9 +11,12 @@ Config surface (reference cluster.h:13-25 + demo.conf):
 
 * ``server_num`` — number of table shards; absent means one per visible
   device.
-* ``transfer`` — ``xla`` (one device, no routing) or ``tpu`` (the sharded
+* ``transfer`` — ``xla`` (one device, no routing), ``tpu`` (the sharded
   parameter server: bucketed request/response routing between
-  ``server_num`` ranks).  ``hybrid`` and ``local`` are not ported.
+  ``server_num`` ranks), ``hybrid`` (the same rank layout as ``tpu`` for
+  the tail, the frequency head in hot planes; ``create_table(...,
+  partition=)`` gives a table its head) or ``local`` (the numpy oracle,
+  no layout).
 * ``[server] frag_num`` — hashfrag granularity.
 * ``data_plane`` — ``auto``/``pallas`` run the hand-written kernels;
   ``xla`` (the JAX package's library route) is not ported.
@@ -67,12 +70,14 @@ class Cluster:
         if self.data_plane not in DATA_PLANE_MODES:
             raise ValueError(f"[cluster] data_plane must be one of "
                              f"{DATA_PLANE_MODES}, got {self.data_plane!r}")
-        if backend == "tpu":
-            # explicit routing: every rank is worker + server
+        if backend in ("tpu", "hybrid"):
+            # explicit routing: every rank is worker + server; hybrid's
+            # tail IS the tpu routing
             self.mesh = ps_mesh(n_servers, devices)
             if len(self.mesh.distinct_devices) > 1:
                 raise NotImplementedError(
-                    f"transfer: tpu over {len(self.mesh.distinct_devices)} "
+                    f"transfer: {backend} over "
+                    f"{len(self.mesh.distinct_devices)} "
                     "devices: shards on different cards are not ported yet "
                     "(ROADMAP A11); pass one device")
             kwargs = {"mesh": self.mesh, "data_plane": self.data_plane}
@@ -102,11 +107,15 @@ class Cluster:
 
     # -- tables ------------------------------------------------------------
     def create_table(self, name: str, access: AccessMethod,
-                     capacity_per_shard: int, seed: int = 0) -> SparseTable:
+                     capacity_per_shard: int, seed: int = 0,
+                     partition=None) -> SparseTable:
+        """``partition``: an optional ``HotColdPartition`` that gives the
+        table a hot head (``transfer: hybrid``); tail keys keep the
+        hashfrag-sharded layout."""
         if not self._initialized:
             raise RuntimeError("Cluster.initialize() first")
         ki = KeyIndex(self.n_servers, capacity_per_shard,
-                      hashfrag=self.hashfrag)
+                      hashfrag=self.hashfrag, partition=partition)
         table = SparseTable(access, ki, self.device, seed=seed,
                             mesh=self.mesh)
         self.tables[name] = table

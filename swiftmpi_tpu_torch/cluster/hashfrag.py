@@ -8,7 +8,10 @@ blocks.  The indirection (key -> frag -> shard) is what lets a re-sharding
 move fragments without rehashing keys.  Shard ids are 0-based rank
 indices; ``to_node_id`` keeps the reference's 1-based server numbering.
 Routing is vectorized over numpy key arrays on the host.
-``serialize``/``deserialize`` wait for the binary buffer (ROADMAP A13).
+``split_route`` puts a hybrid table's frequency partition before the
+hash rule; ``shard_load_histogram`` and ``expected_unique_rows`` size a
+key stream's load.  ``serialize``/``deserialize`` wait for the binary
+buffer (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -59,3 +62,37 @@ class HashFrag:
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"HashFrag(shards={self.num_shards}, frags={self.num_frags})"
+
+
+def shard_load_histogram(hashfrag: HashFrag, keys,
+                         weights=None) -> np.ndarray:
+    """Per-shard request load of a key stream: how many of ``keys``
+    (optionally weighted, e.g. by frequency counts) each shard owns."""
+    shards = hashfrag.to_shard_id(keys)
+    w = None if weights is None else np.asarray(weights, np.float64)
+    return np.bincount(shards, weights=w, minlength=hashfrag.num_shards)
+
+
+def expected_unique_rows(counts, rows: int) -> float:
+    """Expected number of distinct keys among ``rows`` draws from the
+    frequency histogram ``counts``: ``sum_k 1 - (1 - p_k)^rows``, through
+    ``expm1``/``log1p`` so the Zipf head does not underflow."""
+    c = np.asarray(counts, np.float64).ravel()
+    total = c.sum()
+    if total <= 0 or rows <= 0:
+        return 0.0
+    p = c / total
+    return float(np.sum(-np.expm1(rows * np.log1p(-np.minimum(p, 1.0)))))
+
+
+def split_route(hashfrag: HashFrag, partition, keys):
+    """Hybrid hot/cold routing: each key resolves to a hot slot (the
+    replicated head, no shard owner) or to its hash-owned shard.  Returns
+    ``(hot_slots, shard_ids)``: a hot key has shard id -1, a tail key hot
+    slot -1.  ``partition=None`` is pure hash routing."""
+    keys = np.asarray(keys, dtype=np.uint64)
+    shards = hashfrag.to_shard_id(keys).astype(np.int64)
+    if partition is None:
+        return np.full(keys.shape, -1, dtype=np.int64), shards
+    hot = partition.hot_slot(keys)
+    return hot, np.where(hot >= 0, -1, shards)

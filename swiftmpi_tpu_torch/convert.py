@@ -23,18 +23,20 @@ import numpy as np
 import torch
 
 from swiftmpi_tpu_torch.parameter.sparse_table import (  # noqa: F401
-    TableState, split_rows, state_to_numpy, tensor_to_numpy)
+    TableState, is_hot_field, split_rows, state_to_numpy, tensor_to_numpy)
 
 
 def state_from_jax(np_state: Dict[str, np.ndarray], device,
                    mesh=None) -> TableState:
     """Copies of the numpy arrays as contiguous tensors on ``device``, or,
     with ``mesh``, as per-shard tensors on its ranks' devices (global row
-    order: shard ``s`` takes rows ``s * cap_per_shard`` onwards)."""
+    order: shard ``s`` takes rows ``s * cap_per_shard`` onwards); a hot
+    plane (``f@hot``) stays one tensor on ``device`` either way."""
     out = {}
     for f, a in np_state.items():
         t = tensor_from_numpy(a)
-        out[f] = t.to(device) if mesh is None else split_rows(t, mesh)
+        out[f] = (t.to(device) if mesh is None or is_hot_field(f)
+                  else split_rows(t, mesh))
     return out
 
 

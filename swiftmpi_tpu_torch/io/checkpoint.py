@@ -20,14 +20,18 @@ file written by either package loads in the other:
   each array with a ``__crc__<name>`` CRC32; written atomically (a
   pid-unique tmp, fsync, rename, directory fsync) with an optional last-k
   generation window.  bfloat16 fields are saved upcast to float32 and cast
-  back on load (exact).  A sharded table is saved as its global array.
-  ``load_checkpoint`` copies into the table's existing tensors, so their
-  addresses do not move (a captured CUDA graph stays valid); only a
-  checkpoint of a larger capacity replaces them.
+  back on load (exact).  A sharded table is saved as its global array; a
+  hybrid table's hot planes as ``field__<f>@hot`` beside the tail, with
+  ``n_hot`` (a load refuses another ``n_hot``: the partition is fixed at
+  vocab build).  ``load_checkpoint`` copies into the table's existing
+  tensors, so their addresses do not move (a captured CUDA graph stays
+  valid); only a checkpoint of a larger capacity replaces them.
 
-The JAX package's ``@hot`` head, ``@ef`` residual planes and ``@rowver``
-version plane are not ported (ROADMAP A12): a checkpoint that carries
-them raises ``NotImplementedError``.
+Text dumps and loads index the unified slot space (hot rows first), so a
+hybrid table's dump is the same file as any other's.  The JAX package's
+``@ef`` residual planes and ``@rowver`` version plane are not ported
+(ROADMAP A12c/d): a checkpoint that carries them raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ import numpy as np
 import torch
 
 from swiftmpi_tpu_torch.parameter.key_index import CapacityError
-from swiftmpi_tpu_torch.parameter.sparse_table import (SparseTable,
+from swiftmpi_tpu_torch.parameter.sparse_table import (SparseTable, hot_name,
                                                        tensor_to_numpy)
 from swiftmpi_tpu_torch.utils.logger import get_logger
 
@@ -103,7 +107,8 @@ def dump_table_text(table: SparseTable, path: str,
     method's pull fields), each a space-joined float vector, tab-separated,
     written by the native C++ writer when its library builds (else by
     ``default_formatter``).  A ``formatter`` gets every field's row.
-    bfloat16 fields are upcast to float32 first, exactly."""
+    bfloat16 fields are upcast to float32 first, exactly.  Rows come from
+    the unified view (hot rows first), which the slots index."""
     fields = tuple(fields or table.access.pull_fields)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     if formatter is None:
@@ -111,11 +116,12 @@ def dump_table_text(table: SparseTable, path: str,
         if native.available():
             keys, slots = _index_arrays(table.key_index)
             idx = torch.from_numpy(slots).to(table.device)
-            arrs = [tensor_to_numpy(table.global_rows(f)[idx], upcast=True)
+            arrs = [tensor_to_numpy(table.unified_rows(f, idx), upcast=True)
                     for f in fields]
             return native.dump_rows_native(path, keys, arrs)
         formatter = default_formatter(fields)
-    rows = table.to_numpy(upcast=True)
+    rows = {f: table.unified_rows_host(f, upcast=True)
+            for f in table.access.fields}
     n = 0
     with open(path, "w") as f:
         for key, slot in table.key_index.items():
@@ -174,10 +180,19 @@ def _load_rows(table: SparseTable, keys: np.ndarray,
         blocks = {f: b[keep] for f, b in blocks.items()}
     if not len(keys):
         return 0
-    slots = _lookup_growing(table, keys)
+    slots = _lookup_growing(table, keys).astype(np.int64)
+    n_hot = table.n_hot
+    hot = slots < n_hot
     for fname, block in blocks.items():
-        table.write_rows(fname, slots, torch.from_numpy(
-            np.ascontiguousarray(block, np.float32).reshape(len(keys), -1)))
+        rows = torch.from_numpy(
+            np.ascontiguousarray(block, np.float32).reshape(len(keys), -1))
+        # unified slots: the hot plane below n_hot, the tail re-based
+        if hot.any():
+            table.write_rows(hot_name(fname), slots[hot],
+                             rows[torch.from_numpy(hot)])
+        if not hot.all():
+            table.write_rows(fname, slots[~hot] - n_hot,
+                             rows[torch.from_numpy(~hot)])
     return len(keys)
 
 
@@ -194,8 +209,8 @@ _TMP_SWEEP_FORCE_AGE_S = 7 * 86400.0
 # can detect torn or bit-rotted writes (np.load checks no zip CRC)
 _CRC_PREFIX = "__crc__"
 
-#: the JAX package's planes the port does not have (ROADMAP A12)
-_UNPORTED_PLANES = ("@hot", "@ef", "@rowver")
+#: the JAX package's planes the port does not have (ROADMAP A12c/d)
+_UNPORTED_PLANES = ("@ef", "@rowver")
 
 
 def npz_path(path: str) -> str:
@@ -379,7 +394,9 @@ def save_checkpoint(table: SparseTable, path: str,
     payload["num_shards"] = np.int64(table.key_index.num_shards)
     payload["capacity_per_shard"] = np.int64(
         table.key_index.capacity_per_shard)
-    payload["n_hot"] = np.int64(0)          # no hot head in the port
+    # the hot-head size travels with the checkpoint, so a load can refuse
+    # a table built under another frequency split
+    payload["n_hot"] = np.int64(table.n_hot)
     for k, v in (extra or {}).items():
         payload[f"extra__{k}"] = np.asarray(v)
     dst = npz_path(path)
@@ -410,14 +427,20 @@ def load_checkpoint(table: SparseTable, path: str,
                  if n.startswith("field__")]
         planes = sorted(n for n in names if any(p in n
                                                 for p in _UNPORTED_PLANES))
-        if n_hot or planes:
+        if planes:
             raise NotImplementedError(
-                f"checkpoint carries n_hot={n_hot} and planes {planes}: the "
-                "hot/cold partition, error-feedback and row-version planes "
-                "are not ported yet (ROADMAP A12)")
-        if set(names) != set(table.access.fields):
+                f"checkpoint carries planes {planes}: the error-feedback "
+                "and row-version planes are not ported yet (ROADMAP "
+                "A12c/d)")
+        if n_hot != table.n_hot:
+            raise ValueError(
+                f"checkpoint has n_hot={n_hot}, table has "
+                f"n_hot={table.n_hot}: the hot/cold partition is fixed at "
+                "vocab build; rebuild the model under the same frequency "
+                "split before restoring")
+        if set(names) != set(table.state):
             raise ValueError(f"checkpoint fields {sorted(names)} do not "
-                             f"match the table's {sorted(table.access.fields)}")
+                             f"match the table's {sorted(table.state)}")
         saved_cap = int(z["capacity_per_shard"])
         if saved_cap < ki.capacity_per_shard:
             raise ValueError(

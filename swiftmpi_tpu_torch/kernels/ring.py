@@ -55,6 +55,9 @@ from swiftmpi_tpu_torch.kernels import build
 #: exchanges launched on a card since the last reset: each is one launch
 #: of the send kernel and one of the wait kernel, from one C call
 launches = 0
+#: bytes of the operands the launches exchanged (every rank's ``(n, C,
+#: ...)`` blocks, its own block included) since the process began
+operand_bytes = 0
 
 _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
@@ -165,7 +168,7 @@ def ring_exchange_stacked(x: torch.Tensor) -> torch.Tensor:
     for rank ``j``; every slice contiguous, the ranks at any one stride.
     Returns the n results as one contiguous ``(n, n, C, ...)`` tensor:
     ``result[r, j] = x[j, r]``."""
-    global launches
+    global launches, operand_bytes
     n = _check_stacked(x)
     kind = x.device.type
     if kind == "cpu":
@@ -202,6 +205,7 @@ def ring_exchange_stacked(x: torch.Tensor) -> torch.Tensor:
                        torch.cuda.current_stream(x.device).cuda_stream)
     build.check_launch("ring_exchange", rc)
     launches += 1
+    operand_bytes += x.numel() * es
     return out
 
 

@@ -27,8 +27,10 @@ each through the transfer: sparse below half the table's capacity (B1's
 row-indexed form per family), else dense (B3 and B1's table form per
 family).  On a CUDA device with ``transfer: xla`` a group is one replay of
 a captured CUDA graph (``utils/graphs.py``), the counterpart of the JAX
-package's ``lax.scan``; elsewhere its steps run one by one.
-``[worker] pipeline: K`` stages groups K ahead on a producer thread with
+package's ``lax.scan``; elsewhere its steps run one by one.  ``transfer:
+tpu`` routes through the sharded server; ``hybrid`` builds the table with
+no partition, as the JAX package does, so it is the ``tpu`` path bit for
+bit.  ``[worker] pipeline: K`` stages groups K ahead on a producer thread with
 pinned copies to the card (``io/pipeline.py``); the permutations stay on
 the consumer, in epoch order, so results do not depend on K.  The loss
 sums stay on the device and are read once an epoch.
@@ -234,7 +236,8 @@ class GloVe:
         replay when ``graphs`` (after a warm-up and capture on the first
         group of a length), else the steps one by one.  Returns the
         ``(loss,)`` outputs and whether the group was a replay."""
-        key = graph_key(self.table) if graphs else self._graph_key
+        key = ((graph_key(self.table), self.transfer.count_traffic)
+               if graphs else self._graph_key)
         if key != self._graph_key:
             self._graphs, self._graph_key = {}, key
         return run_group(

@@ -47,7 +47,10 @@ again.
 With ``transfer: tpu`` (``server_num: n``) the pulls and pushes route
 through the sharded parameter server, n ranks on the one card, and a
 group runs its steps one by one (the ring's epoch is a host counter a
-replay would repeat).  Configurations not ported raise
+replay would repeat).  ``transfer: hybrid`` builds the table with no
+partition (LR has no frequency histogram up front, as in the JAX
+package): ``n_hot = 0``, the ``tpu`` path bit for bit (batches padded to
+the rank count).  Configurations not ported raise
 ``NotImplementedError`` naming the ROADMAP item.
 """
 
@@ -233,7 +236,8 @@ class LogisticRegression:
                 core, dtypes = self._step_core, _SPARSE_DTYPES
             if len(entries) == inner and inner > 1:
                 # the table's tensors and generation, and the step's shape
-                key = (graph_key(self.table), F, dense)
+                key = (graph_key(self.table), F, dense,
+                       self.transfer.count_traffic)
                 if key != self._graph_key:
                     self._graphs, self._graph_key = {}, key
                 stacked = self._on_device(

@@ -44,7 +44,15 @@ With ``transfer: tpu`` (every rendering but the stencil ones and
 ``dense``, as in the JAX package) the step's arithmetic still runs once
 over the whole batch, as the jitted JAX step does over global arrays;
 only the pulls and pushes are per rank, routed by
-``transfer/sharded.py``.
+``transfer/sharded.py``.  ``transfer: hybrid`` (every rendering but
+``dense``) calibrates a ``HotColdPartition`` from the vocab's counts in
+``build_from_vocab`` and routes the tail as ``tpu`` does, the head
+through the hot planes (``transfer/hybrid.py``); its stencil renderings
+pull the span through the transfer and sum the context rows with torch
+ops, the JAX package's non-fused path (the stencil kernel reads one
+table tensor, which a hybrid table does not have).  With the transfer's
+``count_traffic`` set, ``train_metrics["transfer_traffic"]`` carries its
+``traffic()``.
 
 Two async modes, as in the JAX package's ``train``:
 
@@ -111,7 +119,8 @@ from swiftmpi_tpu_torch.ops.sampling import (alias_draws,
                                              sample_alias_slots_from_draws)
 from swiftmpi_tpu_torch.ops.sigmoid import sigmoid_clipped
 from swiftmpi_tpu_torch.parameter import SparseTable, w2v_access
-from swiftmpi_tpu_torch.parameter.sparse_table import shard_block
+from swiftmpi_tpu_torch.parameter.key_index import HotColdPartition
+from swiftmpi_tpu_torch.parameter.sparse_table import hot_name, shard_block
 from swiftmpi_tpu_torch.testing import faults
 from swiftmpi_tpu_torch.transfer import PushSpec
 from swiftmpi_tpu_torch.utils.config import (UNPORTED_SECTIONS, ConfigParser,
@@ -264,11 +273,12 @@ def _shared_ns(neu1, h_pos, h_neg, centers, negs, row_valid, alpha,
 
 
 def _snapshot(state, fields, mesh) -> dict:
-    """A copy of ``fields`` of a table state.  A sharded field's copy
-    keeps the shards of each device one block (``shard_block``), as the
-    sharded transfer reads them."""
+    """A copy of ``fields`` of a table state, their hot planes included.
+    A sharded field's copy keeps the shards of each device one block
+    (``shard_block``), as the sharded transfer reads them."""
     out = {}
-    for f in fields:
+    for f in (*fields, *(hot_name(f) for f in fields
+                         if hot_name(f) in state)):
         v = state[f]
         if not isinstance(v, list):
             out[f] = v.clone()
@@ -461,16 +471,16 @@ class Word2Vec:
              "[cluster] data_plane: xla with stencil (the device-kind "
              "verdict store)", "A16")
         want(g("cluster", "push_window", 1).to_int32() > 1,
-             "[cluster] push_window > 1", "A12")
+             "[cluster] push_window > 1", "A12c")
         for key in ("wire_quant", "pull_quant"):
             want(g("cluster", key, "off").to_string() != "off",
-                 f"[cluster] {key}", "A12")
+                 f"[cluster] {key}", "A12d")
         want(g("cluster", "pull_cache", 0).to_int32() != 0,
-             "[cluster] pull_cache", "A12")
+             "[cluster] pull_cache", "A12d")
         want(g("cluster", "wire_sketch", 0).to_int32() != 0,
-             "[cluster] wire_sketch", "A12")
+             "[cluster] wire_sketch", "A12d")
         want(g("cluster", "collective", "psum").to_string() != "psum",
-             "[cluster] collective other than psum", "A12")
+             "[cluster] collective other than psum", "A12d")
         want(transfer == "tpu" and data_plane == "xla",
              "[cluster] data_plane: xla with transfer: tpu (the library "
              "exchange)", "A16")
@@ -497,7 +507,18 @@ class Word2Vec:
         if self.table is None:
             cap = self._capacity_per_shard or max(
                 64, int(V * 1.3 / self.cluster.n_servers) + 1)
-            self.table = self.cluster.create_table("w2v", self.access, cap)
+            partition = None
+            if self.transfer.name == "hybrid":
+                # the measured frequency head goes to the hot planes; the
+                # minibatch sizes the calibration's dense/sparse crossover
+                partition = HotColdPartition.from_counts(
+                    vocab.keys, vocab.counts, batch_rows=self.minibatch)
+                log.info("hybrid placement: %d hot keys (%.1f%% of token "
+                         "mass); %d tail keys sharded", partition.n_hot,
+                         100 * (partition.head_mass or 0.0),
+                         V - partition.n_hot)
+            self.table = self.cluster.create_table(
+                "w2v", self.access, cap, partition=partition)
         slots = self.table.key_index.lookup(vocab.keys)
         self._slot_of_vocab = torch.as_tensor(slots, dtype=torch.int32,
                                               device=self.device)
@@ -694,8 +715,15 @@ class Word2Vec:
                     & (sent_id[ci] == sent_id[cp][:, None])
                     & (self._offsets.abs()[None, :] <= half[:, None])
                     & row_valid[:, None])
-        neu1 = stencil_context_sum(state["v"], span_slots, sent_id,
-                                   center_pos, half, self.window)
+        if self.transfer.name == "xla":
+            neu1 = stencil_context_sum(state["v"], span_slots, sent_id,
+                                       center_pos, half, self.window)
+        else:
+            # hybrid: the span's rows through the transfer (hot and tail
+            # planes), the masked context sum as the JAX package's own
+            # non-fused path sums them
+            v_span = self._pull(state, span_slots, "v")           # (S, d)
+            neu1 = torch.sum(v_span[ci] * ctx_mask[..., None], dim=1)
         if self.shared_negatives:
             negs = sample_alias_from_draws(draws[0], draws[1],
                                            self._alias_prob, self._alias_idx)
@@ -920,11 +948,13 @@ class Word2Vec:
 
     def _graph_key(self) -> tuple:
         """The addresses a captured graph reads and writes: the table's
-        tensors and the sampler's, and the table's growth generation.  A
-        table or vocab set since the capture (``table.state = ...``,
-        ``build_from_vocab``, ``SparseTable.grow``) needs new graphs."""
+        tensors and the sampler's, and the table's growth generation; and
+        whether the step books the traffic ledger.  A table or vocab set
+        since the capture (``table.state = ...``, ``build_from_vocab``,
+        ``SparseTable.grow``) or ``count_traffic`` switched needs new
+        graphs."""
         return graph_key(self.table, self._slot_of_vocab, self._alias_prob,
-                         self._alias_idx)
+                         self._alias_idx) + (self.transfer.count_traffic,)
 
     def _run_group(self, fields, graphs: bool, draws, es_q: _LossAccum,
                    ec_q: _LossAccum) -> bool:
@@ -1140,6 +1170,9 @@ class Word2Vec:
             "epoch_err": err}
         if pipe_stats is not None:
             self.train_metrics["pipeline"] = pipe_stats
+        if self.transfer.count_traffic:
+            # the ledger's totals, read once the run is done
+            self.train_metrics["transfer_traffic"] = self.transfer.traffic()
         return losses
 
     def _hogwild_epoch(self, batcher, batch_size: int, draws, meter,

@@ -7,57 +7,225 @@ touch, the lazy row creation of the reference's ``dense_hash_map``:
 
     slot = shard * capacity_per_shard + local
 
-These are exactly the slots the JAX ``KeyIndex`` assigns (no hot head), so
-a table state carries across the two frameworks row for row.  ``grow``
-re-strides every slot to a larger per-shard capacity and ``restore``
-rebuilds the index from a checkpoint's ``(key, slot)`` pairs, as in the
-JAX package; the hot/cold partition and ``repartition`` are not ported
-yet (ROADMAP A12).
+The batch probe is the JAX module's vectorized open-addressing hash
+(linear probing, a power-of-two size, grown at half load) over numpy
+arrays; a dict keeps the insertion order for ``keys``/``items``.  The
+slots are exactly the JAX ``KeyIndex``'s, so a table state carries
+across the two frameworks row for row.
+
+Hybrid hot/cold placement (``transfer: hybrid``): an optional
+:class:`HotColdPartition` reserves the FIRST ``n_hot`` slots for the
+frequency head, replicated on every device; tail keys keep the sharded
+layout above, offset by ``n_hot``:
+
+    slot < n_hot                  -> hot slot (the key's frequency rank)
+    slot = n_hot + shard*cap + l  -> tail slot
+
+Hot slots never move: ``grow`` re-strides the tail only, and ``restore``
+refuses a hot pair the active partition does not map.  The online
+``repartition`` (and its ``RepartitionPlan``), ``shard_rows`` and the
+elastic owner map are ROADMAP A13; the window wire-format pricers
+(``window_wire_format``, ``price_window_formats``,
+``price_hot_collectives``) are ROADMAP A12c/d.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional
+from itertools import chain
+from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 
 from swiftmpi_tpu_torch.cluster.hashfrag import HashFrag
+from swiftmpi_tpu_torch.utils.hashing import get_hash_code_np
 
 
 class CapacityError(RuntimeError):
     """A shard ran out of slots; raise rather than silently evict."""
 
 
+def calibrate_hot_k(counts, mass_lo: float = 0.5, mass_hi: float = 0.8,
+                    batch_rows: Optional[int] = None,
+                    dense_ratio: float = 2.0) -> Tuple[int, float]:
+    """The hot-head size K from a frequency histogram (sorted descending
+    here if it is not): the band of K whose head holds ``mass_lo`` ..
+    ``mass_hi`` of the token mass, and within it, given ``batch_rows``,
+    the largest K with ``K <= dense_ratio * batch_rows * cdf[K-1]`` (a
+    dense reconcile of K rows against the head hits a batch would route).
+    Without ``batch_rows`` the band's floor.  Returns ``(K, cdf[K-1])``."""
+    counts = np.asarray(counts, dtype=np.float64).ravel()
+    if counts.size == 0:
+        return 0, 0.0
+    if np.any(np.diff(counts) > 0):
+        counts = np.sort(counts)[::-1]
+    total = counts.sum()
+    if total <= 0:
+        return 0, 0.0
+    cdf = np.cumsum(counts) / total
+    k_lo = int(np.searchsorted(cdf, mass_lo, side="left")) + 1
+    k_hi = int(np.searchsorted(cdf, mass_hi, side="left")) + 1
+    k_lo = max(1, min(k_lo, counts.size))
+    k_hi = max(k_lo, min(k_hi, counts.size))
+    k = k_lo
+    if batch_rows:
+        ks = np.arange(1, counts.size + 1, dtype=np.float64)
+        ok = ((ks >= k_lo) & (ks <= k_hi)
+              & (ks <= dense_ratio * float(batch_rows) * cdf))
+        hits = np.flatnonzero(ok)
+        if hits.size:
+            k = int(hits[-1]) + 1
+    return k, float(cdf[k - 1])
+
+
+class HotColdPartition:
+    """Frequency split of the key space: ``hot_keys[i]`` owns hot slot
+    ``i`` (slot order is frequency rank); every other key is tail."""
+
+    def __init__(self, hot_keys):
+        hot = np.asarray(hot_keys, dtype=np.uint64).ravel()
+        if np.unique(hot).size != hot.size:
+            raise ValueError("hot_keys must be distinct")
+        self.hot_keys = hot
+        self.n_hot = int(hot.size)
+        self.head_mass: Optional[float] = None
+        self._order = np.argsort(hot, kind="stable")
+        self._sorted = hot[self._order]
+
+    @classmethod
+    def from_counts(cls, keys, counts, mass_lo: float = 0.5,
+                    mass_hi: float = 0.8,
+                    batch_rows: Optional[int] = None) -> "HotColdPartition":
+        """:func:`calibrate_hot_k` over the counts, then the top K keys by
+        ``(-count, key)``: the key breaks ties, so the hot set depends on
+        the histogram only, not on the input order."""
+        keys = np.asarray(keys, dtype=np.uint64).ravel()
+        counts = np.asarray(counts, dtype=np.int64).ravel()
+        if keys.shape != counts.shape:
+            raise ValueError("keys/counts length mismatch")
+        order = np.lexsort((keys, -counts))
+        k, mass = calibrate_hot_k(counts[order], mass_lo, mass_hi,
+                                  batch_rows)
+        part = cls(keys[order][:k])
+        part.head_mass = mass
+        return part
+
+    def hot_slot(self, keys) -> np.ndarray:
+        """Vectorized key -> hot slot; -1 for tail keys."""
+        arr = np.asarray(keys, dtype=np.uint64)
+        flat = arr.ravel()
+        out = np.full(flat.shape, -1, dtype=np.int64)
+        if self.n_hot:
+            pos = np.minimum(np.searchsorted(self._sorted, flat),
+                             self.n_hot - 1)
+            match = self._sorted[pos] == flat
+            out[match] = self._order[pos[match]]
+        return out.reshape(arr.shape)
+
+    def is_hot(self, keys) -> np.ndarray:
+        return self.hot_slot(keys) >= 0
+
+    def items(self) -> Iterable:
+        """(key, hot_slot) pairs in hot-slot (frequency-rank) order."""
+        return zip(self.hot_keys.tolist(), range(self.n_hot))
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, HotColdPartition)
+                and np.array_equal(self.hot_keys, other.hot_keys))
+
+    def __repr__(self) -> str:  # pragma: no cover
+        mass = (f", head_mass={self.head_mass:.3f}"
+                if self.head_mass is not None else "")
+        return f"HotColdPartition(n_hot={self.n_hot}{mass})"
+
+
 class KeyIndex:
     def __init__(self, num_shards: int, capacity_per_shard: int,
-                 hashfrag: Optional[HashFrag] = None):
+                 hashfrag: Optional[HashFrag] = None,
+                 partition: Optional[HotColdPartition] = None):
         self.num_shards = int(num_shards)
         self.capacity_per_shard = int(capacity_per_shard)
         self.hashfrag = hashfrag or HashFrag(num_shards)
         if self.hashfrag.num_shards != self.num_shards:
             raise ValueError("hashfrag shard count mismatch")
-        self._slot_of: Dict[int, int] = {}     # insertion (first-touch) order
+        self.partition = partition
+        self.n_hot = partition.n_hot if partition is not None else 0
+        self._slot_of: Dict[int, int] = {}     # tail keys, first-touch order
         self._next_local = np.zeros(self.num_shards, dtype=np.int64)
-        self._sorted_keys = np.empty(0, np.uint64)
-        self._sorted_slots = np.empty(0, np.int64)
+        # the probe: open addressing over the tail keys, the dict's mirror
+        self._ht_size = 0
+        self._ht_keys = np.empty(0, np.uint64)
+        self._ht_slots = np.empty(0, np.int64)
 
-    def _find(self, flat: np.ndarray) -> np.ndarray:
+    # -- vectorized hash table --------------------------------------------
+    def _ht_grow(self, min_items: int) -> None:
+        """A table of at least twice ``min_items`` buckets, every dict
+        pair re-inserted."""
+        size = 1024
+        while size < 2 * min_items:
+            size *= 2
+        self._ht_size = size
+        self._ht_keys = np.zeros(size, np.uint64)
+        self._ht_slots = np.full(size, -1, np.int64)
+        if self._slot_of:
+            keys = np.fromiter(self._slot_of.keys(), np.uint64,
+                               len(self._slot_of))
+            slots = np.fromiter(self._slot_of.values(), np.int64,
+                                len(self._slot_of))
+            self._ht_insert(keys, slots)
+
+    def _ht_insert(self, keys: np.ndarray, slots: np.ndarray) -> None:
+        """Insert DISTINCT keys in claim rounds: every pending key probes
+        its bucket, one winner per free bucket writes, the rest advance
+        one bucket."""
+        mask = np.uint64(self._ht_size - 1)
+        idx = get_hash_code_np(keys) & mask
+        pending = np.arange(len(keys))
+        while pending.size:
+            cur = idx[pending].astype(np.int64)
+            cand_pos = np.flatnonzero(self._ht_slots[cur] < 0)
+            if cand_pos.size:
+                buckets, first = np.unique(cur[cand_pos],
+                                           return_index=True)
+                winners = pending[cand_pos[first]]
+                self._ht_keys[buckets] = keys[winners]
+                self._ht_slots[buckets] = slots[winners]
+                won = np.zeros(len(keys), bool)
+                won[winners] = True
+                pending = pending[~won[pending]]
+                if not pending.size:
+                    break
+            idx[pending] = (idx[pending] + np.uint64(1)) & mask
+
+    def _ht_find(self, flat: np.ndarray) -> np.ndarray:
         """Vectorized probe: slots for present keys, -1 for absent."""
         out = np.full(flat.shape, -1, np.int64)
-        n = self._sorted_keys.size
-        if n == 0 or flat.size == 0:
+        if self._ht_size == 0:
             return out
-        pos = np.minimum(np.searchsorted(self._sorted_keys, flat), n - 1)
-        hit = self._sorted_keys[pos] == flat
-        out[hit] = self._sorted_slots[pos[hit]]
+        mask = np.uint64(self._ht_size - 1)
+        idx = get_hash_code_np(flat) & mask
+        active = np.arange(flat.size)
+        while active.size:
+            cur = idx[active].astype(np.int64)
+            slots_at = self._ht_slots[cur]
+            empty = slots_at < 0
+            match = (~empty) & (self._ht_keys[cur] == flat[active])
+            out[active[match]] = slots_at[match]
+            active = active[~(empty | match)]   # a different key's bucket
+            if active.size:
+                idx[active] = (idx[active] + np.uint64(1)) & mask
         return out
 
+    # -- core -------------------------------------------------------------
     def lookup(self, keys, create: bool = True) -> np.ndarray:
         """Map keys -> int32 slots; unknown keys get fresh slots in their
-        owning shard when ``create`` (lazy init), else -1."""
+        owning shard when ``create`` (lazy init), else -1.  A hot key's
+        slot is its frequency rank, whatever the tail holds."""
         keys = np.asarray(keys, dtype=np.uint64)
         flat = keys.ravel()
-        out = self._find(flat)
+        out = self._ht_find(flat)
+        if self.partition is not None:
+            hot = self.partition.hot_slot(flat)
+            out = np.where(hot >= 0, hot, out)
         if create:
             miss = np.flatnonzero(out < 0)
             if miss.size:
@@ -87,21 +255,17 @@ class KeyIndex:
         group_start[1:] = np.cumsum(counts)[:-1]
         occ = np.empty(len(uniq), np.int64)
         occ[by_shard] = np.arange(len(uniq)) - group_start[shards[by_shard]]
-        slots = shards * self.capacity_per_shard \
+        slots = self.n_hot + shards * self.capacity_per_shard \
             + self._next_local[shards] + occ
         self._next_local += counts
         self._slot_of.update(zip(uniq.tolist(), slots.tolist()))
-        self._sort(np.concatenate([self._sorted_keys, uniq]),
-                   np.concatenate([self._sorted_slots, slots]))
+        if 2 * len(self._slot_of) >= self._ht_size:
+            self._ht_grow(len(self._slot_of))   # re-inserts everything
+        else:
+            self._ht_insert(uniq, slots)
         rank = np.empty(len(uniq), np.int64)
         rank[order] = np.arange(len(uniq))
         return slots[rank[inv.ravel()]]
-
-    def _sort(self, keys: np.ndarray, slots: np.ndarray) -> None:
-        """Install the probe arrays from unsorted ``(key, slot)`` pairs."""
-        srt = np.argsort(keys, kind="stable")
-        self._sorted_keys = keys[srt].astype(np.uint64)
-        self._sorted_slots = slots[srt].astype(np.int64)
 
     def shard_of(self, keys) -> np.ndarray:
         return self.hashfrag.to_shard_id(keys)
@@ -109,35 +273,52 @@ class KeyIndex:
     # -- introspection ----------------------------------------------------
     @property
     def capacity(self) -> int:
+        """Tail (sharded) capacity: the row count of the sharded fields."""
         return self.num_shards * self.capacity_per_shard
 
+    @property
+    def total_capacity(self) -> int:
+        """Hot + tail: the size of the unified slot space."""
+        return self.n_hot + self.capacity
+
     def __len__(self) -> int:
-        return len(self._slot_of)
+        return self.n_hot + len(self._slot_of)
+
+    def _hot_slot(self, key) -> int:
+        if self.partition is None:
+            return -1
+        return int(self.partition.hot_slot(np.uint64(key)))
 
     def __contains__(self, key) -> bool:
-        return int(key) in self._slot_of
+        return self._hot_slot(key) >= 0 or int(key) in self._slot_of
 
     def slot(self, key: int) -> int:
-        return self._slot_of[int(key)]
+        hs = self._hot_slot(key)
+        return hs if hs >= 0 else self._slot_of[int(key)]
 
     def keys(self) -> Iterable[int]:
-        """Keys in insertion order."""
-        return self._slot_of.keys()
+        """Hot keys in frequency-rank order, then tail keys in insertion
+        order."""
+        if self.partition is None:
+            return self._slot_of.keys()
+        return chain(self.partition.hot_keys.tolist(), self._slot_of.keys())
 
     def items(self) -> Iterable:
-        """(key, slot) pairs in insertion order."""
-        return self._slot_of.items()
+        """(key, slot) pairs in :meth:`keys` order."""
+        if self.partition is None:
+            return self._slot_of.items()
+        return chain(self.partition.items(), self._slot_of.items())
 
     def shard_fill(self) -> np.ndarray:
-        """Occupied slots per shard (load-balance introspection)."""
+        """Occupied tail slots per shard (load-balance introspection)."""
         return self._next_local.copy()
 
     # -- growth ------------------------------------------------------------
     def grow(self, new_capacity_per_shard: int) -> None:
-        """Raise the per-shard capacity, remapping every assigned slot to
-        ``shard * new_cap + local`` (locals, and so each shard's insertion
-        order, kept).  The table's rows must move to match: use
-        ``SparseTable.grow``, which calls this."""
+        """Raise the per-shard capacity, remapping every tail slot to
+        ``n_hot + shard * new_cap + local`` (locals, and so each shard's
+        insertion order, kept; hot slots never move).  The table's rows
+        must move to match: use ``SparseTable.grow``, which calls this."""
         new = int(new_capacity_per_shard)
         old = self.capacity_per_shard
         if new <= old:
@@ -145,26 +326,41 @@ class KeyIndex:
         self.capacity_per_shard = new
         keys = np.fromiter(self._slot_of.keys(), np.uint64,
                            len(self._slot_of))
-        slots = np.fromiter(self._slot_of.values(), np.int64,
-                            len(self._slot_of))
-        slots = slots // old * new + slots % old
+        rows = np.fromiter(self._slot_of.values(), np.int64,
+                           len(self._slot_of)) - self.n_hot
+        slots = self.n_hot + rows // old * new + rows % old
         self._slot_of = dict(zip(keys.tolist(), slots.tolist()))
-        self._sort(keys, slots)
+        self._ht_grow(max(len(self._slot_of), 1))   # slot values changed
 
     # -- checkpoint restore ------------------------------------------------
     def restore(self, keys, slots) -> None:
         """Rebuild the index from saved ``(key, slot)`` pairs (insertion
-        order = the pairs' order), keeping the ``slot = shard *
+        order = the pairs' order), keeping the ``n_hot + shard *
         capacity_per_shard + local`` layout: each shard's next free row
-        follows its highest restored local row."""
+        follows its highest restored local row.  A hot pair must be the
+        active partition's own (a checkpoint of another frequency split
+        raises instead of scrambling rows)."""
         keys = np.asarray(keys, np.uint64).ravel()
         slots = np.asarray(slots, np.int64).ravel()
-        shards, local = np.divmod(slots, self.capacity_per_shard)
-        bad = (shards < 0) | (shards >= self.num_shards)
+        hot = slots < self.n_hot
+        if self.partition is not None and hot.any():
+            wrong = self.partition.hot_slot(keys[hot]) != slots[hot]
+        else:
+            wrong = hot[hot]
+        if wrong.any():
+            i = int(np.flatnonzero(wrong)[0])
+            raise ValueError(
+                f"hot slot {int(slots[hot][i])} for key {int(keys[hot][i])} "
+                "does not match the active HotColdPartition: rebuild the "
+                "vocab (and its partition) before restoring")
+        keys, slots = keys[~hot], slots[~hot]
+        shards, local = np.divmod(slots - self.n_hot,
+                                  self.capacity_per_shard)
+        bad = shards >= self.num_shards
         if bad.any():
             raise ValueError(f"slot {int(slots[bad][0])} outside the table "
                              "layout")
         self._slot_of = dict(zip(keys.tolist(), slots.tolist()))
         self._next_local = np.zeros(self.num_shards, np.int64)
         np.maximum.at(self._next_local, shards, local + 1)
-        self._sort(keys, slots)
+        self._ht_grow(max(len(self._slot_of), 1))

@@ -6,25 +6,40 @@ assigns.  It has two layouts:
 
 * **one device** (no ``mesh``; ``transfer: xla``): the state is a plain
   ``{field: Tensor}`` dict of ``(capacity, dim)`` tensors.
-* **sharded** (``mesh``: a rank layout; ``transfer: tpu``): the state is
-  ``{field: [Tensor] * n}``, one contiguous ``(capacity_per_shard, dim)``
-  tensor per shard on its rank's device.  Shard ``s`` holds the global
-  slots ``s * capacity_per_shard ... (s + 1) * capacity_per_shard - 1``,
-  so the shards concatenated in order are exactly the JAX package's
-  global array (:meth:`to_numpy`).  The shards of the ranks that share a
-  device are the rank slices of one ``(R, capacity_per_shard, dim)``
-  block in the group's rank order (:func:`split_rows`), which
-  :func:`shard_block` returns without a copy, so one kernel launch serves
-  the whole group; each rank still reads and writes only its own
-  slice.
+* **sharded** (``mesh``: a rank layout; ``transfer: tpu`` or ``hybrid``):
+  the state is ``{field: [Tensor] * n}``, one contiguous
+  ``(capacity_per_shard, dim)`` tensor per shard on its rank's device.
+  Shard ``s`` holds the tail slots ``s * capacity_per_shard ... (s + 1) *
+  capacity_per_shard - 1``, so the shards concatenated in order are
+  exactly the JAX package's global array (:meth:`to_numpy`).  The shards
+  of the ranks that share a device are the rank slices of one ``(R,
+  capacity_per_shard, dim)`` block in the group's rank order
+  (:func:`split_rows`), which :func:`shard_block` returns without a copy,
+  so one kernel launch serves the whole group; each rank still reads and
+  writes only its own slice.
+
+Hybrid hot/cold placement: when the key index carries a
+``HotColdPartition``, each field ``f`` also has a hot plane ``f@hot`` of
+``(n_hot, dim)`` rows, indexed by the hot slot itself, while the plain
+name holds the tail (indexed by ``slot - n_hot``).  :meth:`gather` and
+:meth:`unified_rows_host` show the unified slot space ``concat(hot,
+tail)``.  The JAX package replicates the hot plane on every device; the
+port keeps one replica per *device*, not per rank: the ranks that share a
+card read and write that one tensor, which is what a replica per rank
+would hold anyway, since the hybrid push's reconcile makes every replica
+equal.  With shards on several cards (ROADMAP A11) there will be one per
+card.
 
 Every row is initialized eagerly with its field's distribution (eager-
 random is lazy-random for every observable row), drawn in float32 and
 cast to the field's dtype, as the JAX package does: a bfloat16 field
-(``[server] dtype: bfloat16``) holds the rounded draw.  Push paths update
-the tensors in place; ``grow`` moves them to new, larger tensors and
-bumps ``generation``.  The ``@rowver``, ``@ef`` and ``@hot`` planes and
-``repartition`` are not ported yet (ROADMAP A12).
+(``[server] dtype: bfloat16``) holds the rounded draw.  The hot planes
+are drawn after every tail field, from the same stream, so a table with
+``n_hot = 0`` is drawn exactly as before the planes existed.  Push paths
+update the tensors in place; ``grow`` moves the tail to new, larger
+tensors (the hot planes stay) and bumps ``generation``.  The ``@rowver``
+and ``@ef`` planes and ``repartition`` are not ported yet (ROADMAP A12c/d,
+A13).
 """
 
 from __future__ import annotations
@@ -38,6 +53,22 @@ from swiftmpi_tpu_torch.parameter.access import AccessMethod
 from swiftmpi_tpu_torch.parameter.key_index import KeyIndex
 
 TableState = Dict[str, Union[torch.Tensor, List[torch.Tensor]]]
+
+#: suffix of a hot-head plane in a table state dict
+HOT_SUFFIX = "@hot"
+
+
+def hot_name(field: str) -> str:
+    return field + HOT_SUFFIX
+
+
+def is_hot_field(name: str) -> bool:
+    return name.endswith(HOT_SUFFIX)
+
+
+def base_field(name: str) -> str:
+    """Strip the hot suffix: ``"v@hot" -> "v"``, plain names unchanged."""
+    return name[:-len(HOT_SUFFIX)] if is_hot_field(name) else name
 
 
 class SparseTable:
@@ -59,16 +90,27 @@ class SparseTable:
         self.generation = 0
         self.state: TableState = self._init_state()
 
-    def _init_rows(self) -> Dict[str, torch.Tensor]:
+    @property
+    def n_hot(self) -> int:
+        return self.key_index.n_hot
+
+    def _init_rows(self, hot: bool = True) -> Dict[str, torch.Tensor]:
         """Every field's ``(capacity, dim)`` rows on the table's device,
-        in sorted name order, all drawn from one generator seeded with
-        ``seed`` (the JAX package's order of key splits; the values
-        differ, as torch and jax generators do)."""
-        cap = self.key_index.capacity
+        in sorted name order, then (``hot`` and ``n_hot > 0``) every
+        field's ``(n_hot, dim)`` hot plane, all drawn from one generator
+        seeded with ``seed`` (the JAX package's order of key splits; the
+        values differ, as torch and jax generators do)."""
+        cap, n_hot = self.key_index.capacity, self.n_hot
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.seed)
-        return {name: fs.init(gen, (cap, fs.dim), self.device).to(fs.dtype)
-                for name, fs in sorted(self.access.fields.items())}
+        fields = sorted(self.access.fields.items())
+        out = {name: fs.init(gen, (cap, fs.dim), self.device).to(fs.dtype)
+               for name, fs in fields}
+        if hot and n_hot:
+            out.update({hot_name(name): fs.init(
+                gen, (n_hot, fs.dim), self.device).to(fs.dtype)
+                for name, fs in fields})
+        return out
 
     def _init_state(self) -> TableState:
         """The initial state: :meth:`_init_rows`, dealt to the shards'
@@ -77,14 +119,17 @@ class SparseTable:
         return self._layout(self._init_rows())
 
     def _layout(self, rows: Dict[str, torch.Tensor]) -> TableState:
+        """Tail fields dealt to the shards of a sharded table; a hot plane
+        stays one tensor on the table's device."""
         if self.mesh is None:
             return rows
-        return {f: split_rows(t, self.mesh) for f, t in rows.items()}
+        return {f: t if is_hot_field(f) else split_rows(t, self.mesh)
+                for f, t in rows.items()}
 
     def global_rows(self, field: str) -> torch.Tensor:
         """``field``'s ``(capacity, dim)`` rows in global slot order on the
-        table's device: the tensor itself on one device, a copy of the
-        shards concatenated for a sharded table."""
+        table's device: the tensor itself on one device (and for a hot
+        plane), a copy of the shards concatenated for a sharded table."""
         v = self.state[field]
         if not isinstance(v, list):
             return v
@@ -122,31 +167,69 @@ class SparseTable:
                     t.device, t.dtype)
 
     def grow(self, new_capacity_per_shard: Optional[int] = None) -> None:
-        """Re-lay the table out at a larger per-shard capacity (default
-        2x): every occupied row keeps its parameters and AdaGrad sums and
-        moves to ``shard * new_cap + local``; the new rows are drawn from
-        each field's init with a generator seeded ``seed + 1`` (a fresh
-        stream per growth, as the JAX package folds its seed).  New
+        """Re-lay the tail out at a larger per-shard capacity (default
+        2x): every occupied tail row keeps its parameters and AdaGrad sums
+        and moves to ``shard * new_cap + local``; the new rows are drawn
+        from each field's init with a generator seeded ``seed + 1`` (a
+        fresh stream per growth, as the JAX package folds its seed).  New
         tensors replace the old ones, a sharded table's as one new block
         per device (``split_rows``), so ``shard_block`` stays copy-free;
-        both layouts coexist during the move."""
+        both layouts coexist during the move.  Hot planes never move."""
         ki = self.key_index
+        n_hot = self.n_hot
         old_per = ki.capacity_per_shard
-        old_slots = np.fromiter((s for _, s in ki.items()), np.int64,
-                                len(ki))
-        old = {f: self.global_rows(f) for f in self.state}
+        old_rows = np.fromiter((s - n_hot for _, s in ki.items()
+                                if s >= n_hot), np.int64)
+        tail = [f for f in self.state if not is_hot_field(f)]
+        old = {f: self.global_rows(f) for f in tail}
         ki.grow(int(new_capacity_per_shard or 2 * old_per))
-        new_slots = old_slots // old_per * ki.capacity_per_shard \
-            + old_slots % old_per
+        new_rows = old_rows // old_per * ki.capacity_per_shard \
+            + old_rows % old_per
         self.seed += 1
-        rows = self._init_rows()
-        src = torch.from_numpy(old_slots).to(self.device)
-        dst = torch.from_numpy(new_slots).to(self.device)
+        rows = self._init_rows(hot=False)
+        src = torch.from_numpy(old_rows).to(self.device)
+        dst = torch.from_numpy(new_rows).to(self.device)
         for f, t in rows.items():
             t[dst] = old[f][src]
         del old
-        self.state = self._layout(rows)
+        state = self._layout(rows)
+        state.update({f: v for f, v in self.state.items()
+                      if is_hot_field(f)})
+        self.state = state
         self.generation += 1
+
+    # -- the unified slot space (hot rows first) ---------------------------
+    def unified_rows(self, field: str, slots) -> torch.Tensor:
+        """Rows of ``field`` at unified ``slots`` (clipped into range, as
+        JAX's ``take``), on the table's device."""
+        slots = torch.as_tensor(slots, device=self.device).long()
+        tail = self.global_rows(field)
+        n_hot = self.n_hot
+        if not n_hot:
+            return tail[slots.clamp(0, tail.shape[0] - 1)]
+        hot = self.state[hot_name(field)]
+        hot_rows = hot[slots.clamp(0, n_hot - 1)]
+        tail_rows = tail[(slots - n_hot).clamp(0, tail.shape[0] - 1)]
+        return torch.where((slots < n_hot)[..., None], hot_rows, tail_rows)
+
+    def gather(self, slots) -> Dict[str, torch.Tensor]:
+        """Rows of the pull fields at unified ``slots``."""
+        return {f: self.unified_rows(f, slots)
+                for f in self.access.pull_fields}
+
+    def gather_all_fields(self, slots) -> Dict[str, torch.Tensor]:
+        return {f: self.unified_rows(f, slots) for f in self.access.fields}
+
+    def unified_rows_host(self, field: str,
+                          upcast: bool = False) -> np.ndarray:
+        """Host copy of ``field`` indexed by unified slot: rows ``[0,
+        n_hot)`` the hot plane, then the tail (see :func:`tensor_to_numpy`
+        for ``upcast``).  Key-index slots index it directly."""
+        tail = tensor_to_numpy(self.global_rows(field), upcast)
+        if not self.n_hot:
+            return tail
+        return np.concatenate([tensor_to_numpy(
+            self.state[hot_name(field)], upcast), tail])
 
     @property
     def capacity(self) -> int:

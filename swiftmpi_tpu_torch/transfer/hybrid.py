@@ -1,0 +1,192 @@
+"""``hybrid`` transfer backend: the frequency head in hot planes, the
+tail sharded (counterpart of ``swiftmpi_tpu/transfer/hybrid.py``).
+
+Zipf traffic puts most of a step's rows on a small frequency head.  The
+hybrid backend splits the unified slot space a ``HotColdPartition``
+defines (``parameter/key_index.py``):
+
+* **hot** (``slot < n_hot``): the rows live in the ``f@hot`` planes, one
+  replica per device (``parameter/sparse_table.py``).  A pull reads them
+  with the gather kernel at 0 wire bytes.  A push sums every rank's hot
+  rows into an ``(n_hot, W)`` accumulator with one scatter-add launch a
+  family (the counts from the same launch), which on one card is the
+  whole reconcile, the JAX package's per-device scatter plus ``psum``;
+  then the AdaGrad kernel updates the whole hot plane, the mean's
+  reciprocal inside it (an untouched row sees a zero gradient, as in
+  JAX).  Only the summation order differs from JAX.
+* **tail** (``slot >= n_hot``): re-based by ``-n_hot`` and routed by the
+  :class:`~swiftmpi_tpu_torch.transfer.sharded.ShardedTransfer` over the
+  same rank layout.
+
+Batches are padded to a multiple of the rank count with ``-1`` slots and
+zero grads (stencil spans are B + 2W rows) and sliced back.  A state with
+no hot planes (``n_hot = 0``: LR, GloVe, a table built without a
+partition) takes the tail path alone: bit for bit ``tpu``.
+
+``traffic()`` reports ``routed_rows`` (the tail's), ``hot_rows`` (hot
+hits of pulls and pushes), ``psum_bytes`` (``n_hot x`` (grad row bytes
++ 4) a push), ``overflow_dropped`` and the ledger keys, the tail's and
+the hot exchanges' summed.  The sparse-allreduce reconcile of the hot
+head (JAX ``_hot_push_sparse``, ``[cluster] collective``, which
+``Word2Vec`` refuses) is ROADMAP A12d.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from swiftmpi_tpu_torch.kernels.scatter import masked_scatter_add
+from swiftmpi_tpu_torch.parameter.sparse_table import (base_field, hot_name,
+                                                       is_hot_field)
+from swiftmpi_tpu_torch.transfer.api import WIRE_KEYS, Transfer
+from swiftmpi_tpu_torch.transfer.sharded import ShardedTransfer
+
+
+class HybridTransfer(Transfer):
+    name = "hybrid"
+
+    def __init__(self, mesh, bucket_capacity: Optional[int] = None,
+                 debug_overflow: bool = False, data_plane: str = "auto"):
+        self.tail = ShardedTransfer(mesh, bucket_capacity, debug_overflow,
+                                    data_plane=data_plane)
+        super().__init__()
+        # one Counter for both: the tail's routed paths and the hot ones
+        self.push_paths = self.tail.push_paths
+
+    # -- attributes of the tail --------------------------------------------
+    @property
+    def count_traffic(self) -> bool:
+        return self.tail.count_traffic
+
+    @count_traffic.setter
+    def count_traffic(self, flag: bool):
+        self.tail.count_traffic = bool(flag)
+
+    @property
+    def n(self) -> int:
+        return self.tail.n
+
+    def overflow_count(self) -> int:
+        return self.tail.overflow_count()
+
+    # -- hot/tail split ----------------------------------------------------
+    @staticmethod
+    def _n_hot(state) -> int:
+        for f, v in state.items():
+            if is_hot_field(f):
+                return int(v.shape[0])
+        return 0
+
+    @staticmethod
+    def _split_state(state):
+        tail = {f: v for f, v in state.items() if not is_hot_field(f)}
+        hot = {base_field(f): v for f, v in state.items()
+               if is_hot_field(f)}
+        return tail, hot
+
+    def _pad_batch(self, slots, grads=None, counts=None):
+        """Pad the batch to a multiple of the rank count with ``-1``
+        slots, zero grad rows and zero counts.  Returns ``(slots, grads,
+        counts, B)``, B the length before padding."""
+        B = slots.shape[0]
+        pad = (-B) % self.n
+        if pad == 0:
+            return slots, grads, counts, B
+        slots = torch.cat([slots, slots.new_full((pad,), -1)])
+        if grads is not None:
+            grads = {f: torch.cat([g, g.new_zeros((pad, g.shape[1]))])
+                     for f, g in grads.items()}
+        if counts is not None:
+            counts = torch.cat([counts.float(), counts.new_zeros(
+                pad, dtype=torch.float32)])
+        return slots, grads, counts, B
+
+    # -- traffic accounting ------------------------------------------------
+    def _record_hot(self, rows, psum_bytes) -> None:
+        self._book(rows, hot_rows=rows, psum_bytes=psum_bytes)
+
+    def traffic(self) -> Dict[str, int]:
+        """``routed_rows``, ``hot_rows``, ``psum_bytes``,
+        ``overflow_dropped`` and the ledger keys, the tail's ledger and
+        this backend's own (the hot reads and exchanges) summed."""
+        t = self.tail.traffic()
+        w = self.wire_traffic()
+        out = {"routed_rows": t["routed_rows"],
+               "hot_rows": self._count("hot_rows"),
+               "psum_bytes": self._count("psum_bytes"),
+               "overflow_dropped": t["overflow_dropped"]}
+        out.update({k: t[k] + w[k] for k in WIRE_KEYS})
+        return out
+
+    # the pull is the base interpreter's hot_split placement
+    # (``Transfer._interpret_pull_hot_split``)
+
+    # -- push --------------------------------------------------------------
+    def push(self, state, slots, grads, access, mean: bool = False,
+             counts=None):
+        """The tail through the sharded push with re-based slots, the hot
+        rows through :meth:`_hot_push`; ``counts`` marks a span family
+        (``push_span``)."""
+        slots, grads, counts, _ = self._pad_batch(slots.to(torch.int32),
+                                                  grads, counts)
+        tail_state, hot_state = self._split_state(state)
+        n_hot = self._n_hot(state)
+        if n_hot == 0:
+            self.tail.push(tail_state, slots, grads, access, mean=mean,
+                           counts=counts)
+            return state
+        is_hot = (slots >= 0) & (slots < n_hot)
+        tail_slots = torch.where(slots >= n_hot, slots - n_hot, -1)
+        self.tail.push(tail_state, tail_slots, grads, access, mean=mean,
+                       counts=counts)
+        if self.count_traffic:
+            # grad row bytes + the float32 counts column, the whole head
+            width = sum(g.element_size() * g.shape[1]
+                        for g in grads.values()) + 4
+            n = is_hot.sum()
+            self._record_hot(n, n_hot * width)
+            self._record_exchange(n_hot, width, on=n)
+        self._hot_push(hot_state, slots, is_hot, grads, access, mean,
+                       counts)
+        return state
+
+    def push_span(self, state, slots, grads, counts, access,
+                  mean: bool = False):
+        """Span push: rows carry summed contributions with their data
+        counts; both planes divide by the summed counts."""
+        return self.push(state, slots, grads, access, mean=mean,
+                         counts=counts)
+
+    def _hot_push(self, hot_state, slots, is_hot, grads, access, mean,
+                  counts) -> None:
+        """Sum the hot rows of every rank into ``(n_hot, W)`` per family
+        (the scatter-add kernel, invalid and tail rows dropped) and apply
+        the access rule over the whole hot plane in place (the AdaGrad
+        kernel, the mean's reciprocal inside it)."""
+        n_hot = next(iter(hot_state.values())).shape[0]
+        families = ",".join(sorted(grads))
+        self.push_paths[f"{families}:"
+                        f"{'hot_span' if counts is not None else 'hot'}"] += 1
+        acc, csum = {}, None
+        for f in sorted(grads):
+            # a mean push without data counts takes them from its first
+            # family's launch
+            take = mean and counts is None and csum is None
+            res = masked_scatter_add(slots, is_hot, grads[f].contiguous(),
+                                     n_hot, counts=take)
+            if take:
+                res, csum = res
+            acc[f] = res
+        if mean and counts is not None:
+            csum = masked_scatter_add(slots, is_hot,
+                                      counts.reshape(-1, 1).contiguous(),
+                                      n_hot)[:, 0]
+        inv = 1.0 / csum.clamp(min=1.0) if mean else None
+        access.apply_push(hot_state, acc, mul=inv)
+
+    def push_window(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the window-coalesced push of the hybrid transfer is not "
+            "ported yet (ROADMAP A12c)")

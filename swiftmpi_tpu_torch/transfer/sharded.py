@@ -42,15 +42,21 @@ AdaGrad each take the device's ``(R, cap_per_shard, d)`` block of shards
 only.  The table state is ``{field: [shard tensors]}``
 (``parameter/sparse_table.py``).
 
+With ``count_traffic`` a pull books its valid requests as
+``routed_rows`` (the pull interpreter books the pull ledger) and a push
+books them as ``routed_rows`` and one exchange of sparse rows, the span
+family's counts column included, exactly where ``TpuTransfer`` books
+them; :meth:`ShardedTransfer.traffic` adds ``overflow_dropped``.
+
 Not ported: the data axis across processes (``dp_axis``, the sparse DCN
-reconcile; ROADMAP A11), the window primitives, ``@rowver`` stamping and
-the traffic ledger (ROADMAP A12), and ``[cluster] data_plane: xla``, the
-library route of the exchange (ROADMAP A16).
+reconcile; ROADMAP A11), the window primitives and ``@rowver`` stamping
+(ROADMAP A12c/d), and ``[cluster] data_plane: xla``, the library route of
+the exchange (ROADMAP A16).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -59,7 +65,7 @@ from swiftmpi_tpu_torch.kernels.ring import (ring_exchange,
                                              ring_exchange_stacked)
 from swiftmpi_tpu_torch.kernels.scatter import masked_scatter_add
 from swiftmpi_tpu_torch.parameter.sparse_table import shard_block
-from swiftmpi_tpu_torch.transfer.api import Transfer
+from swiftmpi_tpu_torch.transfer.api import Transfer, grad_row_bytes
 
 _COUNTS = "__counts__"
 
@@ -192,6 +198,24 @@ class ShardedTransfer(Transfer):
             self._overflow_total += int(torch.stack(pending).sum())
         return self._overflow_total
 
+    # -- traffic accounting ------------------------------------------------
+    def _record_routed(self, rows) -> None:
+        self._book(rows, routed_rows=rows)
+
+    def routed_rows(self) -> int:
+        """Total rows routed through the ring exchange since construction
+        (counted while ``count_traffic`` is set)."""
+        return self._count("routed_rows")
+
+    def traffic(self) -> Dict[str, int]:
+        """``routed_rows``, ``hot_rows`` and ``psum_bytes`` (0 here),
+        ``overflow_dropped`` and the wire ledger (``Transfer.traffic``),
+        the JAX ``TpuTransfer.traffic``'s keys."""
+        out = {"routed_rows": self.routed_rows(), "hot_rows": 0,
+               "psum_bytes": 0, "overflow_dropped": self.overflow_count()}
+        out.update(self.wire_traffic())
+        return out
+
     # -- routing -----------------------------------------------------------
     def _route(self, state, slots: torch.Tensor):
         """Split the batch's slots into the n ranks' contiguous slices and
@@ -253,6 +277,8 @@ class ShardedTransfer(Transfer):
     # -- pull --------------------------------------------------------------
     def _prim_pull(self, state, slots, fields):
         n = self.n
+        if self.count_traffic:
+            self._record_routed((slots >= 0).sum())
         groups, C, _ = self._route(state, slots)
         got, ok = self._requests(groups)
         out = {}
@@ -303,6 +329,12 @@ class ShardedTransfer(Transfer):
         backend does."""
         n = self.n
         with_counts = counts is not None
+        if self.count_traffic:
+            rows = (slots >= 0).sum()
+            self._record_routed(rows)
+            # the counts column rides as a 4-byte column of span rows
+            self._record_exchange(
+                rows, grad_row_bytes(grads, with_counts=with_counts))
         self.push_paths[f"{','.join(grads)}:"
                         f"{'routed_span' if with_counts else 'routed'}"] += 1
         grads = dict(grads)
@@ -371,9 +403,4 @@ class ShardedTransfer(Transfer):
     def push_window(self, *args, **kwargs):
         raise NotImplementedError(
             "the window-coalesced push of the sharded transfer is not "
-            "ported yet (ROADMAP A12)")
-
-    def traffic(self):
-        raise NotImplementedError(
-            "the traffic ledger of the sharded transfer is not ported yet "
-            "(ROADMAP A12)")
+            "ported yet (ROADMAP A12c)")

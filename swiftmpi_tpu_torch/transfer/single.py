@@ -26,7 +26,10 @@
 
 All three pushes update the table tensors in place, with shapes fixed by
 the batch, and none reads the host: a step can be captured in a CUDA
-graph.
+graph.  With ``count_traffic`` the base class books the ledger as
+``XlaTransfer`` does, on the device's counters: a pull its valid rows, a
+dense push every row without the index, a sparse push its valid rows, a
+span push its valid rows with the counts column.
 """
 
 from __future__ import annotations

@@ -1400,3 +1400,74 @@ def test_lr_and_glove_take_exactly_their_kernels(dev, path):
     assert card.train_metrics["fused"] is graphs
     assert (card.train_metrics["graph_replays"] > 0) is graphs
     np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+# -- hybrid: the hot planes and the ledger ------------------------------------
+
+def _hybrid_model(dev, rendering, n=8):
+    """A ``transfer: hybrid`` model on ``n`` ranks at the reference widths,
+    its partition calibrated from the corpus's counts."""
+    conf = {"cluster": {"transfer": "hybrid", "server_num": n},
+            "word2vec": {"len_vec": 100, "window": 4, "negative": 20,
+                         "sample": 1e-3, "learning_rate": 0.05,
+                         **RENDERINGS[rendering]},
+            "server": {"initial_learning_rate": 0.7},
+            "worker": {"minibatch": 800}}
+    m = Word2Vec(config=ConfigParser().update(conf), device=dev)
+    sents = synthetic_corpus(400, 3000, 40, seed=8)
+    m.build(sents)
+    assert m.table.n_hot > 0
+    return m, sents
+
+
+@pytest.mark.parametrize("rendering", ["gather", "stencil"])
+def test_hybrid_step_on_card_matches_cpu(dev, rendering):
+    """One hybrid step on 8 ranks on the card and on the CPU from the same
+    table (hot planes included) and draws: err_cnt exact, err_sum rtol
+    1e-4, every field and hot plane within the envelope; the card's step
+    launched B1, B2, B3 and B5 and not the stencil kernel (the hybrid
+    stencil pulls its span through the transfer)."""
+    card, sents = _hybrid_model(dev, rendering)
+    cpu = Word2Vec(config=card.config, device="cpu")
+    cpu.build_from_vocab(card.vocab)
+    cpu.table.state = state_from_jax(state_to_numpy(card.table.state), "cpu",
+                                     mesh=cpu.cluster.mesh)
+    b = CBOWBatcher(sents, card.vocab, card.window, card.sample, seed=5)
+    batch = next(iter(b.epoch_stencil(200) if card.stencil
+                      else b.epoch(200)))
+    rng = np.random.default_rng(3)
+    shape = card.draw_shape(200)
+    draws = (rng.integers(0, len(card.vocab), shape),
+             rng.random(shape, np.float32))
+    kernels.reset_launches()
+    es_c, ec_c = card.step_batch(batch, draws=draws)
+    counts = kernels.launch_counts()
+    es_p, ec_p = cpu.step_batch(batch, draws=draws)
+    assert ec_c == ec_p
+    np.testing.assert_allclose(es_c, es_p, rtol=1e-4)
+    _close(state_to_numpy(card.table.state), state_to_numpy(cpu.table.state),
+           f"hybrid {rendering}")
+    assert all(counts[k] > 0 for k in ("adagrad", "gather", "scatter",
+                                       "ring")), counts
+    assert counts["stencil"] == 0
+    assert card.transfer.push_paths == cpu.transfer.push_paths
+
+
+def test_graphed_ledger_matches_eager_ledger(dev):
+    """``transfer: xla`` with ``inner_steps: 8`` (graph replays) books the
+    traffic ledger exactly as the plain loop does from the same table and
+    generator seed: every counter equal, and the counters moved."""
+    runs = []
+    for worker in ({}, {"inner_steps": 8}):
+        m, sents = _path_model(dev, "gather", seed=4, **worker)
+        m.transfer.count_traffic = True
+        batcher = CBOWBatcher(sents, m.vocab, m.window, m.sample, seed=5)
+        m.train(batcher=batcher, niters=1, batch_size=100)
+        runs.append(m)
+    plain, graphed = runs
+    assert graphed.train_metrics["graph_replays"] > 0
+    assert not plain.train_metrics["fused"]
+    want = plain.train_metrics["transfer_traffic"]
+    assert graphed.train_metrics["transfer_traffic"] == want
+    assert want["dispatches"] == 2 * plain.train_metrics["steps"]
+    assert want["pull_rows"] > 0 and want["wire_bytes"] > 0

@@ -36,7 +36,8 @@ want = {"swiftmpi_tpu_torch." + m for m in (
     "models.sent2vec", "apps.sent2vec_main", "models.logistic",
     "data.libsvm", "apps.lr_main", "models.glove", "apps.glove_main",
     "models.embedding", "apps.w2v_eval", "utils.graphs", "apps.lr_profile",
-    "apps.glove_profile")}
+    "apps.glove_profile", "transfer.plan", "transfer.local",
+    "transfer.hybrid")}
 missing = sorted(want - set(names))
 print(len(names), "modules;", "leaked:", bad, "missing:", missing)
 sys.exit(1 if bad or missing or len(names) < 30 else 0)

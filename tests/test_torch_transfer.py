@@ -43,15 +43,21 @@ def _slots(rng, n):
 
 def test_get_transfer_names_xla_only():
     """``xla`` and, with a rank layout, ``tpu`` (held against the JAX
-    package in test_torch_sharded.py); the others are not ported."""
+    package in test_torch_sharded.py); ``hybrid`` and ``local`` are ported
+    now (held in test_torch_hybrid.py and test_torch_traffic.py), and an
+    unknown name raises ``ValueError``, as in the JAX package."""
     from swiftmpi_tpu_torch.cluster import ps_mesh
     from swiftmpi_tpu_torch.transfer import ShardedTransfer
+    from swiftmpi_tpu_torch.transfer.hybrid import HybridTransfer
+    from swiftmpi_tpu_torch.transfer.local import LocalTransfer
     assert isinstance(get_transfer("xla"), SingleTransfer)
     assert isinstance(get_transfer("tpu", mesh=ps_mesh(2, ["cpu"])),
                       ShardedTransfer)
-    for name in ("hybrid", "local"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_transfer(name)
+    assert isinstance(get_transfer("hybrid", mesh=ps_mesh(2, ["cpu"])),
+                      HybridTransfer)
+    assert isinstance(get_transfer("local"), LocalTransfer)
+    with pytest.raises(ValueError, match="hybrid"):
+        get_transfer("bogus")
 
 
 def test_pull_matches_xla():

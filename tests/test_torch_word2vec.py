@@ -227,7 +227,8 @@ def test_inner_steps_runs_ordinary_steps():
     ("cluster", "push_window", 2), ("cluster", "wire_quant", "int8"),
     ("cluster", "pull_quant", "bf16"), ("cluster", "pull_cache", 64),
     ("cluster", "collective", "auto"),
-    ("cluster", "transfer", "hybrid"), ("cluster", "server_num", 2),
+    ("cluster", "collective", "sparse_allreduce"),
+    ("cluster", "server_num", 2),
     ("obs", "numerics", 1), ("control", "control", "on"),
     ("serve", "every", 4)])
 def test_unported_config_raises(sec, key, val):
