@@ -158,11 +158,26 @@ Phases, each of which raises on a failed check:
    planes) reloaded on the card bit for bit, in place; and ``gather`` on
    ``xla`` with ``inner_steps: 8`` whose graph replays book exactly the
    ledger the plain loop books.
+10. the window-coalesced push (``[cluster] push_window: 4``): B3 and B5
+   at the shapes one window of four reference gather steps on ``tpu@8``
+   gives them (the per-rank dedup's sums, 8 x 52,500 h rows onto as many
+   slots with counts; the exchange of the deduplicated rows with their
+   counts column, buckets of 52,500; the owners' sums; the dense rung's
+   plane, 420,000 rows onto the global (90,512, 100) plane with counts),
+   timed as in phase 2; one window (a group of four steps) on
+   ``window@8`` (``tpu``) and ``hybrid_window@8`` on the card against the
+   CPU from the same table and draws, with exactly ``WINDOW_GROUP``'s
+   launches and the same ledger, whose window keys and coalesced rows the
+   line prints; and ``Word2Vec.train`` with ``inner_steps: 8`` on both,
+   on ``xla`` (``window:xla``, each group one graph replay) and on
+   ``window_dense@8`` (``tpu`` without the expected-unique hint, so every
+   window takes the dense rung), each launching exactly its path's
+   kernels.
 
 The line before the last is the ``{"kernels": [...]}`` summary, each
 kernel's ``launches`` read from the train run of its path (the sent2vec
-cases from the sent2vec inference run, phase 8's and 9's from their
-paths' train runs); the last is
+cases from the sent2vec inference run, phase 8's, 9's and 10's from
+their paths' train runs); the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints neither.
 """
@@ -225,6 +240,7 @@ from swiftmpi_tpu_torch.parameter.sparse_table import (shard_block,
                                                        split_rows)
 from swiftmpi_tpu_torch.testing import faults
 from swiftmpi_tpu_torch.testing.faults import FaultPlan
+from swiftmpi_tpu_torch.transfer.api import window_owners
 from swiftmpi_tpu_torch.utils import ConfigParser, reset_global_config
 
 ROOT = Path(__file__).resolve().parent
@@ -2564,6 +2580,233 @@ def phase_hybrid(vocab, corpus: np.ndarray, batch, sbatch,
     return cases, counts
 
 
+# -- phase 10: the window-coalesced push --------------------------------------
+
+#: the window paths: the reference configuration with ``[cluster]
+#: push_window: WINDOW`` in groups of ``inner_steps``, on the sharded
+#: server (``tpu``), on ``hybrid`` (both SHARDS ranks) and on ``xla``
+#: (each group one CUDA graph replay)
+WINDOW = 4
+WIN_TPU = f"window@{SHARDS}"
+WIN_HYBRID = f"hybrid_window@{SHARDS}"
+WIN_XLA = "window:xla"
+#: WIN_TPU with no expected-unique hint: the pricer then takes the raw
+#: rows (420,000 h rows a window, above half the 90,520) and every window
+#: takes the dense rung
+WIN_DENSE = f"window_dense@{SHARDS}"
+#: the kernels each window path launches
+WINDOW_KERNELS = {WIN_TPU: {"gather", "scatter", "adagrad", "ring"},
+                  WIN_HYBRID: {"gather", "scatter", "adagrad", "ring"},
+                  WIN_XLA: {"gather", "scatter", "adagrad"},
+                  WIN_DENSE: {"gather", "scatter", "adagrad", "ring"}}
+#: launches of one group of WINDOW steps (one window) at the reference
+#: shape: per step two pulls (a gather each, and on the sharded paths two
+#: ring exchanges, the hybrid's hot pull one more gather); per pushed
+#: family one window: the dedup's scatter-add, the routed exchange of
+#: the deduplicated rows with their counts (requests, grads, counts:
+#: three ring exchanges, two owner scatter-adds) and AdaGrad over the
+#: block, on hybrid also the hot push (grads and counts, AdaGrad over the
+#: hot plane); on xla the window flattens into dense pushes (a
+#: scatter-add with counts and AdaGrad over the table a family)
+WINDOW_GROUP = {
+    WIN_TPU: {"gather": 2 * WINDOW, "ring": 4 * WINDOW + 6, "scatter": 6,
+              "adagrad": 2},
+    WIN_HYBRID: {"gather": 4 * WINDOW, "ring": 4 * WINDOW + 6,
+                 "scatter": 10, "adagrad": 4},
+    WIN_XLA: {"gather": 2 * WINDOW, "scatter": 2, "adagrad": 2},
+}
+#: the ledger keys the window lines print
+WINDOW_KEYS = ("window_sparse", "window_dense", "window_fmt_sparse",
+               "window_fmt_dense", "coalesced_rows_in",
+               "coalesced_rows_out", "routed_rows", "hot_rows", "wire_bytes",
+               "dispatches", "collective_psum", "plan_compiles",
+               "plan_cache_hits")
+
+
+def _window_model(path: str, vocab, device: str,
+                  inner: int = 2 * WINDOW) -> Word2Vec:
+    """The model of a window path with ``inner_steps: inner``."""
+    conf = ConfigParser().update(DEMO_CONF)
+    conf.set("cluster", "push_window", WINDOW)
+    conf.set("worker", "inner_steps", inner)
+    if path == WIN_HYBRID:
+        return _hybrid_model("gather", vocab, device, conf=conf)
+    sharded = path in (WIN_TPU, WIN_DENSE)
+    if sharded:
+        conf.set("cluster", "transfer", "tpu")
+        conf.set("cluster", "server_num", SHARDS)
+    model = Word2Vec(config=conf, device=device).build_from_vocab(vocab)
+    if path == WIN_DENSE:
+        model.transfer.window_expected_unique = None
+    if model.push_window_size != WINDOW or model.transfer.name != (
+            "tpu" if sharded else "xla"):
+        raise AssertionError(f"{path}: push_window "
+                             f"{model.push_window_size}, transfer "
+                             f"{model.transfer.name}")
+    return model
+
+
+def _window_traffic(tr: dict) -> dict:
+    return {k: tr.get(k, 0) for k in WINDOW_KEYS}
+
+
+def phase_kernels_window(model: Word2Vec, batches) -> list:
+    """B3 and B5 at the shapes one window of WINDOW gather steps on
+    ``tpu@8`` gives them: the per-rank dedup's sums (each rank's W*B*(K+1)
+    / SHARDS h rows onto as many representative slots, with counts), the
+    routed exchange of the deduplicated h rows with their counts column
+    (buckets of W*B*(K+1) / SHARDS slots), the owners' sums of what they
+    receive, and the dense rung's plane (every window row onto the global
+    ``(SHARDS * cap, 100)`` plane with counts); each against its plain
+    version."""
+    rng = np.random.default_rng(37)
+    dev, d = model.device, model.len_vec
+    flush = torch.zeros(2 * 50 * 2 ** 20 // 4, device=dev)
+    state = model.table.state
+    flat = torch.cat([_step_inputs(model, b, rng)[0] for b in batches])
+    L = flat.shape[0] // SHARDS
+    capacity = model.table.capacity
+    owner, valid = window_owners(flat.view(SHARDS, L), capacity)
+    cases = [_scatter_case("window dedup, h", WIN_TPU, owner,
+                           valid.contiguous(), L, d, rng, flush)]
+    ded = model.transfer._prim_window_dedup(
+        flat, {"h": torch.zeros((flat.shape[0], 1), device=dev)}, None,
+        capacity)[0]
+    cases.append(_ring_case("window h rows + counts", (L, d + 1),
+                            torch.float32, rng, flush, dev, path=WIN_TPU))
+    groups, C, cap = model.transfer._route(state, ded)
+    if C != L or len(groups) != 1:
+        raise AssertionError(f"window buckets of {C} slots, expected {L}")
+    owners = ring.ring_exchange_stacked(groups[0].req).view(SHARDS, -1)
+    cases.append(_scatter_case(f"{SHARDS} owners' window h push", WIN_TPU,
+                               owners, (owners >= 0).contiguous(), cap, d,
+                               rng, flush, counts=False))
+    cases.append(_scatter_case("window dense rung plane, h", WIN_DENSE,
+                               flat, (flat >= 0).contiguous(), capacity, d,
+                               rng, flush))
+    return cases
+
+
+def phase_window_parity(path: str, vocab, batches) -> dict:
+    """One group of WINDOW steps (one window) at the reference shape on the
+    card against the same group on the CPU from the same table and draws:
+    err_cnt exact, err_sum within 1e-4, every field (hot planes included)
+    within ``_field_gap``'s tolerance, the same ledger; exactly
+    ``WINDOW_GROUP``'s launches."""
+    model = _window_model(path, vocab, "cuda", inner=WINDOW)
+    cpu_model = _window_model(path, vocab, "cpu", inner=WINDOW)
+    cpu_model.table.state = _cpu_state(model.table.state, cpu_model)
+    rng = np.random.default_rng(13)
+    draws = [_draws(model, BATCH, rng) for _ in batches]
+    fields = [torch.as_tensor(np.stack([np.asarray(f) for f in fs]),
+                              device=model.device)
+              for fs in zip(*map(_batch_fields, batches))]
+    for m in (model, cpu_model):
+        m.transfer.count_traffic = True
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    es_c, ec_c = model._window_group(tuple(fields), draws)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    es_p, ec_p = cpu_model._window_group(
+        tuple(f.cpu() for f in fields),
+        [tuple(t.cpu() for t in d) for d in draws])
+    cpu_s = time.perf_counter() - t0
+    es_c, ec_c, es_p, ec_p = (float(x) for x in (es_c, ec_c, es_p, ec_p))
+    if ec_c != ec_p or not math.isclose(es_c, es_p, rel_tol=1e-4):
+        raise AssertionError(f"{path} window: card ({es_c}, {ec_c}), cpu "
+                             f"({es_p}, {ec_p})")
+    worst = _hold_tables(f"{path} window parity", model, cpu_model)
+    tc = _window_traffic(model.transfer.traffic())
+    tp = _window_traffic(cpu_model.transfer.traffic())
+    want = {**dict.fromkeys(counts, 0), **WINDOW_GROUP[path]}
+    # the plan cache is global: the card's model compiled the plans the
+    # CPU's then found
+    plans = ("plan_compiles", "plan_cache_hits")
+    if counts != want or any(tc[k] != tp[k] for k in tc
+                             if k not in plans) or \
+            tc["window_sparse"] + tc["window_dense"] != 2:
+        raise AssertionError(f"{path} window launched {counts} (its path "
+                             f"gives {want}); ledger card {tc}, cpu {tp}")
+    if model.transfer.overflow_count() or ring.timeouts():
+        raise AssertionError(f"{path} window: overflow or wait timeout")
+    _json_line({"phase": "window_parity", "rendering": path,
+                "push_window": WINDOW, "steps": len(batches),
+                "centers": BATCH, "err_sum": [es_c, es_p],
+                "err_cnt": [ec_c, ec_p], "gap": worst,
+                "envelope": "1e-5 + 1e-3*|cpu|", "traffic": tc,
+                "window_expected_unique":
+                model.transfer.window_expected_unique,
+                "push_paths": dict(model.transfer.push_paths),
+                "card_seconds": card_s, "cpu_seconds": cpu_s,
+                "launches": counts})
+    return counts
+
+
+def phase_train_window(path: str, vocab, corpus: np.ndarray,
+                       card: str) -> dict:
+    """``Word2Vec.train`` of a window path over gather@8's corpus prefix
+    with ``count_traffic`` (inner_steps 8, two windows a group): finite
+    loss, exactly the path's kernels launched, window decisions booked
+    (on xla, where windows flatten into the per-step push, none) and
+    graph replays on xla."""
+    model = _window_model(path, vocab, "cuda")
+    model.transfer.count_traffic = True
+    batcher = CBOWBatcher(corpus[:PATHS[f"gather@{SHARDS}"][2]], vocab,
+                          model.window, model.sample, seed=2008)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    losses = model.train(batcher=batcher, niters=1, batch_size=BATCH)
+    counts = kernels.launch_counts()
+    m = model.train_metrics
+    tr = _window_traffic(m["transfer_traffic"])
+    launched = {k for k, n in counts.items() if n}
+    graphs = path == WIN_XLA
+    decided = tr["window_sparse"] + tr["window_dense"]
+    if (path == WIN_DENSE) is not (tr["window_dense"] == decided > 0):
+        raise AssertionError(f"{path} train: window decisions {tr}")
+    if launched != WINDOW_KERNELS[path] or m["steps"] < MIN_TRAIN_STEPS \
+            or not all(math.isfinite(x) for x in losses) \
+            or m["fused"] is not graphs or (graphs and
+                                            m["graph_replays"] < 1) \
+            or (decided == 0) is not graphs or ring.timeouts() or \
+            (not graphs and model.transfer.overflow_count()):
+        raise AssertionError(f"{path} train: launches {counts}, "
+                             f"{m['steps']} steps, loss {losses}, fused "
+                             f"{m['fused']}, replays {m['graph_replays']}, "
+                             f"ledger {tr}")
+    _json_line({"phase": "train", "rendering": path, "card": card,
+                "push_window": m["push_window"],
+                "inner_steps": m["inner_steps"], "fused": m["fused"],
+                "graph_replays": m["graph_replays"], "loss": losses,
+                "steps": m["steps"], "words": m["words"],
+                "seconds": m["seconds"], "words_per_sec": m["words_per_sec"],
+                "traffic": tr,
+                "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20,
+                "push_paths": m["push_paths"], "launches": counts})
+    return counts
+
+
+def phase_window(vocab, corpus: np.ndarray, card: str) -> tuple:
+    """Phase 10: returns the kernel cases at the window shapes and the
+    launches of the window paths' train runs."""
+    t0 = time.perf_counter()
+    ref = _window_model(WIN_TPU, vocab, "cuda")
+    batches = _batches(vocab, corpus, ref, WINDOW)
+    cases = phase_kernels_window(ref, batches)
+    del ref
+    torch.cuda.empty_cache()
+    report_cases(cases)
+    for path in (WIN_TPU, WIN_HYBRID):
+        phase_window_parity(path, vocab, batches)
+    counts = {path: phase_train_window(path, vocab, corpus, card)
+              for path in (WIN_TPU, WIN_HYBRID, WIN_XLA, WIN_DENSE)}
+    print(f"phase 10 {time.perf_counter() - t0:.1f} s", flush=True)
+    return cases, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2598,6 +2841,13 @@ def main() -> int:
           f"capacity {model.table.capacity} x {model.len_vec}; set-up "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    t_phase = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        nonlocal t_phase
+        print(f"{name} {time.perf_counter() - t_phase:.1f} s", flush=True)
+        t_phase = time.perf_counter()
+
     cases = phase_kernels(model, batch, sbatch)
     del model
     cases += phase_kernels_sharded(_model(f"gather@{SHARDS}", vocab, "cuda"),
@@ -2605,6 +2855,7 @@ def main() -> int:
     cases += phase_kernels_sg(vocab, batch)
     torch.cuda.empty_cache()
     report_cases(cases)
+    phase_done("phase 2")
     phase_step_parity("gather", vocab, batch)
     phase_step_parity("stencil", vocab, sbatch)
     phase_step_parity("stencil_shared", vocab, sbatch)
@@ -2616,9 +2867,12 @@ def main() -> int:
         phase_step_parity(path, vocab, batch)
     phase_step_parity_async(vocab, corpus)
     phase_step_parity_hogwild(vocab, corpus)
+    phase_done("phase 3")
     counts = {r: phase_train(r, vocab, corpus, card) for r in PATHS}
     phase_graph(vocab, corpus, card)
+    phase_done("phase 4")
     phase_input(corpus, vocab, card)
+    phase_done("phase 5")
     phase_cli("", PATHS["gather"][1])
     phase_cli("stencil: 1\n", PATHS["stencil"][1])
     phase_cli("", PATHS[f"gather@{SHARDS}"][1],
@@ -2627,6 +2881,7 @@ def main() -> int:
     phase_cli("", PATHS["gather"][1], worker="pipeline: 2\ninner_steps: 4\n")
     phase_cli("", PATHS["async"][1], variant="async")
     phase_cli("", PATHS["hogwild"][1], variant="hogwild")
+    phase_done("phase 6")
     for path in CKPT_PATHS:
         phase_checkpoint(path, vocab, corpus, card)
     counts["resume"] = phase_resume(vocab, corpus, card)
@@ -2634,6 +2889,7 @@ def main() -> int:
     s2v_cases, counts["sent2vec"] = phase_sent2vec(vocab, corpus, card)
     report_cases(s2v_cases)
     cases += s2v_cases
+    phase_done("phase 7")
     lr_cases, lr_counts = phase_lr_glove(vocab, corpus, card)
     cases += lr_cases
     counts.update(lr_counts)
@@ -2641,6 +2897,9 @@ def main() -> int:
                                                card)
     cases += hybrid_cases
     counts.update(hybrid_counts)
+    window_cases, window_counts = phase_window(vocab, corpus, card)
+    cases += window_cases
+    counts.update(window_counts)
 
     summary = []
     for c in cases:

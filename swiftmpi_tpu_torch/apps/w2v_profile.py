@@ -6,7 +6,7 @@ synthetic corpus, the configuration ``chip_smoke.py`` runs).
         [-stencil 1] [-shared 1] [-sg 1] [-dense 1] [-shards 8] \\
         [-transfer hybrid] [-traffic 1] [-vocab 1000000] \\
         [-dtype bfloat16] [-local_steps L] [-hogwild n] \\
-        [-trace build/w2v_step_trace.json]
+        [-push_window W] [-trace build/w2v_step_trace.json]
 
 ``-stencil 1`` / ``-shared 1`` / ``-sg 1`` / ``-dense 1`` set
 ``[word2vec] stencil`` / ``shared_negatives`` / ``sg`` / ``dense_logits``
@@ -34,6 +34,15 @@ against a snapshot refreshed every L steps, as ``train`` runs it);
 ``-hogwild n`` hogwild with n workers on the card (``async_mode:
 hogwild``, the card n times in the model's cluster), ``L`` batches a
 worker (default 1), timed and profiled in whole groups of n*L batches.
+``-push_window W`` runs ``inner_steps: INNER_STEPS`` groups with
+``[cluster] push_window: W`` through ``Word2Vec._run_group``, as
+``train`` runs them (on ``xla`` each group one CUDA graph replay after
+the first; on ``tpu`` and ``hybrid`` eager), timed and profiled in whole
+groups (``-push_window 1``: the same groups without windows); with
+``-traffic 1`` the ledger's deltas are then one a group, and
+``windows_per_group`` says how many window pushes a family a group
+makes.  ``-push_window 8 -vocab 1000000 -transfer hybrid`` is bench.py's
+``scale_window`` cell.
 
 Batches are made before the clock starts, so the numbers are the
 device path's alone (the host batcher's time is reported apart):
@@ -76,8 +85,10 @@ from swiftmpi_tpu_torch.data.text import (CBOWBatcher, StencilBatch, Vocab,
                                           build_vocab, synthetic_corpus_bulk)
 from swiftmpi_tpu_torch.kernels import ring
 from swiftmpi_tpu_torch.models.word2vec import (Word2Vec, _batch_fields,
-                                                _refresh, _snapshot)
+                                                _refresh, _snapshot,
+                                                _stack_group_host)
 from swiftmpi_tpu_torch.utils import CMDLine, ConfigParser
+from swiftmpi_tpu_torch.utils.pipeline import LossAccum as _LossAccum
 
 #: the text8-shaped corpus of the reference configuration
 TEXT8_CORPUS = dict(n_sentences=17_000, vocab_size=70_000, length=1_000,
@@ -95,6 +106,9 @@ PROFILED_STEPS = 10
 WARM_STEPS = 5
 #: steps whose ledger deltas ``-traffic 1`` reports one by one
 TRAFFIC_STEPS = 4
+#: ``[worker] inner_steps`` of the ``-push_window`` runs (bench.py's
+#: INNER_STEPS)
+INNER_STEPS = 8
 
 #: bench.py's scale_hybrid cell: its vocabulary, settings and batch
 SCALE_VOCAB = 1_000_000
@@ -191,7 +205,8 @@ def profile(steps: int = 40, trace: str = "", stencil: int = 0,
             shared: int = 0, shards: int = 0,
             dtype: str = "float32", sg: int = 0, dense: int = 0,
             local_steps: int = 1, hogwild: int = 0, transfer: str = "",
-            traffic: int = 0, vocab_size: int = 0) -> dict:
+            traffic: int = 0, vocab_size: int = 0,
+            push_window: int = 0) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("w2v_profile measures the card; no CUDA device "
                            "is available")
@@ -215,8 +230,13 @@ def profile(steps: int = 40, trace: str = "", stencil: int = 0,
         config.set("cluster", "transfer", transfer or "tpu")
         config.set("cluster", "server_num", shards or 1)
     cluster = None
-    # whole hogwild groups: the warm-up, the timed steps and the window
+    # whole hogwild or window groups: the warm-up, the timed steps and the
+    # profiled window
     group = 1
+    if push_window:
+        config.set("cluster", "push_window", push_window)
+        config.set("worker", "inner_steps", INNER_STEPS)
+        group = INNER_STEPS
     if hogwild:
         config.set("word2vec", "async_mode", "hogwild")
         cluster = Cluster(config, devices=["cuda"] * hogwild).initialize()
@@ -226,7 +246,8 @@ def profile(steps: int = 40, trace: str = "", stencil: int = 0,
     warm = -(-WARM_STEPS // group) * group
     steps = -(-steps // group) * group
     n_window = -(-PROFILED_STEPS // group) * group
-    need = warm + steps + n_window + (TRAFFIC_STEPS if traffic else 0)
+    n_traffic = (group if push_window else TRAFFIC_STEPS) if traffic else 0
+    need = warm + steps + n_window + n_traffic
     if vocab_size:
         batcher = ZipfSpans(vocab, model.window, need)
     else:
@@ -249,10 +270,18 @@ def profile(steps: int = 40, trace: str = "", stencil: int = 0,
     snapshot = (_snapshot(model.table.state, model.access.pull_fields,
                           model.cluster.mesh)
                 if local_steps > 1 and not hogwild else None)
-    done = 0
+    done = replays = 0
+    graphs = bool(push_window) and model.transfer.name == "xla"
+    losses = (_LossAccum(None, model.device), _LossAccum(None, model.device))
 
     def run(bs):
-        nonlocal done
+        nonlocal done, replays
+        if push_window:
+            for i in range(0, len(bs), group):
+                fields = tuple(torch.from_numpy(a).to(model.device) for a in
+                               _stack_group_host(bs[i:i + group]))
+                replays += model._run_group(fields, graphs, None, *losses)
+            return
         if hogwild:
             for i in range(0, len(bs), group):
                 model._hogwild_group([_batch_fields(b)
@@ -270,6 +299,7 @@ def profile(steps: int = 40, trace: str = "", stencil: int = 0,
     run(batches[:warm])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    replays = 0                    # graph replays from here on
     timed = batches[warm:warm + steps]
     ring0 = ring.operand_bytes
     t0 = time.perf_counter()
@@ -293,10 +323,12 @@ def profile(steps: int = 40, trace: str = "", stencil: int = 0,
     if trace:
         prof.export_chrome_trace(trace)
     per_step = []
-    for b in batches[warm + steps + n_window:]:
-        # one traffic() read a step, after the timed and profiled steps
+    rest = batches[warm + steps + n_window:]
+    for i in range(0, len(rest), group if push_window else 1):
+        # one traffic() read a step (a group with -push_window), after the
+        # timed and profiled steps
         before = model.transfer.traffic()
-        run([b])
+        run(rest[i:i + (group if push_window else 1)])
         per_step.append({k: v for k, v in model.transfer.traffic_delta(
             before).items() if v})
     return {
@@ -306,7 +338,12 @@ def profile(steps: int = 40, trace: str = "", stencil: int = 0,
         "steps": steps, "batch": batch_size,
         "n_hot": model.table.n_hot,
         "ring_bytes_per_step": ring_bytes,
-        "traffic_per_step": per_step,
+        "traffic_per_step" if not push_window else "traffic_per_group":
+        per_step,
+        "push_window": push_window, "inner_steps": group if push_window
+        else 1, "windows_per_group": -(-group // push_window)
+        if push_window else 0, "graph_replays": replays,
+        "window_expected_unique": model.transfer.window_expected_unique,
         "transfer": model.transfer.name, "shards": model.cluster.n_servers,
         "centers_per_batch": words / steps,
         "vocab": len(vocab), "capacity": model.table.capacity,
@@ -356,6 +393,8 @@ def main(argv=None) -> int:
                           "print each of a few steps' ledger deltas")
     cmd.registerParameter("vocab", "1000000: bench.py's scale_hybrid "
                           "shape")
+    cmd.registerParameter("push_window", "W: groups of 8 steps with "
+                          "[cluster] push_window: W")
     out = profile(int(cmd.getValue("steps", "40")),
                   cmd.getValue("trace", ""),
                   int(cmd.getValue("stencil", "0")),
@@ -368,7 +407,8 @@ def main(argv=None) -> int:
                   int(cmd.getValue("hogwild", "0")),
                   cmd.getValue("transfer", ""),
                   int(cmd.getValue("traffic", "0")),
-                  int(cmd.getValue("vocab", "0")))
+                  int(cmd.getValue("vocab", "0")),
+                  int(cmd.getValue("push_window", "0")))
     print(json.dumps(out), flush=True)
     return 0
 

@@ -30,7 +30,7 @@ file written by either package loads in the other:
 Text dumps and loads index the unified slot space (hot rows first), so a
 hybrid table's dump is the same file as any other's.  The JAX package's
 ``@ef`` residual planes and ``@rowver`` version plane are not ported
-(ROADMAP A12c/d): a checkpoint that carries them raises
+(ROADMAP A12d): a checkpoint that carries them raises
 ``NotImplementedError``.
 """
 
@@ -209,7 +209,7 @@ _TMP_SWEEP_FORCE_AGE_S = 7 * 86400.0
 # can detect torn or bit-rotted writes (np.load checks no zip CRC)
 _CRC_PREFIX = "__crc__"
 
-#: the JAX package's planes the port does not have (ROADMAP A12c/d)
+#: the JAX package's planes the port does not have (ROADMAP A12d)
 _UNPORTED_PLANES = ("@ef", "@rowver")
 
 
@@ -431,7 +431,7 @@ def load_checkpoint(table: SparseTable, path: str,
             raise NotImplementedError(
                 f"checkpoint carries planes {planes}: the error-feedback "
                 "and row-version planes are not ported yet (ROADMAP "
-                "A12c/d)")
+                "A12d)")
         if n_hot != table.n_hot:
             raise ValueError(
                 f"checkpoint has n_hot={n_hot}, table has "

@@ -72,6 +72,16 @@ bfloat16, as the JAX package does: every pull is upcast to float32
 before any math, the gradients and the AdaGrad accumulators stay float32,
 and the update rounds once on store.
 
+``[cluster] push_window: W > 1`` coalesces the pushes of a sync group
+(``inner_steps > 1``), as JAX's ``_build_multi_step_windowed``: the
+group's steps split into windows of W (the last one shorter), every step
+of a window computes its grads against the table as the window found
+it, and each push family's ``(W, B, ...)`` stack goes through one
+``transfer.push_window`` (:meth:`Word2Vec._window_group`).  On ``xla``
+such a group is one CUDA graph like any other; the window's format is
+decided on the host from shapes alone.  ``build_from_vocab`` sets the
+transfer's ``window_expected_unique`` from the vocab's counts.
+
 The table tensors are updated in place, the counterpart of the JAX step
 donating its state.  Each step takes the negative-sampling draws ``(j,
 u)`` as an optional argument: the seam the parity tests replay the JAX
@@ -102,6 +112,7 @@ import numpy as np
 import torch
 
 from swiftmpi_tpu_torch.cluster import Cluster
+from swiftmpi_tpu_torch.cluster.hashfrag import expected_unique_rows
 from swiftmpi_tpu_torch.data.text import (CBOWBatch, CBOWBatcher,
                                           StencilBatch, Vocab, build_vocab,
                                           load_corpus)
@@ -173,14 +184,19 @@ def _stack_group_host(batches) -> tuple:
 class _FusedSteps(StepGraph):
     """N training steps as one CUDA graph (the counterpart of JAX's
     ``_build_multi_step``: N steps in one dispatch): ``utils.graphs``'
-    :class:`StepGraph` of :meth:`Word2Vec._step_fields`, its static
-    buffers in the step's argument dtypes, the model's generator
-    registered (each replay draws fresh negatives, the draws N eager steps
-    would take), the summed ``(err_sum, err_cnt)`` its outputs."""
+    :class:`StepGraph` of :meth:`Word2Vec._step_fields` (with
+    ``push_window > 1``, of :meth:`Word2Vec._window_group` on the whole
+    group), its static buffers in the step's argument dtypes, the model's
+    generator registered (each replay draws fresh negatives, the draws N
+    eager steps would take), the summed ``(err_sum, err_cnt)`` its
+    outputs."""
 
     def __init__(self, model: "Word2Vec", fields):
-        super().__init__(model._step_fields, fields, model._arg_dtypes(),
-                         model._gen, model.transfer.push_paths)
+        windowed = model.push_window_size > 1
+        super().__init__(model._window_group if windowed
+                         else model._step_fields, fields,
+                         model._arg_dtypes(), model._gen,
+                         model.transfer.push_paths, whole=windowed)
 
 
 def _parity_targets(slot_of_vocab, alias_prob, alias_idx, centers, c_slots,
@@ -373,6 +389,11 @@ class Word2Vec:
         # 0 for unbounded
         self.dispatch_depth = g("worker", "dispatch_depth",
                                 "auto").to_string()
+        # [cluster] push_window: W > 1 coalesces W steps' pushes of a sync
+        # group into one exchange a family
+        self.push_window_size = g("cluster", "push_window", 1).to_int32()
+        if self.push_window_size < 1:
+            raise ValueError("[cluster] push_window must be >= 1")
         self._check_supported()
         #: the rendering the step runs, named as the JAX package names it
         if self.stencil:
@@ -470,8 +491,6 @@ class Word2Vec:
         want(self.stencil and data_plane == "xla",
              "[cluster] data_plane: xla with stencil (the device-kind "
              "verdict store)", "A16")
-        want(g("cluster", "push_window", 1).to_int32() > 1,
-             "[cluster] push_window > 1", "A12c")
         for key in ("wire_quant", "pull_quant"):
             want(g("cluster", key, "off").to_string() != "off",
                  f"[cluster] {key}", "A12d")
@@ -522,6 +541,11 @@ class Word2Vec:
         slots = self.table.key_index.lookup(vocab.keys)
         self._slot_of_vocab = torch.as_tensor(slots, dtype=torch.int32,
                                               device=self.device)
+        if self.push_window_size > 1:
+            # the window's sparse/dense crossover priced at the unique rows
+            # a window of draws from the vocab's counts leaves
+            self.transfer.window_expected_unique = expected_unique_rows(
+                vocab.counts, self.push_window_size * self.minibatch)
         prob, alias = build_unigram_alias(vocab.counts)
         self._alias_prob = torch.as_tensor(prob, device=self.device)
         self._alias_idx = torch.as_tensor(alias, dtype=torch.int64,
@@ -781,6 +805,51 @@ class Word2Vec:
                                    self.access, mean=spec.mean)
         return state
 
+    def _apply_window(self, state, window):
+        """Apply phase of a window (JAX ``_build_apply_window``):
+        ``window`` holds each step's push specs; each family's W pushes,
+        stacked ``(W, B, ...)``, go through one ``transfer.push_window``.
+        A dense (capacity-shaped) family has no deferred window: it
+        raises."""
+        for specs in zip(*window):
+            spec = specs[0]
+            if spec.dense:
+                raise ValueError(
+                    "[cluster] push_window > 1 cannot coalesce dense "
+                    "(capacity-shaped) pushes — disable [word2vec] "
+                    "dense_logits or set push_window: 1")
+            self.transfer.push_window(
+                state, torch.stack([p.slots for p in specs]),
+                {f: torch.stack([p.grads[f] for p in specs])
+                 for f in spec.grads}, self.access, mean=spec.mean,
+                counts=None if spec.counts is None
+                else torch.stack([p.counts for p in specs]))
+        return state
+
+    def _window_group(self, fields, draws: Optional[List[Draws]] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One sync group with ``push_window: W`` (JAX
+        ``_build_multi_step_windowed``): ``fields`` the group's ``(N,
+        ...)`` stacked batch fields, ``draws`` one ``(j, u)`` a step or
+        None.  The N steps split into windows ``[s, min(s + W, N))``;
+        every step of a window computes its grads against the table as
+        the window found it, then :meth:`_apply_window` pushes the
+        window.  Returns the summed ``(err_sum, err_cnt)`` on the
+        device."""
+        state = self.table.state
+        N, W = fields[0].shape[0], self.push_window_size
+        es_t = ec_t = 0
+        for s in range(0, N, W):
+            window = []
+            for i in range(s, min(s + W, N)):
+                pushes, es, ec = self._grads_for(
+                    state, tuple(f[i] for f in fields),
+                    None if draws is None else draws[i])
+                window.append(pushes)
+                es_t, ec_t = es_t + es, ec_t + ec
+            self._apply_window(state, window)
+        return es_t, ec_t
+
     # -- the step ------------------------------------------------------------
     def draw_shape(self, B: int) -> Tuple[int, ...]:
         """The shape of a step's ``(j, u)`` draws for a batch of B
@@ -962,11 +1031,17 @@ class Word2Vec:
         one replay of the group length's CUDA graph when ``graphs`` and
         the graph exists (returns True), else the steps one by one; with
         ``graphs`` the first group of a length is the graph's warm-up."""
+        windowed = self.push_window_size > 1
+
         def step(f):
+            if windowed:
+                return self._window_group(f, None if draws is None else [
+                    next(draws) for _ in range(f[0].shape[0])])
             return self._step_fields(f, None if draws is None
                                      else next(draws))
         out, replayed = run_group(self._fused_cache, fields, step, graphs,
-                                  lambda f: _FusedSteps(self, f))
+                                  lambda f: _FusedSteps(self, f),
+                                  whole=windowed)
         for es, ec in out:
             es_q.add(es)
             ec_q.add(ec)
@@ -1163,6 +1238,7 @@ class Word2Vec:
             "loader": ("native" if isinstance(batcher, NativeCBOWBatcher)
                        else "python"),
             "inner_steps": self.inner_steps,
+            "push_window": self.push_window_size,
             "fused": graphs, "graph_replays": replays,
             "local_steps": self.local_steps, "async_mode": self.async_mode,
             "hogwild_skipped_tail_words": dropped,

@@ -24,9 +24,14 @@ layout above, offset by ``n_hot``:
 Hot slots never move: ``grow`` re-strides the tail only, and ``restore``
 refuses a hot pair the active partition does not map.  The online
 ``repartition`` (and its ``RepartitionPlan``), ``shard_rows`` and the
-elastic owner map are ROADMAP A13; the window wire-format pricers
-(``window_wire_format``, ``price_window_formats``,
-``price_hot_collectives``) are ROADMAP A12c/d.
+elastic owner map are ROADMAP A13.
+
+The window wire-format pricers (``window_wire_format``,
+``price_window_formats``, ``price_hot_collectives``) are the JAX
+module's host math, whole: every rung of the ladder is priced as JAX
+prices it, so a plan's decision and its evidence match field for field.
+The port executes the lossless rungs (``sparse``, ``dense``); the
+encoded and lossy ones are ROADMAP A12d.
 """
 
 from __future__ import annotations
@@ -75,6 +80,100 @@ def calibrate_hot_k(counts, mass_lo: float = 0.5, mass_hi: float = 0.8,
         if hits.size:
             k = int(hits[-1]) + 1
     return k, float(cdf[k - 1])
+
+
+
+def window_wire_format(rows: int, capacity: int, row_bytes: int,
+                       dense_ratio: float = 2.0,
+                       expected_unique: Optional[float] = None,
+                       quant: str = "off",
+                       quant_row_bytes: Optional[int] = None,
+                       quant_guard: float = 1.25,
+                       sketch: bool = False) -> str:
+    """Wire format for one coalesced push window: the decision of
+    :func:`price_window_formats`."""
+    decision, _ = price_window_formats(
+        rows, capacity, row_bytes, dense_ratio=dense_ratio,
+        expected_unique=expected_unique, quant=quant,
+        quant_row_bytes=quant_row_bytes, quant_guard=quant_guard,
+        sketch=sketch)
+    return decision
+
+
+def price_window_formats(rows: int, capacity: int, row_bytes: int,
+                         dense_ratio: float = 2.0,
+                         expected_unique: Optional[float] = None,
+                         quant: str = "off",
+                         quant_row_bytes: Optional[int] = None,
+                         quant_guard: float = 1.25,
+                         sketch: bool = False):
+    """``(decision, prices)`` for one window: every format priced, mapped
+    to its modeled byte volume, over ``eff = min(rows, capacity,
+    expected_unique)`` effective rows (``expected_unique``: the rows the
+    dedup leaves, from ``cluster.hashfrag.expected_unique_rows``).
+
+      dense          ``capacity * row_bytes``
+      sparse         ``eff * (4 + row_bytes)``
+      bitmap         ``capacity / 8 + eff * (row_bytes - 4)``
+      sparse_sketch  ``transfer.sketch.sketch_wire_bytes``
+      sparse_q       ``eff * (4 + quant_row_bytes)``
+
+    The window densifies once ``sparse * dense_ratio >= dense`` (SparCML,
+    arXiv:1802.08021).  With ``quant`` off and ``sketch`` unset only the
+    2-way pair is priced.  Past 2-way the sketch rung is always priced
+    and wins only when ``sketch`` is armed; ``sparse_q`` wins only when
+    its volume times ``quant_guard`` still beats the best lossless
+    rung.  Host-static: a window bakes in one format."""
+    eff = float(min(rows, capacity))
+    if expected_unique is not None:
+        eff = min(eff, float(expected_unique))
+    sparse_vol = eff * (4.0 + row_bytes)
+    dense_vol = float(capacity) * row_bytes
+    prices = {"sparse": sparse_vol, "dense": dense_vol}
+    if sparse_vol * dense_ratio >= dense_vol:
+        return "dense", prices
+    if quant == "off" and not sketch:
+        return "sparse", prices
+    value_bytes = max(float(row_bytes) - 4.0, 0.0)
+    bitmap_vol = capacity / 8.0 + eff * value_bytes
+    prices["bitmap"] = bitmap_vol
+    from swiftmpi_tpu_torch.transfer.sketch import sketch_wire_bytes
+    sketch_vol = sketch_wire_bytes(capacity, eff, value_bytes)
+    prices["sparse_sketch"] = sketch_vol
+    best, best_vol = "sparse", sparse_vol
+    if bitmap_vol < best_vol:
+        best, best_vol = "bitmap", bitmap_vol
+    if sketch and sketch_vol < best_vol:
+        best, best_vol = "sparse_sketch", sketch_vol
+    if quant != "off" and quant_row_bytes is not None:
+        q_vol = eff * (4.0 + float(quant_row_bytes))
+        prices["sparse_q"] = q_vol
+        if q_vol * quant_guard <= best_vol:
+            return "sparse_q", prices
+    return best, prices
+
+
+def price_hot_collectives(capacity: int, width_bytes: int,
+                          touched_fraction: Optional[float],
+                          sparse_ar_ratio: float = 2.0):
+    """``(decision, prices)`` of a capacity-shaped reconcile (the hybrid's
+    hot plane, the window's dense rung): ``psum`` (``capacity *
+    width_bytes``) against ``sparse_allreduce`` (``touched * (4 +
+    width_bytes)``, ``touched = touched_fraction * capacity``), the byte
+    models of ``transfer.sparse_allreduce``.  The dense psum wins while
+    ``sparse * sparse_ar_ratio >= dense``, and always without a
+    ``touched_fraction``."""
+    from swiftmpi_tpu_torch.transfer.sparse_allreduce import (
+        dense_psum_bytes, sparse_ar_bytes)
+    dense_vol = dense_psum_bytes(capacity, width_bytes)
+    if touched_fraction is None:
+        return "psum", {"psum": dense_vol}
+    frac = min(max(float(touched_fraction), 0.0), 1.0)
+    sparse_vol = sparse_ar_bytes(frac * capacity, width_bytes)
+    prices = {"psum": dense_vol, "sparse_allreduce": sparse_vol}
+    if sparse_vol * sparse_ar_ratio >= dense_vol:
+        return "psum", prices
+    return "sparse_allreduce", prices
 
 
 class HotColdPartition:

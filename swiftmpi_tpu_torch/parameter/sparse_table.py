@@ -38,7 +38,7 @@ are drawn after every tail field, from the same stream, so a table with
 ``n_hot = 0`` is drawn exactly as before the planes existed.  Push paths
 update the tensors in place; ``grow`` moves the tail to new, larger
 tensors (the hot planes stay) and bumps ``generation``.  The ``@rowver``
-and ``@ef`` planes and ``repartition`` are not ported yet (ROADMAP A12c/d,
+and ``@ef`` planes and ``repartition`` are not ported yet (ROADMAP A12d,
 A13).
 """
 

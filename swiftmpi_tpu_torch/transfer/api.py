@@ -15,18 +15,36 @@ access method's update rule to the table.  Four backends:
 :func:`~swiftmpi_tpu_torch.transfer.plan.pull_route` placement, books
 the pull ledger and calls the backend's one primitive, ``_prim_pull``.
 ``push_span`` is the sort-free push of the stencil rendering's span
-family.  The window push and the wire formats are ROADMAP A12c/d.
+family.
+
+``push_window`` is the TrafficPlan interpreter of the window-coalesced
+push (``[cluster] push_window: W``): W steps' pushes of one family,
+stacked ``(W, B, ...)``, exchanged once.  It compiles a plan per window
+(``transfer/plan.py``: the host-static sparse/dense decision) and runs it
+over the backend's primitives: ``_prim_window_dedup`` (the
+representative trick: a scatter-min of positions names each slot's
+first occurrence, grads and counts fold into it through the scatter-add
+kernel), ``_prim_window_exchange`` and ``_push_window_dense``.  A W == 1
+window, and a W > 1 window on ``local`` or ``xla`` with every
+compression knob off, flattens and takes the per-step ``push`` or
+``push_span``.  The quantized and encoded rungs, their error feedback
+and the sparse-allreduce collective raise (ROADMAP A12d); the tracer and
+telemetry taps are ROADMAP A14 and do nothing here.
 
 The wire ledger (off until ``count_traffic`` is set) keeps the JAX
 package's keys and contract: totals that never decrease, no reset,
-intervals by :meth:`Transfer.traffic_delta`.  Keys only the window push
-and the wire formats move stay 0.  A count the step computes on the
-device is added in place to an int64 counter vector on that device (one
-per device the backend booked on), together with the static quantities
-booked with it, so a replayed CUDA graph books exactly what the eager
-steps book and a step reads nothing back; only :meth:`Transfer.traffic`
-reads the counters to the host.  The host oracle's counts are host
-integers.
+intervals by :meth:`Transfer.traffic_delta`.  Keys only the encoded wire
+formats and the pull cache move stay 0.  A count the step computes on
+the device is added in place to an int64 counter vector on that device
+(one per device the backend booked on), together with the static
+quantities booked with it, so a replayed CUDA graph books exactly what
+the eager steps book and a step reads nothing back; only
+:meth:`Transfer.traffic` reads the counters to the host.  As in the JAX
+package, which books them through callbacks per execution, the window
+decisions (``window_*``), ``coalesced_rows_*`` and ``wire_bytes`` are
+such device counts; ``plan_compiles``, ``plan_cache_hits`` and
+``collective_*`` are booked on the host once per ``push_window`` call
+(JAX: once per trace).  The host oracle's counts are host integers.
 """
 
 from __future__ import annotations
@@ -41,8 +59,10 @@ from swiftmpi_tpu_torch.parameter.access import AccessMethod
 
 TableState = Dict[str, torch.Tensor]
 
-#: seed dense/sparse crossover ratio: a push goes dense once its batch is
-#: at least ``capacity / ratio`` rows (``int(cap / 2.0) == cap // 2``)
+#: seed dense/sparse crossover ratio of every family: a push goes dense
+#: once its batch is at least ``capacity / ratio`` rows (``int(cap / 2.0)
+#: == cap // 2``), a window once its sparse volume reaches ``dense /
+#: ratio``
 DENSE_RATIO = 2.0
 
 #: the wire ledger's keys, named and ordered as the JAX package's
@@ -87,6 +107,36 @@ def grad_row_bytes(grads, with_index: bool = True,
     return total + (4 if with_counts else 0)
 
 
+def quant_grad_row_bytes(grads, quant: str,
+                         with_counts: bool = False) -> int:
+    """Encoded wire bytes per pushed row under ``sparse_q``: the int32
+    index, each grad field at 1 byte an element plus a 4-byte scale
+    (``int8``) or 2 bytes an element (``bf16``), the float32 counts
+    column unchanged.  The pricer's input when ``wire_quant`` is set."""
+    if quant not in ("int8", "bf16"):
+        raise ValueError(f"quant_grad_row_bytes: unknown quant {quant!r}")
+    total = 4
+    for g in grads.values():
+        d = int(g[0].shape[-1] if isinstance(g, (list, tuple))
+                else g.shape[-1])
+        total += d + 4 if quant == "int8" else 2 * d
+    return total + (4 if with_counts else 0)
+
+
+def _state_capacity(state) -> int:
+    """Rows of the table's slot space: a field's rows, summed over its
+    shards for a sharded state."""
+    v = next(iter(state.values()))
+    if isinstance(v, (list, tuple)):
+        return sum(int(t.shape[0]) for t in v)
+    return int(v.shape[0])
+
+
+def _flat(x):
+    """A ``(W, B, ...)`` window array (tensor or numpy) as ``(W*B, ...)``."""
+    return x.reshape((-1,) + tuple(x.shape[2:]))
+
+
 def pull_row_bytes(state, fields) -> int:
     """Wire bytes per pulled row: an int32 request index plus the pulled
     fields' widths at the table's stored dtypes."""
@@ -118,6 +168,38 @@ class Transfer:
     name: str = "?"
     #: book the wire ledger (off by default, as in the JAX package)
     count_traffic: bool = False
+
+    # -- the window plan's knobs (read by the plan cache key) ---------------
+    #: post-dedup unique rows of a window, for the sparse/dense crossover
+    #: (set by the model from the vocab's counts); None: the raw rows
+    window_expected_unique: Optional[float] = None
+    #: value quantization of the window's sparse rungs (``off``; ``int8``
+    #: and ``bf16`` are ROADMAP A12d)
+    wire_quant: str = "off"
+    #: ``sparse_q`` wins only when its volume times this beats the best
+    #: lossless rung
+    wire_quant_guard: float = 1.25
+    #: arm the ``sparse_sketch`` rung (ROADMAP A12d)
+    wire_sketch: bool = False
+    #: the dense and hot reconciles' collective (``psum``; ``auto`` and
+    #: ``sparse_allreduce`` are ROADMAP A12d)
+    collective_mode: str = "psum"
+    #: expected touched fraction of the hot plane a window (``auto``'s
+    #: density signal); None: unknown, the dense collective wins
+    hot_touched_fraction: Optional[float] = None
+    #: the sparse collective must beat the dense one by this factor
+    sparse_ar_ratio: float = 2.0
+
+    #: window decision -> its ``window_fmt_*`` key
+    _WINDOW_FMT_KEY = {"dense": "window_fmt_dense",
+                       "sparse": "window_fmt_sparse",
+                       "sparse_q": "window_fmt_q",
+                       "bitmap": "window_fmt_bitmap",
+                       "sparse_sketch": "window_fmt_sketch"}
+    #: collective -> its ``collective_*`` key
+    _COLLECTIVE_KEY = {"psum": "collective_psum",
+                       "psum_scatter": "collective_psum",
+                       "sparse_allreduce": "collective_sparse_ar"}
 
     def __init__(self):
         #: pushes per (grad families, path) — e.g. ``{"h:dense": 20}``
@@ -152,19 +234,43 @@ class Transfer:
         if isinstance(on, torch.Tensor):
             led = self._ledger(on.device)
             for k, n in counts.items():
-                led[_INDEX[k]].add_(n)
+                if isinstance(n, torch.Tensor) or n:
+                    led[_INDEX[k]].add_(n)
         else:
             for k, n in counts.items():
                 self._host_ledger[_INDEX[k]] += int(n)
 
+    def _decision_counts(self, decision: Optional[str]) -> dict:
+        """The ledger keys one window decision books: the 2-way
+        ``window_dense``/``window_sparse`` and its ``window_fmt_*``."""
+        if not decision:
+            return {}
+        two_way = "window_dense" if decision == "dense" else "window_sparse"
+        return {two_way: 1, self._WINDOW_FMT_KEY[decision]: 1}
+
     def _record_exchange(self, rows, row_bytes: int, base_bytes: int = 0,
-                         on=None) -> None:
+                         on=None, decision: Optional[str] = None) -> None:
         """One push exchange of ``rows`` rows at ``row_bytes`` each, plus
-        ``base_bytes`` of per-exchange overhead; ``on`` (default
-        ``rows``) names the device whose counters book it."""
+        ``base_bytes`` of per-exchange overhead, and the window
+        ``decision`` that chose it; ``on`` (default ``rows``) names the
+        device whose counters book it."""
         self._book(rows if on is None else on,
                    wire_bytes=rows * int(row_bytes) + int(base_bytes),
-                   dispatches=1)
+                   dispatches=1, **self._decision_counts(decision))
+
+    def _record_coalesce(self, rows_in, rows_out,
+                         decision: Optional[str] = None, on=None) -> None:
+        """One window's pre-exchange dedup (rows before and after) and its
+        wire-format decision, per execution: on the counters of ``on``'s
+        device (default ``rows_in``'s), host integers for the oracle."""
+        self._book(rows_in if on is None else on, coalesced_rows_in=rows_in,
+                   coalesced_rows_out=rows_out,
+                   **self._decision_counts(decision))
+
+    def _count_collective(self, collective: str) -> None:
+        """One reconcile's collective decision, on the host once per
+        ``push_window`` call (the plan is host-static)."""
+        self._book(None, **{self._COLLECTIVE_KEY[collective]: 1})
 
     def _record_pull(self, rows, row_bytes: int) -> None:
         """One pull of ``rows`` rows at ``row_bytes`` each; ``row_bytes``
@@ -190,9 +296,10 @@ class Transfer:
     def wire_traffic(self) -> Dict[str, int]:
         """The cumulative wire ledger: ``wire_bytes`` and ``dispatches``
         of the push exchanges, ``pull_bytes``/``pull_rows``/
-        ``pull_hot_rows`` of the pulls, and the keys of the window push
-        and wire formats (ROADMAP A12c/d), 0 here.  Every value is a total
-        that never decreases; there is no reset (see
+        ``pull_hot_rows`` of the pulls, the window push's decisions,
+        coalesced rows and plan counters, and the keys of the encoded wire
+        formats and the pull cache (ROADMAP A12d), 0 here.  Every value is
+        a total that never decreases; there is no reset (see
         :meth:`traffic_delta`)."""
         c = self._counts()
         return {k: int(c[_INDEX[k]]) for k in WIRE_KEYS}
@@ -275,7 +382,8 @@ class Transfer:
         a dense push as every row without the index, a sparse one as its
         valid rows."""
         capacity = next(iter(state.values())).shape[0]
-        dense = slots.shape[0] >= int(capacity / DENSE_RATIO)
+        dense = slots.shape[0] >= int(
+            capacity / self.wire_dense_ratio("push_apply"))
         self.push_paths[f"{','.join(grads)}:"
                         f"{'dense' if dense else 'sparse'}"] += 1
         if self.count_traffic:
@@ -304,6 +412,272 @@ class Transfer:
                                   grad_row_bytes(grads, with_counts=True))
         return self._push_span(state, slots, grads, counts, access, mean)
 
+    # -- the window push: the TrafficPlan interpreter -------------------------
+    def wire_dense_ratio(self, family: Optional[str] = None) -> float:
+        """The sparse/dense crossover ratio of a push family (None: the
+        default family)."""
+        ratios = self.__dict__.get("_wire_ratios", {})
+        return float(ratios.get(family, ratios.get(None, DENSE_RATIO)))
+
+    def set_wire_dense_ratio(self, ratio: float,
+                             family: Optional[str] = None) -> None:
+        """Set the crossover ratio of ``family`` (None: the default); the
+        next plan compile prices with it."""
+        self.__dict__.setdefault("_wire_ratios", {})[family] = float(ratio)
+
+    def _window_plan(self, rows: int, capacity: int, row_bytes: int,
+                     quant_row_bytes: Optional[int] = None,
+                     family: Optional[str] = "window",
+                     with_counts: bool = True):
+        """Compile (or fetch) the :class:`~swiftmpi_tpu_torch.transfer.
+        plan.TrafficPlan` of one window shape and book the compile or the
+        cache hit on the host."""
+        from swiftmpi_tpu_torch.transfer.plan import compile_window_plan
+        plan, hit = compile_window_plan(
+            self, int(rows), int(capacity), int(row_bytes),
+            quant_row_bytes, with_counts, family=family)
+        self._book(None, **{"plan_cache_hits" if hit else "plan_compiles":
+                            1})
+        return plan
+
+    def _hot_plan(self, n_hot: int, width_bytes: int):
+        """Compile (or fetch) the hot plane's reconcile plan, booked as
+        :meth:`_window_plan` books."""
+        from swiftmpi_tpu_torch.transfer.plan import compile_hot_plan
+        plan, hit = compile_hot_plan(self, int(n_hot), int(width_bytes))
+        self._book(None, **{"plan_cache_hits" if hit else "plan_compiles":
+                            1})
+        return plan
+
+    def decide_wire_format(self, rows: int, capacity: int, row_bytes: int,
+                           family: Optional[str] = None,
+                           quant_row_bytes: Optional[int] = None) -> str:
+        """The wire format of one exchange of ``rows`` candidate rows
+        against a ``capacity``-row dense alternative: the window plan's
+        decision."""
+        return self._window_plan(rows, capacity, row_bytes,
+                                 quant_row_bytes=quant_row_bytes,
+                                 family=family).wire_format
+
+    def push_window(self, state: TableState, slots, grads,
+                    access: AccessMethod, mean: bool = False,
+                    counts=None) -> TableState:
+        """Window-coalesced push: ``slots`` ``(W, B)``, ``grads`` ``{f: (W,
+        B, d)}``, ``counts`` (optional, a span family) ``(W, B)``; W
+        steps' pushes summed and exchanged once.  Push's rule extended
+        over the window: every (step, position) contribution to a slot is
+        summed, ``mean`` divides by the window's total count, and the
+        access rule runs once per slot a window.
+
+        W == 1 is the flatten of a unit axis and the per-step
+        ``push``/``push_span``, bit for bit; so is a W > 1 window on a
+        route that does not always decide (``local``, ``xla``) with every
+        compression knob off.  Otherwise one plan a window, executed
+        over the backend's primitives."""
+        from swiftmpi_tpu_torch.transfer.plan import window_route
+        route = window_route(self.name)
+        shaped = (np.asarray(slots, np.int64) if route.eager
+                  else slots.to(torch.int32))
+        if shaped.ndim < 2 or shaped.shape[0] == 1:
+            return self._push_window_passthrough(state, slots, grads, access,
+                                                 mean=mean, counts=counts)
+        armed = self.wire_quant != "off" or bool(self.wire_sketch)
+        if not route.always_decide and not armed:
+            return self._push_window_passthrough(state, slots, grads, access,
+                                                 mean=mean, counts=counts)
+        # flatten the (W, B) window once, in the route's element space
+        flat = shaped.reshape(-1)
+        if route.eager:
+            fgrads = {f: _flat(np.asarray(g, np.float32))
+                      for f, g in grads.items()}
+            fcounts = (None if counts is None
+                       else np.asarray(counts, np.float32).reshape(-1))
+        else:
+            fgrads = {f: _flat(g) for f, g in grads.items()}
+            fcounts = (None if counts is None
+                       else counts.to(torch.float32).reshape(-1))
+        if not route.counts_follow_data and fcounts is None:
+            # the oracle routes price and ship counts rows regardless
+            fcounts = (np.ones(flat.shape, np.float32) if route.eager
+                       else torch.ones(flat.shape, dtype=torch.float32,
+                                       device=flat.device))
+        if route.placement == "hot_split":
+            return self._interpret_window_hot_split(
+                state, flat, fgrads, fcounts, access, mean,
+                counts_present=counts is not None)
+        return self._interpret_window_flat(
+            state, flat, fgrads, access, mean, fcounts,
+            passthrough=(slots, grads, counts))
+
+    def _push_window_passthrough(self, state: TableState, slots, grads,
+                                 access: AccessMethod, mean: bool = False,
+                                 counts=None) -> TableState:
+        """The no-plan window: flatten, then the per-step ``push`` (or
+        ``push_span`` with ``counts``)."""
+        flat = slots.reshape(-1)
+        fgrads = {f: _flat(g) for f, g in grads.items()}
+        if counts is not None:
+            return self.push_span(state, flat, fgrads, counts.reshape(-1),
+                                  access, mean=mean)
+        return self.push(state, flat, fgrads, access, mean=mean)
+
+    def _prim_window_dedup(self, flat, fgrads, fcounts, capacity: int):
+        """Collapse the repeated slots of a flattened window into their
+        first occurrence, summing grads and counts: ``(ded_slots,
+        ded_grads, ded_counts)`` of the same shapes, non-representatives
+        ``-1``.  Default: the single-device representative trick over a
+        ``(capacity + 1,)`` plane (:func:`window_dedup`)."""
+        ded, dg, dc = window_dedup(
+            flat[None], {f: g[None] for f, g in fgrads.items()},
+            None if fcounts is None else fcounts[None], capacity)
+        return ded[0], {f: g[0] for f, g in dg.items()}, dc[0]
+
+    def _prim_ef_drain(self, state, ded_slots, ded_grads, capacity: int,
+                       quant: str):
+        raise NotImplementedError(
+            "error feedback around a quantized window (the @ef planes) is "
+            "not ported yet (ROADMAP A12d)")
+
+    def _prim_window_exchange(self, state, ded_slots, ded_grads,
+                              ded_counts, access, mean: bool,
+                              need_counts: bool, wire):
+        """Ship a deduplicated window's surviving rows.  Default: the span
+        family (counts always ride)."""
+        if wire is not None:
+            raise NotImplementedError(
+                "an encoded window exchange is not ported yet (ROADMAP "
+                "A12d)")
+        return self.push_span(state, ded_slots, ded_grads, ded_counts,
+                              access, mean=mean)
+
+    def _prim_sparse_allreduce(self, state, flat, fgrads, access,
+                               mean: bool, fcounts):
+        raise NotImplementedError(
+            "the sparse-allreduce collective ([cluster] collective) is not "
+            "ported yet (ROADMAP A12d)")
+
+    def _push_window_dense(self, state, flat, fgrads, access, mean: bool,
+                           fcounts):
+        raise NotImplementedError
+
+    def _interpret_window_flat(self, state, flat, fgrads, access,
+                               mean: bool, fcounts, pre_deduped=False,
+                               passthrough=None):
+        """Run one window's plan over a flattened W > 1 window.
+        ``pre_deduped``: the rows already went through the hybrid's
+        unified-space dedup, so the dedup primitive is skipped and the
+        decision is booked with zero rows.  ``passthrough``: the original
+        ``(slots, grads, counts)``, for routes whose lossless decisions
+        run as the per-step push."""
+        from swiftmpi_tpu_torch.transfer.plan import window_route
+        route = window_route(self.name)
+        capacity = _state_capacity(state)
+        with_counts = ((fcounts is not None) if route.counts_follow_data
+                       else True)
+        row_bytes = grad_row_bytes(fgrads, with_counts=with_counts)
+        quant = self.wire_quant
+        qrb = (quant_grad_row_bytes(fgrads, quant, with_counts=with_counts)
+               if quant != "off" else None)
+        plan = self._window_plan(flat.shape[0], capacity, row_bytes,
+                                 quant_row_bytes=qrb, family="window",
+                                 with_counts=with_counts)
+        spec, decision = plan.spec, plan.wire_format
+        if decision == "dense" and route.always_decide:
+            self._count_collective(plan.collective)
+            if plan.collective == "sparse_allreduce":
+                return self._prim_sparse_allreduce(state, flat, fgrads,
+                                                   access, mean, fcounts)
+            if self.count_traffic:
+                # the static table size, not the row count
+                self._record_exchange(
+                    capacity, grad_row_bytes(fgrads, with_index=False,
+                                             with_counts=mean),
+                    on=flat, decision="dense")
+            return self._push_window_dense(state, flat, fgrads, access,
+                                           mean, fcounts)
+        if not spec.dedup and not route.dedups_lossless:
+            # the oracle routes run their lossless decisions as the
+            # per-step push; the decision is still booked
+            if self.count_traffic:
+                self._record_coalesce(0, 0, decision=decision,
+                                      on=None if route.eager else flat)
+            slots0, grads0, counts0 = passthrough
+            return self._push_window_passthrough(
+                state, slots0, grads0, access, mean=mean, counts=counts0)
+        if pre_deduped:
+            ded_slots, ded_grads, ded_counts = flat, fgrads, fcounts
+            if self.count_traffic:
+                self._record_coalesce(0, 0, decision=decision, on=flat)
+        else:
+            ded_slots, ded_grads, ded_counts = self._prim_window_dedup(
+                flat, fgrads, fcounts, capacity)
+            if self.count_traffic:
+                if route.eager:
+                    self._record_coalesce(int((flat >= 0).sum()),
+                                          int((ded_slots >= 0).sum()),
+                                          decision=decision)
+                else:
+                    self._record_coalesce((flat >= 0).sum(),
+                                          (ded_slots >= 0).sum(),
+                                          decision=decision)
+        if spec.ef:
+            state, ded_grads = self._prim_ef_drain(
+                state, ded_slots, ded_grads, capacity, quant)
+        # a mean needs the contribution counts the dedup collapsed; plain
+        # sums need none
+        need_counts = ((mean or with_counts) if route.counts_follow_data
+                       else True)
+        wire = (spec.wire(ded_grads, quant, capacity, need_counts)
+                if spec.encoded else None)
+        return self._prim_window_exchange(state, ded_slots, ded_grads,
+                                          ded_counts, access, mean,
+                                          need_counts, wire)
+
+    def _interpret_window_hot_split(self, state, flat, fgrads, fcounts,
+                                    access, mean: bool,
+                                    counts_present: bool):
+        """The ``hot_split`` placement (hybrid): pad, dedup once in the
+        unified slot space, reconcile the hot slice with the hot push
+        and run the tail slice's plan on the tail backend
+        (``pre_deduped``).  Uses the hybrid's ``_pad_batch``,
+        ``_split_state``, ``_n_hot`` and ``_hot_push``."""
+        flat, fgrads, fcounts, _ = self._pad_batch(flat, fgrads, fcounts)
+        tail_state, hot_state = self._split_state(state)
+        n_hot = self._n_hot(state)
+        if n_hot == 0:
+            self.tail._interpret_window_flat(tail_state, flat, fgrads,
+                                             access, mean, fcounts)
+            return state
+        cap_tail = _state_capacity(tail_state)
+        ded_slots, ded_grads, ded_counts = self.tail._prim_window_dedup(
+            flat, fgrads, fcounts, n_hot + cap_tail)
+        if self.count_traffic:
+            self._record_coalesce((flat >= 0).sum(), (ded_slots >= 0).sum())
+        is_hot = (ded_slots >= 0) & (ded_slots < n_hot)
+        tail_slots = torch.where(ded_slots >= n_hot, ded_slots - n_hot, -1)
+        # the grad widths plus the float32 counts column, which is also
+        # the sparse wire's index cost: one number prices both collectives
+        width_bytes = grad_row_bytes(ded_grads, with_index=False) + 4
+        hot_plan = self._hot_plan(n_hot, width_bytes)
+        self._count_collective(hot_plan.collective)
+        if hot_plan.collective == "sparse_allreduce":
+            raise NotImplementedError(
+                "the hybrid's sparse hot reconcile (_hot_push_sparse, "
+                "[cluster] collective) is not ported yet (ROADMAP A12d)")
+        # the mean now depends on the collapsed multiplicities, so both
+        # slices take the counts
+        need_counts = mean or counts_present
+        self.tail._interpret_window_flat(
+            tail_state, tail_slots, ded_grads, access, mean,
+            ded_counts if need_counts else None, pre_deduped=True)
+        if self.count_traffic:
+            n = is_hot.sum()
+            self._record_hot(n, n_hot * width_bytes)
+            self._record_exchange(n_hot, width_bytes, on=n)
+        self._hot_push(hot_state, ded_slots, is_hot, ded_grads, access,
+                       mean, ded_counts if need_counts else None)
+        return state
+
     def _prim_pull(self, state: TableState, slots, fields) -> TableState:
         """Masked row gather of ``fields`` at ``slots`` (``-1``: zero
         rows), no ledger."""
@@ -317,6 +691,54 @@ class Transfer:
 
     def _push_sparse(self, state, slots, grads, access, mean=False):
         raise NotImplementedError
+
+
+def window_dedup(slots: torch.Tensor, grads, counts, capacity: int):
+    """The window dedup of R ranks at once (the JAX package's
+    representative trick, ``_prim_window_dedup``): ``slots`` ``(R, L)``
+    int32 over a ``capacity``-row slot space, ``grads`` ``{f: (R, L,
+    d)}`` float32, ``counts`` ``(R, L)`` or None (one a row).  Rank by
+    rank, a scatter-min of positions into an ``(R, capacity + 1)`` plane
+    names each slot's first position (its representative); every row's
+    grads and count fold into its representative through the scatter-add
+    kernel (one launch a family, the counts from the first family's when
+    ``counts`` is None).  Returns ``(ded_slots, ded_grads, ded_counts)``
+    of the same shapes: ``-1`` and zero rows off the representatives."""
+    from swiftmpi_tpu_torch.kernels.scatter import masked_scatter_add
+    R, L = slots.shape
+    owner, valid = window_owners(slots, capacity)
+    ded_grads, ded_counts = {}, None
+    for f in sorted(grads):
+        take = counts is None and ded_counts is None
+        res = masked_scatter_add(owner, valid, grads[f].contiguous(), L,
+                                 counts=take)
+        if take:
+            res, ded_counts = res
+        ded_grads[f] = res
+    if counts is not None:
+        ded_counts = masked_scatter_add(
+            owner, valid, counts.to(torch.float32).reshape(R, L, 1)
+            .contiguous(), L)[..., 0]
+    pos = torch.arange(L, dtype=torch.int32, device=slots.device)
+    return (torch.where(valid & (owner == pos), slots, -1), ded_grads,
+            ded_counts)
+
+
+def window_owners(slots: torch.Tensor, capacity: int):
+    """Each row's representative position in its rank's slice of ``(R,
+    L)`` int32 slots (the first position holding its slot: a scatter-min
+    of positions into an ``(R, capacity + 1)`` plane, outside any kernel
+    as in the JAX package) and the rows' validity; an invalid row's owner
+    is ``L``, which the scatter-add drops.  Returns ``(owner, valid)``,
+    ``owner`` int32."""
+    R, L = slots.shape
+    dev = slots.device
+    valid = slots >= 0
+    pos = torch.arange(L, dtype=torch.int32, device=dev).expand(R, L)
+    safe = torch.where(valid, slots, capacity).long()
+    rep = torch.full((R, capacity + 1), L, dtype=torch.int32, device=dev)
+    rep.scatter_reduce_(1, safe, torch.where(valid, pos, L), "amin")
+    return torch.where(valid, rep.gather(1, safe), L).contiguous(), valid
 
 
 def get_transfer(name: str, **kwargs) -> Transfer:

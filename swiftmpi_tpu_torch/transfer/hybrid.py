@@ -23,6 +23,17 @@ zero grads (stencil spans are B + 2W rows) and sliced back.  A state with
 no hot planes (``n_hot = 0``: LR, GloVe, a table built without a
 partition) takes the tail path alone: bit for bit ``tpu``.
 
+The window push is the interpreter's ``hot_split`` placement
+(``Transfer._interpret_window_hot_split``): the padded window is
+deduplicated once in the unified slot space (the tail's per-rank pass
+over ``n_hot + cap_tail`` slots), the hot slice goes through
+:meth:`_hot_push` with the deduplicated counts, and the tail slice runs
+its own window plan on the ``tpu`` tail, already deduplicated.  With
+``n_hot == 0`` the whole window goes to the tail.  The window knobs
+(``window_expected_unique``, ``wire_quant``, ``wire_sketch``, the dense
+ratios, ``collective_mode`` ...) live on the tail, which prices the
+window; the hot plan reads them through this backend.
+
 ``traffic()`` reports ``routed_rows`` (the tail's), ``hot_rows`` (hot
 hits of pulls and pushes), ``psum_bytes`` (``n_hot x`` (grad row bytes
 + 4) a push), ``overflow_dropped`` and the ledger keys, the tail's and
@@ -67,6 +78,12 @@ class HybridTransfer(Transfer):
     @property
     def n(self) -> int:
         return self.tail.n
+
+    def wire_dense_ratio(self, family=None) -> float:
+        return self.tail.wire_dense_ratio(family)
+
+    def set_wire_dense_ratio(self, ratio, family=None) -> None:
+        self.tail.set_wire_dense_ratio(ratio, family)
 
     def overflow_count(self) -> int:
         return self.tail.overflow_count()
@@ -186,7 +203,18 @@ class HybridTransfer(Transfer):
         inv = 1.0 / csum.clamp(min=1.0) if mean else None
         access.apply_push(hot_state, acc, mul=inv)
 
-    def push_window(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the window-coalesced push of the hybrid transfer is not "
-            "ported yet (ROADMAP A12c)")
+
+def _tail_knob(name: str) -> property:
+    def get(self):
+        return getattr(self.tail, name)
+
+    def set(self, value):
+        setattr(self.tail, name, value)
+    return property(get, set, doc=f"``{name}`` of the tail, which prices "
+                    "the window")
+
+
+for _knob in ("window_expected_unique", "wire_quant", "wire_quant_guard",
+              "wire_sketch", "collective_mode", "hot_touched_fraction",
+              "sparse_ar_ratio"):
+    setattr(HybridTransfer, _knob, _tail_knob(_knob))

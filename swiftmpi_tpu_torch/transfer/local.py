@@ -12,8 +12,10 @@ exchange would ship (valid rows x ``grad_row_bytes``), as host integers.
 
 It is a host oracle by design: it takes numpy arrays or CPU tensors and
 returns numpy arrays, and it raises on a tensor on the card rather than
-copying a table there to the host behind the caller's back.  The window
-primitives are ROADMAP A12c/d.
+copying a table there to the host behind the caller's back.  Its window
+push (``Transfer.push_window``) takes numpy too: with every compression
+knob off a window flattens into ``push``/``push_span``; the compacting
+dedup the encoded rungs need is ROADMAP A12d.
 """
 
 from __future__ import annotations
@@ -113,3 +115,8 @@ class LocalTransfer(Transfer):
                 acc /= np.maximum(csum, 1.0)[:, None]
             combined[f] = acc
         return self._apply(state, uniq, combined, access)
+
+    def _prim_window_dedup(self, flat, fgrads, fcounts, capacity):
+        raise NotImplementedError(
+            "the oracle's compacting window dedup (the encoded wire rungs) "
+            "is not ported yet (ROADMAP A12d)")

@@ -48,10 +48,31 @@ books them as ``routed_rows`` and one exchange of sparse rows, the span
 family's counts column included, exactly where ``TpuTransfer`` books
 them; :meth:`ShardedTransfer.traffic` adds ``overflow_dropped``.
 
+The window push (``Transfer.push_window``, ``[cluster] push_window: W``)
+prices every W > 1 window and runs its plan over three primitives, as
+``TpuTransfer`` does.  The flat ``(W * B,)`` window splits into the n
+ranks' contiguous slices of ``W * B / n`` rows (a slice spans steps), and
+buckets hold ``C = W * B / n`` slots (or ``bucket_capacity``):
+
+* ``_prim_window_dedup``, the per-rank dedup pre-pass: each rank folds
+  the repeats within its own slice into their first position
+  (``api.window_dedup``: a scatter-min plane per rank, the grads and
+  counts summed by the scatter-add kernel, every rank in one launch a
+  family); repeats across ranks still sum at the owner.
+* ``_prim_window_exchange``: the deduplicated rows through :meth:`push`,
+  their counts riding as a span family's when the mean needs them.
+* ``_push_window_dense``, the dense rung: JAX scatters each rank's slice
+  into a capacity-shaped plane and reduce-scatters it onto the owners
+  (``psum_scatter``).  With the ranks on one card, one scatter-add
+  launch of every window row onto the global ``(n * cap, W)`` plane is
+  both, its counts from the same launch; each shard's tile is then a
+  slice of the plane, and the AdaGrad kernel applies it over the block
+  of shards with the mean's reciprocal.
+
 Not ported: the data axis across processes (``dp_axis``, the sparse DCN
-reconcile; ROADMAP A11), the window primitives and ``@rowver`` stamping
-(ROADMAP A12c/d), and ``[cluster] data_plane: xla``, the library route of
-the exchange (ROADMAP A16).
+reconcile; ROADMAP A11), ``@rowver`` stamping and the sparse-allreduce
+collective (ROADMAP A12d), and ``[cluster] data_plane: xla``, the library
+route of the exchange (ROADMAP A16).
 """
 
 from __future__ import annotations
@@ -65,7 +86,8 @@ from swiftmpi_tpu_torch.kernels.ring import (ring_exchange,
                                              ring_exchange_stacked)
 from swiftmpi_tpu_torch.kernels.scatter import masked_scatter_add
 from swiftmpi_tpu_torch.parameter.sparse_table import shard_block
-from swiftmpi_tpu_torch.transfer.api import Transfer, grad_row_bytes
+from swiftmpi_tpu_torch.transfer.api import (Transfer, grad_row_bytes,
+                                             window_dedup)
 
 _COUNTS = "__counts__"
 
@@ -315,7 +337,7 @@ class ShardedTransfer(Transfer):
 
     # -- push --------------------------------------------------------------
     def push(self, state, slots, grads, access, mean: bool = False,
-             counts=None):
+             counts=None, _wire=None):
         """Route ``(slot, grad)`` pairs to their owners, sum them per
         owner row (``mean``: divide by the contribution counts) and apply
         the access rule to every shard in place.
@@ -326,15 +348,19 @@ class ShardedTransfer(Transfer):
         span family: the per-row contribution counts ride the routing as a
         synthetic width-1 grad field, so ``mean`` divides by the data counts
         rather than one per request, as ``push_span`` of the single-device
-        backend does."""
+        backend does.  ``_wire`` (the window's ``(row_bytes,
+        base_bytes)``) replaces the ledger's sparse row model."""
         n = self.n
         with_counts = counts is not None
         if self.count_traffic:
             rows = (slots >= 0).sum()
             self._record_routed(rows)
             # the counts column rides as a 4-byte column of span rows
-            self._record_exchange(
-                rows, grad_row_bytes(grads, with_counts=with_counts))
+            if _wire is not None:
+                self._record_exchange(rows, _wire[0], base_bytes=_wire[1])
+            else:
+                self._record_exchange(
+                    rows, grad_row_bytes(grads, with_counts=with_counts))
         self.push_paths[f"{','.join(grads)}:"
                         f"{'routed_span' if with_counts else 'routed'}"] += 1
         grads = dict(grads)
@@ -399,8 +425,68 @@ class ShardedTransfer(Transfer):
         return self.push(state, slots, grads, access, mean=mean,
                          counts=counts)
 
-    # -- not ported ----------------------------------------------------------
-    def push_window(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the window-coalesced push of the sharded transfer is not "
-            "ported yet (ROADMAP A12c)")
+    # -- the window primitives ----------------------------------------------
+    def _rank_slices(self, flat: torch.Tensor) -> int:
+        """Rows of each rank's contiguous slice of a flat window."""
+        if flat.dim() != 1 or flat.shape[0] % self.n:
+            raise ValueError(
+                f"a window of {tuple(flat.shape)} slots does not split into "
+                f"{self.n} equal rank slices")
+        return flat.shape[0] // self.n
+
+    def _prim_window_dedup(self, flat, fgrads, fcounts, capacity):
+        """Each rank's slice deduplicated on its own (the JAX package's
+        per-device pre-pass), every rank in one pass on the window's
+        device: worker-side work, like the bucketing."""
+        n, L = self.n, self._rank_slices(flat)
+        ded, dgrads, dcounts = window_dedup(
+            flat.view(n, L),
+            {f: g.view(n, L, g.shape[-1]) for f, g in fgrads.items()},
+            None if fcounts is None else fcounts.view(n, L), capacity)
+        return (ded.reshape(-1),
+                {f: g.reshape(n * L, -1) for f, g in dgrads.items()},
+                dcounts.reshape(-1))
+
+    def _prim_window_exchange(self, state, ded_slots, ded_grads, ded_counts,
+                              access, mean, need_counts, wire):
+        """The deduplicated window through the bucket routing once."""
+        return self.push(state, ded_slots, ded_grads, access, mean=mean,
+                         counts=ded_counts if need_counts else None,
+                         _wire=wire)
+
+    def _push_window_dense(self, state, flat, fgrads, access, mean,
+                           fcounts):
+        """The dense rung: every row onto the global ``(n * cap, W)``
+        plane, one scatter-add launch a family (the counts of a mean
+        from the first family's launch, or from a width-1 launch of the
+        span counts), then each device's block of shards updated from
+        its tiles of the plane, the mean's reciprocal inside the AdaGrad
+        launch.  Untouched rows see a zero gradient, as in JAX."""
+        self._rank_slices(flat)
+        n = self.n
+        cap = next(iter(state.values()))[0].shape[0]
+        capacity = n * cap
+        valid = flat >= 0
+        self.push_paths[f"{','.join(sorted(fgrads))}:window_dense"] += 1
+        planes, cnt = {}, None
+        for f in sorted(fgrads):
+            take = mean and fcounts is None and cnt is None
+            res = masked_scatter_add(flat, valid, fgrads[f].contiguous(),
+                                     capacity, counts=take)
+            if take:
+                res, cnt = res
+            planes[f] = res.view(n, cap, -1)
+        if mean and fcounts is not None:
+            cnt = masked_scatter_add(flat, valid, fcounts.to(torch.float32)
+                                     .reshape(-1, 1).contiguous(),
+                                     capacity)[:, 0]
+        inv = (1.0 / cnt.clamp(min=1.0)).view(n, cap) if mean else None
+        for g in self._groups:
+            dev, ranks = g
+            tiles = {f: self._take(p, ranks).to(dev)
+                     for f, p in planes.items()}
+            access.apply_push(
+                {f: shard_block([state[f][r] for r in ranks])
+                 for f in access.touched_fields(tiles)}, tiles,
+                mul=None if inv is None else self._take(inv, ranks).to(dev))
+        return state

@@ -5,7 +5,10 @@ regression, the fused step of GloVe).
 
 A model hands :func:`run_group` a step callable (one batch's fields in,
 a tuple of device scalars out, nothing read back to the host) and a
-group of batches stacked as ``(N, ...)`` tensors on the card.  The first
+group of batches stacked as ``(N, ...)`` tensors on the card; with
+``whole=True`` the callable takes the whole group's stacked fields at
+once (word2vec's window-coalesced groups, whose steps share one push a
+window) and returns the group's summed outputs.  The first
 group of a length runs its steps eagerly on a side stream (the warm-up a
 capture needs), then :class:`StepGraph` captures the N steps once; every
 later group of that length is one replay.
@@ -44,13 +47,14 @@ Step = Callable[[tuple], Tuple[torch.Tensor, ...]]
 
 class StepGraph:
     """``n`` calls of ``step`` as one CUDA graph, ``n`` the leading length
-    of ``fields``; the static buffers take ``dtypes`` (default: the
-    fields' own)."""
+    of ``fields`` (``whole``: one call of ``step`` on all ``n``); the
+    static buffers take ``dtypes`` (default: the fields' own)."""
 
     def __init__(self, step: Step, fields: Sequence[torch.Tensor],
                  dtypes: Optional[Sequence[torch.dtype]] = None,
                  generator: Optional[torch.Generator] = None,
-                 push_paths: Optional[Counter] = None):
+                 push_paths: Optional[Counter] = None,
+                 whole: bool = False):
         dev = fields[0].device
         n = fields[0].shape[0]
         self.n = n
@@ -68,8 +72,8 @@ class StepGraph:
         try:
             with torch.cuda.graph(self.graph,
                                   capture_error_mode="thread_local"):
-                total = None
-                for i in range(n):
+                total = step(tuple(self.static)) if whole else None
+                for i in range(0 if whole else n):
                     out = step(tuple(s[i] for s in self.static))
                     total = out if total is None else tuple(
                         a + b for a, b in zip(total, out))
@@ -107,31 +111,34 @@ def graph_key(table, *tensors: torch.Tensor) -> tuple:
 
 
 def run_group(cache: Dict[int, StepGraph], fields, step: Step,
-              graphs: bool, capture: Callable[[tuple], StepGraph]
-              ) -> Tuple[List[tuple], bool]:
+              graphs: bool, capture: Callable[[tuple], StepGraph],
+              whole: bool = False) -> Tuple[List[tuple], bool]:
     """The steps of one group, in order: one replay of the group length's
     graph from ``cache`` when ``graphs`` and it exists, else the steps one
-    by one through ``step``.  With ``graphs``, the first group of a length
-    is the capture's warm-up: its steps run on a side stream, then
-    ``capture(fields)`` captures the graph into ``cache`` (the capture
-    runs nothing).  Returns the outputs (one summed tuple for a replay,
-    one tuple a step otherwise) and whether the group was a replay."""
+    by one through ``step`` (``whole``: one call on the group).  With
+    ``graphs``, the first group of a length is the capture's warm-up: its
+    steps run on a side stream, then ``capture(fields)`` captures the
+    graph into ``cache`` (the capture runs nothing).  Returns the outputs
+    (one summed tuple for a replay or a whole group, one tuple a step
+    otherwise) and whether the group was a replay."""
     L = fields[0].shape[0]
     fused = cache.get(L) if graphs else None
     if fused is not None:
         return [fused.replay(fields)], True
-    out = []
+
+    def eager():
+        if whole:
+            return [step(tuple(fields))]
+        return [step(tuple(f[i] for f in fields)) for i in range(L)]
+
     if not graphs:
-        for i in range(L):
-            out.append(step(tuple(f[i] for f in fields)))
-        return out, False
+        return eager(), False
     dev = fields[0].device
     cur = torch.cuda.current_stream(dev)
     side = torch.cuda.Stream(dev)
     side.wait_stream(cur)
     with torch.cuda.stream(side):
-        for i in range(L):
-            out.append(step(tuple(f[i] for f in fields)))
+        out = eager()
     cur.wait_stream(side)
     for res in out:               # used on this stream from here on
         for t in res:

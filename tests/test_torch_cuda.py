@@ -1471,3 +1471,177 @@ def test_graphed_ledger_matches_eager_ledger(dev):
     assert graphed.train_metrics["transfer_traffic"] == want
     assert want["dispatches"] == 2 * plain.train_metrics["steps"]
     assert want["pull_rows"] > 0 and want["wire_bytes"] > 0
+
+
+# -- the window push ------------------------------------------------------------
+
+def _window_model(dev, transfer, W, seed=0, n=8, **worker):
+    """A model at the reference widths with ``[cluster] push_window: W``
+    on ``transfer`` (``n`` ranks on ``tpu`` and ``hybrid``)."""
+    conf = {"cluster": {"transfer": transfer, "push_window": W,
+                        "server_num": 1 if transfer == "xla" else n},
+            "word2vec": {"len_vec": 100, "window": 4, "negative": 20,
+                         "sample": 1e-3, "learning_rate": 0.05},
+            "server": {"initial_learning_rate": 0.7},
+            "worker": {"minibatch": 800, **worker}}
+    m = Word2Vec(config=ConfigParser().update(conf), device=dev, seed=seed)
+    sents = synthetic_corpus(400, 3000, 40, seed=8)
+    m.build(sents)
+    return m, sents
+
+
+@pytest.mark.parametrize("transfer", ["tpu", "hybrid", "xla"])
+def test_window_group_on_card_matches_cpu(dev, transfer):
+    """One group of 4 steps at ``push_window: 2`` on the card and on the
+    CPU from the same table and draws: err_cnt exact, err_sum rtol 1e-4,
+    the tables within the envelope, the same window decisions and
+    coalesced rows; the card ran the dedup's and the owners' sums on B3,
+    the exchanges on B5 (``tpu``, ``hybrid``), the pulls on B2 and the
+    applies on B1."""
+    card, sents = _window_model(dev, transfer, 2, inner_steps=4)
+    cpu = Word2Vec(config=card.config, device="cpu")
+    cpu.build_from_vocab(card.vocab)
+    cpu.table.state = state_from_jax(state_to_numpy(card.table.state), "cpu",
+                                     mesh=cpu.cluster.mesh)
+    for m in (card, cpu):
+        m.transfer.count_traffic = True
+    groups = _items(card, sents, 200, 1, group=4)
+    rng = np.random.default_rng(3)
+    shape = card.draw_shape(200)
+    draws = [(rng.integers(0, len(card.vocab), shape),
+              rng.random(shape, np.float32)) for _ in range(4)]
+    kernels.reset_launches()
+    es_c, ec_c = card._window_group(
+        tuple(torch.from_numpy(f).to(dev) for f in groups[0]), draws)
+    counts = kernels.launch_counts()
+    es_p, ec_p = cpu._window_group(
+        tuple(torch.from_numpy(f) for f in groups[0]), draws)
+    assert float(ec_c) == float(ec_p)
+    np.testing.assert_allclose(float(es_c), float(es_p), rtol=1e-4)
+    _close(state_to_numpy(card.table.state), state_to_numpy(cpu.table.state),
+           f"window {transfer}")
+    tc, tp = card.transfer.traffic(), cpu.transfer.traffic()
+    for k in ("window_sparse", "window_dense", "coalesced_rows_in",
+              "coalesced_rows_out", "wire_bytes", "routed_rows"):
+        assert tc.get(k) == tp.get(k), (k, tc, tp)
+    assert card.transfer.push_paths == cpu.transfer.push_paths
+    want = {"adagrad", "gather", "scatter"} | (
+        {"ring"} if transfer != "xla" else set())
+    assert {k for k, v in counts.items() if v} >= want - (
+        {"scatter"} if transfer == "xla" else set()), counts
+    if transfer != "xla":
+        assert tc["window_sparse"] + tc["window_dense"] == 4
+
+
+def test_window_dense_rung_on_card_matches_cpu(dev):
+    """The ``tpu`` dense rung at d = 100: a window over most of 8 shards of
+    8 rows, one B3 launch a family onto the global plane with the counts,
+    B1 over the block with the mean's reciprocal; card against CPU within
+    JAX's rtol 1e-4 / atol 1e-5, one launch each."""
+    from swiftmpi_tpu_torch.cluster import ps_mesh
+    from swiftmpi_tpu_torch.parameter import KeyIndex, SparseTable, w2v_access
+    from swiftmpi_tpu_torch.transfer import get_transfer
+    from swiftmpi_tpu_torch.transfer.plan import clear_plan_cache
+    acc = w2v_access(0.7, 100)
+    rng = np.random.default_rng(4)
+    ki = KeyIndex(8, 8)
+    slots = np.asarray(ki.lookup(rng.integers(0, 24, 4 * 64).astype(
+        np.uint64)), np.int32).reshape(4, 64)
+    slots[:, ::7] = -1
+    grads = {f: rng.normal(size=(4, 64, 100)).astype(np.float32)
+             for f in ("h", "v")}
+    start = SparseTable(acc, ki, "cpu", seed=2,
+                        mesh=ps_mesh(8, ["cpu"])).to_numpy()
+    out = []
+    for where in (dev, "cpu"):
+        layout = ps_mesh(8, [where])
+        table = SparseTable(acc, ki, where, seed=2, mesh=layout)
+        table.state = state_from_jax(start, where, mesh=layout)
+        t = get_transfer("tpu", mesh=layout)
+        t.count_traffic = True
+        clear_plan_cache()            # each run compiles its plan
+        kernels.reset_launches()
+        t.push_window(table.state, torch.from_numpy(slots).to(where),
+                      {f: torch.from_numpy(g).to(where)
+                       for f, g in grads.items()}, acc, mean=True)
+        out.append((state_to_numpy(table.state), kernels.launch_counts(),
+                    t.traffic()))
+    (card, counts, tr), (cpu, _, tr_cpu) = out
+    assert tr["window_dense"] == 1 and tr == tr_cpu
+    assert counts["scatter"] == 2 and counts["adagrad"] == 2
+    assert counts["ring"] == 0
+    for f in cpu:
+        np.testing.assert_allclose(card[f], cpu[f], rtol=1e-4, atol=1e-5,
+                                   err_msg=f)
+
+
+def test_windowed_graph_replay_matches_plain_windows(dev):
+    """``inner_steps: 4`` at ``push_window: 2`` on ``xla`` as one CUDA
+    graph against the same windowed groups run plainly, from one table
+    and generator seed, two groups: bit for bit (sparse pushes only and
+    PyTorch's deterministic ``index_add_``), the same launches."""
+    from swiftmpi_tpu_torch.models.word2vec import _FusedSteps
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        warm, _ = _window_model(dev, "xla", 2, seed=9, inner_steps=4)
+        graph_m, sents = _window_model(dev, "xla", 2, seed=1, inner_steps=4)
+        plain_m, _ = _window_model(dev, "xla", 2, seed=1, inner_steps=4)
+        for f, t in plain_m.table.state.items():
+            t.copy_(graph_m.table.state[f])
+        # 16 centers: a window's 672 h rows stay under half the 1,635
+        # rows, so both families push sparse (no B3)
+        groups = _items(graph_m, sents, 16, 3, group=4)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            warm._window_group(tuple(torch.from_numpy(f).to(dev)
+                                     for f in groups[0]))
+        torch.cuda.current_stream().wait_stream(side)
+        staged = [tuple(torch.from_numpy(f).to(dev) for f in g)
+                  for g in groups[1:]]
+        kernels.reset_launches()
+        fused = _FusedSteps(graph_m, staged[0])
+        outs = [fused.replay(g) for g in staged]
+        graph_counts = kernels.launch_counts()
+        kernels.reset_launches()
+        plain = [plain_m._window_group(g) for g in staged]
+        torch.cuda.synchronize()
+        assert graph_counts == kernels.launch_counts()
+        assert graph_counts["scatter"] == 0 and graph_counts["adagrad"] > 0
+        assert dict(graph_m.transfer.push_paths) \
+            == dict(plain_m.transfer.push_paths)
+        for (es_g, ec_g), (es_p, ec_p) in zip(outs, plain):
+            assert float(ec_g) == float(ec_p) > 0
+            assert float(es_g) == float(es_p)
+        for f, t in graph_m.table.state.items():
+            assert torch.equal(t, plain_m.table.state[f]), f
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def test_windowed_train_on_card_uses_graphs(dev):
+    """``Word2Vec.train`` at ``push_window: 2``, ``inner_steps: 4`` on
+    ``xla`` replays its groups as graphs (finite losses) and takes the
+    push paths of the same training without graphs (draws given, so the
+    groups run eagerly)."""
+    runs = []
+    for graphs in (True, False):
+        m, sents = _window_model(dev, "xla", 2, seed=3, inner_steps=4)
+        b = CBOWBatcher(sents, m.vocab, m.window, m.sample, seed=5)
+        draws = None
+        if not graphs:
+            rng = np.random.default_rng(0)
+            draws = iter(lambda: (rng.integers(0, len(m.vocab),
+                                               m.draw_shape(100)),
+                                  rng.random(m.draw_shape(100), np.float32)),
+                         None)
+        losses = m.train(batcher=b, niters=2, batch_size=100, draws=draws)
+        assert all(np.isfinite(losses))
+        runs.append(m)
+    graphed, eager = runs
+    assert graphed.train_metrics["fused"]
+    assert graphed.train_metrics["graph_replays"] > 0
+    assert not eager.train_metrics["fused"]
+    assert graphed.train_metrics["push_window"] == 2
+    assert graphed.train_metrics["push_paths"] \
+        == eager.train_metrics["push_paths"]

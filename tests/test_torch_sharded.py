@@ -519,8 +519,14 @@ def test_sharded_transfer_refusals(devices8):
         ShardedTransfer(layout, data_plane="xla")
     with pytest.raises(ValueError, match="data_plane"):
         ShardedTransfer(layout, data_plane="bogus")
-    with pytest.raises(NotImplementedError, match="A12"):
-        t.push_window(st, None, None, pacc)
+    # the window push runs (tests/test_torch_window.py); a quantized
+    # window reaches the error feedback, which is not ported
+    t.wire_quant = "int8"
+    with pytest.raises(NotImplementedError, match="A12d"):
+        t.push_window(st, torch.from_numpy(slots).view(2, 32),
+                      _t({f: g.reshape(2, 32, D) for f, g in grads.items()}),
+                      pacc, mean=True)
+    t.wire_quant = "off"
     # the ledger is ported now (held against TpuTransfer in
     # test_torch_traffic.py): off by default, every count 0
     assert t.traffic()["routed_rows"] == 0 and t.traffic()["dispatches"] == 0

@@ -413,7 +413,7 @@ def test_resolved_rendering_names_like_jax(stencil_on, shared, name):
     ("cluster", "transfer", "local", ValueError, "push_span"),
     ("cluster", "data_plane", "bogus", ValueError, "data_plane"),
     ("cluster", "data_plane", "xla", NotImplementedError, "A16"),
-    ("cluster", "push_window", 2, NotImplementedError, "A12")])
+    ("cluster", "push_window", 0, ValueError, "push_window")])
 def test_stencil_config_errors(sec, key, val, err, match):
     """The JAX package's own ValueErrors for what is no configuration, and
     NotImplementedError naming the ROADMAP item for what is not ported."""

@@ -224,7 +224,7 @@ def test_inner_steps_runs_ordinary_steps():
 @pytest.mark.parametrize("sec,key,val", [
     ("cluster", "wire_sketch", 1),
     ("worker", "telemetry", 1),
-    ("cluster", "push_window", 2), ("cluster", "wire_quant", "int8"),
+    ("cluster", "wire_quant", "bf16"), ("cluster", "wire_quant", "int8"),
     ("cluster", "pull_quant", "bf16"), ("cluster", "pull_cache", 64),
     ("cluster", "collective", "auto"),
     ("cluster", "collective", "sparse_allreduce"),
