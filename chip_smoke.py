@@ -215,7 +215,8 @@ from swiftmpi_tpu_torch.apps.w2v_profile import (BATCH, DEMO_CONF,
 from swiftmpi_tpu_torch.data import native
 from swiftmpi_tpu_torch.data.libsvm import (iter_minibatches,
                                             synthetic_dataset, to_csr)
-from swiftmpi_tpu_torch.io.checkpoint import npz_path, save_checkpoint
+from swiftmpi_tpu_torch.io.checkpoint import (load_checkpoint, npz_path,
+                                              save_checkpoint)
 from swiftmpi_tpu_torch.io.resilience import train_with_resume
 from swiftmpi_tpu_torch.data.text import (CBOWBatcher, StencilBatch,
                                           build_vocab, load_corpus,
@@ -2623,12 +2624,22 @@ WINDOW_KEYS = ("window_sparse", "window_dense", "window_fmt_sparse",
                "plan_cache_hits")
 
 
+#: the losses of the train runs, by path (phase 11 holds a lossy window's
+#: against its lossless base's)
+TRAIN_LOSSES = {}
+
+
 def _window_model(path: str, vocab, device: str,
                   inner: int = 2 * WINDOW) -> Word2Vec:
-    """The model of a window path with ``inner_steps: inner``."""
+    """The model of a window path with ``inner_steps: inner``; a wire path
+    (``WIRE_PATHS``) is its base path with its ``[cluster]`` knobs."""
+    base, knobs = WIRE_PATHS.get(path, (path, {}))
     conf = ConfigParser().update(DEMO_CONF)
     conf.set("cluster", "push_window", WINDOW)
     conf.set("worker", "inner_steps", inner)
+    for k, v in knobs.items():
+        conf.set("cluster", k, v)
+    path = base
     if path == WIN_HYBRID:
         return _hybrid_model("gather", vocab, device, conf=conf)
     sharded = path in (WIN_TPU, WIN_DENSE)
@@ -2760,6 +2771,7 @@ def phase_train_window(path: str, vocab, corpus: np.ndarray,
     kernels.reset_launches()
     losses = model.train(batcher=batcher, niters=1, batch_size=BATCH)
     counts = kernels.launch_counts()
+    TRAIN_LOSSES[path] = losses
     m = model.train_metrics
     tr = _window_traffic(m["transfer_traffic"])
     launched = {k for k, n in counts.items() if n}
@@ -2804,6 +2816,344 @@ def phase_window(vocab, corpus: np.ndarray, card: str) -> tuple:
     counts = {path: phase_train_window(path, vocab, corpus, card)
               for path in (WIN_TPU, WIN_HYBRID, WIN_XLA, WIN_DENSE)}
     print(f"phase 10 {time.perf_counter() - t0:.1f} s", flush=True)
+    return cases, counts
+
+
+# -- phase 11: the wire stack ----------------------------------------------------
+
+WIN_Q = f"window_q@{SHARDS}"
+HYB_Q = f"hybrid_window_q@{SHARDS}"
+WIN_SKETCH = f"window_sketch@{SHARDS}"
+HYB_SAR = f"hybrid_sar@{SHARDS}"
+PULL_XLA = "pull:xla"
+CKPT_WIRE = f"checkpoint_wire@{SHARDS}"
+#: the wire paths: a window path of phase 10 with ``[cluster]`` knobs
+#: (PULL_XLA is the gather path, not a window one)
+WIRE_PATHS = {
+    WIN_Q: (WIN_TPU, {"wire_quant": "int8"}),
+    HYB_Q: (WIN_HYBRID, {"wire_quant": "bf16"}),
+    WIN_SKETCH: (WIN_TPU, {"wire_sketch": 1}),
+    HYB_SAR: (WIN_HYBRID, {"collective": "sparse_allreduce"}),
+    CKPT_WIRE: (WIN_TPU, {"wire_quant": "int8", "pull_cache": 4096}),
+}
+#: the pull path's knobs: the gather path's pulls int8 on the wire and
+#: through a versioned cache of 4,096 lines
+PULL_KNOBS = {"pull_quant": "int8", "pull_cache": 4096}
+#: launches of one window on the wire paths: a quantized family's window
+#: adds the drain's gather of its ``@ef`` rows and the bank's scatter-add
+#: to the lossless window's launches (WINDOW_GROUP); the sketch and the
+#: sparse hot reconcile change only what is booked
+WIRE_GROUP = {
+    WIN_Q: {**WINDOW_GROUP[WIN_TPU],
+            "gather": WINDOW_GROUP[WIN_TPU]["gather"] + 2,
+            "scatter": WINDOW_GROUP[WIN_TPU]["scatter"] + 2},
+    HYB_Q: {**WINDOW_GROUP[WIN_HYBRID],
+            "gather": WINDOW_GROUP[WIN_HYBRID]["gather"] + 2,
+            "scatter": WINDOW_GROUP[WIN_HYBRID]["scatter"] + 2},
+    WIN_SKETCH: WINDOW_GROUP[WIN_TPU],
+    HYB_SAR: WINDOW_GROUP[WIN_HYBRID],
+}
+#: launches of one step of PULL_XLA: each pull gathers its rows and their
+#: ``@rowver`` versions (the gather kernel's int32 form), the pushes as
+#: the gather path's
+PULL_STEP = {"gather": 4, "scatter": 1, "adagrad": 2}
+#: the share of a lossy window's field elements allowed outside the
+#: envelope: an element of a quantized sum the card adds in another order
+#: than the CPU can round to the neighbouring int8 (or bfloat16) step
+LOSSY_SHARE = 1e-3
+#: the ledger keys the wire lines print
+WIRE_KEYS = WINDOW_KEYS + ("window_fmt_q", "window_fmt_bitmap",
+                           "window_fmt_sketch", "collective_sparse_ar",
+                           "hot_psum_bytes_saved", "psum_bytes")
+PULL_LEDGER = ("pull_bytes", "pull_rows", "pull_cache_hits",
+               "pull_delta_rows", "pull_bytes_saved", "pull_fmt_full",
+               "pull_fmt_q", "plan_compiles", "plan_cache_hits")
+
+
+def _wire_traffic(tr: dict) -> dict:
+    return {k: tr.get(k, 0) for k in WIRE_KEYS}
+
+
+def _record_quanta(transfer) -> dict:
+    """Wrap ``transfer``'s EF drain to sum, per slot, the int8 step of
+    every row it ships (``max|row| / 127``, which bounds a bfloat16 step
+    of the row too): ``{field: (capacity,) plane}``, filled as windows
+    run."""
+    quanta, drain = {}, transfer._prim_ef_drain
+
+    def recording(state, ded_slots, ded_grads, capacity, quant):
+        state, out = drain(state, ded_slots, ded_grads, capacity, quant)
+        ok = ded_slots >= 0
+        for f, g in out.items():
+            plane = quanta.setdefault(f, torch.zeros(capacity))
+            plane.index_add_(0, ded_slots[ok].long().cpu(),
+                             (g.abs().amax(dim=1) / 127.0)[ok].cpu())
+        return state, out
+    transfer._prim_ef_drain = recording
+    return quanta
+
+
+def _lossy_gap(what: str, got: torch.Tensor, want: torch.Tensor,
+               quanta=None) -> dict:
+    """A lossy window's fields.  ``@ef`` planes (``quanta``: each row's
+    summed int8 steps): every element within its row's steps of the CPU's.
+    Other fields: within the envelope except at most LOSSY_SHARE of the
+    elements (a quantized element one step apart moves its AdaGrad
+    update)."""
+    gap = (got.float() - want.float()).abs()
+    if quanta is not None:
+        bound = quanta.to(gap.device)[:, None] + 1e-6
+        if bool((gap > bound).any()):
+            raise AssertionError(f"{what}: {int((gap > bound).sum())} "
+                                 f"elements more than one step apart")
+        return {"max_abs_gap": gap.max().item(),
+                "max_step": quanta.max().item()}
+    bad = gap > 1e-5 + 1e-3 * want.float().abs()
+    share = float(bad.float().mean())
+    if share > LOSSY_SHARE:
+        raise AssertionError(f"{what}: {share:.2e} of the elements outside "
+                             f"the envelope (limit {LOSSY_SHARE})")
+    return {"max_abs_gap": gap.max().item(), "outside_envelope": int(
+        bad.sum()), "share": share}
+
+
+def phase_kernels_wire(q_model: Word2Vec, sar_model: Word2Vec,
+                       pull_model: Word2Vec, batches) -> list:
+    """B2 and B3 at the shapes the wire paths give them: the ``@rowver``
+    gather of a PULL_XLA h pull (B*(K+1) slots of the int32 ``(capacity,
+    1)`` plane), the EF drain's gather of ``@ef`` rows at WIN_Q's
+    deduplicated window h rows (valid: first occurrences) and its bank of
+    the errors onto the ``(capacity, 100)`` plane with counts, and HYB_SAR's
+    sparse hot reconcile (every rank's deduplicated hot h rows onto the
+    ``(n_hot, 100)`` head with counts)."""
+    rng = np.random.default_rng(41)
+    dev, d = q_model.device, q_model.len_vec
+    flush = torch.zeros(2 * 50 * 2 ** 20 // 4, device=dev)
+    h_slots = _step_inputs(pull_model, batches[0], rng)[0]
+    cases = [_gather_case("@rowver versions, h pull",
+                          pull_model.table.state["@rowver"], h_slots,
+                          (h_slots >= 0).contiguous(), flush,
+                          path=PULL_XLA)]
+    capacity = q_model.table.capacity
+    flat = torch.cat([_step_inputs(q_model, b, rng)[0] for b in batches])
+    ded = q_model.transfer._prim_window_dedup(
+        flat, {"h": torch.zeros((flat.shape[0], 1), device=dev)}, None,
+        capacity)[0]
+    first = (window_owners(ded[None], capacity)[0][0] == torch.arange(
+        ded.shape[0], dtype=torch.int32, device=dev)) & (ded >= 0)
+    ef = q_model.transfer._side_plane(q_model.table.state, "h@ef")
+    ef.normal_(generator=_device_gen(dev, rng)).mul_(1e-3)
+    cases.append(_gather_case("@ef rows at the window's h rows", ef, ded,
+                              first.contiguous(), flush, path=WIN_Q))
+    cases.append(_scatter_case("EF bank, h", WIN_Q, ded,
+                               (ded >= 0).contiguous(), capacity, d, rng,
+                               flush))
+    ef.zero_()
+    t = sar_model.transfer
+    n_hot = sar_model.table.n_hot
+    hflat = torch.cat([_step_inputs(sar_model, b, rng)[0] for b in batches])
+    hflat = t._pad_batch(hflat)[0]
+    tail_cap = sar_model.table.capacity - n_hot
+    hded = t.tail._prim_window_dedup(
+        hflat, {"h": torch.zeros((hflat.shape[0], 1), device=dev)}, None,
+        n_hot + tail_cap)[0]
+    is_hot = ((hded >= 0) & (hded < n_hot)).contiguous()
+    cases.append(_scatter_case("sparse hot reconcile, h", HYB_SAR, hded,
+                               is_hot, n_hot, d, rng, flush))
+    return cases
+
+
+def phase_wire_parity(path: str, vocab, batches) -> dict:
+    """One window of a wire path at the reference shape on the card
+    against the same window on the CPU from the same table and draws:
+    err_cnt exact, err_sum within 1e-4, the lossless paths' fields within
+    ``_field_gap``'s tolerance and the lossy ones' within
+    ``_lossy_gap``'s, the same ledger, exactly ``WIRE_GROUP``'s
+    launches."""
+    model = _window_model(path, vocab, "cuda", inner=WINDOW)
+    cpu_model = _window_model(path, vocab, "cpu", inner=WINDOW)
+    cpu_model.table.state = _cpu_state(model.table.state, cpu_model)
+    lossy = model.wire_quant != "off"
+    tail = cpu_model.transfer.tail if cpu_model.transfer.name == "hybrid" \
+        else cpu_model.transfer
+    quanta = _record_quanta(tail) if lossy else {}
+    rng = np.random.default_rng(13)
+    draws = [_draws(model, BATCH, rng) for _ in batches]
+    fields = [torch.as_tensor(np.stack([np.asarray(f) for f in fs]),
+                              device=model.device)
+              for fs in zip(*map(_batch_fields, batches))]
+    for m in (model, cpu_model):
+        m.transfer.count_traffic = True
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    es_c, ec_c = model._window_group(tuple(fields), draws)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    card_s = time.perf_counter() - t0
+    es_p, ec_p = cpu_model._window_group(
+        tuple(f.cpu() for f in fields),
+        [tuple(t.cpu() for t in d) for d in draws])
+    es_c, ec_c, es_p, ec_p = (float(x) for x in (es_c, ec_c, es_p, ec_p))
+    if ec_c != ec_p or not math.isclose(es_c, es_p, rel_tol=1e-4):
+        raise AssertionError(f"{path} window: card ({es_c}, {ec_c}), cpu "
+                             f"({es_p}, {ec_p})")
+    gaps = {}
+    for f, v in model.table.state.items():
+        got, want = _global(v), _global(cpu_model.table.state[f])
+        if not lossy:
+            gaps[f] = _field_gap(f"{path}: field {f}", got, want)
+        elif f.endswith("@ef"):
+            gaps[f] = _lossy_gap(f"{path}: plane {f}", got, want,
+                                 quanta[f[:-len("@ef")]])
+        else:
+            gaps[f] = _lossy_gap(f"{path}: field {f}", got, want)
+    tc = _wire_traffic(model.transfer.traffic())
+    tp = _wire_traffic(cpu_model.transfer.traffic())
+    want = {**dict.fromkeys(counts, 0), **WIRE_GROUP[path]}
+    plans = ("plan_compiles", "plan_cache_hits")
+    decided = tc["window_sparse"] + tc["window_dense"]
+    if counts != want or any(tc[k] != tp[k] for k in tc if k not in plans) \
+            or decided != 2:
+        raise AssertionError(f"{path} window launched {counts} (its path "
+                             f"gives {want}); ledger card {tc}, cpu {tp}")
+    if lossy and tc["window_fmt_q"] != 2 or path == HYB_SAR and \
+            tc["collective_sparse_ar"] < 1:
+        raise AssertionError(f"{path} window: decisions {tc}")
+    if model.transfer.overflow_count() or ring.timeouts():
+        raise AssertionError(f"{path} window: overflow or wait timeout")
+    _json_line({"phase": "wire_parity", "rendering": path,
+                "push_window": WINDOW, "steps": len(batches),
+                "centers": BATCH, "err_sum": [es_c, es_p],
+                "err_cnt": [ec_c, ec_p], "gap": gaps,
+                "tolerance": ("lossy: @ef within the summed int8 steps of "
+                              "its rows, fields within 1e-5 + 1e-3*|cpu| "
+                              f"but at most {LOSSY_SHARE} of them" if lossy
+                              else "1e-5 + 1e-3*|cpu|"),
+                "traffic": tc, "push_paths": dict(model.transfer.push_paths),
+                "card_seconds": card_s, "launches": counts})
+    return counts
+
+
+def _pull_model(vocab, device: str, inner: int = 4) -> Word2Vec:
+    conf = ConfigParser().update(DEMO_CONF)
+    conf.set("worker", "inner_steps", inner)
+    for k, v in PULL_KNOBS.items():
+        conf.set("cluster", k, v)
+    model = Word2Vec(config=conf, device=device).build_from_vocab(vocab)
+    if "@rowver" not in model.table.state or model.transfer.name != "xla":
+        raise AssertionError(f"{PULL_XLA}: no @rowver plane armed")
+    return model
+
+
+def phase_train_wire(path: str, vocab, corpus: np.ndarray,
+                     card: str) -> dict:
+    """``Word2Vec.train`` of a wire path over phase 10's corpus prefix
+    with ``count_traffic``: finite loss, exactly the path's kernels;
+    WIN_Q's loss within JAX's trajectory envelope ``|a - b| <= 1e-5 +
+    1e-3|b|`` of the lossless WIN_TPU run over the same batches, its
+    windows ``sparse_q``; HYB_SAR's hot reconciles sparse; PULL_XLA's
+    pulls int8 through the cache, every group step by step (a cached
+    pull reads back to the host), exactly PULL_STEP's launches a step."""
+    pull = path == PULL_XLA
+    model = (_pull_model(vocab, "cuda") if pull
+             else _window_model(path, vocab, "cuda"))
+    model.transfer.count_traffic = True
+    batcher = CBOWBatcher(corpus[:PATHS[f"gather@{SHARDS}"][2]], vocab,
+                          model.window, model.sample, seed=2008)
+    kernels.reset_launches()
+    losses = model.train(batcher=batcher, niters=1, batch_size=BATCH)
+    counts = kernels.launch_counts()
+    m = model.train_metrics
+    tr = m["transfer_traffic"]
+    launched = {k for k, n in counts.items() if n}
+    expect = {"gather", "scatter", "adagrad"} if pull \
+        else WINDOW_KERNELS[WIRE_PATHS[path][0]]
+    bad = (launched != expect or m["steps"] < MIN_TRAIN_STEPS
+           or not all(math.isfinite(x) for x in losses) or ring.timeouts())
+    if path == WIN_Q:
+        base = TRAIN_LOSSES[WIN_TPU]
+        bad |= tr["window_fmt_q"] == 0 or any(
+            abs(a - b) > 1e-5 + 1e-3 * abs(b) for a, b in zip(losses, base))
+    if path == HYB_SAR:
+        bad |= tr["collective_sparse_ar"] == 0
+    if pull:
+        want = {k: v * m["steps"] for k, v in PULL_STEP.items()}
+        bad |= ({k: counts[k] for k in want} != want or m["fused"]
+                or tr["pull_fmt_q"] != 2 * m["steps"]
+                or tr["pull_cache_hits"] == 0)
+    if bad:
+        raise AssertionError(f"{path} train: launches {counts}, "
+                             f"{m['steps']} steps, loss {losses} (lossless "
+                             f"{TRAIN_LOSSES.get(WIN_TPU)}), fused "
+                             f"{m['fused']}, ledger {tr}")
+    line = {"phase": "train", "rendering": path, "card": card,
+            "inner_steps": m["inner_steps"], "fused": m["fused"],
+            "loss": losses, "steps": m["steps"], "words": m["words"],
+            "seconds": m["seconds"], "words_per_sec": m["words_per_sec"],
+            "push_paths": m["push_paths"], "launches": counts}
+    if pull:
+        line.update(pull={k: tr[k] for k in PULL_LEDGER},
+                    pull_bytes_a_step=tr["pull_bytes"] / m["steps"],
+                    hit_share=tr["pull_cache_hits"] / max(tr["pull_rows"],
+                                                          1))
+    else:
+        line.update(push_window=m["push_window"], traffic=_wire_traffic(tr),
+                    wire_bytes_a_step=tr["wire_bytes"] / m["steps"],
+                    lossless_loss=TRAIN_LOSSES.get(WIN_TPU))
+    _json_line(line)
+    return counts
+
+
+def phase_checkpoint_wire(vocab, corpus: np.ndarray) -> None:
+    """CKPT_WIRE (``tpu@8`` windows, int8 with ``@ef`` planes, the pull
+    cache's ``@rowver`` plane through the routed int32 pull): train over a
+    short prefix, save the npz, reload it into a fresh model on the card:
+    every field and plane bit for bit, the npz's planes at their dtypes."""
+    model = _window_model(CKPT_WIRE, vocab, "cuda")
+    model.transfer.count_traffic = True
+    batcher = CBOWBatcher(corpus[:300], vocab, model.window, model.sample,
+                          seed=2008)
+    model.train(batcher=batcher, niters=1, batch_size=BATCH)
+    path = str(WORK / "ckpt_wire")
+    torch.cuda.synchronize()
+    save_checkpoint(model.table, path)
+    with np.load(npz_path(path)) as z:
+        dtypes = {f: str(z["field__" + f].dtype) for f in
+                  ("h@ef", "v@ef", "@rowver")}
+        stamped = int(z["field__@rowver"].max())
+    if dtypes != {"h@ef": "float32", "v@ef": "float32",
+                  "@rowver": "int32"} or not stamped:
+        raise AssertionError(f"{CKPT_WIRE} npz planes {dtypes}, max "
+                             f"version {stamped}")
+    back = _window_model(CKPT_WIRE, vocab, "cuda")
+    load_checkpoint(back.table, path)
+    _hold_equal(f"{CKPT_WIRE} reload", back.table.state, model.table.state)
+    tr = model.transfer.traffic()
+    _json_line({"phase": "checkpoint", "rendering": CKPT_WIRE,
+                "planes": dtypes, "max_version": stamped,
+                "pull_cache_hits": tr["pull_cache_hits"],
+                "window_fmt_q": tr["window_fmt_q"], "bit_equal": True})
+
+
+def phase_wire(vocab, corpus: np.ndarray, card: str) -> tuple:
+    """Phase 11: the kernel cases at the wire paths' shapes, one window of
+    each window wire path against the CPU, the train runs and the
+    checkpoint; returns the cases and the train runs' launches."""
+    t0 = time.perf_counter()
+    q_model = _window_model(WIN_Q, vocab, "cuda")
+    sar_model = _window_model(HYB_SAR, vocab, "cuda")
+    pull_model = _pull_model(vocab, "cuda")
+    batches = _batches(vocab, corpus, q_model, WINDOW)
+    cases = phase_kernels_wire(q_model, sar_model, pull_model, batches)
+    del q_model, sar_model, pull_model
+    torch.cuda.empty_cache()
+    report_cases(cases)
+    for path in (WIN_Q, HYB_Q, WIN_SKETCH, HYB_SAR):
+        phase_wire_parity(path, vocab, batches)
+    counts = {path: phase_train_wire(path, vocab, corpus, card)
+              for path in (WIN_Q, HYB_SAR, PULL_XLA)}
+    phase_checkpoint_wire(vocab, corpus)
+    print(f"phase 11 {time.perf_counter() - t0:.1f} s", flush=True)
     return cases, counts
 
 
@@ -2900,6 +3250,9 @@ def main() -> int:
     window_cases, window_counts = phase_window(vocab, corpus, card)
     cases += window_cases
     counts.update(window_counts)
+    wire_cases, wire_counts = phase_wire(vocab, corpus, card)
+    cases += wire_cases
+    counts.update(wire_counts)
 
     summary = []
     for c in cases:

@@ -6,7 +6,9 @@ synthetic corpus, the configuration ``chip_smoke.py`` runs).
         [-stencil 1] [-shared 1] [-sg 1] [-dense 1] [-shards 8] \\
         [-transfer hybrid] [-traffic 1] [-vocab 1000000] \\
         [-dtype bfloat16] [-local_steps L] [-hogwild n] \\
-        [-push_window W] [-trace build/w2v_step_trace.json]
+        [-push_window W] [-wire_quant int8|bf16] [-wire_sketch 1] \\
+        [-collective auto|sparse_allreduce] [-pull_quant int8|bf16] \\
+        [-pull_cache N] [-trace build/w2v_step_trace.json]
 
 ``-stencil 1`` / ``-shared 1`` / ``-sg 1`` / ``-dense 1`` set
 ``[word2vec] stencil`` / ``shared_negatives`` / ``sg`` / ``dense_logits``
@@ -43,6 +45,16 @@ groups (``-push_window 1``: the same groups without windows); with
 ``windows_per_group`` says how many window pushes a family a group
 makes.  ``-push_window 8 -vocab 1000000 -transfer hybrid`` is bench.py's
 ``scale_window`` cell.
+
+The wire stack's knobs set their ``[cluster]`` keys: ``-wire_quant``,
+``-wire_sketch`` and ``-collective`` (with ``-push_window W > 1``: the
+window's quantized and encoded rungs, the sparse allreduce),
+``-pull_quant`` and ``-pull_cache N`` (the pull wire, at any window).
+With ``-traffic 1``, ``wire`` reports the window decisions and the pull
+decisions of the ledger deltas and their bytes a step (``wire_bytes``,
+``pull_bytes``, the cache's hits).  A cached pull reads its versions
+back to the host, so with ``-pull_cache`` and ``-traffic 1`` the ``xla``
+groups run step by step, not as graph replays, as ``train`` runs them.
 
 Batches are made before the clock starts, so the numbers are the
 device path's alone (the host batcher's time is reported apart):
@@ -104,6 +116,14 @@ DEMO_CONF = {
 BATCH = 5_000
 PROFILED_STEPS = 10
 WARM_STEPS = 5
+#: the ledger keys ``wire`` sums over the traffic steps: the window and
+#: pull decisions (counts), the bytes and the cache hits (a step)
+WIRE_REPORT = ("window_fmt_dense", "window_fmt_sparse", "window_fmt_q",
+               "window_fmt_bitmap", "window_fmt_sketch", "collective_psum",
+               "collective_sparse_ar", "pull_fmt_full", "pull_fmt_bf16",
+               "pull_fmt_q", "wire_bytes", "pull_bytes", "pull_bytes_saved",
+               "pull_cache_hits", "hot_psum_bytes_saved")
+
 #: steps whose ledger deltas ``-traffic 1`` reports one by one
 TRAFFIC_STEPS = 4
 #: ``[worker] inner_steps`` of the ``-push_window`` runs (bench.py's
@@ -206,7 +226,9 @@ def profile(steps: int = 40, trace: str = "", stencil: int = 0,
             dtype: str = "float32", sg: int = 0, dense: int = 0,
             local_steps: int = 1, hogwild: int = 0, transfer: str = "",
             traffic: int = 0, vocab_size: int = 0,
-            push_window: int = 0) -> dict:
+            push_window: int = 0, wire_quant: str = "off",
+            wire_sketch: int = 0, collective: str = "psum",
+            pull_quant: str = "off", pull_cache: int = 0) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("w2v_profile measures the card; no CUDA device "
                            "is available")
@@ -229,6 +251,11 @@ def profile(steps: int = 40, trace: str = "", stencil: int = 0,
     if shards or transfer:
         config.set("cluster", "transfer", transfer or "tpu")
         config.set("cluster", "server_num", shards or 1)
+    knobs = {"wire_quant": wire_quant, "wire_sketch": wire_sketch,
+             "collective": collective, "pull_quant": pull_quant,
+             "pull_cache": pull_cache}
+    for k, v in knobs.items():
+        config.set("cluster", k, v)
     cluster = None
     # whole hogwild or window groups: the warm-up, the timed steps and the
     # profiled window
@@ -271,7 +298,8 @@ def profile(steps: int = 40, trace: str = "", stencil: int = 0,
                           model.cluster.mesh)
                 if local_steps > 1 and not hogwild else None)
     done = replays = 0
-    graphs = bool(push_window) and model.transfer.name == "xla"
+    graphs = (bool(push_window) and model.transfer.name == "xla"
+              and not (pull_cache and traffic))
     losses = (_LossAccum(None, model.device), _LossAccum(None, model.device))
 
     def run(bs):
@@ -331,7 +359,18 @@ def profile(steps: int = 40, trace: str = "", stencil: int = 0,
         run(rest[i:i + (group if push_window else 1)])
         per_step.append({k: v for k, v in model.transfer.traffic_delta(
             before).items() if v})
+    wire = dict(knobs, ef_planes=model.table.ef_fields,
+                row_versions="@rowver" in model.table.state)
+    if traffic:
+        # decisions as counted over the traffic steps; bytes and cache
+        # hits a step
+        for k in WIRE_REPORT:
+            total = sum(d.get(k, 0) for d in per_step)
+            per = "bytes" in k or k == "pull_cache_hits"
+            wire[k + ("_per_step" if per else "")] = (
+                total / max(len(rest), 1) if per else total)
     return {
+        "wire": wire,
         "card": card_line(), "rendering": model.resolved_rendering,
         "local_steps": local_steps, "async_mode": model.async_mode,
         "workers": len(model.cluster.devices) if hogwild else 0,
@@ -395,6 +434,14 @@ def main(argv=None) -> int:
                           "shape")
     cmd.registerParameter("push_window", "W: groups of 8 steps with "
                           "[cluster] push_window: W")
+    cmd.registerParameter("wire_quant", "[cluster] wire_quant: off "
+                          "(default), int8 or bf16")
+    cmd.registerParameter("wire_sketch", "1: [cluster] wire_sketch")
+    cmd.registerParameter("collective", "[cluster] collective: psum "
+                          "(default), auto or sparse_allreduce")
+    cmd.registerParameter("pull_quant", "[cluster] pull_quant: off "
+                          "(default), int8 or bf16")
+    cmd.registerParameter("pull_cache", "N: [cluster] pull_cache lines")
     out = profile(int(cmd.getValue("steps", "40")),
                   cmd.getValue("trace", ""),
                   int(cmd.getValue("stencil", "0")),
@@ -408,7 +455,12 @@ def main(argv=None) -> int:
                   cmd.getValue("transfer", ""),
                   int(cmd.getValue("traffic", "0")),
                   int(cmd.getValue("vocab", "0")),
-                  int(cmd.getValue("push_window", "0")))
+                  int(cmd.getValue("push_window", "0")),
+                  cmd.getValue("wire_quant", "off"),
+                  int(cmd.getValue("wire_sketch", "0")),
+                  cmd.getValue("collective", "psum"),
+                  cmd.getValue("pull_quant", "off"),
+                  int(cmd.getValue("pull_cache", "0")))
     print(json.dumps(out), flush=True)
     return 0
 

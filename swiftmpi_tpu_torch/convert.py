@@ -3,7 +3,9 @@
 The JAX package's state is a ``{field: jax.Array}`` dict of global
 ``(capacity, dim)`` arrays; the port's has the same names and slot layout,
 as one tensor per field (one device) or one tensor per shard (the sharded
-table, ``parameter/sparse_table.py``).  Pass ``{f: np.asarray(a)}`` of the
+table, ``parameter/sparse_table.py``).  The side planes go as the tail
+does, at their own dtypes: ``f@ef`` (float32 residuals) and ``@rowver``
+(``(capacity, 1)`` int32 versions), dealt to the shards like a field.  Pass ``{f: np.asarray(a)}`` of the
 JAX state to :func:`state_from_jax`, with the rank layout of a sharded
 table as ``mesh``; :func:`state_to_numpy` goes the other way and gives
 global arrays for either layout.  Neither side imports the other

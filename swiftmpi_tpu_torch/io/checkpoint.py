@@ -28,10 +28,15 @@ file written by either package loads in the other:
   valid); only a checkpoint of a larger capacity replaces them.
 
 Text dumps and loads index the unified slot space (hot rows first), so a
-hybrid table's dump is the same file as any other's.  The JAX package's
-``@ef`` residual planes and ``@rowver`` version plane are not ported
-(ROADMAP A12d): a checkpoint that carries them raises
-``NotImplementedError``.
+hybrid table's dump is the same file as any other's.  The side planes
+travel as fields under the JAX package's names, at their own dtypes:
+``field__<f>@ef`` (float32 error-feedback residuals) and
+``field__@rowver`` (int32 row versions).  A load refuses a checkpoint
+whose ``@ef`` planes differ from the table's (pending residuals would
+vanish, or a resume would start from zero residuals under another
+``[cluster] wire_quant``); a table with a ``@rowver`` plane restored from
+a checkpoint without one keeps the plane at zero (version 0: never
+applied), and a checkpoint's plane arms a table without one.
 """
 
 from __future__ import annotations
@@ -46,7 +51,9 @@ import numpy as np
 import torch
 
 from swiftmpi_tpu_torch.parameter.key_index import CapacityError
-from swiftmpi_tpu_torch.parameter.sparse_table import (SparseTable, hot_name,
+from swiftmpi_tpu_torch.parameter.sparse_table import (ROWVER_KEY,
+                                                       SparseTable, hot_name,
+                                                       is_ef_field,
                                                        tensor_to_numpy)
 from swiftmpi_tpu_torch.utils.logger import get_logger
 
@@ -208,9 +215,6 @@ _TMP_SWEEP_FORCE_AGE_S = 7 * 86400.0
 # every payload array gets a sibling ``__crc__<name>`` uint32 so loaders
 # can detect torn or bit-rotted writes (np.load checks no zip CRC)
 _CRC_PREFIX = "__crc__"
-
-#: the JAX package's planes the port does not have (ROADMAP A12d)
-_UNPORTED_PLANES = ("@ef", "@rowver")
 
 
 def npz_path(path: str) -> str:
@@ -378,8 +382,9 @@ def find_latest_valid_checkpoint(path: str) -> Optional[str]:
 def save_checkpoint(table: SparseTable, path: str,
                     extra: Optional[Dict[str, np.ndarray]] = None,
                     retain: int = 1) -> None:
-    """npz of every field (the AdaGrad sums included), the key index and
-    the ``extra`` arrays (e.g. the iteration counter): resume-exact,
+    """npz of every field (the AdaGrad sums and the ``@ef`` and
+    ``@rowver`` planes included), the key index and the ``extra`` arrays
+    (e.g. the iteration counter): resume-exact,
     unlike the reference's text dump.  ``retain > 1`` keeps a last-k
     window: the previous live checkpoint becomes ``<path>.g<n>.npz`` and
     older generations beyond ``retain - 1`` are pruned."""
@@ -387,6 +392,7 @@ def save_checkpoint(table: SparseTable, path: str,
     payload = {}
     for f in table.state:
         # np.savez has no bfloat16; float32 holds every bfloat16 exactly
+        # (the int32 @rowver plane is saved as it is)
         payload[f"field__{f}"] = tensor_to_numpy(table.global_rows(f),
                                                  upcast=True)
     payload["keys"] = keys
@@ -425,20 +431,21 @@ def load_checkpoint(table: SparseTable, path: str,
         n_hot = int(z["n_hot"]) if "n_hot" in z.files else 0
         names = [n[len("field__"):] for n in z.files
                  if n.startswith("field__")]
-        planes = sorted(n for n in names if any(p in n
-                                                for p in _UNPORTED_PLANES))
-        if planes:
-            raise NotImplementedError(
-                f"checkpoint carries planes {planes}: the error-feedback "
-                "and row-version planes are not ported yet (ROADMAP "
-                "A12d)")
+        saved_ef = sorted(n for n in names if is_ef_field(n))
+        if saved_ef != sorted(table.ef_fields):
+            raise ValueError(
+                f"checkpoint EF residual planes {saved_ef} do not match the "
+                f"table's {sorted(table.ef_fields)}: restore with the same "
+                "[cluster] wire_quant setting the checkpoint was written "
+                "under (or rebuild the model with matching error-feedback "
+                "arming)")
         if n_hot != table.n_hot:
             raise ValueError(
                 f"checkpoint has n_hot={n_hot}, table has "
                 f"n_hot={table.n_hot}: the hot/cold partition is fixed at "
                 "vocab build; rebuild the model under the same frequency "
                 "split before restoring")
-        if set(names) != set(table.state):
+        if set(names) - {ROWVER_KEY} != set(table.state) - {ROWVER_KEY}:
             raise ValueError(f"checkpoint fields {sorted(names)} do not "
                              f"match the table's {sorted(table.state)}")
         saved_cap = int(z["capacity_per_shard"])
@@ -451,6 +458,12 @@ def load_checkpoint(table: SparseTable, path: str,
             # written after a growth: take its capacity; every row is
             # overwritten just below, so the new rows' draws are spent
             table.grow(saved_cap)
+        if ROWVER_KEY in names:
+            table.ensure_row_versions()
+        elif ROWVER_KEY in table.state:
+            # versions from before the plane was armed: all "never applied"
+            table.assign(ROWVER_KEY, torch.zeros(
+                (ki.capacity, 1), dtype=torch.int32))
         for name in names:
             table.assign(name, torch.from_numpy(z[f"field__{name}"]))
         ki.restore(z["keys"], z["slots"])

@@ -1,6 +1,7 @@
 // Masked row gather, rank by rank:
 //   out[r, i] = valid[r, i] ? table[r, clip(slots[r, i], 0, cap-1)] : 0,
-// for float32 or bfloat16 rows: the bits are moved, never converted.
+// for float32, bfloat16 or int32 rows (the int32 form gathers the
+// (cap, 1) @rowver version plane): the bits are moved, never converted.
 //
 // Replaces the Pallas kernel swiftmpi_tpu/ops/pallas_gather.py
 // (vmem_gather / masked_vmem_gather), the drop-in body of the pull path's
@@ -27,7 +28,8 @@
 // in this kernel, does not push the table out of L2.  Invalid rows store
 // zeros without reading.  Widths that are no multiple of 4, and unaligned
 // rows, take the scalar form: a warp a row, lanes along d, one element a
-// lane.
+// lane.  A width of 1 (the version plane) takes the column form: a thread
+// a row.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -63,6 +65,16 @@ __device__ __forceinline__ uint2 ld_evict_last(const uint2* p,
   return v;
 }
 
+__device__ __forceinline__ int4 ld_evict_last(const int4* p,
+                                              uint64_t policy) {
+  int4 v;
+  asm volatile(
+      "ld.global.nc.L2::cache_hint.v4.s32 {%0, %1, %2, %3}, [%4], %5;"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p), "l"(policy));
+  return v;
+}
+
 template <typename V> __device__ __forceinline__ V vzero();
 template <> __device__ __forceinline__ float4 vzero<float4>() {
   return make_float4(0.f, 0.f, 0.f, 0.f);
@@ -70,10 +82,32 @@ template <> __device__ __forceinline__ float4 vzero<float4>() {
 template <> __device__ __forceinline__ uint2 vzero<uint2>() {
   return make_uint2(0u, 0u);
 }
+template <> __device__ __forceinline__ int4 vzero<int4>() {
+  return make_int4(0, 0, 0, 0);
+}
+
+// A thread a row: the column form, for a width of 1.
+template <typename T>
+__global__ void masked_gather_column(const T* __restrict__ table,
+                                     long long rank_stride,
+                                     const int* __restrict__ slots,
+                                     const uint8_t* __restrict__ valid,
+                                     T* __restrict__ out, long long n,
+                                     long long cap) {
+  const int rank = blockIdx.y;
+  table += rank * rank_stride;
+  slots += rank * n;
+  valid += rank * n;
+  out += rank * n;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n; i += stride)
+    out[i] = valid[i] ? __ldg(table + clip_slot(slots[i], cap)) : T(0);
+}
 
 // A warp a row, lanes along d: the scalar form, for widths that are no
-// multiple of 4 and for unaligned rows.  T: float, or unsigned short for
-// bfloat16's bits.
+// multiple of 4 and for unaligned rows.  T: float, unsigned short for
+// bfloat16's bits, or int.
 template <typename T>
 __global__ void masked_gather_scalar(const T* __restrict__ table,
                                      long long rank_stride,
@@ -161,7 +195,14 @@ template <typename V, typename T>
 int launch(const void* table, long long rank_stride, const int* sl,
            const uint8_t* ok, void* out, int ranks, long long n, int d,
            long long cap, int vec4, cudaStream_t s) {
-  if (vec4) {
+  if (d == 1) {
+    long long blocks = (n + kThreads - 1) / kThreads;
+    if (blocks > (1LL << 20)) blocks = 1LL << 20;
+    masked_gather_column<T><<<dim3((unsigned)blocks, (unsigned)ranks),
+                              kThreads, 0, s>>>(
+        static_cast<const T*>(table), rank_stride, sl, ok,
+        static_cast<T*>(out), n, cap);
+  } else if (vec4) {
     const int d4 = d / 4;
     int G = 32 * kPerLane / d4;
     G = G < 1 ? 1 : (G > 32 ? 32 : G);
@@ -184,11 +225,11 @@ int launch(const void* table, long long rank_stride, const int* sl,
 
 }  // namespace
 
-// esize: 4 for float32 rows, 2 for bfloat16.  vec4: d % 4 == 0 and every
-// row aligned to a group of four elements (16 bytes float32, 8 bytes
-// bfloat16; the group form), else the scalar form.  rank_stride in
-// elements.
-extern "C" int smtpu_masked_gather(const void* table, int esize,
+// form: 0 float32 rows, 1 bfloat16, 2 int32.  vec4: d % 4 == 0 and every
+// row aligned to a group of four elements (16 bytes of float32 or int32,
+// 8 bytes of bfloat16; the group form), else the scalar form (the column
+// form at d == 1).  rank_stride in elements.
+extern "C" int smtpu_masked_gather(const void* table, int form,
                                    long long rank_stride, const void* slots,
                                    const void* valid, void* out, int ranks,
                                    long long n, int d, long long cap,
@@ -197,10 +238,17 @@ extern "C" int smtpu_masked_gather(const void* table, int esize,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* sl = static_cast<const int*>(slots);
   const uint8_t* ok = static_cast<const uint8_t*>(valid);
-  if (esize == 2)
-    return launch<uint2, unsigned short>(table, rank_stride, sl, ok, out,
-                                         ranks, n, d, cap, vec4, s);
-  if (esize != 4) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<float4, float>(table, rank_stride, sl, ok, out, ranks, n, d,
+  switch (form) {
+    case 0:
+      return launch<float4, float>(table, rank_stride, sl, ok, out, ranks, n,
+                                   d, cap, vec4, s);
+    case 1:
+      return launch<uint2, unsigned short>(table, rank_stride, sl, ok, out,
+                                           ranks, n, d, cap, vec4, s);
+    case 2:
+      return launch<int4, int>(table, rank_stride, sl, ok, out, ranks, n, d,
                                cap, vec4, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -82,6 +82,19 @@ such a group is one CUDA graph like any other; the window's format is
 decided on the host from shapes alone.  ``build_from_vocab`` sets the
 transfer's ``window_expected_unique`` from the vocab's counts.
 
+The wire stack's knobs are armed in ``build_from_vocab``, before any step
+runs or a graph is captured, as the JAX package arms them: at
+``push_window > 1``, ``[cluster] wire_quant: int8|bf16`` (the
+``sparse_q`` rung, and the table's ``@ef`` planes), ``wire_sketch: 1``
+and ``collective: auto|sparse_allreduce`` (with the hot-touch density
+seeded from the vocab); at any window, ``pull_quant: int8|bf16`` and
+``pull_cache: N`` (with the table's ``@rowver`` plane).  A push-side
+knob at ``push_window: 1`` is ignored with JAX's warning.  A cached pull
+books its ledger on the host after reading its slots and versions back,
+which a CUDA graph cannot do: with ``pull_cache`` and ``count_traffic``
+set, ``train`` runs the groups step by step instead of replaying graphs.
+``resume`` flushes the pull cache (a restore can rewind the versions).
+
 The table tensors are updated in place, the counterpart of the JAX step
 donating its state.  Each step takes the negative-sampling draws ``(j,
 u)`` as an optional argument: the seam the parity tests replay the JAX
@@ -131,7 +144,9 @@ from swiftmpi_tpu_torch.ops.sampling import (alias_draws,
 from swiftmpi_tpu_torch.ops.sigmoid import sigmoid_clipped
 from swiftmpi_tpu_torch.parameter import SparseTable, w2v_access
 from swiftmpi_tpu_torch.parameter.key_index import HotColdPartition
-from swiftmpi_tpu_torch.parameter.sparse_table import hot_name, shard_block
+from swiftmpi_tpu_torch.parameter.sparse_table import (hot_name,
+                                                       shard_block)
+from swiftmpi_tpu_torch.transfer.plan import COLLECTIVE_MODES
 from swiftmpi_tpu_torch.testing import faults
 from swiftmpi_tpu_torch.transfer import PushSpec
 from swiftmpi_tpu_torch.utils.config import (UNPORTED_SECTIONS, ConfigParser,
@@ -394,6 +409,32 @@ class Word2Vec:
         self.push_window_size = g("cluster", "push_window", 1).to_int32()
         if self.push_window_size < 1:
             raise ValueError("[cluster] push_window must be >= 1")
+        # the wire stack (transfer/plan.py): value quantization of the
+        # window's sparse wire with its @ef error feedback, the sketch
+        # rung, the dense and hot reconciles' collective, and the pull
+        # wire's quantization and versioned cache
+        self.wire_quant = g("cluster", "wire_quant", "off").to_string()
+        if self.wire_quant not in ("off", "int8", "bf16"):
+            raise ValueError("[cluster] wire_quant must be off, int8 or "
+                             f"bf16, got {self.wire_quant!r}")
+        self.pull_quant = g("cluster", "pull_quant", "off").to_string()
+        if self.pull_quant not in ("off", "int8", "bf16"):
+            raise ValueError("[cluster] pull_quant must be off, int8 or "
+                             f"bf16, got {self.pull_quant!r}")
+        self.pull_cache = g("cluster", "pull_cache", 0).to_int32()
+        if self.pull_cache < 0:
+            raise ValueError("[cluster] pull_cache must be >= 0, got "
+                             f"{self.pull_cache!r}")
+        self.wire_sketch = g("cluster", "wire_sketch", 0).to_int32()
+        if self.wire_sketch not in (0, 1):
+            raise ValueError("[cluster] wire_sketch must be 0 or 1, got "
+                             f"{self.wire_sketch!r}")
+        self.collective_mode = g("cluster", "collective",
+                                 "psum").to_string()
+        if self.collective_mode not in COLLECTIVE_MODES:
+            raise ValueError("[cluster] collective must be one of "
+                             f"{COLLECTIVE_MODES}, got "
+                             f"{self.collective_mode!r}")
         self._check_supported()
         #: the rendering the step runs, named as the JAX package names it
         if self.stencil:
@@ -491,15 +532,6 @@ class Word2Vec:
         want(self.stencil and data_plane == "xla",
              "[cluster] data_plane: xla with stencil (the device-kind "
              "verdict store)", "A16")
-        for key in ("wire_quant", "pull_quant"):
-            want(g("cluster", key, "off").to_string() != "off",
-                 f"[cluster] {key}", "A12d")
-        want(g("cluster", "pull_cache", 0).to_int32() != 0,
-             "[cluster] pull_cache", "A12d")
-        want(g("cluster", "wire_sketch", 0).to_int32() != 0,
-             "[cluster] wire_sketch", "A12d")
-        want(g("cluster", "collective", "psum").to_string() != "psum",
-             "[cluster] collective other than psum", "A12d")
         want(transfer == "tpu" and data_plane == "xla",
              "[cluster] data_plane: xla with transfer: tpu (the library "
              "exchange)", "A16")
@@ -546,6 +578,7 @@ class Word2Vec:
             # a window of draws from the vocab's counts leaves
             self.transfer.window_expected_unique = expected_unique_rows(
                 vocab.counts, self.push_window_size * self.minibatch)
+        self._arm_wire()
         prob, alias = build_unigram_alias(vocab.counts)
         self._alias_prob = torch.as_tensor(prob, device=self.device)
         self._alias_idx = torch.as_tensor(alias, dtype=torch.int64,
@@ -554,6 +587,67 @@ class Word2Vec:
                  "shard(s) on %s", V, vocab.total_words, self.table.capacity,
                  self.cluster.n_servers, self.device)
         return self
+
+    def _arm_wire(self) -> None:
+        """Arm the wire stack's knobs on the transfer and the planes they
+        need on the table (JAX ``build_from_vocab``), before any step."""
+        windowed = self.push_window_size > 1
+        if self.wire_quant != "off":
+            if windowed:
+                self.transfer.wire_quant = self.wire_quant
+                self.table.ensure_ef(tuple(self.access.grad_fields))
+            else:
+                log.warning(
+                    "[cluster] wire_quant: %s has no effect at "
+                    "push_window: 1 (per-step pushes ship f32); "
+                    "ignoring", self.wire_quant)
+        if self.wire_sketch:
+            if windowed:
+                self.transfer.wire_sketch = True
+            else:
+                log.warning(
+                    "[cluster] wire_sketch has no effect at "
+                    "push_window: 1 (per-step pushes ship indexed "
+                    "rows); ignoring")
+        if self.collective_mode != "psum":
+            if windowed:
+                self.transfer.collective_mode = self.collective_mode
+                self.transfer.hot_touched_fraction = \
+                    self._seed_hot_touched_fraction()
+                log.info("[cluster] collective: %s armed (seed hot-touch "
+                         "density %.4f)", self.collective_mode,
+                         self.transfer.hot_touched_fraction or 0.0)
+            else:
+                log.warning(
+                    "[cluster] collective: %s has no effect at "
+                    "push_window: 1 (the per-step hot psum is not "
+                    "plan-compiled); ignoring", self.collective_mode)
+        if self.pull_quant != "off":
+            # pulls happen every step at any window
+            self.transfer.pull_quant = self.pull_quant
+            log.info("[cluster] pull_quant: %s armed", self.pull_quant)
+        if self.pull_cache:
+            self.transfer.pull_cache = int(self.pull_cache)
+            self.table.ensure_row_versions()
+            log.info("[cluster] pull_cache: %d lines armed", self.pull_cache)
+
+    def _seed_hot_touched_fraction(self) -> Optional[float]:
+        """The expected share of the hot head one window touches (JAX
+        ``_seed_hot_touched_fraction``): over the head's keys, ``1 - (1 -
+        p)^draws`` with ``p`` a key's share of the whole vocab's count,
+        summed and divided by ``n_hot``; None without a hot head."""
+        n_hot = int(self.table.n_hot)
+        if n_hot <= 0:
+            return None
+        c = np.asarray(self.vocab.counts, np.float64).ravel()
+        total = c.sum()
+        if total <= 0:
+            return None
+        head = np.sort(c)[::-1][:n_hot] / total
+        draws = self.push_window_size * self.minibatch
+        touched = float(np.sum(-np.expm1(
+            draws * np.log1p(-np.minimum(head, 1.0)))))
+        return min(touched / n_hot, 1.0)
 
     # -- gradient phases (JAX _build_grads*) --------------------------------
     def _pull(self, state, slots, field: str) -> torch.Tensor:
@@ -1018,12 +1112,18 @@ class Word2Vec:
     def _graph_key(self) -> tuple:
         """The addresses a captured graph reads and writes: the table's
         tensors and the sampler's, and the table's growth generation; and
-        whether the step books the traffic ledger.  A table or vocab set
+        whether the step books the traffic ledger; and the transfer's
+        plan knobs, whose decisions a graph bakes in.  A table or vocab set
         since the capture (``table.state = ...``, ``build_from_vocab``,
-        ``SparseTable.grow``) or ``count_traffic`` switched needs new
-        graphs."""
+        ``SparseTable.grow``), ``count_traffic`` switched or a knob moved
+        needs new graphs."""
+        t = self.transfer
         return graph_key(self.table, self._slot_of_vocab, self._alias_prob,
-                         self._alias_idx) + (self.transfer.count_traffic,)
+                         self._alias_idx) + (
+            t.count_traffic, t.wire_quant, t.wire_quant_guard,
+            bool(t.wire_sketch), t.collective_mode, t.hot_touched_fraction,
+            t.sparse_ar_ratio, t.window_expected_unique, t.pull_quant,
+            t.pull_quant_guard, t.pull_cache)
 
     def _run_group(self, fields, graphs: bool, draws, es_q: _LossAccum,
                    ec_q: _LossAccum) -> bool:
@@ -1117,7 +1217,8 @@ class Word2Vec:
         # one graph replay a group: one card, one shard (the ring's epoch
         # is a host counter a replay would repeat), the model's generator
         graphs = (fuse and cuda and self.transfer.name == "xla"
-                  and draws is None)
+                  and draws is None and not (self.transfer.pull_cache
+                                             and self.transfer.count_traffic))
         if graphs and self._graph_key() != self._fused_key:
             self._fused_cache = {}
             self._fused_key = self._graph_key()
@@ -1337,6 +1438,8 @@ class Word2Vec:
             raise RuntimeError("build() or load() the model before resume()")
         extra = load_checkpoint(self.table, checkpoint_path)
         self._remap_vocab()
+        # a restore can rewind the version stamps: the cache starts cold
+        self.transfer.pull_shadow_flush()
         if "numerics" in extra:
             log.info("checkpoint carries numerics detector baselines; not "
                      "applied (the numerics plane is ROADMAP A14)")

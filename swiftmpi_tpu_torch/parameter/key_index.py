@@ -29,9 +29,8 @@ elastic owner map are ROADMAP A13.
 The window wire-format pricers (``window_wire_format``,
 ``price_window_formats``, ``price_hot_collectives``) are the JAX
 module's host math, whole: every rung of the ladder is priced as JAX
-prices it, so a plan's decision and its evidence match field for field.
-The port executes the lossless rungs (``sparse``, ``dense``); the
-encoded and lossy ones are ROADMAP A12d.
+prices it, so a plan's decision and its evidence match field for field,
+and the port executes every rung (``transfer/api.py``).
 """
 
 from __future__ import annotations

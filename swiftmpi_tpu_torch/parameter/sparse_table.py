@@ -37,9 +37,15 @@ cast to the field's dtype, as the JAX package does: a bfloat16 field
 are drawn after every tail field, from the same stream, so a table with
 ``n_hot = 0`` is drawn exactly as before the planes existed.  Push paths
 update the tensors in place; ``grow`` moves the tail to new, larger
-tensors (the hot planes stay) and bumps ``generation``.  The ``@rowver``
-and ``@ef`` planes and ``repartition`` are not ported yet (ROADMAP A12d,
-A13).
+tensors (the hot planes stay) and bumps ``generation``.
+
+Two side planes ride the state beside the fields, laid out like the tail
+(one tensor per shard on a sharded table), never pulled as fields nor
+updated by the access rule: ``f@ef`` (:meth:`SparseTable.ensure_ef`), the
+float32 error-feedback residual of ``f``'s quantized window pushes, and
+``@rowver`` (:meth:`SparseTable.ensure_row_versions`), one int32 version
+stamp a tail row that every push bumps and the pull cache reads.  Hot rows
+carry neither.  ``repartition`` is not ported yet (ROADMAP A13a).
 """
 
 from __future__ import annotations
@@ -69,6 +75,33 @@ def is_hot_field(name: str) -> bool:
 def base_field(name: str) -> str:
     """Strip the hot suffix: ``"v@hot" -> "v"``, plain names unchanged."""
     return name[:-len(HOT_SUFFIX)] if is_hot_field(name) else name
+
+
+#: suffix of an error-feedback residual plane: ``"v@ef"`` holds, per tail
+#: row, the quantization error of v's window pushes not yet applied
+EF_SUFFIX = "@ef"
+
+
+def ef_name(field: str) -> str:
+    return field + EF_SUFFIX
+
+
+def is_ef_field(name: str) -> bool:
+    return name.endswith(EF_SUFFIX)
+
+
+#: the per-row version plane: ``(capacity, 1)`` int32, the version of each
+#: tail row's last apply (0: never applied), per shard monotonic
+ROWVER_KEY = "@rowver"
+
+
+def has_row_versions(state) -> bool:
+    return ROWVER_KEY in state
+
+
+def is_side_plane(name: str) -> bool:
+    """An ``@ef`` or ``@rowver`` plane: state that is no access field."""
+    return is_ef_field(name) or name == ROWVER_KEY
 
 
 class SparseTable:
@@ -111,6 +144,38 @@ class SparseTable:
                 gen, (n_hot, fs.dim), self.device).to(fs.dtype)
                 for name, fs in fields})
         return out
+
+    def ensure_ef(self, grad_fields) -> None:
+        """Arm the error-feedback planes of ``grad_fields``: one zero
+        ``(capacity, dim)`` float32 ``f@ef`` plane a field, laid out like
+        the tail.  Planes already there (restored from a checkpoint) are
+        left alone."""
+        cap = self.key_index.capacity
+        for f in grad_fields:
+            if ef_name(f) not in self.state:
+                self.state[ef_name(f)] = self._layout_tail(torch.zeros(
+                    (cap, self.access.fields[f].dim), dtype=torch.float32,
+                    device=self.device))
+
+    @property
+    def ef_fields(self) -> List[str]:
+        """Names of the armed residual planes (``[]`` when EF is off)."""
+        return [f for f in self.state if is_ef_field(f)]
+
+    def ensure_row_versions(self) -> None:
+        """Arm the ``@rowver`` plane: ``(capacity, 1)`` int32 zeros laid
+        out like the tail.  A plane already there (restored from a
+        checkpoint) is left alone, so versions keep counting up across a
+        restart."""
+        if ROWVER_KEY not in self.state:
+            self.state[ROWVER_KEY] = self._layout_tail(torch.zeros(
+                (self.key_index.capacity, 1), dtype=torch.int32,
+                device=self.device))
+
+    def _layout_tail(self, rows: torch.Tensor):
+        """Tail-shaped ``rows`` as the table lays the tail out: the tensor
+        itself on one device, dealt to the shards on a sharded table."""
+        return rows if self.mesh is None else split_rows(rows, self.mesh)
 
     def _init_state(self) -> TableState:
         """The initial state: :meth:`_init_rows`, dealt to the shards'
@@ -174,7 +239,9 @@ class SparseTable:
         fresh stream per growth, as the JAX package folds its seed).  New
         tensors replace the old ones, a sharded table's as one new block
         per device (``split_rows``), so ``shard_block`` stays copy-free;
-        both layouts coexist during the move.  Hot planes never move."""
+        both layouts coexist during the move.  Hot planes never move; the
+        ``@ef`` and ``@rowver`` planes move with their rows, new rows at
+        zero."""
         ki = self.key_index
         n_hot = self.n_hot
         old_per = ki.capacity_per_shard
@@ -187,6 +254,8 @@ class SparseTable:
             + old_rows % old_per
         self.seed += 1
         rows = self._init_rows(hot=False)
+        rows.update({f: old[f].new_zeros((ki.capacity, old[f].shape[1]))
+                     for f in tail if is_side_plane(f)})
         src = torch.from_numpy(old_rows).to(self.device)
         dst = torch.from_numpy(new_rows).to(self.device)
         for f, t in rows.items():

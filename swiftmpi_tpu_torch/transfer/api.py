@@ -14,37 +14,54 @@ access method's update rule to the table.  Four backends:
 ``pull`` is the pull interpreter: it dispatches on the backend's
 :func:`~swiftmpi_tpu_torch.transfer.plan.pull_route` placement, books
 the pull ledger and calls the backend's one primitive, ``_prim_pull``.
-``push_span`` is the sort-free push of the stencil rendering's span
-family.
+Armed (``pull_quant``, ``pull_cache``), it compiles a ``PullPlan``: an
+encoded format round-trips the pulled rows through
+:func:`quantize_dequantize` (the forward read changes, the table does
+not), and with the ``@rowver`` plane present the versions ride the same
+gather and feed a host-side :class:`~swiftmpi_tpu_torch.transfer.
+pull_cache.PullCache`, which books the cached wire.  ``push_span`` is the
+sort-free push of the stencil rendering's span family.
 
 ``push_window`` is the TrafficPlan interpreter of the window-coalesced
 push (``[cluster] push_window: W``): W steps' pushes of one family,
 stacked ``(W, B, ...)``, exchanged once.  It compiles a plan per window
-(``transfer/plan.py``: the host-static sparse/dense decision) and runs it
-over the backend's primitives: ``_prim_window_dedup`` (the
-representative trick: a scatter-min of positions names each slot's
-first occurrence, grads and counts fold into it through the scatter-add
-kernel), ``_prim_window_exchange`` and ``_push_window_dense``.  A W == 1
-window, and a W > 1 window on ``local`` or ``xla`` with every
-compression knob off, flattens and takes the per-step ``push`` or
-``push_span``.  The quantized and encoded rungs, their error feedback
-and the sparse-allreduce collective raise (ROADMAP A12d); the tracer and
-telemetry taps are ROADMAP A14 and do nothing here.
+(``transfer/plan.py``: the host-static wire-format and collective
+decisions) and runs it over the backend's primitives:
+``_prim_window_dedup`` (the representative trick: a scatter-min of
+positions names each slot's first occurrence, grads and counts fold into
+it through the scatter-add kernel), ``_prim_ef_drain`` (the ``sparse_q``
+rung's error feedback, :func:`ef_quantize_window`),
+``_prim_window_exchange`` (booked at the plan's encoded size for the
+``bitmap``, ``sparse_q`` and ``sparse_sketch`` rungs, whose values ride
+the routed push as dequantized float32), ``_push_window_dense`` and
+``_prim_sparse_allreduce``.  A W == 1 window, and a W > 1 window on
+``local`` or ``xla`` with every compression knob off, flattens and takes
+the per-step ``push`` or ``push_span``.  The numerics tap on the
+quantization error and the tracer's taps (``stage_ef``, the window
+records) are ROADMAP A14 and do nothing here.
+
+Every push bumps the ``@rowver`` plane of the rows it applies to, when the
+state has one (:func:`bump_row_versions`): the pull cache's hits are
+exact only because of that.
 
 The wire ledger (off until ``count_traffic`` is set) keeps the JAX
 package's keys and contract: totals that never decrease, no reset,
-intervals by :meth:`Transfer.traffic_delta`.  Keys only the encoded wire
-formats and the pull cache move stay 0.  A count the step computes on
+intervals by :meth:`Transfer.traffic_delta`.  A count the step computes on
 the device is added in place to an int64 counter vector on that device
 (one per device the backend booked on), together with the static
 quantities booked with it, so a replayed CUDA graph books exactly what
 the eager steps book and a step reads nothing back; only
 :meth:`Transfer.traffic` reads the counters to the host.  As in the JAX
 package, which books them through callbacks per execution, the window
-decisions (``window_*``), ``coalesced_rows_*`` and ``wire_bytes`` are
-such device counts; ``plan_compiles``, ``plan_cache_hits`` and
-``collective_*`` are booked on the host once per ``push_window`` call
-(JAX: once per trace).  The host oracle's counts are host integers.
+decisions (``window_*``), ``coalesced_rows_*``, ``wire_bytes`` and
+``hot_psum_bytes_saved`` are such device counts; ``plan_compiles``,
+``plan_cache_hits``, ``collective_*`` and ``pull_fmt_*`` are booked on the
+host once per ``push_window`` or ``pull`` call (JAX: once per trace).  The
+cached pull's keys (``pull_cache_hits``, ``pull_delta_rows``,
+``pull_bytes_saved`` and its ``pull_bytes``) are booked on the host after
+each pull reads its slots and versions back, so a step that books them
+cannot be captured in a CUDA graph (``Word2Vec`` runs such groups
+eagerly).  The host oracle's counts are host integers.
 """
 
 from __future__ import annotations
@@ -56,6 +73,7 @@ import numpy as np
 import torch
 
 from swiftmpi_tpu_torch.parameter.access import AccessMethod
+from swiftmpi_tpu_torch.parameter.sparse_table import ROWVER_KEY, ef_name
 
 TableState = Dict[str, torch.Tensor]
 
@@ -123,6 +141,111 @@ def quant_grad_row_bytes(grads, quant: str,
     return total + (4 if with_counts else 0)
 
 
+def quant_pull_row_bytes(state, fields, quant: str) -> int:
+    """Encoded wire bytes per pulled row: the int32 request index, each
+    field at 1 byte an element plus a 4-byte scale (``int8``) or 2 bytes
+    an element (``bf16``).  The pull pricer's input when ``pull_quant`` is
+    set."""
+    if quant not in ("int8", "bf16"):
+        raise ValueError(f"quant_pull_row_bytes: unknown quant {quant!r}")
+    total = 4
+    for f in fields:
+        d = int(state[f][0].shape[-1] if isinstance(state[f], (list, tuple))
+                else state[f].shape[-1])
+        total += d + 4 if quant == "int8" else 2 * d
+    return total
+
+
+def quantize_dequantize(g, quant: str):
+    """One grad (or row) block through the ``sparse_q`` value encoding and
+    back, as the receiver reconstructs it, always float32: ``int8`` scales
+    each row (last axis) by ``max|g| * (1 / 127)`` (a multiply, as JAX
+    does), rounds half to even and clips to +-127; ``bf16`` is a dtype
+    round trip.  Takes a tensor or a numpy array and returns the same
+    kind."""
+    if not isinstance(g, torch.Tensor):
+        return quantize_dequantize(torch.from_numpy(
+            np.asarray(g, np.float32)), quant).numpy()
+    g = g.to(torch.float32)
+    if quant == "bf16":
+        return g.to(torch.bfloat16).to(torch.float32)
+    if quant != "int8":
+        raise ValueError(f"quantize_dequantize: unknown quant {quant!r}")
+    scale = g.abs().amax(dim=-1, keepdim=True) * (1.0 / 127.0)
+    pos = scale > 0
+    q = torch.clamp(torch.round(g / torch.where(pos, scale, 1.0)),
+                    -127.0, 127.0)
+    return q * torch.where(pos, scale, 0.0)
+
+
+def touched_rows(slots: torch.Tensor, ok: torch.Tensor,
+                 capacity: int) -> torch.Tensor:
+    """``(..., capacity)`` bool: the rows of ``capacity`` that ``slots``
+    (``(..., N)``, rank by rank for a leading R) hit where ``ok``."""
+    safe = torch.where(ok & (slots >= 0) & (slots < capacity), slots,
+                       capacity).long()
+    plane = torch.zeros(tuple(slots.shape[:-1]) + (capacity + 1,),
+                        dtype=torch.bool, device=slots.device)
+    plane.scatter_(-1, safe, True)
+    return plane[..., :capacity]
+
+
+def bump_row_versions(ver: torch.Tensor, touched: torch.Tensor) -> None:
+    """In place: the ``touched`` rows of a ``@rowver`` plane (``(cap, 1)``
+    int32, or an ``(R, cap, 1)`` block of R shards with ``(R, cap)``
+    ``touched``) take their shard's max + 1: per shard monotonic, no host
+    counter (JAX's max runs over the shard inside its ``shard_map``).
+    Every push path stamps the rows it applies to through here (or the
+    oracle's numpy twin): the pull cache's exact hits depend on it."""
+    newv = ver.amax(dim=(-2, -1), keepdim=True) + 1
+    ver.copy_(torch.where(touched[..., None], newv, ver))
+
+
+def ef_quantize_window(planes, ded_slots: torch.Tensor, ded_grads,
+                       capacity: int, quant: str):
+    """Error feedback around one deduplicated window's quantization (JAX
+    ``ef_quantize_window``): each touched slot's residual drains into its
+    first occurrence's sum, the sum is quantized and dequantized, and the
+    new error is banked in the residual plane.  ``planes``: ``{f: (capacity,
+    d)}`` float32 ``f@ef`` planes, updated in place; fields without one pass
+    through.  Returns the grads to ship, dequantized (float32).
+
+    A slot can be a representative in several ranks' slices of the
+    sharded backend's per-rank dedup: the residual drains into the
+    globally first occurrence only (a scatter-min of positions over the
+    whole window), and the errors of all occurrences are summed into the
+    cleared slot, so ``sum(shipped) + residual' == sum(grads) + residual``
+    per slot.  The residual rows are read by the gather kernel (valid: the
+    first occurrences) and the errors banked by the scatter-add kernel
+    (its counts name the touched rows); untouched rows keep their bits,
+    ``-0.0`` included.  The numerics tap and the tracer's ``stage_ef`` are
+    ROADMAP A14."""
+    from swiftmpi_tpu_torch.kernels.gather import masked_gather
+    from swiftmpi_tpu_torch.kernels.scatter import masked_scatter_add
+    ded_slots = ded_slots.to(torch.int32).contiguous()
+    valid = ded_slots >= 0
+    first = valid & (window_owners(ded_slots[None], capacity)[0][0]
+                     == torch.arange(ded_slots.shape[0], dtype=torch.int32,
+                                     device=ded_slots.device))
+    out = dict(ded_grads)
+    touched = None
+    for f, g in ded_grads.items():
+        ef = planes.get(f)
+        if ef is None:
+            continue
+        tot = g.to(torch.float32) + masked_gather(ef, ded_slots, first)
+        deq = torch.where(valid[:, None], quantize_dequantize(tot, quant),
+                          0.0)
+        bank = masked_scatter_add(ded_slots, valid, (tot - deq).contiguous(),
+                                  capacity, counts=touched is None)
+        if touched is None:
+            bank, cnt = bank
+            touched = cnt > 0
+        ef.copy_(torch.where(touched[:, None], bank, ef))
+        out[f] = deq
+    return out
+
+
 def _state_capacity(state) -> int:
     """Rows of the table's slot space: a field's rows, summed over its
     shards for a sharded state."""
@@ -173,22 +296,36 @@ class Transfer:
     #: post-dedup unique rows of a window, for the sparse/dense crossover
     #: (set by the model from the vocab's counts); None: the raw rows
     window_expected_unique: Optional[float] = None
-    #: value quantization of the window's sparse rungs (``off``; ``int8``
-    #: and ``bf16`` are ROADMAP A12d)
+    #: value quantization of the window's sparse rungs: ``off``, ``int8``
+    #: or ``bf16`` (arms ``sparse_q`` and its ``@ef`` error feedback)
     wire_quant: str = "off"
     #: ``sparse_q`` wins only when its volume times this beats the best
     #: lossless rung
     wire_quant_guard: float = 1.25
-    #: arm the ``sparse_sketch`` rung (ROADMAP A12d)
+    #: arm the ``sparse_sketch`` rung (lossless: a counting sketch in place
+    #: of the index stream)
     wire_sketch: bool = False
-    #: the dense and hot reconciles' collective (``psum``; ``auto`` and
-    #: ``sparse_allreduce`` are ROADMAP A12d)
+    #: the dense and hot reconciles' collective: ``psum``, ``auto`` (priced
+    #: by the touched fraction) or ``sparse_allreduce``
     collective_mode: str = "psum"
     #: expected touched fraction of the hot plane a window (``auto``'s
     #: density signal); None: unknown, the dense collective wins
     hot_touched_fraction: Optional[float] = None
     #: the sparse collective must beat the dense one by this factor
     sparse_ar_ratio: float = 2.0
+
+    # -- the pull plan's knobs --------------------------------------------
+    #: value quantization of the pull wire (``transfer.plan.
+    #: PULL_QUANT_MODES``); the table is never written through it
+    pull_quant: str = "off"
+    #: an encoded pull format wins only when its volume times this beats
+    #: ``full_f32``
+    pull_quant_guard: float = 1.25
+    #: lines of the versioned pull cache (0: off); needs the table's
+    #: ``@rowver`` plane
+    pull_cache: int = 0
+    #: the cache stores rows and checks every hit against the fresh row
+    pull_cache_oracle: bool = False
 
     #: window decision -> its ``window_fmt_*`` key
     _WINDOW_FMT_KEY = {"dense": "window_fmt_dense",
@@ -200,6 +337,10 @@ class Transfer:
     _COLLECTIVE_KEY = {"psum": "collective_psum",
                        "psum_scatter": "collective_psum",
                        "sparse_allreduce": "collective_sparse_ar"}
+    #: pull decision -> its ``pull_fmt_*`` key
+    _PULL_FMT_KEY = {"full_f32": "pull_fmt_full",
+                     "bf16": "pull_fmt_bf16",
+                     "sparse_q": "pull_fmt_q"}
 
     def __init__(self):
         #: pushes per (grad families, path) — e.g. ``{"h:dense": 20}``
@@ -282,6 +423,59 @@ class Transfer:
         ``pull_rows``, at 0 bytes)."""
         self._book(rows, pull_hot_rows=rows)
 
+    def _record_saved(self, nbytes, on=None) -> None:
+        """The wire bytes a sparse-allreduce reconcile saved over the
+        dense collective it replaced (the dense model minus what was
+        booked; negative when the window touched most rows)."""
+        self._book(nbytes if on is None else on, hot_psum_bytes_saved=nbytes)
+
+    def _count_pull_decision(self, decision: str) -> None:
+        """One armed pull's format decision, on the host once per ``pull``
+        call (the plan is host-static)."""
+        self._book(None, **{self._PULL_FMT_KEY[decision]: 1})
+
+    def _pull_shadow_get(self):
+        """This worker's :class:`~swiftmpi_tpu_torch.transfer.pull_cache.
+        PullCache` shadow, rebuilt when ``pull_cache`` (its lines) or the
+        oracle mode moved."""
+        from swiftmpi_tpu_torch.transfer.pull_cache import PullCache
+        sh = self.__dict__.get("_pull_shadow")
+        lines, oracle = int(self.pull_cache), bool(self.pull_cache_oracle)
+        if sh is None or sh.lines != lines or sh.store_rows != oracle:
+            sh = self.__dict__["_pull_shadow"] = PullCache(
+                lines, store_rows=oracle)
+        return sh
+
+    def pull_shadow_flush(self) -> None:
+        """Drop every cached ``(slot, version)`` tag: the worker starts
+        cold (after a restore, which can rewind the version stamps)."""
+        sh = self.__dict__.get("_pull_shadow")
+        if sh is not None:
+            sh.flush()
+
+    def _accum_pull_cached(self, val_bytes: int, full_row_bytes: int,
+                           capacity: int, fields, slots, versions,
+                           *rows) -> None:
+        """One cached pull on the host: the shadow looks ``(slots,
+        versions)`` up, and the ledger books the delta-pull wire, 8 bytes
+        a valid row (key and watermark), ``ceil(valid / 8)`` bytes of hit
+        bitmap and ``val_bytes`` a missed row, against the uncached
+        ``full_row_bytes`` a row (the difference on ``pull_bytes_saved``).
+        ``rows`` (oracle mode) are the fresh fields the shadow checks hits
+        against."""
+        sh = self._pull_shadow_get()
+        slots = np.asarray(slots).ravel()
+        rowmap = dict(zip(fields, rows)) if rows else None
+        hit = sh.lookup(slots, versions, int(capacity), rows=rowmap)
+        n_valid = int((slots >= 0).sum())
+        n_hit = int(hit.sum())
+        n_miss = n_valid - n_hit
+        booked = 8 * n_valid + (n_valid + 7) // 8 + n_miss * int(val_bytes)
+        self._book(None, pull_bytes=booked, pull_rows=n_valid,
+                   pull_cache_hits=n_hit, pull_delta_rows=n_miss,
+                   pull_bytes_saved=max(
+                       0, n_valid * int(full_row_bytes) - booked))
+
     def _counts(self) -> np.ndarray:
         """Host copy of the ledger: the host counters plus every device's
         (one read a device)."""
@@ -297,10 +491,9 @@ class Transfer:
         """The cumulative wire ledger: ``wire_bytes`` and ``dispatches``
         of the push exchanges, ``pull_bytes``/``pull_rows``/
         ``pull_hot_rows`` of the pulls, the window push's decisions,
-        coalesced rows and plan counters, and the keys of the encoded wire
-        formats and the pull cache (ROADMAP A12d), 0 here.  Every value is
-        a total that never decreases; there is no reset (see
-        :meth:`traffic_delta`)."""
+        coalesced rows, collectives and plan counters, and the pull
+        plan's format and cache keys.  Every value is a total that never
+        decreases; there is no reset (see :meth:`traffic_delta`)."""
         c = self._counts()
         return {k: int(c[_INDEX[k]]) for k in WIRE_KEYS}
 
@@ -335,21 +528,66 @@ class Transfer:
 
     def _interpret_pull_flat(self, state: TableState, slots,
                              fields) -> TableState:
-        """One gather over the whole slot space through ``_prim_pull``."""
+        """One gather over the whole slot space through ``_prim_pull``.
+        Armed, the plan's format prices the wire (an encoded format
+        quantizes and dequantizes the pulled rows) and, with the
+        ``@rowver`` plane in the state, the versions ride the same gather
+        and the cache shadow books the delta wire on the host."""
         from swiftmpi_tpu_torch.transfer.plan import pull_route
-        if self.count_traffic:
-            rows = (int((np.asarray(slots) >= 0).sum())
-                    if pull_route(self.name).eager else (slots >= 0).sum())
-            self._record_pull(rows, pull_row_bytes(state, fields))
-        return self._prim_pull(state, slots, fields)
+        eager = pull_route(self.name).eager
+        row_bytes = pull_row_bytes(state, fields)
+
+        def n_valid():
+            return (int((np.asarray(slots) >= 0).sum()) if eager
+                    else (slots >= 0).sum())
+        quant = self.pull_quant
+        if quant == "off" and not self.pull_cache:
+            if self.count_traffic:
+                self._record_pull(n_valid(), row_bytes)
+            return self._prim_pull(state, slots, fields)
+        qrb = (quant_pull_row_bytes(state, fields, quant)
+               if quant != "off" else None)
+        plan = self._pull_plan(int(np.prod(slots.shape)),
+                               _state_capacity(state), row_bytes, qrb)
+        if plan.cached and ROWVER_KEY in state:
+            out = self._prim_pull(state, slots, fields + (ROWVER_KEY,))
+            vers = out.pop(ROWVER_KEY)
+            if self.count_traffic:
+                rows = (tuple(_host_copy(out[f]) for f in fields)
+                        if self.pull_cache_oracle else ())
+                self._accum_pull_cached(
+                    plan.wire_row_bytes - 4, row_bytes,
+                    _state_capacity(state), fields, _host_copy(slots),
+                    _host_copy(vers), *rows)
+        else:
+            out = self._prim_pull(state, slots, fields)
+            if self.count_traffic:
+                self._record_pull(n_valid(), plan.wire_row_bytes)
+        if plan.wire_format != "full_f32":
+            out = {f: quantize_dequantize(out[f], plan.quant)
+                   for f in fields}
+        return out
+
+    def _pull_plan(self, rows: int, capacity: int, row_bytes: int,
+                   quant_row_bytes: Optional[int] = None):
+        """Compile (or fetch) the pull's :class:`~swiftmpi_tpu_torch.
+        transfer.plan.PullPlan`, booking the compile or the hit and the
+        format decision on the host."""
+        from swiftmpi_tpu_torch.transfer.plan import compile_pull_plan
+        plan, hit = compile_pull_plan(self, int(rows), int(capacity),
+                                      int(row_bytes), quant_row_bytes)
+        self._book(None, **{"plan_cache_hits" if hit else "plan_compiles":
+                            1})
+        self._count_pull_decision(plan.wire_format)
+        return plan
 
     def _interpret_pull_hot_split(self, state: TableState, slots, access,
                                   fields) -> TableState:
         """The ``hot_split`` placement (hybrid): tail slots re-based by
-        ``-n_hot`` and pulled through the tail backend (whose ledger books
-        them), hot hits read from the hot planes by the gather kernel at 0
-        wire bytes, the two merged by a select, not a sum (``-0.0`` rows
-        keep their sign).  Uses the hybrid backend's ``_pad_batch``,
+        ``-n_hot`` and pulled through the tail backend (whose ledger,
+        pull plan and cache book them), hot hits read from the hot planes
+        by the gather kernel at 0 wire bytes and never quantized, the two
+        merged by a select, not a sum (``-0.0`` rows keep their sign).  Uses the hybrid backend's ``_pad_batch``,
         ``_split_state`` and ``_n_hot``."""
         from swiftmpi_tpu_torch.kernels.gather import masked_gather
         slots = slots.to(torch.int32)
@@ -400,16 +638,18 @@ class Transfer:
 
     def push_span(self, state: TableState, slots: torch.Tensor, grads,
                   counts: torch.Tensor, access: AccessMethod,
-                  mean: bool = False) -> TableState:
+                  mean: bool = False, _wire=None) -> TableState:
         """Push a position-indexed span family: row ``i`` of ``grads`` is
         the sum of ``counts[i]`` contributions to slot ``slots[i]``
         (``-1`` = padding); duplicate slots are combined without a sort and
         ``mean=True`` divides by the summed counts.  The JAX package's
-        ``XlaTransfer.push_span``."""
+        ``XlaTransfer.push_span``.  ``_wire`` (an encoded window's
+        ``(row_bytes, base_bytes)``) replaces the ledger's row model."""
         self.push_paths[f"{','.join(grads)}:span"] += 1
         if self.count_traffic:
-            self._record_exchange((slots >= 0).sum(),
-                                  grad_row_bytes(grads, with_counts=True))
+            rb, bb = (_wire if _wire is not None
+                      else (grad_row_bytes(grads, with_counts=True), 0))
+            self._record_exchange((slots >= 0).sum(), rb, base_bytes=bb)
         return self._push_span(state, slots, grads, counts, access, mean)
 
     # -- the window push: the TrafficPlan interpreter -------------------------
@@ -532,29 +772,54 @@ class Transfer:
             None if fcounts is None else fcounts[None], capacity)
         return ded[0], {f: g[0] for f, g in dg.items()}, dc[0]
 
+    def _side_plane(self, state, key: str) -> torch.Tensor:
+        """A tail-shaped side plane (``@ef``) as one ``(capacity, d)``
+        tensor that updates in place: the state's own tensor here."""
+        return state[key]
+
     def _prim_ef_drain(self, state, ded_slots, ded_grads, capacity: int,
                        quant: str):
-        raise NotImplementedError(
-            "error feedback around a quantized window (the @ef planes) is "
-            "not ported yet (ROADMAP A12d)")
+        """Drain the ``@ef`` residuals into the deduplicated sums,
+        quantize and dequantize them, bank the new error
+        (:func:`ef_quantize_window`, the planes in place).  Returns
+        ``(state, grads)``."""
+        planes = {f: self._side_plane(state, ef_name(f))
+                  for f in ded_grads if ef_name(f) in state}
+        return state, ef_quantize_window(planes, ded_slots, ded_grads,
+                                         capacity, quant)
 
     def _prim_window_exchange(self, state, ded_slots, ded_grads,
                               ded_counts, access, mean: bool,
                               need_counts: bool, wire):
-        """Ship a deduplicated window's surviving rows.  Default: the span
-        family (counts always ride)."""
-        if wire is not None:
-            raise NotImplementedError(
-                "an encoded window exchange is not ported yet (ROADMAP "
-                "A12d)")
+        """Ship a deduplicated window's surviving rows, booked at the
+        plan's encoded ``wire`` when it has one.  Default: the span family
+        (counts always ride)."""
         return self.push_span(state, ded_slots, ded_grads, ded_counts,
-                              access, mean=mean)
+                              access, mean=mean, _wire=wire)
 
     def _prim_sparse_allreduce(self, state, flat, fgrads, access,
                                mean: bool, fcounts):
-        raise NotImplementedError(
-            "the sparse-allreduce collective ([cluster] collective) is not "
-            "ported yet (ROADMAP A12d)")
+        """The sparse allreduce of a window that densified: on one
+        program the split-and-exchange is the merge of the window's rows
+        (``merge_rows``, one scatter-add launch a family; the mean's counts
+        by ``merge_counts``) and one AdaGrad launch over the table, the
+        mean's reciprocal inside it; the touched rows' versions bumped."""
+        from swiftmpi_tpu_torch.transfer.sparse_allreduce import (
+            merge_counts, merge_rows)
+        capacity = _state_capacity(state)
+        self.push_paths[f"{','.join(sorted(fgrads))}:sparse_ar"] += 1
+        dense = {f: merge_rows(flat, g, capacity) for f, g in fgrads.items()}
+        inv = None
+        if mean:
+            counts = (fcounts if fcounts is not None
+                      else torch.ones(flat.shape, dtype=torch.float32,
+                                      device=flat.device))
+            inv = 1.0 / merge_counts(flat, counts, capacity).clamp(min=1.0)
+        access.apply_push(state, dense, mul=inv)
+        if ROWVER_KEY in state:
+            bump_row_versions(state[ROWVER_KEY], touched_rows(
+                flat, flat >= 0, capacity))
+        return state
 
     def _push_window_dense(self, state, flat, fgrads, access, mean: bool,
                            fcounts):
@@ -585,6 +850,9 @@ class Transfer:
         if decision == "dense" and route.always_decide:
             self._count_collective(plan.collective)
             if plan.collective == "sparse_allreduce":
+                if self.count_traffic:
+                    self._book_sparse_allreduce(flat, fgrads, capacity, mean,
+                                                route.eager)
                 return self._prim_sparse_allreduce(state, flat, fgrads,
                                                    access, mean, fcounts)
             if self.count_traffic:
@@ -633,6 +901,26 @@ class Transfer:
                                           ded_counts, access, mean,
                                           need_counts, wire)
 
+    def _book_sparse_allreduce(self, flat, fgrads, capacity: int,
+                               mean: bool, eager: bool) -> None:
+        """The dense rung's sparse allreduce on the ledger: the touched
+        rows (distinct valid slots of the window) at an int32 row id plus
+        the value row each, and what that saved over the capacity-shaped
+        buffer."""
+        from swiftmpi_tpu_torch.transfer.sparse_allreduce import ROW_ID_BYTES
+        val_bytes = grad_row_bytes(fgrads, with_index=False,
+                                   with_counts=mean)
+        if eager:
+            f = np.asarray(flat)
+            touched = int(np.unique(f[(f >= 0) & (f < capacity)]).size)
+        else:
+            touched = touched_rows(flat, flat >= 0, capacity).sum()
+        self._record_exchange(touched, ROW_ID_BYTES + val_bytes,
+                              on=None if eager else flat, decision="dense")
+        self._record_saved(capacity * val_bytes
+                           - touched * (ROW_ID_BYTES + val_bytes),
+                           on=None if eager else flat)
+
     def _interpret_window_hot_split(self, state, flat, fgrads, fcounts,
                                     access, mean: bool,
                                     counts_present: bool):
@@ -660,18 +948,25 @@ class Transfer:
         width_bytes = grad_row_bytes(ded_grads, with_index=False) + 4
         hot_plan = self._hot_plan(n_hot, width_bytes)
         self._count_collective(hot_plan.collective)
-        if hot_plan.collective == "sparse_allreduce":
-            raise NotImplementedError(
-                "the hybrid's sparse hot reconcile (_hot_push_sparse, "
-                "[cluster] collective) is not ported yet (ROADMAP A12d)")
         # the mean now depends on the collapsed multiplicities, so both
         # slices take the counts
         need_counts = mean or counts_present
         self.tail._interpret_window_flat(
             tail_state, tail_slots, ded_grads, access, mean,
             ded_counts if need_counts else None, pre_deduped=True)
+        n = is_hot.sum()
+        if hot_plan.collective == "sparse_allreduce":
+            if self.count_traffic:
+                # the touched hot rows of every rank's slice (the dedup is
+                # per rank): what each feeds the reduce-scatter
+                self._record_hot_sparse(n, width_bytes)
+                self._record_exchange(n, width_bytes)
+                self._record_saved((n_hot - n) * width_bytes)
+            self._hot_push_sparse(hot_state, ded_slots, is_hot, ded_grads,
+                                  access, mean,
+                                  ded_counts if need_counts else None)
+            return state
         if self.count_traffic:
-            n = is_hot.sum()
             self._record_hot(n, n_hot * width_bytes)
             self._record_exchange(n_hot, width_bytes, on=n)
         self._hot_push(hot_state, ded_slots, is_hot, ded_grads, access,
@@ -691,6 +986,14 @@ class Transfer:
 
     def _push_sparse(self, state, slots, grads, access, mean=False):
         raise NotImplementedError
+
+
+def _host_copy(x) -> np.ndarray:
+    """A host numpy copy of a tensor (read back from the card) or an
+    array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def window_dedup(slots: torch.Tensor, grads, counts, capacity: int):

@@ -28,18 +28,23 @@ The window push is the interpreter's ``hot_split`` placement
 deduplicated once in the unified slot space (the tail's per-rank pass
 over ``n_hot + cap_tail`` slots), the hot slice goes through
 :meth:`_hot_push` with the deduplicated counts, and the tail slice runs
-its own window plan on the ``tpu`` tail, already deduplicated.  With
-``n_hot == 0`` the whole window goes to the tail.  The window knobs
-(``window_expected_unique``, ``wire_quant``, ``wire_sketch``, the dense
-ratios, ``collective_mode`` ...) live on the tail, which prices the
-window; the hot plan reads them through this backend.
+its own window plan on the ``tpu`` tail, already deduplicated (the tail's
+encoded rungs and their ``@ef`` drain included: the ``@ef`` and
+``@rowver`` planes are tail-shaped and go with the tail in
+``_split_state``; hot rows are never quantized and carry no versions).
+The hot plan picks the hot reconcile's collective: ``psum``
+(:meth:`_hot_push`) or ``sparse_allreduce`` (:meth:`_hot_push_sparse`).
+With ``n_hot == 0`` the whole window goes to the tail.  The window and
+pull knobs (``window_expected_unique``, ``wire_quant``, ``wire_sketch``,
+the dense ratios, ``collective_mode``, ``pull_quant``, ``pull_cache``
+...) live on the tail, which prices the window and the tail's pulls; the
+hot plan reads them through this backend.
 
 ``traffic()`` reports ``routed_rows`` (the tail's), ``hot_rows`` (hot
 hits of pulls and pushes), ``psum_bytes`` (``n_hot x`` (grad row bytes
-+ 4) a push), ``overflow_dropped`` and the ledger keys, the tail's and
-the hot exchanges' summed.  The sparse-allreduce reconcile of the hot
-head (JAX ``_hot_push_sparse``, ``[cluster] collective``, which
-``Word2Vec`` refuses) is ROADMAP A12d.
++ 4) a dense hot push, the touched rows' bytes a sparse one),
+``overflow_dropped`` and the ledger keys, the tail's and the hot
+exchanges' summed.
 """
 
 from __future__ import annotations
@@ -124,6 +129,16 @@ class HybridTransfer(Transfer):
     def _record_hot(self, rows, psum_bytes) -> None:
         self._book(rows, hot_rows=rows, psum_bytes=psum_bytes)
 
+    def _record_hot_sparse(self, rows, row_bytes: int) -> None:
+        """The sparse hot reconcile's rows and bytes: the touched rows at
+        ``row_bytes`` each, not the whole head."""
+        self._record_hot(rows, rows * int(row_bytes))
+
+    def pull_shadow_flush(self) -> None:
+        # the tail runs the live cache shadow; flush both
+        self.tail.pull_shadow_flush()
+        super().pull_shadow_flush()
+
     def traffic(self) -> Dict[str, int]:
         """``routed_rows``, ``hot_rows``, ``psum_bytes``,
         ``overflow_dropped`` and the ledger keys, the tail's ledger and
@@ -177,7 +192,7 @@ class HybridTransfer(Transfer):
                          counts=counts)
 
     def _hot_push(self, hot_state, slots, is_hot, grads, access, mean,
-                  counts) -> None:
+                  counts, path: str = "hot") -> None:
         """Sum the hot rows of every rank into ``(n_hot, W)`` per family
         (the scatter-add kernel, invalid and tail rows dropped) and apply
         the access rule over the whole hot plane in place (the AdaGrad
@@ -185,7 +200,8 @@ class HybridTransfer(Transfer):
         n_hot = next(iter(hot_state.values())).shape[0]
         families = ",".join(sorted(grads))
         self.push_paths[f"{families}:"
-                        f"{'hot_span' if counts is not None else 'hot'}"] += 1
+                        f"{path + '_span' if counts is not None else path}"
+                        ] += 1
         acc, csum = {}, None
         for f in sorted(grads):
             # a mean push without data counts takes them from its first
@@ -203,6 +219,23 @@ class HybridTransfer(Transfer):
         inv = 1.0 / csum.clamp(min=1.0) if mean else None
         access.apply_push(hot_state, acc, mul=inv)
 
+    def _hot_push_sparse(self, hot_state, slots, is_hot, grads, access, mean,
+                         counts) -> None:
+        """The hot reconcile as a sparse allreduce (JAX ``_hot_push_sparse``).
+        In JAX each rank scatters its touched hot rows into a plane permuted
+        by row-hash bucket (row ``r`` to bucket ``r % n``), a reduce-scatter
+        sums the buckets across ranks and an all-gather hands the reduced rows
+        back.  With every rank on one card that is one sum of all ranks' hot
+        rows: one scatter-add launch a family onto the unpermuted ``(n_hot,
+        W)`` plane (the bucket permutation only relabels rows, so the plane
+        is not permuted: a permuted scatter would be followed by an
+        unpermuting copy that moves the head once more for nothing), then the
+        AdaGrad kernel over the plane.  It equals the dense reconcile up to
+        the order of float sums, as in JAX; only the push path
+        (``<families>:hot_sparse``) and the ledger differ."""
+        self._hot_push(hot_state, slots, is_hot, grads, access, mean, counts,
+                       path="hot_sparse")
+
 
 def _tail_knob(name: str) -> property:
     def get(self):
@@ -216,5 +249,6 @@ def _tail_knob(name: str) -> property:
 
 for _knob in ("window_expected_unique", "wire_quant", "wire_quant_guard",
               "wire_sketch", "collective_mode", "hot_touched_fraction",
-              "sparse_ar_ratio"):
+              "sparse_ar_ratio", "pull_quant", "pull_quant_guard",
+              "pull_cache", "pull_cache_oracle"):
     setattr(HybridTransfer, _knob, _tail_knob(_knob))

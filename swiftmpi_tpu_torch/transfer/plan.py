@@ -8,19 +8,18 @@ backends' primitives; the backends never ask the wire-format question.
 :func:`compile_window_plan` and :func:`compile_hot_plan` cache each plan
 under a key that holds every pricing input, the knobs still at their
 defaults included, so a moved knob re-prices the next window with no
-invalidation.  The pull routes are the facts the pull interpreter
-(``Transfer.pull``) reads per backend.
-
-The port executes the lossless rungs (``dense``, ``sparse``) with
-``collective: psum``; a plan that picks an encoded or lossy rung, or the
-sparse-allreduce collective, reaches a primitive that raises (ROADMAP
-A12d).  ``PullPlan`` and its pricer are A12d as well.
+invalidation.  The pull family has its own: the pull routes are the
+facts the pull interpreter (``Transfer.pull``) reads per backend, and an
+armed pull (``pull_quant``, ``pull_cache``) compiles a :class:`PullPlan`
+(:func:`compile_pull_plan`) in the same cache.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
+
+from swiftmpi_tpu_torch.transfer.sketch import OFFSET_BYTES, sketch_base_bytes
 
 #: the wire-format ladder; every decision the pricer can return
 WIRE_FORMATS = ("dense", "sparse", "bitmap", "sparse_q", "sparse_sketch")
@@ -30,6 +29,15 @@ COLLECTIVES = ("psum", "psum_scatter", "sparse_allreduce")
 
 #: legal values of ``[cluster] collective``
 COLLECTIVE_MODES = ("psum", "auto", "sparse_allreduce")
+
+#: the pull-wire ladder: ``full_f32`` ships rows at their stored dtype,
+#: ``bf16`` halves the values, ``sparse_q`` ships int8 rows with a float32
+#: scale a row and field (the delta codec's scheme, ``transfer/delta.py``)
+PULL_FORMATS = ("full_f32", "bf16", "sparse_q")
+
+#: legal values of ``[cluster] pull_quant``: ``bf16`` and ``int8`` arm the
+#: encoded rung, which still has to clear the guard to be chosen
+PULL_QUANT_MODES = ("off", "bf16", "int8")
 
 
 @dataclass(frozen=True)
@@ -50,11 +58,23 @@ class WireFormatSpec:
              with_counts: bool) -> Optional[Tuple[int, int]]:
         """``(row_bytes, base_bytes)`` the ledger books one exchange of
         this format at, or ``None`` for the executor's default model (the
-        lossless rungs).  The encoded rungs are ROADMAP A12d."""
-        if self.encoded:
-            raise NotImplementedError(
-                f"the {self.name!r} wire format (its encoded exchange) is "
-                "not ported yet (ROADMAP A12d)")
+        unencoded rungs).  Agrees with the pricer's byte models
+        (``parameter.key_index.price_window_formats``): ``sparse_q`` the
+        quantized row, ``bitmap`` the index-free row plus the ``capacity /
+        8`` occupancy mask, ``sparse_sketch`` the index-free row plus a
+        one-byte offset and the counting sketch."""
+        from swiftmpi_tpu_torch.transfer.api import (grad_row_bytes,
+                                                     quant_grad_row_bytes)
+        if self.name == "sparse_q":
+            return (quant_grad_row_bytes(grads, quant,
+                                         with_counts=with_counts), 0)
+        if self.name == "bitmap":
+            return (grad_row_bytes(grads, with_index=False,
+                                   with_counts=with_counts), capacity // 8)
+        if self.name == "sparse_sketch":
+            return (grad_row_bytes(grads, with_index=False,
+                                   with_counts=with_counts) + OFFSET_BYTES,
+                    sketch_base_bytes(capacity))
         return None
 
 
@@ -305,3 +325,78 @@ def pull_route(backend: str) -> PullRoute:
     except KeyError:
         raise KeyError(f"transfer.plan: backend {backend!r} has no pull "
                        "route (add it to PULL_ROUTES)") from None
+
+
+@dataclass(frozen=True)
+class PullPlan:
+    """One compiled pull plan: the format the rows ship in, whether the
+    versioned cache is consulted, and the pricing evidence.  Frozen, as
+    :class:`TrafficPlan`."""
+
+    backend: str
+    placement: str
+    wire_format: str
+    quant: str                    # off | int8 | bf16
+    cached: bool                  # the versioned PullCache is consulted
+    rows: int
+    capacity: int
+    row_bytes: int                # full_f32 row bytes, the key included
+    wire_row_bytes: int           # the chosen format's row bytes
+    priced: Tuple[Tuple[str, float], ...]
+
+    @property
+    def prices(self) -> Dict[str, float]:
+        return dict(self.priced)
+
+
+def price_pull_formats(rows: int, row_bytes: int, quant: str = "off",
+                       quant_row_bytes: Optional[int] = None,
+                       quant_guard: float = 1.25):
+    """``(decision, prices)`` over :data:`PULL_FORMATS`: ``full_f32`` at
+    ``rows * row_bytes``, the armed encoded rung (``bf16`` or
+    ``sparse_q``) at ``rows * quant_row_bytes``.  With ``quant`` off only
+    ``full_f32`` is priced; an encoded rung wins only when ``q_vol *
+    quant_guard <= full_vol``."""
+    full_vol = float(rows) * float(row_bytes)
+    prices = {"full_f32": full_vol}
+    if quant == "off" or quant_row_bytes is None:
+        return "full_f32", prices
+    fmt = "bf16" if quant == "bf16" else "sparse_q"
+    q_vol = float(rows) * float(quant_row_bytes)
+    prices[fmt] = q_vol
+    if q_vol * quant_guard <= full_vol:
+        return fmt, prices
+    return "full_f32", prices
+
+
+def compile_pull_plan(transfer, rows: int, capacity: int, row_bytes: int,
+                      quant_row_bytes: Optional[int],
+                      ) -> Tuple[PullPlan, bool]:
+    """Compile (or fetch) the :class:`PullPlan` of one pull shape on
+    ``transfer``: ``(plan, cache_hit)``.  The key holds the shape and the
+    live ``pull_quant``, ``pull_quant_guard`` and ``pull_cache`` knobs."""
+    quant = transfer.pull_quant if quant_row_bytes is not None else "off"
+    if quant not in PULL_QUANT_MODES:
+        raise ValueError(
+            f"transfer.plan: unknown pull_quant mode {quant!r} "
+            f"(expected one of {PULL_QUANT_MODES})")
+    guard = transfer.pull_quant_guard
+    cached = bool(transfer.pull_cache)
+    key = (transfer.name, "pull", int(rows), int(capacity),
+           int(row_bytes), quant_row_bytes, quant, guard, cached)
+    plan = _PLAN_CACHE.get(key)
+    if plan is not None:
+        return plan, True
+    decision, prices = price_pull_formats(
+        int(rows), int(row_bytes), quant=quant,
+        quant_row_bytes=quant_row_bytes, quant_guard=guard)
+    plan = PullPlan(
+        backend=transfer.name, placement=pull_route(transfer.name).placement,
+        wire_format=decision,
+        quant=quant if decision != "full_f32" else "off", cached=cached,
+        rows=int(rows), capacity=int(capacity), row_bytes=int(row_bytes),
+        wire_row_bytes=(int(row_bytes) if decision == "full_f32"
+                        else int(quant_row_bytes)),
+        priced=tuple(sorted(prices.items())))
+    _cache(key, plan)
+    return plan, False

@@ -69,9 +69,25 @@ buckets hold ``C = W * B / n`` slots (or ``bucket_capacity``):
   slice of the plane, and the AdaGrad kernel applies it over the block
   of shards with the mean's reciprocal.
 
+The wire stack's primitives on this backend:
+
+* ``_prim_sparse_allreduce`` is ``_push_window_dense`` bit for bit: JAX's
+  tiled reduce-scatter already lands each summed slice on its owner, so a
+  sharded target needs no all-gather; only the ledger's model differs
+  (the interpreter books the touched rows).
+* ``_prim_ef_drain`` is the base class's :func:`~swiftmpi_tpu_torch.
+  transfer.api.ef_quantize_window` over the global ``(n * cap, d)`` view
+  of each ``@ef`` plane (:meth:`_side_plane`: the device's block of
+  shards, no copy).
+* the ``@rowver`` plane is one more int32 field of a routed pull (the
+  gather kernel's int32 form, the ring's int32 words), and every push
+  stamps the rows its owners received, each shard with its own max + 1
+  (JAX's max runs over the local shard inside ``shard_map``): the routed
+  push from the first family's scatter-add counts, the dense rung from
+  the window plane's counts.
+
 Not ported: the data axis across processes (``dp_axis``, the sparse DCN
-reconcile; ROADMAP A11), ``@rowver`` stamping and the sparse-allreduce
-collective (ROADMAP A12d), and ``[cluster] data_plane: xla``, the library
+reconcile; ROADMAP A11) and ``[cluster] data_plane: xla``, the library
 route of the exchange (ROADMAP A16).
 """
 
@@ -85,9 +101,9 @@ from swiftmpi_tpu_torch.kernels.gather import masked_gather
 from swiftmpi_tpu_torch.kernels.ring import (ring_exchange,
                                              ring_exchange_stacked)
 from swiftmpi_tpu_torch.kernels.scatter import masked_scatter_add
-from swiftmpi_tpu_torch.parameter.sparse_table import shard_block
-from swiftmpi_tpu_torch.transfer.api import (Transfer, grad_row_bytes,
-                                             window_dedup)
+from swiftmpi_tpu_torch.parameter.sparse_table import ROWVER_KEY, shard_block
+from swiftmpi_tpu_torch.transfer.api import (Transfer, bump_row_versions,
+                                             grad_row_bytes, window_dedup)
 
 _COUNTS = "__counts__"
 
@@ -370,9 +386,12 @@ class ShardedTransfer(Transfer):
         Bl = slots.shape[0] // n
         # received rows per owner; padding is dropped by the scatter
         rows, ok = self._requests(groups)
-        # per group: family -> (R, cap, W) sums, and the mean's divisor
+        # per group: family -> (R, cap, W) sums, the mean's divisor and
+        # the received rows' counts (a versioned table stamps them)
         sums = [{} for _ in groups]
         divisor = [None] * len(groups)
+        occupied = [None] * len(groups)
+        versions = ROWVER_KEY in state
         for f in sorted(grads):
             g_all = grads[f]
             width = g_all.shape[1]
@@ -394,13 +413,15 @@ class ShardedTransfer(Transfer):
             for k, (g, t) in enumerate(zip(groups, recv)):
                 # contribution counts accumulate at the owner from the
                 # received requests themselves: no extra exchange
-                take = mean and not with_counts and divisor[k] is None
+                take = occupied[k] is None and (
+                    versions or (mean and not with_counts))
                 res = masked_scatter_add(rows[k], ok[k],
                                          t.view(len(g.ranks), -1, width),
                                          cap, counts=take)
                 if take:
-                    res, cnt = res
-                    divisor[k] = cnt.clamp(min=1.0)
+                    res, occupied[k] = res
+                    if mean and not with_counts:
+                        divisor[k] = occupied[k].clamp(min=1.0)
                 sums[k][f] = res
         for k, g in enumerate(groups):
             dense = sums[k]
@@ -416,6 +437,9 @@ class ShardedTransfer(Transfer):
             access.apply_push(
                 {f: self._block(state, f, g)
                  for f in access.touched_fields(dense)}, dense, mul=inv)
+            if versions:
+                bump_row_versions(self._block(state, ROWVER_KEY, g),
+                                  occupied[k] > 0)
         self._record_overflow("push", groups)
         return state
 
@@ -468,14 +492,16 @@ class ShardedTransfer(Transfer):
         capacity = n * cap
         valid = flat >= 0
         self.push_paths[f"{','.join(sorted(fgrads))}:window_dense"] += 1
-        planes, cnt = {}, None
+        versions = ROWVER_KEY in state
+        planes, occ = {}, None
         for f in sorted(fgrads):
-            take = mean and fcounts is None and cnt is None
+            take = occ is None and (versions or (mean and fcounts is None))
             res = masked_scatter_add(flat, valid, fgrads[f].contiguous(),
                                      capacity, counts=take)
             if take:
-                res, cnt = res
+                res, occ = res
             planes[f] = res.view(n, cap, -1)
+        cnt = occ
         if mean and fcounts is not None:
             cnt = masked_scatter_add(flat, valid, fcounts.to(torch.float32)
                                      .reshape(-1, 1).contiguous(),
@@ -489,4 +515,27 @@ class ShardedTransfer(Transfer):
                 {f: shard_block([state[f][r] for r in ranks])
                  for f in access.touched_fields(tiles)}, tiles,
                 mul=None if inv is None else self._take(inv, ranks).to(dev))
+            if versions:
+                bump_row_versions(
+                    shard_block([state[ROWVER_KEY][r] for r in ranks]),
+                    self._take(occ.view(n, cap), ranks).to(dev) > 0)
         return state
+
+    def _prim_sparse_allreduce(self, state, flat, fgrads, access, mean,
+                               fcounts):
+        """The dense rung's exchange already is the balanced reduce-scatter
+        onto the owners: the same computation, bit for bit; only the
+        ledger's model (booked by the interpreter) differs."""
+        return self._push_window_dense(state, flat, fgrads, access, mean,
+                                       fcounts)
+
+    def _side_plane(self, state, key):
+        """The global ``(n * cap, d)`` rows of a tail-shaped side plane as
+        one tensor that updates the shards in place: a view of the block
+        of shards when every rank is on one device."""
+        if len(self._groups) != 1:
+            raise NotImplementedError(
+                "error feedback over shards on several devices (ROADMAP "
+                "A11); the port keeps every rank on one device")
+        block = shard_block(state[key])
+        return block.view(-1, block.shape[-1])

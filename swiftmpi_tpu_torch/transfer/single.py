@@ -26,7 +26,10 @@
 
 All three pushes update the table tensors in place, with shapes fixed by
 the batch, and none reads the host: a step can be captured in a CUDA
-graph.  With ``count_traffic`` the base class books the ledger as
+graph.  Each stamps the slots it applies to in the ``@rowver`` plane, when
+the state has one (``api.bump_row_versions``: the plane's max + 1).  The
+window's sparse allreduce (``[cluster] collective``) is the base class's
+one-program merge and full-table apply.  With ``count_traffic`` the base class books the ledger as
 ``XlaTransfer`` does, on the device's counters: a pull its valid rows, a
 dense push every row without the index, a sparse push its valid rows, a
 span push its valid rows with the counts column.
@@ -38,7 +41,9 @@ import torch
 
 from swiftmpi_tpu_torch.kernels.gather import masked_gather
 from swiftmpi_tpu_torch.kernels.scatter import masked_scatter_add
-from swiftmpi_tpu_torch.transfer.api import Transfer
+from swiftmpi_tpu_torch.parameter.sparse_table import ROWVER_KEY
+from swiftmpi_tpu_torch.transfer.api import (Transfer, bump_row_versions,
+                                             touched_rows)
 
 
 class SingleTransfer(Transfer):
@@ -51,11 +56,13 @@ class SingleTransfer(Transfer):
     def _push_dense(self, state, slots, grads, access, mean=False):
         capacity = next(iter(state.values())).shape[0]
         valid = slots >= 0
+        versions = ROWVER_KEY in state
         dense_grads, counts = {}, None
         for f, g in grads.items():
-            # a mean push takes the contribution counts from its first
+            # a mean push (or a versioned table's push, which stamps the
+            # touched rows) takes the contribution counts from its first
             # family's scatter: one launch per family, no count pass
-            if mean and counts is None:
+            if (mean or versions) and counts is None:
                 acc, counts = masked_scatter_add(slots, valid, g.contiguous(),
                                                  capacity, counts=True)
             else:
@@ -72,6 +79,8 @@ class SingleTransfer(Transfer):
                      else {"mul": 1.0 / div})
         # in place over the whole table (JAX: donated state)
         access.apply_push(state, dense_grads, **scale)
+        if versions:
+            bump_row_versions(state[ROWVER_KEY], counts > 0)
         return state
 
     def _push_sparse(self, state, slots, grads, access, mean=False):
@@ -111,6 +120,9 @@ class SingleTransfer(Transfer):
         # in place on the table at the representatives the mask keeps,
         # distinct slots; the mean's reciprocal inside the launch
         access.apply_push_rows(state, rep, keep, combined, mul=inv)
+        if ROWVER_KEY in state:
+            bump_row_versions(state[ROWVER_KEY],
+                              touched_rows(rep, keep, capacity))
         return state
 
     def _push_span(self, state, slots, grads, counts, access, mean=False):
@@ -142,4 +154,7 @@ class SingleTransfer(Transfer):
         # its slot in place, the mean's reciprocal inside the launch
         is_owner = valid & (owner == pos)
         access.apply_push_rows(state, slots, is_owner, combined, mul=inv)
+        if ROWVER_KEY in state:
+            bump_row_versions(state[ROWVER_KEY],
+                              touched_rows(slots, is_owner, capacity))
         return state

@@ -275,24 +275,34 @@ def test_npz_load_grows_refuses_shrink_and_other_shard_counts(tmp_path):
 @pytest.mark.parametrize("plane", ["n_hot", "field__h@hot", "field__h@ef",
                                    "field__@rowver"])
 def test_unported_planes_raise(tmp_path, plane):
-    """A checkpoint with error-feedback planes or the row version plane is
-    refused, naming ROADMAP A12; the hot head is ported now, so an
-    ``n_hot`` or an ``@hot`` plane the table does not have is refused as
-    the JAX package refuses it, with a ``ValueError`` naming ``n_hot`` or
-    the fields."""
+    """Planes of a checkpoint the table was not built for: an ``n_hot`` or
+    an ``@hot`` plane is refused as the JAX package refuses it, with a
+    ``ValueError`` naming ``n_hot`` or the fields; an ``@ef`` plane the
+    table does not arm is refused naming ``wire_quant`` (its pending
+    residuals would vanish).  The ``@rowver`` plane, which earlier slices
+    refused (ROADMAP A12d), loads: it arms the table's plane with its
+    stamps, as JAX's load does."""
     t = _table()
     path = str(tmp_path / "ck")
     pck.save_checkpoint(t, path)
     with np.load(path + ".npz") as z:
         payload = {k: z[k] for k in z.files if not k.startswith("__crc__")}
+    stamps = np.arange(16, dtype=np.int32).reshape(16, 1)
     if plane == "n_hot":
         payload["n_hot"] = np.int64(3)
+    elif plane == "field__@rowver":
+        payload[plane] = stamps
     else:
         payload[plane] = np.zeros((16, 4), np.float32)
     pck.atomic_savez(path + ".npz", payload)
+    if plane == "field__@rowver":
+        pck.load_checkpoint(t, path)
+        np.testing.assert_array_equal(t.to_numpy()["@rowver"], stamps)
+        assert t.state["@rowver"].dtype == torch.int32
+        return
     err, match = {"n_hot": (ValueError, "n_hot"),
                   "field__h@hot": (ValueError, "fields")}.get(
-                      plane, (NotImplementedError, "A12"))
+                      plane, (ValueError, "wire_quant"))
     with pytest.raises(err, match=match):
         pck.load_checkpoint(t, path)
 

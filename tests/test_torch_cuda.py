@@ -1645,3 +1645,168 @@ def test_windowed_train_on_card_uses_graphs(dev):
     assert graphed.train_metrics["push_window"] == 2
     assert graphed.train_metrics["push_paths"] \
         == eager.train_metrics["push_paths"]
+
+
+# -- the wire stack -----------------------------------------------------------------
+
+@pytest.mark.parametrize("d", [1, 4, 3])
+def test_gather_int32_form_matches_plain_on_card(dev, d):
+    """B2's int32 form (the ``@rowver`` plane is ``(cap, 1)`` int32; d = 4
+    takes the group form, d = 3 the scalar one): bit for bit against the
+    plain version, on a table and on an (R, cap, d) block, one launch
+    each; d = 1 in float32 too (the column form)."""
+    rng = np.random.default_rng(12)
+    cap, n = 3000, 7000
+    slots, valid = _slots(rng, n, cap)
+    ts, tv = torch.from_numpy(slots).to(dev), torch.from_numpy(valid).to(dev)
+    for dtype in (torch.int32, torch.float32):
+        table = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (cap, d),
+                                              dtype=np.int64).astype(np.int32)
+                                 ).to(dev)
+        if dtype == torch.float32:
+            table = table.view(torch.float32) if d == 1 else None
+        if table is None:
+            continue
+        kernels.reset_launches()
+        got = gather.masked_gather(table, ts, tv)
+        assert got.dtype == dtype
+        assert torch.equal(got.view(torch.int32),
+                           gather.masked_gather_plain(table, ts, tv).view(
+                               torch.int32))
+        block = table.expand(3, cap, d).contiguous()
+        bs = torch.stack([ts, ts.flip(0), ts.roll(5)]).contiguous()
+        bv = torch.stack([tv, tv.flip(0), tv.roll(5)]).contiguous()
+        assert torch.equal(gather.masked_gather(block, bs, bv).view(
+            torch.int32), gather.masked_gather_plain(block, bs, bv).view(
+            torch.int32))
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["gather"] == 2
+
+
+def test_ef_drain_and_bank_on_card_match_cpu(dev):
+    """``ef_quantize_window`` on the card against the CPU on exact-sum
+    grads with duplicate representatives: the shipped values and the
+    planes bit for bit (an untouched -0.0 included), one gather and one
+    scatter-add launch a field."""
+    from swiftmpi_tpu_torch.transfer.api import ef_quantize_window
+    rng = np.random.default_rng(9)
+    cap, n, d = 4000, 6000, 100
+    ded = rng.integers(0, cap, n).astype(np.int32)
+    ded[rng.random(n) < 0.3] = -1
+    g = (rng.integers(-64, 65, (n, d)) * 2.0 ** -10).astype(np.float32)
+    ef0 = (rng.integers(-64, 65, (cap, d)) * 2.0 ** -10).astype(np.float32)
+    ef0[np.setdiff1d(np.arange(cap), ded)[0]] = -0.0
+    out = {}
+    for where in (dev, "cpu"):
+        planes = {f: torch.from_numpy(ef0.copy()).to(where) for f in "hv"}
+        kernels.reset_launches()
+        shipped = ef_quantize_window(
+            planes, torch.from_numpy(ded).to(where),
+            {f: torch.from_numpy(g).to(where) for f in "hv"}, cap, "int8")
+        out[str(where)] = ({f: p.cpu() for f, p in planes.items()},
+                           {f: x.cpu() for f, x in shipped.items()},
+                           kernels.launch_counts())
+    (pc, sc, counts), (pp, sp, _) = out[str(dev)], out["cpu"]
+    for f in "hv":
+        assert torch.equal(pc[f].view(torch.int32), pp[f].view(torch.int32))
+        assert torch.equal(sc[f], sp[f])
+    assert counts["gather"] == 2 and counts["scatter"] == 2
+
+
+def test_sparse_hot_reconcile_on_card_matches_cpu(dev):
+    """A hybrid window with ``collective: sparse_allreduce`` on the card
+    against the CPU: the hot planes and the tail allclose (rtol 1e-5,
+    atol 1e-6, JAX's own tolerance), the same ledger, the hot reconcile
+    on B3 and B1."""
+    from swiftmpi_tpu_torch.cluster import ps_mesh
+    from swiftmpi_tpu_torch.parameter import KeyIndex, SparseTable, w2v_access
+    from swiftmpi_tpu_torch.parameter.key_index import HotColdPartition
+    from swiftmpi_tpu_torch.transfer import get_transfer
+    from swiftmpi_tpu_torch.transfer.plan import clear_plan_cache
+    acc = w2v_access(0.7, 100)
+    rng = np.random.default_rng(5)
+    keys = rng.choice(100_000, size=400, replace=False).astype(np.uint64)
+    counts = np.maximum((1e6 / np.arange(1, 401)).astype(np.int64), 1)
+    part = HotColdPartition.from_counts(keys, counts, batch_rows=64)
+    p = counts / counts.sum()
+    kk = keys[rng.choice(400, size=4 * 64, p=p)]
+    out = []
+    for where in (dev, "cpu"):
+        ki = KeyIndex(8, 64, partition=part)
+        slots = np.asarray(ki.lookup(kk), np.int32).reshape(4, 64)
+        slots[:, ::7] = -1
+        layout = ps_mesh(8, [where])
+        table = SparseTable(acc, ki, "cpu", seed=2, mesh=ps_mesh(8, ["cpu"]))
+        start = table.to_numpy()
+        table = SparseTable(acc, ki, where, seed=2, mesh=layout)
+        table.state = state_from_jax(start, where, mesh=layout)
+        t = get_transfer("hybrid", mesh=layout)
+        t.count_traffic, t.collective_mode = True, "sparse_allreduce"
+        grads = {f: np.random.default_rng(1).normal(
+            size=(4, 64, 100)).astype(np.float32) for f in ("h", "v")}
+        clear_plan_cache()
+        kernels.reset_launches()
+        t.push_window(table.state, torch.from_numpy(slots).to(where),
+                      {f: torch.from_numpy(g).to(where)
+                       for f, g in grads.items()}, acc, mean=True)
+        out.append((state_to_numpy(table.state), t.traffic(),
+                    kernels.launch_counts(), dict(t.push_paths)))
+    (card, tr, counts, paths), (cpu, tr_cpu, _, paths_cpu) = out
+    assert tr == tr_cpu and tr["collective_sparse_ar"] >= 1
+    assert paths == paths_cpu and paths["h,v:hot_sparse_span"] == 1
+    assert counts["scatter"] >= 2 and counts["adagrad"] >= 2
+    for f in cpu:
+        np.testing.assert_allclose(card[f], cpu[f], rtol=1e-5, atol=1e-6,
+                                   err_msg=f)
+
+
+def test_rowver_pull_on_tpu8_on_card_matches_cpu(dev):
+    """``tpu@8`` with the pull cache: two routed pushes stamp each shard's
+    rows with its own max + 1, the ``@rowver`` column rides the routed
+    pull (B2's int32 form, B5's int32 words), and the cached, int8 pull
+    ledger and the pulled rows equal the CPU's."""
+    from swiftmpi_tpu_torch.cluster import ps_mesh
+    from swiftmpi_tpu_torch.parameter import KeyIndex, SparseTable, w2v_access
+    from swiftmpi_tpu_torch.transfer import get_transfer
+    from swiftmpi_tpu_torch.transfer.plan import clear_plan_cache
+    acc = w2v_access(0.7, 100)
+    rng = np.random.default_rng(8)
+    ki = KeyIndex(8, 64)
+    slots = np.asarray(ki.lookup(rng.integers(0, 300, 256).astype(
+        np.uint64)), np.int32)
+    slots[::9] = -1
+    grads = {f: rng.normal(size=(256, 100)).astype(np.float32)
+             for f in ("h", "v")}
+    start = SparseTable(acc, ki, "cpu", seed=3,
+                        mesh=ps_mesh(8, ["cpu"])).to_numpy()
+    out = []
+    for where in (dev, "cpu"):
+        layout = ps_mesh(8, [where])
+        table = SparseTable(acc, ki, where, seed=3, mesh=layout)
+        table.state = state_from_jax(start, where, mesh=layout)
+        table.ensure_row_versions()
+        t = get_transfer("tpu", mesh=layout)
+        t.count_traffic, t.pull_cache, t.pull_quant = True, 4096, "int8"
+        ts = torch.from_numpy(slots).to(where)
+        clear_plan_cache()            # each run compiles its plans
+        kernels.reset_launches()
+        t.push(table.state, ts[:128], {f: torch.from_numpy(g[:128]).to(where)
+                                       for f, g in grads.items()}, acc)
+        t.push(table.state, ts[128:], {f: torch.from_numpy(g[128:]).to(where)
+                                       for f, g in grads.items()}, acc)
+        first = t.pull(table.state, ts, acc)
+        t.pull(table.state, ts, acc)
+        out.append((state_to_numpy(table.state), t.traffic(),
+                    {f: v.cpu() for f, v in first.items()},
+                    kernels.launch_counts()))
+    (card, tr, rows, counts), (cpu, tr_cpu, rows_cpu, _) = out
+    np.testing.assert_array_equal(card["@rowver"], cpu["@rowver"])
+    assert card["@rowver"].max() == 2 and tr["pull_cache_hits"] > 0
+    assert tr == tr_cpu
+    for f in rows:
+        np.testing.assert_allclose(rows[f], rows_cpu[f], rtol=1e-5,
+                                   atol=1e-6)
+    # a pull gathers h, v and the versions (three launches) and exchanges
+    # the requests and the three columns; a push the requests and the two
+    # families
+    assert counts["gather"] == 6 and counts["ring"] == 2 * 4 + 2 * 3

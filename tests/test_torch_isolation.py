@@ -37,7 +37,8 @@ want = {"swiftmpi_tpu_torch." + m for m in (
     "data.libsvm", "apps.lr_main", "models.glove", "apps.glove_main",
     "models.embedding", "apps.w2v_eval", "utils.graphs", "apps.lr_profile",
     "apps.glove_profile", "transfer.plan", "transfer.local",
-    "transfer.hybrid", "transfer.sketch", "transfer.sparse_allreduce")}
+    "transfer.hybrid", "transfer.sketch", "transfer.sparse_allreduce",
+    "transfer.pull_cache", "transfer.delta")}
 missing = sorted(want - set(names))
 print(len(names), "modules;", "leaked:", bad, "missing:", missing)
 sys.exit(1 if bad or missing or len(names) < 30 else 0)

@@ -519,13 +519,14 @@ def test_sharded_transfer_refusals(devices8):
         ShardedTransfer(layout, data_plane="xla")
     with pytest.raises(ValueError, match="data_plane"):
         ShardedTransfer(layout, data_plane="bogus")
-    # the window push runs (tests/test_torch_window.py); a quantized
-    # window reaches the error feedback, which is not ported
+    # a quantized window runs (tests/test_torch_wire.py holds it against
+    # JAX): without @ef planes it ships the quantized sums
     t.wire_quant = "int8"
-    with pytest.raises(NotImplementedError, match="A12d"):
-        t.push_window(st, torch.from_numpy(slots).view(2, 32),
-                      _t({f: g.reshape(2, 32, D) for f, g in grads.items()}),
-                      pacc, mean=True)
+    before = st["h"][0].clone()
+    t.push_window(st, torch.from_numpy(slots).view(2, 32),
+                  _t({f: g.reshape(2, 32, D) for f, g in grads.items()}),
+                  pacc, mean=True)
+    assert not torch.equal(before, st["h"][0])
     t.wire_quant = "off"
     # the ledger is ported now (held against TpuTransfer in
     # test_torch_traffic.py): off by default, every count 0

@@ -117,9 +117,9 @@ def test_cli_trains_stencil_and_shared_confs(files, monkeypatch, lines,
 
 
 @pytest.mark.parametrize("line", ["[worker]\ntelemetry: 1",
-                                  "[cluster]\nwire_quant: int8",
+                                  "[control]\ncontrol: on",
                                   "[serve]\nevery: 4",
-                                  "[cluster]\nwire_sketch: 1",
+                                  "[obs]\nnumerics: 1",
                                   "[obs]\ntrace: 1"])
 def test_cli_refuses_unported_conf_keys(files, line):
     tmp, conf, data = files

@@ -425,16 +425,29 @@ def test_window_traffic_matches_jax_all_backends(name, devices8):
     ("hybrid", "collective_mode", "sparse_allreduce")])
 def test_encoded_rungs_and_sparse_collective_raise_a12d(name, knob, value,
                                                         devices8):
-    """A plan that picks a quantized or encoded rung, or the sparse
-    allreduce, reaches a primitive that names ROADMAP A12d."""
+    """The quantized and encoded rungs and the sparse allreduce, which
+    earlier slices refused (ROADMAP A12d), run: the same knob on the same
+    window gives JAX's ``push_window`` its table within the envelope (the
+    ``@ef`` planes within one int8 or bf16 step of the largest grad sum)
+    and its ledger key for key."""
     jtable, ki = _jax_table(cap=8 if knob == "collective_mode" else 128)
+    if knob == "wire_quant":
+        jtable.ensure_ef(("h", "v"))
     slots, grads, _ = window_batch(
         ki, np.random.default_rng(6), W=2,
         key_hi=24 if knob == "collective_mode" else 700)
-    _, _, pt, pstate, conv = _sides(name, jtable)
-    setattr(pt, knob, value)
-    with pytest.raises(NotImplementedError, match="A12d"):
-        _port_push_window(pt, pstate, conv, slots, grads, True)
+    jt, jstate, pt, pstate, conv = _sides(name, jtable)
+    for t in (jt, pt):
+        setattr(t, knob, value)
+        t.count_traffic = True
+    want = jt.push_window(jstate, slots, grads, JACC, mean=True)
+    got = _port_push_window(pt, pstate, conv, slots, grads, True)
+    for f in PACC.fields:
+        _envelope(got[f], np.asarray(want[f]), f)
+    for f in set(got) - set(PACC.fields):
+        w = np.asarray(want[f])
+        np.testing.assert_allclose(got[f], w, atol=np.abs(w).max() + 1e-6)
+    assert pt.traffic() == jt.traffic()
 
 
 # -- pricers, plans and byte models --------------------------------------------
@@ -528,8 +541,8 @@ def test_byte_models_and_tables_match_jax():
     with pytest.raises(KeyError, match="window route"):
         port_plan.window_route("rdma")
     assert port_plan.FORMAT_TABLE["sparse"].wire({}, "off", 8, True) is None
-    with pytest.raises(NotImplementedError, match="A12d"):
-        port_plan.FORMAT_TABLE["bitmap"].wire({}, "off", 8, True)
+    assert port_plan.FORMAT_TABLE["bitmap"].wire({}, "off", 8, True) \
+        == jax_plan.FORMAT_TABLE["bitmap"].wire({}, "off", 8, True) == (4, 1)
 
 
 def _knobs(name, **kw):
@@ -848,9 +861,22 @@ def test_push_window_dense_logits_raises():
     ("wire_quant", "int8"), ("pull_quant", "bf16"), ("pull_cache", 64),
     ("wire_sketch", 1), ("collective", "auto")])
 def test_a12d_knobs_still_refused(key, value):
-    _, pc = _confs("tpu", cluster={"push_window": 2, key: value})
-    with pytest.raises(NotImplementedError, match="A12d"):
-        Word2Vec(config=pc, device="cpu")
+    """The wire stack's knobs, refused by earlier slices (ROADMAP A12d),
+    arm the transfer (and the table's planes) as JAX's ``Word2Vec`` does
+    and train."""
+    sents = corpus(n_sent=20, vocab=60, length=10, seed=4)
+    _, pc = _confs("tpu", worker={"inner_steps": 2},
+                   cluster={"push_window": 2, key: value})
+    m = Word2Vec(config=pc, device="cpu")
+    losses = m.train(sents, niters=1, batch_size=64)
+    assert np.isfinite(losses).all()
+    t = m.transfer
+    armed = {"wire_quant": t.wire_quant, "pull_quant": t.pull_quant,
+             "pull_cache": t.pull_cache, "wire_sketch": int(t.wire_sketch),
+             "collective": t.collective_mode}
+    assert armed[key] == value
+    assert bool(m.table.ef_fields) == (key == "wire_quant")
+    assert ("@rowver" in m.table.state) == (key == "pull_cache")
 
 
 def test_push_window_must_be_positive():

@@ -222,12 +222,11 @@ def test_inner_steps_runs_ordinary_steps():
 
 
 @pytest.mark.parametrize("sec,key,val", [
-    ("cluster", "wire_sketch", 1),
+    ("obs", "trace", 1),
     ("worker", "telemetry", 1),
-    ("cluster", "wire_quant", "bf16"), ("cluster", "wire_quant", "int8"),
-    ("cluster", "pull_quant", "bf16"), ("cluster", "pull_cache", 64),
-    ("cluster", "collective", "auto"),
-    ("cluster", "collective", "sparse_allreduce"),
+    ("obs", "telemetry", 1), ("obs", "profile", 1),
+    ("control", "wire_format", "on"), ("control", "collective", "on"),
+    ("serve", "replicas", 2), ("serve", "port", 0),
     ("cluster", "server_num", 2),
     ("obs", "numerics", 1), ("control", "control", "on"),
     ("serve", "every", 4)])
