@@ -174,6 +174,22 @@ Phases, each of which raises on a failed check:
    window takes the dense rung), each launching exactly its path's
    kernels.
 
+12. the telemetry plane (``obs/``): (a) the reference ``gather`` path on
+   ``xla`` with ``inner_steps: 8`` (graph replays) through
+   ``Word2Vec.train`` with ``[worker] telemetry``, ``[obs] numerics``,
+   ``costs`` and ``profile_at: 4, profile_steps: 2``: exactly
+   ``STEP_LAUNCHES`` a step, the registry's ``transfer/*`` equal to
+   ``traffic()``, the JSONL read by ``scripts/telemetry_report.py``, one
+   numerics bundle a dispatch, and a group's bundle against a plain-torch
+   recomputation from its entry and exit tables (the envelope), the
+   catalog's graph captures with no retrace, the profiler window's trace
+   holding B1-B3 kernel events; (b) ``window_q@8`` with ``[obs] trace``
+   and numerics: the window records' encoded bytes equal to the ledger's
+   ``wire_bytes``, the quantization-error series finite and > 0; (c) the
+   planes' cost at the reference shape: host ms and device ms a step and
+   words/s with every plane off, telemetry on, + numerics and + trace, at
+   ``telemetry_every`` 1 and 64 (printed on ``telemetry_cost`` lines).
+
 The line before the last is the ``{"kernels": [...]}`` summary, each
 kernel's ``launches`` read from the train run of its path (the sent2vec
 cases from the sent2vec inference run, phase 8's, 9's and 10's from
@@ -190,6 +206,7 @@ import json
 import math
 import os
 import shutil
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -3157,6 +3174,313 @@ def phase_wire(vocab, corpus: np.ndarray, card: str) -> tuple:
     return cases, counts
 
 
+# -- phase 12: the telemetry plane ------------------------------------------
+
+#: the telemetry phase's corpus prefix (the gather path's: >= 20 steps)
+TEL_SENTS = 800
+#: B1-B3's kernels, by a substring of their names in a chrome trace
+TEL_KERNELS = {"adagrad": "adagrad_update", "gather": "masked_gather",
+               "scatter": "scatter_"}
+#: the cost runs: (name, [obs]/[worker] keys); each at telemetry_every 1
+#: and 64 but the first
+TEL_VARIANTS = (
+    ("off", {}),
+    ("telemetry", {"worker": {"telemetry": 1}}),
+    ("numerics", {"worker": {"telemetry": 1}, "obs": {"numerics": 1}}),
+    ("trace", {"worker": {"telemetry": 1},
+               "obs": {"numerics": 1, "trace": 1}}))
+#: groups of 8 steps a cost run times (after two warm-up groups)
+TEL_GROUPS = 6
+
+
+def _obs_conf(model: Word2Vec, keys: dict) -> None:
+    for sec, kv in keys.items():
+        for k, v in kv.items():
+            model.config.set(sec, k, v)
+    model.numerics_on = bool(keys.get("obs", {}).get("numerics"))
+
+
+def _registry_traffic(reg) -> dict:
+    """The registry's ``transfer/*`` series summed over backend labels,
+    as ``traffic()`` keys."""
+    from swiftmpi_tpu_torch.obs.registry import parse_series_key
+    out = {}
+    for skey, v in reg.snapshot()["counters"].items():
+        name, labels = parse_series_key(skey)
+        if not name.startswith("transfer/"):
+            continue
+        key = name[len("transfer/"):]
+        for lab in ("fmt", "kind"):
+            if lab in labels:
+                key = f"{key}_{labels[lab]}"
+        out[key] = out.get(key, 0) + v
+    return out
+
+
+def _trace_kernel_events(run_dir: str) -> dict:
+    """Kernel events by B1-B3 in a profiler window's chrome trace."""
+    import glob
+    import gzip
+    found = dict.fromkeys(TEL_KERNELS, 0)
+    for path in glob.glob(os.path.join(run_dir, "*.trace.json.gz")):
+        with gzip.open(path, "rt") as f:
+            events = json.load(f).get("traceEvents") or []
+        for ev in events:
+            if ev.get("cat") != "kernel":
+                continue
+            for k, sub in TEL_KERNELS.items():
+                if sub in str(ev.get("name", "")):
+                    found[k] += 1
+    return found
+
+
+def phase_telemetry_train(vocab, corpus: np.ndarray, card: str) -> dict:
+    """(a): see the module docstring."""
+    from swiftmpi_tpu_torch import obs
+    from swiftmpi_tpu_torch.utils.pipeline import LossAccum
+    work = WORK / "telemetry"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    tel = str(work / "telemetry.jsonl")
+    model = _model("gather", vocab, "cuda", {"inner_steps": 8})
+    _obs_conf(model, {
+        "worker": {"telemetry": 1, "telemetry_path": tel},
+        "obs": {"numerics": 1, "costs": 1,
+                "costs_path": str(work / "compile_catalog.json"),
+                "profile_at": 4, "profile_steps": 2,
+                "profile_dir": str(work / "profiles")}})
+    model.transfer.count_traffic = True
+    batcher = CBOWBatcher(corpus[:TEL_SENTS], vocab, model.window,
+                          model.sample, seed=2008)
+    obs.reset_for_tests()
+    kernels.reset_launches()
+    losses = model.train(batcher=batcher, niters=1, batch_size=BATCH)
+    counts = kernels.launch_counts()
+    m = model.train_metrics
+    steps = m["steps"]
+    want = {k: v * steps for k, v in STEP_LAUNCHES["gather"].items()}
+    reg = obs.get_registry()
+    tr = m["transfer_traffic"]
+    mirrored = _registry_traffic(reg)
+    dispatches = reg.snapshot()["hists"]["phase_ms{phase=dispatch}"]["count"]
+    bundles = m["numerics"]["bundles"]
+    cat_path = work / "compile_catalog.json"
+    entry = (json.load(open(cat_path))["fns"].get("w2v_multi", {})
+             if cat_path.exists() else {})
+    sess = obs.get_profiler()
+    captures = sess.captures if sess is not None else []
+    in_trace = (_trace_kernel_events(captures[0]["run_dir"])
+                if captures else {})
+    rep = subprocess.run(
+        [sys.executable, str(ROOT / "scripts" / "telemetry_report.py"), tel],
+        capture_output=True, text=True, timeout=120)
+    bad = (counts != want or not m["fused"] or m["graph_replays"] < 1
+           or not all(math.isfinite(x) for x in losses)
+           or {k: v for k, v in tr.items() if v} != mirrored
+           or bundles != dispatches or bundles < 2
+           or entry.get("compiles", 0) < 1 or entry.get("retraces") != 0
+           or len(captures) != 1 or not all(in_trace.values())
+           or rep.returncode != 0 or "dispatch" not in rep.stdout)
+    if bad:
+        raise AssertionError(
+            f"telemetry train: launches {counts} (want {want}), fused "
+            f"{m['fused']} {m['graph_replays']} replays, loss {losses}, "
+            f"ledger {tr} vs registry {mirrored}, {bundles} bundles in "
+            f"{dispatches} dispatches, catalog {entry}, {len(captures)} "
+            f"capture(s) with kernel events {in_trace}, report rc "
+            f"{rep.returncode} {rep.stderr[-400:]}")
+    # one more group, replayed, against a plain recomputation from its
+    # entry and exit tables
+    groups = _tel_groups(model, vocab, corpus, 1)
+    before = {f: model.table.state[f].float().clone() for f in ("h", "v")}
+    es_q, ec_q = LossAccum(None, model.device), LossAccum(None, model.device)
+    with obs.span("dispatch"):
+        replayed = model._run_group(groups[0][0], True, None, es_q, ec_q)
+    torch.cuda.synchronize()
+    after = {f: model.table.state[f].float() for f in ("h", "v")}
+    got = model._numerics.read()["latest"]
+    plain = {
+        "upd_sq": sum(float((after[f].double() - before[f].double())
+                            .square().sum()) for f in after),
+        "par_sq": sum(float(before[f].double().square().sum())
+                      for f in before),
+        "loss_sum": es_q.total(), "loss_n": ec_q.total()}
+    gaps = {k: abs(got[k] - v) for k, v in plain.items()}
+    if not replayed or any(gaps[k] > 1e-5 + 1e-3 * abs(plain[k])
+                           for k in plain) or not got["gsq"] > 0:
+        raise AssertionError(f"numerics bundle {got} against the plain "
+                             f"recomputation {plain} (replayed {replayed})")
+    obs.reset_for_tests()
+    _json_line({"phase": "telemetry", "part": "train", "card": card,
+                "rendering": "gather", "inner_steps": 8, "steps": steps,
+                "graph_replays": m["graph_replays"], "loss": losses,
+                "words_per_sec": m["words_per_sec"], "launches": counts,
+                "registry_equals_traffic": True,
+                "traffic": {k: v for k, v in tr.items() if v},
+                "bundles": bundles, "dispatches": dispatches,
+                "bundle_vs_plain": {k: [got[k], plain[k]] for k in plain},
+                "catalog": entry, "profile": {
+                    k: captures[0][k] for k in
+                    ("reason", "start_step", "steps", "events",
+                     "device_ms", "host_ms")},
+                "profile_kernel_events": in_trace})
+    return counts
+
+
+def _tel_groups(model: Word2Vec, vocab, corpus: np.ndarray, n: int,
+                group: int = 8) -> list:
+    """``n`` groups of ``group`` full batches on the card, with their
+    words: ``[(fields, words)]``."""
+    from swiftmpi_tpu_torch.models.word2vec import _stack_group_host
+    out, buf = [], []
+    for b in CBOWBatcher(corpus[:6 * TEL_SENTS], vocab, model.window,
+                         model.sample, seed=7).epoch(BATCH):
+        if b.n_words and len(b.centers) == BATCH:
+            buf.append(b)
+        if len(buf) == group:
+            out.append((tuple(torch.from_numpy(f).to(model.device)
+                              for f in _stack_group_host(buf)),
+                        sum(x.n_words for x in buf)))
+            buf = []
+            if len(out) == n:
+                return out
+    raise AssertionError(f"the corpus gave {len(out)} groups of {group}")
+
+
+def phase_telemetry_window(vocab, corpus: np.ndarray, card: str) -> dict:
+    """(b): WIN_Q with the tracer and numerics armed, full groups of 8
+    steps (two windows a family each, run eagerly as a tracer needs)."""
+    from swiftmpi_tpu_torch import obs
+    from swiftmpi_tpu_torch.utils.pipeline import LossAccum
+    from swiftmpi_tpu_torch.utils.timers import Throughput
+    obs.reset_for_tests()
+    model = _window_model(WIN_Q, vocab, "cuda")
+    _obs_conf(model, {"worker": {"telemetry": 1, "telemetry_path": ""},
+                      "obs": {"numerics": 1, "trace": 1,
+                              "trace_dir": str(WORK / "traces")}})
+    rec, owns = model._arm_telemetry(Throughput(), True)
+    tracer = obs.get_tracer()
+    groups = _tel_groups(model, vocab, corpus, 3)
+    es_q, ec_q = LossAccum(None, model.device), LossAccum(None, model.device)
+    kernels.reset_launches()
+    before = model.transfer.traffic()
+    try:
+        for fields, _ in groups:
+            model._run_group(fields, False, None, es_q, ec_q)
+            obs.record_step(8)
+        torch.cuda.synchronize()
+        tr = model.transfer.traffic_delta(before)
+        counts = kernels.launch_counts()
+        model._close_telemetry(rec, owns)
+        recs = tracer.records()
+        q = model._numerics.read()
+    finally:
+        obs.reset_for_tests()
+    enc = sum(r["enc_bytes"] for r in recs)
+    want = {k: v * len(groups) * 2 for k, v in WIRE_GROUP[WIN_Q].items()}
+    if (enc != tr["wire_bytes"] or len(recs) != 4 * len(groups)
+            or tr["window_fmt_q"] == 0 or not math.isfinite(q["quant_err"])
+            or not q["quant_err"] > 0 or q["nonfinite"]
+            or {k: counts[k] for k in want} != want):
+        raise AssertionError(
+            f"{WIN_Q} traced: records' bytes {enc} vs wire_bytes "
+            f"{tr['wire_bytes']}, {len(recs)} records, window_fmt_q "
+            f"{tr['window_fmt_q']}, quant_err {q['quant_err']}, nonfinite "
+            f"{q['nonfinite']}, launches {counts} (want {want})")
+    _json_line({"phase": "telemetry", "part": "window_q", "card": card,
+                "rendering": WIN_Q, "groups": len(groups),
+                "records": len(recs), "records_enc_bytes": enc,
+                "wire_bytes": tr["wire_bytes"],
+                "decisions": sorted({r["decision"] for r in recs}),
+                "quant_err": q["quant_err"], "bundles": q["bundles"],
+                "launches": counts})
+    return counts
+
+
+def phase_telemetry_cost(vocab, corpus: np.ndarray, card: str) -> list:
+    """(c): each TEL_VARIANTS run on the same groups from a fresh model:
+    two warm-up groups (the capture), then TEL_GROUPS groups timed by the
+    host clock to a synchronize (host ms a step, words/s) and, after
+    them, two groups in a ``torch.profiler`` window (device ms a step:
+    the kernels' and copies' summed time)."""
+    from swiftmpi_tpu_torch import obs
+    from swiftmpi_tpu_torch.apps.w2v_profile import _busy_by_kernel
+    from swiftmpi_tpu_torch.utils.pipeline import LossAccum
+    from swiftmpi_tpu_torch.utils.timers import Throughput
+    probe = _model("gather", vocab, "cuda", {"inner_steps": 8})
+    groups = _tel_groups(probe, vocab, corpus, TEL_GROUPS + 4)
+    del probe
+    lines = []
+    for name, keys in TEL_VARIANTS:
+        for every in ((1,) if name == "off" else (1, 64)):
+            obs.reset_for_tests()
+            model = _model("gather", vocab, "cuda", {"inner_steps": 8})
+            conf = {s: dict(kv) for s, kv in keys.items()}
+            if keys:
+                conf["worker"].update(telemetry_every=every,
+                                      telemetry_path="")
+                conf.setdefault("obs", {})["trace_dir"] = str(
+                    WORK / "traces")
+            _obs_conf(model, conf)
+            rec, owns = model._arm_telemetry(Throughput(), True)
+            graphs = obs.get_tracer() is None
+            es_q, ec_q = (LossAccum(None, model.device),
+                          LossAccum(None, model.device))
+
+            def run(gs):
+                for fields, _ in gs:
+                    with obs.span("dispatch"):
+                        model._run_group(fields, graphs, None, es_q, ec_q)
+                    obs.record_step(8)
+            run(groups[:2])
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            timed = groups[2:2 + TEL_GROUPS]
+            t0 = time.perf_counter()
+            run(timed)
+            torch.cuda.synchronize()
+            host_s = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                run(groups[2 + TEL_GROUPS:])
+                torch.cuda.synchronize()
+            busy = sum(_busy_by_kernel(prof).values())
+            model._close_telemetry(rec, owns)
+            obs.reset_for_tests()
+            n_steps = 8 * len(timed)
+            words = sum(w for _, w in timed)
+            want = {k: v * n_steps for k, v in STEP_LAUNCHES["gather"].items()}
+            if counts != want or not all(
+                    math.isfinite(x) for x in (es_q.total(), ec_q.total())):
+                raise AssertionError(f"telemetry cost {name}@{every}: "
+                                     f"launches {counts}, want {want}")
+            line = {"phase": "telemetry_cost", "card": card,
+                    "variant": name, "telemetry_every": every,
+                    "graphs": graphs, "steps": n_steps,
+                    "host_ms_per_step": host_s / n_steps * 1e3,
+                    "device_ms_per_step": busy / (8 * 2) if busy
+                    else "not measured",
+                    "words_per_sec": words / host_s, "launches": counts}
+            _json_line(line)
+            lines.append(line)
+            del model
+            torch.cuda.empty_cache()
+    return lines
+
+
+def phase_telemetry(vocab, corpus: np.ndarray, card: str) -> dict:
+    """Phase 12: (a), (b), (c); returns the runs' launches by path."""
+    t0 = time.perf_counter()
+    counts = {"telemetry:gather": phase_telemetry_train(vocab, corpus, card),
+              f"telemetry:{WIN_Q}": phase_telemetry_window(vocab, corpus,
+                                                            card)}
+    phase_telemetry_cost(vocab, corpus, card)
+    print(f"phase 12 {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3253,6 +3577,7 @@ def main() -> int:
     wire_cases, wire_counts = phase_wire(vocab, corpus, card)
     cases += wire_cases
     counts.update(wire_counts)
+    counts.update(phase_telemetry(vocab, corpus, card))
 
     summary = []
     for c in cases:

@@ -42,6 +42,16 @@ log = get_logger("apps.w2v")
 
 
 def main(argv=None) -> int:
+    try:
+        return _main(argv)
+    finally:
+        # a normal exit leaves no flight-recorder dump (obs/trace.py's
+        # clean-teardown contract)
+        from swiftmpi_tpu_torch import obs
+        obs.uninstall_tracer()
+
+
+def _main(argv=None) -> int:
     cmd = CMDLine(argv)
     cmd.registerParameter("help", "this screen")
     cmd.registerParameter("config", "path of config file")

@@ -8,7 +8,8 @@ synthetic corpus, the configuration ``chip_smoke.py`` runs).
         [-dtype bfloat16] [-local_steps L] [-hogwild n] \\
         [-push_window W] [-wire_quant int8|bf16] [-wire_sketch 1] \\
         [-collective auto|sparse_allreduce] [-pull_quant int8|bf16] \\
-        [-pull_cache N] [-trace build/w2v_step_trace.json]
+        [-pull_cache N] [-trace build/w2v_step_trace.json] \\
+        [-telemetry 1 [-telemetry_every K] [-numerics 1] [-obs_trace 1]]
 
 ``-stencil 1`` / ``-shared 1`` / ``-sg 1`` / ``-dense 1`` set
 ``[word2vec] stencil`` / ``shared_negatives`` / ``sg`` / ``dense_logits``
@@ -77,12 +78,22 @@ device path's alone (the host batcher's time is reported apart):
   ``peak_device_mib`` the peak of allocated device memory over the timed
   steps.
 
+``-telemetry 1`` arms the telemetry plane over every step the app runs
+(``[worker] telemetry`` with an in-memory recorder, ``telemetry_every:
+K`` from ``-telemetry_every``, the transfer ledger's registry mirror);
+``-numerics 1`` adds ``[obs] numerics`` (one bundle a step, or a group)
+and ``-obs_trace 1`` the wire tracer (``[obs] trace``; it switches
+``count_traffic`` on and the groups run eagerly).  The report then
+carries ``telemetry``, the recorder's last step record, and
+``numerics_bundles``.
+
 Prints one JSON object; ``-trace`` also writes the window's Chrome trace.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -92,6 +103,7 @@ import torch
 
 import numpy as np
 
+from swiftmpi_tpu_torch import obs
 from swiftmpi_tpu_torch.cluster import Cluster
 from swiftmpi_tpu_torch.data.text import (CBOWBatcher, StencilBatch, Vocab,
                                           build_vocab, synthetic_corpus_bulk)
@@ -199,10 +211,14 @@ def _short(name: str) -> str:
 
 
 def _busy_by_kernel(prof) -> dict:
-    """Device time (ms) by kernel or copy name over the profiled window."""
+    """Device time (ms) by kernel or copy name over the profiled window
+    (a ``record_function`` range's device-side annotation, such as the
+    telemetry plane's ``dispatch`` span, covers kernels already counted:
+    it is left out)."""
     out = {}
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or getattr(e, "is_user_annotation", False):
             continue
         ms = e.self_device_time_total / 1e3
         if ms > 0:
@@ -228,7 +244,9 @@ def profile(steps: int = 40, trace: str = "", stencil: int = 0,
             traffic: int = 0, vocab_size: int = 0,
             push_window: int = 0, wire_quant: str = "off",
             wire_sketch: int = 0, collective: str = "psum",
-            pull_quant: str = "off", pull_cache: int = 0) -> dict:
+            pull_quant: str = "off", pull_cache: int = 0,
+            telemetry: int = 0, numerics: int = 0, obs_trace: int = 0,
+            telemetry_every: int = 1) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("w2v_profile measures the card; no CUDA device "
                            "is available")
@@ -268,8 +286,21 @@ def profile(steps: int = 40, trace: str = "", stencil: int = 0,
         config.set("word2vec", "async_mode", "hogwild")
         cluster = Cluster(config, devices=["cuda"] * hogwild).initialize()
         group = hogwild * max(local_steps, 1)
+    if telemetry:
+        config.set("worker", "telemetry", 1)
+        config.set("worker", "telemetry_path", "")
+        config.set("worker", "telemetry_every", telemetry_every)
+        config.set("obs", "numerics", numerics)
+        config.set("obs", "trace", obs_trace)
+        config.set("obs", "trace_dir", os.path.join("build", "traces"))
     model = Word2Vec(config=config, device="cuda", cluster=cluster)
     model.build_from_vocab(vocab)
+    rec = None
+    if telemetry:
+        rec = obs.configure(config, run="w2v_profile")
+        rec.add_sampler(model.transfer.mirror_traffic)
+        if numerics:
+            model._arm_numerics(rec)
     warm = -(-WARM_STEPS // group) * group
     steps = -(-steps // group) * group
     n_window = -(-PROFILED_STEPS // group) * group
@@ -280,7 +311,8 @@ def profile(steps: int = 40, trace: str = "", stencil: int = 0,
     else:
         batcher = CBOWBatcher(corpus, vocab, model.window, model.sample,
                               seed=2008)
-    model.transfer.count_traffic = bool(traffic)
+    model.transfer.count_traffic = bool(traffic) or \
+        obs.get_tracer() is not None
     t0 = time.perf_counter()
     batches = []
     epoch = batcher.epoch_stencil if model.stencil else batcher.epoch
@@ -299,7 +331,8 @@ def profile(steps: int = 40, trace: str = "", stencil: int = 0,
                 if local_steps > 1 and not hogwild else None)
     done = replays = 0
     graphs = (bool(push_window) and model.transfer.name == "xla"
-              and not (pull_cache and traffic))
+              and obs.get_tracer() is None
+              and not (pull_cache and model.transfer.count_traffic))
     losses = (_LossAccum(None, model.device), _LossAccum(None, model.device))
 
     def run(bs):
@@ -309,20 +342,23 @@ def profile(steps: int = 40, trace: str = "", stencil: int = 0,
                 fields = tuple(torch.from_numpy(a).to(model.device) for a in
                                _stack_group_host(bs[i:i + group]))
                 replays += model._run_group(fields, graphs, None, *losses)
+                obs.record_step(group)
             return
         if hogwild:
             for i in range(0, len(bs), group):
                 model._hogwild_group([_batch_fields(b)
                                       for b in bs[i:i + group]])
+                obs.record_step(group)
             return
         for b in bs:
             if snapshot is None:
                 model.step_batch(b)
-                continue
-            model._step_fields(_batch_fields(b), None, snapshot)
-            done += 1
-            if done % local_steps == 0:
-                _refresh(snapshot, model.table.state)
+            else:
+                model._step_fields(_batch_fields(b), None, snapshot)
+                done += 1
+                if done % local_steps == 0:
+                    _refresh(snapshot, model.table.state)
+            obs.record_step(1)
 
     run(batches[:warm])
     torch.cuda.synchronize()
@@ -361,6 +397,16 @@ def profile(steps: int = 40, trace: str = "", stencil: int = 0,
             before).items() if v})
     wire = dict(knobs, ef_planes=model.table.ef_fields,
                 row_versions="@rowver" in model.table.state)
+    tel = {}
+    if rec is not None:
+        rec.close()
+        obs.uninstall_recorder()
+        obs.uninstall_tracer()
+        steps_recs = [r for r in rec.records() if r["kind"] == "step"]
+        tel = {"telemetry": steps_recs[-1] if steps_recs else None,
+               "telemetry_every": telemetry_every,
+               "numerics_bundles": model._numerics.bundles
+               if model._numerics is not None else 0}
     if traffic:
         # decisions as counted over the traffic steps; bytes and cache
         # hits a step
@@ -406,6 +452,7 @@ def profile(steps: int = 40, trace: str = "", stencil: int = 0,
                                    for k, v in host_by_op.items()},
         "host_ops_per_step": host_calls / len(window),
         "push_paths": dict(model.transfer.push_paths),
+        **tel,
     }
 
 
@@ -442,6 +489,12 @@ def main(argv=None) -> int:
     cmd.registerParameter("pull_quant", "[cluster] pull_quant: off "
                           "(default), int8 or bf16")
     cmd.registerParameter("pull_cache", "N: [cluster] pull_cache lines")
+    cmd.registerParameter("telemetry", "1: arm the telemetry plane")
+    cmd.registerParameter("telemetry_every", "K: record every K steps "
+                          "(default 1)")
+    cmd.registerParameter("numerics", "1: with -telemetry, [obs] numerics")
+    cmd.registerParameter("obs_trace", "1: with -telemetry, the wire "
+                          "tracer ([obs] trace)")
     out = profile(int(cmd.getValue("steps", "40")),
                   cmd.getValue("trace", ""),
                   int(cmd.getValue("stencil", "0")),
@@ -460,7 +513,11 @@ def main(argv=None) -> int:
                   int(cmd.getValue("wire_sketch", "0")),
                   cmd.getValue("collective", "psum"),
                   cmd.getValue("pull_quant", "off"),
-                  int(cmd.getValue("pull_cache", "0")))
+                  int(cmd.getValue("pull_cache", "0")),
+                  int(cmd.getValue("telemetry", "0")),
+                  int(cmd.getValue("numerics", "0")),
+                  int(cmd.getValue("obs_trace", "0")),
+                  int(cmd.getValue("telemetry_every", "1")))
     print(json.dumps(out), flush=True)
     return 0
 

@@ -50,6 +50,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from swiftmpi_tpu_torch import obs
 from swiftmpi_tpu_torch.parameter.key_index import CapacityError
 from swiftmpi_tpu_torch.parameter.sparse_table import (ROWVER_KEY,
                                                        SparseTable, hot_name,
@@ -387,7 +388,17 @@ def save_checkpoint(table: SparseTable, path: str,
     (e.g. the iteration counter): resume-exact,
     unlike the reference's text dump.  ``retain > 1`` keeps a last-k
     window: the previous live checkpoint becomes ``<path>.g<n>.npz`` and
-    older generations beyond ``retain - 1`` are pruned."""
+    older generations beyond ``retain - 1`` are pruned.  With telemetry
+    on it is the ``checkpoint_save`` span and books ``checkpoint/saves``."""
+    with obs.span("checkpoint_save"):
+        _save_checkpoint(table, path, extra, retain)
+    reg = obs.get_registry()
+    if reg.enabled:
+        reg.counter("checkpoint/saves").inc()
+
+
+def _save_checkpoint(table: SparseTable, path: str, extra, retain: int
+                     ) -> None:
     keys, slots = _index_arrays(table.key_index)
     payload = {}
     for f in table.state:
@@ -419,7 +430,18 @@ def load_checkpoint(table: SparseTable, path: str,
     first and raises :class:`CheckpointCorruptError` instead of restoring
     damaged state.  A checkpoint of a larger capacity (written after a
     growth) grows the table first; a smaller capacity or another shard
-    count raises ``ValueError``."""
+    count raises ``ValueError``.  With telemetry on it is the
+    ``checkpoint_restore`` span and books ``checkpoint/restores``."""
+    with obs.span("checkpoint_restore"):
+        extra = _load_checkpoint(table, path, verify)
+    reg = obs.get_registry()
+    if reg.enabled:
+        reg.counter("checkpoint/restores").inc()
+    return extra
+
+
+def _load_checkpoint(table: SparseTable, path: str,
+                     verify: bool) -> Dict[str, np.ndarray]:
     if verify:
         verify_checkpoint(path)
     ki = table.key_index

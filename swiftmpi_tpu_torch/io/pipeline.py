@@ -22,6 +22,11 @@ A producer exception is captured and re-raised at the consumer's next
 ``__cause__``.  ``close()`` (also the context-manager exit and the GC
 hook) unblocks and joins the producer, so a consumer that dies mid-epoch
 never leaks a thread that keeps rendering into a dead queue.
+
+With telemetry on, the producer's ``render`` and ``h2d`` and the
+consumer's ``input_wait`` are ``obs.span`` phases, and the queue books
+``pipeline/produced``, ``pipeline/consumed`` and
+``pipeline/queue_depth``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 import torch
+
+from swiftmpi_tpu_torch import obs
 
 _DONE = object()          # producer sentinel: source exhausted
 _CLOSED = object()        # close() sentinel: wake a blocked consumer
@@ -78,13 +85,17 @@ class PrefetchIterator:
         try:
             src = self._source
             while not self._stop.is_set():
-                try:
-                    item = next(src)
-                except StopIteration:
-                    break
+                # the "render" and "h2d" phase spans: the producer thread
+                # is where batches are rendered and copied to the device
+                with obs.span("render"):
+                    try:
+                        item = next(src)
+                    except StopIteration:
+                        break
                 if self._transfer is not None:
                     t0 = time.monotonic()
-                    item = self._transfer(item)
+                    with obs.span("h2d"):
+                        item = self._transfer(item)
                     self._transfer_s += time.monotonic() - t0
                 # a bounded put that stays responsive to close(): a plain
                 # blocking put on a full queue would deadlock the join
@@ -95,6 +106,11 @@ class PrefetchIterator:
                         self._produced += 1
                         self._peak_depth = max(self._peak_depth,
                                                self._q.qsize())
+                        reg = obs.get_registry()
+                        if reg.enabled:
+                            reg.counter("pipeline/produced").inc()
+                            reg.gauge("pipeline/queue_depth").set(
+                                self._q.qsize())
                         break
                     except queue.Full:
                         continue
@@ -118,7 +134,8 @@ class PrefetchIterator:
         if self._stop.is_set():
             raise StopIteration
         t0 = time.monotonic()
-        item = self._q.get()
+        with obs.span("input_wait"):
+            item = self._q.get()
         self._stall_s += time.monotonic() - t0
         if item is _DONE or item is _CLOSED:
             # _DONE lands after every real item
@@ -130,6 +147,9 @@ class PrefetchIterator:
             self.close()
             raise StopIteration
         self._consumed += 1
+        reg = obs.get_registry()
+        if reg.enabled:
+            reg.counter("pipeline/consumed").inc()
         return item
 
     # -- lifecycle ---------------------------------------------------------

@@ -38,8 +38,15 @@ sums stay on the device and are read once an epoch.
 Config section ``[glove]``: ``len_vec`` (default 100), ``window`` (10),
 ``x_max`` (100), ``alpha`` (0.75), ``learning_rate`` (0.05),
 ``minibatch`` (4096), plus ``[worker] inner_steps``, ``pipeline`` and
-``dispatch_depth``.  ``[obs]`` (the numerics plane) raises
-``NotImplementedError`` naming ROADMAP A14.
+``dispatch_depth``.
+
+The telemetry plane is armed by ``train`` as in the JAX package:
+``[worker] telemetry`` (a recorder, the ``dispatch`` span a group,
+``obs.record_step``), ``[obs] numerics`` (one bundle a group, staged on
+the collector's device buffers inside the graph; observe-only: GloVe has
+no control plane), ``[obs] costs`` (each graph capture books
+``glove_step``), the profiler windows and the tracer.  GloVe reads no
+``[control]`` or ``[serve]`` key, as the JAX package's does not.
 """
 
 from __future__ import annotations
@@ -50,17 +57,18 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from swiftmpi_tpu_torch import obs
 from swiftmpi_tpu_torch.cluster import Cluster
 from swiftmpi_tpu_torch.data.text import Vocab, build_vocab
 from swiftmpi_tpu_torch.device import resolve_device
 from swiftmpi_tpu_torch.io.checkpoint import dump_table_text
 from swiftmpi_tpu_torch.io.pipeline import CudaTransfer, PrefetchIterator
+from swiftmpi_tpu_torch.obs import numerics as obs_numerics
 from swiftmpi_tpu_torch.parameter.access import (AdaGradAccess, AdaGradRule,
                                                  FieldSpec, vec_rand_init,
                                                  zeros_init)
 from swiftmpi_tpu_torch.parameter.sparse_table import tensor_to_numpy
-from swiftmpi_tpu_torch.utils.config import (ConfigParser, global_config,
-                                             refuse_unported)
+from swiftmpi_tpu_torch.utils.config import ConfigParser, global_config
 from swiftmpi_tpu_torch.utils.graphs import StepGraph, graph_key, run_group
 from swiftmpi_tpu_torch.utils.logger import get_logger
 from swiftmpi_tpu_torch.utils.pipeline import (LossAccum,
@@ -136,7 +144,6 @@ class GloVe:
                  capacity_per_shard: Optional[int] = None, seed: int = 0,
                  device=None):
         self.config = config if config is not None else global_config()
-        refuse_unported(self.config)
         g = self.config.get_or
         self.len_vec = g("glove", "len_vec", 100).to_int32()
         self.window = g("glove", "window", 10).to_int32()
@@ -168,7 +175,15 @@ class GloVe:
         #: group length -> its captured CUDA graph, valid for _graph_key
         self._graphs: Dict[int, StepGraph] = {}
         self._graph_key: tuple = ()
+        #: group length -> its capture handle in the compile catalog
+        self._captures: dict = {}
         self.train_metrics: dict = {}
+        # [obs] numerics (obs/numerics.py): off constructs nothing
+        self.numerics_on = obs_numerics.enabled(self.config)
+        self._numerics: Optional[obs_numerics.NumericsCollector] = None
+        self._numerics_rec_id: Optional[int] = None
+        #: the armed group's push statistics, one triple a step
+        self._num_acc: Optional[list] = None
 
     # -- build: vocab + co-occurrence + table ------------------------------
     def build(self, sentences) -> "GloVe":
@@ -204,6 +219,11 @@ class GloVe:
         gw = (-g)[:, None] * wt
         gwt = (-g)[:, None] * w
         gb = (-g)[:, None].contiguous()
+        if self._num_acc is not None:
+            n_hot = int(self.table.n_hot)
+            self._num_acc.append(obs_numerics.add_stats(
+                obs_numerics.push_stats(fs, {"w": gw, "b": gb}, n_hot),
+                obs_numerics.push_stats(cs, {"wt": gwt, "bt": gb}, n_hot)))
         transfer.push(state, fs, {"w": gw, "b": gb}, access, mean=True)
         transfer.push(state, cs, {"wt": gwt, "bt": gb}, access, mean=True)
         return (loss,)
@@ -231,19 +251,55 @@ class GloVe:
             self.device, dt) for f, dt in zip(
                 self.stage_host(sel, inner, B), _DTYPES))
 
+    def _numerics_group(self, fields) -> Tuple[torch.Tensor]:
+        """One group as one numerics dispatch (JAX ``multi`` with the
+        plane armed): the four fields copied at entry, the steps' push
+        statistics summed, one bundle staged; ``(loss,)`` summed."""
+        num = self._numerics
+        fields_up = ("w", "wt", "b", "bt")
+        state = self.table.state
+        state0 = num.snapshot(state, fields_up)
+        self._num_acc = acc = []
+        try:
+            loss = None
+            for i in range(fields[0].shape[0]):
+                (li,) = self._step(*(f[i] for f in fields))
+                loss = li if loss is None else loss + li
+        finally:
+            self._num_acc = None
+        grad_acc = None
+        for stats in acc:
+            grad_acc = obs_numerics.add_stats(grad_acc, stats)
+        n = float(fields[0].shape[0] * fields[0].shape[1])
+        obs_numerics.stage_step(num, state0, state, grad_acc, loss, n,
+                                fields_up)
+        return (loss,)
+
     def _run_group(self, fields, graphs: bool) -> Tuple[List[tuple], bool]:
         """One group's steps on ``(inner, B)`` device tensors: a graph
         replay when ``graphs`` (after a warm-up and capture on the first
-        group of a length), else the steps one by one.  Returns the
-        ``(loss,)`` outputs and whether the group was a replay."""
-        key = ((graph_key(self.table), self.transfer.count_traffic)
+        group of a length), else the steps one by one (with numerics
+        armed, one call on the whole group).  Returns the ``(loss,)``
+        outputs and whether the group was a replay."""
+        armed = self._numerics is not None
+        key = ((graph_key(self.table), self.transfer.count_traffic, armed)
                if graphs else self._graph_key)
         if key != self._graph_key:
             self._graphs, self._graph_key = {}, key
-        return run_group(
-            self._graphs, fields, lambda f: self._step(*f), graphs,
-            lambda f: StepGraph(lambda a: self._step(*a), f,
-                                push_paths=self.transfer.push_paths))
+            self._captures = {}
+        if armed:
+            step, whole = self._numerics_group, True
+        else:
+            step, whole = (lambda f: self._step(*f)), False
+        L = fields[0].shape[0]
+        capture = self._captures.get(L)
+        if capture is None:
+            capture = self._captures[L] = obs.costs.track(
+                "glove_step", obs.costs.Captures(lambda f: StepGraph(
+                    step, f, push_paths=self.transfer.push_paths,
+                    whole=whole)), steps_per_call=L)
+        return run_group(self._graphs, fields, step, graphs, capture,
+                         whole=whole)
 
     # -- training ----------------------------------------------------------
     def train(self, sentences=None, niters: int = 1) -> List[float]:
@@ -266,6 +322,7 @@ class GloVe:
         stage = CudaTransfer(self.device) if cuda else None
         rng = np.random.default_rng(self.seed)
         meter = Throughput()
+        tel_rec, owns_rec = self._arm_telemetry(meter)
         losses: List[float] = []
         steps = replays = 0
         pipe_stats = ({"produced": 0, "consumed": 0, "peak_queue_depth": 0,
@@ -309,12 +366,14 @@ class GloVe:
                         fields = tuple(
                             torch.as_tensor(f).to(self.device, dt)
                             for f, dt in zip(fields, _DTYPES))
-                        out, replayed = self._run_group(fields, graphs)
+                        with obs.span("dispatch"):
+                            out, replayed = self._run_group(fields, graphs)
                         replays += replayed
                         for (loss,) in out:
                             loss_q.add(loss)
                         steps += inner
                         meter.record(B * inner)
+                        obs.record_step(inner)
                 finally:
                     if pipe is not None:
                         pipe.close()
@@ -333,6 +392,7 @@ class GloVe:
             if stage is not None:
                 stage.close()
         seconds = time.perf_counter() - t0
+        self._close_telemetry(tel_rec, owns_rec)
         cells = steps * B
         self.train_metrics = {
             "steps": steps, "cells": cells, "seconds": seconds,
@@ -346,7 +406,59 @@ class GloVe:
             "shards": self.cluster.n_servers}
         if pipe_stats is not None:
             self.train_metrics["pipeline"] = pipe_stats
+        if self._numerics is not None:
+            det = self._numerics.detector
+            self.train_metrics["numerics"] = {
+                "bundles": self._numerics.bundles,
+                "anomalies": det.anomalies_emitted if det else 0}
         return losses
+
+    # -- the telemetry plane (obs/) -----------------------------------------
+    def _arm_telemetry(self, meter: Throughput):
+        """Reuse an outer recorder or configure one (JAX ``GloVe.train``),
+        add the ``Throughput`` and ledger-mirror samplers and arm
+        numerics.  Returns ``(recorder or None, whether this call owns
+        it)``."""
+        tel_rec = obs.get_recorder()
+        owns_rec = tel_rec is None
+        if owns_rec:
+            tel_rec = obs.configure(self.config, run="glove")
+        if tel_rec is not None:
+            def _tel_sample(reg, _m=meter):
+                reg.counter("train/host_stall_ms_total").set_total(
+                    _m.host_stall_ms())
+                reg.counter("train/device_ms_total").set_total(
+                    _m.device_ms())
+            tel_rec.add_sampler(_tel_sample)
+            tel_rec.add_sampler(self.transfer.mirror_traffic)
+        if self.numerics_on and tel_rec is not None:
+            self._arm_numerics(tel_rec)
+        return tel_rec, owns_rec
+
+    def _close_telemetry(self, tel_rec, owns_rec: bool) -> None:
+        from swiftmpi_tpu_torch.transfer import api as transfer_api
+        if self._numerics is not None:
+            transfer_api.clear_numerics_tap()
+        prof = obs.get_profiler()
+        if prof is not None:
+            prof.close()
+        if owns_rec and tel_rec is not None:
+            tel_rec.close()
+            obs.uninstall_recorder()
+
+    def _arm_numerics(self, tel_rec) -> None:
+        """Arm the numerics plane (observe-only: GloVe has no control
+        plane): the collector once, the quant tap, the sampler once a
+        recorder; a first-time arm drops the graphs."""
+        from swiftmpi_tpu_torch.transfer import api as transfer_api
+        if self._numerics is None:
+            self._numerics = obs_numerics.NumericsCollector(
+                detector=obs_numerics.detector_from_config(self.config))
+            self._graphs, self._graph_key, self._captures = {}, (), {}
+        transfer_api.set_numerics_tap(self._numerics.quant_tap)
+        if id(tel_rec) != self._numerics_rec_id:
+            tel_rec.add_sampler(self._numerics.sampler)
+            self._numerics_rec_id = id(tel_rec)
 
     # -- outputs -----------------------------------------------------------
     def _vectors(self) -> np.ndarray:

@@ -50,8 +50,12 @@ group runs its steps one by one (the ring's epoch is a host counter a
 replay would repeat).  ``transfer: hybrid`` builds the table with no
 partition (LR has no frequency histogram up front, as in the JAX
 package): ``n_hot = 0``, the ``tpu`` path bit for bit (batches padded to
-the rank count).  Configurations not ported raise
-``NotImplementedError`` naming the ROADMAP item.
+the rank count).
+
+As the JAX package's LR, the model reads no ``[obs]``, ``[worker]
+telemetry``, ``[control]`` or ``[serve]`` key (it trains with them set);
+its graph captures go through the compile catalog (``obs.costs``:
+``lr_multi``, ``lr_dense_multi``), booked when a caller armed it.
 """
 
 from __future__ import annotations
@@ -71,8 +75,8 @@ from swiftmpi_tpu_torch.io.pipeline import CudaTransfer
 from swiftmpi_tpu_torch.parameter import lr_access
 from swiftmpi_tpu_torch.parameter.key_index import CapacityError
 from swiftmpi_tpu_torch.parameter.sparse_table import shard_block
-from swiftmpi_tpu_torch.utils.config import (ConfigParser, global_config,
-                                             refuse_unported)
+from swiftmpi_tpu_torch import obs
+from swiftmpi_tpu_torch.utils.config import ConfigParser, global_config
 from swiftmpi_tpu_torch.utils.graphs import StepGraph, graph_key, run_group
 from swiftmpi_tpu_torch.utils.logger import get_logger
 from swiftmpi_tpu_torch.utils.pipeline import LossAccum
@@ -97,7 +101,6 @@ class LogisticRegression:
                  capacity_per_shard: int = 1 << 16, seed: int = 0,
                  device=None):
         self.config = config if config is not None else global_config()
-        refuse_unported(self.config)
         g = self.config.get_or
         self.minibatch = g("worker", "minibatch", 200).to_int32()
         lr = g("server", "initial_learning_rate", 0.05).to_float()
@@ -118,6 +121,9 @@ class LogisticRegression:
         #: group length -> its captured CUDA graph, valid for _graph_key
         self._graphs: Dict[int, StepGraph] = {}
         self._graph_key: tuple = ()
+        #: group length -> its capture handle in the compile catalog
+        #: (``obs.costs``), dropped with the graphs
+        self._captures: dict = {}
         #: the parser of the last file ``train``/``predict`` loaded
         self.parser = ""
         self.train_metrics: dict = {}
@@ -240,12 +246,22 @@ class LogisticRegression:
                        self.transfer.count_traffic)
                 if key != self._graph_key:
                     self._graphs, self._graph_key = {}, key
+                    self._captures = {}
                 stacked = self._on_device(
                     [np.stack(col) for col in zip(*entries)], dtypes, stage)
+                capture = self._captures.get(inner)
+                if capture is None:
+                    # the compile catalog's funnel (JAX: lr_multi and
+                    # lr_dense_multi)
+                    capture = self._captures[inner] = obs.costs.track(
+                        "lr_dense_multi" if dense else "lr_multi",
+                        obs.costs.Captures(lambda f: StepGraph(
+                            lambda a: core(*a), f,
+                            push_paths=self.transfer.push_paths)),
+                        steps_per_call=inner)
                 out, replayed = run_group(
                     self._graphs, stacked, lambda f: core(*f), graphs,
-                    lambda f: StepGraph(lambda a: core(*a), f,
-                                        push_paths=self.transfer.push_paths))
+                    capture)
                 replays += replayed
             else:
                 # a tail (or a pre-growth flush) shorter than a group:
@@ -275,6 +291,7 @@ class LogisticRegression:
                             flush_group(num_q, den_q)
                             self.table.grow()
                             self._graphs, self._graph_key = {}, ()
+                            self._captures = {}
                             growths += 1
                             log.info("table grown to %d rows",
                                      self.table.capacity)

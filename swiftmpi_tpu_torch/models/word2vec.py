@@ -114,6 +114,26 @@ async modes run their steps one by one, as JAX runs them unfused.
 iterations and reports to the fault bus (``testing/faults.py``);
 ``resume`` restores one in place, ``save`` and ``load`` are the text dump
 (``io/checkpoint.py``).
+
+The telemetry plane (``obs/``) is armed by ``train`` as the JAX package
+arms it: ``[worker] telemetry`` installs a StepRecorder (or reuses an
+outer one) fed by ``obs.record_step`` (a group counts its length), with
+samplers for the ``Throughput`` split and the transfer ledger's registry
+mirror; each dispatch (a step, or a group) is the ``dispatch`` span.
+``[obs] numerics`` stages one bundle a dispatch on the collector's
+device buffers (:meth:`Word2Vec._numerics_run`: the updated fields are
+copied at dispatch entry, the push statistics summed over the dispatch,
+the table read at its exit; inside the CUDA graph on ``xla``), and the
+detector's baselines ride checkpoints as ``extra__numerics`` in the JAX
+package's bytes.  ``[obs] costs`` books every graph capture
+(``w2v_multi``), ``[obs] profile_*`` opens profiler windows on the step
+funnel, and ``[obs] trace`` installs the wire tracer, which switches
+``count_traffic`` on and runs the steps eagerly (no graph), as the
+tracer reads each exchange's count in program order.  With every plane
+off the path launches and computes exactly what it did without them,
+and the graphs' key is unchanged.  ``[control]`` and ``[serve]`` raise
+``NotImplementedError`` (ROADMAP A13a); the detector's demote hook has
+no controller yet, so numerics only observes.
 """
 
 from __future__ import annotations
@@ -124,6 +144,7 @@ from typing import Dict, Iterator, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from swiftmpi_tpu_torch import obs
 from swiftmpi_tpu_torch.cluster import Cluster
 from swiftmpi_tpu_torch.cluster.hashfrag import expected_unique_rows
 from swiftmpi_tpu_torch.data.text import (CBOWBatch, CBOWBatcher,
@@ -137,6 +158,7 @@ from swiftmpi_tpu_torch.io.checkpoint import (dump_table_text,
                                               save_checkpoint)
 from swiftmpi_tpu_torch.io.pipeline import CudaTransfer, PrefetchIterator
 from swiftmpi_tpu_torch.kernels.stencil import stencil_context_sum
+from swiftmpi_tpu_torch.obs import numerics as obs_numerics
 from swiftmpi_tpu_torch.ops.sampling import (alias_draws,
                                              build_unigram_alias,
                                              sample_alias_from_draws,
@@ -199,19 +221,18 @@ def _stack_group_host(batches) -> tuple:
 class _FusedSteps(StepGraph):
     """N training steps as one CUDA graph (the counterpart of JAX's
     ``_build_multi_step``: N steps in one dispatch): ``utils.graphs``'
-    :class:`StepGraph` of :meth:`Word2Vec._step_fields` (with
-    ``push_window > 1``, of :meth:`Word2Vec._window_group` on the whole
-    group), its static buffers in the step's argument dtypes, the model's
+    :class:`StepGraph` of the model's group step
+    (:meth:`Word2Vec._group_step`: :meth:`Word2Vec._step_fields` a step,
+    or one call on the whole group with ``push_window > 1`` or numerics
+    armed), its static buffers in the step's argument dtypes, the model's
     generator registered (each replay draws fresh negatives, the draws N
     eager steps would take), the summed ``(err_sum, err_cnt)`` its
     outputs."""
 
     def __init__(self, model: "Word2Vec", fields):
-        windowed = model.push_window_size > 1
-        super().__init__(model._window_group if windowed
-                         else model._step_fields, fields,
-                         model._arg_dtypes(), model._gen,
-                         model.transfer.push_paths, whole=windowed)
+        step, whole = model._group_step()
+        super().__init__(step, fields, model._arg_dtypes(), model._gen,
+                         model.transfer.push_paths, whole=whole)
 
 
 def _parity_targets(slot_of_vocab, alias_prob, alias_idx, centers, c_slots,
@@ -436,6 +457,14 @@ class Word2Vec:
                              f"{COLLECTIVE_MODES}, got "
                              f"{self.collective_mode!r}")
         self._check_supported()
+        # [obs] numerics: off (the default) builds nothing; armed by
+        # train() (the collector, its detector and the quant tap)
+        self.numerics_on = obs_numerics.enabled(self.config)
+        self._numerics: Optional[obs_numerics.NumericsCollector] = None
+        self._numerics_restore = None   # checkpointed baseline bytes
+        self._numerics_rec_id: Optional[int] = None
+        #: the armed dispatch's push statistics, one triple a step
+        self._num_acc: Optional[list] = None
         #: the rendering the step runs, named as the JAX package names it
         if self.stencil:
             self.resolved_rendering = ("stencil_shared"
@@ -471,6 +500,9 @@ class Word2Vec:
         #: valid for the tensors of ``_fused_key``
         self._fused_cache: Dict[int, _FusedSteps] = {}
         self._fused_key: tuple = ()
+        #: group length -> its capture handle in the compile catalog
+        #: (``obs.costs``), dropped with the graphs
+        self._captures: dict = {}
 
     def _check_supported(self) -> None:
         """Raise on every configuration the slice does not port, after the
@@ -535,8 +567,6 @@ class Word2Vec:
         want(transfer == "tpu" and data_plane == "xla",
              "[cluster] data_plane: xla with transfer: tpu (the library "
              "exchange)", "A16")
-        want(g("worker", "telemetry", 0).to_int32() != 0,
-             "[worker] telemetry", "A14")
         for sec, item in UNPORTED_SECTIONS.items():
             want(bool(self.config.section(sec)), f"[{sec}]", item)
         if refuse:
@@ -939,10 +969,66 @@ class Word2Vec:
                 pushes, es, ec = self._grads_for(
                     state, tuple(f[i] for f in fields),
                     None if draws is None else draws[i])
+                self._note_pushes(pushes)
                 window.append(pushes)
                 es_t, ec_t = es_t + es, ec_t + ec
             self._apply_window(state, window)
         return es_t, ec_t
+
+    def _steps_group(self, fields, draws: Optional[List[Draws]] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The N steps of a group, one after the other, on the whole
+        group's stacked fields; the summed ``(err_sum, err_cnt)``."""
+        es_t = ec_t = 0
+        for i in range(fields[0].shape[0]):
+            es, ec = self._step_fields(tuple(f[i] for f in fields),
+                                       None if draws is None else draws[i])
+            es_t, ec_t = es_t + es, ec_t + ec
+        return es_t, ec_t
+
+    def _note_pushes(self, pushes) -> None:
+        """Add one step's push statistics to the armed dispatch (numerics
+        on, sync modes); nothing otherwise."""
+        if self._num_acc is not None:
+            self._num_acc.append(obs_numerics.spec_stats(
+                pushes, int(self.table.n_hot)))
+
+    def _numerics_run(self, fn) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One dispatch ``fn() -> (err_sum, err_cnt)`` staging one numerics
+        bundle (JAX ``stage_step``): the updated fields copied at entry
+        (the collector's buffers), the steps' push statistics summed, the
+        table read at exit.  Plain ``fn()`` with numerics off."""
+        num = self._numerics
+        if num is None:
+            return fn()
+        fields = tuple(self.access.grad_fields)
+        state = self.table.state
+        state0 = num.snapshot(state, fields)
+        self._num_acc = acc = []
+        try:
+            es, ec = fn()
+        finally:
+            self._num_acc = None
+        grad_acc = None
+        for stats in acc:
+            grad_acc = obs_numerics.add_stats(grad_acc, stats)
+        obs_numerics.stage_step(num, state0, state, grad_acc, es, ec,
+                                fields)
+        return es, ec
+
+    def _group_step(self):
+        """``(step, whole)``: what one group runs — the per-step
+        ``_step_fields`` (``whole`` False), or one call on the whole
+        group's stacked fields (``push_window > 1``: the windows; numerics
+        armed: one dispatch, one bundle)."""
+        body = (self._window_group if self.push_window_size > 1
+                else self._steps_group)
+        if self._numerics is not None:
+            return (lambda f, draws=None: self._numerics_run(
+                lambda: body(f, draws))), True
+        if self.push_window_size > 1:
+            return self._window_group, True
+        return self._step_fields, False
 
     # -- the step ------------------------------------------------------------
     def draw_shape(self, B: int) -> Tuple[int, ...]:
@@ -994,6 +1080,7 @@ class Word2Vec:
         state = self.table.state
         pushes, es, ec = self._grads_for(
             state if snapshot is None else snapshot, fields, draws)
+        self._note_pushes(pushes)
         self._apply(state, pushes)
         return es, ec
 
@@ -1051,8 +1138,9 @@ class Word2Vec:
         if self.stencil:
             raise ValueError("this model renders stencil batches: call "
                              "step_stencil")
-        return self._host(*self._step_fields((centers, contexts, ctx_mask),
-                                             draws))
+        fields = (centers, contexts, ctx_mask)
+        return self._host(*self._numerics_run(
+            lambda: self._step_fields(fields, draws)))
 
     def step_stencil(self, tokens, sent_id, center_pos, half,
                      draws: Optional[Draws] = None
@@ -1062,8 +1150,9 @@ class Word2Vec:
         if not self.stencil:
             raise ValueError("this model renders CBOW batches: call step "
                              "(or set [word2vec] stencil: 1)")
-        return self._host(*self._step_fields(
-            (tokens, sent_id, center_pos, half), draws))
+        fields = (tokens, sent_id, center_pos, half)
+        return self._host(*self._numerics_run(
+            lambda: self._step_fields(fields, draws)))
 
     def step_batch(self, batch: Union[CBOWBatch, StencilBatch],
                    draws: Optional[Draws] = None):
@@ -1118,12 +1207,15 @@ class Word2Vec:
         ``SparseTable.grow``), ``count_traffic`` switched or a knob moved
         needs new graphs."""
         t = self.transfer
-        return graph_key(self.table, self._slot_of_vocab, self._alias_prob,
-                         self._alias_idx) + (
+        key = graph_key(self.table, self._slot_of_vocab, self._alias_prob,
+                        self._alias_idx) + (
             t.count_traffic, t.wire_quant, t.wire_quant_guard,
             bool(t.wire_sketch), t.collective_mode, t.hot_touched_fraction,
             t.sparse_ar_ratio, t.window_expected_unique, t.pull_quant,
             t.pull_quant_guard, t.pull_cache)
+        # armed numerics captures its bundle into the graph; off, the key
+        # is the one without the plane
+        return key + (("numerics",) if self._numerics is not None else ())
 
     def _run_group(self, fields, graphs: bool, draws, es_q: _LossAccum,
                    ec_q: _LossAccum) -> bool:
@@ -1131,17 +1223,25 @@ class Word2Vec:
         one replay of the group length's CUDA graph when ``graphs`` and
         the graph exists (returns True), else the steps one by one; with
         ``graphs`` the first group of a length is the graph's warm-up."""
-        windowed = self.push_window_size > 1
+        group_step, whole = self._group_step()
 
         def step(f):
-            if windowed:
-                return self._window_group(f, None if draws is None else [
+            if whole:
+                return group_step(f, None if draws is None else [
                     next(draws) for _ in range(f[0].shape[0])])
-            return self._step_fields(f, None if draws is None
-                                     else next(draws))
-        out, replayed = run_group(self._fused_cache, fields, step, graphs,
-                                  lambda f: _FusedSteps(self, f),
-                                  whole=windowed)
+            return group_step(f, None if draws is None else next(draws))
+        L = fields[0].shape[0]
+        capture = self._captures.get(L)
+        if capture is None:
+            # the compile catalog's funnel: one handle a group length,
+            # dropped with the graphs, so a new length books a compile,
+            # never a retrace
+            capture = self._captures[L] = obs.costs.track(
+                "w2v_multi", obs.costs.Captures(
+                    lambda f: _FusedSteps(self, f)), steps_per_call=L)
+        with obs.span("dispatch"):
+            out, replayed = run_group(self._fused_cache, fields, step,
+                                      graphs, capture, whole=whole)
         for es, ec in out:
             es_q.add(es)
             ec_q.add(ec)
@@ -1214,13 +1314,18 @@ class Word2Vec:
         # groups (and graphs) are the sync loop's: JAX fuses only there
         fuse = sync and self.inner_steps > 1
         cuda = self.device.type == "cuda"
+        meter = Throughput()
+        tel_rec, owns_rec = self._arm_telemetry(meter, sync)
         # one graph replay a group: one card, one shard (the ring's epoch
-        # is a host counter a replay would repeat), the model's generator
+        # is a host counter a replay would repeat), the model's generator;
+        # no graph while a tracer reads the ledger's counts in program
+        # order
         graphs = (fuse and cuda and self.transfer.name == "xla"
-                  and draws is None and not (self.transfer.pull_cache
-                                             and self.transfer.count_traffic))
+                  and draws is None and obs.get_tracer() is None
+                  and not (self.transfer.pull_cache
+                           and self.transfer.count_traffic))
         if graphs and self._graph_key() != self._fused_key:
-            self._fused_cache = {}
+            self._fused_cache, self._captures = {}, {}
             self._fused_key = self._graph_key()
         pipelined = self.pipeline_depth > 0 and not hogwild
         if self.pipeline_depth > 0 and not pipelined:
@@ -1243,7 +1348,6 @@ class Word2Vec:
                       if pipelined else None)
         losses, err = [], []
         words = steps = replays = 0
-        meter = Throughput()
         t0 = time.perf_counter()
         try:
             for it in range(niters):
@@ -1287,10 +1391,11 @@ class Word2Vec:
                                     fields, graphs, draws, es_q, ec_q)
                                 n, nw = len(n_words), sum(n_words)
                             else:
-                                es, ec = self._step_fields(
-                                    fields,
-                                    None if draws is None else next(draws),
-                                    snapshot)
+                                d = None if draws is None else next(draws)
+                                with obs.span("dispatch"):
+                                    es, ec = self._numerics_run(
+                                        lambda: self._step_fields(
+                                            fields, d, snapshot))
                                 es_q.add(es)
                                 ec_q.add(ec)
                                 n, nw = 1, n_words
@@ -1299,6 +1404,7 @@ class Word2Vec:
                                         and step_i % self.local_steps == 0:
                                     _refresh(snapshot, self.table.state)
                             meter.record(nw, steps=n)
+                            obs.record_step(n)
                             steps += n
                             words += nw
                     finally:
@@ -1323,6 +1429,7 @@ class Word2Vec:
             if stage is not None:
                 stage.close()
         seconds = time.perf_counter() - t0
+        self._close_telemetry(tel_rec, owns_rec)
         self.train_metrics = {
             "rendering": self.resolved_rendering,
             "steps": steps, "words": words, "seconds": seconds,
@@ -1350,7 +1457,74 @@ class Word2Vec:
         if self.transfer.count_traffic:
             # the ledger's totals, read once the run is done
             self.train_metrics["transfer_traffic"] = self.transfer.traffic()
+        if self._numerics is not None:
+            det = self._numerics.detector
+            self.train_metrics["numerics"] = {
+                "bundles": self._numerics.bundles,
+                "anomalies": det.anomalies_emitted if det else 0}
         return losses
+
+    # -- the telemetry plane (obs/) -----------------------------------------
+    def _arm_telemetry(self, meter: Throughput, sync: bool):
+        """Arm the telemetry plane for this ``train`` call (JAX
+        ``train``'s prologue): reuse an outer recorder or configure one
+        from ``[worker]``/``[obs]`` (which also arms the compile catalog,
+        the profiler session and the tracer), add the samplers (the
+        ``Throughput`` split, the transfer ledger's mirror), arm numerics,
+        and switch ``count_traffic`` on for an installed tracer.  Returns
+        ``(recorder or None, whether this call owns it)``."""
+        tel_rec = obs.get_recorder()
+        owns_rec = tel_rec is None
+        if owns_rec:
+            tel_rec = obs.configure(self.config, run="word2vec")
+        if tel_rec is not None:
+            def _tel_sample(reg, _m=meter):
+                reg.counter("train/host_stall_ms_total").set_total(
+                    _m.host_stall_ms())
+                reg.counter("train/device_ms_total").set_total(
+                    _m.device_ms())
+                reg.gauge("train/words_per_sec").set(_m.rate())
+            tel_rec.add_sampler(_tel_sample)
+            tel_rec.add_sampler(self.transfer.mirror_traffic)
+        if self.numerics_on and tel_rec is not None and sync:
+            self._arm_numerics(tel_rec)
+        if obs.get_tracer() is not None:
+            self.transfer.count_traffic = True
+        return tel_rec, owns_rec
+
+    def _close_telemetry(self, tel_rec, owns_rec: bool) -> None:
+        """The end of ``train``: disarm the quant tap (a numerics-off model
+        training next in this process must book nothing), finish an open
+        profiler window, and close the recorder this call owns (its
+        samplers read the ledger and the numerics buffers once more)."""
+        from swiftmpi_tpu_torch.transfer import api as transfer_api
+        if self._numerics is not None:
+            transfer_api.clear_numerics_tap()
+        prof = obs.get_profiler()
+        if prof is not None:
+            prof.close()
+        if owns_rec and tel_rec is not None:
+            tel_rec.close()
+            obs.uninstall_recorder()
+
+    def _arm_numerics(self, tel_rec) -> None:
+        """Arm the numerics plane (JAX ``_arm_numerics``): the collector
+        and its detector once (with checkpointed baselines restored), the
+        transfer-wide quantization-error tap, and the sampler on the
+        recorder (once a recorder).  A first-time arm drops the graphs
+        captured without the bundle."""
+        from swiftmpi_tpu_torch.transfer import api as transfer_api
+        if self._numerics is None:
+            det = obs_numerics.detector_from_config(self.config)
+            if self._numerics_restore is not None:
+                det.load_state_bytes(self._numerics_restore)
+                self._numerics_restore = None
+            self._numerics = obs_numerics.NumericsCollector(detector=det)
+            self._fused_cache, self._captures = {}, {}
+        transfer_api.set_numerics_tap(self._numerics.quant_tap)
+        if id(tel_rec) != self._numerics_rec_id:
+            tel_rec.add_sampler(self._numerics.sampler)
+            self._numerics_rec_id = id(tel_rec)
 
     def _hogwild_epoch(self, batcher, batch_size: int, draws, meter,
                        es_q: _LossAccum, ec_q: _LossAccum) -> tuple:
@@ -1383,6 +1557,7 @@ class Word2Vec:
             ec_q.add(ec)
             nw = sum(b.n_words for b in buf)
             meter.record(nw, steps=group)
+            obs.record_step(group)
             groups, words, buf = groups + 1, words + nw, []
         dropped += sum(b.n_words for b in buf)
         if not groups:
@@ -1405,8 +1580,13 @@ class Word2Vec:
         bus."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        save_checkpoint(self.table, path,
-                        extra={"iter": np.int64(iteration)}, retain=retain)
+        extra = {"iter": np.int64(iteration)}
+        if self._numerics is not None \
+                and self._numerics.detector is not None:
+            # the baselines ride along: a resumed run scores its first
+            # windows against the learned regime, not a cold baseline
+            extra["numerics"] = self._numerics.detector.state_bytes()
+        save_checkpoint(self.table, path, extra=extra, retain=retain)
         log.info("checkpoint @ iter %d -> %s", iteration, path)
         faults.checkpoint_event(npz_path(path))
 
@@ -1432,17 +1612,21 @@ class Word2Vec:
         """Restore a mid-training checkpoint in place (either package's
         npz); returns the iteration it was taken at.  The vocab's slot
         map is re-read from the restored key index.  An ``extra__numerics``
-        entry (the JAX package's detector baselines) is returned by the
-        load but not applied: the numerics plane is ROADMAP A14."""
+        entry (the numerics detector's baselines, either package's) is
+        loaded into the armed detector, or kept for the next arming."""
         if self.table is None:
             raise RuntimeError("build() or load() the model before resume()")
         extra = load_checkpoint(self.table, checkpoint_path)
         self._remap_vocab()
         # a restore can rewind the version stamps: the cache starts cold
         self.transfer.pull_shadow_flush()
-        if "numerics" in extra:
-            log.info("checkpoint carries numerics detector baselines; not "
-                     "applied (the numerics plane is ROADMAP A14)")
+        num_state = extra.get("numerics")
+        if num_state is not None:
+            if self._numerics is not None \
+                    and self._numerics.detector is not None:
+                self._numerics.detector.load_state_bytes(num_state)
+            else:
+                self._numerics_restore = num_state
         return int(extra.get("iter", 0))
 
     # -- embeddings out/in (word2vec.h:100-117) --------------------------------

@@ -48,8 +48,13 @@ ENV_FAULT_PLAN = "SMTPU_FAULT_PLAN"
 
 
 def _obs_count(name: str, **labels) -> None:
-    """Telemetry mirror for bus events: a no-op until the port has the
-    observability plane (ROADMAP A14)."""
+    """Telemetry mirror for bus events (one branch when telemetry is
+    off).  Deferred import: obs stays importable without the fault
+    machinery and vice versa."""
+    from swiftmpi_tpu_torch import obs
+    reg = obs.get_registry()
+    if reg.enabled:
+        reg.counter(name, **labels).inc()
 
 
 _KINDS = ("crash", "hang", "corrupt_checkpoint", "kill", "nan")
@@ -189,8 +194,7 @@ class FaultPlan:
         fault.  faults.py knows no model state, so the fault only raises
         the :func:`consume_nan` flag; the training loop that polls it
         (Word2Vec.train) overwrites one of its own parameter rows with
-        NaN (the JAX package's health plane, obs/numerics.py, then
-        reports it; ROADMAP A14 ports that plane)."""
+        NaN, and the numerics plane (obs/numerics.py) reports it."""
         self.faults.append(Fault("nan", step=step, rank=rank,
                                  marker=marker))
         return self

@@ -36,9 +36,17 @@ rung's error feedback, :func:`ef_quantize_window`),
 the routed push as dequantized float32), ``_push_window_dense`` and
 ``_prim_sparse_allreduce``.  A W == 1 window, and a W > 1 window on
 ``local`` or ``xla`` with every compression knob off, flattens and takes
-the per-step ``push`` or ``push_span``.  The numerics tap on the
-quantization error and the tracer's taps (``stage_ef``, the window
-records) are ROADMAP A14 and do nothing here.
+the per-step ``push`` or ``push_span``.
+
+Observation taps (the telemetry plane, ``obs/``), each a no-op unless
+armed: the numerics tap (:func:`set_numerics_tap`) takes each quantized
+window's error sum-of-squares as a device scalar, in place; an installed
+wire tracer (``obs.get_tracer()``) gets the plan's pricing
+(``on_decision``), the window's keys and EF mass (``stage_keys``,
+``stage_ef``), and a window record per dedup and exchange
+(``on_window``, ``on_exchange``), each count read back to the host where
+the JAX package's callback lands; a model runs its steps eagerly while a
+tracer is installed.
 
 Every push bumps the ``@rowver`` plane of the rows it applies to, when the
 state has one (:func:`bump_row_versions`): the pull cache's hits are
@@ -51,7 +59,15 @@ the device is added in place to an int64 counter vector on that device
 (one per device the backend booked on), together with the static
 quantities booked with it, so a replayed CUDA graph books exactly what
 the eager steps book and a step reads nothing back; only
-:meth:`Transfer.traffic` reads the counters to the host.  As in the JAX
+:meth:`Transfer.traffic` reads the counters to the host.  The telemetry
+registry mirrors the ledger as ``transfer/<key>{backend=<name>}`` (the
+window formats as ``transfer/window_fmt{fmt=}``, the collectives as
+``transfer/collective{kind=}``, the pull formats as
+``transfer/pull_fmt{fmt=}``): a host booking increments its series where
+it is booked, as the JAX package's ``_obs_inc`` does, and
+:meth:`Transfer.mirror_traffic`, a recorder sampler, brings every series
+to the ledger's total once a recorded step, so the device counters are
+read only then.  As in the JAX
 package, which books them through callbacks per execution, the window
 decisions (``window_*``), ``coalesced_rows_*``, ``wire_bytes`` and
 ``hot_psum_bytes_saved`` are such device counts; ``plan_compiles``,
@@ -72,6 +88,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from swiftmpi_tpu_torch import obs
 from swiftmpi_tpu_torch.parameter.access import AccessMethod
 from swiftmpi_tpu_torch.parameter.sparse_table import ROWVER_KEY, ef_name
 
@@ -102,6 +119,41 @@ WIRE_KEYS = (
 ROUTE_KEYS = ("routed_rows", "hot_rows", "psum_bytes")
 
 _INDEX = {k: i for i, k in enumerate(WIRE_KEYS + ROUTE_KEYS)}
+
+
+def obs_series(key: str):
+    """The registry series of a ledger key: ``(name, labels)``, the JAX
+    package's ``_obs_inc`` names (a format or collective key folds into
+    its family with a label)."""
+    for fam, label in (("window_fmt", "fmt"), ("collective", "kind"),
+                       ("pull_fmt", "fmt")):
+        if key.startswith(fam + "_"):
+            return "transfer/" + fam, {label: key[len(fam) + 1:]}
+    return "transfer/" + key, {}
+
+
+# When the numerics plane is armed it installs a tap here; every EF
+# quantize path (ef_quantize_window for xla/tpu/hybrid, the local
+# oracle's numpy twin) books its quantization error sum-of-squares
+# through it.  None (the default) computes nothing extra.
+_NUMERICS_TAP = None
+
+
+def set_numerics_tap(fn) -> None:
+    global _NUMERICS_TAP
+    _NUMERICS_TAP = fn
+
+
+def clear_numerics_tap() -> None:
+    set_numerics_tap(None)
+
+
+def numerics_quant_err(err_sq) -> None:
+    """Book one quantized window's error sum-of-squares (a device scalar
+    or a host number) into the armed numerics tap; no-op when off."""
+    tap = _NUMERICS_TAP
+    if tap is not None:
+        tap(err_sq)
 
 
 def _width_bytes(x) -> int:
@@ -202,7 +254,8 @@ def bump_row_versions(ver: torch.Tensor, touched: torch.Tensor) -> None:
 
 
 def ef_quantize_window(planes, ded_slots: torch.Tensor, ded_grads,
-                       capacity: int, quant: str):
+                       capacity: int, quant: str,
+                       trace_backend: Optional[str] = None):
     """Error feedback around one deduplicated window's quantization (JAX
     ``ef_quantize_window``): each touched slot's residual drains into its
     first occurrence's sum, the sum is quantized and dequantized, and the
@@ -218,8 +271,13 @@ def ef_quantize_window(planes, ded_slots: torch.Tensor, ded_grads,
     per slot.  The residual rows are read by the gather kernel (valid: the
     first occurrences) and the errors banked by the scatter-add kernel
     (its counts name the touched rows); untouched rows keep their bits,
-    ``-0.0`` included.  The numerics tap and the tracer's ``stage_ef`` are
-    ROADMAP A14."""
+    ``-0.0`` included.
+
+    Armed, the numerics tap gets the window's error sum-of-squares (a
+    float32 device scalar, summed over the fields) and an installed
+    tracer the drained and re-banked residual mass (``stage_ef`` under
+    ``trace_backend``, read back to the host); the values shipped and
+    banked do not change."""
     from swiftmpi_tpu_torch.kernels.gather import masked_gather
     from swiftmpi_tpu_torch.kernels.scatter import masked_scatter_add
     ded_slots = ded_slots.to(torch.int32).contiguous()
@@ -229,11 +287,15 @@ def ef_quantize_window(planes, ded_slots: torch.Tensor, ded_grads,
                                      device=ded_slots.device))
     out = dict(ded_grads)
     touched = None
+    tap = _NUMERICS_TAP
+    tracer = obs.get_tracer()
+    err_sq = drained = rebanked = None
     for f, g in ded_grads.items():
         ef = planes.get(f)
         if ef is None:
             continue
-        tot = g.to(torch.float32) + masked_gather(ef, ded_slots, first)
+        res = masked_gather(ef, ded_slots, first)
+        tot = g.to(torch.float32) + res
         deq = torch.where(valid[:, None], quantize_dequantize(tot, quant),
                           0.0)
         bank = masked_scatter_add(ded_slots, valid, (tot - deq).contiguous(),
@@ -243,6 +305,20 @@ def ef_quantize_window(planes, ded_slots: torch.Tensor, ded_grads,
             touched = cnt > 0
         ef.copy_(torch.where(touched[:, None], bank, ef))
         out[f] = deq
+        if tap is not None or tracer is not None:
+            err = torch.where(valid[:, None], tot - deq, 0.0)
+        if tap is not None:
+            fsq = err.square().sum()
+            err_sq = fsq if err_sq is None else err_sq + fsq
+        if tracer is not None:
+            d, e = res.abs().sum(), err.abs().sum()
+            drained = d if drained is None else drained + d
+            rebanked = e if rebanked is None else rebanked + e
+    if err_sq is not None:
+        numerics_quant_err(err_sq)
+    if tracer is not None and drained is not None:
+        tracer.stage_ef(trace_backend or "?", float(drained),
+                        float(rebanked))
     return out
 
 
@@ -380,6 +456,58 @@ class Transfer:
         else:
             for k, n in counts.items():
                 self._host_ledger[_INDEX[k]] += int(n)
+                self._obs_inc(k, int(n))
+
+    def _obs_counter(self, reg, key: str):
+        """The registry counter mirroring ``key`` for this backend (handles
+        cached per registry: a test's registry reset makes new ones)."""
+        cache = self.__dict__.get("_obs_cache")
+        if cache is None or cache[0] is not reg:
+            cache = self.__dict__["_obs_cache"] = (reg, {})
+        c = cache[1].get(key)
+        if c is None:
+            name, labels = obs_series(key)
+            c = cache[1][key] = reg.counter(name, backend=self.name,
+                                            **labels)
+        return c
+
+    def _obs_inc(self, key: str, n: int) -> None:
+        """Mirror a host ledger increment into the telemetry registry
+        (one branch when telemetry is off)."""
+        reg = obs.get_registry()
+        if reg.enabled:
+            self._obs_counter(reg, key).inc(n)
+
+    #: ledger keys mirrored even at 0 (the JAX package books them on
+    #: every read)
+    _mirror_always: tuple = ()
+
+    def _ledger_owners(self) -> list:
+        """The transfers whose own ledgers make up :meth:`traffic` (the
+        hybrid: itself and its tail)."""
+        return [self]
+
+    def _own_totals(self) -> Dict[str, int]:
+        """This backend's own ledger (not its tail's), key by key."""
+        c = self._counts()
+        return {k: int(c[_INDEX[k]]) for k in WIRE_KEYS + ROUTE_KEYS}
+
+    def mirror_traffic(self, reg) -> None:
+        """Recorder sampler: bring every ``transfer/<key>{backend=}``
+        series to its backend's ledger total (one read of the device
+        counters).  A key that never moved creates no series; the sum of
+        a key's series over the backends equals :meth:`traffic`'s."""
+        if not reg.enabled:
+            return
+        for owner in self._ledger_owners():
+            for k, v in owner._own_totals().items():
+                if not v and k not in owner._mirror_always \
+                        and k not in owner.__dict__.get(
+                            "_obs_cache", (None, {}))[1]:
+                    continue
+                c = owner._obs_counter(reg, k)
+                if v != c.value:
+                    c.inc(v - c.value)
 
     def _decision_counts(self, decision: Optional[str]) -> dict:
         """The ledger keys one window decision books: the 2-way
@@ -398,6 +526,12 @@ class Transfer:
         self._book(rows if on is None else on,
                    wire_bytes=rows * int(row_bytes) + int(base_bytes),
                    dispatches=1, **self._decision_counts(decision))
+        tr = obs.get_tracer()
+        if tr is not None and self.count_traffic:
+            # the tracer reads the count where the JAX package's ledger
+            # callback lands (an armed tracer runs the steps eagerly)
+            tr.on_exchange(self.name, int(rows), int(row_bytes),
+                           base_bytes=int(base_bytes), decision=decision)
 
     def _record_coalesce(self, rows_in, rows_out,
                          decision: Optional[str] = None, on=None) -> None:
@@ -407,6 +541,11 @@ class Transfer:
         self._book(rows_in if on is None else on, coalesced_rows_in=rows_in,
                    coalesced_rows_out=rows_out,
                    **self._decision_counts(decision))
+        tr = obs.get_tracer()
+        if tr is not None and decision and self.count_traffic:
+            # a decision-carrying dedup opens this backend's window
+            # record; the following exchange seals it
+            tr.on_window(self.name, decision, int(rows_in), int(rows_out))
 
     def _count_collective(self, collective: str) -> None:
         """One reconcile's collective decision, on the host once per
@@ -579,6 +718,11 @@ class Transfer:
         self._book(None, **{"plan_cache_hits" if hit else "plan_compiles":
                             1})
         self._count_pull_decision(plan.wire_format)
+        tr = obs.get_tracer()
+        if tr is not None:
+            tr.on_decision(self.name, "pull_" + plan.wire_format,
+                           plan.prices, plan.rows, plan.capacity,
+                           plan.row_bytes, quant=plan.quant)
         return plan
 
     def _interpret_pull_hot_split(self, state: TableState, slots, access,
@@ -678,6 +822,11 @@ class Transfer:
             quant_row_bytes, with_counts, family=family)
         self._book(None, **{"plan_cache_hits" if hit else "plan_compiles":
                             1})
+        tr = obs.get_tracer()
+        if tr is not None:
+            tr.on_decision(self.name, plan.wire_format, plan.prices,
+                           plan.rows, plan.capacity, plan.row_bytes,
+                           quant=plan.quant)
         return plan
 
     def _hot_plan(self, n_hot: int, width_bytes: int):
@@ -687,6 +836,11 @@ class Transfer:
         plan, hit = compile_hot_plan(self, int(n_hot), int(width_bytes))
         self._book(None, **{"plan_cache_hits" if hit else "plan_compiles":
                             1})
+        tr = obs.get_tracer()
+        if tr is not None:
+            tr.on_decision(self.name, "hot_" + plan.collective,
+                           plan.prices, plan.rows, plan.capacity,
+                           plan.row_bytes)
         return plan
 
     def decide_wire_format(self, rows: int, capacity: int, row_bytes: int,
@@ -786,7 +940,8 @@ class Transfer:
         planes = {f: self._side_plane(state, ef_name(f))
                   for f in ded_grads if ef_name(f) in state}
         return state, ef_quantize_window(planes, ded_slots, ded_grads,
-                                         capacity, quant)
+                                         capacity, quant,
+                                         trace_backend=self.name)
 
     def _prim_window_exchange(self, state, ded_slots, ded_grads,
                               ded_counts, access, mean: bool,
@@ -874,11 +1029,15 @@ class Transfer:
                 state, slots0, grads0, access, mean=mean, counts=counts0)
         if pre_deduped:
             ded_slots, ded_grads, ded_counts = flat, fgrads, fcounts
+            self._trace_keys(ded_slots, **self._trace_shard_args(capacity))
             if self.count_traffic:
                 self._record_coalesce(0, 0, decision=decision, on=flat)
         else:
             ded_slots, ded_grads, ded_counts = self._prim_window_dedup(
                 flat, fgrads, fcounts, capacity)
+            # the key reservoir before the dedup's booking opens the
+            # window record (obs/trace.py)
+            self._trace_keys(ded_slots, **self._trace_shard_args(capacity))
             if self.count_traffic:
                 if route.eager:
                     self._record_coalesce(int((flat >= 0).sum()),
@@ -900,6 +1059,35 @@ class Transfer:
         return self._prim_window_exchange(state, ded_slots, ded_grads,
                                           ded_counts, access, mean,
                                           need_counts, wire)
+
+    def _trace_shard_args(self, capacity: int) -> dict:
+        """What :meth:`_trace_keys` needs to split a window's surviving
+        rows by destination shard (``cap_per_shard``, ``n_shards``); none
+        here (one shard)."""
+        return {}
+
+    def _trace_keys(self, ded_slots, cap_per_shard: Optional[int] = None,
+                    n_shards: Optional[int] = None) -> None:
+        """Hand an installed tracer a bounded strided reservoir of the
+        window's surviving (deduplicated, ``-1``-padded) slots and, where
+        the backend knows its ``slot // cap_per_shard`` owners, the
+        surviving rows per destination shard (read back to the host).
+        Nothing without a tracer with a key reservoir."""
+        tr = obs.get_tracer()
+        if tr is None or tr.keys <= 0:
+            return
+        B = int(ded_slots.shape[0])
+        if B == 0:
+            return
+        stride = max(B // int(tr.keys), 1)
+        sample = _host_copy(ded_slots[::stride][:int(tr.keys)])
+        shard_rows = None
+        if cap_per_shard and n_shards:
+            d = _host_copy(ded_slots).astype(np.int64)
+            own = d[d >= 0] // int(cap_per_shard)
+            shard_rows = np.bincount(own, minlength=int(n_shards))[
+                :int(n_shards)]
+        tr.stage_keys(self.name, sample, shard_rows)
 
     def _book_sparse_allreduce(self, flat, fgrads, capacity: int,
                                mean: bool, eager: bool) -> None:
@@ -948,6 +1136,12 @@ class Transfer:
         width_bytes = grad_row_bytes(ded_grads, with_index=False) + 4
         hot_plan = self._hot_plan(n_hot, width_bytes)
         self._count_collective(hot_plan.collective)
+        tr = obs.get_tracer()
+        if tr is not None:
+            # the hot/tail split rides the TAIL's window record, which the
+            # tail's plan opens below
+            tr.stage(self.tail.name, hot_rows=int(is_hot.sum()),
+                     hot_collective=hot_plan.collective)
         # the mean now depends on the collapsed multiplicities, so both
         # slices take the counts
         need_counts = mean or counts_present

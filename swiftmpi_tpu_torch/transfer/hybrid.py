@@ -139,6 +139,9 @@ class HybridTransfer(Transfer):
         self.tail.pull_shadow_flush()
         super().pull_shadow_flush()
 
+    def _ledger_owners(self) -> list:
+        return [self, self.tail]
+
     def traffic(self) -> Dict[str, int]:
         """``routed_rows``, ``hot_rows``, ``psum_bytes``,
         ``overflow_dropped`` and the ledger keys, the tail's ledger and

@@ -26,9 +26,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from swiftmpi_tpu_torch import obs
 from swiftmpi_tpu_torch.parameter.sparse_table import (ROWVER_KEY, ef_name,
                                                        tensor_to_numpy)
 from swiftmpi_tpu_torch.transfer.api import (Transfer, grad_row_bytes,
+                                             numerics_quant_err,
                                              quantize_dequantize)
 
 
@@ -176,14 +178,25 @@ class LocalTransfer(Transfer):
         quantized, the new error banked, as ``api.ef_quantize_window``
         orders it."""
         state, sums = dict(state), dict(sums)
+        err_sq = drained = rebanked = 0.0
+        banked = False
         for f in list(sums):
             efk = ef_name(f)
             if efk not in state:
                 continue
             ef = np.asarray(state[efk], np.float32).copy()
             tot = sums[f] + ef[uniq]
+            drained += float(np.sum(np.abs(ef[uniq])))
             deq = quantize_dequantize(tot, quant)
             ef[uniq] = tot - deq
             state[efk] = ef
             sums[f] = deq
+            err_sq += float(np.sum((tot - deq) ** 2))
+            rebanked += float(np.sum(np.abs(tot - deq)))
+            banked = True
+        if banked:
+            numerics_quant_err(err_sq)
+            tracer = obs.get_tracer()
+            if tracer is not None:
+                tracer.stage_ef(self.name, drained, rebanked)
         return state, sums

@@ -245,6 +245,13 @@ class ShardedTransfer(Transfer):
         (counted while ``count_traffic`` is set)."""
         return self._count("routed_rows")
 
+    _mirror_always = ("overflow_dropped",)
+
+    def _own_totals(self) -> Dict[str, int]:
+        out = super()._own_totals()
+        out["overflow_dropped"] = self.overflow_count()
+        return out
+
     def traffic(self) -> Dict[str, int]:
         """``routed_rows``, ``hot_rows`` and ``psum_bytes`` (0 here),
         ``overflow_dropped`` and the wire ledger (``Transfer.traffic``),
@@ -528,6 +535,11 @@ class ShardedTransfer(Transfer):
         ledger's model (booked by the interpreter) differs."""
         return self._push_window_dense(state, flat, fgrads, access, mean,
                                        fcounts)
+
+    def _trace_shard_args(self, capacity: int) -> dict:
+        """Window trace records carry the per-destination row split: this
+        backend owns ``slot // (capacity / n)``."""
+        return {"cap_per_shard": capacity // self.n, "n_shards": self.n}
 
     def _side_plane(self, state, key):
         """The global ``(n * cap, d)`` rows of a tail-shaped side plane as

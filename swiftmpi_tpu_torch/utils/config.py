@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import os
 import threading
-from typing import Dict, Iterator, Optional, Sequence, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 
 class ConfigError(KeyError):
@@ -171,24 +171,9 @@ class ConfigParser:
         return "ConfigParser(\n  " + "\n  ".join(lines) + "\n)"
 
 
-#: config sections the port does not cover at all -> the ROADMAP item
-UNPORTED_SECTIONS = {"obs": "A14", "control": "A13", "serve": "A13"}
-
-
-def refuse_unported(config: ConfigParser, refuse: Sequence[str] = ()
-                    ) -> None:
-    """Raise ``NotImplementedError`` listing ``refuse`` (``"what (ROADMAP
-    item)"`` strings) and the configuration every model of the port
-    refuses: the :data:`UNPORTED_SECTIONS` and ``[worker] telemetry``."""
-    refuse = list(refuse)
-    if config.get_or("worker", "telemetry", 0).to_int32() != 0:
-        refuse.append("[worker] telemetry (ROADMAP A14)")
-    refuse += [f"[{sec}] (ROADMAP {item})"
-               for sec, item in UNPORTED_SECTIONS.items()
-               if config.section(sec)]
-    if refuse:
-        raise NotImplementedError(
-            "not ported in this slice: " + "; ".join(refuse))
+#: config sections the port's word2vec does not cover yet -> the ROADMAP
+#: item (the JAX package's word2vec is their only reader)
+UNPORTED_SECTIONS = {"control": "A13a", "serve": "A13a"}
 
 
 _GLOBAL_CONFIG: Optional[ConfigParser] = None

@@ -83,6 +83,14 @@ def check_devices(devices: Optional[Sequence] = None,
     out = [r if r is not None
            else DeviceHealth(str(d), False, timeout_s, "probe timed out")
            for r, d in zip(results, devices)]
+    from swiftmpi_tpu_torch import obs
+    reg = obs.get_registry()
+    if reg.enabled:
+        for h in out:
+            reg.counter("health/probe_ok" if h.ok
+                        else "health/probe_fail").inc()
+            if h.ok:
+                reg.histogram("health/probe_ms").observe(h.latency_s * 1e3)
     bad = [(h.device, h.error) for h in out if not h.ok]
     if bad:
         log.warning("unhealthy devices: %s", bad)

@@ -23,8 +23,8 @@ class _IdentFilter(logging.Filter):
     so a changed environment is honoured without reconfiguring."""
 
     def filter(self, record: logging.LogRecord) -> bool:
-        rank = os.environ.get("SMTPU_PROCESS_ID")
-        record.ident = f"r{rank}" if rank else f"p{os.getpid()}"
+        from swiftmpi_tpu_torch.obs.identity import process_ident
+        record.ident = process_ident()
         return True
 
 

@@ -423,20 +423,33 @@ def test_key_index_restore_matches_jax():
 
 def test_numerics_extra_is_returned_not_applied(tmp_path, monkeypatch):
     """A checkpoint carrying the JAX package's numerics detector baselines
-    (``extra__numerics``) resumes: the entry comes back from the load,
-    and ``resume`` says it was not applied (ROADMAP A14)."""
+    (``extra__numerics``) resumes: the entry comes back from the load, and
+    ``resume`` keeps it for the detector the next armed ``train`` builds,
+    which then holds the JAX detector's state."""
+    from swiftmpi_tpu.obs.numerics import AnomalyDetector as JaxDetector
     sents = corpus()
     pm = Word2Vec(config=ConfigParser().update(CONF), device="cpu")
     pm.build(sents)
     path = str(tmp_path / "ck")
-    blob = np.frombuffer(b"detector-state", np.uint8)
+    jdet = JaxDetector(warmup=2)
+    for v in (1.0, 1.1, 0.9, 1.05):
+        jdet.observe("numerics/grad_norm", v)
+    blob = jdet.state_bytes()
     pck.save_checkpoint(pm.table, path, extra={"iter": np.int64(4),
                                                "numerics": blob})
     extra = pck.load_checkpoint(pm.table, path)
     np.testing.assert_array_equal(extra["numerics"], blob)
-    from swiftmpi_tpu_torch.models import word2vec
-    said = []
-    monkeypatch.setattr(word2vec.log, "info",
-                        lambda msg, *a: said.append(msg % a))
     assert pm.resume(path) == 4
-    assert any("A14" in m for m in said)
+    np.testing.assert_array_equal(pm._numerics_restore, blob)
+    from swiftmpi_tpu_torch import obs
+    monkeypatch.chdir(tmp_path)
+    pm.config.set("worker", "telemetry", 1)
+    pm.config.set("obs", "numerics", 1)
+    pm.numerics_on = True
+    try:
+        pm.train(sents, niters=1, batch_size=16)
+    finally:
+        obs.reset_for_tests()
+    assert pm._numerics_restore is None
+    base = pm._numerics.detector.state()["series"]["numerics/grad_norm"]
+    assert base[2] >= jdet.state()["series"]["numerics/grad_norm"][2]

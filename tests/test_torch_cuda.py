@@ -1810,3 +1810,94 @@ def test_rowver_pull_on_tpu8_on_card_matches_cpu(dev):
     # the requests and the three columns; a push the requests and the two
     # families
     assert counts["gather"] == 6 and counts["ring"] == 2 * 4 + 2 * 3
+
+
+# -- the telemetry plane on the card ------------------------------------------
+
+@pytest.mark.parametrize("case", ["gather", "stencil", "gather:bf16",
+                                  "gather@8"])
+def test_telemetry_planes_on_match_off_on_card(dev, case, tmp_path,
+                                               monkeypatch):
+    """Groups of 8 steps with ``[worker] telemetry``, ``[obs] numerics``
+    and ``[obs] costs`` armed against the same groups with every plane
+    off, from one table and generator seed: the same launches and push
+    paths, one numerics bundle a group, the catalog's graph captures with
+    no retrace.  On ``xla`` (three groups, each one CUDA graph replay, the
+    bundle inside the graph; batches of 32 push sparse, and PyTorch's
+    deterministic ``index_add_`` fixes every sum's order) the tables are
+    bit for bit.  On ``tpu@8`` (one eager group) the owners sum through
+    the scatter-add kernel's atomics, whose order varies run to run with
+    or without the planes (two runs with every plane off differ by up to
+    1.5e-5 after one group and 4.7e-4 after three, NVIDIA H100 80GB HBM3),
+    so the tables are held as ``test_graph_with_dense_push_tracks_plain_
+    steps`` holds them: at most 1e-4 of a field's elements outside ``1e-5
+    + 1e-3 |b|``, every element within 1e-4."""
+    from swiftmpi_tpu_torch import obs
+    from swiftmpi_tpu_torch.utils.pipeline import LossAccum
+    from swiftmpi_tpu_torch.utils.timers import Throughput
+    monkeypatch.chdir(tmp_path)
+    rendering, _, bf16 = case.partition(":")
+    sharded = rendering.endswith("@8")
+    rendering = rendering.split("@")[0]
+    dtype = "bfloat16" if bf16 else "float32"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    obs.reset_for_tests()
+    runs = []
+    try:
+        for armed in (False, True):
+            m, sents = _path_model(dev, rendering, seed=1, dtype=dtype,
+                                   inner_steps=8)
+            if sharded:
+                c = m.config
+                c.set("cluster", "transfer", "tpu")
+                c.set("cluster", "server_num", 8)
+                m = Word2Vec(config=c, device=dev, seed=1)
+                m.build(sents)
+            if armed:
+                for sec, k, v in (("worker", "telemetry", 1),
+                                  ("worker", "telemetry_path", "t.jsonl"),
+                                  ("obs", "numerics", 1),
+                                  ("obs", "costs", 1)):
+                    m.config.set(sec, k, v)
+                m.numerics_on = True
+                rec, owns = m._arm_telemetry(Throughput(), True)
+            n_groups = 1 if sharded else 3
+            groups = [tuple(torch.from_numpy(f).to(dev) for f in g)
+                      for g in _items(m, sents, 32, n_groups, group=8)]
+            graphs = not sharded
+            es_q, ec_q = LossAccum(None, dev), LossAccum(None, dev)
+            kernels.reset_launches()
+            replays = 0
+            for g in groups:
+                replays += m._run_group(g, graphs, None, es_q, ec_q)
+                obs.record_step(8)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            if armed:
+                m._close_telemetry(rec, owns)
+            runs.append((m, counts, replays, es_q.total(), ec_q.total()))
+        (off, c_off, r_off, es0, ec0), (on, c_on, r_on, es1, ec1) = runs
+        assert c_on == c_off and r_on == r_off == (0 if sharded else 2)
+        assert dict(on.transfer.push_paths) == dict(off.transfer.push_paths)
+        assert on._numerics.bundles == n_groups
+        entry = obs.costs.get_catalog().entry("w2v_multi")
+        if sharded:
+            assert entry is None
+        else:
+            assert entry["compiles"] == 1 and entry["retraces"] == 0
+            assert entry["peak_bytes"] > 0
+            assert ec1 == ec0 and es1 == es0
+        for f, t in on.table.state.items():
+            want = off.table.state[f]
+            if not sharded:
+                assert torch.equal(t, want), f
+                continue
+            got, ref = torch.cat(list(t)).float(), torch.cat(
+                list(want)).float()
+            gap = (got - ref).abs()
+            outside = (gap > 1e-5 + 1e-3 * ref.abs()).sum().item()
+            assert outside <= 1e-4 * got.numel(), (f, outside)
+            assert gap.max().item() <= 1e-4, (f, gap.max().item())
+    finally:
+        torch.use_deterministic_algorithms(False)
+        obs.reset_for_tests()

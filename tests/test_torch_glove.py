@@ -248,10 +248,27 @@ def test_glove_main_then_w2v_eval_on_cpu(tmp_path, capsys):
     reset_global_config()
 
 
-def test_unported_config_raises():
-    for sec, key, item in (("obs", "numerics", "A14"),
-                           ("worker", "telemetry", "A14")):
-        pc = ConfigParser().update(CONF)
-        pc.set(sec, key, 1)
-        with pytest.raises(NotImplementedError, match=item):
-            GloVe(config=pc, device="cpu")
+def test_unported_config_raises(tmp_path, monkeypatch):
+    """[obs] numerics and [worker] telemetry no longer raise: the port's
+    GloVe trains with each set, as the JAX model does, and the two agree
+    (losses within 1e-4 relative, tables within the envelope).  With
+    telemetry on both write a telemetry stream."""
+    from swiftmpi_tpu_torch import obs
+    monkeypatch.chdir(tmp_path)
+    sents = make_corpus(seed=5)
+    try:
+        for sec, key in (("obs", "numerics"), ("worker", "telemetry")):
+            jm, pm = _models(sents, SPARSE_PUSH, inner_steps=3)
+            for m, name in ((jm, "jax"), (pm, "port")):
+                m.config.set(sec, key, 1)
+                m.config.set("worker", "telemetry_path",
+                             str(tmp_path / f"{name}_{key}.jsonl"))
+            want = jm.train(niters=2)
+            got = pm.train(niters=2)
+            np.testing.assert_allclose(got, want, rtol=1e-4)
+            _hold(pm, jm, f"[{sec}] {key}")
+            tel = key == "telemetry"
+            for name in ("jax", "port"):
+                assert (tmp_path / f"{name}_{key}.jsonl").exists() == tel
+    finally:
+        obs.reset_for_tests()

@@ -38,7 +38,10 @@ want = {"swiftmpi_tpu_torch." + m for m in (
     "models.embedding", "apps.w2v_eval", "utils.graphs", "apps.lr_profile",
     "apps.glove_profile", "transfer.plan", "transfer.local",
     "transfer.hybrid", "transfer.sketch", "transfer.sparse_allreduce",
-    "transfer.pull_cache", "transfer.delta")}
+    "transfer.pull_cache", "transfer.delta", "obs", "obs.identity",
+    "obs.registry", "obs.catalog", "obs.micro", "obs.recorder",
+    "obs.collector", "obs.numerics", "obs.costs", "obs.profiler",
+    "obs.trace", "utils.profiler")}
 missing = sorted(want - set(names))
 print(len(names), "modules;", "leaked:", bad, "missing:", missing)
 sys.exit(1 if bad or missing or len(names) < 30 else 0)

@@ -475,11 +475,23 @@ def test_lr_main_train_predict_eval_on_cpu(tmp_path, capsys):
     assert outs["port"][1] == outs["jax"][1]
 
 
-def test_unported_config_raises():
-    for sec, key, item in (("obs", "numerics", "A14"),
-                           ("worker", "telemetry", "A14"),
-                           ("control", "control", "A13")):
-        pc = ConfigParser().update(CONF)
-        pc.set(sec, key, 1)
-        with pytest.raises(NotImplementedError, match=item):
-            LogisticRegression(config=pc, device="cpu")
+def test_unported_config_raises(tmp_path, monkeypatch):
+    """The sections the JAX package's LR does not read ([obs], [worker]
+    telemetry, [control]) no longer raise: the port trains with each key
+    set, as the JAX model does, and the two agree (per-epoch errors within
+    1e-4 relative, the table within the envelope)."""
+    from swiftmpi_tpu_torch import obs
+    monkeypatch.chdir(tmp_path)
+    data = libsvm.synthetic_dataset(**DATA)
+    try:
+        for sec, key in (("obs", "numerics"), ("worker", "telemetry"),
+                         ("control", "control")):
+            jm, pm = _models(SPARSE_PUSH, inner_steps=3)
+            for m in (jm, pm):
+                m.config.set(sec, key, 1)
+            want = jm.train(data, niters=2)
+            got = pm.train(data, niters=2)
+            np.testing.assert_allclose(got, want, rtol=1e-4)
+            _hold(pm, jm, f"[{sec}] {key}")
+    finally:
+        obs.reset_for_tests()

@@ -116,11 +116,12 @@ def test_cli_trains_stencil_and_shared_confs(files, monkeypatch, lines,
     assert all(r["v"].shape == r["h"].shape == (8,) for r in rows)
 
 
-@pytest.mark.parametrize("line", ["[worker]\ntelemetry: 1",
+@pytest.mark.parametrize("line", ["[cluster]\nserver_num: 2",
                                   "[control]\ncontrol: on",
                                   "[serve]\nevery: 4",
-                                  "[obs]\nnumerics: 1",
-                                  "[obs]\ntrace: 1"])
+                                  "[cluster]\ntransfer: tpu\nserver_num: 2"
+                                  "\ndata_plane: xla",
+                                  "[control]\nevery: 8"])
 def test_cli_refuses_unported_conf_keys(files, line):
     tmp, conf, data = files
     with open(conf, "a") as f:

@@ -221,18 +221,25 @@ def test_inner_steps_runs_ordinary_steps():
         np.testing.assert_array_equal(runs[0][1][f], runs[1][1][f])
 
 
-@pytest.mark.parametrize("sec,key,val", [
-    ("obs", "trace", 1),
-    ("worker", "telemetry", 1),
-    ("obs", "telemetry", 1), ("obs", "profile", 1),
-    ("control", "wire_format", "on"), ("control", "collective", "on"),
-    ("serve", "replicas", 2), ("serve", "port", 0),
-    ("cluster", "server_num", 2),
-    ("obs", "numerics", 1), ("control", "control", "on"),
-    ("serve", "every", 4)])
-def test_unported_config_raises(sec, key, val):
+@pytest.mark.parametrize("settings", [
+    {"control": {"every": 8}},
+    {"serve": {"quant": "int8"}},
+    {"control": {"margin": 0.02}},
+    {"cluster": {"transfer": "tpu", "server_num": 2, "data_plane": "xla"}},
+    {"serve": {"depth": 2}},
+    {"control": {"wire_format": "on"}}, {"control": {"collective": "on"}},
+    {"serve": {"replicas": 2}}, {"serve": {"port": 0}},
+    {"cluster": {"server_num": 2}},
+    {"control": {"control": "on"}},
+    {"serve": {"every": 4}}])
+def test_unported_config_raises(settings):
+    """What the port still refuses: [control] and [serve] (ROADMAP
+    A13a), ``server_num > 1`` on ``xla`` (A11) and ``data_plane: xla``
+    with ``transfer: tpu`` (A16)."""
     c = ConfigParser().update(CONF)
-    c.set(sec, key, val)
+    for sec, kv in settings.items():
+        for key, val in kv.items():
+            c.set(sec, key, val)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Word2Vec(config=c, device="cpu")
 
