@@ -190,10 +190,41 @@ Phases, each of which raises on a failed check:
    words/s with every plane off, telemetry on, + numerics and + trace, at
    ``telemetry_every`` 1 and 64 (printed on ``telemetry_cost`` lines).
 
+13. serving and control in the training process: (a) ``hybrid@8`` at
+   the reference shape with ``[control] control: on, every: 8, margin:
+   0.02, consecutive: 2, decay: 0.3`` and ``[serve] every: 8`` over a
+   corpus prefix whose second part swaps every other key of the hot head
+   for a tail key (JAX's ``_drift_setup``), with two reader threads
+   running ``read`` and ``topk`` while it trains: at least one ``hot_k``
+   repartition with moved rows, every key's unified row right after it
+   equal to its row right before it, bit for bit, read on the host by
+   key (and its ms); every snapshot's planes equal, by a per-plane sum of
+   their bits, to the trainer's table at its version, checked after
+   training moved on; the readers saw numpy planes only (their p50/p99
+   and queries/s printed); exactly ``HYBRID_STEP`` launches a step, and
+   B1-B3 and B5 at the shapes a step gives them after the repartitions,
+   timed as in phase 2; (b) ``xla`` with ``inner_steps: 8``,
+   ``push_window: 4``, ``wire_quant: int8``: the controller widens the
+   window during ``train`` and each apply is followed by one recapture
+   of each group length run after it (its ms printed); two twins from one
+   seed, one replaying graphs and one eager, a window-width apply between
+   their groups, bit for bit (deterministic sums: lossless windows,
+   ``TWIN_BATCH`` centers so every push is sparse; an int8 window folds
+   its duplicates with B3's float atomics); an injected EF runaway demotes
+   ``wire_quant`` to ``off`` at the next safe point and the next graphed
+   run books no quantized window; (c) sent2vec at bench.py's shape over a
+   snapshot of (b)'s table (its planes uploaded, the ms printed) equals
+   sent2vec over the live table at that version, bit for bit with the
+   same draws, with B2's launches; (d) ``snapshot_topk`` on the card
+   against the host path over (a)'s last snapshot; (e) words/s of the
+   graphed gather path with ``[serve] every`` 0, 8 and 64 and each
+   publish's ms.
+
 The line before the last is the ``{"kernels": [...]}`` summary, each
 kernel's ``launches`` read from the train run of its path (the sent2vec
 cases from the sent2vec inference run, phase 8's, 9's and 10's from
-their paths' train runs); the last is
+their paths' train runs, phase 13's from (a)'s run and (c)'s inference
+over the snapshot); the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints neither.
 """
@@ -211,6 +242,7 @@ import sys
 import time
 from pathlib import Path
 from types import SimpleNamespace
+from typing import Optional
 
 import numpy as np
 import torch
@@ -3328,14 +3360,16 @@ def phase_telemetry_train(vocab, corpus: np.ndarray, card: str) -> dict:
 
 
 def _tel_groups(model: Word2Vec, vocab, corpus: np.ndarray, n: int,
-                group: int = 8) -> list:
-    """``n`` groups of ``group`` full batches on the card, with their
-    words: ``[(fields, words)]``."""
+                group: int = 8, B: Optional[int] = None) -> list:
+    """``n`` groups of ``group`` full batches of ``B`` (default BATCH)
+    centers on the model's device, with their words: ``[(fields,
+    words)]``."""
     from swiftmpi_tpu_torch.models.word2vec import _stack_group_host
+    B = B or BATCH
     out, buf = [], []
     for b in CBOWBatcher(corpus[:6 * TEL_SENTS], vocab, model.window,
-                         model.sample, seed=7).epoch(BATCH):
-        if b.n_words and len(b.centers) == BATCH:
+                         model.sample, seed=7).epoch(B):
+        if b.n_words and len(b.centers) == B:
             buf.append(b)
         if len(buf) == group:
             out.append((tuple(torch.from_numpy(f).to(model.device)
@@ -3481,6 +3515,662 @@ def phase_telemetry(vocab, corpus: np.ndarray, card: str) -> dict:
     return counts
 
 
+# -- phase 13: serving and control ------------------------------------------
+
+SERVE_HYB = f"serve:{HYBRID}"
+SERVE_XLA = "serve:window_q:xla"
+SERVE_S2V = "serve:sent2vec"
+#: (a)'s corpus prefixes: phase A as it is, then phase B with half of the
+#: hot head's keys swapped for tail keys (about 26 + 35 steps)
+SERVE_SENTS = (800, 400)
+#: (a)'s [control] and [serve] sections
+SERVE_CONTROL = {"control": "on", "every": 8, "margin": 0.02,
+                 "consecutive": 2, "decay": 0.3}
+SERVE_READERS = 2
+#: (b)'s path: xla, groups of 8 as graphs, windows of 4, int8 wire
+XLA_Q = {"worker": {"inner_steps": 8},
+         "cluster": {"push_window": 4, "wire_quant": "int8"}}
+#: (b)'s training: a margin the push_window knob clears at once
+XLA_Q_CONTROL = {"control": "on", "every": 8, "margin": 0.01,
+                 "consecutive": 1, "decay": 0.3}
+#: (b)'s bit-for-bit groups: centers a batch, at which every push of a
+#: lossless window is sparse (deterministic sums)
+TWIN_BATCH = 64
+#: (d): queries of the top-k
+TOPK_Q, TOPK_K = 256, 10
+#: (e): [serve] every against off, over groups of 8 replayed graphs
+SERVE_EVERY = (0, 8, 64)
+SERVE_COST_GROUPS = 8
+
+
+def _conf(base: dict, sections: dict) -> ConfigParser:
+    conf = ConfigParser().update(base)
+    for sec, kv in sections.items():
+        for k, v in kv.items():
+            conf.set(sec, k, v)
+    return conf
+
+
+def _checksum(planes) -> dict:
+    """Per plane, the int64 sum of its elements' bits (an order-free sum,
+    so a device tensor, a sharded field's shards and a host copy in
+    global row order all give the same number)."""
+    out = {}
+    for f, v in sorted(planes.items()):
+        parts = v if isinstance(v, (list, tuple)) else [v]
+        total = 0
+        for t in parts:
+            if isinstance(t, np.ndarray):
+                bits = t.view(np.int16 if t.itemsize == 2 else np.int32)
+                total += int(bits.astype(np.int64).sum())
+            else:
+                bits = t.contiguous().view(
+                    torch.int16 if t.element_size() == 2 else torch.int32)
+                total += int(bits.long().sum())
+        out[f] = total
+    return out
+
+
+def _timed_publishes(pub, table=None) -> list:
+    """Time every publish of ``pub`` (from a synchronize, so the copy
+    alone is timed): ``[(snapshot, ms, checksum)]``, with ``table`` the
+    trainer's table's device checksum right after the publish."""
+    out, publish = [], pub.publish
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = publish(*a, **kw)
+        ms = (time.perf_counter() - t0) * 1e3
+        out.append((snap, ms, None if table is None
+                    else _checksum(table.state)))
+        return snap
+
+    pub.publish = timed
+    return out
+
+
+def _quantiles(ms: list) -> dict:
+    a = np.sort(np.asarray(ms, np.float64))
+    if not a.size:
+        return {"p50_ms": "not measured", "p99_ms": "not measured"}
+    return {f"p{q}_ms": float(a[min(int(q / 100 * a.size), a.size - 1)])
+            for q in (50, 99)}
+
+
+class _Readers:
+    """SERVE_READERS query threads over a publisher: each alternates a
+    ``read`` of 16 keys and a ``topk`` of 4, and checks that every
+    snapshot it sees holds numpy planes only."""
+
+    def __init__(self, pub, keys):
+        import threading
+        self.pub, self.keys = pub, keys
+        self.stop = threading.Event()
+        self.failures, self.readers = [], []
+        self.threads = [threading.Thread(target=self._run, args=(i,),
+                                         daemon=True)
+                        for i in range(SERVE_READERS)]
+
+    def _run(self, seed: int) -> None:
+        from swiftmpi_tpu_torch.serve import EmbeddingReader
+        rng = np.random.default_rng(seed)
+        reader = EmbeddingReader(self.pub, field="v", cache_rows=4096)
+        self.readers.append(reader)
+        if self.pub.wait_for_version(1, timeout=300) is None:
+            self.failures.append("no snapshot within 300 s")
+            return
+        try:
+            while not self.stop.is_set():
+                snap = self.pub.require()
+                if not all(isinstance(v, np.ndarray)
+                           for v in snap.state.values()):
+                    self.failures.append(f"v{snap.version}: a plane that "
+                                         "is not a numpy array")
+                rows = reader.read(rng.choice(self.keys, 16))
+                reader.topk(rng.choice(self.keys, 4), k=10)
+                if not np.isfinite(rows).all():
+                    self.failures.append(f"v{snap.version}: non-finite")
+        except Exception as e:               # noqa: BLE001 (reported)
+            self.failures.append(repr(e))
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        for t in self.threads:
+            t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        for t in self.threads:
+            t.join(timeout=60)
+        self.seconds = time.perf_counter() - self.t0
+        if any(t.is_alive() for t in self.threads):
+            self.failures.append("a reader thread did not stop")
+
+    def summary(self) -> dict:
+        lat = [x for r in self.readers for x in r._lat_ms]
+        queries = sum(r.stats["queries"] for r in self.readers)
+        return {"threads": SERVE_READERS, "queries": queries,
+                "topk_queries": sum(r.stats["topk_queries"]
+                                    for r in self.readers),
+                "queries_per_sec": queries / self.seconds,
+                "hit_ratio": [r.hit_ratio() for r in self.readers],
+                **_quantiles(lat)}
+
+
+def _drifted(model: Word2Vec, vocab, corpus: np.ndarray) -> tuple:
+    """(a)'s phase A and phase B: B's sentences with every other key of
+    the hot head swapped for a tail key (ranks n_hot + 2,000 on), as
+    JAX's ``_drift_setup`` rotates half of the head."""
+    sa, sb = SERVE_SENTS
+    hot = model.table.key_index.partition.hot_keys.astype(np.int64)
+    order = np.argsort(-vocab.counts, kind="stable")
+    head = hot[::2]
+    n = model.table.n_hot + 2000
+    tail = vocab.keys[order[n:n + head.size]].astype(np.int64)
+    perm = np.arange(int(corpus.max()) + 1)
+    perm[head], perm[tail] = tail, head
+    return corpus[:sa], perm[corpus[sa:sa + sb]].astype(corpus.dtype)
+
+
+def phase_serve_hybrid(vocab, corpus: np.ndarray, card: str) -> tuple:
+    """(a): ``hybrid@8`` with the controller and the publisher on, two
+    reader threads: see the module docstring.  Returns the model, its
+    launches, and its last snapshot."""
+    model = _hybrid_model("gather", vocab, DEVICE, _conf(DEMO_CONF, {
+        "control": SERVE_CONTROL, "serve": {"every": 8}}))
+    fields = sorted(model.access.fields)
+    pub = model.serving_publisher()
+    table = model.table
+    published, reps = _timed_publishes(pub, table), []
+    repartition = table.repartition
+
+    def held_repartition(part):
+        keys = model.vocab.keys
+        before = {f: table.unified_rows_host(f)[
+            table.key_index.lookup(keys, create=False)] for f in fields}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = repartition(part)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        slots = table.key_index.lookup(keys, create=False)
+        same = all(np.array_equal(
+            before[f].view(np.int32),
+            table.unified_rows_host(f)[slots].view(np.int32))
+            for f in fields)
+        reps.append({"ms": ms, "moved_rows": plan.moved_rows,
+                     "n_hot": [plan.old_n_hot, plan.new_n_hot],
+                     "rows_kept_bit_for_bit": same})
+        return plan
+
+    table.repartition = held_repartition
+    phase_a, phase_b = _drifted(model, vocab, corpus)
+    losses, steps, words, seconds = [], 0, 0, 0.0
+    kernels.reset_launches()
+    with _Readers(pub, vocab.keys) as readers:
+        for sents in (phase_a, phase_b):
+            losses += model.train(batcher=CBOWBatcher(
+                sents, vocab, model.window, model.sample, seed=2008),
+                niters=1, batch_size=BATCH)
+            m = model.train_metrics
+            steps, words = steps + m["steps"], words + m["words"]
+            seconds += m["seconds"]
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = {**dict.fromkeys(counts, 0),
+            **{k: v * steps for k, v in HYBRID_STEP.items()}}
+    applies = [d for d in model.controller.decisions
+               if d.knob == "hot_k" and d.action == "apply"]
+    sums_ok = [_checksum(snap.state) == dev for snap, _, dev in published]
+    if (counts != want or not all(math.isfinite(x) for x in losses)
+            or not applies or len(reps) != len(applies)
+            or not all(r["rows_kept_bit_for_bit"] for r in reps)
+            or not all(d.evidence["moved_rows"] > 0 for d in applies)
+            or not all(sums_ok) or len(published) < 3
+            or readers.failures or not readers.summary()["queries"]):
+        raise AssertionError(
+            f"{SERVE_HYB}: launches {counts} (want {want}), loss {losses}, "
+            f"decisions {model.controller.decisions}, repartitions {reps}, "
+            f"snapshot checksums {sums_ok}, readers {readers.failures} "
+            f"{readers.summary()}")
+    pub_ms = [ms for _, ms, _ in published]
+    _json_line({"phase": "serve_control", "part": "hybrid", "card": card,
+                "rendering": SERVE_HYB, "steps": steps, "loss": losses,
+                "words_per_sec_with_readers": words / seconds,
+                "decisions": [
+                    {"knob": d.knob, "action": d.action,
+                     "evaluation": d.evaluation, "win": d.win,
+                     "n_hot": [d.evidence.get("old_n_hot"),
+                               d.evidence.get("new_n_hot")],
+                     "moved_rows": d.evidence.get("moved_rows")}
+                    for d in model.controller.decisions],
+                "repartitions": reps,
+                "publishes": len(published),
+                "snapshot_bytes": sum(v.nbytes for v in
+                                      published[-1][0].state.values()),
+                "publish_ms": {"min": min(pub_ms), "median": float(
+                    np.median(pub_ms)), "max": max(pub_ms)},
+                "snapshots_equal_trainer_checksums": len(sums_ok),
+                "readers": readers.summary(), "launches": counts})
+    return model, counts, published[-1][0]
+
+
+def _serve_kernel_cases(model: Word2Vec, batch) -> list:
+    """B1-B3 and B5 at the shapes a step of (a)'s model gives them after
+    its repartitions (the head grown to the controller's ``n_hot``)."""
+    rng = np.random.default_rng(41)
+    dev, d = model.device, model.len_vec
+    flush = torch.zeros(2 * 50 * 2 ** 20 // 4, device=dev)
+    n_hot, state = model.table.n_hot, model.table.state
+    h_slots, _ = _step_inputs(model, batch, rng)
+    hot = ((h_slots >= 0) & (h_slots < n_hot)).contiguous()
+    param = state["h@hot"].clone()
+    accum = state["h2sum@hot"].clone()
+    grad = torch.as_tensor(rng.normal(size=(n_hot, d)).astype(np.float32)
+                           * 1e-2, device=dev)
+    inv = 1.0 / torch.as_tensor(rng.integers(1, 400, n_hot)
+                                .astype(np.float32), device=dev)
+    return [
+        _gather_case("serve hybrid h hot pull", state["h@hot"], h_slots,
+                     hot, flush, SERVE_HYB),
+        _scatter_case("serve hybrid h hot push", SERVE_HYB, h_slots, hot,
+                      n_hot, d, rng, flush),
+        _adagrad_case("serve hybrid hot plane, * 1/counts", SERVE_HYB,
+                      param, accum, grad, model.access.learning_rate, flush,
+                      mul=inv),
+        _ring_case("serve hybrid tail h rows", (h_slots.shape[0] // SHARDS,
+                                                d), torch.float32, rng,
+                   flush, dev, path=SERVE_HYB)]
+
+
+def phase_serve_topk(snap, card: str) -> None:
+    """(d): ``snapshot_topk`` on the card against the host path over
+    (a)'s last snapshot (hot head and tail): scores within 1e-5, the same
+    neighbours wherever the gap to the next score exceeds 1e-5."""
+    from swiftmpi_tpu_torch.serve.query import snapshot_topk
+    rng = np.random.default_rng(5)
+    keys = snap.keys[rng.choice(snap.keys.size, TOPK_Q, replace=False)]
+    slots = snap.lookup(keys)
+    qv = np.concatenate([snap.hot_host("v"), snap.tail_array("v")]
+                        )[slots].astype(np.float32)
+    runs = {}
+    for name, dev in (("host", False), ("device", DEVICE)):
+        snapshot_topk(snap, qv[:4], k=TOPK_K, device=dev)    # warm up
+        t0 = time.perf_counter()
+        # one neighbour more than is held: the gap after the k-th
+        runs[name] = snapshot_topk(snap, qv, k=TOPK_K + 1,
+                                   exclude_slots=slots, device=dev)
+        runs[name + "_ms"] = (time.perf_counter() - t0) * 1e3
+    (_, hs, hsc), (_, ds, dsc) = runs["host"], runs["device"]
+    gap = float(np.abs(dsc - hsc)[:, :TOPK_K].max())
+    mismatched = 0
+    for qi in range(TOPK_Q):
+        for n in range(1, TOPK_K + 1):
+            if hsc[qi, n - 1] - hsc[qi, n] > 1e-5 and \
+                    set(hs[qi, :n]) != set(ds[qi, :n]):
+                mismatched += 1
+    if gap > 1e-5 or mismatched:
+        raise AssertionError(f"device top-k: score gap {gap}, "
+                             f"{mismatched} neighbour sets differ")
+    _json_line({"phase": "serve_control", "part": "topk", "card": card,
+                "queries": TOPK_Q, "k": TOPK_K, "rows": int(
+                    snap.total_capacity), "max_score_gap": gap,
+                "host_ms": runs["host_ms"], "device_ms": runs["device_ms"],
+                "tolerance": "scores 1e-5; neighbour sets where the gap "
+                "exceeds 1e-5"})
+
+
+def _xla_q_model(vocab, sections=None, seed: int = 0) -> Word2Vec:
+    conf = _conf(DEMO_CONF, XLA_Q)
+    for sec, kv in (sections or {}).items():
+        for k, v in kv.items():
+            conf.set(sec, k, v)
+    return Word2Vec(config=conf, device=DEVICE, seed=seed).build_from_vocab(
+        vocab)
+
+
+class _Captures:
+    """Records every graph capture of ``word2vec._FusedSteps`` (its group
+    length, the model's window width, its ms) and every applied knob
+    change and group between them."""
+
+    def __init__(self, model: Word2Vec):
+        import swiftmpi_tpu_torch.models.word2vec as w2v
+        self.w2v, self.log = w2v, []
+        self.orig = w2v._FusedSteps
+        log = self.log
+
+        class Timed(self.orig):
+            def __init__(inner, m, fields):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                super().__init__(m, fields)
+                torch.cuda.synchronize()
+                log.append(("capture", fields[0].shape[0],
+                            m.push_window_size,
+                            (time.perf_counter() - t0) * 1e3))
+
+        w2v._FusedSteps = Timed
+        rebuild, run_group = model._rebuild_step, model._run_group
+
+        def logged_rebuild():
+            rebuild()
+            log.append(("apply", model.push_window_size))
+
+        def logged_group(fields, *a, **kw):
+            log.append(("group", fields[0].shape[0]))
+            return run_group(fields, *a, **kw)
+
+        model._rebuild_step, model._run_group = logged_rebuild, logged_group
+
+    def close(self) -> None:
+        self.w2v._FusedSteps = self.orig
+
+    def segments_ok(self) -> bool:
+        """Between two applies (and before the first), one capture for
+        each group length run there, none for the others."""
+        seg, ok = [], True
+        for ev in self.log + [("apply", None)]:
+            if ev[0] != "apply":
+                seg.append(ev)
+                continue
+            run = {e[1] for e in seg if e[0] == "group"}
+            caps = [e[1] for e in seg if e[0] == "capture"]
+            ok &= sorted(caps) == sorted(run)
+            seg = []
+        return ok
+
+
+def phase_serve_xla(vocab, corpus: np.ndarray, card: str) -> tuple:
+    """(b): see the module docstring.  Returns the trained model and its
+    launches."""
+    from swiftmpi_tpu_torch import obs
+    from swiftmpi_tpu_torch.utils.pipeline import LossAccum
+    # (b1) the controller widens the window during training: each apply
+    # drops the graphs, the next group of each length recaptures
+    model = _xla_q_model(vocab, {"control": XLA_Q_CONTROL})
+    caps = _Captures(model)
+    kernels.reset_launches()
+    try:
+        losses = model.train(batcher=CBOWBatcher(
+            corpus[:TEL_SENTS], vocab, model.window, model.sample,
+            seed=2008), niters=1, batch_size=BATCH)
+    finally:
+        caps.close()
+    counts = kernels.launch_counts()
+    m = model.train_metrics
+    applied = [d for d in model.controller.decisions if d.action == "apply"]
+    recaptures = [e[3] for i, e in enumerate(caps.log) if e[0] == "capture"
+                  and any(x[0] == "apply" for x in caps.log[:i])]
+    if (not any(d.knob == "push_window" for d in applied)
+            or not caps.segments_ok() or not recaptures or not m["fused"]
+            or not all(math.isfinite(x) for x in losses)
+            or not all(counts[k] for k in ("gather", "scatter", "adagrad"))):
+        raise AssertionError(f"{SERVE_XLA} train: decisions "
+                             f"{model.controller.decisions}, log {caps.log}, "
+                             f"fused {m['fused']} {m['graph_replays']}, "
+                             f"loss {losses}, launches {counts}")
+    _json_line({"phase": "serve_control", "part": "xla_window_q",
+                "card": card, "rendering": SERVE_XLA, "steps": m["steps"],
+                "loss": losses, "graph_replays": m["graph_replays"],
+                "decisions": [{"knob": d.knob, "action": d.action,
+                               "evaluation": d.evaluation, "win": d.win,
+                               "new": d.new} for d in applied],
+                "push_window": model.push_window_size,
+                "captures": [e[1:] for e in caps.log if e[0] == "capture"],
+                "recapture_ms": recaptures,
+                "words_per_sec": m["words_per_sec"], "launches": counts})
+    # (b2) twins from one seed: one replays graphs, one runs eagerly; a
+    # window-width apply between them; bit for bit with deterministic
+    # sums: lossless windows of sparse pushes (an int8 window folds its
+    # duplicate rows with B3's float atomics, in no fixed order)
+    twin_conf = {"control": {"control": "on", "every": 10 ** 6},
+                 "worker": {"minibatch": TWIN_BATCH},
+                 "cluster": {"wire_quant": "off"}}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        graph_m = _xla_q_model(vocab, twin_conf, seed=5)
+        eager_m = _xla_q_model(vocab, twin_conf, seed=5)
+        groups = _tel_groups(graph_m, vocab, corpus, 4, B=TWIN_BATCH)
+        caps = _Captures(graph_m)
+        outs = {}
+        try:
+            for x, graphs in ((graph_m, True), (eager_m, False)):
+                es_q = LossAccum(None, x.device)
+                ec_q = LossAccum(None, x.device)
+                replays = []
+                for i, (fields, _) in enumerate(groups):
+                    if i == 2:
+                        knob = next(k for k in x.controller.knobs
+                                    if k.name == "push_window")
+                        knob.apply(8, {})
+                    replays.append(x._run_group(fields, graphs, None,
+                                                es_q, ec_q))
+                torch.cuda.synchronize()
+                outs[graphs] = (es_q.total(), ec_q.total(), replays)
+        finally:
+            caps.close()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    equal = {f: bool(torch.equal(t, eager_m.table.state[f]))
+             for f, t in graph_m.table.state.items()}
+    log = [e[:3] for e in caps.log if e[0] == "capture"]
+    if (not all(equal.values()) or outs[True][:2] != outs[False][:2]
+            or outs[True][2] != [False, True, False, True]
+            or log != [("capture", 8, 4), ("capture", 8, 8)]):
+        raise AssertionError(f"twins: tables equal {equal}, sums "
+                             f"{outs}, captures {caps.log}")
+    _json_line({"phase": "serve_control", "part": "recapture_vs_eager",
+                "card": card, "batch": TWIN_BATCH, "push_window": [4, 8],
+                "captures": log, "replayed": outs[True][2],
+                "tables_bit_for_bit": equal,
+                "err": [outs[True][:2], outs[False][:2]]})
+    del graph_m, eager_m
+    # (b3) an injected EF runaway demotes the wire at the next safe point
+    obs.reset_for_tests()
+    demo = _xla_q_model(vocab, {
+        "control": {"control": "on", "every": 10 ** 6},
+        "worker": {"telemetry": 1, "telemetry_path": ""},
+        "obs": {"numerics": 1}})
+    demo.transfer.count_traffic = True
+    demo.train(batcher=CBOWBatcher(corpus[:TEL_SENTS // 2], vocab,
+                                   demo.window, demo.sample, seed=2008),
+               niters=1, batch_size=BATCH)
+    q_before = demo.transfer.traffic()["window_fmt_q"]
+    det, ctl = demo._numerics.detector, demo.controller
+    det.warmup, det.patience = 2, 2
+    series = "numerics/ef_mass{field=synthetic}"
+    for v in (1.0, 1.0, 1.0, 1.0, 500.0, 500.0):
+        det.observe(series, v)
+    parked = ctl._numerics_pending is not None and \
+        demo.wire_quant == "int8"
+    ctl.on_steps(1)
+    before = demo.transfer.traffic()
+    demo.train(batcher=CBOWBatcher(corpus[:TEL_SENTS // 2], vocab,
+                                   demo.window, demo.sample, seed=2008),
+               niters=1, batch_size=BATCH)
+    tr = demo.transfer.traffic_delta(before)
+    d = ctl.decisions[-1] if ctl.decisions else None
+    obs.reset_for_tests()
+    # int8 windows before, none after: on xla a lossless window is the
+    # per-step push, which books no window decision (as in JAX)
+    if (not parked or q_before < 1 or demo.wire_quant != "off"
+            or demo.transfer.wire_quant != "off" or d is None
+            or (d.knob, d.action, d.old, d.new)
+            != ("wire_quant", "apply", "int8", "off")
+            or tr.get("window_fmt_q", 0) or not demo.train_metrics["fused"]):
+        raise AssertionError(f"EF runaway demote: parked {parked}, "
+                             f"wire_quant {demo.wire_quant}, decision {d}, "
+                             f"traffic after {tr}")
+    _json_line({"phase": "serve_control", "part": "ef_demote", "card": card,
+                "decision": d.to_payload(),
+                "window_fmt_q_before": q_before, "window_fmt_after": {
+                    k: tr.get(k, 0) for k in ("window_fmt_q",
+                                              "window_fmt_sparse",
+                                              "window_fmt_dense")},
+                "graph_replays_after": demo.train_metrics["graph_replays"]})
+    return model, counts
+
+
+def phase_serve_sent2vec(model: Word2Vec, card: str) -> tuple:
+    """(c): sent2vec over (b)'s table, live and over a snapshot published
+    from it, with the same draws: bit for bit, the snapshot's run reading
+    its uploaded planes after the live table moved on.  Returns the B2
+    cases at its shapes and the snapshot run's launches."""
+    from swiftmpi_tpu_torch.convert import tensor_from_numpy
+    pub = model.serving_publisher()
+    model._serve_publish()
+    snap = pub.latest()
+    s2v = Sent2Vec(model, seed=1)
+    s2v.batchsize = S2V_SENTS
+    lines, L = _s2v_lines(model.vocab.keys)
+    draws = s2v.draw(S2V_SENTS, L, S2V_NITERS)
+    live = s2v.infer_sentences(lines, niters=S2V_NITERS, draws=iter([draws]))
+    for f in ("h", "v"):
+        model.table.state[f].add_(1.0)          # training moves on
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    planes = {f: tensor_from_numpy(np.asarray(snap.tail_array(f))).to(
+        DEVICE) for f in ("h", "v")}
+    torch.cuda.synchronize()
+    upload_ms = (time.perf_counter() - t0) * 1e3
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    s2v = Sent2Vec(model, seed=1)
+    s2v.batchsize = S2V_SENTS
+    over = s2v.infer_sentences(lines, niters=S2V_NITERS, snapshot=snap,
+                               draws=iter([draws]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    same = [sa == sb and np.array_equal(a, b)
+            for (sa, a), (sb, b) in zip(over, live)]
+    if len(over) != len(live) or not all(same) or counts != {
+            **dict.fromkeys(counts, 0), "gather": 1 + S2V_NITERS}:
+        raise AssertionError(f"sent2vec over a snapshot: {sum(same)} of "
+                             f"{len(live)} vectors equal, launches {counts}")
+    _json_line({"phase": "serve_control", "part": "sent2vec_snapshot",
+                "card": card, "sentences": len(over), "L": L,
+                "niters": S2V_NITERS, "snapshot_version": snap.version,
+                "upload_ms": upload_ms, "snapshot_rows": int(
+                    snap.tail_capacity), "seconds": seconds,
+                "bit_for_bit_vs_live": True, "launches": counts})
+    flush = torch.zeros(2 * 50 * 2 ** 20 // 4, device=DEVICE)
+    index = {int(k): i for i, k in enumerate(model.vocab.keys.tolist())}
+    vocab_pos = np.zeros((S2V_SENTS, L), np.int64)
+    mask = np.zeros((S2V_SENTS, L), bool)
+    for i, ln in enumerate(lines):
+        t = [index[int(w)] for w in ln.split() if int(w) in index]
+        vocab_pos[i, :len(t)], mask[i, :len(t)] = t, True
+    sov = torch.as_tensor(snap.lookup(model.vocab.keys).astype(np.int32),
+                          device=DEVICE)
+    word_slots = sov[torch.as_tensor(vocab_pos, device=DEVICE)]
+    cases = [_gather_case("sent2vec context rows of a snapshot", planes["v"],
+                          word_slots.reshape(-1).contiguous(),
+                          torch.as_tensor(mask, device=DEVICE).reshape(-1),
+                          flush, SERVE_S2V)]
+    return cases, counts
+
+
+def phase_serve_cost(vocab, corpus: np.ndarray, card: str) -> list:
+    """(e): the gather path on ``xla``, groups of 8 replayed as graphs,
+    with ``[serve] every`` 0 (off), 8 and 64: two warm-up groups, then
+    SERVE_COST_GROUPS groups timed by the host clock to a synchronize,
+    each followed by the publisher's safe point."""
+    from swiftmpi_tpu_torch.utils.pipeline import LossAccum
+    probe = _model("gather", vocab, DEVICE, {"inner_steps": 8})
+    groups = _tel_groups(probe, vocab, corpus, SERVE_COST_GROUPS + 2)
+    del probe
+    lines = []
+    for every in SERVE_EVERY:
+        model = _model("gather", vocab, DEVICE, {"inner_steps": 8})
+        published = []
+        if every:
+            model.serve_every = every
+            published = _timed_publishes(model.serving_publisher())
+        es_q, ec_q = (LossAccum(None, model.device),
+                      LossAccum(None, model.device))
+        for fields, _ in groups[:2]:
+            model._run_group(fields, True, None, es_q, ec_q)
+            model._serve_on_steps(8)
+        torch.cuda.synchronize()
+        timed = groups[2:]
+        t0 = time.perf_counter()
+        for fields, _ in timed:
+            model._run_group(fields, True, None, es_q, ec_q)
+            model._serve_on_steps(8)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        pub = model.serve_publisher
+        line = {"phase": "serve_cost", "card": card, "serve_every": every,
+                "steps": 8 * len(timed),
+                "publishes": pub.version if pub else 0,
+                "publish_ms": [ms for _, ms, _ in published],
+                "host_ms_per_step": host_s / (8 * len(timed)) * 1e3,
+                "words_per_sec": sum(w for _, w in timed) / host_s}
+        if not math.isfinite(es_q.total()):
+            raise AssertionError(f"serve cost every {every}: loss "
+                                 f"{es_q.total()}")
+        _json_line(line)
+        lines.append(line)
+        if every == SERVE_EVERY[-1]:
+            _json_line({"phase": "serve_cost", "part": "copy_rates",
+                        "card": card, **_copy_rates(model.table)})
+        del model
+        torch.cuda.empty_cache()
+    return lines
+
+
+def _copy_rates(table) -> dict:
+    """GB/s of the table's planes copied to the host: ``.cpu()`` into
+    pageable memory (what a publish does, then numpy), and one
+    ``copy_`` into pinned buffers made beforehand, each from a
+    synchronize."""
+    planes = [table.state[f] for f in sorted(table.state)]
+    nbytes = sum(t.numel() * t.element_size() for t in planes)
+    pinned = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+              for t in planes]
+    out = {"bytes": nbytes}
+    for name, copy in (
+            ("pageable", lambda: [t.cpu() for t in planes]),
+            ("pinned", lambda: [p.copy_(t, non_blocking=True)
+                                for p, t in zip(pinned, planes)])):
+        copy()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        copy()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        out[name] = {"ms": ms, "gb_per_s": nbytes / ms / 1e6}
+    return out
+
+
+def phase_serve(vocab, corpus: np.ndarray, card: str) -> tuple:
+    """Phase 13: (a)-(e); returns its kernel cases and the runs'
+    launches by path."""
+    t0 = time.perf_counter()
+    hyb, hyb_counts, snap = phase_serve_hybrid(vocab, corpus, card)
+    batch = next(iter(CBOWBatcher(corpus[:100], vocab, hyb.window,
+                                  hyb.sample, seed=2008).epoch(BATCH)))
+    cases = _serve_kernel_cases(hyb, batch)
+    del hyb
+    phase_serve_topk(snap, card)
+    del snap
+    torch.cuda.empty_cache()
+    xla, xla_counts = phase_serve_xla(vocab, corpus, card)
+    s2v_cases, s2v_counts = phase_serve_sent2vec(xla, card)
+    cases += s2v_cases
+    del xla
+    torch.cuda.empty_cache()
+    phase_serve_cost(vocab, corpus, card)
+    report_cases(cases)
+    print(f"phase 13 {time.perf_counter() - t0:.1f} s", flush=True)
+    return cases, {SERVE_HYB: hyb_counts, SERVE_XLA: xla_counts,
+                   SERVE_S2V: s2v_counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3578,6 +4268,9 @@ def main() -> int:
     cases += wire_cases
     counts.update(wire_counts)
     counts.update(phase_telemetry(vocab, corpus, card))
+    serve_cases, serve_counts = phase_serve(vocab, corpus, card)
+    cases += serve_cases
+    counts.update(serve_counts)
 
     summary = []
     for c in cases:

@@ -10,8 +10,9 @@ indices; ``to_node_id`` keeps the reference's 1-based server numbering.
 Routing is vectorized over numpy key arrays on the host.
 ``split_route`` puts a hybrid table's frequency partition before the
 hash rule; ``shard_load_histogram`` and ``expected_unique_rows`` size a
-key stream's load.  ``serialize``/``deserialize`` wait for the binary
-buffer (ROADMAP A13).
+key stream's load.  ``serialize``/``deserialize`` write and read the
+reference's wire layout through :class:`~swiftmpi_tpu_torch.utils.buffer.
+BinaryBuffer` (hashfrag.h:58-88), the JAX package's bytes.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Optional
 
 import numpy as np
 
+from swiftmpi_tpu_torch.utils.buffer import BinaryBuffer
 from swiftmpi_tpu_torch.utils.hashing import get_hash_code_np
 
 
@@ -53,6 +55,24 @@ class HashFrag:
     @property
     def map_table(self) -> np.ndarray:
         return self._map_table
+
+    # -- (de)serialization (hashfrag.h:58-88) ------------------------------
+    def serialize(self, bb: BinaryBuffer) -> BinaryBuffer:
+        """int32 shard count, int32 frag count, then the int32 map table."""
+        bb.put_int32(self.num_shards)
+        bb.put_int32(self.num_frags)
+        bb.put_array(self._map_table)
+        return bb
+
+    @classmethod
+    def deserialize(cls, bb: BinaryBuffer) -> "HashFrag":
+        num_shards = bb.get_int32()
+        num_frags = bb.get_int32()
+        obj = cls.__new__(cls)
+        obj.num_shards = num_shards
+        obj.num_frags = num_frags
+        obj._map_table = bb.get_array(num_frags, np.int32).copy()
+        return obj
 
     def __eq__(self, other) -> bool:
         return (isinstance(other, HashFrag)

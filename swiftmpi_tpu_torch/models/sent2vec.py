@@ -38,9 +38,18 @@ replay seam of the tests: the JAX package's key splits and
 ``_alias_draw_packed`` give the same quantities).
 
 Sentence ids are the BKDR hash of the raw line (sent2vec.cpp:75); the
-output format is ``sent_id\\tv0 v1 ...`` (sent2vec.cpp:82-86).  Serving the
-vectors (``serve_publisher``) and inference over a published snapshot
-(``snapshot=``) are not ported (ROADMAP A13).
+output format is ``sent_id\\tv0 v1 ...`` (sent2vec.cpp:82-86).
+
+Serving, as the JAX package serves it: ``infer_sentences(snapshot=...)``
+reads h, v and the key->slot map from a published ``TableSnapshot`` of
+the word table instead of the live one (its host planes uploaded to the
+model's device for the call), so inference can run beside a training
+loop at bounded staleness; with ``serve_publisher`` set, the finished
+sentence vectors are published as a ``{"sent": ...}`` snapshot keyed by
+sentence id, which ``serve.query`` answers nearest-sentence queries
+over.  Like the JAX package, the snapshot path reads the tail planes
+(``tail_array``) at the snapshot's unified slots, so it holds only for
+a table without a hot head (ROADMAP queue C).
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from swiftmpi_tpu_torch.convert import tensor_from_numpy
 from swiftmpi_tpu_torch.data.text import Vocab, bkdr_hash, tokenize
 from swiftmpi_tpu_torch.kernels.gather import masked_gather
 from swiftmpi_tpu_torch.models.word2vec import Word2Vec
@@ -93,7 +103,8 @@ class Sent2Vec:
         self._offsets = torch.tensor(
             [o for o in range(-W, W + 1) if o != 0], device=self.device)
         self.error = Error()
-        #: the JAX package's serving hook; not ported (ROADMAP A13)
+        #: a ``SnapshotPublisher`` the sentence vectors are published to
+        #: after each ``infer_sentences`` (None: not published)
         self.serve_publisher = None
 
     def draw(self, S: int, L: int, niters: int) -> BatchDraws:
@@ -167,11 +178,11 @@ class Sent2Vec:
         unparseable ones), in line order.  Lines are batched
         ``batchsize`` at a time, padded to ``batchsize`` sentences and to
         a power-of-two length.  ``draws``: one :data:`BatchDraws` per
-        batch, replacing the model's generator."""
-        if snapshot is not None or self.serve_publisher is not None:
-            raise NotImplementedError(
-                "sent2vec over a published snapshot or into a serve "
-                "publisher is not ported yet (ROADMAP A13)")
+        batch, replacing the model's generator.  ``snapshot``: a
+        ``serve.TableSnapshot`` of the word table, read in place of the
+        live table (its ``h`` and ``v`` planes and key->slot map, uploaded
+        to the device once for the call).  With ``serve_publisher`` set,
+        the vectors are published there at the end."""
         wm = self.word_model
         if wm.vocab is None:
             raise RuntimeError(
@@ -192,10 +203,19 @@ class Sent2Vec:
         prob, alias = build_unigram_alias(wm.vocab.counts)
         alias_prob = torch.as_tensor(prob, device=dev)
         alias_idx = torch.as_tensor(alias, dtype=torch.int64, device=dev)
-        slot_of_vocab = wm._slot_of_vocab
-        slot_np = slot_of_vocab.cpu().numpy()
-        # global slot order (a sharded table's shards concatenated)
-        h_table, v_table = (wm.table.global_rows(f) for f in ("h", "v"))
+        if snapshot is not None:
+            # the published view: host planes uploaded for this call
+            h_table, v_table = (tensor_from_numpy(
+                np.asarray(snapshot.tail_array(f))).to(dev)
+                for f in ("h", "v"))
+            slot_np = snapshot.lookup(wm.vocab.keys).astype(np.int32)
+            slot_of_vocab = torch.as_tensor(slot_np, device=dev)
+        else:
+            slot_of_vocab = wm._slot_of_vocab
+            slot_np = slot_of_vocab.cpu().numpy()
+            # global slot order (a sharded table's shards concatenated)
+            h_table, v_table = (wm.table.global_rows(f)
+                                for f in ("h", "v"))
         queued: list = []
         out: List[Tuple[int, np.ndarray]] = []
 
@@ -231,6 +251,14 @@ class Sent2Vec:
             drain_one()
         log.info("sent2vec: %d sentences, error %.5f", len(out),
                  self.error.norm())
+        if self.serve_publisher is not None and out:
+            # the sentence vectors as a snapshot keyed by sentence id:
+            # serve.query answers nearest-sentence queries over it
+            self.serve_publisher.publish(
+                {"sent": np.stack([v for _, v in out])},
+                keys=np.array([sid for sid, _ in out], np.uint64),
+                slots=np.arange(len(out), dtype=np.int64),
+                meta={"query_field": "sent"})
         return out
 
     def write(self, results, path: str) -> None:

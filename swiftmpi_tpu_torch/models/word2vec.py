@@ -131,9 +131,30 @@ funnel, and ``[obs] trace`` installs the wire tracer, which switches
 ``count_traffic`` on and runs the steps eagerly (no graph), as the
 tracer reads each exchange's count in program order.  With every plane
 off the path launches and computes exactly what it did without them,
-and the graphs' key is unchanged.  ``[control]`` and ``[serve]`` raise
-``NotImplementedError`` (ROADMAP A13a); the detector's demote hook has
-no controller yet, so numerics only observes.
+and the graphs' key is unchanged.
+
+Serving and control run in the training process, at the JAX package's
+safe points (after a single step, after a group, graph replay or eager,
+once an epoch on hogwild, and at the end of ``train``), on the trainer
+thread between dispatches:
+
+* ``[serve] every: K`` publishes a versioned host copy of the table and
+  its key map every K consumed steps through the model's
+  ``SnapshotPublisher`` (:meth:`Word2Vec.serving_publisher`), which
+  ``EmbeddingReader`` threads read without touching the device.
+* ``[control] control: on`` arms the control plane (:meth:`Word2Vec.
+  _arm_control`): a ``DecayedSketch`` of the ids the producer renders
+  (on the pipeline's producer thread with ``pipeline: K``) and a
+  ``Controller`` that re-derives ``hot_k`` (``hybrid``: an online
+  ``SparseTable.repartition``), ``push_window`` and ``wire_format``
+  (``inner_steps > 1``) and ``collective`` (not ``psum``, hybrid
+  windows) every ``[control] every`` steps.  An applied change drops the
+  captured graphs, and the next group recaptures.  With numerics armed,
+  the controller takes the detector's demote hook: a sustained EF
+  runaway sets ``wire_quant`` and ``pull_quant`` to ``off`` at the next
+  safe point (:meth:`Word2Vec._numerics_demote`).  ``control: off`` (the
+  default) builds nothing, and every trajectory is bit for bit the one
+  without the section.
 """
 
 from __future__ import annotations
@@ -147,6 +168,8 @@ import torch
 from swiftmpi_tpu_torch import obs
 from swiftmpi_tpu_torch.cluster import Cluster
 from swiftmpi_tpu_torch.cluster.hashfrag import expected_unique_rows
+from swiftmpi_tpu_torch.control import (Controller, ControlSettings,
+                                        DecayedSketch, Knob, Proposal)
 from swiftmpi_tpu_torch.data.text import (CBOWBatch, CBOWBatcher,
                                           StencilBatch, Vocab, build_vocab,
                                           load_corpus)
@@ -165,14 +188,17 @@ from swiftmpi_tpu_torch.ops.sampling import (alias_draws,
                                              sample_alias_slots_from_draws)
 from swiftmpi_tpu_torch.ops.sigmoid import sigmoid_clipped
 from swiftmpi_tpu_torch.parameter import SparseTable, w2v_access
-from swiftmpi_tpu_torch.parameter.key_index import HotColdPartition
+from swiftmpi_tpu_torch.parameter.key_index import (CapacityError,
+                                                    HotColdPartition,
+                                                    price_hot_collectives,
+                                                    window_wire_format)
 from swiftmpi_tpu_torch.parameter.sparse_table import (hot_name,
                                                        shard_block)
 from swiftmpi_tpu_torch.transfer.plan import COLLECTIVE_MODES
 from swiftmpi_tpu_torch.testing import faults
 from swiftmpi_tpu_torch.transfer import PushSpec
-from swiftmpi_tpu_torch.utils.config import (UNPORTED_SECTIONS, ConfigParser,
-                                             global_config)
+from swiftmpi_tpu_torch.serve.snapshot import SnapshotPublisher
+from swiftmpi_tpu_torch.utils.config import ConfigParser, global_config
 from swiftmpi_tpu_torch.utils.graphs import StepGraph, graph_key, run_group
 from swiftmpi_tpu_torch.utils.logger import get_logger
 from swiftmpi_tpu_torch.utils.pipeline import LossAccum as _LossAccum
@@ -457,6 +483,22 @@ class Word2Vec:
                              f"{COLLECTIVE_MODES}, got "
                              f"{self.collective_mode!r}")
         self._check_supported()
+        # [serve] every: publish a bounded-staleness serving snapshot of
+        # the table every N consumed train steps (serve/snapshot.py); 0
+        # (the default) = serving off.  [serve] depth bounds how many
+        # published generations the publisher keeps referenced.
+        self.serve_every = g("serve", "every", 0).to_int32()
+        self.serve_depth = g("serve", "depth", 2).to_int32()
+        if self.serve_every < 0:
+            raise ValueError("[serve] every must be >= 0")
+        self.serve_publisher: Optional[SnapshotPublisher] = None
+        # [control]: off (the default) constructs nothing: no sketch, no
+        # controller, no observation; build_from_vocab arms it
+        self.control_settings = ControlSettings.from_config(self.config)
+        self.controller: Optional[Controller] = None
+        self._control_sketch: Optional[DecayedSketch] = None
+        self._control_recompiles = 0
+        self._control_dirty = False
         # [obs] numerics: off (the default) builds nothing; armed by
         # train() (the collector, its detector and the quant tap)
         self.numerics_on = obs_numerics.enabled(self.config)
@@ -567,8 +609,6 @@ class Word2Vec:
         want(transfer == "tpu" and data_plane == "xla",
              "[cluster] data_plane: xla with transfer: tpu (the library "
              "exchange)", "A16")
-        for sec, item in UNPORTED_SECTIONS.items():
-            want(bool(self.config.section(sec)), f"[{sec}]", item)
         if refuse:
             raise NotImplementedError(
                 "not ported in this slice: " + "; ".join(refuse))
@@ -613,6 +653,8 @@ class Word2Vec:
         self._alias_prob = torch.as_tensor(prob, device=self.device)
         self._alias_idx = torch.as_tensor(alias, dtype=torch.int64,
                                           device=self.device)
+        if self.control_settings.enabled:
+            self._arm_control()
         log.info("vocab: %d words, %d tokens; table capacity %d in %d "
                  "shard(s) on %s", V, vocab.total_words, self.table.capacity,
                  self.cluster.n_servers, self.device)
@@ -1173,10 +1215,16 @@ class Word2Vec:
         pipeline: the determinism contract of ``[worker] pipeline``."""
         inner = self.inner_steps
         group = []
+        # the control plane's sketch observes the center/token ids HERE,
+        # on the rendering side (host numpy, a thread-safe observe): with
+        # a pipeline this runs on the producer thread
+        sketch = self._control_sketch
 
         def group_item():
-            return ("group", _stack_group_host(group),
-                    [b.n_words for b in group])
+            fields = _stack_group_host(group)
+            if sketch is not None:
+                sketch.observe(fields[0])
+            return ("group", fields, [b.n_words for b in group])
 
         epoch_iter = (batcher.epoch_stencil(batch_size) if stencil
                       else batcher.epoch(batch_size))
@@ -1194,22 +1242,27 @@ class Word2Vec:
             if group:
                 yield group_item()
                 group = []
-            yield ("single", _batch_fields(batch), batch.n_words)
+            fields = _batch_fields(batch)
+            if sketch is not None:
+                sketch.observe(fields[0])
+            yield ("single", fields, batch.n_words)
         if group:                  # leftover partial group
             yield group_item()
 
     def _graph_key(self) -> tuple:
         """The addresses a captured graph reads and writes: the table's
-        tensors and the sampler's, and the table's growth generation; and
-        whether the step books the traffic ledger; and the transfer's
-        plan knobs, whose decisions a graph bakes in.  A table or vocab set
-        since the capture (``table.state = ...``, ``build_from_vocab``,
-        ``SparseTable.grow``), ``count_traffic`` switched or a knob moved
-        needs new graphs."""
+        tensors and the sampler's, and the table's generation; and
+        whether the step books the traffic ledger; and the window width
+        and the transfer's plan knobs, whose layout and decisions a graph
+        bakes in.  A table or vocab set since the capture (``table.state =
+        ...``, ``build_from_vocab``, ``SparseTable.grow`` or
+        ``repartition``), ``count_traffic`` switched or a knob moved needs
+        new graphs."""
         t = self.transfer
         key = graph_key(self.table, self._slot_of_vocab, self._alias_prob,
                         self._alias_idx) + (
-            t.count_traffic, t.wire_quant, t.wire_quant_guard,
+            self.push_window_size, t.count_traffic, t.wire_quant,
+            t.wire_quant_guard,
             bool(t.wire_sketch), t.collective_mode, t.hot_touched_fraction,
             t.sparse_ar_ratio, t.window_expected_unique, t.pull_quant,
             t.pull_quant_guard, t.pull_cache)
@@ -1314,6 +1367,10 @@ class Word2Vec:
         # groups (and graphs) are the sync loop's: JAX fuses only there
         fuse = sync and self.inner_steps > 1
         cuda = self.device.type == "cuda"
+        # serving plane: arm the publisher so concurrent EmbeddingReaders
+        # can read bounded-staleness views while this loop trains
+        if self.serve_every > 0:
+            self.serving_publisher()
         meter = Throughput()
         tel_rec, owns_rec = self._arm_telemetry(meter, sync)
         # one graph replay a group: one card, one shard (the ring's epoch
@@ -1365,6 +1422,9 @@ class Word2Vec:
                         batcher, batch_size, draws, meter, es_q, ec_q)
                     steps, words, dropped = (steps + n, words + nw,
                                              dropped + skipped)
+                    # hogwild groups its own dispatches: publish at the
+                    # epoch, the mode's consistency point
+                    self._serve_on_steps(1)
                 else:
                     items = self._epoch_items(batcher, batch_size, stencil,
                                               fuse)
@@ -1407,6 +1467,15 @@ class Word2Vec:
                             obs.record_step(n)
                             steps += n
                             words += nw
+                            self._serve_on_steps(n)
+                            if self._control_on_steps(n) \
+                                    and snapshot is not None:
+                                # an apply re-laid the table out: the
+                                # async view is copied from the new one
+                                snapshot = _snapshot(
+                                    self.table.state,
+                                    self.access.pull_fields,
+                                    self.cluster.mesh)
                     finally:
                         if pipe is not None:
                             pipe.close()
@@ -1429,6 +1498,9 @@ class Word2Vec:
             if stage is not None:
                 stage.close()
         seconds = time.perf_counter() - t0
+        # the final publish: readers see the trained state wherever the
+        # every-K cadence landed
+        self._serve_publish()
         self._close_telemetry(tel_rec, owns_rec)
         self.train_metrics = {
             "rendering": self.resolved_rendering,
@@ -1457,6 +1529,10 @@ class Word2Vec:
         if self.transfer.count_traffic:
             # the ledger's totals, read once the run is done
             self.train_metrics["transfer_traffic"] = self.transfer.traffic()
+        if self.controller is not None:
+            self.train_metrics["control"] = {
+                **self.controller.summary(),
+                "recompiles": self._control_recompiles}
         if self._numerics is not None:
             det = self._numerics.detector
             self.train_metrics["numerics"] = {
@@ -1488,8 +1564,13 @@ class Word2Vec:
             tel_rec.add_sampler(self.transfer.mirror_traffic)
         if self.numerics_on and tel_rec is not None and sync:
             self._arm_numerics(tel_rec)
-        if obs.get_tracer() is not None:
+        tracer = obs.get_tracer()
+        if tracer is not None:
             self.transfer.count_traffic = True
+            # hot-key attribution: the control sketch's decayed counts
+            # replace the reservoir's touch estimates
+            if self._control_sketch is not None:
+                tracer.attach_sketch(self._control_sketch)
         return tel_rec, owns_rec
 
     def _close_telemetry(self, tel_rec, owns_rec: bool) -> None:
@@ -1509,10 +1590,11 @@ class Word2Vec:
 
     def _arm_numerics(self, tel_rec) -> None:
         """Arm the numerics plane (JAX ``_arm_numerics``): the collector
-        and its detector once (with checkpointed baselines restored), the
-        transfer-wide quantization-error tap, and the sampler on the
-        recorder (once a recorder).  A first-time arm drops the graphs
-        captured without the bundle."""
+        and its detector once (with checkpointed baselines restored, and
+        the controller's demote hook registered), the transfer-wide
+        quantization-error tap, and the sampler on the recorder (once a
+        recorder).  A first-time arm drops the graphs captured without
+        the bundle."""
         from swiftmpi_tpu_torch.transfer import api as transfer_api
         if self._numerics is None:
             det = obs_numerics.detector_from_config(self.config)
@@ -1521,6 +1603,8 @@ class Word2Vec:
                 self._numerics_restore = None
             self._numerics = obs_numerics.NumericsCollector(detector=det)
             self._fused_cache, self._captures = {}, {}
+            if self.controller is not None:
+                self.controller.attach_numerics(det, self._numerics_demote)
         transfer_api.set_numerics_tap(self._numerics.quant_tap)
         if id(tel_rec) != self._numerics_rec_id:
             tel_rec.add_sampler(self._numerics.sampler)
@@ -1572,6 +1656,305 @@ class Word2Vec:
                      "groups of %d batches x %d centers)", dropped, group,
                      batch_size)
         return groups * group, words, dropped
+
+    # -- the serving plane ([serve]) ------------------------------------------
+    def serving_publisher(self) -> SnapshotPublisher:
+        """The model's :class:`~swiftmpi_tpu_torch.serve.snapshot.
+        SnapshotPublisher`, made on the first call (or by ``train`` when
+        ``[serve] every > 0``).  Attach ``EmbeddingReader`` instances to
+        it from any number of query threads; ``train`` publishes a
+        versioned host copy of the table and its key->slot map every
+        ``[serve] every`` consumed steps, and once at its end."""
+        if self.serve_publisher is None:
+            self.serve_publisher = SnapshotPublisher(
+                every=max(self.serve_every, 1), depth=self.serve_depth)
+        return self.serve_publisher
+
+    def _serve_on_steps(self, n: int) -> None:
+        """Trainer-thread publication hook: account ``n`` consumed steps
+        and publish when the staleness bound is reached.  The key->slot
+        view is read HERE, on the trainer thread, where no ``grow`` or
+        repartition is mid-flight, so readers see a matched (state, key
+        map) pair."""
+        pub = self.serve_publisher
+        if pub is not None:
+            pub.on_steps(self.table, n=n, keys=lambda: self.vocab.keys,
+                         slots=lambda: self._slot_of_vocab.cpu().numpy(),
+                         meta={"query_field": "v"})
+
+    def _serve_publish(self) -> None:
+        """Unconditional publish (the end of ``train``)."""
+        pub = self.serve_publisher
+        if pub is not None:
+            pub.publish(self.table, keys=lambda: self.vocab.keys,
+                        slots=lambda: self._slot_of_vocab.cpu().numpy(),
+                        meta={"query_field": "v"})
+
+    # -- the control plane ([control]) ---------------------------------------
+    def _arm_control(self) -> None:
+        """The control plane for this model (JAX ``_arm_control``): the
+        decayed id sketch, seeded from the vocab's counts so evaluation 0
+        reproduces the build-time calibration; the knobs (``hot_k`` on
+        ``hybrid``; ``push_window`` and ``wire_format`` with
+        ``inner_steps > 1``; ``collective`` when it is not ``psum`` on
+        hybrid windows); and the controller.  The appliers own the
+        safe-point machinery: the repartition and dropping the graphs."""
+        st = self.control_settings
+        keys = np.asarray(self.vocab.keys, np.uint64)
+        self._control_key_order = np.argsort(keys, kind="stable")
+        self._control_sorted_keys = keys[self._control_key_order]
+        self._control_sketch = DecayedSketch(
+            len(self.vocab), decay=st.decay, seed_counts=self.vocab.counts)
+        self._control_recompiles = 0
+        hybrid = self.transfer.name == "hybrid"
+        knobs = []
+        if hybrid:
+            knobs.append(Knob(
+                "hot_k", current=lambda: int(self.table.key_index.n_hot),
+                propose=self._propose_hot_k, apply=self._apply_hot_k,
+                describe=lambda p: {"n_hot": int(p.n_hot),
+                                    "head_mass": p.head_mass}))
+        if self.inner_steps > 1:
+            knobs.append(Knob(
+                "push_window", current=lambda: int(self.push_window_size),
+                propose=self._propose_push_window,
+                apply=self._apply_push_window))
+            knobs.append(Knob(
+                "wire_format", current=lambda: float(
+                    self.transfer.window_expected_unique or 0.0),
+                propose=self._propose_wire, apply=self._apply_wire))
+        if self.collective_mode != "psum" and hybrid \
+                and self.inner_steps > 1:
+            # the collective crossover's input: the hot-touch density the
+            # sparse-allreduce pricing reads
+            knobs.append(Knob(
+                "collective", current=lambda: float(
+                    self.transfer.hot_touched_fraction or 0.0),
+                propose=self._propose_collective,
+                apply=self._apply_collective))
+        self.controller = Controller(st, transfer=self.transfer,
+                                     sketch=self._control_sketch,
+                                     knobs=knobs)
+        tracer = obs.get_tracer()
+        if tracer is not None:
+            tracer.attach_sketch(self._control_sketch)
+
+    def _control_on_steps(self, n: int) -> bool:
+        """Trainer-thread control hook, at the serving plane's safe points
+        (no step running on the host, the table current).  True when an
+        applied decision re-laid the table out or dropped the graphs: the
+        train loop then re-reads what it holds of the table."""
+        ctl = self.controller
+        if ctl is None:
+            return False
+        self._control_dirty = False
+        ctl.on_steps(n)
+        return self._control_dirty
+
+    def _control_mass(self, keys_arr, counts) -> float:
+        """Sketch mass carried by a set of vocab keys."""
+        keys_arr = np.asarray(keys_arr, np.uint64).ravel()
+        if keys_arr.size == 0:
+            return 0.0
+        pos = np.searchsorted(self._control_sorted_keys, keys_arr)
+        pos = np.minimum(pos, self._control_sorted_keys.size - 1)
+        return float(counts[self._control_key_order[pos]].sum())
+
+    def _rebuild_step(self) -> None:
+        """The safe-point counterpart of JAX's recompile: a knob change
+        that moves rows or reshapes the window invalidates every captured
+        graph (the table's tensors, ``n_hot`` and the window layout are
+        baked in), so the graphs and their catalog handles go, keyed
+        afresh; the next group of each length recaptures."""
+        self._fused_cache, self._captures = {}, {}
+        self._fused_key = self._graph_key()
+        self._control_recompiles += 1
+        self._control_dirty = True
+
+    def _propose_hot_k(self, counts, delta):
+        """Re-run the hot/cold calibration on the decayed histogram.  Win
+        = the token-mass points the new hot set holds over the current
+        one, under the current traffic."""
+        if counts is None:
+            return None
+        total = float(counts.sum())
+        if total <= 0:
+            return None
+        # x1024: from_counts takes int64 counts; keep ~10 fractional bits
+        # of the decayed histogram instead of truncating it
+        part = HotColdPartition.from_counts(
+            self.vocab.keys, counts * 1024.0, batch_rows=self.minibatch)
+        cur = self.table.key_index.partition
+        if cur is not None and part == cur:
+            return None
+        new_mass = self._control_mass(part.hot_keys, counts) / total
+        cur_mass = (self._control_mass(cur.hot_keys, counts) / total
+                    if cur is not None and cur.n_hot else 0.0)
+        return Proposal(part, new_mass - cur_mass, {
+            "old_n_hot": int(cur.n_hot) if cur is not None else 0,
+            "new_n_hot": int(part.n_hot),
+            "old_head_mass": cur_mass, "new_head_mass": new_mass,
+            "sketch_observed": int(self._control_sketch.observed)})
+
+    def _apply_hot_k(self, part, evidence) -> bool:
+        """Repartition at the safe point.  A shard without room for the
+        demoted rows rejects the decision (``CapacityError`` is raised
+        before any change: the table is untouched)."""
+        try:
+            plan = self.table.repartition(part)
+        except CapacityError as e:
+            evidence["error"] = str(e)
+            return False
+        evidence["moved_rows"] = int(plan.moved_rows)
+        slots = self.table.key_index.lookup(self.vocab.keys)
+        self._slot_of_vocab = torch.as_tensor(slots, dtype=torch.int32,
+                                              device=self.device)
+        self._rebuild_step()
+        return True
+
+    def _propose_push_window(self, counts, delta):
+        """Retune the window width over {W/2, W, 2W} (capped at
+        ``inner_steps``).  Cost = the expected unique rows on the wire a
+        step, ``E[U(w*B)] / w``."""
+        if counts is None:
+            return None
+        W, B = self.push_window_size, self.minibatch
+        cands = sorted({max(1, W // 2), W,
+                        min(2 * W, max(self.inner_steps, 1))})
+        if len(cands) == 1:
+            return None
+
+        def cost(w):
+            return expected_unique_rows(counts, w * B) / w
+
+        cur_cost = cost(W)
+        if cur_cost <= 0:
+            return None
+        best = min(cands, key=cost)
+        if best == W:
+            return None
+        return Proposal(int(best), (cur_cost - cost(best)) / cur_cost, {
+            "old_w": int(W), "new_w": int(best),
+            "rows_per_step_old": cur_cost,
+            "rows_per_step_new": cost(best)})
+
+    def _apply_push_window(self, w, evidence) -> bool:
+        """The new width, and its window's unique-row estimate from the
+        sketch (None at W = 1), as JAX's ``_apply_push_window``: the wire
+        stack armed at build (``wire_quant``'s ``@ef`` planes at W > 1)
+        stays as it was."""
+        w = int(w)
+        self.push_window_size = w
+        self.transfer.window_expected_unique = (
+            expected_unique_rows(self._control_sketch.counts,
+                                 w * self.minibatch) if w > 1 else None)
+        self._rebuild_step()
+        return True
+
+    def _propose_wire(self, counts, delta):
+        """Refresh the window format's crossover input: the expected
+        unique rows under the decayed histogram.  Win = the relative drift
+        of ``E[U]`` since it was last set; the evidence carries the format
+        a one-field window family would take under the old and the new
+        estimate."""
+        if counts is None or self.push_window_size <= 1:
+            return None
+        old = self.transfer.window_expected_unique
+        if old is None:
+            return None
+        new = expected_unique_rows(counts,
+                                   self.push_window_size * self.minibatch)
+        d = self.len_vec
+        row_bytes = 4 + 4 * d + 4          # i32 index + f32 row + counts
+        qrb = 4 + (d + 4 if self.wire_quant == "int8" else 2 * d) + 4 \
+            if self.wire_quant != "off" else None
+        rows = self.push_window_size * self.minibatch
+
+        def _fmt(eu):
+            return window_wire_format(
+                rows, self.table.capacity, row_bytes,
+                dense_ratio=self.transfer.wire_dense_ratio("window"),
+                expected_unique=eu, quant=self.wire_quant,
+                quant_row_bytes=qrb,
+                quant_guard=self.transfer.wire_quant_guard,
+                sketch=bool(self.transfer.wire_sketch))
+
+        return Proposal(float(new), abs(new - old) / max(float(old), 1.0),
+                        {"old_expected_unique": float(old),
+                         "new_expected_unique": float(new),
+                         "old_format": _fmt(float(old)),
+                         "new_format": _fmt(float(new))})
+
+    def _apply_wire(self, eu, evidence) -> bool:
+        """The new estimate on the transfer; the window plan keys on it,
+        and the graphs that baked the old decision go."""
+        self.transfer.window_expected_unique = float(eu)
+        self._rebuild_step()
+        return True
+
+    def _propose_collective(self, counts, delta):
+        """Refresh the hot-touch density the collective crossover prices
+        by: the expected touched share of the hot head under the decayed
+        histogram (the saturation model ``_seed_hot_touched_fraction``
+        seeds from the vocab).  Win = the relative drift of the share; the
+        evidence carries the collective a one-field family would take
+        under the old and the new share."""
+        if counts is None or self.push_window_size <= 1:
+            return None
+        n_hot = int(self.table.key_index.n_hot)
+        if n_hot <= 0:
+            return None
+        old = self.transfer.hot_touched_fraction
+        if old is None:
+            return None
+        c = np.asarray(counts, np.float64).ravel()
+        total = c.sum()
+        if total <= 0:
+            return None
+        head = np.sort(c)[::-1][:n_hot] / total
+        draws = self.push_window_size * self.minibatch
+        new = min(float(np.sum(-np.expm1(
+            draws * np.log1p(-np.minimum(head, 1.0))))) / n_hot, 1.0)
+
+        def _pick(frac):
+            decision, _ = price_hot_collectives(
+                n_hot, 4 * self.len_vec + 4, frac,
+                sparse_ar_ratio=self.transfer.sparse_ar_ratio)
+            return decision
+
+        return Proposal(float(new),
+                        abs(new - old) / max(float(old), 1e-6),
+                        {"old_touched_fraction": float(old),
+                         "new_touched_fraction": float(new),
+                         "old_collective": _pick(float(old)),
+                         "new_collective": _pick(float(new))})
+
+    def _apply_collective(self, frac, evidence) -> bool:
+        """The new density on the transfer (the hot plan keys on it); the
+        graphs that baked the old collective go."""
+        self.transfer.hot_touched_fraction = float(frac)
+        self._rebuild_step()
+        return True
+
+    def _numerics_demote(self, anomaly: dict) -> Optional[str]:
+        """The controller-applied numerics action (JAX
+        ``_numerics_demote``): a sustained EF-residual runaway sets
+        ``wire_quant`` and ``pull_quant`` to ``off`` on the model and the
+        transfer at the control plane's safe point, and the graphs go.
+        Returns the previous setting (for the decision event), or None
+        when both are already off."""
+        old_w, old_p = self.wire_quant, self.pull_quant
+        if old_w == "off" and old_p == "off":
+            return None
+        log.warning(
+            "numerics: sustained EF residual runaway on %s — demoting "
+            "wire_quant %s -> off, pull_quant %s -> off",
+            anomaly.get("series"), old_w, old_p)
+        self.wire_quant = self.pull_quant = "off"
+        self.transfer.wire_quant = "off"
+        self.transfer.pull_quant = "off"
+        self._rebuild_step()
+        return old_w if old_w != "off" else f"pull:{old_p}"
 
     # -- checkpoints -------------------------------------------------------
     def _checkpoint(self, path: str, iteration: int, retain: int) -> None:

@@ -33,8 +33,10 @@ Three pieces, as in the JAX package:
   (the JAX package's, line for line), emitting ``numerics/anomaly``
   events; its state rides checkpoints as ``extra__numerics`` in the JAX
   package's JSON bytes, so baselines cross between the two packages.
-  Observe-only: the demote hook has no controller in the port yet
-  (ROADMAP A13a).
+  With ``[control]`` on, the controller registers the demote hook
+  (``Controller.attach_numerics``): a sustained EF runaway then demotes
+  ``wire_quant`` and ``pull_quant`` at the next safe point
+  (``Word2Vec._numerics_demote``); without it the detector observes.
 
 A dispatch stages one bundle: one a step, one a group of ``inner_steps``
 (graphed or not: the table at group entry is ``state0``), one a

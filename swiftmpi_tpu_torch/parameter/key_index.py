@@ -21,10 +21,12 @@ layout above, offset by ``n_hot``:
     slot < n_hot                  -> hot slot (the key's frequency rank)
     slot = n_hot + shard*cap + l  -> tail slot
 
-Hot slots never move: ``grow`` re-strides the tail only, and ``restore``
-refuses a hot pair the active partition does not map.  The online
-``repartition`` (and its ``RepartitionPlan``), ``shard_rows`` and the
-elastic owner map are ROADMAP A13.
+Hot slots never move under ``grow`` (it re-strides the tail only), and
+``restore`` refuses a hot pair the active partition does not map.  The
+online ``repartition`` swaps the split in place and returns the
+:class:`RepartitionPlan` the table replays: tail rows keep their
+shard-local place, only the unified offset ``n_hot`` moves.  The elastic
+ownership helpers (``shard_rows``, the owner map) are ROADMAP A13b.
 
 The window wire-format pricers (``window_wire_format``,
 ``price_window_formats``, ``price_hot_collectives``) are the JAX
@@ -236,6 +238,51 @@ class HotColdPartition:
         return f"HotColdPartition(n_hot={self.n_hot}{mass})"
 
 
+class RepartitionPlan:
+    """Row-movement recipe produced by :meth:`KeyIndex.repartition`.
+
+    All arrays are parallel src/dst index pairs in the NEW layout's
+    coordinate frames (hot arrays indexed by frequency rank, tail arrays
+    by their tail row ``shard * capacity_per_shard + local``; the tail
+    frame is repartition-invariant, only the unified offset ``n_hot``
+    moves):
+
+    * ``demote_src``/``demote_dst``: old hot rank -> tail row, for keys
+      leaving the hot head (their hot row is written back into the tail
+      so no update is lost).
+    * ``hot_from_hot_src``/``hot_from_hot_dst``: old rank -> new rank,
+      for keys staying hot.
+    * ``hot_from_tail_src``/``hot_from_tail_dst``: tail row -> new rank,
+      for promoted keys that own a tail slot (its row seeds the new hot
+      row; the tail slot stays allocated and goes dormant under the hot
+      overlay).  Promoted keys without one start from a fresh init.
+    """
+
+    def __init__(self, old_n_hot: int, new_n_hot: int,
+                 demote_src, demote_dst,
+                 hot_from_hot_src, hot_from_hot_dst,
+                 hot_from_tail_src, hot_from_tail_dst):
+        self.old_n_hot = int(old_n_hot)
+        self.new_n_hot = int(new_n_hot)
+        self.demote_src = np.asarray(demote_src, np.int64)
+        self.demote_dst = np.asarray(demote_dst, np.int64)
+        self.hot_from_hot_src = np.asarray(hot_from_hot_src, np.int64)
+        self.hot_from_hot_dst = np.asarray(hot_from_hot_dst, np.int64)
+        self.hot_from_tail_src = np.asarray(hot_from_tail_src, np.int64)
+        self.hot_from_tail_dst = np.asarray(hot_from_tail_dst, np.int64)
+
+    @property
+    def moved_rows(self) -> int:
+        return int(self.demote_src.size + self.hot_from_hot_src.size
+                   + self.hot_from_tail_src.size)
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return (f"RepartitionPlan({self.old_n_hot}->{self.new_n_hot} hot, "
+                f"demote={self.demote_src.size}, "
+                f"stay={self.hot_from_hot_src.size}, "
+                f"promote={self.hot_from_tail_src.size})")
+
+
 class KeyIndex:
     def __init__(self, num_shards: int, capacity_per_shard: int,
                  hashfrag: Optional[HashFrag] = None,
@@ -429,6 +476,81 @@ class KeyIndex:
         slots = self.n_hot + rows // old * new + rows % old
         self._slot_of = dict(zip(keys.tolist(), slots.tolist()))
         self._ht_grow(max(len(self._slot_of), 1))   # slot values changed
+
+    # -- online re-partition ----------------------------------------------
+    def repartition(self, new_partition: Optional[HotColdPartition]
+                    ) -> RepartitionPlan:
+        """Swap the hot/cold split in place (JAX ``KeyIndex.repartition``),
+        keeping every key: keys leaving the head get (or reuse) tail
+        slots, keys entering it take their frequency-rank hot slot, and
+        every tail slot keeps its shard-local row — only the unified
+        offset ``n_hot`` moves.  Returns the :class:`RepartitionPlan`
+        that ``SparseTable.repartition`` replays on the rows.
+
+        All or nothing: the demoted keys' shard occupancy is checked
+        BEFORE any change, so a :class:`CapacityError` leaves the index
+        exactly as it was."""
+        old = self.partition
+        old_hot = (old.hot_keys if old is not None
+                   else np.empty(0, np.uint64))
+        new_hot = (new_partition.hot_keys if new_partition is not None
+                   else np.empty(0, np.uint64))
+        old_n_hot, new_n_hot = int(old_hot.size), int(new_hot.size)
+        in_new = (np.zeros(old_hot.shape, bool) if new_partition is None
+                  else new_partition.is_hot(old_hot))
+        demoted = old_hot[~in_new]              # rank order kept
+        demote_src = np.flatnonzero(~in_new)
+        # capacity precheck for demoted keys with no tail slot yet,
+        # before any state changes
+        have = self._ht_find(demoted) if demoted.size else \
+            np.empty(0, np.int64)
+        missing = demoted[have < 0]
+        if missing.size:
+            shards = self.hashfrag.to_shard_id(missing).astype(np.int64)
+            counts = np.bincount(shards, minlength=self.num_shards)
+            over = self._next_local + counts > self.capacity_per_shard
+            if over.any():
+                s = int(np.flatnonzero(over)[0])
+                raise CapacityError(
+                    f"repartition needs {int(counts[s])} tail slots on "
+                    f"full shard {s} ({self.capacity_per_shard} slots); "
+                    "grow the table first")
+        # -- the change: tail slots shift to the new hot offset
+        delta = new_n_hot - old_n_hot
+        if delta:
+            self._slot_of = {k: v + delta for k, v in self._slot_of.items()}
+        self.partition = new_partition
+        self.n_hot = new_n_hot
+        self._ht_grow(max(len(self._slot_of), 1))   # slot values changed
+        # demoted keys: their tail slots, made for those without one (the
+        # precheck guarantees _create has room)
+        if demoted.size:
+            demote_slots = self._ht_find(demoted)
+            miss_pos = np.flatnonzero(demote_slots < 0)
+            if miss_pos.size:
+                demote_slots[miss_pos] = self._create(demoted[miss_pos])
+            demote_dst = demote_slots - new_n_hot   # tail rows
+        else:
+            demote_dst = np.empty(0, np.int64)
+        # keys staying hot: old rank -> new rank
+        stayed_src = np.flatnonzero(in_new)
+        stayed_dst = (new_partition.hot_slot(old_hot[in_new])
+                      if stayed_src.size else np.empty(0, np.int64))
+        # promoted keys with a tail slot: seeded from it
+        if new_n_hot:
+            was_hot = (old.is_hot(new_hot) if old is not None
+                       else np.zeros(new_hot.shape, bool))
+            promoted = new_hot[~was_hot]
+            tail_slots = self._ht_find(promoted)
+            seeded = tail_slots >= 0
+            hot_from_tail_src = tail_slots[seeded] - new_n_hot
+            hot_from_tail_dst = new_partition.hot_slot(promoted[seeded])
+        else:
+            hot_from_tail_src = np.empty(0, np.int64)
+            hot_from_tail_dst = np.empty(0, np.int64)
+        return RepartitionPlan(
+            old_n_hot, new_n_hot, demote_src, demote_dst,
+            stayed_src, stayed_dst, hot_from_tail_src, hot_from_tail_dst)
 
     # -- checkpoint restore ------------------------------------------------
     def restore(self, keys, slots) -> None:

@@ -45,7 +45,14 @@ updated by the access rule: ``f@ef`` (:meth:`SparseTable.ensure_ef`), the
 float32 error-feedback residual of ``f``'s quantized window pushes, and
 ``@rowver`` (:meth:`SparseTable.ensure_row_versions`), one int32 version
 stamp a tail row that every push bumps and the pull cache reads.  Hot rows
-carry neither.  ``repartition`` is not ported yet (ROADMAP A13a).
+carry neither.
+
+``repartition`` swaps the hot/cold split online (the control plane's
+``hot_k`` knob): it replays the key index's ``RepartitionPlan`` on the
+rows with plain torch indexing, as ``grow`` moves them (the JAX package
+does it with ``take`` / ``.at[].set`` outside Pallas).  The tail tensors
+are written in place; the hot planes are new tensors, so it bumps
+``generation`` as ``grow`` does.
 """
 
 from __future__ import annotations
@@ -118,8 +125,9 @@ class SparseTable:
                 f"{key_index.num_shards} shards")
         if mesh is None and key_index.num_shards != 1:
             raise ValueError("a table of several shards needs a rank layout")
-        #: bumped by :meth:`grow`, which moves every field to new
-        #: tensors: a CUDA graph captured on the old ones is stale
+        #: bumped by :meth:`grow` and :meth:`repartition`, which move
+        #: fields to new tensors: a CUDA graph captured on the old ones
+        #: is stale
         self.generation = 0
         self.state: TableState = self._init_state()
 
@@ -212,6 +220,24 @@ class SparseTable:
         for r, t in enumerate(v):
             t.copy_(rows[r * cap:(r + 1) * cap])
 
+    def read_rows(self, field: str, slots: np.ndarray) -> torch.Tensor:
+        """Rows of ``field`` at global tail ``slots``, on the table's
+        device: each shard's rows gathered from its rank's tensor."""
+        v = self.state[field]
+        slots = np.asarray(slots, np.int64)
+        if not isinstance(v, list):
+            return v[torch.from_numpy(slots).to(v.device)]
+        shard, local = np.divmod(slots, self.key_index.capacity_per_shard)
+        out = torch.empty((slots.size, *v[0].shape[1:]), dtype=v[0].dtype,
+                          device=self.device)
+        for r, t in enumerate(v):
+            sel = np.flatnonzero(shard == r)
+            if sel.size:
+                out[torch.from_numpy(sel).to(self.device)] = t[
+                    torch.from_numpy(local[sel]).to(t.device)].to(
+                    self.device)
+        return out
+
     def write_rows(self, field: str, slots: np.ndarray,
                    rows: torch.Tensor) -> None:
         """In place: the global ``slots`` of ``field`` take ``rows``, cast
@@ -266,6 +292,60 @@ class SparseTable:
                       if is_hot_field(f)})
         self.state = state
         self.generation += 1
+
+    def repartition(self, new_partition):
+        """Swap the hot/cold split to ``new_partition`` (a
+        ``HotColdPartition`` or None), replaying the key index's
+        :class:`~swiftmpi_tpu_torch.parameter.key_index.RepartitionPlan`
+        on the rows (JAX ``SparseTable.repartition``): demoted hot rows
+        are written into their tail rows, in place (each global tail row
+        into its shard's tensor); staying keys' hot rows move to their
+        new rank; promoted keys seed their hot row from their tail row,
+        read before the demotions write.  The new hot planes are drawn
+        fresh, one per field in sorted name order, from a generator
+        seeded ``seed + 1`` (a fresh stream per change, as ``grow``), so
+        only a promoted key without a tail slot keeps a drawn row.  The
+        ``@ef`` planes are tail-indexed and carry through unchanged;
+        ``@rowver`` stamps of the demoted rows are bumped past the global
+        maximum, so a cached copy of a dormant tail row never hits.
+        Raises ``CapacityError`` before touching anything when demoted
+        keys cannot get tail slots.  Returns the plan."""
+        plan = self.key_index.repartition(new_partition)
+        new_n_hot = plan.new_n_hot
+        fields = sorted(self.access.fields.items())
+        # promoted keys' seed rows, read from the tail before any write
+        seeds = {name: self.read_rows(name, plan.hot_from_tail_src)
+                 for name, _ in fields}
+        old_hot = {name: self.state.pop(hot_name(name), None)
+                   for name, _ in fields}
+        for name, _ in fields:
+            if plan.demote_src.size:
+                self.write_rows(name, plan.demote_dst, old_hot[name][
+                    torch.from_numpy(plan.demote_src).to(self.device)])
+        self.seed += 1
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.seed)
+        for name, fs in fields:
+            if not new_n_hot:
+                continue
+            hot = fs.init(gen, (new_n_hot, fs.dim), self.device).to(fs.dtype)
+            if plan.hot_from_hot_src.size:
+                hot[torch.from_numpy(plan.hot_from_hot_dst).to(
+                    self.device)] = old_hot[name][torch.from_numpy(
+                        plan.hot_from_hot_src).to(self.device)]
+            if plan.hot_from_tail_src.size:
+                hot[torch.from_numpy(plan.hot_from_tail_dst).to(
+                    self.device)] = seeds[name]
+            self.state[hot_name(name)] = hot
+        if ROWVER_KEY in self.state and plan.demote_dst.size:
+            ver = self.state[ROWVER_KEY]
+            top = max(int(t.max()) for t in
+                      (ver if isinstance(ver, list) else [ver]))
+            self.write_rows(ROWVER_KEY, plan.demote_dst, torch.full(
+                (plan.demote_dst.size, 1), top + 1, dtype=torch.int32,
+                device=self.device))
+        self.generation += 1
+        return plan
 
     # -- the unified slot space (hot rows first) ---------------------------
     def unified_rows(self, field: str, slots) -> torch.Tensor:

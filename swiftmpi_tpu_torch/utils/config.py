@@ -171,11 +171,6 @@ class ConfigParser:
         return "ConfigParser(\n  " + "\n  ".join(lines) + "\n)"
 
 
-#: config sections the port's word2vec does not cover yet -> the ROADMAP
-#: item (the JAX package's word2vec is their only reader)
-UNPORTED_SECTIONS = {"control": "A13a", "serve": "A13a"}
-
-
 _GLOBAL_CONFIG: Optional[ConfigParser] = None
 _GLOBAL_LOCK = threading.Lock()
 

@@ -1901,3 +1901,240 @@ def test_telemetry_planes_on_match_off_on_card(dev, case, tmp_path,
     finally:
         torch.use_deterministic_algorithms(False)
         obs.reset_for_tests()
+
+
+# -- serving and control ---------------------------------------------------------
+
+def _serve_model(dev, transfer="hybrid", seed=0, sections=None, **worker):
+    """A model at the reference widths on ``transfer`` (8 ranks on
+    ``hybrid``), with more config ``sections``."""
+    conf = {"cluster": {"transfer": transfer,
+                        "server_num": 1 if transfer == "xla" else 8},
+            "word2vec": {"len_vec": 100, "window": 4, "negative": 20,
+                         "sample": 1e-3, "learning_rate": 0.05},
+            "server": {"initial_learning_rate": 0.7},
+            "worker": {"minibatch": 800, **worker}}
+    c = ConfigParser().update(conf)
+    for sec, kv in (sections or {}).items():
+        for k, v in kv.items():
+            c.set(sec, k, v)
+    m = Word2Vec(config=c, device=dev, seed=seed)
+    sents = synthetic_corpus(400, 3000, 40, seed=8)
+    m.build(sents)
+    return m, sents
+
+
+def test_hybrid_repartition_on_card_keeps_every_row(dev):
+    """A trained hybrid@8 table on the card repartitioned to another head
+    (demotions, stays, promotions): every key's unified row after the
+    change equals its row before it, bit for bit, read by key on the
+    host; the tail tensors stay in place and the ledger of a step after
+    it still conserves rows."""
+    from swiftmpi_tpu_torch.parameter.key_index import HotColdPartition
+    m, sents = _serve_model(dev)
+    m.train(sents, niters=1, batch_size=96)
+    t = m.table
+    keys = m.vocab.keys
+    before = {f: t.unified_rows_host(f)[t.key_index.lookup(
+        keys, create=False)] for f in t.access.fields}
+    ptrs = [x.data_ptr() for x in t.state["v"]]
+    order = np.argsort(-m.vocab.counts, kind="stable")
+    head = keys[order[t.n_hot // 2: t.n_hot // 2 + 2 * t.n_hot]]
+    plan = t.repartition(HotColdPartition(head))
+    assert plan.moved_rows > 0 and plan.demote_src.size > 0
+    after_slots = t.key_index.lookup(keys, create=False)
+    for f in t.access.fields:
+        np.testing.assert_array_equal(
+            t.unified_rows_host(f)[after_slots].view(np.int32),
+            before[f].view(np.int32), err_msg=f)
+    assert [x.data_ptr() for x in t.state["v"]] == ptrs
+    m._slot_of_vocab = torch.as_tensor(after_slots, dtype=torch.int32,
+                                       device=dev)
+    losses = m.train(sents, niters=1, batch_size=96)
+    assert np.isfinite(losses).all()
+
+
+def test_serve_and_control_train_on_card_with_readers(dev):
+    """``[control]`` and ``[serve] every: 4`` on hybrid@8 with two reader
+    threads: the readers see numpy planes only, every snapshot's bits
+    equal the trainer's table at its version (checksums), and the run
+    launches exactly B1-B3 and B5."""
+    import threading
+    from swiftmpi_tpu_torch.serve import EmbeddingReader
+
+    def bits(planes):
+        out = {}
+        for f, v in sorted(planes.items()):
+            parts = v if isinstance(v, (list, tuple)) else [v]
+            out[f] = sum(int(np.asarray(p).view(np.int32).astype(
+                np.int64).sum()) if isinstance(p, np.ndarray) else int(
+                p.view(torch.int32).long().sum()) for p in parts)
+        return out
+
+    m, sents = _serve_model(dev, sections={
+        "control": {"control": "on", "every": 4, "margin": 0.0,
+                    "consecutive": 1},
+        "serve": {"every": 4}})
+    pub = m.serving_publisher()
+    seen, publish = [], pub.publish
+
+    def checked(*a, **kw):
+        snap = publish(*a, **kw)
+        seen.append((snap, bits(m.table.state)))
+        return snap
+
+    pub.publish = checked
+    stop, failures = threading.Event(), []
+
+    def query(seed):
+        rng = np.random.default_rng(seed)
+        r = EmbeddingReader(pub, cache_rows=64)
+        if pub.wait_for_version(1, timeout=120) is None:
+            failures.append("no snapshot")
+            return
+        while not stop.is_set():
+            if not all(isinstance(v, np.ndarray)
+                       for v in pub.require().state.values()):
+                failures.append("a plane that is not numpy")
+            r.read(rng.choice(m.vocab.keys, 8))
+            r.topk(rng.choice(m.vocab.keys, 2), k=5)
+
+    threads = [threading.Thread(target=query, args=(i,), daemon=True)
+               for i in range(2)]
+    for th in threads:
+        th.start()
+    kernels.reset_launches()
+    try:
+        losses = m.train(sents, niters=2, batch_size=96)
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(timeout=60)
+    counts = kernels.launch_counts()
+    assert not any(th.is_alive() for th in threads) and not failures
+    assert np.isfinite(losses).all() and len(seen) >= 3
+    for snap, want in seen:
+        assert bits(snap.state) == want, snap.version
+    assert {k for k, v in counts.items() if v} \
+        == {"gather", "scatter", "adagrad", "ring"}
+    assert m.train_metrics["control"]["evaluations"] > 0
+
+
+def test_push_window_apply_recaptures_and_matches_eager(dev):
+    """An applied window width (the controller's knob, W 2 -> 4) drops
+    the graphs; the next group recaptures at the new width, and the
+    replayed group after it equals the same groups run eagerly at the new
+    W, bit for bit (lossless windows of sparse pushes and deterministic
+    sums; an int8 window folds its duplicate rows with B3's atomics)."""
+    from swiftmpi_tpu_torch.utils.pipeline import LossAccum
+    sections = {"cluster": {"push_window": 2},
+                "control": {"control": "on", "every": 10 ** 6}}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        graph_m, sents = _serve_model(dev, "xla", seed=1,
+                                      sections=sections, inner_steps=4)
+        eager_m, _ = _serve_model(dev, "xla", seed=1, sections=sections,
+                                  inner_steps=4)
+        # 8 centers: a window of 4 steps pushes 672 h rows, under half
+        # the 1,635 rows, so every push stays sparse (no B3)
+        groups = [tuple(torch.from_numpy(f).to(dev) for f in g)
+                  for g in _items(graph_m, sents, 8, 4, group=4)]
+        outs = []
+        for m, graphs in ((graph_m, True), (eager_m, False)):
+            es_q, ec_q = LossAccum(None, dev), LossAccum(None, dev)
+            replays, keys = [], []
+            for i, g in enumerate(groups):
+                if i == 2:
+                    knob = next(k for k in m.controller.knobs
+                                if k.name == "push_window")
+                    assert knob.apply(4, {})
+                    assert m._fused_cache == {}
+                keys.append(m._graph_key())
+                replays.append(m._run_group(g, graphs, None, es_q, ec_q))
+            torch.cuda.synchronize()
+            outs.append((es_q.total(), ec_q.total(), replays, keys))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert outs[0][2] == [False, True, False, True]
+    assert outs[0][3][1] != outs[0][3][2]       # the width is in the key
+    assert outs[0][:2] == outs[1][:2]
+    assert graph_m.push_window_size == eager_m.push_window_size == 4
+    for f, t in graph_m.table.state.items():
+        assert torch.equal(t, eager_m.table.state[f]), f
+
+
+def test_ef_runaway_demotes_wire_quant_on_card(dev):
+    """An injected EF runaway parks in the controller and demotes
+    ``wire_quant`` at the next safe point; the next graphed train books no
+    quantized window."""
+    from swiftmpi_tpu_torch import obs
+    obs.reset_for_tests()
+    try:
+        m, sents = _serve_model(dev, "xla", sections={
+            "cluster": {"push_window": 2, "wire_quant": "int8"},
+            "control": {"control": "on", "every": 10 ** 6},
+            "worker": {"telemetry": 1, "telemetry_path": ""},
+            "obs": {"numerics": 1}}, inner_steps=4)
+        m.transfer.count_traffic = True
+        m.train(sents, niters=1, batch_size=96)
+        assert m.transfer.traffic()["window_fmt_q"] > 0
+        det = m._numerics.detector
+        det.warmup, det.patience = 2, 2
+        for v in (1.0, 1.0, 1.0, 1.0, 500.0, 500.0):
+            det.observe("numerics/ef_mass{field=synthetic}", v)
+        assert m.wire_quant == "int8"
+        m.controller.on_steps(1)
+        assert m.wire_quant == m.transfer.wire_quant == "off"
+        before = m.transfer.traffic()
+        m.train(sents, niters=1, batch_size=96)
+        tr = m.transfer.traffic_delta(before)
+        # a lossless window on xla is the per-step push: no decision
+        assert tr["window_fmt_q"] == 0 and m.train_metrics["fused"]
+    finally:
+        obs.reset_for_tests()
+
+
+def test_sent2vec_over_snapshot_on_card_matches_live(dev):
+    """Sent2vec over a published snapshot (its planes uploaded to the
+    card) equals sent2vec over the live table at that version, bit for
+    bit with the same draws, after the live table moved on; B2 runs once
+    a batch and once a pass."""
+    from swiftmpi_tpu_torch.models.sent2vec import Sent2Vec
+    m, sents = _serve_model(dev, "xla")
+    m.train(sents, niters=1, batch_size=96)
+    snap = m.serving_publisher().publish(
+        m.table, keys=m.vocab.keys, slots=m._slot_of_vocab.cpu().numpy())
+    lines = [" ".join(map(str, s[:12])) for s in sents[:32]]
+    s2v = Sent2Vec(m, seed=1)
+    s2v.batchsize = 32
+    draws = s2v.draw(32, 16, 3)
+    live = s2v.infer_sentences(lines, niters=3, draws=iter([draws]))
+    m.table.state["h"].add_(1.0)
+    kernels.reset_launches()
+    over = s2v.infer_sentences(lines, niters=3, snapshot=snap,
+                               draws=iter([draws]))
+    assert kernels.launch_counts()["gather"] == 1 + 3
+    for (sa, a), (sb, b) in zip(over, live):
+        assert sa == sb
+        np.testing.assert_array_equal(a, b)
+
+
+def test_device_topk_matches_host_on_card(dev):
+    """``snapshot_topk(device=True)`` against the host path over a hybrid
+    snapshot: scores within 1e-5, the same neighbours wherever the gap
+    to the next score exceeds 1e-5."""
+    from swiftmpi_tpu_torch.serve import SnapshotPublisher
+    from swiftmpi_tpu_torch.serve.query import snapshot_topk
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, _ = _serve_model(dev)
+    snap = SnapshotPublisher().publish(
+        m.table, keys=m.vocab.keys, slots=m._slot_of_vocab.cpu().numpy())
+    q = np.random.default_rng(2).normal(size=(64, 100)).astype(np.float32)
+    host = snapshot_topk(snap, q, k=11)
+    card = snapshot_topk(snap, q, k=11, device=True)
+    np.testing.assert_allclose(card[2][:, :10], host[2][:, :10], rtol=0,
+                               atol=1e-5)
+    for qi in range(64):
+        for n in range(1, 11):
+            if host[2][qi, n - 1] - host[2][qi, n] > 1e-5:
+                assert set(host[1][qi, :n]) == set(card[1][qi, :n])

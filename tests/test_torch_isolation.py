@@ -41,7 +41,9 @@ want = {"swiftmpi_tpu_torch." + m for m in (
     "transfer.pull_cache", "transfer.delta", "obs", "obs.identity",
     "obs.registry", "obs.catalog", "obs.micro", "obs.recorder",
     "obs.collector", "obs.numerics", "obs.costs", "obs.profiler",
-    "obs.trace", "utils.profiler")}
+    "obs.trace", "utils.profiler", "utils.buffer", "parameter.cache",
+    "serve", "serve.snapshot", "serve.reader", "serve.query",
+    "serve.shipper", "control", "control.sketch", "control.controller")}
 missing = sorted(want - set(names))
 print(len(names), "modules;", "leaked:", bad, "missing:", missing)
 sys.exit(1 if bad or missing or len(names) < 30 else 0)
@@ -60,6 +62,35 @@ def test_importing_every_port_module_loads_no_jax():
     assert "leaked: []" in r.stdout and "missing: []" in r.stdout
 
 
+#: the port's counterparts of the JAX package's READER-PURE-HOST set:
+#: serving readers and the control sketch's producer side run beside the
+#: trainer and never touch the device
+HOST_ONLY = ("serve/reader.py", "serve/shipper.py", "parameter/cache.py",
+             "control/sketch.py")
+
+
+@pytest.mark.parametrize("rel", HOST_ONLY)
+def test_host_only_modules_import_no_torch(rel):
+    """No ``import torch`` (at module level or inside a function) and no
+    ``torch.`` name in the module: the port's form of the JAX package's
+    READER-PURE-HOST lint rule."""
+    import ast
+    tree = ast.parse((ROOT / "swiftmpi_tpu_torch" / rel).read_text())
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods = [node.module or ""]
+        elif isinstance(node, ast.Name) and node.id == "torch":
+            mods = ["torch"]
+        else:
+            continue
+        bad += [m for m in mods if m.split(".")[0] in ("torch", "jax",
+                                                       "swiftmpi_tpu")]
+    assert bad == [], bad
+
+
 def test_resolve_device_never_falls_back_to_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -76,7 +107,9 @@ def test_resolve_device_never_falls_back_to_cpu(monkeypatch):
 
 def test_new_entry_points_refuse_the_cpu_unless_asked(monkeypatch, tmp_path):
     """With no CUDA device, logistic regression, GloVe, the embedding
-    index and their CLIs raise unless the CPU is asked for by name."""
+    index, their CLIs and a word2vec model with ``[serve]`` and
+    ``[control]`` (and the serving plane's device top-k) raise unless the
+    CPU is asked for by name."""
     import numpy as np
     from swiftmpi_tpu_torch.apps import glove_main, lr_main, w2v_eval
     from swiftmpi_tpu_torch.models import (EmbeddingIndex, GloVe,
@@ -89,10 +122,20 @@ def test_new_entry_points_refuse_the_cpu_unless_asked(monkeypatch, tmp_path):
                      config=ConfigParser().update(conf), device=d),
                  lambda d: GloVe(config=ConfigParser().update(conf),
                                  device=d),
-                 lambda d: EmbeddingIndex(keys, vecs, device=d)):
+                 lambda d: EmbeddingIndex(keys, vecs, device=d),
+                 lambda d: Word2Vec(config=ConfigParser().update(
+                     {"serve": {"every": 2},
+                      "control": {"control": "on"}}), device=d)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make(None)
         assert make("cpu").device == torch.device("cpu")
+    from swiftmpi_tpu_torch.serve import SnapshotPublisher
+    from swiftmpi_tpu_torch.serve.query import snapshot_topk
+    snap = SnapshotPublisher().publish({"v": vecs}, keys=keys,
+                                       slots=np.arange(3))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        snapshot_topk(snap, vecs, k=2, device=True)
+    assert snapshot_topk(snap, vecs, k=2, device="cpu")[0].shape == (3, 2)
     (tmp_path / "d.txt").write_text("1 1:1\n")
     (tmp_path / "e.txt").write_text("1\t1 0\n2\t0 1\n")
     (tmp_path / "c.txt").write_text("1 2 3\n")

@@ -167,13 +167,31 @@ def test_dump_load_grows_an_undersized_table_like_jax(dump):
 
 
 def test_snapshot_and_serving_are_refused(dump):
+    """Refused until ROADMAP A13a was ported: inference over a published
+    snapshot of the word table gives the live table's vectors bit for bit
+    (the same draws), and a ``serve_publisher`` receives the sentence
+    vectors as a ``{"sent": ...}`` snapshot keyed by sentence id."""
+    from swiftmpi_tpu_torch.serve import SnapshotPublisher
     path, corpus = dump
-    s2v = Sent2Vec(_port_model(path))
-    with pytest.raises(NotImplementedError, match="A13"):
-        s2v.infer_sentences(_lines(corpus), snapshot=object())
-    s2v.serve_publisher = object()
-    with pytest.raises(NotImplementedError, match="A13"):
-        s2v.infer_sentences(_lines(corpus))
+    pm = _port_model(path)
+    lines = _lines(corpus)
+    snap = SnapshotPublisher().publish(pm.table, keys=pm.vocab.keys,
+                                       slots=pm._slot_of_vocab.numpy())
+    draws = _jax_draws(1, lines[:-1], len(pm.vocab))
+    live = Sent2Vec(pm, seed=1).infer_sentences(lines, niters=NITERS,
+                                                draws=iter(draws))
+    s2v = Sent2Vec(pm, seed=1)
+    s2v.serve_publisher = SnapshotPublisher()
+    over = s2v.infer_sentences(lines, niters=NITERS, snapshot=snap,
+                               draws=iter(draws))
+    for (sa, a), (sb, b) in zip(over, live):
+        assert sa == sb
+        np.testing.assert_array_equal(a, b)
+    pub = s2v.serve_publisher.latest()
+    assert pub.meta == {"query_field": "sent"}
+    np.testing.assert_array_equal(pub.keys, [s for s, _ in over])
+    np.testing.assert_array_equal(pub.state["sent"],
+                                  np.stack([v for _, v in over]))
 
 
 def test_sent2vec_cli(dump, tmp_path):

@@ -233,15 +233,28 @@ def test_inner_steps_runs_ordinary_steps():
     {"control": {"control": "on"}},
     {"serve": {"every": 4}}])
 def test_unported_config_raises(settings):
-    """What the port still refuses: [control] and [serve] (ROADMAP
-    A13a), ``server_num > 1`` on ``xla`` (A11) and ``data_plane: xla``
-    with ``transfer: tpu`` (A16)."""
+    """What the port still refuses: ``server_num > 1`` on ``xla`` (A11)
+    and ``data_plane: xla`` with ``transfer: tpu`` (A16).  ``[control]``
+    and ``[serve]``, refused until ROADMAP A13a was ported, now build and
+    train: the model reads the keys JAX's model reads (``every``,
+    ``depth``, ``control``, ``margin``) and ignores the others, as JAX's
+    does."""
     c = ConfigParser().update(CONF)
     for sec, kv in settings.items():
         for key, val in kv.items():
             c.set(sec, key, val)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Word2Vec(config=c, device="cpu")
+    if not ({"control", "serve"} & set(settings)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Word2Vec(config=c, device="cpu")
+        return
+    m = Word2Vec(config=c, device="cpu")
+    sents = corpus(n_sent=10, vocab=20, length=8, seed=2)
+    assert np.isfinite(m.train(sents, niters=1, batch_size=32)).all()
+    serve = settings.get("serve", {})
+    assert m.serve_every == int(serve.get("every", 0))
+    assert (m.serve_publisher is not None) == ("every" in serve)
+    on = settings.get("control", {}).get("control") == "on"
+    assert (m.controller is not None) == on
 
 
 @pytest.mark.parametrize("key,val,rendering", [
