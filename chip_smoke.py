@@ -220,11 +220,34 @@ Phases, each of which raises on a failed check:
    graphed gather path with ``[serve] every`` 0, 8 and 64 and each
    publish's ms.
 
+14. more than one rank process on the card: ``python -m
+   swiftmpi_tpu_torch.launch -np 2 -- python -m
+   swiftmpi_tpu_torch.testing.mp_child w2v`` trains the reference
+   configuration as one data-parallel job (``BATCH / 2`` centers a
+   process, each process's shard of the 800-sentence prefix, 2 epochs,
+   numpy draws), (a) on ``xla`` and (b) on ``tpu`` with 4 shard ranks a
+   process; a child's failure fails the launch and the phase.  Each run
+   against a one-process run of the port over the same global batches
+   and draws (run twice: the second, warm, gives the one-process times
+   and shows how far two one-process runs drift apart): the replicas'
+   per-field sha256 equal, ``timeouts() == 0`` on every process, rank
+   0's table after the first step within the envelope, the loss
+   trajectory within 1e-4 relative, exactly ``PROC_STEP`` launches a
+   step (B5's cross-process form included); printed: global words/s
+   and the host ms a step over the run's second half against the
+   one-process run's, the lockstep's host ms a step, the final tables'
+   gap.  (a) also times B5's cross-process all-gather at the dense
+   plane's and the sparse reconcile's shapes against its bound, its
+   host-ordered form and the host route (device -> host, gloo, host ->
+   device).  (c) ``server_num: 2`` on ``xla`` in one process: every
+   key's rows after a step within the envelope of ``server_num: 1``'s.
+
 The line before the last is the ``{"kernels": [...]}`` summary, each
 kernel's ``launches`` read from the train run of its path (the sent2vec
 cases from the sent2vec inference run, phase 8's, 9's and 10's from
 their paths' train runs, phase 13's from (a)'s run and (c)'s inference
-over the snapshot); the last is
+over the snapshot, phase 14's from (a)'s and (b)'s processes); the last
+is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints neither.
 """
@@ -290,6 +313,9 @@ from swiftmpi_tpu_torch.parameter.sparse_table import (shard_block,
                                                        split_rows)
 from swiftmpi_tpu_torch.testing import faults
 from swiftmpi_tpu_torch.testing.faults import FaultPlan
+from swiftmpi_tpu_torch.testing.mp_child import (first_step_rows,
+                                                 lockstep_epochs,
+                                                 steady_step_ms)
 from swiftmpi_tpu_torch.transfer.api import window_owners
 from swiftmpi_tpu_torch.utils import ConfigParser, reset_global_config
 
@@ -4171,6 +4197,323 @@ def phase_serve(vocab, corpus: np.ndarray, card: str) -> tuple:
                    SERVE_S2V: s2v_counts}
 
 
+# -- phase 14: more than one rank process on the card -------------------------
+
+#: the processes of phase 14, all on the one card, and the shard ranks of
+#: each in its (b) run
+PROCS = 2
+PROC_SHARDS = 4
+#: phase 14's corpus prefix and epochs (each process a shard of it)
+PROC_SENTS = 800
+PROC_ITERS = 2
+#: launches a step of a run across processes, each kernel's (and B5's
+#: cross-process form, ``ring_process``): (a) ``xla``: the h push dense
+#: (B3 with counts, one exchange of planes + counts, B1 over the table),
+#: the v push sparse (B3 folds each process's rows, one exchange, B3 sums
+#: them in process order, B1 on the rows); (b) ``tpu`` at 4 shards a
+#: process: phase 4's sharded step plus one exchange of the owners' sums
+#: a pushed family (both dense at this shape)
+PROC_STEP = {
+    "xla": {"gather": 2, "scatter": 3, "adagrad": 2, "stencil": 0,
+            "ring": 0, "ring_process": 2},
+    "tpu": {"gather": 2, "scatter": 2, "adagrad": 2, "stencil": 0,
+            "ring": 8, "ring_process": 2},
+}
+PROC_PATH = "processes"
+
+
+class _GlobalBatches:
+    """The one-process reference's batcher: each step the processes'
+    batches concatenated, ``n_words`` summed."""
+
+    def __init__(self, epochs, vocab):
+        self.epochs = iter(epochs)
+        self.vocab = vocab
+
+    def epoch(self, batch_size):
+        for parts in next(self.epochs):
+            yield SimpleNamespace(
+                centers=np.concatenate([b.centers for b in parts]),
+                contexts=np.concatenate([b.contexts for b in parts]),
+                ctx_mask=np.concatenate([b.ctx_mask for b in parts]),
+                n_words=sum(b.n_words for b in parts))
+
+
+def _proc_run(label: str, conf: dict, data: Path, time_exchange: bool):
+    """``launch -np PROCS -- mp_child w2v`` on the card; returns every
+    process's JSON, rank 0's table, the launcher's output and its wall
+    seconds.  A failed child fails the launch, and the launch the
+    phase."""
+    out = WORK / "phase14" / label
+    shutil.rmtree(out, ignore_errors=True)
+    spec = {"conf": conf, "data": str(data), "device": DEVICE,
+            "batch_size": BATCH // PROCS, "niters": PROC_ITERS,
+            "out": str(out), "state": True, "time_exchange": time_exchange}
+    spec_path = WORK / "phase14" / f"{label}.json"
+    spec_path.write_text(json.dumps(spec))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "swiftmpi_tpu_torch.launch", "-np",
+         str(PROCS), "--", sys.executable, "-m",
+         "swiftmpi_tpu_torch.testing.mp_child", "w2v", "-spec",
+         str(spec_path)], cwd=ROOT, capture_output=True, text=True,
+        timeout=300, env=dict(os.environ, SMTPU_DIST_TIMEOUT="120"))
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"phase 14 {label}: the launch failed with "
+                             f"rc {res.returncode}:\n{res.stdout[-6000:]}"
+                             f"\n{res.stderr[-3000:]}")
+    got = [json.loads((out / f"w2v_r{r}.json").read_text())
+           for r in range(PROCS)]
+    state = dict(np.load(out / "w2v_state_r0.npz"))
+    first = dict(np.load(out / "w2v_first_step_r0.npz"))
+    return got, (first, state), wall
+
+
+def _hold_processes(label: str, got: list, tables: tuple, ref: Word2Vec,
+                    ref_first: dict, ref_losses: list, steps: int,
+                    transfer: str) -> dict:
+    """The replicas bit-identical, ``timeouts() == 0`` on every process,
+    rank 0's table after the first step within the envelope of the
+    one-process run's, the loss trajectory within 1e-4 relative, the
+    launches exact.  The final tables' gap is reported: over dozens of
+    steps AdaGrad carries the last bits of two summation orders apart
+    (as between two runs of one process, whose atomics sum in no fixed
+    order), so the losses, not the tables, are held there."""
+    first, state = tables
+    shas = [g["sha"] for g in got]
+    if any(s != shas[0] for s in shas):
+        raise AssertionError(f"phase 14 {label}: the replicas differ: "
+                             f"{shas}")
+    if any(g["timeouts"] for g in got):
+        raise AssertionError(f"phase 14 {label}: ring waits timed out: "
+                             f"{[g['timeouts'] for g in got]}")
+    losses = got[0]["losses"]
+    for a, b in zip(losses, ref_losses):
+        if not math.isclose(a, b, rel_tol=1e-4):
+            raise AssertionError(f"phase 14 {label}: loss {losses} vs the "
+                                 f"one-process run's {ref_losses}")
+    gaps, bit_equal = {}, {}
+    for f, v in ref.table.state.items():
+        want = torch.from_numpy(ref_first[f])
+        have = torch.from_numpy(first[f])
+        gaps[f] = _field_gap(f"phase 14 {label}: field {f} after the "
+                             "first step", have, want)
+        bit_equal[f] = float((have.view(torch.int32)
+                              == want.view(torch.int32)).float().mean())
+
+    want_launches = {k: v * steps for k, v in PROC_STEP[transfer].items()}
+    for g in got:
+        if g["launches"] != want_launches:
+            raise AssertionError(f"phase 14 {label}: rank {g['rank']} "
+                                 f"launched {g['launches']}, the path "
+                                 f"gives {want_launches}")
+    return {"first_step_gap": gaps, "first_step_bit_equal_share":
+            bit_equal, "final_gap": _final_gap(state, ref)}
+
+
+def _final_gap(state: dict, ref: Word2Vec) -> dict:
+    """Per field, the largest gap of host rows ``state`` to ``ref``'s
+    table and the share of elements outside the envelope."""
+    out = {}
+    for f, v in ref.table.state.items():
+        want = _global(v)
+        end = (torch.from_numpy(state[f]) - want).abs()
+        out[f] = {"max_abs_gap": end.max().item(),
+                  "share_outside_envelope": float(
+                      (end > 1e-5 + 1e-3 * want.abs()).float().mean())}
+    return out
+
+
+def phase_processes(vocab, corpus: np.ndarray, card: str) -> tuple:
+    """Phase 14: (a) ``xla`` and (b) ``tpu`` (4 shard ranks a process) at
+    ``dp = PROCS`` processes on the card through the launcher, each held
+    against a one-process run of the port over the same global batches
+    and draws; (c) ``server_num: 2`` on ``xla`` against ``server_num: 1``
+    by key.  Returns the cross-process B5 case and its launches."""
+    t0 = time.perf_counter()
+    (WORK / "phase14").mkdir(parents=True, exist_ok=True)
+    prefix = np.ascontiguousarray(corpus[:PROC_SENTS])
+    probe = _model("gather", vocab, "cpu")
+    Bl = BATCH // PROCS
+    epochs = lockstep_epochs(vocab, prefix, probe.window, probe.sample, Bl,
+                             PROCS, PROC_ITERS)
+    steps = sum(len(e) for e in epochs)
+    del probe
+    rng = np.random.default_rng(14)
+    data = {"corpus": prefix, "vocab_keys": vocab.keys,
+            "vocab_counts": vocab.counts}
+    draws_cat = []
+    per_rank = [([], []) for _ in range(PROCS)]
+    for _ in range(steps):
+        js, us = [], []
+        for r in range(PROCS):
+            j = rng.integers(0, len(vocab), (Bl, DEMO_CONF["word2vec"][
+                "negative"]))
+            u = rng.random(j.shape, np.float32)
+            per_rank[r][0].append(j)
+            per_rank[r][1].append(u)
+            js.append(j)
+            us.append(u)
+        draws_cat.append((torch.from_numpy(np.concatenate(js)).to(DEVICE),
+                          torch.from_numpy(np.concatenate(us)).to(DEVICE)))
+    for r in range(PROCS):
+        data[f"j{r}"] = np.stack(per_rank[r][0])
+        data[f"u{r}"] = np.stack(per_rank[r][1])
+    data_path = WORK / "phase14" / "data.npz"
+    np.savez(data_path, **data)
+    print(f"phase 14 set-up {time.perf_counter() - t0:.1f} s ({steps} "
+          f"steps of {PROCS} x {Bl} centers)", flush=True)
+
+    runs, launches = {}, {k: 0 for k in PROC_STEP["xla"]}
+    exchange = None
+    for label, transfer, shards in (("xla", "xla", 1),
+                                    ("tpu", "tpu", PROC_SHARDS)):
+        conf = {**DEMO_CONF, "cluster": {"transfer": transfer,
+                                         "server_num": shards}}
+        got, tables, wall = _proc_run(f"{label}@dp{PROCS}", conf,
+                                      data_path,
+                                      time_exchange=label == "xla")
+        # the one-process run, twice: the second shows how far two runs
+        # of one process drift apart (B3 sums in no fixed order)
+        refs = []
+        for _ in range(2):
+            ref = Word2Vec(config=ConfigParser().update(conf),
+                           device=DEVICE)
+            ref.build_from_vocab(vocab)
+            torch.cuda.synchronize()
+            ref_first, times = {}, []
+            ref_losses = ref.train(
+                batcher=_GlobalBatches(epochs, vocab), batch_size=BATCH,
+                niters=PROC_ITERS, draws=first_step_rows(
+                    iter(draws_cat), ref, ref_first, times))
+            refs.append((ref, ref_first, ref_losses, steady_step_ms(
+                times, time.perf_counter())))
+        ref, ref_first, ref_losses, _ = refs[0]
+        # the second run is warm (the first pays the process's first
+        # launches): its times are the one-process figures
+        warm, ref_steady = refs[1][0], refs[1][3]
+        held = _hold_processes(label, got, tables, ref, ref_first,
+                               ref_losses, steps, transfer)
+        held["one_process_rerun_final_gap"] = _final_gap(
+            {f: _global(v).numpy() for f, v in refs[1][0].table.state.items()},
+            ref)
+        del refs
+        m = got[0]["metrics"]
+        steady = max(g["steady_step_ms"] for g in got)
+        words_step = m["words"] / max(m["steps"], 1)
+        for k, v in got[0]["launches"].items():
+            launches[k] += v
+        if label == "xla":
+            exchange = got[0].get("exchange")
+        runs[label] = {
+            "transfer": transfer, "shards_per_process": shards,
+            "processes": PROCS, "steps": m["steps"],
+            # the second half of the run, past the warm-up
+            "steady_step_ms": steady,
+            "one_process_steady_step_ms": ref_steady,
+            "global_words_per_sec": 1e3 * words_step / steady,
+            "one_process_words_per_sec": 1e3 * words_step / ref_steady,
+            # whole runs, warm-up included
+            "run_words_per_sec": m["words_per_sec"],
+            "one_process_run_words_per_sec":
+                warm.train_metrics["words_per_sec"],
+            "lockstep_host_ms_per_step": [g["metrics"][
+                "lockstep_ms_per_step"] for g in got],
+            "losses": got[0]["losses"], "one_process_losses": ref_losses,
+            "push_paths": m["push_paths"],
+            "launches_per_step": {k: v / max(m["steps"], 1)
+                                  for k, v in got[0]["launches"].items()},
+            "timeouts": [g["timeouts"] for g in got],
+            "launch_wall_s": wall, **held}
+        _json_line({"phase": "processes", "card": card, "run": label,
+                    **runs[label]})
+        del ref, warm
+        torch.cuda.empty_cache()
+    phase_server_num_xla(vocab, corpus, card)
+    if exchange is None:
+        # only a rehearsal on the CPU has no card to time
+        if DEVICE == "cuda":
+            raise AssertionError("phase 14: the xla run timed no exchange")
+        return [], {PROC_PATH: launches}
+    for e in exchange:
+        _json_line({"phase": "processes", "card": card,
+                    "exchange": e["label"], "shape": e["shape"],
+                    "kernel_ms": e["ms"], "bound_ms": e["bound_ms"],
+                    "host_ordered_ms": e["host_ordered_ms"],
+                    "host_route_ms": e["host_route_ms"],
+                    "gloo_cpu_ms": e["plain_ms"],
+                    "max_abs_err": e["max_abs_err"]})
+    if any(e["max_abs_err"] != 0 for e in exchange):
+        raise AssertionError(f"phase 14: the cross-process exchange is not "
+                             f"a copy: {exchange}")
+    dense = exchange[0]
+    case = {"name": "ring_exchange (across processes, all-gather of the "
+                    "dense plane)",
+            "route": "cuda", "source": "swiftmpi_tpu_torch/kernels/csrc/"
+                                       "ring.cu",
+            "replaces": "swiftmpi_tpu/ops/pallas_ring.py:86",
+            "module": ring, "counter": "ring_process", "path": PROC_PATH,
+            "shape": dense["shape"], "max_abs_err": dense["max_abs_err"],
+            "tolerance": "bit for bit (a copy)", "ms": dense["ms"],
+            "plain_ms": dense["plain_ms"], "bytes": dense["bytes"],
+            "flops": 0, "library": "none: NCCL runs no two ranks on one "
+            "card; the host route's ms is on the processes line",
+            "library_ms": None}
+    report_cases([case])
+    print(f"phase 14 {time.perf_counter() - t0:.1f} s", flush=True)
+    return [case], {PROC_PATH: launches}
+
+
+def phase_server_num_xla(vocab, corpus: np.ndarray, card: str) -> None:
+    """(c) ``server_num: 2`` on ``xla`` in one process: the (2 * cap, d)
+    model-axis table, started from ``server_num: 1``'s rows by key and
+    stepped over the same batches and draws, holds every key's rows
+    within the envelope of ``server_num: 1``'s."""
+    models = []
+    for n in (1, 2):
+        conf = {**DEMO_CONF, "cluster": {"transfer": "xla",
+                                         "server_num": n}}
+        models.append(Word2Vec(config=ConfigParser().update(conf),
+                               device=DEVICE).build_from_vocab(vocab))
+    one, two = models
+    slots1 = torch.from_numpy(one.table.key_index.lookup(
+        vocab.keys)).long().to(one.device)
+    slots2 = torch.from_numpy(two.table.key_index.lookup(
+        vocab.keys)).long().to(two.device)
+    for f in one.table.state:
+        two.table.state[f][slots2] = one.table.state[f][slots1]
+    batches = _batches(vocab, corpus, one, 4)
+    rng = np.random.default_rng(15)
+    gaps = None
+    for b in batches:
+        d = _draws(one, len(b), rng)
+        one.step_batch(b, draws=d)
+        two.step_batch(b, draws=d)
+        if gaps is None:
+            # one step: within the envelope; later steps carry B3's
+            # summation order through AdaGrad, reported
+            gaps = {f: _field_gap(f"phase 14 (c): field {f}",
+                                  two.table.state[f][slots2].cpu(),
+                                  one.table.state[f][slots1].cpu())
+                    for f in one.table.state}
+    torch.cuda.synchronize()
+    final = {}
+    for f in one.table.state:
+        a = two.table.state[f][slots2].cpu()
+        b = one.table.state[f][slots1].cpu()
+        final[f] = {"max_abs_gap": (a - b).abs().max().item(),
+                    "share_outside_envelope": float(
+                        ((a - b).abs() > 1e-5 + 1e-3 * b.abs()).float()
+                        .mean())}
+    _json_line({"phase": "processes", "card": card, "run": "server_num_2",
+                "table_rows": [one.table.capacity, two.table.capacity],
+                "shards": [1, two.table.key_index.num_shards],
+                "steps": len(batches), "first_step_gap_by_key": gaps,
+                "final_gap_by_key": final,
+                "push_paths": dict(two.transfer.push_paths)})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4271,10 +4614,13 @@ def main() -> int:
     serve_cases, serve_counts = phase_serve(vocab, corpus, card)
     cases += serve_cases
     counts.update(serve_counts)
+    proc_cases, proc_counts = phase_processes(vocab, corpus, card)
+    cases += proc_cases
+    counts.update(proc_counts)
 
     summary = []
     for c in cases:
-        name = c["module"].__name__.rsplit(".", 1)[-1]
+        name = c.get("counter", c["module"].__name__.rsplit(".", 1)[-1])
         summary.append({
             "name": c["name"], "route": c["route"], "source": c["source"],
             "replaces": c["replaces"], "launches": counts[c["path"]][name],

@@ -13,7 +13,14 @@ Entry points run on the CUDA device unless the caller passes
 On the CPU every kernel wrapper runs its plain PyTorch version.
 """
 
-from swiftmpi_tpu_torch.device import resolve_device
-
 __all__ = ["resolve_device"]
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # torch is imported at first use, not with the package: the launcher
+    # (``swiftmpi_tpu_torch.launch``) starts without it
+    if name == "resolve_device":
+        from swiftmpi_tpu_torch.device import resolve_device
+        return resolve_device
+    raise AttributeError(name)

@@ -23,6 +23,13 @@ when its library builds, as the JAX CLI picks it, else through the Python
 loader; the log names the loader.  ``[worker] pipeline: K`` and
 ``inner_steps: N`` in the conf take effect through ``Word2Vec.train``.
 
+Under the launcher (``python -m swiftmpi_tpu_torch.launch -np N -- python
+-m swiftmpi_tpu_torch.apps.w2v_main ...``) every process joins the
+process group through the model's ``Cluster.initialize()``, loads the
+whole corpus through the Python loader (so every process builds the same
+vocab) and trains on its own shard of the sentences, one data-parallel
+job; process 0 writes ``-output``.
+
     python -m swiftmpi_tpu_torch.apps.w2v_main -config demo.conf \\
         -data corpus.txt -niters 1 -output vectors.txt
 """
@@ -31,6 +38,8 @@ from __future__ import annotations
 
 import sys
 
+from swiftmpi_tpu_torch.cluster.bootstrap import (is_writer,
+                                                  shutdown_distributed)
 from swiftmpi_tpu_torch.data import native
 from swiftmpi_tpu_torch.data.text import load_corpus
 from swiftmpi_tpu_torch.io.resilience import train_with_resume
@@ -49,6 +58,7 @@ def main(argv=None) -> int:
         # clean-teardown contract)
         from swiftmpi_tpu_torch import obs
         obs.uninstall_tracer()
+        shutdown_distributed()
 
 
 def _main(argv=None) -> int:
@@ -91,7 +101,7 @@ def _main(argv=None) -> int:
     model = Word2Vec(device=device)
     niters = int(cmd.getValue("niters", "1"))
     corpus, batcher = None, None
-    if native.available():
+    if native.available() and model.cluster.dp == 1:
         # C++ end to end: vocab, corpus mapping and batch assembly never
         # touch the Python tokenizer
         vocab, tokens, offsets = native.load_corpus_native(
@@ -102,7 +112,10 @@ def _main(argv=None) -> int:
         log.info("using the native C++ loader (prefetching)")
         model.build_from_vocab(vocab)
     else:
-        log.info("using the Python loader")
+        log.info("using the Python loader%s", " (process %d of %d: its "
+                 "shard of the sentences)" % (model.cluster.dp_rank,
+                                             model.cluster.dp)
+                 if model.cluster.dp > 1 else "")
         corpus = load_corpus(cmd.getValue("data"), mode=mode,
                              min_sentence_length=model.min_sentence_length)
         model.build(corpus)
@@ -120,7 +133,10 @@ def _main(argv=None) -> int:
         log.info("checkpoint already at %d iters; nothing to train", niters)
     if cmd.hasParameter("output"):
         n = model.save(cmd.getValue("output"))
-        log.info("wrote %d embeddings -> %s", n, cmd.getValue("output"))
+        if is_writer():
+            log.info("wrote %d embeddings -> %s", n, cmd.getValue("output"))
+        else:
+            log.info("computed %d embeddings; process 0 writes them", n)
     return 0
 
 

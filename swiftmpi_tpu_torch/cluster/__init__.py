@@ -1,17 +1,21 @@
-"""Cluster layer of the port: rank layout, key routing, orchestrator."""
-
-from swiftmpi_tpu_torch.cluster.hashfrag import HashFrag
-from swiftmpi_tpu_torch.cluster.mesh import (SHARD_AXIS, RankLayout,
-                                             mesh_info, ps_mesh)
+"""Cluster layer of the port: bootstrap, rank layout, key routing,
+orchestrator."""
 
 __all__ = ["Cluster", "HashFrag", "RankLayout", "SHARD_AXIS", "mesh_info",
            "ps_mesh"]
 
+#: exported name -> its module.  Imported at first use: parameter imports
+#: hashfrag from here (Cluster pulls in parameter and transfer), and the
+#: launcher imports the bootstrap without torch
+_EXPORTS = {"Cluster": "cluster", "HashFrag": "hashfrag",
+            "RankLayout": "mesh", "SHARD_AXIS": "mesh", "mesh_info": "mesh",
+            "ps_mesh": "mesh"}
+
 
 def __getattr__(name):
-    # Cluster pulls in parameter and transfer, and parameter imports
-    # hashfrag from here: import it lazily to keep the cycle open
-    if name == "Cluster":
-        from swiftmpi_tpu_torch.cluster.cluster import Cluster
-        return Cluster
-    raise AttributeError(name)
+    mod = _EXPORTS.get(name)
+    if mod is None:
+        raise AttributeError(name)
+    import importlib
+    return getattr(importlib.import_module(
+        f"swiftmpi_tpu_torch.cluster.{mod}"), name)

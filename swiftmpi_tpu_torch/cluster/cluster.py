@@ -10,7 +10,9 @@ dumps the registered tables as text.
 Config surface (reference cluster.h:13-25 + demo.conf):
 
 * ``server_num`` — number of table shards; absent means one per visible
-  device.
+  device.  On ``xla`` the n model-axis shards are one ``(n * cap, d)``
+  tensor per field with ``KeyIndex(n, cap)``'s slot layout, so a slot
+  means what it means in the JAX package's model-sharded table.
 * ``transfer`` — ``xla`` (one device, no routing), ``tpu`` (the sharded
   parameter server: bucketed request/response routing between
   ``server_num`` ranks), ``hybrid`` (the same rank layout as ``tpu`` for
@@ -21,14 +23,23 @@ Config surface (reference cluster.h:13-25 + demo.conf):
 * ``data_plane`` — ``auto``/``pallas`` run the hand-written kernels;
   ``xla`` (the JAX package's library route) is not ported.
 
-All ranks of a layout must live on one device for now: shards on
-different cards and the multi-process bootstrap are ROADMAP A11.
+``initialize()`` first joins the process group the launcher names
+(``cluster/bootstrap.py``, the ``MPI_Init`` of the reference).  In a run
+of ``dp`` processes every process holds a full table replica, on ``xla``
+or over its own ``server_num`` ranks on ``tpu`` (the data axis, JAX's
+hybrid mesh), and the transfers reconcile every push across the
+processes; ``hybrid`` and ``local`` under ``dp > 1`` are ROADMAP A11e.
+All ranks of a layout must live on one device: shards on different cards
+are ROADMAP A11d.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence
 
+from swiftmpi_tpu_torch.cluster.bootstrap import (init_distributed,
+                                                  process_count,
+                                                  process_index)
 from swiftmpi_tpu_torch.cluster.hashfrag import HashFrag
 from swiftmpi_tpu_torch.cluster.mesh import (mesh_info, ps_mesh,
                                              visible_devices)
@@ -42,6 +53,16 @@ from swiftmpi_tpu_torch.utils.logger import get_logger
 log = get_logger(__name__)
 
 DATA_PLANE_MODES = ("auto", "pallas", "xla")
+
+
+def refuse_processes(cluster, model: str) -> None:
+    """Raise for a model not yet held against the JAX package across
+    processes (ROADMAP A11e) when ``cluster`` spans several."""
+    dp = cluster.dp
+    if dp > 1:
+        raise NotImplementedError(
+            f"{model} across {dp} processes is not ported yet "
+            "(ROADMAP A11e); word2vec is")
 
 
 class Cluster:
@@ -60,6 +81,11 @@ class Cluster:
 
     # -- bring-up (cluster.h:27-30) ----------------------------------------
     def initialize(self) -> "Cluster":
+        # MPI_Init equivalent: join the process group the launcher named
+        # (a no-op otherwise; see cluster/bootstrap.py)
+        multi_process = init_distributed(self.config)
+        #: processes holding a replica each (the data axis), and this one
+        self.dp, self.dp_rank = process_count(), process_index()
         g = self.config.get_or
         devices = self.devices = tuple(visible_devices()
                                        if self._devices is None
@@ -70,25 +96,29 @@ class Cluster:
         if self.data_plane not in DATA_PLANE_MODES:
             raise ValueError(f"[cluster] data_plane must be one of "
                              f"{DATA_PLANE_MODES}, got {self.data_plane!r}")
+        if self.dp > 1 and backend in ("hybrid", "local"):
+            raise NotImplementedError(
+                f"transfer: {backend} across {self.dp} processes (the hot "
+                "head's reconcile over the data axis) is not ported yet "
+                "(ROADMAP A11e); use xla or tpu")
         if backend in ("tpu", "hybrid"):
             # explicit routing: every rank is worker + server; hybrid's
-            # tail IS the tpu routing
-            self.mesh = ps_mesh(n_servers, devices)
+            # tail IS the tpu routing.  Multi-process: the shard axis stays
+            # within the process, the data axis spans the processes
+            self.mesh = ps_mesh(n_servers, devices, hybrid=multi_process)
             if len(self.mesh.distinct_devices) > 1:
                 raise NotImplementedError(
                     f"transfer: {backend} over "
                     f"{len(self.mesh.distinct_devices)} "
                     "devices: shards on different cards are not ported yet "
-                    "(ROADMAP A11); pass one device")
+                    "(ROADMAP A11d); pass one device")
             kwargs = {"mesh": self.mesh, "data_plane": self.data_plane}
         else:
-            if backend == "xla" and n_servers != 1:
-                raise NotImplementedError(
-                    f"[cluster] server_num: {n_servers} with transfer: xla "
-                    "(the model-axis sharded table) is not ported yet "
-                    "(ROADMAP A11); set transfer: tpu for the sharded "
-                    "parameter server, or server_num: 1")
-            # one device, no routing: the table is one tensor per field
+            if n_servers < 1:
+                raise ValueError(f"[cluster] server_num must be >= 1, got "
+                                 f"{n_servers}")
+            # one device, no routing: the table is one tensor per field,
+            # the n model-axis shards its consecutive slices
             self.mesh = None
             kwargs = {}
         self.device = devices[0] if self.mesh is None \
@@ -98,12 +128,22 @@ class Cluster:
                     if self.config.has("server", "frag_num") else None)
         self.hashfrag = HashFrag(n_servers, frag_num)
         self.transfer = get_transfer(backend, **kwargs)
+        self.transfer.set_data_axis(self.dp, self.dp_rank)
         self._initialized = True
-        log.info("cluster up: %s transfer=%s",
-                 mesh_info(self.mesh) if self.mesh is not None
-                 else {"n_devices": 1, "devices": [str(self.device)]},
-                 backend)
+        log.info("cluster up: %s transfer=%s", self.info(), backend)
         return self
+
+    def info(self) -> dict:
+        """The layout for the bring-up log: the rank layout's axes, or the
+        one device of ``xla`` with its model-axis shards; the data axis
+        when there are several processes."""
+        if self.mesh is not None:
+            return mesh_info(self.mesh)
+        names, sizes = ["model"], [self.n_servers]
+        if self.dp > 1:
+            names, sizes = ["data"] + names, [self.dp] + sizes
+        return {"axis_names": names, "axis_sizes": sizes, "n_devices": 1,
+                "devices": [str(self.device)], "dp_rank": self.dp_rank}
 
     # -- tables ------------------------------------------------------------
     def create_table(self, name: str, access: AccessMethod,

@@ -7,8 +7,14 @@ Every rank plays both roles, worker (it holds a slice of the batch) and
 server (it holds a table shard), the reference's default deployment
 (cluster/cluster.h:65-71).  Ranks are logical: several may share one
 device, so ``n`` shards run on one card, each with its own table rows and
-buffers.  Only the 1-D ``shard`` layout is ported; the data axis across
-processes and the ``torch.distributed`` bootstrap are not (ROADMAP A11).
+buffers.
+
+A multi-process run adds the data axis, as JAX's ``ps_mesh(hybrid=True)``
+does: ``dp`` processes (``dp_rank`` this one), each holding a full table
+replica over its own ``n`` shard ranks.  The shard axis stays within a
+process; only the push's reconcile crosses processes (the transfers'
+``dp`` path, through ``parallel/collectives.py``).  Shards on different
+cards are ROADMAP A11d.
 """
 
 from __future__ import annotations
@@ -18,15 +24,19 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+DATA_AXIS = "data"
 SHARD_AXIS = "shard"
 
 
 @dataclass(frozen=True)
 class RankLayout:
-    """``devices[r]`` is the device of rank ``r``."""
+    """``devices[r]`` is the device of rank ``r``; ``dp`` processes hold a
+    replica each, this one is ``dp_rank``."""
 
     devices: Tuple[torch.device, ...]
     axis: str = SHARD_AXIS
+    dp: int = 1
+    dp_rank: int = 0
 
     @property
     def n(self) -> int:
@@ -57,10 +67,12 @@ def visible_devices() -> Tuple[torch.device, ...]:
 
 
 def ps_mesh(n: Optional[int] = None,
-            devices: Optional[Sequence] = None) -> RankLayout:
+            devices: Optional[Sequence] = None,
+            hybrid: bool = False) -> RankLayout:
     """``n`` ranks (default: one per device) dealt over ``devices``
     (default: every visible card) round-robin: rank ``r`` lives on
-    ``devices[r % len(devices)]``."""
+    ``devices[r % len(devices)]``.  With ``hybrid`` in a multi-process
+    run, the layout gains the data axis: one replica per process."""
     devs = tuple(torch.device(d) for d in (
         visible_devices() if devices is None else devices))
     if not devs:
@@ -68,11 +80,21 @@ def ps_mesh(n: Optional[int] = None,
     n = len(devs) if n is None else int(n)
     if n <= 0:
         raise ValueError("ps_mesh needs a positive rank count")
-    return RankLayout(tuple(devs[r % len(devs)] for r in range(n)))
+    dp, dp_rank = 1, 0
+    if hybrid:
+        from swiftmpi_tpu_torch.cluster.bootstrap import (process_count,
+                                                          process_index)
+        dp, dp_rank = process_count(), process_index()
+    return RankLayout(tuple(devs[r % len(devs)] for r in range(n)),
+                      dp=dp, dp_rank=dp_rank)
 
 
 def mesh_info(mesh: RankLayout) -> Dict[str, object]:
     """Layout introspection for the bring-up log."""
-    return {"axis_names": [mesh.axis], "axis_sizes": [mesh.n],
+    names, sizes = [mesh.axis], [mesh.n]
+    if mesh.dp > 1:
+        names, sizes = [DATA_AXIS] + names, [mesh.dp] + sizes
+    return {"axis_names": names, "axis_sizes": sizes,
             "n_devices": len(mesh.distinct_devices),
-            "devices": [str(d) for d in mesh.distinct_devices]}
+            "devices": [str(d) for d in mesh.distinct_devices],
+            "dp_rank": mesh.dp_rank}

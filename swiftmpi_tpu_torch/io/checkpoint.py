@@ -37,6 +37,11 @@ vanish, or a resume would start from zero residuals under another
 ``[cluster] wire_quant``); a table with a ``@rowver`` plane restored from
 a checkpoint without one keeps the plane at zero (version 0: never
 applied), and a checkpoint's plane arms a table without one.
+
+In a run of several processes every process holds the same replica and
+computes each dump and checkpoint; only process 0
+(``cluster.bootstrap.is_writer``) writes it, as the JAX package does.
+Every process loads.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ import numpy as np
 import torch
 
 from swiftmpi_tpu_torch import obs
+from swiftmpi_tpu_torch.cluster.bootstrap import is_writer
 from swiftmpi_tpu_torch.parameter.key_index import CapacityError
 from swiftmpi_tpu_torch.parameter.sparse_table import (ROWVER_KEY,
                                                        SparseTable, hot_name,
@@ -126,10 +132,15 @@ def dump_table_text(table: SparseTable, path: str,
             idx = torch.from_numpy(slots).to(table.device)
             arrs = [tensor_to_numpy(table.unified_rows(f, idx), upcast=True)
                     for f in fields]
+            # every process holds the same replica: process 0 writes
+            if not is_writer():
+                return len(keys)
             return native.dump_rows_native(path, keys, arrs)
         formatter = default_formatter(fields)
     rows = {f: table.unified_rows_host(f, upcast=True)
             for f in table.access.fields}
+    if not is_writer():
+        return len(table.key_index)
     n = 0
     with open(path, "w") as f:
         for key, slot in table.key_index.items():
@@ -416,6 +427,8 @@ def _save_checkpoint(table: SparseTable, path: str, extra, retain: int
     payload["n_hot"] = np.int64(table.n_hot)
     for k, v in (extra or {}).items():
         payload[f"extra__{k}"] = np.asarray(v)
+    if not is_writer():        # every process computed; process 0 writes
+        return
     dst = npz_path(path)
     rotate_before_write(dst, retain)
     atomic_savez(dst, payload)

@@ -22,9 +22,7 @@ n``'s output for s = 0..n-1 and publishes a per-step flag at the receiver
 rank of the card) is enqueued after the sends, the ``start()`` ...
 ``wait()`` split of the Pallas kernel, so a waiter never holds the card
 against a sender that is not scheduled yet.  Here the n ranks are logical
-and share one card and one stream, so the waits find their flags set; the
-same kernels work across peer-mapped cards, which is not run yet (ROADMAP
-A11).  Sources and outputs go to the kernel as base + stride, so an
+and share one card and one stream, so the waits find their flags set.  Sources and outputs go to the kernel as base + stride, so an
 exchange uploads nothing and allocates no host tensor.  Blocks are copied
 16 bytes at a time, through TMA bulk copies where source and destination
 share their alignment.  Bound on the card: bytes — every operand byte read
@@ -40,13 +38,39 @@ words, or that does not start on a word, is refused.
 Both forms run the plain version for CPU tensors and launch the kernel for
 CUDA tensors, raising on what the kernel does not take; there is no
 fallback between the two.
+
+**Across processes** (the data axis of a multi-process run,
+:class:`ProcessRing`): the same entry point, one launch pair per exchange
+with ``senders = 1`` and ``first = dp_rank``, between the ``dp``
+processes that share the card.  Each process allocates its receive
+buffers and its ``(dp + 1)`` flag array once, shares them through CUDA
+IPC (``torch.multiprocessing.reductions.reduce_tensor``, the handles
+traded through the process group's store) and maps its peers' with
+``rebuild_cuda_tensor``; the device arrays ``outs`` (every process's
+receive buffer, peers' mapped pointers included) and ``flags`` give the
+kernel every address.  The receive buffers are two, used by the
+exchange's epoch parity, and each exchange copies its result out on the
+stream right after its wait: a peer's send of exchange e + 2 into a
+buffer waits, through its own wait of e + 1, for this process's send of
+e + 1, which the stream runs after the copy out of e.  Two forms:
+:func:`process_all_to_all` (block j of the ``(dp, C, ...)`` operand goes
+to process j) and :func:`process_all_gather` (every process's tensor to
+every process), which sends ``dp`` copies of the one tensor: the entry
+point addresses block j at j block lengths from the operand, so a block
+stride of 0 would need another kernel.  Two processes on one card
+time-slice their kernels (no MPS is required): a waiter can spin until
+the peer's send is scheduled, bounded by ``_MAX_POLLS`` like every wait.
+The plain version is ``torch.distributed``'s ``all_to_all_single`` and
+``all_gather`` over gloo on CPU tensors; a CUDA tensor goes through the
+kernel or the call raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, List, Sequence
+import pickle
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -58,6 +82,9 @@ launches = 0
 #: bytes of the operands the launches exchanged (every rank's ``(n, C,
 #: ...)`` blocks, its own block included) since the process began
 operand_bytes = 0
+#: exchanges across processes (:class:`ProcessRing`) launched since the
+#: last reset: one send launch and one wait launch each
+process_launches = 0
 
 _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
@@ -138,9 +165,11 @@ _rings: Dict[tuple, _Ring] = {}
 
 
 def timeouts() -> int:
-    """Waits that gave up since the process began (reads the card; for
-    tests and smoke runs, not for the training loop)."""
-    return int(sum(int(ring.flags[:, -1].sum()) for ring in _rings.values()))
+    """Waits that gave up since the process began, in this process's
+    in-process and cross-process exchanges (reads the card; for tests and
+    smoke runs, not for the training loop)."""
+    return int(sum(int(ring.flags[:, -1].sum()) for ring in _rings.values())
+               + sum(int(pr.flags[-1]) for pr in _process_rings.values()))
 
 
 def _check_stacked(x: torch.Tensor) -> int:
@@ -225,8 +254,221 @@ def ring_exchange(operands: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         if x.device != dev:
             raise NotImplementedError(
                 "ring_exchange: ranks on different devices need peer "
-                "mappings, which are not ported yet (ROADMAP A11)")
+                "mappings, which are not ported yet (ROADMAP A11d)")
         _check_dtype(x.dtype)
         if not x.is_contiguous():
             raise TypeError("ring_exchange needs contiguous operands")
     return list(ring_exchange_stacked(torch.stack(list(operands))).unbind(0))
+
+
+# -- across processes ---------------------------------------------------------
+
+#: how a cross-process exchange orders its wait after the peers' sends
+ORDERS = ("spin", "host")
+#: the order of the rings :func:`process_ring` makes
+PROCESS_ORDER = "spin"
+
+
+class ProcessRing:
+    """The persistent half of the exchange between the ``dp`` processes of
+    one card: this process's flag array (``dp`` epochs + a timeout count)
+    and two receive buffers, its peers' mapped through CUDA IPC, the
+    device arrays of their addresses, the arrival counters and the
+    epoch.  The receive buffers grow (in every process at the same
+    exchange, since every process exchanges the same shapes) by trading
+    new handles.
+
+    ``order``: ``spin`` (the path's) lets the wait kernel poll its flags
+    on the card; ``host`` orders the exchange from the host instead: the
+    wait is pointed at a flag array that is always satisfied, and after
+    the launch the host waits for its own send to finish, then meets the
+    peers at a barrier of the process group, past which every peer's
+    send has landed.  ``tag`` keeps two rings' store keys apart."""
+
+    def __init__(self, dp: int, rank: int, store, device: torch.device,
+                 order: str = "spin", tag: str = "ring"):
+        if order not in ORDERS:
+            raise ValueError(f"order must be one of {ORDERS}, got {order!r}")
+        if torch.cuda.get_allocator_backend() != "native":
+            raise RuntimeError("the cross-process exchange shares its "
+                               "buffers through CUDA IPC, which needs the "
+                               "native caching allocator")
+        self.dp, self.rank, self.store = dp, rank, store
+        self.order, self.tag = order, tag
+        self.device = torch.device(device)
+        self.exchange = build.function("ring", "smtpu_ring_exchange",
+                                       _ARGTYPES)
+        self.epoch = 0
+        self.generation = 0
+        self.flags = torch.zeros(dp + 1, dtype=torch.int64, device=device)
+        self.done = torch.zeros(dp, dtype=torch.int32, device=device)
+        self._peer_flags = self._share("flags", self.flags)
+        ptrs = [t.data_ptr() for t in self._peer_flags]
+        if order == "host":
+            # this process's own entry: epochs that every wait meets (the
+            # local send stamps its own slot before the wait reads it)
+            self._satisfied = torch.full((dp + 1,), 1 << 62,
+                                         dtype=torch.int64, device=device)
+            self._satisfied[dp] = 0
+            ptrs[rank] = self._satisfied.data_ptr()
+        self.flag_ptrs = torch.tensor(ptrs, dtype=torch.int64).to(device)
+        self.capacity = 0          # bytes of one receive buffer
+        self.recv: Optional[torch.Tensor] = None
+
+    def _share(self, name: str, t: torch.Tensor) -> List[torch.Tensor]:
+        """Publish ``t``'s IPC handle under ``name`` and map every peer's:
+        the dp tensors in process order, this process's own ``t``."""
+        from torch.multiprocessing.reductions import (rebuild_cuda_tensor,
+                                                      reduce_tensor)
+        key = f"smtpu/{self.tag}/{name}/{self.generation}"
+        self.store.set(f"{key}/{self.rank}",
+                       pickle.dumps(reduce_tensor(t)[1]))
+        out = []
+        for r in range(self.dp):
+            if r == self.rank:
+                out.append(t)
+                continue
+            out.append(rebuild_cuda_tensor(
+                *pickle.loads(self.store.get(f"{key}/{r}"))))
+        return out
+
+    def _ensure(self, nbytes: int) -> None:
+        """Receive buffers of at least ``nbytes`` each."""
+        if nbytes <= self.capacity:
+            return
+        cap = max(nbytes, 2 * self.capacity, 1 << 20)
+        cap = -(-cap // 256) * 256
+        self.generation += 1
+        torch.cuda.synchronize(self.device)   # the old buffers are done
+        self.recv = torch.empty(2 * cap // 4, dtype=torch.int32,
+                                device=self.device)
+        peers = self._share("recv", self.recv)
+        self.outs = [torch.tensor([p.data_ptr() + parity * cap
+                                   for p in peers],
+                                  dtype=torch.int64).to(self.device)
+                     for parity in (0, 1)]
+        self._peer_recv = peers
+        self.capacity = cap
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``: this process's ``(dp, C, ...)`` operand, block j bound
+        for process j; returns the ``(dp, C, ...)`` blocks received, block
+        j from process j, as a new tensor."""
+        global process_launches
+        _check_dtype(x.dtype)
+        if x.dim() < 1 or x.shape[0] != self.dp:
+            raise ValueError(f"process exchange: leading dim of "
+                             f"{tuple(x.shape)} != {self.dp} processes")
+        if not x.is_contiguous():
+            raise TypeError("process exchange needs a contiguous operand")
+        if x.device != self.device:
+            raise ValueError(f"process exchange: operand on {x.device}, "
+                             f"the ring on {self.device}")
+        es = x.element_size()
+        block_bytes = math.prod(x.shape[1:]) * es
+        if block_bytes % 4 or x.data_ptr() % 4:
+            raise ValueError(f"process exchange: a block of "
+                             f"{tuple(x.shape[1:])} {x.dtype} is not whole "
+                             "4-byte words")
+        if block_bytes == 0:
+            return torch.empty_like(x)
+        nbytes = self.dp * block_bytes
+        self._ensure(nbytes)
+        self.epoch += 1
+        parity = self.epoch % 2
+        rc = self.exchange(self.dp, 1, self.rank, 1, block_bytes,
+                           x.data_ptr(), 0, None, 0,
+                           self.outs[parity].data_ptr(),
+                           self.flag_ptrs.data_ptr(), self.done.data_ptr(),
+                           self.epoch, _MAX_POLLS,
+                           torch.cuda.current_stream(
+                               self.device).cuda_stream)
+        build.check_launch("process ring_exchange", rc)
+        process_launches += 1
+        if self.order == "host":
+            # this process's send done, then every peer's: the barrier
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+            ev.synchronize()
+            import torch.distributed as dist
+            dist.barrier()
+        got = self.recv.view(torch.uint8)[parity * self.capacity:
+                                          parity * self.capacity + nbytes]
+        # the copy out, on the stream before this process's next send
+        return got.view(x.dtype).view(x.shape).clone()
+
+
+_process_rings: Dict[torch.device, ProcessRing] = {}
+
+
+def process_ring(device) -> ProcessRing:
+    """This process's :class:`ProcessRing` on ``device``, made at first use
+    (by every process at the same exchange) from the process group."""
+    from swiftmpi_tpu_torch.cluster import bootstrap
+    device = torch.device(device)
+    ring = _process_rings.get(device)
+    if ring is None:
+        if bootstrap.store() is None:
+            raise RuntimeError("the cross-process exchange needs the "
+                               "process group (launch the program with "
+                               "swiftmpi_tpu_torch.launch)")
+        ring = _process_rings[device] = ProcessRing(
+            bootstrap.process_count(), bootstrap.process_index(),
+            bootstrap.store(), device, order=PROCESS_ORDER)
+    return ring
+
+
+def close_process_rings() -> None:
+    """Drop the cross-process rings and their mappings (at shutdown)."""
+    if _process_rings:
+        torch.cuda.synchronize()
+    _process_rings.clear()
+
+
+def _group_size() -> int:
+    import torch.distributed as dist
+    return dist.get_world_size()
+
+
+def process_all_to_all_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version over gloo: ``x`` a CPU ``(dp, C, ...)`` tensor."""
+    import torch.distributed as dist
+    if x.shape[0] != _group_size():
+        raise ValueError(f"process exchange: leading dim of "
+                         f"{tuple(x.shape)} != {_group_size()} processes")
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.contiguous())
+    return out
+
+
+def process_all_gather_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version over gloo: every process's CPU tensor, stacked in
+    process order."""
+    import torch.distributed as dist
+    parts = [torch.empty_like(x) for _ in range(_group_size())]
+    dist.all_gather(parts, x.contiguous())
+    return torch.stack(parts)
+
+
+def process_all_to_all(x: torch.Tensor) -> torch.Tensor:
+    """``x``: this process's ``(dp, C, ...)`` operand, block j bound for
+    process j.  Returns the ``(dp, C, ...)`` blocks received, block j from
+    process j: gloo for a CPU tensor, the kernel for a CUDA one."""
+    if x.device.type == "cpu":
+        return process_all_to_all_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"process exchange: unsupported device {x.device}")
+    return process_ring(x.device).all_to_all(x)
+
+
+def process_all_gather(x: torch.Tensor) -> torch.Tensor:
+    """Every process's ``x`` (one shape everywhere), stacked ``(dp, ...)``
+    in process order: gloo for a CPU tensor, the kernel for a CUDA one
+    (an all-to-all of dp copies of ``x``)."""
+    if x.device.type == "cpu":
+        return process_all_gather_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"process exchange: unsupported device {x.device}")
+    ring = process_ring(x.device)
+    return ring.all_to_all(x.unsqueeze(0).expand(ring.dp, *x.shape)
+                           .contiguous())

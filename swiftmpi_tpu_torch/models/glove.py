@@ -59,6 +59,7 @@ import torch
 
 from swiftmpi_tpu_torch import obs
 from swiftmpi_tpu_torch.cluster import Cluster
+from swiftmpi_tpu_torch.cluster.cluster import refuse_processes
 from swiftmpi_tpu_torch.data.text import Vocab, build_vocab
 from swiftmpi_tpu_torch.device import resolve_device
 from swiftmpi_tpu_torch.io.checkpoint import dump_table_text
@@ -163,6 +164,7 @@ class GloVe:
         self.device = resolve_device(device)
         self.cluster = cluster or Cluster(
             self.config, devices=[self.device]).initialize()
+        refuse_processes(self.cluster, "GloVe")
         self.access = glove_access(lr, self.len_vec)
         self.transfer = self.cluster.transfer
         self.seed = seed

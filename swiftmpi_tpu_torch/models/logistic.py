@@ -67,6 +67,7 @@ import numpy as np
 import torch
 
 from swiftmpi_tpu_torch.cluster import Cluster
+from swiftmpi_tpu_torch.cluster.cluster import refuse_processes
 from swiftmpi_tpu_torch.data.libsvm import (CSRData, iter_minibatches,
                                             load_data)
 from swiftmpi_tpu_torch.device import resolve_device
@@ -107,6 +108,7 @@ class LogisticRegression:
         self.device = resolve_device(device)
         self.cluster = cluster or Cluster(
             self.config, devices=[self.device]).initialize()
+        refuse_processes(self.cluster, "logistic regression")
         self.access = lr_access(lr)
         self.table = self.cluster.create_table(
             "lr", self.access, capacity_per_shard, seed=seed)

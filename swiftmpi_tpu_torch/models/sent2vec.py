@@ -59,6 +59,7 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from swiftmpi_tpu_torch.cluster.cluster import refuse_processes
 from swiftmpi_tpu_torch.convert import tensor_from_numpy
 from swiftmpi_tpu_torch.data.text import Vocab, bkdr_hash, tokenize
 from swiftmpi_tpu_torch.kernels.gather import masked_gather
@@ -88,6 +89,7 @@ class Sent2Vec:
         """``word_model``: a Word2Vec whose table holds the frozen word
         vectors (train it, or ``build_word_model_from_dump``); inference
         runs on its device."""
+        refuse_processes(word_model.cluster, "sent2vec")
         self.config = config if config is not None else word_model.config
         g = self.config.get_or
         self.window = g("word2vec", "window", 4).to_int32()

@@ -173,6 +173,8 @@ from swiftmpi_tpu_torch.control import (Controller, ControlSettings,
 from swiftmpi_tpu_torch.data.text import (CBOWBatch, CBOWBatcher,
                                           StencilBatch, Vocab, build_vocab,
                                           load_corpus)
+from swiftmpi_tpu_torch.data.distributed import (DistributedBatcher,
+                                                 shard_sentences)
 from swiftmpi_tpu_torch.data.native import NativeCBOWBatcher
 from swiftmpi_tpu_torch.device import resolve_device
 from swiftmpi_tpu_torch.io.checkpoint import (dump_table_text,
@@ -187,6 +189,7 @@ from swiftmpi_tpu_torch.ops.sampling import (alias_draws,
                                              sample_alias_from_draws,
                                              sample_alias_slots_from_draws)
 from swiftmpi_tpu_torch.ops.sigmoid import sigmoid_clipped
+from swiftmpi_tpu_torch.parallel.collectives import host_psum
 from swiftmpi_tpu_torch.parameter import SparseTable, w2v_access
 from swiftmpi_tpu_torch.parameter.key_index import (CapacityError,
                                                     HotColdPartition,
@@ -521,10 +524,12 @@ class Word2Vec:
             self.resolved_rendering = ("dense" if self.dense_logits
                                        else "gather")
         self.device = resolve_device(device)
-        # one device holds the batch, the step's arithmetic and, for now,
-        # every rank of the layout (shards on different cards: ROADMAP A11)
+        # one device holds the batch, the step's arithmetic and every rank
+        # of the layout (shards on different cards: ROADMAP A11d); the
+        # cluster joins the launcher's process group first
         self.cluster = cluster or Cluster(
             self.config, devices=[self.device]).initialize()
+        self._check_processes()
         self.access = w2v_access(server_lr, self.len_vec,
                                  param_dtype=self.param_dtype)
         self.transfer = self.cluster.transfer
@@ -612,6 +617,27 @@ class Word2Vec:
         if refuse:
             raise NotImplementedError(
                 "not ported in this slice: " + "; ".join(refuse))
+
+    def _check_processes(self) -> None:
+        """Under ``dp > 1`` processes: raise on the hooks not yet held
+        against the JAX package across processes (ROADMAP A11e)."""
+        dp = self.cluster.dp
+        if dp <= 1:
+            return
+        refuse = [what for cond, what in (
+            (self.push_window_size > 1, "[cluster] push_window > 1"),
+            (self.wire_quant != "off", "[cluster] wire_quant"),
+            (bool(self.wire_sketch), "[cluster] wire_sketch"),
+            (self.collective_mode != "psum", "[cluster] collective"),
+            (self.pull_quant != "off", "[cluster] pull_quant"),
+            (self.pull_cache > 0, "[cluster] pull_cache"),
+            (self.serve_every > 0, "[serve] every"),
+            (self.control_settings.enabled, "[control] control"))
+            if cond]
+        if refuse:
+            raise NotImplementedError(
+                f"across {dp} processes, not ported yet: "
+                + "; ".join(refuse) + " (ROADMAP A11e)")
 
     # -- vocab / table bring-up -------------------------------------------
     def build(self, sentences) -> "Word2Vec":
@@ -1339,6 +1365,7 @@ class Word2Vec:
         (``testing.faults.step_event``) at its top, where chaos plans and
         ``train_with_resume``'s hang watchdog hook in, and every save to
         ``faults.checkpoint_event``."""
+        nprocs = self.cluster.dp
         if batcher is None:
             if isinstance(data, str):
                 data = load_corpus(data, min_sentence_length=max(
@@ -1347,8 +1374,14 @@ class Word2Vec:
                 raise ValueError("train() needs data or a batcher")
             if self.vocab is None:
                 self.build(data)
-            batcher = CBOWBatcher(data, self.vocab, self.window,
-                                  self.sample, seed=2008)
+            sents, seed = data, 2008
+            if nprocs > 1:
+                # this process's shard and rank-decorrelated subsampling:
+                # the reference's one data file per node
+                sents = shard_sentences(data, self.cluster.dp_rank, nprocs)
+                seed += self.cluster.dp_rank
+            batcher = CBOWBatcher(sents, self.vocab, self.window,
+                                  self.sample, seed=seed)
         elif self.vocab is None:
             if not hasattr(batcher, "vocab"):
                 raise RuntimeError(
@@ -1363,9 +1396,29 @@ class Word2Vec:
                            // n) * n
         stencil = self.stencil
         hogwild = self.hogwild
+        if stencil and nprocs > 1:
+            raise ValueError(
+                "the stencil rendering is single-process for now "
+                "(DistributedBatcher shards per-pair batches); drop "
+                "stencil or run single-process")
+        if nprocs > 1:
+            if hogwild:
+                # hogwild's workers are one process's; across processes
+                # the JAX package runs the snapshot mode instead
+                self.local_steps = max(self.local_steps, 2)
+                log.warning(
+                    "async_mode=hogwild spans a single process's devices; "
+                    "multi-process run falls back to snapshot bounded "
+                    "staleness (local_steps=%d; measured loss envelope "
+                    "+0.02%% vs hogwild at realistic scale — see "
+                    "docs/ARCHITECTURE.md)", self.local_steps)
+                hogwild = False
+            if not isinstance(batcher, DistributedBatcher):
+                batcher = DistributedBatcher(batcher)
         sync = self.local_steps <= 1 and not hogwild
-        # groups (and graphs) are the sync loop's: JAX fuses only there
-        fuse = sync and self.inner_steps > 1
+        # groups (and graphs) are the sync loop's, in one process: JAX
+        # fuses only there
+        fuse = sync and self.inner_steps > 1 and nprocs == 1
         cuda = self.device.type == "cuda"
         # serving plane: arm the publisher so concurrent EmbeddingReaders
         # can read bounded-staleness views while this loop trains
@@ -1384,11 +1437,15 @@ class Word2Vec:
         if graphs and self._graph_key() != self._fused_key:
             self._fused_cache, self._captures = {}, {}
             self._fused_key = self._graph_key()
-        pipelined = self.pipeline_depth > 0 and not hogwild
+        pipelined = (self.pipeline_depth > 0 and not hogwild
+                     and nprocs == 1)
         if self.pipeline_depth > 0 and not pipelined:
-            log.warning("[worker] pipeline=%d requested but hogwild groups "
-                        "its own batches — running the synchronous input "
-                        "loop", self.pipeline_depth)
+            log.warning(
+                "[worker] pipeline=%d requested but %s — running the "
+                "synchronous input loop", self.pipeline_depth,
+                "hogwild groups its own batches" if hogwild
+                else "multi-process batches are already-placed global "
+                     "arrays")
         bound = resolve_dispatch_bound(self.dispatch_depth,
                                        pipelined=pipelined)
         # numpy leaves -> the card: pinned copies on a side stream, on
@@ -1484,7 +1541,8 @@ class Word2Vec:
                                     pipe_stats[k] = max(pipe_stats[k], v)
                                 elif k != "depth":
                                     pipe_stats[k] += v
-                err.append((es_q.total(), ec_q.total()))
+                # the epoch's sums, over every process in process order
+                err.append(tuple(host_psum([es_q.total(), ec_q.total()])))
                 loss = err[-1][0] / max(int(round(err[-1][1])), 1)
                 losses.append(loss)
                 log.info("iter %d: error %.5f  (%.0f words/s)", it, loss,
@@ -1523,7 +1581,11 @@ class Word2Vec:
             "local_steps": self.local_steps, "async_mode": self.async_mode,
             "hogwild_skipped_tail_words": dropped,
             # per epoch (Σerr_sum, Σerr_cnt), the loss's two sums
-            "epoch_err": err}
+            "epoch_err": err, "processes": nprocs}
+        if isinstance(batcher, DistributedBatcher):
+            # the host time of the lockstep's flag exchanges
+            self.train_metrics["lockstep_ms_per_step"] = (
+                1e3 * batcher.lockstep_s / max(batcher.lockstep_steps, 1))
         if pipe_stats is not None:
             self.train_metrics["pipeline"] = pipe_stats
         if self.transfer.count_traffic:

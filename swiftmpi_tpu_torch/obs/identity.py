@@ -17,8 +17,8 @@ from __future__ import annotations
 import os
 from typing import Optional
 
-#: the launcher-assigned process rank (the JAX package's
-#: ``cluster/bootstrap.py`` constant; the port's bootstrap is ROADMAP A11)
+#: the launcher-assigned process rank (``cluster/bootstrap.py``'s
+#: constant, repeated here so this module imports nothing of the cluster)
 ENV_PROCESS_ID = "SMTPU_PROCESS_ID"
 #: the shared fleet-telemetry directory a launcher hands every rank
 ENV_FLEET_DIR = "SMTPU_FLEET_DIR"

@@ -1,0 +1,110 @@
+"""Collectives over the data axis (counterpart of ``swiftmpi_tpu/
+parallel/collectives.py``).
+
+The JAX package's helpers wrap ``jax.lax`` collectives inside
+``shard_map`` bodies.  The port's data axis is the processes of the run
+(``cluster/bootstrap.py``), so these act over the process group: a CPU
+tensor goes through gloo (the plain version), a CUDA tensor through B5's
+cross-process exchange (``kernels.ring.ProcessRing``), never through
+gloo.  With one process each is the identity of its JAX counterpart on a
+size-1 axis.
+
+Every process must call a collective at the same point with tensors of
+one shape and dtype.  :func:`psum` sums in process order, process 0's
+part first, so every replica computes the same bits from the same parts
+whatever the summation order of each part was.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Sequence
+
+import torch
+
+from swiftmpi_tpu_torch.cluster import bootstrap
+from swiftmpi_tpu_torch.cluster.mesh import DATA_AXIS
+from swiftmpi_tpu_torch.kernels import ring
+
+
+def _check_axis(axis: str) -> None:
+    if axis != DATA_AXIS:
+        raise ValueError(f"the port's collectives act over the {DATA_AXIS!r} "
+                         f"axis (the processes), got {axis!r}")
+
+
+def axis_index(axis: str = DATA_AXIS) -> int:
+    """This process's position on the data axis."""
+    _check_axis(axis)
+    return bootstrap.process_index()
+
+
+def axis_size(axis: str = DATA_AXIS) -> int:
+    """The number of processes."""
+    _check_axis(axis)
+    return bootstrap.process_count()
+
+
+def all_gather(x: torch.Tensor, axis: str = DATA_AXIS, *,
+               tiled: bool = True) -> torch.Tensor:
+    """Every process's ``x``, in process order: concatenated along dim 0
+    (``tiled``) or stacked on a new leading dim."""
+    _check_axis(axis)
+    if bootstrap.process_count() == 1:
+        return x.clone() if tiled else x.unsqueeze(0).clone()
+    got = ring.process_all_gather(x)
+    return got.reshape(-1, *x.shape[1:]) if tiled else got
+
+
+def all_to_all(x: torch.Tensor, axis: str = DATA_AXIS) -> torch.Tensor:
+    """``x`` ``(dp, C, ...)``: block j goes to process j; block j of the
+    result came from process j."""
+    _check_axis(axis)
+    if bootstrap.process_count() == 1:
+        return x.clone()
+    return ring.process_all_to_all(x)
+
+
+def psum_many(xs: Sequence[torch.Tensor],
+              axis: str = DATA_AXIS) -> List[torch.Tensor]:
+    """:func:`psum` of several tensors of 4-byte dtypes on one device,
+    through one exchange: their words packed into one buffer, gathered,
+    each part summed in process order in its own dtype."""
+    _check_axis(axis)
+    xs = list(xs)
+    if bootstrap.process_count() == 1 or not xs:
+        return [x.clone() for x in xs]
+    for x in xs:
+        if x.element_size() != 4:
+            raise TypeError(f"psum packs 4-byte words, got {x.dtype}")
+    words = torch.cat([x.reshape(-1).view(torch.int32) for x in xs])
+    got = ring.process_all_gather(words)        # (dp, total words)
+    out, at = [], 0
+    for x in xs:
+        n = math.prod(x.shape)
+        parts = got[:, at:at + n].view(x.dtype)
+        acc = parts[0].clone()
+        for p in parts[1:]:
+            acc += p
+        out.append(acc.view(x.shape))
+        at += n
+    return out
+
+
+def psum(x: torch.Tensor, axis: str = DATA_AXIS) -> torch.Tensor:
+    """The sum of every process's ``x``, in process order: process 0's
+    part + process 1's + ...; the same bits on every process."""
+    return psum_many([x], axis)[0]
+
+
+def host_psum(values: Sequence[float]) -> List[float]:
+    """Host numbers summed over the processes in process order (float64,
+    over gloo): the epoch's loss sums."""
+    t = torch.tensor(list(values), dtype=torch.float64)
+    if bootstrap.process_count() == 1:
+        return t.tolist()
+    parts = ring.process_all_gather_plain(t)
+    acc = parts[0].clone()
+    for p in parts[1:]:
+        acc += p
+    return acc.tolist()

@@ -5,7 +5,10 @@ The table is indexed by the dense slots a host-side :class:`KeyIndex`
 assigns.  It has two layouts:
 
 * **one device** (no ``mesh``; ``transfer: xla``): the state is a plain
-  ``{field: Tensor}`` dict of ``(capacity, dim)`` tensors.
+  ``{field: Tensor}`` dict of ``(capacity, dim)`` tensors.  With
+  ``server_num: n > 1`` the key index has n shards and the tensor is
+  their ``n * capacity_per_shard`` rows in shard order (the JAX package's
+  model-axis sharded array, laid out whole on the one card).
 * **sharded** (``mesh``: a rank layout; ``transfer: tpu`` or ``hybrid``):
   the state is ``{field: [Tensor] * n}``, one contiguous
   ``(capacity_per_shard, dim)`` tensor per shard on its rank's device.
@@ -27,7 +30,7 @@ tail)``.  The JAX package replicates the hot plane on every device; the
 port keeps one replica per *device*, not per rank: the ranks that share a
 card read and write that one tensor, which is what a replica per rank
 would hold anyway, since the hybrid push's reconcile makes every replica
-equal.  With shards on several cards (ROADMAP A11) there will be one per
+equal.  With shards on several cards (ROADMAP A11d) there will be one per
 card.
 
 Every row is initialized eagerly with its field's distribution (eager-
@@ -123,8 +126,6 @@ class SparseTable:
             raise ValueError(
                 f"the layout has {mesh.n} ranks, the key index "
                 f"{key_index.num_shards} shards")
-        if mesh is None and key_index.num_shards != 1:
-            raise ValueError("a table of several shards needs a rank layout")
         #: bumped by :meth:`grow` and :meth:`repartition`, which move
         #: fields to new tensors: a CUDA graph captured on the old ones
         #: is stale

@@ -52,6 +52,23 @@ Every push bumps the ``@rowver`` plane of the rows it applies to, when the
 state has one (:func:`bump_row_versions`): the pull cache's hits are
 exact only because of that.
 
+The data axis (a multi-process run, ``Cluster.initialize`` calls
+:meth:`Transfer.set_data_axis`): every process holds a full replica and
+pushes its own batch; ``xla`` and ``tpu`` reconcile each push across the
+``dp`` processes (``parallel/collectives.py``: gloo for CPU tensors,
+B5's cross-process exchange for CUDA ones) before the one update every
+replica applies.  The parts are combined in process order, so every
+replica computes the same bits: :meth:`Transfer._dp_psum` sums dense
+planes ``p0 + p1 + ...``, and :meth:`Transfer._dp_reconcile_rows` folds
+each process's rows on their own (B3), gathers the folded rows and adds
+them up per process in order, one scatter-add launch whose every
+process slice holds distinct slots, so no two float atomics meet.  The
+dense/sparse crossover reads the global batch (``dp`` times the local
+one), as the JAX package's global arrays do.  The bytes that cross
+processes are booked as ``psum_bytes`` (the key the JAX package's ledger
+reports its cross-process collectives under).  The window push and the
+wire stack under ``dp > 1`` are ROADMAP A11e.
+
 The wire ledger (off until ``count_traffic`` is set) keeps the JAX
 package's keys and contract: totals that never decrease, no reset,
 intervals by :meth:`Transfer.traffic_delta`.  A count the step computes on
@@ -418,11 +435,84 @@ class Transfer:
                      "bf16": "pull_fmt_bf16",
                      "sparse_q": "pull_fmt_q"}
 
+    #: processes on the data axis, each holding a replica, and this one's
+    #: position (``set_data_axis``)
+    dp: int = 1
+    dp_rank: int = 0
+
     def __init__(self):
         #: pushes per (grad families, path) — e.g. ``{"h:dense": 20}``
         self.push_paths: Counter = Counter()
         self._host_ledger = np.zeros(len(_INDEX), np.int64)
         self._ledgers: Dict[torch.device, torch.Tensor] = {}
+
+    # -- the data axis -----------------------------------------------------
+    def set_data_axis(self, dp: int, rank: int) -> None:
+        """Run as process ``rank`` of ``dp``, each holding a replica: every
+        push is reconciled across them."""
+        self.dp, self.dp_rank = int(dp), int(rank)
+
+    def _book_dp(self, words: torch.Tensor) -> None:
+        """Book the bytes an all-gather of ``words`` sends to the other
+        processes."""
+        if self.count_traffic:
+            self._book(None, psum_bytes=(self.dp - 1) * words.numel()
+                       * words.element_size())
+
+    def _dp_psum(self, tensors):
+        """The process-ordered sums of ``tensors`` (4-byte dtypes, one
+        device) over the data axis, through one exchange."""
+        from swiftmpi_tpu_torch.parallel.collectives import psum_many
+        if self.dp > 1 and self.count_traffic:
+            self._book(None, psum_bytes=(self.dp - 1) * sum(
+                t.numel() * 4 for t in tensors))
+        return psum_many(tensors)
+
+    def _dp_reconcile_rows(self, slots: torch.Tensor, grads, counts,
+                           capacity: int):
+        """The rows of R owners, ``slots`` ``(R, L)`` int32 over a
+        ``capacity``-row space (``-1`` padding), ``grads`` ``{f: (R, L,
+        d)}``, ``counts`` ``(R, L)`` or None (one a row), reconciled over
+        the data axis.  Each process folds its rows per slot (B3,
+        :func:`window_dedup`); the folded rows cross the processes in one
+        exchange; every process then sums them in process order: a
+        scatter-add of each process's slice onto the first position of
+        its slot in the process-major concatenation, one launch for the
+        ``R * dp`` slices (distinct slots within each, so no two atomics
+        meet), then the slices' planes added in process order.  Returns
+        ``(slots_g, grads_g, counts_g)``: ``(R, dp * L)`` int32 with
+        ``-1`` off the first positions, ``{f: (R, dp * L, d)}`` and
+        ``(R, dp * L)``."""
+        from swiftmpi_tpu_torch.kernels.scatter import masked_scatter_add
+        from swiftmpi_tpu_torch.parallel.collectives import all_gather
+        R, L = slots.shape
+        dp = self.dp
+        ded, dgrads, dcounts = window_dedup(slots, grads, counts, capacity)
+        fields = sorted(dgrads)
+        widths = [dgrads[f].shape[-1] for f in fields]
+        words = torch.cat(
+            [ded[..., None]] + [dgrads[f].view(torch.int32) for f in fields]
+            + [dcounts.view(torch.int32)[..., None]], -1)
+        self._book_dp(words)
+        K = words.shape[-1]
+        got = all_gather(words, tiled=False)            # (dp, R, L, K)
+        got = got.transpose(0, 1).reshape(R, dp * L, K)
+        gslots = got[..., 0].contiguous()
+        owner, valid = window_owners(gslots, capacity)
+        vals = got[..., 1:].contiguous().view(torch.float32)
+        planes = masked_scatter_add(
+            owner.view(R * dp, L), valid.view(R * dp, L),
+            vals.view(R * dp, L, K - 1), dp * L).view(R, dp, dp * L, K - 1)
+        acc = planes[:, 0].clone()
+        for p in range(1, dp):
+            acc += planes[:, p]
+        pos = torch.arange(dp * L, dtype=torch.int32, device=slots.device)
+        first = torch.where(valid & (owner == pos), gslots, -1)
+        out, at = {}, 0
+        for f, w in zip(fields, widths):
+            out[f] = acc[..., at:at + w]
+            at += w
+        return first, out, acc[..., at]
 
     # -- the wire ledger ---------------------------------------------------
     def _ledger(self, device: torch.device) -> torch.Tensor:
@@ -638,9 +728,13 @@ class Transfer:
 
     def traffic(self) -> Dict[str, int]:
         """Cumulative traffic counters: the wire ledger, extended by the
-        backends with routed and hot paths.  Same contract as
+        backends with routed and hot paths, and ``psum_bytes`` (the bytes
+        sent to other processes) on the data axis.  Same contract as
         :meth:`wire_traffic`."""
-        return self.wire_traffic()
+        out = self.wire_traffic()
+        if self.dp > 1:
+            out["psum_bytes"] = self._count("psum_bytes")
+        return out
 
     def traffic_delta(self, since: Optional[Dict[str, int]] = None
                       ) -> Dict[str, int]:
@@ -764,7 +858,8 @@ class Transfer:
         a dense push as every row without the index, a sparse one as its
         valid rows."""
         capacity = next(iter(state.values())).shape[0]
-        dense = slots.shape[0] >= int(
+        # the global batch, as the JAX package's global arrays see it
+        dense = slots.shape[0] * self.dp >= int(
             capacity / self.wire_dense_ratio("push_apply"))
         self.push_paths[f"{','.join(grads)}:"
                         f"{'dense' if dense else 'sparse'}"] += 1
@@ -869,6 +964,10 @@ class Transfer:
         compression knob off.  Otherwise one plan a window, executed
         over the backend's primitives."""
         from swiftmpi_tpu_torch.transfer.plan import window_route
+        if self.dp > 1:
+            raise NotImplementedError(
+                f"the window push across {self.dp} processes is not ported "
+                "yet (ROADMAP A11e)")
         route = window_route(self.name)
         shaped = (np.asarray(slots, np.int64) if route.eager
                   else slots.to(torch.int32))

@@ -86,9 +86,24 @@ The wire stack's primitives on this backend:
   push from the first family's scatter-add counts, the dense rung from
   the window plane's counts.
 
-Not ported: the data axis across processes (``dp_axis``, the sparse DCN
-reconcile; ROADMAP A11) and ``[cluster] data_plane: xla``, the library
-route of the exchange (ROADMAP A16).
+The data axis (JAX ``dp_axis``): in a run of ``dp`` processes each
+process holds a full replica over its own n shard ranks (the layout's
+``dp``), routes its own batch over the shard axis as above (B5 within
+the process), and the owners' sums are reconciled across the processes
+before the apply, as ``TpuTransfer._push`` does, with the same static
+crossover ``sparse_dcn = dp * n * C < cap_per_shard // 2``.  Sparse: the
+owners' received (row, grad) pairs, folded per row in each process (B3),
+cross the processes and are summed per row in process order
+(``Transfer._dp_reconcile_rows``), then land on each owner's plane (B3,
+distinct rows); dense: each owner's ``(cap, d)`` sums, the mean's counts
+and the ``@rowver`` touched counts are summed over the processes in
+process order (``Transfer._dp_psum``; JAX's psums of ``acc``, the counts
+and ``touched``).  One exchange a push through B5's cross-process form
+(``kernels.ring.ProcessRing``), booked as ``psum_bytes``.  Every replica
+applies the same bits.  The overflow count stays per process.
+
+Not ported: ``[cluster] data_plane: xla``, the library route of the
+exchange (ROADMAP A16).
 """
 
 from __future__ import annotations
@@ -253,11 +268,12 @@ class ShardedTransfer(Transfer):
         return out
 
     def traffic(self) -> Dict[str, int]:
-        """``routed_rows``, ``hot_rows`` and ``psum_bytes`` (0 here),
-        ``overflow_dropped`` and the wire ledger (``Transfer.traffic``),
+        """``routed_rows``, ``hot_rows`` (0 here), ``psum_bytes`` (the
+        bytes sent to other processes), ``overflow_dropped`` and the wire ledger (``Transfer.traffic``),
         the JAX ``TpuTransfer.traffic``'s keys."""
         out = {"routed_rows": self.routed_rows(), "hot_rows": 0,
-               "psum_bytes": 0, "overflow_dropped": self.overflow_count()}
+               "psum_bytes": self._count("psum_bytes"),
+               "overflow_dropped": self.overflow_count()}
         out.update(self.wire_traffic())
         return out
 
@@ -399,6 +415,10 @@ class ShardedTransfer(Transfer):
         divisor = [None] * len(groups)
         occupied = [None] * len(groups)
         versions = ROWVER_KEY in state
+        # the data axis's static crossover (JAX tpu.py): the processes'
+        # received pairs while they are fewer than half a shard
+        sparse_dp = self.dp > 1 and self.dp * n * C < cap // 2
+        received = [{} for _ in groups]
         for f in sorted(grads):
             g_all = grads[f]
             width = g_all.shape[1]
@@ -417,6 +437,10 @@ class ShardedTransfer(Transfer):
                        g.idx.clamp(0, C - 1)] = mine[rank, g.order]
                 buckets.append(bucket[:, :n])
             recv = self._exchange(groups, buckets)
+            if sparse_dp:
+                for k, (g, t) in enumerate(zip(groups, recv)):
+                    received[k][f] = t.view(len(g.ranks), -1, width)
+                continue
             for k, (g, t) in enumerate(zip(groups, recv)):
                 # contribution counts accumulate at the owner from the
                 # received requests themselves: no extra exchange
@@ -431,6 +455,14 @@ class ShardedTransfer(Transfer):
                         divisor[k] = occupied[k].clamp(min=1.0)
                 sums[k][f] = res
         for k, g in enumerate(groups):
+            if sparse_dp:
+                sums[k], occupied[k] = self._reconcile_sparse(
+                    rows[k], received[k], cap)
+            elif self.dp > 1:
+                sums[k], occupied[k] = self._reconcile_dense(
+                    sums[k], occupied[k])
+            if self.dp > 1 and mean and not with_counts:
+                divisor[k] = occupied[k].clamp(min=1.0)
             dense = sums[k]
             if with_counts:
                 # span families: the data counts summed at the owner like
@@ -449,6 +481,38 @@ class ShardedTransfer(Transfer):
                                   occupied[k] > 0)
         self._record_overflow("push", groups)
         return state
+
+    def _reconcile_sparse(self, rows, received, cap: int):
+        """The sparse data-axis reconcile of one device's owners: their
+        ``(R, n * C)`` received rows and grads ``{f: (R, n * C, W)}``
+        summed per row over the processes in process order, then landed on
+        each owner's ``(cap, W)`` plane (B3 over distinct rows; the counts
+        of every process's received requests beside them)."""
+        R = rows.shape[0]
+        first, sums, cnt = self._dp_reconcile_rows(rows, received, None,
+                                                   cap)
+        names = sorted(sums)
+        cat = torch.cat([sums[f] for f in names] + [cnt[..., None]], -1)
+        plane = masked_scatter_add(first, first >= 0, cat.contiguous(), cap)
+        out, at = {}, 0
+        for f in names:
+            w = sums[f].shape[-1]
+            out[f] = plane[..., at:at + w]
+            at += w
+        return out, plane[..., at].reshape(R, cap)
+
+    def _reconcile_dense(self, sums, occupied):
+        """The dense data-axis reconcile of one device's owners: every
+        family's ``(R, cap, W)`` sums and the received requests' counts
+        (when taken) summed over the processes in process order, one
+        exchange."""
+        names = sorted(sums)
+        parts = [sums[f] for f in names]
+        if occupied is not None:
+            parts.append(occupied)
+        summed = self._dp_psum(parts)
+        return (dict(zip(names, summed[:len(names)])),
+                summed[-1] if occupied is not None else None)
 
     def push_span(self, state, slots, grads, counts, access,
                   mean: bool = False):
@@ -548,6 +612,6 @@ class ShardedTransfer(Transfer):
         if len(self._groups) != 1:
             raise NotImplementedError(
                 "error feedback over shards on several devices (ROADMAP "
-                "A11); the port keeps every rank on one device")
+                "A11d); the port keeps every rank on one device")
         block = shard_block(state[key])
         return block.view(-1, block.shape[-1])

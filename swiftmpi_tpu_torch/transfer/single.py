@@ -33,6 +33,18 @@ one-program merge and full-table apply.  With ``count_traffic`` the base class b
 ``XlaTransfer`` does, on the device's counters: a pull its valid rows, a
 dense push every row without the index, a sparse push its valid rows, a
 span push its valid rows with the counts column.
+
+Across ``dp`` processes (the data axis, each process a full replica with
+its own batch) every push is reconciled before the one update every
+replica applies, one exchange a push: the dense push's per-family planes
+and counts are summed over the processes in process order
+(``Transfer._dp_psum``), so the AdaGrad kernel runs on identical sums
+everywhere; the sparse and span pushes fold each process's rows per slot
+with the scatter-add kernel, gather the folded rows, and sum them in
+process order (``Transfer._dp_reconcile_rows``) before the row-indexed
+AdaGrad kernel.  The mean divides by the counts summed the same way.
+One global step over the concatenated batches, in another summation
+order than one process's atomics.
 """
 
 from __future__ import annotations
@@ -69,6 +81,16 @@ class SingleTransfer(Transfer):
                 acc = masked_scatter_add(slots, valid, g.contiguous(),
                                          capacity)
             dense_grads[f] = acc
+        if self.dp > 1:
+            # the planes (and counts) of every process, summed in process
+            # order: every replica applies the same bits
+            names = sorted(dense_grads)
+            summed = self._dp_psum([dense_grads[f] for f in names]
+                                   + ([counts] if counts is not None
+                                      else []))
+            dense_grads = dict(zip(names, summed))
+            if counts is not None:
+                counts = summed[-1]
         scale = {}
         if mean:
             div = counts.clamp(min=1.0)
@@ -83,9 +105,35 @@ class SingleTransfer(Transfer):
             bump_row_versions(state[ROWVER_KEY], counts > 0)
         return state
 
+    def _apply_reconciled(self, state, slots, grads, counts, access, mean,
+                          capacity):
+        """The data axis's sparse and span pushes: ``slots`` ``(B,)`` rows
+        reconciled over the processes (:meth:`Transfer.
+        _dp_reconcile_rows`), then the row-indexed AdaGrad kernel at the
+        distinct slots, the mean's reciprocal of the summed counts inside
+        it."""
+        rep, combined, cnt = self._dp_reconcile_rows(
+            slots.to(torch.int32)[None],
+            {f: g.contiguous()[None] for f, g in grads.items()},
+            None if counts is None else counts.to(torch.float32)[None],
+            capacity)
+        rep, cnt = rep[0], cnt[0]
+        keep = rep >= 0
+        inv = 1.0 / cnt.clamp(min=1.0) if mean else None
+        access.apply_push_rows(state, rep, keep,
+                               {f: g[0] for f, g in combined.items()},
+                               mul=inv)
+        if ROWVER_KEY in state:
+            bump_row_versions(state[ROWVER_KEY],
+                              touched_rows(rep, keep, capacity))
+        return state
+
     def _push_sparse(self, state, slots, grads, access, mean=False):
         capacity = next(iter(state.values())).shape[0]
         B = slots.shape[0]
+        if self.dp > 1:
+            return self._apply_reconciled(state, slots, grads, None, access,
+                                          mean, capacity)
         if B == 0:
             return state
         valid = slots >= 0
@@ -128,6 +176,9 @@ class SingleTransfer(Transfer):
     def _push_span(self, state, slots, grads, counts, access, mean=False):
         capacity = next(iter(state.values())).shape[0]
         S = slots.shape[0]
+        if self.dp > 1:
+            return self._apply_reconciled(state, slots, grads, counts,
+                                          access, mean, capacity)
         if S == 0:
             return state
         dev = slots.device

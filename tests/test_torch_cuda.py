@@ -2138,3 +2138,86 @@ def test_device_topk_matches_host_on_card(dev):
         for n in range(1, 11):
             if host[2][qi, n - 1] - host[2][qi, n] > 1e-5:
                 assert set(host[1][qi, :n]) == set(card[1][qi, :n])
+
+
+# -- more than one rank process on the card ------------------------------------
+
+def _launch_children(*args, timeout=600):
+    """``launch -np 2 -- mp_child ...`` from the repository root."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    return subprocess.run(
+        [sys.executable, "-m", "swiftmpi_tpu_torch.launch", "-np", "2", "--",
+         sys.executable, "-m", "swiftmpi_tpu_torch.testing.mp_child",
+         *args], cwd=root, capture_output=True, text=True, timeout=timeout,
+        env=dict(os.environ, SMTPU_DIST_TIMEOUT="120"))
+
+
+def test_cross_process_exchange_on_card(dev, tmp_path):
+    """500 back-to-back exchanges between 2 processes on the card through
+    B5's cross-process form, all-to-all and all-gather, float32, int32
+    and bfloat16, every payload distinct and every result held to the
+    numpy expectation; no wait timed out; the rank-ordered psum's bits
+    are the same on both processes."""
+    import json
+    res = _launch_children("exchange", "-out", str(tmp_path), "-rounds",
+                           "500")
+    assert res.returncode == 0, res.stdout + res.stderr
+    got = [json.loads((tmp_path / f"exchange_r{r}.json").read_text())
+           for r in (0, 1)]
+    for g in got:
+        assert g["checked"] == 500 and g["timeouts"] == 0
+        assert g["launches"] == 501       # the exchanges and one psum
+    assert got[0]["psum_sha"] == got[1]["psum_sha"]
+
+
+def test_two_process_xla_step_matches_one_process_on_card(dev, tmp_path):
+    """One step of 2 processes on ``xla`` (their batches and draws) equals
+    the one-process step over the concatenated batch within the envelope;
+    the replicas are bit-identical."""
+    import json
+    from swiftmpi_tpu_torch.data.distributed import shard_sentences
+    from swiftmpi_tpu_torch.data.text import build_vocab
+    # 8 sentences of 32 keys a process: one batch of 256 centers each
+    corpus = np.asarray(synthetic_corpus(16, 300, 32, seed=4), np.int32)
+    vocab = build_vocab(corpus)
+    conf = {"cluster": {"transfer": "xla", "server_num": 1},
+            "word2vec": {"len_vec": 100, "window": 4, "negative": 20,
+                         "sample": -1, "learning_rate": 0.05},
+            "server": {"initial_learning_rate": 0.7}}
+    B = 256
+    rng = np.random.default_rng(3)
+    parts = [next(iter(CBOWBatcher(shard_sentences(corpus, r, 2), vocab, 4,
+                                   -1, seed=2008 + r).epoch(B)))
+             for r in (0, 1)]
+    draws = [(rng.integers(0, len(vocab), (1, B, 20)),
+              rng.random((1, B, 20), np.float32)) for _ in (0, 1)]
+    np.savez(tmp_path / "data.npz", corpus=corpus, vocab_keys=vocab.keys,
+             vocab_counts=vocab.counts,
+             **{f"{k}{r}": draws[r][i] for r in (0, 1)
+                for i, k in enumerate("ju")})
+    spec = {"conf": conf, "data": str(tmp_path / "data.npz"),
+            "device": "cuda", "batch_size": B, "niters": 1,
+            "out": str(tmp_path / "out"), "state": True}
+    (tmp_path / "spec.json").write_text(json.dumps(spec))
+    res = _launch_children("w2v", "-spec", str(tmp_path / "spec.json"))
+    assert res.returncode == 0, res.stdout + res.stderr
+    got = [json.loads((tmp_path / "out" / f"w2v_r{r}.json").read_text())
+           for r in (0, 1)]
+    assert got[0]["sha"] == got[1]["sha"]
+    assert got[0]["timeouts"] == got[1]["timeouts"] == 0
+    assert got[0]["launches"]["ring_process"] >= 1
+    m = Word2Vec(config=ConfigParser().update(conf), device=dev)
+    m.build_from_vocab(vocab)
+    es, ec = m.step(*(np.concatenate([getattr(b, k) for b in parts])
+                      for k in ("centers", "contexts", "ctx_mask")),
+                    draws=(np.concatenate([d[0][0] for d in draws]),
+                           np.concatenate([d[1][0] for d in draws])))
+    assert got[0]["losses"][0] == pytest.approx(es / ec, rel=1e-4)
+    state = np.load(tmp_path / "out" / "w2v_state_r0.npz")
+    for f, t in m.table.state.items():
+        np.testing.assert_allclose(state[f], t.cpu().numpy(), rtol=1e-3,
+                                   atol=1e-5)

@@ -43,7 +43,9 @@ want = {"swiftmpi_tpu_torch." + m for m in (
     "obs.collector", "obs.numerics", "obs.costs", "obs.profiler",
     "obs.trace", "utils.profiler", "utils.buffer", "parameter.cache",
     "serve", "serve.snapshot", "serve.reader", "serve.query",
-    "serve.shipper", "control", "control.sketch", "control.controller")}
+    "serve.shipper", "control", "control.sketch", "control.controller",
+    "cluster.bootstrap", "launch", "parallel", "parallel.collectives",
+    "data.distributed", "testing.mp_child")}
 missing = sorted(want - set(names))
 print(len(names), "modules;", "leaked:", bad, "missing:", missing)
 sys.exit(1 if bad or missing or len(names) < 30 else 0)

@@ -210,9 +210,15 @@ def test_cluster_defaults_and_refusals(monkeypatch):
     h = Cluster(ConfigParser().update({"cluster": {
         "transfer": "hybrid", "server_num": 4}}), devices=["cpu"]).initialize()
     assert h.transfer.name == "hybrid" and h.mesh.n == 4
+    # xla with server_num 2 (refused until ROADMAP A11a was ported): the
+    # model-axis shards as one tensor on the one device
+    x = Cluster(ConfigParser().update({"cluster": {
+        "transfer": "xla", "server_num": 2}}), devices=["cpu"]).initialize()
+    assert x.transfer.name == "xla" and x.mesh is None and x.n_servers == 2
+    t = x.create_table("w", w2v_access(LR, D), CAP)
+    assert t.key_index.num_shards == 2
+    assert t.state["h"].shape == (2 * CAP, D)
     for conf, err, match in [
-            ({"transfer": "xla", "server_num": 2}, NotImplementedError,
-             "A11"),
             ({"transfer": "bogus"}, ValueError, "bogus"),
             ({"transfer": "tpu", "data_plane": "xla"}, NotImplementedError,
              "A16"),
@@ -247,8 +253,12 @@ def test_sharded_table_is_the_jax_global_array(devices8):
     fused = SparseTable(pacc, KeyIndex(1, N * CAP), "cpu")
     for f, a in fused.to_numpy().items():
         np.testing.assert_array_equal(sharded.to_numpy()[f], a)
-    with pytest.raises(ValueError, match="rank layout"):
-        SparseTable(pacc, KeyIndex(N, CAP), "cpu")
+    # no layout: the xla model-axis table (refused until ROADMAP A11a was
+    # ported), the same global array as one tensor
+    model_axis = SparseTable(pacc, KeyIndex(N, CAP), "cpu")
+    for f, a in model_axis.to_numpy().items():
+        assert model_axis.state[f].shape == (N * CAP, D)
+        np.testing.assert_array_equal(sharded.to_numpy()[f], a)
     with pytest.raises(ValueError, match="ranks"):
         SparseTable(pacc, KeyIndex(4, CAP), "cpu", mesh=layout)
 

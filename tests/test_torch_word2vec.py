@@ -233,23 +233,29 @@ def test_inner_steps_runs_ordinary_steps():
     {"control": {"control": "on"}},
     {"serve": {"every": 4}}])
 def test_unported_config_raises(settings):
-    """What the port still refuses: ``server_num > 1`` on ``xla`` (A11)
-    and ``data_plane: xla`` with ``transfer: tpu`` (A16).  ``[control]``
-    and ``[serve]``, refused until ROADMAP A13a was ported, now build and
-    train: the model reads the keys JAX's model reads (``every``,
-    ``depth``, ``control``, ``margin``) and ignores the others, as JAX's
-    does."""
+    """What the port still refuses: ``data_plane: xla`` with ``transfer:
+    tpu`` (A16).  ``server_num > 1`` on ``xla`` (refused until ROADMAP
+    A11a was ported) builds the model-axis sharded table and trains;
+    ``[control]`` and ``[serve]``, refused until ROADMAP A13a was ported,
+    now build and train: the model reads the keys JAX's model reads
+    (``every``, ``depth``, ``control``, ``margin``) and ignores the
+    others, as JAX's does."""
     c = ConfigParser().update(CONF)
     for sec, kv in settings.items():
         for key, val in kv.items():
             c.set(sec, key, val)
-    if not ({"control", "serve"} & set(settings)):
+    if settings.get("cluster", {}).get("data_plane") == "xla":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Word2Vec(config=c, device="cpu")
         return
     m = Word2Vec(config=c, device="cpu")
     sents = corpus(n_sent=10, vocab=20, length=8, seed=2)
     assert np.isfinite(m.train(sents, niters=1, batch_size=32)).all()
+    if "cluster" in settings:
+        # the model-axis shards: one (2 * cap, d) tensor per field
+        assert m.transfer.name == "xla" and m.cluster.mesh is None
+        assert m.table.key_index.num_shards == 2
+        assert m.table.state["h"].shape[0] == m.table.capacity
     serve = settings.get("serve", {})
     assert m.serve_every == int(serve.get("every", 0))
     assert (m.serve_publisher is not None) == ("every" in serve)
