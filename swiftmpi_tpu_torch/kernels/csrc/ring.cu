@@ -29,7 +29,10 @@
 //
 // Operands are given as base + stride (sender i's operand at x + i*x_stride,
 // each operand contiguous), so the transfer hands the kernel one (R, n, ...)
-// tensor and nothing is uploaded per call.  Outputs likewise (rank r's at
+// tensor and nothing is uploaded per call.  A sender's block j is at
+// j*x_block from its operand: x_block is the block's length, or 0 for an
+// all-gather, whose every block is the one tensor (read once per receiver,
+// never copied dp times first).  Outputs likewise (rank r's at
 // out + r*out_stride) on one card, or through a device array of the ranks'
 // output pointers, peer pointers included, across cards.
 //
@@ -68,6 +71,7 @@ struct Send {
   long long words;                // 4-byte words of one (C, ...) block
   const char* x;                  // sender i's operand at x + i*x_stride
   long long x_stride;
+  long long x_block;              // its block j at + j*x_block
   char* out;                      // rank r's result at out + r*out_stride,
   long long out_stride;           // unless `outs` is given:
   char* const* outs;              // device array of the n ranks' results
@@ -110,7 +114,7 @@ __device__ __forceinline__ Pair pair_of(const Send& a, long long p) {
   q.me = a.first + i * a.step;
   q.to = (q.me + s) % a.n;
   const long long bytes = a.words * 4;
-  q.src = a.x + i * a.x_stride + q.to * bytes;
+  q.src = a.x + i * a.x_stride + q.to * a.x_block;
   q.dst = (a.outs ? a.outs[q.to] : a.out + q.to * a.out_stride) +
           (long long)q.me * bytes;
   const int head =
@@ -328,14 +332,14 @@ int sm_count() {
 // Block sizes and buffers are multiples of 4 bytes.  The wait follows this
 // card's sends on this card's stream, so it never holds a sender of its own
 // card; across cards each card's stream runs its own sends whatever the
-// other cards' waits do.
-extern "C" int smtpu_ring_exchange(int n, int senders, int first, int step,
-                                   long long block_bytes, const void* x,
-                                   long long x_stride, void* out,
-                                   long long out_stride, const void* outs,
-                                   const void* flags, void* done,
-                                   unsigned long long epoch,
-                                   long long max_polls, void* stream) {
+// other cards' waits do.  `x_block` is the distance between the blocks of
+// a sender's operand: block_bytes for the all-to-all, 0 for the
+// all-gather (every block is the one tensor).
+extern "C" int smtpu_ring_exchange(
+    int n, int senders, int first, int step, long long block_bytes,
+    const void* x, long long x_stride, long long x_block, void* out,
+    long long out_stride, const void* outs, const void* flags, void* done,
+    unsigned long long epoch, long long max_polls, void* stream) {
   if (n <= 0 || senders <= 0 || block_bytes <= 0) return 0;
   if (block_bytes % 4 || n > 1024)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -346,6 +350,7 @@ extern "C" int smtpu_ring_exchange(int n, int senders, int first, int step,
   a.words = block_bytes / 4;
   a.x = static_cast<const char*>(x);
   a.x_stride = x_stride;
+  a.x_block = x_block;
   a.out = static_cast<char*>(out);
   a.out_stride = out_stride;
   a.outs = static_cast<char* const*>(outs);
@@ -380,3 +385,4 @@ extern "C" int smtpu_ring_exchange(int n, int senders, int first, int step,
       n, first, step, a.flags, epoch, max_polls);
   return static_cast<int>(cudaGetLastError());
 }
+

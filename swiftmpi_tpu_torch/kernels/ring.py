@@ -40,8 +40,8 @@ CUDA tensors, raising on what the kernel does not take; there is no
 fallback between the two.
 
 **Across processes** (the data axis of a multi-process run,
-:class:`ProcessRing`): the same entry point, one launch pair per exchange
-with ``senders = 1`` and ``first = dp_rank``, between the ``dp``
+:class:`ProcessRing`): the same launches, one pair per exchange with
+``senders = 1`` and ``first = dp_rank``, between the ``dp``
 processes that share the card.  Each process allocates its receive
 buffers and its ``(dp + 1)`` flag array once, shares them through CUDA
 IPC (``torch.multiprocessing.reductions.reduce_tensor``, the handles
@@ -55,14 +55,15 @@ buffer waits, through its own wait of e + 1, for this process's send of
 e + 1, which the stream runs after the copy out of e.  Two forms:
 :func:`process_all_to_all` (block j of the ``(dp, C, ...)`` operand goes
 to process j) and :func:`process_all_gather` (every process's tensor to
-every process), which sends ``dp`` copies of the one tensor: the entry
-point addresses block j at j block lengths from the operand, so a block
-stride of 0 would need another kernel.  Two processes on one card
-time-slice their kernels (no MPS is required): a waiter can spin until
-the peer's send is scheduled, bounded by ``_MAX_POLLS`` like every wait.
-The plain version is ``torch.distributed``'s ``all_to_all_single`` and
-``all_gather`` over gloo on CPU tensors; a CUDA tensor goes through the
-kernel or the call raises.
+every process), whose send addresses every block at the one tensor (the
+entry point's block stride ``x_block`` 0, where the all-to-all passes
+the block's length).  Two processes on one card time-slice their kernels
+(no MPS is required): a waiter can spin until the peer's send is
+scheduled, bounded by ``_MAX_POLLS`` like every wait; a wait that gives
+up counts in :func:`timeouts`, which ``Word2Vec.train`` reads once an
+epoch and fails the run on.  The plain version is ``torch.distributed``'s
+``all_to_all_single`` and ``all_gather`` over gloo on CPU tensors; a
+CUDA tensor goes through the kernel or the call raises.
 """
 
 from __future__ import annotations
@@ -88,7 +89,8 @@ process_launches = 0
 
 _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
-             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+             ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_ulonglong,
              ctypes.c_longlong, ctypes.c_void_p]
 
@@ -228,7 +230,8 @@ def ring_exchange_stacked(x: torch.Tensor) -> torch.Tensor:
     # all n ranks share this card: one send launch, then one wait launch,
     # both enqueued by one call
     rc = ring.exchange(n, n, 0, 1, block_bytes, x.data_ptr(),
-                       x.stride(0) * es, out.data_ptr(), out.stride(0) * es,
+                       x.stride(0) * es, block_bytes, out.data_ptr(),
+                       out.stride(0) * es,
                        None, ring.flag_ptrs_ptr, ring.done_ptr, ring.epoch,
                        _MAX_POLLS,
                        torch.cuda.current_stream(x.device).cuda_stream)
@@ -263,12 +266,6 @@ def ring_exchange(operands: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 
 # -- across processes ---------------------------------------------------------
 
-#: how a cross-process exchange orders its wait after the peers' sends
-ORDERS = ("spin", "host")
-#: the order of the rings :func:`process_ring` makes
-PROCESS_ORDER = "spin"
-
-
 class ProcessRing:
     """The persistent half of the exchange between the ``dp`` processes of
     one card: this process's flag array (``dp`` epochs + a timeout count)
@@ -276,25 +273,14 @@ class ProcessRing:
     device arrays of their addresses, the arrival counters and the
     epoch.  The receive buffers grow (in every process at the same
     exchange, since every process exchanges the same shapes) by trading
-    new handles.
+    new handles."""
 
-    ``order``: ``spin`` (the path's) lets the wait kernel poll its flags
-    on the card; ``host`` orders the exchange from the host instead: the
-    wait is pointed at a flag array that is always satisfied, and after
-    the launch the host waits for its own send to finish, then meets the
-    peers at a barrier of the process group, past which every peer's
-    send has landed.  ``tag`` keeps two rings' store keys apart."""
-
-    def __init__(self, dp: int, rank: int, store, device: torch.device,
-                 order: str = "spin", tag: str = "ring"):
-        if order not in ORDERS:
-            raise ValueError(f"order must be one of {ORDERS}, got {order!r}")
+    def __init__(self, dp: int, rank: int, store, device: torch.device):
         if torch.cuda.get_allocator_backend() != "native":
             raise RuntimeError("the cross-process exchange shares its "
                                "buffers through CUDA IPC, which needs the "
                                "native caching allocator")
         self.dp, self.rank, self.store = dp, rank, store
-        self.order, self.tag = order, tag
         self.device = torch.device(device)
         self.exchange = build.function("ring", "smtpu_ring_exchange",
                                        _ARGTYPES)
@@ -302,16 +288,11 @@ class ProcessRing:
         self.generation = 0
         self.flags = torch.zeros(dp + 1, dtype=torch.int64, device=device)
         self.done = torch.zeros(dp, dtype=torch.int32, device=device)
+        # the peers' mappings stay referenced: a dropped one is unmapped
         self._peer_flags = self._share("flags", self.flags)
-        ptrs = [t.data_ptr() for t in self._peer_flags]
-        if order == "host":
-            # this process's own entry: epochs that every wait meets (the
-            # local send stamps its own slot before the wait reads it)
-            self._satisfied = torch.full((dp + 1,), 1 << 62,
-                                         dtype=torch.int64, device=device)
-            self._satisfied[dp] = 0
-            ptrs[rank] = self._satisfied.data_ptr()
-        self.flag_ptrs = torch.tensor(ptrs, dtype=torch.int64).to(device)
+        self.flag_ptrs = torch.tensor(
+            [t.data_ptr() for t in self._peer_flags],
+            dtype=torch.int64).to(device)
         self.capacity = 0          # bytes of one receive buffer
         self.recv: Optional[torch.Tensor] = None
 
@@ -320,7 +301,7 @@ class ProcessRing:
         the dp tensors in process order, this process's own ``t``."""
         from torch.multiprocessing.reductions import (rebuild_cuda_tensor,
                                                       reduce_tensor)
-        key = f"smtpu/{self.tag}/{name}/{self.generation}"
+        key = f"smtpu/ring/{name}/{self.generation}"
         self.store.set(f"{key}/{self.rank}",
                        pickle.dumps(reduce_tensor(t)[1]))
         out = []
@@ -350,34 +331,35 @@ class ProcessRing:
         self._peer_recv = peers
         self.capacity = cap
 
-    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
-        """``x``: this process's ``(dp, C, ...)`` operand, block j bound
-        for process j; returns the ``(dp, C, ...)`` blocks received, block
-        j from process j, as a new tensor."""
-        global process_launches
+    def _check(self, x: torch.Tensor, block_shape) -> int:
+        """The bytes of one block of ``x``, checked for the kernel."""
         _check_dtype(x.dtype)
-        if x.dim() < 1 or x.shape[0] != self.dp:
-            raise ValueError(f"process exchange: leading dim of "
-                             f"{tuple(x.shape)} != {self.dp} processes")
         if not x.is_contiguous():
             raise TypeError("process exchange needs a contiguous operand")
         if x.device != self.device:
             raise ValueError(f"process exchange: operand on {x.device}, "
                              f"the ring on {self.device}")
-        es = x.element_size()
-        block_bytes = math.prod(x.shape[1:]) * es
+        block_bytes = math.prod(block_shape) * x.element_size()
         if block_bytes % 4 or x.data_ptr() % 4:
             raise ValueError(f"process exchange: a block of "
-                             f"{tuple(x.shape[1:])} {x.dtype} is not whole "
+                             f"{tuple(block_shape)} {x.dtype} is not whole "
                              "4-byte words")
+        return block_bytes
+
+    def _run(self, x: torch.Tensor, block_bytes: int, x_block: int,
+             shape) -> torch.Tensor:
+        """One exchange: this process's send of its dp blocks (block j at
+        ``j * x_block`` from ``x``) and its wait, then the copy out of the
+        ``shape`` blocks received."""
+        global process_launches
         if block_bytes == 0:
-            return torch.empty_like(x)
+            return torch.empty(shape, dtype=x.dtype, device=x.device)
         nbytes = self.dp * block_bytes
         self._ensure(nbytes)
         self.epoch += 1
         parity = self.epoch % 2
         rc = self.exchange(self.dp, 1, self.rank, 1, block_bytes,
-                           x.data_ptr(), 0, None, 0,
+                           x.data_ptr(), 0, x_block, None, 0,
                            self.outs[parity].data_ptr(),
                            self.flag_ptrs.data_ptr(), self.done.data_ptr(),
                            self.epoch, _MAX_POLLS,
@@ -385,17 +367,27 @@ class ProcessRing:
                                self.device).cuda_stream)
         build.check_launch("process ring_exchange", rc)
         process_launches += 1
-        if self.order == "host":
-            # this process's send done, then every peer's: the barrier
-            ev = torch.cuda.Event()
-            ev.record(torch.cuda.current_stream(self.device))
-            ev.synchronize()
-            import torch.distributed as dist
-            dist.barrier()
         got = self.recv.view(torch.uint8)[parity * self.capacity:
                                           parity * self.capacity + nbytes]
         # the copy out, on the stream before this process's next send
-        return got.view(x.dtype).view(x.shape).clone()
+        return got.view(x.dtype).view(shape).clone()
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``: this process's ``(dp, C, ...)`` operand, block j bound
+        for process j; returns the ``(dp, C, ...)`` blocks received, block
+        j from process j, as a new tensor."""
+        if x.dim() < 1 or x.shape[0] != self.dp:
+            raise ValueError(f"process exchange: leading dim of "
+                             f"{tuple(x.shape)} != {self.dp} processes")
+        block_bytes = self._check(x, x.shape[1:])
+        return self._run(x, block_bytes, block_bytes, x.shape)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every process's ``x`` (one shape everywhere), stacked ``(dp,
+        ...)`` in process order, as a new tensor: every block of the send
+        is ``x`` itself (a block stride of 0)."""
+        block_bytes = self._check(x, x.shape)
+        return self._run(x, block_bytes, 0, (self.dp, *x.shape))
 
 
 _process_rings: Dict[torch.device, ProcessRing] = {}
@@ -414,7 +406,7 @@ def process_ring(device) -> ProcessRing:
                                "swiftmpi_tpu_torch.launch)")
         ring = _process_rings[device] = ProcessRing(
             bootstrap.process_count(), bootstrap.process_index(),
-            bootstrap.store(), device, order=PROCESS_ORDER)
+            bootstrap.store(), device)
     return ring
 
 
@@ -463,12 +455,9 @@ def process_all_to_all(x: torch.Tensor) -> torch.Tensor:
 
 def process_all_gather(x: torch.Tensor) -> torch.Tensor:
     """Every process's ``x`` (one shape everywhere), stacked ``(dp, ...)``
-    in process order: gloo for a CPU tensor, the kernel for a CUDA one
-    (an all-to-all of dp copies of ``x``)."""
+    in process order: gloo for a CPU tensor, the kernel for a CUDA one."""
     if x.device.type == "cpu":
         return process_all_gather_plain(x)
     if x.device.type != "cuda":
         raise ValueError(f"process exchange: unsupported device {x.device}")
-    ring = process_ring(x.device)
-    return ring.all_to_all(x.unsqueeze(0).expand(ring.dp, *x.shape)
-                           .contiguous())
+    return process_ring(x.device).all_gather(x.contiguous())

@@ -182,6 +182,7 @@ from swiftmpi_tpu_torch.io.checkpoint import (dump_table_text,
                                               load_table_text, npz_path,
                                               save_checkpoint)
 from swiftmpi_tpu_torch.io.pipeline import CudaTransfer, PrefetchIterator
+from swiftmpi_tpu_torch.kernels import ring
 from swiftmpi_tpu_torch.kernels.stencil import stencil_context_sum
 from swiftmpi_tpu_torch.obs import numerics as obs_numerics
 from swiftmpi_tpu_torch.ops.sampling import (alias_draws,
@@ -1462,6 +1463,9 @@ class Word2Vec:
                       if pipelined else None)
         losses, err = [], []
         words = steps = replays = 0
+        # ring waits that gave up before this run (each leaves its
+        # exchange's receive buffer unread)
+        late_base = ring.timeouts()
         t0 = time.perf_counter()
         try:
             for it in range(niters):
@@ -1541,8 +1545,19 @@ class Word2Vec:
                                     pipe_stats[k] = max(pipe_stats[k], v)
                                 elif k != "depth":
                                     pipe_stats[k] += v
-                # the epoch's sums, over every process in process order
-                err.append(tuple(host_psum([es_q.total(), ec_q.total()])))
+                # the epoch's sums and the run's ring waits that gave up,
+                # over every process in process order: a wait that gave
+                # up let its step go on with stale data, so every process
+                # fails the run together
+                es, ec, late = host_psum([es_q.total(), ec_q.total(),
+                                          ring.timeouts() - late_base])
+                if late:
+                    raise RuntimeError(
+                        f"iteration {start_iter + it}: {int(late)} ring "
+                        f"exchange wait(s) timed out across "
+                        f"{nprocs} process(es); the steps after them read "
+                        f"stale data, so the run is stopped")
+                err.append((es, ec))
                 loss = err[-1][0] / max(int(round(err[-1][1])), 1)
                 losses.append(loss)
                 log.info("iter %d: error %.5f  (%.0f words/s)", it, loss,

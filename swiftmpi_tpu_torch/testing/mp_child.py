@@ -9,7 +9,10 @@ arrays beside it, then prints ``MP_CHILD_OK <mode> rank=<r>``):
 * ``collectives -out DIR [-device cpu|cuda]``: ``all_gather``, ``psum``
   (held bit for bit against a numpy sum in process order of every
   process's seeded part), ``barrier``, ``all_to_all`` and the B5
-  cross-process forms against numpy transposes of the seeded parts.
+  cross-process forms against numpy transposes of the seeded parts; on
+  the CPU also a ``tpu`` pull and push with overflowing buckets
+  (:func:`overflow_inputs`), whose rows, table and ``overflow_count()``
+  go to ``overflow_r<rank>.npz``.
 * ``exchange -out DIR -rounds R``: R back-to-back cross-process exchanges
   on the card, all-to-all and all-gather, float32, int32 and bfloat16,
   each payload distinct (seeded by round, process and form) and each
@@ -23,10 +26,10 @@ arrays beside it, then prints ``MP_CHILD_OK <mode> rank=<r>``):
   ``j<rank>``/``u<rank>`` draws, one ``(j, u)`` a step), ``batch_size``,
   ``niters``, ``device``, the ``out`` directory and optionally
   ``dump`` (``Word2Vec.save``), ``checkpoint`` (every iteration),
-  ``order`` (``kernels.ring.PROCESS_ORDER`` for the run),
   ``state`` (process 0 writes its table as ``w2v_state_r0.npz``, and
   with draws its table after the first step as
-  ``w2v_first_step_r0.npz``)
+  ``w2v_first_step_r0.npz``), ``stall`` (a forced ring timeout, see
+  :func:`stall_process_ring`)
   and ``time_exchange`` (time B5's cross-process forms at the run's
   shapes after training).  The JSON holds the losses, ``train_metrics``,
   each field's sha256, the kernels' launches in the run and
@@ -115,7 +118,79 @@ def run_collectives(out: str, device: str) -> dict:
         [_part(7 + j, (dp, 6), np.int32)[me] for j in range(dp)])),
         "the int32 exchange")
     bootstrap.barrier()
+    if device == "cpu":
+        np.savez(os.path.join(out, f"overflow_r{me}.npz"),
+                 **overflow_push(dp, me))
     return {"psum_sha": _bits(psum(mine)), "dp": dp, "rank": me}
+
+
+#: the overflow case: shard ranks a process, rows a shard, row width,
+#: requests a process, the bucket capacity and the learning rate
+OVF_SHARDS, OVF_CAP, OVF_D, OVF_B, OVF_C, OVF_LR = 2, 32, 8, 16, 2, 0.3
+
+
+def overflow_inputs(dp: int) -> tuple:
+    """The global batch of the overflow case (``OVF_B`` requests a
+    process, process-major, every seventh a padding ``-1``; keys from 24,
+    so the shards' buckets of ``OVF_C`` overflow), its h and v grads and
+    the initial table: ``(slots, grads, init)`` as numpy."""
+    from swiftmpi_tpu_torch.parameter import KeyIndex
+    rng = np.random.default_rng(41)
+    keys = rng.integers(0, 24, size=OVF_B * dp).astype(np.uint64)
+    slots = KeyIndex(OVF_SHARDS, OVF_CAP).lookup(keys)
+    slots[::7] = -1
+    grads = {f: rng.normal(size=(OVF_B * dp, OVF_D)).astype(np.float32)
+             for f in ("h", "v")}
+    rows = OVF_SHARDS * OVF_CAP
+    init = {f: (0.1 * rng.normal(size=(rows, OVF_D))).astype(np.float32)
+            for f in ("h", "v")}
+    init.update({f: np.zeros((rows, OVF_D), np.float32)
+                 for f in ("h2sum", "v2sum")})
+    return slots, grads, init
+
+
+def overflow_push(dp: int, me: int) -> dict:
+    """This process's slice of :func:`overflow_inputs` through a ``tpu``
+    pull and a mean push at ``bucket_capacity = OVF_C``: the rows pulled,
+    ``overflow_count()`` after the pull and after the push (``traffic()``'s
+    ``overflow_dropped``), and the table."""
+    from swiftmpi_tpu_torch.cluster import ps_mesh
+    from swiftmpi_tpu_torch.convert import state_from_jax, state_to_numpy
+    from swiftmpi_tpu_torch.parameter import w2v_access
+    from swiftmpi_tpu_torch.transfer import ShardedTransfer
+    slots, grads, init = overflow_inputs(dp)
+    mine = slice(me * OVF_B, (me + 1) * OVF_B)
+    layout = ps_mesh(OVF_SHARDS, ["cpu"])
+    t = ShardedTransfer(layout, bucket_capacity=OVF_C)
+    t.set_data_axis(dp, me)
+    acc = w2v_access(OVF_LR, OVF_D)
+    state = state_from_jax(init, "cpu", mesh=layout)
+    pulled = t.pull(state, torch.from_numpy(slots[mine]), acc)
+    after_pull = t.overflow_count()
+    t.push(state, torch.from_numpy(slots[mine]),
+           {f: torch.from_numpy(g[mine]) for f, g in grads.items()}, acc,
+           mean=True)
+    out = {f"pulled__{f}": v.numpy() for f, v in pulled.items()}
+    out.update({f"table__{f}": v for f, v in state_to_numpy(state).items()})
+    out["overflow"] = np.array([after_pull,
+                                t.traffic()["overflow_dropped"]])
+    return out
+
+
+def stall_process_ring(stall: dict, rank: int) -> None:
+    """A forced timeout of the cross-process exchange: every ring wait
+    gives up after ``stall["max_polls"]`` polls, and process
+    ``stall["rank"]`` holds its stream ``stall["cycles"]`` clock cycles
+    before each of its sends, so its peers' waits give up."""
+    ring._MAX_POLLS = int(stall["max_polls"])
+    if rank != int(stall["rank"]):
+        return
+    run = ring.ProcessRing._run
+
+    def late(self, *args):
+        torch.cuda._sleep(int(stall["cycles"]))
+        return run(self, *args)
+    ring.ProcessRing._run = late
 
 
 def run_exchange(out: str, rounds: int) -> dict:
@@ -165,9 +240,6 @@ def _time_exchanges(model, device) -> list:
     words (the plain version) and the host route (device -> host, gloo,
     host -> device)."""
     dp = bootstrap.process_count()
-    host_ring = ring.ProcessRing(dp, bootstrap.process_index(),
-                                 bootstrap.store(), device, order="host",
-                                 tag="host_ordered")
     cap = model.table.capacity
     d = model.len_vec
     B = model.train_metrics.get("batch_size", 0)
@@ -195,20 +267,6 @@ def _time_exchanges(model, device) -> list:
         torch.cuda.synchronize()
         ms = s.elapsed_time(e) / reps
         bootstrap.barrier()
-        # the host-ordered form: the same bytes, wall clock a call
-        operand = x.unsqueeze(0).expand(dp, *x.shape).contiguous()
-        host_got = host_ring.all_to_all(operand)
-        if not torch.equal(host_got, got):
-            raise AssertionError(f"host-ordered exchange differs at "
-                                 f"{label}")
-        torch.cuda.synchronize()
-        bootstrap.barrier()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            host_ring.all_to_all(operand)
-        torch.cuda.synchronize()
-        host_ordered_ms = (time.perf_counter() - t0) * 1e3 / reps
-        bootstrap.barrier()
         xc = x.cpu()
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -224,8 +282,7 @@ def _time_exchanges(model, device) -> list:
         nbytes = dp * x.numel() * 4 * (1 + dp)
         out.append({"label": label, "shape": list(shape), "dp": dp,
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "host_route_ms": host_ms,
-                    "host_ordered_ms": host_ordered_ms, "bytes": nbytes,
+                    "host_route_ms": host_ms, "bytes": nbytes,
                     "bound_ms": nbytes / 3.35e12 * 1e3})
     return out
 
@@ -294,7 +351,6 @@ def run_w2v(spec: dict) -> dict:
     from swiftmpi_tpu_torch.parameter.sparse_table import tensor_to_numpy
     from swiftmpi_tpu_torch.utils import ConfigParser
     os.makedirs(spec["out"], exist_ok=True)
-    ring.PROCESS_ORDER = spec.get("order", ring.PROCESS_ORDER)
     conf = ConfigParser().update(spec["conf"])
     device = spec.get("device", "cuda")
     model = Word2Vec(config=conf, device=device,
@@ -309,6 +365,8 @@ def run_w2v(spec: dict) -> dict:
             init, model.device,
             mesh=model.cluster.mesh if model.transfer.name == "tpu"
             else None)
+    if spec.get("stall"):
+        stall_process_ring(spec["stall"], me)
     draws, first, times = None, {}, []
     if f"j{me}" in z.files:
         # on the device before the run: a step reads no host draws

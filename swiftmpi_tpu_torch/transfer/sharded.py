@@ -100,7 +100,11 @@ and the ``@rowver`` touched counts are summed over the processes in
 process order (``Transfer._dp_psum``; JAX's psums of ``acc``, the counts
 and ``touched``).  One exchange a push through B5's cross-process form
 (``kernels.ring.ProcessRing``), booked as ``psum_bytes``.  Every replica
-applies the same bits.  The overflow count stays per process.
+applies the same bits.  The overflow count is JAX's, summed over both
+axes: each process's device counts are summed over the processes (over
+gloo, in process order) when :meth:`ShardedTransfer.overflow_count` reads
+them, so under ``dp > 1`` every process reads it at the same point, as
+``Word2Vec.train`` does once the run is done.
 
 Not ported: ``[cluster] data_plane: xla``, the library route of the
 exchange (ROADMAP A16).
@@ -234,7 +238,7 @@ class ShardedTransfer(Transfer):
                 self._overflow_pending = [
                     torch.stack(self._overflow_pending).sum()]
             return
-        c = int(count)
+        c = self._over_processes(int(count))
         self._overflow_total += c
         if c:
             raise RuntimeError(
@@ -243,12 +247,21 @@ class ShardedTransfer(Transfer):
                 "— raise bucket_capacity (or leave it unset for the "
                 "overflow-free default)")
 
+    def _over_processes(self, count: int) -> int:
+        """``count`` summed over the data axis (JAX psums the overflow
+        over both axes); a collective under ``dp > 1``."""
+        if self.dp <= 1:
+            return count
+        from swiftmpi_tpu_torch.parallel.collectives import host_psum
+        return int(host_psum([count])[0])
+
     def overflow_count(self) -> int:
-        """Total requests dropped by bucket overflow since construction;
-        0 when no capacity is set (overflow impossible by construction)."""
+        """Total requests dropped by bucket overflow since construction,
+        in every process of the data axis; 0 when no capacity is set
+        (overflow impossible by construction)."""
         pending, self._overflow_pending = self._overflow_pending, []
-        if pending:
-            self._overflow_total += int(torch.stack(pending).sum())
+        local = int(torch.stack(pending).sum()) if pending else 0
+        self._overflow_total += self._over_processes(local)
         return self._overflow_total
 
     # -- traffic accounting ------------------------------------------------

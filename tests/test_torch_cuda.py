@@ -2174,10 +2174,10 @@ def test_cross_process_exchange_on_card(dev, tmp_path):
     assert got[0]["psum_sha"] == got[1]["psum_sha"]
 
 
-def test_two_process_xla_step_matches_one_process_on_card(dev, tmp_path):
-    """One step of 2 processes on ``xla`` (their batches and draws) equals
-    the one-process step over the concatenated batch within the envelope;
-    the replicas are bit-identical."""
+def _two_process_spec(tmp_path, steps: int = 1, **extra) -> dict:
+    """A 2-process ``xla`` word2vec job of ``steps`` steps at d = 100: its
+    spec (written to ``spec.json``), the corpus, vocab, conf, the
+    processes' batches and draws."""
     import json
     from swiftmpi_tpu_torch.data.distributed import shard_sentences
     from swiftmpi_tpu_torch.data.text import build_vocab
@@ -2193,16 +2193,41 @@ def test_two_process_xla_step_matches_one_process_on_card(dev, tmp_path):
     parts = [next(iter(CBOWBatcher(shard_sentences(corpus, r, 2), vocab, 4,
                                    -1, seed=2008 + r).epoch(B)))
              for r in (0, 1)]
-    draws = [(rng.integers(0, len(vocab), (1, B, 20)),
-              rng.random((1, B, 20), np.float32)) for _ in (0, 1)]
+    draws = [(rng.integers(0, len(vocab), (steps, B, 20)),
+              rng.random((steps, B, 20), np.float32)) for _ in (0, 1)]
     np.savez(tmp_path / "data.npz", corpus=corpus, vocab_keys=vocab.keys,
              vocab_counts=vocab.counts,
              **{f"{k}{r}": draws[r][i] for r in (0, 1)
                 for i, k in enumerate("ju")})
     spec = {"conf": conf, "data": str(tmp_path / "data.npz"),
-            "device": "cuda", "batch_size": B, "niters": 1,
-            "out": str(tmp_path / "out"), "state": True}
+            "device": "cuda", "batch_size": B, "niters": steps,
+            "out": str(tmp_path / "out"), "state": True, **extra}
     (tmp_path / "spec.json").write_text(json.dumps(spec))
+    return spec, conf, vocab, parts, draws
+
+
+def test_a_ring_timeout_fails_both_processes_on_card(dev, tmp_path):
+    """A forced timeout of the cross-process exchange: process 1 holds its
+    stream ~25 ms before each send and every wait gives up after 100
+    polls, so process 0's waits give up; ``Word2Vec.train`` sums the
+    count over the processes at the epoch's end and stops the run, and
+    the launch fails (no dump of a corrupted run)."""
+    _two_process_spec(tmp_path, stall={"rank": 1, "max_polls": 100,
+                                       "cycles": 50_000_000})
+    res = _launch_children("w2v", "-spec", str(tmp_path / "spec.json"))
+    assert res.returncode != 0, res.stdout + res.stderr
+    assert "ring exchange wait(s) timed out across 2 process(es)" \
+        in res.stdout, res.stdout + res.stderr
+    assert "MP_CHILD_OK" not in res.stdout
+    assert not (tmp_path / "out" / "w2v_r0.json").exists()
+
+
+def test_two_process_xla_step_matches_one_process_on_card(dev, tmp_path):
+    """One step of 2 processes on ``xla`` (their batches and draws) equals
+    the one-process step over the concatenated batch within the envelope;
+    the replicas are bit-identical."""
+    import json
+    _, conf, vocab, parts, draws = _two_process_spec(tmp_path)
     res = _launch_children("w2v", "-spec", str(tmp_path / "spec.json"))
     assert res.returncode == 0, res.stdout + res.stderr
     got = [json.loads((tmp_path / "out" / f"w2v_r{r}.json").read_text())

@@ -156,17 +156,68 @@ def test_launcher_refuses_what_is_not_ported(capsys):
     assert launch._normalize_rc(-9) == 137 and launch._normalize_rc(3) == 3
 
 
-def test_four_process_collectives(tmp_path):
+@pytest.fixture(scope="module")
+def four_processes(tmp_path_factory):
+    """One launch of ``mp_child collectives`` in 4 processes over gloo:
+    the output directory."""
+    out = tmp_path_factory.mktemp("collectives")
+    res = run_launch("-np", "4", "--", *_child(
+        "collectives", "-out", str(out), "-device", "cpu"), timeout=90)
+    assert res.returncode == 0, res.stdout + res.stderr
+    return out
+
+
+def test_four_process_collectives(four_processes):
     """all_gather, psum (bit for bit against numpy's sum in process
     order), barrier, all_to_all and the cross-process exchange's plain
     forms against numpy, in 4 processes over gloo."""
-    res = run_launch("-np", "4", "--", *_child(
-        "collectives", "-out", str(tmp_path), "-device", "cpu"), timeout=90)
-    assert res.returncode == 0, res.stdout + res.stderr
-    got = [json.loads((tmp_path / f"collectives_r{r}.json").read_text())
-           for r in range(4)]
+    got = [json.loads((four_processes / f"collectives_r{r}.json")
+                      .read_text()) for r in range(4)]
     assert [g["rank"] for g in got] == [0, 1, 2, 3]
     assert len({g["psum_sha"] for g in got}) == 1
+
+
+def test_four_process_overflow_count_is_jax_global_count(four_processes,
+                                                         devices8):
+    """``tpu`` at 2 shard ranks in each of 4 processes, bucket capacity
+    2: every process's ``overflow_count()`` (after the pull, and
+    ``traffic()``'s after the push) is JAX's, psum'd over the data and
+    shard axes of its (4, 2) mesh; the pulled rows are JAX's slice
+    exactly and the pushed tables within the envelope of JAX's."""
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec
+    from swiftmpi_tpu.cluster import SHARD_AXIS
+    from swiftmpi_tpu.cluster.mesh import DATA_AXIS
+    from swiftmpi_tpu.parameter import w2v_access as jax_w2v_access
+    from swiftmpi_tpu.transfer.tpu import TpuTransfer
+    from swiftmpi_tpu_torch.testing import mp_child
+    dp = 4
+    slots, grads, init = mp_child.overflow_inputs(dp)
+    mesh = Mesh(np.asarray(devices8).reshape(dp, mp_child.OVF_SHARDS),
+                (DATA_AXIS, SHARD_AXIS))
+    jt = TpuTransfer(mesh, bucket_capacity=mp_child.OVF_C)
+    assert jt.dp_axis == DATA_AXIS
+    jacc = jax_w2v_access(learning_rate=mp_child.OVF_LR,
+                          len_vec=mp_child.OVF_D)
+    state = {f: jax.device_put(a, NamedSharding(mesh,
+                                                PartitionSpec(SHARD_AXIS)))
+             for f, a in init.items()}
+    pulled = jt.pull(state, slots, jacc)
+    after_pull = jt.overflow_count()
+    assert after_pull > 0
+    state = jt.push(state, slots, grads, jacc, mean=True)
+    after_push = jt.overflow_count()
+    assert after_push > after_pull
+    for r in range(dp):
+        got = dict(np.load(four_processes / f"overflow_r{r}.npz"))
+        assert got["overflow"].tolist() == [after_pull, after_push]
+        mine = slice(r * mp_child.OVF_B, (r + 1) * mp_child.OVF_B)
+        for f, v in pulled.items():
+            np.testing.assert_array_equal(got[f"pulled__{f}"],
+                                          np.asarray(v)[mine])
+        for f, v in state.items():
+            _envelope(got[f"table__{f}"], np.asarray(v))
+            if f in ("h", "v"):
+                assert not np.array_equal(got[f"table__{f}"], init[f])
 
 
 # -- the data axis's batcher ---------------------------------------------------
@@ -378,6 +429,20 @@ def test_two_process_word2vec_matches_jax_global_step(w2v_runs, transfer):
     for f in want:
         _envelope(a[f], b[f])
         assert not np.array_equal(a[f], _by_key(init, port_ki, keys)[f])
+
+
+def test_a_ring_timeout_fails_the_run(monkeypatch):
+    """A ring wait that gave up during an epoch (``kernels.ring.timeouts()``
+    grew: its step read stale data) stops ``Word2Vec.train`` at the
+    epoch's end; across processes the count is summed first, so every
+    process stops together (the card test forces a real timeout)."""
+    from swiftmpi_tpu_torch.kernels import ring
+    reads = iter([3, 3, 4])          # before the run, 2 epochs' ends
+    monkeypatch.setattr(ring, "timeouts", lambda: next(reads))
+    m = Word2Vec(config=ConfigParser().update(CONF), device="cpu")
+    with pytest.raises(RuntimeError, match=r"iteration 1: 1 ring exchange "
+                                           r"wait\(s\) timed out"):
+        m.train(_corpus(), niters=3, batch_size=B)
 
 
 def test_two_process_hogwild_runs_the_snapshot_mode(w2v_runs):
