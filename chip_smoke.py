@@ -243,12 +243,40 @@ Phases, each of which raises on a failed check:
    the envelope of ``server_num: 1``'s, and after 4 steps no further from
    them than a second ``server_num: 1`` run drifts (B3's atomics).
 
+15. fleets on the card, through the port's supervised launcher: (a)
+   restart-the-world, ``launch -np 2 -max-restarts 1 -backoff 0.2
+   -fleet-dir D -- w2v_main -checkpoint`` with phase 14's configuration
+   (``xla``, 2,500 centers a process) on the 800-sentence prefix, 4
+   iterations, rank 1 SIGKILLed once at the top of iteration 2
+   (``SMTPU_FAULT_PLAN``, a marker file): the launcher returns 0, the
+   supervisor log holds 4 spawns, rank 1's own exit (rc 137, not
+   ``by_supervisor``) and one restart, the FleetCollector merges rank 1's
+   two lives, both processes of the second life resume at iteration 2,
+   only process 0 writes the dump, the final loss is within 20% of the
+   same run unkilled, no ring wait timed out, and every kernel of the
+   path launched; printed: the seconds from the kill to the restarted
+   world's first step.  (b) elastic, ``launch -np 4 -elastic 1
+   -dead-after 8`` over ``testing.fleet_child`` with 16 shards of 8,192
+   rows of 100 floats on each rank's card tensor, rank 2 SIGKILLed at
+   step 20: the epoch reaches 2 with a committed rejoin, the kill is
+   organic, no death is unnoticed, no rank is killed as hung, every rank
+   exits 0 with its rows on ``cuda``, every key in exactly one census,
+   reconvergence, migration bytes; printed: death -> commit and join ->
+   commit seconds, the migration bytes.  (c) the serve fleet, ``launch
+   -serve 2`` over ``testing.serve_child`` with the trainer's planes on
+   the card, replica 1 SIGKILLed at step 20: every replica life's
+   versions monotone, the killed replica restarted and replayed to the
+   manifest tail, the kill attributed, no death unnoticed; printed: its
+   resync seconds, p50 and p99.  B1-B3 at the shapes of (a)'s step and
+   B2 at an elastic export's shape, timed as in phase 2.
+
 The line before the last is the ``{"kernels": [...]}`` summary, each
 kernel's ``launches`` read from the train run of its path (the sent2vec
 cases from the sent2vec inference run, phase 8's, 9's and 10's from
 their paths' train runs, phase 13's from (a)'s run and (c)'s inference
-over the snapshot, phase 14's from (a)'s and (b)'s processes); the last
-is
+over the snapshot, phase 14's from (a)'s and (b)'s processes, phase 15's
+from the second life of (a)'s processes and from (b)'s elastic children,
+as they log them); the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints neither.
 """
@@ -4540,6 +4568,453 @@ def phase_server_num_xla(vocab, corpus: np.ndarray, card: str) -> None:
                 f"{SERVER_NUM_SLACK})")
 
 
+# -- phase 15: fleets on the card ---------------------------------------------
+
+#: (a): the corpus prefix the supervised job trains on, its iterations and
+#: the iteration at whose top rank 1 is killed; the conf's minibatch makes
+#: each process's default batch phase 14's (BATCH // PROCS centers)
+FLEET_SENTS = 800
+FLEET_ITERS = 4
+FLEET_KILL_ITER = 2
+FLEET_PATH = "fleet_restart"
+#: the restarted world's losses against the job stopped after the kill's
+#: iteration and launched again, relative
+RELAUNCH_RTOL = 1e-3
+#: (b): the elastic world at the table's real width: 16 shards of 8,192
+#: rows of 100 floats, a (131,072, 100) float32 tensor on each rank
+ELASTIC_NP = 4
+ELASTIC_ENV = {"SMTPU_ELASTIC": "1", "SMTPU_ELASTIC_SHARDS": "16",
+               "SMTPU_ELASTIC_ROWS": "8192", "SMTPU_ELASTIC_DIM": "100",
+               "SMTPU_ELASTIC_DUMP_EVERY": "5",
+               "SMTPU_ELASTIC_JOIN_TIMEOUT_S": "60",
+               "SMTPU_FLEET_STEPS": "60", "SMTPU_FLEET_STEP_S": "0.02",
+               "SMTPU_FLEET_HB_S": "0.25"}
+ELASTIC_KILL = (2, 20)            # rank, step
+ELASTIC_PATH = "fleet_elastic"
+#: (c): the serve fleet: a trainer on the card and 2 replicas over the
+#: reference table's shape, 90,516 rows of 100 floats (phase 13's table;
+#: a 36.2 MB plane), each step touching one minibatch's 5,000 Zipf draws
+SERVE_ENV = {"SMTPU_SERVE_STEPS": "60", "SMTPU_SERVE_STEP_S": "0.05",
+             "SMTPU_FLEET_HB_S": "0.25", "SMTPU_SERVE_EVERY": "4",
+             "SMTPU_SERVE_VOCAB": "90516", "SMTPU_SERVE_DIM": "100",
+             "SMTPU_SERVE_TOUCH": "5000"}
+SERVE_KILL = (1, 20)              # replica rank, step
+#: seconds a supervised launch may take before the phase fails
+FLEET_TIMEOUT_S = 300
+
+
+def _device_args() -> list:
+    """The children's device flag: none on the card (their default), the
+    CPU only when this script runs there (a rehearsal)."""
+    return [] if DEVICE == "cuda" else ["-device", DEVICE]
+
+
+def _fleet_launch(label: str, args: list, env: dict):
+    """``python -m swiftmpi_tpu_torch.launch *args`` from the repository
+    root; its output goes to ``build/chip_smoke/phase15/<label>.log``.
+    Returns the result and its wall seconds."""
+    t0 = time.perf_counter()
+    log = WORK / "phase15" / f"{label}.log"
+    try:
+        res = subprocess.run(
+            [sys.executable, "-m", "swiftmpi_tpu_torch.launch", *args],
+            cwd=ROOT, capture_output=True, text=True,
+            timeout=FLEET_TIMEOUT_S,
+            env=dict(os.environ, SMTPU_DIST_TIMEOUT="120", **env))
+    except subprocess.TimeoutExpired as e:
+        log.write_text(f"{e.stdout or ''}\n{e.stderr or ''}")
+        raise
+    wall = time.perf_counter() - t0
+    log.write_text(res.stdout + res.stderr)
+    return res, wall
+
+
+def _sup_events(fleet_dir: Path) -> list:
+    with open(fleet_dir / "supervisor.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def _fail(what: str, res, failures: list) -> None:
+    if failures:
+        raise AssertionError(f"phase 15 {what}: " + "; ".join(failures)
+                             + f"\n{res.stdout[-5000:]}\n{res.stderr[-2000:]}")
+
+
+def _fleet_collector(fleet_dir: Path):
+    from swiftmpi_tpu_torch.obs.collector import FleetCollector
+    fc = FleetCollector(str(fleet_dir), stall_after_s=0.8, dead_after_s=8.0)
+    fc.poll(final=True)
+    return fc
+
+
+def _rank_lines(stdout: str, rank: int, needle: str) -> list:
+    return [ln for ln in stdout.splitlines()
+            if ln.startswith(f"[rank {rank}] ") and needle in ln]
+
+
+def _w2v_launches(stdout: str) -> tuple:
+    """The kernel launches, steps and ring wait timeouts each process of
+    a w2v_main run logged at its end, summed over the processes."""
+    total, steps, timeouts = {}, [], []
+    for ln in stdout.splitlines():
+        if "kernel launches {" not in ln:
+            continue
+        blob = ln[ln.index("{"):ln.index("}") + 1]
+        for k, v in json.loads(blob).items():
+            total[k] = total.get(k, 0) + v
+        tail = ln.split(" over ")[1]
+        steps.append(int(tail.split()[0]))
+        timeouts.append(int(tail.rsplit(" ", 1)[1]))
+    return total, steps, timeouts
+
+
+def phase_fleet_restart(corpus: np.ndarray, card: str) -> tuple:
+    """(a) restart-the-world: ``launch -np 2 -max-restarts 1 -fleet-dir D
+    -- w2v_main -checkpoint`` at the reference width on ``xla``, rank 1
+    SIGKILLed at the top of iteration FLEET_KILL_ITER (once: a marker
+    file), against the same run unkilled (phase 9's 20% rule) and, loss
+    by loss, against the job stopped after iteration FLEET_KILL_ITER and
+    launched again on its checkpoint (a resume from another generation or
+    on other streams would differ).  Returns its line, its kernel
+    launches and the data and conf the kernel cases read."""
+    out = WORK / "phase15" / "restart"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    data, conf = out / "corpus.txt", out / "w2v.conf"
+    write_tokens_file(np.ascontiguousarray(corpus[:FLEET_SENTS]), str(data))
+    w = DEMO_CONF["word2vec"]
+    conf.write_text(
+        "[cluster]\ntransfer: xla\nserver_num: 1\n"
+        f"[worker]\nminibatch: {2 * w['window'] * (BATCH // PROCS)}\n"
+        f"[server]\ninitial_learning_rate: "
+        f"{DEMO_CONF['server']['initial_learning_rate']}\n"
+        "[word2vec]\n" + "".join(f"{k}: {v}\n" for k, v in w.items()))
+    runs = {}
+    # the killed world, the job unkilled, and the job stopped after the
+    # kill's iteration and launched again on its checkpoint (what a
+    # correct resume replays: the same generation, streams started anew)
+    for label, kill, niters in (
+            ("unkilled", False, FLEET_ITERS), ("killed", True, FLEET_ITERS),
+            ("stopped", False, FLEET_KILL_ITER),
+            ("relaunched", False, FLEET_ITERS)):
+        d = out / ("stopped" if label == "relaunched" else label)
+        d.mkdir(exist_ok=True)
+        env, sup = {}, ["-np", str(PROCS), "-fleet-dir", str(d / "fleet")]
+        if kill:
+            env["SMTPU_FAULT_PLAN"] = FaultPlan().kill_rank(
+                1, at_step=FLEET_KILL_ITER,
+                marker=str(d / "kill_marker")).to_json()
+            sup += ["-max-restarts", "1", "-backoff", "0.2"]
+        res, wall = _fleet_launch(f"restart_{label}", sup + [
+            "--", sys.executable, "-m", "swiftmpi_tpu_torch.apps.w2v_main",
+            "-config", str(conf), "-data", str(data), "-niters",
+            str(niters), "-checkpoint", str(d / "ck"), "-output",
+            str(d / "vectors.txt"), *_device_args()], env)
+        if res.returncode != 0:
+            raise AssertionError(f"phase 15 (a) {label}: the launch failed "
+                                 f"with rc {res.returncode}\n"
+                                 f"{res.stdout[-6000:]}\n{res.stderr[-2000:]}")
+        runs[label] = (res, wall, d)
+    res, wall, d = runs["killed"]
+    failures = []
+    events = _sup_events(d / "fleet")
+    kinds = [e["kind"] for e in events]
+    if kinds.count("spawn") != 2 * PROCS or kinds.count("restart") != 1:
+        failures.append(f"supervisor events {kinds}")
+    organic = [e for e in events if e["kind"] == "exit" and e["rank"] == 1
+               and e["attempt"] == 0]
+    if [(e["rc"], e["by_supervisor"]) for e in organic] != [(137, False)]:
+        failures.append(f"rank 1's first exit {organic}, not rc 137 on "
+                        "its own")
+    fc = _fleet_collector(d / "fleet")
+    members = fc.members()
+    if members.get("1", {}).get("restarts") != 1 \
+            or len(set(members["1"]["pids"])) != 2:
+        failures.append(f"rank 1's lives {members.get('1')}")
+    if fc.summary()["unnoticed_deaths"]:
+        failures.append(f"unnoticed deaths {fc.summary()['unnoticed_deaths']}")
+    resumed = [ln for ln in res.stdout.splitlines()
+               if "found valid checkpoint" in ln]
+    if sorted(ln[:8] for ln in resumed) != ["[rank 0]", "[rank 1]"] \
+            or not all(f"at iter {FLEET_KILL_ITER};" in ln
+                       for ln in resumed):
+        failures.append(f"the restarted world resumed as {resumed}")
+    wrote = [ln for ln in res.stdout.splitlines() if "wrote " in ln]
+    if len(wrote) != 1 or not wrote[0].startswith("[rank 0]"):
+        failures.append(f"dump writers {wrote}")
+
+    def iters(stdout):
+        return [float(ln.split(": error ")[1].split()[0])
+                for ln in _rank_lines(stdout, 0, ": error ")
+                if "] iter " in ln]
+    losses = iters(res.stdout)
+    loss, want = losses[-1], iters(runs["unkilled"][0].stdout)[-1]
+    if not (math.isfinite(loss) and abs(loss - want) <= 0.2 * abs(want)):
+        failures.append(f"final loss {loss} vs the unkilled run's {want}")
+    # the second life against the relaunched job, iteration by iteration
+    # (B3's float atomics order sums differently run to run)
+    again = iters(runs["relaunched"][0].stdout)
+    second = losses[FLEET_KILL_ITER:]
+    if len(second) != len(again) or not all(
+            abs(a - b) <= RELAUNCH_RTOL * abs(b)
+            for a, b in zip(second, again)):
+        failures.append(f"the second life's losses {second} vs the "
+                        f"relaunched job's {again}")
+    launches, steps, timeouts = _w2v_launches(res.stdout)
+    if len(steps) != PROCS or any(timeouts):
+        failures.append(f"the second life's processes logged steps "
+                        f"{steps}, ring wait timeouts {timeouts}")
+    for k in ("gather", "scatter", "adagrad", "ring_process"):
+        if not launches.get(k):
+            failures.append(f"the restarted world launched no {k}")
+    _fail("(a)", res, failures)
+    # the time to get back: the kill (rank 1's exit, seen within one poll)
+    # to the restarted world's first step, over its processes
+    kill_ts = organic[0]["ts"]
+    firsts = [m["_streams"][-1].records[0]["t_abs"] for m in members.values()]
+    line = {"phase": "fleet", "card": card, "run": "restart_the_world",
+            "processes": PROCS, "niters": FLEET_ITERS,
+            "killed": f"rank 1 at iteration {FLEET_KILL_ITER}",
+            "seconds_to_get_back": max(firsts) - kill_ts,
+            "resumed_at_iter": FLEET_KILL_ITER, "final_loss": loss,
+            "unkilled_final_loss": want, "losses": losses,
+            "unkilled_losses": iters(runs["unkilled"][0].stdout),
+            "relaunched_losses": again,
+            "launch_wall_s": wall,
+            "unkilled_launch_wall_s": runs["unkilled"][1],
+            "second_life_steps": steps, "second_life_launches": launches,
+            "launches_per_step": {k: v / max(sum(steps), 1)
+                                  for k, v in launches.items()},
+            "ring_wait_timeouts": timeouts}
+    _json_line(line)
+    return line, launches, (data, conf)
+
+
+def _restart_cases(data: Path, conf: Path, flush) -> list:
+    """B1-B3 at the shapes one step of (a)'s job gives them on a process:
+    the model as w2v_main builds it, one batch of rank 0's sentences."""
+    reset_global_config()
+    model = Word2Vec(config=ConfigParser(str(conf)), device=DEVICE)
+    sents = load_corpus(str(data),
+                        min_sentence_length=model.min_sentence_length)
+    model.build(sents)
+    batcher = CBOWBatcher(sents[0::PROCS], model.vocab, model.window,
+                          model.sample, seed=2008)
+    batch = next(iter(batcher.epoch(BATCH // PROCS)))
+    rng = np.random.default_rng(15)
+    cap, d = model.table.capacity, model.len_vec
+    h_slots, v_slots = _step_inputs(model, batch, rng)
+    hs, hv = _perturbed(h_slots, cap, rng)
+    vs, vv = _perturbed(v_slots, cap, rng)
+    state = model.table.state
+    counts = torch.as_tensor(rng.integers(1, 9, cap).astype(np.float32),
+                             device=model.device)
+    accum = torch.as_tensor(rng.random((cap, d), np.float32) * 1e-3,
+                            device=model.device)
+    grad = torch.as_tensor(rng.normal(size=(cap, d)).astype(np.float32)
+                           * 1e-2, device=model.device)
+    cases = [
+        _gather_case("h pull, restarted world", state["h"], hs, hv, flush,
+                     FLEET_PATH),
+        _gather_case("v pull, restarted world", state["v"], vs, vv, flush,
+                     FLEET_PATH),
+        _scatter_case("h push, restarted world", FLEET_PATH, hs, hv, cap, d,
+                      rng, flush),
+        _adagrad_case("h table, / counts, restarted world", FLEET_PATH,
+                      state["h"], accum, grad,
+                      model.access.learning_rate, flush, div=counts)]
+    reset_global_config()
+    return cases
+
+
+def phase_fleet_elastic(card: str, flush) -> tuple:
+    """(b) ``launch -np 4 -elastic 1 -dead-after 8`` over the elastic
+    child with its rows on the card, rank 2 SIGKILLed at step 20:
+    ``fleet_smoke.py --elastic``'s checks.  Returns its line, its B2
+    launches and B2's case at an export's shape."""
+    d = WORK / "phase15" / "elastic"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    rank, step = ELASTIC_KILL
+    env = {**ELASTIC_ENV, "SMTPU_FAULT_PLAN": FaultPlan().kill_rank(
+        rank, at_step=step, marker=str(d / "kill_marker")).to_json()}
+    res, wall = _fleet_launch("elastic", [
+        "-np", str(ELASTIC_NP), "-elastic", "1", "-fleet-dir", str(d),
+        "-dead-after", "8", "-max-restarts", "2", "-backoff", "0.2",
+        "-join-timeout", "30", "--", sys.executable, "-m",
+        "swiftmpi_tpu_torch.testing.fleet_child", *_device_args()], env)
+    failures = [] if res.returncode == 0 else [f"rc {res.returncode}"]
+    fc = _fleet_collector(d)
+    s = fc.summary()
+    events = fc.supervisor_events
+    epochs = [e for e in events if e["kind"] == "epoch"]
+    if s.get("fleet_epoch", 0) < 2:
+        failures.append(f"fleet_epoch {s.get('fleet_epoch')}")
+    commits = [e for e in epochs if str(e["reason"]).startswith("commit")]
+    deaths = [e for e in epochs if e["reason"] == f"death:r{rank}"]
+    prepares = [e for e in epochs if e["state"] == "prepare"]
+    if not (commits and deaths and prepares):
+        failures.append(f"epochs {[e['reason'] for e in epochs]}")
+    organic = [e for e in events if e["kind"] == "exit"
+               and e["rank"] == rank and e["rc"] not in (0, None)
+               and not e["by_supervisor"]]
+    if [e["rc"] for e in organic] != [137]:
+        failures.append(f"rank {rank}'s organic exits {organic}")
+    if s["unnoticed_deaths"]:
+        failures.append(f"unnoticed deaths {s['unnoticed_deaths']}")
+    if any(e["kind"] == "hang_kill" for e in events):
+        failures.append("a rank was killed as hung")
+    if set(s["health"].values()) != {"exited"} \
+            or len(s["health"]) != ELASTIC_NP:
+        failures.append(f"health {s['health']}")
+    if s.get("fleet_reconverge_steps") is None:
+        failures.append("no reconvergence on the final epoch")
+    if not s.get("migration_bytes"):
+        failures.append("migration_bytes 0")
+    n_keys = int(ELASTIC_ENV["SMTPU_ELASTIC_SHARDS"]) \
+        * int(ELASTIC_ENV["SMTPU_ELASTIC_ROWS"])
+    keys = []
+    for r in range(ELASTIC_NP):
+        keys += json.loads((d / f"census_r{r}.json").read_text())["keys"]
+    if len(keys) != n_keys or set(keys) != set(range(n_keys)):
+        failures.append(f"the census holds {len(keys)} keys, "
+                        f"{len(set(keys))} distinct, of {n_keys}")
+    ok = [ln for ln in res.stdout.splitlines() if "ELASTIC_CHILD_OK" in ln]
+    if len(ok) != ELASTIC_NP \
+            or not all(f"device={DEVICE}" in ln for ln in ok):
+        failures.append(f"child lines {ok}")
+    launches = sum(int(ln.rsplit("launches=", 1)[1]) for ln in ok)
+    if not launches:
+        failures.append("no masked gather launch in the elastic children")
+    _fail("(b)", res, failures)
+    line = {"phase": "fleet", "card": card, "run": "elastic",
+            "ranks": ELASTIC_NP, "rows_device": DEVICE,
+            "table": [n_keys, int(ELASTIC_ENV["SMTPU_ELASTIC_DIM"])],
+            "killed": f"rank {rank} at step {step}",
+            "fleet_epoch": s["fleet_epoch"],
+            "death_to_commit_s": deaths[0]["ts"] - organic[0]["ts"],
+            "join_to_commit_s": commits[-1]["ts"] - prepares[-1]["ts"],
+            "migration_bytes": s["migration_bytes"],
+            "reconverge_steps": s["fleet_reconverge_steps"],
+            "restarts": s["restarts"], "gather_launches": launches,
+            "launch_wall_s": wall}
+    _json_line(line)
+    cap = n_keys
+    dim = int(ELASTIC_ENV["SMTPU_ELASTIC_DIM"])
+    n_shards = int(ELASTIC_ENV["SMTPU_ELASTIC_SHARDS"])
+    table = torch.randn((cap, dim), device=DEVICE)
+    # a handback's export: n_shards // ELASTIC_NP shards, shard by shard
+    shards = range(0, n_shards, ELASTIC_NP)
+    slots = torch.as_tensor([s + i * n_shards for s in shards
+                             for i in range(cap // n_shards)],
+                            dtype=torch.int32, device=DEVICE)
+    valid = torch.ones(slots.numel(), dtype=torch.bool, device=DEVICE)
+    case = _gather_case(f"elastic export, {len(shards)} shards of "
+                        f"{cap // n_shards} rows", table, slots, valid, flush,
+                        ELASTIC_PATH)
+    return line, launches, case
+
+
+def phase_fleet_serve(card: str) -> dict:
+    """(c) ``launch -serve 2`` over the serve child, the trainer's planes
+    on the card, replica 1 SIGKILLed at step 20: ``fleet_smoke.py
+    --serve``'s checks."""
+    from swiftmpi_tpu_torch.obs.registry import parse_series_key
+    from swiftmpi_tpu_torch.serve.shipper import read_manifest
+    d = WORK / "phase15" / "serve"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    rank, step = SERVE_KILL
+    env = {**SERVE_ENV, "SMTPU_FAULT_PLAN": FaultPlan().kill_rank(
+        rank, at_step=step, marker=str(d / "kill_marker")).to_json()}
+    res, wall = _fleet_launch("serve", [
+        "-serve", "2", "-fleet-dir", str(d), "-max-restarts", "3",
+        "-backoff", "0.2", "--", sys.executable, "-m",
+        "swiftmpi_tpu_torch.testing.serve_child", *_device_args()], env)
+    failures = [] if res.returncode == 0 else [f"rc {res.returncode}"]
+    fc = _fleet_collector(d)
+    s, sv = fc.summary(), fc.serve_view()
+    manifest = read_manifest(str(d / "ship"))
+    members = fc.members()
+
+    def versions(key):
+        return [[int(v) for r in st.records
+                 for g, v in (r.get("gauges") or {}).items()
+                 if parse_series_key(g)[0] == "serve/replica_version"]
+                for st in members[key]["_streams"]]
+    if sv is None or sv["serve_replicas"] != 2 or not manifest:
+        failures.append(f"serve view {sv}, manifest {len(manifest)}")
+    for key in ("1", "2"):
+        for life, vals in enumerate(versions(key) if key in members
+                                    else [[]]):
+            if vals != sorted(vals):
+                failures.append(f"rank {key} life {life} rewound: {vals}")
+    lives = versions(str(rank)) if str(rank) in members else []
+    tail = manifest[-1]["version"] if manifest else 0
+    if len(lives) != 2 or max(lives[1] or [0]) < tail:
+        failures.append(f"replica {rank}'s lives {lives} vs the tail v{tail}")
+    organic = [e for e in fc.supervisor_events if e["kind"] == "exit"
+               and e["rank"] == rank and e["rc"] not in (0, None)
+               and not e["by_supervisor"]]
+    if [e["rc"] for e in organic] != [137]:
+        failures.append(f"replica {rank}'s organic exits {organic}")
+    if s["unnoticed_deaths"]:
+        failures.append(f"unnoticed deaths {s['unnoticed_deaths']}")
+    if set(s["health"].values()) != {"exited"}:
+        failures.append(f"health {s['health']}")
+    trainer = _rank_lines(res.stdout, 0, "SERVE_CHILD_OK role=trainer")
+    if len(trainer) != 1 or f"device={DEVICE}" not in trainer[0]:
+        failures.append(f"trainer line {trainer}")
+    back = _rank_lines(res.stdout, rank, "SERVE_CHILD_OK role=replica")
+    fields = dict(kv.split("=", 1) for kv in back[0].split()
+                  if "=" in kv) if len(back) == 1 else {}
+    # the restarted replica replayed the reference-shaped base: at least
+    # its int8-or-wider rows
+    vocab, dim = (int(SERVE_ENV[k]) for k in ("SMTPU_SERVE_VOCAB",
+                                              "SMTPU_SERVE_DIM"))
+    if int(fields.get("base_bytes", 0)) < vocab * dim:
+        failures.append(f"replica {rank}'s lines {back}")
+    _fail("(c)", res, failures)
+    first = members[str(rank)]["_streams"][-1].records[0]["t_abs"]
+    line = {"phase": "fleet", "card": card, "run": "serve",
+            "replicas": 2, "killed": f"replica {rank} at step {step}",
+            "manifest_tail": tail,
+            "deltas": sum(m["kind"] == "delta" for m in manifest),
+            "table": [vocab, dim],
+            "replica_resync_s": float(fields["resync_s"]),
+            "resync_base_bytes": int(fields["base_bytes"]),
+            "resync_delta_bytes": int(fields["delta_bytes"]),
+            "resync_deltas": int(fields["deltas"]),
+            "kill_to_serving_s": first - organic[0]["ts"],
+            "replica_p50_ms": float(fields["p50"]),
+            "replica_p99_ms": float(fields["p99"]),
+            "qps_total": sv["serve_qps_total"],
+            "staleness_max_s": sv["serve_staleness_max_s"],
+            "launch_wall_s": wall}
+    _json_line(line)
+    return line
+
+
+def phase_fleet(corpus: np.ndarray, card: str) -> tuple:
+    """Phase 15: (a) restart-the-world, (b) the elastic world, (c) the
+    serve fleet, each through the port's supervised launcher on the card;
+    B1-B3 at (a)'s shapes and B2 at (b)'s export.  Returns the cases and
+    their paths' launches."""
+    t0 = time.perf_counter()
+    (WORK / "phase15").mkdir(parents=True, exist_ok=True)
+    _, restart_launches, (data, conf) = phase_fleet_restart(corpus, card)
+    flush = torch.zeros(2 * 50 * 2 ** 20 // 4, device=DEVICE)
+    _, elastic_launches, export_case = phase_fleet_elastic(card, flush)
+    phase_fleet_serve(card)
+    cases = _restart_cases(data, conf, flush) + [export_case]
+    report_cases(cases)
+    del flush
+    torch.cuda.empty_cache()
+    print(f"phase 15 {time.perf_counter() - t0:.1f} s", flush=True)
+    return cases, {FLEET_PATH: restart_launches,
+                   ELASTIC_PATH: {"gather": elastic_launches}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4643,6 +5118,9 @@ def main() -> int:
     proc_cases, proc_counts = phase_processes(vocab, corpus, card)
     cases += proc_cases
     counts.update(proc_counts)
+    fleet_cases, fleet_counts = phase_fleet(corpus, card)
+    cases += fleet_cases
+    counts.update(fleet_counts)
 
     summary = []
     for c in cases:

@@ -28,7 +28,10 @@ Under the launcher (``python -m swiftmpi_tpu_torch.launch -np N -- python
 process group through the model's ``Cluster.initialize()``, loads the
 whole corpus through the Python loader (so every process builds the same
 vocab) and trains on its own shard of the sentences, one data-parallel
-job; process 0 writes ``-output``.
+job; process 0 writes ``-output``.  With ``-checkpoint`` under the
+supervised launcher (``launch -max-restarts R``), a restarted world
+resumes every process from the checkpoint process 0 wrote last.  The log
+ends with the run's kernel launches and steps.
 
     python -m swiftmpi_tpu_torch.apps.w2v_main -config demo.conf \\
         -data corpus.txt -niters 1 -output vectors.txt
@@ -36,8 +39,10 @@ job; process 0 writes ``-output``.
 
 from __future__ import annotations
 
+import json
 import sys
 
+from swiftmpi_tpu_torch import kernels
 from swiftmpi_tpu_torch.cluster.bootstrap import (is_writer,
                                                   shutdown_distributed)
 from swiftmpi_tpu_torch.data import native
@@ -129,6 +134,10 @@ def _main(argv=None) -> int:
     if losses:
         log.info("final error: %.5f; push paths %s", losses[-1],
                  model.train_metrics["push_paths"])
+        log.info("kernel launches %s over %d steps; ring wait timeouts %d",
+                 json.dumps({**kernels.launch_counts(), "ring_process":
+                             kernels.ring.process_launches}),
+                 model.train_metrics["steps"], kernels.ring.timeouts())
     else:
         log.info("checkpoint already at %d iters; nothing to train", niters)
     if cmd.hasParameter("output"):

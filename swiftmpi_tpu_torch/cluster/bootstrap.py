@@ -23,8 +23,8 @@ Environment contract (set by the launcher):
 * ``SMTPU_COORDINATOR``    — ``host:port`` of process 0's store.
 * ``SMTPU_NUM_PROCESSES``  — world size.
 * ``SMTPU_PROCESS_ID``     — this process's rank.
-* ``SMTPU_FLEET_DIR``      — the shared fleet-telemetry directory (the
-  fleet supervisor that sets it is ROADMAP A13b).
+* ``SMTPU_FLEET_DIR``      — the shared fleet-telemetry directory (set by
+  ``launch.py -fleet-dir``; the elastic member table lives there too).
 * ``SMTPU_DIST_TIMEOUT``   — seconds a collective or a store read waits
   for a peer before the run fails (default 300): a dead or stuck peer
   fails the run instead of hanging it.

@@ -31,9 +31,10 @@ stale and the static knobs quietly bleed wire bytes.  The
 The controller itself is knob-agnostic: appliers (which own the
 re-partition / recompile machinery) live with the model that registers
 the knobs (``models/word2vec.py``).  With no sketch and no knobs it
-degrades to an observe-only traffic sampler.  The JAX package's elastic
-membership hook (``on_membership_change``, ``plan_placement``) belongs
-to its cross-process fleet (ROADMAP A13b).
+degrades to an observe-only traffic sampler.  The elastic fleet's
+placement (``plan_placement``, host arithmetic) and its membership hook
+(``Controller.on_membership_change``) live here too: the supervised
+launcher (``launch.py``) places a dead rank's shards with them.
 
 ``[control] control: off`` (the default) pins everything: no controller
 is constructed, no ids are observed, and every trajectory is
@@ -222,6 +223,31 @@ class Controller:
         if rec is not None:
             rec.event("control/decision", d.to_payload())
 
+    # -- elastic membership hook (cluster/membership.py) -------------------
+    def on_membership_change(self, epoch: int, live: Sequence[int],
+                             assign: Dict[int, int],
+                             evidence: Optional[dict] = None
+                             ) -> Decision:
+        """Record a membership-change placement as a first-class
+        control decision: the epoch bump rides the same
+        ``control/decision`` event stream (and counters) as every knob
+        change, so the fleet timeline shows WHO moved WHERE next to the
+        supervisor's epoch event.  ``assign`` is the
+        :func:`plan_placement` result the supervisor committed."""
+        reg = obs.get_registry()
+        d = Decision("placement", "apply", None,
+                     {str(s): r for s, r in sorted(assign.items())},
+                     0.0, 0, self._evals,
+                     {"epoch": int(epoch), "live": list(live),
+                      **(evidence or {})})
+        self.decisions.append(d)
+        reg.counter("control/decisions").inc()
+        reg.counter("control/decisions_applied").inc()
+        rec = obs.get_recorder()
+        if rec is not None:
+            rec.event("control/decision", d.to_payload())
+        return d
+
     # -- cadence -----------------------------------------------------------
     def on_steps(self, n: int = 1) -> Optional[List[Decision]]:
         """Account ``n`` consumed steps; run an evaluation when the
@@ -336,3 +362,59 @@ def _evidence_traffic(delta: dict) -> dict:
     """The cross-backend core of a ledger delta, for event payloads."""
     return {k: delta[k] for k in _EVIDENCE_KEYS if k in delta}
 
+
+
+# -- elastic membership placement (cluster/membership.py) --------------------
+
+def shard_weights(shard_loads: Optional[Dict[int, Sequence[float]]],
+                  n: int) -> List[float]:
+    """Fleet-wide per-shard load of ``n`` shards: the sum over the ranks'
+    published decayed touch loads (``shard_loads``, rank -> per-shard
+    vector); a shard nobody reported weighs 1.0, so placement degrades
+    to balance-by-count."""
+    total = [0.0] * n
+    for vec in (shard_loads or {}).values():
+        for s, v in enumerate(vec):
+            if s < n:
+                total[s] += float(v)
+    return [v if v > 0 else 1.0 for v in total]
+
+
+def plan_placement(shards: Sequence[int], candidates: Sequence[int],
+                   shard_loads: Optional[Dict[int, Sequence[float]]] = None,
+                   current_owner: Optional[Sequence[int]] = None
+                   ) -> Dict[int, int]:
+    """Assign orphaned ``shards`` to ``candidates``, the Parallax
+    placement rule (PAPERS.md): the per-parameter frequency statistics
+    the control plane already folds decide where rows live when
+    membership changes.
+
+    ``shard_loads`` maps rank -> per-shard decayed touch loads (each
+    rank's published :class:`~swiftmpi_tpu_torch.control.sketch.
+    DecayedSketch` fold, :func:`~swiftmpi_tpu_torch.cluster.membership.
+    read_loads`); the fleet-wide per-shard load is their sum.  Each
+    candidate starts at the load of the shards it already owns
+    (``current_owner``), then the orphans go heaviest-first to the
+    least-loaded candidate (ties to the lower rank): the greedy LPT bound
+    keeps the post-change wire imbalance low instead of piling a dead
+    rank's hot shards onto one survivor.  With no load signal every shard
+    weighs 1.0 and the rule degrades to balance-by-count."""
+    candidates = list(candidates)
+    if not candidates:
+        raise ValueError("plan_placement: no candidate ranks")
+    n = (len(current_owner) if current_owner is not None
+         else (max(shards) + 1 if shards else 0))
+    weight = shard_weights(shard_loads, n) or [1.0]
+    busy = {r: 0.0 for r in candidates}
+    if current_owner is not None:
+        for s, r in enumerate(current_owner):
+            if r in busy and s not in set(shards):
+                busy[r] += weight[s] if s < len(weight) else 1.0
+    assign: Dict[int, int] = {}
+    for s in sorted(shards,
+                    key=lambda s: -(weight[s] if s < len(weight)
+                                    else 1.0)):
+        dst = min(candidates, key=lambda r: (busy[r], r))
+        assign[s] = dst
+        busy[dst] += weight[s] if s < len(weight) else 1.0
+    return assign

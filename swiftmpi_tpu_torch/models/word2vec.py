@@ -166,7 +166,7 @@ import numpy as np
 import torch
 
 from swiftmpi_tpu_torch import obs
-from swiftmpi_tpu_torch.cluster import Cluster
+from swiftmpi_tpu_torch.cluster import Cluster, bootstrap
 from swiftmpi_tpu_torch.cluster.hashfrag import expected_unique_rows
 from swiftmpi_tpu_torch.control import (Controller, ControlSettings,
                                         DecayedSketch, Knob, Proposal)
@@ -2037,7 +2037,10 @@ class Word2Vec:
     def _checkpoint(self, path: str, iteration: int, retain: int) -> None:
         """Save the table with ``extra__iter`` = ``iteration`` once the
         device has finished every step, then report the save to the fault
-        bus."""
+        bus.  Across processes every process waits at a barrier until
+        process 0's file is on disk, so a world that dies after this
+        iteration restarts from it, every process from the same
+        generation."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         extra = {"iter": np.int64(iteration)}
@@ -2047,6 +2050,7 @@ class Word2Vec:
             # windows against the learned regime, not a cold baseline
             extra["numerics"] = self._numerics.detector.state_bytes()
         save_checkpoint(self.table, path, extra=extra, retain=retain)
+        bootstrap.barrier()
         log.info("checkpoint @ iter %d -> %s", iteration, path)
         faults.checkpoint_event(npz_path(path))
 

@@ -276,8 +276,9 @@ def configure(config, run: str = "run",
     * ``heartbeat_s: S`` — proof-of-life cadence (default 2.0 in fleet
       mode, 0 = off otherwise).
 
-    A multi-process launch that fills one fleet dir from many ranks is
-    ROADMAP A13b; one process writes its own stream there today.
+    Under every supervisor of ``launch.py`` (``-fleet-dir``, ``-elastic``,
+    ``-serve``) the rank in the stream's name comes from
+    ``SMTPU_PROCESS_ID``, which the launcher sets for each child.
     * ``crash_flush: 1`` — atexit + fatal-signal telemetry flush
       (default on; see recorder.py).
 

@@ -1,7 +1,7 @@
 """Fleet telemetry: merge per-rank streams into one cross-rank timeline
 (the port's copy of ``swiftmpi_tpu/obs/collector.py``: host-only, the
-same schemas; the multi-process launcher that fills a fleet directory is
-ROADMAP A13b, and one process writes its stream there through
+same schemas; ``launch.py -fleet-dir`` fills a fleet directory from
+every rank, and one process writes its stream there through
 ``[obs] fleet_dir``).
 
 Every telemetry capability before this module observes exactly ONE

@@ -26,7 +26,9 @@ Hot slots never move under ``grow`` (it re-strides the tail only), and
 online ``repartition`` swaps the split in place and returns the
 :class:`RepartitionPlan` the table replays: tail rows keep their
 shard-local place, only the unified offset ``n_hot`` moves.  The elastic
-ownership helpers (``shard_rows``, the owner map) are ROADMAP A13b.
+ownership helpers name what a shard move ships: ``shard_rows`` (a shard's
+keys and slots), ``adopt_owner_map`` (the member table's shard -> rank
+map, epoch-guarded) and ``owner_moves`` (its diff).
 
 The window wire-format pricers (``window_wire_format``,
 ``price_window_formats``, ``price_hot_collectives``) are the JAX
@@ -38,7 +40,7 @@ and the port executes every rung (``transfer/api.py``).
 from __future__ import annotations
 
 from itertools import chain
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
@@ -584,3 +586,64 @@ class KeyIndex:
         self._next_local = np.zeros(self.num_shards, np.int64)
         np.maximum.at(self._next_local, shards, local + 1)
         self._ht_grow(max(len(self._slot_of), 1))
+
+    # -- elastic ownership (cross-process repartition) ----------------------
+    def shard_rows(self, shard: int) -> Tuple[np.ndarray, np.ndarray]:
+        """``(keys, slots)`` of every assigned tail key in ``shard``, in
+        insertion order: the export manifest when the shard moves to
+        another process.  Gather the table rows at ``slots``, encode them
+        as a delta keyed by ``keys``, and the receiver re-creates the keys
+        in its own layout (slot values are process-local and never cross
+        the wire)."""
+        shard, per = int(shard), self.capacity_per_shard
+        pairs = [(k, v) for k, v in self._slot_of.items()
+                 if (v - self.n_hot) // per == shard]
+        keys = np.asarray([k for k, _ in pairs], np.int64)
+        slots = np.asarray([v for _, v in pairs], np.int64)
+        return keys, slots
+
+    def adopt_owner_map(self, owner_of_shard, epoch: int) -> None:
+        """Adopt an elastic member table's shard -> rank ownership
+        (``cluster/membership.py``).  The map is advisory routing state:
+        it moves no local rows itself (the elastic worker ships the
+        deltas), but its epoch is guarded: adopting an older epoch than
+        the one already applied means this process acts on a stale world
+        view, the split-brain the epoch protocol exists to prevent."""
+        from swiftmpi_tpu_torch.cluster.membership import StaleEpochError
+        owner = tuple(int(r) for r in owner_of_shard)
+        if len(owner) != self.num_shards:
+            raise ValueError(
+                f"owner map covers {len(owner)} shards; this index "
+                f"routes {self.num_shards}")
+        cur = getattr(self, "owner_epoch", -1)
+        if int(epoch) < cur:
+            raise StaleEpochError(
+                f"adopt_owner_map: epoch {epoch} regressed below "
+                f"adopted epoch {cur}")
+        self.shard_owner = owner
+        self.owner_epoch = int(epoch)
+
+    def owner_moves(self, new_owner, rank: int
+                    ) -> Tuple[Dict[int, List[int]], List[int]]:
+        """Diff the adopted owner map against ``new_owner`` from
+        ``rank``'s seat: returns ``(outbound, inbound)`` where
+        ``outbound`` maps destination rank -> the local shards to export
+        there (each with :meth:`shard_rows`) and ``inbound`` is the shards
+        arriving.  Raises if no map was adopted yet."""
+        old = getattr(self, "shard_owner", None)
+        if old is None:
+            raise ValueError("owner_moves: no owner map adopted yet")
+        new = tuple(int(r) for r in new_owner)
+        if len(new) != len(old):
+            raise ValueError(
+                f"owner map length changed: {len(old)} -> {len(new)}")
+        outbound: Dict[int, List[int]] = {}
+        inbound: List[int] = []
+        for s, (o, n) in enumerate(zip(old, new)):
+            if o == n:
+                continue
+            if o == rank:
+                outbound.setdefault(n, []).append(s)
+            elif n == rank:
+                inbound.append(s)
+        return outbound, inbound

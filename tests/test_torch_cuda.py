@@ -2246,3 +2246,112 @@ def test_two_process_xla_step_matches_one_process_on_card(dev, tmp_path):
     for f, t in m.table.state.items():
         np.testing.assert_allclose(state[f], t.cpu().numpy(), rtol=1e-3,
                                    atol=1e-5)
+
+
+def _elastic_pair(tmp_path, dev, world=3, n_shards=8):
+    """The same elastic fleet twice, one fleet directory each: workers
+    with their rows on the card and on the CPU."""
+    from swiftmpi_tpu_torch.cluster import membership as mem
+    from swiftmpi_tpu_torch.cluster.elastic import ElasticWorker
+    dirs = {d: tmp_path / d for d in ("card", "cpu")}
+    workers = {}
+    for name, d in dirs.items():
+        d.mkdir()
+        mem.write_membership(str(d), mem.initial_table(world, n_shards))
+        workers[name] = {r: ElasticWorker(
+            r, str(d), world_size=world, n_shards=n_shards,
+            rows_per_shard=64, dim=100, dump_every=2,
+            device=dev if name == "card" else "cpu") for r in range(world)}
+    return dirs, workers
+
+
+def test_elastic_worker_on_card_matches_cpu(dev, tmp_path):
+    """Rows on the card against rows on the CPU, bit for bit, over a
+    death (adoption from the last dump) and a two-phase rejoin; every
+    dump and migration npz equal; dumps and exports read through B2."""
+    from swiftmpi_tpu_torch.cluster import membership as mem
+    from swiftmpi_tpu_torch.control.controller import plan_placement
+    dirs, workers = _elastic_pair(tmp_path, dev)
+
+    def every(fn):
+        out = {n: {r: fn(w) for r, w in ws.items()}
+               for n, ws in workers.items()}
+        assert out["card"] == out["cpu"]
+        return out["card"]
+
+    def publish(make):
+        for name, d in dirs.items():
+            mem.write_membership(str(d), make(mem.read_membership(str(d))))
+
+    def step_all():
+        for r, b in workers["cpu"].items():
+            a = workers["card"][r]
+            assert a.step() == pytest.approx(b.step(), rel=1e-6, abs=1e-12)
+
+    gather.launches = 0
+    every(lambda w: w.boot(timeout_s=2.0))
+    for _ in range(4):
+        every(lambda w: w.sync())
+        step_all()
+    assert gather.launches == 2 * 3          # two dumps a rank
+    for ws in workers.values():
+        ws.pop(2)
+    t = mem.read_membership(str(dirs["cpu"]))
+    assign = plan_placement(t.shards_of(2), [0, 1],
+                            current_owner=t.owner_of_shard)
+    publish(lambda t: mem.plan_death(t, 2, assign))
+    every(lambda w: w.sync())
+    t = mem.read_membership(str(dirs["cpu"]))
+    publish(lambda t: mem.plan_rejoin(t, 2, {t.shards_of(0)[0]: 2,
+                                            t.shards_of(1)[0]: 2}))
+    launches = gather.launches
+    every(lambda w: w.sync())
+    assert gather.launches == launches + 2   # one export a source
+    publish(lambda t: mem.commit_table(t))
+    every(lambda w: w.sync())
+    from swiftmpi_tpu_torch.cluster.elastic import ElasticWorker
+    for name, d in dirs.items():
+        workers[name][2] = ElasticWorker(
+            2, str(d), world_size=3, n_shards=8, rows_per_shard=64,
+            dim=100, dump_every=2, device=dev if name == "card" else "cpu")
+    every(lambda w: w.boot(timeout_s=2.0))
+    for _ in range(3):
+        every(lambda w: w.sync())
+        step_all()
+    for r in range(3):
+        a, b = workers["card"][r], workers["cpu"][r]
+        assert a.rows.device.type == "cuda"
+        ra, rb = a.rows_dict(), b.rows_dict()
+        assert sorted(ra) == sorted(rb)
+        for k in ra:
+            assert np.array_equal(ra[k], rb[k]), (r, k)
+        assert a.loss() == pytest.approx(b.loss(), rel=1e-6)
+        assert a.migration_bytes == b.migration_bytes
+    names = sorted(n for n in dirs["cpu"].iterdir() if n.suffix == ".npz")
+    assert names
+    for p in names:
+        with np.load(p) as zc, np.load(dirs["card"] / p.name) as zg:
+            for f in zc.files:
+                np.testing.assert_array_equal(zg[f], zc[f])
+
+
+def test_serve_trainer_update_on_card_matches_numpy(dev):
+    """The serve child's trainer: planes on the card, numpy's draws,
+    ``index_add_`` onto the distinct touched rows, bit for bit against
+    the numpy update of the JAX child."""
+    from swiftmpi_tpu_torch.testing.serve_child import _Table, _zipf_slots
+    vocab, dim, n_hot = 4096, 16, 256
+    tbl = _Table(vocab, dim, n_hot, seed=7, device=dev)
+    ref = {f: v.cpu().numpy().copy() for f, v in tbl.state.items()}
+    rng = np.random.default_rng(1000)
+    for _ in range(40):
+        rows = np.unique(_zipf_slots(rng, 128, vocab, 1.3))
+        upd = rng.normal(scale=0.05, size=(len(rows), dim)).astype(
+            np.float32)
+        tbl.apply(rows, upd)
+        hot, tail = rows[rows < n_hot], rows[rows >= n_hot] - n_hot
+        ref["v@hot"][hot] += upd[:len(hot)]
+        ref["v"][tail] += upd[len(rows) - len(tail):]
+    for f, v in tbl.state.items():
+        assert v.device.type == "cuda"
+        np.testing.assert_array_equal(v.cpu().numpy(), ref[f])

@@ -45,7 +45,8 @@ want = {"swiftmpi_tpu_torch." + m for m in (
     "serve", "serve.snapshot", "serve.reader", "serve.query",
     "serve.shipper", "control", "control.sketch", "control.controller",
     "cluster.bootstrap", "launch", "parallel", "parallel.collectives",
-    "data.distributed", "testing.mp_child")}
+    "data.distributed", "testing.mp_child", "cluster.membership",
+    "cluster.elastic", "testing.fleet_child", "testing.serve_child")}
 missing = sorted(want - set(names))
 print(len(names), "modules;", "leaked:", bad, "missing:", missing)
 sys.exit(1 if bad or missing or len(names) < 30 else 0)

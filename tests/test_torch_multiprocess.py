@@ -142,17 +142,17 @@ def test_launcher_kills_stragglers_and_leaks_nothing(tmp_path):
 
 
 def test_launcher_refuses_what_is_not_ported(capsys):
+    """``-cpu``, a missing ``--`` and a missing program are refused (rc
+    2); ``-elastic`` and ``-serve`` without ``-fleet-dir`` return 2, as
+    the JAX launcher's do."""
     assert launch.main(["-np", "2"]) == 2                  # no "--"
     assert launch.main(["-np", "2", "--"]) == 2            # no program
     assert launch.main(["-cpu", "4", "--", "true"]) == 2
     assert "no torch meaning" in capsys.readouterr().err
-    for flag in ("-fleet-dir", "-max-restarts", "-profile-at", "-elastic"):
-        with pytest.raises(NotImplementedError, match="A13b"):
-            launch.main([flag, "1", "--", "true"])
-    for fn in (launch.supervise, launch.supervise_elastic,
-               launch.supervise_serve):
-        with pytest.raises(NotImplementedError, match="A13b"):
-            fn(["true"], 2)
+    assert launch.main(["-np", "2", "-elastic", "1", "--", "true"]) == 2
+    assert "-elastic requires -fleet-dir" in capsys.readouterr().err
+    assert launch.main(["-serve", "2", "--", "true"]) == 2
+    assert "-serve requires -fleet-dir" in capsys.readouterr().err
     assert launch._normalize_rc(-9) == 137 and launch._normalize_rc(3) == 3
 
 
