@@ -270,13 +270,48 @@ Phases, each of which raises on a failed check:
    resync seconds, p50 and p99.  B1-B3 at the shapes of (a)'s step and
    B2 at an elastic export's shape, timed as in phase 2.
 
+16. the rest of the data axis: one launch of ``python -m
+   swiftmpi_tpu_torch.launch -np 2 -- mp_child w2v -spec`` runs every job
+   of the JAX package's across-process hooks in one process group, at
+   phase 14's configuration (2,500 centers a process, 1 epoch of the
+   800-sentence prefix, numpy draws): (a) ``hybrid`` with 4 shard ranks
+   a process and its hot head, ``collective: sparse_allreduce`` and
+   ``push_window: 4`` armed (``train`` fuses no group across processes,
+   so every push is the per-step hot psum, as in JAX); (b) ``xla`` with
+   ``pull_quant: bf16``, ``pull_cache: 8`` and ``[serve] every: 8``; (c)
+   ``tpu@4`` with ``push_window: 4, wire_quant: int8`` against the
+   one-process ``push_window: 1`` run (its ``@ef`` planes zero), and two
+   transfer-level window pushes of 4 x 20,000 rows a process (``tpu@4``
+   with ``wire_quant: int8``, ``hybrid@4`` with ``collective:
+   sparse_allreduce``), each held by the child against one process's push
+   over the concatenated windows; (d) LR at the a9a shape and GloVe at
+   phase 8's shape, on ``xla`` and ``tpu@4``; (e) sent2vec over (a)'s
+   trained replica.  Every job's replicas equal to the bit and no ring
+   wait timed out; (a)-(c)'s losses within 1e-4 relative of the
+   one-process run over the same global batches and draws and their
+   tables after the first step within the envelope; LR's and GloVe's
+   tables by key within the envelope, their losses within 1e-4; the
+   quantized window's fields with at most ``LOSSY_SHARE`` of their
+   elements outside the envelope; the lossless window's tail fields
+   within it, its ``@hot`` fields with at most ``DA_SUM_ORDER_SHARE``
+   outside, none by more than ``DA_SUM_ORDER_GAP`` (a hot row sums ~700
+   rows in another order); sent2vec's vectors within the envelope of one
+   process's over the same table.  Printed: global words/s, rows/s,
+   cells/s and sents/s beside the one-process run's, and B5's
+   cross-process all-gather at the hot plane's, the dense plane's and
+   the error-feedback window's shapes against its bound.  B1 and B3 at
+   (a)'s hot push and hot plane and B3 at the error feedback's
+   slice-by-slice bank (``PROCS`` x ``server_num`` slices onto the
+   window's table) are each held against their plain versions on the
+   card.  B1-B3 and B5 (both forms) must each have launched.
+
 The line before the last is the ``{"kernels": [...]}`` summary, each
 kernel's ``launches`` read from the train run of its path (the sent2vec
 cases from the sent2vec inference run, phase 8's, 9's and 10's from
 their paths' train runs, phase 13's from (a)'s run and (c)'s inference
 over the snapshot, phase 14's from (a)'s and (b)'s processes, phase 15's
 from the second life of (a)'s processes and from (b)'s elastic children,
-as they log them); the last is
+as they log them, phase 16's from its jobs' processes); the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints neither.
 """
@@ -327,6 +362,7 @@ from swiftmpi_tpu_torch.data.text import (CBOWBatcher, StencilBatch,
 from swiftmpi_tpu_torch.kernels import (adagrad, build, gather, ring,
                                         scatter, stencil)
 from swiftmpi_tpu_torch.models.embedding import EmbeddingIndex
+from swiftmpi_tpu_torch.models.glove import GloVe
 from swiftmpi_tpu_torch.models.logistic import LogisticRegression
 from swiftmpi_tpu_torch.models.sent2vec import (Sent2Vec,
                                                 build_word_model_from_dump)
@@ -337,12 +373,13 @@ from swiftmpi_tpu_torch.models.word2vec import (Word2Vec, _batch_fields,
                                                 _cbow_targets,
                                                 _parity_targets, _sg_targets,
                                                 w2v_parser)
-from swiftmpi_tpu_torch.parameter.key_index import KeyIndex
+from swiftmpi_tpu_torch.parameter.key_index import HotColdPartition, KeyIndex
 from swiftmpi_tpu_torch.parameter.sparse_table import (shard_block,
                                                        split_rows)
 from swiftmpi_tpu_torch.testing import faults
 from swiftmpi_tpu_torch.testing.faults import FaultPlan
-from swiftmpi_tpu_torch.testing.mp_child import (first_step_rows,
+from swiftmpi_tpu_torch.testing.mp_child import (_rows_by_key, _window_data,
+                                                 first_step_rows,
                                                  lockstep_epochs,
                                                  steady_step_ms)
 from swiftmpi_tpu_torch.transfer.api import window_owners
@@ -5015,6 +5052,530 @@ def phase_fleet(corpus: np.ndarray, card: str) -> tuple:
                    ELASTIC_PATH: {"gather": elastic_launches}}
 
 
+# -- phase 16: the rest of the data axis on the card --------------------------
+
+#: phase 16's epochs over phase 14's prefix (each process a shard of it)
+DA_ITERS = 1
+#: its transfer-level windows: steps a window and rows a step and process
+#: (the v push's 2,500 x 8 rows of a step)
+DA_WINDOW, DA_WIN_ROWS = 4, 20_000
+#: its LR and GloVe epochs
+DA_LR_ITERS, DA_GLOVE_ITERS = 2, 1
+#: the launch counts' path on the kernels line
+DA_PATH = "data_axis"
+#: the lossless window's hot planes against the one-process push: a hot
+#: row sums ~700 of the window's rows in another order (B3's atomics), and
+#: where such a sum nearly cancels, AdaGrad's first update (g / sqrt(g^2 +
+#: 1e-6)) carries its float32 rounding far (phase 3's pool rows; on an
+#: H100, 1 of the hot plane's 22,200 elements, by 5.2e-5).  Elements of the
+#: ``@hot`` fields may leave the envelope, at most this share of a field's
+#: and none by more than DA_SUM_ORDER_GAP; the tail's fields may not.
+DA_SUM_ORDER_SHARE, DA_SUM_ORDER_GAP = 1e-4, 1e-4
+DA_KERNELS = ("gather", "scatter", "adagrad", "ring", "ring_process")
+
+
+def _da_launch(specs: list, out: Path) -> tuple:
+    """One ``launch -np PROCS -- mp_child w2v -spec`` over every job, in
+    one process group: each job's JSON by process and rank 0's arrays,
+    the launcher's output and its wall seconds."""
+    spec_path = out / "specs.json"
+    spec_path.write_text(json.dumps(specs))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "swiftmpi_tpu_torch.launch", "-np",
+         str(PROCS), "--", sys.executable, "-m",
+         "swiftmpi_tpu_torch.testing.mp_child", "w2v", "-spec",
+         str(spec_path)], cwd=ROOT, capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, SMTPU_DIST_TIMEOUT="180"))
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"phase 16: the launch failed with rc "
+                             f"{res.returncode}:\n{res.stdout[-6000:]}\n"
+                             f"{res.stderr[-3000:]}")
+    got = {}
+    for spec in specs:
+        job, d = spec.get("job", "w2v"), Path(spec["out"])
+        arrays = {}
+        for name in (f"{job}_state_r0.npz", "w2v_first_step_r0.npz"):
+            if (d / name).exists():
+                arrays[name.split("_r0")[0]] = dict(np.load(d / name))
+        got[d.name] = ([json.loads((d / f"{job}_r{r}.json").read_text())
+                        for r in range(PROCS)], arrays)
+    return got, res.stdout, wall
+
+
+def _da_replicas(label: str, got: list) -> None:
+    """The processes' replicas equal to the bit; no ring wait gave up."""
+    shas = [g["sha"] for g in got]
+    if any(s != shas[0] for s in shas):
+        raise AssertionError(f"phase 16 {label}: the replicas differ: "
+                             f"{shas}")
+    if any(g["timeouts"] for g in got):
+        raise AssertionError(f"phase 16 {label}: ring waits timed out: "
+                             f"{[g['timeouts'] for g in got]}")
+
+
+def _da_losses(label: str, got: list, want: list) -> None:
+    have = got[0]["losses"]
+    if len(have) != len(want) or not all(
+            math.isclose(a, b, rel_tol=1e-4) for a, b in zip(have, want)):
+        raise AssertionError(f"phase 16 {label}: losses {have} vs the "
+                             f"one-process run's {want}")
+
+
+def _da_gap(label: str, have: dict, want: dict, share: float = 0.0) -> dict:
+    """Every field of ``have`` (host rows) against ``want``: the largest
+    gap and the share of elements outside the envelope, which may not
+    pass ``share``."""
+    out = {}
+    for f, w in want.items():
+        w = np.asarray(w, np.float32)
+        gap = np.abs(np.asarray(have[f], np.float32) - w)
+        outside = float((gap > 1e-5 + 1e-3 * np.abs(w)).mean())
+        out[f] = {"max_abs_gap": float(gap.max()) if gap.size else 0.0,
+                  "share_outside_envelope": outside}
+        if outside > share:
+            raise AssertionError(f"phase 16 {label}: field {f}: {out[f]} "
+                                 f"(allowed share {share})")
+    return out
+
+
+def _da_ref_w2v(conf: dict, vocab, epochs, draws_cat) -> tuple:
+    """The one-process port run over the global batches and draws: the
+    model, its table after the first step, its losses."""
+    ref = Word2Vec(config=ConfigParser().update(conf), device=DEVICE)
+    ref.build_from_vocab(vocab)
+    first = {}
+    losses = ref.train(batcher=_GlobalBatches(epochs, vocab),
+                       batch_size=BATCH, niters=DA_ITERS,
+                       draws=first_step_rows(iter(draws_cat), ref, first))
+    return ref, first, losses
+
+
+def _da_exchanges(label: str, got: list, card: str) -> None:
+    for e in got[0].get("exchange", []):
+        if e["max_abs_err"] != 0:
+            raise AssertionError(f"phase 16 {label}: the cross-process "
+                                 f"exchange is not a copy: {e}")
+        _json_line({"phase": "data_axis", "card": card, "job": label,
+                    "exchange": e["label"], "shape": e["shape"],
+                    "kernel_ms": e["ms"], "bound_ms": e["bound_ms"],
+                    "host_route_ms": e["host_route_ms"],
+                    "gloo_cpu_ms": e["plain_ms"]})
+
+
+def _ef_bank_case(label, path, ded, cap, width, rng, flush):
+    """B3 as ``ef_quantize_window`` banks a window's errors: ``ded``'s
+    ``(S, L)`` slices, each of distinct slots, one launch each with
+    ``out=`` into one zeroed ``(cap, width)`` plane and its counts, bit for
+    bit against the plain version's slices added in the same order."""
+    dev = ded.device
+    valid = (ded >= 0).contiguous()
+    g = torch.randn((*ded.shape, width), generator=_device_gen(dev, rng),
+                    device=dev) * 1e-2
+
+    def bank(fn):
+        acc = torch.zeros((cap, width), device=dev)
+        cnt = torch.zeros(cap, device=dev)
+        for s in range(ded.shape[0]):
+            fn(ded[s], valid[s], g[s], cap, counts=True, out=(acc, cnt))
+        return acc, cnt
+    (acc_k, cnt_k), (acc_p, cnt_p) = (bank(scatter.masked_scatter_add),
+                                      bank(scatter.masked_scatter_add_plain))
+    torch.cuda.synchronize()
+    err = (acc_k - acc_p).abs().max().item()
+    if not (torch.equal(acc_k, acc_p) and torch.equal(cnt_k, cnt_p)):
+        raise AssertionError(f"masked_scatter_add ({label}): kernel != "
+                             f"plain (max |err| {err})")
+    (S, L), n_ok = ded.shape, int(valid.sum())
+    safe = torch.where(valid, ded, cap).reshape(-1).long()
+    lib = torch.zeros((cap + 1, width), device=dev)
+    return dict(
+        name=f"masked_scatter_add ({label})", route="cuda", path=path,
+        source="swiftmpi_tpu_torch/kernels/csrc/scatter.cu",
+        replaces="swiftmpi_tpu/ops/pallas_scatter.py:77",
+        module=scatter, shape=f"{S} slices x {L} rows x {width}, each of "
+        f"distinct slots, into one ({cap}, {width}) plane + counts, "
+        f"{S * L - n_ok} invalid, {S} launches",
+        max_abs_err=err, tolerance="exact (one addition an element a "
+        "launch, launches in order)",
+        ms=_time_ms(lambda: bank(scatter.masked_scatter_add), flush),
+        plain_ms=_time_ms(lambda: bank(scatter.masked_scatter_add_plain),
+                          flush),
+        library_ms=_time_ms(lambda: lib.index_add_(0, safe,
+                                                   g.view(-1, width)),
+                            flush),
+        library="Tensor.index_add_ (sums only, one call)",
+        bytes=5 * S * L + 4 * n_ok * width + 4 * cap * (width + 1),
+        flops=n_ok * width)
+
+
+def _da_kernel_cases(model: Word2Vec, batch, q_spec: dict,
+                     shards: int) -> list:
+    """B1 and B3 at the shapes phase 16's jobs give them and no other
+    phase checks: (a)'s hot push of one process's h rows onto the
+    ``(n_hot, 100)`` head with counts, AdaGrad over the hot plane once
+    the processes' sums are in (the mean's reciprocal of up to two
+    processes' counts), and the error feedback's bank of (c)'s quantized
+    window (``PROCS`` x ``shards`` rank slices of the gathered window,
+    each deduplicated, onto the window's table)."""
+    rng = np.random.default_rng(161)
+    dev, d = model.device, model.len_vec
+    flush = torch.zeros(2 * 50 * 2 ** 20 // 4, device=dev)
+    n_hot, state = model.table.n_hot, model.table.state
+    h_slots = model.transfer._pad_batch(_step_inputs(model, batch,
+                                                     rng)[0])[0]
+    hot = ((h_slots >= 0) & (h_slots < n_hot)).contiguous()
+    grad = torch.as_tensor(rng.normal(size=(n_hot, d)).astype(np.float32)
+                           * 1e-2, device=dev)
+    inv = 1.0 / torch.as_tensor(rng.integers(1, 800, n_hot)
+                                .astype(np.float32), device=dev)
+    init, wins = _window_data(q_spec, PROCS)
+    slices = np.concatenate([w[0].ravel() for w in wins]).reshape(
+        PROCS * shards, -1)
+    ded = np.full_like(slices, -1)
+    for row, s in zip(ded, slices):
+        u, first = np.unique(s, return_index=True)
+        row[first] = u
+    return [
+        _scatter_case("data axis, hybrid@4 hot push of one process's h "
+                      "rows", DA_PATH, h_slots, hot, n_hot, d, rng, flush),
+        _adagrad_case("data axis, hybrid@4 hot plane after the processes' "
+                      "sum, * 1/counts", DA_PATH, state["h@hot"].clone(),
+                      state["h2sum@hot"].clone(), grad,
+                      model.access.learning_rate, flush, mul=inv),
+        _ef_bank_case("data axis, EF bank of tpu@4's int8 window", DA_PATH,
+                      torch.from_numpy(ded).to(dev), init["h"].shape[0], d,
+                      rng, flush)]
+
+
+def phase_data_axis(vocab, corpus: np.ndarray, card: str,
+                    sents: int = PROC_SENTS, shards: int = PROC_SHARDS,
+                    lr_shape: str = "a9a", glove_corpus=None) -> tuple:
+    """Phase 16: every hook the JAX package runs across processes, in one
+    launch of ``PROCS`` processes on the card at phase 14's reference
+    configuration: (a) ``hybrid`` with ``shards`` ranks a process and its
+    hot head, ``collective: sparse_allreduce`` and ``push_window: 4``
+    armed (``train`` fuses no group across processes, as JAX's does not,
+    so every push is the per-step hot psum); (b) ``xla`` with ``pull_quant:
+    bf16``, ``pull_cache: 8`` and ``[serve] every: 8``; (c) ``tpu`` with
+    ``push_window: 4, wire_quant: int8`` against the ``push_window: 1``
+    one-process run, and transfer-level window pushes on ``tpu`` (int8)
+    and ``hybrid`` (``collective: sparse_allreduce``) against a
+    one-process push over the concatenated windows; (d) LR at ``lr_shape``
+    and GloVe at phase 8's shape, on ``xla`` and ``tpu``; (e) sent2vec over
+    (a)'s trained model against one process's sent2vec over the same
+    table.  Returns the B5 case of (a)'s hot plane and the launches."""
+    t0 = time.perf_counter()
+    out = WORK / "phase16"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    prefix = np.ascontiguousarray(corpus[:sents])
+    probe = _model("gather", vocab, "cpu")
+    Bl = BATCH // PROCS
+    epochs = lockstep_epochs(vocab, prefix, probe.window, probe.sample, Bl,
+                             PROCS, DA_ITERS)
+    steps = sum(len(e) for e in epochs)
+    d, K = probe.len_vec, probe.negative
+    del probe
+    rng = np.random.default_rng(16)
+    data = {"corpus": prefix, "vocab_keys": vocab.keys,
+            "vocab_counts": vocab.counts}
+    draws_cat, per_rank = [], [([], []) for _ in range(PROCS)]
+    for _ in range(steps):
+        js, us = [], []
+        for r in range(PROCS):
+            j = rng.integers(0, len(vocab), (Bl, K))
+            u = rng.random(j.shape, np.float32)
+            per_rank[r][0].append(j)
+            per_rank[r][1].append(u)
+            js.append(j)
+            us.append(u)
+        draws_cat.append((torch.from_numpy(np.concatenate(js)).to(DEVICE),
+                          torch.from_numpy(np.concatenate(us)).to(DEVICE)))
+    for r in range(PROCS):
+        data[f"j{r}"] = np.stack(per_rank[r][0])
+        data[f"u{r}"] = np.stack(per_rank[r][1])
+    np.savez(out / "w2v.npz", **data)
+    n_hot = HotColdPartition.from_counts(
+        vocab.keys, vocab.counts,
+        batch_rows=DEMO_CONF["worker"]["minibatch"]).n_hot
+    cuda = DEVICE == "cuda"
+
+    def w2v(name, cluster, sections=None, shapes=()):
+        conf = {**DEMO_CONF, **(sections or {}),
+                "cluster": {**DEMO_CONF["cluster"], **cluster}}
+        return conf, {"conf": conf, "data": str(out / "w2v.npz"),
+                      "device": DEVICE, "batch_size": Bl,
+                      "niters": DA_ITERS, "out": str(out / name),
+                      "state": True,
+                      "time_shapes": list(shapes) if cuda else []}
+    hyb = {"transfer": "hybrid", "server_num": shards}
+    tpu = {"transfer": "tpu", "server_num": shards}
+    a_conf, a_spec = w2v("hybrid", {**hyb, "push_window": 4,
+                                    "collective": "sparse_allreduce"},
+                         shapes=[("hot_plane", (n_hot, d + 1))])
+    b_conf, b_spec = w2v("xla_pull_serve", {"pull_quant": "bf16",
+                                            "pull_cache": 8},
+                         {"serve": {"every": 8}},
+                         shapes=[("dense_plane", (len(vocab) * 13 // 10,
+                                                  d + 1))])
+    c_conf, c_spec = w2v("tpu_w4q", {**tpu, "push_window": 4,
+                                     "wire_quant": "int8"},
+                         {"worker": {**DEMO_CONF["worker"],
+                                     "inner_steps": 4}})
+    # the table's rows split over the shards of one process and over the
+    # one-process reference's PROCS x as many
+    rows = PROCS * shards * (len(vocab) * 13 // (10 * PROCS * shards) + 1)
+
+    def window(name, cluster, knobs, **gen):
+        spec = {"job": "window", "device": DEVICE, "out": str(out / name),
+                "conf": {"cluster": cluster}, "knobs": knobs,
+                "reference": True, "lr": 0.7,
+                "gen": {"rows": rows, "d": d, "W": DA_WINDOW,
+                        "B": DA_WIN_ROWS, "seed": len(name), **gen},
+                "time_shapes": [("ef_window", (DA_WINDOW * DA_WIN_ROWS,
+                                               1 + 2 * d))] if cuda else []}
+        # the plan prices the window's distinct rows, as a model's
+        # window_expected_unique does from its vocab's counts
+        wins = _window_data(spec, PROCS)[1]
+        slots = np.concatenate([w[0].ravel() for w in wins])
+        knobs["window_expected_unique"] = float(
+            np.unique(slots[slots >= 0]).size)
+        return spec
+    lr_spec, lr_mb, lr_cap = SHAPES[lr_shape]
+    lr_path = out / "lr.svm"
+    with open(lr_path, "w") as f:
+        for y, feats in synthetic_dataset(**lr_spec):
+            f.write(f"{int(y)} " + " ".join(f"{k}:{v!r}" for k, v in feats)
+                    + "\n")
+    from swiftmpi_tpu_torch.apps.glove_profile import (GLOVE_CONF,
+                                                       GLOVE_CORPUS)
+    g_corpus = (synthetic_corpus(**GLOVE_CORPUS) if glove_corpus is None
+                else glove_corpus)
+    np.savez(out / "glove.npz", corpus=np.asarray(g_corpus, np.int64))
+    from swiftmpi_tpu_torch.apps.lr_profile import LR_CONF
+
+    def lr_conf(n):
+        c = {**LR_CONF, "worker": {"minibatch": lr_mb}}
+        return ({**c, "cluster": {"transfer": "tpu", "server_num": n}}
+                if n else c), (-(-lr_cap // n) if n else lr_cap)
+
+    def glove_conf(n):
+        c = {**GLOVE_CONF, "worker": {"inner_steps": 8, "pipeline": 4}}
+        return ({**c, "cluster": {"transfer": "tpu", "server_num": n}}
+                if n else c)
+    q_spec = window("win_tpu_q", tpu, {"wire_quant": "int8"}, ef=True)
+    specs = [a_spec,
+             {"job": "s2v", "over": "previous", "device": DEVICE,
+              "data": str(out / "s2v.npz"), "niters": S2V_NITERS,
+              "out": str(out / "s2v")},
+             b_spec, c_spec,
+             q_spec,
+             window("win_hybrid_sar", hyb,
+                    {"collective_mode": "sparse_allreduce"}, n_hot=n_hot)]
+    for n in (0, shards):
+        conf, cap = lr_conf(n)
+        specs.append({"job": "lr", "conf": conf, "device": DEVICE,
+                      "capacity_per_shard": cap, "dataset": str(lr_path),
+                      "niters": DA_LR_ITERS,
+                      "out": str(out / f"lr@{n or 1}")})
+        specs.append({"job": "glove", "conf": glove_conf(n),
+                      "device": DEVICE, "data": str(out / "glove.npz"),
+                      "niters": DA_GLOVE_ITERS,
+                      "out": str(out / f"glove@{n or 1}")})
+    lines, _ = _s2v_lines(vocab.keys)
+    np.savez(out / "s2v.npz", lines=np.array(lines))
+    print(f"phase 16 set-up {time.perf_counter() - t0:.1f} s ({steps} "
+          f"steps of {PROCS} x {Bl} centers, {n_hot} hot keys, "
+          f"{len(specs)} jobs)", flush=True)
+
+    got, stdout, wall = _da_launch(specs, out)
+    print(f"phase 16 launch {wall:.1f} s", flush=True)
+    launches = {k: 0 for k in ("gather", "scatter", "adagrad", "stencil",
+                               "ring", "ring_process")}
+    runs = {}
+    for name, (per_proc, _) in got.items():
+        _da_replicas(name, per_proc)
+        for k, v in per_proc[0]["launches"].items():
+            launches[k] += v
+    # (a), (b), (c): each against the one-process run over the global
+    # batches (c: its push_window 1 run)
+    for name, conf in (("hybrid", a_conf), ("xla_pull_serve", b_conf),
+                       ("tpu_w4q", {**DEMO_CONF, "cluster": tpu})):
+        per_proc, arrays = got[name]
+        ref, first, losses = _da_ref_w2v(conf, vocab, epochs, draws_cat)
+        _da_losses(name, per_proc, losses)
+        gap = {}
+        for f, v in ref.table.state.items():
+            gap[f] = _field_gap(f"phase 16 {name}: field {f} after the "
+                                "first step",
+                                torch.from_numpy(arrays["w2v_first_step"][f]),
+                                torch.from_numpy(first[f]))
+        m = per_proc[0]["metrics"]
+        rec = {"phase": "data_axis", "card": card, "job": name,
+               "processes": PROCS, "steps": m["steps"],
+               "global_words_per_sec": m["words_per_sec"],
+               "one_process_words_per_sec":
+                   ref.train_metrics["words_per_sec"],
+               "losses": per_proc[0]["losses"],
+               "one_process_losses": losses, "first_step_gap": gap,
+               "final_gap": _final_gap(arrays["w2v_state"], ref)
+               if name != "tpu_w4q" else None,
+               "push_paths": m["push_paths"],
+               "launches": per_proc[0]["launches"]}
+        if name == "hybrid":
+            if not int(ref.table.n_hot) == n_hot \
+                    or not any(k.endswith(":hot") for k in m["push_paths"]):
+                raise AssertionError(f"phase 16 hybrid: no hot head ran: "
+                                     f"{m['push_paths']}")
+            hybrid_ref = ref
+        if name == "xla_pull_serve":
+            serve = [g["serve"] for g in per_proc]
+            if not all(s["equal"] for s in serve) or serve[0] != serve[1]:
+                raise AssertionError(f"phase 16 {name}: snapshots {serve}")
+            rec["serve"] = serve[0]
+        if name == "tpu_w4q":
+            ef = per_proc[0]["ef_nonzero"]
+            if sorted(ef) != ["h@ef", "v@ef"] or any(ef.values()) \
+                    or m["fused"]:
+                raise AssertionError(f"phase 16 {name}: the @ef planes "
+                                     f"{ef}, fused {m['fused']}")
+            rec["ef_nonzero"] = ef
+        _json_line(rec)
+        _da_exchanges(name, per_proc, card)
+        runs[name] = rec
+        if name != "hybrid":
+            del ref
+    # (e) sent2vec over (a)'s trained replica, against one process's
+    per_proc, arrays = got["s2v"]
+    for f, v in got["hybrid"][1]["w2v_state"].items():
+        rows = torch.from_numpy(v)
+        if "@hot" in f:
+            hybrid_ref.table.state[f].copy_(rows.to(DEVICE))
+        else:
+            hybrid_ref.table.assign(f, rows)
+    s2v = Sent2Vec(hybrid_ref)
+    t1 = time.perf_counter()
+    want = s2v.infer_sentences(lines, niters=S2V_NITERS)
+    one_s = time.perf_counter() - t1
+    vecs = arrays["s2v_state"]
+    gap = _da_gap("s2v", {"vectors": vecs["vectors"]},
+                  {"vectors": np.stack([v for _, v in want])})
+    rec = {"phase": "data_axis", "card": card, "job": "s2v",
+           "sentences": per_proc[0]["sentences"],
+           "sents_per_sec": per_proc[0]["sentences"]
+           / per_proc[0]["seconds"],
+           "one_process_sents_per_sec": len(want) / one_s, "gap": gap,
+           "launches": per_proc[0]["launches"]}
+    _json_line(rec)
+    runs["s2v"] = rec
+    cases = (_da_kernel_cases(hybrid_ref, epochs[0][0][0], q_spec, shards)
+             if cuda else [])
+    del hybrid_ref, s2v
+    # (c) the transfer-level windows: the child held each against the
+    # one-process push over the concatenated windows
+    for name in ("win_tpu_q", "win_hybrid_sar"):
+        per_proc, _ = got[name]
+        g = per_proc[0]
+        for f, v in g["reference_gap"].items():
+            if "_q" in name:
+                ok = v["share_outside_envelope"] <= LOSSY_SHARE
+            elif "@hot" in f:
+                ok = (v["share_outside_envelope"] <= DA_SUM_ORDER_SHARE
+                      and v["max_gap_outside_envelope"] <= DA_SUM_ORDER_GAP)
+            else:
+                ok = v["share_outside_envelope"] == 0
+            if not ok:
+                raise AssertionError(f"phase 16 {name}: field {f}: {v}")
+        tr = g["traffic"]
+        rec = {"phase": "data_axis", "card": card, "job": name,
+               "rows": PROCS * DA_WINDOW * DA_WIN_ROWS,
+               "ms": 1e3 * g["seconds"],
+               "global_rows_per_sec": PROCS * DA_WINDOW * DA_WIN_ROWS
+               / g["seconds"], "reference_gap": g["reference_gap"],
+               "psum_bytes": tr["psum_bytes"],
+               "decisions": {k: tr[k] for k in (
+                   "window_fmt_q", "window_fmt_sparse", "window_fmt_dense",
+                   "collective_sparse_ar", "collective_psum")},
+               "launches": g["launches"]}
+        if ("_q" in name and not tr["window_fmt_q"]) or (
+                "sar" in name and not tr["collective_sparse_ar"]):
+            raise AssertionError(f"phase 16 {name}: the plan did not take "
+                                 f"its rung: {rec['decisions']}")
+        _json_line(rec)
+        _da_exchanges(name, per_proc, card)
+        runs[name] = rec
+    # (d) LR and GloVe against their one-process runs
+    for n in (0, shards):
+        conf, cap = lr_conf(n)
+        one = LogisticRegression(config=ConfigParser().update(conf),
+                                 capacity_per_shard=cap, device=DEVICE)
+        losses = one.train(str(lr_path), niters=DA_LR_ITERS)
+        per_proc, arrays = got[f"lr@{n or 1}"]
+        _da_losses(f"lr@{n or 1}", per_proc, losses)
+        keyed = arrays["lr_state"]
+        want = _rows_by_key(one.table, keyed["keys"])
+        rec = {"phase": "data_axis", "card": card, "job": f"lr@{n or 1}",
+               "records_per_sec": per_proc[0]["metrics"]["records_per_sec"],
+               "one_process_records_per_sec":
+                   one.train_metrics["records_per_sec"],
+               "losses": per_proc[0]["losses"], "one_process_losses": losses,
+               "final_gap": _da_gap(f"lr@{n or 1}", keyed, want),
+               "launches": per_proc[0]["launches"]}
+        _json_line(rec)
+        runs[rec["job"]] = rec
+        del one
+        g1 = GloVe(config=ConfigParser().update(glove_conf(n)),
+                   device=DEVICE).build(g_corpus)
+        losses = g1.train(niters=DA_GLOVE_ITERS)
+        per_proc, arrays = got[f"glove@{n or 1}"]
+        _da_losses(f"glove@{n or 1}", per_proc, losses)
+        keyed = arrays["glove_state"]
+        want = _rows_by_key(g1.table, keyed["keys"])
+        rec = {"phase": "data_axis", "card": card,
+               "job": f"glove@{n or 1}",
+               "cells_per_sec": per_proc[0]["metrics"]["cells_per_sec"],
+               "one_process_cells_per_sec": g1.train_metrics[
+                   "cells_per_sec"],
+               "losses": per_proc[0]["losses"], "one_process_losses": losses,
+               "final_gap": _da_gap(f"glove@{n or 1}", keyed, want),
+               "launches": per_proc[0]["launches"]}
+        _json_line(rec)
+        runs[rec["job"]] = rec
+        del g1
+        torch.cuda.empty_cache() if cuda else None
+    missing = [k for k in DA_KERNELS if not launches[k]]
+    if missing and cuda:
+        raise AssertionError(f"phase 16: {missing} never launched: "
+                             f"{launches}")
+    _json_line({"phase": "data_axis", "card": card, "launches": launches,
+                "launch_wall_s": wall})
+    hot = got["hybrid"][0][0].get("exchange", [])
+    if not hot:
+        if cuda:
+            raise AssertionError("phase 16: the hybrid run timed no "
+                                 "exchange")
+        print(f"phase 16 {time.perf_counter() - t0:.1f} s", flush=True)
+        return cases, {DA_PATH: launches}
+    e = hot[0]
+    cases.append({"name": "ring_exchange (across processes, all-gather of the "
+                    "hybrid hot plane)",
+            "route": "cuda", "source": "swiftmpi_tpu_torch/kernels/csrc/"
+                                       "ring.cu",
+            "replaces": "swiftmpi_tpu/ops/pallas_ring.py:86",
+            "module": ring, "counter": "ring_process", "path": DA_PATH,
+            "shape": e["shape"], "max_abs_err": e["max_abs_err"],
+            "tolerance": "bit for bit (a copy)", "ms": e["ms"],
+            "plain_ms": e["plain_ms"], "bytes": e["bytes"], "flops": 0,
+            "library": "none: NCCL runs no two ranks on one card; the host "
+                       "route's ms is on the data_axis line",
+            "library_ms": None})
+    report_cases(cases)
+    print(f"phase 16 {time.perf_counter() - t0:.1f} s", flush=True)
+    return cases, {DA_PATH: launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -5121,6 +5682,9 @@ def main() -> int:
     fleet_cases, fleet_counts = phase_fleet(corpus, card)
     cases += fleet_cases
     counts.update(fleet_counts)
+    da_cases, da_counts = phase_data_axis(vocab, corpus, card)
+    cases += da_cases
+    counts.update(da_counts)
 
     summary = []
     for c in cases:

@@ -13,12 +13,18 @@ checkpoint format.
 
     python -m swiftmpi_tpu_torch.apps.glove_main -config glove.conf \\
         -data corpus.txt -niters 3 -output glove.txt
+
+Under the launcher (``python -m swiftmpi_tpu_torch.launch -np 2 --
+python -m swiftmpi_tpu_torch.apps.glove_main ...``) every process reads
+the whole corpus and trains its share of every minibatch; only process 0
+writes the vectors.
 """
 
 from __future__ import annotations
 
 import sys
 
+from swiftmpi_tpu_torch.cluster.bootstrap import is_writer
 from swiftmpi_tpu_torch.data.text import load_corpus
 from swiftmpi_tpu_torch.models.glove import GloVe
 from swiftmpi_tpu_torch.utils import CMDLine, global_config
@@ -61,6 +67,12 @@ def _main(argv=None) -> int:
     niters = int(cmd.getValue("niters", "1"))
     losses = model.train(corpus, niters=niters)
     log.info("final loss: %.6f", losses[-1])
+    if not is_writer():
+        # every process holds the same replica: process 0 writes
+        if cmd.hasParameter("output") or cmd.hasParameter("output-full"):
+            log.info("computed %d embeddings; process 0 writes them",
+                     len(model.vocab))
+        return 0
     if cmd.hasParameter("output"):
         n = model.save(cmd.getValue("output"))
         log.info("wrote %d embeddings -> %s", n, cmd.getValue("output"))

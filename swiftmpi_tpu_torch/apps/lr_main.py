@@ -8,6 +8,11 @@ parser, as the JAX CLI does; the log names the parser.
 
     python -m swiftmpi_tpu_torch.apps.lr_main -mode train -config lr.conf \\
         -dataset a9a.txt -niters 3 -output weights.txt
+
+Under the launcher (``python -m swiftmpi_tpu_torch.launch -np 2 --
+python -m swiftmpi_tpu_torch.apps.lr_main ...``) every process reads the
+whole dataset and trains its share of every minibatch; only process 0
+writes the weights and the predictions.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import sys
 
 import numpy as np
 
+from swiftmpi_tpu_torch.cluster.bootstrap import is_writer
 from swiftmpi_tpu_torch.models.logistic import LogisticRegression
 from swiftmpi_tpu_torch.utils import CMDLine, global_config
 from swiftmpi_tpu_torch.utils.logger import get_logger
@@ -51,7 +57,10 @@ def main(argv=None) -> int:
         log.info("final train error: %.6f", losses[-1])
         if cmd.hasParameter("output"):
             n = model.save(cmd.getValue("output"))
-            log.info("wrote %d weights -> %s", n, cmd.getValue("output"))
+            if is_writer():
+                log.info("wrote %d weights -> %s", n, cmd.getValue("output"))
+            else:
+                log.info("computed %d weights; process 0 writes them", n)
         return 0
 
     if mode == "predict":
@@ -60,8 +69,12 @@ def main(argv=None) -> int:
         scores = model.predict(cmd.getValue("dataset"))
         log.info("libSVM parser: %s", model.parser)
         out = cmd.getValue("output", "predict.txt")
-        np.savetxt(out, scores, fmt="%.6f")
-        log.info("wrote %d predictions -> %s", len(scores), out)
+        if is_writer():
+            np.savetxt(out, scores, fmt="%.6f")
+            log.info("wrote %d predictions -> %s", len(scores), out)
+        else:
+            log.info("computed %d predictions; process 0 writes them",
+                     len(scores))
         return 0
 
     if mode == "eval":

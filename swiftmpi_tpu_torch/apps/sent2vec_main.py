@@ -9,12 +9,18 @@ with the table grown to fit.
     python -m swiftmpi_tpu_torch.apps.sent2vec_main -config demo.conf \\
         -data sentences.txt -wordvec vectors.txt -niters 10 \\
         -output sent_vecs.txt
+
+Under the launcher (``python -m swiftmpi_tpu_torch.launch -np 2 --
+python -m swiftmpi_tpu_torch.apps.sent2vec_main ...``) every process
+infers every sentence on its replica of the word table, as the JAX
+package runs it; only process 0 writes the vectors.
 """
 
 from __future__ import annotations
 
 import sys
 
+from swiftmpi_tpu_torch.cluster.bootstrap import is_writer
 from swiftmpi_tpu_torch.models.sent2vec import (Sent2Vec,
                                                 build_word_model_from_dump)
 from swiftmpi_tpu_torch.utils import CMDLine, global_config
@@ -57,8 +63,12 @@ def _main(argv=None) -> int:
     results = s2v.infer_sentences(lines,
                                   niters=int(cmd.getValue("niters", "10")))
     out = cmd.getValue("output", "sent_vecs.txt")
-    s2v.write(results, out)
-    log.info("wrote %d sentence vectors -> %s", len(results), out)
+    if is_writer():
+        s2v.write(results, out)
+        log.info("wrote %d sentence vectors -> %s", len(results), out)
+    else:
+        log.info("computed %d sentence vectors; process 0 writes them",
+                 len(results))
     return 0
 
 

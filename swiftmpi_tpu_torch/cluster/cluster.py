@@ -26,9 +26,10 @@ Config surface (reference cluster.h:13-25 + demo.conf):
 ``initialize()`` first joins the process group the launcher names
 (``cluster/bootstrap.py``, the ``MPI_Init`` of the reference).  In a run
 of ``dp`` processes every process holds a full table replica, on ``xla``
-or over its own ``server_num`` ranks on ``tpu`` (the data axis, JAX's
-hybrid mesh), and the transfers reconcile every push across the
-processes; ``hybrid`` and ``local`` under ``dp > 1`` are ROADMAP A11e.
+or over its own ``server_num`` ranks on ``tpu`` and ``hybrid`` (the data
+axis, JAX's hybrid mesh), and the transfers reconcile every push across
+the processes.  ``local`` under ``dp > 1`` is refused: the JAX package's
+word2vec cannot train on ``local`` even in one process.
 All ranks of a layout must live on one device: shards on different cards
 are ROADMAP A11d.
 """
@@ -53,16 +54,6 @@ from swiftmpi_tpu_torch.utils.logger import get_logger
 log = get_logger(__name__)
 
 DATA_PLANE_MODES = ("auto", "pallas", "xla")
-
-
-def refuse_processes(cluster, model: str) -> None:
-    """Raise for a model not yet held against the JAX package across
-    processes (ROADMAP A11e) when ``cluster`` spans several."""
-    dp = cluster.dp
-    if dp > 1:
-        raise NotImplementedError(
-            f"{model} across {dp} processes is not ported yet "
-            "(ROADMAP A11e); word2vec is")
 
 
 class Cluster:
@@ -96,11 +87,14 @@ class Cluster:
         if self.data_plane not in DATA_PLANE_MODES:
             raise ValueError(f"[cluster] data_plane must be one of "
                              f"{DATA_PLANE_MODES}, got {self.data_plane!r}")
-        if self.dp > 1 and backend in ("hybrid", "local"):
+        if self.dp > 1 and backend == "local":
             raise NotImplementedError(
-                f"transfer: {backend} across {self.dp} processes (the hot "
-                "head's reconcile over the data axis) is not ported yet "
-                "(ROADMAP A11e); use xla or tpu")
+                f"transfer: local across {self.dp} processes: the JAX "
+                "package's local backend is its host oracle, and its "
+                "word2vec cannot train on it even in one process (a "
+                "TracerArrayConversionError in the jitted step), so there "
+                "is no reference to hold a data axis against (ROADMAP "
+                "queue C); use xla, tpu or hybrid")
         if backend in ("tpu", "hybrid"):
             # explicit routing: every rank is worker + server; hybrid's
             # tail IS the tpu routing.  Multi-process: the shard axis stays

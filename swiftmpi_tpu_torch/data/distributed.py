@@ -8,6 +8,12 @@ servers.  Here every process streams batches from its own shard
 across the processes.  A batch stays local: there is no global array, and
 the global batch is ``batch_size * process_count``.
 
+LR and GloVe read the whole data set in every process, as the JAX
+package feeds them (replicated), and each process computes its share of
+every global batch (:func:`batch_share`): the transfer sums the shares,
+so a step is the one-process step over the whole batch, and no update is
+counted twice.
+
 Lockstep protocol: every process must run the same number of steps (each
 push is a collective), but shards deplete unevenly (subsampling is
 random).  Before each step a gather over gloo on the host exchanges
@@ -18,8 +24,9 @@ dry, and each step's ``n_words`` is the global sum.
 from __future__ import annotations
 
 import time
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Sequence
 
+import numpy as np
 import torch
 
 from swiftmpi_tpu_torch.cluster import bootstrap
@@ -36,6 +43,30 @@ def shard_sentences(sentences, rank: Optional[int] = None,
     rank = bootstrap.process_index() if rank is None else rank
     nprocs = bootstrap.process_count() if nprocs is None else nprocs
     return sentences[rank::nprocs]
+
+
+def batch_share(arrays: Sequence[np.ndarray], pads: Sequence,
+                rank: int, nprocs: int, axis: int = 0,
+                multiple: int = 1) -> tuple:
+    """Process ``rank``'s share of one global batch that every process
+    holds whole: along ``axis``, the batch padded with ``pads`` (one fill
+    value an array, rows that contribute nothing) to ``nprocs`` equal
+    shares of a multiple of ``multiple`` rows, the ``rank``-th of them
+    (JAX's batch spec ``P((data, shard))``: process-major)."""
+    n = arrays[0].shape[axis]
+    share = -(-n // (nprocs * multiple)) * multiple
+    out = []
+    for a, fill in zip(arrays, pads):
+        a = np.asarray(a)
+        short = share * nprocs - n
+        if short:
+            shape = list(a.shape)
+            shape[axis] = short
+            a = np.concatenate([a, np.full(shape, fill, a.dtype)], axis)
+        idx = [slice(None)] * a.ndim
+        idx[axis] = slice(rank * share, (rank + 1) * share)
+        out.append(a[tuple(idx)])
+    return tuple(out)
 
 
 class DistributedBatcher:

@@ -2,8 +2,9 @@
 // same launch:
 //   acc[r][s] += grads[r][i]   and   counts[r][s] += 1
 // for every row i of rank r with valid[r][i] and 0 <= s = slots[r][i] < cap;
-// other rows are skipped.  acc is a zeroed (R, cap, w) tensor, counts a
-// zeroed (R, cap) tensor or null; the caller allocates both.
+// other rows are skipped.  acc is a (R, cap, w) tensor, counts a (R, cap)
+// tensor or null; the caller allocates both, zeroed for a plain sum, or
+// holding earlier launches' sums to add to.
 //
 // Replaces the Pallas kernel swiftmpi_tpu/ops/pallas_scatter.py
 // (vmem_scatter_add / masked_vmem_scatter_add), the drop-in body of the
@@ -206,7 +207,7 @@ __global__ void __launch_bounds__(kThreads) scatter_tile(const Scatter all) {
 
 // `ranks` ranks of n rows each: slots int32 (ranks, n), valid uint8
 // (ranks, n), grads float32 (ranks, n, w) contiguous; acc float32
-// (ranks, cap, w) and counts float32 (ranks, cap) (or null) zeroed.
+// (ranks, cap, w) and counts float32 (ranks, cap) (or null), added to.
 extern "C" int smtpu_masked_scatter_add_f32(
     const void* slots, const void* valid, const void* grads, void* acc,
     void* counts, long long ranks, long long n, int w, long long cap,

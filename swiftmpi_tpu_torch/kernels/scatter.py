@@ -45,10 +45,15 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 
 def masked_scatter_add_plain(slots: torch.Tensor, valid: torch.Tensor,
                              grads: torch.Tensor, capacity: int,
-                             counts: bool = False):
+                             counts: bool = False, out=None):
     """Plain PyTorch version: one ``index_add_`` into a dump-row
     accumulator per rank (``(R, cap + 1, W)``), sliced back to ``(R, cap,
-    W)``; the counts the same way with ones."""
+    W)``; the counts the same way with ones.  ``out``: added into it."""
+    if out is not None:
+        res = masked_scatter_add_plain(slots, valid, grads, capacity, counts)
+        for o, r in (zip(out, res) if counts else ((out, res),)):
+            o.add_(r)
+        return out
     if slots.dim() == 1:
         out = masked_scatter_add_plain(slots[None], valid[None], grads[None],
                                        capacity, counts)
@@ -90,17 +95,21 @@ def _check(slots, valid, grads):
 
 def masked_scatter_add(slots: torch.Tensor, valid: torch.Tensor,
                        grads: torch.Tensor, capacity: int,
-                       counts: bool = False):
+                       counts: bool = False, out=None):
     """Sums of ``grads`` rows by slot.  ``slots``/``valid`` ``(N,)`` and
     ``grads`` ``(N, W)`` give ``(capacity, W)``; ``(R, N)`` and ``(R, N,
     W)`` give ``(R, capacity, W)``, rank by rank.  Invalid and
     out-of-range rows land nowhere.  ``counts``: also return the number of
     rows that landed on each slot, float32 ``(capacity,)`` or ``(R,
-    capacity)``, from the same launch."""
+    capacity)``, from the same launch.  ``out``: the sums (with
+    ``counts``, the pair of sums and counts) are added into these
+    contiguous float32 tensors of the result's shapes, which are
+    returned; where the slots are distinct, each element takes at most
+    one addition, so launches into one ``out`` sum in launch order."""
     global launches
     if grads.device.type == "cpu":
         return masked_scatter_add_plain(slots, valid, grads, capacity,
-                                        counts)
+                                        counts, out)
     if grads.device.type != "cuda":
         raise ValueError(
             f"masked_scatter_add: unsupported device {grads.device}")
@@ -109,12 +118,23 @@ def masked_scatter_add(slots: torch.Tensor, valid: torch.Tensor,
     _check(slots, valid, grads)
     lead, (n, w) = slots.shape[:-1], grads.shape[-2:]
     R = slots.shape[0] if slots.dim() == 2 else 1
-    # sums and counts in one zeroed buffer: one fill
-    size = R * capacity * w
-    buf = torch.zeros(size + (R * capacity if counts else 0),
-                      dtype=torch.float32, device=grads.device)
-    acc = buf[:size].view(*lead, capacity, w)
-    cnt = buf[size:].view(*lead, capacity) if counts else None
+    if out is None:
+        # sums and counts in one zeroed buffer: one fill
+        size = R * capacity * w
+        buf = torch.zeros(size + (R * capacity if counts else 0),
+                          dtype=torch.float32, device=grads.device)
+        acc = buf[:size].view(*lead, capacity, w)
+        cnt = buf[size:].view(*lead, capacity) if counts else None
+    else:
+        acc, cnt = out if counts else (out, None)
+        for o, shape in ((acc, (*lead, capacity, w)),
+                         (cnt, (*lead, capacity))):
+            if o is not None and (
+                    o.dtype != torch.float32 or tuple(o.shape) != shape
+                    or not o.is_contiguous() or o.device != grads.device):
+                raise TypeError(f"masked_scatter_add needs a contiguous "
+                                f"float32 out of shape {shape} on "
+                                f"{grads.device}")
     if n and R and capacity:
         fn = build.function("scatter", "smtpu_masked_scatter_add_f32",
                             _ARGTYPES)

@@ -35,6 +35,16 @@ pinned copies to the card (``io/pipeline.py``); the permutations stay on
 the consumer, in epoch order, so results do not depend on K.  The loss
 sums stay on the device and are read once an epoch.
 
+Across ``dp`` processes every process builds the vocab and the
+co-occurrence set from the whole corpus and draws the same epoch
+permutations, as the JAX package feeds every process the whole data
+set; each computes its share of every minibatch
+(``data.distributed.batch_share``: cells ``rank``-major, padded with
+``-1`` cells of weight 0, to a multiple of the shard ranks), the
+transfer sums the shares before the update, and the epoch's loss sums
+are added over the processes in process order: the one-process step
+over the whole minibatch.  Groups run their steps eagerly there.
+
 Config section ``[glove]``: ``len_vec`` (default 100), ``window`` (10),
 ``x_max`` (100), ``alpha`` (0.75), ``learning_rate`` (0.05),
 ``minibatch`` (4096), plus ``[worker] inner_steps``, ``pipeline`` and
@@ -59,12 +69,13 @@ import torch
 
 from swiftmpi_tpu_torch import obs
 from swiftmpi_tpu_torch.cluster import Cluster
-from swiftmpi_tpu_torch.cluster.cluster import refuse_processes
+from swiftmpi_tpu_torch.data.distributed import batch_share
 from swiftmpi_tpu_torch.data.text import Vocab, build_vocab
 from swiftmpi_tpu_torch.device import resolve_device
 from swiftmpi_tpu_torch.io.checkpoint import dump_table_text
 from swiftmpi_tpu_torch.io.pipeline import CudaTransfer, PrefetchIterator
 from swiftmpi_tpu_torch.obs import numerics as obs_numerics
+from swiftmpi_tpu_torch.parallel.collectives import host_psum
 from swiftmpi_tpu_torch.parameter.access import (AdaGradAccess, AdaGradRule,
                                                  FieldSpec, vec_rand_init,
                                                  zeros_init)
@@ -164,7 +175,6 @@ class GloVe:
         self.device = resolve_device(device)
         self.cluster = cluster or Cluster(
             self.config, devices=[self.device]).initialize()
-        refuse_processes(self.cluster, "GloVe")
         self.access = glove_access(lr, self.len_vec)
         self.transfer = self.cluster.transfer
         self.seed = seed
@@ -317,7 +327,9 @@ class GloVe:
         B = min(self.minibatch, n)
         inner = max(1, self.inner_steps)
         cuda = self.device.type == "cuda"
-        graphs = inner > 1 and cuda and self.transfer.name == "xla"
+        dp, rank = self.cluster.dp, self.cluster.dp_rank
+        graphs = (inner > 1 and cuda and self.transfer.name == "xla"
+                  and dp == 1)
         pipelined = self.pipeline_depth > 0
         bound = resolve_dispatch_bound(self.dispatch_depth,
                                        pipelined=pipelined)
@@ -337,8 +349,14 @@ class GloVe:
             # epoch order) — from here on the staging is pure numpy, so
             # it can run ahead on the producer thread
             for gstart in range(0, len(order), B * inner):
-                yield self.stage_host(order[gstart:gstart + B * inner],
-                                      inner, B)
+                cols = self.stage_host(order[gstart:gstart + B * inner],
+                                       inner, B)
+                if dp > 1:
+                    cols = batch_share(cols, (-1, -1, 0.0, 0.0), rank, dp,
+                                       axis=1,
+                                       multiple=getattr(self.transfer, "n",
+                                                        1))
+                yield cols
 
         try:
             for it in range(niters):
@@ -384,7 +402,10 @@ class GloVe:
                                 pipe_stats[k] = max(pipe_stats[k], v)
                             elif k != "depth":
                                 pipe_stats[k] += v
-                mean_loss = loss_q.total() / len(order)
+                total = loss_q.total()
+                if dp > 1:
+                    (total,) = host_psum([total])
+                mean_loss = total / len(order)
                 losses.append(mean_loss)
                 log.info("glove iter %d: %d cells  loss %.6f", it, n,
                          mean_loss)

@@ -52,6 +52,18 @@ partition (LR has no frequency histogram up front, as in the JAX
 package): ``n_hot = 0``, the ``tpu`` path bit for bit (batches padded to
 the rank count).
 
+Across ``dp`` processes (``python -m swiftmpi_tpu_torch.launch -np
+N``) every process reads the whole data set, as the JAX package feeds
+it, looks every batch up in its own key index (so every replica makes
+the same slots and grows alike), and computes its share of the batch
+(``data.distributed.batch_share``: rows ``rank``-major, padded with
+rows that contribute nothing).  The transfer sums the shares over the
+processes before the one update (the dense rendering sums its product
+and counts through the same exchange), and the epoch's error sums are
+added over the processes in process order: a step is the one-process
+step over the whole batch, each update counted once.  Groups run their
+steps eagerly there (a cross-process exchange is no graph's).
+
 As the JAX package's LR, the model reads no ``[obs]``, ``[worker]
 telemetry``, ``[control]`` or ``[serve]`` key (it trains with them set);
 its graph captures go through the compile catalog (``obs.costs``:
@@ -67,12 +79,13 @@ import numpy as np
 import torch
 
 from swiftmpi_tpu_torch.cluster import Cluster
-from swiftmpi_tpu_torch.cluster.cluster import refuse_processes
+from swiftmpi_tpu_torch.data.distributed import batch_share
 from swiftmpi_tpu_torch.data.libsvm import (CSRData, iter_minibatches,
                                             load_data)
 from swiftmpi_tpu_torch.device import resolve_device
 from swiftmpi_tpu_torch.io.checkpoint import dump_table_text, load_table_text
 from swiftmpi_tpu_torch.io.pipeline import CudaTransfer
+from swiftmpi_tpu_torch.parallel.collectives import host_psum
 from swiftmpi_tpu_torch.parameter import lr_access
 from swiftmpi_tpu_torch.parameter.key_index import CapacityError
 from swiftmpi_tpu_torch.parameter.sparse_table import shard_block
@@ -108,7 +121,6 @@ class LogisticRegression:
         self.device = resolve_device(device)
         self.cluster = cluster or Cluster(
             self.config, devices=[self.device]).initialize()
-        refuse_processes(self.cluster, "logistic regression")
         self.access = lr_access(lr)
         self.table = self.cluster.create_table(
             "lr", self.access, capacity_per_shard, seed=seed)
@@ -191,6 +203,9 @@ class LogisticRegression:
         predict = torch.sigmoid(X @ w)
         err = torch.where(valid, targets - predict, 0.0)
         grad = err @ X                                     # (cap,)
+        if self.transfer.dp > 1:
+            # every process's share of the product and the counts
+            grad, cnt = self.transfer._dp_psum([grad, cnt])
         # the mean's division by the counts inside B1's table form
         self.access.apply_push(
             {"val": val, "grad2sum": g2},
@@ -224,7 +239,12 @@ class LogisticRegression:
         inner = max(1, self.inner_steps)
         F = max_feats or _max_feats(data)
         cuda = self.device.type == "cuda"
-        graphs = inner > 1 and cuda and self.transfer.name == "xla"
+        dp, rank = self.cluster.dp, self.cluster.dp_rank
+        graphs = (inner > 1 and cuda and self.transfer.name == "xla"
+                  and dp == 1)
+        # a share of whole rows that splits over the shard ranks
+        n = getattr(self.transfer, "n", 1)
+        multiple = n // np.gcd(n, F)
         stage = CudaTransfer(self.device) if cuda else None
         losses, epoch_err = [], []
         steps = records = replays = growths = 0
@@ -297,12 +317,18 @@ class LogisticRegression:
                             growths += 1
                             log.info("table grown to %d rows",
                                      self.table.capacity)
-                    group.append((slots, batch.feat_vals, batch.mask,
-                                  batch.targets))
+                    cols = (slots, batch.feat_vals, batch.mask,
+                            batch.targets)
+                    if dp > 1:
+                        cols = batch_share(cols, (0, 0.0, False, 0.0), rank,
+                                           dp, multiple=multiple)
+                    group.append(cols)
                     if len(group) == inner:
                         flush_group(num_q, den_q)
                 flush_group(num_q, den_q)
                 total, count = num_q.total(), den_q.total()
+                if dp > 1:
+                    total, count = host_psum([total, count])
                 epoch_err.append((total, count))
                 records += int(round(count))
                 mean_err = total / max(int(round(count)), 1)

@@ -47,9 +47,17 @@ model's device for the call), so inference can run beside a training
 loop at bounded staleness; with ``serve_publisher`` set, the finished
 sentence vectors are published as a ``{"sent": ...}`` snapshot keyed by
 sentence id, which ``serve.query`` answers nearest-sentence queries
-over.  Like the JAX package, the snapshot path reads the tail planes
-(``tail_array``) at the snapshot's unified slots, so it holds only for
-a table without a hot head (ROADMAP queue C).
+over.  Both paths read the word rows by unified slot: over a table with
+a hot head (``transfer: hybrid``) the rows are the hot planes followed
+by the tail (``TableSnapshot.hot_host`` and ``tail_array``, or the live
+table's), so every key reads its own row.  The JAX package reads the
+tail planes at unified slots there, a fault of the reference (ROADMAP
+queue C) the port does not copy: the port equals the JAX package's
+sent2vec over an ``xla`` table that holds the same rows by key.
+
+Across processes the word table is a replica in every process, and each
+process infers every sentence with the same draws, as the JAX package
+runs it; only process 0 writes the vectors (``apps/sent2vec_main.py``).
 """
 
 from __future__ import annotations
@@ -59,7 +67,6 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from swiftmpi_tpu_torch.cluster.cluster import refuse_processes
 from swiftmpi_tpu_torch.convert import tensor_from_numpy
 from swiftmpi_tpu_torch.data.text import Vocab, bkdr_hash, tokenize
 from swiftmpi_tpu_torch.kernels.gather import masked_gather
@@ -67,6 +74,7 @@ from swiftmpi_tpu_torch.models.word2vec import Word2Vec
 from swiftmpi_tpu_torch.ops.sampling import (alias_draws, build_unigram_alias,
                                              sample_alias_slots_from_draws)
 from swiftmpi_tpu_torch.ops.sigmoid import sigmoid_clipped
+from swiftmpi_tpu_torch.parameter.sparse_table import hot_name
 from swiftmpi_tpu_torch.utils.config import ConfigParser
 from swiftmpi_tpu_torch.utils.logger import get_logger
 from swiftmpi_tpu_torch.utils.timers import Error
@@ -89,7 +97,6 @@ class Sent2Vec:
         """``word_model``: a Word2Vec whose table holds the frozen word
         vectors (train it, or ``build_word_model_from_dump``); inference
         runs on its device."""
-        refuse_processes(word_model.cluster, "sent2vec")
         self.config = config if config is not None else word_model.config
         g = self.config.get_or
         self.window = g("word2vec", "window", 4).to_int32()
@@ -206,17 +213,18 @@ class Sent2Vec:
         alias_prob = torch.as_tensor(prob, device=dev)
         alias_idx = torch.as_tensor(alias, dtype=torch.int64, device=dev)
         if snapshot is not None:
-            # the published view: host planes uploaded for this call
-            h_table, v_table = (tensor_from_numpy(
-                np.asarray(snapshot.tail_array(f))).to(dev)
-                for f in ("h", "v"))
+            # the published view: host planes uploaded for this call, by
+            # unified slot (the hot head first, then the tail)
+            h_table, v_table = (tensor_from_numpy(_unified_host(
+                snapshot, f)).to(dev) for f in ("h", "v"))
             slot_np = snapshot.lookup(wm.vocab.keys).astype(np.int32)
             slot_of_vocab = torch.as_tensor(slot_np, device=dev)
         else:
             slot_of_vocab = wm._slot_of_vocab
             slot_np = slot_of_vocab.cpu().numpy()
-            # global slot order (a sharded table's shards concatenated)
-            h_table, v_table = (wm.table.global_rows(f)
+            # by unified slot: the hot planes, then the tail in global slot
+            # order (a sharded table's shards concatenated)
+            h_table, v_table = (_unified_live(wm.table, f)
                                 for f in ("h", "v"))
         queued: list = []
         out: List[Tuple[int, np.ndarray]] = []
@@ -271,6 +279,23 @@ class Sent2Vec:
             for sid, vec in results:
                 f.write(f"{sid}\t" + " ".join(repr(float(x)) for x in vec)
                         + "\n")
+
+
+def _unified_host(snapshot, field: str) -> np.ndarray:
+    """A snapshot's ``field`` rows indexed by unified slot: the hot head
+    (``hot_host``) followed by the tail planes."""
+    tail = np.asarray(snapshot.tail_array(field))
+    hot = snapshot.hot_host(field)
+    return tail if hot is None else np.concatenate([hot, tail])
+
+
+def _unified_live(table, field: str) -> torch.Tensor:
+    """The live table's ``field`` rows indexed by unified slot, on its
+    device: the hot plane followed by the tail's global rows."""
+    tail = table.global_rows(field)
+    if not table.n_hot:
+        return tail
+    return torch.cat([table.state[hot_name(field)], tail])
 
 
 def _as_draws(d, device) -> BatchDraws:

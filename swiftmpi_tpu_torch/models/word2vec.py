@@ -155,6 +155,17 @@ thread between dispatches:
   safe point (:meth:`Word2Vec._numerics_demote`).  ``control: off`` (the
   default) builds nothing, and every trajectory is bit for bit the one
   without the section.
+
+Across ``dp`` processes (``python -m swiftmpi_tpu_torch.launch -np
+N``) every hook the JAX package runs there runs too: ``xla``, ``tpu``
+and ``hybrid`` (every process computes the same hot head, checked over
+the processes); the window and wire knobs are armed (the ``@ef`` planes
+made and checkpointed), but ``train`` fuses no group across processes,
+as JAX's does not, so the pushes are per step and the tables equal the
+``push_window: 1`` run's with the ``@ef`` planes left zero; the pull
+knobs act per step; ``[serve] every`` publishes each process's own
+replica.  ``[control] control`` is refused there, because the JAX
+package's control plane cannot run across processes.
 """
 
 from __future__ import annotations
@@ -620,25 +631,22 @@ class Word2Vec:
                 "not ported in this slice: " + "; ".join(refuse))
 
     def _check_processes(self) -> None:
-        """Under ``dp > 1`` processes: raise on the hooks not yet held
-        against the JAX package across processes (ROADMAP A11e)."""
+        """Under ``dp > 1`` processes: raise for ``[control] control``,
+        which the JAX package cannot run across processes (ROADMAP queue
+        C).  The window and wire knobs are armed as in one process, and
+        ``train`` runs no fused group across processes (JAX's rule), so
+        its pushes are per step; the pull knobs and ``[serve]`` act per
+        step and per process."""
         dp = self.cluster.dp
-        if dp <= 1:
-            return
-        refuse = [what for cond, what in (
-            (self.push_window_size > 1, "[cluster] push_window > 1"),
-            (self.wire_quant != "off", "[cluster] wire_quant"),
-            (bool(self.wire_sketch), "[cluster] wire_sketch"),
-            (self.collective_mode != "psum", "[cluster] collective"),
-            (self.pull_quant != "off", "[cluster] pull_quant"),
-            (self.pull_cache > 0, "[cluster] pull_cache"),
-            (self.serve_every > 0, "[serve] every"),
-            (self.control_settings.enabled, "[control] control"))
-            if cond]
-        if refuse:
+        if dp > 1 and self.control_settings.enabled:
             raise NotImplementedError(
-                f"across {dp} processes, not ported yet: "
-                + "; ".join(refuse) + " (ROADMAP A11e)")
+                f"[control] control across {dp} processes: the JAX "
+                "package's control plane cannot run across processes (its "
+                "sketch, control/sketch.py observe, reads a batch the "
+                "DistributedBatcher made global and fails with 'Fetching "
+                "value for jax.Array that spans non-addressable devices'), "
+                "so there is no reference to hold it against (ROADMAP "
+                "queue C); run the control plane in one process")
 
     # -- vocab / table bring-up -------------------------------------------
     def build(self, sentences) -> "Word2Vec":
@@ -661,6 +669,11 @@ class Word2Vec:
                 # minibatch sizes the calibration's dense/sparse crossover
                 partition = HotColdPartition.from_counts(
                     vocab.keys, vocab.counts, batch_rows=self.minibatch)
+                # every replica must hold the same head: the hot psum
+                # sums the processes' planes row by row
+                self.transfer._dp_agree(
+                    "the hot head", np.asarray(partition.hot_keys,
+                                               np.uint64).tobytes())
                 log.info("hybrid placement: %d hot keys (%.1f%% of token "
                          "mass); %d tail keys sharded", partition.n_hot,
                          100 * (partition.head_mass or 0.0),

@@ -18,6 +18,7 @@ whatever the summation order of each part was.
 from __future__ import annotations
 
 import math
+import zlib
 from typing import List, Sequence
 
 import torch
@@ -108,3 +109,19 @@ def host_psum(values: Sequence[float]) -> List[float]:
     for p in parts[1:]:
         acc += p
     return acc.tolist()
+
+
+def host_agree(what: str, value) -> None:
+    """Raise unless every process holds the same ``value`` (compared by
+    the CRC-32 of its ``repr``, over gloo): the host-side decisions that
+    every replica must take alike, such as the hybrid head or a window's
+    plan."""
+    if bootstrap.process_count() == 1:
+        return
+    mine = zlib.crc32(repr(value).encode())
+    got = ring.process_all_gather_plain(
+        torch.tensor([mine], dtype=torch.int64))[:, 0].tolist()
+    if len(set(got)) != 1:
+        raise RuntimeError(
+            f"{what} differs across the processes (CRC-32 by process: "
+            f"{got}); every replica must take the same decision")

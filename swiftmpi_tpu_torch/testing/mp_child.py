@@ -33,7 +33,32 @@ arrays beside it, then prints ``MP_CHILD_OK <mode> rank=<r>``):
   and ``time_exchange`` (time B5's cross-process forms at the run's
   shapes after training).  The JSON holds the losses, ``train_metrics``,
   each field's sha256, the kernels' launches in the run and
-  ``ring.timeouts()``.
+  ``ring.timeouts()``; with ``[serve] every`` also whether the last
+  snapshot equals the table.
+
+  A spec's ``job`` (default ``w2v``) names one of the data axis's other
+  jobs, each writing ``<out>/<job>_r<rank>.json`` and, on process 0,
+  ``<job>_state_r0.npz``:
+
+  * ``window``: one transfer-level ``push_window`` through the cluster
+    the spec's ``conf`` makes (``xla``, ``tpu`` or ``hybrid``; the
+    ``knobs`` set on its transfer), from the data's ``init__<field>``
+    table (the JAX package's layout) with ``slots<rank>`` ``(W, B)`` and
+    ``grads<rank>__<field>`` ``(W, B, d)``; ``reference: true`` also runs
+    the one-process push over the processes' windows concatenated in
+    process order on a transfer with no data axis and ``dp`` times the
+    shard ranks (the same rank slices), and reports its gap.
+  * ``lr`` / ``glove``: ``LogisticRegression.train`` on the libSVM file
+    ``dataset`` / ``GloVe.train`` on the data's ``corpus``, from the rows
+    ``rows__<field>`` the data gives its ``keys`` (written at the keys'
+    slots before training); the table is saved by key.
+  * ``s2v``: ``Sent2Vec.infer_sentences`` over a word model on the
+    conf's transfer built from the data's vocab and ``init__<field>``
+    table (or, with ``over: previous``, the previous ``w2v`` job's
+    trained model; ``s2v_conf`` is Sent2Vec's own config, default the
+    word model's), with the data's ``lines`` and, when given, replayed
+    draws ``s2v_sent0``/``s2v_b``/``s2v_j``/``s2v_u`` (one batch); the
+    vectors' sha256, and the vectors on process 0.
 """
 
 from __future__ import annotations
@@ -236,15 +261,20 @@ def run_exchange(out: str, rounds: int) -> dict:
 def _time_exchanges(model, device) -> list:
     """B5's cross-process forms timed at the run's shapes: the dense
     plane's all-gather (``xla``: capacity x (d + 1) words) and the sparse
-    reconcile's (a batch's folded rows), each against gloo on the same
-    words (the plain version) and the host route (device -> host, gloo,
-    host -> device)."""
-    dp = bootstrap.process_count()
+    reconcile's (a batch's folded rows)."""
     cap = model.table.capacity
     d = model.len_vec
     B = model.train_metrics.get("batch_size", 0)
-    shapes = [("dense_plane", (cap, d + 1)),
-              ("sparse_rows", (max(B, 1) * 2 * model.window, d + 2))]
+    return _time_shapes([("dense_plane", (cap, d + 1)),
+                         ("sparse_rows", (max(B, 1) * 2 * model.window,
+                                          d + 2))], device)
+
+
+def _time_shapes(shapes, device) -> list:
+    """B5's cross-process all-gather timed at each ``(label, (rows,
+    words))`` shape, against gloo on the same words (the plain version)
+    and the host route (device -> host, gloo, host -> device)."""
+    dp = bootstrap.process_count()
     out = []
     for label, shape in shapes:
         x = torch.randn(shape, device=device)
@@ -344,7 +374,7 @@ def steady_step_ms(times: list, t_end: float):
     return 1e3 * (t_end - times[k]) / (len(times) - k)
 
 
-def run_w2v(spec: dict) -> dict:
+def run_w2v(spec: dict, run: dict) -> dict:
     from swiftmpi_tpu_torch.convert import state_from_jax
     from swiftmpi_tpu_torch.data.text import Vocab
     from swiftmpi_tpu_torch.models.word2vec import Word2Vec
@@ -361,10 +391,13 @@ def run_w2v(spec: dict) -> dict:
     init = {k[len("init__"):]: z[k] for k in z.files
             if k.startswith("init__")}
     if init:
-        model.table.state = state_from_jax(
+        # the side planes the build made (``@ef``, ``@rowver``) stay unless
+        # the data gives them
+        model.table.state = {**model.table.state, **state_from_jax(
             init, model.device,
-            mesh=model.cluster.mesh if model.transfer.name == "tpu"
-            else None)
+            mesh=model.cluster.mesh if model.transfer.name in ("tpu",
+                                                               "hybrid")
+            else None)}
     if spec.get("stall"):
         stall_process_ring(spec["stall"], me)
     draws, first, times = None, {}, []
@@ -374,29 +407,22 @@ def run_w2v(spec: dict) -> dict:
             torch.from_numpy(z[f"j{me}"]).to(model.device),
             torch.from_numpy(z[f"u{me}"]).to(model.device)), model, first,
             times)
-    for mod in KERNELS.values():
-        mod.launches = 0
-    ring.process_launches = 0
+    _reset_launches()
     cuda = model.device.type == "cuda"
-    if cuda:
-        torch.cuda.synchronize()
-    bootstrap.barrier()
-    t0 = time.perf_counter()
-    losses = model.train(z["corpus"], niters=int(spec.get("niters", 1)),
-                         batch_size=int(spec["batch_size"]), draws=draws,
-                         checkpoint_path=spec.get("checkpoint"))
-    if cuda:
-        torch.cuda.synchronize()
+    losses, seconds = _timed(model.device, lambda: model.train(
+        z["corpus"], niters=int(spec.get("niters", 1)),
+        batch_size=int(spec["batch_size"]), draws=draws,
+        checkpoint_path=spec.get("checkpoint")))
     t_end = time.perf_counter()
-    seconds = t_end - t0
-    launches = {name: mod.launches for name, mod in KERNELS.items()}
-    launches["ring_process"] = ring.process_launches
+    launches = _launch_counts()
     metrics = {k: v for k, v in model.train_metrics.items()
                if isinstance(v, (int, float, str, bool, list, dict))}
     metrics["batch_size"] = int(spec["batch_size"])
     model.train_metrics["batch_size"] = int(spec["batch_size"])
     state = {f: model.table.global_rows(f) for f in model.table.state}
     result = {"rank": me, "dp": dp, "losses": losses, "seconds": seconds,
+              "ef_nonzero": {f: int(torch.count_nonzero(t))
+                             for f, t in state.items() if f.endswith("@ef")},
               "steady_step_ms": steady_step_ms(times, t_end),
               "metrics": metrics, "launches": launches,
               "timeouts": ring.timeouts() if cuda else 0,
@@ -411,11 +437,304 @@ def run_w2v(spec: dict) -> dict:
         if first:
             np.savez(os.path.join(spec["out"], "w2v_first_step_r0.npz"),
                      **first)
+    pub = model.serve_publisher
+    if pub is not None:
+        from swiftmpi_tpu_torch.convert import tensor_from_numpy
+        snap = pub.latest()
+        result["serve"] = {
+            "version": snap.version, "step": snap.step,
+            "equal": all(_bits(tensor_from_numpy(np.asarray(
+                snap.state[f]))) == _bits(t)
+                for f, t in state.items() if f in snap.state)}
     if spec.get("dump"):
         result["dumped"] = model.save(spec["dump"])
     if spec.get("time_exchange") and cuda:
         result["exchange"] = _time_exchanges(model, model.device)
+    if spec.get("time_shapes"):
+        result["exchange"] = _time_shapes(spec["time_shapes"], model.device)
+    run["w2v_model"] = model
     return result
+
+
+def _launch_counts() -> dict:
+    out = {name: mod.launches for name, mod in KERNELS.items()}
+    out["ring_process"] = ring.process_launches
+    return out
+
+
+def _reset_launches() -> None:
+    for mod in KERNELS.values():
+        mod.launches = 0
+    ring.process_launches = 0
+
+
+def _timed(device, fn):
+    """``fn()`` between a barrier over the processes and the device's
+    synchronize: ``(its value, wall seconds)``."""
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    bootstrap.barrier()
+    t0 = time.perf_counter()
+    out = fn()
+    if cuda:
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _common(spec, transfer, seconds: float) -> dict:
+    cuda = torch.device(spec.get("device", "cuda")).type == "cuda"
+    return {"rank": bootstrap.process_index(),
+            "dp": bootstrap.process_count(), "seconds": seconds,
+            "launches": _launch_counts(),
+            "timeouts": ring.timeouts() if cuda else 0,
+            "transfer": transfer.name,
+            "traffic": (transfer.traffic() if transfer.count_traffic
+                        else None)}
+
+
+def _state_bits(state) -> dict:
+    from swiftmpi_tpu_torch.parameter.sparse_table import shard_block
+    return {f: _bits(shard_block(v) if isinstance(v, list) else v)
+            for f, v in state.items()}
+
+
+def run_window(spec: dict, run: dict) -> dict:
+    from swiftmpi_tpu_torch.cluster import Cluster, ps_mesh
+    from swiftmpi_tpu_torch.convert import state_from_jax, state_to_numpy
+    from swiftmpi_tpu_torch.parameter import w2v_access
+    from swiftmpi_tpu_torch.transfer import get_transfer
+    from swiftmpi_tpu_torch.utils import ConfigParser
+    device = spec.get("device", "cuda")
+    conf = ConfigParser().update(spec["conf"])
+    cl = Cluster(conf, devices=[device]).initialize()
+    t, me, dp = cl.transfer, cl.dp_rank, cl.dp
+    init, windows = _window_data(spec, dp)
+    d = int(init["h"].shape[1])
+    access = w2v_access(float(spec.get("lr", 0.3)), d)
+    mean = bool(spec.get("mean", False))
+
+    def transfer_of(tr):
+        for k, v in spec.get("knobs", {}).items():
+            setattr(tr, k, v)
+        tr.count_traffic = True
+        return tr
+
+    def state_of(mesh):
+        return state_from_jax(init, device, mesh=mesh)
+
+    transfer_of(t)
+    state = state_of(cl.mesh)
+
+    def window(r):
+        slots_r, grads_r = windows[r]
+        return (torch.from_numpy(slots_r).to(device),
+                {f: torch.from_numpy(g).to(device)
+                 for f, g in grads_r.items()})
+    slots, grads = window(me)
+    _reset_launches()
+    _, seconds = _timed(device, lambda: t.push_window(
+        state, slots, grads, access, mean=mean))
+    result = _common(spec, t, seconds)
+    result["sha"] = _state_bits(state)
+    got = state_to_numpy(state)
+    if spec.get("reference"):
+        # the one-process push over the global window: no data axis, and
+        # dp x n shard ranks, so the window splits into the same rank
+        # slices (JAX's (data, shard) devices) and the same rows dedup
+        backend = spec["conf"]["cluster"]["transfer"]
+        n = int(spec["conf"]["cluster"].get("server_num", 1))
+        kw = ({} if backend == "xla"
+              else {"mesh": ps_mesh(n * dp, [device])})
+        ref_t = transfer_of(get_transfer(backend, **kw))
+        ref_state = state_of(kw.get("mesh"))
+        parts = [window(r) for r in range(dp)]
+        ref_t.push_window(ref_state, torch.cat([p[0] for p in parts]),
+                          {f: torch.cat([p[1][f] for p in parts])
+                           for f in ("h", "v")}, access, mean=mean)
+        want = state_to_numpy(ref_state)
+        result["reference_gap"] = {f: _envelope_gap(got[f], want[f])
+                                   for f in want}
+    if spec.get("time_shapes"):
+        result["exchange"] = _time_shapes(spec["time_shapes"], device)
+    if me == 0:
+        np.savez(os.path.join(spec["out"], "window_state_r0.npz"), **got)
+    return result
+
+
+def _envelope_gap(got: np.ndarray, want: np.ndarray) -> dict:
+    """The largest gap, the share of elements outside |a-b| <= 1e-5 +
+    1e-3|b| and the largest gap among those."""
+    gap = np.abs(got.astype(np.float64) - want)
+    out = gap > 1e-5 + 1e-3 * np.abs(want)
+    return {"max_abs_gap": float(gap.max()),
+            "share_outside_envelope": float(out.mean()),
+            "max_gap_outside_envelope": float(gap[out].max())
+            if out.any() else 0.0}
+
+
+def _window_data(spec: dict, dp: int):
+    """A window job's table (``{field: rows}``, the JAX package's layout)
+    and each process's ``(slots (W, B), {"h", "v": (W, B, d)})``: from the
+    data file, or made from the seeded shape ``gen`` (``rows``, ``d``,
+    ``W``, ``B``, ``n_hot``, ``ef``, ``seed``): rows of 0.1 x N(0, 1),
+    zero accumulators and residuals, slots Zipf(1.2) over the unified
+    space, grads 0.01 x N(0, 1)."""
+    g = spec.get("gen")
+    if g is None:
+        z = np.load(spec["data"])
+        init = {k[len("init__"):]: z[k] for k in z.files
+                if k.startswith("init__")}
+        return init, [(z[f"slots{r}"], {f: z[f"grads{r}__{f}"]
+                                        for f in ("h", "v")})
+                      for r in range(dp)]
+    rng = np.random.default_rng(int(g["seed"]))
+    rows, d, n_hot = int(g["rows"]), int(g["d"]), int(g.get("n_hot", 0))
+
+    def planes(n, prefix=""):
+        out = {f + prefix: (0.1 * rng.standard_normal((n, d), np.float32))
+               for f in ("h", "v")}
+        out.update({f + prefix: np.zeros((n, d), np.float32)
+                    for f in ("h2sum", "v2sum")})
+        return out
+    init = planes(rows)
+    if n_hot:
+        init.update(planes(n_hot, "@hot"))
+    if g.get("ef"):
+        init.update({f"{f}@ef": np.zeros((rows, d), np.float32)
+                     for f in ("h", "v")})
+    windows = []
+    for r in range(dp):
+        rr = np.random.default_rng([int(g["seed"]), r])
+        shape = (int(g["W"]), int(g["B"]))
+        slots = ((rr.zipf(1.2, size=shape) - 1) % (rows + n_hot)).astype(
+            np.int32)
+        windows.append((slots, {f: 0.01 * rr.standard_normal(
+            shape + (d,), np.float32) for f in ("h", "v")}))
+    return init, windows
+
+
+def _rows_by_key(table, keys) -> dict:
+    """Every field's rows of ``table`` at ``keys``' slots, upcast, host."""
+    from swiftmpi_tpu_torch.parameter.sparse_table import tensor_to_numpy
+    slots = table.key_index.lookup(keys, create=False)
+    return {f: np.array(tensor_to_numpy(table.unified_rows(
+        f, torch.from_numpy(slots.astype(np.int64))), upcast=True))
+        for f in table.access.fields}
+
+
+def _write_keyed_rows(table, z) -> np.ndarray:
+    """The data's ``rows__<field>`` written at its ``keys``' slots (made
+    now, in the keys' order); returns the keys."""
+    keys = z["keys"].astype(np.uint64)
+    slots = table.key_index.lookup(keys)
+    for f in table.access.fields:
+        if f"rows__{f}" in z.files:
+            table.write_rows(f, slots, torch.from_numpy(z[f"rows__{f}"]))
+    return keys
+
+
+def run_lr(spec: dict, run: dict) -> dict:
+    from swiftmpi_tpu_torch.models.logistic import LogisticRegression
+    from swiftmpi_tpu_torch.utils import ConfigParser
+    model = LogisticRegression(
+        config=ConfigParser().update(spec["conf"]),
+        capacity_per_shard=int(spec["capacity_per_shard"]),
+        device=spec.get("device", "cuda"))
+    keys = (_write_keyed_rows(model.table, np.load(spec["data"]))
+            if spec.get("data") else None)
+    _reset_launches()
+    losses, seconds = _timed(spec.get("device", "cuda"), lambda: model.train(
+        spec["dataset"], niters=int(spec.get("niters", 1))))
+    return _keyed_result(spec, "lr", model, keys, losses, seconds,
+                         "records")
+
+
+def run_glove(spec: dict, run: dict) -> dict:
+    from swiftmpi_tpu_torch.models.glove import GloVe
+    from swiftmpi_tpu_torch.utils import ConfigParser
+    z = np.load(spec["data"])
+    model = GloVe(config=ConfigParser().update(spec["conf"]),
+                  capacity_per_shard=spec.get("capacity_per_shard"),
+                  device=spec.get("device", "cuda"))
+    model.build(z["corpus"].tolist())
+    keys = _write_keyed_rows(model.table, z) if "keys" in z.files else None
+    _reset_launches()
+    losses, seconds = _timed(spec.get("device", "cuda"), lambda: model.train(
+        niters=int(spec.get("niters", 1))))
+    return _keyed_result(spec, "glove", model, keys, losses, seconds,
+                         "cells")
+
+
+def _keyed_result(spec, job, model, keys, losses, seconds, unit) -> dict:
+    """The job's JSON; process 0 saves every field's rows by key (``keys``,
+    or every key in the key index's order)."""
+    result = _common(spec, model.transfer, seconds)
+    if keys is None:
+        ki = model.table.key_index
+        keys = np.fromiter(ki.keys(), np.uint64, len(ki))
+    m = model.train_metrics
+    result.update({"losses": losses, "sha": _state_bits(model.table.state),
+                   "metrics": {k: v for k, v in m.items()
+                               if isinstance(v, (int, float, str, dict))},
+                   "units": m.get(unit)})
+    if spec.get("time_shapes"):
+        result["exchange"] = _time_shapes(spec["time_shapes"],
+                                          model.device)
+    if bootstrap.process_index() == 0:
+        np.savez(os.path.join(spec["out"], f"{job}_state_r0.npz"),
+                 keys=keys, **_rows_by_key(model.table, keys))
+    return result
+
+
+def run_s2v(spec: dict, run: dict) -> dict:
+    from swiftmpi_tpu_torch.convert import state_from_jax
+    from swiftmpi_tpu_torch.data.text import Vocab
+    from swiftmpi_tpu_torch.models.sent2vec import Sent2Vec
+    from swiftmpi_tpu_torch.models.word2vec import Word2Vec
+    from swiftmpi_tpu_torch.utils import ConfigParser
+    z = np.load(spec["data"])
+    device = spec.get("device", "cuda")
+    if spec.get("over") == "previous":
+        wm = run["w2v_model"]
+    else:
+        wm = Word2Vec(config=ConfigParser().update(spec["conf"]),
+                      device=device,
+                      capacity_per_shard=spec.get("capacity_per_shard"))
+        wm.build_from_vocab(Vocab(z["vocab_keys"], z["vocab_counts"]))
+        init = {k[len("init__"):]: z[k] for k in z.files
+                if k.startswith("init__")}
+        if init:
+            wm.table.state = state_from_jax(
+                init, wm.device, mesh=wm.cluster.mesh
+                if wm.transfer.name in ("tpu", "hybrid") else None)
+    s2v = Sent2Vec(wm, config=(ConfigParser().update(spec["s2v_conf"])
+                               if "s2v_conf" in spec else None),
+                   seed=int(spec.get("seed", 0)))
+    draws = None
+    if "s2v_sent0" in z.files:
+        passes = [(z["s2v_b"][i], z["s2v_j"][i], z["s2v_u"][i])
+                  for i in range(z["s2v_b"].shape[0])]
+        draws = iter([(z["s2v_sent0"], passes)])
+    lines = [str(x) for x in z["lines"]]
+    _reset_launches()
+    out, seconds = _timed(device, lambda: s2v.infer_sentences(
+        lines, niters=int(spec.get("niters", 1)), draws=draws))
+    vecs = np.stack([v for _, v in out])
+    result = _common(spec, wm.transfer, seconds)
+    result.update({"sentences": len(out), "n_hot": int(wm.table.n_hot),
+                   "sha": {"vectors": _bits(torch.from_numpy(vecs))}})
+    if bootstrap.process_index() == 0:
+        np.savez(os.path.join(spec["out"], "s2v_state_r0.npz"),
+                 ids=np.array([i for i, _ in out], np.uint64),
+                 vectors=vecs)
+    return result
+
+
+#: spec ``job`` -> its runner, ``(spec, run)``: ``run`` is one dict for
+#: the launch's jobs (``w2v`` leaves its model there as ``w2v_model``)
+JOBS = {"w2v": run_w2v, "window": run_window, "lr": run_lr,
+        "glove": run_glove, "s2v": run_s2v}
 
 
 def main(argv=None) -> int:
@@ -430,9 +749,12 @@ def main(argv=None) -> int:
             with open(cmd.get_value("spec")) as f:
                 specs = json.load(f)
             # one spec, or a list run one after the other in one group
+            run: dict = {}
             for spec in specs if isinstance(specs, list) else [specs]:
-                payload = run_w2v(spec)
-                _write(spec["out"], mode, bootstrap.process_index(),
+                job = spec.get("job", "w2v")
+                os.makedirs(spec["out"], exist_ok=True)
+                payload = JOBS[job](spec, run)
+                _write(spec["out"], job, bootstrap.process_index(),
                        payload)
         else:
             out = cmd.get_value("out")

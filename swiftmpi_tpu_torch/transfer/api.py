@@ -66,8 +66,16 @@ process slice holds distinct slots, so no two float atomics meet.  The
 dense/sparse crossover reads the global batch (``dp`` times the local
 one), as the JAX package's global arrays do.  The bytes that cross
 processes are booked as ``psum_bytes`` (the key the JAX package's ledger
-reports its cross-process collectives under).  The window push and the
-wire stack under ``dp > 1`` are ROADMAP A11e.
+reports its cross-process collectives under).  The window push runs
+under ``dp > 1`` as the JAX package's runs over its global window (the
+processes' flat windows in process order): each process deduplicates its
+own window (B3), the exchange and the dense rung reconcile as a push
+does, the plans are priced at the global rows (``dp`` times the local
+ones), and every process checks that its peers compiled the same plan
+(``parallel.collectives.host_agree``).  The ``sparse_q`` rung's error
+feedback runs on the gathered global window
+(:meth:`Transfer._dp_ef_drain`), so every replica banks the same ``@ef``
+residuals, as the JAX package's replicated planes do.
 
 The wire ledger (off until ``count_traffic`` is set) keeps the JAX
 package's keys and contract: totals that never decrease, no reset,
@@ -272,7 +280,8 @@ def bump_row_versions(ver: torch.Tensor, touched: torch.Tensor) -> None:
 
 def ef_quantize_window(planes, ded_slots: torch.Tensor, ded_grads,
                        capacity: int, quant: str,
-                       trace_backend: Optional[str] = None):
+                       trace_backend: Optional[str] = None,
+                       slices: int = 1):
     """Error feedback around one deduplicated window's quantization (JAX
     ``ef_quantize_window``): each touched slot's residual drains into its
     first occurrence's sum, the sum is quantized and dequantized, and the
@@ -289,6 +298,14 @@ def ef_quantize_window(planes, ded_slots: torch.Tensor, ded_grads,
     first occurrences) and the errors banked by the scatter-add kernel
     (its counts name the touched rows); untouched rows keep their bits,
     ``-0.0`` included.
+
+    The errors bank onto one ``(capacity, d)`` plane in ``slices``
+    launches, one for each of the window's equal slices, in order.  With
+    ``slices`` > 1 (the data axis's gathered window: the ranks'
+    deduplicated slices in process order, each holding distinct slots) a
+    launch adds at most once to an element, so a slot's errors sum in one
+    fixed order and every replica banks the same bits (one launch's
+    atomics would sum a slot's occurrences in no fixed order).
 
     Armed, the numerics tap gets the window's error sum-of-squares (a
     float32 device scalar, summed over the fields) and an installed
@@ -315,10 +332,19 @@ def ef_quantize_window(planes, ded_slots: torch.Tensor, ded_grads,
         tot = g.to(torch.float32) + res
         deq = torch.where(valid[:, None], quantize_dequantize(tot, quant),
                           0.0)
-        bank = masked_scatter_add(ded_slots, valid, (tot - deq).contiguous(),
-                                  capacity, counts=touched is None)
-        if touched is None:
-            bank, cnt = bank
+        take = touched is None
+        d = tot.shape[-1]
+        bank = torch.zeros((capacity, d), dtype=torch.float32,
+                           device=tot.device)
+        cnt = (torch.zeros(capacity, dtype=torch.float32, device=tot.device)
+               if take else None)
+        for s_slots, s_valid, s_err in zip(
+                ded_slots.view(slices, -1), valid.view(slices, -1),
+                (tot - deq).contiguous().view(slices, -1, d)):
+            masked_scatter_add(s_slots, s_valid, s_err, capacity,
+                               counts=take,
+                               out=(bank, cnt) if take else bank)
+        if take:
             touched = cnt > 0
         ef.copy_(torch.where(touched[:, None], bank, ef))
         out[f] = deq
@@ -467,6 +493,13 @@ class Transfer:
             self._book(None, psum_bytes=(self.dp - 1) * sum(
                 t.numel() * 4 for t in tensors))
         return psum_many(tensors)
+
+    def _dp_agree(self, what: str, value) -> None:
+        """Under ``dp > 1``: raise unless every process holds the same
+        host ``value`` (a plan, a decision)."""
+        if self.dp > 1:
+            from swiftmpi_tpu_torch.parallel.collectives import host_agree
+            host_agree(f"{self.name}: {what}", value)
 
     def _dp_reconcile_rows(self, slots: torch.Tensor, grads, counts,
                            capacity: int):
@@ -912,9 +945,12 @@ class Transfer:
         plan.TrafficPlan` of one window shape and book the compile or the
         cache hit on the host."""
         from swiftmpi_tpu_torch.transfer.plan import compile_window_plan
+        # the global window's rows, as the JAX package's global arrays
+        # price them
         plan, hit = compile_window_plan(
-            self, int(rows), int(capacity), int(row_bytes),
+            self, int(rows) * self.dp, int(capacity), int(row_bytes),
             quant_row_bytes, with_counts, family=family)
+        self._dp_agree("the window plan", plan)
         self._book(None, **{"plan_cache_hits" if hit else "plan_compiles":
                             1})
         tr = obs.get_tracer()
@@ -929,6 +965,7 @@ class Transfer:
         :meth:`_window_plan` books."""
         from swiftmpi_tpu_torch.transfer.plan import compile_hot_plan
         plan, hit = compile_hot_plan(self, int(n_hot), int(width_bytes))
+        self._dp_agree("the hot plan", plan)
         self._book(None, **{"plan_cache_hits" if hit else "plan_compiles":
                             1})
         tr = obs.get_tracer()
@@ -964,10 +1001,6 @@ class Transfer:
         compression knob off.  Otherwise one plan a window, executed
         over the backend's primitives."""
         from swiftmpi_tpu_torch.transfer.plan import window_route
-        if self.dp > 1:
-            raise NotImplementedError(
-                f"the window push across {self.dp} processes is not ported "
-                "yet (ROADMAP A11e)")
         route = window_route(self.name)
         shaped = (np.asarray(slots, np.int64) if route.eager
                   else slots.to(torch.int32))
@@ -1038,9 +1071,41 @@ class Transfer:
         ``(state, grads)``."""
         planes = {f: self._side_plane(state, ef_name(f))
                   for f in ded_grads if ef_name(f) in state}
+        if self.dp > 1:
+            return state, self._dp_ef_drain(planes, ded_slots, ded_grads,
+                                            capacity, quant)
         return state, ef_quantize_window(planes, ded_slots, ded_grads,
                                          capacity, quant,
                                          trace_backend=self.name)
+
+    def _dp_ef_drain(self, planes, ded_slots, ded_grads, capacity: int,
+                     quant: str):
+        """The error feedback over the data axis: the processes'
+        deduplicated windows gathered in process order (one exchange, the
+        JAX package's global window) and :func:`ef_quantize_window` run on
+        the whole of it, so every replica drains into the same first
+        occurrences and banks the same residuals; this process ships its
+        own slice of the dequantized sums."""
+        from swiftmpi_tpu_torch.parallel.collectives import all_gather
+        fields = sorted(ded_grads)
+        L = ded_slots.shape[0]
+        words = torch.cat(
+            [ded_slots.to(torch.int32).reshape(L, 1)]
+            + [ded_grads[f].to(torch.float32).view(torch.int32)
+               for f in fields], -1)
+        self._book_dp(words)
+        got = all_gather(words)                       # (dp * L, K)
+        gslots, gg, at = got[:, 0].contiguous(), {}, 1
+        for f in fields:
+            w = ded_grads[f].shape[-1]
+            gg[f] = got[:, at:at + w].contiguous().view(torch.float32)
+            at += w
+        # each rank's slice of each process's window holds distinct slots
+        out = ef_quantize_window(planes, gslots, gg, capacity, quant,
+                                 trace_backend=self.name,
+                                 slices=self.dp * getattr(self, "n", 1))
+        mine = slice(self.dp_rank * L, (self.dp_rank + 1) * L)
+        return {f: out[f][mine] for f in fields}
 
     def _prim_window_exchange(self, state, ded_slots, ded_grads,
                               ded_counts, access, mean: bool,

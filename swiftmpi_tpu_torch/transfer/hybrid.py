@@ -40,9 +40,22 @@ the dense ratios, ``collective_mode``, ``pull_quant``, ``pull_cache``
 ...) live on the tail, which prices the window and the tail's pulls; the
 hot plan reads them through this backend.
 
+The data axis (a run of ``dp`` processes, JAX's ``(data, shard)``
+mesh): every process holds the hot planes and the tail over its own
+``n`` ranks, and pads its own batch to a multiple of ``n``.  The tail
+reconciles as ``tpu`` does; the hot push scatters this process's hot
+rows and counts (B3), sums the ``(n_hot, W)`` accumulators and the
+counts over the processes in process order (``Transfer._dp_psum``, the
+JAX package's psum over ``(data, shard)``, in the grads' float32), and
+only then applies (B1), so every replica applies the same bits.  The
+sparse-allreduce rung sums the same planes: in JAX its buckets are
+psum'd over ``dp`` between the reduce-scatter and the all-gather, which
+on one program per process is the same sum.
+
 ``traffic()`` reports ``routed_rows`` (the tail's), ``hot_rows`` (hot
 hits of pulls and pushes), ``psum_bytes`` (``n_hot x`` (grad row bytes
-+ 4) a dense hot push, the touched rows' bytes a sparse one),
++ 4) a dense hot push, the touched rows' bytes a sparse one, plus the
+bytes sent to other processes under ``dp > 1``, the tail's included),
 ``overflow_dropped`` and the ledger keys, the tail's and the hot
 exchanges' summed.
 """
@@ -83,6 +96,10 @@ class HybridTransfer(Transfer):
     @property
     def n(self) -> int:
         return self.tail.n
+
+    def set_data_axis(self, dp: int, rank: int) -> None:
+        super().set_data_axis(dp, rank)
+        self.tail.set_data_axis(dp, rank)
 
     def wire_dense_ratio(self, family=None) -> float:
         return self.tail.wire_dense_ratio(family)
@@ -150,7 +167,7 @@ class HybridTransfer(Transfer):
         w = self.wire_traffic()
         out = {"routed_rows": t["routed_rows"],
                "hot_rows": self._count("hot_rows"),
-               "psum_bytes": self._count("psum_bytes"),
+               "psum_bytes": self._count("psum_bytes") + t["psum_bytes"],
                "overflow_dropped": t["overflow_dropped"]}
         out.update({k: t[k] + w[k] for k in WIRE_KEYS})
         return out
@@ -219,6 +236,15 @@ class HybridTransfer(Transfer):
             csum = masked_scatter_add(slots, is_hot,
                                       counts.reshape(-1, 1).contiguous(),
                                       n_hot)[:, 0]
+        if self.dp > 1:
+            # JAX's psum over (data, shard): every process's planes and
+            # counts, summed in process order before the one apply
+            names = sorted(acc)
+            summed = self._dp_psum([acc[f] for f in names]
+                                   + ([csum] if mean else []))
+            acc = dict(zip(names, summed))
+            if mean:
+                csum = summed[-1]
         inv = 1.0 / csum.clamp(min=1.0) if mean else None
         access.apply_push(hot_state, acc, mul=inv)
 

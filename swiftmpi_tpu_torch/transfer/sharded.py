@@ -100,7 +100,11 @@ and the ``@rowver`` touched counts are summed over the processes in
 process order (``Transfer._dp_psum``; JAX's psums of ``acc``, the counts
 and ``touched``).  One exchange a push through B5's cross-process form
 (``kernels.ring.ProcessRing``), booked as ``psum_bytes``.  Every replica
-applies the same bits.  The overflow count is JAX's, summed over both
+applies the same bits.  The window push runs on the same reconciles:
+each process deduplicates its own window, the exchange is the push
+above, and the dense rung's tiles, counts plane and touched counts are
+summed over the processes before the apply (JAX's
+``_build_push_window_dense`` psums over ``dp_axis``).  The overflow count is JAX's, summed over both
 axes: each process's device counts are summed over the processes (over
 gloo, in process order) when :meth:`ShardedTransfer.overflow_count` reads
 them, so under ``dp > 1`` every process reads it at the same point, as
@@ -590,6 +594,20 @@ class ShardedTransfer(Transfer):
             cnt = masked_scatter_add(flat, valid, fcounts.to(torch.float32)
                                      .reshape(-1, 1).contiguous(),
                                      capacity)[:, 0]
+        if self.dp > 1:
+            # JAX's psums of the tiles, the counts plane and ``touched``
+            # over the data axis: summed in process order, one exchange
+            names = sorted(planes)
+            own_cnt = cnt is not None and cnt is not occ
+            summed = self._dp_psum(
+                [planes[f] for f in names]
+                + [t for t in (occ, cnt if own_cnt else None)
+                   if t is not None])
+            planes = dict(zip(names, summed))
+            k = len(names)
+            if occ is not None:
+                occ, k = summed[k], k + 1
+            cnt = summed[k] if own_cnt else occ
         inv = (1.0 / cnt.clamp(min=1.0)).view(n, cap) if mean else None
         for g in self._groups:
             dev, ranks = g

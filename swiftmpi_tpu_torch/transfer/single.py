@@ -44,7 +44,11 @@ with the scatter-add kernel, gather the folded rows, and sum them in
 process order (``Transfer._dp_reconcile_rows``) before the row-indexed
 AdaGrad kernel.  The mean divides by the counts summed the same way.
 One global step over the concatenated batches, in another summation
-order than one process's atomics.
+order than one process's atomics.  An encoded window (``wire_quant``,
+``wire_sketch``) is deduplicated over the whole global window, as the
+JAX package's one program does it: the dedup primitive reconciles, and
+the error feedback and the apply then run on the same global rows in
+every process with no further exchange.
 """
 
 from __future__ import annotations
@@ -53,9 +57,11 @@ import torch
 
 from swiftmpi_tpu_torch.kernels.gather import masked_gather
 from swiftmpi_tpu_torch.kernels.scatter import masked_scatter_add
-from swiftmpi_tpu_torch.parameter.sparse_table import ROWVER_KEY
-from swiftmpi_tpu_torch.transfer.api import (Transfer, bump_row_versions,
-                                             touched_rows)
+from swiftmpi_tpu_torch.parameter.sparse_table import ROWVER_KEY, ef_name
+from swiftmpi_tpu_torch.transfer.api import (Transfer, _state_capacity,
+                                             bump_row_versions,
+                                             ef_quantize_window,
+                                             grad_row_bytes, touched_rows)
 
 
 class SingleTransfer(Transfer):
@@ -105,28 +111,75 @@ class SingleTransfer(Transfer):
             bump_row_versions(state[ROWVER_KEY], counts > 0)
         return state
 
-    def _apply_reconciled(self, state, slots, grads, counts, access, mean,
-                          capacity):
-        """The data axis's sparse and span pushes: ``slots`` ``(B,)`` rows
-        reconciled over the processes (:meth:`Transfer.
-        _dp_reconcile_rows`), then the row-indexed AdaGrad kernel at the
-        distinct slots, the mean's reciprocal of the summed counts inside
-        it."""
+    def _reconcile(self, slots, grads, counts, capacity):
+        """``slots`` ``(B,)`` rows reconciled over the processes
+        (:meth:`Transfer._dp_reconcile_rows`): ``(rep, grads, counts)``,
+        the same ``dp * B`` rows on every process, distinct slots at the
+        first positions and ``-1`` elsewhere."""
         rep, combined, cnt = self._dp_reconcile_rows(
             slots.to(torch.int32)[None],
             {f: g.contiguous()[None] for f, g in grads.items()},
             None if counts is None else counts.to(torch.float32)[None],
             capacity)
-        rep, cnt = rep[0], cnt[0]
+        return rep[0], {f: g[0] for f, g in combined.items()}, cnt[0]
+
+    def _apply_rows(self, state, rep, grads, cnt, access, mean, capacity):
+        """The row-indexed AdaGrad kernel at the distinct slots ``rep``
+        (``-1`` skipped), the mean's reciprocal of the counts inside it;
+        the rows' versions bumped."""
         keep = rep >= 0
         inv = 1.0 / cnt.clamp(min=1.0) if mean else None
-        access.apply_push_rows(state, rep, keep,
-                               {f: g[0] for f, g in combined.items()},
-                               mul=inv)
+        access.apply_push_rows(state, rep, keep, grads, mul=inv)
         if ROWVER_KEY in state:
             bump_row_versions(state[ROWVER_KEY],
                               touched_rows(rep, keep, capacity))
         return state
+
+    def _apply_reconciled(self, state, slots, grads, counts, access, mean,
+                          capacity):
+        """The data axis's sparse and span pushes: the rows reconciled
+        over the processes, then applied at their distinct slots."""
+        rep, combined, cnt = self._reconcile(slots, grads, counts, capacity)
+        return self._apply_rows(state, rep, combined, cnt, access, mean,
+                                capacity)
+
+    # -- the window under dp > 1 ----------------------------------------------
+    # The JAX package's XlaTransfer deduplicates the global window on one
+    # program, so its encoded rungs quantize each slot's sum over every
+    # process's rows.  Here the dedup primitive reconciles: each process
+    # folds its window (B3) and the folded rows are summed over the
+    # processes in process order, every process then holds the same
+    # global deduplicated window, drains its error feedback with no
+    # further exchange, and applies it with none.
+    def _prim_window_dedup(self, flat, fgrads, fcounts, capacity):
+        if self.dp == 1:
+            return super()._prim_window_dedup(flat, fgrads, fcounts,
+                                              capacity)
+        return self._reconcile(flat, fgrads, fcounts, capacity)
+
+    def _prim_ef_drain(self, state, ded_slots, ded_grads, capacity, quant):
+        if self.dp == 1:
+            return super()._prim_ef_drain(state, ded_slots, ded_grads,
+                                          capacity, quant)
+        planes = {f: state[ef_name(f)] for f in ded_grads
+                  if ef_name(f) in state}
+        return state, ef_quantize_window(planes, ded_slots, ded_grads,
+                                         capacity, quant,
+                                         trace_backend=self.name)
+
+    def _prim_window_exchange(self, state, ded_slots, ded_grads, ded_counts,
+                              access, mean, need_counts, wire):
+        if self.dp == 1:
+            return super()._prim_window_exchange(
+                state, ded_slots, ded_grads, ded_counts, access, mean,
+                need_counts, wire)
+        self.push_paths[f"{','.join(ded_grads)}:span"] += 1
+        if self.count_traffic:
+            rb, bb = (wire if wire is not None
+                      else (grad_row_bytes(ded_grads, with_counts=True), 0))
+            self._record_exchange((ded_slots >= 0).sum(), rb, base_bytes=bb)
+        return self._apply_rows(state, ded_slots, ded_grads, ded_counts,
+                                access, mean, _state_capacity(state))
 
     def _push_sparse(self, state, slots, grads, access, mean=False):
         capacity = next(iter(state.values())).shape[0]

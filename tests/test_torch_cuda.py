@@ -367,6 +367,35 @@ def test_scatter_kernel_matches_plain_on_card(dev, R, n, w, cap, pad):
         assert not acc.any() and not cnt.any()
 
 
+def test_scatter_into_out_on_card_sums_slices_in_launch_order(dev):
+    """B3 with ``out=`` at the error feedback's data-axis bank: 8 slices
+    of 20,000 rows, each of distinct slots, one launch each into one
+    (117,672, 100) plane and its counts, bit for bit against the plain
+    version's slices added in the same order; a wrong ``out`` raises."""
+    rng = np.random.default_rng(18)
+    S, n, w, cap = 8, 20_000, 100, 117_672
+    slots = torch.from_numpy(np.stack([
+        rng.permutation(cap)[:n] for _ in range(S)]).astype(np.int32)).to(dev)
+    slots[:, :50] = -1
+    valid = slots >= 0
+    g = torch.from_numpy(rng.normal(size=(S, n, w))
+                         .astype(np.float32)).to(dev)
+    acc, cnt = torch.zeros(cap, w, device=dev), torch.zeros(cap, device=dev)
+    want, want_cnt = torch.zeros_like(acc), torch.zeros_like(cnt)
+    kernels.reset_launches()
+    for s in range(S):
+        scatter.masked_scatter_add(slots[s], valid[s], g[s], cap,
+                                   counts=True, out=(acc, cnt))
+        scatter.masked_scatter_add_plain(slots[s], valid[s], g[s], cap,
+                                         counts=True, out=(want, want_cnt))
+    torch.cuda.synchronize()
+    assert scatter.launches == S
+    assert torch.equal(acc, want) and torch.equal(cnt, want_cnt)
+    with pytest.raises(TypeError):
+        scatter.masked_scatter_add(slots[0], valid[0], g[0], cap,
+                                   out=torch.zeros(cap, w + 1, device=dev))
+
+
 @pytest.mark.parametrize("shared", [0, 1])
 def test_one_sharded_step_on_card_matches_cpu(dev, shared):
     """One step of the sharded parameter server (8 ranks on the card) and

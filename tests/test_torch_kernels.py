@@ -327,6 +327,41 @@ def test_scatter_ranks_and_counts_match_pallas_and_numpy(R, width):
         torch.testing.assert_close(c1, cnt[r], rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("counts", [True, False])
+def test_scatter_into_out_adds_slices_in_order_as_pallas(counts):
+    """``out=``: slices of distinct slots banked one launch each into one
+    plane (the error feedback's order over the data axis) give, bit for
+    bit, the slices' ``masked_vmem_scatter_add`` planes (interpret mode)
+    added in slice order, and the counts the slices' ``np.bincount``s; the
+    returned tensors are ``out``'s."""
+    rng = np.random.default_rng(44)
+    S, n, width = 3, 120, D
+    slots = np.stack([rng.permutation(CAP)[:n] for _ in range(S)]) \
+        .astype(np.int32)
+    valid = rng.random((S, n)) >= 0.1
+    slots[:, :3] = -1
+    g = rng.normal(size=(S, n, width)).astype(np.float32)
+    acc, cnt = torch.zeros(CAP, width), torch.zeros(CAP)
+    want, want_cnt = np.zeros((CAP, width), np.float32), np.zeros(CAP)
+    for s in range(S):
+        got = scatter.masked_scatter_add(
+            torch.from_numpy(slots[s]), torch.from_numpy(valid[s]),
+            torch.from_numpy(g[s]), CAP, counts=counts,
+            out=(acc, cnt) if counts else acc)
+        if counts:
+            assert got[0] is acc and got[1] is cnt
+        else:
+            assert got is acc
+        want += np.asarray(masked_vmem_scatter_add(
+            jnp.asarray(slots[s]), jnp.asarray(valid[s]),
+            jnp.asarray(g[s]), CAP))
+        ok = valid[s] & (slots[s] >= 0)
+        want_cnt += np.bincount(slots[s][ok], minlength=CAP)
+    np.testing.assert_array_equal(acc.numpy(), want)
+    np.testing.assert_array_equal(cnt.numpy(),
+                                  want_cnt if counts else np.zeros(CAP))
+
+
 def test_scatter_all_padding_gives_zeros():
     """Every row invalid or out of range: zero sums and zero counts."""
     slots = torch.tensor([[-1, CAP, -5, 3]], dtype=torch.int32)

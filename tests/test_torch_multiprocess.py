@@ -528,29 +528,60 @@ def _cluster_of(dp, **cluster):
     ("cluster", "pull_quant", "bf16"), ("cluster", "pull_cache", 8),
     ("serve", "every", 4), ("control", "control", "on")])
 def test_unported_hooks_refuse_across_processes(section, key, value):
+    """Under ``dp = 2`` every hook the JAX package runs across processes
+    is armed as in one process and the model steps (the 2-process launch
+    of ``test_torch_data_axis.py`` holds each against JAX); ``[control]``
+    alone still refuses, with JAX's reason and no ROADMAP A11e."""
     c = ConfigParser().update(CONF)
     c.set(section, key, value)
     if key in ("wire_quant", "wire_sketch", "collective"):
         c.set("cluster", "push_window", 2)
-    with pytest.raises(NotImplementedError, match="A11e"):
-        Word2Vec(config=c, device="cpu", cluster=_cluster_of(2))
-    Word2Vec(config=c, device="cpu", cluster=_cluster_of(1))
+    if key == "control":
+        with pytest.raises(NotImplementedError,
+                           match="cannot run across processes") as err:
+            Word2Vec(config=c, device="cpu", cluster=_cluster_of(2))
+        assert "A11e" not in str(err.value)
+        Word2Vec(config=c, device="cpu", cluster=_cluster_of(1))
+        return
+    corpus = _corpus()
+    models = [Word2Vec(config=c, device="cpu", cluster=_cluster_of(dp))
+              for dp in (2, 1)]
+    batch = _rank_batches(corpus, build_vocab(corpus))[0][0]
+    for m in models:
+        m.build(corpus.tolist())
+        m.step_batch(batch, draws=_jax_draws(jax.random.key(2),
+                                            len(m.vocab), (B, K)))
+    two, one = models
+    for knob in ("window_expected_unique", "wire_quant", "wire_sketch",
+                 "collective_mode", "pull_quant", "pull_cache"):
+        assert getattr(two.transfer, knob) == getattr(one.transfer, knob)
+    assert sorted(two.table.state) == sorted(one.table.state)
+    for f, v in one.table.state.items():
+        assert torch.equal(two.table.state[f], v)
+    assert (two.serve_every, two.push_window_size) \
+        == (one.serve_every, one.push_window_size)
 
 
 def test_models_and_backends_refuse_across_processes(monkeypatch):
-    with pytest.raises(NotImplementedError, match="A11e"):
-        LogisticRegression(device="cpu", cluster=_cluster_of(2))
-    with pytest.raises(NotImplementedError, match="A11e"):
-        GloVe(device="cpu", cluster=_cluster_of(2))
+    """LR, GloVe and sent2vec build under ``dp = 2`` (the launch of
+    ``test_torch_data_axis.py`` trains them against JAX); ``hybrid``
+    brings its tail onto the data axis; ``local`` still refuses, with
+    JAX's reason and no ROADMAP A11e."""
+    assert LogisticRegression(device="cpu", cluster=_cluster_of(2)).table
+    assert GloVe(device="cpu", cluster=_cluster_of(2)).cluster.dp == 2
     wm = Word2Vec(config=ConfigParser().update(CONF), device="cpu")
     wm.cluster.dp = 2
-    with pytest.raises(NotImplementedError, match="A11e"):
-        Sent2Vec(wm)
+    assert Sent2Vec(wm).word_model is wm
     monkeypatch.setattr(cluster_mod, "process_count", lambda: 2)
-    for backend in ("hybrid", "local"):
-        with pytest.raises(NotImplementedError, match="A11e"):
-            Cluster(ConfigParser().update({"cluster": {
-                "transfer": backend}}), devices=["cpu"]).initialize()
+    c = Cluster(ConfigParser().update({"cluster": {
+        "transfer": "hybrid", "server_num": 2}}),
+        devices=["cpu"]).initialize()
+    assert (c.transfer.dp, c.transfer.tail.dp) == (2, 2)
+    with pytest.raises(NotImplementedError,
+                       match="cannot train on it") as err:
+        Cluster(ConfigParser().update({"cluster": {
+            "transfer": "local"}}), devices=["cpu"]).initialize()
+    assert "A11e" not in str(err.value)
 
 
 def test_stencil_refuses_across_processes_as_jax():
