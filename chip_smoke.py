@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Build and drive the PyTorch/CUDA port (``swiftmpi_tpu_torch``) on one
-CUDA card, at the full width of the reference word2vec configuration.
+CUDA card, at the full width of the reference word2vec configuration
+and of bench.py's transformer cell (phase 17).
 
     python3 chip_smoke.py          # from the repository root
 
@@ -304,6 +305,28 @@ Phases, each of which raises on a failed check:
    slice-by-slice bank (``PROCS`` x ``server_num`` slices onto the
    window's table) are each held against their plain versions on the
    card.  B1-B3 and B5 (both forms) must each have launched.
+17. the transformer family (``models/{transformer,trainer}.py``,
+   ``parallel/``), at bench.py's width (vocab 8,192, d_model 512, 8
+   heads, d_ff 2,048, 512 tokens a sequence): (a) ``Trainer`` with 4
+   layers in bf16 at batch 64 (~21.0 M parameters, AdamW), 1 warm step,
+   5 timed through ``run(pipeline=2)`` (host batches prefetched and
+   copied to the card by its producer), then one profiled step:
+   tokens/s, step ms, peak memory, the
+   share of the 989 TFLOP/s bf16 peak by bench.py's FLOP model, device
+   time by kernel; before it, two float32 steps at 2 layers on the card
+   against the CPU port's (losses within 1e-4, every leaf within the
+   envelope but for at most ``TFM_OUTSIDE_SHARE`` of it); (b) Ulysses and
+   (c) ring attention over ``seq`` = 4, 2 layers, float32: logits and
+   every ``lm_loss`` gradient against full attention's within JAX's rtol
+   2e-4, atol 2e-5, B5 launched 4 times a layer forward and as many
+   backward in (b); (d) expert-parallel MoE, 8 experts over ``expert`` =
+   4 at d 512, d_ff 2,048, 16 x 512 tokens, capacity factor 8, against
+   the dense reference (output, aux, gradients), B5 launched twice
+   forward and twice backward; (e) the pipelined trunk over ``stage`` = 4,
+   8 microbatches, against the plain forward (within (b)'s tolerance:
+   the microbatches' products sum in another order).  B5 is timed at (b)'s
+   (float32 and bf16) and (d)'s exchange shapes against its byte bound,
+   its plain version and ``x.transpose(0, 1).contiguous()``.
 
 The line before the last is the ``{"kernels": [...]}`` summary, each
 kernel's ``launches`` read from the train run of its path (the sent2vec
@@ -311,7 +334,8 @@ cases from the sent2vec inference run, phase 8's, 9's and 10's from
 their paths' train runs, phase 13's from (a)'s run and (c)'s inference
 over the snapshot, phase 14's from (a)'s and (b)'s processes, phase 15's
 from the second life of (a)'s processes and from (b)'s elastic children,
-as they log them, phase 16's from its jobs' processes); the last is
+as they log them, phase 16's from its jobs' processes, phase 17's from
+(b)'s and (d)'s forward and backward passes); the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints neither.
 """
@@ -832,12 +856,11 @@ def _stencil_case(label, path, table, args, window, flush):
 
 
 def _ring_case(label, tail, dtype, rng, flush, dev,
-               path=f"gather@{SHARDS}"):
-    """The ring exchange of ``SHARDS`` ranks' ``(SHARDS, *tail)`` operands,
-    stacked as the transfer hands them over, against its plain version: a
-    copy, so bit for bit; one send launch and one wait launch.  bf16
-    operands cross as 4-byte words."""
-    n = SHARDS
+               path=f"gather@{SHARDS}", n: int = SHARDS):
+    """The ring exchange of ``n`` ranks' ``(n, *tail)`` operands, stacked
+    as the transfer (or a rank-axis all-to-all) hands them over, against
+    its plain version: a copy, so bit for bit; one send launch and one
+    wait launch.  bf16 operands cross as 4-byte words."""
     gen = _device_gen(dev, rng)
     if dtype == torch.int32:
         x = torch.randint(-1, 11_000, (n, n, *tail), generator=gen,
@@ -5576,6 +5599,351 @@ def phase_data_axis(vocab, corpus: np.ndarray, card: str,
     return cases, {DA_PATH: launches}
 
 
+# -- phase 17: the transformer family ----------------------------------------
+
+#: bench.py's transformer cell (``bench.py:1993-2027``): ~21.0 M
+#: parameters in bf16, one AdamW step a batch of 64 x 512 tokens
+TFM_WIDTH = dict(vocab_size=8192, d_model=512, n_heads=8, d_ff=2048,
+                 max_seq=512)
+TFM_LAYERS, TFM_BATCH, TFM_SEQ, TFM_LR = 4, 64, 512, 1e-3
+TFM_TIMED = 5
+#: (a)'s float32 step on the card against the CPU port: 2 layers of the
+#: full width, 4 sequences, two steps (warmup 1: the second has the peak
+#: rate); AdamW's m / sqrt(v) may move a param whose gradient is noise
+#: by up to the rate, so a leaf's share outside the envelope is bounded
+TFM_PARITY_LAYERS, TFM_PARITY_BATCH = 2, 4
+TFM_OUTSIDE_SHARE = 1e-3
+#: (b), (c): seq = 4 ranks at full width, 2 layers, 8 sequences, float32
+TFM_SEQ_RANKS, TFM_CP_LAYERS, TFM_CP_BATCH = 4, 2, 8
+#: JAX's own tolerance for the context-parallel variants
+TFM_CP_TOL = dict(rtol=2e-4, atol=2e-5)
+#: (d): 8 experts over expert = 4 at d 512, d_ff 2048, 16 x 512 tokens,
+#: capacity factor 8 (no token drops: C = 4,096 >= a rank's 2,048)
+MOE_EXPERTS, MOE_RANKS, MOE_TOKENS, MOE_K, MOE_CF = 8, 4, 16 * 512, 2, 8.0
+#: (e): stage = 4 (one block a stage), 8 microbatches of 2 sequences
+PIPE_STAGES, PIPE_MICRO, PIPE_BATCH = 4, 8, 16
+#: published H100 SXM dense bf16 tensor-core peak
+PEAK_BF16_FLOPS = 989e12
+TFM_ULYSSES, TFM_RING, TFM_MOE = "tfm:ulysses", "tfm:ring", "tfm:moe"
+
+
+def _tfm_cfg(layers: int, dtype, **kw):
+    from swiftmpi_tpu_torch.models.transformer import TransformerConfig
+    return TransformerConfig(n_layers=layers, dtype=dtype, **TFM_WIDTH, **kw)
+
+
+def _tfm_tokens(rng, batch: int, seq: int = TFM_SEQ) -> np.ndarray:
+    return rng.integers(0, TFM_WIDTH["vocab_size"],
+                        (batch, seq)).astype(np.int32)
+
+
+def _outside_share(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Share of elements outside |a - b| <= 1e-5 + 1e-3 |b|."""
+    a, b = got.detach().double().cpu(), want.detach().double().cpu()
+    return float(((a - b).abs() > 1e-5 + 1e-3 * b.abs()).double().mean())
+
+
+def _close(what: str, got: torch.Tensor, want: torch.Tensor, rtol, atol):
+    a, b = got.detach().double().cpu(), want.detach().double().cpu()
+    bad = (a - b).abs() > atol + rtol * b.abs()
+    if bad.any():
+        raise AssertionError(
+            f"{what}: {int(bad.sum())} of {b.numel()} elements outside "
+            f"rtol {rtol}, atol {atol} (max |diff| "
+            f"{float((a - b).abs().max()):.3g})")
+    return float((a - b).abs().max())
+
+
+def _tfm_flops(n_params: int, layers: int, seq: int, tokens: int) -> float:
+    """bench.py's training FLOP model: 6 P + 12 L S d a token."""
+    return (6.0 * n_params + 12.0 * layers * seq
+            * TFM_WIDTH["d_model"]) * tokens
+
+
+def phase_tfm_trainer(card: str) -> None:
+    """(a): the float32 step on the card against the CPU port at 2 layers,
+    then bench.py's cell in bf16: 1 warm step, TFM_TIMED timed steps, one
+    profiled step."""
+    from swiftmpi_tpu_torch.apps.w2v_profile import _busy_by_kernel
+    from swiftmpi_tpu_torch.models.trainer import Trainer
+    from swiftmpi_tpu_torch.utils import tree
+    rng = np.random.default_rng(17)
+    cfg = _tfm_cfg(TFM_PARITY_LAYERS, torch.float32)
+    toks = [_tfm_tokens(rng, TFM_PARITY_BATCH) for _ in range(2)]
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        tr = Trainer(cfg, device=dev, learning_rate=TFM_LR, warmup_steps=1)
+        state = tr.init_state(0)
+        losses = [float(tr.step(state, t)[1]) for t in toks]
+        runs[dev] = (losses, tree.leaves(state.tree()))
+    (lc, fc), (lh, fh) = runs[DEVICE], runs["cpu"]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    if gap > 1e-4:
+        raise AssertionError(f"tfm (a): card losses {lc} vs CPU {lh}")
+    worst = max(_outside_share(a, b) for a, b in zip(fc, fh)
+                if b.dtype != torch.int32)
+    if worst > TFM_OUTSIDE_SHARE:
+        raise AssertionError(f"tfm (a): a leaf has {worst:.3g} of its "
+                             "elements outside the envelope")
+    _json_line({"tfm_parity": "trainer 2 steps, card vs CPU, float32",
+                "layers": TFM_PARITY_LAYERS, "batch": TFM_PARITY_BATCH,
+                "losses": lc, "loss_rel_gap": gap,
+                "worst_leaf_share_outside": worst})
+    del runs
+
+    cfg = _tfm_cfg(TFM_LAYERS, torch.bfloat16)
+    tr = Trainer(cfg, device=DEVICE, learning_rate=TFM_LR)
+    state = tr.init_state(0)
+    n_params = sum(p.numel() for p in tree.leaves(state.params))
+    host = [_tfm_tokens(rng, TFM_BATCH) for _ in range(TFM_TIMED + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the steps as a user runs them: host batches through run()'s
+    # prefetching producer and its copies to the card; the warm step
+    # pays for the pinned buffers' first allocation
+    state, _ = tr.run(state, host[:1], pipeline=2)
+    torch.cuda.synchronize()
+    host = host[1:]
+    batch = torch.from_numpy(host[0]).to(DEVICE)
+    t0 = time.perf_counter()
+    state, losses = tr.run(state, host, pipeline=2)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TFM_TIMED
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    if len(losses) != TFM_TIMED or not all(map(math.isfinite, losses)) \
+            or tr.pipeline_stats["consumed"] != TFM_TIMED:
+        raise AssertionError(f"tfm (a): losses {losses}, pipeline "
+                             f"{tr.pipeline_stats}")
+    tokens = TFM_BATCH * (TFM_SEQ - 1)
+    flops = _tfm_flops(n_params, TFM_LAYERS, TFM_SEQ - 1, tokens)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        tr.step(state, batch)
+        torch.cuda.synchronize()
+    busy = _busy_by_kernel(prof)
+    top = dict(list(busy.items())[:8])
+    _json_line({"tfm_train": card, "params": n_params, "dtype": "bfloat16",
+                "batch": TFM_BATCH, "seq": TFM_SEQ, "tokens_a_step": tokens,
+                "step_ms": dt * 1e3, "tokens_per_s": tokens / dt,
+                "peak_memory_bytes": peak, "flops_a_step": flops,
+                "tflop_per_s": flops / dt / 1e12,
+                "bf16_peak_share": flops / dt / PEAK_BF16_FLOPS,
+                "losses": losses,
+                "device_busy_ms": sum(busy.values()),
+                "device_idle_share": 1 - sum(busy.values()) / (dt * 1e3),
+                "busy_ms_by_kind": _kernel_kinds(busy),
+                "launches_a_step": _kernel_launches(prof),
+                "top_kernels_ms": top})
+    with open(WORK / "phase17_kernels.json", "w") as f:
+        json.dump(busy, f, indent=1)
+    del state, tr
+
+
+def _kernel_kinds(busy: dict) -> dict:
+    """Device ms of a profiled step by kind of kernel: the products on the
+    tensor cores (bf16), the float32 products on the CUDA cores, the
+    softmax kernels, the other elementwise passes and copies, the
+    reductions, and the rest."""
+    out = {}
+    for name, ms in busy.items():
+        low = name.lower()
+        if "f32f32" in low or "sgemm" in low or "ffma" in low:
+            kind = "products_f32"
+        elif any(k in low for k in ("gemm", "nvjet", "cutlass", "xmma")):
+            kind = "products_bf16"
+        elif "softmax" in low:
+            kind = "softmax"
+        elif "reduce" in low:
+            kind = "reductions"
+        elif "elementwise" in low or "copy" in low:
+            kind = "elementwise"
+        else:
+            kind = "other"
+        out[kind] = out.get(kind, 0.0) + ms
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def _kernel_launches(prof) -> int:
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False))
+
+
+def _lm_grads(params, toks, cfg, mesh=None):
+    """The logits of a forward pass (its launches: ``fwd``) and lm_loss
+    with its grads (a training step's forward and backward: ``both``)."""
+    from swiftmpi_tpu_torch.models.transformer import (forward, lm_loss,
+                                                       value_and_grad)
+    from swiftmpi_tpu_torch.utils import tree
+    kernels.reset_launches()
+    with torch.no_grad():
+        logits, _ = forward(params, toks[:, :-1], cfg, mesh)
+    fwd = kernels.launch_counts()
+    kernels.reset_launches()
+    loss, grads = value_and_grad(lm_loss, params, toks, cfg, mesh)
+    torch.cuda.synchronize()
+    both = kernels.launch_counts()
+    return logits, loss, tree.leaves(grads), fwd, both
+
+
+def phase_tfm_seq() -> dict:
+    """(b), (c): Ulysses and ring over seq = 4 at full width in float32:
+    logits and every lm_loss gradient against full attention's within
+    JAX's tolerance; B5 must launch for Ulysses, forward and backward."""
+    import dataclasses
+    from swiftmpi_tpu_torch.cluster.mesh import Mesh
+    from swiftmpi_tpu_torch.models.transformer import init_params
+    rng = np.random.default_rng(171)
+    cfg = _tfm_cfg(TFM_CP_LAYERS, torch.float32)
+    params = init_params(1, cfg, DEVICE)
+    # S + 1 tokens: lm_loss trains on S positions, which split over 4
+    toks = torch.from_numpy(_tfm_tokens(rng, TFM_CP_BATCH,
+                                        TFM_SEQ + 1)).to(DEVICE)
+    want_logits, want_loss, want_grads, _, _ = _lm_grads(params, toks, cfg)
+    mesh = Mesh({"seq": TFM_SEQ_RANKS}, DEVICE)
+    counts = {}
+    for mode, path in (("ulysses", TFM_ULYSSES), ("ring", TFM_RING)):
+        c = dataclasses.replace(cfg, attention=mode)
+        t0 = time.perf_counter()
+        logits, loss, grads, fwd, both = _lm_grads(params, toks, c, mesh)
+        secs = time.perf_counter() - t0
+        err = _close(f"tfm {mode} logits", logits, want_logits, **TFM_CP_TOL)
+        gerr = max(_close(f"tfm {mode} grad leaf {i}", g, w, **TFM_CP_TOL)
+                   for i, (g, w) in enumerate(zip(grads, want_grads)))
+        want_ring = 4 * TFM_CP_LAYERS if mode == "ulysses" else 0
+        if fwd["ring"] != want_ring or both["ring"] != 2 * fwd["ring"]:
+            raise AssertionError(
+                f"tfm {mode}: B5 launched {fwd['ring']} times forward and "
+                f"{both['ring'] - fwd['ring']} backward, expected "
+                f"{want_ring} each (q, k, v and the output a layer)")
+        if ring.timeouts():
+            raise AssertionError(f"tfm {mode}: a ring wait timed out")
+        counts[path] = both
+        _json_line({"tfm_seq": mode, "ranks": TFM_SEQ_RANKS,
+                    "layers": TFM_CP_LAYERS, "batch": TFM_CP_BATCH,
+                    "max_abs_err_logits": err, "max_abs_err_grads": gerr,
+                    "loss": float(loss), "loss_full": float(want_loss),
+                    "b5_forward": fwd["ring"],
+                    "b5_backward": both["ring"] - fwd["ring"],
+                    "fwd_and_grad_s": secs})
+    return counts
+
+
+def phase_tfm_moe() -> dict:
+    """(d): expert-parallel MoE (8 experts over expert = 4) at d 512,
+    d_ff 2048 and 16 x 512 tokens against the dense reference, output,
+    aux and gradients; B5 must launch forward and backward."""
+    from swiftmpi_tpu_torch.cluster.mesh import Mesh
+    from swiftmpi_tpu_torch.parallel.moe import (init_moe_params, moe_ffn,
+                                                 moe_ffn_reference)
+    d, dff = TFM_WIDTH["d_model"], TFM_WIDTH["d_ff"]
+    gen = torch.Generator().manual_seed(172)
+    params = init_moe_params(gen, d, dff, MOE_EXPERTS, device=DEVICE)
+    x = torch.randn((MOE_TOKENS, d), generator=gen).to(DEVICE)
+    w = torch.randn((MOE_TOKENS, d), generator=gen).to(DEVICE) / MOE_TOKENS
+
+    def run(fn):
+        ps = [p.detach().requires_grad_(True) for p in params]
+        xs = x.detach().requires_grad_(True)
+        kernels.reset_launches()
+        y, aux = fn(type(params)(*ps), xs)
+        fwd = kernels.launch_counts()["ring"]
+        ((y * w).sum() + aux).backward()
+        torch.cuda.synchronize()
+        return (y.detach(), aux.detach(), [p.grad for p in ps] + [xs.grad],
+                fwd, kernels.launch_counts())
+
+    mesh = Mesh({"expert": MOE_RANKS}, DEVICE)
+    t0 = time.perf_counter()
+    y, aux, grads, fwd, both = run(lambda p, x: moe_ffn(
+        p, x, mesh, k=MOE_K, capacity_factor=MOE_CF))
+    secs = time.perf_counter() - t0
+    y_ref, aux_ref, grads_ref, _, _ = run(
+        lambda p, x: moe_ffn_reference(p, x, k=MOE_K))
+    err = _close("tfm moe output", y, y_ref, **TFM_CP_TOL)
+    if abs(float(aux) - float(aux_ref)) > 1e-5 * abs(float(aux_ref)):
+        raise AssertionError(f"tfm moe: aux {float(aux)} vs reference "
+                             f"{float(aux_ref)}")
+    gerr = max(_close(f"tfm moe grad {i}", g, r, 1e-3, 1e-5)
+               for i, (g, r) in enumerate(zip(grads, grads_ref)))
+    if fwd != 2 or both["ring"] != 4:
+        raise AssertionError(f"tfm moe: B5 launched {fwd} times forward and "
+                             f"{both['ring'] - fwd} backward, expected 2 "
+                             "each (dispatch and return)")
+    if ring.timeouts():
+        raise AssertionError("tfm moe: a ring wait timed out")
+    t_local = MOE_TOKENS // MOE_RANKS
+    _json_line({"tfm_moe": f"{MOE_EXPERTS} experts over expert = "
+                f"{MOE_RANKS}", "tokens": MOE_TOKENS, "d": d, "d_ff": dff,
+                "capacity": math.ceil(t_local * MOE_K / MOE_EXPERTS
+                                      * MOE_CF),
+                "max_abs_err": err, "max_abs_err_grads": gerr,
+                "aux": float(aux), "b5_forward": fwd,
+                "b5_backward": both["ring"] - fwd, "fwd_and_grad_s": secs})
+    return {TFM_MOE: both}
+
+
+def phase_tfm_pipeline() -> None:
+    """(e): the trunk as a GPipe pipeline over stage = 4, 8 microbatches,
+    against the plain forward, float32."""
+    from swiftmpi_tpu_torch.cluster.mesh import Mesh
+    from swiftmpi_tpu_torch.models.transformer import (forward,
+                                                       forward_pipelined,
+                                                       init_params)
+    rng = np.random.default_rng(173)
+    cfg = _tfm_cfg(PIPE_STAGES, torch.float32)
+    params = init_params(2, cfg, DEVICE)
+    toks = torch.from_numpy(_tfm_tokens(rng, PIPE_BATCH)).to(DEVICE)
+    with torch.no_grad():
+        want, _ = forward(params, toks, cfg)
+        t0 = time.perf_counter()
+        got, _ = forward_pipelined(params, toks, cfg,
+                                   Mesh({"stage": PIPE_STAGES}, DEVICE),
+                                   num_microbatches=PIPE_MICRO)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    # the microbatches' products run at other shapes than the whole
+    # batch's, so the card sums them in another order: (b)'s tolerance
+    err = _close("tfm pipeline logits", got, want, **TFM_CP_TOL)
+    _json_line({"tfm_pipeline": f"stage = {PIPE_STAGES}",
+                "microbatches": PIPE_MICRO, "batch": PIPE_BATCH,
+                "max_abs_err": err, "forward_s": secs})
+
+
+def phase_transformer(card: str) -> tuple:
+    """Phase 17: the transformer family.  Returns B5's cases at (b)'s and
+    (d)'s exchange shapes and the launches of (b), (c) and (d)."""
+    t0 = time.perf_counter()
+    WORK.mkdir(parents=True, exist_ok=True)
+    phase_tfm_trainer(card)
+    counts = phase_tfm_seq()
+    counts.update(phase_tfm_moe())
+    phase_tfm_pipeline()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(174)
+    flush = torch.zeros(2 * 50 * 2 ** 20 // 4, device=DEVICE)
+    n, H, D = TFM_SEQ_RANKS, TFM_WIDTH["n_heads"], 64
+    E, d = MOE_EXPERTS, TFM_WIDTH["d_model"]
+    cap = math.ceil(MOE_TOKENS // MOE_RANKS * MOE_K / E * MOE_CF)
+    # Ulysses' q, k, v and output exchanges: (n, n, B, S/n, H/n, D)
+    ulysses = (TFM_CP_BATCH, TFM_SEQ // n, H // n, D)
+    cases = [
+        _ring_case("ulysses q, k, v, out", ulysses, torch.float32, rng,
+                   flush, DEVICE, path=TFM_ULYSSES, n=n),
+        _ring_case("ulysses q, k, v, out, bf16", ulysses, torch.bfloat16,
+                   rng, flush, DEVICE, path=TFM_ULYSSES, n=n),
+        # MoE's dispatch and return: (n, n, E/n, C, d)
+        _ring_case("moe expert buffers", (E // MOE_RANKS, cap, d),
+                   torch.float32, rng, flush, DEVICE, path=TFM_MOE,
+                   n=MOE_RANKS)]
+    del flush
+    report_cases(cases)
+    print(f"phase 17 {time.perf_counter() - t0:.1f} s", flush=True)
+    return cases, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -5685,6 +6053,9 @@ def main() -> int:
     da_cases, da_counts = phase_data_axis(vocab, corpus, card)
     cases += da_cases
     counts.update(da_counts)
+    tfm_cases, tfm_counts = phase_transformer(card)
+    cases += tfm_cases
+    counts.update(tfm_counts)
 
     summary = []
     for c in cases:

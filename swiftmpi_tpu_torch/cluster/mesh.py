@@ -20,9 +20,11 @@ cards are ROADMAP A11d.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
+
+from swiftmpi_tpu_torch.device import DeviceLike, resolve_device
 
 DATA_AXIS = "data"
 SHARD_AXIS = "shard"
@@ -98,3 +100,31 @@ def mesh_info(mesh: RankLayout) -> Dict[str, object]:
             "n_devices": len(mesh.distinct_devices),
             "devices": [str(d) for d in mesh.distinct_devices],
             "dp_rank": mesh.dp_rank}
+
+
+class Mesh:
+    """Named axes of logical ranks, all on one device: the counterpart of
+    ``jax.sharding.Mesh`` for the transformer family.  ``axis_names`` and
+    ``shape[axis]`` read as JAX's do; ``device`` is where every rank's
+    tensors live (the current CUDA card unless ``device="cpu"``)."""
+
+    def __init__(self, axes: Mapping[str, int], device: DeviceLike = None):
+        shape = {str(a): int(n) for a, n in dict(axes).items()}
+        if not shape:
+            raise ValueError("a mesh needs at least one axis")
+        bad = {a: n for a, n in shape.items() if n < 1}
+        if bad:
+            raise ValueError(f"mesh axes need positive sizes, got {bad}")
+        self.shape: Dict[str, int] = shape
+        self.axis_names: Tuple[str, ...] = tuple(shape)
+        self.device = resolve_device(device)
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for s in self.shape.values():
+            n *= s
+        return n
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, device={self.device})"

@@ -15,6 +15,13 @@ numpy has no bfloat16 of its own; JAX's bfloat16 arrays convert to
 ``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy`` does not take.
 Both directions go through a 16-bit integer view, so the bits cross
 unchanged, with no float round trip.
+
+The transformer family: :func:`transformer_params_from_jax` takes the
+JAX package's params pytree with numpy leaves (``jax.tree.map(np.asarray,
+params)``, its ``MoEParams`` included) and gives the port's;
+:func:`trainer_state_from_jax_npz` reads a JAX ``Trainer.save`` file into
+a port ``TrainState`` by leaf order (params, adam's ``mu``/``nu`` and
+counts, the step).
 """
 
 from __future__ import annotations
@@ -49,3 +56,40 @@ def tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(a)
+
+
+def transformer_params_from_jax(np_params, device):
+    """The port's transformer params from the JAX package's pytree of
+    numpy arrays: dicts stay dicts, a named tuple with ``MoEParams``'
+    fields becomes the port's ``MoEParams``, every array a tensor copy on
+    ``device`` (bfloat16 bits unchanged)."""
+    from swiftmpi_tpu_torch.parallel.moe import MoEParams
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, tuple) and getattr(t, "_fields", None) \
+                == MoEParams._fields:
+            return MoEParams(*(walk(v) for v in t))
+        return tensor_from_numpy(np.asarray(t)).to(device)
+
+    return walk(np_params)
+
+
+def trainer_state_from_jax_npz(path: str, trainer, verify: bool = True):
+    """A port ``TrainState`` for ``trainer`` from a JAX ``Trainer.save``
+    file: the file's ``leaf_i`` in flatten order into a fresh state's
+    leaves (their count, shapes and dtypes checked; the ``treedef``
+    string is not compared, so a file of another optax version whose
+    leaves line up loads too).  ``verify`` CRC-checks the file first."""
+    from swiftmpi_tpu_torch.io.checkpoint import npz_path, verify_checkpoint
+    from swiftmpi_tpu_torch.models.trainer import load_leaves
+    dst = npz_path(path)
+    if verify:
+        verify_checkpoint(dst)
+    state = trainer.init_state(0)
+    with np.load(dst) as z:
+        n = sum(1 for f in z.files if f.startswith("leaf_"))
+        arrays = [z[f"leaf_{i}"] for i in range(n)]
+    load_leaves(state, arrays)
+    return state

@@ -12,6 +12,10 @@ Two forms: :func:`ring_exchange_stacked` takes the n ranks' operands as one
 them; the transfer's buckets are such slices) and returns their results as
 one tensor; :func:`ring_exchange` takes and returns lists, and on the card
 stacks the list first (a copy; for tests and callers that hold lists).
+:class:`RingExchange` is the stacked form with its gradient (the same
+exchange of the gradient), for the rank axes of the transformer family:
+the all-to-alls of Ulysses attention and of expert-parallel MoE
+(``parallel/collectives.py`` ``rank_all_to_all``).
 
 The CUDA kernel (``csrc/ring.cu``) is two launches per exchange on a card.
 ``ring_send``, one launch for all the ranks of the card, copies block
@@ -239,6 +243,22 @@ def ring_exchange_stacked(x: torch.Tensor) -> torch.Tensor:
     launches += 1
     operand_bytes += x.numel() * es
     return out
+
+
+class RingExchange(torch.autograd.Function):
+    """:func:`ring_exchange_stacked` with its gradient, for the rank axes
+    of the transformer family (Ulysses attention, expert-parallel MoE).
+    The exchange ``result[r, j] = x[j, r]`` is its own inverse, so its
+    backward is the same exchange of the incoming gradient, made
+    contiguous first: on the card both directions launch the kernel."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        return ring_exchange_stacked(x.contiguous())
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+        return ring_exchange_stacked(grad.contiguous())
 
 
 def ring_exchange(operands: Sequence[torch.Tensor]) -> List[torch.Tensor]:

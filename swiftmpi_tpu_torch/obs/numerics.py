@@ -4,7 +4,9 @@ host-side anomaly detector (counterpart of ``swiftmpi_tpu/obs/numerics.py``).
 Three pieces, as in the JAX package:
 
 * **Bundle helpers** (:func:`push_stats`, :func:`state_stats`,
-  :func:`spec_stats`, :func:`stage_step`) — torch reductions the model
+  :func:`spec_stats`, :func:`stage_step`; :func:`tree_stats` and
+  :func:`stage_dense` for the transformer trainer's params pytree) —
+  torch reductions the model
   runs inside each dispatch when ``[obs] numerics`` is armed: gradient
   sum-of-squares split by hot/tail plane, nonfinite element counts,
   update-vs-param mass, and per-field EF residual mass.  Every input is
@@ -203,6 +205,41 @@ def state_stats(before: dict, after: dict, grad_fields):
             m = s if m is None else m + s
         ef_mass[name[:name.rindex("@")]] = m
     return upd_sq, par_sq, ef_mass, nonfin
+
+
+def tree_stats(tree):
+    """Finite-masked sum of squares (float32) and nonfinite count (int32)
+    over a pytree's leaves: the dense trainer's grads, updates or params
+    (no slot identity, no hot plane)."""
+    from swiftmpi_tpu_torch.utils.tree import leaves
+    sq = nonfin = None
+    for g in leaves(tree):
+        g32 = _f32(g)
+        fin = torch.isfinite(g32)
+        nf = (~fin).sum(dtype=torch.int32)
+        s = torch.where(fin, g32, 0.0).square().sum()
+        sq = s if sq is None else sq + s
+        nonfin = nf if nonfin is None else nonfin + nf
+    return sq, nonfin
+
+
+def stage_dense(collector: "NumericsCollector", params, grads, updates,
+                loss) -> None:
+    """The dense trainer's bundle (``models/trainer.py``): grad mass,
+    update and param mass and nonfinite counts over the params pytree,
+    no hot plane and no EF residuals.  ``params`` is the pre-update
+    pytree, ``loss`` the step's scalar loss."""
+    gsq, g_nf = tree_stats(grads)
+    upd_sq, u_nf = tree_stats(updates)
+    par_sq, _ = tree_stats(params)
+    bundle = {
+        "gsq": gsq, "gsq_hot": torch.zeros_like(gsq),
+        "upd_sq": upd_sq, "par_sq": par_sq,
+        "nonfinite": g_nf + u_nf,
+        "loss_sum": loss.to(torch.float32),
+        "loss_n": torch.ones_like(gsq),
+    }
+    collector.stage_traced(bundle, {})
 
 
 def stage_step(collector: "NumericsCollector", state0, state1,

@@ -13,6 +13,18 @@ Every process must call a collective at the same point with tensors of
 one shape and dtype.  :func:`psum` sums in process order, process 0's
 part first, so every replica computes the same bits from the same parts
 whatever the summation order of each part was.
+
+**Over a rank axis** (the transformer family's ``seq``, ``expert`` and
+``stage`` axes, ``cluster.mesh.Mesh``): the n ranks of an axis share one
+device, and a collective acts on a tensor stacked over them (leading dim
+n, rank ``r``'s local value at ``x[r]``), where JAX's acts inside a
+``shard_map`` body.  :func:`ring_permute` is ``torch.roll`` on the rank
+dim (JAX's ``ppermute`` is no Pallas kernel); :func:`rank_all_to_all`
+is JAX's tiled ``all_to_all`` through B5's stacked exchange
+(``kernels.ring.RingExchange``, which launches the kernel for a CUDA
+tensor, forward and backward, and runs the plain version for a CPU one);
+:func:`rank_psum` and :func:`rank_pmean` reduce the rank dim to the one
+value every rank holds.
 """
 
 from __future__ import annotations
@@ -125,3 +137,46 @@ def host_agree(what: str, value) -> None:
         raise RuntimeError(
             f"{what} differs across the processes (CRC-32 by process: "
             f"{got}); every replica must take the same decision")
+
+
+# -- over a rank axis: tensors stacked over the axis's ranks -----------------
+
+def ring_permute(x: torch.Tensor, shift: int = 1) -> torch.Tensor:
+    """Every rank's block to its ``+shift`` neighbour along the ring:
+    ``new[(j + shift) % n] = old[j]``."""
+    return torch.roll(x, shifts=shift, dims=0)
+
+
+def rank_all_to_all(x: torch.Tensor, split_axis: int,
+                    concat_axis: int) -> torch.Tensor:
+    """JAX's ``all_to_all(x, axis, split_axis, concat_axis, tiled=True)``
+    over the ranks of ``x``'s leading dim: rank ``r``'s local ``x[r]`` is
+    cut along ``split_axis`` (a local dim) into n chunks, chunk ``j`` goes
+    to rank ``j``, and each rank concatenates what it received along
+    ``concat_axis`` in source order.  Each rank's operand is rearranged to
+    ``(n_dest, chunk...)`` and made contiguous, B5 exchanges the stack
+    (``result[r, j] = y[j, r]``), and the received chunks are put back
+    along ``concat_axis``."""
+    n, local = x.shape[0], tuple(x.shape[1:])
+    s = split_axis % len(local)
+    c = concat_axis % len(local)
+    if local[s] % n:
+        raise ValueError(f"all_to_all: dim {s} of size {local[s]} does not "
+                         f"split over {n} ranks")
+    chunk = local[:s] + (local[s] // n,) + local[s + 1:]
+    y = x.reshape(n, *local[:s], n, local[s] // n, *local[s + 1:])
+    y = y.movedim(1 + s, 1).contiguous()
+    got = ring.RingExchange.apply(y)           # (n, n_src, *chunk)
+    got = got.movedim(1, 1 + c)
+    return got.reshape(n, *chunk[:c], n * chunk[c], *chunk[c + 1:])
+
+
+def rank_psum(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the ranks of ``x``'s leading dim: the value ``psum``
+    leaves on every rank, once."""
+    return x.sum(0)
+
+
+def rank_pmean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over the ranks of ``x``'s leading dim (``pmean``)."""
+    return x.mean(0)

@@ -59,13 +59,16 @@ def _copy_state(state):
     """Own every plane on the HOST: numpy planes (a params-only snapshot
     such as sent2vec's) are copied, table planes (a tensor, or a sharded
     field's shard list) come back in one synchronous device-to-host copy
-    each, in global row order."""
+    each, in global row order.  Any pytree of them (the transformer
+    trainer's params: nested dicts, ``MoEParams``) keeps its structure."""
     from swiftmpi_tpu_torch.parameter.sparse_table import state_to_numpy
-    out = {}
-    for f, v in state.items():
-        out[f] = (v.copy() if isinstance(v, np.ndarray)
-                  else state_to_numpy({f: v})[f])
-    return out
+    if isinstance(state, np.ndarray):
+        return state.copy()
+    if isinstance(state, dict):
+        return {f: _copy_state(v) for f, v in state.items()}
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*(_copy_state(v) for v in state))
+    return state_to_numpy({"": state})[""]
 
 
 class TableSnapshot:

@@ -2384,3 +2384,86 @@ def test_serve_trainer_update_on_card_matches_numpy(dev):
     for f, v in tbl.state.items():
         assert v.device.type == "cuda"
         np.testing.assert_array_equal(v.cpu().numpy(), ref[f])
+
+
+# -- the transformer family (seq, expert and stage axes on one card) ----------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_exchange_autograd_on_card(dev, dtype):
+    """RingExchange at an Ulysses shape (4 ranks' (4, B, S/4, H/4, D)
+    chunks): forward and backward bit-equal to the plain exchange, one
+    kernel launch each way."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    shape = (4, 4, 2, 128, 2, 64)
+    x = torch.rand(shape, generator=gen, device=dev).to(dtype)
+    w = torch.rand(shape, generator=gen, device=dev).to(dtype)
+    xg = x.clone().requires_grad_(True)
+    kernels.reset_launches()
+    y = ring.RingExchange.apply(xg)
+    assert ring.launches == 1
+    (y * w).sum().backward()
+    torch.cuda.synchronize()
+    assert ring.launches == 2 and ring.timeouts() == 0
+    assert torch.equal(y, ring.ring_exchange_stacked_plain(x))
+    assert torch.equal(xg.grad, ring.ring_exchange_stacked_plain(w))
+
+
+def test_ulysses_and_moe_go_through_b5_on_card(dev):
+    """On the card the Ulysses and MoE all-to-alls launch B5, forward and
+    backward, and agree with full attention and the dense MoE reference
+    (rtol 2e-4, atol 2e-5, float32)."""
+    from swiftmpi_tpu_torch.cluster.mesh import Mesh
+    from swiftmpi_tpu_torch.parallel import moe
+    from swiftmpi_tpu_torch.parallel.ring_attention import (
+        full_attention, ulysses_attention)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    q, k, v = (torch.randn((2, 64, 8, 16), generator=gen, device=dev)
+               .requires_grad_(True) for _ in range(3))
+    kernels.reset_launches()
+    o = ulysses_attention(q, k, v, Mesh({"seq": 4}, dev), causal=True)
+    assert ring.launches == 4
+    o.sum().backward()
+    torch.cuda.synchronize()
+    assert ring.launches == 8
+    torch.testing.assert_close(o, full_attention(q, k, v, causal=True),
+                               rtol=2e-4, atol=2e-5)
+    p = moe.init_moe_params(torch.Generator().manual_seed(0), 16, 32, 8,
+                            device=dev)
+    x = torch.randn((64, 16), generator=gen, device=dev)
+    kernels.reset_launches()
+    y, aux = moe.moe_ffn(p, x, Mesh({"expert": 4}, dev), capacity_factor=8.0)
+    y_ref, aux_ref = moe.moe_ffn_reference(p, x)
+    torch.cuda.synchronize()
+    assert ring.launches == 2
+    torch.testing.assert_close(y, y_ref, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(aux, aux_ref, rtol=1e-5, atol=0)
+
+
+def test_trainer_step_on_card_matches_cpu(dev):
+    """bench.py's transformer width (vocab 8,192, d_model 512, 4 layers, 8
+    heads, d_ff 2,048) in float32, 2 sequences of 128: two AdamW steps
+    (warmup 1, so the second has the peak rate) on the card against the
+    CPU port's from the same init and tokens.  Losses within 1e-4
+    relative; every leaf of params and optimizer state within |a - b| <=
+    1e-5 + 1e-3 |b| but for at most 1e-3 of its elements (AdamW's m /
+    sqrt(v) moves a param whose gradient is noise by up to the rate)."""
+    from swiftmpi_tpu_torch.models.trainer import Trainer
+    from swiftmpi_tpu_torch.models.transformer import TransformerConfig
+    from swiftmpi_tpu_torch.utils import tree
+    cfg = TransformerConfig(vocab_size=8192, d_model=512, n_layers=4,
+                            n_heads=8, d_ff=2048, max_seq=512)
+    rng = np.random.default_rng(21)
+    toks = [rng.integers(0, 8192, (2, 128)).astype(np.int32)
+            for _ in range(2)]
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        tr = Trainer(cfg, device=d, learning_rate=1e-3, warmup_steps=1)
+        state = tr.init_state(0)
+        losses = [float(tr.step(state, t)[1]) for t in toks]
+        runs[d.type] = (losses, [x.cpu().double()
+                                 for x in tree.leaves(state.tree())])
+    (lc, fc), (lh, fh) = runs["cuda"], runs["cpu"]
+    np.testing.assert_allclose(lc, lh, rtol=1e-4)
+    for i, (a, b) in enumerate(zip(fc, fh)):
+        outside = ((a - b).abs() > 1e-5 + 1e-3 * b.abs()).double().mean()
+        assert float(outside) <= 1e-3, (i, float(outside))

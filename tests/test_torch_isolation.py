@@ -26,7 +26,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "swiftmpi_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "optax",
+                                    "swiftmpi_tpu"))
 want = {"swiftmpi_tpu_torch." + m for m in (
     "utils.hashing", "cluster.hashfrag", "cluster.mesh", "cluster.cluster",
     "kernels.ring", "transfer.sharded", "parameter.key_index",
@@ -46,7 +47,10 @@ want = {"swiftmpi_tpu_torch." + m for m in (
     "serve.shipper", "control", "control.sketch", "control.controller",
     "cluster.bootstrap", "launch", "parallel", "parallel.collectives",
     "data.distributed", "testing.mp_child", "cluster.membership",
-    "cluster.elastic", "testing.fleet_child", "testing.serve_child")}
+    "cluster.elastic", "testing.fleet_child", "testing.serve_child",
+    "utils.tree", "parallel.ring_attention", "parallel.moe",
+    "parallel.pipeline", "models.transformer", "models.optim",
+    "models.trainer")}
 missing = sorted(want - set(names))
 print(len(names), "modules;", "leaked:", bad, "missing:", missing)
 sys.exit(1 if bad or missing or len(names) < 30 else 0)
