@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Build and drive the PyTorch/CUDA port (``swiftmpi_tpu_torch``) on one
 CUDA card, at the full width of the reference word2vec configuration
-and of bench.py's transformer cell (phase 17).
+and of bench.py's transformer cell (phases 17 and 18).
 
     python3 chip_smoke.py          # from the repository root
 
@@ -327,6 +327,26 @@ Phases, each of which raises on a failed check:
    the microbatches' products sum in another order).  B5 is timed at (b)'s
    (float32 and bf16) and (d)'s exchange shapes against its byte bound,
    its plain version and ``x.transpose(0, 1).contiguous()``.
+18. the trainer across processes and ``data_plane``: (a) one launch of
+   ``PROCS`` processes (``launch -np 2 -- mp_child w2v`` with trainer
+   jobs) trains bench.py's bf16 cell on 32 x 512 tokens each (64 x 512
+   global; 1 warm step, 3 timed, B5's all-gather timed at the grads'
+   packed shape against its bound and the host route) and its float32
+   twin at 2 layers (8 x 512 global), (b) a small MoE model (4 experts
+   over ``expert`` = 2 in each process, capacity factor 4), each held
+   against one process on the card over the same global batches: the
+   replicas equal by sha256, the losses within the trainer's bf16
+   tolerance (bf16) or the envelope, the float32 and MoE checkpoints leaf
+   by leaf within the envelope but for ``TFM_OUTSIDE_SHARE``, process 0's
+   checkpoint loaded in one process holding the replicas' bits and
+   stepping on as a second load does (deterministic kernels), B5 across
+   processes once a step (MoE: also twice a layer for the densities,
+   and in process four times a layer); (c) word2vec on ``tpu@8`` and with
+   ``stencil`` under ``data_plane: xla`` and ``auto`` from one table: the
+   losses within 1e-4, the ``tpu`` pulls bit for bit, B4 and B5 no launch
+   under ``xla``; the ring and stencil sweeps record this card's verdicts
+   into a temporary store, ``auto`` follows them, a planted library
+   verdict and ignores one from another stack.
 
 The line before the last is the ``{"kernels": [...]}`` summary, each
 kernel's ``launches`` read from the train run of its path (the sent2vec
@@ -335,7 +355,8 @@ their paths' train runs, phase 13's from (a)'s run and (c)'s inference
 over the snapshot, phase 14's from (a)'s and (b)'s processes, phase 15's
 from the second life of (a)'s processes and from (b)'s elastic children,
 as they log them, phase 16's from its jobs' processes, phase 17's from
-(b)'s and (d)'s forward and backward passes); the last is
+(b)'s and (d)'s forward and backward passes, phase 18's from (a)'s bf16
+job's processes); the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints neither.
 """
@@ -5097,7 +5118,7 @@ DA_SUM_ORDER_SHARE, DA_SUM_ORDER_GAP = 1e-4, 1e-4
 DA_KERNELS = ("gather", "scatter", "adagrad", "ring", "ring_process")
 
 
-def _da_launch(specs: list, out: Path) -> tuple:
+def _da_launch(specs: list, out: Path, phase: str = "phase 16") -> tuple:
     """One ``launch -np PROCS -- mp_child w2v -spec`` over every job, in
     one process group: each job's JSON by process and rank 0's arrays,
     the launcher's output and its wall seconds."""
@@ -5112,7 +5133,7 @@ def _da_launch(specs: list, out: Path) -> tuple:
         timeout=600, env=dict(os.environ, SMTPU_DIST_TIMEOUT="180"))
     wall = time.perf_counter() - t0
     if res.returncode != 0:
-        raise AssertionError(f"phase 16: the launch failed with rc "
+        raise AssertionError(f"{phase}: the launch failed with rc "
                              f"{res.returncode}:\n{res.stdout[-6000:]}\n"
                              f"{res.stderr[-3000:]}")
     got = {}
@@ -5944,6 +5965,360 @@ def phase_transformer(card: str) -> tuple:
     return cases, counts
 
 
+# -- phase 18: the trainer across processes, data_plane, the verdicts --------
+
+#: (a) bench.py's cell across PROCS processes: 1 warm step and 3 timed
+#: bf16 steps of 64 x 512 global tokens (32 x 512 a process)
+DP_BF16_STEPS, DP_WARM = 4, 1
+#: (a)'s float32 twin: full width, 2 layers, 8 x 512 global tokens
+DP_F32_LAYERS, DP_F32_BATCH, DP_F32_STEPS = 2, 8, 2
+#: the trainer's bf16 tolerance on a loss (tests/test_torch_trainer.py)
+DP_BF16_LOSS_RTOL = 2e-3
+#: (b) a small MoE model: 4 experts (top 2) over expert = 2 in each
+#: process, capacity factor 4 (no token dropped on either side), float32
+DP_MOE = dict(vocab_size=8192, d_model=256, n_heads=4, d_ff=512,
+              n_layers=2, max_seq=128, n_experts=4,
+              moe_capacity_factor=4.0)
+DP_MOE_RANKS, DP_MOE_BATCH, DP_MOE_SEQ, DP_MOE_STEPS = 2, 8, 128, 2
+DP_PATH, DP_MOE_PATH = "tfm@dp2", "tfm_moe@dp2"
+#: (c) word2vec's data_plane runs: the corpus prefix and the labels
+DPL_SENTS = 200
+DPL_TPU, DPL_STENCIL = f"w2v:tpu@{SHARDS}", "w2v:stencil"
+
+
+def _dp_spec(label: str, cfg: dict, tokens: np.ndarray, **extra) -> dict:
+    out = WORK / "phase18" / label
+    shutil.rmtree(out, ignore_errors=True)
+    np.savez(WORK / "phase18" / f"{label}.npz", tokens=tokens)
+    return {"job": "trainer", "cfg": cfg, "device": DEVICE,
+            "data": str(WORK / "phase18" / f"{label}.npz"),
+            "out": str(out), "checkpoint": str(out / "ck"), **extra}
+
+
+def _dp_one_process(spec: dict, tokens: np.ndarray):
+    """The one-process run over the same global batches on the card:
+    the losses and the final state."""
+    from swiftmpi_tpu_torch.cluster.mesh import Mesh
+    from swiftmpi_tpu_torch.models.trainer import Trainer
+    from swiftmpi_tpu_torch.testing.mp_child import trainer_config
+    mesh = Mesh(spec["mesh"], DEVICE) if spec.get("mesh") else None
+    tr = Trainer(trainer_config(spec), mesh=mesh,
+                 device=None if mesh else DEVICE, **spec.get("opt", {}))
+    state = tr.init_state(spec.get("seed", 0))
+    losses = [float(tr.step(state, t)[1]) for t in tokens]
+    return losses, state
+
+
+def _dp_hold(label: str, got: list, spec: dict, tokens: np.ndarray,
+             rtol: float, leaves: bool) -> dict:
+    """Replicas equal by sha256 on every leaf; the losses against one
+    process's within ``rtol`` (plus 1e-5); with ``leaves``, process 0's
+    checkpoint leaf by leaf within the envelope of one process's, AdamW
+    allowed TFM_OUTSIDE_SHARE outside; the checkpoint loaded in one
+    process holds the replicas' bits and steps on as a second load
+    does."""
+    from swiftmpi_tpu_torch.models.trainer import Trainer, leaf_from_numpy
+    from swiftmpi_tpu_torch.testing.mp_child import _leaf_bits, trainer_config
+    from swiftmpi_tpu_torch.utils import tree
+    a, b = got
+    if a["leaf_sha"] != b["leaf_sha"] or a["losses"] != b["losses"]:
+        raise AssertionError(f"phase 18 {label}: the replicas differ")
+    if any(g["timeouts"] for g in got):
+        raise AssertionError(f"phase 18 {label}: a ring wait timed out")
+    ref_losses, ref = _dp_one_process(spec, tokens)
+    gap = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], ref_losses))
+    for x, y in zip(a["losses"], ref_losses):
+        if abs(x - y) > 1e-5 + rtol * abs(y):
+            raise AssertionError(f"phase 18 {label}: losses {a['losses']} "
+                                 f"vs one process's {ref_losses}")
+    out = {"losses": a["losses"], "one_process_losses": ref_losses,
+           "loss_rel_gap": gap}
+    ck = Path(spec["checkpoint"] + ".npz")
+    flat = tree.leaves(ref.tree())
+    if leaves:
+        with np.load(ck) as z:
+            worst = 0.0
+            for i, want in enumerate(flat):
+                have = leaf_from_numpy(z[f"leaf_{i}"], want.dtype)
+                if want.dtype == torch.int32:
+                    if not torch.equal(have, want.cpu()):
+                        raise AssertionError(f"phase 18 {label}: leaf {i}")
+                    continue
+                worst = max(worst, _outside_share(have, want))
+        if worst > TFM_OUTSIDE_SHARE:
+            raise AssertionError(f"phase 18 {label}: a leaf has {worst:.3g}"
+                                 " of its elements outside the envelope")
+        out["worst_leaf_share_outside"] = worst
+    del ref, flat
+    tr = Trainer(trainer_config(spec), device=DEVICE, **spec.get("opt", {}))
+    loaded = tr.load(spec["checkpoint"])
+    if _leaf_bits(loaded) != a["leaf_sha"]:
+        raise AssertionError(f"phase 18 {label}: the checkpoint loaded in "
+                             "one process is not the replicas' bits")
+    twin = tr.load(spec["checkpoint"])
+    t = torch.from_numpy(tokens[0]).to(DEVICE)
+    # the embedding's backward sums repeated tokens in no fixed order
+    # unless torch picks its deterministic kernels
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        la = float(tr.step(loaded, t)[1])
+        lb = float(Trainer(trainer_config(spec), device=DEVICE,
+                           **spec.get("opt", {})).step(twin, t)[1])
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    if la != lb or _leaf_bits(loaded) != _leaf_bits(twin):
+        raise AssertionError(f"phase 18 {label}: two loads of the "
+                             "checkpoint stepped on to different bits")
+    out["checkpoint_step_loss"] = la
+    return out
+
+
+def phase_tfm_processes(card: str) -> tuple:
+    """(a) and (b): one launch of PROCS processes over three trainer
+    jobs: bench.py's bf16 cell (timed, with B5's all-gather at the
+    grads' packed shape), its float32 twin at 2 layers and the small MoE
+    model over expert = 2 ranks in each process; each held against one
+    process on the card over the same global batches."""
+    (WORK / "phase18").mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(18)
+    opt = {"learning_rate": TFM_LR}
+    bf16 = _dp_spec("tfm_bf16", dict(TFM_WIDTH, n_layers=TFM_LAYERS,
+                                     dtype="bfloat16"),
+                    np.stack([_tfm_tokens(rng, TFM_BATCH)
+                              for _ in range(DP_BF16_STEPS)]),
+                    opt=opt, warmup=DP_WARM, time_exchange=True)
+    f32 = _dp_spec("tfm_f32", dict(TFM_WIDTH, n_layers=DP_F32_LAYERS,
+                                   dtype="float32"),
+                   np.stack([_tfm_tokens(rng, DP_F32_BATCH)
+                             for _ in range(DP_F32_STEPS)]), opt=opt)
+    moe = _dp_spec("tfm_moe", dict(DP_MOE, dtype="float32"),
+                   np.stack([rng.integers(0, DP_MOE["vocab_size"], (
+                       DP_MOE_BATCH, DP_MOE_SEQ)).astype(np.int32)
+                       for _ in range(DP_MOE_STEPS)]),
+                   opt=opt, mesh={"expert": DP_MOE_RANKS})
+    specs = [bf16, f32, moe]
+    torch.cuda.empty_cache()
+    got, _, wall = _da_launch(specs, WORK / "phase18", "phase 18")
+    res = {k: v[0] for k, v in got.items()}
+    toks = {s["out"]: np.load(s["data"])["tokens"] for s in specs}
+    held = {}
+    for label, spec, rtol, leaves in (
+            ("tfm_bf16", bf16, DP_BF16_LOSS_RTOL, False),
+            ("tfm_f32", f32, 1e-3, True), ("tfm_moe", moe, 1e-3, True)):
+        held[label] = _dp_hold(label, res[label], spec, toks[spec["out"]],
+                               rtol, leaves)
+        torch.cuda.empty_cache()
+    a = res["tfm_bf16"][0]
+    tokens = TFM_BATCH * (TFM_SEQ - 1)
+    step_s = max(g["step_ms"] for g in res["tfm_bf16"]) / 1e3
+    _json_line({"phase": "tfm_processes", "card": card, "run": DP_PATH,
+                "processes": PROCS, "dtype": "bfloat16",
+                "global_batch": [TFM_BATCH, TFM_SEQ],
+                "tokens_a_step": tokens, "steps_timed":
+                DP_BF16_STEPS - DP_WARM,
+                "step_ms": [g["step_ms"] for g in res["tfm_bf16"]],
+                "tokens_per_s": tokens / step_s,
+                "launches": a["launches"], "launch_wall_s": wall,
+                **held["tfm_bf16"]})
+    for label in ("tfm_f32", "tfm_moe"):
+        _json_line({"phase": "tfm_processes", "card": card, "run": label,
+                    "launches": res[label][0]["launches"],
+                    "step_ms": res[label][0]["step_ms"], **held[label]})
+    counts = {DP_PATH: dict(res["tfm_bf16"][0]["launches"]),
+              DP_MOE_PATH: dict(res["tfm_moe"][0]["launches"])}
+    if counts[DP_PATH]["ring_process"] != DP_BF16_STEPS:
+        raise AssertionError(f"phase 18: the bf16 job launched B5 "
+                             f"{counts[DP_PATH]['ring_process']} times "
+                             f"across processes, expected one a step")
+    want_moe = DP_MOE_STEPS * (1 + 2 * DP_MOE["n_layers"])
+    if counts[DP_MOE_PATH]["ring_process"] != want_moe or \
+            counts[DP_MOE_PATH]["ring"] != DP_MOE_STEPS * 4 \
+            * DP_MOE["n_layers"]:
+        raise AssertionError(f"phase 18: the MoE job's B5 launches "
+                             f"{counts[DP_MOE_PATH]}")
+    exchange = a.get("exchange")
+    if not exchange:
+        if DEVICE == "cuda":
+            raise AssertionError("phase 18: the bf16 job timed no exchange")
+        return [], counts
+    e = exchange[0]
+    if e["max_abs_err"] != 0:
+        raise AssertionError(f"phase 18: the cross-process exchange is not "
+                             f"a copy: {e}")
+    _json_line({"phase": "tfm_processes", "card": card,
+                "exchange": e["label"], "shape": e["shape"],
+                "kernel_ms": e["ms"], "bound_ms": e["bound_ms"],
+                "host_route_ms": e["host_route_ms"],
+                "gloo_cpu_ms": e["plain_ms"]})
+    case = {"name": "ring_exchange (across processes, all-gather of the "
+                    "trainer's packed grads)",
+            "route": "cuda", "source": "swiftmpi_tpu_torch/kernels/csrc/"
+                                       "ring.cu",
+            "replaces": "swiftmpi_tpu/ops/pallas_ring.py:86",
+            "module": ring, "counter": "ring_process", "path": DP_PATH,
+            "shape": e["shape"], "max_abs_err": e["max_abs_err"],
+            "tolerance": "bit for bit (a copy)", "ms": e["ms"],
+            "plain_ms": e["plain_ms"], "bytes": e["bytes"], "flops": 0,
+            "library": "none: NCCL runs no two ranks on one card; the host "
+            "route's ms is on the tfm_processes line",
+            "library_ms": None}
+    report_cases([case])
+    return [case], counts
+
+
+def _dpl_model(conf: dict, vocab, data_plane: str) -> Word2Vec:
+    c = ConfigParser().update(conf)
+    c.set("cluster", "data_plane", data_plane)
+    m = Word2Vec(config=c, device=DEVICE, seed=5)
+    m.build_from_vocab(vocab)
+    return m
+
+
+def _dpl_pair(conf: dict, vocab, corpus, planes) -> dict:
+    """One epoch of the corpus prefix from one table on each route of
+    ``planes``: ``(losses, launches, routes, model)`` by route."""
+    prefix = np.ascontiguousarray(corpus[:DPL_SENTS])
+    runs, first = {}, None
+    for plane in planes:
+        m = _dpl_model(conf, vocab, plane)
+        flat = {f: (v if isinstance(v, list) else [v])
+                for f, v in m.table.state.items()}
+        if first is None:
+            first = {f: [t.clone() for t in v] for f, v in flat.items()}
+        else:
+            # the first model's initial table, into this one's layout
+            for f, v in flat.items():
+                for t, src in zip(v, first[f]):
+                    t.copy_(src)
+        kernels.reset_launches()
+        losses = m.train(prefix, niters=1, batch_size=BATCH)
+        torch.cuda.synchronize()
+        runs[plane] = (losses, kernels.launch_counts(),
+                       m.data_plane_routes, m)
+    return runs
+
+
+def phase_data_plane(vocab, corpus: np.ndarray, card: str) -> dict:
+    """(c): word2vec on ``tpu@8`` and with ``stencil`` under
+    ``data_plane: xla`` and ``auto``: the losses agree (``tpu``: the
+    exchange moves the same bits, so the losses and a pull are equal bit
+    for bit; ``stencil``: within 1e-4, since B4 sums a context in
+    another order than the chain), B4 and B5 launch no time under
+    ``xla``; the sweep apps record verdicts into a temporary store,
+    ``auto`` follows a planted library verdict, ignores one from another
+    stack, and reads none once no store is named."""
+    from swiftmpi_tpu_torch.apps import ring_sweep, stencil_sweep
+    from swiftmpi_tpu_torch.ops import calibration as cal
+    counts = {}
+    tpu_conf = {**DEMO_CONF, "cluster": {"transfer": "tpu",
+                                         "server_num": SHARDS}}
+    sten_conf = {**DEMO_CONF, "word2vec": {**DEMO_CONF["word2vec"],
+                                           "stencil": 1}}
+    store = WORK / "phase18" / "calibration.json"
+    store.unlink(missing_ok=True)
+    prev = cal.use_store(str(store))
+    cal.reset_cache()
+    try:
+        for label, conf, name, kernel in (
+                (DPL_TPU, tpu_conf, "ring_push", "ring"),
+                (DPL_STENCIL, sten_conf, "stencil_fused", "stencil")):
+            runs = _dpl_pair(conf, vocab, corpus, ("auto", "xla"))
+            (la, ca, ra, _), (lx, cx, rx, _) = runs["auto"], runs["xla"]
+            if ra != {name: "kernel"} or rx != {name: "library"}:
+                raise AssertionError(f"phase 18 {label}: routes {ra}, {rx}")
+            if ca[kernel] == 0 or cx["stencil"] or cx["ring"]:
+                raise AssertionError(f"phase 18 {label}: launches auto "
+                                     f"{ca}, xla {cx}")
+            gap = max(abs(a - b) / abs(b) for a, b in zip(la, lx))
+            if (la != lx) if label == DPL_TPU else gap > 1e-4:
+                raise AssertionError(f"phase 18 {label}: losses auto {la} "
+                                     f"vs xla {lx}")
+            counts[label + ":auto"], counts[label + ":xla"] = ca, cx
+            _json_line({"phase": "data_plane", "card": card, "run": label,
+                        "losses_auto": la, "losses_xla": lx,
+                        "loss_rel_gap": gap, "launches_auto": ca,
+                        "launches_xla": cx})
+            del runs
+        # the tpu route's exchange moves the same bits: one pull each way
+        m = _dpl_model(tpu_conf, vocab, "auto")
+        lib = _dpl_model(tpu_conf, vocab, "xla")
+        lib.table.state = m.table.state
+        slots = torch.arange(0, BATCH, device=DEVICE, dtype=torch.int32) % \
+            m.table.capacity
+        pa = m.transfer.pull(m.table.state, slots, m.access)
+        px = lib.transfer.pull(lib.table.state, slots, lib.access)
+        if any(not torch.equal(pa[f], px[f]) for f in pa):
+            raise AssertionError("phase 18: the library exchange's pull "
+                                 "differs from B5's")
+        del m, lib
+        torch.cuda.empty_cache()
+        # the sweeps record this card's verdicts
+        ring_rows = ring_sweep.sweep(SHARDS, 13125, store=str(store))
+        sten_rows = stencil_sweep.sweep(store=str(store), corpus=corpus,
+                                        vocab=vocab)
+        kind = cal.device_key()
+        recorded = {n: cal.lookup(n, kind) for n in ("ring_push",
+                                                     "stencil_fused")}
+        if None in recorded.values():
+            raise AssertionError(f"phase 18: the sweeps recorded "
+                                 f"{recorded}")
+        measured = _dpl_model(tpu_conf, vocab, "auto").data_plane_routes
+        status = cal.kernel_status(kind)
+        want = "library" if recorded["ring_push"]["library_win"] \
+            else "kernel"
+        if measured != {"ring_push": want}:
+            raise AssertionError(f"phase 18: auto took {measured} on the "
+                                 f"verdict {recorded['ring_push']}")
+        planted = cal.ab_verdict("ring_push", 0.1, 1.0, True,
+                                 record_it=False)
+        for n in ("ring_push", "stencil_fused"):
+            cal.record(n, kind, planted)
+        follows = {**_dpl_model(tpu_conf, vocab, "auto").data_plane_routes,
+                   **_dpl_model(sten_conf, vocab, "auto").data_plane_routes}
+        stale = dict(planted, stack=dict(cal.stack_key(), torch="0.0"))
+        for n in ("ring_push", "stencil_fused"):
+            cal.record(n, kind, stale)
+        ignores = {**_dpl_model(tpu_conf, vocab, "auto").data_plane_routes,
+                   **_dpl_model(sten_conf, vocab, "auto").data_plane_routes}
+        # the planted library verdict again, in a store no one names
+        for n in ("ring_push", "stencil_fused"):
+            cal.record(n, kind, planted)
+        cal.use_store(None)
+        unnamed = {**_dpl_model(tpu_conf, vocab, "auto").data_plane_routes,
+                   **_dpl_model(sten_conf, vocab, "auto").data_plane_routes}
+        kernel_routes = {"ring_push": "kernel", "stencil_fused": "kernel"}
+        if follows != {"ring_push": "library", "stencil_fused": "library"} \
+                or ignores != kernel_routes or unnamed != kernel_routes:
+            raise AssertionError(f"phase 18: auto on a planted verdict "
+                                 f"{follows}, on a stale one {ignores}, "
+                                 f"with no store named {unnamed}")
+        _json_line({"phase": "data_plane", "card": card, "verdicts": {
+            n: {k: v for k, v in recorded[n].items() if k != "stack"}
+            for n in recorded}, "auto_on_measured": measured,
+            "auto_on_planted_library": follows,
+            "auto_on_stale_stack": ignores,
+            "auto_with_no_store_named": unnamed,
+            "status": status,
+            "ring_sweep_ms": ring_rows[0]["ms"],
+            "stencil_sweep_ms": sten_rows[0]["ms"]})
+    finally:
+        cal.use_store(prev)
+        cal.reset_cache()
+    return counts
+
+
+def phase_tfm_dp(vocab, corpus: np.ndarray, card: str) -> tuple:
+    """Phase 18: (a), (b) the transformer trainer across processes, (c)
+    ``data_plane`` and the verdict store.  Returns B5's case at the
+    grads' packed shape and the launches."""
+    t0 = time.perf_counter()
+    cases, counts = phase_tfm_processes(card)
+    counts.update(phase_data_plane(vocab, corpus, card))
+    print(f"phase 18 {time.perf_counter() - t0:.1f} s", flush=True)
+    return cases, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -6056,6 +6431,9 @@ def main() -> int:
     tfm_cases, tfm_counts = phase_transformer(card)
     cases += tfm_cases
     counts.update(tfm_counts)
+    dp_cases, dp_counts = phase_tfm_dp(vocab, corpus, card)
+    cases += dp_cases
+    counts.update(dp_counts)
 
     summary = []
     for c in cases:

@@ -15,6 +15,12 @@ the plain version's and one library call's (``index_select`` of the
 clipped rows); the byte bound; and whether the kernel is bit-equal to the
 plain version.  The forms that were tried and dropped (a warp a row, and
 a group of rows a warp without the L2 hints) are in PERF.md.
+
+With ``-store PATH``, the A/B over every case (at each, the kernel's
+faster median against the library call; correct when bit-equal to the
+plain version) is recorded as this card's ``vmem_gather`` verdict in that
+verdict store (``ops/calibration.py``), which ``kernel_status`` reports.
+Without it nothing is recorded.
 """
 
 from __future__ import annotations
@@ -32,7 +38,8 @@ from swiftmpi_tpu_torch.data.text import (CBOWBatcher, build_vocab,
 from swiftmpi_tpu_torch.kernels import gather, ring
 from swiftmpi_tpu_torch.models.word2vec import Word2Vec, _cbow_targets
 from swiftmpi_tpu_torch.parameter.sparse_table import shard_block
-from swiftmpi_tpu_torch.utils import ConfigParser
+from swiftmpi_tpu_torch.ops import calibration
+from swiftmpi_tpu_torch.utils import CMDLine, ConfigParser
 
 RUNS = 25
 #: about 50 us of the card's clock, longer than a wrapper call's enqueue
@@ -110,7 +117,9 @@ def _case(label, table, slots, flush):
     return row
 
 
-def sweep() -> None:
+def sweep(store=None) -> list:
+    """Time every case; record the verdict over them all in ``store``
+    (none: print it only); return the rows."""
     if not torch.cuda.is_available():
         raise RuntimeError("gather_sweep measures the card; no CUDA device "
                            "is available")
@@ -132,12 +141,22 @@ def sweep() -> None:
     owners = ring.ring_exchange_stacked(groups[0].req).view(8, -1)
     rows.append(_case("8 owners' h pull, one launch",
                       shard_block(sharded.table.state["h"]), owners, flush))
+    calibration.ab_verdict(
+        "vmem_gather", [r["library_ms"] for r in rows],
+        [min(r["ms"]) for r in rows], all(r["bit_equal"] for r in rows),
+        shape=[f"{r['rows']}x{r['width']}" for r in rows], path=store,
+        record_it=store is not None)
     for row in rows:
         print(json.dumps({"card": card, **row}), flush=True)
+    return rows
 
 
 def main(argv=None) -> int:
-    sweep()
+    cmd = CMDLine(argv)
+    cmd.registerParameter("store", "verdict store to record into "
+                          "(default: record nothing)")
+    sweep(store=cmd.getValue("store") if cmd.hasParameter("store")
+          else None)
     return 0
 
 

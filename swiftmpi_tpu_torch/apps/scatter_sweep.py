@@ -15,6 +15,12 @@ version's and one library call's (``index_add_`` of the sums alone); the
 byte bound; the rows that land; and the mean number of landing rows in
 the same 32-row and 128-row window that share a row's slot (1.0: nothing
 to merge), what a warp's or the kernel's 128-row tile merge can save.
+
+With ``-store PATH``, the A/B over every case (at each, the kernel's
+faster median against the library call; correct when within the plain
+version's tolerance with exact counts) is recorded as this card's
+``vmem_scatter`` verdict in that verdict store (``ops/calibration.py``),
+which ``kernel_status`` reports.  Without it nothing is recorded.
 """
 
 from __future__ import annotations
@@ -32,7 +38,8 @@ from swiftmpi_tpu_torch.data.text import (CBOWBatcher, build_vocab,
 from swiftmpi_tpu_torch.kernels import ring, scatter
 from swiftmpi_tpu_torch.models.word2vec import (Word2Vec, _cbow_targets,
                                                 _parity_targets)
-from swiftmpi_tpu_torch.utils import ConfigParser
+from swiftmpi_tpu_torch.ops import calibration
+from swiftmpi_tpu_torch.utils import CMDLine, ConfigParser
 
 RUNS = 25
 #: published H100 SXM HBM bytes/s
@@ -149,7 +156,9 @@ def _case(label, slots, valid, cap, w, flush, rng):
     return row
 
 
-def sweep() -> None:
+def sweep(store=None) -> list:
+    """Time every case; record the verdict over them all in ``store``
+    (none: print it only); return the rows."""
     if not torch.cuda.is_available():
         raise RuntimeError("scatter_sweep measures the card; no CUDA device "
                            "is available")
@@ -182,12 +191,24 @@ def sweep() -> None:
     got = ring.ring_exchange_stacked(groups[0].req).view(8, -1)
     rows.append(_case("8 owners' h push, one launch", got, got >= 0, cap,
                       sharded.len_vec, flush, rng))
+    # _case raised unless the sums held the plain version's tolerance
+    # and the counts were exact
+    calibration.ab_verdict(
+        "vmem_scatter", [r["library_ms"] for r in rows],
+        [min(r["ms"]) for r in rows], True,
+        shape=[f"{r['rows']}x{r['width']} onto {r['capacity']}"
+               for r in rows], path=store, record_it=store is not None)
     for row in rows:
         print(json.dumps({"card": card, **row}), flush=True)
+    return rows
 
 
 def main(argv=None) -> int:
-    sweep()
+    cmd = CMDLine(argv)
+    cmd.registerParameter("store", "verdict store to record into "
+                          "(default: record nothing)")
+    sweep(store=cmd.getValue("store") if cmd.hasParameter("store")
+          else None)
     return 0
 
 

@@ -26,6 +26,13 @@ bound; and whether the form is bit-equal to the plain version.  Forms:
 At the commit that brought it, this sweep also timed the first kernel
 (from the window inputs' ``(lo, wmask)``) and a form staging a tile of
 centers' window rows in shared memory; PERF.md has those numbers.
+
+With ``-store PATH``, the A/B over every case and dtype (at each, the
+kernel's faster median against ``F.embedding_bag``; correct when
+bit-equal to the plain version) is recorded as this card's
+``stencil_fused`` verdict in that verdict store (``ops/calibration.py``),
+which ``[cluster] data_plane: auto`` consults in a process that names
+the store.  Without it nothing is recorded.
 """
 
 from __future__ import annotations
@@ -43,7 +50,8 @@ from swiftmpi_tpu_torch.data.text import (CBOWBatcher, build_vocab,
                                           synthetic_corpus_bulk)
 from swiftmpi_tpu_torch.kernels import stencil
 from swiftmpi_tpu_torch.models.word2vec import Word2Vec
-from swiftmpi_tpu_torch.utils import ConfigParser
+from swiftmpi_tpu_torch.ops import calibration
+from swiftmpi_tpu_torch.utils import CMDLine, ConfigParser
 
 
 def batch_inputs(model: Word2Vec, sb):
@@ -107,13 +115,18 @@ def _cases(label, table, args, window, flush):
     return out
 
 
-def sweep() -> None:
+def sweep(store=None, corpus=None, vocab=None) -> list:
+    """Time every case (over ``corpus`` and ``vocab``, by default the
+    text8-shaped corpus); record the verdict over them all in ``store``
+    (none: print it only); return the rows."""
     if not torch.cuda.is_available():
         raise RuntimeError("stencil_sweep measures the card; no CUDA device "
                            "is available")
     card = card_line()
-    corpus = synthetic_corpus_bulk(**TEXT8_CORPUS)
-    vocab = build_vocab(corpus)
+    if corpus is None:
+        corpus = synthetic_corpus_bulk(**TEXT8_CORPUS)
+    if vocab is None:
+        vocab = build_vocab(corpus)
     # twice the card's 50 MB L2, in float32
     flush = torch.zeros(2 * 50 * 2 ** 20 // 4, device="cuda")
     conf = ConfigParser().update(DEMO_CONF)
@@ -128,12 +141,25 @@ def sweep() -> None:
         for dtype in (torch.float32, torch.bfloat16):
             table = model.table.state["v"].to(dtype)
             rows += _cases(label, table, args, model.window, flush)
+    # each case and dtype: the kernel's row, then three others, the last
+    # its library form
+    kerns, libs = rows[0::4], rows[3::4]
+    calibration.ab_verdict(
+        "stencil_fused", [r["ms"][0] for r in libs],
+        [min(r["ms"]) for r in kerns], all(r["bit_equal"] for r in kerns),
+        shape=[f"{r['centers']}x{r['span']} {r['dtype']}" for r in kerns],
+        path=store, record_it=store is not None)
     for row in rows:
         print(json.dumps({"card": card, **row}), flush=True)
+    return rows
 
 
 def main(argv=None) -> int:
-    sweep()
+    cmd = CMDLine(argv)
+    cmd.registerParameter("store", "verdict store to record into "
+                          "(default: record nothing)")
+    sweep(store=cmd.getValue("store") if cmd.hasParameter("store")
+          else None)
     return 0
 
 

@@ -20,8 +20,12 @@ Config surface (reference cluster.h:13-25 + demo.conf):
   partition=)`` gives a table its head) or ``local`` (the numpy oracle,
   no layout).
 * ``[server] frag_num`` — hashfrag granularity.
-* ``data_plane`` — ``auto``/``pallas`` run the hand-written kernels;
-  ``xla`` (the JAX package's library route) is not ported.
+* ``data_plane`` — ``pallas`` runs the hand-written kernels (B4 for the
+  stencil's neu1, B5 for the sharded exchange), ``xla`` the JAX
+  package's library route (torch ops, the ranks' transpose), ``auto``
+  the kernels unless the process named a device-kind verdict store
+  (``ops/calibration.use_store``) that records the library route at
+  least 10% faster than a correct kernel.
 
 ``initialize()`` first joins the process group the launcher names
 (``cluster/bootstrap.py``, the ``MPI_Init`` of the reference).  In a run

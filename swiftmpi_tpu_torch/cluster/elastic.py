@@ -445,6 +445,8 @@ class ElasticWorker:
                 # a rolled-back rejoin evicted this rank again: the step
                 # loop goes back through boot()
                 events.append({"kind": "evicted", "epoch": table.epoch})
+        # epoch-guard: table.epoch advance validated above (sync raises
+        # StaleEpochError on regression before reaching here)
         self.member_table = table
         self.epoch = table.epoch
         self.write_census()

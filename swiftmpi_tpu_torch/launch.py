@@ -424,6 +424,10 @@ def _publish_epoch(fleet_dir: str, table, fleet_log, reason: str) -> None:
     same breath, so the collector can correlate every ownership change
     with the supervisor evidence that caused it."""
     from swiftmpi_tpu_torch.cluster import membership as mem
+    # epoch-guard: mem.write_membership validates the epoch advance
+    # (same-epoch rewrites other than prepare->commit raise
+    # StaleEpochError): every supervisor-side table write goes through
+    # that check exactly once
     mem.write_membership(fleet_dir, table)
     if fleet_log is not None:
         fleet_log.event("epoch", epoch=table.epoch, state=table.state,

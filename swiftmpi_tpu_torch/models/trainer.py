@@ -19,16 +19,34 @@
   ``repr(PyTreeDef)``, ``atomic_savez`` with CRCs, rotation and
   pruning; either package loads the other's file.
 
+Across processes (``python -m swiftmpi_tpu_torch.launch -np N``) the
+data axis spans them, as in the JAX trainer, whose ``step`` takes each
+process's rows of the global batch
+(``make_array_from_process_local_data``): :meth:`Trainer.step` takes this
+process's local rows, computes its loss and grads, and sums the grads
+and the loss over the processes in process order in one exchange
+(``parallel.collectives.psum_many``: B5's cross-process form on the card,
+gloo on the CPU), then divides by the process count: the global batch's
+mean loss and grads, the same bits on every replica, so every replica
+takes the same update.  Within a process the ``seq``, ``expert`` and
+``stage`` axes stay ranks on the card (``cluster.mesh.Mesh``); an MoE
+layer averages its densities over the processes too
+(``parallel/moe.py``).  :meth:`Trainer.save` copies the leaves to the
+host on every process and checks that the replicas agree, process 0
+writes, and every process waits at a barrier; :meth:`Trainer.load` works
+on every process.  ``run(pipeline=K)`` prefetches in one process only,
+as in the JAX package.
+
 The fault bus (``faults.step_event`` per consumed step), the throughput
-meter, ``obs.span("dispatch")``/``record_step``, a serving publisher
-(params-only snapshots) and the observe-only controller hook in as in
-the JAX package.  A run across processes (the JAX trainer's
-``make_array_from_process_local_data`` batches and gathered saves) is
-ROADMAP A15b and raises.
+meter (global tokens), ``obs.span("dispatch")``/``record_step``, a
+serving publisher (params-only snapshots), the observe-only controller
+and the numerics plane (on the summed grads) hook in as in the JAX
+package, on every process.
 """
 
 from __future__ import annotations
 
+import zlib
 from dataclasses import dataclass
 from typing import Any, Sequence, Tuple
 
@@ -36,6 +54,7 @@ import numpy as np
 import torch
 
 from swiftmpi_tpu_torch import obs
+from swiftmpi_tpu_torch.cluster import bootstrap
 from swiftmpi_tpu_torch.cluster.bootstrap import process_count
 from swiftmpi_tpu_torch.device import DeviceLike, resolve_device
 from swiftmpi_tpu_torch.io.checkpoint import (atomic_savez, npz_path,
@@ -47,6 +66,7 @@ from swiftmpi_tpu_torch.models.transformer import (TransformerConfig,
                                                    init_params, lm_loss,
                                                    param_shardings,
                                                    value_and_grad)
+from swiftmpi_tpu_torch.parallel.collectives import host_agree, psum_many
 from swiftmpi_tpu_torch.testing import faults
 from swiftmpi_tpu_torch.utils import tree
 from swiftmpi_tpu_torch.utils.logger import get_logger
@@ -129,10 +149,13 @@ class Trainer:
     def __init__(self, cfg: TransformerConfig, mesh=None,
                  optimizer: str = "adamw", aux_weight: float = 0.01,
                  device: DeviceLike = None, **opt_kwargs):
-        if process_count() > 1:
-            raise NotImplementedError(
-                "the transformer trainer across processes is not ported "
-                "yet (ROADMAP A15b)")
+        # the launcher's process group first (a no-op in one process), as
+        # Cluster.initialize joins it for the table models
+        bootstrap.init_distributed()
+        #: the data axis across processes: their count and this one's
+        #: place (1 and 0 in a run of one process)
+        self.dp = process_count()
+        self.dp_rank = bootstrap.process_index()
         self.cfg = cfg
         self.mesh = mesh
         if mesh is not None:
@@ -193,8 +216,23 @@ class Trainer:
                                  f"the data axis's {dp} ranks")
         return t
 
+    def _reduce(self, loss: torch.Tensor, grads):
+        """The global batch's loss and grads from this process's: every
+        process's summed in process order in one exchange (the loss rides
+        with the grads), then divided by the process count."""
+        flat = tree.leaves(grads)
+        got = psum_many([loss.reshape(1)] + flat)
+        with torch.no_grad():
+            for g in got:
+                g.div_(self.dp)
+        return got[0].reshape(()), tree.unflatten(grads, got[1:])
+
     def step(self, state: TrainState, tokens) -> Tuple[TrainState,
                                                        torch.Tensor]:
+        """One step over ``tokens``: the whole batch in one process, this
+        process's local rows of the global batch across processes (JAX's
+        ``make_array_from_process_local_data``).  Returns the new state
+        and the global batch's loss, the same on every process."""
         faults.step_event(self._host_steps)
         self._host_steps += 1
         tokens = self._tokens(tokens)
@@ -202,6 +240,8 @@ class Trainer:
             loss, grads = value_and_grad(
                 lm_loss, state.params, tokens, self.cfg, self.mesh,
                 aux_weight=self.aux_weight)
+            if self.dp > 1:
+                loss, grads = self._reduce(loss, grads)
             with torch.no_grad():
                 updates, opt_state = self.optimizer.update(
                     grads, state.opt_state, state.params)
@@ -211,7 +251,7 @@ class Trainer:
                                          grads, updates, loss)
                 apply_updates(state.params, updates)
                 state.step.add_(1)
-        self.meter.record(int(tokens.numel()))
+        self.meter.record(int(tokens.numel()) * self.dp)
         obs.record_step(1)
         out = TrainState(state.params, opt_state, state.step)
         if self.serve_publisher is not None:
@@ -230,8 +270,10 @@ class Trainer:
         step's own copy is skipped.  Batch order and values are
         untouched, so ``pipeline=0`` gives the same bits.  The losses
         stay device scalars; a ``DispatchWindow`` (``dispatch_depth``)
-        bounds the steps in flight."""
-        pipelined = pipeline > 0
+        bounds the steps in flight.  Across processes the batches are
+        each process's local rows and ``pipeline`` is ignored, as in the
+        JAX package."""
+        pipelined = pipeline > 0 and self.dp == 1
         window = DispatchWindow(
             resolve_dispatch_bound(dispatch_depth, pipelined=pipelined),
             self.device)
@@ -271,17 +313,30 @@ class Trainer:
             self._save(state, path, retain)
 
     def _save(self, state: TrainState, path: str, retain: int) -> None:
+        """Every process copies its leaves to the host (the gather of a
+        replicated state) and checks that every replica holds the same
+        bits; process 0 writes; every process then waits at a barrier,
+        so the file is whole when ``save`` returns anywhere."""
         t = state.tree()
         flat = tree.leaves(t)
         payload = {f"leaf_{i}": leaf_to_numpy(v) for i, v in enumerate(flat)}
-        payload["treedef"] = np.frombuffer(tree.treedef_repr(t).encode(),
-                                           dtype=np.uint8)
-        dst = npz_path(path)
-        rotate_before_write(dst, retain)
-        atomic_savez(dst, payload)
-        prune_generations(dst, retain)
-        log.info("trainer checkpoint -> %s (step %d)", dst, int(state.step))
-        faults.checkpoint_event(dst)
+        if self.dp > 1:
+            crc = 0
+            for i in range(len(flat)):
+                crc = zlib.crc32(payload[f"leaf_{i}"].tobytes(), crc)
+            host_agree("the trainer's replicas at a checkpoint", crc)
+        if bootstrap.is_writer():
+            payload["treedef"] = np.frombuffer(
+                tree.treedef_repr(t).encode(), dtype=np.uint8)
+            dst = npz_path(path)
+            rotate_before_write(dst, retain)
+            atomic_savez(dst, payload)
+            prune_generations(dst, retain)
+            log.info("trainer checkpoint -> %s (step %d)", dst,
+                     int(state.step))
+            faults.checkpoint_event(dst)
+        if self.dp > 1:
+            bootstrap.barrier()
 
     def load(self, path: str, key=None, verify: bool = True) -> TrainState:
         """A TrainState from :meth:`save`'s file (or the JAX package's):

@@ -196,6 +196,7 @@ from swiftmpi_tpu_torch.io.pipeline import CudaTransfer, PrefetchIterator
 from swiftmpi_tpu_torch.kernels import ring
 from swiftmpi_tpu_torch.kernels.stencil import stencil_context_sum
 from swiftmpi_tpu_torch.obs import numerics as obs_numerics
+from swiftmpi_tpu_torch.ops.calibration import DATA_PLANE_MODES, route
 from swiftmpi_tpu_torch.ops.sampling import (alias_draws,
                                              build_unigram_alias,
                                              sample_alias_from_draws,
@@ -545,6 +546,12 @@ class Word2Vec:
         self.access = w2v_access(server_lr, self.len_vec,
                                  param_dtype=self.param_dtype)
         self.transfer = self.cluster.transfer
+        #: the stencil's neu1 route on ``xla`` (``[cluster] data_plane``
+        #: through ``ops.calibration.route``): ``"kernel"`` (B4) or
+        #: ``"library"`` (the JAX package's chain of torch ops)
+        self.stencil_route = (
+            route(self.cluster.data_plane, "stencil_fused", self.device)
+            if self.stencil and self.transfer.name == "xla" else None)
         self._capacity_per_shard = capacity_per_shard
         self.table: Optional[SparseTable] = None
         self.vocab: Optional[Vocab] = None
@@ -562,6 +569,20 @@ class Word2Vec:
         #: group length -> its capture handle in the compile catalog
         #: (``obs.costs``), dropped with the graphs
         self._captures: dict = {}
+
+    @property
+    def data_plane_routes(self) -> dict:
+        """The route each ``[cluster] data_plane``-steered kernel of this
+        model takes, ``"kernel"`` or ``"library"``: ``stencil_fused``
+        (the stencil's neu1 on ``xla``) and ``ring_push`` (the sharded
+        exchange on ``tpu`` and ``hybrid``)."""
+        out = {}
+        if self.stencil_route is not None:
+            out["stencil_fused"] = self.stencil_route
+        tail = getattr(self.transfer, "tail", self.transfer)
+        if getattr(tail, "exchange_route", None) is not None:
+            out["ring_push"] = tail.exchange_route
+        return out
 
     def _check_supported(self) -> None:
         """Raise on every configuration the slice does not port, after the
@@ -609,26 +630,9 @@ class Word2Vec:
                 "async_mode=hogwild requires the gather/scatter 'xla' "
                 "transfer: each worker replica trains locally (set "
                 "[cluster] transfer: xla)")
-        if data_plane not in ("auto", "pallas", "xla"):
+        if data_plane not in DATA_PLANE_MODES:
             raise ValueError(f"[cluster] data_plane must be auto, pallas or "
                              f"xla, got {data_plane!r}")
-        refuse = []
-
-        def want(cond, what, item):
-            if cond:
-                refuse.append(f"{what} (ROADMAP {item})")
-
-        # the port routes neu1 through the fused kernel only: the XLA
-        # chain would put a plain version on the card's path
-        want(self.stencil and data_plane == "xla",
-             "[cluster] data_plane: xla with stencil (the device-kind "
-             "verdict store)", "A16")
-        want(transfer == "tpu" and data_plane == "xla",
-             "[cluster] data_plane: xla with transfer: tpu (the library "
-             "exchange)", "A16")
-        if refuse:
-            raise NotImplementedError(
-                "not ported in this slice: " + "; ".join(refuse))
 
     def _check_processes(self) -> None:
         """Under ``dp > 1`` processes: raise for ``[control] control``,
@@ -945,13 +949,14 @@ class Word2Vec:
                     & (sent_id[ci] == sent_id[cp][:, None])
                     & (self._offsets.abs()[None, :] <= half[:, None])
                     & row_valid[:, None])
-        if self.transfer.name == "xla":
+        if self.stencil_route == "kernel":
             neu1 = stencil_context_sum(state["v"], span_slots, sent_id,
                                        center_pos, half, self.window)
         else:
-            # hybrid: the span's rows through the transfer (hot and tail
-            # planes), the masked context sum as the JAX package's own
-            # non-fused path sums them
+            # hybrid, or data_plane's library route on xla: the span's
+            # rows through the transfer (hot and tail planes), the masked
+            # context sum as the JAX package's own non-fused path sums
+            # them
             v_span = self._pull(state, span_slots, "v")           # (S, d)
             neu1 = torch.sum(v_span[ci] * ctx_mask[..., None], dim=1)
         if self.shared_negatives:
@@ -1606,6 +1611,7 @@ class Word2Vec:
             "inner_steps": self.inner_steps,
             "push_window": self.push_window_size,
             "fused": graphs, "graph_replays": replays,
+            "data_plane": self.data_plane_routes,
             "local_steps": self.local_steps, "async_mode": self.async_mode,
             "hogwild_skipped_tail_words": dropped,
             # per epoch (Σerr_sum, Σerr_cnt), the loss's two sums

@@ -5,9 +5,9 @@ Every instrument registration in the port (``reg.counter(...)``,
 ``reg.gauge(...)``, ``reg.histogram(...)``, the transfer ledger's
 registry mirror, the fault bus's ``_obs_count``) must use a name
 declared here, so the port's streams speak the JAX package's names.
-The JAX package's TELEMETRY-CATALOG lint rule enforces the match there;
-the port's counterpart of that rule is ROADMAP A16, and until then
-``tests/test_torch_obs.py`` checks every series a run writes against
+The TELEMETRY-CATALOG lint rule enforces the match in both packages
+(the port's in ``swiftmpi_tpu_torch/analysis``), and
+``tests/test_torch_obs.py`` also checks every series a run writes against
 :func:`declared`.
 
 Two declaration forms:

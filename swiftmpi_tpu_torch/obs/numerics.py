@@ -286,9 +286,12 @@ class NumericsCollector:
     def __init__(self, detector: Optional["AnomalyDetector"] = None):
         self.detector = detector
         self._lock = threading.Lock()
-        self._latest: Optional[torch.Tensor] = None   # float32 bundle
-        self._totals: Dict[torch.device, torch.Tensor] = {}   # float64
-        self._ef_fields: tuple = ()
+        # the float32 bundle, the float64 totals by device and the @ef
+        # fields: the trainer thread rebinds them, the recorder's sampler
+        # reads them
+        self._latest: Optional[torch.Tensor] = None  # guarded-by: _lock
+        self._totals: Dict[torch.device, torch.Tensor] = {}  # guarded-by: _lock
+        self._ef_fields: tuple = ()                  # guarded-by: _lock
         self._before: Dict[str, list] = {}
         # the local oracle's numpy path taps on the host
         self._host_nonfinite = 0.0                 # guarded-by: _lock
@@ -308,8 +311,9 @@ class NumericsCollector:
         t = self._totals.get(device)
         if t is None:
             self._check_not_capturing(device)
-            t = self._totals[device] = torch.zeros(
-                3, dtype=torch.float64, device=device)
+            t = torch.zeros(3, dtype=torch.float64, device=device)
+            with self._lock:
+                self._totals[device] = t
         return t
 
     def snapshot(self, state: dict, grad_fields) -> dict:
@@ -339,9 +343,11 @@ class NumericsCollector:
         if self._latest is None or fields != self._ef_fields \
                 or self._latest.device != dev:
             self._check_not_capturing(dev)
-            self._ef_fields = fields
-            self._latest = torch.zeros(len(BUNDLE_KEYS) + len(fields),
-                                       dtype=torch.float32, device=dev)
+            latest = torch.zeros(len(BUNDLE_KEYS) + len(fields),
+                                 dtype=torch.float32, device=dev)
+            with self._lock:
+                self._ef_fields = fields
+                self._latest = latest
         vals = [bundle[k].to(torch.float32).reshape(())
                 for k in BUNDLE_KEYS]
         vals += [ef_mass[f].to(torch.float32).reshape(()) for f in fields]
@@ -379,16 +385,18 @@ class NumericsCollector:
         "nonfinite", "bundles", "quant_err"}``."""
         with self._lock:
             nonfinite, quant = self._host_nonfinite, self._host_quant
+            totals = list(self._totals.values())
+            latest_t, ef_fields = self._latest, self._ef_fields
         bundles = 0.0
-        for t in self._totals.values():
+        for t in totals:
             nf, nb, q = t.cpu().tolist()
             nonfinite, bundles, quant = nonfinite + nf, bundles + nb, \
                 quant + q
         latest, ef = {}, {}
-        if self._latest is not None and bundles:
-            vals = self._latest.cpu().tolist()
+        if latest_t is not None and bundles:
+            vals = latest_t.cpu().tolist()
             latest = dict(zip(BUNDLE_KEYS, vals))
-            ef = dict(zip(self._ef_fields, vals[len(BUNDLE_KEYS):]))
+            ef = dict(zip(ef_fields, vals[len(BUNDLE_KEYS):]))
         return {"latest": latest, "ef_mass": ef, "nonfinite": nonfinite,
                 "bundles": int(bundles), "quant_err": quant}
 

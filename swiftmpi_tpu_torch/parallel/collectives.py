@@ -29,9 +29,8 @@ value every rank holds.
 
 from __future__ import annotations
 
-import math
 import zlib
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -80,28 +79,68 @@ def all_to_all(x: torch.Tensor, axis: str = DATA_AXIS) -> torch.Tensor:
 
 def psum_many(xs: Sequence[torch.Tensor],
               axis: str = DATA_AXIS) -> List[torch.Tensor]:
-    """:func:`psum` of several tensors of 4-byte dtypes on one device,
-    through one exchange: their words packed into one buffer, gathered,
-    each part summed in process order in its own dtype."""
+    """:func:`psum` of several tensors on one device, through one
+    exchange: their bytes packed into one buffer of 4-byte words (a
+    tensor of 2-byte elements, such as bfloat16, padded to a whole word),
+    gathered, each part summed in process order in its own dtype."""
     _check_axis(axis)
     xs = list(xs)
     if bootstrap.process_count() == 1 or not xs:
         return [x.clone() for x in xs]
+    parts, spans = [], []
     for x in xs:
-        if x.element_size() != 4:
-            raise TypeError(f"psum packs 4-byte words, got {x.dtype}")
-    words = torch.cat([x.reshape(-1).view(torch.int32) for x in xs])
-    got = ring.process_all_gather(words)        # (dp, total words)
+        if x.element_size() not in (2, 4):
+            raise TypeError(f"psum packs 2- and 4-byte elements, got "
+                            f"{x.dtype}")
+        b = x.detach().reshape(-1).contiguous().view(torch.uint8)
+        pad = -b.numel() % 4
+        spans.append((b.numel(), pad))
+        parts.append(b)
+        if pad:
+            parts.append(b.new_zeros(pad))
+    words = torch.cat(parts).view(torch.int32)
+    got = ring.process_all_gather(words).view(torch.uint8)  # (dp, bytes)
     out, at = [], 0
-    for x in xs:
-        n = math.prod(x.shape)
-        parts = got[:, at:at + n].view(x.dtype)
-        acc = parts[0].clone()
-        for p in parts[1:]:
+    for x, (nbytes, pad) in zip(xs, spans):
+        part = got[:, at:at + nbytes].contiguous().view(x.dtype)
+        acc = part[0].clone()
+        for p in part[1:]:
             acc += p
         out.append(acc.view(x.shape))
-        at += n
+        at += nbytes + pad
     return out
+
+
+class _ProcessMean(torch.autograd.Function):
+    """The mean over the processes of each input, forward and backward:
+    the backward of a mean over processes is the mean of the incoming
+    gradients over the processes, one exchange each way."""
+
+    @staticmethod
+    def forward(ctx, *xs):
+        dp = bootstrap.process_count()
+        return tuple(t / dp for t in psum_many(xs))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        need = [i for i, n in enumerate(ctx.needs_input_grad) if n]
+        out = [None] * len(grads)
+        if need:
+            dp = bootstrap.process_count()
+            summed = psum_many([grads[i] for i in need])
+            for i, g in zip(need, summed):
+                out[i] = g / dp
+        return tuple(out)
+
+
+def process_pmean(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The mean of each of ``xs`` over the processes (JAX's ``pmean``
+    over a data axis that spans the processes), differentiable: one
+    exchange forward and one backward, each summing in process order.
+    With one process the inputs come back as they are."""
+    if bootstrap.process_count() == 1:
+        return tuple(xs)
+    return _ProcessMean.apply(*xs)
 
 
 def psum(x: torch.Tensor, axis: str = DATA_AXIS) -> torch.Tensor:

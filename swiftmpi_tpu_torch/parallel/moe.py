@@ -17,7 +17,12 @@ dim is a batch dim of each product.  Both all-to-alls are
 :func:`~swiftmpi_tpu_torch.parallel.collectives.rank_all_to_all`, so B5
 on the card, forward and backward; the aux densities are ``pmean``-ed
 over the ranks before their product, which makes the distributed aux
-exactly the global one.
+exactly the global one.  In a run of several processes (the
+transformer trainer's data axis, each process with its own rows of the
+global batch) the densities are also averaged over the processes, forward
+and backward (``collectives.process_pmean``, B5's cross-process form on
+the card), so the aux term is the global batch's, as JAX's is over its
+global arrays.
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from swiftmpi_tpu_torch.device import DeviceLike, resolve_device
-from swiftmpi_tpu_torch.parallel.collectives import (rank_all_to_all,
+from swiftmpi_tpu_torch.parallel.collectives import (process_pmean,
+                                                     rank_all_to_all,
                                                      rank_pmean)
 
 EXPERT_AXIS = "expert"
@@ -116,7 +122,8 @@ def moe_ffn(params: MoEParams, x: torch.Tensor, mesh, *,
 
     xl = x.reshape(n, t_local, d)                               # (n, t, d)
     gates, dens, proxy = _top_k_gating(xl @ params.router, k)   # (n, t, E)
-    aux = (rank_pmean(dens) * rank_pmean(proxy)).sum() * E
+    dens, proxy = process_pmean(rank_pmean(dens), rank_pmean(proxy))
+    aux = (dens * proxy).sum() * E
     dispatch, combine = _dispatch_mask(gates, capacity)         # (n,t,E,C)
     # per-expert buffers, then route ranks -> owners over the axis
     buf = torch.einsum("rtec,rtd->recd", dispatch, xl)          # (n,E,C,d)
@@ -135,6 +142,7 @@ def moe_ffn_reference(params: MoEParams, x: torch.Tensor, *, k: int = 2):
     """Dense single-device golden: every token through its top-k experts,
     no capacity drops.  For tests (a high capacity factor must match)."""
     gates, dens, proxy = _top_k_gating(x @ params.router, k)
+    dens, proxy = process_pmean(dens, proxy)
     aux = (dens * proxy).sum() * params.router.shape[1]
     h = torch.relu(torch.einsum("td,edf->tef", x, params.w_in))
     per_e = torch.einsum("tef,efd->ted", h, params.w_out)

@@ -620,6 +620,8 @@ class KeyIndex:
             raise StaleEpochError(
                 f"adopt_owner_map: epoch {epoch} regressed below "
                 f"adopted epoch {cur}")
+        # epoch-guard: regression raises StaleEpochError above; the
+        # ownership state below only ever moves forward in epoch
         self.shard_owner = owner
         self.owner_epoch = int(epoch)
 

@@ -27,7 +27,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 
-def _topk_unified_device(hot, tail, qt, k, device):
+def _topk_unified_device(hot, tail, qt, k, device):  # smtpu-lint: disable=READER-PURE-HOST
     """The torch twin of :func:`_topk_unified_host` on ``device`` (None:
     the CUDA device, raising without one): the same normalization in
     float32 and the same ``(scores, slots)`` contract, sorted by

@@ -1,1 +1,2 @@
-"""Test support of the port: deterministic fault injection."""
+"""Test support of the port: deterministic fault injection and the numpy
+word2vec oracle (``w2v_oracle``)."""

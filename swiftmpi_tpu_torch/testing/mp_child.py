@@ -59,6 +59,19 @@ arrays beside it, then prints ``MP_CHILD_OK <mode> rank=<r>``):
     word model's), with the data's ``lines`` and, when given, replayed
     draws ``s2v_sent0``/``s2v_b``/``s2v_j``/``s2v_u`` (one batch); the
     vectors' sha256, and the vectors on process 0.
+  * ``trainer``: the transformer trainer across the processes
+    (:func:`run_trainer`): the spec's ``cfg`` (``TransformerConfig``
+    keys, ``dtype`` by name), ``optimizer`` and ``opt``, an optional
+    ``mesh`` of in-process axes, ``init`` (a checkpoint to start from,
+    either package's) or ``seed``, and the data's ``tokens`` ``(steps,
+    B, S)`` global batches, each process stepping on its row block;
+    ``hooks`` arms a serving publisher, an observe-only controller and
+    the numerics plane and reports what each saw;
+    ``checkpoint`` saves after the steps, ``state`` has process 0 write
+    its leaves as ``trainer_state_r0.npz``, ``warmup`` steps stay out of
+    the timing and ``time_exchange`` times B5's cross-process all-gather
+    at the grads' packed shape.  The JSON holds the losses, each leaf's
+    sha256, the launches, step ms and global tokens/s.
 """
 
 from __future__ import annotations
@@ -142,6 +155,7 @@ def run_collectives(out: str, device: str) -> dict:
     _check(np.array_equal(got_ints, np.stack(
         [_part(7 + j, (dp, 6), np.int32)[me] for j in range(dp)])),
         "the int32 exchange")
+    _check_packed_psum(dp, me, device)
     bootstrap.barrier()
     if device == "cpu":
         np.savez(os.path.join(out, f"overflow_r{me}.npz"),
@@ -152,6 +166,41 @@ def run_collectives(out: str, device: str) -> dict:
 #: the overflow case: shard ranks a process, rows a shard, row width,
 #: requests a process, the bucket capacity and the learning rate
 OVF_SHARDS, OVF_CAP, OVF_D, OVF_B, OVF_C, OVF_LR = 2, 32, 8, 16, 2, 0.3
+
+
+def _check_packed_psum(dp: int, me: int, device) -> None:
+    """``psum_many`` over bfloat16 tensors of odd lengths, a float32 and
+    an int32 one in one exchange, each held bit for bit against the sum
+    in process order; ``process_pmean`` forward, and its backward against
+    the mean of every process's incoming gradient."""
+    from swiftmpi_tpu_torch.parallel.collectives import (process_pmean,
+                                                         psum_many)
+    shapes = [((3,), torch.bfloat16), ((2, 5), torch.float32),
+              ((1,), torch.bfloat16), ((7,), torch.int32)]
+
+    def part(r, i, shape, dtype):
+        a = _part(200 + 10 * r + i, shape,
+                  np.int32 if dtype == torch.int32 else np.float32)
+        return torch.from_numpy(a).to(dtype)
+
+    xs = [part(me, i, sh, dt).to(device)
+          for i, (sh, dt) in enumerate(shapes)]
+    for i, (got, (sh, dt)) in enumerate(zip(psum_many(xs), shapes)):
+        want = part(0, i, sh, dt)
+        for r in range(1, dp):
+            want += part(r, i, sh, dt)
+        _check(got.dtype == dt and torch.equal(got.cpu(), want),
+               f"psum_many of {dt} {sh}")
+    a = part(me, 0, (4,), torch.float32).to(device).requires_grad_(True)
+    b = part(me, 1, (2,), torch.float32).to(device)
+    ma, mb = process_pmean(a, b)
+    want = sum(part(r, 0, (4,), torch.float32) for r in range(dp)) / dp
+    _check(torch.equal(ma.detach().cpu(), want), "process_pmean")
+    # d/da of sum(w_me * ma) is the mean over the processes of their w
+    w = part(me, 2, (4,), torch.float32).to(device)
+    (g,) = torch.autograd.grad((w * ma).sum() + 0 * mb.sum(), [a])
+    want = sum(part(r, 2, (4,), torch.float32) for r in range(dp)) / dp
+    _check(torch.equal(g.cpu(), want), "process_pmean's backward")
 
 
 def overflow_inputs(dp: int) -> tuple:
@@ -733,8 +782,93 @@ def run_s2v(spec: dict, run: dict) -> dict:
 
 #: spec ``job`` -> its runner, ``(spec, run)``: ``run`` is one dict for
 #: the launch's jobs (``w2v`` leaves its model there as ``w2v_model``)
+def trainer_config(spec: dict):
+    """The spec's ``cfg`` (``TransformerConfig`` keys, ``dtype`` by name)."""
+    from swiftmpi_tpu_torch.models.transformer import TransformerConfig
+    kw = dict(spec["cfg"])
+    kw["dtype"] = getattr(torch, kw.get("dtype", "float32"))
+    return TransformerConfig(**kw)
+
+
+def _leaf_bits(state) -> list:
+    from swiftmpi_tpu_torch.utils import tree
+    return [_bits(x) for x in tree.leaves(state.tree())]
+
+
+def run_trainer(spec: dict, run: dict) -> dict:
+    """The transformer trainer over the data axis: every global batch of
+    the data's ``tokens`` ``(steps, B, S)`` cut into the processes' row
+    blocks in process order, this process stepping on its own."""
+    from swiftmpi_tpu_torch.cluster.mesh import Mesh
+    from swiftmpi_tpu_torch.models.trainer import Trainer
+    from swiftmpi_tpu_torch.models.trainer import leaf_to_numpy
+    from swiftmpi_tpu_torch.utils import tree
+    device = spec.get("device", "cuda")
+    mesh = Mesh(spec["mesh"], device) if spec.get("mesh") else None
+    tr = Trainer(trainer_config(spec), mesh=mesh,
+                 optimizer=spec.get("optimizer", "adamw"),
+                 device=None if mesh is not None else device,
+                 **spec.get("opt", {}))
+    me, dp = tr.dp_rank, tr.dp
+    col = None
+    if spec.get("hooks"):
+        from swiftmpi_tpu_torch.control.controller import (ControlSettings,
+                                                           Controller)
+        from swiftmpi_tpu_torch.obs.numerics import NumericsCollector
+        from swiftmpi_tpu_torch.serve import SnapshotPublisher
+        tr.serve_publisher = SnapshotPublisher(every=1)
+        tr.controller = Controller(ControlSettings(enabled=True, every=2))
+        col = NumericsCollector()
+        tr.arm_numerics(col)
+    state = (tr.load(spec["init"]) if spec.get("init")
+             else tr.init_state(spec.get("seed", 0)))
+    tokens = np.load(spec["data"])["tokens"]
+    rows = tokens.shape[1] // dp
+    local = [torch.from_numpy(np.ascontiguousarray(
+        t[me * rows:(me + 1) * rows])).to(tr.device) for t in tokens]
+    warm = int(spec.get("warmup", 0))
+    _reset_launches()
+    losses, times = [], []
+    for i, t in enumerate(local):
+        (state, loss), sec = _timed(device, lambda: tr.step(state, t))
+        losses.append(float(loss))
+        if i >= warm:
+            times.append(sec)
+    launches = _launch_counts()
+    steady = sum(times) / max(len(times), 1)
+    if spec.get("checkpoint"):
+        tr.save(state, spec["checkpoint"])
+    out = {"rank": me, "dp": dp, "losses": losses,
+           "leaf_sha": _leaf_bits(state), "launches": launches,
+           "step_ms": 1e3 * steady,
+           "tokens_per_s": tokens.shape[1] * tokens.shape[2] / steady
+           if steady else 0.0,
+           "timeouts": ring.timeouts()
+           if torch.device(device).type == "cuda" else 0}
+    if col is not None:
+        snap = tr.serve_publisher.latest()
+        out["hooks"] = {
+            "snapshot": [snap.version, snap.step],
+            "snapshot_equal": all(
+                np.array_equal(a, leaf_to_numpy(b)) for a, b in zip(
+                    tree.leaves(snap.state), tree.leaves(state.params))),
+            "numerics": col.read(), "evaluations": tr.controller._evals}
+    if spec.get("state") and me == 0:
+        np.savez(os.path.join(spec["out"], "trainer_state_r0.npz"),
+                 **{f"leaf_{i}": leaf_to_numpy(x)
+                    for i, x in enumerate(tree.leaves(state.tree()))})
+    if spec.get("time_exchange") and torch.device(device).type == "cuda":
+        # the grads' packed words and the loss's: one word more than the
+        # params' bytes / 4
+        nbytes = sum(-(-x.numel() * x.element_size() // 4) * 4
+                     for x in tree.leaves(state.params))
+        out["exchange"] = _time_shapes(
+            [("grads_packed", (nbytes // 4 + 1, 1))], device)
+    return out
+
+
 JOBS = {"w2v": run_w2v, "window": run_window, "lr": run_lr,
-        "glove": run_glove, "s2v": run_s2v}
+        "glove": run_glove, "s2v": run_s2v, "trainer": run_trainer}
 
 
 def main(argv=None) -> int:

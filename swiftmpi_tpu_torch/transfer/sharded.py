@@ -110,8 +110,12 @@ gloo, in process order) when :meth:`ShardedTransfer.overflow_count` reads
 them, so under ``dp > 1`` every process reads it at the same point, as
 ``Word2Vec.train`` does once the run is done.
 
-Not ported: ``[cluster] data_plane: xla``, the library route of the
-exchange (ROADMAP A16).
+``[cluster] data_plane`` picks the exchange's route once, at
+construction (``ops.calibration.route``, logged once): ``auto`` and
+``pallas`` run B5; ``xla`` runs the JAX package's library route, each
+round as the stacked ranks' transpose (``x.transpose(0, 1).contiguous()``,
+the same bits as B5); ``auto`` takes that route only on a current
+verdict that the library is at least 10% faster than a correct kernel.
 """
 
 from __future__ import annotations
@@ -122,8 +126,10 @@ import torch
 
 from swiftmpi_tpu_torch.kernels.gather import masked_gather
 from swiftmpi_tpu_torch.kernels.ring import (ring_exchange,
+                                             ring_exchange_plain,
                                              ring_exchange_stacked)
 from swiftmpi_tpu_torch.kernels.scatter import masked_scatter_add
+from swiftmpi_tpu_torch.ops.calibration import DATA_PLANE_MODES, route
 from swiftmpi_tpu_torch.parameter.sparse_table import ROWVER_KEY, shard_block
 from swiftmpi_tpu_torch.transfer.api import (Transfer, bump_row_versions,
                                              grad_row_bytes, window_dedup)
@@ -199,22 +205,21 @@ class ShardedTransfer(Transfer):
         slow (one host read per call), but it turns silent corruption
         into an immediate failure.
 
-        ``data_plane``: ``auto`` and ``pallas`` run the ring-exchange
-        kernel; ``xla``, the JAX package's library exchange, is not
-        ported."""
+        ``data_plane``: ``pallas`` runs the ring-exchange kernel (B5),
+        ``xla`` the library exchange (the stacked ranks' transpose),
+        ``auto`` the kernel unless the verdict store says otherwise
+        (``ops.calibration``); :attr:`exchange_route` names the route."""
         super().__init__()
-        if data_plane not in ("auto", "pallas", "xla"):
-            raise ValueError(f"data_plane must be one of ('auto', 'pallas', "
-                             f"'xla'), got {data_plane!r}")
-        if data_plane == "xla":
-            raise NotImplementedError(
-                "[cluster] data_plane: xla with transfer: tpu (the library "
-                "exchange and the device-kind verdict store) is not ported "
-                "(ROADMAP A16); the port routes every exchange through the "
-                "ring kernel")
+        if data_plane not in DATA_PLANE_MODES:
+            raise ValueError(f"data_plane must be one of "
+                             f"{DATA_PLANE_MODES}, got {data_plane!r}")
         self.mesh = mesh
         self.n = int(mesh.n)
         self.data_plane = data_plane
+        #: ``"kernel"`` (B5) or ``"library"``: the in-process exchange's
+        #: route for this transfer's life
+        self.exchange_route = route(data_plane, "ring_push",
+                                    mesh.devices[0])
         self.bucket_capacity = bucket_capacity
         self.debug_overflow = debug_overflow
         self._overflow_total = 0
@@ -326,8 +331,14 @@ class ShardedTransfer(Transfer):
         ``(R, n, ...)`` tensor whose rank slices are contiguous; each group
         gets its ranks' results back as one ``(R, n, ...)`` tensor.  The
         ranks of one device exchange in one send launch."""
+        library = self.exchange_route == "library"
+        if library and len(groups) == 1:
+            # the JAX package's all_to_all of the ranks of one device
+            return [per_group[0].transpose(0, 1).contiguous()]
         if len(groups) > 1:
-            got = ring_exchange(self._by_rank(groups, per_group))
+            by_rank = self._by_rank(groups, per_group)
+            got = (ring_exchange_plain(by_rank) if library
+                   else ring_exchange(by_rank))
             return [torch.stack([got[r] for r in g.ranks]) for g in groups]
         return [ring_exchange_stacked(per_group[0])]
 

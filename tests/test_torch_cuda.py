@@ -2467,3 +2467,89 @@ def test_trainer_step_on_card_matches_cpu(dev):
     for i, (a, b) in enumerate(zip(fc, fh)):
         outside = ((a - b).abs() > 1e-5 + 1e-3 * b.abs()).double().mean()
         assert float(outside) <= 1e-3, (i, float(outside))
+
+
+def test_trainer_across_two_processes_on_card(dev, tmp_path):
+    """The transformer trainer over 2 processes on the card at a tiny size
+    (vocab 256, d_model 64, 2 layers, 8 x 32 global tokens, float32, and
+    the same with 4 experts over expert = 2 in each process): the
+    replicas equal by sha256, the losses and every leaf within the
+    envelope of one process's steps over the same global batches, B5
+    launched across processes once a step (MoE: and twice a layer
+    more for the densities, forward and backward)."""
+    import json
+    from swiftmpi_tpu_torch.cluster.mesh import Mesh
+    from swiftmpi_tpu_torch.models.trainer import Trainer, leaf_to_numpy
+    from swiftmpi_tpu_torch.testing.mp_child import trainer_config
+    from swiftmpi_tpu_torch.utils import tree
+    rng = np.random.default_rng(31)
+    tokens = rng.integers(0, 256, (3, 8, 32)).astype(np.int32)
+    np.savez(tmp_path / "data.npz", tokens=tokens)
+    base = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4, d_ff=128)
+    specs = [{"job": "trainer", "cfg": dict(base, **extra), "mesh": mesh,
+              "opt": {"learning_rate": 1e-2, "warmup_steps": 1},
+              "data": str(tmp_path / "data.npz"), "device": "cuda",
+              "out": str(tmp_path / name), "state": True}
+             for name, extra, mesh in (
+                 ("dense", {}, None),
+                 ("moe", {"n_experts": 4, "moe_capacity_factor": 4.0},
+                  {"expert": 2}))]
+    (tmp_path / "specs.json").write_text(json.dumps(specs))
+    res = _launch_children("w2v", "-spec", str(tmp_path / "specs.json"))
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    for spec in specs:
+        out = tmp_path / spec["out"]
+        got = [json.loads((out / f"trainer_r{r}.json").read_text())
+               for r in (0, 1)]
+        assert got[0]["leaf_sha"] == got[1]["leaf_sha"]
+        assert got[0]["losses"] == got[1]["losses"]
+        assert got[0]["timeouts"] == got[1]["timeouts"] == 0
+        moe = spec["mesh"] is not None
+        assert got[0]["launches"]["ring_process"] == 3 * (1 + 4 * moe)
+        assert got[0]["launches"]["ring"] == 3 * 8 * moe
+        mesh = Mesh(spec["mesh"], dev) if moe else None
+        tr = Trainer(trainer_config(spec), mesh=mesh,
+                     device=None if moe else dev, **spec["opt"])
+        state = tr.init_state(0)
+        losses = [float(tr.step(state, t)[1]) for t in tokens]
+        np.testing.assert_allclose(got[0]["losses"], losses, rtol=1e-3,
+                                   atol=1e-5)
+        final = np.load(out / "trainer_state_r0.npz")
+        for i, want in enumerate(tree.leaves(state.tree())):
+            a = final[f"leaf_{i}"].astype(np.float64)
+            b = leaf_to_numpy(want).astype(np.float64)
+            share = np.mean(np.abs(a - b) > 1e-5 + 1e-3 * np.abs(b))
+            assert share <= 1e-3, (spec["out"], i, share)
+
+
+@pytest.mark.parametrize("stencil", [0, 1])
+def test_data_plane_routes_on_card(dev, stencil):
+    """word2vec on ``tpu@4`` (stencil 0) and with ``stencil`` on ``xla``
+    (stencil 1) at d = 100 under ``data_plane: auto`` (B5, B4) and
+    ``xla`` (the transpose, the chain of torch ops) from one table and
+    one draw stream: every epoch's loss within 1e-5 relative (B3 sums in
+    no fixed order, so later steps drift by its last bits), and B4 and
+    B5 launch only under ``auto``."""
+    corpus = synthetic_corpus(40, 300, 32, seed=8)
+    runs = {}
+    for plane in ("auto", "xla"):
+        c = ConfigParser().update({
+            "cluster": ({"transfer": "xla", "server_num": 1} if stencil
+                        else {"transfer": "tpu", "server_num": 4}),
+            "word2vec": {"len_vec": 100, "window": 4, "negative": 20,
+                         "sample": -1, "learning_rate": 0.05,
+                         "stencil": stencil},
+            "server": {"initial_learning_rate": 0.7}})
+        c.set("cluster", "data_plane", plane)
+        m = Word2Vec(config=c, device=dev, seed=5)
+        m.build(corpus)
+        kernels.reset_launches()
+        losses = m.train(corpus, niters=2, batch_size=256)
+        torch.cuda.synchronize()
+        runs[plane] = (losses, kernels.launch_counts(), m.data_plane_routes)
+    (la, ca, ra), (lx, cx, rx) = runs["auto"], runs["xla"]
+    name, kernel = (("stencil_fused", "stencil") if stencil
+                    else ("ring_push", "ring"))
+    assert ra == {name: "kernel"} and rx == {name: "library"}
+    assert ca[kernel] > 0 and cx["stencil"] == cx["ring"] == 0
+    np.testing.assert_allclose(lx, la, rtol=1e-5)

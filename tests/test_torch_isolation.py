@@ -50,7 +50,8 @@ want = {"swiftmpi_tpu_torch." + m for m in (
     "cluster.elastic", "testing.fleet_child", "testing.serve_child",
     "utils.tree", "parallel.ring_attention", "parallel.moe",
     "parallel.pipeline", "models.transformer", "models.optim",
-    "models.trainer")}
+    "models.trainer", "ops.calibration", "utils.rng", "testing.w2v_oracle",
+    "analysis", "analysis.core", "analysis.rules", "analysis.lint")}
 missing = sorted(want - set(names))
 print(len(names), "modules;", "leaked:", bad, "missing:", missing)
 sys.exit(1 if bad or missing or len(names) < 30 else 0)

@@ -218,10 +218,14 @@ def test_cluster_defaults_and_refusals(monkeypatch):
     t = x.create_table("w", w2v_access(LR, D), CAP)
     assert t.key_index.num_shards == 2
     assert t.state["h"].shape == (2 * CAP, D)
+    # data_plane: xla (refused until ROADMAP A16b was ported) builds the
+    # sharded transfer on the library exchange
+    lib = Cluster(ConfigParser().update({"cluster": {
+        "transfer": "tpu", "server_num": 2, "data_plane": "xla"}}),
+        devices=["cpu"]).initialize()
+    assert lib.transfer.exchange_route == "library"
     for conf, err, match in [
             ({"transfer": "bogus"}, ValueError, "bogus"),
-            ({"transfer": "tpu", "data_plane": "xla"}, NotImplementedError,
-             "A16"),
             ({"transfer": "tpu", "data_plane": "bogus"}, ValueError,
              "data_plane")]:
         with pytest.raises(err, match=match):
@@ -525,8 +529,13 @@ def test_sharded_transfer_refusals(devices8):
     with pytest.raises(ValueError, match="equal rank slices"):
         t.push(st, torch.from_numpy(slots[:60]),
                _t({f: g[:60] for f, g in grads.items()}), pacc)
-    with pytest.raises(NotImplementedError, match="A16"):
-        ShardedTransfer(layout, data_plane="xla")
+    # data_plane: xla (refused until ROADMAP A16b was ported): the library
+    # exchange pulls the kernel route's rows
+    lib = ShardedTransfer(layout, data_plane="xla")
+    assert (lib.exchange_route, t.exchange_route) == ("library", "kernel")
+    for f, rows in lib.pull(st, torch.from_numpy(slots), pacc).items():
+        assert torch.equal(rows, t.pull(st, torch.from_numpy(slots),
+                                        pacc)[f])
     with pytest.raises(ValueError, match="data_plane"):
         ShardedTransfer(layout, data_plane="bogus")
     # a quantized window runs (tests/test_torch_wire.py holds it against

@@ -331,12 +331,14 @@ def test_stage_dense_matches_jax():
 
 
 def test_trainer_refuses_processes_and_the_cpu_unless_asked(monkeypatch):
-    """More than one process is ROADMAP A15b; with no CUDA device the
-    trainer, a mesh and fresh params raise unless ``device="cpu"``."""
+    """More than one process (refused until ROADMAP A15b was ported) puts
+    the data axis across them (``tests/test_torch_trainer_dp.py`` holds it
+    against JAX); with no CUDA device the trainer, a mesh and fresh
+    params raise unless ``device="cpu"``."""
     from swiftmpi_tpu_torch.models import trainer as tmod
     monkeypatch.setattr(tmod, "process_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="A15b"):
-        Trainer(CFG, device="cpu")
+    tr = Trainer(CFG, device="cpu")
+    assert (tr.dp, tr.dp_rank) == (2, 0)
     monkeypatch.setattr(tmod, "process_count", lambda: 1)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -123,21 +123,17 @@ def test_cli_trains_stencil_and_shared_confs(files, monkeypatch, lines,
                                   "\ndata_plane: xla",
                                   "[control]\nevery: 8"])
 def test_cli_refuses_unported_conf_keys(files, line):
-    """The CLI refuses what the port does not cover (``data_plane: xla``
-    on ``tpu``); ``server_num > 1`` on ``xla`` (refused until ROADMAP A11a
-    was ported), ``[control]`` and ``[serve]`` (refused until ROADMAP
-    A13a was ported) now train and write the dump."""
+    """What the CLI once refused now trains and writes the dump:
+    ``server_num > 1`` on ``xla`` (until ROADMAP A11a was ported),
+    ``[control]`` and ``[serve]`` (until A13a), ``data_plane: xla`` on
+    ``tpu`` (until A16b: the library exchange)."""
     tmp, conf, data = files
     with open(conf, "a") as f:
         f.write(line + "\n")
     argv = ["w2v", "-config", conf, "-data", data, "-device", "cpu"]
-    if "data_plane" not in line:
-        out = tmp / "vectors.txt"
-        assert w2v_main.main(argv + ["-output", str(out)]) == 0
-        assert out.stat().st_size > 0
-        return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        w2v_main.main(argv)
+    out = tmp / "vectors.txt"
+    assert w2v_main.main(argv + ["-output", str(out)]) == 0
+    assert out.stat().st_size > 0
 
 
 @pytest.mark.parametrize("flags", [["-checkpoint", "ck"]])

@@ -22,7 +22,7 @@ import jax.numpy as jnp
 from swiftmpi_tpu.data.text import CBOWBatcher as JaxBatcher
 from swiftmpi_tpu.models.word2vec import Word2Vec as JaxWord2Vec
 from swiftmpi_tpu.parameter.key_index import KeyIndex as JaxKeyIndex
-from swiftmpi_tpu.testing import W2VOracle
+from swiftmpi_tpu_torch.testing.w2v_oracle import W2VOracle
 from swiftmpi_tpu.utils import ConfigParser as JaxConfig
 from swiftmpi_tpu_torch.convert import state_from_jax, state_to_numpy
 from swiftmpi_tpu_torch.data.text import CBOWBatcher, build_vocab
@@ -186,14 +186,24 @@ def test_three_step_train_tracks_jax():
         _envelope(final[f], np.asarray(a))
 
 
+#: the reference oracle of :func:`test_loss_parity_vs_reference_oracle`:
+#: its settings, corpus and epochs (``tests/test_torch_rng.py`` holds the
+#: port's oracle against JAX's bit for bit at exactly these)
+ORACLE_KW = dict(len_vec=16, window=2, negative=5, alpha=0.05,
+                 server_lr=0.3, sample=-1.0, minibatch_lines=10,
+                 table_size=200_000, seed=2008, init_seed=0)
+ORACLE_CORPUS = dict(n_sent=40, vocab=30, length=12, seed=3)
+ORACLE_ITERS = 3
+
+
 def test_loss_parity_vs_reference_oracle():
     """Own RNG on both sides: the port and the reference-faithful numpy
-    oracle track the same trajectory inside the JAX test's bands."""
-    sents = corpus(n_sent=40, vocab=30, length=12, seed=3)
-    niters = 3
-    oracle = W2VOracle(len_vec=16, window=2, negative=5, alpha=0.05,
-                       server_lr=0.3, sample=-1.0, minibatch_lines=10,
-                       table_size=200_000, seed=2008, init_seed=0)
+    oracle (the port's, equal to JAX's bit for bit at these settings:
+    ``tests/test_torch_rng.py``) track the same trajectory inside the JAX
+    test's bands."""
+    sents = corpus(**ORACLE_CORPUS)
+    niters = ORACLE_ITERS
+    oracle = W2VOracle(**ORACLE_KW)
     ref = oracle.train(sents, niters=niters)
     model = Word2Vec(config=ConfigParser().update(CONF), device="cpu")
     losses = model.train(sents, niters=niters, batch_size=132)
@@ -233,25 +243,24 @@ def test_inner_steps_runs_ordinary_steps():
     {"control": {"control": "on"}},
     {"serve": {"every": 4}}])
 def test_unported_config_raises(settings):
-    """What the port still refuses: ``data_plane: xla`` with ``transfer:
-    tpu`` (A16).  ``server_num > 1`` on ``xla`` (refused until ROADMAP
-    A11a was ported) builds the model-axis sharded table and trains;
-    ``[control]`` and ``[serve]``, refused until ROADMAP A13a was ported,
-    now build and train: the model reads the keys JAX's model reads
-    (``every``, ``depth``, ``control``, ``margin``) and ignores the
-    others, as JAX's does."""
+    """What the port once refused builds and trains: ``data_plane: xla``
+    with ``transfer: tpu`` (refused until ROADMAP A16b was ported) on
+    the library exchange; ``server_num > 1`` on ``xla`` (until A11a) the
+    model-axis sharded table; ``[control]`` and ``[serve]`` (until A13a):
+    the model reads the keys JAX's model reads (``every``, ``depth``,
+    ``control``, ``margin``) and ignores the others, as JAX's does."""
     c = ConfigParser().update(CONF)
     for sec, kv in settings.items():
         for key, val in kv.items():
             c.set(sec, key, val)
-    if settings.get("cluster", {}).get("data_plane") == "xla":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Word2Vec(config=c, device="cpu")
-        return
     m = Word2Vec(config=c, device="cpu")
     sents = corpus(n_sent=10, vocab=20, length=8, seed=2)
     assert np.isfinite(m.train(sents, niters=1, batch_size=32)).all()
-    if "cluster" in settings:
+    if settings.get("cluster", {}).get("data_plane") == "xla":
+        assert m.transfer.name == "tpu"
+        assert m.data_plane_routes == {"ring_push": "library"}
+        assert m.train_metrics["data_plane"] == {"ring_push": "library"}
+    elif "cluster" in settings:
         # the model-axis shards: one (2 * cap, d) tensor per field
         assert m.transfer.name == "xla" and m.cluster.mesh is None
         assert m.table.key_index.num_shards == 2
