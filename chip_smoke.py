@@ -237,9 +237,12 @@ Phases, each of which raises on a failed check:
    step (B5's cross-process form included); printed: global words/s
    and the host ms a step over the run's second half against the
    one-process run's, the lockstep's host ms a step, the final tables'
-   gap.  (a) also times B5's cross-process all-gather at the dense
-   plane's and the sparse reconcile's shapes against its bound and the
-   host route (device -> host, gloo, host -> device).  (c) ``server_num:
+   gap.  (a) also times B5's cross-process all-gather (its wait a
+   stream wait: no kernel polls) at the dense plane's and the sparse
+   reconcile's shapes against its bound and the host route (device ->
+   host, gloo, host -> device), and holds that a waiting process holds no
+   SM: process 1's fixed work runs within ``PROGRESS_SLACK`` of its time
+   alone while process 0 waits on its send.  (c) ``server_num:
    2`` on ``xla`` in one process: every key's rows after a step within
    the envelope of ``server_num: 1``'s, and after 4 steps no further from
    them than a second ``server_num: 1`` run drifts (B3's atomics).
@@ -4483,7 +4486,7 @@ def phase_processes(vocab, corpus: np.ndarray, card: str) -> tuple:
           f"steps of {PROCS} x {Bl} centers)", flush=True)
 
     runs, launches = {}, {k: 0 for k in PROC_STEP["xla"]}
-    exchange = None
+    exchange = progress = None
     for label, transfer, shards in (("xla", "xla", 1),
                                     ("tpu", "tpu", PROC_SHARDS)):
         conf = {**DEMO_CONF, "cluster": {"transfer": transfer,
@@ -4523,6 +4526,7 @@ def phase_processes(vocab, corpus: np.ndarray, card: str) -> tuple:
             launches[k] += v
         if label == "xla":
             exchange = got[0].get("exchange")
+            progress = [g.get("progress") for g in got]
         runs[label] = {
             "transfer": transfer, "shards_per_process": shards,
             "processes": PROCS, "steps": m["steps"],
@@ -4559,10 +4563,14 @@ def phase_processes(vocab, corpus: np.ndarray, card: str) -> tuple:
                     "kernel_ms": e["ms"], "bound_ms": e["bound_ms"],
                     "host_route_ms": e["host_route_ms"],
                     "gloo_cpu_ms": e["plain_ms"],
-                    "max_abs_err": e["max_abs_err"]})
+                    "max_abs_err": e["max_abs_err"],
+                    "wait": "stream (cuStreamWaitValue64)",
+                    "launches_in_xla_run": runs["xla"]["launches_per_step"][
+                        "ring_process"] * runs["xla"]["steps"]})
     if any(e["max_abs_err"] != 0 for e in exchange):
         raise AssertionError(f"phase 14: the cross-process exchange is not "
                              f"a copy: {exchange}")
+    _hold_progress(progress, card)
     dense = exchange[0]
     case = {"name": "ring_exchange (across processes, all-gather of the "
                     "dense plane)",
@@ -4579,6 +4587,36 @@ def phase_processes(vocab, corpus: np.ndarray, card: str) -> tuple:
     report_cases([case])
     print(f"phase 14 {time.perf_counter() - t0:.1f} s", flush=True)
     return [case], {PROC_PATH: launches}
+
+
+#: how much slower process 1's fixed work may run while process 0 waits
+#: on its send than alone (a waiter kernel made it ~2.2x: the card
+#: time-sliced the two contexts)
+PROGRESS_SLACK = 1.3
+
+
+def _hold_progress(progress: list, card: str) -> None:
+    """Phase 14: a waiting process holds no SM.  Process 1's fixed work
+    (``apps.process_ring_sweep.progress``) while process 0 waits on its
+    send runs within ``PROGRESS_SLACK`` of its time alone (medians of 3
+    rounds); every exchange an exact copy."""
+    p0, p1 = progress
+    alone = float(np.median(p1["work_alone_ms"]))
+    during = float(np.median(p1["work_during_wait_ms"]))
+    _json_line({"phase": "processes", "card": card,
+                "wait_progress": {"work_alone_ms": p1["work_alone_ms"],
+                                  "work_during_wait_ms":
+                                      p1["work_during_wait_ms"],
+                                  "wait_ms": p0["wait_ms"],
+                                  "during_over_alone": during / alone}})
+    if not (p0["exact"] and p1["exact"]):
+        raise AssertionError("phase 14: the progress drill's exchange is "
+                             "not a copy")
+    if during > PROGRESS_SLACK * alone:
+        raise AssertionError(
+            f"phase 14: process 1's work took {during:.2f} ms while "
+            f"process 0 waited, {alone:.2f} ms alone: the wait holds the "
+            "card")
 
 
 def phase_server_num_xla(vocab, corpus: np.ndarray, card: str) -> None:
@@ -5205,7 +5243,10 @@ def _da_exchanges(label: str, got: list, card: str) -> None:
                     "exchange": e["label"], "shape": e["shape"],
                     "kernel_ms": e["ms"], "bound_ms": e["bound_ms"],
                     "host_route_ms": e["host_route_ms"],
-                    "gloo_cpu_ms": e["plain_ms"]})
+                    "gloo_cpu_ms": e["plain_ms"],
+                    "wait": "stream (cuStreamWaitValue64)",
+                    "launches_in_job": got[0]["launches"].get(
+                        "ring_process")})
 
 
 def _ef_bank_case(label, path, ded, cap, width, rng, flush):
@@ -6150,7 +6191,9 @@ def phase_tfm_processes(card: str) -> tuple:
                 "exchange": e["label"], "shape": e["shape"],
                 "kernel_ms": e["ms"], "bound_ms": e["bound_ms"],
                 "host_route_ms": e["host_route_ms"],
-                "gloo_cpu_ms": e["plain_ms"]})
+                "gloo_cpu_ms": e["plain_ms"],
+                "wait": "stream (cuStreamWaitValue64)",
+                "launches_in_job": a["launches"].get("ring_process")})
     case = {"name": "ring_exchange (across processes, all-gather of the "
                     "trainer's packed grads)",
             "route": "cuda", "source": "swiftmpi_tpu_torch/kernels/csrc/"

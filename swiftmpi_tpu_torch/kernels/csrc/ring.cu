@@ -27,6 +27,20 @@
 //              that polls too long counts a timeout in flags[me][n] and
 //              returns instead of hanging the card.
 //
+// Across processes (smtpu_ring_process_exchange) the ranks are the dp
+// processes that share one card, each in its own context, and the card
+// time-slices between contexts.  A waiter kernel keeps its context
+// runnable, so a peer's send ran only once the waiter's timeslice expired:
+// every exchange cost one timeslice (2.1-2.3 ms at any size on the H100).
+// So there the wait is no kernel: one stream memory operation a peer
+// (cuStreamWaitValue64, >= epoch) on this process's flag slot, which the
+// GPU front end checks.  A stream blocked on it gives the context nothing
+// to run while it waits.  The flag arrays lie in pinned host memory shared
+// by the processes (kernels/ring.py), so the host can release a wait whose
+// peer never sends (a store of the epoch into the slot) without queueing
+// work behind the blocked stream.  An event after the send and one after
+// the waits let the host see when a wait began and whether it ended.
+//
 // Operands are given as base + stride (sender i's operand at x + i*x_stride,
 // each operand contiguous), so the transfer hands the kernel one (R, n, ...)
 // tensor and nothing is uploaded per call.  A sender's block j is at
@@ -51,6 +65,7 @@
 // first, an L1 hit).  TMA bodies read 4% faster than 16-byte vector copies
 // of the same bodies on the H100 (PERF.md, apps/ring_sweep.py); the card's
 // copy ceiling, not the kernel, bounds both.
+#include <cuda.h>           // driver types only: entry points resolved at run time
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -320,6 +335,54 @@ int sm_count() {
   return sms;
 }
 
+
+// The send launch of an exchange: its work items and grid, then the launch.
+cudaError_t launch_send(Send& a, long long block_bytes, cudaStream_t s) {
+  const long long wave = (long long)sm_count() * kBlocksPerSM;
+  // items of at most kMaxItemBytes, and enough of them to fill one wave of
+  // thread blocks where the blocks are small (down to kMinItemBytes)
+  long long items = (block_bytes + kMaxItemBytes - 1) / kMaxItemBytes;
+  long long fill = (wave + a.pairs - 1) / a.pairs;
+  const long long finest = block_bytes / kMinItemBytes;
+  if (fill > finest) fill = finest;
+  if (items < fill) items = fill;
+  if (items < 1) items = 1;
+  a.items = (int)items;
+  long long grid = a.pairs * items;
+  if (grid > wave) grid = wave;
+  static bool sized = false;
+  if (!sized) {
+    cudaError_t e = cudaFuncSetAttribute(
+        ring_send, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (e != cudaSuccess) return e;
+    sized = true;
+  }
+  ring_send<<<(unsigned)grid, kThreads, kSmem, s>>>(a);
+  return cudaGetLastError();
+}
+
+// Driver entry points of the cross-process wait, resolved once.
+typedef CUresult (*WaitValue64)(CUstream, CUdeviceptr, cuuint64_t,
+                                unsigned int);
+typedef CUresult (*DeviceGetAttribute)(int*, CUdevice_attribute, CUdevice);
+WaitValue64 wait_value64 = nullptr;
+
+// driver errors come back above the runtime's codes
+constexpr int kDriverError = 100000;
+
+template <typename F>
+cudaError_t driver_entry(const char* name, F* fn) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
+  cudaError_t e = cudaGetDriverEntryPointByVersion(name, &p, 12000,
+                                                   cudaEnableDefault, &found);
+  if (e != cudaSuccess) return e;
+  if (found != cudaDriverEntryPointSuccess || p == nullptr)
+    return cudaErrorSymbolNotFound;
+  *fn = reinterpret_cast<F>(p);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // One exchange's launches on one card: the sends of its `senders` ranks in
@@ -358,31 +421,135 @@ extern "C" int smtpu_ring_exchange(
   a.done = static_cast<unsigned int*>(done);
   a.epoch = epoch;
   a.pairs = (long long)senders * n;
-  const long long wave = (long long)sm_count() * kBlocksPerSM;
-  // items of at most kMaxItemBytes, and enough of them to fill one wave of
-  // thread blocks where the blocks are small (down to kMinItemBytes)
-  long long items = (block_bytes + kMaxItemBytes - 1) / kMaxItemBytes;
-  long long fill = (wave + a.pairs - 1) / a.pairs;
-  const long long finest = block_bytes / kMinItemBytes;
-  if (fill > finest) fill = finest;
-  if (items < fill) items = fill;
-  if (items < 1) items = 1;
-  a.items = (int)items;
-  long long grid = a.pairs * items;
-  if (grid > wave) grid = wave;
-  static bool sized = false;
-  if (!sized) {
-    cudaError_t e = cudaFuncSetAttribute(
-        ring_send, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    sized = true;
-  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  ring_send<<<(unsigned)grid, kThreads, kSmem, s>>>(a);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = launch_send(a, block_bytes, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   ring_wait<<<senders, ((n + 31) / 32) * 32, 0, s>>>(
       n, first, step, a.flags, epoch, max_polls);
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// -- across processes ---------------------------------------------------------
+
+// Resolves the driver's cuStreamWaitValue64 and checks that `device` takes
+// 64-bit stream memory operations.  Returns 0, the runtime's error, or
+// kDriverError + the driver's; cudaErrorNotSupported when the card lacks
+// the operations (the caller raises: there is no other wait to fall to).
+extern "C" int smtpu_ring_process_init(int device) {
+  if (wait_value64 != nullptr) return 0;
+  DeviceGetAttribute get_attribute = nullptr;
+  cudaError_t e = driver_entry("cuDeviceGetAttribute", &get_attribute);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int can = 0;
+  CUresult r = get_attribute(
+      &can, CU_DEVICE_ATTRIBUTE_CAN_USE_64_BIT_STREAM_MEM_OPS, device);
+  if (r != CUDA_SUCCESS) return kDriverError + static_cast<int>(r);
+  if (!can) return static_cast<int>(cudaErrorNotSupported);
+  WaitValue64 fn = nullptr;
+  e = driver_entry("cuStreamWaitValue64", &fn);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  wait_value64 = fn;
+  return 0;
+}
+
+// One exchange between the n processes of one card, from process `me`: its
+// send launch (block j of its operand, at x + j*x_block, into slot `me` of
+// process j's receive buffer outs[j], then the epoch into flags[j][me]),
+// the event `sent`, one stream wait a peer j on own_flags[j] >= epoch, and
+// the event `waited`.  `flags` is a device array of the n processes' flag
+// arrays and `own_flags` this process's, all device addresses of pinned
+// host memory; `done` holds n arrival counters.  Nothing on the card polls:
+// the front end holds the stream until every peer's flag is set.
+extern "C" int smtpu_ring_process_exchange(
+    int n, int me, long long block_bytes, const void* x, long long x_block,
+    const void* outs, const void* flags, void* done, const void* own_flags,
+    unsigned long long epoch, void* sent, void* waited, void* stream) {
+  if (n <= 0 || block_bytes <= 0) return 0;
+  if (block_bytes % 4 || n > 1024 || me < 0 || me >= n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (wait_value64 == nullptr)
+    return static_cast<int>(cudaErrorInitializationError);
+  Send a;
+  a.n = n;
+  a.first = me;
+  a.step = 1;
+  a.words = block_bytes / 4;
+  a.x = static_cast<const char*>(x);
+  a.x_stride = 0;
+  a.x_block = x_block;
+  a.out = nullptr;
+  a.out_stride = 0;
+  a.outs = static_cast<char* const*>(outs);
+  a.flags = static_cast<unsigned long long* const*>(flags);
+  a.done = static_cast<unsigned int*>(done);
+  a.epoch = epoch;
+  a.pairs = n;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = launch_send(a, block_bytes, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaEventRecord(static_cast<cudaEvent_t>(sent), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const unsigned long long* mine =
+      static_cast<const unsigned long long*>(own_flags);
+  for (int j = 0; j < n; ++j) {
+    if (j == me) continue;   // this stream's own send set it
+    CUresult r = wait_value64(reinterpret_cast<CUstream>(s),
+                              reinterpret_cast<CUdeviceptr>(mine + j), epoch,
+                              CU_STREAM_WAIT_VALUE_GEQ);
+    if (r != CUDA_SUCCESS) return kDriverError + static_cast<int>(r);
+  }
+  return static_cast<int>(
+      cudaEventRecord(static_cast<cudaEvent_t>(waited), s));
+}
+
+// Releases this process's waits on exchange `epoch` whose peers never set
+// their flags: every peer slot of `flags` (host memory, n + 1 words) below
+// `epoch` is raised to it, and the timeout count flags[n] grows by one.
+// Returns the slots raised.  Atomic against the peers' stores.
+extern "C" int smtpu_ring_release(unsigned long long* flags, int n, int me,
+                                  unsigned long long epoch) {
+  int raised = 0;
+  for (int j = 0; j < n; ++j) {
+    if (j == me) continue;
+    unsigned long long cur = __atomic_load_n(flags + j, __ATOMIC_ACQUIRE);
+    while (cur < epoch) {
+      if (__atomic_compare_exchange_n(flags + j, &cur, epoch, false,
+                                      __ATOMIC_ACQ_REL, __ATOMIC_ACQUIRE)) {
+        ++raised;
+        break;
+      }
+    }
+  }
+  __atomic_fetch_add(flags + n, 1ULL, __ATOMIC_ACQ_REL);
+  return raised;
+}
+
+// Pins `bytes` of host memory at `p` for the card and returns its device
+// address in *dev.
+extern "C" int smtpu_ring_host_register(void* p, long long bytes,
+                                        void** dev) {
+  cudaError_t e = cudaHostRegister(
+      p, (size_t)bytes, cudaHostRegisterPortable | cudaHostRegisterMapped);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaHostGetDevicePointer(dev, p, 0));
+}
+
+extern "C" int smtpu_ring_host_unregister(void* p) {
+  return static_cast<int>(cudaHostUnregister(p));
+}
+
+// Events without timing, for the exchange's `sent` and `waited`.
+extern "C" int smtpu_ring_event_create(void** ev) {
+  return static_cast<int>(cudaEventCreateWithFlags(
+      reinterpret_cast<cudaEvent_t*>(ev), cudaEventDisableTiming));
+}
+
+// 0 once the event's work has run, cudaErrorNotReady (600) before.
+extern "C" int smtpu_ring_event_query(void* ev) {
+  return static_cast<int>(cudaEventQuery(static_cast<cudaEvent_t>(ev)));
+}
+
+extern "C" int smtpu_ring_event_destroy(void* ev) {
+  return static_cast<int>(cudaEventDestroy(static_cast<cudaEvent_t>(ev)));
+}

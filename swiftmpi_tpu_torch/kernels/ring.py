@@ -44,12 +44,25 @@ CUDA tensors, raising on what the kernel does not take; there is no
 fallback between the two.
 
 **Across processes** (the data axis of a multi-process run,
-:class:`ProcessRing`): the same launches, one pair per exchange with
-``senders = 1`` and ``first = dp_rank``, between the ``dp``
-processes that share the card.  Each process allocates its receive
-buffers and its ``(dp + 1)`` flag array once, shares them through CUDA
-IPC (``torch.multiprocessing.reductions.reduce_tensor``, the handles
-traded through the process group's store) and maps its peers' with
+:class:`ProcessRing`): one send launch per exchange (``senders = 1``,
+``first = dp_rank``) between the ``dp`` processes that share the card,
+and a wait that is no kernel.  Two processes on one card are two contexts,
+which the card time-slices (no MPS is required), and a waiter kernel keeps
+its context runnable: the peer's send ran only once the waiter's timeslice
+expired, so every exchange cost a timeslice, 2.1-2.3 ms at any size on
+an H100 (PERF.md).  So one C call (``smtpu_ring_process_exchange``)
+enqueues the send, an event ``sent``, one stream memory operation a peer
+(``cuStreamWaitValue64(flag[j] >= epoch)``, which the card's front end
+holds) and an event ``waited``; a waiting process holds no SM and leaves
+its context nothing to run.  The card must offer 64-bit stream memory
+operations: the ring refuses to start otherwise.
+
+Each process's flag array (``dp`` epochs + a timeout count) lies in one
+page of System V shared memory that every process attaches and pins for
+the card, its id traded through the process group's store; the peers'
+send kernels publish into it as before.  The receive buffers (device
+memory) are shared through CUDA IPC (``torch.multiprocessing.reductions.
+reduce_tensor``, the handles traded through the store) and mapped with
 ``rebuild_cuda_tensor``; the device arrays ``outs`` (every process's
 receive buffer, peers' mapped pointers included) and ``flags`` give the
 kernel every address.  The receive buffers are two, used by the
@@ -61,20 +74,30 @@ e + 1, which the stream runs after the copy out of e.  Two forms:
 to process j) and :func:`process_all_gather` (every process's tensor to
 every process), whose send addresses every block at the one tensor (the
 entry point's block stride ``x_block`` 0, where the all-to-all passes
-the block's length).  Two processes on one card time-slice their kernels
-(no MPS is required): a waiter can spin until the peer's send is
-scheduled, bounded by ``_MAX_POLLS`` like every wait; a wait that gives
-up counts in :func:`timeouts`, which ``Word2Vec.train`` reads once an
-epoch and fails the run on.  The plain version is ``torch.distributed``'s
-``all_to_all_single`` and ``all_gather`` over gloo on CPU tensors; a
-CUDA tensor goes through the kernel or the call raises.
+the block's length).
+
+A stream wait has no deadline of its own, so a :class:`WaitWatchdog`
+thread gives it one: ``_MAX_POLLS`` polls of the in-process wait kernel
+(``_POLL_S`` each) after its ``sent`` event ran.  A wait still pending
+then is released from the host, never by queueing work behind the
+blocked stream: its peers' slots are raised to the epoch in the pinned
+page and a timeout is counted there.  :func:`timeouts` reads the count,
+and ``Word2Vec.train`` reads it once an epoch and fails the run on it.
+A dead peer thus holds a stream at most the deadline.  The plain version
+is ``torch.distributed``'s ``all_to_all_single`` and ``all_gather`` over
+gloo on CPU tensors; a CUDA tensor goes through the kernel or the call
+raises.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
+import os
 import pickle
+import threading
+import time
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -88,7 +111,7 @@ launches = 0
 #: ...)`` blocks, its own block included) since the process began
 operand_bytes = 0
 #: exchanges across processes (:class:`ProcessRing`) launched since the
-#: last reset: one send launch and one wait launch each
+#: last reset: one send launch and one stream wait a peer each
 process_launches = 0
 
 _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -175,7 +198,7 @@ def timeouts() -> int:
     in-process and cross-process exchanges (reads the card; for tests and
     smoke runs, not for the training loop)."""
     return int(sum(int(ring.flags[:, -1].sum()) for ring in _rings.values())
-               + sum(int(pr.flags[-1]) for pr in _process_rings.values()))
+               + sum(pr.timeouts() for pr in _process_rings.values()))
 
 
 def _check_stacked(x: torch.Tensor) -> int:
@@ -286,42 +309,322 @@ def ring_exchange(operands: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 
 # -- across processes ---------------------------------------------------------
 
+#: entry points of the cross-process form: its exchange, set-up, release
+#: and events (``csrc/ring.cu``)
+_PROCESS_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                     ctypes.c_ulonglong, ctypes.c_void_p, ctypes.c_void_p,
+                     ctypes.c_void_p]
+_PROCESS_ENTRIES = {
+    "exchange": ("smtpu_ring_process_exchange", _PROCESS_ARGTYPES),
+    "init": ("smtpu_ring_process_init", [ctypes.c_int]),
+    "release": ("smtpu_ring_release", [ctypes.c_void_p, ctypes.c_int,
+                                       ctypes.c_int, ctypes.c_ulonglong]),
+    "register": ("smtpu_ring_host_register",
+                 [ctypes.c_void_p, ctypes.c_longlong,
+                  ctypes.POINTER(ctypes.c_void_p)]),
+    "unregister": ("smtpu_ring_host_unregister", [ctypes.c_void_p]),
+    "event_create": ("smtpu_ring_event_create",
+                     [ctypes.POINTER(ctypes.c_void_p)]),
+    "event_query": ("smtpu_ring_event_query", [ctypes.c_void_p]),
+    "event_destroy": ("smtpu_ring_event_destroy", [ctypes.c_void_p]),
+}
+
+#: seconds one poll of the in-process wait kernel takes on the card (a
+#: 100 ns sleep and a system-scope load; 2.49e-7 to 2.52e-7 s on an H100,
+#: ``apps/process_ring_sweep.py``'s ``poll_s``): a cross-process wait's
+#: deadline is ``_MAX_POLLS`` such polls after its send ran (5 s)
+_POLL_S = 2.5e-7
+
+#: cudaErrorNotReady: an event whose work has not run yet
+_NOT_READY = 600
+
+#: bytes of each process's flag segment (dp epochs + a timeout count)
+_FLAG_BYTES = 4096
+
+
+def _libc():
+    """The C library's System V shared memory calls."""
+    lib = ctypes.CDLL(None, use_errno=True)
+    lib.shmget.argtypes = [ctypes.c_int, ctypes.c_size_t, ctypes.c_int]
+    lib.shmget.restype = ctypes.c_int
+    lib.shmat.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+    lib.shmat.restype = ctypes.c_void_p
+    lib.shmdt.argtypes = [ctypes.c_void_p]
+    lib.shmdt.restype = ctypes.c_int
+    lib.shmctl.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.shmctl.restype = ctypes.c_int
+    return lib
+
+
+def _shm_failed(what: str):
+    err = ctypes.get_errno()
+    return OSError(err, f"{what}: {os.strerror(err)}")
+
+
+def shm_create(nbytes: int):
+    """A new zeroed System V segment of ``nbytes``, attached here and
+    already marked for removal (it goes when its last process detaches, so
+    a crash leaks nothing; Linux lets peers attach it until then):
+    ``(id, address)``."""
+    lib = _libc()
+    shmid = lib.shmget(0, nbytes, 0o1000 | 0o600)     # IPC_PRIVATE, IPC_CREAT
+    if shmid < 0:
+        raise _shm_failed("shmget")
+    addr = shm_attach(shmid)
+    if lib.shmctl(shmid, 0, None) != 0:               # IPC_RMID
+        err = _shm_failed("shmctl")
+        lib.shmdt(addr)
+        raise err
+    return shmid, addr
+
+
+def shm_attach(shmid: int) -> int:
+    """Attach the segment ``shmid``: its address in this process."""
+    addr = _libc().shmat(shmid, None, 0)
+    if addr is None or addr == ctypes.c_void_p(-1).value:
+        raise _shm_failed(f"shmat of segment {shmid}")
+    return addr
+
+
+def shm_detach(addr: int) -> None:
+    _libc().shmdt(addr)
+
+
+class _Pending:
+    """One exchange the watchdog follows: its epoch, its two events, its
+    deadline, when its wait was seen to begin and whether it was
+    released."""
+    __slots__ = ("epoch", "sent", "waited", "deadline_s", "since",
+                 "released")
+
+    def __init__(self, epoch, sent, waited, deadline_s):
+        self.epoch, self.sent, self.waited = epoch, sent, waited
+        self.deadline_s = deadline_s
+        self.since = None
+        self.released = False
+
+
+class WaitWatchdog:
+    """Bounds the cross-process waits, which the card's front end holds
+    with no deadline of their own.  Each exchange hands it its epoch, the
+    event recorded after its send (``sent``), the one after its waits
+    (``waited``) and its deadline.  :meth:`poll` retires the exchanges in
+    stream order once ``waited`` has run; the first one whose ``sent`` has
+    run but whose ``waited`` has not ``deadline_s`` after that was seen is
+    released, once: ``release(epoch)`` raises the peers' flag slots to the
+    epoch and counts a timeout.  A daemon thread polls while exchanges are
+    pending, a quarter of the head's deadline apart (within
+    ``MIN_POLL_S``..``MAX_POLL_S``), and sleeps on a condition while none
+    is.  The events are recycled.
+
+    ``query(event)`` is True once the event's work has run;
+    ``create()`` makes an event; ``clock`` gives seconds.  ``thread=False``
+    leaves polling to the caller (tests)."""
+
+    MIN_POLL_S = 1e-3
+    MAX_POLL_S = 0.05
+
+    def __init__(self, query, release, create, clock=time.monotonic,
+                 device=None, thread: bool = True):
+        self._query, self._release, self._create = query, release, create
+        self._clock = clock
+        self._device = device
+        self._threaded = thread
+        self._pending: collections.deque = collections.deque()
+        self._free: list = []
+        self._made: list = []
+        self._cv = threading.Condition()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        #: what stopped the thread (a failed event query), raised to the
+        #: next exchange
+        self.error: Optional[BaseException] = None
+
+    def events(self):
+        """Two events for the next exchange: recycled or new."""
+        with self._cv:
+            if self.error is not None:
+                raise RuntimeError("the cross-process wait watchdog "
+                                   "failed") from self.error
+            if len(self._free) >= 2:
+                return self._free.pop(), self._free.pop()
+        pair = self._create(), self._create()
+        with self._cv:
+            self._made += pair
+        return pair
+
+    def add(self, epoch: int, sent, waited, deadline_s: float) -> None:
+        with self._cv:
+            idle = not self._pending
+            self._pending.append(_Pending(epoch, sent, waited, deadline_s))
+            if self._threaded and self._thread is None:
+                self._thread = threading.Thread(
+                    target=self._loop, name="smtpu-ring-watchdog",
+                    daemon=True)
+                self._thread.start()
+            if idle:
+                self._cv.notify()
+
+    def _interval(self, p: _Pending) -> float:
+        return min(max(p.deadline_s / 4, self.MIN_POLL_S), self.MAX_POLL_S)
+
+    def poll(self, now: float) -> Optional[float]:
+        """Retire the finished exchanges and release the head if its wait
+        outlived its deadline.  Returns the seconds until the next poll is
+        due, None when nothing is pending."""
+        while True:
+            with self._cv:
+                if not self._pending:
+                    return None
+                p = self._pending[0]
+            if self._query(p.waited):
+                with self._cv:
+                    self._pending.popleft()
+                    self._free += (p.sent, p.waited)
+                continue
+            if p.since is None:
+                if not self._query(p.sent):
+                    return self._interval(p)   # its wait has not begun
+                p.since = now
+            if not p.released and now - p.since > p.deadline_s:
+                self._release(p.epoch)
+                p.released = True
+            return self._interval(p)
+
+    def _loop(self) -> None:
+        if self._device is not None:
+            torch.cuda.set_device(self._device)
+        while not self._stop.is_set():
+            with self._cv:
+                while not self._pending and not self._stop.is_set():
+                    self._cv.wait()
+            if self._stop.is_set():
+                return
+            try:
+                wait = self.poll(self._clock())
+            except Exception as e:     # raised to the next exchange
+                with self._cv:
+                    self.error = e
+                return
+            if wait is not None:
+                self._stop.wait(wait)
+
+    def close(self) -> list:
+        """Stop the thread; returns every event it made (to destroy)."""
+        self._stop.set()
+        with self._cv:
+            self._cv.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+        return list(self._made)
+
+
+_ring_serial = 0
+
+
 class ProcessRing:
     """The persistent half of the exchange between the ``dp`` processes of
-    one card: this process's flag array (``dp`` epochs + a timeout count)
-    and two receive buffers, its peers' mapped through CUDA IPC, the
-    device arrays of their addresses, the arrival counters and the
-    epoch.  The receive buffers grow (in every process at the same
+    one card: the flag segments (each process's ``dp`` epochs + a timeout
+    count, in pinned host memory every process maps), two receive buffers
+    a process, its peers' mapped through CUDA IPC, the device arrays of
+    their addresses, the arrival counters, the epoch and the wait
+    watchdog.  The receive buffers grow (in every process at the same
     exchange, since every process exchanges the same shapes) by trading
     new handles."""
 
     def __init__(self, dp: int, rank: int, store, device: torch.device):
+        global _ring_serial
         if torch.cuda.get_allocator_backend() != "native":
             raise RuntimeError("the cross-process exchange shares its "
                                "buffers through CUDA IPC, which needs the "
                                "native caching allocator")
         self.dp, self.rank, self.store = dp, rank, store
         self.device = torch.device(device)
-        self.exchange = build.function("ring", "smtpu_ring_exchange",
-                                       _ARGTYPES)
+        self.fn = {k: build.function("ring", sym, argtypes)
+                   for k, (sym, argtypes) in _PROCESS_ENTRIES.items()}
+        index = self.device.index
+        if index is None:
+            index = torch.cuda.current_device()
+        build.check_launch(
+            "process ring_exchange: the cross-process wait needs the "
+            "card's 64-bit stream memory operations "
+            "(CU_DEVICE_ATTRIBUTE_CAN_USE_64_BIT_STREAM_MEM_OPS)",
+            self.fn["init"](index))
+        _ring_serial += 1
+        self.serial = _ring_serial
         self.epoch = 0
         self.generation = 0
-        self.flags = torch.zeros(dp + 1, dtype=torch.int64, device=device)
+        self._segments: List[int] = []
+        self._registered: List[int] = []
+        self.flag_addrs, flag_devs = self._share_flags()
+        #: this process's flags on the host: dp epochs + the timeout count
+        self.flags = torch.frombuffer(
+            (ctypes.c_int64 * (dp + 1)).from_address(
+                self.flag_addrs[rank]), dtype=torch.int64)
+        self.own_flags = flag_devs[rank]
+        self.flag_ptrs = torch.tensor(flag_devs,
+                                      dtype=torch.int64).to(device)
         self.done = torch.zeros(dp, dtype=torch.int32, device=device)
-        # the peers' mappings stay referenced: a dropped one is unmapped
-        self._peer_flags = self._share("flags", self.flags)
-        self.flag_ptrs = torch.tensor(
-            [t.data_ptr() for t in self._peer_flags],
-            dtype=torch.int64).to(device)
         self.capacity = 0          # bytes of one receive buffer
         self.recv: Optional[torch.Tensor] = None
+        self.watchdog = WaitWatchdog(self._query, self._release,
+                                     self._event, device=self.device)
+
+    def _share_flags(self):
+        """Each process's flag segment: made here (this process's) or
+        attached by the id its owner published, then pinned for the card.
+        Returns the host addresses and the device addresses, in process
+        order."""
+        key = f"smtpu/ring/{self.serial}/flags"
+        shmid, own = shm_create(_FLAG_BYTES)
+        self._segments.append(own)
+        self.store.set(f"{key}/{self.rank}", str(shmid))
+        addrs = []
+        for r in range(self.dp):
+            if r == self.rank:
+                addrs.append(own)
+                continue
+            addr = shm_attach(int(self.store.get(f"{key}/{r}")))
+            self._segments.append(addr)
+            addrs.append(addr)
+        devs = []
+        for addr in addrs:
+            dev = ctypes.c_void_p()
+            build.check_launch("process ring_exchange: pinning the flags",
+                               self.fn["register"](addr, _FLAG_BYTES,
+                                                   ctypes.byref(dev)))
+            self._registered.append(addr)
+            devs.append(dev.value)
+        return addrs, devs
+
+    def _event(self) -> int:
+        ev = ctypes.c_void_p()
+        build.check_launch("process ring_exchange: an event",
+                           self.fn["event_create"](ctypes.byref(ev)))
+        return ev.value
+
+    def _query(self, ev) -> bool:
+        rc = self.fn["event_query"](ev)
+        if rc == _NOT_READY:
+            return False
+        build.check_launch("process ring_exchange: an event query", rc)
+        return True
+
+    def _release(self, epoch: int) -> None:
+        """A wait of ``epoch`` outlived its deadline: raise the peers'
+        slots of this process's flags to it (the stream goes on, its
+        results stale) and count a timeout."""
+        self.fn["release"](self.flag_addrs[self.rank], self.dp, self.rank,
+                           epoch)
 
     def _share(self, name: str, t: torch.Tensor) -> List[torch.Tensor]:
         """Publish ``t``'s IPC handle under ``name`` and map every peer's:
         the dp tensors in process order, this process's own ``t``."""
         from torch.multiprocessing.reductions import (rebuild_cuda_tensor,
                                                       reduce_tensor)
-        key = f"smtpu/ring/{name}/{self.generation}"
+        key = f"smtpu/ring/{self.serial}/{name}/{self.generation}"
         self.store.set(f"{key}/{self.rank}",
                        pickle.dumps(reduce_tensor(t)[1]))
         out = []
@@ -369,7 +672,7 @@ class ProcessRing:
     def _run(self, x: torch.Tensor, block_bytes: int, x_block: int,
              shape) -> torch.Tensor:
         """One exchange: this process's send of its dp blocks (block j at
-        ``j * x_block`` from ``x``) and its wait, then the copy out of the
+        ``j * x_block`` from ``x``) and its waits, then the copy out of the
         ``shape`` blocks received."""
         global process_launches
         if block_bytes == 0:
@@ -378,14 +681,14 @@ class ProcessRing:
         self._ensure(nbytes)
         self.epoch += 1
         parity = self.epoch % 2
-        rc = self.exchange(self.dp, 1, self.rank, 1, block_bytes,
-                           x.data_ptr(), 0, x_block, None, 0,
-                           self.outs[parity].data_ptr(),
-                           self.flag_ptrs.data_ptr(), self.done.data_ptr(),
-                           self.epoch, _MAX_POLLS,
-                           torch.cuda.current_stream(
-                               self.device).cuda_stream)
+        sent, waited = self.watchdog.events()
+        rc = self.fn["exchange"](
+            self.dp, self.rank, block_bytes, x.data_ptr(), x_block,
+            self.outs[parity].data_ptr(), self.flag_ptrs.data_ptr(),
+            self.done.data_ptr(), self.own_flags, self.epoch, sent, waited,
+            torch.cuda.current_stream(self.device).cuda_stream)
         build.check_launch("process ring_exchange", rc)
+        self.watchdog.add(self.epoch, sent, waited, _MAX_POLLS * _POLL_S)
         process_launches += 1
         got = self.recv.view(torch.uint8)[parity * self.capacity:
                                           parity * self.capacity + nbytes]
@@ -408,6 +711,27 @@ class ProcessRing:
         is ``x`` itself (a block stride of 0)."""
         block_bytes = self._check(x, x.shape)
         return self._run(x, block_bytes, 0, (self.dp, *x.shape))
+
+    def timeouts(self) -> int:
+        """Waits released at their deadline since the ring began (a host
+        read)."""
+        return int(self.flags[-1])
+
+    def close(self) -> None:
+        """Stop the watchdog and drop the events, pins and segments (the
+        card's work on them done first)."""
+        for ev in self.watchdog.close():
+            self.fn["event_destroy"](ev)
+        # the peers' buffers unmapped now, as a dropped ring would be (the
+        # watchdog's bound methods keep this object alive until collected)
+        self._peer_recv, self.outs, self.recv = [], [], None
+        for addr in self._registered:
+            self.fn["unregister"](addr)
+        self._registered = []
+        self.flags = self.flags.clone()    # the count outlives the segment
+        for addr in self._segments:
+            shm_detach(addr)
+        self._segments = []
 
 
 _process_rings: Dict[torch.device, ProcessRing] = {}
@@ -434,6 +758,8 @@ def close_process_rings() -> None:
     """Drop the cross-process rings and their mappings (at shutdown)."""
     if _process_rings:
         torch.cuda.synchronize()
+    for pr in _process_rings.values():
+        pr.close()
     _process_rings.clear()
 
 

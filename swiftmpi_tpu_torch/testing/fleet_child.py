@@ -40,10 +40,16 @@ Unlike the JAX child, a rank keeps stepping past its step budget while
 the world is not whole (until it adopts a committed table with every
 rank live), for at most the join timeout: a drill then ends on the
 evidence (the rejoin committed), not on how fast a restarted rank
-started.  It prints
+started.  Once its budget is spent a rank writes ``done_r<rank>`` in
+the fleet directory and leaves only when every live rank of the
+published table has done so too (it syncs first, so a death published
+during its last step keeps it in the loop): no rank leaves while a peer
+it may have to hand rows back to is still short of its budget.  It prints
 ``ELASTIC_CHILD_OK rank=<r> steps=<n> epoch=<e> loss=<l> device=<d>
 launches=<masked gather launches>`` on a clean finish; a stale-epoch
-rejection exits rc 3 (loud, never silent).
+rejection exits rc 3, a rank never (re-)admitted rc 4, and a rank whose
+join timeout passed without a whole world rc 5, with no census (each
+loud on stderr, never silent).
 
 The plain loop prints ``FLEET_CHILD_OK rank=<r> steps=<n>``.
 """
@@ -74,6 +80,19 @@ def whole(worker, world: int) -> bool:
     return t is not None and t.state == COMMITTED and len(t.live) == world
 
 
+def done_path(fleet_dir: str, rank: int) -> str:
+    """The marker a rank's life writes once it has spent its step
+    budget."""
+    return os.path.join(fleet_dir, f"done_r{rank}")
+
+
+def all_done(worker, fleet_dir: str) -> bool:
+    """True once every live rank of the adopted table has spent its step
+    budget: a rank that left earlier could not ack a later rejoin."""
+    return all(os.path.exists(done_path(fleet_dir, r))
+               for r in worker.member_table.live)
+
+
 def elastic_main(rec, reg, rank: int, steps: int, step_s: float,
                  fleet_dir: str, device=None) -> int:
     """Elastic step loop: ElasticWorker under the supervisor-owned member
@@ -101,24 +120,44 @@ def elastic_main(rec, reg, rank: int, steps: int, step_s: float,
     booked_mig = 0
     loss = 0.0
     gather.launches = 0
+
+    def safe_point() -> bool:
+        """Adopt the published table; False when this rank was evicted
+        and never re-admitted."""
+        events = worker.sync()
+        if any(e.get("kind") == "evicted" for e in events) \
+                and not worker.boot(timeout_s=join_timeout):
+            print(f"elastic_child: rank {rank} evicted and never "
+                  "re-admitted", file=sys.stderr)
+            return False
+        return True
+
+    # an earlier life's marker: this life has its budget still to spend
+    if os.path.exists(done_path(fleet_dir, rank)):
+        os.remove(done_path(fleet_dir, rank))
     try:
         if not worker.boot(timeout_s=join_timeout):
             print(f"elastic_child: rank {rank} never admitted within "
                   f"{join_timeout}s", file=sys.stderr)
             return 4
         step, deadline = 0, None
-        while step < steps or not whole(worker, world):
+        while True:
             if step >= steps:
+                if step == steps:
+                    open(done_path(fleet_dir, rank), "w").close()
+                # judged on the published table: the one adopted at the
+                # top of the last step can hide a death published since,
+                # and a rank leaving on it writes a stale census
+                if not safe_point():
+                    return 4
+                if whole(worker, world) and all_done(worker, fleet_dir):
+                    break
                 deadline = deadline or time.monotonic() + join_timeout
                 if time.monotonic() > deadline:
                     break
             faults.step_event(step)       # kill/hang drills fire here
-            events = worker.sync()        # the safe point
-            if any(e.get("kind") == "evicted" for e in events):
-                if not worker.boot(timeout_s=join_timeout):
-                    print(f"elastic_child: rank {rank} evicted and "
-                          "never re-admitted", file=sys.stderr)
-                    return 4
+            if not safe_point():          # the safe point
+                return 4
             with obs.span("dispatch"):
                 loss = worker.step()
                 time.sleep(step_s)
@@ -140,6 +179,17 @@ def elastic_main(rec, reg, rank: int, steps: int, step_s: float,
         print(f"elastic_child: STALE EPOCH on rank {rank}: {e}",
               file=sys.stderr)
         return 3
+    if not (whole(worker, world) and all_done(worker, fleet_dir)):
+        # the join deadline passed first: a census now would report a
+        # world that never converged as a finished one
+        t = worker.member_table
+        done = [r for r in t.live if os.path.exists(done_path(fleet_dir, r))]
+        print(f"elastic_child: rank {rank} stopped after {step} steps "
+              f"without a whole world: {join_timeout}s past its step "
+              f"budget the table at epoch {worker.epoch} is {t.state} "
+              f"with live ranks {sorted(t.live)} of {world}, those past "
+              f"their budgets {done}", file=sys.stderr)
+        return 5
     worker.write_census()
     rec.close()
     print(f"ELASTIC_CHILD_OK rank={rank} steps={step} "

@@ -13,6 +13,14 @@ arrays beside it, then prints ``MP_CHILD_OK <mode> rank=<r>``):
   the CPU also a ``tpu`` pull and push with overflowing buckets
   (:func:`overflow_inputs`), whose rows, table and ``overflow_count()``
   go to ``overflow_r<rank>.npz``.
+* ``progress -out DIR [-rounds R]``: whether a waiting process holds the
+  card (``apps.process_ring_sweep.progress``): process 1's fixed work
+  timed alone and while process 0 waits on its send.
+* ``dead -out DIR``: a peer that never sends: process 0 waits in one
+  all-gather with a deadline of ``DEAD_POLLS`` polls while process 1
+  makes its ring and receive buffers and sends nothing for
+  ``DEAD_HOLD_S``; process 0's wall seconds to its synchronize, and
+  ``timeouts()``.
 * ``exchange -out DIR -rounds R``: R back-to-back cross-process exchanges
   on the card, all-to-all and all-gather, float32, int32 and bfloat16,
   each payload distinct (seeded by round, process and form) and each
@@ -31,10 +39,11 @@ arrays beside it, then prints ``MP_CHILD_OK <mode> rank=<r>``):
   ``w2v_first_step_r0.npz``), ``stall`` (a forced ring timeout, see
   :func:`stall_process_ring`)
   and ``time_exchange`` (time B5's cross-process forms at the run's
-  shapes after training).  The JSON holds the losses, ``train_metrics``,
-  each field's sha256, the kernels' launches in the run and
-  ``ring.timeouts()``; with ``[serve] every`` also whether the last
-  snapshot equals the table.
+  shapes after training, and whether a waiting process holds the card,
+  ``apps.process_ring_sweep.progress``).  The JSON holds the losses,
+  ``train_metrics``, each field's sha256, the kernels' launches in the
+  run and ``ring.timeouts()``; with ``[serve] every`` also whether the
+  last snapshot equals the table.
 
   A spec's ``job`` (default ``w2v``) names one of the data axis's other
   jobs, each writing ``<out>/<job>_r<rank>.json`` and, on process 0,
@@ -253,7 +262,8 @@ def overflow_push(dp: int, me: int) -> dict:
 
 def stall_process_ring(stall: dict, rank: int) -> None:
     """A forced timeout of the cross-process exchange: every ring wait
-    gives up after ``stall["max_polls"]`` polls, and process
+    gives up after ``stall["max_polls"]`` polls (a cross-process wait is
+    released that many ``ring._POLL_S`` after its send ran), and process
     ``stall["rank"]`` holds its stream ``stall["cycles"]`` clock cycles
     before each of its sends, so its peers' waits give up."""
     ring._MAX_POLLS = int(stall["max_polls"])
@@ -265,6 +275,35 @@ def stall_process_ring(stall: dict, rank: int) -> None:
         torch.cuda._sleep(int(stall["cycles"]))
         return run(self, *args)
     ring.ProcessRing._run = late
+
+
+#: ``dead``: process 0's wait deadline in polls (0.2 s) and how long
+#: process 1 holds back
+DEAD_POLLS = 800_000
+DEAD_HOLD_S = 5.0
+
+
+def run_dead() -> dict:
+    me = bootstrap.process_index()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    pr = ring.process_ring(dev)
+    x = torch.ones((64, 8), device=dev)
+    wall = None
+    if me == 0:
+        ring._MAX_POLLS = DEAD_POLLS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = ring.process_all_gather(x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _check(torch.equal(got[0].cpu(), x.cpu()), "the sender's own block")
+    else:
+        # its receive buffers, whose handles process 0 maps, and no send
+        pr._ensure(2 * x.numel() * x.element_size())
+        time.sleep(DEAD_HOLD_S)
+    bootstrap.barrier()
+    return {"rank": me, "wall_s": wall, "timeouts": ring.timeouts(),
+            "epoch": pr.epoch}
 
 
 def run_exchange(out: str, rounds: int) -> dict:
@@ -499,6 +538,8 @@ def run_w2v(spec: dict, run: dict) -> dict:
         result["dumped"] = model.save(spec["dump"])
     if spec.get("time_exchange") and cuda:
         result["exchange"] = _time_exchanges(model, model.device)
+        from swiftmpi_tpu_torch.apps.process_ring_sweep import progress
+        result["progress"] = progress(model.device)
     if spec.get("time_shapes"):
         result["exchange"] = _time_shapes(spec["time_shapes"], model.device)
     run["w2v_model"] = model
@@ -899,6 +940,15 @@ def main(argv=None) -> int:
             bootstrap.init_distributed()
             if mode == "collectives":
                 payload = run_collectives(out, device)
+            elif mode == "dead":
+                payload = run_dead()
+            elif mode == "progress":
+                from swiftmpi_tpu_torch.apps.process_ring_sweep import \
+                    progress
+                payload = progress(
+                    torch.device("cuda", torch.cuda.current_device()),
+                    int(cmd.get_value("rounds", "3")))
+                payload["timeouts"] = ring.timeouts()
             elif mode == "exchange":
                 payload = run_exchange(out, int(cmd.get_value("rounds",
                                                               "500")))

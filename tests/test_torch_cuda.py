@@ -2203,6 +2203,44 @@ def test_cross_process_exchange_on_card(dev, tmp_path):
     assert got[0]["psum_sha"] == got[1]["psum_sha"]
 
 
+def test_a_waiting_process_holds_no_sm_on_card(dev, tmp_path):
+    """While process 0 waits in a cross-process exchange for process 1's
+    send, process 1's fixed work (chained float32 products, ~0.1 s) runs
+    as fast as alone: the wait is a stream wait the card's front end
+    holds, which leaves process 0's context nothing to run, where a
+    waiter kernel made the card time-slice the two contexts (about twice
+    the time).  Median of 3 rounds within 1.3x of alone; every exchange
+    an exact copy, no timeout."""
+    import json
+    res = _launch_children("progress", "-out", str(tmp_path), "-rounds",
+                           "3")
+    assert res.returncode == 0, res.stdout + res.stderr
+    got = [json.loads((tmp_path / f"progress_r{r}.json").read_text())
+           for r in (0, 1)]
+    assert all(g["exact"] and g["timeouts"] == 0 for g in got)
+    alone = float(np.median(got[1]["work_alone_ms"]))
+    during = float(np.median(got[1]["work_during_wait_ms"]))
+    assert during < 1.3 * alone, (alone, during, got[0]["wait_ms"])
+    # process 0 really waited on the work
+    assert float(np.median(got[0]["wait_ms"])) > 0.5 * alone
+
+
+def test_a_dead_peer_releases_the_wait_on_card(dev, tmp_path):
+    """A peer that never sends holds a waiting stream only its deadline:
+    process 0's all-gather (deadline 800,000 polls, 0.2 s) returns well
+    before process 1 sends anything (it holds back 5 s), with one
+    timeout counted on process 0 and none on process 1."""
+    import json
+    from swiftmpi_tpu_torch.testing import mp_child
+    res = _launch_children("dead", "-out", str(tmp_path))
+    assert res.returncode == 0, res.stdout + res.stderr
+    got = [json.loads((tmp_path / f"dead_r{r}.json").read_text())
+           for r in (0, 1)]
+    assert got[0]["timeouts"] == 1 and got[0]["epoch"] == 1
+    assert got[1]["timeouts"] == 0
+    assert got[0]["wall_s"] < 0.5 * mp_child.DEAD_HOLD_S, got
+
+
 def _two_process_spec(tmp_path, steps: int = 1, **extra) -> dict:
     """A 2-process ``xla`` word2vec job of ``steps`` steps at d = 100: its
     spec (written to ``spec.json``), the corpus, vocab, conf, the
@@ -2238,9 +2276,10 @@ def _two_process_spec(tmp_path, steps: int = 1, **extra) -> dict:
 def test_a_ring_timeout_fails_both_processes_on_card(dev, tmp_path):
     """A forced timeout of the cross-process exchange: process 1 holds its
     stream ~25 ms before each send and every wait gives up after 100
-    polls, so process 0's waits give up; ``Word2Vec.train`` sums the
-    count over the processes at the epoch's end and stops the run, and
-    the launch fails (no dump of a corrupted run)."""
+    polls (the watchdog releases a cross-process wait 100 ``_POLL_S``
+    after its send ran), so process 0's waits give up; ``Word2Vec.train``
+    sums the count over the processes at the epoch's end and stops the
+    run, and the launch fails (no dump of a corrupted run)."""
     _two_process_spec(tmp_path, stall={"rank": 1, "max_polls": 100,
                                        "cycles": 50_000_000})
     res = _launch_children("w2v", "-spec", str(tmp_path / "spec.json"))

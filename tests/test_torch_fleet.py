@@ -22,9 +22,11 @@ import shutil
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import torch
 
 from swiftmpi_tpu import launch as jax_launch
 from swiftmpi_tpu.obs.collector import FleetCollector as JaxCollector
@@ -460,6 +462,121 @@ def test_elastic_world_reconverges(elastic_world):
     assert sorted(keys) == list(range(12 * 32))
     ok = [ln for ln in res.stdout.splitlines() if "ELASTIC_CHILD_OK" in ln]
     assert len(ok) == 3 and all("device=cpu" in ln for ln in ok)
+
+
+def test_elastic_child_fails_loudly_without_a_whole_world(tmp_path):
+    """The child's loop with a world that never becomes whole: 2 ranks
+    expected, a committed table with rank 0 alone.  Once its step budget
+    is spent and its join timeout has passed it exits 5 and names the
+    cause on stderr (its step, the table's epoch, state and live ranks),
+    with no ``ELASTIC_CHILD_OK``."""
+    from swiftmpi_tpu_torch.cluster import membership as mem
+    mem.write_membership(str(tmp_path), mem.initial_table(1, 4))
+    env = dict(os.environ, SMTPU_ELASTIC="1", SMTPU_FLEET_DIR=str(tmp_path),
+               SMTPU_NUM_PROCESSES="2", SMTPU_PROCESS_ID="0",
+               SMTPU_ELASTIC_JOIN_TIMEOUT_S="1", SMTPU_FLEET_STEPS="3",
+               SMTPU_FLEET_STEP_S="0.01", SMTPU_ELASTIC_SHARDS="4",
+               SMTPU_ELASTIC_ROWS="8")
+    res = subprocess.run(
+        [sys.executable, "-m", "swiftmpi_tpu_torch.testing.fleet_child",
+         "-device", "cpu"], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=120)
+    assert res.returncode == 5, res.stdout + res.stderr
+    assert "ELASTIC_CHILD_OK" not in res.stdout
+    assert ("elastic_child: rank 0 stopped after" in res.stderr
+            and "without a whole world" in res.stderr
+            and "epoch 0 is committed with live ranks [0] of 2"
+            in res.stderr), res.stderr
+
+
+def _scripted_child(monkeypatch, tmp_path, steps, published, on_sync=None):
+    """``fleet_child.elastic_main`` as rank 0 of 2 over a stand-in worker
+    whose n-th sync adopts ``published(n)`` = (epoch, live ranks), a
+    committed table, and calls ``on_sync(n)``; returns its rc, stdout and
+    every census it wrote."""
+    from swiftmpi_tpu_torch import obs
+    from swiftmpi_tpu_torch.cluster import elastic
+    from swiftmpi_tpu_torch.cluster.membership import COMMITTED
+    from swiftmpi_tpu_torch.testing import fleet_child
+    census = []
+
+    class Worker:
+        def __init__(self, rank, fleet_dir, **kw):
+            self.dim, self.epoch, self.migration_bytes = kw["dim"], 0, 0
+            self.n_owned, self.rows = 4, torch.zeros(1)
+            self.member_table, self.syncs = None, 0
+
+        def boot(self, timeout_s):
+            self.sync()
+            return True
+
+        def sync(self):
+            self.syncs += 1
+            self.epoch, live = published(self.syncs)
+            self.member_table = SimpleNamespace(
+                state=COMMITTED, live=live, epoch=self.epoch)
+            if on_sync is not None:
+                on_sync(self.syncs)
+            return []
+
+        def step(self):
+            return 0.5
+
+        def write_census(self):
+            census.append(self.epoch)
+
+    monkeypatch.setattr(elastic, "ElasticWorker", Worker)
+    monkeypatch.setenv("SMTPU_NUM_PROCESSES", "2")
+    monkeypatch.setenv("SMTPU_ELASTIC_JOIN_TIMEOUT_S", "30")
+    rec = SimpleNamespace(heartbeat=lambda: None, close=lambda: None)
+    rc = fleet_child.elastic_main(rec, obs.get_registry(), 0, steps, 0.0,
+                                  str(tmp_path), device="cpu")
+    return rc, census
+
+
+def test_elastic_child_sees_a_death_published_during_its_last_step(
+        monkeypatch, tmp_path, capsys):
+    """The child judges its world whole on the published table once its
+    budget is spent: a death published during its last step (after that
+    step's sync) keeps it stepping until the rejoin commits, and its
+    census is the rejoined epoch's, not the stale one it last adopted (a
+    stale census at epoch 0 against a fleet at 2 is how the drill failed
+    under load)."""
+    steps = 3
+    (tmp_path / "done_r1").touch()            # the peer spent its budget
+
+    def published(n):
+        # whole at epoch 0 through boot and the budget's syncs, rank 1
+        # dead at epoch 1 from the budget check on, whole at 2 later
+        if n <= 1 + steps:
+            return 0, (0, 1)
+        return (1, (0,)) if n <= 1 + steps + 4 else (2, (0, 1))
+    rc, census = _scripted_child(monkeypatch, tmp_path, steps, published)
+    out = capsys.readouterr().out
+    assert rc == 0 and "ELASTIC_CHILD_OK rank=0" in out and "epoch=2" in out
+    assert census[-1] == 2 and (tmp_path / "done_r0").exists()
+
+
+def test_elastic_child_waits_for_every_live_rank_to_spend_its_budget(
+        monkeypatch, tmp_path, capsys):
+    """A whole world is not enough to leave: a live peer still short of
+    its budget (no ``done_r1`` yet) keeps the child stepping, since a
+    rank that left could not hand rows back to that peer if it died and
+    rejoined.  An earlier life's marker of this rank is removed at
+    start."""
+    steps, seen = 3, {}
+    (tmp_path / "done_r0").touch()            # a predecessor's marker
+
+    def on_sync(n):
+        seen.setdefault("own_at_boot", (tmp_path / "done_r0").exists())
+        if n == 12:
+            (tmp_path / "done_r1").touch()
+        seen["last"] = n
+    rc, census = _scripted_child(monkeypatch, tmp_path, steps,
+                                 lambda n: (0, (0, 1)), on_sync)
+    assert rc == 0 and census[-1] == 0
+    assert seen["own_at_boot"] is False
+    assert seen["last"] >= 12
 
 
 def _serve_drill(d):
