@@ -350,6 +350,25 @@ Phases, each of which raises on a failed check:
    under ``xla``; the ring and stencil sweeps record this card's verdicts
    into a temporary store, ``auto`` follows them, a planted library
    verdict and ignores one from another stack.
+19. the JAX package's last names: (a) on ``gather`` (``inner_steps: 4``,
+   graphed) and ``gather@8``, a model and its eager twin from one table
+   train over a corpus prefix, both ``grow`` to twice their capacity a
+   shard, the probe keys' ``embedding`` rows keep their bits, and both
+   train over the next prefix: the graphs recaptured, B1-B3 (B5 on
+   ``@8``) launched after the growth, the twin's losses within 1e-4 and
+   each field's update after the growth within ``GROW_UPDATE_RTOL`` of
+   the twin's (B3 sums in no fixed order; the card tests hold the
+   growth bit for bit with deterministic sums), the drift from the twin
+   before and after the growth reported, ``embedding_index`` built and
+   queried; B1-B3
+   (B5) timed at the grown table's shapes; (b) ``SGDAccess`` pulls and
+   pushes a real batch's rows through ``xla`` and ``tpu@8`` on the card
+   and on the CPU from the same table: the pull bit for bit, the tables
+   within the envelope; (c) ``reduce_scatter`` and ``pmean`` across the
+   processes, a ``collectives`` job in phase 18's launch, at xla's
+   (90,516, 101) plane and the packed grads: bit for bit to numpy's
+   process-order sum and to gloo, B5 across processes timed beside
+   ``psum_many`` with the byte bound.
 
 The line before the last is the ``{"kernels": [...]}`` summary, each
 kernel's ``launches`` read from the train run of its path (the sent2vec
@@ -359,7 +378,8 @@ over the snapshot, phase 14's from (a)'s and (b)'s processes, phase 15's
 from the second life of (a)'s processes and from (b)'s elastic children,
 as they log them, phase 16's from its jobs' processes, phase 17's from
 (b)'s and (d)'s forward and backward passes, phase 18's from (a)'s bf16
-job's processes); the last is
+job's processes, phase 19's from (a)'s train runs after the growth and
+(c)'s job); the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints neither.
 """
@@ -6138,10 +6158,16 @@ def phase_tfm_processes(card: str) -> tuple:
                        DP_MOE_BATCH, DP_MOE_SEQ)).astype(np.int32)
                        for _ in range(DP_MOE_STEPS)]),
                    opt=opt, mesh={"expert": DP_MOE_RANKS})
+    # phase 19 (c) rides this launch: reduce_scatter and pmean across
+    # the processes, no start-up of its own
+    coll = {"job": "collectives", "device": DEVICE,
+            "out": str(WORK / "phase18" / "collectives"),
+            "shapes": COLL_SHAPES}
     specs = [bf16, f32, moe]
     torch.cuda.empty_cache()
-    got, _, wall = _da_launch(specs, WORK / "phase18", "phase 18")
+    got, _, wall = _da_launch(specs + [coll], WORK / "phase18", "phase 18")
     res = {k: v[0] for k, v in got.items()}
+    collectives = res.pop("collectives")
     toks = {s["out"]: np.load(s["data"])["tokens"] for s in specs}
     held = {}
     for label, spec, rtol, leaves in (
@@ -6182,7 +6208,7 @@ def phase_tfm_processes(card: str) -> tuple:
     if not exchange:
         if DEVICE == "cuda":
             raise AssertionError("phase 18: the bf16 job timed no exchange")
-        return [], counts
+        return [], counts, collectives
     e = exchange[0]
     if e["max_abs_err"] != 0:
         raise AssertionError(f"phase 18: the cross-process exchange is not "
@@ -6207,7 +6233,7 @@ def phase_tfm_processes(card: str) -> tuple:
             "route's ms is on the tfm_processes line",
             "library_ms": None}
     report_cases([case])
-    return [case], counts
+    return [case], counts, collectives
 
 
 def _dpl_model(conf: dict, vocab, data_plane: str) -> Word2Vec:
@@ -6354,11 +6380,323 @@ def phase_data_plane(vocab, corpus: np.ndarray, card: str) -> dict:
 def phase_tfm_dp(vocab, corpus: np.ndarray, card: str) -> tuple:
     """Phase 18: (a), (b) the transformer trainer across processes, (c)
     ``data_plane`` and the verdict store.  Returns B5's case at the
-    grads' packed shape and the launches."""
+    grads' packed shape, the launches, and the processes' JSON of phase
+    19 (c)'s ``collectives`` job, which rides (a)'s launch."""
     t0 = time.perf_counter()
-    cases, counts = phase_tfm_processes(card)
+    cases, counts, collectives = phase_tfm_processes(card)
     counts.update(phase_data_plane(vocab, corpus, card))
     print(f"phase 18 {time.perf_counter() - t0:.1f} s", flush=True)
+    return cases, counts, collectives
+
+
+# -- phase 19: the JAX package's last names: grow, SGDAccess, reduce-scatter --
+
+#: (a): the paths grown mid-run (``grow:<path>``), the corpus prefix of
+#: each of the two ``train`` calls around the growth, and the probe keys
+GROW_PATHS = ("gather", f"gather@{SHARDS}")
+GROW_SENTS = 300
+GROW_PROBES = 64
+#: B3 sums in no fixed order and AdaGrad's first update carries a near-
+#: cancelling sum's last bit far, so at the full width a run and its
+#: eager twin part over tens of steps (a full epoch never matches a
+#: rerun): each field's update over the second ``train`` call (its table
+#: after it less its table after the growth) must lie within this
+#: relative norm of the twin's; a stale graph (one replaying into the
+#: pre-growth tensors) updates nothing, a ratio of 1
+GROW_UPDATE_RTOL = 0.2
+#: (b): SGDAccess's learning rate (the JAX default of the apps' server)
+SGD_LR = 0.7
+#: (c): the collectives job's shapes, ``[label, shape, scatter_dimension]``:
+#: xla's dense plane with its counts column (capacity x (d + 1)) and the
+#: trainer's packed grads (phase 18's 10,488,065 words, one more so they
+#: split over the 2 processes, as JAX's psum_scatter needs)
+COLL_SHAPES = [["xla_plane", [90_516, 101], 0],
+               ["grads_packed", [10_488_066], 0]]
+
+
+def _copy_state(dst: Word2Vec, src: Word2Vec) -> None:
+    for f, v in src.table.state.items():
+        for t, u in zip(*((x if isinstance(x, list) else [x]) for x in (
+                dst.table.state[f], v))):
+            t.copy_(u)
+
+
+def _grow_cases(path: str, model: Word2Vec, batch) -> list:
+    """The kernels at the shapes the grown table gives them: on ``gather``
+    the h pull, the h push with counts and AdaGrad over the grown table;
+    on the sharded path one exchange of h rows, the owners' pull and push
+    on the grown block of shards and AdaGrad over it."""
+    rng = np.random.default_rng(19)
+    dev, d = model.device, model.len_vec
+    flush = torch.zeros(2 * 50 * 2 ** 20 // 4, device=dev)
+    label = f"grow:{path}"
+    state, lr = model.table.state, model.access.learning_rate
+    h_slots, _ = _step_inputs(model, batch, rng)
+    if "@" not in path:
+        cap = model.table.capacity
+        hs, hv = _perturbed(h_slots, cap, rng)
+        accum = torch.as_tensor(rng.random((cap, d), np.float32) * 1e-3,
+                                device=dev)
+        grad = torch.as_tensor(rng.normal(size=(cap, d)).astype(np.float32)
+                               * 1e-2, device=dev)
+        counts = torch.as_tensor(rng.integers(1, 9, cap).astype(np.float32),
+                                 device=dev)
+        return [_gather_case("h pull, grown table", state["h"], hs, hv,
+                             flush, label),
+                _scatter_case("h push, grown table", label, hs, hv, cap, d,
+                              rng, flush),
+                _adagrad_case("grown h table, / counts", label,
+                              state["h"].clone(), accum, grad, lr, flush,
+                              div=counts)]
+    C = h_slots.shape[0] // SHARDS
+    groups, _, cap = model.transfer._route(state, h_slots)
+    owners = ring.ring_exchange_stacked(groups[0].req).view(SHARDS, -1)
+    block = shard_block(state["h"])
+    accum8 = torch.as_tensor(rng.random(block.shape, np.float32) * 1e-3,
+                             device=dev)
+    grad8 = torch.as_tensor(rng.normal(size=block.shape).astype(np.float32)
+                            * 1e-2, device=dev)
+    inv8 = 1.0 / torch.as_tensor(rng.integers(1, 9, block.shape[:2])
+                                 .astype(np.float32), device=dev)
+    return [_ring_case("h rows, grown table", (C, d), torch.float32, rng,
+                       flush, dev, path=label),
+            _gather_case(f"{SHARDS} owners' h pull, grown block", block,
+                         owners, (owners >= 0).contiguous(), flush, label),
+            _scatter_case(f"{SHARDS} owners' h push, grown block", label,
+                          owners, owners >= 0, cap, d, rng, flush),
+            _adagrad_case(f"{SHARDS} grown shards, * 1/counts", label,
+                          block.clone(), accum8, grad8, lr, flush,
+                          mul=inv8)]
+
+
+def phase_grow(path: str, vocab, corpus: np.ndarray, batch,
+               card: str) -> tuple:
+    """(a) on one path: a model and its twin from one table train over a
+    corpus prefix, both grow to twice their capacity a shard, the probe
+    keys' ``embedding`` rows keep their bits, and both train over the next
+    prefix; the model's groups are graphed on ``gather``
+    (``inner_steps: 4``: the growth must recapture them), the twin's
+    eager.  The twin's losses and updates hold the model's; B1-B3 (and B5
+    on the sharded path) launch after the growth; ``embedding_index`` is
+    built and queried."""
+    graphs = "@" not in path
+    worker = {"inner_steps": 4} if graphs else {}
+    model = _model(path, vocab, DEVICE, worker)
+    twin = _model(path, vocab, DEVICE, worker)
+    _copy_state(twin, model)
+    twin._run_group = lambda fields, _graphs, *a: Word2Vec._run_group(
+        twin, fields, False, *a)
+
+    def batcher(lo):
+        return CBOWBatcher(corpus[lo:lo + GROW_SENTS], vocab, model.window,
+                           model.sample, seed=2008)
+
+    for x in (model, twin):
+        x.train(batcher=batcher(0), niters=1, batch_size=BATCH)
+    replays_before = model.train_metrics.get("graph_replays", 0)
+    captured = dict(model._fused_cache)
+    probe = [int(k) for k in vocab.keys[:GROW_PROBES]]
+    before = [np.stack([x.embedding(k) for k in probe])
+              for x in (model, twin)]
+    cap = model.table.key_index.capacity_per_shard
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.grow(2 * cap)
+    torch.cuda.synchronize()
+    grow_s = time.perf_counter() - t0
+    twin.grow(2 * cap)
+    for x, b in zip((model, twin), before):
+        if not np.array_equal(np.stack([x.embedding(k) for k in probe]), b):
+            raise AssertionError(f"phase 19 {path}: the probe rows moved "
+                                 "across the growth")
+    drift_before = {f: _drift(_global(v), _global(twin.table.state[f]))
+                    for f, v in model.table.state.items()}
+    grown = [{f: _global(v).clone() for f, v in x.table.state.items()}
+             for x in (model, twin)]
+    kernels.reset_launches()
+    losses = model.train(batcher=batcher(GROW_SENTS), niters=1,
+                         batch_size=BATCH)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    m = dict(model.train_metrics)
+    twin_losses = twin.train(batcher=batcher(GROW_SENTS), niters=1,
+                             batch_size=BATCH)
+    want = {"gather", "scatter", "adagrad"} | (set() if graphs
+                                               else {"ring"})
+    if {k for k, n in counts.items() if n} != want:
+        raise AssertionError(f"phase 19 {path}: launches after the growth "
+                             f"{counts}, the path's kernels are {want}")
+    if graphs and not (replays_before > 0 and m["graph_replays"] > 0
+                       and model._fused_cache and not any(
+                           model._fused_cache.get(L) is g
+                           for L, g in captured.items())):
+        raise AssertionError(f"phase 19 {path}: graphs not recaptured after "
+                             f"the growth ({replays_before} replays before, "
+                             f"{m['graph_replays']} after)")
+    if not np.allclose(losses, twin_losses, rtol=1e-4, atol=0):
+        raise AssertionError(f"phase 19 {path}: losses {losses} against the "
+                             f"eager twin's {twin_losses}")
+    drift, update_gap = {}, {}
+    for f, v in model.table.state.items():
+        now = [_global(v), _global(twin.table.state[f])]
+        drift[f] = _drift(*now)
+        dm, dt = (n.float() - g[f].float() for n, g in zip(now, grown))
+        update_gap[f] = ((dm - dt).norm() / dt.norm().clamp(min=1e-30)
+                         ).item()
+        if not dt.norm() > 0 or update_gap[f] > GROW_UPDATE_RTOL:
+            raise AssertionError(f"phase 19 {path}: {f}'s update after the "
+                                 f"growth against the eager twin's: "
+                                 f"{update_gap[f]} of its norm ({drift[f]})")
+    t0 = time.perf_counter()
+    index = model.embedding_index()
+    keys, scores = index.neighbors(probe[0], 10)
+    index_s = time.perf_counter() - t0
+    if len(keys) != 10 or not np.isfinite(scores).all() or \
+            not (scores <= 1.0 + 1e-5).all():
+        raise AssertionError(f"phase 19 {path}: embedding_index gave "
+                             f"{keys}, {scores}")
+    _json_line({"phase": "grow", "path": path, "card": card,
+                "capacity_before": cap * model.cluster.n_servers,
+                "capacity_after": model.table.capacity,
+                "generation": model.table.generation, "grow_s": grow_s,
+                "graphed": graphs, "graph_replays_before": replays_before,
+                "graph_replays_after": m.get("graph_replays", 0),
+                "loss": losses, "twin_loss": twin_losses,
+                "steps": m["steps"],
+                "drift_vs_eager_twin_before_growth": drift_before,
+                "drift_vs_eager_twin": drift,
+                "update_gap_vs_eager_twin": update_gap,
+                "launches": counts, "index_build_and_query_s": index_s,
+                "probe_rows_bit_equal": True})
+    cases = _grow_cases(path, model, batch)
+    report_cases(cases)
+    return cases, {f"grow:{path}": counts}
+
+
+def phase_sgd(vocab, batch, card: str) -> tuple:
+    """(b): ``SGDAccess`` (h and v, float32, no accumulator) over the
+    text8-shaped table on ``xla`` and on ``tpu@8``: one step's h pull,
+    its h push (a mean) and its v push, at the slots a real batch gives,
+    on the card and on the CPU's plain path from the same rows: the pull
+    bit for bit, the tables within 1e-5 + 1e-3 |b|."""
+    from swiftmpi_tpu_torch.cluster import ps_mesh
+    from swiftmpi_tpu_torch.parameter import FieldSpec, SGDAccess
+    from swiftmpi_tpu_torch.transfer import get_transfer
+    out = {}
+    for path in ("gather", f"gather@{SHARDS}"):
+        model = _model(path, vocab, DEVICE)
+        d = model.len_vec
+        acc = SGDAccess(SGD_LR, {"h": FieldSpec(d), "v": FieldSpec(d)},
+                        ("h", "v"), ("h", "v"))
+        rng = np.random.default_rng(23)
+        h_slots, v_slots = _step_inputs(model, batch, rng)
+        grads = {"h": rng.normal(size=(h_slots.shape[0], d)).astype(
+            np.float32) * 1e-2,
+            "v": rng.normal(size=(v_slots.shape[0], d)).astype(
+                np.float32) * 1e-2}
+        rows = {f: _global(model.table.state[f]) for f in "hv"}
+        res = {}
+        for where in (DEVICE, "cpu"):
+            sharded = "@" in path
+            mesh = ps_mesh(SHARDS, [where]) if sharded else None
+            state = {f: (split_rows(r, mesh) if sharded else r.clone()
+                         .to(where)) for f, r in rows.items()}
+            t = get_transfer("tpu" if sharded else "xla",
+                             **({"mesh": mesh} if sharded else {}))
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            pulled = t.pull(state, h_slots.to(where), acc, fields=("h",))
+            t.push(state, h_slots.to(where), {"h": torch.as_tensor(
+                grads["h"], device=where)}, acc, mean=True)
+            t.push(state, v_slots.to(where), {"v": torch.as_tensor(
+                grads["v"], device=where)}, acc)
+            if where != "cpu":
+                torch.cuda.synchronize()
+            res[where] = (pulled["h"].cpu(), {f: _global(v) for f, v in
+                                              state.items()},
+                          kernels.launch_counts(), time.perf_counter() - t0,
+                          dict(t.push_paths))
+        card_res, cpu_res = res[DEVICE], res["cpu"]
+        if not torch.equal(card_res[0], cpu_res[0]):
+            raise AssertionError(f"phase 19 SGD {path}: the pull differs")
+        gaps = {}
+        for f in "hv":
+            gaps[f] = _drift(card_res[1][f], cpu_res[1][f])
+            if gaps[f]["share_outside"]:
+                raise AssertionError(f"phase 19 SGD {path}: {f} outside the "
+                                     f"envelope: {gaps[f]}")
+        counts = card_res[2]
+        want = {"gather", "scatter"} | ({"ring"} if "@" in path else set())
+        if DEVICE == "cuda" and {k for k, n in counts.items() if n} != want:
+            raise AssertionError(f"phase 19 SGD {path}: launches {counts}, "
+                                 f"expected {want}")
+        _json_line({"phase": "sgd", "path": path, "card": card,
+                    "h_rows": int(h_slots.shape[0]),
+                    "v_rows": int(v_slots.shape[0]),
+                    "push_paths": card_res[4], "launches": counts,
+                    "wall_s_card": card_res[3], "wall_s_cpu": cpu_res[3],
+                    "gap_vs_cpu": gaps})
+        out[f"sgd:{path}"] = counts
+    return [], out
+
+
+def phase_collectives(got: list, card: str) -> tuple:
+    """(c): the ``collectives`` job of phase 18's launch: ``reduce_scatter``
+    and ``pmean`` across the processes at ``COLL_SHAPES``, held bit for
+    bit (in each process) to numpy's sum in process order and to the gloo
+    route; B5 across processes launched; each one's ms beside
+    ``psum_many``'s at the same shape."""
+    path = f"collectives@dp{len(got)}"
+    if any(g["timeouts"] for g in got):
+        raise AssertionError(f"phase 19 (c): ring waits timed out: {got}")
+    counts = dict(got[0]["launches"])
+    if DEVICE == "cpu":
+        return [], {path: counts}
+    if counts["ring_process"] <= 0 or len(got[0]["timed"]) != \
+            len(COLL_SHAPES):
+        raise AssertionError(f"phase 19 (c): launches {counts}, timed "
+                             f"{got[0]['timed']}")
+    cases = []
+    for i, t in enumerate(got[0]["timed"]):
+        _json_line({"phase": "collectives", "card": card,
+                    "by_process": [g["timed"][i] for g in got]})
+        cases.append({
+            "name": f"ring_exchange (across processes, reduce_scatter of "
+                    f"{t['label']})", "route": "cuda",
+            "source": "swiftmpi_tpu_torch/kernels/csrc/ring.cu",
+            "replaces": "swiftmpi_tpu/ops/pallas_ring.py:86",
+            "module": ring, "counter": "ring_process", "path": path,
+            "shape": f"{t['shape']} float32 a process over {t['dp']}, "
+                     f"scattered on dim {t['scatter_dimension']}",
+            "max_abs_err": t["max_abs_err"],
+            "tolerance": "bit for bit (a sum in process order)",
+            "ms": t["reduce_scatter_ms"],
+            "plain_ms": t["gloo_reduce_scatter_ms"],
+            "bytes": t["reduce_scatter_bytes"], "flops": 0,
+            "library": "none: NCCL runs no two ranks on one card",
+            "library_ms": None})
+    report_cases(cases)
+    return cases, {path: counts}
+
+
+def phase_public(vocab, corpus: np.ndarray, batch, collectives: list,
+                 card: str) -> tuple:
+    """Phase 19: (a) ``Word2Vec.grow`` mid-run, ``embedding`` and
+    ``embedding_index`` on ``gather`` (graphed) and ``gather@8``, (b)
+    ``SGDAccess`` through ``xla`` and ``tpu@8``, (c) ``reduce_scatter``
+    and ``pmean`` across the processes (run in phase 18's launch)."""
+    t0 = time.perf_counter()
+    cases, counts = [], {}
+    for path in GROW_PATHS:
+        c, n = phase_grow(path, vocab, corpus, batch, card)
+        cases += c
+        counts.update(n)
+        torch.cuda.empty_cache()
+    counts.update(phase_sgd(vocab, batch, card)[1])
+    c, n = phase_collectives(collectives, card)
+    cases += c
+    counts.update(n)
+    print(f"phase 19 {time.perf_counter() - t0:.1f} s", flush=True)
     return cases, counts
 
 
@@ -6474,9 +6812,13 @@ def main() -> int:
     tfm_cases, tfm_counts = phase_transformer(card)
     cases += tfm_cases
     counts.update(tfm_counts)
-    dp_cases, dp_counts = phase_tfm_dp(vocab, corpus, card)
+    dp_cases, dp_counts, collectives = phase_tfm_dp(vocab, corpus, card)
     cases += dp_cases
     counts.update(dp_counts)
+    pub_cases, pub_counts = phase_public(vocab, corpus, batch, collectives,
+                                         card)
+    cases += pub_cases
+    counts.update(pub_counts)
 
     summary = []
     for c in cases:

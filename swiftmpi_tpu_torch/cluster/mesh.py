@@ -27,6 +27,7 @@ import torch
 from swiftmpi_tpu_torch.device import DeviceLike, resolve_device
 
 DATA_AXIS = "data"
+MODEL_AXIS = "model"
 SHARD_AXIS = "shard"
 
 

@@ -17,24 +17,16 @@ the device.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterator, List, Sequence
+from typing import Dict, Iterator, List, Sequence
 
 import numpy as np
 
 from swiftmpi_tpu_torch.ops.sampling import subsample_keep_prob
+from swiftmpi_tpu_torch.utils.hashing import bkdr_hash
 
 _M64 = (1 << 64) - 1
 #: longest sentence the loader keeps in one piece
 MAX_SENTENCE_LENGTH = 1000
-
-
-def bkdr_hash(s: str, seed: int = 13131, bits: int = 32) -> int:
-    """Polynomial string hash (reference string.h:130-137)."""
-    mask = (1 << bits) - 1
-    h = 0
-    for ch in s.encode("utf-8"):
-        h = (h * seed + ch) & mask
-    return h
 
 
 @dataclass
@@ -49,14 +41,20 @@ class Vocab:
     def total_words(self) -> int:
         return int(self.counts.sum())
 
-    def index_of(self, key: int):
-        """Vocab index for a raw token key (negative ints wrap to uint64,
-        matching storage), or None if OOV."""
+    @property
+    def index(self) -> Dict[int, int]:
+        """uint64 key -> vocab index (the JAX ``Vocab``'s third field),
+        built on first use from ``keys``; treat it as read-only."""
         index = self.__dict__.get("_index")
         if index is None:
             index = self.__dict__["_index"] = {
                 int(k): i for i, k in enumerate(self.keys.tolist())}
-        return index.get(int(key) & _M64)
+        return index
+
+    def index_of(self, key: int):
+        """Vocab index for a raw token key (negative ints wrap to uint64,
+        matching storage), or None if OOV."""
+        return self.index.get(int(key) & _M64)
 
 
 #: key modes: ``int`` for the sync variant, ``bkdr`` for async and hogwild
@@ -377,6 +375,23 @@ class CBOWBatcher:
                     sid, st.ns = 0, 1
         if st.nc:
             yield st.flush()
+
+    def epoch_prefetch(self, batch_size: int, depth: int = 4
+                       ) -> Iterator[CBOWBatch]:
+        """:meth:`epoch` through a background producer thread
+        (``io.pipeline.PrefetchIterator``), ``depth`` batches ahead: the
+        same batches in the same order from the same draws, built on the
+        host (the thread makes no tensor)."""
+        from swiftmpi_tpu_torch.io.pipeline import PrefetchIterator
+        return PrefetchIterator(self.epoch(batch_size), depth=depth,
+                                name="cbow-epoch-prefetch")
+
+    def epoch_stencil_prefetch(self, batch_size: int, depth: int = 4
+                               ) -> Iterator[StencilBatch]:
+        """:meth:`epoch_stencil` through the same background producer."""
+        from swiftmpi_tpu_torch.io.pipeline import PrefetchIterator
+        return PrefetchIterator(self.epoch_stencil(batch_size),
+                                depth=depth, name="cbow-stencil-prefetch")
 
 
 def synthetic_corpus(n_sentences: int, vocab_size: int, length: int = 20,

@@ -109,6 +109,17 @@ def _max_feats(data) -> int:
     return max(len(f) for _, f in data)
 
 
+def lr_formatter(row: Dict[str, np.ndarray]) -> str:
+    """Reference LRParam operator<<: just the weight (lr.cpp:24-27)."""
+    return repr(float(row["val"][0]))
+
+
+def lr_parser(text: str) -> Dict[str, np.ndarray]:
+    """The weight back from :func:`lr_formatter`'s text, as a ``(1,)``
+    float32 row."""
+    return {"val": np.array([float(text.split()[0])], np.float32)}
+
+
 class LogisticRegression:
     def __init__(self, config: Optional[ConfigParser] = None,
                  cluster: Optional[Cluster] = None,

@@ -209,7 +209,8 @@ from swiftmpi_tpu_torch.parameter.key_index import (CapacityError,
                                                     price_hot_collectives,
                                                     window_wire_format)
 from swiftmpi_tpu_torch.parameter.sparse_table import (hot_name,
-                                                       shard_block)
+                                                       shard_block,
+                                                       tensor_to_numpy)
 from swiftmpi_tpu_torch.transfer.plan import COLLECTIVE_MODES
 from swiftmpi_tpu_torch.testing import faults
 from swiftmpi_tpu_torch.transfer import PushSpec
@@ -546,11 +547,13 @@ class Word2Vec:
         self.access = w2v_access(server_lr, self.len_vec,
                                  param_dtype=self.param_dtype)
         self.transfer = self.cluster.transfer
+        #: ``[cluster] data_plane``: ``auto``, ``pallas`` or ``xla``
+        self.data_plane = self.cluster.data_plane
         #: the stencil's neu1 route on ``xla`` (``[cluster] data_plane``
         #: through ``ops.calibration.route``): ``"kernel"`` (B4) or
         #: ``"library"`` (the JAX package's chain of torch ops)
         self.stencil_route = (
-            route(self.cluster.data_plane, "stencil_fused", self.device)
+            route(self.data_plane, "stencil_fused", self.device)
             if self.stencil and self.transfer.name == "xla" else None)
         self._capacity_per_shard = capacity_per_shard
         self.table: Optional[SparseTable] = None
@@ -2090,6 +2093,43 @@ class Word2Vec:
         slots = torch.as_tensor(self.table.key_index.lookup(self.vocab.keys),
                                 dtype=torch.int32)
         self._slot_of_vocab.copy_(slots)
+
+    def grow(self, new_capacity_per_shard: int) -> None:
+        """Mid-run table growth (the reference's dense_hash_map
+        self-growth, sparsetable.h:17-149, here an explicit re-layout;
+        JAX ``Word2Vec.grow``): :meth:`SparseTable.grow`, then the
+        fix-ups it leaves.  The vocab's slot map is re-read in place.  The
+        pull cache starts cold, since the ``@rowver`` plane moved with its
+        rows and a slot-keyed shadow could hit on another key's stamp.
+        The captured graphs need nothing here: the table's new tensors
+        and generation change ``_graph_key``, so the next group of each
+        length recaptures; the transfers' plans are keyed by capacity."""
+        self.table.grow(new_capacity_per_shard)
+        self._remap_vocab()
+        self.transfer.pull_shadow_flush()
+
+    def embedding(self, key: int) -> Optional[np.ndarray]:
+        """The input-side (v) row of an external key, from the hot head
+        or the tail, as a host array in the field's dtype; None for a key
+        the table does not hold."""
+        ki = self.table.key_index
+        if key not in ki:
+            return None
+        row = self.table.unified_rows("v", [ki.slot(key)])[0]
+        return tensor_to_numpy(row)
+
+    def embedding_index(self, field: str = "v"):
+        """Cosine-similarity index over the live table's ``field`` rows of
+        the vocab (``.neighbors(key)``, ``.analogy(a, b, c)``), on the
+        model's device: a snapshot, to be rebuilt to see newer updates."""
+        from swiftmpi_tpu_torch.models.embedding import EmbeddingIndex
+        if self.vocab is None:
+            raise RuntimeError(
+                "no vocab; build()/build_from_vocab() first (after a "
+                "bare load(), use EmbeddingIndex.from_text on the dump)")
+        slots = self._slot_of_vocab.cpu().numpy()
+        vecs = self.table.unified_rows_host(field, upcast=True)[slots]
+        return EmbeddingIndex(self.vocab.keys, vecs, device=self.device)
 
     def resume(self, checkpoint_path: str) -> int:
         """Restore a mid-training checkpoint in place (either package's

@@ -400,6 +400,13 @@ class NumericsCollector:
         return {"latest": latest, "ef_mass": ef, "nonfinite": nonfinite,
                 "bundles": int(bundles), "quant_err": quant}
 
+    def sync(self) -> None:
+        """The JAX collector's safe point, where its in-flight debug
+        callbacks land.  Nothing is in flight here: a dispatch stages
+        its bundle into device buffers in stream order, and
+        :meth:`read` copies them, which waits for the stream.  So this
+        does nothing, and every read is already whole."""
+
     @property
     def bundles(self) -> int:
         """Dispatch bundles staged so far (train_metrics surface)."""

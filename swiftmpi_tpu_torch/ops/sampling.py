@@ -103,3 +103,25 @@ def sample_alias_slots_from_draws(j: torch.Tensor, u: torch.Tensor,
     ``neg_slots`` has ``slot_of_vocab``'s type."""
     negs = sample_alias_from_draws(j, u, prob, alias)
     return negs, slot_of_vocab[negs]
+
+
+def sample_alias(generator: torch.Generator, prob: torch.Tensor,
+                 alias: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
+    """Categorical draws of ``shape`` from the alias tables, on their
+    device: :func:`alias_draws` from ``generator``, resolved by
+    :func:`sample_alias_from_draws` (int64 vocab indices).  JAX draws
+    ``(j, u)`` from a ``jax.random`` key instead; the same ``(j, u)``
+    resolve to the same indices in both packages."""
+    j, u = alias_draws(generator, prob.shape[0], shape, device=prob.device)
+    return sample_alias_from_draws(j, u, prob, alias)
+
+
+def sample_alias_slots(generator: torch.Generator, prob: torch.Tensor,
+                       alias: torch.Tensor, slot_of_vocab: torch.Tensor,
+                       shape: Tuple[int, ...]
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`sample_alias` fused with the vocab -> slot map:
+    ``(negs, neg_slots)`` with ``neg_slots == slot_of_vocab[negs]``, from
+    the same draws :func:`sample_alias` takes from the generator."""
+    j, u = alias_draws(generator, prob.shape[0], shape, device=prob.device)
+    return sample_alias_slots_from_draws(j, u, prob, alias, slot_of_vocab)

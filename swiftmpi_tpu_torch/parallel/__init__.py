@@ -9,9 +9,11 @@ all-to-alls go through B5 on the card, forward and backward."""
 from swiftmpi_tpu_torch.parallel.collectives import (all_gather, all_to_all,
                                                      axis_index, axis_size,
                                                      host_agree, host_psum,
-                                                     psum, psum_many,
+                                                     pmean, psum, psum_many,
                                                      rank_all_to_all,
                                                      rank_pmean, rank_psum,
+                                                     rank_reduce_scatter,
+                                                     reduce_scatter,
                                                      ring_permute)
 from swiftmpi_tpu_torch.parallel.moe import (EXPERT_AXIS, MoEParams,
                                              init_moe_params, moe_ffn,
@@ -25,8 +27,9 @@ from swiftmpi_tpu_torch.parallel.ring_attention import (SEQ_AXIS,
                                                         ulysses_attention)
 
 __all__ = ["all_gather", "all_to_all", "axis_index", "axis_size",
-           "host_agree", "host_psum", "psum", "psum_many",
-           "rank_all_to_all", "rank_pmean", "rank_psum", "ring_permute",
+           "host_agree", "host_psum", "pmean", "psum", "psum_many",
+           "rank_all_to_all", "rank_pmean", "rank_psum",
+           "rank_reduce_scatter", "reduce_scatter", "ring_permute",
            "SEQ_AXIS", "full_attention", "ring_attention",
            "ulysses_attention", "STAGE_AXIS", "pipeline_apply",
            "pipeline_loss", "stack_stage_params", "EXPERT_AXIS",

@@ -23,6 +23,8 @@ dim (JAX's ``ppermute`` is no Pallas kernel); :func:`rank_all_to_all`
 is JAX's tiled ``all_to_all`` through B5's stacked exchange
 (``kernels.ring.RingExchange``, which launches the kernel for a CUDA
 tensor, forward and backward, and runs the plain version for a CPU one);
+:func:`rank_reduce_scatter` is JAX's tiled ``reduce_scatter`` through
+the same exchange, each rank summing its received blocks in source order;
 :func:`rank_psum` and :func:`rank_pmean` reduce the rank dim to the one
 value every rank holds.
 """
@@ -149,6 +151,37 @@ def psum(x: torch.Tensor, axis: str = DATA_AXIS) -> torch.Tensor:
     return psum_many([x], axis)[0]
 
 
+def pmean(x: torch.Tensor, axis: str = DATA_AXIS) -> torch.Tensor:
+    """The mean of every process's ``x``: :func:`psum` (in process order)
+    over the process count."""
+    return psum(x, axis) / axis_size(axis)
+
+
+def reduce_scatter(x: torch.Tensor, axis: str = DATA_AXIS, *,
+                   scatter_dimension: int = 0) -> torch.Tensor:
+    """JAX's tiled ``psum_scatter``: ``x`` is cut along
+    ``scatter_dimension`` into ``dp`` blocks, and process j gets the sum
+    over the processes of their block j, summed in process order.  Each
+    process sends block j to process j (:func:`all_to_all`: B5 across
+    processes for a CUDA tensor, gloo for a CPU one), so it moves ``1/dp``
+    of the bytes that :func:`psum`'s all-gather moves."""
+    _check_axis(axis)
+    dp = bootstrap.process_count()
+    d = scatter_dimension % x.dim()
+    if x.shape[d] % dp:
+        raise ValueError(f"reduce_scatter: dim {d} of size {x.shape[d]} "
+                         f"does not split over {dp} processes")
+    if dp == 1:
+        return x.clone()
+    y = x.movedim(d, 0)
+    got = ring.process_all_to_all(
+        y.reshape(dp, y.shape[0] // dp, *y.shape[1:]).contiguous())
+    acc = got[0].clone()
+    for part in got[1:]:
+        acc += part
+    return acc.movedim(0, d)
+
+
 def host_psum(values: Sequence[float]) -> List[float]:
     """Host numbers summed over the processes in process order (float64,
     over gloo): the epoch's loss sums."""
@@ -208,6 +241,27 @@ def rank_all_to_all(x: torch.Tensor, split_axis: int,
     got = ring.RingExchange.apply(y)           # (n, n_src, *chunk)
     got = got.movedim(1, 1 + c)
     return got.reshape(n, *chunk[:c], n * chunk[c], *chunk[c + 1:])
+
+
+def rank_reduce_scatter(x: torch.Tensor, *,
+                        scatter_dimension: int = 0) -> torch.Tensor:
+    """JAX's tiled ``reduce_scatter`` over the ranks of ``x``'s leading
+    dim: rank ``r``'s local ``x[r]`` is cut along ``scatter_dimension`` (a
+    local dim) into n blocks, and rank ``j`` gets the sum over the ranks
+    of their block ``j``, in rank order.  The blocks go through B5's
+    stacked exchange (``kernels.ring.RingExchange``, forward and
+    backward), then each rank sums what it received."""
+    n, local = x.shape[0], tuple(x.shape[1:])
+    s = scatter_dimension % len(local)
+    if local[s] % n:
+        raise ValueError(f"reduce_scatter: dim {s} of size {local[s]} does "
+                         f"not split over {n} ranks")
+    y = x.reshape(n, *local[:s], n, local[s] // n, *local[s + 1:])
+    got = ring.RingExchange.apply(y.movedim(1 + s, 1).contiguous())
+    acc = got[:, 0]
+    for j in range(1, n):
+        acc = acc + got[:, j]
+    return acc
 
 
 def rank_psum(x: torch.Tensor) -> torch.Tensor:

@@ -2,12 +2,13 @@
 
 from swiftmpi_tpu_torch.parameter.access import (AccessMethod, AdaGradAccess,
                                                  AdaGradRule, FieldSpec,
-                                                 lr_access, uniform01_init,
+                                                 SGDAccess, lr_access,
+                                                 uniform01_init,
                                                  vec_rand_init, w2v_access,
                                                  zeros_init)
 from swiftmpi_tpu_torch.parameter.key_index import CapacityError, KeyIndex
 from swiftmpi_tpu_torch.parameter.sparse_table import SparseTable
 
 __all__ = ["AccessMethod", "AdaGradAccess", "AdaGradRule", "CapacityError",
-           "FieldSpec", "KeyIndex", "SparseTable", "lr_access",
+           "FieldSpec", "KeyIndex", "SGDAccess", "SparseTable", "lr_access",
            "uniform01_init", "vec_rand_init", "w2v_access", "zeros_init"]

@@ -19,7 +19,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from swiftmpi_tpu_torch.kernels.adagrad import (adagrad_update_,
+from swiftmpi_tpu_torch.kernels.adagrad import (_scaled, adagrad_update_,
                                                 adagrad_update_rows_)
 
 Initializer = Callable[[torch.Generator, Tuple[int, ...], torch.device],
@@ -165,6 +165,63 @@ class AdaGradAccess(AccessMethod):
             if r.grad in gf:
                 out += [r.param, r.accum]
         return tuple(out)
+
+
+class SGDAccess(AccessMethod):
+    """Plain additive SGD, ``param += lr * g``, with no accumulator: not
+    in the reference, the JAX package's second access method.
+
+    JAX computes it in XLA outside any Pallas kernel, so plain torch
+    elementwise ops are its form here on every device: ``lr * g`` in
+    float32, then the add, in place.  A bfloat16 param adds in float32
+    and rounds once on store, keeping its dtype (JAX's ``params + lr *
+    grads`` promotes the field to float32 instead; ROADMAP C).  The row
+    form compacts the kept rows on the device (``nonzero``), so it reads
+    their count back and is not for a captured graph."""
+
+    def __init__(self, learning_rate: float, fields: Dict[str, FieldSpec],
+                 pull_fields: Tuple[str, ...],
+                 grad_fields: Tuple[str, ...]):
+        self.learning_rate = float(learning_rate)
+        self.fields = dict(fields)
+        self.pull_fields = tuple(pull_fields)
+        self.grad_fields = tuple(grad_fields)
+
+    def _add(self, param: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        step = self.learning_rate * g
+        if param.dtype == torch.float32:
+            return param.add_(step)
+        return param.copy_(param.float() + step)
+
+    def apply_push(self, params, grads, mul=None, div=None):
+        out = {}
+        for name in self.grad_fields:
+            if name in grads:
+                out[name] = self._add(params[name],
+                                      _scaled(grads[name], mul, div))
+        return out
+
+    def apply_push_rows(self, state, slots, mask, grads, mul=None):
+        out = {}
+        keep = None
+        for name in self.grad_fields:
+            if name not in grads:
+                continue
+            param = state[name]
+            if keep is None:
+                keep = (slots >= 0) & (slots < param.shape[0])
+                if mask is not None:
+                    keep &= mask
+                rows = keep.nonzero().view(-1)
+                tgt = slots[rows].long()
+                m = None if mul is None else mul[rows]
+            p = param.index_select(0, tgt)
+            self._add(p, _scaled(grads[name][rows], m, None))
+            out[name] = param.index_copy_(0, tgt, p)
+        return out
+
+    def touched_fields(self, grad_fields):
+        return tuple(f for f in self.grad_fields if f in set(grad_fields))
 
 
 def lr_access(learning_rate: float) -> AdaGradAccess:

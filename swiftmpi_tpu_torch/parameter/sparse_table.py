@@ -385,6 +385,17 @@ class SparseTable:
     def capacity(self) -> int:
         return self.key_index.capacity
 
+    @property
+    def num_rows(self) -> int:
+        """Occupied rows (reference SparseTable::size, sparsetable.h:135)."""
+        return len(self.key_index)
+
+    def rows_as_numpy(self) -> Dict[str, np.ndarray]:
+        """Host copies of every field of the state, hot planes and side
+        planes included, in its own dtype (bfloat16 as
+        ``ml_dtypes.bfloat16``): :meth:`to_numpy` without the upcast."""
+        return self.to_numpy()
+
     def to_numpy(self, upcast: bool = False) -> Dict[str, np.ndarray]:
         """Host copies of every field, indexed by global slot: a sharded
         table's shards concatenated in shard order (see

@@ -81,6 +81,10 @@ arrays beside it, then prints ``MP_CHILD_OK <mode> rank=<r>``):
     the timing and ``time_exchange`` times B5's cross-process all-gather
     at the grads' packed shape.  The JSON holds the losses, each leaf's
     sha256, the launches, step ms and global tokens/s.
+  * ``collectives``: ``reduce_scatter`` and ``pmean`` over the processes
+    at the spec's ``shapes`` (:func:`run_collectives_job`), held against
+    numpy and, on the card, against gloo, and timed there beside
+    ``psum_many``.
 """
 
 from __future__ import annotations
@@ -358,6 +362,24 @@ def _time_exchanges(model, device) -> list:
                                           d + 2))], device)
 
 
+def _events_ms(fn, reps: int) -> float:
+    """Mean ms of ``fn()`` over ``reps`` back-to-back calls on the card,
+    by CUDA events, after 3 warm calls; the processes start together."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    bootstrap.barrier()
+    s, e = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    bootstrap.barrier()
+    return s.elapsed_time(e) / reps
+
+
 def _time_shapes(shapes, device) -> list:
     """B5's cross-process all-gather timed at each ``(label, (rows,
     words))`` shape, against gloo on the same words (the plain version)
@@ -369,22 +391,8 @@ def _time_shapes(shapes, device) -> list:
         want = ring.process_all_gather_plain(x.cpu())
         got = ring.process_all_gather(x)
         err = float((got.cpu() - want).abs().max())
-        torch.cuda.synchronize()
-        bootstrap.barrier()
         reps = 20
-        for _ in range(3):
-            ring.process_all_gather(x)
-        torch.cuda.synchronize()
-        bootstrap.barrier()
-        s, e = (torch.cuda.Event(enable_timing=True),
-                torch.cuda.Event(enable_timing=True))
-        s.record()
-        for _ in range(reps):
-            ring.process_all_gather(x)
-        e.record()
-        torch.cuda.synchronize()
-        ms = s.elapsed_time(e) / reps
-        bootstrap.barrier()
+        ms = _events_ms(lambda: ring.process_all_gather(x), reps)
         xc = x.cpu()
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -908,8 +916,83 @@ def run_trainer(spec: dict, run: dict) -> dict:
     return out
 
 
+def run_collectives_job(spec: dict, run: dict) -> dict:
+    """``reduce_scatter`` and ``pmean`` over the processes at each of the
+    spec's ``shapes`` (``[label, shape, scatter_dimension]``), on every
+    process's seeded float32 part: each held bit for bit against numpy's
+    sum in process order; on the card also against the gloo route on the
+    same parts (bit for bit), and timed beside ``psum_many``'s all-gather
+    of the same tensor.  Each process writes its results as
+    ``collectives_state_r<rank>.npz`` (``rs__<label>``, ``pm__<label>``)."""
+    from swiftmpi_tpu_torch.parallel.collectives import (pmean, psum_many,
+                                                         reduce_scatter)
+    bootstrap.init_distributed()
+    device = spec.get("device", "cuda")
+    cuda = torch.device(device).type == "cuda"
+    dp, me = bootstrap.process_count(), bootstrap.process_index()
+    _reset_launches()
+    arrays, timed = {}, []
+    for label, shape, dim in spec["shapes"]:
+        parts = [_part(300 + r, tuple(shape), np.float32)
+                 for r in range(dp)]
+        x = _to(parts[me], device)
+        total = parts[0].copy()
+        for p in parts[1:]:
+            total += p
+        block = total.shape[dim] // dp
+        want_rs = np.take(total, np.arange(me * block, (me + 1) * block),
+                          axis=dim)
+        rs = reduce_scatter(x, scatter_dimension=dim)
+        pm = pmean(x)
+        _check(np.array_equal(rs.cpu().numpy(), want_rs),
+               f"reduce_scatter of {label}")
+        _check(np.array_equal(pm.cpu().numpy(), total / np.float32(dp)),
+               f"pmean of {label}")
+        arrays[f"rs__{label}"] = rs.cpu().numpy()
+        arrays[f"pm__{label}"] = pm.cpu().numpy()
+        if not cuda:
+            continue
+        xc = x.cpu()
+        _check(torch.equal(reduce_scatter(xc, scatter_dimension=dim),
+                           rs.cpu()), f"reduce_scatter of {label} on gloo")
+        _check(torch.equal(pmean(xc), pm.cpu()), f"pmean of {label} on gloo")
+        reps = int(spec.get("reps", 20))
+        n = x.numel()
+        rs_ms = _events_ms(lambda: reduce_scatter(x, scatter_dimension=dim),
+                           reps)
+        pm_ms = _events_ms(lambda: pmean(x), reps)
+        ps_ms = _events_ms(lambda: psum_many([x]), reps)
+        bootstrap.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            reduce_scatter(xc, scatter_dimension=dim)
+        gloo_ms = (time.perf_counter() - t0) * 1e3 / reps
+        bootstrap.barrier()
+        # the least bytes: every process's part read once, every
+        # process's n / dp result words written once
+        rs_bytes = 4 * n * (dp + 1)
+        # psum and pmean: every part read once, every process's n-word
+        # result written once
+        ps_bytes = 4 * n * 2 * dp
+        timed.append({"label": label, "shape": list(shape), "dp": dp,
+                      "scatter_dimension": dim, "reduce_scatter_ms": rs_ms,
+                      "pmean_ms": pm_ms, "psum_many_ms": ps_ms,
+                      "gloo_reduce_scatter_ms": gloo_ms,
+                      "reduce_scatter_bytes": rs_bytes,
+                      "reduce_scatter_bound_ms": rs_bytes / 3.35e12 * 1e3,
+                      "psum_bytes": ps_bytes,
+                      "psum_bound_ms": ps_bytes / 3.35e12 * 1e3,
+                      "max_abs_err": 0.0})
+    launches = _launch_counts()
+    np.savez(os.path.join(spec["out"], f"collectives_state_r{me}.npz"),
+             **arrays)
+    return {"rank": me, "dp": dp, "launches": launches, "timed": timed,
+            "timeouts": ring.timeouts() if cuda else 0}
+
+
 JOBS = {"w2v": run_w2v, "window": run_window, "lr": run_lr,
-        "glove": run_glove, "s2v": run_s2v, "trainer": run_trainer}
+        "glove": run_glove, "s2v": run_s2v, "trainer": run_trainer,
+        "collectives": run_collectives_job}
 
 
 def main(argv=None) -> int:

@@ -891,9 +891,7 @@ class Transfer:
         a dense push as every row without the index, a sparse one as its
         valid rows."""
         capacity = next(iter(state.values())).shape[0]
-        # the global batch, as the JAX package's global arrays see it
-        dense = slots.shape[0] * self.dp >= int(
-            capacity / self.wire_dense_ratio("push_apply"))
+        dense = self._push_is_dense(slots, capacity)
         self.push_paths[f"{','.join(grads)}:"
                         f"{'dense' if dense else 'sparse'}"] += 1
         if self.count_traffic:
@@ -907,6 +905,13 @@ class Transfer:
         if dense:
             return self._push_dense(state, slots, grads, access, mean)
         return self._push_sparse(state, slots, grads, access, mean)
+
+    def _push_is_dense(self, slots: torch.Tensor, capacity: int) -> bool:
+        """:meth:`push`'s crossover: dense once the global batch (as the
+        JAX package's global arrays see it) reaches ``capacity / ratio``
+        rows."""
+        return slots.shape[0] * self.dp >= int(
+            capacity / self.wire_dense_ratio("push_apply"))
 
     def push_span(self, state: TableState, slots: torch.Tensor, grads,
                   counts: torch.Tensor, access: AccessMethod,

@@ -97,6 +97,25 @@ class HybridTransfer(Transfer):
     def n(self) -> int:
         return self.tail.n
 
+    @property
+    def mesh(self):
+        return self.tail.mesh
+
+    @property
+    def metrics(self):
+        """The tail's ``utils.timers.Metrics`` (or None): the tail's
+        gauges and :meth:`traffic`'s ``transfer_hot_rows`` and
+        ``transfer_psum_bytes``."""
+        return self.tail.metrics
+
+    @metrics.setter
+    def metrics(self, m):
+        self.tail.metrics = m
+
+    @property
+    def bucket_capacity(self) -> Optional[int]:
+        return self.tail.bucket_capacity
+
     def set_data_axis(self, dp: int, rank: int) -> None:
         super().set_data_axis(dp, rank)
         self.tail.set_data_axis(dp, rank)
@@ -170,6 +189,9 @@ class HybridTransfer(Transfer):
                "psum_bytes": self._count("psum_bytes") + t["psum_bytes"],
                "overflow_dropped": t["overflow_dropped"]}
         out.update({k: t[k] + w[k] for k in WIRE_KEYS})
+        if self.metrics is not None:
+            self.metrics.set("transfer_hot_rows", out["hot_rows"])
+            self.metrics.set("transfer_psum_bytes", out["psum_bytes"])
         return out
 
     # the pull is the base interpreter's hot_split placement

@@ -222,6 +222,9 @@ class ShardedTransfer(Transfer):
                                     mesh.devices[0])
         self.bucket_capacity = bucket_capacity
         self.debug_overflow = debug_overflow
+        #: an optional ``utils.timers.Metrics``: :meth:`overflow_count` and
+        #: :meth:`routed_rows` mirror their totals into it as gauges
+        self.metrics = None
         self._overflow_total = 0
         self._overflow_pending: list = []      # device scalars, read lazily
         #: (device, its ranks): the ranks of one device are routed in one
@@ -271,6 +274,9 @@ class ShardedTransfer(Transfer):
         pending, self._overflow_pending = self._overflow_pending, []
         local = int(torch.stack(pending).sum()) if pending else 0
         self._overflow_total += self._over_processes(local)
+        if self.metrics is not None:
+            self.metrics.set("transfer_overflow_dropped",
+                             self._overflow_total)
         return self._overflow_total
 
     # -- traffic accounting ------------------------------------------------
@@ -280,7 +286,10 @@ class ShardedTransfer(Transfer):
     def routed_rows(self) -> int:
         """Total rows routed through the ring exchange since construction
         (counted while ``count_traffic`` is set)."""
-        return self._count("routed_rows")
+        total = self._count("routed_rows")
+        if self.metrics is not None:
+            self.metrics.set("transfer_routed_rows", total)
+        return total
 
     _mirror_always = ("overflow_dropped",)
 

@@ -53,6 +53,8 @@ every process with no further exchange.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from swiftmpi_tpu_torch.kernels.gather import masked_gather
@@ -66,6 +68,18 @@ from swiftmpi_tpu_torch.transfer.api import (Transfer, _state_capacity,
 
 class SingleTransfer(Transfer):
     name = "xla"
+
+    def __init__(self, dense_apply: Optional[bool] = None):
+        """``dense_apply``: True forces the dense full-table push, False
+        the sparse push, None (the default) picks per call at the
+        crossover (:meth:`Transfer.push`), as JAX's ``XlaTransfer``."""
+        super().__init__()
+        self.dense_apply = dense_apply
+
+    def _push_is_dense(self, slots, capacity):
+        if self.dense_apply is not None:
+            return bool(self.dense_apply)
+        return super()._push_is_dense(slots, capacity)
 
     def _prim_pull(self, state, slots, fields):
         valid = slots >= 0

@@ -2592,3 +2592,158 @@ def test_data_plane_routes_on_card(dev, stencil):
     assert ra == {name: "kernel"} and rx == {name: "library"}
     assert ca[kernel] > 0 and cx["stencil"] == cx["ring"] == 0
     np.testing.assert_allclose(lx, la, rtol=1e-5)
+
+
+# -- the last of the JAX package's surface: grow, SGDAccess, reduce-scatter ---
+
+def test_grow_under_graphs_matches_an_eager_twin(dev):
+    """``Word2Vec.grow`` between two graphed ``train`` calls (``inner_steps:
+    4``, batch 32: sparse pushes, deterministic sums) against a twin that
+    grows at the same point and runs every group eagerly: the probe rows
+    keep their bits across the growth, the next ``train`` captures new
+    graphs (the table's tensors moved) and replays them, B1 and B2 launch
+    after the growth, and both tables and losses are equal bit for
+    bit."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        m, sents = _path_model(dev, "gather", inner_steps=4)
+        twin, _ = _path_model(dev, "gather", inner_steps=4)
+        twin._run_group = lambda fields, graphs, *a: Word2Vec._run_group(
+            twin, fields, False, *a)
+        prefix = sents[:60]
+        for x in (m, twin):
+            x.train(prefix, niters=1, batch_size=32)
+        assert m.train_metrics["graph_replays"] > 0
+        assert twin.train_metrics["graph_replays"] == 0
+        graphs = dict(m._fused_cache)
+        probe = [int(k) for k in m.vocab.keys[:16]]
+        before = [m.embedding(k) for k in probe]
+        cap = m.table.key_index.capacity_per_shard
+        for x in (m, twin):
+            x.grow(2 * cap)
+        assert all(np.array_equal(m.embedding(k), b)
+                   for k, b in zip(probe, before))
+        kernels.reset_launches()
+        m.train(prefix, niters=1, batch_size=32)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        twin.train(prefix, niters=1, batch_size=32)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert m.table.capacity == 2 * cap and m.table.generation == 1
+    assert counts["gather"] > 0 and counts["adagrad"] > 0
+    assert m.train_metrics["graph_replays"] > 0
+    assert m._fused_cache and not any(
+        m._fused_cache.get(L) is g for L, g in graphs.items())
+    assert m.train_metrics["epoch_err"] == twin.train_metrics["epoch_err"]
+    for f, t in m.table.state.items():
+        assert torch.equal(t, twin.table.state[f]), f
+
+
+def test_grow_on_8_ranks_on_card_matches_cpu(dev):
+    """``tpu@8`` on the card and its CPU twin with the same draws: a step,
+    a growth, a step; the occupied rows moved bit for bit, and after the
+    second step within 1e-5 + 1e-3 |b| of the CPU's; B1, B2, B3 and B5
+    launch after the growth."""
+    conf = {"cluster": {"transfer": "tpu", "server_num": 8},
+            "word2vec": {"len_vec": 100, "window": 4, "negative": 20,
+                         "sample": 1e-3, "learning_rate": 0.05},
+            "server": {"initial_learning_rate": 0.7}}
+    sents = synthetic_corpus(200, 3000, 40, seed=8)
+    card = Word2Vec(config=ConfigParser().update(conf), device=dev)
+    card.build(sents)
+    cpu = _cpu_twin(card)
+    cpu.table.state = state_from_jax(state_to_numpy(card.table.state), "cpu",
+                                     mesh=cpu.cluster.mesh)
+    batches = [next(iter(CBOWBatcher(sents, card.vocab, card.window,
+                                     card.sample, seed=s).epoch(200)))
+               for s in (5, 6)]
+    rng = np.random.default_rng(4)
+    shape = card.draw_shape(200)
+    draws = [(rng.integers(0, len(card.vocab), shape),
+              rng.random(shape, np.float32)) for _ in range(2)]
+    keys = card.vocab.keys
+    for x in (card, cpu):
+        x.step_batch(batches[0], draws=draws[0])
+    rows = state_to_numpy(card.table.state)
+    slots0 = card.table.key_index.lookup(keys, create=False)
+    cap = card.table.key_index.capacity_per_shard
+    for x in (card, cpu):
+        x.grow(2 * cap)
+    slots1 = card.table.key_index.lookup(keys, create=False)
+    grown = state_to_numpy(card.table.state)
+    for f in rows:
+        np.testing.assert_array_equal(grown[f][slots1], rows[f][slots0])
+    kernels.reset_launches()
+    card.step_batch(batches[1], draws=draws[1])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    cpu.step_batch(batches[1], draws=draws[1])
+    assert all(counts[k] > 0 for k in ("gather", "scatter", "adagrad",
+                                       "ring")), counts
+    # the growth's new rows are each device's own draws: compare the
+    # occupied rows
+    got, want = (state_to_numpy(x.table.state) for x in (card, cpu))
+    _close({f: v[slots1] for f, v in got.items()},
+           {f: v[slots1] for f, v in want.items()}, "tpu@8 after the growth")
+
+
+@pytest.mark.parametrize("mean", [False, True])
+def test_sgd_access_through_tpu_at_8_on_card(dev, mean):
+    """``SGDAccess`` pulls and pushes through 8 ranks on the card against
+    the same calls on the CPU's plain path: the pull bit for bit, the
+    push within 1e-5 + 1e-3 |b|; B2, B3 and B5 launch."""
+    from swiftmpi_tpu_torch.cluster import ps_mesh
+    from swiftmpi_tpu_torch.parameter import FieldSpec, SGDAccess
+    from swiftmpi_tpu_torch.transfer import get_transfer
+    d, cap, n = 100, 4096, 8
+    acc = SGDAccess(0.3, {"h": FieldSpec(d), "v": FieldSpec(d)},
+                    ("h", "v"), ("h", "v"))
+    rng = np.random.default_rng(7)
+    table = {f: rng.normal(size=(n * cap, d)).astype(np.float32)
+             for f in "hv"}
+    slots = rng.integers(-1, n * cap, size=8000).astype(np.int32)
+    grads = {f: rng.normal(size=(8000, d)).astype(np.float32) for f in "hv"}
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        layout = ps_mesh(n, [where])
+        state = state_from_jax(table, where, mesh=layout)
+        t = get_transfer("tpu", mesh=layout)
+        s = torch.from_numpy(slots).to(where)
+        kernels.reset_launches()
+        pulled = t.pull(state, s, acc)
+        t.push(state, s, {f: torch.from_numpy(g).to(where)
+                          for f, g in grads.items()}, acc, mean=mean)
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+        out[where.type] = ({f: v.cpu().numpy() for f, v in pulled.items()},
+                           state_to_numpy(state))
+    for f in "hv":
+        np.testing.assert_array_equal(out["cuda"][0][f], out["cpu"][0][f])
+    _close(out["cuda"][1], out["cpu"][1], "SGD through tpu@8")
+    assert counts["gather"] > 0 and counts["scatter"] > 0 \
+        and counts["ring"] > 0 and counts["adagrad"] == 0, counts
+
+
+def test_rank_reduce_scatter_on_card(dev):
+    """``rank_reduce_scatter`` over 4 stacked ranks on the card: forward
+    and backward bit for bit to the CPU's (B5's plain version, the same
+    sums in source order), one B5 launch each way."""
+    from swiftmpi_tpu_torch.parallel import rank_reduce_scatter
+    gen = torch.Generator().manual_seed(21)
+    x = torch.randn((4, 3, 64, 50), generator=gen)
+    w = torch.randn((4, 3, 16, 50), generator=gen)
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        xg = x.to(where).requires_grad_(True)
+        kernels.reset_launches()
+        y = rank_reduce_scatter(xg, scatter_dimension=1)
+        launched = ring.launches
+        (y * w.to(where)).sum().backward()
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+            assert launched == 1 and ring.launches == 2
+        out[where.type] = (y.detach().cpu(), xg.grad.cpu())
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
