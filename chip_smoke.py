@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Build and drive the PyTorch/CUDA port (``swiftmpi_tpu_torch``) on one
 CUDA card, at the full width of the reference word2vec configuration
-and of bench.py's transformer cell (phases 17 and 18).
+and of bench.py's transformer cell (phases 17 and 18), and at the
+reference's deployment width of 4 and 8 processes (phase 20).
 
     python3 chip_smoke.py          # from the repository root
 
@@ -369,6 +370,32 @@ Phases, each of which raises on a failed check:
    (90,516, 101) plane and the packed grads: bit for bit to numpy's
    process-order sum and to gloo, B5 across processes timed beside
    ``psum_many`` with the byte bound.
+20. the reference's deployment width: (a) one launch of 4 processes
+   (``BATCH / 4`` centers a process, 1 epoch of phase 14's prefix, numpy
+   draws) over ``xla`` with float32 and with bf16 tables, ``tpu`` and
+   ``hybrid`` with 2 shard ranks a process, and the trainer's float32
+   twin (phase 18's, 8 x 512 tokens global); (b) one launch of 8
+   processes over ``xla`` and a ``collectives`` job (``reduce_scatter``
+   and ``pmean`` at xla's plane and the packed grads, cut to multiples of
+   8 rows). Each word2vec job held as phase 14 holds 2 processes: the
+   replicas' sha256 equal, ``timeouts() == 0``, rank 0's table after the
+   first step within the envelope of the one-process run over the same
+   global batches and draws (bf16: or one ulp), the losses within 1e-4,
+   exactly ``PROC_STEP`` launches a step on every process (the table's
+   entries do not depend on the process count), and every reconcile's
+   exchange float32 or int32 (no bf16 on the wire); the trainer as phase
+   18 holds its twin, B5 across processes once a step; the collectives
+   bit for bit to numpy and to gloo. Printed: B5's cross-process
+   all-gather at phase 14's shapes at 2, 4 and 8 processes against its
+   bound, gloo and the host route; global words/s at 1, 2, 4 and 8
+   processes beside ``os.cpu_count()``. (c) ``apps/async_envelope.py``
+   over 8 processes, ``local_steps`` 1, 4 and 16, 4 epochs, both
+   configurations in one launch: at the reference configuration on
+   1,600 sentences with the whole vocab, every setting's losses finite
+   and its last epoch under its first (the JAX package misses its
+   child's 20% there too: ``tests/_envelope_witness.py``); at the JAX
+   child's configuration, ``local_steps`` 4's final loss within 20% of
+   sync's; both sweeps' gaps printed.
 
 The line before the last is the ``{"kernels": [...]}`` summary, each
 kernel's ``launches`` read from the train run of its path (the sent2vec
@@ -379,7 +406,7 @@ from the second life of (a)'s processes and from (b)'s elastic children,
 as they log them, phase 16's from its jobs' processes, phase 17's from
 (b)'s and (d)'s forward and backward passes, phase 18's from (a)'s bf16
 job's processes, phase 19's from (a)'s train runs after the growth and
-(c)'s job); the last is
+(c)'s job, phase 20's from its ``xla`` jobs' rank 0); the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints neither.
 """
@@ -4351,6 +4378,12 @@ PROC_STEP = {
             "ring": 0, "ring_process": 2},
     "tpu": {"gather": 2, "scatter": 2, "adagrad": 2, "stencil": 0,
             "ring": 8, "ring_process": 2},
+    # ``hybrid`` (phase 20): each family's hot pull, push and apply and
+    # the tail's routed one (phase 16's hybrid@4 at dp 2), one exchange
+    # across processes for the hot planes and one for the tail's owners a
+    # push
+    "hybrid": {"gather": 4, "scatter": 4, "adagrad": 4, "stencil": 0,
+               "ring": 8, "ring_process": 4},
 }
 PROC_PATH = "processes"
 #: (c): how far ``server_num: 2``'s share of elements outside the
@@ -4412,40 +4445,45 @@ def _proc_run(label: str, conf: dict, data: Path, time_exchange: bool):
 
 def _hold_processes(label: str, got: list, tables: tuple, ref: Word2Vec,
                     ref_first: dict, ref_losses: list, steps: int,
-                    transfer: str) -> dict:
+                    transfer: str, phase: str = "phase 14") -> dict:
     """The replicas bit-identical, ``timeouts() == 0`` on every process,
     rank 0's table after the first step within the envelope of the
-    one-process run's, the loss trajectory within 1e-4 relative, the
-    launches exact.  The final tables' gap is reported: over dozens of
-    steps AdaGrad carries the last bits of two summation orders apart
-    (as between two runs of one process, whose atomics sum in no fixed
-    order), so the losses, not the tables, are held there."""
+    one-process run's (a bfloat16 field: or one bfloat16 ulp), the loss
+    trajectory within 1e-4 relative, the launches exact
+    (``PROC_STEP[transfer]`` a step on every process).  The final tables'
+    gap is reported: over dozens of steps AdaGrad carries the last bits
+    of two summation orders apart (as between two runs of one process,
+    whose atomics sum in no fixed order), so the losses, not the tables,
+    are held there."""
     first, state = tables
     shas = [g["sha"] for g in got]
     if any(s != shas[0] for s in shas):
-        raise AssertionError(f"phase 14 {label}: the replicas differ: "
+        raise AssertionError(f"{phase} {label}: the replicas differ: "
                              f"{shas}")
     if any(g["timeouts"] for g in got):
-        raise AssertionError(f"phase 14 {label}: ring waits timed out: "
+        raise AssertionError(f"{phase} {label}: ring waits timed out: "
                              f"{[g['timeouts'] for g in got]}")
     losses = got[0]["losses"]
     for a, b in zip(losses, ref_losses):
         if not math.isclose(a, b, rel_tol=1e-4):
-            raise AssertionError(f"phase 14 {label}: loss {losses} vs the "
+            raise AssertionError(f"{phase} {label}: loss {losses} vs the "
                                  f"one-process run's {ref_losses}")
     gaps, bit_equal = {}, {}
     for f, v in ref.table.state.items():
-        want = torch.from_numpy(ref_first[f])
-        have = torch.from_numpy(first[f])
-        gaps[f] = _field_gap(f"phase 14 {label}: field {f} after the "
+        # host rows come upcast: a bfloat16 field's values are exact
+        dtype = (v[0] if isinstance(v, list) else v).dtype
+        want = torch.from_numpy(ref_first[f]).to(dtype)
+        have = torch.from_numpy(first[f]).to(dtype)
+        gaps[f] = _field_gap(f"{phase} {label}: field {f} after the "
                              "first step", have, want)
-        bit_equal[f] = float((have.view(torch.int32)
-                              == want.view(torch.int32)).float().mean())
+        bit_equal[f] = float((torch.from_numpy(first[f]).view(torch.int32)
+                              == torch.from_numpy(ref_first[f]).view(
+                                  torch.int32)).float().mean())
 
     want_launches = {k: v * steps for k, v in PROC_STEP[transfer].items()}
     for g in got:
         if g["launches"] != want_launches:
-            raise AssertionError(f"phase 14 {label}: rank {g['rank']} "
+            raise AssertionError(f"{phase} {label}: rank {g['rank']} "
                                  f"launched {g['launches']}, the path "
                                  f"gives {want_launches}")
     return {"first_step_gap": gaps, "first_step_bit_equal_share":
@@ -4470,7 +4508,9 @@ def phase_processes(vocab, corpus: np.ndarray, card: str) -> tuple:
     ``dp = PROCS`` processes on the card through the launcher, each held
     against a one-process run of the port over the same global batches
     and draws; (c) ``server_num: 2`` on ``xla`` against ``server_num: 1``
-    by key.  Returns the cross-process B5 case and its launches."""
+    by key.  Returns the cross-process B5 case, its launches and the
+    ``xla`` run's figures phase 20 prints beside its wider runs
+    (``{"exchange": B5's times at its shapes, "run": its line}``)."""
     t0 = time.perf_counter()
     (WORK / "phase14").mkdir(parents=True, exist_ok=True)
     prefix = np.ascontiguousarray(corpus[:PROC_SENTS])
@@ -4571,12 +4611,13 @@ def phase_processes(vocab, corpus: np.ndarray, card: str) -> tuple:
                     **runs[label]})
         del ref, warm
         torch.cuda.empty_cache()
+    xla = {"exchange": exchange, "run": runs["xla"]}
     phase_server_num_xla(vocab, corpus, card)
     if exchange is None:
         # only a rehearsal on the CPU has no card to time
         if DEVICE == "cuda":
             raise AssertionError("phase 14: the xla run timed no exchange")
-        return [], {PROC_PATH: launches}
+        return [], {PROC_PATH: launches}, xla
     for e in exchange:
         _json_line({"phase": "processes", "card": card,
                     "exchange": e["label"], "shape": e["shape"],
@@ -4606,7 +4647,7 @@ def phase_processes(vocab, corpus: np.ndarray, card: str) -> tuple:
             "library_ms": None}
     report_cases([case])
     print(f"phase 14 {time.perf_counter() - t0:.1f} s", flush=True)
-    return [case], {PROC_PATH: launches}
+    return [case], {PROC_PATH: launches}, xla
 
 
 #: how much slower process 1's fixed work may run while process 0 waits
@@ -5176,8 +5217,9 @@ DA_SUM_ORDER_SHARE, DA_SUM_ORDER_GAP = 1e-4, 1e-4
 DA_KERNELS = ("gather", "scatter", "adagrad", "ring", "ring_process")
 
 
-def _da_launch(specs: list, out: Path, phase: str = "phase 16") -> tuple:
-    """One ``launch -np PROCS -- mp_child w2v -spec`` over every job, in
+def _da_launch(specs: list, out: Path, phase: str = "phase 16",
+               nprocs: int = PROCS) -> tuple:
+    """One ``launch -np nprocs -- mp_child w2v -spec`` over every job, in
     one process group: each job's JSON by process and rank 0's arrays,
     the launcher's output and its wall seconds."""
     spec_path = out / "specs.json"
@@ -5185,7 +5227,7 @@ def _da_launch(specs: list, out: Path, phase: str = "phase 16") -> tuple:
     t0 = time.perf_counter()
     res = subprocess.run(
         [sys.executable, "-m", "swiftmpi_tpu_torch.launch", "-np",
-         str(PROCS), "--", sys.executable, "-m",
+         str(nprocs), "--", sys.executable, "-m",
          "swiftmpi_tpu_torch.testing.mp_child", "w2v", "-spec",
          str(spec_path)], cwd=ROOT, capture_output=True, text=True,
         timeout=600, env=dict(os.environ, SMTPU_DIST_TIMEOUT="180"))
@@ -5202,7 +5244,7 @@ def _da_launch(specs: list, out: Path, phase: str = "phase 16") -> tuple:
             if (d / name).exists():
                 arrays[name.split("_r0")[0]] = dict(np.load(d / name))
         got[d.name] = ([json.loads((d / f"{job}_r{r}.json").read_text())
-                        for r in range(PROCS)], arrays)
+                        for r in range(nprocs)], arrays)
     return got, res.stdout, wall
 
 
@@ -6047,12 +6089,13 @@ DPL_SENTS = 200
 DPL_TPU, DPL_STENCIL = f"w2v:tpu@{SHARDS}", "w2v:stencil"
 
 
-def _dp_spec(label: str, cfg: dict, tokens: np.ndarray, **extra) -> dict:
-    out = WORK / "phase18" / label
+def _dp_spec(label: str, cfg: dict, tokens: np.ndarray,
+             phase: str = "phase18", **extra) -> dict:
+    out = WORK / phase / label
     shutil.rmtree(out, ignore_errors=True)
-    np.savez(WORK / "phase18" / f"{label}.npz", tokens=tokens)
+    np.savez(WORK / phase / f"{label}.npz", tokens=tokens)
     return {"job": "trainer", "cfg": cfg, "device": DEVICE,
-            "data": str(WORK / "phase18" / f"{label}.npz"),
+            "data": str(WORK / phase / f"{label}.npz"),
             "out": str(out), "checkpoint": str(out / "ck"), **extra}
 
 
@@ -6071,7 +6114,7 @@ def _dp_one_process(spec: dict, tokens: np.ndarray):
 
 
 def _dp_hold(label: str, got: list, spec: dict, tokens: np.ndarray,
-             rtol: float, leaves: bool) -> dict:
+             rtol: float, leaves: bool, phase: str = "phase 18") -> dict:
     """Replicas equal by sha256 on every leaf; the losses against one
     process's within ``rtol`` (plus 1e-5); with ``leaves``, process 0's
     checkpoint leaf by leaf within the envelope of one process's, AdamW
@@ -6081,16 +6124,17 @@ def _dp_hold(label: str, got: list, spec: dict, tokens: np.ndarray,
     from swiftmpi_tpu_torch.models.trainer import Trainer, leaf_from_numpy
     from swiftmpi_tpu_torch.testing.mp_child import _leaf_bits, trainer_config
     from swiftmpi_tpu_torch.utils import tree
-    a, b = got
-    if a["leaf_sha"] != b["leaf_sha"] or a["losses"] != b["losses"]:
-        raise AssertionError(f"phase 18 {label}: the replicas differ")
+    a = got[0]
+    if any(g["leaf_sha"] != a["leaf_sha"] or g["losses"] != a["losses"]
+           for g in got):
+        raise AssertionError(f"{phase} {label}: the replicas differ")
     if any(g["timeouts"] for g in got):
-        raise AssertionError(f"phase 18 {label}: a ring wait timed out")
+        raise AssertionError(f"{phase} {label}: a ring wait timed out")
     ref_losses, ref = _dp_one_process(spec, tokens)
     gap = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], ref_losses))
     for x, y in zip(a["losses"], ref_losses):
         if abs(x - y) > 1e-5 + rtol * abs(y):
-            raise AssertionError(f"phase 18 {label}: losses {a['losses']} "
+            raise AssertionError(f"{phase} {label}: losses {a['losses']} "
                                  f"vs one process's {ref_losses}")
     out = {"losses": a["losses"], "one_process_losses": ref_losses,
            "loss_rel_gap": gap}
@@ -6103,18 +6147,18 @@ def _dp_hold(label: str, got: list, spec: dict, tokens: np.ndarray,
                 have = leaf_from_numpy(z[f"leaf_{i}"], want.dtype)
                 if want.dtype == torch.int32:
                     if not torch.equal(have, want.cpu()):
-                        raise AssertionError(f"phase 18 {label}: leaf {i}")
+                        raise AssertionError(f"{phase} {label}: leaf {i}")
                     continue
                 worst = max(worst, _outside_share(have, want))
         if worst > TFM_OUTSIDE_SHARE:
-            raise AssertionError(f"phase 18 {label}: a leaf has {worst:.3g}"
+            raise AssertionError(f"{phase} {label}: a leaf has {worst:.3g}"
                                  " of its elements outside the envelope")
         out["worst_leaf_share_outside"] = worst
     del ref, flat
     tr = Trainer(trainer_config(spec), device=DEVICE, **spec.get("opt", {}))
     loaded = tr.load(spec["checkpoint"])
     if _leaf_bits(loaded) != a["leaf_sha"]:
-        raise AssertionError(f"phase 18 {label}: the checkpoint loaded in "
+        raise AssertionError(f"{phase} {label}: the checkpoint loaded in "
                              "one process is not the replicas' bits")
     twin = tr.load(spec["checkpoint"])
     t = torch.from_numpy(tokens[0]).to(DEVICE)
@@ -6129,7 +6173,7 @@ def _dp_hold(label: str, got: list, spec: dict, tokens: np.ndarray,
     finally:
         torch.use_deterministic_algorithms(prev)
     if la != lb or _leaf_bits(loaded) != _leaf_bits(twin):
-        raise AssertionError(f"phase 18 {label}: two loads of the "
+        raise AssertionError(f"{phase} {label}: two loads of the "
                              "checkpoint stepped on to different bits")
     out["checkpoint_step_loss"] = la
     return out
@@ -6700,6 +6744,349 @@ def phase_public(vocab, corpus: np.ndarray, batch, collectives: list,
     return cases, counts
 
 
+# -- phase 20: the reference's deployment width: 4 and 8 processes ------------
+
+#: the process counts of (a) and (b), all on the one card
+WIDE_NP = (4, 8)
+#: their epochs over phase 14's prefix, and the shard ranks a process of
+#: (a)'s ``tpu`` and ``hybrid`` jobs
+WIDE_ITERS, WIDE_SHARDS = 1, 2
+#: (b)'s collectives across 8 processes: xla's plane and the trainer's
+#: packed grads, each cut to a multiple of 8 rows (phase 19's 90,516 and
+#: 10,488,066 do not split over 8), and the timed calls of each
+WIDE_COLL_SHAPES = [["xla_plane", [90_520, 101], 0],
+                    ["grads_packed", [10_488_064], 0]]
+WIDE_COLL_REPS = 5
+#: (c) the envelope: processes, ``local_steps`` sweep and epochs (the JAX
+#: package's ``scripts/async_envelope.py`` defaults); the reference
+#: configuration's corpus prefix (1,600 sentences: ~52 global steps of
+#: 5,000 centers an epoch, so 4 stale steps are a small share of it, as
+#: the JAX child wants: its 4 of ~45); the JAX child's own configuration
+#: (``mp_child async -shape small``: its model, 400 sentences of 12 words
+#: over 80, 64 centers a process) and its envelope there, ``local_steps``
+#: 4's final loss against sync's, relative
+ENV_NP, ENV_SWEEP, ENV_EPOCHS = 8, "1,4,16", 4
+ENV_SENTS = 1_600
+ENV_SMALL_SENTS = 400
+ENV_LIMIT = 0.2
+#: the dtypes a data-axis reconcile may put on the exchange, bf16 tables
+#: included: float32 planes, grads and counts, int32 slots
+WIRE_DTYPES = {"float32", "int32"}
+
+
+def _wide_draws(vocab, prefix: np.ndarray, nprocs: int, out: Path):
+    """The lockstep epochs of ``nprocs`` processes over the prefix and
+    numpy draws for every step: each process's slice in the data npz,
+    their concatenation on the device for the one-process run.  Returns
+    ``(epochs, steps, draws_cat, data_path)``."""
+    w2v = DEMO_CONF["word2vec"]
+    Bl = BATCH // nprocs
+    epochs = lockstep_epochs(vocab, prefix, w2v["window"], w2v["sample"],
+                             Bl, nprocs, WIDE_ITERS)
+    steps = sum(len(e) for e in epochs)
+    rng = np.random.default_rng(20 + nprocs)
+    data = {"corpus": prefix, "vocab_keys": vocab.keys,
+            "vocab_counts": vocab.counts}
+    draws_cat, per_rank = [], [([], []) for _ in range(nprocs)]
+    for _ in range(steps):
+        js, us = [], []
+        for r in range(nprocs):
+            j = rng.integers(0, len(vocab), (Bl, w2v["negative"]))
+            u = rng.random(j.shape, np.float32)
+            per_rank[r][0].append(j)
+            per_rank[r][1].append(u)
+            js.append(j)
+            us.append(u)
+        draws_cat.append((torch.from_numpy(np.concatenate(js)).to(DEVICE),
+                          torch.from_numpy(np.concatenate(us)).to(DEVICE)))
+    for r in range(nprocs):
+        data[f"j{r}"] = np.stack(per_rank[r][0])
+        data[f"u{r}"] = np.stack(per_rank[r][1])
+    path = out / f"w2v@dp{nprocs}.npz"
+    np.savez(path, **data)
+    return epochs, steps, draws_cat, path
+
+
+def _wide_w2v(name: str, cluster: dict, data: Path, nprocs: int, out: Path,
+              server: Optional[dict] = None, shapes=()) -> tuple:
+    """A ``w2v`` job of (a) or (b): ``(conf, spec)``."""
+    conf = {**DEMO_CONF, "cluster": cluster}
+    if server:
+        conf["server"] = {**DEMO_CONF["server"], **server}
+    return conf, {"conf": conf, "data": str(data), "device": DEVICE,
+                  "batch_size": BATCH // nprocs, "niters": WIDE_ITERS,
+                  "out": str(out / name), "state": True, "wire": True,
+                  "time_shapes": list(shapes)}
+
+
+def _wide_hold(label: str, nprocs: int, per_proc: list, arrays: dict,
+               conf: dict, step_key: str, vocab, epochs, steps: int,
+               draws_cat, card: str) -> dict:
+    """One word2vec job of ``nprocs`` processes against the one-process
+    run of the port over the same global batches and draws
+    (``_hold_processes``), its reconciles' wire dtypes held to
+    ``WIRE_DTYPES``; prints and returns its line."""
+    ref = Word2Vec(config=ConfigParser().update(conf), device=DEVICE)
+    ref.build_from_vocab(vocab)
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    ref_first, times = {}, []
+    ref_losses = ref.train(
+        batcher=_GlobalBatches(epochs, vocab), batch_size=BATCH,
+        niters=WIDE_ITERS, draws=first_step_rows(iter(draws_cat), ref,
+                                                 ref_first, times))
+    ref_steady = steady_step_ms(times, time.perf_counter())
+    held = _hold_processes(f"{label}@dp{nprocs}", per_proc,
+                           (arrays["w2v_first_step"], arrays["w2v_state"]),
+                           ref, ref_first, ref_losses, steps, step_key,
+                           phase="phase 20")
+    wire = per_proc[0]["wire"]
+    shipped = set().union(*map(set, wire.values()))
+    if not shipped <= WIRE_DTYPES:
+        raise AssertionError(f"phase 20 {label}@dp{nprocs}: the exchanges "
+                             f"carried {wire}")
+    m = per_proc[0]["metrics"]
+    words_step = m["words"] / max(m["steps"], 1)
+    steady = max(g["steady_step_ms"] for g in per_proc)
+    line = {"phase": "wide", "card": card, "run": label,
+            "processes": nprocs, "steps": m["steps"],
+            "centers_a_process": BATCH // nprocs,
+            "steady_step_ms": steady,
+            "one_process_steady_step_ms": ref_steady,
+            "global_words_per_sec": 1e3 * words_step / steady,
+            "one_process_words_per_sec": 1e3 * words_step / ref_steady,
+            "lockstep_host_ms_per_step": [g["metrics"][
+                "lockstep_ms_per_step"] for g in per_proc],
+            "losses": per_proc[0]["losses"],
+            "one_process_losses": ref_losses,
+            "push_paths": m["push_paths"], "wire": wire,
+            "launches_per_step": {k: v / max(m["steps"], 1) for k, v in
+                                  per_proc[0]["launches"].items()},
+            "timeouts": [g["timeouts"] for g in per_proc], **held}
+    _json_line(line)
+    del ref
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return line
+
+
+def phase_wide(vocab, corpus: np.ndarray, proc_xla: dict,
+               card: str) -> tuple:
+    """Phase 20: (a) one launch of 4 processes over ``xla`` (float32 and
+    bf16 tables), ``tpu`` and ``hybrid`` (``WIDE_SHARDS`` ranks a process)
+    and the trainer's float32 twin; (b) one launch of 8 processes over
+    ``xla`` and a ``collectives`` job; each word2vec job held as phase 14
+    holds 2 processes, the trainer as phase 18 does; B5's cross-process
+    all-gather at phase 14's shapes at 2, 4 and 8 processes against its
+    bound, and global words/s at 1, 2, 4 and 8; (c) the bounded-staleness
+    envelope over 8 processes (``apps/async_envelope.py``).  ``proc_xla``
+    is phase 14's ``xla`` figures (``phase_processes``): its exchange's
+    shapes and times, and its run's words/s, at ``PROCS`` processes.
+    Returns B5's cases at 4 and 8 processes and their launches."""
+    t0 = time.perf_counter()
+    out = WORK / "phase20"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    prefix = np.ascontiguousarray(corpus[:PROC_SENTS])
+    cuda = DEVICE == "cuda"
+    if cuda and not (proc_xla.get("exchange") and proc_xla.get("run")):
+        raise AssertionError(f"phase 20: phase 14's xla figures are "
+                             f"missing: {sorted(proc_xla)}")
+    # phase 14's shapes, to time the exchange at every width alike
+    shapes = [(e["label"], tuple(e["shape"]))
+              for e in proc_xla["exchange"]] if cuda else []
+    shards = {"server_num": WIDE_SHARDS}
+    lines, exchange, counts, cases = {}, {}, {}, []
+    for nprocs in WIDE_NP:
+        epochs, steps, draws_cat, data = _wide_draws(vocab, prefix, nprocs,
+                                                     out)
+        jobs = [("xla", "xla", _wide_w2v(
+            "xla", DEMO_CONF["cluster"], data, nprocs, out, shapes=shapes))]
+        extra = []
+        if nprocs == 4:
+            jobs += [
+                ("xla_bf16", "xla", _wide_w2v(
+                    "xla_bf16", DEMO_CONF["cluster"], data, nprocs, out,
+                    server={"dtype": "bfloat16"})),
+                (f"tpu@{WIDE_SHARDS}", "tpu", _wide_w2v(
+                    f"tpu@{WIDE_SHARDS}", {"transfer": "tpu", **shards},
+                    data, nprocs, out)),
+                (f"hybrid@{WIDE_SHARDS}", "hybrid", _wide_w2v(
+                    f"hybrid@{WIDE_SHARDS}", {"transfer": "hybrid",
+                                              **shards}, data, nprocs, out))]
+            rng = np.random.default_rng(20)
+            tokens = np.stack([_tfm_tokens(rng, DP_F32_BATCH)
+                               for _ in range(DP_F32_STEPS)])
+            extra.append(_dp_spec(
+                "tfm_f32", dict(TFM_WIDTH, n_layers=DP_F32_LAYERS,
+                                dtype="float32"), tokens, phase="phase20",
+                opt={"learning_rate": TFM_LR}))
+        else:
+            extra.append({"job": "collectives", "device": DEVICE,
+                          "out": str(out / "collectives"),
+                          "shapes": WIDE_COLL_SHAPES,
+                          "reps": WIDE_COLL_REPS})
+        if cuda:
+            torch.cuda.empty_cache()
+        print(f"phase 20 set-up at dp {nprocs}: {steps} steps of "
+              f"{nprocs} x {BATCH // nprocs} centers, "
+              f"{len(jobs) + len(extra)} jobs", flush=True)
+        got, _, wall = _da_launch([j[2][1] for j in jobs] + extra, out,
+                                  "phase 20", nprocs=nprocs)
+        print(f"phase 20 launch of {nprocs} processes {wall:.1f} s",
+              flush=True)
+        for label, key, (conf, _) in jobs:
+            per_proc, arrays = got[label]
+            lines[label, nprocs] = _wide_hold(
+                label, nprocs, per_proc, arrays, conf, key, vocab, epochs,
+                steps, draws_cat, card)
+        xla = got["xla"][0][0]
+        exchange[nprocs] = xla.get("exchange") or []
+        path = f"processes@dp{nprocs}"
+        counts[path] = dict(xla["launches"])
+        if nprocs == 4:
+            spec = extra[0]
+            per_proc = got["tfm_f32"][0]
+            held = _dp_hold("tfm_f32@dp4", per_proc, spec, tokens, 1e-3,
+                            True, phase="phase 20")
+            if cuda and any(g["launches"]["ring_process"] != DP_F32_STEPS
+                            for g in per_proc):
+                raise AssertionError(
+                    f"phase 20 tfm_f32@dp4: B5 across processes "
+                    f"{[g['launches'] for g in per_proc]}, expected one "
+                    "a step")
+            _json_line({"phase": "wide", "card": card, "run": "tfm_f32",
+                        "processes": nprocs,
+                        "launches": per_proc[0]["launches"],
+                        "step_ms": [g["step_ms"] for g in per_proc],
+                        **held})
+        else:
+            coll = got["collectives"][0]
+            if any(g["timeouts"] for g in coll) or (
+                    cuda and coll[0]["launches"]["ring_process"] <= 0):
+                raise AssertionError(f"phase 20 collectives@dp8: {coll[0]}")
+            for i in range(len(coll[0]["timed"])):
+                _json_line({"phase": "wide", "card": card,
+                            "collectives": coll[0]["timed"][i]["label"],
+                            "by_process": [g["timed"][i] for g in coll]})
+        if cuda:
+            torch.cuda.empty_cache()
+    # B5's all-gather at phase 14's shapes by width, and words/s by width
+    base = proc_xla["run"]
+    for i, (label, shape) in enumerate(shapes):
+        by_dp = {PROCS: proc_xla["exchange"][i],
+                 **{n: exchange[n][i] for n in WIDE_NP}}
+        if any(e["max_abs_err"] != 0 for e in by_dp.values()):
+            raise AssertionError(f"phase 20: an exchange is not a copy: "
+                                 f"{by_dp}")
+        _json_line({"phase": "wide", "card": card, "exchange": label,
+                    "shape": list(shape),
+                    "ms": {n: e["ms"] for n, e in by_dp.items()},
+                    "bound_ms": {n: e["bound_ms"] for n, e in by_dp.items()},
+                    "bytes": {n: e["bytes"] for n, e in by_dp.items()},
+                    "host_route_ms": {n: e["host_route_ms"]
+                                      for n, e in by_dp.items()},
+                    "gloo_cpu_ms": {n: e["plain_ms"]
+                                    for n, e in by_dp.items()},
+                    "wait": "stream (cuStreamWaitValue64)"})
+    _json_line({"phase": "wide", "card": card, "cpu_count": os.cpu_count(),
+                "global_words_per_sec": {
+                    1: lines["xla", 4]["one_process_words_per_sec"],
+                    PROCS: base["global_words_per_sec"],
+                    **{n: lines["xla", n]["global_words_per_sec"]
+                       for n in WIDE_NP}},
+                "steady_step_ms": {
+                    1: lines["xla", 4]["one_process_steady_step_ms"],
+                    PROCS: base["steady_step_ms"],
+                    **{n: lines["xla", n]["steady_step_ms"]
+                       for n in WIDE_NP}}})
+    phase_envelope(vocab, np.ascontiguousarray(corpus[:ENV_SENTS]), out,
+                   card)
+    for nprocs in WIDE_NP if cuda else ():
+        dense = exchange[nprocs][0]
+        cases.append({
+            "name": f"ring_exchange (across {nprocs} processes, all-gather "
+                    "of the dense plane)",
+            "route": "cuda", "source": "swiftmpi_tpu_torch/kernels/csrc/"
+                                       "ring.cu",
+            "replaces": "swiftmpi_tpu/ops/pallas_ring.py:86",
+            "module": ring, "counter": "ring_process",
+            "path": f"processes@dp{nprocs}", "shape": dense["shape"],
+            "max_abs_err": dense["max_abs_err"],
+            "tolerance": "bit for bit (a copy)", "ms": dense["ms"],
+            "plain_ms": dense["plain_ms"], "bytes": dense["bytes"],
+            "flops": 0, "library": "none: NCCL runs no two ranks on one "
+            "card; the host route's ms is on the wide line",
+            "library_ms": None})
+    report_cases(cases)
+    print(f"phase 20 {time.perf_counter() - t0:.1f} s", flush=True)
+    return cases, counts
+
+
+def phase_envelope(vocab, prefix: np.ndarray, out: Path, card: str) -> None:
+    """(c) the bounded-staleness envelope over ``ENV_NP`` processes on the
+    card: one launch of ``apps/async_envelope.py`` over two shapes.  The
+    reference configuration, on the corpus's first ``ENV_SENTS`` sentences
+    with the whole vocab, is the held run: every setting's losses finite
+    and its last epoch under its first (the JAX child's check on
+    ``hybrid``).  The JAX child's 20% envelope is not held there, since
+    the JAX package misses it too at this configuration in one process on
+    the CPU (``tests/_envelope_witness.py``), and the port's snapshot
+    mode follows JAX's step by step at this width with JAX's draws
+    (``tests/test_torch_envelope.py``).  It is held at the JAX child's own
+    configuration: ``local_steps`` 4's final loss within ``ENV_LIMIT`` of
+    sync's.  Both sweeps' gaps to sync are printed."""
+    data = out / "envelope.npz"
+    np.savez(data, corpus=prefix, vocab_keys=vocab.keys,
+             vocab_counts=vocab.counts)
+    shapes = {"reference": ("reference", len(prefix)),
+              "jax_child": ("small", ENV_SMALL_SENTS)}
+    # -data feeds the reference shape, -sents the small one
+    args = ["-np", str(ENV_NP), "-sweep", ENV_SWEEP, "-epochs",
+            str(ENV_EPOCHS), "-shape", ",".join(s for s, _ in
+                                                shapes.values()),
+            "-sents", str(ENV_SMALL_SENTS), "-data", str(data),
+            "-out", str(out / "envelope.jsonl"), *_device_args()]
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "swiftmpi_tpu_torch.apps.async_envelope",
+         *args], cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, SMTPU_DIST_TIMEOUT="180"))
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"phase 20 (c): the envelope failed with rc "
+                             f"{res.returncode}:\n{res.stdout[-4000:]}\n"
+                             f"{res.stderr[-4000:]}")
+    got = {(ln["shape"], ln["local_steps"]): ln for ln in map(
+        json.loads, (x for x in res.stdout.splitlines()
+                     if x.startswith("{")))}
+    settings = [int(x) for x in ENV_SWEEP.split(",")]
+    for label, (shape, sents) in shapes.items():
+        lines = {ls: got.get((shape, ls)) for ls in settings}
+        if not all(ln and np.isfinite(ln["losses"]).all()
+                   for ln in lines.values()):
+            raise AssertionError(f"phase 20 (c) {label}: {lines}")
+        _json_line({"phase": "wide", "card": card, "envelope": label,
+                    "by_local_steps": {
+                        ls: {k: lines[ls][k] for k in (
+                            "final_loss", "vs_sync_pct", "wall_s",
+                            "global_words_per_s", "losses", "steps")}
+                        for ls in settings},
+                    "processes": ENV_NP, "epochs": ENV_EPOCHS,
+                    "sentences": sents, "cpu_count": lines[1]["cpu_count"],
+                    "launch_wall_s": wall})
+    for ls in settings:
+        losses = got["reference", ls]["losses"]
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"phase 20 (c) reference: local_steps "
+                                 f"{ls}'s losses {losses} do not fall")
+    gap4 = got["small", 4]["vs_sync_pct"] / 100
+    if not abs(gap4) < ENV_LIMIT:
+        raise AssertionError(f"phase 20 (c) jax_child: local_steps 4's "
+                             f"final loss is {100 * gap4:+.2f}% from sync's, "
+                             f"outside {100 * ENV_LIMIT:.0f}%")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -6800,7 +7187,8 @@ def main() -> int:
     serve_cases, serve_counts = phase_serve(vocab, corpus, card)
     cases += serve_cases
     counts.update(serve_counts)
-    proc_cases, proc_counts = phase_processes(vocab, corpus, card)
+    proc_cases, proc_counts, proc_xla = phase_processes(vocab, corpus,
+                                                        card)
     cases += proc_cases
     counts.update(proc_counts)
     fleet_cases, fleet_counts = phase_fleet(corpus, card)
@@ -6819,6 +7207,9 @@ def main() -> int:
                                          card)
     cases += pub_cases
     counts.update(pub_counts)
+    wide_cases, wide_counts = phase_wide(vocab, corpus, proc_xla, card)
+    cases += wide_cases
+    counts.update(wide_counts)
 
     summary = []
     for c in cases:

@@ -190,14 +190,15 @@ class ZipfSpans:
             yield StencilBatch(tokens, sent_id, center_pos, half, B)
 
 
-def card_line() -> str:
-    """``name, power.limit`` of the current card, as nvidia-smi gives
-    them."""
+def card_line(index: int | None = None) -> str:
+    """``name, power.limit`` of card ``index`` (the current card by
+    default), as nvidia-smi gives them."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()
-    return out[torch.cuda.current_device()].strip()
+    return out[torch.cuda.current_device() if index is None
+               else index].strip()
 
 
 def _short(name: str) -> str:

@@ -51,9 +51,11 @@ def state_from_jax(np_state: Dict[str, np.ndarray], device,
 
 def tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
     """A contiguous CPU tensor copy of ``a``; an ``ml_dtypes.bfloat16``
-    array becomes a ``torch.bfloat16`` tensor of the same bits."""
+    array, or the 2-byte void array an npz file gives back for one,
+    becomes a ``torch.bfloat16`` tensor of the same bits."""
     a = np.array(a, copy=True, order="C")
-    if a.dtype.name == "bfloat16":
+    if a.dtype.name == "bfloat16" or (a.dtype.kind == "V"
+                                      and a.dtype.itemsize == 2):
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(a)
 

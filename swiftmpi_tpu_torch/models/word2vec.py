@@ -1134,12 +1134,22 @@ class Word2Vec:
 
     def _draws(self, B: int, draws) -> Draws:
         """The step's ``(j, u)`` of :meth:`draw_shape`; ``draws`` (numpy
-        or tensors) replaces the model's generator."""
+        or tensors) replaces the model's generator.  Across ``dp``
+        processes every process's generator is seeded alike, so each one
+        draws the global batch's ``(dp * B, ...)`` and keeps its own rows,
+        as JAX draws once over its global batch and every process holds
+        its block; a shared pool is the global batch's one pool."""
         if draws is not None:
             return (_on(draws[0], self.device, torch.int64),
                     _on(draws[1], self.device, torch.float32))
-        return alias_draws(self._gen, len(self.vocab), self.draw_shape(B),
-                           self.device)
+        dp = self.cluster.dp
+        if dp == 1 or self.shared_negatives:
+            return alias_draws(self._gen, len(self.vocab),
+                               self.draw_shape(B), self.device)
+        j, u = alias_draws(self._gen, len(self.vocab),
+                           self.draw_shape(dp * B), self.device)
+        mine = slice(self.cluster.dp_rank * B, (self.cluster.dp_rank + 1) * B)
+        return j[mine], u[mine]
 
     def _arg_dtypes(self) -> Tuple[torch.dtype, ...]:
         """The dtypes the step takes a batch's fields in, in

@@ -23,9 +23,36 @@ arrays beside it, then prints ``MP_CHILD_OK <mode> rank=<r>``):
   ``timeouts()``.
 * ``exchange -out DIR -rounds R``: R back-to-back cross-process exchanges
   on the card, all-to-all and all-gather, float32, int32 and bfloat16,
-  each payload distinct (seeded by round, process and form) and each
-  result held against the numpy expectation; the rank-ordered ``psum``'s
-  bits; ``timeouts()``.
+  each payload distinct (seeded by round, process and form), rows of 8,
+  7 and 6 elements in turn (blocks of whole 16-byte chunks, and blocks
+  that are not: 28 and 12 bytes a row over odd row counts), each result
+  held against the numpy expectation; the rank-ordered ``psum``'s bits;
+  that a bfloat16 operand whose block is not whole 4-byte words is
+  refused (``ValueError``, before any launch); ``timeouts()``.
+* ``async [-sweep L1,L2,..] [-epochs E] [-sents S] [-vocab V] [-len N]
+  [-shape small|reference[,..]] [-data NPZ] [-out DIR] [-device cpu|cuda]``:
+  bounded staleness across the processes (the counterpart of the JAX
+  package's ``tests/_mp_async_child.py``, its settings as flags).
+  Without ``-sweep``: the same corpus trained sync and at ``local_steps``
+  4 on ``xla`` (E epochs, default 4), the async losses finite and
+  falling and its final loss within 20% of sync's; then ``local_steps``
+  4 on ``tpu`` and on ``hybrid`` (2 epochs each), finite and falling;
+  then ``async_mode: hogwild``, which across processes runs the snapshot
+  mode at ``local_steps`` 2; prints ``MP_ASYNC_OK``.  With ``-sweep``
+  (one process too, the witness of what staleness alone costs): one
+  training of the corpus per setting, rank 0 prints one
+  ``MP_SWEEP_JSON {...}`` line (each setting's losses, final loss, wall
+  seconds, global words and words/s, the processes and
+  ``os.cpu_count()``), a line a shape where ``-shape`` lists several
+  (each shape's sweep in turn, in one launch).  ``-shape small``
+  (default) is the JAX child's model (len_vec 8, window 2, negative 3,
+  minibatch 64 a process) on
+  ``synthetic_corpus(S, V, N, seed=9)`` (defaults 400, 80, 12);
+  ``-shape reference`` is demo.conf (``apps.w2v_profile.DEMO_CONF``,
+  ``BATCH // dp`` centers a process) on the data's ``corpus`` and vocab
+  (``-data``, ``corpus``/``vocab_keys``/``vocab_counts``), or on the
+  first S sentences of the text8-shaped corpus with its whole vocab;
+  ``-data`` applies to ``reference`` only.
 * ``w2v -spec SPEC.json``: one data-parallel word2vec job through
   ``Word2Vec.train`` (a list of specs: their jobs one after the other in
   one process group).  The spec names the conf (section -> keys), the
@@ -37,7 +64,9 @@ arrays beside it, then prints ``MP_CHILD_OK <mode> rank=<r>``):
   ``state`` (process 0 writes its table as ``w2v_state_r0.npz``, and
   with draws its table after the first step as
   ``w2v_first_step_r0.npz``), ``stall`` (a forced ring timeout, see
-  :func:`stall_process_ring`)
+  :func:`stall_process_ring`), ``wire`` (the JSON's ``wire`` lists the
+  dtypes of what each data-axis reconcile put on the exchange,
+  :func:`watch_wire`)
   and ``time_exchange`` (time B5's cross-process forms at the run's
   shapes after training, and whether a waiting process holds the card,
   ``apps.process_ring_sweep.progress``).  The JSON holds the losses,
@@ -53,10 +82,12 @@ arrays beside it, then prints ``MP_CHILD_OK <mode> rank=<r>``):
     the spec's ``conf`` makes (``xla``, ``tpu`` or ``hybrid``; the
     ``knobs`` set on its transfer), from the data's ``init__<field>``
     table (the JAX package's layout) with ``slots<rank>`` ``(W, B)`` and
-    ``grads<rank>__<field>`` ``(W, B, d)``; ``reference: true`` also runs
+    ``grads<rank>__<field>`` ``(W, B, d)``, or from the seeded ``gen``
+    (:func:`_window_data`); ``reference: true`` also runs
     the one-process push over the processes' windows concatenated in
     process order on a transfer with no data axis and ``dp`` times the
-    shard ranks (the same rank slices), and reports its gap.
+    shard ranks (the same rank slices), and reports its gap (bfloat16
+    fields upcast); ``wire`` as for ``w2v``.
   * ``lr`` / ``glove``: ``LogisticRegression.train`` on the libSVM file
     ``dataset`` / ``GloVe.train`` on the data's ``corpus``, from the rows
     ``rows__<field>`` the data gives its ``keys`` (written at the keys'
@@ -310,12 +341,14 @@ def run_dead() -> dict:
             "epoch": pr.epoch}
 
 
-def run_exchange(out: str, rounds: int) -> dict:
+def run_exchange(out: str, rounds: int, device: str = "cuda") -> dict:
     from swiftmpi_tpu_torch.parallel import psum
     dp, me = bootstrap.process_count(), bootstrap.process_index()
-    dev = torch.device("cuda", torch.cuda.current_device())
+    cuda = device == "cuda"
+    dev = (torch.device("cuda", torch.cuda.current_device()) if cuda
+           else torch.device(device))
     ring.process_launches = 0
-    checked = 0
+    checked = plain = 0
     forms = [("a2a", torch.float32), ("a2a", torch.int32),
              ("a2a", torch.bfloat16), ("gather", torch.float32),
              ("gather", torch.int32), ("gather", torch.bfloat16)]
@@ -323,19 +356,32 @@ def run_exchange(out: str, rounds: int) -> dict:
     for i in range(rounds):
         form, dtype = forms[i % len(forms)]
         rows = 3 + (i % 5) * 17           # sizes change between rounds
+        # rows of 32, 28 and 24 bytes (bfloat16: 16, 12 and 20): over odd
+        # row counts most blocks are not whole 16-byte chunks
+        width = ((8, 6, 10) if dtype == torch.bfloat16
+                 else (8, 7, 6))[(i // len(forms)) % 3]
         src = torch.float32 if dtype == torch.bfloat16 else dtype
         npdt = np.int32 if dtype == torch.int32 else np.float32
 
         def part(r, j=0):
-            return _part(10_000 * i + 100 * r + j, (rows, 8), npdt)
+            return _part(10_000 * i + 100 * r + j, (rows, width), npdt)
         if form == "a2a":
             x = _to(np.stack([part(me, j) for j in range(dp)]), dev, dtype)
             got = ring.process_all_to_all(x)
             want = np.stack([part(j, me) for j in range(dp)])
+            held = ring.process_all_to_all_plain
         else:
-            got = ring.process_all_gather(_to(part(me), dev, dtype))
+            x = _to(part(me), dev, dtype)
+            got = ring.process_all_gather(x)
             want = np.stack([part(j) for j in range(dp)])
+            held = ring.process_all_gather_plain
         pending.append((got, torch.from_numpy(want).to(src).to(dtype)))
+        if cuda and i < 3 * len(forms):
+            # every form and row width once against the plain version
+            # (gloo) on the same operand, bit for bit
+            _check(torch.equal(got.cpu(), held(x.cpu())),
+                   f"exchange {i} against its plain version")
+            plain += 1
         if len(pending) >= 32 or i == rounds - 1:
             # read back in bunches: the exchanges run back to back
             for g, w in pending:
@@ -344,10 +390,21 @@ def run_exchange(out: str, rounds: int) -> dict:
             pending = []
     x = _to(_part(55 + me, (1000, 7), np.float32), dev)
     sha = _bits(psum(x))
-    torch.cuda.synchronize()
-    return {"rounds": rounds, "checked": checked,
-            "launches": ring.process_launches, "timeouts": ring.timeouts(),
-            "psum_sha": sha, "rank": me}
+    refused = 0
+    if cuda:
+        # a bfloat16 block of 3 x 3 elements is 18 bytes: refused before
+        # any launch, in every process alike
+        for send, shape in ((ring.process_all_to_all, (dp, 3, 3)),
+                            (ring.process_all_gather, (3, 3))):
+            try:
+                send(torch.zeros(shape, dtype=torch.bfloat16, device=dev))
+            except ValueError:
+                refused += 1
+        torch.cuda.synchronize()
+    return {"rounds": rounds, "checked": checked, "plain_checked": plain,
+            "launches": ring.process_launches,
+            "timeouts": ring.timeouts() if cuda else 0,
+            "psum_sha": sha, "rank": me, "refused": refused}
 
 
 def _time_exchanges(model, device) -> list:
@@ -383,7 +440,9 @@ def _events_ms(fn, reps: int) -> float:
 def _time_shapes(shapes, device) -> list:
     """B5's cross-process all-gather timed at each ``(label, (rows,
     words))`` shape, against gloo on the same words (the plain version)
-    and the host route (device -> host, gloo, host -> device)."""
+    and the host route (device -> host, gloo, host -> device).  The host
+    forms move dp^2 tensors over the loopback, so they take fewer calls
+    the more processes there are (20 at 2 processes, 5 at 4, 1 at 8)."""
     dp = bootstrap.process_count()
     out = []
     for label, shape in shapes:
@@ -393,17 +452,18 @@ def _time_shapes(shapes, device) -> list:
         err = float((got.cpu() - want).abs().max())
         reps = 20
         ms = _events_ms(lambda: ring.process_all_gather(x), reps)
+        host_reps = max(1, 80 // dp ** 2)
         xc = x.cpu()
         t0 = time.perf_counter()
-        for _ in range(reps):
+        for _ in range(host_reps):
             ring.process_all_gather_plain(xc)
-        plain_ms = (time.perf_counter() - t0) * 1e3 / reps
+        plain_ms = (time.perf_counter() - t0) * 1e3 / host_reps
         bootstrap.barrier()
         t0 = time.perf_counter()
-        for _ in range(reps):
+        for _ in range(host_reps):
             ring.process_all_gather_plain(x.cpu()).to(device)
         torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3 / reps
+        host_ms = (time.perf_counter() - t0) * 1e3 / host_reps
         # every process reads its tensor once and writes dp of them
         nbytes = dp * x.numel() * 4 * (1 + dp)
         out.append({"label": label, "shape": list(shape), "dp": dp,
@@ -470,6 +530,43 @@ def steady_step_ms(times: list, t_end: float):
     return 1e3 * (t_end - times[k]) / (len(times) - k)
 
 
+def watch_wire():
+    """Record the dtypes that the transfers' data-axis reconciles put on
+    the exchange: ``Transfer._dp_psum``'s planes, ``_dp_reconcile_rows``'s
+    folded rows (slots, grads, counts) and ``_dp_ef_drain``'s window.
+    Returns ``(seen, restore)``: ``seen`` maps ``psum``, ``rows`` and
+    ``ef`` to sets of dtype names, ``restore()`` unwraps the methods."""
+    from swiftmpi_tpu_torch.transfer.api import Transfer
+    seen = {"psum": set(), "rows": set(), "ef": set()}
+    orig = {n: getattr(Transfer, n)
+            for n in ("_dp_psum", "_dp_reconcile_rows", "_dp_ef_drain")}
+
+    def name(t) -> str:
+        return str(t.dtype).replace("torch.", "")
+
+    def psum(self, tensors):
+        seen["psum"].update(name(t) for t in tensors)
+        return orig["_dp_psum"](self, tensors)
+
+    def rows(self, slots, grads, counts, capacity):
+        seen["rows"].update([name(slots)] + [name(g) for g in grads.values()]
+                            + ([name(counts)] if counts is not None else []))
+        return orig["_dp_reconcile_rows"](self, slots, grads, counts,
+                                          capacity)
+
+    def ef(self, planes, ded_slots, ded_grads, capacity, quant):
+        seen["ef"].update(name(g) for g in ded_grads.values())
+        return orig["_dp_ef_drain"](self, planes, ded_slots, ded_grads,
+                                    capacity, quant)
+    Transfer._dp_psum, Transfer._dp_reconcile_rows = psum, rows
+    Transfer._dp_ef_drain = ef
+
+    def restore():
+        for n, fn in orig.items():
+            setattr(Transfer, n, fn)
+    return seen, restore
+
+
 def run_w2v(spec: dict, run: dict) -> dict:
     from swiftmpi_tpu_torch.convert import state_from_jax
     from swiftmpi_tpu_torch.data.text import Vocab
@@ -503,12 +600,17 @@ def run_w2v(spec: dict, run: dict) -> dict:
             torch.from_numpy(z[f"j{me}"]).to(model.device),
             torch.from_numpy(z[f"u{me}"]).to(model.device)), model, first,
             times)
+    wire, unwatch = watch_wire() if spec.get("wire") else (None, None)
     _reset_launches()
     cuda = model.device.type == "cuda"
-    losses, seconds = _timed(model.device, lambda: model.train(
-        z["corpus"], niters=int(spec.get("niters", 1)),
-        batch_size=int(spec["batch_size"]), draws=draws,
-        checkpoint_path=spec.get("checkpoint")))
+    try:
+        losses, seconds = _timed(model.device, lambda: model.train(
+            z["corpus"], niters=int(spec.get("niters", 1)),
+            batch_size=int(spec["batch_size"]), draws=draws,
+            checkpoint_path=spec.get("checkpoint")))
+    finally:
+        if unwatch is not None:
+            unwatch()
     t_end = time.perf_counter()
     launches = _launch_counts()
     metrics = {k: v for k, v in model.train_metrics.items()
@@ -526,6 +628,8 @@ def run_w2v(spec: dict, run: dict) -> dict:
               "transfer": model.transfer.name,
               "traffic": model.transfer.traffic()
               if model.transfer.count_traffic else None}
+    if wire is not None:
+        result["wire"] = {k: sorted(v) for k, v in wire.items()}
     if spec.get("state") and me == 0:
         np.savez(os.path.join(spec["out"], f"w2v_state_r{me}.npz"),
                  **{f: tensor_to_numpy(t, upcast=True)
@@ -630,12 +734,20 @@ def run_window(spec: dict, run: dict) -> dict:
                 {f: torch.from_numpy(g).to(device)
                  for f, g in grads_r.items()})
     slots, grads = window(me)
+    wire, unwatch = watch_wire() if spec.get("wire") else (None, None)
     _reset_launches()
-    _, seconds = _timed(device, lambda: t.push_window(
-        state, slots, grads, access, mean=mean))
+    try:
+        _, seconds = _timed(device, lambda: t.push_window(
+            state, slots, grads, access, mean=mean))
+    finally:
+        if unwatch is not None:
+            unwatch()
     result = _common(spec, t, seconds)
     result["sha"] = _state_bits(state)
-    got = state_to_numpy(state)
+    if wire is not None:
+        result["wire"] = {k: sorted(v) for k, v in wire.items()}
+    # bfloat16 fields upcast, exactly
+    got = state_to_numpy(state, upcast=True)
     if spec.get("reference"):
         # the one-process push over the global window: no data axis, and
         # dp x n shard ranks, so the window splits into the same rank
@@ -650,7 +762,7 @@ def run_window(spec: dict, run: dict) -> dict:
         ref_t.push_window(ref_state, torch.cat([p[0] for p in parts]),
                           {f: torch.cat([p[1][f] for p in parts])
                            for f in ("h", "v")}, access, mean=mean)
-        want = state_to_numpy(ref_state)
+        want = state_to_numpy(ref_state, upcast=True)
         result["reference_gap"] = {f: _envelope_gap(got[f], want[f])
                                    for f in want}
     if spec.get("time_shapes"):
@@ -671,13 +783,26 @@ def _envelope_gap(got: np.ndarray, want: np.ndarray) -> dict:
             if out.any() else 0.0}
 
 
+def _as_dtype(a: np.ndarray, dtype) -> np.ndarray:
+    """``a`` (float32) as ``dtype``: ``"bfloat16"`` gives its rounded bits
+    as the 2-byte void array an npz holds, which ``state_from_jax`` reads
+    back as bfloat16."""
+    if dtype in (None, "float32"):
+        return a
+    if dtype != "bfloat16":
+        raise ValueError(f"window data: dtype {dtype!r}")
+    return torch.from_numpy(a).to(torch.bfloat16).view(
+        torch.int16).numpy().view("V2")
+
+
 def _window_data(spec: dict, dp: int):
     """A window job's table (``{field: rows}``, the JAX package's layout)
     and each process's ``(slots (W, B), {"h", "v": (W, B, d)})``: from the
     data file, or made from the seeded shape ``gen`` (``rows``, ``d``,
-    ``W``, ``B``, ``n_hot``, ``ef``, ``seed``): rows of 0.1 x N(0, 1),
-    zero accumulators and residuals, slots Zipf(1.2) over the unified
-    space, grads 0.01 x N(0, 1)."""
+    ``W``, ``B``, ``n_hot``, ``ef``, ``seed``, ``dtype``): rows of 0.1 x
+    N(0, 1) (h and v in ``dtype``, float32 by default), zero accumulators
+    and residuals, slots Zipf(1.2) over the unified space, grads 0.01 x
+    N(0, 1)."""
     g = spec.get("gen")
     if g is None:
         z = np.load(spec["data"])
@@ -690,8 +815,9 @@ def _window_data(spec: dict, dp: int):
     rows, d, n_hot = int(g["rows"]), int(g["d"]), int(g.get("n_hot", 0))
 
     def planes(n, prefix=""):
-        out = {f + prefix: (0.1 * rng.standard_normal((n, d), np.float32))
-               for f in ("h", "v")}
+        out = {f + prefix: _as_dtype(
+            0.1 * rng.standard_normal((n, d), np.float32), g.get("dtype"))
+            for f in ("h", "v")}
         out.update({f + prefix: np.zeros((n, d), np.float32)
                     for f in ("h2sum", "v2sum")})
         return out
@@ -990,6 +1116,149 @@ def run_collectives_job(spec: dict, run: dict) -> dict:
             "timeouts": ring.timeouts() if cuda else 0}
 
 
+#: ``async``'s small shape: the JAX child's model (``make_model``)
+ASYNC_SMALL = {"word2vec": {"len_vec": 8, "window": 2, "negative": 3,
+                            "sample": -1, "learning_rate": 0.05},
+               "server": {"initial_learning_rate": 0.3, "frag_num": 64},
+               "worker": {"minibatch": 64}}
+#: the JAX child's envelope: async's final loss against sync's, relative
+ASYNC_ENVELOPE = 0.2
+
+
+def _async_corpus(cmd, shape: str):
+    """``(sentences, vocab or None)`` of the ``async`` mode."""
+    from swiftmpi_tpu_torch.data.text import Vocab, synthetic_corpus
+    sents = int(cmd.get_value("sents", "400"))
+    if shape == "small":
+        return synthetic_corpus(sents, vocab_size=int(cmd.get_value(
+            "vocab", "80")), length=int(cmd.get_value("len", "12")),
+            seed=9), None
+    data = cmd.get_value("data", "")
+    if data:
+        z = np.load(data)
+        return z["corpus"], Vocab(z["vocab_keys"], z["vocab_counts"])
+    from swiftmpi_tpu_torch.apps.w2v_profile import TEXT8_CORPUS
+    from swiftmpi_tpu_torch.data.text import build_vocab, \
+        synthetic_corpus_bulk
+    corpus = synthetic_corpus_bulk(**TEXT8_CORPUS)
+    return np.ascontiguousarray(corpus[:sents]), build_vocab(corpus)
+
+
+def _async_model(shape: str, local_steps: int, transfer: str, device,
+                 async_mode: str = ""):
+    """The ``async`` mode's model: ``(model, batch_size)``."""
+    from swiftmpi_tpu_torch.models.word2vec import Word2Vec
+    from swiftmpi_tpu_torch.utils import ConfigParser
+    if shape == "small":
+        conf = ASYNC_SMALL
+    else:
+        from swiftmpi_tpu_torch.apps.w2v_profile import DEMO_CONF
+        conf = DEMO_CONF
+    conf = {**conf, "cluster": {"transfer": transfer, "server_num": 1},
+            "word2vec": {**conf["word2vec"], "local_steps": local_steps}}
+    if async_mode:
+        conf["word2vec"]["async_mode"] = async_mode
+    model = Word2Vec(config=ConfigParser().update(conf), device=device)
+    if shape == "small":
+        return model, int(conf["worker"]["minibatch"])
+    from swiftmpi_tpu_torch.apps.w2v_profile import BATCH
+    return model, BATCH // model.cluster.dp
+
+
+def _async_train(shape, corpus, vocab, epochs: int, local_steps: int,
+                 transfer: str, device, async_mode: str = "") -> dict:
+    """One training of the corpus across the processes: the losses, the
+    wall seconds (a barrier before, the device's synchronize after), the
+    global words and the model's metrics."""
+    model, batch = _async_model(shape, local_steps, transfer, device,
+                                async_mode)
+    if vocab is not None:
+        model.build_from_vocab(vocab)
+    losses, wall = _timed(device, lambda: model.train(
+        corpus, niters=epochs, batch_size=batch))
+    m = model.train_metrics
+    return {"losses": [float(x) for x in losses], "wall_s": wall,
+            "words": int(m["words"]), "steps": int(m["steps"]),
+            "local_steps": int(m["local_steps"]), "batch_size": batch,
+            "transfer": model.transfer.name,
+            "timeouts": ring.timeouts()
+            if torch.device(device).type == "cuda" else 0}
+
+
+def _finite_falling(what: str, losses) -> None:
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{what}: losses {losses} are not finite and "
+                             "falling")
+
+
+def _async_sweep(cmd, shape: str, device, settings) -> dict:
+    """One shape's staleness sweep across the processes: a training of
+    the corpus at each ``local_steps`` of ``settings``; rank 0 prints the
+    ``MP_SWEEP_JSON`` line."""
+    corpus, vocab = _async_corpus(cmd, shape)
+    epochs = int(cmd.get_value("epochs", "4"))
+    runs = {}
+    for ls in settings:
+        run = _async_train(shape, corpus, vocab, epochs, ls, "xla", device)
+        if not np.isfinite(run["losses"]).all():
+            raise AssertionError(f"async sweep: {shape}: local_steps {ls}: "
+                                 f"losses {run['losses']}")
+        run.update(final_loss=run["losses"][-1],
+                   first_loss=run["losses"][0],
+                   improved=run["losses"][-1] < run["losses"][0],
+                   words_per_s=run["words"] / max(run["wall_s"], 1e-9))
+        runs[str(ls)] = run
+    out = {"processes": bootstrap.process_count(),
+           "cpu_count": os.cpu_count(), "epochs": epochs, "shape": shape,
+           "device": str(device), "sweep": runs}
+    if bootstrap.process_index() == 0:
+        print("MP_SWEEP_JSON " + json.dumps(out), flush=True)
+    return out
+
+
+def run_async(cmd, device) -> dict:
+    """The ``async`` mode (module docstring): the JAX child's checks, or
+    with ``-sweep`` its staleness sweep at each shape of ``-shape``."""
+    shapes = cmd.get_value("shape", "small").split(",")
+    sweep = cmd.get_value("sweep", "")
+    if not set(shapes) <= {"small", "reference"} or (
+            len(shapes) > 1 and not sweep):
+        raise ValueError(f"async: -shape small or reference (a list of "
+                         f"them with -sweep), got {','.join(shapes)!r}")
+    dp, me = bootstrap.process_count(), bootstrap.process_index()
+    if sweep:
+        settings = [int(x) for x in sweep.split(",")]
+        return {"sweeps": [_async_sweep(cmd, shape, device, settings)
+                           for shape in shapes]}
+    if dp < 2:
+        raise RuntimeError(f"async: the checks need a multi-process "
+                           f"launch, got {dp} process")
+    shape = shapes[0]
+    corpus, vocab = _async_corpus(cmd, shape)
+    epochs = int(cmd.get_value("epochs", "4"))
+    sync = _async_train(shape, corpus, vocab, epochs, 1, "xla", device)
+    stale = _async_train(shape, corpus, vocab, epochs, 4, "xla", device)
+    _finite_falling("local_steps 4 on xla", stale["losses"])
+    a, s = stale["losses"][-1], sync["losses"][-1]
+    if not abs(a - s) / s < ASYNC_ENVELOPE:
+        raise AssertionError(f"local_steps 4 on xla: final loss {a} against "
+                             f"sync's {s}, outside {ASYNC_ENVELOPE}")
+    out = {"processes": dp, "sync": sync, "xla": stale}
+    for transfer in ("tpu", "hybrid"):
+        run = _async_train(shape, corpus, vocab, 2, 4, transfer, device)
+        _finite_falling(f"local_steps 4 on {transfer}", run["losses"])
+        out[transfer] = run
+    hog = _async_train(shape, corpus, vocab, 2, 1, "xla", device,
+                       async_mode="hogwild")
+    if hog["local_steps"] != 2 or not np.isfinite(hog["losses"]).all():
+        raise AssertionError(f"hogwild across processes: {hog}")
+    out["hogwild"] = hog
+    print(f"MP_ASYNC_OK proc={me}/{dp} sync={s:.5f} async={a:.5f} "
+          f"tpu_async={out['tpu']['losses'][-1]:.5f} "
+          f"hybrid_async={out['hybrid']['losses'][-1]:.5f}", flush=True)
+    return out
+
+
 JOBS = {"w2v": run_w2v, "window": run_window, "lr": run_lr,
         "glove": run_glove, "s2v": run_s2v, "trainer": run_trainer,
         "collectives": run_collectives_job}
@@ -1015,13 +1284,15 @@ def main(argv=None) -> int:
                 _write(spec["out"], job, bootstrap.process_index(),
                        payload)
         else:
-            out = cmd.get_value("out")
+            out = cmd.get_value("out", "" if mode == "async" else None)
             device = cmd.get_value("device", "cuda")
             if device == "cuda" and not torch.cuda.is_available():
                 raise RuntimeError("no CUDA device is available; pass "
                                    "-device cpu")
             bootstrap.init_distributed()
-            if mode == "collectives":
+            if mode == "async":
+                payload = run_async(cmd, device)
+            elif mode == "collectives":
                 payload = run_collectives(out, device)
             elif mode == "dead":
                 payload = run_dead()
@@ -1034,11 +1305,13 @@ def main(argv=None) -> int:
                 payload["timeouts"] = ring.timeouts()
             elif mode == "exchange":
                 payload = run_exchange(out, int(cmd.get_value("rounds",
-                                                              "500")))
+                                                              "500")),
+                                       device)
             else:
                 print(f"mp_child: unknown mode {mode!r}", file=sys.stderr)
                 return 2
-            _write(out, mode, bootstrap.process_index(), payload)
+            if out:
+                _write(out, mode, bootstrap.process_index(), payload)
         print(f"MP_CHILD_OK {mode} rank={bootstrap.process_index()}",
               flush=True)
         return 0

@@ -2171,17 +2171,18 @@ def test_device_topk_matches_host_on_card(dev):
 
 # -- more than one rank process on the card ------------------------------------
 
-def _launch_children(*args, timeout=600):
-    """``launch -np 2 -- mp_child ...`` from the repository root."""
+def _launch_children(*args, timeout=600, nprocs=2):
+    """``launch -np nprocs -- mp_child ...`` from the repository root."""
     import os
     import subprocess
     import sys
     from pathlib import Path
     root = Path(__file__).resolve().parents[1]
     return subprocess.run(
-        [sys.executable, "-m", "swiftmpi_tpu_torch.launch", "-np", "2", "--",
-         sys.executable, "-m", "swiftmpi_tpu_torch.testing.mp_child",
-         *args], cwd=root, capture_output=True, text=True, timeout=timeout,
+        [sys.executable, "-m", "swiftmpi_tpu_torch.launch", "-np",
+         str(nprocs), "--", sys.executable, "-m",
+         "swiftmpi_tpu_torch.testing.mp_child", *args], cwd=root,
+        capture_output=True, text=True, timeout=timeout,
         env=dict(os.environ, SMTPU_DIST_TIMEOUT="120"))
 
 
@@ -2200,7 +2201,33 @@ def test_cross_process_exchange_on_card(dev, tmp_path):
     for g in got:
         assert g["checked"] == 500 and g["timeouts"] == 0
         assert g["launches"] == 501       # the exchanges and one psum
+        assert g["plain_checked"] == 18 and g["refused"] == 2
     assert got[0]["psum_sha"] == got[1]["psum_sha"]
+
+
+@pytest.mark.parametrize("nprocs", [4, 8])
+def test_cross_process_exchange_at_4_and_8_processes_on_card(dev, tmp_path,
+                                                             nprocs):
+    """B5's cross-process form between 4 and 8 processes (4 and 8 CUDA
+    contexts on one card): 240 back-to-back exchanges, all-to-all and
+    all-gather, float32, int32 and bfloat16, rows of 8, 7 and 6 elements
+    (bfloat16: 8, 6 and 10) over odd row counts, so most blocks are not
+    whole 16-byte chunks; every result bit for bit against the numpy
+    expectation, each form and width once against the plain version
+    (gloo) on the same operand; no wait timed out; one launch an
+    exchange; a bfloat16 block of 18 bytes refused in both forms; the
+    rank-ordered psum's bits the same on every process."""
+    import json
+    res = _launch_children("exchange", "-out", str(tmp_path), "-rounds",
+                           "240", nprocs=nprocs)
+    assert res.returncode == 0, res.stdout[-6000:] + res.stderr[-4000:]
+    got = [json.loads((tmp_path / f"exchange_r{r}.json").read_text())
+           for r in range(nprocs)]
+    for g in got:
+        assert g["checked"] == 240 and g["timeouts"] == 0
+        assert g["launches"] == 241 and g["plain_checked"] == 18
+        assert g["refused"] == 2
+    assert len({g["psum_sha"] for g in got}) == 1
 
 
 def test_a_waiting_process_holds_no_sm_on_card(dev, tmp_path):
