@@ -3624,7 +3624,7 @@ def phase_telemetry_cost(vocab, corpus: np.ndarray, card: str) -> list:
     them, two groups in a ``torch.profiler`` window (device ms a step:
     the kernels' and copies' summed time)."""
     from swiftmpi_tpu_torch import obs
-    from swiftmpi_tpu_torch.apps.w2v_profile import _busy_by_kernel
+    from swiftmpi_tpu_torch.apps.w2v_profile import _device_busy
     from swiftmpi_tpu_torch.utils.pipeline import LossAccum
     from swiftmpi_tpu_torch.utils.timers import Throughput
     probe = _model("gather", vocab, "cuda", {"inner_steps": 8})
@@ -3666,7 +3666,7 @@ def phase_telemetry_cost(vocab, corpus: np.ndarray, card: str) -> list:
             with torch.profiler.profile(activities=acts) as prof:
                 run(groups[2 + TEL_GROUPS:])
                 torch.cuda.synchronize()
-            busy = sum(_busy_by_kernel(prof).values())
+            busy, _ = _device_busy(prof)
             model._close_telemetry(rec, owns)
             obs.reset_for_tests()
             n_steps = 8 * len(timed)
@@ -5788,7 +5788,7 @@ def phase_tfm_trainer(card: str) -> None:
     """(a): the float32 step on the card against the CPU port at 2 layers,
     then bench.py's cell in bf16: 1 warm step, TFM_TIMED timed steps, one
     profiled step."""
-    from swiftmpi_tpu_torch.apps.w2v_profile import _busy_by_kernel
+    from swiftmpi_tpu_torch.apps.w2v_profile import _device_busy
     from swiftmpi_tpu_torch.models.trainer import Trainer
     from swiftmpi_tpu_torch.utils import tree
     rng = np.random.default_rng(17)
@@ -5846,7 +5846,7 @@ def phase_tfm_trainer(card: str) -> None:
     with torch.profiler.profile(activities=acts) as prof:
         tr.step(state, batch)
         torch.cuda.synchronize()
-    busy = _busy_by_kernel(prof)
+    busy_ms, busy = _device_busy(prof)
     top = dict(list(busy.items())[:8])
     _json_line({"tfm_train": card, "params": n_params, "dtype": "bfloat16",
                 "batch": TFM_BATCH, "seq": TFM_SEQ, "tokens_a_step": tokens,
@@ -5855,8 +5855,8 @@ def phase_tfm_trainer(card: str) -> None:
                 "tflop_per_s": flops / dt / 1e12,
                 "bf16_peak_share": flops / dt / PEAK_BF16_FLOPS,
                 "losses": losses,
-                "device_busy_ms": sum(busy.values()),
-                "device_idle_share": 1 - sum(busy.values()) / (dt * 1e3),
+                "device_busy_ms": busy_ms,
+                "device_idle_share": 1 - busy_ms / (dt * 1e3),
                 "busy_ms_by_kind": _kernel_kinds(busy),
                 "launches_a_step": _kernel_launches(prof),
                 "top_kernels_ms": top})

@@ -14,9 +14,10 @@ One untimed epoch first (the graph captures; ``first_epoch_s``), then:
 * ``cells_per_sec``: co-occurrence cells trained (padded cells included,
   as the loss counts them) over the host clock of ``train(niters =
   epochs)``, which ends in a synchronize;
-* ``device_ms_per_step``: the summed kernel and copy time of one more
-  profiled epoch (``torch.profiler``), per step; ``idle_share`` ``1 -
-  device time / the timed run's time per epoch``;
+* ``device_ms_per_step``: the card's busy time (the union of its kernels'
+  and copies' intervals) in one more profiled epoch (``torch.profiler``),
+  per step; ``idle_share`` ``1 - busy time / the timed run's time per
+  epoch``;
 * ``by_kernel_ms_per_step``, ``host_ops_per_step`` and
   ``by_host_op_ms_per_step`` as ``w2v_profile.py`` gives them;
 * ``stall_ms_per_step``, the input wait of the timed run, and
@@ -35,7 +36,7 @@ import time
 import torch
 
 from swiftmpi_tpu_torch import kernels
-from swiftmpi_tpu_torch.apps.w2v_profile import (_busy_by_kernel,
+from swiftmpi_tpu_torch.apps.w2v_profile import (_device_busy,
                                                  _host_by_op, card_line)
 from swiftmpi_tpu_torch.data.text import synthetic_corpus
 from swiftmpi_tpu_torch.models.glove import GloVe
@@ -85,8 +86,7 @@ def profile(inner: int = 8, pipeline: int = 4, shards: int = 0,
     with torch.profiler.profile(activities=acts) as prof:
         model.train(niters=1)
     steps = model.train_metrics["steps"]
-    by_kernel = _busy_by_kernel(prof)
-    busy_ms = sum(by_kernel.values())
+    busy_ms, by_kernel = _device_busy(prof)
     host_by_op, host_calls = _host_by_op(prof)
     if trace:
         prof.export_chrome_trace(trace)

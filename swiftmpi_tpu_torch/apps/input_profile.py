@@ -27,7 +27,7 @@ prefetching, gather and stencil, and the Python one): the host's side of
 the input path.  ``-repeat n`` runs the list n times in turns (a b c ...
 a b c ...).
 ``-profile 1`` adds one epoch of each run under ``torch.profiler``:
-``device_busy_ms`` (the summed device time of every kernel and copy) and
+``device_busy_ms`` (the union of every kernel's and copy's interval) and
 ``idle_share`` = 1 - busy / that epoch's seconds; the profiled epoch
 itself runs slower than an unprofiled one.
 """
@@ -50,6 +50,7 @@ from swiftmpi_tpu_torch.data.text import (CBOWBatcher, build_vocab,
                                           synthetic_corpus_bulk,
                                           write_tokens_file)
 from swiftmpi_tpu_torch.models.word2vec import Word2Vec
+from swiftmpi_tpu_torch.obs import profiler as obs_profiler
 from swiftmpi_tpu_torch.utils import CMDLine, ConfigParser
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -138,11 +139,6 @@ def batcher_only(corpus, vocab, loaded) -> dict:
     return out
 
 
-def _device_busy_ms(prof) -> float:
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-
-
 def main(argv=None) -> int:
     cmd = CMDLine(argv)
     cmd.registerParameter("runs", "comma-separated runs of a,b,c,d,e "
@@ -182,7 +178,7 @@ def main(argv=None) -> int:
             with torch.profiler.profile(activities=acts) as prof:
                 losses = model.train(batcher=batcher, niters=1,
                                      batch_size=BATCH)
-            busy = _device_busy_ms(prof)
+            busy, _ = obs_profiler.device_busy(prof)
             line = epoch_line(run, model, losses)
             wall_ms = line["seconds"] * 1e3
             print(json.dumps({

@@ -25,9 +25,10 @@ ranks on the card.  One untimed epoch first (the build, the growths of
 * ``rows_per_sec``: real rows over the host clock of ``train(niters =
   epochs)``, which ends in a synchronize (an a9a epoch is only 4 batches:
   many epochs a run, as bench.py runs 128 an epoch dispatch);
-* ``device_ms_per_step``: the summed kernel and copy time of one more
-  profiled epoch (``torch.profiler``), per step; ``idle_share`` ``1 -
-  device time / the timed run's time per epoch``;
+* ``device_ms_per_step``: the card's busy time (the union of its kernels'
+  and copies' intervals) in one more profiled epoch (``torch.profiler``),
+  per step; ``idle_share`` ``1 - busy time / the timed run's time per
+  epoch``;
 * ``by_kernel_ms_per_step``, ``host_ops_per_step`` and
   ``by_host_op_ms_per_step`` as ``w2v_profile.py`` gives them;
 * ``peak_device_mib`` over the timed epochs, ``table_mib``.
@@ -45,7 +46,7 @@ import time
 import torch
 
 from swiftmpi_tpu_torch import kernels
-from swiftmpi_tpu_torch.apps.w2v_profile import (_busy_by_kernel,
+from swiftmpi_tpu_torch.apps.w2v_profile import (_device_busy,
                                                  _host_by_op, card_line)
 from swiftmpi_tpu_torch.data.libsvm import synthetic_dataset, to_csr
 from swiftmpi_tpu_torch.models.logistic import LogisticRegression
@@ -102,8 +103,7 @@ def profile(shape: str = "a9a", dense: int = 0, inner: int = 1,
     with torch.profiler.profile(activities=acts) as prof:
         model.train(data, niters=1)
     steps = model.train_metrics["steps"]
-    by_kernel = _busy_by_kernel(prof)
-    busy_ms = sum(by_kernel.values())
+    busy_ms, by_kernel = _device_busy(prof)
     host_by_op, host_calls = _host_by_op(prof)
     if trace:
         prof.export_chrome_trace(trace)

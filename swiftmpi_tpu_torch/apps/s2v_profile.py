@@ -12,9 +12,10 @@ initial table: the timing does not depend on the values).
   ``Sent2Vec.infer_sentences`` (tokenizing, the batch's arrays, the
   draws, the passes, the read back), after one warm-up call;
   ``sents_per_sec`` from their median;
-* ``device_ms_per_batch``: the summed kernel and copy time of one
-  profiled call (``torch.profiler``), and ``idle_share`` ``1 -
-  device_ms / median seconds``;
+* ``device_ms_per_batch``: the card's busy time (the union of its
+  kernels' and copies' intervals) in one profiled call
+  (``torch.profiler``), and ``idle_share`` ``1 - device_ms / median
+  seconds``;
 * ``by_kernel_ms_per_batch``: its device time by kernel name, largest
   first; ``host_ops_per_batch`` the operators called, and
   ``by_host_op_ms_per_batch`` their host self time (the twelve largest);
@@ -35,7 +36,7 @@ import torch
 
 from swiftmpi_tpu_torch import kernels
 from swiftmpi_tpu_torch.apps.w2v_profile import (DEMO_CONF, TEXT8_CORPUS,
-                                                 _busy_by_kernel,
+                                                 _device_busy,
                                                  _host_by_op, card_line)
 from swiftmpi_tpu_torch.data.text import (build_vocab, synthetic_corpus,
                                           synthetic_corpus_bulk)
@@ -79,8 +80,7 @@ def profile(repeat: int = 5, trace: str = "") -> dict:
         torch.cuda.synchronize()
         window_s = time.perf_counter() - t0
     launches = kernels.launch_counts()
-    by_kernel = _busy_by_kernel(prof)
-    busy_ms = sum(by_kernel.values())
+    busy_ms, by_kernel = _device_busy(prof)
     host_by_op, host_calls = _host_by_op(prof)
     if trace:
         prof.export_chrome_trace(trace)

@@ -62,7 +62,8 @@ device path's alone (the host batcher's time is reported apart):
 
 * ``step_ms``: host clock around ``steps`` calls of ``Word2Vec.step``
   ending in ``torch.cuda.synchronize()``, divided by ``steps``;
-* ``device_ms_per_step``: the summed kernel and copy time of a
+* ``device_ms_per_step``: the card's busy time (the union of its kernels'
+  and copies' intervals, ``obs.profiler.device_busy``) in a
   ``torch.profiler`` window of ten further steps, per step;
 * ``idle_share``: ``1 - device_ms_per_step / step_ms``, the share of an
   unprofiled step the device is not busy (the profiled window itself
@@ -104,6 +105,7 @@ import torch
 import numpy as np
 
 from swiftmpi_tpu_torch import obs
+from swiftmpi_tpu_torch.obs import profiler as obs_profiler
 from swiftmpi_tpu_torch.cluster import Cluster
 from swiftmpi_tpu_torch.data.text import (CBOWBatcher, StencilBatch, Vocab,
                                           build_vocab, synthetic_corpus_bulk)
@@ -211,21 +213,17 @@ def _short(name: str) -> str:
     return m.group(1) if m else name[:80]
 
 
-def _busy_by_kernel(prof) -> dict:
-    """Device time (ms) by kernel or copy name over the profiled window
-    (a ``record_function`` range's device-side annotation, such as the
-    telemetry plane's ``dispatch`` span, covers kernels already counted:
-    it is left out)."""
+def _device_busy(prof) -> tuple:
+    """The profiled window's device busy ms (``obs.profiler.device_busy``:
+    overlapping streams count once) and its device ms by kernel or copy
+    name, largest first."""
+    busy_ms, by_name = obs_profiler.device_busy(prof)
     out = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA \
-                or getattr(e, "is_user_annotation", False):
-            continue
-        ms = e.self_device_time_total / 1e3
+    for name, ms in by_name.items():
         if ms > 0:
-            key = _short(e.key)
+            key = _short(name)
             out[key] = out.get(key, 0.0) + ms
-    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+    return busy_ms, dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
 def _host_by_op(prof, top: int = 12):
@@ -342,7 +340,9 @@ def profile(steps: int = 40, trace: str = "", stencil: int = 0,
             for i in range(0, len(bs), group):
                 fields = tuple(torch.from_numpy(a).to(model.device) for a in
                                _stack_group_host(bs[i:i + group]))
-                replays += model._run_group(fields, graphs, None, *losses)
+                with obs.span("dispatch"):
+                    replays += model._run_group(fields, graphs, None,
+                                                *losses)
                 obs.record_step(group)
             return
         if hogwild:
@@ -382,8 +382,7 @@ def profile(steps: int = 40, trace: str = "", stencil: int = 0,
         run(window)
         torch.cuda.synchronize()
         window_s = time.perf_counter() - t0
-    by_kernel = _busy_by_kernel(prof)
-    busy_ms = sum(by_kernel.values())
+    busy_ms, by_kernel = _device_busy(prof)
     host_by_op, host_calls = _host_by_op(prof)
     if trace:
         prof.export_chrome_trace(trace)

@@ -15,7 +15,8 @@
   synchronous one;
 * time the consumer spends blocked on an empty queue is recorded as
   **host stall** (``stats()["stall_s"]``), the quantity the pipeline
-  exists to drive to zero.
+  exists to drive to zero; the producer's time in the source
+  (``render_s``) and in ``transfer`` (``transfer_s``) beside it.
 
 A producer exception is captured and re-raised at the consumer's next
 ``__next__`` as :class:`PipelineError` with the original as
@@ -23,8 +24,12 @@ A producer exception is captured and re-raised at the consumer's next
 hook) unblocks and joins the producer, so a consumer that dies mid-epoch
 never leaks a thread that keeps rendering into a dead queue.
 
-With telemetry on, the producer's ``render`` and ``h2d`` and the
-consumer's ``input_wait`` are ``obs.span`` phases, and the queue books
+The producer's ``render`` and ``h2d`` are ``obs.span`` phases: with
+telemetry on they book ``phase_ms`` samples, and they reach a
+``torch.profiler`` trace only when the profiler records every thread
+(``profile_all_threads``), since it records the ranges of the thread
+that started it.  The consumer's ``input_wait`` span is the train loop's
+(``Throughput.stalling``).  With telemetry on the queue books
 ``pipeline/produced``, ``pipeline/consumed`` and
 ``pipeline/queue_depth``, as in the JAX package.
 """
@@ -74,6 +79,7 @@ class PrefetchIterator:
         self._produced = 0
         self._consumed = 0
         self._stall_s = 0.0
+        self._render_s = 0.0
         self._transfer_s = 0.0
         self._peak_depth = 0
         self._thread = threading.Thread(
@@ -87,11 +93,12 @@ class PrefetchIterator:
             while not self._stop.is_set():
                 # the "render" and "h2d" phase spans: the producer thread
                 # is where batches are rendered and copied to the device
+                t0 = time.monotonic()
                 with obs.span("render"):
-                    try:
-                        item = next(src)
-                    except StopIteration:
-                        break
+                    item = next(src, _DONE)
+                self._render_s += time.monotonic() - t0
+                if item is _DONE:
+                    break
                 if self._transfer is not None:
                     t0 = time.monotonic()
                     with obs.span("h2d"):
@@ -134,8 +141,7 @@ class PrefetchIterator:
         if self._stop.is_set():
             raise StopIteration
         t0 = time.monotonic()
-        with obs.span("input_wait"):
-            item = self._q.get()
+        item = self._q.get()
         self._stall_s += time.monotonic() - t0
         if item is _DONE or item is _CLOSED:
             # _DONE lands after every real item
@@ -190,6 +196,7 @@ class PrefetchIterator:
                 "consumed": self._consumed,
                 "peak_queue_depth": self._peak_depth,
                 "stall_s": self._stall_s,
+                "render_s": self._render_s,
                 "transfer_s": self._transfer_s}
 
 

@@ -340,7 +340,7 @@ class GloVe:
         losses: List[float] = []
         steps = replays = 0
         pipe_stats = ({"produced": 0, "consumed": 0, "peak_queue_depth": 0,
-                       "stall_s": 0.0, "transfer_s": 0.0}
+                       "stall_s": 0.0, "render_s": 0.0, "transfer_s": 0.0}
                       if pipelined else None)
         t0 = time.perf_counter()
 
@@ -421,7 +421,7 @@ class GloVe:
             "steps": steps, "cells": cells, "seconds": seconds,
             "cells_per_sec": cells / max(seconds, 1e-9),
             "host_stall_ms": meter.host_stall_ms(),
-            "device_ms": meter.device_ms(),
+            "unstalled_ms": meter.unstalled_ms(),
             "stall_ms_per_step": meter.stall_ms_per_step(),
             "pipeline_depth": self.pipeline_depth,
             "inner_steps": inner, "fused": graphs, "graph_replays": replays,
@@ -450,8 +450,8 @@ class GloVe:
             def _tel_sample(reg, _m=meter):
                 reg.counter("train/host_stall_ms_total").set_total(
                     _m.host_stall_ms())
-                reg.counter("train/device_ms_total").set_total(
-                    _m.device_ms())
+                reg.counter("train/unstalled_ms_total").set_total(
+                    _m.unstalled_ms())
             tel_rec.add_sampler(_tel_sample)
             tel_rec.add_sampler(self.transfer.mirror_traffic)
         if self.numerics_on and tel_rec is not None:

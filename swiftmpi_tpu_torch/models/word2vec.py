@@ -119,7 +119,10 @@ The telemetry plane (``obs/``) is armed by ``train`` as the JAX package
 arms it: ``[worker] telemetry`` installs a StepRecorder (or reuses an
 outer one) fed by ``obs.record_step`` (a group counts its length), with
 samplers for the ``Throughput`` split and the transfer ledger's registry
-mirror; each dispatch (a step, or a group) is the ``dispatch`` span.
+mirror.  The synchronous loop's phases are spans, recorded with
+telemetry on or while a ``torch.profiler`` records: ``input_wait``, then
+``dispatch`` (a step or a group, from staging to the loss accumulators,
+with ``bound_wait`` inside it), then ``step_hooks``, and ``epoch_end``.
 ``[obs] numerics`` stages one bundle a dispatch on the collector's
 device buffers (:meth:`Word2Vec._numerics_run`: the updated fields are
 copied at dispatch entry, the push statistics summed over the dispatch,
@@ -216,7 +219,8 @@ from swiftmpi_tpu_torch.testing import faults
 from swiftmpi_tpu_torch.transfer import PushSpec
 from swiftmpi_tpu_torch.serve.snapshot import SnapshotPublisher
 from swiftmpi_tpu_torch.utils.config import ConfigParser, global_config
-from swiftmpi_tpu_torch.utils.graphs import StepGraph, graph_key, run_group
+from swiftmpi_tpu_torch.utils.graphs import (StepGraph, capture_count,
+                                            graph_key, run_group)
 from swiftmpi_tpu_torch.utils.logger import get_logger
 from swiftmpi_tpu_torch.utils.pipeline import LossAccum as _LossAccum
 from swiftmpi_tpu_torch.utils.pipeline import resolve_dispatch_bound
@@ -1350,9 +1354,8 @@ class Word2Vec:
             capture = self._captures[L] = obs.costs.track(
                 "w2v_multi", obs.costs.Captures(
                     lambda f: _FusedSteps(self, f)), steps_per_call=L)
-        with obs.span("dispatch"):
-            out, replayed = run_group(self._fused_cache, fields, step,
-                                      graphs, capture, whole=whole)
+        out, replayed = run_group(self._fused_cache, fields, step, graphs,
+                                  capture, whole=whole)
         for es, ec in out:
             es_q.add(es)
             ec_q.add(ec)
@@ -1490,13 +1493,14 @@ class Word2Vec:
             self.table.state, self.access.pull_fields, self.cluster.mesh)
         step_i = dropped = 0
         pipe_stats = ({"produced": 0, "consumed": 0, "peak_queue_depth": 0,
-                       "stall_s": 0.0, "transfer_s": 0.0}
+                       "stall_s": 0.0, "render_s": 0.0, "transfer_s": 0.0}
                       if pipelined else None)
         losses, err = [], []
         words = steps = replays = 0
         # ring waits that gave up before this run (each leaves its
         # exchange's receive buffer unread)
         late_base = ring.timeouts()
+        captures0 = capture_count()
         t0 = time.perf_counter()
         try:
             for it in range(niters):
@@ -1527,6 +1531,9 @@ class Word2Vec:
                     elif stage is not None:
                         items = map(stage, items)
                     try:
+                        # the spans input_wait, dispatch (bound_wait
+                        # inside it) and step_hooks cover the loop from
+                        # one next() to the next
                         while True:
                             # the stall clock covers exactly the input
                             # wait: inline it times rendering and staging,
@@ -1535,39 +1542,41 @@ class Word2Vec:
                                 nxt = next(items, None)
                             if nxt is None:
                                 break
-                            if stage is not None:
-                                nxt = stage.ready(nxt)
-                            kind, fields, n_words = nxt
-                            if kind == "group":
-                                replays += self._run_group(
-                                    fields, graphs, draws, es_q, ec_q)
-                                n, nw = len(n_words), sum(n_words)
-                            else:
-                                d = None if draws is None else next(draws)
-                                with obs.span("dispatch"):
+                            with obs.span("dispatch"):
+                                if stage is not None:
+                                    nxt = stage.ready(nxt)
+                                kind, fields, n_words = nxt
+                                if kind == "group":
+                                    replays += self._run_group(
+                                        fields, graphs, draws, es_q, ec_q)
+                                    n, nw = len(n_words), sum(n_words)
+                                else:
+                                    d = None if draws is None \
+                                        else next(draws)
                                     es, ec = self._numerics_run(
                                         lambda: self._step_fields(
                                             fields, d, snapshot))
-                                es_q.add(es)
-                                ec_q.add(ec)
-                                n, nw = 1, n_words
-                                step_i += 1
-                                if snapshot is not None \
-                                        and step_i % self.local_steps == 0:
-                                    _refresh(snapshot, self.table.state)
-                            meter.record(nw, steps=n)
-                            obs.record_step(n)
-                            steps += n
-                            words += nw
-                            self._serve_on_steps(n)
-                            if self._control_on_steps(n) \
-                                    and snapshot is not None:
-                                # an apply re-laid the table out: the
-                                # async view is copied from the new one
-                                snapshot = _snapshot(
-                                    self.table.state,
-                                    self.access.pull_fields,
-                                    self.cluster.mesh)
+                                    es_q.add(es)
+                                    ec_q.add(ec)
+                                    n, nw = 1, n_words
+                                    step_i += 1
+                                    if snapshot is not None and \
+                                            step_i % self.local_steps == 0:
+                                        _refresh(snapshot, self.table.state)
+                            with obs.span("step_hooks"):
+                                meter.record(nw, steps=n)
+                                obs.record_step(n)
+                                steps += n
+                                words += nw
+                                self._serve_on_steps(n)
+                                if self._control_on_steps(n) \
+                                        and snapshot is not None:
+                                    # an apply re-laid the table out: the
+                                    # async view is copied from the new one
+                                    snapshot = _snapshot(
+                                        self.table.state,
+                                        self.access.pull_fields,
+                                        self.cluster.mesh)
                     finally:
                         if pipe is not None:
                             pipe.close()
@@ -1576,26 +1585,29 @@ class Word2Vec:
                                     pipe_stats[k] = max(pipe_stats[k], v)
                                 elif k != "depth":
                                     pipe_stats[k] += v
-                # the epoch's sums and the run's ring waits that gave up,
-                # over every process in process order: a wait that gave
-                # up let its step go on with stale data, so every process
-                # fails the run together
-                es, ec, late = host_psum([es_q.total(), ec_q.total(),
-                                          ring.timeouts() - late_base])
-                if late:
-                    raise RuntimeError(
-                        f"iteration {start_iter + it}: {int(late)} ring "
-                        f"exchange wait(s) timed out across "
-                        f"{nprocs} process(es); the steps after them read "
-                        f"stale data, so the run is stopped")
-                err.append((es, ec))
-                loss = err[-1][0] / max(int(round(err[-1][1])), 1)
-                losses.append(loss)
-                log.info("iter %d: error %.5f  (%.0f words/s)", it, loss,
-                         meter.rate())
-                if checkpoint_path and (it + 1) % checkpoint_every == 0:
-                    self._checkpoint(checkpoint_path, start_iter + it + 1,
-                                     checkpoint_retain)
+                with obs.span("epoch_end"):
+                    # the epoch's sums and the run's ring waits that gave
+                    # up, over every process in process order: a wait
+                    # that gave up let its step go on with stale data, so
+                    # every process fails the run together
+                    es, ec, late = host_psum([es_q.total(), ec_q.total(),
+                                              ring.timeouts() - late_base])
+                    if late:
+                        raise RuntimeError(
+                            f"iteration {start_iter + it}: {int(late)} "
+                            f"ring exchange wait(s) timed out across "
+                            f"{nprocs} process(es); the steps after them "
+                            f"read stale data, so the run is stopped")
+                    err.append((es, ec))
+                    loss = err[-1][0] / max(int(round(err[-1][1])), 1)
+                    losses.append(loss)
+                    log.info("iter %d: error %.5f  (%.0f words/s)", it,
+                             loss, meter.rate())
+                    if checkpoint_path and \
+                            (it + 1) % checkpoint_every == 0:
+                        self._checkpoint(checkpoint_path,
+                                         start_iter + it + 1,
+                                         checkpoint_retain)
             if cuda:
                 torch.cuda.synchronize(self.device)
         finally:
@@ -1616,7 +1628,7 @@ class Word2Vec:
             "push_paths": dict(self.transfer.push_paths),
             # host-stall vs device-time split (utils.timers.Throughput)
             "host_stall_ms": meter.host_stall_ms(),
-            "device_ms": meter.device_ms(),
+            "unstalled_ms": meter.unstalled_ms(),
             "stall_ms_per_step": meter.stall_ms_per_step(),
             "pipeline_depth": self.pipeline_depth if pipelined else 0,
             "loader": ("native" if isinstance(batcher, NativeCBOWBatcher)
@@ -1624,6 +1636,7 @@ class Word2Vec:
             "inner_steps": self.inner_steps,
             "push_window": self.push_window_size,
             "fused": graphs, "graph_replays": replays,
+            "graph_captures": capture_count() - captures0,
             "data_plane": self.data_plane_routes,
             "local_steps": self.local_steps, "async_mode": self.async_mode,
             "hogwild_skipped_tail_words": dropped,
@@ -1666,8 +1679,8 @@ class Word2Vec:
             def _tel_sample(reg, _m=meter):
                 reg.counter("train/host_stall_ms_total").set_total(
                     _m.host_stall_ms())
-                reg.counter("train/device_ms_total").set_total(
-                    _m.device_ms())
+                reg.counter("train/unstalled_ms_total").set_total(
+                    _m.unstalled_ms())
                 reg.gauge("train/words_per_sec").set(_m.rate())
             tel_rec.add_sampler(_tel_sample)
             tel_rec.add_sampler(self.transfer.mirror_traffic)

@@ -13,12 +13,17 @@ histogram under the same name, so the chrome trace and the JSONL agree;
 
 A host span times what the JAX package's does: the host side of an
 asynchronous dispatch.  A CUDA step returns before the card finishes,
-so ``phase_ms{phase=dispatch}`` is the enqueue, and the card's time
-shows in ``train/device_ms_total`` and the profiler windows.
+so ``phase_ms{phase=dispatch}`` is the enqueue; the card's time shows
+only in a profiler's trace, where the span's range and the card's
+kernels share one clock.  ``torch.profiler`` records the ranges of the
+thread that started it: a span opened on another thread (the input
+pipeline's producer) reaches the trace only under a profiler started
+with ``profile_all_threads``.
 
-Everything is gated by ``[worker] telemetry:`` (see :func:`configure`).
-The registry is process-global and created **disabled**: with telemetry
-off, every instrument write and every ``span()`` is a single branch.
+The registry is gated by ``[worker] telemetry:`` (see :func:`configure`).
+It is process-global and created **disabled**: with telemetry off, every
+instrument write is a single branch, and ``span()`` is one flag read
+unless a ``torch.profiler`` is recording, when it opens the range alone.
 
 Module-level state exists because instruments are written from layers
 with no config object in scope (transfer backends, the fault bus, the
@@ -32,6 +37,8 @@ from __future__ import annotations
 import os
 import time
 from typing import Optional
+
+import torch
 
 from swiftmpi_tpu_torch.obs.identity import (ENV_FLEET_DIR, process_ident,
                                             process_rank)
@@ -111,7 +118,7 @@ def reset_for_tests() -> MetricsRegistry:
 # -- named spans ------------------------------------------------------------
 
 class _NullSpan:
-    """Returned when telemetry is off: a shared, stateless no-op."""
+    """Returned when nothing records: a shared, stateless no-op."""
 
     __slots__ = ()
 
@@ -123,6 +130,17 @@ class _NullSpan:
 
 
 _NULL_SPAN = _NullSpan()
+
+
+def _profiling() -> bool:
+    """Whether a ``torch.profiler`` records now: the flag its start and
+    stop set (one attribute read, where entering a ``record_function``
+    range costs microseconds even with no profiler running), else the
+    autograd profiler's own state."""
+    flag = getattr(torch.autograd.profiler, "_is_profiler_enabled", None)
+    if flag is None:
+        return torch._C._autograd._profiler_enabled()
+    return flag
 
 
 class _Span:
@@ -150,16 +168,20 @@ class _Span:
 def span(name: str):
     """Named host-phase span: ``with obs.span("render"): ...``.
 
-    Telemetry off -> a shared no-op context (one branch, no allocation).
-    On -> a ``torch.profiler.record_function`` range plus a sample in the
-    ``phase_ms{phase=<name>}`` histogram, so the trace viewer and
-    ``telemetry_report.py`` see the same phase under the same name.  Not
-    inside a CUDA graph capture: use :func:`named_scope` there.
+    Telemetry on -> a ``torch.profiler.record_function`` range plus a
+    sample in the ``phase_ms{phase=<name>}`` histogram, so the trace
+    viewer and ``telemetry_report.py`` see the same phase under the same
+    name.  Telemetry off while a ``torch.profiler`` records -> the range
+    alone, on the profiler's clock beside the card's kernels.  Neither ->
+    a shared no-op context (one flag read, no allocation).  Not inside a
+    CUDA graph capture: use :func:`named_scope` there.
     """
     reg = _REGISTRY
-    if not reg.enabled:
-        return _NULL_SPAN
-    return _Span(reg.histogram("phase_ms", phase=name), name)
+    if reg.enabled:
+        return _Span(reg.histogram("phase_ms", phase=name), name)
+    if _profiling():
+        return _host_profiler.annotate(name)
+    return _NULL_SPAN
 
 
 # -- recorder install point -------------------------------------------------

@@ -55,7 +55,7 @@ SERIES = frozenset({
     # input pipeline (io/pipeline.py)
     "pipeline/produced", "pipeline/consumed", "pipeline/queue_depth",
     # training loops (word2vec/glove via Throughput sampler bridge)
-    "train/host_stall_ms_total", "train/device_ms_total",
+    "train/host_stall_ms_total", "train/unstalled_ms_total",
     "train/words_per_sec",
     # checkpoints (io/checkpoint.py)
     "checkpoint/saves", "checkpoint/restores",

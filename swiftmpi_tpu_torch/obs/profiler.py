@@ -44,8 +44,9 @@ import glob
 import gzip
 import json
 import os
+import tempfile
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from swiftmpi_tpu_torch.obs.identity import process_rank
 
@@ -60,17 +61,19 @@ PROFILE_SCHEMA = "smtpu-profile/1"
 ENV_PROFILE_AT = "SMTPU_PROFILE_AT"
 ENV_PROFILE_STEPS = "SMTPU_PROFILE_STEPS"
 
-#: phase names the trace parser attributes duration to — the JAX
-#: package's list, the host ``obs.span`` names and the ``named_scope``
-#: names.  Substring match.
 #: chrome-trace categories of the card's own events (torch.profiler)
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset",
                      "gpu_user_annotation")
+#: of those, the card's operations: its kernels and copies
+DEVICE_OP_CATEGORIES = DEVICE_CATEGORIES[:3]
 
+#: phase names the trace parser attributes duration to — the JAX
+#: package's list, the host ``obs.span`` names and the ``named_scope``
+#: names.  Substring match.
 KNOWN_PHASES = (
     "window_dedup", "wire_exchange", "apply", "pallas_gather_stencil",
     "serve/topk", "render", "h2d", "input_wait", "dispatch",
-    "checkpoint_save",
+    "checkpoint_save", "bound_wait", "step_hooks", "epoch_end",
 )
 
 
@@ -160,6 +163,38 @@ def parse_trace_dir(root: str,
     return {"schema": PROFILE_SCHEMA, "files": len(files),
             "events": n_events, "device_ms": device_ms,
             "host_ms": host_ms, "skew_ms": skew_ms}
+
+
+def device_busy(prof) -> Tuple[float, Dict[str, float]]:
+    """A finished ``torch.profiler`` capture's device busy time in ms, the
+    union of its kernels' and copies' intervals (work that overlaps on
+    two streams counts once), and the device ms summed by operation name
+    (a breakdown: there each overlapping operation counts).  Read from
+    the capture's chrome trace, where every operation has its interval."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            doc = json.load(f)
+    finally:
+        os.unlink(path)
+    events = (doc.get("traceEvents") or []) if isinstance(doc, dict) \
+        else doc
+    intervals, by_name = [], {}
+    for ev in events:
+        if ev.get("ph") != "X" or ev.get("cat") not in DEVICE_OP_CATEGORIES:
+            continue
+        a = float(ev["ts"])
+        b = a + float(ev.get("dur", 0.0))
+        intervals.append((a, b))
+        by_name[ev["name"]] = by_name.get(ev["name"], 0.0) + (b - a) / 1e3
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return busy_us / 1e3, by_name
 
 
 # -- the session ------------------------------------------------------------

@@ -44,6 +44,15 @@ from swiftmpi_tpu_torch import kernels
 
 Step = Callable[[tuple], Tuple[torch.Tensor, ...]]
 
+_CAPTURES = 0
+
+
+def capture_count() -> int:
+    """The graphs :func:`run_group` has captured in this process, as
+    ``kernels.launch_counts`` counts launches: a caller reads it before
+    and after its work."""
+    return _CAPTURES
+
 
 class StepGraph:
     """``n`` calls of ``step`` as one CUDA graph, ``n`` the leading length
@@ -121,6 +130,7 @@ def run_group(cache: Dict[int, StepGraph], fields, step: Step,
     graph into ``cache`` (the capture runs nothing).  Returns the outputs
     (one summed tuple for a replay or a whole group, one tuple a step
     otherwise) and whether the group was a replay."""
+    global _CAPTURES
     L = fields[0].shape[0]
     fused = cache.get(L) if graphs else None
     if fused is not None:
@@ -144,4 +154,5 @@ def run_group(cache: Dict[int, StepGraph], fields, step: Step,
         for t in res:
             t.record_stream(cur)
     cache[L] = capture(fields)
+    _CAPTURES += 1
     return out, False

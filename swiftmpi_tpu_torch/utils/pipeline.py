@@ -24,6 +24,8 @@ from typing import List, Optional, Union
 
 import torch
 
+from swiftmpi_tpu_torch import obs
+
 AUTO_BOUND = 16
 
 
@@ -48,7 +50,9 @@ class DispatchWindow:
         ev.record(torch.cuda.current_stream(self._device))
         self._window.append(ev)
         if len(self._window) > self._bound:
-            self._window.popleft().synchronize()
+            # the host waits for the card here, not in the step
+            with obs.span("bound_wait"):
+                self._window.popleft().synchronize()
 
     def clear(self) -> None:
         self._window.clear()

@@ -1,5 +1,6 @@
 """Timing + metrics accumulation (counterpart of
-``swiftmpi_tpu/utils/timers.py``, copied: it has no framework in it).
+``swiftmpi_tpu/utils/timers.py``; the meter's stall region is also the
+telemetry plane's ``input_wait`` span).
 
 ``Timer`` mirrors the reference chrono stopwatch
 (`/root/reference/src/utils/Timer.h:14-44`) including ``timeout()``; the rest
@@ -14,6 +15,8 @@ from __future__ import annotations
 import threading
 import time
 from typing import Dict
+
+from swiftmpi_tpu_torch import obs
 
 
 class Timer:
@@ -61,9 +64,10 @@ class Throughput:
     bottleneck, so the meter also splits elapsed time into **host
     stall** (time the consumer spent waiting on input — rendering, H2D
     transfer, an empty prefetch queue; reported via ``add_stall`` /
-    the ``stalling()`` context manager) and **device time** (everything
-    else: dispatch + on-device compute).  ``stats()`` packages the
-    split for train metrics and bench detail fields.
+    the ``stalling()`` context manager) and the **unstalled** rest
+    (dispatch, the loop's own work, and any wait for the device: a host
+    clock, not the device's time).  ``stats()`` packages the split for
+    train metrics and bench detail fields.
     """
 
     def __init__(self):
@@ -85,7 +89,9 @@ class Throughput:
 
             with meter.stalling():
                 batch = next(batches)
-        """
+
+        The region is also the ``input_wait`` span (``obs.span``), so a
+        profiler's trace and the stall clock hold one interval."""
         return _StallScope(self)
 
     def rate(self) -> float:
@@ -95,7 +101,7 @@ class Throughput:
     def host_stall_ms(self) -> float:
         return self._stall_s * 1e3
 
-    def device_ms(self) -> float:
+    def unstalled_ms(self) -> float:
         """Elapsed wall-clock minus host stall, in ms (clamped at 0)."""
         return max(0.0, self._timer.elapsed() - self._stall_s) * 1e3
 
@@ -107,7 +113,7 @@ class Throughput:
                 "steps": float(self._steps),
                 "rate": self.rate(),
                 "host_stall_ms": self.host_stall_ms(),
-                "device_ms": self.device_ms(),
+                "unstalled_ms": self.unstalled_ms(),
                 "stall_ms_per_step": self.stall_ms_per_step()}
 
     def reset(self) -> None:
@@ -120,13 +126,16 @@ class Throughput:
 class _StallScope:
     def __init__(self, meter: Throughput):
         self._meter = meter
+        self._span = obs.span("input_wait")
 
     def __enter__(self):
+        self._span.__enter__()
         self._t0 = time.monotonic()
         return self
 
     def __exit__(self, *exc):
         self._meter.add_stall(time.monotonic() - self._t0)
+        self._span.__exit__(*exc)
 
 
 class Metrics:
@@ -165,10 +174,3 @@ class Metrics:
         with open(tmp, "w") as f:
             f.write(self.to_json() + "\n")
         os.replace(tmp, path)
-
-
-_GLOBAL_METRICS = Metrics()
-
-
-def global_metrics() -> Metrics:
-    return _GLOBAL_METRICS

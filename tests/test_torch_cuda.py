@@ -1094,6 +1094,23 @@ def test_graphs_follow_a_replaced_table(dev):
     assert not torch.equal(m.table.state["h"], start)
 
 
+def test_graph_captures_count_each_calls_captures(dev):
+    """``train_metrics["graph_captures"]`` counts the graphs a call
+    captured: its group lengths the first time, none when the next call
+    replays them, and again after the table moves to new tensors."""
+    m, sents = _path_model(dev, "gather", seed=2, inner_steps=2)
+    batcher = CBOWBatcher(sents, m.vocab, m.window, m.sample, seed=5)
+    m.train(batcher=batcher, niters=1, batch_size=100)
+    first = m.train_metrics["graph_captures"]
+    assert first >= 1 and m.train_metrics["graph_replays"] > 0
+    m.train(batcher=batcher, niters=1, batch_size=100)
+    assert m.train_metrics["graph_captures"] == 0
+    assert m.train_metrics["graph_replays"] > 0
+    m.table.state = {f: t.clone() for f, t in m.table.state.items()}
+    m.train(batcher=batcher, niters=1, batch_size=100)
+    assert m.train_metrics["graph_captures"] == first
+
+
 def _close(got, want, what):
     """float32 tables within 1e-5 + 1e-3 |b|."""
     for f in want:

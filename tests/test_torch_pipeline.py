@@ -190,10 +190,10 @@ def test_throughput_stall_split():
         time.sleep(0.02)
     assert m.host_stall_ms() >= 60.0
     assert m.stall_ms_per_step() == pytest.approx(m.host_stall_ms() / 3)
-    assert m.device_ms() >= 0.0
+    assert m.unstalled_ms() >= 0.0
     s = m.stats()
     assert set(s) == {"items", "steps", "rate", "host_stall_ms",
-                      "device_ms", "stall_ms_per_step"}
+                      "unstalled_ms", "stall_ms_per_step"}
     assert s["items"] == 150.0 and s["steps"] == 3.0
     m.reset()
     assert m.host_stall_ms() == 0.0 and m.stall_ms_per_step() == 0.0
@@ -274,7 +274,7 @@ def test_pipeline_and_inner_steps_bit_identical(tmp_path, corpus_file, loader,
     else:
         assert "pipeline" not in b
     for m in (a, b):
-        assert m["host_stall_ms"] >= 0.0 and m["device_ms"] >= 0.0
+        assert m["host_stall_ms"] >= 0.0 and m["unstalled_ms"] >= 0.0
         assert m["stall_ms_per_step"] >= 0.0
 
 

@@ -110,6 +110,12 @@ EXCLUDED = {
         _ON_PURPOSE + "C '`dense_features: auto` stays sparse off a TPU, "
         "by JAX's rule'",
     ("ops/calibration.py", "on_tpu"): _JAX_ONLY + "asks for a TPU backend",
+    ("utils/timers.py", "Throughput.device_ms"):
+        _ON_PURPOSE + "G1: wall time less input stall is host time; the "
+        "port's meter calls it unstalled_ms",
+    ("utils/timers.py", "global_metrics"):
+        _ON_PURPOSE + "G1: a process-wide Metrics that nothing in the "
+        "port read, removed with the tracing nothing reads",
     ("ops/calibration.py", "INTERPRET_KIND"):
         _JAX_ONLY + "the verdict key of Pallas's interpret mode",
     ("ops/calibration.py", "record_interpret"):
